@@ -1,0 +1,101 @@
+"""Carry the JAX package's state across to the port.
+
+The JAX package's ``SceneArrays``, ``Uniforms``, ``StaticConfig`` and
+``RenderState`` arrive as (nested) dicts of numpy arrays and Python values,
+one entry per field (the caller does the ``np.asarray``; this module never
+imports jax). The functions below build the port's twins on a device, so
+both packages can compute on identical scene, BVH, uniforms and
+accumulation state. ``to_numpy`` turns a port object back into such a
+dict.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+from metal_pathtracer_tpu_torch.schema import (
+    BvhSoA,
+    CameraUniforms,
+    MaterialsSoA,
+    SceneArrays,
+    StaticConfig,
+    TrianglesSoA,
+    Uniforms,
+)
+
+
+def _build(cls, d: dict, device):
+    """``cls`` from the entries of ``d`` named like its fields."""
+    return cls(**{f.name: torch.tensor(np.asarray(d[f.name]), device=device)
+                  for f in dataclasses.fields(cls)})
+
+
+def scene_arrays(d: dict, device="cpu") -> SceneArrays:
+    """Materials, triangle soup and BVH; the JAX scene must hold no
+    spheres, rects, instances, environment or textures (not in this
+    slice)."""
+    for key in ("spheres", "rects"):
+        sub = d.get(key)
+        if sub is not None and np.asarray(sub["material"]).shape[0] > 0:
+            raise NotImplementedError(
+                f"{key}: ROADMAP Queue 1, step 11 (analytic primitives)")
+    for key in ("environment", "textures"):
+        if d.get(key) is not None:
+            raise NotImplementedError(f"{key} are not ported yet")
+    tris = d.get("triangles")
+    bvh = d.get("tri_bvh")
+    return SceneArrays(
+        materials=_build(MaterialsSoA, d["materials"], device),
+        triangles=None if tris is None else _build(TrianglesSoA, tris,
+                                                   device),
+        tri_bvh=None if bvh is None else _build(BvhSoA, bvh, device))
+
+
+def uniforms(d: dict, device="cpu") -> Uniforms:
+    scalar = lambda k: np.asarray(d[k]).item()
+    return Uniforms(
+        camera=_build(CameraUniforms, d["camera"], device),
+        frame_index=int(scalar("frame_index")),
+        sample_count=int(scalar("sample_count")),
+        fixed_rng_seed=int(scalar("fixed_rng_seed")),
+        background_color=tuple(float(c) for c in
+                               np.asarray(d["background_color"])),
+        **{f.name: float(scalar(f.name))
+           for f in dataclasses.fields(Uniforms)
+           if f.name.startswith(("firefly_", "throughput_"))})
+
+
+def static_config(d: dict) -> StaticConfig:
+    return StaticConfig(**{
+        f.name: tuple(d[f.name]) if f.name == "material_types" else d[f.name]
+        for f in dataclasses.fields(StaticConfig)})
+
+
+def render_state(d: dict, device="cpu") -> RenderState:
+    t = lambda k: torch.tensor(np.asarray(d[k]), device=device)
+    radiance = t("radiance_sum")
+    sq = d.get("radiance_sq_sum")
+    return RenderState(
+        radiance_sum=radiance,
+        sample_count=torch.tensor(
+            np.asarray(d["sample_count"]).astype(np.int64), device=device),
+        albedo=t("albedo"), normal=t("normal"),
+        radiance_sq_sum=torch.zeros_like(radiance) if sq is None
+        else t("radiance_sq_sum"),
+        frame_index=int(np.asarray(d["frame_index"]).item()),
+        ray_count=int(np.asarray(d.get("ray_count", 0)).item()),
+        shadow_ray_count=int(np.asarray(d.get("shadow_ray_count", 0)).item()))
+
+
+def to_numpy(obj):
+    """A port dataclass as a nested dict of numpy arrays and plain values."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: to_numpy(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if torch.is_tensor(obj):
+        return obj.cpu().numpy()
+    return obj

@@ -1,0 +1,109 @@
+// Shared device helpers for the port's CUDA kernels.
+//
+// Every helper mirrors its PyTorch twin in ops/vecmath.py operation for
+// operation, so a kernel and its plain version produce the same bits:
+//  - the build passes --fmad=false, so nvcc fuses nothing by itself;
+//  - FMAs appear only where the reference's XLA:CPU build contracts
+//    (__fmaf_rn here, vecmath.fma there): 3-term dots, cross products,
+//    2-term sums of products;
+//  - min/max/clamp propagate NaN like torch.minimum/maximum/clamp;
+//  - division and sqrtf are IEEE-rounded (no fast math).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+struct V3 {
+  float x, y, z;
+};
+
+__host__ __device__ __forceinline__ V3 v3(float x, float y, float z) {
+  V3 r = {x, y, z};
+  return r;
+}
+__device__ __forceinline__ V3 load3(const float* p, long long i) {
+  return v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]);
+}
+__device__ __forceinline__ void store3(float* p, long long i, V3 a) {
+  p[3 * i] = a.x;
+  p[3 * i + 1] = a.y;
+  p[3 * i + 2] = a.z;
+}
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
+  return v3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
+  return v3(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+__device__ __forceinline__ V3 operator-(V3 a) { return v3(-a.x, -a.y, -a.z); }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) {
+  return v3(a.x * b.x, a.y * b.y, a.z * b.z);
+}
+__device__ __forceinline__ V3 operator*(V3 a, float s) {
+  return v3(a.x * s, a.y * s, a.z * s);
+}
+__device__ __forceinline__ V3 operator/(V3 a, float s) {
+  return v3(a.x / s, a.y / s, a.z / s);
+}
+__device__ __forceinline__ V3 sel(bool m, V3 a, V3 b) { return m ? a : b; }
+
+// torch.maximum / torch.minimum: NaN in either operand gives NaN
+__device__ __forceinline__ float maxn(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float minn(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+// torch.clamp_min / clamp_max / clamp with a constant bound
+__device__ __forceinline__ float cmin(float x, float lo) { return x < lo ? lo : x; }
+__device__ __forceinline__ float cmax(float x, float hi) { return x > hi ? hi : x; }
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return cmax(cmin(x, lo), hi);
+}
+__device__ __forceinline__ V3 cmin3(V3 a, float lo) {
+  return v3(cmin(a.x, lo), cmin(a.y, lo), cmin(a.z, lo));
+}
+__device__ __forceinline__ bool finite3(V3 a) {
+  return isfinite(a.x) && isfinite(a.y) && isfinite(a.z);
+}
+
+__device__ __forceinline__ float fmaf_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+// fma(a, b, c) per component with a scalar a (vecmath.fma broadcast)
+__device__ __forceinline__ V3 fma3(float a, V3 b, V3 c) {
+  return v3(fmaf_rn(a, b.x, c.x), fmaf_rn(a, b.y, c.y), fmaf_rn(a, b.z, c.z));
+}
+__device__ __forceinline__ V3 fma3v(V3 a, float b, V3 c) {
+  return v3(fmaf_rn(a.x, b, c.x), fmaf_rn(a.y, b, c.y), fmaf_rn(a.z, b, c.z));
+}
+__device__ __forceinline__ float dot3(V3 a, V3 b) {
+  return fmaf_rn(a.z, b.z, fmaf_rn(a.y, b.y, a.x * b.x));
+}
+__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
+  return v3(fmaf_rn(a.y, b.z, -(a.z * b.y)), fmaf_rn(a.z, b.x, -(a.x * b.z)),
+            fmaf_rn(a.x, b.y, -(a.y * b.x)));
+}
+__device__ __forceinline__ V3 normalize3(V3 v) {
+  return v / sqrtf(cmin(dot3(v, v), 1e-38f));
+}
+__device__ __forceinline__ V3 safe_normalize3(V3 v) {
+  float len2 = dot3(v, v);
+  float inv = len2 > 0.0f ? 1.0f / sqrtf(cmin(len2, 1e-38f)) : 0.0f;
+  return v * inv;
+}
+// Rec.709 luminance, contracted like the reference
+__device__ __forceinline__ float luminance3(V3 c) {
+  return fmaf_rn(c.z, 0.0722f, fmaf_rn(c.y, 0.7152f, c.x * 0.2126f));
+}
+
+// PCG output hash (reference: pathtrace.metal:55-59) and its uniform
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t s) {
+  s = s * 747796405u + 2891336453u;
+  uint32_t word = ((s >> ((s >> 28u) + 4u)) ^ s) * 277803737u;
+  return (word >> 22u) ^ word;
+}
+__device__ __forceinline__ float rand_uniform(uint32_t* s) {
+  *s = pcg_hash(*s);
+  return __uint2float_rn(*s) * 2.3283064365386963e-10f;  // 2^-32
+}

@@ -1,0 +1,158 @@
+// K1: closest-hit triangle trace, one thread per ray.
+//
+// Replaces the TPU packet-traversal kernel ops/pallas/traverse.py
+// (_kernel:60 / _packet_body:106, launched by _call:596 from
+// packet_trace:659). The TPU kernel walks 1024-ray packets through a
+// chunked tree with a shared scalar stack and SMEM-resident nodes,
+// because its vector unit only pays off when a whole packet moves
+// together. A GPU thread can walk its own ray, so this kernel walks the
+// exit-link BVH (scene/meshbuild.py _flatten_with_exit_links) stacklessly
+// -- node = hit ? (leaf ? exit : node + 1) : exit -- exactly as the
+// reference loop ops/traversal.py trace_triangles:66-171 does, and so
+// returns the same bits as its plain version (ops/kernels/traverse.py):
+// strict '<' across leaves in depth-first order, the first minimal slot
+// within a leaf, the inverse-direction clamp, the 1e-8 determinant test
+// and the (mesh, prim) self-hit exclusion.
+//
+// What bounds it on an H100: latency of dependent global loads. Each step
+// reads one node (24 B of bounds plus three ints) whose address depends
+// on the previous step, and each leaf gathers up to four triangles
+// (36 B each) from a 16-to-70 MB soup; neighbouring threads diverge after
+// a few bounces. The design keeps every ray in registers and reads nodes
+// and triangles through the read-only cache (__ldg); the exit-link order
+// needs no per-thread stack. Near-first child order, a wide BVH and
+// sorting rays by direction are left for later work: each changes which
+// of two equal-t triangles wins, which needs its own parity argument.
+#include "common.cuh"
+
+#define MAX_LEAF 4
+#define INFINITY_T 1.0e20f
+
+namespace {
+
+__global__ void trace_closest_kernel(
+    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax,
+    const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
+    int n_nodes, const float* __restrict__ bmin, const float* __restrict__ bmax,
+    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
+    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
+    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
+    const float* __restrict__ tv2, const int* __restrict__ mesh_index,
+    float* __restrict__ out_t, int* __restrict__ out_tri,
+    float* __restrict__ out_u, float* __restrict__ out_v) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float best_t = tmax[i];
+  int best_tri = -1;
+  float best_u = 0.0f, best_v = 0.0f;
+  // an empty window (dead lanes carry tmax = 0) misses the root box
+  if (best_t >= t_min) {
+    V3 o = load3(ray_o, i);
+    V3 d = load3(ray_d, i);
+    int ex_mesh = excl_mesh[i];
+    int ex_prim = excl_prim[i];
+    float dd[3] = {d.x, d.y, d.z};
+    float inv[3];
+    for (int a = 0; a < 3; ++a) {
+      float c = dd[a];
+      float safe = fabsf(c) < 1e-20f ? (c >= 0.0f ? 1e-20f : -1e-20f) : c;
+      inv[a] = 1.0f / safe;
+    }
+    float oo[3] = {o.x, o.y, o.z};
+    int node = 0;
+    while (node < n_nodes) {
+      float tnear = 0.0f, tfar = 0.0f;
+      for (int a = 0; a < 3; ++a) {
+        float t0 = (__ldg(bmin + 3 * node + a) - oo[a]) * inv[a];
+        float t1 = (__ldg(bmax + 3 * node + a) - oo[a]) * inv[a];
+        float lo = cmin(minn(t0, t1), t_min);
+        float hi = maxn(t0, t1);
+        tnear = a == 0 ? lo : maxn(tnear, lo);
+        tfar = a == 0 ? hi : minn(tfar, hi);
+      }
+      bool box_hit = minn(tfar, best_t) >= tnear;
+      int pcount = __ldg(prim_count + node);
+      if (box_hit && pcount > 0) {
+        int poff = __ldg(prim_offset + node);
+        float tm[MAX_LEAF], uu[MAX_LEAF], vv[MAX_LEAF];
+        int ids[MAX_LEAF];
+        bool any_valid = false;
+        for (int k = 0; k < MAX_LEAF; ++k) {
+          tm[k] = INFINITY_T;
+          uu[k] = vv[k] = 0.0f;
+          ids[k] = -1;
+          if (k >= pcount) continue;
+          int slot = min(max(poff + k, 0), n_slots - 1);
+          int tid = __ldg(prim_indices + slot);
+          ids[k] = tid;
+          V3 v0 = v3(__ldg(tv0 + 3 * tid), __ldg(tv0 + 3 * tid + 1),
+                     __ldg(tv0 + 3 * tid + 2));
+          V3 v1 = v3(__ldg(tv1 + 3 * tid), __ldg(tv1 + 3 * tid + 1),
+                     __ldg(tv1 + 3 * tid + 2));
+          V3 v2 = v3(__ldg(tv2 + 3 * tid), __ldg(tv2 + 3 * tid + 1),
+                     __ldg(tv2 + 3 * tid + 2));
+          // Moller-Trumbore (reference: intersect_triangle_parametric)
+          V3 edge1 = v1 - v0;
+          V3 edge2 = v2 - v0;
+          V3 pvec = cross3(d, edge2);
+          float det = dot3(edge1, pvec);
+          float inv_det = 1.0f / (fabsf(det) < 1e-8f ? 1.0f : det);
+          V3 tvec = o - v0;
+          float u = dot3(tvec, pvec) * inv_det;
+          V3 qvec = cross3(tvec, edge1);
+          float v = dot3(d, qvec) * inv_det;
+          float t = dot3(edge2, qvec) * inv_det;
+          bool excl = __ldg(mesh_index + tid) == ex_mesh && tid == ex_prim;
+          bool valid = fabsf(det) >= 1e-8f && u >= 0.0f && u <= 1.0f &&
+                       v >= 0.0f && u + v <= 1.0f && t >= t_min &&
+                       t <= best_t && !excl;
+          if (valid) {
+            tm[k] = t;
+            uu[k] = u;
+            vv[k] = v;
+            any_valid = true;
+          }
+        }
+        int kb = 0;  // first minimum, as argmin
+        for (int k = 1; k < MAX_LEAF; ++k)
+          if (tm[k] < tm[kb]) kb = k;
+        if (any_valid && tm[kb] < best_t) {
+          best_t = tm[kb];
+          best_tri = ids[kb];
+          best_u = uu[kb];
+          best_v = vv[kb];
+        }
+      }
+      node = (box_hit && pcount == 0) ? node + 1 : __ldg(exit_index + node);
+    }
+  }
+  out_t[i] = best_t;
+  out_tri[i] = best_tri;
+  out_u[i] = best_u;
+  out_v[i] = best_v;
+}
+
+}  // namespace
+
+extern "C" int mpt_trace_closest(
+    int n, const void* ray_o, const void* ray_d, float t_min,
+    const void* tmax, const void* excl_mesh, const void* excl_prim,
+    int n_nodes, const void* bmin, const void* bmax, const void* prim_offset,
+    const void* prim_count, const void* exit_index, const void* prim_indices,
+    int n_slots, const void* v0, const void* v1, const void* v2,
+    const void* mesh_index, void* out_t, void* out_tri, void* out_u,
+    void* out_v, void* stream) {
+  if (n <= 0) return 0;
+  const int block = 128;
+  trace_closest_kernel<<<(n + block - 1) / block, block, 0,
+                         (cudaStream_t)stream>>>(
+      n, (const float*)ray_o, (const float*)ray_d, t_min, (const float*)tmax,
+      (const int*)excl_mesh, (const int*)excl_prim, n_nodes,
+      (const float*)bmin, (const float*)bmax, (const int*)prim_offset,
+      (const int*)prim_count, (const int*)exit_index,
+      (const int*)prim_indices, n_slots, (const float*)v0, (const float*)v1,
+      (const float*)v2, (const int*)mesh_index, (float*)out_t,
+      (int*)out_tri, (float*)out_u, (float*)out_v);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,143 @@
+"""Wavefront path integrator (``ops/integrator.py`` twin).
+
+``trace_paths`` covers the lambert slice: lambert materials under the
+gradient or solid background, Russian roulette on or off, no NEE. Each
+depth is one K1 trace and one K2 shade (``ops/kernels/shade.py``); other
+configurations raise ``NotImplementedError`` naming their ROADMAP step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from metal_pathtracer_tpu import constants as C
+from metal_pathtracer_tpu_torch.ops import camera as camera_ops
+from metal_pathtracer_tpu_torch.ops import rng as rng_ops
+from metal_pathtracer_tpu_torch.ops.vecmath import (
+    fma,
+    length,
+    linear_srgb_to_acescg,
+    normalize,
+)
+from metal_pathtracer_tpu_torch.schema import SceneArrays, StaticConfig, Uniforms
+
+_WHITE = (1.0, 1.0, 1.0)
+_BLUE = (0.5, 0.7, 1.0)
+
+
+def sky_color(direction):
+    """Gradient background (reference: pathtrace.metal sky_color:1320-1325)."""
+    t = 0.5 * (normalize(direction)[..., 1:2] + 1.0)
+    white = torch.tensor(_WHITE, device=direction.device)
+    blue = torch.tensor(_BLUE, device=direction.device)
+    return fma(blue - white, t, white)
+
+
+def to_working_space(color, static: StaticConfig):
+    """(reference: pathtrace.metal to_working_space:100-107)"""
+    if static.working_color_space == 1:
+        return linear_srgb_to_acescg(color)
+    return color
+
+
+@dataclasses.dataclass
+class PathCarry:
+    """Per-lane path state, updated in place by the shade stage.
+
+    The reference's ``last_pdf``/``last_delta`` (MIS), medium stack, env LOD
+    and specular depth are inert without NEE, media or delta lobes; they
+    come back with the slices that read them."""
+
+    state: torch.Tensor          # (N,)  i64 holding the uint32 RNG state
+    ray_o: torch.Tensor          # (N,3) f32
+    ray_d: torch.Tensor          # (N,3) f32
+    throughput: torch.Tensor     # (N,3) f32
+    radiance: torch.Tensor       # (N,3) f32
+    alive: torch.Tensor          # (N,)  bool
+    prev_valid: torch.Tensor     # (N,)  bool
+    prev_mesh: torch.Tensor      # (N,)  i32 — triangle self-hit exclusion
+    prev_prim: torch.Tensor      # (N,)  i32
+    is_first_hit: torch.Tensor   # (N,)  bool
+    aov_albedo: torch.Tensor     # (N,3) f32
+    aov_normal: torch.Tensor     # (N,3) f32
+    cone_width: torch.Tensor     # (N,)  f32 — ray cone
+    cone_spread: torch.Tensor    # (N,)  f32
+
+    @classmethod
+    def start(cls, state, ray_o, ray_d, cone_width: float,
+              cone_spread: float) -> "PathCarry":
+        n, dev = ray_o.shape[0], ray_o.device
+        z3 = torch.zeros((n, 3), device=dev)
+        zb = torch.zeros(n, dtype=torch.bool, device=dev)
+        return cls(
+            state=state.contiguous(), ray_o=ray_o.contiguous(),
+            ray_d=ray_d.contiguous(), throughput=torch.ones((n, 3), device=dev),
+            radiance=z3, alive=~zb, prev_valid=zb.clone(),
+            prev_mesh=torch.full((n,), -1, dtype=torch.int32, device=dev),
+            prev_prim=torch.full((n,), -1, dtype=torch.int32, device=dev),
+            is_first_hit=~zb, aov_albedo=z3.clone(), aov_normal=z3.clone(),
+            cone_width=torch.full((n,), cone_width, device=dev),
+            cone_spread=torch.full((n,), cone_spread, device=dev))
+
+
+def _primary_cone_spread(uniforms: Uniforms, static: StaticConfig) -> float:
+    """(reference: pathtrace.metal make_primary_ray_cone)"""
+    cam = uniforms.camera
+    pixel_x = length(cam.horizontal) / max(float(static.width), 1.0)
+    pixel_y = length(cam.vertical) / max(float(static.height), 1.0)
+    footprint = torch.clamp_min(torch.maximum(pixel_x, pixel_y), 1e-6)
+    center = fma(0.5, cam.vertical, fma(0.5, cam.horizontal, cam.lower_left))
+    focus = length(center - cam.origin)
+    return float(footprint / torch.clamp_min(focus, 1e-6))
+
+
+def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
+    """Raise NotImplementedError for configurations outside this slice."""
+    types = set(static.material_types)
+    if not types <= {C.MATERIAL_LAMBERTIAN}:
+        raise NotImplementedError(
+            f"material types {sorted(types)}: only lambert is ported "
+            "(ROADMAP Queue 1, steps 6 and 13)")
+    if static.background_mode not in (0, 1):
+        raise NotImplementedError(
+            "environment background: ROADMAP Queue 1, step 5 (env NEE)")
+    if static.debug_specular_only:
+        raise NotImplementedError("debugSpecularOnly is not ported")
+    if scene.triangles is None or scene.triangles.count == 0:
+        raise NotImplementedError(
+            "scenes without triangles: analytic primitives are ROADMAP "
+            "Queue 1, step 11")
+
+
+def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
+                state, ray_o, ray_d):
+    """Trace a wavefront of primary rays to completion.
+
+    Returns (state, radiance, aov_albedo, aov_normal, stats) with
+    ``stats["rays"]`` the scene traces issued (an int)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade
+
+    check_supported(scene, static)
+    lens = max(2.0 * float(uniforms.camera.lens_radius), 0.0)
+    carry = PathCarry.start(state, ray_o, ray_d, lens,
+                            _primary_cone_spread(uniforms, static))
+    rays = shade.trace_paths_fused(scene, uniforms, static, carry)
+    return (carry.state, carry.radiance, carry.aov_albedo, carry.aov_normal,
+            {"rays": rays})
+
+
+def integrate_pixels(scene: SceneArrays, uniforms: Uniforms,
+                     static: StaticConfig, x, y, prev_count):
+    """One sample for a batch of pixels (the kernel entry, reference:
+    pathtrace.metal:9698-9815). Returns (sample, albedo, normal, stats)."""
+    seed = rng_ops.make_seed(uniforms.fixed_rng_seed, uniforms.frame_index,
+                             x, y, uniforms.sample_count, prev_count)
+    state, origin, direction = camera_ops.generate_primary_rays(
+        uniforms.camera, x, y, static.width, static.height, seed)
+    _, radiance, aov_albedo, aov_normal, stats = trace_paths(
+        scene, uniforms, static, state, origin, direction)
+    finite = torch.isfinite(radiance).all(-1, keepdim=True)
+    sample = torch.where(finite, torch.clamp_min(radiance, 0.0), 0.0)
+    return sample, aov_albedo, aov_normal, stats

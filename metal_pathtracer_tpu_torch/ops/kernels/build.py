@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The library lands in ``_build/`` inside the package,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one is reused.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so nvcc never
+contracts ``a * b + c`` on its own: the kernels place their FMAs by hand
+(``__fmaf_rn``) where the reference's XLA:CPU build contracts, which keeps
+traces bit-identical to the plain versions. No ``--use_fast_math``:
+division and ``sqrtf`` stay IEEE-rounded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+
+#: C entry points: name -> argtypes (every pointer and the stream is a
+#: c_void_p; each entry returns the cudaError_t of its launch)
+SIGNATURES = {
+    "mpt_trace_closest": [
+        _i, _vp, _vp, _f, _vp, _vp, _vp,        # n, o, d, t_min, tmax, excl
+        _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
+        _vp, _vp, _vp, _vp,                     # v0 v1 v2 mesh_index
+        _vp, _vp, _vp, _vp,                     # out t tri u v
+        _vp],                                   # stream
+    "mpt_shade_full": [
+        _i, _i, _vp, _vp, _vp, _vp,             # n, depth, t tri u v
+        _vp, _vp, _i,                           # shade_packed, base colours
+        _i, _i, _i, _f, _f, _f,                 # modes, solid background
+        _f, _f, _f, _f, _f,                     # clamp settings
+        *[_vp] * 14,                            # PathCarry tensors
+        _vp],                                   # stream
+}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                           "built")
+    return found
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as fh:
+            h.update(os.path.basename(src).encode() + fh.read())
+    return os.path.join(BUILD_DIR, f"libmpt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet; returns
+    the library path. The compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills per kernel) is kept beside it as ``.log``."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    with open(out[:-3] + ".log", "w") as fh:
+        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_log() -> str:
+    with open(library_path()[:-3] + ".log") as fh:
+        return fh.read()
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

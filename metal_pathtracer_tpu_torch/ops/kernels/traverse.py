@@ -1,0 +1,161 @@
+"""K1: closest-hit triangle trace of a ray wavefront.
+
+Replaces the TPU packet-traversal kernel ``ops/pallas/traverse.py``
+(``_kernel:60`` / ``_packet_body:106``, launched by ``_call:596`` via
+``packet_trace:659``). ``trace_closest`` launches ``csrc/traverse.cu`` on
+CUDA tensors and runs ``trace_closest_reference``, the exit-link loop of
+``ops/traversal.py trace_triangles:66-171``, on CPU tensors. Both compute
+the same bits: the same tree order, strict ``<`` across leaves, first
+minimal slot within a leaf, and the reference's FMA placement.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from metal_pathtracer_tpu.constants import INFINITY_T
+from metal_pathtracer_tpu_torch.ops.kernels import build
+from metal_pathtracer_tpu_torch.ops.vecmath import cross, dot
+
+MAX_LEAF = 4
+
+
+def _intersect_tris(origin, direction, tri_ids, tris, t_min, t_max,
+                    exclude_mesh, exclude_prim):
+    """Möller–Trumbore over a (lanes, K) block of candidates (reference:
+    pathtrace.metal intersect_triangle_parametric:544-592).
+    Returns (t, u, v, valid), each (lanes, K)."""
+    v0 = tris.v0[tri_ids]
+    edge1 = tris.v1[tri_ids] - v0
+    edge2 = tris.v2[tri_ids] - v0
+    d = direction[:, None, :].expand_as(edge1)
+    pvec = cross(d, edge2)
+    det = dot(edge1, pvec)
+    inv_det = 1.0 / torch.where(det.abs() < 1e-8, 1.0, det)
+    tvec = origin[:, None, :] - v0
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, edge1)
+    v = dot(d, qvec) * inv_det
+    t = dot(edge2, qvec) * inv_det
+    excl = ((tris.mesh_index[tri_ids] == exclude_mesh[:, None])
+            & (tri_ids == exclude_prim[:, None]))
+    valid = ((det.abs() >= 1e-8) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t >= t_min) & (t <= t_max[:, None])
+             & ~excl)
+    return t, u, v, valid
+
+
+def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
+                            exclude_mesh, exclude_prim):
+    """Plain PyTorch K1: every lane walks the exit-link BVH in lockstep
+    (node = hit ? (leaf ? exit : node + 1) : exit) until all lanes leave
+    the tree. Returns (t, tri, u, v); tri is -1 on a miss and t then is
+    the lane's t_max."""
+    n = origin.shape[0]
+    dev = origin.device
+    n_nodes = bvh.node_count
+    n_slots = bvh.prim_indices.shape[0]
+    inv_dir = 1.0 / torch.where(direction.abs() < 1e-20,
+                                torch.where(direction >= 0, 1e-20, -1e-20),
+                                direction)
+    node = torch.zeros(n, dtype=torch.long, device=dev)
+    best_t = t_max.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, device=dev)
+    best_v = torch.zeros(n, device=dev)
+    lanes = torch.arange(n, device=dev)
+    ar = torch.arange(MAX_LEAF, device=dev)
+    # lanes whose window is empty (dead lanes: t_max = 0) miss every box
+    live = lanes[t_max >= t_min]
+    node = node[live]
+    while live.numel():
+        o, inv = origin[live], inv_dir[live]
+        t0 = (bvh.bounds_min[node] - o) * inv
+        t1 = (bvh.bounds_max[node] - o) * inv
+        lo = torch.clamp_min(torch.minimum(t0, t1), t_min)
+        hi = torch.maximum(t0, t1)
+        tnear = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+        tfar = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+        box_hit = torch.minimum(tfar, best_t[live]) >= tnear
+        pcount = bvh.prim_count[node]
+        leaf = box_hit & (pcount > 0)
+        if bool(leaf.any()):
+            li, ln = live[leaf], node[leaf]
+            slot = torch.clamp(bvh.prim_offset[ln, None] + ar, 0, n_slots - 1)
+            tri_ids = bvh.prim_indices[slot].long()
+            t, u, v, valid = _intersect_tris(
+                origin[li], direction[li], tri_ids, tris, t_min, best_t[li],
+                exclude_mesh[li], exclude_prim[li])
+            valid &= ar < pcount[leaf, None]
+            t_masked = torch.where(valid, t, INFINITY_T)
+            k = torch.argmin(t_masked, -1, keepdim=True)  # first minimum
+            t_hit = t_masked.gather(-1, k)[:, 0]
+            better = valid.any(-1) & (t_hit < best_t[li])
+            upd = li[better]
+            best_t[upd] = t_hit[better]
+            best_tri[upd] = tri_ids.gather(-1, k)[better, 0].to(torch.int32)
+            best_u[upd] = u.gather(-1, k)[better, 0]
+            best_v[upd] = v.gather(-1, k)[better, 0]
+        descend = box_hit & (pcount == 0)
+        node = torch.where(descend, node + 1, bvh.exit_index[node].long())
+        more = node < n_nodes
+        live, node = live[more], node[more]
+    return best_t, best_tri, best_u, best_v
+
+
+def _as_i32(x, n, dev):
+    if x is None:
+        return torch.full((n,), -1, dtype=torch.int32, device=dev)
+    return x.to(torch.int32).contiguous()
+
+
+def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
+                  exclude_mesh=None, exclude_prim=None):
+    """Nearest triangle hit per ray: (t, tri, u, v), each (N,).
+
+    origin/direction (N,3) f32, t_max (N,) f32 (0 marks a dead lane),
+    exclude_mesh/exclude_prim (N,) ids of a triangle each lane must skip.
+    CPU tensors take the plain version; CUDA tensors launch K1."""
+    n = origin.shape[0]
+    dev = origin.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,))
+    exclude_mesh = _as_i32(exclude_mesh, n, dev)
+    exclude_prim = _as_i32(exclude_prim, n, dev)
+    if dev.type == "cpu":
+        return trace_closest_reference(origin, direction, float(t_min),
+                                       t_max, bvh, tris, exclude_mesh,
+                                       exclude_prim)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_closest: unsupported device {dev}")
+    args = [origin, direction, t_max, bvh.bounds_min, bvh.bounds_max,
+            bvh.prim_offset, bvh.prim_count, bvh.exit_index,
+            bvh.prim_indices, tris.v0, tris.v1, tris.v2, tris.mesh_index]
+    for a in args:
+        if a.device != dev or not a.is_contiguous():
+            raise ValueError("trace_closest: every tensor must be contiguous "
+                             f"and on {dev}")
+    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
+        raise ValueError("trace_closest: rays must be float32")
+    out_t = torch.empty(n, dtype=torch.float32, device=dev)
+    out_tri = torch.empty(n, dtype=torch.int32, device=dev)
+    out_u = torch.empty(n, dtype=torch.float32, device=dev)
+    out_v = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = build.load()
+    p = lambda x: x.data_ptr()
+    err = lib.mpt_trace_closest(
+        n, p(origin), p(direction), float(t_min), p(t_max),
+        p(exclude_mesh), p(exclude_prim),
+        bvh.node_count, p(bvh.bounds_min), p(bvh.bounds_max),
+        p(bvh.prim_offset), p(bvh.prim_count), p(bvh.exit_index),
+        p(bvh.prim_indices), bvh.prim_indices.shape[0],
+        p(tris.v0), p(tris.v1), p(tris.v2), p(tris.mesh_index),
+        p(out_t), p(out_tri), p(out_u), p(out_v),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "mpt_trace_closest")
+    trace_closest.launches += 1
+    return out_t, out_tri, out_u, out_v
+
+
+#: K1 launches since the last reset (chip_smoke.py reads and resets it)
+trace_closest.launches = 0

@@ -1,0 +1,75 @@
+"""Frame stepping: N samples of progressive accumulation
+(``renderer/frame.py`` twin).
+
+Lanes are pixels in scan order. The TPU tiles them 8x128 to match its
+traversal packets; one thread per ray on the GPU has no packet to fill, so
+scan order stays until a measured reorder beats it. A chunk is the whole
+frame up to 2^21 lanes (1080p is 2,073,600): per depth that is one K1 and
+one K2 launch and one host sync for the whole image.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from metal_pathtracer_tpu_torch.ops import integrator
+from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+from metal_pathtracer_tpu_torch.schema import SceneArrays, StaticConfig, Uniforms
+
+DEFAULT_CHUNK = 1 << 21
+
+
+def render_rows(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
+                static: StaticConfig, n_samples: int, row_offset: int = 0,
+                chunk: int = DEFAULT_CHUNK) -> RenderState:
+    """Advance a slab of rows by ``n_samples``. Pixel coordinates are
+    global (slab row 0 is image row ``row_offset``), so seeds depend on the
+    absolute pixel only. Each pixel accumulates its samples in sample
+    order, as the reference does."""
+    if n_samples <= 0:
+        return state
+    height, width = state.height, state.width
+    total = height * width
+    dev = state.radiance_sum.device
+    flat = torch.arange(total, device=dev)
+    xs = flat % width
+    ys = flat // width + row_offset
+    prev0 = state.sample_count.reshape(-1)
+    lane_rad = state.radiance_sum.reshape(-1, 3).clone()
+    lane_sq = state.radiance_sq_sum.reshape(-1, 3).clone()
+    lane_alb = torch.zeros_like(lane_rad)
+    lane_nrm = torch.zeros_like(lane_rad)
+    rays = state.ray_count
+    for i in range(n_samples):
+        # frameIndex == sampleCount == dispatch index (reference:
+        # Accumulation.h incrementFrame:54-57, UniformBuilder.mm:31-33)
+        frame_idx = state.frame_index + i
+        u = dataclasses.replace(uniforms, frame_index=frame_idx,
+                                sample_count=frame_idx)
+        for lo in range(0, total, chunk):
+            sl = slice(lo, min(lo + chunk, total))
+            sample, albedo, normal, stats = integrator.integrate_pixels(
+                scene, u, static, xs[sl], ys[sl], prev0[sl] + i)
+            lane_rad[sl] += sample
+            lane_sq[sl] += sample * sample
+            lane_alb[sl] = albedo
+            lane_nrm[sl] = normal
+            rays += stats["rays"]
+    shape = (height, width, 3)
+    return state.replace(
+        radiance_sum=lane_rad.reshape(shape),
+        radiance_sq_sum=lane_sq.reshape(shape),
+        sample_count=state.sample_count + n_samples,
+        albedo=lane_alb.reshape(shape),
+        normal=lane_nrm.reshape(shape),
+        frame_index=state.frame_index + n_samples,
+        ray_count=rays)
+
+
+def render_samples(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
+                   static: StaticConfig, n_samples: int,
+                   chunk: int = DEFAULT_CHUNK) -> RenderState:
+    """Advance the full frame by ``n_samples``."""
+    return render_rows(scene, uniforms, state, static, n_samples, 0, chunk)

@@ -1,0 +1,294 @@
+"""Host-side scene container and device-array builder (jax-free twin of
+``scene/resources.py``).
+
+Materials and world-space triangle meshes are supported; the other
+primitive families raise ``NotImplementedError`` naming the ROADMAP step
+that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from metal_pathtracer_tpu import constants as C
+from metal_pathtracer_tpu_torch.schema import MaterialsSoA, SceneArrays
+
+
+def _clamp01(v):
+    return np.clip(np.asarray(v, np.float64), 0.0, 1.0)
+
+
+def _positive(v):
+    return np.maximum(np.asarray(v, np.float64), 0.0)
+
+
+def compute_coat_average(coat_ior: float) -> float:
+    """(reference: SceneResources.mm ComputeCoatAverage:825-834)"""
+    eta = max(coat_ior, 1.0)
+    ratio = (eta - 1.0) / max(eta + 1.0, 1e-6)
+    f0 = ratio * ratio
+    average = f0 + (1.0 - f0) * C.SCHLICK_AVERAGE_FACTOR
+    return float(np.clip(average, 0.0, 0.999))
+
+
+def compute_coat_sample_weight(mat_type: int, coat_roughness: float,
+                               coat_thickness: float,
+                               coat_average: float) -> float:
+    """(reference: SceneResources.mm ComputeCoatSampleWeight:835-852)"""
+    has_layer = (coat_thickness > 1e-4 or coat_roughness > 1e-4
+                 or mat_type in (C.MATERIAL_PLASTIC, C.MATERIAL_CARPAINT))
+    if not has_layer:
+        return 0.0
+    weight = coat_average * 2.5 + coat_roughness * 0.5
+    if mat_type == C.MATERIAL_CARPAINT:
+        weight = max(weight, 0.35)
+    elif mat_type == C.MATERIAL_PLASTIC:
+        weight = max(weight, 0.25)
+    return float(np.clip(weight, 0.0, 0.95))
+
+
+@dataclasses.dataclass
+class Material:
+    """One material row, pre-derivation (reference:
+    SceneResources.mm:902-1038); same fields and defaults as the JAX
+    package's ``Material``."""
+
+    base_color: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    roughness: float = 0.0
+    mat_type: int = C.MATERIAL_LAMBERTIAN
+    ior: float = 1.5
+    emission: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    emission_env: bool = False
+    conductor_eta: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    conductor_k: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    has_conductor: bool = False
+    coat_roughness: float = 0.0
+    coat_thickness: float = 0.0
+    coat_tint: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    coat_absorption: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    coat_ior: float = 1.5
+    dielectric_sigma_a: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    sss_sigma_a: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    sss_sigma_s: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    sss_mfp: float = 0.0
+    sss_g: float = 0.0
+    sss_method: int = 0
+    sss_coat: bool = False
+    sss_sigma_override: bool = False
+    carpaint_base_metallic: float = 0.0
+    carpaint_base_roughness: float = 0.0
+    carpaint_flake_sample_weight: float = 0.0
+    carpaint_flake_roughness: float = 0.0
+    carpaint_flake_anisotropy: float = 0.0
+    carpaint_flake_normal_strength: float = 0.0
+    carpaint_flake_scale: float = 1.0
+    carpaint_flake_reflectance: float = 1.0
+    carpaint_base_eta: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    carpaint_base_k: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    carpaint_has_base_conductor: bool = False
+    carpaint_base_tint: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    thin: bool = False
+    name: str = ""
+    pbr_metallic: float = 0.0
+    pbr_roughness: Optional[float] = None   # defaults to roughness
+    pbr_occlusion_strength: float = 1.0
+    pbr_normal_scale: float = 1.0
+    pbr_alpha: float = 1.0
+    pbr_alpha_cutoff: float = 0.5
+    pbr_transmission: float = 0.0
+    pbr_alpha_mode: int = 0
+    pbr_double_sided: bool = False
+    pbr_thickness: float = 0.0
+    texture_indices: Tuple[int, ...] = (-1, -1, -1, -1, -1, -1)
+    texture_uv_set: Tuple[int, ...] = (0, 0, 0, 0, 0, 0)
+    texture_transform: Optional[np.ndarray] = None  # (6,2,3)
+    material_flags: int = 0
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A triangle mesh already composed into world space."""
+
+    name: str
+    vertices: np.ndarray      # (V,3) f32
+    normals: np.ndarray       # (V,3) f32
+    uv0: np.ndarray           # (V,2) f32
+    uv1: np.ndarray           # (V,2) f32
+    tangents: np.ndarray      # (V,4) f32
+    indices: np.ndarray       # (F,3) i32
+    material: int = 0
+
+
+def _not_in_slice(what: str, step: str):
+    raise NotImplementedError(
+        f"{what} are not ported yet (ROADMAP Queue 1, {step})")
+
+
+class SceneResources:
+    """Mutable scene under construction; ``build_arrays()`` freezes it."""
+
+    def __init__(self):
+        self.materials: List[Material] = []
+        self.meshes: List[Mesh] = []
+        self.material_names: Dict[str, int] = {}
+
+    def add_material(self, material: Material) -> int:
+        """(reference: SceneResources.mm addMaterial:902-1038)"""
+        if len(self.materials) >= C.MAX_MATERIALS:
+            return C.MAX_MATERIALS - 1
+        index = len(self.materials)
+        self.materials.append(material)
+        if material.name:
+            self.material_names[material.name] = index
+        return index
+
+    def material_count(self) -> int:
+        return len(self.materials)
+
+    def add_mesh(self, mesh: Mesh) -> None:
+        self.meshes.append(mesh)
+
+    def add_sphere(self, *args, **kwargs):
+        _not_in_slice("spheres", "step 11, analytic primitives")
+
+    def add_rectangle(self, *args, **kwargs):
+        _not_in_slice("rectangles", "step 11, analytic primitives")
+
+    def add_box(self, *args, **kwargs):
+        _not_in_slice("boxes (rectangles)", "step 11, analytic primitives")
+
+    def add_mesh_instance(self, *args, **kwargs):
+        _not_in_slice("mesh instances", "step 14, instancing")
+
+    def build_materials_soa(self, device="cpu") -> MaterialsSoA:
+        mats = self.materials or [Material()]
+        n = len(mats)
+
+        def arr(fn, shape_tail=(), dtype=np.float32):
+            out = np.zeros((n,) + shape_tail, dtype)
+            for i, m in enumerate(mats):
+                out[i] = fn(m)
+            return torch.as_tensor(out, device=device)
+
+        tt_default = np.zeros((6, 2, 3), np.float32)
+        tt_default[:, 0, 0] = 1.0
+        tt_default[:, 1, 1] = 1.0
+
+        def derived(m: Material):
+            coat_ior = max(m.coat_ior, 0.0)
+            coat_roughness = float(np.clip(m.coat_roughness, 0.0, 1.0))
+            coat_thickness = max(m.coat_thickness, 0.0)
+            avg = compute_coat_average(coat_ior)
+            weight = compute_coat_sample_weight(m.mat_type, coat_roughness,
+                                                coat_thickness, avg)
+            return coat_roughness, coat_thickness, min(weight, 0.95), avg
+
+        def flake_weight(m):
+            refl = max(np.clip(m.carpaint_flake_reflectance, 0.0, 1.0), 0.01)
+            return np.clip(np.clip(m.carpaint_flake_sample_weight, 0.0, 0.95)
+                           * refl, 0.0, 0.95)
+
+        def base_conductor(v, m):
+            return _positive(v) if m.carpaint_has_base_conductor \
+                else np.zeros(3)
+
+        return MaterialsSoA(
+            base_color=arr(lambda m: _clamp01(m.base_color), (3,)),
+            roughness=arr(lambda m: np.clip(m.roughness, 0.0, 1.0)),
+            mat_type=arr(lambda m: m.mat_type, dtype=np.int32),
+            eta=arr(lambda m: max(m.ior, 0.0)),
+            coat_ior=arr(lambda m: max(m.coat_ior, 0.0)),
+            thin=arr(lambda m: 1.0 if m.thin else 0.0),
+            emission=arr(lambda m: np.asarray(m.emission, np.float64), (3,)),
+            emission_env=arr(lambda m: 1.0 if m.emission_env else 0.0),
+            conductor_eta=arr(lambda m: _positive(m.conductor_eta), (3,)),
+            conductor_k=arr(lambda m: _positive(m.conductor_k), (3,)),
+            has_conductor=arr(lambda m: 1.0 if m.has_conductor else 0.0),
+            coat_roughness=arr(lambda m: derived(m)[0]),
+            coat_thickness=arr(lambda m: derived(m)[1]),
+            coat_sample_weight=arr(lambda m: derived(m)[2]),
+            coat_fresnel_avg=arr(lambda m: derived(m)[3]),
+            coat_tint=arr(lambda m: _clamp01(m.coat_tint), (3,)),
+            coat_absorption=arr(lambda m: _positive(m.coat_absorption), (3,)),
+            dielectric_sigma_a=arr(lambda m: _positive(m.dielectric_sigma_a),
+                                   (3,)),
+            sss_sigma_a=arr(lambda m: _positive(m.sss_sigma_a), (3,)),
+            sss_sigma_override=arr(
+                lambda m: 1.0 if m.sss_sigma_override else 0.0),
+            sss_sigma_s=arr(lambda m: _positive(m.sss_sigma_s), (3,)),
+            sss_g=arr(lambda m: np.clip(m.sss_g, -0.99, 0.99)),
+            sss_mfp=arr(lambda m: max(m.sss_mfp, 0.0)),
+            sss_method=arr(lambda m: float(m.sss_method)),
+            sss_coat=arr(lambda m: 1.0 if m.sss_coat else 0.0),
+            carpaint_base_metallic=arr(
+                lambda m: np.clip(m.carpaint_base_metallic, 0.0, 1.0)),
+            carpaint_base_roughness=arr(
+                lambda m: np.clip(m.carpaint_base_roughness, 0.0, 1.0)),
+            carpaint_flake_scale=arr(
+                lambda m: max(m.carpaint_flake_scale, 1e-4)),
+            carpaint_flake_reflectance=arr(
+                lambda m: np.clip(m.carpaint_flake_reflectance, 0.0, 1.0)),
+            carpaint_flake_sample_weight=arr(flake_weight),
+            carpaint_flake_roughness=arr(
+                lambda m: np.clip(m.carpaint_flake_roughness, 0.0, 1.0)),
+            carpaint_flake_anisotropy=arr(
+                lambda m: np.clip(m.carpaint_flake_anisotropy, -0.99, 0.99)),
+            carpaint_flake_normal_strength=arr(
+                lambda m: np.clip(m.carpaint_flake_normal_strength, 0.0, 1.0)),
+            carpaint_base_eta=arr(
+                lambda m: base_conductor(m.carpaint_base_eta, m), (3,)),
+            carpaint_base_k=arr(
+                lambda m: base_conductor(m.carpaint_base_k, m), (3,)),
+            carpaint_has_base_conductor=arr(
+                lambda m: 1.0 if m.carpaint_has_base_conductor else 0.0),
+            carpaint_base_tint=arr(lambda m: _clamp01(m.carpaint_base_tint),
+                                   (3,)),
+            pbr_metallic=arr(lambda m: np.clip(m.pbr_metallic, 0.0, 1.0)),
+            pbr_roughness=arr(lambda m: np.clip(
+                m.pbr_roughness if m.pbr_roughness is not None
+                else m.roughness, 0.0, 1.0)),
+            pbr_occlusion_strength=arr(
+                lambda m: np.clip(m.pbr_occlusion_strength, 0.0, 1.0)),
+            pbr_normal_scale=arr(lambda m: m.pbr_normal_scale),
+            pbr_alpha=arr(lambda m: np.clip(m.pbr_alpha, 0.0, 1.0)),
+            pbr_alpha_cutoff=arr(lambda m: m.pbr_alpha_cutoff),
+            pbr_transmission=arr(
+                lambda m: np.clip(m.pbr_transmission, 0.0, 1.0)),
+            pbr_alpha_mode=arr(lambda m: float(m.pbr_alpha_mode)),
+            pbr_double_sided=arr(lambda m: 1.0 if m.pbr_double_sided else 0.0),
+            pbr_thickness=arr(lambda m: max(m.pbr_thickness, 0.0)),
+            texture_indices=arr(
+                lambda m: np.asarray(m.texture_indices, np.int64), (6,),
+                np.int32),
+            texture_uv_set=arr(
+                lambda m: np.asarray(m.texture_uv_set, np.int64), (6,),
+                np.int32),
+            texture_transform=arr(
+                lambda m: (m.texture_transform
+                           if m.texture_transform is not None
+                           else tt_default), (6, 2, 3)),
+            material_flags=arr(lambda m: m.material_flags, dtype=np.int32),
+        )
+
+    def build_arrays(self, environment=None, textures=None,
+                     device="cpu") -> SceneArrays:
+        """Materials plus the merged triangle soup and its BVH."""
+        if environment is not None:
+            _not_in_slice("environment maps", "step 5, env NEE")
+        if textures is not None or any(
+                t >= 0 for m in self.materials for t in m.texture_indices):
+            _not_in_slice("textures", "step 7, textures")
+        triangles = tri_bvh = None
+        if self.meshes:
+            from metal_pathtracer_tpu_torch.scene import meshbuild
+            triangles, tri_bvh = meshbuild.build_triangle_arrays(
+                self.meshes, device=device)
+        return SceneArrays(materials=self.build_materials_soa(device),
+                           triangles=triangles, tri_bvh=tri_bvh)
+
+    def material_types_present(self):
+        return sorted({m.mat_type for m in self.materials})

@@ -1,0 +1,216 @@
+"""Device-side data layouts as torch dataclasses (``schema.py`` twin).
+
+Each struct-of-arrays container of the JAX package becomes a frozen
+dataclass of tensors, field for field. Spheres, rects, the environment,
+textures and instancing are not in this slice: their containers land with
+the ROADMAP steps that read them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MaterialsSoA:
+    """One row per material (reference: MetalShaderTypes.h:57-97),
+    field for field the JAX package's; scalar fields are (M,) f32
+    unless noted."""
+
+    base_color: torch.Tensor          # (M,3) f32
+    roughness: torch.Tensor           # (M,)  f32
+    mat_type: torch.Tensor            # (M,)  i32 — MaterialType enum
+    eta: torch.Tensor                 # (M,)  f32
+    coat_ior: torch.Tensor
+    thin: torch.Tensor
+    emission: torch.Tensor            # (M,3)
+    emission_env: torch.Tensor
+    conductor_eta: torch.Tensor       # (M,3)
+    conductor_k: torch.Tensor         # (M,3)
+    has_conductor: torch.Tensor
+    coat_roughness: torch.Tensor
+    coat_thickness: torch.Tensor
+    coat_sample_weight: torch.Tensor
+    coat_fresnel_avg: torch.Tensor
+    coat_tint: torch.Tensor           # (M,3)
+    coat_absorption: torch.Tensor     # (M,3)
+    dielectric_sigma_a: torch.Tensor  # (M,3)
+    sss_sigma_a: torch.Tensor         # (M,3)
+    sss_sigma_override: torch.Tensor
+    sss_sigma_s: torch.Tensor         # (M,3)
+    sss_g: torch.Tensor
+    sss_mfp: torch.Tensor
+    sss_method: torch.Tensor
+    sss_coat: torch.Tensor
+    carpaint_base_metallic: torch.Tensor
+    carpaint_base_roughness: torch.Tensor
+    carpaint_flake_scale: torch.Tensor
+    carpaint_flake_reflectance: torch.Tensor
+    carpaint_flake_sample_weight: torch.Tensor
+    carpaint_flake_roughness: torch.Tensor
+    carpaint_flake_anisotropy: torch.Tensor
+    carpaint_flake_normal_strength: torch.Tensor
+    carpaint_base_eta: torch.Tensor   # (M,3)
+    carpaint_base_k: torch.Tensor     # (M,3)
+    carpaint_has_base_conductor: torch.Tensor
+    carpaint_base_tint: torch.Tensor  # (M,3)
+    pbr_metallic: torch.Tensor
+    pbr_roughness: torch.Tensor
+    pbr_occlusion_strength: torch.Tensor
+    pbr_normal_scale: torch.Tensor
+    pbr_alpha: torch.Tensor
+    pbr_alpha_cutoff: torch.Tensor
+    pbr_transmission: torch.Tensor
+    pbr_alpha_mode: torch.Tensor
+    pbr_double_sided: torch.Tensor
+    pbr_thickness: torch.Tensor
+    texture_indices: torch.Tensor     # (M,6) i32
+    texture_uv_set: torch.Tensor      # (M,6) i32
+    texture_transform: torch.Tensor   # (M,6,2,3) f32
+    material_flags: torch.Tensor      # (M,)  i32
+
+    @property
+    def count(self) -> int:
+        return self.mat_type.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class BvhSoA:
+    """Binary SAH BVH flattened depth-first with exit links
+    (``scene/meshbuild.py``): an internal node is followed by its left
+    subtree; ``exit_index`` is where traversal continues on a miss or
+    after a leaf."""
+
+    bounds_min: torch.Tensor    # (N,3) f32
+    bounds_max: torch.Tensor    # (N,3) f32
+    prim_offset: torch.Tensor   # (N,)  i32
+    prim_count: torch.Tensor    # (N,)  i32 — 0 for internal nodes
+    exit_index: torch.Tensor    # (N,)  i32
+    prim_indices: torch.Tensor  # (P,)  i32
+
+    @property
+    def node_count(self) -> int:
+        return self.prim_offset.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrianglesSoA:
+    """World-space triangle soup plus per-corner shading attributes."""
+
+    v0: torch.Tensor          # (T,3) f32
+    v1: torch.Tensor
+    v2: torch.Tensor
+    material: torch.Tensor    # (T,) i32
+    mesh_index: torch.Tensor  # (T,) i32
+    n0: torch.Tensor          # (T,3) f32 shading normals
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor         # (T,2) f32 texture coords, UV set 0
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    uvb0: torch.Tensor        # (T,2) f32 texture coords, UV set 1
+    uvb1: torch.Tensor
+    uvb2: torch.Tensor
+    t0: torch.Tensor          # (T,4) f32 tangent + handedness
+    t1: torch.Tensor
+    t2: torch.Tensor
+    # [v0 v1 v2 n0 n1 n2 material mesh_index pad pad]: the one row the
+    # shade stage gathers per hit
+    shade_packed: torch.Tensor  # (T,24) f32
+
+    @property
+    def count(self) -> int:
+        return self.material.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneArrays:
+    """Everything the integrator reads on the device."""
+
+    materials: MaterialsSoA
+    triangles: Optional[TrianglesSoA] = None
+    tri_bvh: Optional[BvhSoA] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraUniforms:
+    """Orbit camera basis (reference: UniformBuilder.mm:34-83)."""
+
+    origin: torch.Tensor      # (3,)
+    lower_left: torch.Tensor  # (3,)
+    horizontal: torch.Tensor  # (3,)
+    vertical: torch.Tensor    # (3,)
+    u: torch.Tensor           # (3,)
+    v: torch.Tensor           # (3,)
+    lens_radius: torch.Tensor  # ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Uniforms:
+    """Per-dispatch parameters (reference: PathtraceUniforms:117-213).
+    Counters and clamp settings are host scalars: the kernels take them as
+    launch arguments."""
+
+    camera: CameraUniforms
+    frame_index: int
+    sample_count: int
+    fixed_rng_seed: int
+    background_color: Tuple[float, float, float]
+    firefly_clamp_enabled: float
+    firefly_clamp_factor: float
+    firefly_clamp_floor: float
+    throughput_clamp: float
+    firefly_clamp_max_contribution: float
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticConfig:
+    """Hashable render configuration: the flags that select code paths."""
+
+    width: int
+    height: int
+    max_depth: int
+    use_russian_roulette: bool
+    background_mode: int            # 0 gradient / 1 solid / 2 environment
+    working_color_space: int        # 0 linear sRGB / 1 ACEScg
+    debug_specular_only: bool = False
+    material_types: Tuple[int, ...] = ()
+
+
+def settings_to_static(settings, width: int, height: int,
+                       material_types) -> StaticConfig:
+    return StaticConfig(
+        width=int(width),
+        height=int(height),
+        max_depth=int(settings.maxDepth),
+        use_russian_roulette=bool(settings.enableRussianRoulette),
+        background_mode=int(settings.backgroundMode),
+        working_color_space=int(settings.workingColorSpace),
+        debug_specular_only=bool(settings.debugSpecularOnly),
+        material_types=tuple(sorted(set(int(t) for t in material_types))),
+    )
+
+
+def _f32(x) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def settings_to_uniforms(settings, camera: CameraUniforms, frame_index: int,
+                         sample_count: int) -> Uniforms:
+    """Scalars rounded to float32 as the reference stores them."""
+    return Uniforms(
+        camera=camera,
+        frame_index=int(frame_index) & 0xFFFFFFFF,
+        sample_count=int(sample_count) & 0xFFFFFFFF,
+        fixed_rng_seed=int(settings.fixedRngSeed) & 0xFFFFFFFF,
+        background_color=tuple(_f32(c) for c in settings.backgroundColor),
+        firefly_clamp_enabled=1.0 if settings.fireflyClampEnabled else 0.0,
+        firefly_clamp_factor=_f32(max(settings.fireflyClampFactor, 0.0)),
+        firefly_clamp_floor=_f32(max(settings.fireflyClampFloor, 0.0)),
+        throughput_clamp=_f32(max(settings.throughputClamp, 0.0)),
+        firefly_clamp_max_contribution=_f32(
+            max(settings.fireflyClampMaxContribution, 0.0)),
+    )

@@ -1,0 +1,91 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. Marked ``cuda``: each test skips without a CUDA device. On a GPU
+machine (``--noconftest``: ``tests/conftest.py`` imports jax, which the
+port's GPU host need not have):
+``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
+
+import numpy as np
+import pytest
+import torch
+
+from metal_pathtracer_tpu import constants as C
+from metal_pathtracer_tpu_torch.ops.camera import build_camera
+from metal_pathtracer_tpu_torch.ops.kernels import shade, traverse
+from metal_pathtracer_tpu_torch.renderer import frame
+from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+from metal_pathtracer_tpu_torch.schema import (
+    settings_to_static,
+    settings_to_uniforms,
+)
+from metal_pathtracer_tpu_torch.utils.benchscene import build_lambert_series
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def lambert(dev):
+    settings, resources = build_lambert_series(4)
+    return settings, resources, resources.build_arrays(device=dev)
+
+
+def _rays(scene, dev, n=4096, seed=3):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[: n // 2] = -o[: n // 2] + rng.normal(scale=0.3, size=(n // 2, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(n, C.INFINITY_T, np.float32)
+    tmax[::17] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (o, d, tmax)]
+
+
+def test_trace_closest_bitexact_on_card(dev, lambert):
+    _, _, scene = lambert
+    o, d, tmax = _rays(scene, dev)
+    none = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    before = traverse.trace_closest.launches
+    got = traverse.trace_closest(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
+                                 scene.triangles, none, none)
+    ref = traverse.trace_closest_reference(o, d, C.EPSILON_T, tmax,
+                                           scene.tri_bvh, scene.triangles,
+                                           none, none)
+    assert traverse.trace_closest.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (got[1] >= 0).any()
+
+
+def test_render_kernels_vs_plain_on_card(dev, lambert):
+    settings, resources, scene = lambert
+    w, h = 48, 32
+    static = settings_to_static(settings, w, h,
+                                resources.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                             static, 2)
+
+    def plain_trace(o, d, t_min, t_max, bvh, tris, em, ep):
+        return traverse.trace_closest_reference(o, d, float(t_min), t_max,
+                                                bvh, tris, em.int(), ep.int())
+
+    saved = shade.trace_closest, shade.shade_full
+    shade.trace_closest, shade.shade_full = (plain_trace,
+                                             shade.shade_full_reference)
+    try:
+        p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 2)
+    finally:
+        shade.trace_closest, shade.shade_full = saved
+    assert k.ray_count == p.ray_count
+    diff = (k.present() - p.present()).abs()
+    assert float(diff.square().mean().sqrt()) < 2e-4
+    assert float((diff.amax(-1) < 1e-5).float().mean()) > 0.98
+    assert k.frame_index == p.frame_index == 2

@@ -1,0 +1,172 @@
+"""Scene build and state conversion: the port's jax-free builder vs
+``SceneResources.build_arrays()`` of the JAX package, bit for bit."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from metal_pathtracer_tpu import constants as C
+from metal_pathtracer_tpu.ops.camera import build_camera as jax_camera
+from metal_pathtracer_tpu.renderer.accumulation import RenderState as JState
+from metal_pathtracer_tpu.scene.resources import Material as JMaterial
+from metal_pathtracer_tpu.scene.resources import SceneResources as JResources
+from metal_pathtracer_tpu.schema import settings_to_static as jax_static
+from metal_pathtracer_tpu.schema import settings_to_uniforms as jax_uniforms
+from metal_pathtracer_tpu.settings import BackgroundMode, RenderSettings
+from metal_pathtracer_tpu.utils.procgen import dragon_class_scene_mesh
+from metal_pathtracer_tpu_torch import convert
+from metal_pathtracer_tpu_torch.ops import bsdf, integrator
+from metal_pathtracer_tpu_torch.scene.resources import (
+    Material,
+    Mesh,
+    SceneResources,
+)
+from metal_pathtracer_tpu_torch.schema import settings_to_static
+
+MATERIALS = [
+    dict(base_color=(0.7, 0.7, 0.7)),
+    dict(base_color=(1.4, -0.2, 0.5), roughness=0.3, name="clamped"),
+    dict(mat_type=C.MATERIAL_METAL, base_color=(0.9, 0.8, 0.6),
+         roughness=0.2, conductor_eta=(0.2, 0.9, 1.1)),
+    dict(mat_type=C.MATERIAL_PLASTIC, coat_roughness=0.3, coat_thickness=0.4,
+         coat_absorption=(0.2, 0.1, 0.05), ior=1.6),
+    dict(mat_type=C.MATERIAL_CARPAINT, carpaint_flake_sample_weight=0.4,
+         carpaint_flake_reflectance=0.5, carpaint_has_base_conductor=True,
+         carpaint_base_eta=(1.3, 0.9, 0.6), carpaint_base_k=(7.4, 6.4, 5.3)),
+    dict(mat_type=C.MATERIAL_PBR, pbr_metallic=0.8, pbr_alpha=0.4,
+         pbr_double_sided=True, emission=(0.5, 0.4, 0.3)),
+]
+
+
+def _port_mesh(jm):
+    return Mesh(**{f.name: getattr(jm, f.name)
+                   for f in dataclasses.fields(Mesh)})
+
+
+def _np(obj):
+    """A JAX pytree dataclass as a dict of numpy arrays (nested)."""
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _np(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)) or np.isscalar(obj):
+        return obj
+    return np.asarray(obj)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    meshes = [dragon_class_scene_mesh(3, material=0),
+              dragon_class_scene_mesh(1, material=1)]
+    meshes[1].vertices = meshes[1].vertices * 0.5 + 2.0
+    jr, pr = JResources(), SceneResources()
+    for kw in MATERIALS:
+        jr.add_material(JMaterial(**kw))
+        pr.add_material(Material(**kw))
+    for m in meshes:
+        jr.add_mesh(m)
+        pr.add_mesh(_port_mesh(m))
+    return jr, jr.build_arrays(), pr, pr.build_arrays()
+
+
+def _assert_fields_equal(port_obj, jax_obj, fields):
+    for f in fields:
+        got = getattr(port_obj, f).numpy()
+        ref = np.asarray(getattr(jax_obj, f))
+        assert got.dtype == ref.dtype, f
+        np.testing.assert_array_equal(got, ref, err_msg=f)
+
+
+def test_triangles_bitexact(scenes):
+    _, js, _, ps = scenes
+    names = [f.name for f in dataclasses.fields(ps.triangles)]
+    _assert_fields_equal(ps.triangles, js.triangles, names)
+    np.testing.assert_array_equal(ps.triangles.shade_packed.numpy()[:, :22],
+                                  np.asarray(js.triangles.shade_packed)[:, :22])
+
+
+def test_materials_bitexact(scenes):
+    _, js, _, ps = scenes
+    _assert_fields_equal(ps.materials, js.materials,
+                         [f.name for f in dataclasses.fields(ps.materials)])
+
+
+def test_bvh_bitexact(scenes):
+    _, js, _, ps = scenes
+    _assert_fields_equal(ps.tri_bvh, js.tri_bvh,
+                         [f.name for f in dataclasses.fields(ps.tri_bvh)])
+
+
+def test_material_types_present(scenes):
+    jr, _, pr, _ = scenes
+    assert pr.material_types_present() == jr.material_types_present()
+
+
+def test_convert_scene_roundtrip(scenes):
+    _, js, _, ps = scenes
+    d = {"materials": _np(js.materials), "triangles": _np(js.triangles),
+         "tri_bvh": _np(js.tri_bvh), "spheres": _np(js.spheres),
+         "rects": _np(js.rects)}
+    conv = convert.scene_arrays(d)
+    back = convert.to_numpy(conv)
+    for part in ("materials", "triangles", "tri_bvh"):
+        for k, v in back[part].items():
+            np.testing.assert_array_equal(v, d[part][k], err_msg=f"{part}.{k}")
+    _assert_fields_equal(conv.tri_bvh, ps.tri_bvh,
+                         [f.name for f in dataclasses.fields(ps.tri_bvh)])
+
+
+def test_convert_uniforms_static_state():
+    s = RenderSettings()
+    s.backgroundMode = BackgroundMode.SOLID
+    s.backgroundColor = (0.9, 0.6, 0.3)
+    s.fireflyClampFactor = 12.3
+    s.maxDepth = 6
+    cam = jax_camera(s, 40, 24)
+    ju = jax_uniforms(s, cam, 3, 5)
+    pu = convert.uniforms(_np(ju))
+    assert (pu.frame_index, pu.sample_count, pu.fixed_rng_seed) == (3, 5, 0)
+    assert pu.background_color == tuple(
+        float(c) for c in np.asarray(ju.background_color))
+    assert pu.firefly_clamp_factor == float(np.asarray(
+        ju.firefly_clamp_factor))
+    for f in ("origin", "lower_left", "horizontal", "vertical", "u", "v"):
+        np.testing.assert_array_equal(getattr(pu.camera, f).numpy(),
+                                      np.asarray(getattr(cam, f)))
+    st = jax_static(s, 40, 24, [0])
+    assert convert.static_config(dataclasses.asdict(st)) == \
+        settings_to_static(s, 40, 24, [0])
+    js = JState.create(4, 3)
+    js = js.replace(sample_count=js.sample_count + 7,
+                    radiance_sum=js.radiance_sum + 0.25)
+    d = _np(js)
+    ps = convert.render_state(d)
+    back = convert.to_numpy(ps)
+    for k in ("radiance_sum", "albedo", "normal", "radiance_sq_sum"):
+        np.testing.assert_array_equal(back[k], d[k], err_msg=k)
+    np.testing.assert_array_equal(back["sample_count"], d["sample_count"])
+    assert ps.frame_index == 0 and ps.ray_count == 0
+
+
+def test_unported_features_raise():
+    r = SceneResources()
+    r.add_material(Material())
+    for call in (lambda: r.add_sphere((0, 0, 0), 1.0, 0),
+                 lambda: r.add_rectangle((0, 0, 0), (1, 1, 1), 1, True, False,
+                                         0),
+                 lambda: r.add_mesh_instance(None, np.eye(4)),
+                 lambda: r.build_arrays(environment=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    m = bsdf.gather_material(r.build_materials_soa(), torch.zeros(2))
+    with pytest.raises(NotImplementedError):
+        bsdf.sample_bsdf(m, torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
+                         torch.ones(2), (C.MATERIAL_METAL,))
+    s = RenderSettings()
+    s.backgroundMode = BackgroundMode.ENVIRONMENT
+    with pytest.raises(NotImplementedError, match="step 5"):
+        integrator.check_supported(r.build_arrays(),
+                                   settings_to_static(s, 8, 8, [0]))
