@@ -1,13 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, renders the
-bench's lambert series (327,680-triangle displaced icosphere, 1920x1080,
-maxDepth 8) through ``CudaBackend``, checks that the render went through
-both kernels, and prints timings. Any failure raises; the script exits 0
-only when every phase passed, and its last line is then the one-line JSON
-result. Run from the repository root with no arguments:
+Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
+(one nvcc per source, in parallel) and drives both of the port's paths:
+
+1. the lambert series (327,680-triangle displaced icosphere under the
+   gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
+   version bit for bit on probes, K2 under the image gate, a 1920x1080 d8
+   render through ``CudaBackend``, and both kernels timed at the first
+   bounce;
+2. the untextured headline (1.31M-triangle displaced icosphere, glass and
+   PBR spheres, HDR sun/sky with alias NEE and spec-NEE; K1 closest-hit,
+   K1 any-hit, K2 ``s1`` and ``s2``): K1 any-hit bit for bit on probes and
+   on the first-depth shadow wavefront, a 160x96 4 spp render of the
+   same scene at subdivision 5 through the kernels against the plain
+   path, the scene at 1920x1080 d8 through ``frame.render_samples``, and
+   every kernel timed at the first-depth wavefront against its plain
+   version.
+
+Each path runs with every launch count set to 0 just before it and read
+just after; a kernel of the path that was never launched fails the run.
+Any failure raises; the script exits 0 only when every phase passed, and
+its last line is then the one-line JSON result. Run from the repository
+root with no arguments:
 
     python3 chip_smoke.py
 """
@@ -26,11 +41,37 @@ from unittest import mock
 import numpy as np
 import torch
 
-TIMED_SPP = 8
+LAMBERT_TIMED_SPP = 4
+NEE_TIMED_SPP = 8
 FRAME = (1920, 1080)
-SUBDIVISIONS = 7        # 20 * 4^7 = 327,680 triangles
+LAMBERT_SUBDIVISIONS = 7   # 20 * 4^7 = 327,680 triangles
+HEADLINE_SUBDIVISIONS = 8  # 20 * 4^8 = 1,310,720 triangles
+CHECK_SUBDIVISIONS = 5
 CHECK_FRAME = (160, 96)
 IMAGE_GATE = dict(max_rmse=2e-4, min_within_1e5=0.98)
+# H100 SXM data-sheet peaks: HBM bandwidth, float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+ROOT = "metal_pathtracer_tpu_torch/csrc/"
+
+# Bytes a lane's K2 launch must move, by lane kind, from the kernels'
+# loads and stores (csrc/shade.cu): a live hit, a live miss, a dead lane
+# (its alive flag), plus the per-lane output columns every lane writes.
+# Rough operation counts per live lane (float ops in the source) give
+# the compute side of the bound.
+K2_BYTES = {
+    "shade_full": dict(hit=178 + 63, miss=41 + 22, dead=1, out=0, ops=200),
+    "shade_s1": dict(hit=238 + 32, miss=50 + 22, dead=1, out=72, ops=300),
+    "shade_s2": dict(hit=345 + 92, miss=1, dead=1, out=28, ops=1200),
+}
+# K1: a lane's ray in (origin, direction, t_max, exclusion ids) and hit
+# out (t, tri, u, v); a node is 24 B of bounds and three ints; a triangle
+# slot is its index and three vertices; ~24 flops per node visit and ~45
+# per triangle test
+K1_LANE_BYTES = 36 + 16
+K1_NODE_BYTES = 36
+K1_SLOT_BYTES = 4 + 36
+K1_NODE_OPS, K1_TRI_OPS = 24, 45
 
 
 def device_line() -> str:
@@ -56,9 +97,33 @@ def cuda_ms(prepare, reps: int) -> float:
     return total / reps
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """The least time for the work: (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(walk, lane_bytes):
+    """K1's bound: the lanes' own bytes, plus every node and triangle slot
+    the walk touched read once."""
+    return bound_ms(lane_bytes
+                    + int(walk["nodes"].sum()) * K1_NODE_BYTES
+                    + int(walk["slots"].sum()) * K1_SLOT_BYTES,
+                    walk["node_visits"] * K1_NODE_OPS
+                    + walk["tri_tests"] * K1_TRI_OPS)
+
+
+def k2_bound(name, n_hit, n_miss, n_dead):
+    b = K2_BYTES[name]
+    return bound_ms(n_hit * b["hit"] + n_miss * b["miss"] + n_dead * b["dead"]
+                    + (n_hit + n_miss + n_dead) * b["out"],
+                    (n_hit + n_miss) * b["ops"])
+
+
 def probes(scene, n=4096, seed=7):
     """bench.py:136-146's probe set: half the rays aimed at the mesh bounds,
-    plus lanes that exclude their own nearest triangle and dead lanes."""
+    plus lanes with an empty window."""
     rng = np.random.default_rng(seed)
     o = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
     v0 = scene.triangles.v0.cpu().numpy()
@@ -85,13 +150,20 @@ def compare_trace(a, b):
     return float(np.abs(t_a - t_b).max())
 
 
-def image_gate(img, ref, rays, rays_ref, label):
+def compare_flags(got, ref, label):
+    if not torch.equal(got, ref):
+        bad = int((got != ref).sum())
+        raise AssertionError(f"{label}: any-hit flags differ on {bad} lanes")
+
+
+def image_gate(img, ref, counts, counts_ref, label):
     d = np.abs(img - ref)
     rmse = float(np.sqrt((d * d).mean()))
     within = float((d.max(-1) < 1e-5).mean())
     print(f"{label}: rmse={rmse:.3e} within_1e-5={within:.5f} "
-          f"max_abs={float(d.max()):.3e} rays={rays} plain_rays={rays_ref}")
-    if rays != rays_ref:
+          f"max_abs={float(d.max()):.3e} traces={counts} "
+          f"plain_traces={counts_ref}")
+    if counts != counts_ref:
         raise AssertionError(f"{label}: ray counts differ")
     if not (rmse < IMAGE_GATE["max_rmse"]
             and within > IMAGE_GATE["min_within_1e5"]):
@@ -100,28 +172,85 @@ def image_gate(img, ref, rays, rays_ref, label):
 
 
 @contextlib.contextmanager
-def plain_kernels(shade_mod, traverse_mod):
-    """The same depth loop with both kernel entry points replaced by their
-    plain PyTorch versions (run on the card)."""
+def plain_kernels():
+    """The same depth loops with every kernel entry point replaced by its
+    plain PyTorch version (run on the card)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+
     def plain_trace(o, d, t_min, t_max, bvh, tris, ex_mesh, ex_prim):
-        return traverse_mod.trace_closest_reference(
-            o, d, float(t_min), t_max, bvh, tris, ex_mesh.to(torch.int32),
-            ex_prim.to(torch.int32))
-    with mock.patch.object(shade_mod, "trace_closest", plain_trace), \
-            mock.patch.object(shade_mod, "shade_full",
-                              shade_mod.shade_full_reference):
+        return T.trace_closest_reference(o, d, float(t_min), t_max, bvh,
+                                         tris, ex_mesh.to(torch.int32),
+                                         ex_prim.to(torch.int32))
+
+    def plain_any(o, d, t_min, t_max, bvh, tris):
+        return T.trace_any_reference(o, d, float(t_min), t_max, bvh, tris)
+
+    with mock.patch.object(S, "trace_closest", plain_trace), \
+            mock.patch.object(T, "trace_any", plain_any), \
+            mock.patch.object(S, "shade_full", S.shade_full_reference), \
+            mock.patch.object(S, "shade_s1", S.shade_s1_reference), \
+            mock.patch.object(S, "shade_s2", S.shade_s2_reference):
         yield
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device")
-    from metal_pathtracer_tpu import constants as C
-    from metal_pathtracer_tpu_torch.ops.camera import build_camera
+def reset_launches(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def clone(c):
     from metal_pathtracer_tpu_torch.ops.integrator import PathCarry
-    from metal_pathtracer_tpu_torch.ops.kernels import build
-    from metal_pathtracer_tpu_torch.ops.kernels import shade as shade_mod
-    from metal_pathtracer_tpu_torch.ops.kernels import traverse as trav_mod
+    return PathCarry(**{k: v.clone() for k, v in vars(c).items()})
+
+
+def primary_carry(uni, static, dev):
+    """The primary-ray wavefront of sample 0 as a fresh PathCarry."""
+    from metal_pathtracer_tpu_torch.ops import camera as camera_ops
+    from metal_pathtracer_tpu_torch.ops import integrator
+    from metal_pathtracer_tpu_torch.ops import rng as rng_ops
+
+    w, h = static.width, static.height
+    flat = torch.arange(w * h, device=dev)
+    xs, ys = flat % w, flat // w
+    seed = rng_ops.make_seed(uni.fixed_rng_seed, 0, xs, ys, 0,
+                             torch.zeros_like(xs))
+    state, ro, rd = camera_ops.generate_primary_rays(uni.camera, xs, ys, w,
+                                                     h, seed)
+    return integrator.PathCarry.start(
+        state, ro, rd, 0.0, integrator._primary_cone_spread(uni, static))
+
+
+def trace_inputs(c, scene):
+    from metal_pathtracer_tpu_torch import constants as C
+    return (c.ray_o, c.ray_d, C.EPSILON_T,
+            torch.where(c.alive, C.INFINITY_T, 0.0), scene.tri_bvh,
+            scene.triangles,
+            torch.where(c.prev_valid, c.prev_mesh, -1).to(torch.int32),
+            torch.where(c.prev_valid, c.prev_prim, -1).to(torch.int32))
+
+
+def carry_error(a, b, n):
+    """Lanes whose state/alive/prim differ, and the largest float field
+    error relative to max(1, |plain|)."""
+    differ = sum(int((getattr(a, k) != getattr(b, k)).reshape(n, -1)
+                     .any(-1).sum())
+                 for k in ("state", "alive", "prev_prim", "last_delta",
+                           "medium_depth"))
+    err = max(float(((getattr(a, k) - getattr(b, k)).abs()
+                     / getattr(b, k).abs().clamp_min(1.0)).max())
+              for k in ("ray_o", "ray_d", "throughput", "radiance",
+                        "last_pdf", "medium_stack", "cone_width"))
+    return differ, err
+
+
+def lambert_path(dev, card, kernels, out):
+    """The lambert series: K1 and K2 ``full`` checks, 1080p render, K2
+    timing at the first bounce."""
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops.camera import build_camera
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
     from metal_pathtracer_tpu_torch.renderer import frame
     from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
     from metal_pathtracer_tpu_torch.renderer.headless import CudaBackend
@@ -132,6 +261,336 @@ def main() -> None:
     from metal_pathtracer_tpu_torch.utils.benchscene import (
         build_lambert_series,
     )
+
+    settings, resources = build_lambert_series(LAMBERT_SUBDIVISIONS)
+    t0 = time.time()
+    scene = resources.build_arrays(device=dev)
+    print(f"# lambert scene: {scene.triangles.count} triangles, "
+          f"{scene.tri_bvh.node_count} BVH nodes, built in "
+          f"{time.time() - t0:.1f}s")
+
+    # ---- K1 vs its plain version: 4096 probes, bit for bit -------------
+    o, d, tmax = (torch.from_numpy(x).to(dev) for x in probes(scene))
+    ex_mesh = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    ex_prim = torch.full_like(ex_mesh, -1)
+    first = T.trace_closest_reference(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
+                                      scene.triangles, ex_mesh, ex_prim)
+    # every eighth lane excludes the triangle it just hit (self-hit rule)
+    sel = torch.zeros_like(ex_mesh, dtype=torch.bool)
+    sel[::8] = first[1][::8] >= 0
+    ex_prim = torch.where(sel, first[1], -1)
+    ex_mesh = torch.where(sel, 0, -1).to(torch.int32)
+    k1 = T.trace_closest(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
+                         scene.triangles, ex_mesh, ex_prim)
+    ref = T.trace_closest_reference(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
+                                    scene.triangles, ex_mesh, ex_prim)
+    torch.cuda.synchronize()
+    k1_err = compare_trace(k1, ref)
+    print(f"K1 probes: bit-exact over {o.shape[0]} lanes, "
+          f"{int((k1[1] >= 0).sum())} hits, {int(sel.sum())} excluding lanes")
+
+    # ---- K2: 160x96, 4 spp, maxDepth 8, kernel path vs plain path ------
+    w, h = CHECK_FRAME
+    static = settings_to_static(settings, w, h,
+                                resources.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                static, 4)
+    with plain_kernels():
+        st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                    static, 4)
+    k2_err = image_gate(st_k.present().cpu().numpy(),
+                        st_p.present().cpu().numpy(), st_k.ray_count,
+                        st_p.ray_count, f"K2 full {w}x{h} 4spp kernel vs plain")
+
+    # ---- the lambert series at 1920x1080 through CudaBackend -----------
+    W, H = FRAME
+    backend = CudaBackend()
+    warm = backend.render(resources, settings, W, H, 1, device=dev)
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    res = backend.render(resources, settings, W, H, LAMBERT_TIMED_SPP,
+                         device=dev)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    img = res.linear_rgb
+    if not (np.isfinite(img).all() and img.max() > 0.0):
+        raise AssertionError("lambert 1080p image is not finite and non-zero")
+    if res.ray_count < W * H * LAMBERT_TIMED_SPP or warm.ray_count < W * H:
+        raise AssertionError(f"ray_count {res.ray_count} < pixel count")
+    if launches["trace_closest"] <= 0 or launches["shade_full"] <= 0:
+        raise AssertionError(f"a lambert-path kernel was not launched: "
+                             f"{launches}")
+    print(f"lambert {W}x{H} d8: {LAMBERT_TIMED_SPP} spp in "
+          f"{res.total_seconds:.3f}s, {res.avg_ms_per_sample:.2f} ms/spp, "
+          f"{res.ray_count / res.total_seconds / 1e6:.2f} Mrays/s "
+          f"({res.ray_count} traces), launches {launches} [{card}]")
+
+    # ---- K1/K2 vs plain at the lambert path's first bounce -------------
+    static = settings_to_static(settings, W, H,
+                                resources.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, W, H, dev),
+                               0, 0)
+    params = S.ShadeParams.of(uni, static)
+    carry = primary_carry(uni, static, dev)
+    hit0 = T.trace_closest(*trace_inputs(carry, scene))
+    S.shade_full(carry, *hit0, scene.triangles, scene.materials, params, 0)
+    hit1 = T.trace_closest(*trace_inputs(carry, scene))
+    n = W * H
+    n_hit = int((carry.alive & (hit1[1] >= 0)).sum())
+    n_live = int(carry.alive.sum())
+
+    def k2_run(fn):
+        def setup():
+            c = clone(carry)
+            return lambda: fn(c, *hit1, scene.triangles, scene.materials,
+                              params, 1)
+        return setup
+
+    k2_ms = cuda_ms(k2_run(S.shade_full), 5)
+    k2_plain_ms = cuda_ms(k2_run(S.shade_full_reference), 2)
+    ck, cp = clone(carry), clone(carry)
+    S.shade_full(ck, *hit1, scene.triangles, scene.materials, params, 1)
+    S.shade_full_reference(cp, *hit1, scene.triangles, scene.materials,
+                           params, 1)
+    torch.cuda.synchronize()
+    differ, call_err = carry_error(ck, cp, n)
+    bound, bound_by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live)
+    print(f"lambert first bounce ({n_live} live of {n} lanes): K2 full "
+          f"{k2_ms:.3f} ms (plain {k2_plain_ms:.1f} ms, bound {bound:.4f} ms "
+          f"by {bound_by}), vs plain: max_rel_err {call_err:.3e}, {differ} "
+          f"differing lanes [{card}]")
+    if differ > 1e-4 * n or not call_err <= 1e-4:
+        raise AssertionError("K2 full disagrees with its plain version")
+    out["shade_full"] = dict(
+        source=ROOT + "shade.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
+        launches=launches["shade_full"], max_abs_err=max(k2_err, call_err),
+        ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=bound, bound_by=bound_by)
+    return k1_err
+
+
+def nee_path(dev, card, kernels, out, k1_probe_err):
+    """The environment-NEE slice on the untextured headline."""
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.camera import build_camera
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.schema import (
+        settings_to_static,
+        settings_to_uniforms,
+    )
+    from metal_pathtracer_tpu_torch.utils.benchscene import (
+        build_untextured_bench_scene,
+    )
+
+    def build(subdivisions):
+        t0 = time.time()
+        settings, res, env = build_untextured_bench_scene(subdivisions, dev)
+        scene = res.build_arrays(environment=env, device=dev)
+        torch.cuda.synchronize()
+        return settings, res, scene, time.time() - t0
+
+    def setup(settings, res, w, h):
+        static = settings_to_static(settings, w, h,
+                                    res.material_types_present())
+        uni = settings_to_uniforms(settings,
+                                   build_camera(settings, w, h, dev), 0, 0)
+        return static, uni
+
+    # ---- s1/s2 + any-hit: 160x96 4 spp at subdivision 5, kernels vs plain
+    settings, res, scene, _ = build(CHECK_SUBDIVISIONS)
+    w, h = CHECK_FRAME
+    static, uni = setup(settings, res, w, h)
+    st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                static, 4)
+    with plain_kernels():
+        st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                    static, 4)
+    nee_err = image_gate(
+        st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
+        (st_k.ray_count, st_k.shadow_ray_count),
+        (st_p.ray_count, st_p.shadow_ray_count),
+        f"K2 s1/s2 + K1 any-hit {w}x{h} 4spp kernel vs plain")
+
+    # ---- the headline at full size -------------------------------------
+    settings, res, scene, setup_s = build(HEADLINE_SUBDIVISIONS)
+    print(f"# headline scene: {scene.triangles.count} triangles, "
+          f"{scene.tri_bvh.node_count} BVH nodes, "
+          f"{scene.environment.width}x{scene.environment.height} sky, "
+          f"set-up {setup_s:.1f}s")
+    o, d, tmax = (torch.from_numpy(x).to(dev) for x in probes(scene))
+    occ = T.trace_any(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
+                      scene.triangles)
+    compare_flags(occ, T.trace_any_reference(o, d, C.EPSILON_T, tmax,
+                                             scene.tri_bvh, scene.triangles),
+                  "K1 any-hit probes")
+    print(f"K1 any-hit probes: flags bit-equal over {o.shape[0]} lanes, "
+          f"{int(occ.sum())} occluded")
+
+    W, H = FRAME
+    static, uni = setup(settings, res, W, H)
+    frame.render_samples(scene, uni, RenderState.create(W, H, dev), static, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    t0 = time.time()
+    st = frame.render_samples(scene, uni, RenderState.create(W, H, dev),
+                              static, NEE_TIMED_SPP)
+    img = st.present().cpu().numpy()     # waits for the device
+    secs = time.time() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not (np.isfinite(img).all() and img.max() > 0.0):
+        raise AssertionError("headline image is not finite and non-zero")
+    if st.ray_count < W * H * NEE_TIMED_SPP:
+        raise AssertionError(f"ray_count {st.ray_count} < pixels x spp")
+    path = ("trace_closest", "trace_any", "shade_s1", "shade_s2")
+    if min(launches[k] for k in path) <= 0:
+        raise AssertionError(f"a kernel of the NEE path was not launched: "
+                             f"{launches}")
+    traces = st.ray_count + st.shadow_ray_count
+    print(f"headline (untextured) {W}x{H} d8: {NEE_TIMED_SPP} spp in "
+          f"{secs:.3f}s, {1e3 * secs / NEE_TIMED_SPP:.2f} ms/spp, "
+          f"{traces / secs / 1e6:.2f} Mrays/s ({st.ray_count} closest + "
+          f"{st.shadow_ray_count} shadow traces), peak {peak / 2**20:.0f} "
+          f"MiB, set-up {setup_s:.1f}s, launches {launches}, mean "
+          f"{float(img.mean()):.4f} [{card}]")
+
+    # ---- every kernel vs plain at the first-depth wavefront ------------
+    n = W * H
+    params = S.NeeParams.of(uni, static, scene.environment)
+    carry = primary_carry(uni, static, dev)
+    k1_args = trace_inputs(carry, scene)
+    k1_ms = cuda_ms(lambda: lambda: T.trace_closest(*k1_args), 5)
+    k1_plain_ms = cuda_ms(lambda: lambda: T.trace_closest_reference(
+        *k1_args), 1)
+    hit = T.trace_closest(*k1_args)
+    walk = {}
+    k1_err = max(k1_probe_err, compare_trace(
+        hit, T.trace_closest_reference(*k1_args, walk=walk)))
+    k1_b, k1_by = k1_bound(walk, n * K1_LANE_BYTES)
+
+    envbg = env_ops.environment_background(
+        scene.environment, carry.ray_d, uni, static, carry.env_lod,
+        carry.env_lod_active)
+    envpdf = env_ops.environment_pdf(scene.environment, carry.ray_d,
+                                     uni.environment_rotation)
+    n_hit = int((hit[1] >= 0).sum())
+
+    def s1_run(fn):
+        def prep():
+            c = clone(carry)
+            return lambda: fn(c, *hit, scene.triangles, scene.materials,
+                              envbg, envpdf, params, 0)
+        return prep
+
+    s1_ms = cuda_ms(s1_run(S.shade_s1), 5)
+    s1_plain_ms = cuda_ms(s1_run(S.shade_s1_reference), 2)
+    ck, cp = clone(carry), clone(carry)
+    trans = S.shade_s1(ck, *hit, scene.triangles, scene.materials, envbg,
+                       envpdf, params, 0)
+    trans_p = S.shade_s1_reference(cp, *hit, scene.triangles,
+                                   scene.materials, envbg, envpdf, params, 0)
+    torch.cuda.synchronize()
+    differ, s1_err = carry_error(ck, cp, n)
+    s1_err = max(s1_err, float((trans - trans_p).abs().max()))
+    s1_bound, s1_by = k2_bound("shade_s1", n_hit, n - n_hit, 0)
+    if differ > 1e-4 * n or not s1_err <= 1e-4:
+        raise AssertionError(f"K2 s1 disagrees with its plain version: "
+                             f"{differ} lanes, err {s1_err}")
+
+    # the first-depth shadow wavefront (trace_paths_nee's alias + offset)
+    e_dir, e_rad, e_pdf, e_valid = env_ops.sample_environment_from_uniforms(
+        scene.environment, trans[:, 0], trans[:, 1], trans[:, 2], uni,
+        static)
+    sh_o, sh_max, do_sh = S.nee_shadow_rays(trans, hit[0], e_dir, e_pdf,
+                                            e_valid)
+    sh_args = (sh_o, e_dir.contiguous(), C.EPSILON_T, sh_max, scene.tri_bvh,
+               scene.triangles)
+    any_ms = cuda_ms(lambda: lambda: T.trace_any(*sh_args), 5)
+    any_plain_ms = cuda_ms(lambda: lambda: T.trace_any_reference(*sh_args), 1)
+    occ = T.trace_any(*sh_args)
+    walk_any = {}
+    compare_flags(occ, T.trace_any_reference(*sh_args, walk=walk_any),
+                  "K1 any-hit first-depth shadow wavefront")
+    n_sh = int(do_sh.sum())
+    # per lane: the window read and the flag written; shadow lanes also
+    # read their ray; plus the nodes and triangles the walks touched up to
+    # each lane's first hit
+    any_bound, any_by = k1_bound(walk_any, n * (4 + 1) + n_sh * 24)
+    esmp = torch.cat([e_dir, e_rad, e_pdf[:, None],
+                      e_valid[:, None].to(torch.float32),
+                      occ[:, None].to(torch.float32)], 1)
+
+    n_live = int(ck.alive.sum())
+
+    def s2_run(fn):
+        def prep():
+            c = clone(ck)
+            return lambda: fn(c, *hit, scene.triangles, scene.materials,
+                              trans, esmp, params, 0)
+        return prep
+
+    s2_ms = cuda_ms(s2_run(S.shade_s2), 5)
+    s2_plain_ms = cuda_ms(s2_run(S.shade_s2_reference), 2)
+    c2k, c2p = clone(ck), clone(ck)
+    chain = S.shade_s2(c2k, *hit, scene.triangles, scene.materials, trans,
+                       esmp, params, 0)
+    chain_p = S.shade_s2_reference(c2p, *hit, scene.triangles,
+                                   scene.materials, trans, esmp, params, 0)
+    torch.cuda.synchronize()
+    differ2, s2_err = carry_error(c2k, c2p, n)
+    s2_err = max(s2_err, float(((chain - chain_p).abs()
+                                / chain_p.abs().clamp_min(1.0)).max()))
+    s2_bound, s2_by = k2_bound("shade_s2", n_live, 0, n - n_live)
+    if differ2 > 1e-4 * n or not s2_err <= 1e-4:
+        raise AssertionError(f"K2 s2 disagrees with its plain version: "
+                             f"{differ2} lanes, err {s2_err}")
+    print(f"headline first depth ({n} lanes, {n_hit} hits, {n_sh} shadow "
+          f"rays): K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.1f} ms, bound "
+          f"{k1_b:.4f} ms by {k1_by}, {int(walk['nodes'].sum())} nodes "
+          f"and {int(walk['slots'].sum())} triangles touched); K1 any-hit "
+          f"{any_ms:.3f} ms (plain {any_plain_ms:.1f} ms, bound "
+          f"{any_bound:.4f} ms by {any_by}, "
+          f"{int(walk_any['nodes'].sum())} nodes and "
+          f"{int(walk_any['slots'].sum())} triangles touched); K2 s1 {s1_ms:.3f} ms (plain "
+          f"{s1_plain_ms:.1f} ms, bound {s1_bound:.4f} ms, err {s1_err:.2e}, "
+          f"{differ} differing lanes); K2 s2 {s2_ms:.3f} ms (plain "
+          f"{s2_plain_ms:.1f} ms, bound {s2_bound:.4f} ms, err "
+          f"{s2_err:.2e}, {differ2} differing lanes) [{card}]")
+
+    out["trace_closest"] = dict(
+        source=ROOT + "traverse.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:60",
+        launches=launches["trace_closest"], max_abs_err=k1_err, ms=k1_ms,
+        plain_ms=k1_plain_ms, bound_ms=k1_b, bound_by=k1_by)
+    out["trace_any"] = dict(
+        source=ROOT + "traverse.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:60",
+        launches=launches["trace_any"], max_abs_err=0.0, ms=any_ms,
+        plain_ms=any_plain_ms, bound_ms=any_bound, bound_by=any_by)
+    out["shade_s1"] = dict(
+        source=ROOT + "shade.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
+        launches=launches["shade_s1"], max_abs_err=max(nee_err, s1_err),
+        ms=s1_ms, plain_ms=s1_plain_ms, bound_ms=s1_bound, bound_by=s1_by)
+    out["shade_s2"] = dict(
+        source=ROOT + "shade.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
+        launches=launches["shade_s2"], max_abs_err=max(nee_err, s2_err),
+        ms=s2_ms, plain_ms=s2_plain_ms, bound_ms=s2_bound, bound_by=s2_by)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
     dev = torch.device("cuda", 0)
     card = device_line()
@@ -145,163 +604,25 @@ def main() -> None:
           f"cuda {torch.version.cuda} triton {triton} "
           f"nvcc: {' '.join(nvcc)}")
 
-    # ---- set-up: build the kernels ----------------------------------------
     t0 = time.time()
     build.load()
     print(f"# kernels built+loaded in {time.time() - t0:.1f}s")
     print(build.build_log())
 
-    settings, resources = build_lambert_series(SUBDIVISIONS)
+    kernels = {"trace_closest": T.trace_closest, "trace_any": T.trace_any,
+               "shade_full": S.shade_full, "shade_s1": S.shade_s1,
+               "shade_s2": S.shade_s2}
+    out = {}
     t0 = time.time()
-    scene = resources.build_arrays(device=dev)
-    print(f"# scene: {scene.triangles.count} triangles, "
-          f"{scene.tri_bvh.node_count} BVH nodes, built in "
-          f"{time.time() - t0:.1f}s")
+    k1_probe_err = lambert_path(dev, card, kernels, out)
+    print(f"# lambert path phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    nee_path(dev, card, kernels, out, k1_probe_err)
+    print(f"# environment-NEE path phases took {time.time() - t0:.1f}s")
 
-    # ---- K1 on the card vs its plain version: 4096 probes, bit for bit -----
-    o, d, tmax = probes(scene)
-    o, d, tmax = (torch.from_numpy(x).to(dev) for x in (o, d, tmax))
-    ex_mesh = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
-    ex_prim = torch.full_like(ex_mesh, -1)
-    first = trav_mod.trace_closest_reference(o, d, C.EPSILON_T, tmax,
-                                             scene.tri_bvh, scene.triangles,
-                                             ex_mesh, ex_prim)
-    # every eighth lane excludes the triangle it just hit (self-hit rule)
-    sel = torch.zeros_like(ex_mesh, dtype=torch.bool)
-    sel[::8] = first[1][::8] >= 0
-    ex_prim = torch.where(sel, first[1], -1)
-    ex_mesh = torch.where(sel, 0, -1).to(torch.int32)
-    k1 = trav_mod.trace_closest(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
-                                scene.triangles, ex_mesh, ex_prim)
-    ref = trav_mod.trace_closest_reference(o, d, C.EPSILON_T, tmax,
-                                           scene.tri_bvh, scene.triangles,
-                                           ex_mesh, ex_prim)
-    torch.cuda.synchronize()
-    k1_err = compare_trace(k1, ref)
-    print(f"K1 probes: bit-exact over {o.shape[0]} lanes, "
-          f"{int((k1[1] >= 0).sum())} hits, {int(sel.sum())} excluding lanes")
-
-    # ---- K2: 160x96, 4 spp, maxDepth 8, kernel path vs plain path ---------
-    w, h = CHECK_FRAME
-    static = settings_to_static(settings, w, h,
-                                resources.material_types_present())
-    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
-                               0, 0)
-    st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
-                                static, 4)
-    with plain_kernels(shade_mod, trav_mod):
-        st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
-                                    static, 4)
-    k2_err = image_gate(st_k.present().cpu().numpy(),
-                        st_p.present().cpu().numpy(), st_k.ray_count,
-                        st_p.ray_count, f"K2 {w}x{h} 4spp kernel vs plain")
-
-    # ---- the slice: lambert series at 1920x1080 through CudaBackend -------
-    W, H = FRAME
-    backend = CudaBackend()
-    warm = backend.render(resources, settings, W, H, 1, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    trav_mod.trace_closest.launches = 0
-    shade_mod.shade_full.launches = 0
-    out = backend.render(resources, settings, W, H, TIMED_SPP, device=dev)
-    launches = {"trace_closest": trav_mod.trace_closest.launches,
-                "shade_full": shade_mod.shade_full.launches}
-    peak = torch.cuda.max_memory_allocated(dev)
-    img = out.linear_rgb
-    if not (np.isfinite(img).all() and img.max() > 0.0):
-        raise AssertionError("1080p image is not finite and non-zero")
-    if out.ray_count < W * H * TIMED_SPP or warm.ray_count < W * H:
-        raise AssertionError(f"ray_count {out.ray_count} < pixel count")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    mrays = out.ray_count / out.total_seconds / 1e6
-    print(f"lambert {W}x{H} d8: {TIMED_SPP} spp in "
-          f"{out.total_seconds:.3f}s, {out.avg_ms_per_sample:.2f} ms/spp, "
-          f"{mrays:.2f} Mrays/s ({out.ray_count} traces), peak "
-          f"{peak / 2**20:.0f} MiB, launches {launches}, mean "
-          f"{float(img.mean()):.4f} [{card}]")
-
-    # ---- K1/K2 vs plain at the main path's shapes (first bounce) ----------
-    static = settings_to_static(settings, W, H,
-                                resources.material_types_present())
-    uni = settings_to_uniforms(settings, build_camera(settings, W, H, dev),
-                               0, 0)
-    params = shade_mod.ShadeParams.of(uni, static)
-    from metal_pathtracer_tpu_torch.ops import camera as camera_ops
-    from metal_pathtracer_tpu_torch.ops import integrator
-    from metal_pathtracer_tpu_torch.ops import rng as rng_ops
-    flat = torch.arange(W * H, device=dev)
-    xs, ys = flat % W, flat // W
-    seed = rng_ops.make_seed(uni.fixed_rng_seed, 0, xs, ys, 0,
-                             torch.zeros_like(xs))
-    state, ro, rd = camera_ops.generate_primary_rays(uni.camera, xs, ys, W, H,
-                                                     seed)
-    carry = PathCarry.start(state, ro, rd, 0.0,
-                            integrator._primary_cone_spread(uni, static))
-
-    def trace_inputs(c):
-        return (c.ray_o, c.ray_d, C.EPSILON_T,
-                torch.where(c.alive, C.INFINITY_T, 0.0), scene.tri_bvh,
-                scene.triangles,
-                torch.where(c.prev_valid, c.prev_mesh, -1).to(torch.int32),
-                torch.where(c.prev_valid, c.prev_prim, -1).to(torch.int32))
-
-    hit0 = trav_mod.trace_closest(*trace_inputs(carry))
-    shade_mod.shade_full(carry, *hit0, scene.triangles, scene.materials,
-                         params, 0)
-    args = trace_inputs(carry)   # the first-bounce wavefront
-    n_live = int(carry.alive.sum())
-    k1_ms = cuda_ms(lambda: lambda: trav_mod.trace_closest(*args), 5)
-    k1_plain_ms = cuda_ms(
-        lambda: lambda: trav_mod.trace_closest_reference(*args), 1)
-    hit1 = trav_mod.trace_closest(*args)
-    k1_err = max(k1_err, compare_trace(
-        hit1, trav_mod.trace_closest_reference(*args)))
-
-    def clone(c):
-        return PathCarry(**{k: v.clone() for k, v in vars(c).items()})
-
-    def k2_run(fn):
-        def setup():
-            c = clone(carry)
-            return lambda: fn(c, *hit1, scene.triangles, scene.materials,
-                              params, 1)
-        return setup
-
-    k2_ms = cuda_ms(k2_run(shade_mod.shade_full), 5)
-    k2_plain_ms = cuda_ms(k2_run(shade_mod.shade_full_reference), 2)
-    ck, cp = clone(carry), clone(carry)
-    shade_mod.shade_full(ck, *hit1, scene.triangles, scene.materials,
-                         params, 1)
-    shade_mod.shade_full_reference(cp, *hit1, scene.triangles,
-                                   scene.materials, params, 1)
-    torch.cuda.synchronize()
-    differ = sum(int((getattr(ck, k) != getattr(cp, k)).reshape(
-        W * H, -1).any(-1).sum()) for k in ("state", "alive", "prev_prim"))
-    call_err = max(float((getattr(ck, k) - getattr(cp, k)).abs().max())
-                   for k in ("ray_o", "ray_d", "throughput", "radiance"))
-    print(f"first bounce ({n_live} live of {W * H} lanes): K1 {k1_ms:.3f} ms "
-          f"(plain {k1_plain_ms:.1f} ms, bit-exact); K2 {k2_ms:.3f} ms "
-          f"(plain {k2_plain_ms:.1f} ms), K2 vs plain: max_abs_err "
-          f"{call_err:.3e}, {differ} lanes with differing state/alive/prim "
-          f"[{card}]")
-    if differ > 1e-4 * W * H or not call_err <= 1e-4:
-        raise AssertionError("K2 disagrees with its plain version")
-
-    root = "metal_pathtracer_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "trace_closest", "route": "cuda",
-         "source": root + "traverse.cu",
-         "replaces": "metal_pathtracer_tpu/ops/pallas/traverse.py:60",
-         "launches": launches["trace_closest"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "shade_full", "route": "cuda",
-         "source": root + "shade.cu",
-         "replaces": "metal_pathtracer_tpu/ops/pallas/shade.py:1845",
-         "launches": launches["shade_full"],
-         "max_abs_err": max(k2_err, call_err),
-         "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+        dict(name=name, route="cuda", library_ms=None, **out[name])
+        for name in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Carry the JAX package's state across to the port.
 
-The JAX package's ``SceneArrays``, ``Uniforms``, ``StaticConfig`` and
-``RenderState`` arrive as (nested) dicts of numpy arrays and Python values,
+The JAX package's ``SceneArrays`` (with its ``EnvironmentSoA``),
+``Uniforms``, ``StaticConfig`` and ``RenderState`` arrive as (nested)
+dicts of numpy arrays and Python values,
 one entry per field (the caller does the ``np.asarray``; this module never
 imports jax). The functions below build the port's twins on a device, so
 both packages can compute on identical scene, BVH, uniforms and
@@ -20,6 +21,7 @@ from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
 from metal_pathtracer_tpu_torch.schema import (
     BvhSoA,
     CameraUniforms,
+    EnvironmentSoA,
     MaterialsSoA,
     SceneArrays,
     StaticConfig,
@@ -34,28 +36,50 @@ def _build(cls, d: dict, device):
                   for f in dataclasses.fields(cls)})
 
 
-def scene_arrays(d: dict, device="cpu") -> SceneArrays:
-    """Materials, triangle soup and BVH; the JAX scene must hold no
-    spheres, rects, instances, environment or textures (not in this
-    slice)."""
+def environment(d: dict, device="cuda") -> EnvironmentSoA:
+    """A JAX ``EnvironmentSoA`` (as a dict) on ``device``."""
+    t = lambda a: torch.tensor(np.asarray(a), device=device)
+    fields = {}
+    for f in dataclasses.fields(EnvironmentSoA):
+        v = d[f.name]
+        if f.name == "mips":
+            v = tuple(t(m) for m in v)
+        elif f.name == "mip_meta":
+            v = tuple(tuple(int(x) for x in m) for m in v)
+        elif f.name in ("width", "height"):
+            v = int(v)
+        else:
+            v = t(v)
+        fields[f.name] = v
+    return EnvironmentSoA(**fields)
+
+
+def scene_arrays(d: dict, device="cuda") -> SceneArrays:
+    """Materials, triangle soup, BVH and environment; the JAX scene must
+    hold no spheres, rects, instances or textures (not ported yet)."""
     for key in ("spheres", "rects"):
         sub = d.get(key)
         if sub is not None and np.asarray(sub["material"]).shape[0] > 0:
             raise NotImplementedError(
                 f"{key}: ROADMAP Queue 1, step 11 (analytic primitives)")
-    for key in ("environment", "textures"):
-        if d.get(key) is not None:
-            raise NotImplementedError(f"{key} are not ported yet")
+    if d.get("textures") is not None:
+        raise NotImplementedError("textures: ROADMAP Queue 1, step 7")
     tris = d.get("triangles")
     bvh = d.get("tri_bvh")
+    env = d.get("environment")
     return SceneArrays(
         materials=_build(MaterialsSoA, d["materials"], device),
         triangles=None if tris is None else _build(TrianglesSoA, tris,
                                                    device),
-        tri_bvh=None if bvh is None else _build(BvhSoA, bvh, device))
+        tri_bvh=None if bvh is None else _build(BvhSoA, bvh, device),
+        environment=None if env is None else environment(env, device))
 
 
-def uniforms(d: dict, device="cpu") -> Uniforms:
+_UNIFORM_SCALARS = ("environment_", "firefly_", "throughput_", "specular_",
+                    "min_specular", "debug_env")
+
+
+def uniforms(d: dict, device="cuda") -> Uniforms:
     scalar = lambda k: np.asarray(d[k]).item()
     return Uniforms(
         camera=_build(CameraUniforms, d["camera"], device),
@@ -66,7 +90,8 @@ def uniforms(d: dict, device="cpu") -> Uniforms:
                                np.asarray(d["background_color"])),
         **{f.name: float(scalar(f.name))
            for f in dataclasses.fields(Uniforms)
-           if f.name.startswith(("firefly_", "throughput_"))})
+           if f.name.startswith(_UNIFORM_SCALARS)
+           and d.get(f.name) is not None})
 
 
 def static_config(d: dict) -> StaticConfig:
@@ -75,7 +100,7 @@ def static_config(d: dict) -> StaticConfig:
         for f in dataclasses.fields(StaticConfig)})
 
 
-def render_state(d: dict, device="cpu") -> RenderState:
+def render_state(d: dict, device="cuda") -> RenderState:
     t = lambda k: torch.tensor(np.asarray(d[k]), device=device)
     radiance = t("radiance_sum")
     sq = d.get("radiance_sq_sum")

@@ -1,8 +1,13 @@
-// K1: closest-hit triangle trace, one thread per ray.
+// K1: closest-hit and any-hit triangle traces, one thread per ray.
 //
 // Replaces the TPU packet-traversal kernel ops/pallas/traverse.py
 // (_kernel:60 / _packet_body:106, launched by _call:596 from
-// packet_trace:659). The TPU kernel walks 1024-ray packets through a
+// packet_trace:659), in closest-hit mode and in its any_hit=True mode
+// (traverse.py:280-296: shadow rays). trace_any_kernel makes the same
+// exit-link walk with the window fixed at tmax and returns at the first
+// triangle that passes the test, so its occlusion flag equals the
+// closest-hit walk's hit flag bit for bit: both visit the same nodes until
+// the first valid triangle, with the same arithmetic. The TPU kernel walks 1024-ray packets through a
 // chunked tree with a shared scalar stack and SMEM-resident nodes,
 // because its vector unit only pays off when a whole packet moves
 // together. A GPU thread can walk its own ray, so this kernel walks the
@@ -30,6 +35,64 @@
 
 namespace {
 
+// Moller-Trumbore (reference: intersect_triangle_parametric) against
+// triangle `tid`; the window test is the caller's.
+struct TriHit {
+  float t, u, v;
+  bool ok;  // determinant and barycentric tests passed
+};
+__device__ __forceinline__ TriHit intersect_tri(
+    V3 o, V3 d, int tid, const float* __restrict__ tv0,
+    const float* __restrict__ tv1, const float* __restrict__ tv2) {
+  V3 v0 = v3(__ldg(tv0 + 3 * tid), __ldg(tv0 + 3 * tid + 1),
+             __ldg(tv0 + 3 * tid + 2));
+  V3 v1 = v3(__ldg(tv1 + 3 * tid), __ldg(tv1 + 3 * tid + 1),
+             __ldg(tv1 + 3 * tid + 2));
+  V3 v2 = v3(__ldg(tv2 + 3 * tid), __ldg(tv2 + 3 * tid + 1),
+             __ldg(tv2 + 3 * tid + 2));
+  V3 edge1 = v1 - v0;
+  V3 edge2 = v2 - v0;
+  V3 pvec = cross3(d, edge2);
+  float det = dot3(edge1, pvec);
+  float inv_det = 1.0f / (fabsf(det) < 1e-8f ? 1.0f : det);
+  V3 tvec = o - v0;
+  TriHit h;
+  h.u = dot3(tvec, pvec) * inv_det;
+  V3 qvec = cross3(tvec, edge1);
+  h.v = dot3(d, qvec) * inv_det;
+  h.t = dot3(edge2, qvec) * inv_det;
+  h.ok = fabsf(det) >= 1e-8f && h.u >= 0.0f && h.u <= 1.0f && h.v >= 0.0f &&
+         h.u + h.v <= 1.0f;
+  return h;
+}
+
+// The slab test of node `node` against [t_min, min(tfar, t_best)].
+__device__ __forceinline__ bool box_hit(const float* __restrict__ bmin,
+                                        const float* __restrict__ bmax,
+                                        int node, const float* oo,
+                                        const float* inv, float t_min,
+                                        float t_best) {
+  float tnear = 0.0f, tfar = 0.0f;
+  for (int a = 0; a < 3; ++a) {
+    float t0 = (__ldg(bmin + 3 * node + a) - oo[a]) * inv[a];
+    float t1 = (__ldg(bmax + 3 * node + a) - oo[a]) * inv[a];
+    float lo = cmin(minn(t0, t1), t_min);
+    float hi = maxn(t0, t1);
+    tnear = a == 0 ? lo : maxn(tnear, lo);
+    tfar = a == 0 ? hi : minn(tfar, hi);
+  }
+  return minn(tfar, t_best) >= tnear;
+}
+
+__device__ __forceinline__ void inverse_dir(V3 d, float* inv) {
+  float dd[3] = {d.x, d.y, d.z};
+  for (int a = 0; a < 3; ++a) {
+    float c = dd[a];
+    float safe = fabsf(c) < 1e-20f ? (c >= 0.0f ? 1e-20f : -1e-20f) : c;
+    inv[a] = 1.0f / safe;
+  }
+}
+
 __global__ void trace_closest_kernel(
     int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax,
@@ -52,28 +115,14 @@ __global__ void trace_closest_kernel(
     V3 d = load3(ray_d, i);
     int ex_mesh = excl_mesh[i];
     int ex_prim = excl_prim[i];
-    float dd[3] = {d.x, d.y, d.z};
     float inv[3];
-    for (int a = 0; a < 3; ++a) {
-      float c = dd[a];
-      float safe = fabsf(c) < 1e-20f ? (c >= 0.0f ? 1e-20f : -1e-20f) : c;
-      inv[a] = 1.0f / safe;
-    }
+    inverse_dir(d, inv);
     float oo[3] = {o.x, o.y, o.z};
     int node = 0;
     while (node < n_nodes) {
-      float tnear = 0.0f, tfar = 0.0f;
-      for (int a = 0; a < 3; ++a) {
-        float t0 = (__ldg(bmin + 3 * node + a) - oo[a]) * inv[a];
-        float t1 = (__ldg(bmax + 3 * node + a) - oo[a]) * inv[a];
-        float lo = cmin(minn(t0, t1), t_min);
-        float hi = maxn(t0, t1);
-        tnear = a == 0 ? lo : maxn(tnear, lo);
-        tfar = a == 0 ? hi : minn(tfar, hi);
-      }
-      bool box_hit = minn(tfar, best_t) >= tnear;
+      bool hit_box = box_hit(bmin, bmax, node, oo, inv, t_min, best_t);
       int pcount = __ldg(prim_count + node);
-      if (box_hit && pcount > 0) {
+      if (hit_box && pcount > 0) {
         int poff = __ldg(prim_offset + node);
         float tm[MAX_LEAF], uu[MAX_LEAF], vv[MAX_LEAF];
         int ids[MAX_LEAF];
@@ -86,31 +135,12 @@ __global__ void trace_closest_kernel(
           int slot = min(max(poff + k, 0), n_slots - 1);
           int tid = __ldg(prim_indices + slot);
           ids[k] = tid;
-          V3 v0 = v3(__ldg(tv0 + 3 * tid), __ldg(tv0 + 3 * tid + 1),
-                     __ldg(tv0 + 3 * tid + 2));
-          V3 v1 = v3(__ldg(tv1 + 3 * tid), __ldg(tv1 + 3 * tid + 1),
-                     __ldg(tv1 + 3 * tid + 2));
-          V3 v2 = v3(__ldg(tv2 + 3 * tid), __ldg(tv2 + 3 * tid + 1),
-                     __ldg(tv2 + 3 * tid + 2));
-          // Moller-Trumbore (reference: intersect_triangle_parametric)
-          V3 edge1 = v1 - v0;
-          V3 edge2 = v2 - v0;
-          V3 pvec = cross3(d, edge2);
-          float det = dot3(edge1, pvec);
-          float inv_det = 1.0f / (fabsf(det) < 1e-8f ? 1.0f : det);
-          V3 tvec = o - v0;
-          float u = dot3(tvec, pvec) * inv_det;
-          V3 qvec = cross3(tvec, edge1);
-          float v = dot3(d, qvec) * inv_det;
-          float t = dot3(edge2, qvec) * inv_det;
+          TriHit h = intersect_tri(o, d, tid, tv0, tv1, tv2);
           bool excl = __ldg(mesh_index + tid) == ex_mesh && tid == ex_prim;
-          bool valid = fabsf(det) >= 1e-8f && u >= 0.0f && u <= 1.0f &&
-                       v >= 0.0f && u + v <= 1.0f && t >= t_min &&
-                       t <= best_t && !excl;
-          if (valid) {
-            tm[k] = t;
-            uu[k] = u;
-            vv[k] = v;
+          if (h.ok && h.t >= t_min && h.t <= best_t && !excl) {
+            tm[k] = h.t;
+            uu[k] = h.u;
+            vv[k] = h.v;
             any_valid = true;
           }
         }
@@ -124,7 +154,7 @@ __global__ void trace_closest_kernel(
           best_v = vv[kb];
         }
       }
-      node = (box_hit && pcount == 0) ? node + 1 : __ldg(exit_index + node);
+      node = (hit_box && pcount == 0) ? node + 1 : __ldg(exit_index + node);
     }
   }
   out_t[i] = best_t;
@@ -133,7 +163,67 @@ __global__ void trace_closest_kernel(
   out_v[i] = best_v;
 }
 
+__global__ void trace_any_kernel(
+    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax, int n_nodes,
+    const float* __restrict__ bmin, const float* __restrict__ bmax,
+    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
+    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
+    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
+    const float* __restrict__ tv2, bool* __restrict__ out_occluded) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t_max = tmax[i];
+  bool occluded = false;
+  if (t_max >= t_min) {
+    V3 o = load3(ray_o, i);
+    V3 d = load3(ray_d, i);
+    float inv[3];
+    inverse_dir(d, inv);
+    float oo[3] = {o.x, o.y, o.z};
+    int node = 0;
+    while (node < n_nodes && !occluded) {
+      bool hit_box = box_hit(bmin, bmax, node, oo, inv, t_min, t_max);
+      int pcount = __ldg(prim_count + node);
+      if (hit_box && pcount > 0) {
+        int poff = __ldg(prim_offset + node);
+        for (int k = 0; k < pcount && k < MAX_LEAF; ++k) {
+          int tid = __ldg(prim_indices + min(max(poff + k, 0), n_slots - 1));
+          TriHit h = intersect_tri(o, d, tid, tv0, tv1, tv2);
+          // strict '<': the closest-hit walk records a hit only below its
+          // running best, which is t_max until the first one
+          if (h.ok && h.t >= t_min && h.t < t_max) {
+            occluded = true;
+            break;
+          }
+        }
+      }
+      node = (hit_box && pcount == 0) ? node + 1 : __ldg(exit_index + node);
+    }
+  }
+  out_occluded[i] = occluded;
+}
+
 }  // namespace
+
+extern "C" int mpt_trace_any(
+    int n, const void* ray_o, const void* ray_d, float t_min,
+    const void* tmax, int n_nodes, const void* bmin, const void* bmax,
+    const void* prim_offset, const void* prim_count, const void* exit_index,
+    const void* prim_indices, int n_slots, const void* v0, const void* v1,
+    const void* v2, void* out_occluded, void* stream) {
+  if (n <= 0) return 0;
+  const int block = 128;
+  trace_any_kernel<<<(n + block - 1) / block, block, 0,
+                     (cudaStream_t)stream>>>(
+      n, (const float*)ray_o, (const float*)ray_d, t_min, (const float*)tmax,
+      n_nodes, (const float*)bmin, (const float*)bmax,
+      (const int*)prim_offset, (const int*)prim_count,
+      (const int*)exit_index, (const int*)prim_indices, n_slots,
+      (const float*)v0, (const float*)v1, (const float*)v2,
+      (bool*)out_occluded);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int mpt_trace_closest(
     int n, const void* ray_o, const void* ray_d, float t_min,

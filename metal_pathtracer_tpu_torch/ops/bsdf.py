@@ -1,7 +1,16 @@
-"""BSDF sampling and clamps (``ops/bsdf.py`` twin, lambert subset).
+"""BSDF sampling, evaluation and clamps (``ops/bsdf.py`` twin) for the
+lambert, dielectric and PBR types.
 
-Metal, dielectric, plastic, subsurface, carpaint and PBR are ROADMAP
-Queue 1 steps 6 and 13; ``sample_bsdf`` raises for them.
+Every type present in the scene is evaluated over the whole wavefront and
+each lane keeps its own type's result, so each lane's RNG stream advances
+exactly as the reference's per-thread branch does. Metal, plastic,
+subsurface and carpaint are ROADMAP Queue 1 steps 6 and 13: ``sample_bsdf``
+and ``evaluate_bsdf`` raise for them.
+
+The CUDA shade kernels (``csrc/shade.cu``) repeat this arithmetic
+operation for operation: products and sums stay unfused except inside
+``vecmath.dot``/``cross``/``luminance``/``to_world``, and every division
+is one IEEE division (``vecmath.fdiv``).
 """
 
 from __future__ import annotations
@@ -11,9 +20,11 @@ from typing import NamedTuple
 
 import torch
 
-from metal_pathtracer_tpu import constants as C
+from metal_pathtracer_tpu_torch import constants as C
 from metal_pathtracer_tpu_torch.ops import rng as rng_ops
 from metal_pathtracer_tpu_torch.ops.vecmath import (
+    build_onb,
+    cross,
     dot,
     fdiv,
     luminance,
@@ -24,14 +35,18 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
 )
 
 PI = 3.14159265358979323846
+PORTED_TYPES = (C.MATERIAL_LAMBERTIAN, C.MATERIAL_DIELECTRIC, C.MATERIAL_PBR)
 
 
 class ClampParams(NamedTuple):
-    """Firefly and throughput clamp settings (host floats)."""
+    """Firefly, throughput and specular clamp settings (host floats)."""
 
     clamp_factor: float
     clamp_floor: float
     throughput_clamp: float
+    specular_tail_base: float
+    specular_tail_roughness_scale: float
+    min_specular_pdf: float
     max_contribution: float
     enabled: float
 
@@ -41,6 +56,10 @@ def make_clamp_params(uniforms) -> ClampParams:
         clamp_factor=uniforms.firefly_clamp_factor,
         clamp_floor=uniforms.firefly_clamp_floor,
         throughput_clamp=uniforms.throughput_clamp,
+        specular_tail_base=uniforms.specular_tail_clamp_base,
+        specular_tail_roughness_scale=(
+            uniforms.specular_tail_clamp_roughness_scale),
+        min_specular_pdf=uniforms.min_specular_pdf,
         max_contribution=uniforms.firefly_clamp_max_contribution,
         enabled=uniforms.firefly_clamp_enabled,
     )
@@ -76,22 +95,212 @@ def clamp_path_throughput(throughput, p: ClampParams):
     return where3(finite, out, torch.zeros_like(out))
 
 
+def clamp_specular_pdf(pdf, p: ClampParams):
+    """(reference: pathtrace.metal clamp_specular_pdf)"""
+    pdf = torch.clamp_min(torch.where(torch.isfinite(pdf), pdf, 0.0), 0.0)
+    raised = torch.clamp_min(pdf, p.min_specular_pdf) \
+        if p.min_specular_pdf > 0.0 else pdf
+    return torch.where(pdf > 0.0, raised, 0.0)
+
+
+def clamp_specular_tail(value, roughness, f0, p: ClampParams):
+    """(reference: pathtrace.metal clamp_specular_tail)"""
+    finite = torch.isfinite(value).all(-1)
+    positive = torch.clamp_min(value, 0.0)
+    if p.enabled >= 0.5 and (p.specular_tail_base > 0.0
+                             or p.specular_tail_roughness_scale > 0.0):
+        strength = torch.clamp_min(
+            torch.maximum(torch.maximum(f0[..., 0], f0[..., 1]), f0[..., 2]),
+            1e-3)
+        limit = (p.specular_tail_base
+                 + p.specular_tail_roughness_scale * roughness) * strength
+        limit = torch.clamp_min(limit, p.clamp_floor)
+        lum = luminance(positive)
+        scale = torch.where((lum > limit) & (lum > 0.0),
+                            limit / torch.clamp_min(lum, 1e-6), 1.0)
+        positive = positive * scale[..., None]
+    return where3(finite, positive, torch.zeros_like(positive))
+
+
+# ---------------------------------------------------------------------------
+# Fresnel / GGX microfacet helpers (reference: pathtrace.metal:3645-3911)
+# ---------------------------------------------------------------------------
+
+def schlick_weight(cos_theta):
+    m = torch.clamp(1.0 - cos_theta, 0.0, 1.0)
+    return m * m * m * m * m
+
+
+def schlick_fresnel(f0, cos_theta):
+    return f0 + (1.0 - f0) * schlick_weight(cos_theta)[..., None]
+
+
+def fresnel_dielectric_exact(cos_theta_i, eta_i, eta_t):
+    """Exact unpolarized dielectric Fresnel, returning (Fr, cosThetaT)
+    (reference: pathtrace.metal fresnel_dielectric_exact:3645-3674)."""
+    abs_cos = torch.clamp(cos_theta_i, -1.0, 1.0).abs()
+    sin2_i = torch.clamp_min(1.0 - abs_cos * abs_cos, 0.0)
+    eta = eta_i / eta_t
+    sin2_t = eta * eta * sin2_i
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    ei_ci = eta_i * abs_cos
+    et_ct = eta_t * cos_t
+    rs = (ei_ci - et_ct) / (ei_ci + et_ct)
+    rp = (eta_t * abs_cos - eta_i * cos_t) / (eta_t * abs_cos + eta_i * cos_t)
+    fr = 0.5 * (rs * rs + rp * rp)
+    return torch.where(tir, 1.0, fr), torch.where(tir, 0.0, cos_t)
+
+
+def ggx_lambda(alpha, cos_theta):
+    abs_cos = cos_theta.abs()
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - abs_cos * abs_cos, 0.0))
+    tan_theta = sin_theta / torch.clamp_min(abs_cos, 1e-20)
+    a = alpha * tan_theta
+    lam = (torch.sqrt(1.0 + a * a) - 1.0) * 0.5
+    return torch.where((abs_cos <= 0.0) | (sin_theta == 0.0), 0.0, lam)
+
+
+def ggx_g1(alpha, cos_theta):
+    return fdiv(1.0, 1.0 + ggx_lambda(alpha, cos_theta))
+
+
+def ggx_d(alpha, cos_theta_h):
+    abs_ch = cos_theta_h.abs()
+    a2 = alpha * alpha
+    denom = abs_ch * abs_ch * (a2 - 1.0) + 1.0
+    return a2 / (PI * denom * denom)
+
+
+def ggx_pdf(alpha, normal, wo, wi):
+    wh = safe_normalize(wo + wi)
+    cos_h = dot(normal, wh)
+    dot_wo_wh = dot(wo, wh)
+    cos_o = dot(normal, wo)
+    pdf = ggx_d(alpha, cos_h) * ggx_g1(alpha, cos_o) * cos_h \
+        / (4.0 * torch.clamp_min(dot_wo_wh, 1e-6))
+    return torch.where((cos_o <= 0.0) | (cos_h <= 0.0) | (dot_wo_wh <= 0.0),
+                       0.0, pdf)
+
+
+def reflect(v, n):
+    """Mirror v about n (Metal ``reflect``: v points toward the surface)."""
+    return v - (2.0 * dot(v, n))[..., None] * n
+
+
+def refract(v, n, eta_ratio):
+    """Metal/GLSL ``refract``; the zero vector on total internal
+    reflection. ``eta_ratio`` is (N,) etaI/etaT."""
+    cos_i = -dot(v, n)
+    sin2_t = eta_ratio * eta_ratio * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    k = 1.0 - sin2_t
+    refr = eta_ratio[..., None] * v + (
+        eta_ratio * cos_i - torch.sqrt(torch.clamp_min(k, 0.0)))[..., None] * n
+    return where3(k >= 0.0, refr, torch.zeros_like(v))
+
+
+def sample_ggx_vndf(normal, wo, roughness, state):
+    """Heitz VNDF sampling (reference: pathtrace.metal
+    sample_ggx_vndf:3770-3797); exactly 2 uniforms per lane."""
+    tangent, bitangent = build_onb(normal)
+    w = safe_normalize(wo)
+    lx, ly = dot(w, tangent), dot(w, bitangent)
+    lz = torch.clamp_min(dot(w, normal), 1e-6)
+    alpha = torch.clamp_min(roughness * roughness, 1e-4)
+    vh = safe_normalize(torch.stack([alpha * lx, alpha * ly, lz], -1))
+    lensq = vh[..., 0] * vh[..., 0] + vh[..., 1] * vh[..., 1]
+    inv = fdiv(1.0, torch.sqrt(torch.clamp_min(lensq, 1e-38)))
+    t1 = torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
+                      torch.zeros_like(inv)], -1)
+    x_axis = torch.zeros_like(t1)
+    x_axis[..., 0] = 1.0
+    t1 = where3(lensq > 0.0, t1, x_axis)
+    t2 = cross(vh, t1)
+    state, u1 = rng_ops.rand_uniform(state)
+    state, u2 = rng_ops.rand_uniform(state)
+    r = torch.sqrt(u1)
+    phi = (2.0 * PI) * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + vh[..., 2])
+    p2_adj = (1.0 - s) * torch.sqrt(torch.clamp_min(1.0 - p1 * p1, 0.0)) \
+        + s * p2
+    p3 = torch.sqrt(torch.clamp_min(1.0 - p1 * p1 - p2_adj * p2_adj, 0.0))
+    nh = p1[..., None] * t1 + p2_adj[..., None] * t2 + p3[..., None] * vh
+    ne = safe_normalize(torch.stack(
+        [alpha * nh[..., 0], alpha * nh[..., 1],
+         torch.clamp_min(nh[..., 2], 0.0)], -1))
+    return state, safe_normalize(to_world(ne, normal))
+
+
+def dfg_approx(roughness, nov):
+    """Karis split-sum DFG approximation (reference: pathtrace.metal
+    dfg_approx)."""
+    r0 = roughness * -1.0 + 1.0
+    r1 = roughness * -0.0275 + 0.0425
+    r2 = roughness * -0.572 + 1.04
+    r3 = roughness * 0.022 + -0.04
+    a004 = torch.minimum(r0 * r0, torch.exp2(-9.28 * nov)) * r0 + r1
+    return -1.04 * a004 + r2, 1.04 * a004 + r3
+
+
+def specular_energy_compensation(f0, roughness, nov):
+    """Multiple-scattering energy compensation (reference: pathtrace.metal
+    specular_energy_compensation)."""
+    dfg_x, dfg_y = dfg_approx(roughness, torch.clamp(nov, 0.0, 1.0))
+    fss = torch.clamp(f0 * dfg_x[..., None] + dfg_y[..., None], 0.0, 0.99)
+    favg = f0 + (1.0 - f0) * C.SCHLICK_AVERAGE_FACTOR
+    one_minus_fss = torch.clamp(1.0 - fss, 0.0, 1.0)
+    denom = torch.clamp_min(1.0 - favg * one_minus_fss, 1e-3)
+    fms = (favg * one_minus_fss) / denom
+    scale = (fss + fms) / torch.clamp_min(fss, 1e-4)
+    return torch.clamp(scale, 1.0, 2.0)
+
+
+# ---------------------------------------------------------------------------
+# Material lanes
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class MatLanes:
-    """Material rows gathered onto lanes: the fields lambert reads."""
+    """Material rows gathered onto lanes: the fields lambert, dielectric
+    and PBR read."""
 
-    base_color: torch.Tensor  # (N,3)
-    mat_type: torch.Tensor    # (N,) i32
+    base_color: torch.Tensor          # (N,3)
+    roughness: torch.Tensor
+    mat_type: torch.Tensor            # (N,) i32
+    eta: torch.Tensor
+    thin: torch.Tensor
+    emission: torch.Tensor            # (N,3)
+    dielectric_sigma_a: torch.Tensor  # (N,3)
+    pbr_metallic: torch.Tensor
+    pbr_transmission: torch.Tensor
+    pbr_thickness: torch.Tensor
+    pbr_double_sided: torch.Tensor
 
 
 def gather_material(materials, index) -> MatLanes:
     idx = torch.clamp(index, 0, materials.count - 1).long()
-    return MatLanes(base_color=materials.base_color[idx],
-                    mat_type=materials.mat_type[idx])
+    return MatLanes(**{f.name: getattr(materials, f.name)[idx]
+                       for f in dataclasses.fields(MatLanes)})
 
 
 def material_base_color(m: MatLanes):
     return torch.clamp(m.base_color, 0.0, 1.0)
+
+
+def material_is_delta(m: MatLanes):
+    """(reference: pathtrace.metal material_is_delta) — for this slice's
+    types; metal joins with ROADMAP step 6."""
+    rough = torch.clamp(m.roughness, 0.0, 1.0)
+    return ((m.mat_type == C.MATERIAL_DIELECTRIC)
+            | ((m.mat_type == C.MATERIAL_PBR) & (rough <= 1e-3)))
+
+
+def environment_lighting_roughness(m: MatLanes):
+    """(reference: pathtrace.metal environment_lighting_roughness)"""
+    rough = torch.clamp(m.roughness, 0.0, 1.0)
+    return torch.where(m.mat_type == C.MATERIAL_PBR, rough, 1.0)
 
 
 def lambert_pdf(normal, direction):
@@ -99,22 +308,57 @@ def lambert_pdf(normal, direction):
     return torch.where(cos_t > 0.0, fdiv(cos_t, PI), 0.0)
 
 
+# ---------------------------------------------------------------------------
+# Sample / eval results
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class BsdfSample:
-    """The sampled lobe; lambert sets direction, weight, the pdfs and the
-    lobe roughness (its lobe type is 0 = diffuse, never delta)."""
-
     direction: torch.Tensor        # (N,3)
     weight: torch.Tensor           # (N,3) — f * cos / pdf
     pdf: torch.Tensor              # (N,)
     directional_pdf: torch.Tensor  # (N,)
-    lobe_type: torch.Tensor        # (N,) i32: 0 diffuse, 1 glossy
-    lobe_roughness: torch.Tensor   # (N,)
     is_delta: torch.Tensor         # (N,) bool
+    medium_event: torch.Tensor     # (N,) i32: +1 enter a medium, -1 leave
+    lobe_type: torch.Tensor        # (N,) i32: 0 diffuse, 1 glossy, 2 trans
+    lobe_roughness: torch.Tensor   # (N,)
 
+    @classmethod
+    def invalid(cls, shape, device):
+        z = torch.zeros(shape, device=device)
+        z3 = torch.zeros(shape + (3,), device=device)
+        zi = torch.zeros(shape, dtype=torch.int32, device=device)
+        return cls(direction=z3, weight=z3, pdf=z, directional_pdf=z,
+                   is_delta=torch.zeros(shape, dtype=torch.bool,
+                                        device=device),
+                   medium_event=zi, lobe_type=zi, lobe_roughness=z)
+
+    def replace(self, **changes) -> "BsdfSample":
+        return dataclasses.replace(self, **changes)
+
+
+class BsdfEval(NamedTuple):
+    value: torch.Tensor   # (N,3)
+    pdf: torch.Tensor     # (N,)
+    is_delta: torch.Tensor
+
+
+def select_sample(mask, a: BsdfSample, b: BsdfSample) -> BsdfSample:
+    """Lanes where ``mask`` take ``a``, else ``b``."""
+    out = {}
+    for f in dataclasses.fields(BsdfSample):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
+        out[f.name] = torch.where(m, x, y)
+    return BsdfSample(**out)
+
+
+# ---------------------------------------------------------------------------
+# Per-type samplers (each consumes RNG like its reference branch)
+# ---------------------------------------------------------------------------
 
 def _sample_lambert(m: MatLanes, normal, state, diffuse_occlusion):
-    """(reference: pathtrace.metal:5163-5196)"""
+    """case 0 (reference: pathtrace.metal:5163-5196); 2 draws"""
     state, local = rng_ops.sample_cosine_hemisphere(state)
     wi = safe_normalize(to_world(local, normal))
     cos_i = dot(normal, wi)
@@ -125,26 +369,123 @@ def _sample_lambert(m: MatLanes, normal, state, diffuse_occlusion):
     weight = torch.clamp_min(
         f * (cos_i / torch.clamp_min(pdf, 1e-20))[..., None], 0.0)
     ok = (cos_i > 0.0) & (pdf > 0.0) & torch.isfinite(weight).all(-1)
-    zero = torch.zeros_like(pdf)
+    out = BsdfSample.invalid(pdf.shape, pdf.device)
+    return state, out.replace(
+        direction=where3(ok, wi, out.direction),
+        weight=where3(ok, weight, out.weight),
+        pdf=torch.where(ok, pdf, 0.0),
+        directional_pdf=torch.where(ok, pdf, 0.0),
+        lobe_roughness=torch.where(ok, 1.0, 0.0))
+
+
+def _sample_dielectric(m: MatLanes, normal, incident, front_face, state):
+    """case 2 (reference: pathtrace.metal:5647-5695); 1 draw"""
+    is_thin = (m.mat_type == C.MATERIAL_DIELECTRIC) & (m.thin > 0.5)
+    ref_idx = torch.clamp_min(m.eta, 1.0)
+    inside = ~is_thin & ~front_face
+    eta_i = torch.where(inside, ref_idx, 1.0)
+    eta_t = torch.where(inside, 1.0, ref_idx)
+    relative_eta = eta_i / eta_t
+    cos_o = torch.clamp(dot(-incident, normal), -1.0, 1.0)
+    fr, cos_t = fresnel_dielectric_exact(cos_o, eta_i, eta_t)
+    state, xi = rng_ops.rand_uniform(state)
+    choose_reflect = xi < fr
+    refl_dir = reflect(incident, normal)
+    refr_dir = refract(incident, normal, relative_eta)
+    refr_len2 = dot(refr_dir, refr_dir)
+    refr_unit = refr_dir / torch.sqrt(
+        torch.clamp_min(refr_len2, 1e-38))[..., None]
+    eta_scale = (eta_t * eta_t) / (eta_i * eta_i)
+    dir_scale = eta_scale * (cos_t.abs() / torch.clamp_min(cos_o.abs(), 1e-6))
+    refr_weight = torch.clamp_min(1.0 - fr, 0.0) * dir_scale
+    reflecting = choose_reflect | (refr_len2 <= 0.0)
+    direction = where3(reflecting, refl_dir, refr_unit)
+    weight = torch.where(reflecting, fr, refr_weight)[..., None].expand(
+        direction.shape)
+    medium_event = torch.where(~reflecting & ~is_thin,
+                               torch.where(front_face, 1, -1), 0)
+    one = torch.ones_like(fr)
     return state, BsdfSample(
-        direction=where3(ok, wi, torch.zeros_like(wi)),
-        weight=where3(ok, weight, torch.zeros_like(weight)),
-        pdf=torch.where(ok, pdf, zero),
-        directional_pdf=torch.where(ok, pdf, zero),
-        lobe_type=torch.zeros(pdf.shape, dtype=torch.int32,
-                              device=pdf.device),
-        lobe_roughness=torch.where(ok, 1.0, zero),
-        is_delta=torch.zeros(pdf.shape, dtype=torch.bool, device=pdf.device))
+        direction=safe_normalize(direction), weight=weight.contiguous(),
+        pdf=one, directional_pdf=one.clone(),
+        is_delta=torch.ones_like(front_face),
+        medium_event=medium_event.to(torch.int32),
+        lobe_type=torch.ones(fr.shape, dtype=torch.int32, device=fr.device),
+        lobe_roughness=torch.zeros_like(fr))
 
 
-def sample_bsdf(m: MatLanes, normal, state, diffuse_occlusion,
-                material_types):
-    """Type-dispatched sampling; this slice has the lambert branch only.
-    Returns (new_state, BsdfSample)."""
-    if set(int(t) for t in material_types) - {C.MATERIAL_LAMBERTIAN}:
+def _check_types(material_types):
+    extra = set(int(t) for t in material_types) - set(PORTED_TYPES)
+    if extra:
         raise NotImplementedError(
-            "only lambert materials are ported (ROADMAP Queue 1, step 6)")
-    return _sample_lambert(m, normal, state, diffuse_occlusion)
+            f"material types {sorted(extra)} are not ported (metal: ROADMAP "
+            "Queue 1 step 6; plastic, subsurface, carpaint: step 13)")
+
+
+def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
+                clamp_p: ClampParams, diffuse_occlusion, material_types):
+    """Type-dispatched sampling over the wavefront (reference:
+    pathtrace.metal sample_bsdf:5136-5717). Returns (new_state,
+    BsdfSample)."""
+    from metal_pathtracer_tpu_torch.ops import pbr as pbr_ops
+
+    _check_types(material_types)
+    types = set(int(t) for t in material_types)
+    out = BsdfSample.invalid(state.shape, state.device)
+    new_state = state
+
+    def merge(type_id, branch):
+        nonlocal out, new_state
+        s, o = branch
+        mask = m.mat_type == type_id
+        out = select_sample(mask, o, out)
+        new_state = torch.where(mask, s, new_state)
+
+    if C.MATERIAL_LAMBERTIAN in types:
+        merge(C.MATERIAL_LAMBERTIAN,
+              _sample_lambert(m, normal, state, diffuse_occlusion))
+    if C.MATERIAL_DIELECTRIC in types:
+        merge(C.MATERIAL_DIELECTRIC,
+              _sample_dielectric(m, normal, incident, front_face, state))
+    if C.MATERIAL_PBR in types:
+        merge(C.MATERIAL_PBR,
+              pbr_ops.sample_pbr(m, normal, wo, incident, state, clamp_p,
+                                 diffuse_occlusion))
+    return new_state, out
+
+
+def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
+                  diffuse_occlusion, material_types) -> BsdfEval:
+    """Type-dispatched evaluation, no RNG (reference: pathtrace.metal
+    evaluate_bsdf:4950-5136)."""
+    from metal_pathtracer_tpu_torch.ops import pbr as pbr_ops
+
+    _check_types(material_types)
+    types = set(int(t) for t in material_types)
+    cos_o = torch.clamp_min(dot(normal, wo), 0.0)
+    cos_i = torch.clamp_min(dot(normal, wi), 0.0)
+    geom_ok = (cos_i > 0.0) & (cos_o > 0.0)
+    value = torch.zeros_like(normal)
+    pdf = torch.zeros_like(cos_o)
+    is_delta = torch.zeros_like(geom_ok)
+    if C.MATERIAL_LAMBERTIAN in types:
+        mask = (m.mat_type == C.MATERIAL_LAMBERTIAN) & geom_ok
+        albedo = material_base_color(m) * torch.clamp(
+            diffuse_occlusion, 0.0, 1.0)[..., None]
+        value = where3(mask, fdiv(albedo, PI), value)
+        pdf = torch.where(mask, lambert_pdf(normal, wi), pdf)
+    if C.MATERIAL_DIELECTRIC in types:
+        is_delta = is_delta | (m.mat_type == C.MATERIAL_DIELECTRIC)
+    if C.MATERIAL_PBR in types:
+        mask = (m.mat_type == C.MATERIAL_PBR) & geom_ok
+        ev = pbr_ops.evaluate_pbr(m, normal, wo, wi, clamp_p,
+                                  diffuse_occlusion)
+        value = where3(mask, ev.value, value)
+        pdf = torch.where(mask, ev.pdf, pdf)
+        is_delta = torch.where(mask, ev.is_delta, is_delta)
+    bad = (pdf <= 0.0) | ~torch.isfinite(value).all(-1)
+    value = where3(bad, torch.zeros_like(value), value)
+    return BsdfEval(value=value, pdf=pdf, is_delta=is_delta)
 
 
 def bsdf_cone_spread_increment(lobe_type, roughness, is_delta):

@@ -13,7 +13,7 @@ from metal_pathtracer_tpu_torch.schema import CameraUniforms
 
 
 def build_camera(settings, width: int, height: int,
-                 device="cpu") -> CameraUniforms:
+                 device="cuda") -> CameraUniforms:
     """Settings -> camera basis, computed in numpy exactly as the reference
     does (reference: UniformBuilder.mm:34-83), then moved to ``device``."""
     aspect = float(width) / float(height)

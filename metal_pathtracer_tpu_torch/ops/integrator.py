@@ -1,9 +1,17 @@
 """Wavefront path integrator (``ops/integrator.py`` twin).
 
-``trace_paths`` covers the lambert slice: lambert materials under the
-gradient or solid background, Russian roulette on or off, no NEE. Each
-depth is one K1 trace and one K2 shade (``ops/kernels/shade.py``); other
-configurations raise ``NotImplementedError`` naming their ROADMAP step.
+``trace_paths`` covers two configurations, each a depth loop in
+``ops/kernels/shade.py``:
+
+- lambert under the gradient or solid background, no NEE: one K1 trace
+  and one K2 ``full`` shade per depth;
+- lambert, dielectric and untextured PBR under an environment map with
+  alias-table NEE, MIS, the medium stack and the environment spec-NEE
+  chain: K1, K2 ``s1``, the alias sample, a K1 any-hit shadow trace, K2
+  ``s2`` and the spec-NEE estimator per depth.
+
+Other configurations raise ``NotImplementedError`` naming their ROADMAP
+step.
 """
 
 from __future__ import annotations
@@ -12,7 +20,8 @@ import dataclasses
 
 import torch
 
-from metal_pathtracer_tpu import constants as C
+from metal_pathtracer_tpu_torch import constants as C
+from metal_pathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from metal_pathtracer_tpu_torch.ops import camera as camera_ops
 from metal_pathtracer_tpu_torch.ops import rng as rng_ops
 from metal_pathtracer_tpu_torch.ops.vecmath import (
@@ -44,11 +53,10 @@ def to_working_space(color, static: StaticConfig):
 
 @dataclasses.dataclass
 class PathCarry:
-    """Per-lane path state, updated in place by the shade stage.
-
-    The reference's ``last_pdf``/``last_delta`` (MIS), medium stack, env LOD
-    and specular depth are inert without NEE, media or delta lobes; they
-    come back with the slices that read them."""
+    """Per-lane path state (the JAX package's ``PathCarry`` without its
+    ray counters), updated in place by the shade stages. The gradient
+    path's ``full`` stage reads and writes the first fourteen fields; the
+    environment path's ``s1``/``s2`` stages all of them."""
 
     state: torch.Tensor          # (N,)  i64 holding the uint32 RNG state
     ray_o: torch.Tensor          # (N,3) f32
@@ -64,13 +72,22 @@ class PathCarry:
     aov_normal: torch.Tensor     # (N,3) f32
     cone_width: torch.Tensor     # (N,)  f32 — ray cone
     cone_spread: torch.Tensor    # (N,)  f32
+    last_pdf: torch.Tensor       # (N,)  f32 — MIS: pdf of the last bounce
+    last_delta: torch.Tensor     # (N,)  bool — last bounce was a delta lobe
+    medium_stack: torch.Tensor   # (N,8,3) f32 — sigma_a of nested media
+    medium_depth: torch.Tensor   # (N,)  i32
+    specular_depth: torch.Tensor  # (N,) i32 — consecutive delta bounces
+    env_lod: torch.Tensor        # (N,)  f32 — environment LOD for a miss
+    env_lod_active: torch.Tensor  # (N,) bool
 
     @classmethod
     def start(cls, state, ray_o, ray_d, cone_width: float,
               cone_spread: float) -> "PathCarry":
         n, dev = ray_o.shape[0], ray_o.device
+        z = torch.zeros(n, device=dev)
         z3 = torch.zeros((n, 3), device=dev)
         zb = torch.zeros(n, dtype=torch.bool, device=dev)
+        zi = torch.zeros(n, dtype=torch.int32, device=dev)
         return cls(
             state=state.contiguous(), ray_o=ray_o.contiguous(),
             ray_d=ray_d.contiguous(), throughput=torch.ones((n, 3), device=dev),
@@ -79,7 +96,11 @@ class PathCarry:
             prev_prim=torch.full((n,), -1, dtype=torch.int32, device=dev),
             is_first_hit=~zb, aov_albedo=z3.clone(), aov_normal=z3.clone(),
             cone_width=torch.full((n,), cone_width, device=dev),
-            cone_spread=torch.full((n,), cone_spread, device=dev))
+            cone_spread=torch.full((n,), cone_spread, device=dev),
+            last_pdf=torch.ones(n, device=dev), last_delta=~zb,
+            medium_stack=torch.zeros((n, C.MAX_MEDIUM_STACK, 3), device=dev),
+            medium_depth=zi, specular_depth=zi.clone(), env_lod=z,
+            env_lod_active=zb.clone())
 
 
 def _primary_cone_spread(uniforms: Uniforms, static: StaticConfig) -> float:
@@ -93,16 +114,28 @@ def _primary_cone_spread(uniforms: Uniforms, static: StaticConfig) -> float:
     return float(footprint / torch.clamp_min(focus, 1e-6))
 
 
+def env_nee(scene: SceneArrays, static: StaticConfig) -> bool:
+    """The environment path: an environment background with a map."""
+    return static.background_mode == 2 and scene.environment is not None
+
+
 def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
-    """Raise NotImplementedError for configurations outside this slice."""
+    """Raise NotImplementedError for configurations not ported yet."""
     types = set(static.material_types)
-    if not types <= {C.MATERIAL_LAMBERTIAN}:
+    if env_nee(scene, static):
+        if not types <= set(bsdf_ops.PORTED_TYPES):
+            raise NotImplementedError(
+                f"material types {sorted(types)}: lambert, dielectric and "
+                "PBR are ported (metal: ROADMAP Queue 1 step 6; plastic, "
+                "subsurface, carpaint, diffuse lights: step 13)")
+        if static.enable_mnee:
+            raise NotImplementedError(
+                "MNEE chains: ROADMAP Queue 1, step 8 (spec-NEE is ported)")
+    elif not types <= {C.MATERIAL_LAMBERTIAN}:
         raise NotImplementedError(
-            f"material types {sorted(types)}: only lambert is ported "
-            "(ROADMAP Queue 1, steps 6 and 13)")
-    if static.background_mode not in (0, 1):
-        raise NotImplementedError(
-            "environment background: ROADMAP Queue 1, step 5 (env NEE)")
+            f"material types {sorted(types)} without an environment map: "
+            "the no-NEE path ports lambert only (ROADMAP Queue 1, steps 6 "
+            "and 13)")
     if static.debug_specular_only:
         raise NotImplementedError("debugSpecularOnly is not ported")
     if scene.triangles is None or scene.triangles.count == 0:
@@ -116,16 +149,22 @@ def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
     """Trace a wavefront of primary rays to completion.
 
     Returns (state, radiance, aov_albedo, aov_normal, stats) with
-    ``stats["rays"]`` the scene traces issued (an int)."""
+    ``stats["rays"]`` the scene traces issued (an int) and
+    ``stats["shadow_rays"]`` the shadow traces (a 0-dim tensor on the
+    wavefront's device, so counting them costs no host sync)."""
     from metal_pathtracer_tpu_torch.ops.kernels import shade
 
     check_supported(scene, static)
     lens = max(2.0 * float(uniforms.camera.lens_radius), 0.0)
     carry = PathCarry.start(state, ray_o, ray_d, lens,
                             _primary_cone_spread(uniforms, static))
-    rays = shade.trace_paths_fused(scene, uniforms, static, carry)
+    if env_nee(scene, static):
+        rays, shadow = shade.trace_paths_nee(scene, uniforms, static, carry)
+    else:
+        rays = shade.trace_paths_fused(scene, uniforms, static, carry)
+        shadow = torch.zeros((), dtype=torch.int64, device=ray_o.device)
     return (carry.state, carry.radiance, carry.aov_albedo, carry.aov_normal,
-            {"rays": rays})
+            {"rays": rays, "shadow_rays": shadow})
 
 
 def integrate_pixels(scene: SceneArrays, uniforms: Uniforms,

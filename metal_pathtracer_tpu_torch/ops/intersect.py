@@ -1,7 +1,8 @@
 """Hit records and scene tracing (``ops/intersect.py`` twin, triangle half).
 
 Spheres and rectangles (the analytic primitives and their TPU kernels)
-are ROADMAP Queue 1 step 11; this slice traces the triangle soup only.
+are ROADMAP Queue 1 step 11; the port traces the triangle soup only:
+nearest hits through K1 closest-hit, shadow rays through K1 any-hit.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import dataclasses
 
 import torch
 
-from metal_pathtracer_tpu.constants import (
+from metal_pathtracer_tpu_torch.constants import (
     INFINITY_T,
     PRIMITIVE_NONE,
     RAY_ORIGIN_EPSILON,
@@ -77,13 +78,33 @@ def trace_scene(origin, direction, scene, t_min, t_max,
     return rec
 
 
-def offset_ray_origin(rec: HitRecord, direction):
-    """Self-intersection-avoiding origin (reference: pathtrace.metal
-    offset_ray_origin:1196-1207)."""
-    normal = rec.shading_normal
-    bad = ~torch.isfinite(normal).all(-1) | (dot(normal, normal) <= 0.0)
-    normal = where3(bad, rec.normal, normal)
-    sign = torch.where(dot(direction, normal) >= 0.0, 1.0, -1.0)
-    distance = torch.clamp_min(rec.t.abs() * 1e-4, RAY_ORIGIN_EPSILON)
-    origin = fma(normal, (sign * distance)[..., None], rec.point)
+def trace_occluded(origin, direction, scene, t_min, t_max):
+    """Any-hit (shadow) trace over the scene's triangles: (N,) bool
+    (``intersect.trace_occluded:303``; K1 any-hit)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse
+
+    if scene.triangles is None or scene.triangles.count == 0:
+        return torch.zeros(origin.shape[:-1], dtype=torch.bool,
+                           device=origin.device)
+    return traverse.trace_any(origin, direction, t_min, t_max,
+                              scene.tri_bvh, scene.triangles)
+
+
+def offset_origin(point, shading_normal, normal, t, direction):
+    """Self-intersection-avoiding origin from plain planes (reference:
+    pathtrace.metal offset_ray_origin:1196-1207): off the shading normal
+    (the geometric ``normal`` where that is not finite and non-zero) by
+    max(|t| 1e-4, eps), on the side of ``direction``, then eps/2 along it."""
+    bad = ~torch.isfinite(shading_normal).all(-1) \
+        | (dot(shading_normal, shading_normal) <= 0.0)
+    n = where3(bad, normal, shading_normal)
+    sign = torch.where(dot(direction, n) >= 0.0, 1.0, -1.0)
+    distance = torch.clamp_min(t.abs() * 1e-4, RAY_ORIGIN_EPSILON)
+    origin = fma(n, (sign * distance)[..., None], point)
     return fma(direction, RAY_ORIGIN_EPSILON * 0.5, origin)
+
+
+def offset_ray_origin(rec: HitRecord, direction):
+    """``offset_origin`` of a hit record (``intersect.offset_ray_origin``)."""
+    return offset_origin(rec.point, rec.shading_normal, rec.normal, rec.t,
+                         direction)

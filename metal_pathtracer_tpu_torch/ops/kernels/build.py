@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds). The library lands in ``_build/`` inside the package,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one is reused.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
+started together, into an object file; one more ``nvcc`` links the
+objects into a shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The library
+lands in ``_build/`` inside the package, named by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one is reused.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so nvcc never
 contracts ``a * b + c`` on its own: the kernels place their FMAs by hand
@@ -28,8 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -54,7 +54,29 @@ SIGNATURES = {
         _f, _f, _f, _f, _f,                     # clamp settings
         *[_vp] * 14,                            # PathCarry tensors
         _vp],                                   # stream
+    "mpt_trace_any": [
+        _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
+        _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
+        _vp, _vp, _vp,                          # v0 v1 v2
+        _vp, _vp],                              # out flags, stream
+    # n, scalars (host float[]), t tri u v, shade_packed, material table,
+    # its row count, two stage inputs, PathCarry pointers (host void*[]),
+    # output, stream
+    "mpt_shade_s1": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                     _vp, _vp, _vp, _vp, _vp],
+    "mpt_shade_s2": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                     _vp, _vp, _vp, _vp, _vp],
 }
+
+
+def floats(values) -> ctypes.Array:
+    """A host float[] argument (kept alive by the caller's expression)."""
+    return (ctypes.c_float * len(values))(*values)
+
+
+def pointers(values) -> ctypes.Array:
+    """A host void*[] argument of device pointers."""
+    return (ctypes.c_void_p * len(values))(*values)
 
 
 def nvcc_path() -> str:
@@ -88,16 +110,37 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    nvcc = nvcc_path()
+    tag = f"{out[:-3]}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tag}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate(timeout=600)
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", f"{tag}.tmp",
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stdout + proc.stderr)
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(out[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+        fh.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(f"{tag}.tmp", out)
     return out
 
 

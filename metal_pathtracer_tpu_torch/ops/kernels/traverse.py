@@ -1,19 +1,28 @@
-"""K1: closest-hit triangle trace of a ray wavefront.
+"""K1: closest-hit and any-hit triangle traces of a ray wavefront.
 
-Replaces the TPU packet-traversal kernel ``ops/pallas/traverse.py``
+Replace the TPU packet-traversal kernel ``ops/pallas/traverse.py``
 (``_kernel:60`` / ``_packet_body:106``, launched by ``_call:596`` via
-``packet_trace:659``). ``trace_closest`` launches ``csrc/traverse.cu`` on
-CUDA tensors and runs ``trace_closest_reference``, the exit-link loop of
-``ops/traversal.py trace_triangles:66-171``, on CPU tensors. Both compute
-the same bits: the same tree order, strict ``<`` across leaves, first
-minimal slot within a leaf, and the reference's FMA placement.
+``packet_trace:659``), in its closest-hit mode and its ``any_hit=True``
+mode (``traverse.py:280-296``, the shadow rays). ``trace_closest`` and
+``trace_any`` launch ``csrc/traverse.cu`` on CUDA tensors and run their
+plain versions on CPU tensors:
+
+- ``trace_closest_reference`` is the exit-link loop of
+  ``ops/traversal.py trace_triangles:66-171``; kernel and plain version
+  compute the same bits: the same tree order, strict ``<`` across leaves,
+  first minimal slot within a leaf, and the reference's FMA placement;
+- ``trace_any_reference`` is the closest-hit reference's hit flag, each
+  lane's walk stopped at its first hit (which changes no flag). The
+  any-hit kernel walks the same tree and stops at the first triangle
+  inside the window, so its flag equals that one bit for bit (which hit
+  it found may differ; only the flag is the contract).
 """
 
 from __future__ import annotations
 
 import torch
 
-from metal_pathtracer_tpu.constants import INFINITY_T
+from metal_pathtracer_tpu_torch.constants import INFINITY_T
 from metal_pathtracer_tpu_torch.ops.kernels import build
 from metal_pathtracer_tpu_torch.ops.vecmath import cross, dot
 
@@ -46,11 +55,19 @@ def _intersect_tris(origin, direction, tri_ids, tris, t_min, t_max,
 
 
 def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
-                            exclude_mesh, exclude_prim):
+                            exclude_mesh, exclude_prim, walk=None,
+                            first_hit=False):
     """Plain PyTorch K1: every lane walks the exit-link BVH in lockstep
     (node = hit ? (leaf ? exit : node + 1) : exit) until all lanes leave
     the tree. Returns (t, tri, u, v); tri is -1 on a miss and t then is
-    the lane's t_max."""
+    the lane's t_max. ``first_hit`` ends each lane's walk at its first
+    hit, at the slot where the any-hit kernel returns: the hit flag is
+    the same, (t, tri, u, v) are then that first hit's.
+
+    ``walk``, a dict, receives what the walk touched (the kernel visits
+    the same nodes): ``nodes`` and ``slots`` masks over the node and
+    triangle-slot arrays, and the ``node_visits`` and ``tri_tests``
+    counts."""
     n = origin.shape[0]
     dev = origin.device
     n_nodes = bvh.node_count
@@ -68,7 +85,14 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
     # lanes whose window is empty (dead lanes: t_max = 0) miss every box
     live = lanes[t_max >= t_min]
     node = node[live]
+    if walk is not None:
+        walk.update(nodes=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
+                    slots=torch.zeros(n_slots, dtype=torch.bool, device=dev),
+                    node_visits=0, tri_tests=0)
     while live.numel():
+        if walk is not None:
+            walk["nodes"][node] = True
+            walk["node_visits"] += int(node.numel())
         o, inv = origin[live], inv_dir[live]
         t0 = (bvh.bounds_min[node] - o) * inv
         t1 = (bvh.bounds_max[node] - o) * inv
@@ -86,7 +110,18 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
             t, u, v, valid = _intersect_tris(
                 origin[li], direction[li], tri_ids, tris, t_min, best_t[li],
                 exclude_mesh[li], exclude_prim[li])
-            valid &= ar < pcount[leaf, None]
+            in_leaf = ar < pcount[leaf, None]
+            valid &= in_leaf
+            if first_hit:
+                # slots past the first one inside the window go untested
+                accept = valid & (t < best_t[li][:, None])
+                first = torch.where(accept.any(-1),
+                                    accept.int().argmax(-1), MAX_LEAF)
+                in_leaf &= ar <= first[:, None]
+                valid &= ar <= first[:, None]
+            if walk is not None:
+                walk["slots"][slot[in_leaf]] = True
+                walk["tri_tests"] += int(in_leaf.sum())
             t_masked = torch.where(valid, t, INFINITY_T)
             k = torch.argmin(t_masked, -1, keepdim=True)  # first minimum
             t_hit = t_masked.gather(-1, k)[:, 0]
@@ -99,6 +134,8 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
         descend = box_hit & (pcount == 0)
         node = torch.where(descend, node + 1, bvh.exit_index[node].long())
         more = node < n_nodes
+        if first_hit:
+            more &= best_tri[live] < 0
         live, node = live[more], node[more]
     return best_t, best_tri, best_u, best_v
 
@@ -159,3 +196,57 @@ def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
 
 #: K1 launches since the last reset (chip_smoke.py reads and resets it)
 trace_closest.launches = 0
+
+
+def trace_any_reference(origin, direction, t_min, t_max, bvh, tris,
+                        walk=None):
+    """Plain PyTorch any-hit: the closest-hit reference's hit flag, with
+    no self-hit exclusion and each lane's walk stopped at its first hit.
+    Returns (N,) bool; ``walk`` as in ``trace_closest_reference``."""
+    none = torch.full((origin.shape[0],), -1, dtype=torch.int32,
+                      device=origin.device)
+    return trace_closest_reference(origin, direction, t_min, t_max, bvh,
+                                   tris, none, none, walk=walk,
+                                   first_hit=True)[1] >= 0
+
+
+def trace_any(origin, direction, t_min: float, t_max, bvh, tris):
+    """Occlusion flag per ray: a triangle at t in [t_min, t_max], (N,)
+    bool. t_max (N,) f32, 0 marks a lane that traces nothing. CPU tensors
+    take the plain version; CUDA tensors launch K1's any-hit kernel."""
+    n = origin.shape[0]
+    dev = origin.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,))
+    if dev.type == "cpu":
+        return trace_any_reference(origin, direction, float(t_min), t_max,
+                                   bvh, tris)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_any: unsupported device {dev}")
+    t_max = t_max.contiguous()
+    args = [origin, direction, t_max, bvh.bounds_min, bvh.bounds_max,
+            bvh.prim_offset, bvh.prim_count, bvh.exit_index,
+            bvh.prim_indices, tris.v0, tris.v1, tris.v2]
+    for a in args:
+        if a.device != dev or not a.is_contiguous():
+            raise ValueError("trace_any: every tensor must be contiguous "
+                             f"and on {dev}")
+    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
+        raise ValueError("trace_any: rays must be float32")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = build.load()
+    p = lambda x: x.data_ptr()
+    err = lib.mpt_trace_any(
+        n, p(origin), p(direction), float(t_min), p(t_max),
+        bvh.node_count, p(bvh.bounds_min), p(bvh.bounds_max),
+        p(bvh.prim_offset), p(bvh.prim_count), p(bvh.exit_index),
+        p(bvh.prim_indices), bvh.prim_indices.shape[0],
+        p(tris.v0), p(tris.v1), p(tris.v2), p(out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "mpt_trace_any")
+    trace_any.launches += 1
+    return out
+
+
+#: any-hit launches since the last reset
+trace_any.launches = 0

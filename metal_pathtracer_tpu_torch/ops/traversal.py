@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from metal_pathtracer_tpu.constants import INFINITY_T, PRIMITIVE_TRIANGLE
+from metal_pathtracer_tpu_torch.constants import INFINITY_T, PRIMITIVE_TRIANGLE
 from metal_pathtracer_tpu_torch.ops.intersect import HitRecord
 from metal_pathtracer_tpu_torch.ops.kernels.traverse import trace_closest
 from metal_pathtracer_tpu_torch.ops.vecmath import (

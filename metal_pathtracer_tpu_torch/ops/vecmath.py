@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from metal_pathtracer_tpu.constants import LUMINANCE_WEIGHTS
+from metal_pathtracer_tpu_torch.constants import LUMINANCE_WEIGHTS
 
 
 def fma(a, b, c):

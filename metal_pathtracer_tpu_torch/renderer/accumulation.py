@@ -17,10 +17,10 @@ class RenderState:
     radiance_sq_sum: torch.Tensor  # (H,W,3) f32 — sum of sample^2
     frame_index: int = 0           # dispatch counter
     ray_count: int = 0             # scene traces issued
-    shadow_ray_count: int = 0      # shadow traces issued (none without NEE)
+    shadow_ray_count: int = 0      # shadow traces issued (NEE + spec-NEE)
 
     @classmethod
-    def create(cls, width: int, height: int, device="cpu") -> "RenderState":
+    def create(cls, width: int, height: int, device="cuda") -> "RenderState":
         z3 = torch.zeros((height, width, 3), device=device)
         return cls(radiance_sum=z3, radiance_sq_sum=z3.clone(),
                    sample_count=torch.zeros((height, width), dtype=torch.int64,

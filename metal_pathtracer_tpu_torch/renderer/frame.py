@@ -5,7 +5,12 @@ Lanes are pixels in scan order. The TPU tiles them 8x128 to match its
 traversal packets; one thread per ray on the GPU has no packet to fill, so
 scan order stays until a measured reorder beats it. A chunk is the whole
 frame up to 2^21 lanes (1080p is 2,073,600): per depth that is one K1 and
-one K2 launch and one host sync for the whole image.
+one K2 launch and one host sync for the whole image (the environment
+path: K1, K2 s1, K1 any-hit, K2 s2 and the spec-NEE any-hit).
+
+``ray_count`` counts the scene traces and ``shadow_ray_count`` the shadow
+traces (NEE and spec-NEE), as the JAX package counts them; Mrays/s is
+their sum over the time (``bench.py:29-33``).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ def render_rows(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
     lane_alb = torch.zeros_like(lane_rad)
     lane_nrm = torch.zeros_like(lane_rad)
     rays = state.ray_count
+    shadow = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(n_samples):
         # frameIndex == sampleCount == dispatch index (reference:
         # Accumulation.h incrementFrame:54-57, UniformBuilder.mm:31-33)
@@ -57,6 +63,7 @@ def render_rows(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
             lane_alb[sl] = albedo
             lane_nrm[sl] = normal
             rays += stats["rays"]
+            shadow = shadow + stats["shadow_rays"]
     shape = (height, width, 3)
     return state.replace(
         radiance_sum=lane_rad.reshape(shape),
@@ -65,7 +72,8 @@ def render_rows(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
         albedo=lane_alb.reshape(shape),
         normal=lane_nrm.reshape(shape),
         frame_index=state.frame_index + n_samples,
-        ray_count=rays)
+        ray_count=rays,
+        shadow_ray_count=state.shadow_ray_count + int(shadow))
 
 
 def render_samples(scene: SceneArrays, uniforms: Uniforms, state: RenderState,

@@ -1,5 +1,5 @@
 """Headless rendering on a CUDA device (``renderer/headless.py`` twin of
-``TpuBackend``, without checkpoints and environment maps)."""
+``TpuBackend``, without checkpoints)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,6 @@ from typing import Optional
 
 import numpy as np
 
-from metal_pathtracer_tpu.settings import BackgroundMode, RenderSettings
 from metal_pathtracer_tpu_torch.ops.camera import build_camera
 from metal_pathtracer_tpu_torch.renderer import frame
 from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
@@ -17,6 +16,7 @@ from metal_pathtracer_tpu_torch.schema import (
     settings_to_static,
     settings_to_uniforms,
 )
+from metal_pathtracer_tpu_torch.settings import BackgroundMode, RenderSettings
 
 
 @dataclasses.dataclass
@@ -33,6 +33,7 @@ class HeadlessRenderOutput:
     normal: Optional[np.ndarray] = None
     sample_count: Optional[np.ndarray] = None
     ray_count: int = 0           # scene traces issued over the render
+    shadow_ray_count: int = 0    # shadow traces issued over the render
 
 
 # Samples per frame.render_samples call (the reference batches <=16 spp
@@ -49,10 +50,13 @@ class CudaBackend:
     def render(self, resources, settings: RenderSettings, width: int,
                height: int, spp_total: int, device="cuda",
                batch: int = DEFAULT_BATCH) -> HeadlessRenderOutput:
-        if settings.backgroundMode == BackgroundMode.ENVIRONMENT:
-            raise NotImplementedError(
-                "environment backgrounds: ROADMAP Queue 1, step 5")
-        scene = resources.build_arrays(device=device)
+        environment = None
+        if settings.backgroundMode == BackgroundMode.ENVIRONMENT \
+                and settings.environmentMapPath:
+            from metal_pathtracer_tpu_torch.ops import env as env_ops
+            environment = env_ops.load_environment(
+                settings.environmentMapPath, device)
+        scene = resources.build_arrays(environment=environment, device=device)
         static = settings_to_static(settings, width, height,
                                     resources.material_types_present())
         uniforms = settings_to_uniforms(
@@ -73,4 +77,5 @@ class CudaBackend:
             albedo=state.albedo.cpu().numpy(),
             normal=(state.normal * 0.5 + 0.5).cpu().numpy(),
             sample_count=state.sample_count.cpu().numpy(),
-            ray_count=state.ray_count)
+            ray_count=state.ray_count,
+            shadow_ray_count=state.shadow_ray_count)

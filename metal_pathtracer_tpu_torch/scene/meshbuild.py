@@ -22,7 +22,7 @@ MAX_LEAF = 4
 SAH_BINS = 16
 
 
-def build_triangle_arrays(meshes, device="cpu"):
+def build_triangle_arrays(meshes, device="cuda"):
     """Merge world-space meshes into SoA triangle arrays plus their BVH.
     Returns (TrianglesSoA, BvhSoA)."""
     cols = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1",
@@ -59,7 +59,7 @@ def build_triangle_arrays(meshes, device="cpu"):
 
 
 def _native_lib():
-    from metal_pathtracer_tpu.utils.nativebuild import ensure_built
+    from metal_pathtracer_tpu_torch.utils.nativebuild import ensure_built
 
     path = ensure_built("libbvh_builder.so")
     if path is None:

@@ -1,9 +1,9 @@
 """Host-side scene container and device-array builder (jax-free twin of
 ``scene/resources.py``).
 
-Materials and world-space triangle meshes are supported; the other
-primitive families raise ``NotImplementedError`` naming the ROADMAP step
-that brings them.
+Materials, world-space triangle meshes and an environment map are
+supported; the other primitive families and textures raise
+``NotImplementedError`` naming the ROADMAP step that brings them.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from metal_pathtracer_tpu import constants as C
+from metal_pathtracer_tpu_torch import constants as C
 from metal_pathtracer_tpu_torch.schema import MaterialsSoA, SceneArrays
 
 
@@ -135,6 +135,11 @@ class SceneResources:
         self.materials: List[Material] = []
         self.meshes: List[Mesh] = []
         self.material_names: Dict[str, int] = {}
+        # texture pixels, sRGB flags and wrap modes (ROADMAP step 7 reads
+        # them; build_arrays refuses a scene that binds any)
+        self.texture_images: List[np.ndarray] = []
+        self.texture_srgb: List[bool] = []
+        self.texture_wrap: List = []
 
     def add_material(self, material: Material) -> int:
         """(reference: SceneResources.mm addMaterial:902-1038)"""
@@ -164,7 +169,7 @@ class SceneResources:
     def add_mesh_instance(self, *args, **kwargs):
         _not_in_slice("mesh instances", "step 14, instancing")
 
-    def build_materials_soa(self, device="cpu") -> MaterialsSoA:
+    def build_materials_soa(self, device="cuda") -> MaterialsSoA:
         mats = self.materials or [Material()]
         n = len(mats)
 
@@ -275,20 +280,25 @@ class SceneResources:
         )
 
     def build_arrays(self, environment=None, textures=None,
-                     device="cpu") -> SceneArrays:
-        """Materials plus the merged triangle soup and its BVH."""
-        if environment is not None:
-            _not_in_slice("environment maps", "step 5, env NEE")
-        if textures is not None or any(
+                     device="cuda") -> SceneArrays:
+        """Materials plus the merged triangle soup and its BVH, on
+        ``device``; ``environment`` is an ``EnvironmentSoA``
+        (``ops/env.py``), which must lie on the same device."""
+        if textures is not None or self.texture_images or any(
                 t >= 0 for m in self.materials for t in m.texture_indices):
             _not_in_slice("textures", "step 7, textures")
+        if environment is not None and \
+                environment.texels.device.type != torch.device(device).type:
+            raise ValueError(f"the environment lies on "
+                             f"{environment.texels.device}, not {device}")
         triangles = tri_bvh = None
         if self.meshes:
             from metal_pathtracer_tpu_torch.scene import meshbuild
             triangles, tri_bvh = meshbuild.build_triangle_arrays(
                 self.meshes, device=device)
         return SceneArrays(materials=self.build_materials_soa(device),
-                           triangles=triangles, tri_bvh=tri_bvh)
+                           triangles=triangles, tri_bvh=tri_bvh,
+                           environment=environment)
 
     def material_types_present(self):
         return sorted({m.mat_type for m in self.materials})

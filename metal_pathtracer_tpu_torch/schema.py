@@ -1,9 +1,9 @@
 """Device-side data layouts as torch dataclasses (``schema.py`` twin).
 
 Each struct-of-arrays container of the JAX package becomes a frozen
-dataclass of tensors, field for field. Spheres, rects, the environment,
-textures and instancing are not in this slice: their containers land with
-the ROADMAP steps that read them.
+dataclass of tensors, field for field. Spheres, rects, textures and
+instancing are not ported yet: their containers land with the ROADMAP
+steps that read them.
 """
 
 from __future__ import annotations
@@ -127,12 +127,42 @@ class TrianglesSoA:
 
 
 @dataclasses.dataclass(frozen=True)
+class EnvironmentSoA:
+    """Equirect environment map plus alias tables for importance sampling
+    (reference: src/renderer/EnvImportanceSampler.mm:16-236), field for
+    field the JAX package's; built by ``ops/env.py``.
+
+    The packed rows are bit-identical copies of the tables, one row per
+    lookup: ``flat_quads`` the four bilinear neighbours of every texel of
+    every mip level, ``cond_packed`` [threshold, alias, pdf],
+    ``marg_packed`` [threshold, alias], ``nee_packed`` [pdf, R, G, B] of
+    the mip0 texel the pdf was built from."""
+
+    texels: torch.Tensor                 # (H,W,3) f32 mip0 radiance
+    mips: Tuple[torch.Tensor, ...]       # coarser levels, (Hi,Wi,3)
+    marginal_threshold: torch.Tensor     # (H,)  f32
+    marginal_alias: torch.Tensor         # (H,)  i32
+    conditional_threshold: torch.Tensor  # (H,W) f32
+    conditional_alias: torch.Tensor      # (H,W) i32
+    pdf: torch.Tensor                    # (H,W) f32 solid-angle pdf
+    width: int
+    height: int
+    flat_mips: torch.Tensor              # (sum Hi*Wi, 3) f32
+    mip_meta: Tuple[Tuple[int, int, int], ...]  # (offset, h, w) per level
+    flat_quads: torch.Tensor             # (sum Hi*Wi, 12) f32
+    cond_packed: torch.Tensor            # (H,W,3) f32
+    marg_packed: torch.Tensor            # (H,2) f32
+    nee_packed: torch.Tensor             # (H,W,4) f32
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneArrays:
     """Everything the integrator reads on the device."""
 
     materials: MaterialsSoA
     triangles: Optional[TrianglesSoA] = None
     tri_bvh: Optional[BvhSoA] = None
+    environment: Optional[EnvironmentSoA] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,11 +189,17 @@ class Uniforms:
     sample_count: int
     fixed_rng_seed: int
     background_color: Tuple[float, float, float]
+    environment_rotation: float
+    environment_intensity: float
     firefly_clamp_enabled: float
     firefly_clamp_factor: float
     firefly_clamp_floor: float
     throughput_clamp: float
+    specular_tail_clamp_base: float
+    specular_tail_clamp_roughness_scale: float
+    min_specular_pdf: float
     firefly_clamp_max_contribution: float
+    debug_env_mip_override: float = -1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,12 +212,18 @@ class StaticConfig:
     use_russian_roulette: bool
     background_mode: int            # 0 gradient / 1 solid / 2 environment
     working_color_space: int        # 0 linear sRGB / 1 ACEScg
+    enable_specular_nee: bool = True
+    enable_mnee: bool = False
     debug_specular_only: bool = False
     material_types: Tuple[int, ...] = ()
 
 
-def settings_to_static(settings, width: int, height: int,
-                       material_types) -> StaticConfig:
+def settings_to_static(settings, width: int, height: int, material_types,
+                       texture_slots=None, texture_uv1=None) -> StaticConfig:
+    """The JAX package's signature (``schema.settings_to_static``); the
+    texture arguments select texture-stage code the port does not have
+    yet (ROADMAP Queue 1 step 7), so they change nothing."""
+    del texture_slots, texture_uv1
     return StaticConfig(
         width=int(width),
         height=int(height),
@@ -189,6 +231,8 @@ def settings_to_static(settings, width: int, height: int,
         use_russian_roulette=bool(settings.enableRussianRoulette),
         background_mode=int(settings.backgroundMode),
         working_color_space=int(settings.workingColorSpace),
+        enable_specular_nee=bool(settings.enableSpecularNee),
+        enable_mnee=bool(settings.enableMnee),
         debug_specular_only=bool(settings.debugSpecularOnly),
         material_types=tuple(sorted(set(int(t) for t in material_types))),
     )
@@ -207,10 +251,18 @@ def settings_to_uniforms(settings, camera: CameraUniforms, frame_index: int,
         sample_count=int(sample_count) & 0xFFFFFFFF,
         fixed_rng_seed=int(settings.fixedRngSeed) & 0xFFFFFFFF,
         background_color=tuple(_f32(c) for c in settings.backgroundColor),
+        environment_rotation=_f32(settings.environmentRotation),
+        environment_intensity=_f32(settings.environmentIntensity),
         firefly_clamp_enabled=1.0 if settings.fireflyClampEnabled else 0.0,
         firefly_clamp_factor=_f32(max(settings.fireflyClampFactor, 0.0)),
         firefly_clamp_floor=_f32(max(settings.fireflyClampFloor, 0.0)),
         throughput_clamp=_f32(max(settings.throughputClamp, 0.0)),
+        specular_tail_clamp_base=_f32(
+            max(settings.specularTailClampBase, 0.0)),
+        specular_tail_clamp_roughness_scale=_f32(
+            max(settings.specularTailClampRoughnessScale, 0.0)),
+        min_specular_pdf=_f32(max(settings.minSpecularPdf, 0.0)),
         firefly_clamp_max_contribution=_f32(
             max(settings.fireflyClampMaxContribution, 0.0)),
+        debug_env_mip_override=_f32(settings.debugEnvMipOverride),
     )

@@ -1,11 +1,35 @@
-"""The bench's lambert series scene (``bench.py:261-280``): one lambert
-displaced icosphere under the gradient sky, maxDepth 8, seed 1234."""
+"""The bench's scenes, built with the port's own scene classes (numpy
+only, the JAX package's ``utils/benchscene.py`` and ``bench.py:261-280``
+value for value):
+
+- ``build_lambert_series``: one lambert displaced icosphere under the
+  gradient sky, maxDepth 8, seed 1234;
+- ``build_bench_scene``: the headline, a 1.31M-triangle displaced
+  icosphere, a glass icosphere (dielectric, absorbing interior) and a
+  textured PBR icosphere on a lambert ground under a 1024x512 HDR sun/sky
+  with alias-table NEE, maxDepth 8, seed 1234, spec-NEE on and MNEE off;
+- ``build_untextured_bench_scene``: the headline with its texture cleared
+  and every ``texture_indices`` set to -1, exactly as the JAX package's
+  ``tests/test_fused_shade.py`` ``_bench_like_scene(textured=False)`` does.
+  Textures are ROADMAP Queue 1 step 7.
+"""
 
 from __future__ import annotations
 
-from metal_pathtracer_tpu.settings import RenderSettings
-from metal_pathtracer_tpu_torch.scene.resources import Material, SceneResources
-from metal_pathtracer_tpu_torch.utils.procgen import dragon_class_scene_mesh
+import numpy as np
+
+from metal_pathtracer_tpu_torch import constants as C
+from metal_pathtracer_tpu_torch.ops import env as env_ops
+from metal_pathtracer_tpu_torch.scene.resources import (
+    Material,
+    Mesh,
+    SceneResources,
+)
+from metal_pathtracer_tpu_torch.settings import BackgroundMode, RenderSettings
+from metal_pathtracer_tpu_torch.utils.procgen import (
+    dragon_class_scene_mesh,
+    icosphere,
+)
 
 
 def build_lambert_series(subdivisions: int = 7):
@@ -23,3 +47,134 @@ def build_lambert_series(subdivisions: int = 7):
     resources.add_material(Material(base_color=(0.7, 0.7, 0.7)))
     resources.add_mesh(dragon_class_scene_mesh(subdivisions, material=0))
     return settings, resources
+
+
+def hdr_sky(width: int = 1024, height: int = 512,
+            sun_radiance: float = 1500.0) -> np.ndarray:
+    """(H,W,3) linear-radiance equirect sky: gradient + horizon glow + a
+    ~0.9deg sun disc carrying most of the power (so alias NEE matters)."""
+    v = (np.arange(height) + 0.5) / height          # 0 top .. 1 bottom
+    u = (np.arange(width) + 0.5) / width
+    theta = v * np.pi                                # polar from +Y
+    phi = u * 2.0 * np.pi
+    st = np.sin(theta)[:, None]
+    dirs = np.stack(np.broadcast_arrays(
+        st * np.cos(phi)[None, :],
+        np.cos(theta)[:, None] * np.ones((1, width)),
+        st * np.sin(phi)[None, :]), -1)
+
+    y = dirs[..., 1]
+    t = 0.5 * (y + 1.0)
+    sky = (1.0 - t)[..., None] * np.array([1.0, 1.0, 1.0]) \
+        + t[..., None] * np.array([0.35, 0.55, 0.95])
+    # horizon glow
+    sky += np.exp(-np.abs(y)[..., None] * 6.0) * np.array([0.5, 0.35, 0.2])
+
+    sun_dir = np.array([0.45, 0.72, 0.53])
+    sun_dir /= np.linalg.norm(sun_dir)
+    cos = np.clip(dirs @ sun_dir, -1.0, 1.0)
+    # disc ~0.9deg diameter + soft aureole
+    disc = (cos > np.cos(np.radians(0.45))).astype(np.float64)
+    aureole = np.exp((cos - 1.0) * 2500.0)
+    sun = (sun_radiance * disc + 40.0 * aureole)[..., None] \
+        * np.array([1.0, 0.93, 0.82])
+    return (sky + sun).astype(np.float32)
+
+
+def checker_texture(size: int = 512, tiles: int = 16) -> np.ndarray:
+    """RGBA uint8 checker with per-tile tint (the PBR sphere's base colour
+    texture in the headline)."""
+    ij = np.arange(size) * tiles // size
+    checker = (ij[:, None] + ij[None, :]) % 2
+    rng = np.random.default_rng(11)
+    tint = rng.uniform(0.3, 1.0, (tiles, tiles, 3))
+    tint_img = tint[ij[:, None].repeat(size, 1), ij[None, :].repeat(size, 0)]
+    rgb = np.where(checker[..., None] > 0, tint_img, 0.12 + 0.0 * tint_img)
+    out = np.zeros((size, size, 4), np.uint8)
+    out[..., :3] = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
+    out[..., 3] = 255
+    return out
+
+
+def _sphere_mesh(subdivisions, center, radius, material, name):
+    verts, faces = icosphere(subdivisions)
+    pos = (verts * radius + np.asarray(center)).astype(np.float32)
+    normals = verts.astype(np.float32)
+    # equirect UVs (enough for a checker; seam tris are fine at bench scale)
+    uv = np.stack([
+        0.5 + np.arctan2(verts[:, 2], verts[:, 0]) / (2.0 * np.pi),
+        0.5 - np.arcsin(np.clip(verts[:, 1], -1, 1)) / np.pi], -1
+    ).astype(np.float32)
+    return Mesh(name=name, vertices=pos, normals=normals, uv0=uv,
+                uv1=uv.copy(), tangents=np.zeros((len(pos), 4), np.float32),
+                indices=faces.astype(np.int32), material=material)
+
+
+def _ground_mesh(material):
+    s, y = 30.0, -1.08
+    pos = np.array([[-s, y, -s], [s, y, -s], [s, y, s], [-s, y, s]],
+                   np.float32)
+    n = np.tile(np.array([[0.0, 1.0, 0.0]], np.float32), (4, 1))
+    uv = np.array([[0, 0], [8, 0], [8, 8], [0, 8]], np.float32)
+    faces = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+    return Mesh(name="ground", vertices=pos, normals=n, uv0=uv,
+                uv1=uv.copy(), tangents=np.zeros((4, 4), np.float32),
+                indices=faces, material=material)
+
+
+def build_bench_scene(subdivisions: int = 8, device="cuda"):
+    """Returns (settings, resources, environment) for the headline bench,
+    the environment built on ``device``.
+
+    subdivisions=8 -> 20*4^8 = 1,310,720 dragon triangles (+ 2x 5,120-tri
+    prop spheres + 2 ground tris).
+    """
+    settings = RenderSettings()
+    settings.cameraTarget = (0.0, -0.1, 0.0)
+    settings.cameraDistance = 4.2
+    settings.cameraYaw = 0.4
+    settings.cameraPitch = 0.18
+    settings.cameraVerticalFov = 40.0
+    settings.maxDepth = 8
+    settings.fixedRngSeed = 1234
+    settings.backgroundMode = BackgroundMode.ENVIRONMENT
+    # reference defaults: spec-NEE on, MNEE off (RenderSettings.h)
+    settings.enableSpecularNee = True
+    settings.enableMnee = False
+
+    res = SceneResources()
+    m_dragon = res.add_material(Material(base_color=(0.72, 0.68, 0.62),
+                                         name="dragon"))
+    m_glass = res.add_material(Material(
+        mat_type=C.MATERIAL_DIELECTRIC, base_color=(1.0, 1.0, 1.0), ior=1.5,
+        dielectric_sigma_a=(0.08, 0.02, 0.02), name="glass"))
+    res.texture_images.append(checker_texture())
+    res.texture_srgb.append(True)
+    res.texture_wrap.append((0, 0))
+    m_pbr = res.add_material(Material(
+        mat_type=C.MATERIAL_PBR, base_color=(1.0, 1.0, 1.0),
+        roughness=0.35, pbr_metallic=0.15,
+        texture_indices=(0, -1, -1, -1, -1, -1), name="checker"))
+    m_ground = res.add_material(Material(base_color=(0.45, 0.45, 0.48),
+                                         name="ground"))
+
+    res.add_mesh(dragon_class_scene_mesh(subdivisions, material=m_dragon))
+    res.add_mesh(_sphere_mesh(4, (-1.55, -0.45, 0.95), 0.62, m_glass,
+                              "glass-sphere"))
+    res.add_mesh(_sphere_mesh(4, (1.65, -0.5, 1.05), 0.58, m_pbr,
+                              "checker-sphere"))
+    res.add_mesh(_ground_mesh(m_ground))
+    return settings, res, env_ops.environment_from_texels(hdr_sky(), device)
+
+
+def build_untextured_bench_scene(subdivisions: int = 8, device="cuda"):
+    """The headline with its texture cleared (``_bench_like_scene(False)``
+    of the JAX package's tests); returns (settings, resources,
+    environment)."""
+    settings, res, environment = build_bench_scene(subdivisions, device)
+    res.texture_images.clear()
+    res.texture_srgb.clear()
+    res.texture_wrap.clear()
+    for m in res.materials:
+        m.texture_indices = (-1, -1, -1, -1, -1, -1)
+    return settings, res, environment

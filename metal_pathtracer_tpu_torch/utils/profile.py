@@ -1,0 +1,99 @@
+"""Where the time goes: a ``torch.profiler`` trace of the port on one card.
+
+Renders the untextured headline (default) or the lambert series at
+1920x1080 d8, one warm-up sample, then two samples under the profiler,
+and prints: wall time per sample, the device's busy share of
+the wall time, device time by kernel (the port's five kernels by name,
+the rest of the torch glue summed), and the kernels' launch counts. Run
+on a machine with a CUDA device:
+
+    python -m metal_pathtracer_tpu_torch.utils.profile [--scene lambert]
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+
+WIDTH, HEIGHT, SPP = 1920, 1080, 2
+PORT_KERNELS = ("trace_closest_kernel", "trace_any_kernel",
+                "shade_full_kernel", "shade_s1_kernel", "shade_s2_kernel")
+
+
+def _scene(name: str, dev):
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    if name == "lambert":
+        settings, res = benchscene.build_lambert_series(7)
+        env = None
+    else:
+        settings, res, env = benchscene.build_untextured_bench_scene(8, dev)
+    return settings, res, res.build_arrays(environment=env, device=dev)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--scene", choices=["headline", "lambert"],
+                        default="headline")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from metal_pathtracer_tpu_torch.ops.camera import build_camera
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.schema import (
+        settings_to_static,
+        settings_to_uniforms,
+    )
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    settings, res, scene = _scene(args.scene, dev)
+    w, h = WIDTH, HEIGHT
+    static = settings_to_static(settings, w, h, res.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    frame.render_samples(scene, uni, RenderState.create(w, h, dev), static, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        st = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                  static, SPP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: (e.device_time_total, e.count) for e in events}
+    total_dev = sum(t for t, _ in dev_us.values())
+    port = {k: v for k, v in dev_us.items()
+            if any(name in k for name in PORT_KERNELS)}
+    glue = total_dev - sum(t for t, _ in port.values())
+    n_glue = sum(c for k, (_, c) in dev_us.items() if k not in port)
+    print(f"{args.scene} {w}x{h} d{static.max_depth}, {SPP} spp under "
+          f"the profiler: {1e3 * wall / SPP:.2f} ms/spp wall, device "
+          f"busy {100.0 * total_dev / 1e6 / wall:.1f} % of the wall time, "
+          f"{st.ray_count} closest + {st.shadow_ray_count} shadow traces "
+          f"[{card}]")
+    for k, (t, c) in sorted(port.items(), key=lambda kv: -kv[1][0]):
+        name = next(n for n in PORT_KERNELS if n in k)
+        print(f"  {name}: {t / 1e3 / SPP:.3f} ms/spp device, "
+              f"{c / SPP:.0f} launches/spp")
+    print(f"  torch glue: {glue / 1e3 / SPP:.3f} ms/spp device, "
+          f"{n_glue / SPP:.0f} launches/spp")
+    top = sorted(((t, c, k) for k, (t, c) in dev_us.items()
+                  if k not in port), reverse=True)[:12]
+    for t, c, k in top:
+        print(f"    {t / 1e3 / SPP:8.3f} ms/spp {c / SPP:7.0f}x "
+              f"{k[:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -69,16 +69,16 @@ def renders():
     jr.add_mesh(jm)
     pr.add_mesh(Mesh(**{f.name: getattr(jm, f.name)
                         for f in dataclasses.fields(Mesh)}))
-    js, ps = jr.build_arrays(), pr.build_arrays()
+    js, ps = jr.build_arrays(), pr.build_arrays(device="cpu")
     j_static = jax_static(s, W, H, jr.material_types_present())
     j_uni = jax_uniforms(s, jax_camera(s, W, H), 0, 0)
     j_one = jax_frame.render_samples(js, j_uni, JState.create(W, H), j_static,
                                      1)
     j_two = jax_frame.render_samples(js, j_uni, j_one, j_static, 1)
     p_static = settings_to_static(s, W, H, pr.material_types_present())
-    p_uni = settings_to_uniforms(s, build_camera(s, W, H), 0, 0)
-    p_two = frame.render_samples(ps, p_uni, RenderState.create(W, H), p_static,
-                                 SPP)
+    p_uni = settings_to_uniforms(s, build_camera(s, W, H, "cpu"), 0, 0)
+    p_two = frame.render_samples(ps, p_uni, RenderState.create(W, H, "cpu"),
+                                 p_static, SPP)
     return dict(ps=ps, p_uni=p_uni, p_static=p_static, j_one=j_one,
                 j_two=j_two, p_two=p_two)
 
@@ -117,7 +117,7 @@ def test_render_resumes_from_jax_state(renders):
     d = {f.name: np.asarray(getattr(j_one, f.name))
          for f in dataclasses.fields(j_one)
          if getattr(j_one, f.name) is not None}
-    state = convert.render_state(d)
+    state = convert.render_state(d, "cpu")
     out = frame.render_samples(renders["ps"], renders["p_uni"], state,
                                renders["p_static"], 1)
     rays_one = float(np.asarray(j_one.ray_count))
@@ -134,16 +134,23 @@ def _run(code, env=None):
 
 
 def test_port_renders_without_jax():
-    """The port imports and renders 16x16 on the CPU without loading jax
-    or flax."""
+    """The port imports and renders 16x16 on the CPU, the lambert series
+    and the environment-NEE headline, without loading jax, flax or any
+    module of the JAX package."""
     proc = _run("""
         import sys
         import numpy as np
         import torch
         torch.set_num_threads(1)
         from metal_pathtracer_tpu_torch.renderer.headless import CudaBackend
+        from metal_pathtracer_tpu_torch.ops.camera import build_camera
+        from metal_pathtracer_tpu_torch.renderer import frame
+        from metal_pathtracer_tpu_torch.renderer.accumulation import (
+            RenderState)
+        from metal_pathtracer_tpu_torch.schema import (
+            settings_to_static, settings_to_uniforms)
         from metal_pathtracer_tpu_torch.utils.benchscene import (
-            build_lambert_series)
+            build_lambert_series, build_untextured_bench_scene)
         settings, resources = build_lambert_series(2)
         settings.maxDepth = 3
         out = CudaBackend().render(resources, settings, 16, 16, 1,
@@ -151,8 +158,22 @@ def test_port_renders_without_jax():
         assert out.linear_rgb.shape == (16, 16, 3)
         assert np.isfinite(out.linear_rgb).all()
         assert out.linear_rgb.max() > 0 and out.ray_count >= 256
+        settings, res, env = build_untextured_bench_scene(1, device="cpu")
+        settings.maxDepth = 3
+        scene = res.build_arrays(environment=env, device="cpu")
+        static = settings_to_static(settings, 16, 16,
+                                    res.material_types_present())
+        uni = settings_to_uniforms(
+            settings, build_camera(settings, 16, 16, "cpu"), 0, 0)
+        st = frame.render_samples(scene, uni,
+                                  RenderState.create(16, 16, "cpu"), static,
+                                  1)
+        img = st.present().numpy()
+        assert np.isfinite(img).all() and img.max() > 0
+        assert st.ray_count >= 256 and st.shadow_ray_count > 0
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "flax")]
+               if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                      "metal_pathtracer_tpu")]
         assert not bad, bad
         print("OK")
     """)
@@ -172,7 +193,9 @@ def test_kernel_modules_import_without_nvcc():
         from metal_pathtracer_tpu_torch.ops.kernels import build, shade
         from metal_pathtracer_tpu_torch.ops.kernels import traverse
         assert traverse.trace_closest.launches == 0
+        assert traverse.trace_any.launches == 0
         assert shade.shade_full.launches == 0
+        assert shade.shade_s1.launches == shade.shade_s2.launches == 0
         assert build.library_path().endswith(".so")
         try:
             build.nvcc_path()

@@ -104,7 +104,7 @@ def test_build_camera_bitexact():
     for defocus in (0.0, 2.5):
         s = _camera_settings(defocus)
         ref = jcam.build_camera(s, 40, 24, to_device=False)
-        got = pcam.build_camera(s, 40, 24)
+        got = pcam.build_camera(s, 40, 24, "cpu")
         for f in ("origin", "lower_left", "horizontal", "vertical", "u", "v",
                   "lens_radius"):
             np.testing.assert_array_equal(getattr(got, f).numpy(),
@@ -121,7 +121,7 @@ def test_generate_primary_rays(defocus):
     w, h = 40, 24
     s = _camera_settings(defocus)
     jc = jcam.build_camera(s, w, h)
-    pc = pcam.build_camera(s, w, h)
+    pc = pcam.build_camera(s, w, h, "cpu")
     n = w * h
     x = (np.arange(n) % w).astype(np.uint32)
     y = (np.arange(n) // w).astype(np.uint32)

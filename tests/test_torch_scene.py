@@ -15,15 +15,25 @@ from metal_pathtracer_tpu.scene.resources import SceneResources as JResources
 from metal_pathtracer_tpu.schema import settings_to_static as jax_static
 from metal_pathtracer_tpu.schema import settings_to_uniforms as jax_uniforms
 from metal_pathtracer_tpu.settings import BackgroundMode, RenderSettings
+from metal_pathtracer_tpu.utils import procgen as jax_procgen
+from metal_pathtracer_tpu.utils.benchscene import build_bench_scene as jax_bench
 from metal_pathtracer_tpu.utils.procgen import dragon_class_scene_mesh
 from metal_pathtracer_tpu_torch import convert
 from metal_pathtracer_tpu_torch.ops import bsdf, integrator
+from metal_pathtracer_tpu_torch.ops import env as env_ops
 from metal_pathtracer_tpu_torch.scene.resources import (
     Material,
     Mesh,
     SceneResources,
 )
-from metal_pathtracer_tpu_torch.schema import settings_to_static
+from metal_pathtracer_tpu_torch.schema import (
+    settings_to_static,
+    settings_to_uniforms,
+)
+from metal_pathtracer_tpu_torch.utils import procgen
+from metal_pathtracer_tpu_torch.utils.benchscene import (
+    build_untextured_bench_scene,
+)
 
 MATERIALS = [
     dict(base_color=(0.7, 0.7, 0.7)),
@@ -69,7 +79,7 @@ def scenes():
     for m in meshes:
         jr.add_mesh(m)
         pr.add_mesh(_port_mesh(m))
-    return jr, jr.build_arrays(), pr, pr.build_arrays()
+    return jr, jr.build_arrays(), pr, pr.build_arrays(device="cpu")
 
 
 def _assert_fields_equal(port_obj, jax_obj, fields):
@@ -110,7 +120,7 @@ def test_convert_scene_roundtrip(scenes):
     d = {"materials": _np(js.materials), "triangles": _np(js.triangles),
          "tri_bvh": _np(js.tri_bvh), "spheres": _np(js.spheres),
          "rects": _np(js.rects)}
-    conv = convert.scene_arrays(d)
+    conv = convert.scene_arrays(d, "cpu")
     back = convert.to_numpy(conv)
     for part in ("materials", "triangles", "tri_bvh"):
         for k, v in back[part].items():
@@ -127,7 +137,7 @@ def test_convert_uniforms_static_state():
     s.maxDepth = 6
     cam = jax_camera(s, 40, 24)
     ju = jax_uniforms(s, cam, 3, 5)
-    pu = convert.uniforms(_np(ju))
+    pu = convert.uniforms(_np(ju), "cpu")
     assert (pu.frame_index, pu.sample_count, pu.fixed_rng_seed) == (3, 5, 0)
     assert pu.background_color == tuple(
         float(c) for c in np.asarray(ju.background_color))
@@ -143,7 +153,7 @@ def test_convert_uniforms_static_state():
     js = js.replace(sample_count=js.sample_count + 7,
                     radiance_sum=js.radiance_sum + 0.25)
     d = _np(js)
-    ps = convert.render_state(d)
+    ps = convert.render_state(d, "cpu")
     back = convert.to_numpy(ps)
     for k in ("radiance_sum", "albedo", "normal", "radiance_sq_sum"):
         np.testing.assert_array_equal(back[k], d[k], err_msg=k)
@@ -158,15 +168,79 @@ def test_unported_features_raise():
                  lambda: r.add_rectangle((0, 0, 0), (1, 1, 1), 1, True, False,
                                          0),
                  lambda: r.add_mesh_instance(None, np.eye(4)),
-                 lambda: r.build_arrays(environment=object())):
+                 lambda: r.build_arrays(textures=object(), device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    m = bsdf.gather_material(r.build_materials_soa(), torch.zeros(2))
-    with pytest.raises(NotImplementedError):
-        bsdf.sample_bsdf(m, torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
+    m = bsdf.gather_material(r.build_materials_soa("cpu"), torch.zeros(2))
+    z3 = torch.zeros(2, 3)
+    with pytest.raises(NotImplementedError, match="step 6"):
+        bsdf.sample_bsdf(m, z3, z3, z3, torch.ones(2, dtype=torch.bool),
+                         torch.zeros(2, dtype=torch.long),
+                         bsdf.make_clamp_params(
+                             settings_to_uniforms(RenderSettings(), None, 0,
+                                                  0)),
                          torch.ones(2), (C.MATERIAL_METAL,))
     s = RenderSettings()
     s.backgroundMode = BackgroundMode.ENVIRONMENT
-    with pytest.raises(NotImplementedError, match="step 5"):
-        integrator.check_supported(r.build_arrays(),
-                                   settings_to_static(s, 8, 8, [0]))
+    env = env_ops.environment_from_texels(np.ones((4, 8, 3), np.float32),
+                                          "cpu")
+    r.add_mesh(_port_mesh(dragon_class_scene_mesh(0)))
+    scene = r.build_arrays(environment=env, device="cpu")
+    with pytest.raises(NotImplementedError, match="step 6"):
+        integrator.check_supported(
+            scene, settings_to_static(s, 8, 8, [C.MATERIAL_METAL]))
+    s.enableMnee = True
+    with pytest.raises(NotImplementedError, match="step 8"):
+        integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
+    s.enableMnee = False
+    integrator.check_supported(scene, settings_to_static(
+        s, 8, 8, [0, C.MATERIAL_DIELECTRIC, C.MATERIAL_PBR]))
+
+
+def _assert_arrays_equal(got, ref, label):
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.dtype == b.dtype, (label, i)
+        np.testing.assert_array_equal(a, b, err_msg=f"{label}[{i}]")
+
+
+@pytest.mark.parametrize("n", range(6))
+def test_procgen_bitexact(n):
+    """The port's vectorised subdivision: the JAX package's edge-loop
+    icosphere and displaced icosphere, vertices, normals and faces bit for
+    bit (the same numbering, so the same triangle order)."""
+    _assert_arrays_equal(procgen.icosphere(n), jax_procgen.icosphere(n),
+                         "icosphere")
+    _assert_arrays_equal(procgen.dragon_class_mesh(n),
+                         jax_procgen.dragon_class_mesh(n), "dragon")
+
+
+def test_untextured_bench_scene_bitexact():
+    """``build_untextured_bench_scene`` against the JAX bench scene cleared
+    as ``tests/test_fused_shade.py _bench_like_scene(False)`` clears it, at
+    subdivision 2: settings, triangles, materials, BVH and environment."""
+    js_settings, jres, jenv = jax_bench(subdivisions=2)
+    jres.texture_images.clear()
+    jres.texture_srgb.clear()
+    jres.texture_wrap.clear()
+    for m in jres.materials:
+        m.texture_indices = (-1, -1, -1, -1, -1, -1)
+    settings, res, env = build_untextured_bench_scene(2, device="cpu")
+    assert vars(settings) == vars(js_settings)
+    assert res.material_types_present() == jres.material_types_present()
+    js = jres.build_arrays(environment=jenv)
+    ps = res.build_arrays(environment=env, device="cpu")
+    for part in ("triangles", "materials", "tri_bvh"):
+        _assert_fields_equal(getattr(ps, part), getattr(js, part),
+                             [f.name for f in dataclasses.fields(
+                                 getattr(ps, part))])
+    for f in dataclasses.fields(ps.environment):
+        got, ref = getattr(ps.environment, f.name), getattr(js.environment,
+                                                            f.name)
+        if f.name == "mips":
+            _assert_arrays_equal([m.numpy() for m in got],
+                                 [np.asarray(m) for m in ref], "mips")
+        elif isinstance(got, torch.Tensor):
+            _assert_fields_equal(ps.environment, js.environment, [f.name])
+        else:
+            assert tuple(got) == tuple(ref) if f.name == "mip_meta" \
+                else got == ref, f.name

@@ -55,7 +55,7 @@ def scenes():
     jr.add_mesh(jm)
     pr.add_mesh(Mesh(**{f.name: getattr(jm, f.name)
                         for f in dataclasses.fields(Mesh)}))
-    return jr, jr.build_arrays(), pr.build_arrays()
+    return jr, jr.build_arrays(), pr.build_arrays(device="cpu")
 
 
 def _settings(depth, background, space, rr=True):
@@ -110,7 +110,7 @@ def test_trace_paths_matches_jax(scenes, depth, background, space, rr):
         return (st, o, d) + tuple(out)
 
     st0, o, d, st, rad, alb, nrm, stats = reference(uni)
-    p_uni = convert.uniforms(_np(uni))
+    p_uni = convert.uniforms(_np(uni), "cpu")
     p_static = convert.static_config(dataclasses.asdict(static))
     t = lambda a, dt=None: torch.tensor(np.asarray(a), dtype=dt)
     p_st, p_rad, p_alb, p_nrm, p_stats = integrator.trace_paths(
@@ -143,7 +143,7 @@ def test_shade_full_keeps_dead_lanes(scenes):
         settings_to_static,
         settings_to_uniforms,
     )
-    uni = settings_to_uniforms(s, build_camera(s, W, H), 0, 0)
+    uni = settings_to_uniforms(s, build_camera(s, W, H, "cpu"), 0, 0)
     static = settings_to_static(s, W, H, [C.MATERIAL_LAMBERTIAN])
     n = W * H
     rng = np.random.default_rng(5)

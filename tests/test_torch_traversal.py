@@ -47,7 +47,7 @@ def case():
     jr.add_mesh(jm)
     pr.add_mesh(Mesh(**{f.name: getattr(jm, f.name)
                         for f in dataclasses.fields(Mesh)}))
-    js, ps = jr.build_arrays(), pr.build_arrays()
+    js, ps = jr.build_arrays(), pr.build_arrays(device="cpu")
     rng = np.random.default_rng(7)
     o = rng.uniform(-3.0, 3.0, (N_PROBES, 3)).astype(np.float32)
     v0 = np.asarray(js.triangles.v0)
