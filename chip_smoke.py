@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives both of the port's paths:
+(one nvcc per source, in parallel) and drives the port's three paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -15,8 +15,15 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    on the first-depth shadow wavefront, a 160x96 4 spp render of the
    same scene at subdivision 5 through the kernels against the plain
    path, the scene at 1920x1080 d8 through ``frame.render_samples``, and
-   every kernel timed at the first-depth wavefront against its plain
-   version.
+   every kernel checked at the first-depth wavefront against its plain
+   version;
+3. the textured headline, the bench's real one (the same scene with the
+   PBR sphere's 512x512 sRGB checker; the texture stage, K1 closest-hit
+   and any-hit, K2 ``s1`` and ``s2``): the same 160x96 check and 1080p
+   render, every kernel timed at the first-depth wavefront against its
+   plain version with its bound, the texture kernel also on a scene that
+   binds all six texture slots, and the refdefault cell (the same scene
+   at 1280x720, maxDepth 20).
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
@@ -43,12 +50,17 @@ import torch
 
 LAMBERT_TIMED_SPP = 4
 NEE_TIMED_SPP = 8
+UNTEXTURED_TIMED_SPP = 4
+REFDEFAULT_TIMED_SPP = 2
 FRAME = (1920, 1080)
 LAMBERT_SUBDIVISIONS = 7   # 20 * 4^7 = 327,680 triangles
 HEADLINE_SUBDIVISIONS = 8  # 20 * 4^8 = 1,310,720 triangles
 CHECK_SUBDIVISIONS = 5
 CHECK_FRAME = (160, 96)
 IMAGE_GATE = dict(max_rmse=2e-4, min_within_1e5=0.98)
+# texture stage vs its plain version: the state and flags bit-equal, the
+# planes within this (libm log2f against torch.log2 may move a LOD)
+TEX_PLANE_TOL = 1e-5
 # H100 SXM data-sheet peaks: HBM bandwidth, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -56,7 +68,8 @@ ROOT = "metal_pathtracer_tpu_torch/csrc/"
 
 # Bytes a lane's K2 launch must move, by lane kind, from the kernels'
 # loads and stores (csrc/shade.cu): a live hit, a live miss, a dead lane
-# (its alive flag), plus the per-lane output columns every lane writes.
+# (its alive flag), plus the per-lane output columns every lane writes;
+# in a textured scene a hit also reads its 15 texture planes (TEX_BYTES).
 # Rough operation counts per live lane (float ops in the source) give
 # the compute side of the bound.
 K2_BYTES = {
@@ -64,6 +77,10 @@ K2_BYTES = {
     "shade_s1": dict(hit=238 + 32, miss=50 + 22, dead=1, out=72, ops=300),
     "shade_s2": dict(hit=345 + 92, miss=1, dead=1, out=28, ops=1200),
 }
+TEX_BYTES = 15 * 4
+# the texture stage's float operations per textured lane, and per bound
+# slot (transform, LOD, two bilinear levels)
+TEX_OPS, TEX_SLOT_OPS = 400, 120
 # K1: a lane's ray in (origin, direction, t_max, exclusion ids) and hit
 # out (t, tri, u, v); a node is 24 B of bounds and three ints; a triangle
 # slot is its index and three vertices; ~24 flops per node visit and ~45
@@ -114,9 +131,10 @@ def k1_bound(walk, lane_bytes):
                     + walk["tri_tests"] * K1_TRI_OPS)
 
 
-def k2_bound(name, n_hit, n_miss, n_dead):
+def k2_bound(name, n_hit, n_miss, n_dead, textured=False):
     b = K2_BYTES[name]
-    return bound_ms(n_hit * b["hit"] + n_miss * b["miss"] + n_dead * b["dead"]
+    hit = b["hit"] + (TEX_BYTES if textured else 0)
+    return bound_ms(n_hit * hit + n_miss * b["miss"] + n_dead * b["dead"]
                     + (n_hit + n_miss + n_dead) * b["out"],
                     (n_hit + n_miss) * b["ops"])
 
@@ -176,6 +194,7 @@ def plain_kernels():
     """The same depth loops with every kernel entry point replaced by its
     plain PyTorch version (run on the card)."""
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
     def plain_trace(o, d, t_min, t_max, bvh, tris, ex_mesh, ex_prim):
@@ -190,7 +209,9 @@ def plain_kernels():
             mock.patch.object(T, "trace_any", plain_any), \
             mock.patch.object(S, "shade_full", S.shade_full_reference), \
             mock.patch.object(S, "shade_s1", S.shade_s1_reference), \
-            mock.patch.object(S, "shade_s2", S.shade_s2_reference):
+            mock.patch.object(S, "shade_s2", S.shade_s2_reference), \
+            mock.patch.object(S, "texture_stage",
+                              X.texture_stage_reference):
         yield
 
 
@@ -370,98 +391,211 @@ def lambert_path(dev, card, kernels, out):
     return k1_err
 
 
-def nee_path(dev, card, kernels, out, k1_probe_err):
-    """The environment-NEE slice on the untextured headline."""
-    from metal_pathtracer_tpu_torch import constants as C
-    from metal_pathtracer_tpu_torch.ops import env as env_ops
-    from metal_pathtracer_tpu_torch.ops.camera import build_camera
-    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+def texture_bound(scene, static, carry, hit, planes):
+    """The texture stage's bound from this wavefront: every lane's hit,
+    ray, cone, state and planes, plus the triangle rows and attributes and
+    the texels the eligible lanes need (each unique triangle once, at most
+    the whole atlas), and the material table."""
+    n = carry.alive.shape[0]
+    elig = planes[:, -1] > 0.5
+    n_elig = int(elig.sum())
+    slots = len(static.texture_slots)
+    tri_bytes = 96 + 24 * (2 if static.texture_uv1 else 1) \
+        + (48 if 2 in static.texture_slots else 0)
+    n_tris = int(torch.unique(hit[1][elig]).numel())
+    atlas = scene.textures.texels.numel() * 4
+    n_bytes = n * (1 + 4 + 12 + 24 + 8 + 8 + 60) + n_elig * 8 \
+        + n_tris * tri_bytes + min(n_elig * slots * 2 * 4 * 16, atlas) \
+        + scene.materials.count * 64 * 4
+    return bound_ms(n_bytes, n_elig * (TEX_OPS + TEX_SLOT_OPS * slots))
+
+
+def compare_texture(got, want, ck, cp, label):
+    """The texture kernel against its plain version: state and the
+    tpass/tpbr flags bit-equal; returns the largest plane difference."""
+    from metal_pathtracer_tpu_torch.ops.kernels.texture import TEX_IDX
+
+    if not torch.equal(ck.state, cp.state):
+        raise AssertionError(f"{label}: texture-stage state differs on "
+                             f"{int((ck.state != cp.state).sum())} lanes")
+    for name in ("tpass", "tpbr"):
+        a, b = got[:, TEX_IDX[name]], want[:, TEX_IDX[name]]
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {name} differs on "
+                                 f"{int((a != b).sum())} lanes")
+    err = float((got - want).abs().max())
+    if not err <= TEX_PLANE_TOL:
+        raise AssertionError(f"{label}: plane difference {err}")
+    return err
+
+
+def texture_probe(dev, card, label, settings, res, scene, w, h, depths):
+    """The texture kernel against its plain version on the primary
+    wavefront of a w x h frame (every ninth lane dead) at ``depths``."""
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
-    from metal_pathtracer_tpu_torch.renderer import frame
-    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    static, uni = scene_setup(settings, res, w, h, dev)
+    carry = primary_carry(uni, static, dev)
+    carry.alive[::9] = False
+    hit = T.trace_closest(*trace_inputs(carry, scene))
+    err, n_elig, n_pass, n_blend = 0.0, 0, 0, 0
+    for depth in depths:
+        ck, cp = clone(carry), clone(carry)
+        got = X.texture_stage(ck, *hit, scene, uni, static, depth)
+        want = X.texture_stage_reference(cp, *hit, scene, uni, static, depth)
+        torch.cuda.synchronize()
+        err = max(err, compare_texture(got, want, ck, cp, label))
+        n_elig = int((want[:, -1] > 0.5).sum())
+        n_pass = int((want[:, X.TEX_IDX["tpass"]] > 0.5).sum())
+        n_blend = int((ck.state != carry.state).sum())
+    if n_elig == 0:
+        raise AssertionError(f"{label}: no textured lane")
+    print(f"{label} {w}x{h}: texture stage vs plain at depths {depths}: "
+          f"state and flags bit-equal, {n_elig} textured lanes, {n_pass} "
+          f"pass-through, {n_blend} BLEND draws, largest plane difference "
+          f"{err:.3e} [{card}]")
+    return err
+
+
+def scene_setup(settings, res, w, h, dev):
+    from metal_pathtracer_tpu_torch.ops.camera import build_camera
     from metal_pathtracer_tpu_torch.schema import (
         settings_to_static,
         settings_to_uniforms,
     )
-    from metal_pathtracer_tpu_torch.utils.benchscene import (
-        build_untextured_bench_scene,
-    )
 
-    def build(subdivisions):
-        t0 = time.time()
-        settings, res, env = build_untextured_bench_scene(subdivisions, dev)
-        scene = res.build_arrays(environment=env, device=dev)
-        torch.cuda.synchronize()
-        return settings, res, scene, time.time() - t0
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    return static, uni
 
-    def setup(settings, res, w, h):
-        static = settings_to_static(settings, w, h,
-                                    res.material_types_present())
-        uni = settings_to_uniforms(settings,
-                                   build_camera(settings, w, h, dev), 0, 0)
-        return static, uni
 
-    # ---- s1/s2 + any-hit: 160x96 4 spp at subdivision 5, kernels vs plain
-    settings, res, scene, _ = build(CHECK_SUBDIVISIONS)
-    w, h = CHECK_FRAME
-    static, uni = setup(settings, res, w, h)
-    st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
-                                static, 4)
-    with plain_kernels():
-        st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
-                                    static, 4)
-    nee_err = image_gate(
-        st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
-        (st_k.ray_count, st_k.shadow_ray_count),
-        (st_p.ray_count, st_p.shadow_ray_count),
-        f"K2 s1/s2 + K1 any-hit {w}x{h} 4spp kernel vs plain")
+def timed_render(scene, settings, res, w, h, spp, dev, kernels):
+    """One warm-up sample, then ``spp`` timed samples with the launch
+    counts reset just before; returns (state, seconds, launches, peak)."""
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
 
-    # ---- the headline at full size -------------------------------------
-    settings, res, scene, setup_s = build(HEADLINE_SUBDIVISIONS)
-    print(f"# headline scene: {scene.triangles.count} triangles, "
-          f"{scene.tri_bvh.node_count} BVH nodes, "
-          f"{scene.environment.width}x{scene.environment.height} sky, "
-          f"set-up {setup_s:.1f}s")
-    o, d, tmax = (torch.from_numpy(x).to(dev) for x in probes(scene))
-    occ = T.trace_any(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
-                      scene.triangles)
-    compare_flags(occ, T.trace_any_reference(o, d, C.EPSILON_T, tmax,
-                                             scene.tri_bvh, scene.triangles),
-                  "K1 any-hit probes")
-    print(f"K1 any-hit probes: flags bit-equal over {o.shape[0]} lanes, "
-          f"{int(occ.sum())} occluded")
-
-    W, H = FRAME
-    static, uni = setup(settings, res, W, H)
-    frame.render_samples(scene, uni, RenderState.create(W, H, dev), static, 1)
+    static, uni = scene_setup(settings, res, w, h, dev)
+    frame.render_samples(scene, uni, RenderState.create(w, h, dev), static, 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(kernels)
     t0 = time.time()
-    st = frame.render_samples(scene, uni, RenderState.create(W, H, dev),
-                              static, NEE_TIMED_SPP)
+    st = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                              static, spp)
     img = st.present().cpu().numpy()     # waits for the device
     secs = time.time() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     if not (np.isfinite(img).all() and img.max() > 0.0):
-        raise AssertionError("headline image is not finite and non-zero")
-    if st.ray_count < W * H * NEE_TIMED_SPP:
+        raise AssertionError("image is not finite and non-zero")
+    if st.ray_count < w * h * spp:
         raise AssertionError(f"ray_count {st.ray_count} < pixels x spp")
-    path = ("trace_closest", "trace_any", "shade_s1", "shade_s2")
+    return st, img, secs, launches, peak
+
+
+def nee_path(dev, card, kernels, out, k1_probe_err, textured):
+    """The environment-NEE headline, untextured (no texture stage) or
+    textured (the bench's real headline, with the texture stage)."""
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    name = "headline" if textured else "headline (untextured)"
+    make_scene = benchscene.build_bench_scene if textured \
+        else benchscene.build_untextured_bench_scene
+
+    def build(subdivisions):
+        t0 = time.time()
+        settings, res, env = make_scene(subdivisions, dev)
+        scene = res.build_arrays(environment=env, device=dev)
+        torch.cuda.synchronize()
+        return settings, res, scene, time.time() - t0
+
+    # ---- every kernel of the path: 160x96 4 spp at subdivision 5 vs plain
+    settings, res, scene, _ = build(CHECK_SUBDIVISIONS)
+    w, h = CHECK_FRAME
+    static, uni = scene_setup(settings, res, w, h, dev)
+    before = X.texture_stage.launches
+    st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                static, 4)
+    if textured and X.texture_stage.launches == before:
+        raise AssertionError("the textured check render launched no "
+                             "texture stage")
+    with plain_kernels():
+        st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                    static, 4)
+    kernels_used = "texture stage + K2 s1/s2 + K1 any-hit" if textured \
+        else "K2 s1/s2 + K1 any-hit"
+    nee_err = image_gate(
+        st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
+        (st_k.ray_count, st_k.shadow_ray_count),
+        (st_p.ray_count, st_p.shadow_ray_count),
+        f"{name}: {kernels_used} {w}x{h} 4spp kernel vs plain")
+
+    # ---- the headline at full size -------------------------------------
+    settings, res, scene, setup_s = build(HEADLINE_SUBDIVISIONS)
+    print(f"# {name} scene: {scene.triangles.count} triangles, "
+          f"{scene.tri_bvh.node_count} BVH nodes, "
+          f"{scene.environment.width}x{scene.environment.height} sky, "
+          f"set-up {setup_s:.1f}s")
+    if not textured:
+        o, d, tmax = (torch.from_numpy(x).to(dev) for x in probes(scene))
+        occ = T.trace_any(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
+                          scene.triangles)
+        compare_flags(occ, T.trace_any_reference(o, d, C.EPSILON_T, tmax,
+                                                 scene.tri_bvh,
+                                                 scene.triangles),
+                      "K1 any-hit probes")
+        print(f"K1 any-hit probes: flags bit-equal over {o.shape[0]} lanes, "
+              f"{int(occ.sum())} occluded")
+
+    W, H = FRAME
+    spp = NEE_TIMED_SPP if textured else UNTEXTURED_TIMED_SPP
+    st, img, secs, launches, peak = timed_render(scene, settings, res, W, H,
+                                                 spp, dev, kernels)
+    path = ("trace_closest", "trace_any", "shade_s1", "shade_s2") \
+        + (("texture_stage",) if textured else ())
     if min(launches[k] for k in path) <= 0:
-        raise AssertionError(f"a kernel of the NEE path was not launched: "
-                             f"{launches}")
+        raise AssertionError(f"a kernel of the {name} path was not "
+                             f"launched: {launches}")
     traces = st.ray_count + st.shadow_ray_count
-    print(f"headline (untextured) {W}x{H} d8: {NEE_TIMED_SPP} spp in "
-          f"{secs:.3f}s, {1e3 * secs / NEE_TIMED_SPP:.2f} ms/spp, "
-          f"{traces / secs / 1e6:.2f} Mrays/s ({st.ray_count} closest + "
-          f"{st.shadow_ray_count} shadow traces), peak {peak / 2**20:.0f} "
-          f"MiB, set-up {setup_s:.1f}s, launches {launches}, mean "
-          f"{float(img.mean()):.4f} [{card}]")
+    print(f"{name} {W}x{H} d8: {spp} spp in {secs:.3f}s, "
+          f"{1e3 * secs / spp:.2f} ms/spp, {traces / secs / 1e6:.2f} Mrays/s "
+          f"({st.ray_count} closest + {st.shadow_ray_count} shadow traces), "
+          f"peak {peak / 2**20:.0f} MiB, set-up {setup_s:.1f}s, launches "
+          f"{launches}, mean {float(img.mean()):.4f} [{card}]")
+
+    if textured:
+        # ---- refdefault: the same scene at 1280x720, maxDepth 20 --------
+        # (the headline's resources and arrays; only maxDepth differs)
+        ref_settings, ref_res, _ = benchscene.build_refdefault_scene(
+            HEADLINE_SUBDIVISIONS, dev)
+        rw, rh = benchscene.REFDEFAULT_FRAME
+        st_r, img_r, secs_r, launches_r, peak_r = timed_render(
+            scene, ref_settings, ref_res, rw, rh, REFDEFAULT_TIMED_SPP, dev,
+            kernels)
+        traces_r = st_r.ray_count + st_r.shadow_ray_count
+        spp_r = REFDEFAULT_TIMED_SPP
+        print(f"refdefault {rw}x{rh} d20: {spp_r} spp in {secs_r:.3f}s, "
+              f"{1e3 * secs_r / spp_r:.2f} ms/spp, "
+              f"{traces_r / secs_r / 1e6:.2f} Mrays/s ({st_r.ray_count} "
+              f"closest + {st_r.shadow_ray_count} shadow traces), peak "
+              f"{peak_r / 2**20:.0f} MiB, launches {launches_r}, mean "
+              f"{float(img_r.mean()):.4f} [{card}]")
 
     # ---- every kernel vs plain at the first-depth wavefront ------------
     n = W * H
+    static, uni = scene_setup(settings, res, W, H, dev)
     params = S.NeeParams.of(uni, static, scene.environment)
     carry = primary_carry(uni, static, dev)
     k1_args = trace_inputs(carry, scene)
@@ -474,6 +608,26 @@ def nee_path(dev, card, kernels, out, k1_probe_err):
         hit, T.trace_closest_reference(*k1_args, walk=walk)))
     k1_b, k1_by = k1_bound(walk, n * K1_LANE_BYTES)
 
+    tex = None
+    if textured:
+        def tex_run(fn):
+            def prep():
+                c = clone(carry)
+                return lambda: fn(c, *hit, scene, uni, static, 0)
+            return prep
+
+        tex_ms = cuda_ms(tex_run(X.texture_stage), 5)
+        tex_plain_ms = cuda_ms(tex_run(X.texture_stage_reference), 2)
+        ck, cp = clone(carry), clone(carry)
+        tex = X.texture_stage(ck, *hit, scene, uni, static, 0)
+        tex_p = X.texture_stage_reference(cp, *hit, scene, uni, static, 0)
+        torch.cuda.synchronize()
+        tex_err = compare_texture(tex, tex_p, ck, cp,
+                                  f"{name} first-depth texture stage")
+        tex_b, tex_by = texture_bound(scene, static, carry, hit, tex_p)
+        carry = ck   # the stage's BLEND draws land before s1
+        n_tex = int((tex_p[:, -1] > 0.5).sum())
+
     envbg = env_ops.environment_background(
         scene.environment, carry.ray_d, uni, static, carry.env_lod,
         carry.env_lod_active)
@@ -485,20 +639,21 @@ def nee_path(dev, card, kernels, out, k1_probe_err):
         def prep():
             c = clone(carry)
             return lambda: fn(c, *hit, scene.triangles, scene.materials,
-                              envbg, envpdf, params, 0)
+                              envbg, envpdf, params, 0, tex)
         return prep
 
     s1_ms = cuda_ms(s1_run(S.shade_s1), 5)
     s1_plain_ms = cuda_ms(s1_run(S.shade_s1_reference), 2)
     ck, cp = clone(carry), clone(carry)
     trans = S.shade_s1(ck, *hit, scene.triangles, scene.materials, envbg,
-                       envpdf, params, 0)
+                       envpdf, params, 0, tex)
     trans_p = S.shade_s1_reference(cp, *hit, scene.triangles,
-                                   scene.materials, envbg, envpdf, params, 0)
+                                   scene.materials, envbg, envpdf, params, 0,
+                                   tex)
     torch.cuda.synchronize()
     differ, s1_err = carry_error(ck, cp, n)
     s1_err = max(s1_err, float((trans - trans_p).abs().max()))
-    s1_bound, s1_by = k2_bound("shade_s1", n_hit, n - n_hit, 0)
+    s1_bound, s1_by = k2_bound("shade_s1", n_hit, n - n_hit, 0, textured)
     if differ > 1e-4 * n or not s1_err <= 1e-4:
         raise AssertionError(f"K2 s1 disagrees with its plain version: "
                              f"{differ} lanes, err {s1_err}")
@@ -508,7 +663,7 @@ def nee_path(dev, card, kernels, out, k1_probe_err):
         scene.environment, trans[:, 0], trans[:, 1], trans[:, 2], uni,
         static)
     sh_o, sh_max, do_sh = S.nee_shadow_rays(trans, hit[0], e_dir, e_pdf,
-                                            e_valid)
+                                            e_valid, tex)
     sh_args = (sh_o, e_dir.contiguous(), C.EPSILON_T, sh_max, scene.tri_bvh,
                scene.triangles)
     any_ms = cuda_ms(lambda: lambda: T.trace_any(*sh_args), 5)
@@ -532,36 +687,51 @@ def nee_path(dev, card, kernels, out, k1_probe_err):
         def prep():
             c = clone(ck)
             return lambda: fn(c, *hit, scene.triangles, scene.materials,
-                              trans, esmp, params, 0)
+                              trans, esmp, params, 0, tex)
         return prep
 
     s2_ms = cuda_ms(s2_run(S.shade_s2), 5)
     s2_plain_ms = cuda_ms(s2_run(S.shade_s2_reference), 2)
     c2k, c2p = clone(ck), clone(ck)
     chain = S.shade_s2(c2k, *hit, scene.triangles, scene.materials, trans,
-                       esmp, params, 0)
+                       esmp, params, 0, tex)
     chain_p = S.shade_s2_reference(c2p, *hit, scene.triangles,
-                                   scene.materials, trans, esmp, params, 0)
+                                   scene.materials, trans, esmp, params, 0,
+                                   tex)
     torch.cuda.synchronize()
     differ2, s2_err = carry_error(c2k, c2p, n)
     s2_err = max(s2_err, float(((chain - chain_p).abs()
                                 / chain_p.abs().clamp_min(1.0)).max()))
-    s2_bound, s2_by = k2_bound("shade_s2", n_live, 0, n - n_live)
+    s2_bound, s2_by = k2_bound("shade_s2", n_live, 0, n - n_live, textured)
     if differ2 > 1e-4 * n or not s2_err <= 1e-4:
         raise AssertionError(f"K2 s2 disagrees with its plain version: "
                              f"{differ2} lanes, err {s2_err}")
-    print(f"headline first depth ({n} lanes, {n_hit} hits, {n_sh} shadow "
+    tex_line = (f"texture stage {tex_ms:.3f} ms (plain {tex_plain_ms:.1f} "
+                f"ms, bound {tex_b:.4f} ms by {tex_by}, {n_tex} textured "
+                f"lanes, largest plane difference {tex_err:.2e}); "
+                if textured else "")
+    print(f"{name} first depth ({n} lanes, {n_hit} hits, {n_sh} shadow "
           f"rays): K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.1f} ms, bound "
           f"{k1_b:.4f} ms by {k1_by}, {int(walk['nodes'].sum())} nodes "
-          f"and {int(walk['slots'].sum())} triangles touched); K1 any-hit "
-          f"{any_ms:.3f} ms (plain {any_plain_ms:.1f} ms, bound "
+          f"and {int(walk['slots'].sum())} triangles touched); {tex_line}"
+          f"K1 any-hit {any_ms:.3f} ms (plain {any_plain_ms:.1f} ms, bound "
           f"{any_bound:.4f} ms by {any_by}, "
           f"{int(walk_any['nodes'].sum())} nodes and "
-          f"{int(walk_any['slots'].sum())} triangles touched); K2 s1 {s1_ms:.3f} ms (plain "
-          f"{s1_plain_ms:.1f} ms, bound {s1_bound:.4f} ms, err {s1_err:.2e}, "
-          f"{differ} differing lanes); K2 s2 {s2_ms:.3f} ms (plain "
-          f"{s2_plain_ms:.1f} ms, bound {s2_bound:.4f} ms, err "
-          f"{s2_err:.2e}, {differ2} differing lanes) [{card}]")
+          f"{int(walk_any['slots'].sum())} triangles touched); K2 s1 "
+          f"{s1_ms:.3f} ms (plain {s1_plain_ms:.1f} ms, bound "
+          f"{s1_bound:.4f} ms, err {s1_err:.2e}, {differ} differing lanes); "
+          f"K2 s2 {s2_ms:.3f} ms (plain {s2_plain_ms:.1f} ms, bound "
+          f"{s2_bound:.4f} ms, err {s2_err:.2e}, {differ2} differing lanes) "
+          f"[{card}]")
+    if not textured:
+        return
+
+    # ---- the texture kernel on the all-six-slots scene ------------------
+    six_settings, six_res = benchscene.build_six_slot_scene()
+    six_scene = six_res.build_arrays(device=dev)
+    w6, h6 = CHECK_FRAME
+    six_err = texture_probe(dev, card, "six-slot scene", six_settings,
+                            six_res, six_scene, w6, h6, (0, 2))
 
     out["trace_closest"] = dict(
         source=ROOT + "traverse.cu",
@@ -583,6 +753,13 @@ def nee_path(dev, card, kernels, out, k1_probe_err):
         replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
         launches=launches["shade_s2"], max_abs_err=max(nee_err, s2_err),
         ms=s2_ms, plain_ms=s2_plain_ms, bound_ms=s2_bound, bound_by=s2_by)
+    out["texture_stage"] = dict(
+        source=ROOT + "texture.cu",
+        # an XLA stage in the JAX package, not a TPU kernel
+        replaces="metal_pathtracer_tpu/ops/pallas/shade.py:3600",
+        launches=launches["texture_stage"],
+        max_abs_err=max(nee_err, tex_err, six_err), ms=tex_ms,
+        plain_ms=tex_plain_ms, bound_ms=tex_b, bound_by=tex_by)
 
 
 def main() -> None:
@@ -590,6 +767,7 @@ def main() -> None:
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     from metal_pathtracer_tpu_torch.ops.kernels import build
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
     dev = torch.device("cuda", 0)
@@ -611,14 +789,16 @@ def main() -> None:
 
     kernels = {"trace_closest": T.trace_closest, "trace_any": T.trace_any,
                "shade_full": S.shade_full, "shade_s1": S.shade_s1,
-               "shade_s2": S.shade_s2}
+               "shade_s2": S.shade_s2, "texture_stage": X.texture_stage}
     out = {}
     t0 = time.time()
     k1_probe_err = lambert_path(dev, card, kernels, out)
     print(f"# lambert path phases took {time.time() - t0:.1f}s")
-    t0 = time.time()
-    nee_path(dev, card, kernels, out, k1_probe_err)
-    print(f"# environment-NEE path phases took {time.time() - t0:.1f}s")
+    for textured in (False, True):
+        t0 = time.time()
+        nee_path(dev, card, kernels, out, k1_probe_err, textured)
+        print(f"# {'textured' if textured else 'untextured'} headline "
+              f"phases took {time.time() - t0:.1f}s")
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])

@@ -1,6 +1,7 @@
 """Carry the JAX package's state across to the port.
 
-The JAX package's ``SceneArrays`` (with its ``EnvironmentSoA``),
+The JAX package's ``SceneArrays`` (with its ``EnvironmentSoA`` and
+``TextureArrays``),
 ``Uniforms``, ``StaticConfig`` and ``RenderState`` arrive as (nested)
 dicts of numpy arrays and Python values,
 one entry per field (the caller does the ``np.asarray``; this module never
@@ -25,6 +26,7 @@ from metal_pathtracer_tpu_torch.schema import (
     MaterialsSoA,
     SceneArrays,
     StaticConfig,
+    TextureArrays,
     TrianglesSoA,
     Uniforms,
 )
@@ -54,29 +56,38 @@ def environment(d: dict, device="cuda") -> EnvironmentSoA:
     return EnvironmentSoA(**fields)
 
 
+def textures(d: dict, device="cuda") -> TextureArrays:
+    """A JAX ``TextureArrays`` (as a dict) on ``device``."""
+    return TextureArrays(**{
+        f.name: int(d[f.name]) if f.name in ("n_textures", "max_levels")
+        else torch.tensor(np.asarray(d[f.name]), device=device)
+        for f in dataclasses.fields(TextureArrays)})
+
+
 def scene_arrays(d: dict, device="cuda") -> SceneArrays:
-    """Materials, triangle soup, BVH and environment; the JAX scene must
-    hold no spheres, rects, instances or textures (not ported yet)."""
+    """Materials, triangle soup, BVH, environment and texture atlas; the
+    JAX scene must hold no spheres, rects or instances (not ported
+    yet)."""
     for key in ("spheres", "rects"):
         sub = d.get(key)
         if sub is not None and np.asarray(sub["material"]).shape[0] > 0:
             raise NotImplementedError(
                 f"{key}: ROADMAP Queue 1, step 11 (analytic primitives)")
-    if d.get("textures") is not None:
-        raise NotImplementedError("textures: ROADMAP Queue 1, step 7")
     tris = d.get("triangles")
     bvh = d.get("tri_bvh")
     env = d.get("environment")
+    tex = d.get("textures")
     return SceneArrays(
         materials=_build(MaterialsSoA, d["materials"], device),
         triangles=None if tris is None else _build(TrianglesSoA, tris,
                                                    device),
         tri_bvh=None if bvh is None else _build(BvhSoA, bvh, device),
-        environment=None if env is None else environment(env, device))
+        environment=None if env is None else environment(env, device),
+        textures=None if tex is None else textures(tex, device))
 
 
 _UNIFORM_SCALARS = ("environment_", "firefly_", "throughput_", "specular_",
-                    "min_specular", "debug_env")
+                    "min_specular", "debug_env", "debug_normal_strength")
 
 
 def uniforms(d: dict, device="cuda") -> Uniforms:
@@ -96,7 +107,8 @@ def uniforms(d: dict, device="cuda") -> Uniforms:
 
 def static_config(d: dict) -> StaticConfig:
     return StaticConfig(**{
-        f.name: tuple(d[f.name]) if f.name == "material_types" else d[f.name]
+        f.name: tuple(d[f.name])
+        if f.name in ("material_types", "texture_slots") else d[f.name]
         for f in dataclasses.fields(StaticConfig)})
 
 

@@ -58,7 +58,7 @@ __device__ __forceinline__ float max3(V3 a) { return maxn(maxn(a.x, a.y), a.z); 
 __device__ __forceinline__ V3 zero3() { return v3(0.0f, 0.0f, 0.0f); }
 
 // bsdf.clamp_firefly_contribution
-__device__ V3 clamp_firefly(V3 tp, V3 contribution, const ClampP& p) {
+__device__ inline V3 clamp_firefly(V3 tp, V3 contribution, const ClampP& p) {
   V3 combined = tp * contribution;
   bool finite = finite3(combined);
   V3 positive = cmin3(combined, 0.0f);
@@ -73,7 +73,7 @@ __device__ V3 clamp_firefly(V3 tp, V3 contribution, const ClampP& p) {
 }
 
 // bsdf.clamp_path_throughput
-__device__ V3 clamp_throughput(V3 tp, const ClampP& p) {
+__device__ inline V3 clamp_throughput(V3 tp, const ClampP& p) {
   bool finite = finite3(tp);
   float lum = luminance3(cmin3(tp, 0.0f));
   float scale = (lum > p.throughput && lum > 0.0f)
@@ -86,14 +86,14 @@ __device__ V3 clamp_throughput(V3 tp, const ClampP& p) {
 }
 
 // bsdf.clamp_specular_pdf
-__device__ float clamp_specular_pdf(float pdf, const ClampP& p) {
+__device__ inline float clamp_specular_pdf(float pdf, const ClampP& p) {
   pdf = cmin(isfinite(pdf) ? pdf : 0.0f, 0.0f);
   float raised = p.min_spec_pdf > 0.0f ? cmin(pdf, p.min_spec_pdf) : pdf;
   return pdf > 0.0f ? raised : 0.0f;
 }
 
 // bsdf.clamp_specular_tail
-__device__ V3 clamp_specular_tail(V3 value, float roughness, V3 f0,
+__device__ inline V3 clamp_specular_tail(V3 value, float roughness, V3 f0,
                                   const ClampP& p) {
   bool finite = finite3(value);
   V3 positive = cmin3(value, 0.0f);
@@ -121,7 +121,7 @@ __device__ __forceinline__ V3 schlick_fresnel(V3 f0, float c) {
 }
 
 // returns Fr; *cos_t_out gets cosThetaT (0 on total internal reflection)
-__device__ float fresnel_dielectric_exact(float cos_i, float eta_i,
+__device__ inline float fresnel_dielectric_exact(float cos_i, float eta_i,
                                           float eta_t, float* cos_t_out) {
   float abs_cos = fabsf(clampf(cos_i, -1.0f, 1.0f));
   float sin2_i = cmin(1.0f - abs_cos * abs_cos, 0.0f);
@@ -139,7 +139,7 @@ __device__ float fresnel_dielectric_exact(float cos_i, float eta_i,
   return tir ? 1.0f : fr;
 }
 
-__device__ float ggx_lambda(float alpha, float cos_theta) {
+__device__ inline float ggx_lambda(float alpha, float cos_theta) {
   float abs_cos = fabsf(cos_theta);
   float sin_theta = sqrtf(cmin(1.0f - abs_cos * abs_cos, 0.0f));
   float tan_theta = sin_theta / cmin(abs_cos, 1e-20f);
@@ -150,13 +150,13 @@ __device__ float ggx_lambda(float alpha, float cos_theta) {
 __device__ __forceinline__ float ggx_g1(float alpha, float c) {
   return 1.0f / (1.0f + ggx_lambda(alpha, c));
 }
-__device__ float ggx_d(float alpha, float cos_h) {
+__device__ inline float ggx_d(float alpha, float cos_h) {
   float abs_ch = fabsf(cos_h);
   float a2 = alpha * alpha;
   float denom = abs_ch * abs_ch * (a2 - 1.0f) + 1.0f;
   return a2 / (PI_F * denom * denom);
 }
-__device__ float ggx_pdf(float alpha, V3 n, V3 wo, V3 wi) {
+__device__ inline float ggx_pdf(float alpha, V3 n, V3 wo, V3 wi) {
   V3 wh = safe_normalize3(wo + wi);
   float cos_h = dot3(n, wh);
   float dot_wo_wh = dot3(wo, wh);
@@ -170,7 +170,7 @@ __device__ __forceinline__ V3 reflect3(V3 v, V3 n) {
   float s = 2.0f * dot3(v, n);
   return v3(v.x - s * n.x, v.y - s * n.y, v.z - s * n.z);
 }
-__device__ V3 refract3(V3 v, V3 n, float eta) {
+__device__ inline V3 refract3(V3 v, V3 n, float eta) {
   float cos_i = -dot3(v, n);
   float sin2_t = eta * eta * cmin(1.0f - cos_i * cos_i, 0.0f);
   float k = 1.0f - sin2_t;
@@ -193,7 +193,7 @@ __device__ __forceinline__ V3 to_world(V3 l, V3 n) {
 }
 
 // rng.sample_cosine_hemisphere (tangent space)
-__device__ V3 sample_cosine_hemisphere(uint32_t* s) {
+__device__ inline V3 sample_cosine_hemisphere(uint32_t* s) {
   float r1 = rand_uniform(s);
   float r2 = rand_uniform(s);
   float phi = TWO_PI_F * r2;
@@ -202,7 +202,7 @@ __device__ V3 sample_cosine_hemisphere(uint32_t* s) {
 }
 
 // bsdf.sample_ggx_vndf: exactly 2 draws
-__device__ V3 sample_ggx_vndf(V3 n, V3 wo, float roughness, uint32_t* s) {
+__device__ inline V3 sample_ggx_vndf(V3 n, V3 wo, float roughness, uint32_t* s) {
   V3 t, b;
   build_onb(n, &t, &b);
   V3 w = safe_normalize3(wo);
@@ -232,7 +232,7 @@ __device__ V3 sample_ggx_vndf(V3 n, V3 wo, float roughness, uint32_t* s) {
 }
 
 // bsdf.specular_energy_compensation (dfg_approx inlined)
-__device__ V3 specular_energy_compensation(V3 f0, float rough, float nov) {
+__device__ inline V3 specular_energy_compensation(V3 f0, float rough, float nov) {
   float nc = clampf(nov, 0.0f, 1.0f);
   float r0 = rough * -1.0f + 1.0f;
   float r1 = rough * -0.0275f + 0.0425f;
@@ -285,11 +285,13 @@ __device__ __forceinline__ Sample invalid_sample() {
 }
 
 // ---- lambert (bsdf._sample_lambert): 2 draws --------------------------
-__device__ Sample sample_lambert(const Mat& m, V3 n, uint32_t* s) {
+// `occ` is the diffuse occlusion of the texture stage (1 untextured)
+__device__ inline Sample sample_lambert(const Mat& m, V3 n, uint32_t* s,
+                                 float occ = 1.0f) {
   V3 wi = safe_normalize3(to_world(sample_cosine_hemisphere(s), n));
   float cos_i = dot3(n, wi);
   float pdf = lambert_pdf(n, wi);
-  V3 f = clamp3(m.base, 0.0f, 1.0f) / PI_F;
+  V3 f = (clamp3(m.base, 0.0f, 1.0f) * clampf(occ, 0.0f, 1.0f)) / PI_F;
   V3 weight = cmin3(f * (cos_i / cmin(pdf, 1e-20f)), 0.0f);
   Sample o = invalid_sample();
   if (cos_i > 0.0f && pdf > 0.0f && finite3(weight)) {
@@ -302,7 +304,7 @@ __device__ Sample sample_lambert(const Mat& m, V3 n, uint32_t* s) {
 }
 
 // ---- dielectric (bsdf._sample_dielectric): 1 draw ----------------------
-__device__ Sample sample_dielectric(const Mat& m, V3 n, V3 incident,
+__device__ inline Sample sample_dielectric(const Mat& m, V3 n, V3 incident,
                                     bool front, uint32_t* s) {
   bool is_thin = m.thin > 0.5f;
   float ref_idx = cmin(m.eta, 1.0f);
@@ -343,7 +345,7 @@ struct PbrLobes {
   float transmission, reflect_scale, p_spec, p_diff, p_trans;
   bool weights_ok;
 };
-__device__ PbrLobes pbr_lobes(const Mat& m) {
+__device__ inline PbrLobes pbr_lobes(const Mat& m, float occ) {
   PbrLobes L;
   V3 base = clamp3(m.base, 0.0f, 1.0f);
   float metallic = clampf(m.metallic, 0.0f, 1.0f);
@@ -353,7 +355,7 @@ __device__ PbrLobes pbr_lobes(const Mat& m) {
   float f0d = clampf(ratio * ratio, 0.0f, 0.99f);
   L.f0 = v3(f0d + (base.x - f0d) * metallic, f0d + (base.y - f0d) * metallic,
             f0d + (base.z - f0d) * metallic);
-  L.diffuse_color = base * (1.0f - metallic);
+  L.diffuse_color = (base * (1.0f - metallic)) * clampf(occ, 0.0f, 1.0f);
   L.transmission = clampf(m.transmission, 0.0f, 1.0f) * (1.0f - metallic);
   L.reflect_scale = 1.0f - L.transmission;
   float swb = clampf(max3(L.f0), 0.05f, 0.95f);
@@ -370,7 +372,7 @@ __device__ PbrLobes pbr_lobes(const Mat& m) {
 }
 
 // pbr.transmission_tint
-__device__ V3 transmission_tint(const Mat& m, float cos_theta) {
+__device__ inline V3 transmission_tint(const Mat& m, float cos_theta) {
   float thickness = cmin(m.thickness, 0.0f);
   V3 sigma = cmin3(m.sigma_a, 0.0f);
   float distance = thickness / cmin(fabsf(cos_theta), 1e-3f);
@@ -382,7 +384,7 @@ __device__ V3 transmission_tint(const Mat& m, float cos_theta) {
   return skip ? v3(1.0f, 1.0f, 1.0f) : tint;
 }
 
-__device__ float ggx_vndf_pdf(float alpha, V3 n, V3 wo, V3 wh) {
+__device__ inline float ggx_vndf_pdf(float alpha, V3 n, V3 wo, V3 wh) {
   float cos_o = dot3(n, wo);
   float cos_h = dot3(n, wh);
   float pdf = ggx_d(alpha, cos_h) * ggx_g1(alpha, cos_o) * cos_h /
@@ -397,12 +399,12 @@ struct Eval {
 };
 
 // pbr.evaluate_pbr
-__device__ Eval evaluate_pbr(const Mat& m, V3 n, V3 wo, V3 wi,
-                             const ClampP& p) {
+__device__ inline Eval evaluate_pbr(const Mat& m, V3 n, V3 wo, V3 wi,
+                             const ClampP& p, float occ) {
   float cos_o = dot3(n, wo), cos_i = dot3(n, wi);
   float abs_o = fabsf(cos_o), abs_i = fabsf(cos_i);
   bool geom_ok = abs_o > 0.0f && abs_i > 0.0f;
-  PbrLobes L = pbr_lobes(m);
+  PbrLobes L = pbr_lobes(m, occ);
   Eval e;
   e.is_delta = L.roughness <= 1e-3f;
   e.value = zero3();
@@ -466,8 +468,8 @@ __device__ Eval evaluate_pbr(const Mat& m, V3 n, V3 wo, V3 wi,
 }
 
 // bsdf.evaluate_bsdf over lambert, dielectric, PBR
-__device__ Eval evaluate_bsdf(const Mat& m, V3 n, V3 wo, V3 wi,
-                              const ClampP& p) {
+__device__ inline Eval evaluate_bsdf(const Mat& m, V3 n, V3 wo, V3 wi,
+                              const ClampP& p, float occ) {
   float cos_o = cmin(dot3(n, wo), 0.0f);
   float cos_i = cmin(dot3(n, wi), 0.0f);
   bool geom_ok = cos_i > 0.0f && cos_o > 0.0f;
@@ -476,21 +478,21 @@ __device__ Eval evaluate_bsdf(const Mat& m, V3 n, V3 wo, V3 wi,
   e.pdf = 0.0f;
   e.is_delta = false;
   if (m.type == MAT_LAMBERT && geom_ok) {
-    e.value = clamp3(m.base, 0.0f, 1.0f) / PI_F;
+    e.value = (clamp3(m.base, 0.0f, 1.0f) * clampf(occ, 0.0f, 1.0f)) / PI_F;
     e.pdf = lambert_pdf(n, wi);
   } else if (m.type == MAT_DIELECTRIC) {
     e.is_delta = true;
   } else if (m.type == MAT_PBR && geom_ok) {
-    e = evaluate_pbr(m, n, wo, wi, p);
+    e = evaluate_pbr(m, n, wo, wi, p, occ);
   }
   if (e.pdf <= 0.0f || !finite3(e.value)) e.value = zero3();
   return e;
 }
 
 // pbr.sample_pbr: 1 selector draw, then 0 (smooth) or 2 more
-__device__ Sample sample_pbr(const Mat& m, V3 n, V3 wo, V3 incident,
-                             uint32_t* s, const ClampP& p) {
-  PbrLobes L = pbr_lobes(m);
+__device__ inline Sample sample_pbr(const Mat& m, V3 n, V3 wo, V3 incident,
+                             uint32_t* s, const ClampP& p, float occ) {
+  PbrLobes L = pbr_lobes(m, occ);
   bool smooth = L.roughness <= 1e-3f;
   float alpha = cmin(L.roughness * L.roughness, 1e-4f);
   float choose = rand_uniform(s);
@@ -592,10 +594,11 @@ __device__ Sample sample_pbr(const Mat& m, V3 n, V3 wo, V3 incident,
 }
 
 // bsdf.sample_bsdf over lambert, dielectric, PBR
-__device__ Sample sample_bsdf(const Mat& m, V3 n, V3 wo, V3 incident,
-                              bool front, uint32_t* s, const ClampP& p) {
-  if (m.type == MAT_LAMBERT) return sample_lambert(m, n, s);
+__device__ inline Sample sample_bsdf(const Mat& m, V3 n, V3 wo, V3 incident,
+                              bool front, uint32_t* s, const ClampP& p,
+                              float occ) {
+  if (m.type == MAT_LAMBERT) return sample_lambert(m, n, s, occ);
   if (m.type == MAT_DIELECTRIC) return sample_dielectric(m, n, incident, front, s);
-  if (m.type == MAT_PBR) return sample_pbr(m, n, wo, incident, s, p);
+  if (m.type == MAT_PBR) return sample_pbr(m, n, wo, incident, s, p, occ);
   return invalid_sample();
 }

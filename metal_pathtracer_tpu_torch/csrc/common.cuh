@@ -107,3 +107,56 @@ __device__ __forceinline__ float rand_uniform(uint32_t* s) {
   *s = pcg_hash(*s);
   return __uint2float_rn(*s) * 2.3283064365386963e-10f;  // 2^-32
 }
+
+// linear sRGB -> ACEScg (vecmath.linear_srgb_to_acescg)
+__device__ inline V3 to_acescg(V3 c) {
+  return v3(fmaf_rn(0.047380f, c.z, fmaf_rn(0.339523f, c.y, 0.613097f * c.x)),
+            fmaf_rn(0.013452f, c.z, fmaf_rn(0.916354f, c.y, 0.070194f * c.x)),
+            fmaf_rn(0.869816f, c.z, fmaf_rn(0.109569f, c.y, 0.020615f * c.x)));
+}
+
+// traversal._hit_record_from_best for one lane: the shade_packed row of
+// triangle `tri` gives the point, the faced geometric normal and the
+// interpolated shading normal, as the hit record holds it (shading_rec)
+// and with the integrator's bad-normal fallback (shading_n)
+struct Hit {
+  V3 point, n_faced, shading_rec, shading_n;
+  bool front;
+  int material, mesh;
+};
+__device__ inline Hit rebuild_hit(const float* shade_packed, int tri, V3 ray_o,
+                           V3 ray_d, float t, float u, float v) {
+  const float* row = shade_packed + 24LL * tri;
+  V3 v0 = v3(row[0], row[1], row[2]);
+  V3 v1 = v3(row[3], row[4], row[5]);
+  V3 v2 = v3(row[6], row[7], row[8]);
+  V3 n0 = v3(row[9], row[10], row[11]);
+  V3 n1 = v3(row[12], row[13], row[14]);
+  V3 n2 = v3(row[15], row[16], row[17]);
+  Hit h;
+  h.material = (int)row[18];
+  h.mesh = (int)row[19];
+  h.point = fma3(t, ray_d, ray_o);
+  V3 geo_n = safe_normalize3(cross3(v1 - v0, v2 - v0));
+  h.front = dot3(ray_d, geo_n) < 0.0f;
+  h.n_faced = sel(h.front, geo_n, -geo_n);
+  // interpolate_shading_normal
+  float w0 = cmin((1.0f - u) - v, 0.0f), w1 = cmin(u, 0.0f),
+        w2 = cmin(v, 0.0f);
+  float w_sum = (w0 + w1) + w2;
+  bool has_w = w_sum > 1e-8f;
+  w0 = has_w ? w0 / w_sum : 1.0f;
+  w1 = has_w ? w1 / w_sum : 0.0f;
+  w2 = has_w ? w2 / w_sum : 0.0f;
+  V3 sn = v3(fmaf_rn(w2, n2.x, fmaf_rn(w0, n0.x, w1 * n1.x)),
+             fmaf_rn(w2, n2.y, fmaf_rn(w0, n0.y, w1 * n1.y)),
+             fmaf_rn(w2, n2.z, fmaf_rn(w0, n0.z, w1 * n1.z)));
+  bool sn_ok = finite3(sn) && dot3(sn, sn) > 0.0f;
+  sn = dot3(sn, h.n_faced) < 0.0f ? -sn : sn;
+  sn = safe_normalize3(sn);
+  h.shading_rec = sel(sn_ok, sn, h.n_faced);
+  h.shading_n = h.shading_rec;
+  if (!finite3(h.shading_n) || dot3(h.shading_n, h.shading_n) <= 0.0f)
+    h.shading_n = h.n_faced;
+  return h;
+}

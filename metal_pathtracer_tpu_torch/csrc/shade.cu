@@ -16,6 +16,13 @@
 //               columns), medium push/pop (8 clamped slots), next origin,
 //               throughput clamp, environment LOD, ray cone, Russian
 //               roulette at depth >= 5, commit.
+// In a textured scene s1 and s2 read the texture stage's 15 planes per
+// lane (csrc/texture.cu; a NULL pointer otherwise): lanes whose tpbr flag
+// is set take the textured material values, diffuse occlusion and (s1)
+// mapped normal, and alpha pass-through lanes record no AOV, add no
+// emission, draw no NEE or BSDF sample and go on along their ray as a
+// delta bounce of weight 1 (shade.py:2027-2059, 2123-2139, 2188,
+// 2306-2331).
 // Each kernel does what its plain version in ops/kernels/shade.py does, in
 // the same order and with the same arithmetic; they update the PathCarry
 // arrays and the RNG state (uint32 values held in int64) IN PLACE, and
@@ -24,7 +31,8 @@
 // What bounds them on an H100: bytes. A live lane reads its carry (~100 B
 // for full, ~150 B with the environment fields), gathers one 96 B
 // shade_packed row at a random triangle, reads or writes 72 B of
-// transients (s1/s2) and writes the carry back; the arithmetic (a few
+// transients (s1/s2), reads 60 B of texture planes in a textured scene,
+// and writes the carry back; the arithmetic (a few
 // sqrt/div/exp, one or two sin/cos pairs) is small beside that. The design
 // touches each carry value once per stage, keeps every intermediate in
 // registers, and returns at once for dead lanes so late depths cost
@@ -42,6 +50,7 @@
 #define N_TRANS 18
 #define N_ESMP 9
 #define N_CHAIN 7
+#define N_TEX 15
 
 namespace {
 
@@ -60,7 +69,41 @@ struct NeeParams {
   int russian_roulette;
   int specular_mis;
   float env_max_mip;  // 0: no mip chain, the LOD carry stays off
+  int working_space;  // 0 linear sRGB, 1 ACEScg
 };
+
+// The texture planes' overrides of one lane (kernels/shade.py _textured):
+// where tpbr, the textured material values; the PBR emission (the
+// material's own, in the working space when the scene is textured), the
+// diffuse occlusion, the pass-through flag and the mapped normal
+struct TexLane {
+  V3 emission, normal;
+  float occlusion;
+  bool tpbr, passthrough;
+};
+__device__ TexLane apply_tex(const float* tex, long long i, Mat* m,
+                             int working_space) {
+  TexLane o;
+  o.emission = m->emission;
+  o.occlusion = 1.0f;
+  o.tpbr = o.passthrough = false;
+  if (tex == nullptr) return o;
+  const float* tx = tex + (long long)N_TEX * i;
+  o.tpbr = tx[14] > 0.5f;
+  if (!o.tpbr) {
+    if (working_space == 1) o.emission = to_acescg(m->emission);
+    return o;
+  }
+  m->base = v3(tx[0], tx[1], tx[2]);
+  m->roughness = tx[3];
+  m->metallic = tx[4];
+  m->transmission = tx[13];
+  o.emission = v3(tx[5], tx[6], tx[7]);
+  o.occlusion = tx[8];
+  o.passthrough = tx[9] > 0.5f;
+  o.normal = v3(tx[10], tx[11], tx[12]);
+  return o;
+}
 
 // The PathCarry arrays, in ops/kernels/shade.py _CARRY_DTYPES order
 struct Carry {
@@ -86,56 +129,6 @@ struct Carry {
   float* env_lod;
   bool* env_lod_active;
 };
-
-__device__ V3 to_acescg(V3 c) {
-  return v3(fmaf_rn(0.047380f, c.z, fmaf_rn(0.339523f, c.y, 0.613097f * c.x)),
-            fmaf_rn(0.013452f, c.z, fmaf_rn(0.916354f, c.y, 0.070194f * c.x)),
-            fmaf_rn(0.869816f, c.z, fmaf_rn(0.109569f, c.y, 0.020615f * c.x)));
-}
-
-// traversal._hit_record_from_best for one lane: the shade_packed row of
-// triangle `tri` gives the point, the faced geometric normal and the
-// interpolated shading normal (with the integrator's bad-normal fallback)
-struct Hit {
-  V3 point, n_faced, shading_n;
-  bool front;
-  int material, mesh;
-};
-__device__ Hit rebuild_hit(const float* shade_packed, int tri, V3 ray_o,
-                           V3 ray_d, float t, float u, float v) {
-  const float* row = shade_packed + 24LL * tri;
-  V3 v0 = v3(row[0], row[1], row[2]);
-  V3 v1 = v3(row[3], row[4], row[5]);
-  V3 v2 = v3(row[6], row[7], row[8]);
-  V3 n0 = v3(row[9], row[10], row[11]);
-  V3 n1 = v3(row[12], row[13], row[14]);
-  V3 n2 = v3(row[15], row[16], row[17]);
-  Hit h;
-  h.material = (int)row[18];
-  h.mesh = (int)row[19];
-  h.point = fma3(t, ray_d, ray_o);
-  V3 geo_n = safe_normalize3(cross3(v1 - v0, v2 - v0));
-  h.front = dot3(ray_d, geo_n) < 0.0f;
-  h.n_faced = sel(h.front, geo_n, -geo_n);
-  // interpolate_shading_normal
-  float w0 = cmin((1.0f - u) - v, 0.0f), w1 = cmin(u, 0.0f),
-        w2 = cmin(v, 0.0f);
-  float w_sum = (w0 + w1) + w2;
-  bool has_w = w_sum > 1e-8f;
-  w0 = has_w ? w0 / w_sum : 1.0f;
-  w1 = has_w ? w1 / w_sum : 0.0f;
-  w2 = has_w ? w2 / w_sum : 0.0f;
-  V3 sn = v3(fmaf_rn(w2, n2.x, fmaf_rn(w0, n0.x, w1 * n1.x)),
-             fmaf_rn(w2, n2.y, fmaf_rn(w0, n0.y, w1 * n1.y)),
-             fmaf_rn(w2, n2.z, fmaf_rn(w0, n0.z, w1 * n1.z)));
-  bool sn_ok = finite3(sn) && dot3(sn, sn) > 0.0f;
-  sn = dot3(sn, h.n_faced) < 0.0f ? -sn : sn;
-  sn = safe_normalize3(sn);
-  h.shading_n = sel(sn_ok, sn, h.n_faced);
-  if (!finite3(h.shading_n) || dot3(h.shading_n, h.shading_n) <= 0.0f)
-    h.shading_n = h.n_faced;
-  return h;
-}
 
 // intersect.offset_ray_origin: off the (valid) shading normal, then along
 // the new direction
@@ -261,7 +254,7 @@ __global__ void shade_s1_kernel(
     const float* __restrict__ hit_v, const float* __restrict__ shade_packed,
     const float* __restrict__ mat_table, int m_count,
     const float* __restrict__ envbg, const float* __restrict__ envpdf,
-    Carry c, float* __restrict__ trans) {
+    const float* __restrict__ tex, Carry c, float* __restrict__ trans) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* tr = trans + (long long)N_TRANS * i;
@@ -290,6 +283,8 @@ __global__ void shade_s1_kernel(
   Hit h = rebuild_hit(shade_packed, tri, load3(c.ray_o, i),
                       load3(c.ray_d, i), t, hit_u[i], hit_v[i]);
   Mat m = fetch_material(mat_table, min(max(h.material, 0), m_count - 1));
+  TexLane tl = apply_tex(tex, i, &m, p.working_space);
+  V3 sn = tl.tpbr ? tl.normal : h.shading_n;
 
   // ---- Beer-Lambert absorption by the innermost medium ----------------
   V3 tp = tp0;
@@ -303,20 +298,21 @@ __global__ void shade_s1_kernel(
     if (sigma.x > 0.0f || sigma.y > 0.0f || sigma.z > 0.0f) tp = tp0 * att;
   }
 
-  V3 shading_n = m.type == MAT_DIELECTRIC ? h.n_faced : h.shading_n;
+  V3 shading_n = m.type == MAT_DIELECTRIC ? h.n_faced : sn;
   bool two_sided = m.type == MAT_PBR && m.double_sided > 0.5f;
   bool delta = material_is_delta(m);
+  V3 em = tl.emission;
 
-  // ---- first-hit AOVs, PBR emission -------------------------------------
-  if (c.first_hit[i]) {
+  // ---- first-hit AOVs, PBR emission (pass-through lanes: neither) -------
+  if (c.first_hit[i] && !tl.passthrough) {
     store3(c.aov_albedo, i, clamp3(m.base, 0.0f, 1.0f));
     store3(c.aov_normal, i, shading_n);
     c.first_hit[i] = false;
   }
-  if (m.type == MAT_PBR &&
-      (m.emission.x != 0.0f || m.emission.y != 0.0f || m.emission.z != 0.0f) &&
+  if (!tl.passthrough && m.type == MAT_PBR &&
+      (em.x != 0.0f || em.y != 0.0f || em.z != 0.0f) &&
       (h.front || two_sided))
-    radiance = radiance + clamp_firefly(tp, m.emission, p.c);
+    radiance = radiance + clamp_firefly(tp, em, p.c);
 
   // ---- the NEE draws, committed on NEE lanes only ----------------------
   uint32_t s0 = (uint32_t)c.state[i];
@@ -324,7 +320,7 @@ __global__ void shade_s1_kernel(
   float u1 = rand_uniform(&s_env);
   float u2 = rand_uniform(&s_env);
   float u3 = rand_uniform(&s_env);
-  c.state[i] = (long long)(delta ? s0 : s_env);
+  c.state[i] = (long long)(delta || tl.passthrough ? s0 : s_env);
   store3(c.radiance, i, radiance);
   store3(c.throughput, i, tp);
 
@@ -350,8 +346,8 @@ __global__ void shade_s2_kernel(
     const int* __restrict__ hit_tri, const float* __restrict__ hit_u,
     const float* __restrict__ hit_v, const float* __restrict__ shade_packed,
     const float* __restrict__ mat_table, int m_count,
-    const float* __restrict__ trans, const float* __restrict__ esmp, Carry c,
-    float* __restrict__ chain) {
+    const float* __restrict__ trans, const float* __restrict__ esmp,
+    const float* __restrict__ tex, Carry c, float* __restrict__ chain) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* ch = chain + (long long)N_CHAIN * i;
@@ -365,6 +361,7 @@ __global__ void shade_s2_kernel(
   Hit h = rebuild_hit(shade_packed, tri, load3(c.ray_o, i), ray_d, t,
                       hit_u[i], hit_v[i]);
   Mat m = fetch_material(mat_table, min(max(h.material, 0), m_count - 1));
+  TexLane tl = apply_tex(tex, i, &m, p.working_space);
   V3 sn = v3(tr[4], tr[5], tr[6]);
   V3 n_faced = v3(tr[7], tr[8], tr[9]);
   V3 point = v3(tr[10], tr[11], tr[12]);
@@ -377,10 +374,10 @@ __global__ void shade_s2_kernel(
   V3 e_dir = v3(es[0], es[1], es[2]);
   float e_pdf = es[6];
   float n_dot_l = cmin(dot3(sn, e_dir), 0.0f);
-  bool do_shadow = tr[14] < 0.5f && es[7] > 0.5f && e_pdf > 0.0f &&
-                   n_dot_l > 0.0f;
+  bool do_shadow = tr[14] < 0.5f && !tl.passthrough && es[7] > 0.5f &&
+                   e_pdf > 0.0f && n_dot_l > 0.0f;
   if (do_shadow && !(es[8] > 0.5f)) {
-    Eval ev = evaluate_bsdf(m, sn, wo, e_dir, p.c);
+    Eval ev = evaluate_bsdf(m, sn, wo, e_dir, p.c, tl.occlusion);
     float w = ev.pdf > 0.0f ? mis_weight(e_pdf, e_pdf + ev.pdf) : 1.0f;
     V3 contribution = v3(es[3], es[4], es[5]) * ev.value * n_dot_l *
                       (w / cmin(e_pdf, 1e-30f));
@@ -390,14 +387,25 @@ __global__ void shade_s2_kernel(
 
   // ---- BSDF sample from the post-s1 state ------------------------------
   uint32_t s = (uint32_t)c.state[i];
-  Sample smp = sample_bsdf(m, sn, wo, incident, h.front, &s, p.c);
+  Sample smp;
+  if (tl.passthrough) {
+    // alpha pass-through: a delta bounce along the same ray, weight 1,
+    // no draw
+    smp = invalid_sample();
+    smp.dir = ray_d;
+    smp.weight = v3(1.0f, 1.0f, 1.0f);
+    smp.pdf = smp.dpdf = 1.0f;
+    smp.is_delta = true;
+  } else {
+    smp = sample_bsdf(m, sn, wo, incident, h.front, &s, p.c, tl.occlusion);
+  }
   bool active = smp.pdf > 0.0f;
   ch[0] = smp.weight.x;
   ch[1] = smp.weight.y;
   ch[2] = smp.weight.z;
   ch[3] = smp.dpdf;
   ch[4] = (float)smp.medium_event;
-  ch[5] = active ? 1.0f : 0.0f;
+  ch[5] = active && !tl.passthrough ? 1.0f : 0.0f;
   ch[6] = h.front ? 1.0f : 0.0f;
 
   // ---- medium stack push/pop (8 slots, clamped) ------------------------
@@ -503,7 +511,7 @@ ClampP clamp_of(float enabled, float factor, float floor,
 
 // NeeParams.scalars(): depth, clamp factor, floor, throughput, tail base,
 // tail roughness scale, min specular pdf, max contribution, enabled,
-// russian roulette, specular MIS, env max mip
+// russian roulette, specular MIS, env max mip, working colour space
 NeeParams nee_params_of(const float* s) {
   NeeParams p;
   p.depth = (int)s[0];
@@ -511,6 +519,7 @@ NeeParams nee_params_of(const float* s) {
   p.russian_roulette = s[9] > 0.5f;
   p.specular_mis = s[10] > 0.5f;
   p.env_max_mip = s[11];
+  p.working_space = (int)s[12];
   return p;
 }
 
@@ -552,15 +561,16 @@ extern "C" int mpt_shade_s1(int n, const float* scalars, const void* t,
                             const void* tri, const void* u, const void* v,
                             const void* shade_packed, const void* mat_table,
                             int m_count, const void* envbg,
-                            const void* envpdf, void* const* carry,
-                            void* trans, void* stream) {
+                            const void* envpdf, const void* tex,
+                            void* const* carry, void* trans, void* stream) {
   if (n <= 0) return 0;
   shade_s1_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                     (cudaStream_t)stream>>>(
       n, nee_params_of(scalars), (const float*)t, (const int*)tri,
       (const float*)u, (const float*)v, (const float*)shade_packed,
       (const float*)mat_table, m_count, (const float*)envbg,
-      (const float*)envpdf, carry_of(carry), (float*)trans);
+      (const float*)envpdf, (const float*)tex, carry_of(carry),
+      (float*)trans);
   return (int)cudaGetLastError();
 }
 
@@ -568,13 +578,15 @@ extern "C" int mpt_shade_s2(int n, const float* scalars, const void* t,
                             const void* tri, const void* u, const void* v,
                             const void* shade_packed, const void* mat_table,
                             int m_count, const void* trans, const void* esmp,
-                            void* const* carry, void* chain, void* stream) {
+                            const void* tex, void* const* carry, void* chain,
+                            void* stream) {
   if (n <= 0) return 0;
   shade_s2_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                     (cudaStream_t)stream>>>(
       n, nee_params_of(scalars), (const float*)t, (const int*)tri,
       (const float*)u, (const float*)v, (const float*)shade_packed,
       (const float*)mat_table, m_count, (const float*)trans,
-      (const float*)esmp, carry_of(carry), (float*)chain);
+      (const float*)esmp, (const float*)tex, carry_of(carry),
+      (float*)chain);
   return (int)cudaGetLastError();
 }

@@ -60,12 +60,17 @@ SIGNATURES = {
         _vp, _vp, _vp,                          # v0 v1 v2
         _vp, _vp],                              # out flags, stream
     # n, scalars (host float[]), t tri u v, shade_packed, material table,
-    # its row count, two stage inputs, PathCarry pointers (host void*[]),
-    # output, stream
+    # its row count, two stage inputs, texture planes (NULL: untextured),
+    # PathCarry pointers (host void*[]), output, stream
     "mpt_shade_s1": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                     _vp, _vp, _vp, _vp, _vp],
+                     _vp, _vp, _vp, _vp, _vp, _vp],
     "mpt_shade_s2": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                     _vp, _vp, _vp, _vp, _vp],
+                     _vp, _vp, _vp, _vp, _vp, _vp],
+    # n, scalars (host float[]), t tri u v, texture material table, its row
+    # count, carry / triangle attribute / atlas pointers (host void*[]),
+    # texture count, levels per texture, output planes, stream
+    "mpt_texture_stage": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                          _vp, _vp, _vp, _i, _i, _vp, _vp],
 }
 
 

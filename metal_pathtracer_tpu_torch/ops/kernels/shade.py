@@ -20,6 +20,14 @@ place, and lanes that enter dead keep every value:
   chain exports (``CHAIN``), medium push/pop, next origin, throughput
   clamp, environment LOD, ray cone, Russian roulette and the commit.
 
+In a textured scene s1 and s2 also read the texture stage's 15 ``TEX``
+planes (``ops/kernels/texture.py``; ``shade.py:2027-2059``): lanes whose
+``tpbr`` flag is set take the textured base colour, roughness, metallic,
+transmission, emission and occlusion (s1 also the mapped normal), and
+alpha pass-through lanes record no AOV, add no emission, draw no NEE or
+BSDF sample and continue along their ray as a delta bounce of weight 1
+(``shade.py:2123-2139, 2188, 2306-2331``).
+
 The depth loops are ``trace_paths_fused:2915``'s no-NEE branch
 (``shade.py:3152-3163``) and its NEE branch (``shade.py:3165-3351``).
 """
@@ -46,6 +54,11 @@ from metal_pathtracer_tpu_torch.ops.intersect import (
     trace_occluded,
 )
 from metal_pathtracer_tpu_torch.ops.kernels import build
+from metal_pathtracer_tpu_torch.ops.kernels.texture import (
+    TEX_IDX,
+    has_textures,
+    texture_stage,
+)
 from metal_pathtracer_tpu_torch.ops.kernels.traverse import trace_closest
 from metal_pathtracer_tpu_torch.ops.traversal import _hit_record_from_best
 from metal_pathtracer_tpu_torch.ops.vecmath import (
@@ -316,6 +329,7 @@ class NeeParams:
     env_max_mip: float      # mip levels below mip0; 0 turns the LOD off
     material_types: tuple
     clamp: bsdf_ops.ClampParams
+    working_color_space: int      # 0 linear sRGB / 1 ACEScg
 
     @classmethod
     def of(cls, uniforms, static, env) -> "NeeParams":
@@ -324,7 +338,8 @@ class NeeParams:
                    or static.enable_mnee,
                    env_max_mip=env_ops.max_mip(env),
                    material_types=tuple(static.material_types),
-                   clamp=bsdf_ops.make_clamp_params(uniforms))
+                   clamp=bsdf_ops.make_clamp_params(uniforms),
+                   working_color_space=static.working_color_space)
 
     def scalars(self, depth: int):
         """The float vector the kernels unpack (``NeeScalars`` in
@@ -335,7 +350,7 @@ class NeeParams:
                 c.specular_tail_roughness_scale, c.min_specular_pdf,
                 c.max_contribution, c.enabled,
                 float(self.use_russian_roulette), float(self.specular_mis),
-                self.env_max_mip]
+                self.env_max_mip, float(self.working_color_space)]
 
 
 def _mis_weight(pdf_a, pdf_b):
@@ -346,11 +361,34 @@ def _mis_weight(pdf_a, pdf_b):
                        C.MIS_WEIGHT_CLAMP_MIN, C.MIS_WEIGHT_CLAMP_MAX), denom
 
 
+def _textured(m, tex, params: NeeParams):
+    """The texture planes' overrides (``shade.py:2027-2052``): (material
+    lanes, PBR emission, diffuse occlusion, pass-through, tpbr). Without
+    planes: the material's own values and emission, no occlusion, no
+    pass-through."""
+    ones = torch.ones_like(m.roughness)
+    if tex is None:
+        return m, m.emission, ones, torch.zeros_like(ones, dtype=torch.bool), \
+            None
+    tv = tex[:, TEX_IDX["tpbr"]] > 0.5
+    col = lambda name: tex[:, TEX_IDX[name]]
+    m_tex = dataclasses.replace(
+        m, base_color=where3(tv, tex[:, 0:3], m.base_color),
+        roughness=torch.where(tv, col("trough"), m.roughness),
+        pbr_metallic=torch.where(tv, col("tmetal"), m.pbr_metallic),
+        pbr_transmission=torch.where(tv, col("ttrans"), m.pbr_transmission))
+    emissive = where3(tv, tex[:, 5:8], to_working_space(m.emission, params))
+    occlusion = torch.where(tv, col("tocc"), ones)
+    return m_tex, emissive, occlusion, tv & (col("tpass") > 0.5), tv
+
+
 def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
-                       envbg, envpdf, params: NeeParams, depth: int):
+                       envbg, envpdf, params: NeeParams, depth: int,
+                       tex=None):
     """Plain PyTorch K2 stage s1 (``_shade_kernel`` stage "s1",
-    integrator body :280-460). Updates ``carry`` in place and returns the
-    (N,18) transients."""
+    integrator body :280-460), reading the texture planes ``tex`` when
+    given. Updates ``carry`` in place and returns the (N,18)
+    transients."""
     del depth
     n = t.shape[0]
     alive0 = carry.alive
@@ -372,7 +410,10 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     sn = rec.shading_normal
     bad_sn = ~torch.isfinite(sn).all(-1) | (dot(sn, sn) <= 0.0)
     shading_normal = where3(bad_sn, rec.normal, sn)
-    m = bsdf_ops.gather_material(materials, rec.material)
+    m, pbr_emissive, _, passthrough, tv = _textured(
+        bsdf_ops.gather_material(materials, rec.material), tex, params)
+    if tv is not None:
+        shading_normal = where3(tv, tex[:, 10:13], shading_normal)
 
     top = torch.clamp(carry.medium_depth - 1, 0, C.MAX_MEDIUM_STACK - 1)
     sigma = carry.medium_stack[torch.arange(n, device=t.device), top.long()]
@@ -386,19 +427,21 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     surface_is_delta = bsdf_ops.material_is_delta(m)
 
     # ---- first-hit AOVs, PBR emission ------------------------------------
-    record_aov = active & carry.is_first_hit
+    shaded = active & ~passthrough
+    record_aov = shaded & carry.is_first_hit
     aov_albedo = where3(record_aov, bsdf_ops.material_base_color(m),
                         carry.aov_albedo)
     aov_normal = where3(record_aov, shading_normal, carry.aov_normal)
-    pbr_emit = (active & (m.mat_type == C.MATERIAL_PBR)
-                & (m.emission != 0.0).any(-1) & (rec.front_face | two_sided))
+    pbr_emit = (shaded & (m.mat_type == C.MATERIAL_PBR)
+                & (pbr_emissive != 0.0).any(-1)
+                & (rec.front_face | two_sided))
     radiance = radiance + where3(
-        pbr_emit, bsdf_ops.clamp_firefly_contribution(throughput, m.emission,
-                                                      params.clamp),
+        pbr_emit, bsdf_ops.clamp_firefly_contribution(
+            throughput, pbr_emissive, params.clamp),
         torch.zeros_like(radiance))
 
     # ---- the NEE draws: taken on NEE lanes only --------------------------
-    nee_lanes = active & ~surface_is_delta
+    nee_lanes = shaded & ~surface_is_delta
     s_env, u1 = rng_ops.rand_uniform(carry.state)
     s_env, u2 = rng_ops.rand_uniform(s_env)
     s_env, u3 = rng_ops.rand_uniform(s_env)
@@ -408,7 +451,7 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     carry.throughput.copy_(where3(active, throughput, carry.throughput))
     carry.aov_albedo.copy_(aov_albedo)
     carry.aov_normal.copy_(aov_normal)
-    carry.is_first_hit.copy_(carry.is_first_hit & ~active)
+    carry.is_first_hit.copy_(carry.is_first_hit & ~shaded)
     # misses end their path here; s2 then sees only live hits
     carry.prev_valid.copy_(carry.prev_valid & ~miss)
     carry.prev_mesh.copy_(torch.where(miss, -1, carry.prev_mesh))
@@ -425,10 +468,11 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
 
 
 def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
-                       trans, esmp, params: NeeParams, depth: int):
+                       trans, esmp, params: NeeParams, depth: int, tex=None):
     """Plain PyTorch K2 stage s2 (``_shade_kernel`` stage "s2",
-    integrator body :497-716). Updates ``carry`` in place and returns the
-    (N,7) chain exports."""
+    integrator body :497-716), reading the texture planes ``tex`` when
+    given. Updates ``carry`` in place and returns the (N,7) chain
+    exports."""
     n = t.shape[0]
     alive0 = carry.alive.clone()    # after s1: the live hits
     active = alive0
@@ -437,19 +481,19 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     point = trans[:, 10:13]
     rec = _hit_record_from_best(carry.ray_o, carry.ray_d, triangles, t, tri,
                                 u, v)
-    m = bsdf_ops.gather_material(materials, rec.material)
+    m, _, occlusion, passthrough, _ = _textured(
+        bsdf_ops.gather_material(materials, rec.material), tex, params)
     incident = normalize(carry.ray_d)
     wo = -incident
     throughput = carry.throughput
-    ones = torch.ones_like(t)
 
     # ---- NEE add: alias sample + shadow trace, MIS against the BSDF -------
-    nee_lanes = active & (trans[:, TRANS_IDX["delta"]] < 0.5)
+    nee_lanes = active & (trans[:, TRANS_IDX["delta"]] < 0.5) & ~passthrough
     e_dir, e_rad, e_pdf = esmp[:, 0:3], esmp[:, 3:6], esmp[:, 6]
     e_valid, occluded = esmp[:, 7] > 0.5, esmp[:, 8] > 0.5
     n_dot_l = torch.clamp_min(dot(sn, e_dir), 0.0)
     do_shadow = nee_lanes & e_valid & (e_pdf > 0.0) & (n_dot_l > 0.0)
-    ev = bsdf_ops.evaluate_bsdf(m, sn, wo, e_dir, params.clamp, ones,
+    ev = bsdf_ops.evaluate_bsdf(m, sn, wo, e_dir, params.clamp, occlusion,
                                 params.material_types)
     max_comp = torch.maximum(torch.maximum(ev.value[:, 0], ev.value[:, 1]),
                              ev.value[:, 2])
@@ -466,13 +510,19 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
 
     # ---- BSDF sample from the post-s1 state ------------------------------
     nstate, smp = bsdf_ops.sample_bsdf(
-        m, sn, wo, incident, rec.front_face, carry.state, params.clamp, ones,
-        params.material_types)
-    state = torch.where(active, nstate, carry.state)
+        m, sn, wo, incident, rec.front_face, carry.state, params.clamp,
+        occlusion, params.material_types)
+    state = torch.where(active & ~passthrough, nstate, carry.state)
+    # alpha pass-through: a delta bounce along the same ray, weight 1
+    ones = torch.ones_like(t)
+    through = bsdf_ops.BsdfSample.invalid(t.shape, t.device).replace(
+        direction=carry.ray_d, weight=torch.ones_like(carry.ray_d), pdf=ones,
+        directional_pdf=ones, is_delta=torch.ones_like(passthrough))
+    smp = bsdf_ops.select_sample(passthrough, through, smp)
     active = active & (smp.pdf > 0.0)
     chain = torch.stack([*smp.weight.unbind(-1), smp.directional_pdf,
                          smp.medium_event.to(torch.float32),
-                         active.to(torch.float32),
+                         (active & ~passthrough).to(torch.float32),
                          rec.front_face.to(torch.float32)], -1)
 
     # ---- medium stack push/pop (8 slots, clamped) ------------------------
@@ -557,59 +607,65 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
 
 
 def _nee_launch(name, carry, t, tri, u, v, triangles, materials, extra,
-                out_cols, params: NeeParams, depth: int):
-    """Check, then launch ``mpt_<name>``; returns its (N, out_cols)
-    output."""
+                tex, out_cols, params: NeeParams, depth: int):
+    """Check, then launch ``mpt_<name>`` (``tex`` None: no texture
+    planes); returns its (N, out_cols) output."""
     dev = t.device
     n = t.shape[0]
     ptrs = _carry_pointers(carry, list(_CARRY_DTYPES), n, dev, name)
     mat_table = pack_material_table(materials)
-    _check_inputs([t, tri, u, v, triangles.shade_packed, mat_table, *extra],
-                  dev, name, tri)
+    planes = [] if tex is None else [tex]
+    _check_inputs([t, tri, u, v, triangles.shade_packed, mat_table, *extra,
+                   *planes], dev, name, tri)
+    if tex is not None and tex.shape != (n, len(TEX_IDX)):
+        raise ValueError(f"{name}: tex must be ({n}, {len(TEX_IDX)})")
     out = torch.empty((n, out_cols), dtype=torch.float32, device=dev)
     lib = build.load()
     p = lambda x: x.data_ptr()
     err = getattr(lib, f"mpt_{name}")(
         n, build.floats(params.scalars(depth)), p(t), p(tri), p(u), p(v),
         p(triangles.shade_packed), p(mat_table), mat_table.shape[0],
-        *[p(x) for x in extra], build.pointers(ptrs), p(out),
+        *[p(x) for x in extra], None if tex is None else p(tex),
+        build.pointers(ptrs), p(out),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"mpt_{name}")
     return out
 
 
 def shade_s1(carry: PathCarry, t, tri, u, v, triangles, materials, envbg,
-             envpdf, params: NeeParams, depth: int):
+             envpdf, params: NeeParams, depth: int, tex=None):
     """Stage s1, in place on ``carry``; returns the (N,18) transients
-    (zero on lanes that were not live hits). CPU tensors take the plain
-    version; CUDA tensors launch K2 s1."""
+    (zero on lanes that were not live hits). ``tex``: the texture planes
+    of a textured scene. CPU tensors take the plain version; CUDA tensors
+    launch K2 s1."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s1_reference(carry, t, tri, u, v, triangles, materials,
-                                  envbg, envpdf, params, depth)
+                                  envbg, envpdf, params, depth, tex)
     if dev.type != "cuda":
         raise ValueError(f"shade_s1: unsupported device {dev}")
     out = _nee_launch("shade_s1", carry, t, tri, u, v, triangles, materials,
-                      [envbg.contiguous(), envpdf.contiguous()], len(TRANS),
-                      params, depth)
+                      [envbg.contiguous(), envpdf.contiguous()], tex,
+                      len(TRANS), params, depth)
     shade_s1.launches += 1
     return out
 
 
 def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
-             esmp, params: NeeParams, depth: int):
+             esmp, params: NeeParams, depth: int, tex=None):
     """Stage s2, in place on ``carry``; returns the (N,7) chain exports
-    (zero on lanes that were not live hits). CPU tensors take the plain
-    version; CUDA tensors launch K2 s2."""
+    (zero on lanes that were not live hits). ``tex``: the texture planes
+    of a textured scene. CPU tensors take the plain version; CUDA tensors
+    launch K2 s2."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s2_reference(carry, t, tri, u, v, triangles, materials,
-                                  trans, esmp, params, depth)
+                                  trans, esmp, params, depth, tex)
     if dev.type != "cuda":
         raise ValueError(f"shade_s2: unsupported device {dev}")
     out = _nee_launch("shade_s2", carry, t, tri, u, v, triangles, materials,
-                      [trans.contiguous(), esmp.contiguous()], len(CHAIN),
-                      params, depth)
+                      [trans.contiguous(), esmp.contiguous()], tex,
+                      len(CHAIN), params, depth)
     shade_s2.launches += 1
     return out
 
@@ -619,13 +675,16 @@ shade_s1.launches = 0
 shade_s2.launches = 0
 
 
-def nee_shadow_rays(trans, t, e_dir, e_pdf, e_valid):
-    """The NEE shadow rays of a wavefront from the s1 exports and the alias
-    sample (``shade.py:3251-3269``): (origin, t_max, traced lanes), t_max
-    0 on lanes that trace nothing."""
+def nee_shadow_rays(trans, t, e_dir, e_pdf, e_valid, tex=None):
+    """The NEE shadow rays of a wavefront from the s1 exports, the alias
+    sample and the texture planes' pass-through flags
+    (``shade.py:3251-3269``): (origin, t_max, traced lanes), t_max 0 on
+    lanes that trace nothing."""
     sn = trans[:, 4:7]
     nee_lanes = (trans[:, TRANS_IDX["active"]] > 0.5) \
         & (trans[:, TRANS_IDX["delta"]] < 0.5)
+    if tex is not None:
+        nee_lanes = nee_lanes & (tex[:, TEX_IDX["tpass"]] < 0.5)
     do_sh = nee_lanes & e_valid & (e_pdf > 0.0) \
         & (torch.clamp_min(dot(sn, e_dir), 0.0) > 0.0)
     origin = offset_origin(trans[:, 10:13], sn, trans[:, 7:10], t, e_dir)
@@ -634,13 +693,15 @@ def nee_shadow_rays(trans, t, e_dir, e_pdf, e_valid):
 
 def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
     """The environment-NEE depth loop (``trace_paths_fused``'s NEE branch,
-    ``shade.py:3165-3351``): K1 closest-hit, the environment background
-    and pdf of the wavefront, K2 s1, the alias sample, a K1 any-hit shadow
+    ``shade.py:3165-3351``): K1 closest-hit, in a textured scene the
+    texture stage (``shade.py:3023-3063``), the environment background and
+    pdf of the wavefront, K2 s1, the alias sample, a K1 any-hit shadow
     trace, K2 s2 and the spec-NEE chain. One host sync per depth (the
     alive count); the shadow count stays on the device. Returns
     (traces issued, shadow traces as a 0-dim tensor)."""
     env = scene.environment
     params = NeeParams.of(uniforms, static, env)
+    textured = has_textures(scene, static)
     rot = uniforms.environment_rotation
     rays = 0
     shadow = torch.zeros((), dtype=torch.int64, device=carry.ray_o.device)
@@ -655,6 +716,9 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
         t, tri, u, v = trace_closest(carry.ray_o, carry.ray_d, C.EPSILON_T,
                                      lane_tmax, scene.tri_bvh,
                                      scene.triangles, ex_mesh, ex_prim)
+        # the alpha-BLEND draw lands before s1's NEE draws
+        tex = texture_stage(carry, t, tri, u, v, scene, uniforms, static,
+                            depth) if textured else None
         # miss lanes read these; every lane computes them (value-identical
         # to the reference's skip when no lane missed)
         envbg = env_ops.environment_background(
@@ -662,14 +726,14 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
             carry.env_lod_active)
         envpdf = env_ops.environment_pdf(env, carry.ray_d, rot)
         trans = shade_s1(carry, t, tri, u, v, scene.triangles,
-                         scene.materials, envbg, envpdf, params, depth)
+                         scene.materials, envbg, envpdf, params, depth, tex)
 
         # ---- alias sample from s1's draws, shadow trace ------------------
         e_dir, e_rad, e_pdf, e_valid = \
             env_ops.sample_environment_from_uniforms(
                 env, trans[:, 0], trans[:, 1], trans[:, 2], uniforms, static)
         sh_o, sh_max, do_sh = nee_shadow_rays(trans, t, e_dir, e_pdf,
-                                              e_valid)
+                                              e_valid, tex)
         occ = trace_occluded(sh_o, e_dir, scene, C.EPSILON_T, sh_max)
         shadow = shadow + do_sh.sum()
         esmp = torch.cat([e_dir, e_rad, e_pdf[:, None],
@@ -678,7 +742,7 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
 
         throughput_s1 = carry.throughput.clone()
         chain = shade_s2(carry, t, tri, u, v, scene.triangles,
-                         scene.materials, trans, esmp, params, depth)
+                         scene.materials, trans, esmp, params, depth, tex)
 
         # ---- spec-NEE: the environment through the delta bounce ----------
         add, n_chain = specnee.delta_chain_estimators(

@@ -58,7 +58,9 @@ class CudaBackend:
                 settings.environmentMapPath, device)
         scene = resources.build_arrays(environment=environment, device=device)
         static = settings_to_static(settings, width, height,
-                                    resources.material_types_present())
+                                    resources.material_types_present(),
+                                    resources.texture_slots_present(),
+                                    resources.texture_uses_uv1())
         uniforms = settings_to_uniforms(
             settings, build_camera(settings, width, height, device), 0, 0)
         state = RenderState.create(width, height, device)

@@ -1,8 +1,8 @@
 """Host-side scene container and device-array builder (jax-free twin of
 ``scene/resources.py``).
 
-Materials, world-space triangle meshes and an environment map are
-supported; the other primitive families and textures raise
+Materials, world-space triangle meshes, material textures and an
+environment map are supported; the other primitive families raise
 ``NotImplementedError`` naming the ROADMAP step that brings them.
 """
 
@@ -135,8 +135,8 @@ class SceneResources:
         self.materials: List[Material] = []
         self.meshes: List[Mesh] = []
         self.material_names: Dict[str, int] = {}
-        # texture pixels, sRGB flags and wrap modes (ROADMAP step 7 reads
-        # them; build_arrays refuses a scene that binds any)
+        # texture pixels ((H,W,4) uint8), sRGB flags and (wrap_s, wrap_t)
+        # modes: 0 repeat / 1 clamp / 2 mirror
         self.texture_images: List[np.ndarray] = []
         self.texture_srgb: List[bool] = []
         self.texture_wrap: List = []
@@ -281,16 +281,25 @@ class SceneResources:
 
     def build_arrays(self, environment=None, textures=None,
                      device="cuda") -> SceneArrays:
-        """Materials plus the merged triangle soup and its BVH, on
-        ``device``; ``environment`` is an ``EnvironmentSoA``
-        (``ops/env.py``), which must lie on the same device."""
-        if textures is not None or self.texture_images or any(
-                t >= 0 for m in self.materials for t in m.texture_indices):
-            _not_in_slice("textures", "step 7, textures")
-        if environment is not None and \
-                environment.texels.device.type != torch.device(device).type:
-            raise ValueError(f"the environment lies on "
-                             f"{environment.texels.device}, not {device}")
+        """Materials, the merged triangle soup and its BVH, and the texture
+        atlas, on ``device``; ``environment`` is an ``EnvironmentSoA``
+        (``ops/env.py``) and ``textures`` a ``TextureArrays`` built
+        beforehand, each on the same device."""
+        for what, arrays in (("environment", environment),
+                             ("textures", textures)):
+            if arrays is not None and arrays.texels.device.type != \
+                    torch.device(device).type:
+                raise ValueError(f"the {what} lie on "
+                                 f"{arrays.texels.device}, not {device}")
+        if textures is None and self.texture_images:
+            from metal_pathtracer_tpu_torch.ops.textures import (
+                build_texture_arrays,
+            )
+            wraps = self.texture_wrap if len(self.texture_wrap) == \
+                len(self.texture_images) else None
+            textures = build_texture_arrays(self.texture_images,
+                                            self.texture_srgb, wraps,
+                                            device=device)
         triangles = tri_bvh = None
         if self.meshes:
             from metal_pathtracer_tpu_torch.scene import meshbuild
@@ -298,7 +307,20 @@ class SceneResources:
                 self.meshes, device=device)
         return SceneArrays(materials=self.build_materials_soa(device),
                            triangles=triangles, tri_bvh=tri_bvh,
-                           environment=environment)
+                           environment=environment, textures=textures)
 
     def material_types_present(self):
         return sorted({m.mat_type for m in self.materials})
+
+    def texture_slots_present(self):
+        """Slots (0-5) bound by at least one material: absent slots take
+        their defaults without a sample."""
+        return sorted({s for m in self.materials
+                       for s, t in enumerate(m.texture_indices) if t >= 0})
+
+    def texture_uses_uv1(self):
+        """Any bound texture slot addressing UV set 1 (glTF TEXCOORD_1)."""
+        return any(t >= 0 and s < len(m.texture_uv_set)
+                   and m.texture_uv_set[s] == 1
+                   for m in self.materials
+                   for s, t in enumerate(m.texture_indices))

@@ -1,9 +1,9 @@
 """Device-side data layouts as torch dataclasses (``schema.py`` twin).
 
 Each struct-of-arrays container of the JAX package becomes a frozen
-dataclass of tensors, field for field. Spheres, rects, textures and
-instancing are not ported yet: their containers land with the ROADMAP
-steps that read them.
+dataclass of tensors, field for field. Spheres, rects and instancing are
+not ported yet: their containers land with the ROADMAP steps that read
+them.
 """
 
 from __future__ import annotations
@@ -156,6 +156,28 @@ class EnvironmentSoA:
 
 
 @dataclasses.dataclass(frozen=True)
+class TextureArrays:
+    """Flat native-resolution mip atlas of every material texture
+    (``ops/textures.py`` builds it), field for field the JAX package's:
+    all textures x all levels in one (TOTAL,4) texel buffer plus
+    per-(texture, level) offset and size tables."""
+
+    texels: torch.Tensor        # (TOTAL,4) f32
+    level_offset: torch.Tensor  # (T,L) i32 flat offset per level
+    level_w: torch.Tensor       # (T,L) i32
+    level_h: torch.Tensor       # (T,L) i32
+    n_levels: torch.Tensor      # (T,)  i32
+    size0: torch.Tensor         # (T,)  f32 max(native w, h): LOD scale
+    wrap_mode: torch.Tensor     # (T,2) i32 0 repeat / 1 clamp / 2 mirror
+    n_textures: int = 0
+    max_levels: int = 0
+
+    @property
+    def max_lod(self) -> float:
+        return float(self.max_levels - 1)
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneArrays:
     """Everything the integrator reads on the device."""
 
@@ -163,6 +185,7 @@ class SceneArrays:
     triangles: Optional[TrianglesSoA] = None
     tri_bvh: Optional[BvhSoA] = None
     environment: Optional[EnvironmentSoA] = None
+    textures: Optional[TextureArrays] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +223,7 @@ class Uniforms:
     min_specular_pdf: float
     firefly_clamp_max_contribution: float
     debug_env_mip_override: float = -1.0
+    debug_normal_strength_scale: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,16 +239,27 @@ class StaticConfig:
     enable_specular_nee: bool = True
     enable_mnee: bool = False
     debug_specular_only: bool = False
+    debug_disable_ao: bool = False
+    debug_ao_indirect_only: bool = True
+    debug_disable_normal_map: bool = False
+    debug_disable_orm: bool = False
+    debug_flip_normal_green: bool = False
     material_types: Tuple[int, ...] = ()
+    # texture slots (base/ORM/normal/occlusion/emissive/transmission) bound
+    # by at least one material: absent slots take their defaults unsampled
+    texture_slots: Tuple[int, ...] = (0, 1, 2, 3, 4, 5)
+    # any material addressing UV set 1
+    texture_uv1: bool = True
 
 
 def settings_to_static(settings, width: int, height: int, material_types,
                        texture_slots=None, texture_uv1=None) -> StaticConfig:
-    """The JAX package's signature (``schema.settings_to_static``); the
-    texture arguments select texture-stage code the port does not have
-    yet (ROADMAP Queue 1 step 7), so they change nothing."""
-    del texture_slots, texture_uv1
+    """(``schema.settings_to_static`` of the JAX package; the texture
+    arguments default to every slot and UV set 1, as there)."""
     return StaticConfig(
+        texture_slots=(tuple(sorted(set(int(s) for s in texture_slots)))
+                       if texture_slots is not None else (0, 1, 2, 3, 4, 5)),
+        texture_uv1=bool(texture_uv1) if texture_uv1 is not None else True,
         width=int(width),
         height=int(height),
         max_depth=int(settings.maxDepth),
@@ -234,6 +269,11 @@ def settings_to_static(settings, width: int, height: int, material_types,
         enable_specular_nee=bool(settings.enableSpecularNee),
         enable_mnee=bool(settings.enableMnee),
         debug_specular_only=bool(settings.debugSpecularOnly),
+        debug_disable_ao=bool(settings.debugDisableAO),
+        debug_ao_indirect_only=bool(settings.debugAoIndirectOnly),
+        debug_disable_normal_map=bool(settings.debugDisableNormalMap),
+        debug_disable_orm=bool(settings.debugDisableOrmTexture),
+        debug_flip_normal_green=bool(settings.debugFlipNormalGreen),
         material_types=tuple(sorted(set(int(t) for t in material_types))),
     )
 
@@ -265,4 +305,5 @@ def settings_to_uniforms(settings, camera: CameraUniforms, frame_index: int,
         firefly_clamp_max_contribution=_f32(
             max(settings.fireflyClampMaxContribution, 0.0)),
         debug_env_mip_override=_f32(settings.debugEnvMipOverride),
+        debug_normal_strength_scale=_f32(settings.debugNormalStrengthScale),
     )

@@ -5,13 +5,20 @@ value for value):
 - ``build_lambert_series``: one lambert displaced icosphere under the
   gradient sky, maxDepth 8, seed 1234;
 - ``build_bench_scene``: the headline, a 1.31M-triangle displaced
-  icosphere, a glass icosphere (dielectric, absorbing interior) and a
-  textured PBR icosphere on a lambert ground under a 1024x512 HDR sun/sky
-  with alias-table NEE, maxDepth 8, seed 1234, spec-NEE on and MNEE off;
+  icosphere, a glass icosphere (dielectric, absorbing interior) and a PBR
+  icosphere with a 512x512 sRGB checker base-colour texture on a lambert
+  ground under a 1024x512 HDR sun/sky with alias-table NEE, maxDepth 8,
+  1920x1080, seed 1234, spec-NEE on and MNEE off;
+- ``build_refdefault_scene``: the same scene at the reference's default
+  workload shape, 1280x720 and maxDepth 20 (``bench.py:250-260``);
 - ``build_untextured_bench_scene``: the headline with its texture cleared
   and every ``texture_indices`` set to -1, exactly as the JAX package's
-  ``tests/test_fused_shade.py`` ``_bench_like_scene(textured=False)`` does.
-  Textures are ROADMAP Queue 1 step 7.
+  ``tests/test_fused_shade.py`` ``_bench_like_scene(textured=False)`` does;
+- ``build_six_slot_scene``: a small test scene that binds all six texture
+  slots (the headline binds only the base colour): four PBR icospheres on
+  a lambert ground, with a normal map on tangents of handedness +1 and -1
+  and on zero tangents (the ONB fallback), ORM, occlusion, emissive and
+  transmission, UV set 1 and a KHR transform, alpha MASK and BLEND.
 """
 
 from __future__ import annotations
@@ -167,6 +174,18 @@ def build_bench_scene(subdivisions: int = 8, device="cuda"):
     return settings, res, env_ops.environment_from_texels(hdr_sky(), device)
 
 
+#: (width, height) of the refdefault cell
+REFDEFAULT_FRAME = (1280, 720)
+
+
+def build_refdefault_scene(subdivisions: int = 8, device="cuda"):
+    """The headline scene at maxDepth 20, to render at
+    ``REFDEFAULT_FRAME``; returns (settings, resources, environment)."""
+    settings, res, environment = build_bench_scene(subdivisions, device)
+    settings.maxDepth = 20
+    return settings, res, environment
+
+
 def build_untextured_bench_scene(subdivisions: int = 8, device="cuda"):
     """The headline with its texture cleared (``_bench_like_scene(False)``
     of the JAX package's tests); returns (settings, resources,
@@ -178,3 +197,96 @@ def build_untextured_bench_scene(subdivisions: int = 8, device="cuda"):
     for m in res.materials:
         m.texture_indices = (-1, -1, -1, -1, -1, -1)
     return settings, res, environment
+
+
+def _six_slot_images(seed=21):
+    """Six seeded RGBA textures of power-of-two sizes: base colour with a
+    varying alpha, ORM, a normal map, occlusion, emissive, transmission;
+    with their sRGB flags and wrap modes."""
+    rng = np.random.default_rng(seed)
+    img = lambda h, w: rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    base = img(32, 32)
+    orm = img(16, 16)
+    normal = img(32, 16)
+    normal[..., 0:2] = rng.integers(60, 196, (32, 16, 2))
+    normal[..., 2] = rng.integers(200, 256, (32, 16))
+    return ([base, orm, normal, img(16, 16), img(16, 8), img(8, 8)],
+            [True, False, False, False, True, False],
+            [(0, 0), (1, 2), (2, 1), (0, 1), (2, 0), (1, 1)])
+
+
+def _tangent_sphere(subdivisions, center, radius, material, tangents, name):
+    """An icosphere with equirect UVs, a second UV set (2 uv + 0.1) and,
+    with ``tangents``, tangents along +phi of handedness +1 on the upper
+    and -1 on the lower hemisphere (zero tangents otherwise)."""
+    verts, faces = icosphere(subdivisions)
+    uv = np.stack([0.5 + np.arctan2(verts[:, 2], verts[:, 0]) / (2 * np.pi),
+                   0.5 - np.arcsin(np.clip(verts[:, 1], -1, 1)) / np.pi],
+                  -1).astype(np.float32)
+    tan = np.zeros((len(verts), 4), np.float32)
+    if tangents:
+        tan[:, 0] = -verts[:, 2]
+        tan[:, 2] = verts[:, 0]
+        tan[:, 3] = np.where(verts[:, 1] >= 0, 1.0, -1.0)
+    return Mesh(name=name,
+                vertices=(verts * radius + np.asarray(center)
+                          ).astype(np.float32),
+                normals=verts.astype(np.float32), uv0=uv,
+                uv1=(uv * 2.0 + 0.1).astype(np.float32), tangents=tan,
+                indices=faces.astype(np.int32), material=material)
+
+
+def build_six_slot_scene(subdivisions: int = 3):
+    """Returns (settings, resources): the six-slot test scene, framed
+    for a 3:2 image (no environment; the texture stage needs none)."""
+    settings = RenderSettings()
+    settings.cameraTarget = (0.0, 0.0, 0.0)
+    settings.cameraDistance = 4.5
+    settings.cameraYaw = 1.5708
+    settings.cameraPitch = 0.25
+    settings.cameraVerticalFov = 45.0
+    res = SceneResources()
+    images, srgb, wraps = _six_slot_images()
+    res.texture_images.extend(images)
+    res.texture_srgb.extend(srgb)
+    res.texture_wrap.extend(wraps)
+    tf = np.zeros((6, 2, 3), np.float32)
+    tf[:, 0, 0] = tf[:, 1, 1] = 1.0
+    c, s = np.cos(0.4), np.sin(0.4)
+    tf[0] = [[1.5 * c, -1.5 * s, 0.2], [1.5 * s, 1.5 * c, -0.1]]
+    pbr = C.MATERIAL_PBR
+    for m in (
+            Material(base_color=(0.5, 0.5, 0.5), name="ground"),
+            Material(mat_type=pbr, base_color=(0.9, 0.8, 0.7), roughness=0.5,
+                     pbr_metallic=0.4, pbr_transmission=0.3,
+                     pbr_occlusion_strength=0.8, pbr_normal_scale=1.2,
+                     emission=(1.0, 0.5, 0.2),
+                     texture_indices=(0, 1, 2, 3, 4, 5),
+                     texture_uv_set=(0, 0, 1, 1, 0, 1), texture_transform=tf,
+                     name="every-slot"),
+            Material(mat_type=pbr, roughness=0.3, pbr_alpha=0.9,
+                     pbr_alpha_mode=1, pbr_alpha_cutoff=0.5,
+                     texture_indices=(0, -1, -1, -1, -1, -1), name="mask"),
+            Material(mat_type=pbr, roughness=0.6, pbr_alpha=0.7,
+                     pbr_alpha_mode=2, texture_indices=(0, 1, -1, -1, -1, -1),
+                     name="blend"),
+            Material(mat_type=pbr, roughness=0.2,
+                     texture_indices=(-1, -1, 2, -1, -1, -1),
+                     name="onb-normal")):
+        res.add_material(m)
+    g, y = 6.0, -0.6
+    quad = np.array([[0, 0], [4, 0], [4, 4], [0, 4]], np.float32)
+    res.add_mesh(Mesh(
+        name="ground",
+        vertices=np.array([[-g, y, -g], [g, y, -g], [g, y, g], [-g, y, g]],
+                          np.float32),
+        normals=np.tile(np.array([[0.0, 1.0, 0.0]], np.float32), (4, 1)),
+        uv0=quad, uv1=quad.copy(), tangents=np.zeros((4, 4), np.float32),
+        indices=np.array([[0, 2, 1], [0, 3, 2]], np.int32), material=0))
+    for k, (x, r, tangents) in enumerate(((-1.5, 0.6, True),
+                                          (-0.4, 0.5, True),
+                                          (0.6, 0.5, True),
+                                          (1.6, 0.5, False))):
+        res.add_mesh(_tangent_sphere(subdivisions, (x, 0.0, 0.0), r, k + 1,
+                                     tangents, res.materials[k + 1].name))
+    return settings, res

@@ -1,13 +1,15 @@
 """Where the time goes: a ``torch.profiler`` trace of the port on one card.
 
-Renders the untextured headline (default) or the lambert series at
-1920x1080 d8, one warm-up sample, then two samples under the profiler,
-and prints: wall time per sample, the device's busy share of
-the wall time, device time by kernel (the port's five kernels by name,
-the rest of the torch glue summed), and the kernels' launch counts. Run
-on a machine with a CUDA device:
+Renders the textured headline (default), the untextured headline or the
+lambert series at 1920x1080 d8, or the refdefault cell (the headline at
+1280x720 d20): one warm-up sample, then two samples under the profiler.
+Prints the wall time per sample, the device's busy share of the wall
+time, device time by kernel (the port's six kernels by name, the rest of
+the torch glue summed), and the kernels' launch counts.
+Run on a machine with a CUDA device:
 
-    python -m metal_pathtracer_tpu_torch.utils.profile [--scene lambert]
+    python -m metal_pathtracer_tpu_torch.utils.profile \
+        [--scene headline|untextured|lambert|refdefault]
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 
 WIDTH, HEIGHT, SPP = 1920, 1080, 2
 PORT_KERNELS = ("trace_closest_kernel", "trace_any_kernel",
-                "shade_full_kernel", "shade_s1_kernel", "shade_s2_kernel")
+                "shade_full_kernel", "shade_s1_kernel", "shade_s2_kernel",
+                "texture_stage_kernel")
 
 
 def _scene(name: str, dev):
@@ -29,14 +32,20 @@ def _scene(name: str, dev):
     if name == "lambert":
         settings, res = benchscene.build_lambert_series(7)
         env = None
-    else:
+    elif name == "untextured":
         settings, res, env = benchscene.build_untextured_bench_scene(8, dev)
+    elif name == "refdefault":
+        settings, res, env = benchscene.build_refdefault_scene(8, dev)
+    else:
+        settings, res, env = benchscene.build_bench_scene(8, dev)
     return settings, res, res.build_arrays(environment=env, device=dev)
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--scene", choices=["headline", "lambert"],
+    parser.add_argument("--scene",
+                        choices=["headline", "untextured", "lambert",
+                                 "refdefault"],
                         default="headline")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -50,14 +59,18 @@ def main(argv=None) -> None:
         settings_to_static,
         settings_to_uniforms,
     )
+    from metal_pathtracer_tpu_torch.utils import benchscene
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     settings, res, scene = _scene(args.scene, dev)
-    w, h = WIDTH, HEIGHT
-    static = settings_to_static(settings, w, h, res.material_types_present())
+    w, h = benchscene.REFDEFAULT_FRAME if args.scene == "refdefault" \
+        else (WIDTH, HEIGHT)
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
     uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
                                0, 0)
     frame.render_samples(scene, uni, RenderState.create(w, h, dev), static, 1)

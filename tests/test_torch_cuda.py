@@ -10,7 +10,10 @@ import torch
 
 from metal_pathtracer_tpu_torch import constants as C
 from metal_pathtracer_tpu_torch.ops.camera import build_camera
-from metal_pathtracer_tpu_torch.ops.kernels import shade, traverse
+from metal_pathtracer_tpu_torch.ops import camera as camera_ops
+from metal_pathtracer_tpu_torch.ops import integrator
+from metal_pathtracer_tpu_torch.ops import rng as rng_ops
+from metal_pathtracer_tpu_torch.ops.kernels import shade, texture, traverse
 from metal_pathtracer_tpu_torch.renderer import frame
 from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
 from metal_pathtracer_tpu_torch.schema import (
@@ -18,7 +21,9 @@ from metal_pathtracer_tpu_torch.schema import (
     settings_to_uniforms,
 )
 from metal_pathtracer_tpu_torch.utils.benchscene import (
+    build_bench_scene,
     build_lambert_series,
+    build_six_slot_scene,
     build_untextured_bench_scene,
 )
 
@@ -149,6 +154,109 @@ def test_nee_kernels_vs_plain_on_card(dev, headline):
     finally:
         (shade.trace_closest, traverse.trace_any, shade.shade_s1,
          shade.shade_s2) = saved
+    assert (k.ray_count, k.shadow_ray_count) == (p.ray_count,
+                                                 p.shadow_ray_count)
+    diff = (k.present() - p.present()).abs()
+    assert float(diff.square().mean().sqrt()) < 2e-4
+    assert float((diff.amax(-1) < 1e-5).float().mean()) > 0.98
+
+
+def _primary_hits(scene, uni, static, dev):
+    """The primary wavefront of sample 0, every ninth lane dead, and its
+    K1 hits."""
+    w, h = static.width, static.height
+    flat = torch.arange(w * h, device=dev)
+    xs, ys = flat % w, flat // w
+    seed = rng_ops.make_seed(uni.fixed_rng_seed, 0, xs, ys, 0,
+                             torch.zeros_like(xs))
+    state, ro, rd = camera_ops.generate_primary_rays(uni.camera, xs, ys, w,
+                                                     h, seed)
+    carry = integrator.PathCarry.start(
+        state, ro, rd, 1e-3, integrator._primary_cone_spread(uni, static))
+    carry.alive[::9] = False
+    hit = traverse.trace_closest(
+        carry.ray_o, carry.ray_d, C.EPSILON_T,
+        torch.where(carry.alive, C.INFINITY_T, 0.0), scene.tri_bvh,
+        scene.triangles)
+    return carry, hit
+
+
+@pytest.mark.parametrize("which", ["headline", "six_slots"])
+def test_texture_stage_vs_plain_on_card(dev, which):
+    """The texture-stage kernel against its plain version at depths 0 and
+    2: the state and the tpass/tpbr flags equal, the other planes within
+    1e-5 (libm log2f against torch.log2 may move a LOD in the last
+    place)."""
+    if which == "headline":
+        settings, res, env = build_bench_scene(3, dev)
+    else:
+        settings, res = build_six_slot_scene()
+        env = None
+    scene = res.build_arrays(environment=env, device=dev)
+    w, h = 96, 64
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    carry, hit = _primary_hits(scene, uni, static, dev)
+    idx = texture.TEX_IDX
+    for depth in (0, 2):
+        ck = integrator.PathCarry(**{k: v.clone()
+                                     for k, v in vars(carry).items()})
+        cp = integrator.PathCarry(**{k: v.clone()
+                                     for k, v in vars(carry).items()})
+        before = texture.texture_stage.launches
+        got = texture.texture_stage(ck, *hit, scene, uni, static, depth)
+        want = texture.texture_stage_reference(cp, *hit, scene, uni, static,
+                                               depth)
+        torch.cuda.synchronize()
+        assert texture.texture_stage.launches == before + 1
+        assert torch.equal(ck.state, cp.state)
+        for name in ("tpass", "tpbr"):
+            assert torch.equal(got[:, idx[name]], want[:, idx[name]]), name
+        assert (want[:, idx["tpbr"]] > 0.5).sum() > 100
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_textured_render_kernels_vs_plain_on_card(dev):
+    """The textured headline (subdivision 3, maxDepth 5) through every
+    kernel, texture stage included, against the plain path: equal trace
+    counts and the lambert image gate."""
+    settings, res, env = build_bench_scene(3, dev)
+    settings.maxDepth = 5
+    scene = res.build_arrays(environment=env, device=dev)
+    w, h = 48, 32
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    before = texture.texture_stage.launches
+    k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                             static, 2)
+    assert texture.texture_stage.launches > before
+
+    def plain_trace(o, d, t_min, t_max, bvh, tris, em, ep):
+        return traverse.trace_closest_reference(o, d, float(t_min), t_max,
+                                                bvh, tris, em.int(), ep.int())
+
+    def plain_any(o, d, t_min, t_max, bvh, tris):
+        return traverse.trace_any_reference(o, d, float(t_min), t_max, bvh,
+                                            tris)
+
+    saved = (shade.trace_closest, traverse.trace_any, shade.shade_s1,
+             shade.shade_s2, shade.texture_stage)
+    shade.trace_closest, traverse.trace_any = plain_trace, plain_any
+    shade.shade_s1, shade.shade_s2 = (shade.shade_s1_reference,
+                                      shade.shade_s2_reference)
+    shade.texture_stage = texture.texture_stage_reference
+    try:
+        p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 2)
+    finally:
+        (shade.trace_closest, traverse.trace_any, shade.shade_s1,
+         shade.shade_s2, shade.texture_stage) = saved
     assert (k.ray_count, k.shadow_ray_count) == (p.ray_count,
                                                  p.shadow_ray_count)
     diff = (k.present() - p.present()).abs()

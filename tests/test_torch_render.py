@@ -191,8 +191,9 @@ def test_kernel_modules_import_without_nvcc():
     env["CUDA_HOME"] = os.path.join(REPO, "no-cuda-here")
     proc = _run("""
         from metal_pathtracer_tpu_torch.ops.kernels import build, shade
-        from metal_pathtracer_tpu_torch.ops.kernels import traverse
+        from metal_pathtracer_tpu_torch.ops.kernels import texture, traverse
         assert traverse.trace_closest.launches == 0
+        assert texture.texture_stage.launches == 0
         assert traverse.trace_any.launches == 0
         assert shade.shade_full.launches == 0
         assert shade.shade_s1.launches == shade.shade_s2.launches == 0

@@ -21,6 +21,7 @@ from metal_pathtracer_tpu.utils.procgen import dragon_class_scene_mesh
 from metal_pathtracer_tpu_torch import convert
 from metal_pathtracer_tpu_torch.ops import bsdf, integrator
 from metal_pathtracer_tpu_torch.ops import env as env_ops
+from metal_pathtracer_tpu_torch.ops.textures import build_texture_arrays
 from metal_pathtracer_tpu_torch.scene.resources import (
     Material,
     Mesh,
@@ -32,6 +33,7 @@ from metal_pathtracer_tpu_torch.schema import (
 )
 from metal_pathtracer_tpu_torch.utils import procgen
 from metal_pathtracer_tpu_torch.utils.benchscene import (
+    build_bench_scene,
     build_untextured_bench_scene,
 )
 
@@ -168,7 +170,10 @@ def test_unported_features_raise():
                  lambda: r.add_rectangle((0, 0, 0), (1, 1, 1), 1, True, False,
                                          0),
                  lambda: r.add_mesh_instance(None, np.eye(4)),
-                 lambda: r.build_arrays(textures=object(), device="cpu")):
+                 # a texture that needs a resample: the image loaders
+                 lambda: build_texture_arrays([np.zeros((20, 48, 4),
+                                                        np.uint8)], [True],
+                                              device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     m = bsdf.gather_material(r.build_materials_soa("cpu"), torch.zeros(2))
@@ -244,3 +249,29 @@ def test_untextured_bench_scene_bitexact():
         else:
             assert tuple(got) == tuple(ref) if f.name == "mip_meta" \
                 else got == ref, f.name
+
+
+def test_textured_bench_scene_bitexact():
+    """``build_bench_scene`` with its 512x512 sRGB checker against the JAX
+    bench scene at subdivision 2: settings, triangles, materials, BVH, the
+    texture atlas and the static texture facts, bit for bit."""
+    js_settings, jres, jenv = jax_bench(subdivisions=2)
+    settings, res, env = build_bench_scene(2, device="cpu")
+    assert vars(settings) == vars(js_settings)
+    assert res.texture_slots_present() == jres.texture_slots_present() == [0]
+    assert res.texture_uses_uv1() is jres.texture_uses_uv1() is False
+    js = jres.build_arrays(environment=jenv)
+    ps = res.build_arrays(environment=env, device="cpu")
+    for part in ("triangles", "materials", "tri_bvh", "textures"):
+        _assert_fields_equal(getattr(ps, part), getattr(js, part),
+                             [f.name for f in dataclasses.fields(
+                                 getattr(ps, part))
+                              if f.name not in ("n_textures", "max_levels")])
+    assert (ps.textures.n_textures, ps.textures.max_levels) == \
+        (js.textures.n_textures, js.textures.max_levels) == (1, 10)
+    assert convert.static_config(dataclasses.asdict(jax_static(
+        js_settings, 8, 8, jres.material_types_present(),
+        jres.texture_slots_present(), jres.texture_uses_uv1()))) == \
+        settings_to_static(settings, 8, 8, res.material_types_present(),
+                           res.texture_slots_present(),
+                           res.texture_uses_uv1())
