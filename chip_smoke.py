@@ -23,7 +23,29 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    render, every kernel timed at the first-depth wavefront against its
    plain version with its bound, the texture kernel also on a scene that
    binds all six texture slots, and the refdefault cell (the same scene
-   at 1280x720, maxDepth 20).
+   at 1280x720, maxDepth 20);
+4. the analytic primitives (the sphere kernels K3a and K3b, the rectangle
+   kernel K3c, K2 ``full`` and ``s1``/``s2`` with rect-light NEE, metal and
+   diffuse lights): each K3 kernel against its plain version bit for bit
+   on the first- and second-depth wavefronts of the Cornell box
+   (``assets/scenes/cornell.scene``, 512x512) and of the *Ray Tracing in
+   One Weekend* final scene (487 spheres, 1200x675), on the Cornell box's
+   rect-light shadow wavefront, and K3b against K3a (exact-t ties
+   counted); K2 ``s1``/``s2`` on the Cornell box's 512x512 first-depth
+   wavefront with its rect-light bank and K2 ``full`` on rtow's first two
+   depths against their plain versions, carry, transients and chain bit
+   for bit; the Cornell box, rtow, the smoke scene, the mixed scene and
+   the open Cornell box under an environment (rect-light and environment
+   NEE together) at 160x96 4 spp through the kernels against the plain
+   path (RMSE 0, equal trace counts); the Cornell box at 512x512 d8 and
+   rtow at 1200x675 d50 through ``CudaBackend``; each K3 and K2 stage
+   timed at the first depth with its bound.
+
+A kernel's time is its device time: a spin kernel holds the stream while
+the host enqueues the timed launches (``kernel_ms``), so the window holds
+the kernels and not their wrappers' host work, which is printed beside it
+as the time around the wrapper. The texture stage, whose wrapper reads
+back to the host, is timed around its wrapper.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
@@ -78,6 +100,9 @@ K2_BYTES = {
     "shade_s2": dict(hit=345 + 92, miss=1, dead=1, out=28, ops=1200),
 }
 TEX_BYTES = 15 * 4
+# a triangle hit reads its 24-float shade_packed row; an analytic hit reads
+# its family (4 B) instead, and its sphere or rectangle stays in cache
+TRI_ROW_BYTES = 24 * 4
 # the texture stage's float operations per textured lane, and per bound
 # slot (transform, LOD, two bilinear levels)
 TEX_OPS, TEX_SLOT_OPS = 400, 120
@@ -89,6 +114,19 @@ K1_LANE_BYTES = 36 + 16
 K1_NODE_BYTES = 36
 K1_SLOT_BYTES = 4 + 36
 K1_NODE_OPS, K1_TRI_OPS = 24, 45
+# the analytic-primitive cells: samples of the 160x96 checks and of the
+# timed full-size renders, and rtow's layout seed
+PRIM_CHECK_SPP = 4
+CORNELL_TIMED_SPP = 4
+RTOW_TIMED_SPP = 2
+RTOW_SEED = 0
+# K3: a lane's ray in (origin, direction, t_max: 28 B) and hit out (t,
+# index: 8 B); a sphere is 16 B (centre, radius), a K3b slot 20 B (with
+# its index) and a group box 24 B, a rectangle 60 B (15 floats); ~25 flops
+# per sphere test, ~35 per rectangle test, ~12 per group-box slab test
+K3_LANE_BYTES = 28 + 8
+K3_SPHERE_BYTES, K3_SLOT_BYTES, K3_BOX_BYTES, K3_RECT_BYTES = 16, 20, 24, 60
+K3_SPHERE_OPS, K3_RECT_OPS, K3_BOX_OPS = 25, 35, 12
 
 
 def device_line() -> str:
@@ -99,8 +137,10 @@ def device_line() -> str:
 
 
 def cuda_ms(prepare, reps: int) -> float:
-    """Mean device milliseconds over ``reps`` runs of the callable that
-    ``prepare()`` returns (set-up outside the timed window; CUDA events)."""
+    """Mean milliseconds of the event window around each of ``reps`` runs
+    of the callable that ``prepare()`` returns (set-up outside the window;
+    CUDA events). The window holds the callable's host work too: a plain
+    version's, or a kernel wrapper's checks and launch."""
     total = 0.0
     for _ in range(reps):
         run = prepare()
@@ -112,6 +152,39 @@ def cuda_ms(prepare, reps: int) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def kernel_ms(prepare, reps: int) -> float:
+    """Mean device milliseconds of a kernel over ``reps`` runs of the
+    callable that ``prepare()`` returns (set-up outside the window). A
+    spin kernel holds the stream while the host enqueues the runs, so the
+    event window holds the kernels back to back and not the wrappers' host
+    work; the spin grows until it outlasts the enqueueing."""
+    cycles = 1 << 24
+    for _ in range(4):
+        runs = [prepare() for _ in range(reps)]
+        torch.cuda.synchronize()
+        hold, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        hold.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for run in runs:
+            run()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < hold.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 8
+    raise AssertionError("kernel_ms: the host enqueue outlasted the spin")
+
+
+def timed(prepare, reps: int):
+    """(device ms of the kernel, ms of the event window around its
+    wrapper): ``kernel_ms`` and ``cuda_ms`` of the same runs."""
+    return kernel_ms(prepare, reps), cuda_ms(prepare, reps)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -131,9 +204,10 @@ def k1_bound(walk, lane_bytes):
                     + walk["tri_tests"] * K1_TRI_OPS)
 
 
-def k2_bound(name, n_hit, n_miss, n_dead, textured=False):
+def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False):
     b = K2_BYTES[name]
-    hit = b["hit"] + (TEX_BYTES if textured else 0)
+    hit = b["hit"] + (TEX_BYTES if textured else 0) \
+        - (TRI_ROW_BYTES - 4 if analytic else 0)
     return bound_ms(n_hit * hit + n_miss * b["miss"] + n_dead * b["dead"]
                     + (n_hit + n_miss + n_dead) * b["out"],
                     (n_hit + n_miss) * b["ops"])
@@ -193,20 +267,34 @@ def image_gate(img, ref, counts, counts_ref, label):
 def plain_kernels():
     """The same depth loops with every kernel entry point replaced by its
     plain PyTorch version (run on the card)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
     from metal_pathtracer_tpu_torch.ops.kernels import texture as X
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
-    def plain_trace(o, d, t_min, t_max, bvh, tris, ex_mesh, ex_prim):
-        return T.trace_closest_reference(o, d, float(t_min), t_max, bvh,
-                                         tris, ex_mesh.to(torch.int32),
-                                         ex_prim.to(torch.int32))
+    def plain_trace(o, d, t_min, t_max, bvh, tris, ex_mesh=None,
+                    ex_prim=None):
+        n = o.shape[0]
+        return T.trace_closest_reference(
+            o, d, float(t_min), t_max, bvh, tris,
+            T._as_i32(ex_mesh, n, o.device), T._as_i32(ex_prim, n, o.device))
 
     def plain_any(o, d, t_min, t_max, bvh, tris):
         return T.trace_any_reference(o, d, float(t_min), t_max, bvh, tris)
 
+    def plain_prims(reference):
+        return lambda o, d, t_min, t_max, prims: reference(
+            o, d, float(t_min), P._prepare(o, t_max), prims)
+
     with mock.patch.object(S, "trace_closest", plain_trace), \
+            mock.patch.object(T, "trace_closest", plain_trace), \
             mock.patch.object(T, "trace_any", plain_any), \
+            mock.patch.object(P, "sphere_nearest_brute",
+                              plain_prims(P.sphere_nearest_reference)), \
+            mock.patch.object(P, "sphere_nearest_chunked", plain_prims(
+                P.sphere_nearest_chunked_reference)), \
+            mock.patch.object(P, "rect_nearest",
+                              plain_prims(P.rect_nearest_reference)), \
             mock.patch.object(S, "shade_full", S.shade_full_reference), \
             mock.patch.object(S, "shade_s1", S.shade_s1_reference), \
             mock.patch.object(S, "shade_s2", S.shade_s2_reference), \
@@ -368,7 +456,7 @@ def lambert_path(dev, card, kernels, out):
                               params, 1)
         return setup
 
-    k2_ms = cuda_ms(k2_run(S.shade_full), 5)
+    k2_ms, k2_win_ms = timed(k2_run(S.shade_full), 5)
     k2_plain_ms = cuda_ms(k2_run(S.shade_full_reference), 2)
     ck, cp = clone(carry), clone(carry)
     S.shade_full(ck, *hit1, scene.triangles, scene.materials, params, 1)
@@ -378,7 +466,8 @@ def lambert_path(dev, card, kernels, out):
     differ, call_err = carry_error(ck, cp, n)
     bound, bound_by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live)
     print(f"lambert first bounce ({n_live} live of {n} lanes): K2 full "
-          f"{k2_ms:.3f} ms (plain {k2_plain_ms:.1f} ms, bound {bound:.4f} ms "
+          f"{k2_ms:.4f} ms on the device, {k2_win_ms:.4f} ms around the "
+          f"wrapper (plain {k2_plain_ms:.1f} ms, bound {bound:.4f} ms "
           f"by {bound_by}), vs plain: max_rel_err {call_err:.3e}, {differ} "
           f"differing lanes [{card}]")
     if differ > 1e-4 * n or not call_err <= 1e-4:
@@ -596,10 +685,10 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     # ---- every kernel vs plain at the first-depth wavefront ------------
     n = W * H
     static, uni = scene_setup(settings, res, W, H, dev)
-    params = S.NeeParams.of(uni, static, scene.environment)
+    params = S.ShadeParams.of(uni, static, scene.environment)
     carry = primary_carry(uni, static, dev)
     k1_args = trace_inputs(carry, scene)
-    k1_ms = cuda_ms(lambda: lambda: T.trace_closest(*k1_args), 5)
+    k1_ms, k1_win = timed(lambda: lambda: T.trace_closest(*k1_args), 5)
     k1_plain_ms = cuda_ms(lambda: lambda: T.trace_closest_reference(
         *k1_args), 1)
     hit = T.trace_closest(*k1_args)
@@ -642,7 +731,7 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
                               envbg, envpdf, params, 0, tex)
         return prep
 
-    s1_ms = cuda_ms(s1_run(S.shade_s1), 5)
+    s1_ms, s1_win = timed(s1_run(S.shade_s1), 5)
     s1_plain_ms = cuda_ms(s1_run(S.shade_s1_reference), 2)
     ck, cp = clone(carry), clone(carry)
     trans = S.shade_s1(ck, *hit, scene.triangles, scene.materials, envbg,
@@ -666,7 +755,7 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
                                             e_valid, tex)
     sh_args = (sh_o, e_dir.contiguous(), C.EPSILON_T, sh_max, scene.tri_bvh,
                scene.triangles)
-    any_ms = cuda_ms(lambda: lambda: T.trace_any(*sh_args), 5)
+    any_ms, any_win = timed(lambda: lambda: T.trace_any(*sh_args), 5)
     any_plain_ms = cuda_ms(lambda: lambda: T.trace_any_reference(*sh_args), 1)
     occ = T.trace_any(*sh_args)
     walk_any = {}
@@ -690,7 +779,7 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
                               trans, esmp, params, 0, tex)
         return prep
 
-    s2_ms = cuda_ms(s2_run(S.shade_s2), 5)
+    s2_ms, s2_win = timed(s2_run(S.shade_s2), 5)
     s2_plain_ms = cuda_ms(s2_run(S.shade_s2_reference), 2)
     c2k, c2p = clone(ck), clone(ck)
     chain = S.shade_s2(c2k, *hit, scene.triangles, scene.materials, trans,
@@ -706,21 +795,26 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     if differ2 > 1e-4 * n or not s2_err <= 1e-4:
         raise AssertionError(f"K2 s2 disagrees with its plain version: "
                              f"{differ2} lanes, err {s2_err}")
+    # the texture wrapper reads the camera back to the host, so its
+    # time is the window around the wrapper
     tex_line = (f"texture stage {tex_ms:.3f} ms (plain {tex_plain_ms:.1f} "
                 f"ms, bound {tex_b:.4f} ms by {tex_by}, {n_tex} textured "
                 f"lanes, largest plane difference {tex_err:.2e}); "
                 if textured else "")
     print(f"{name} first depth ({n} lanes, {n_hit} hits, {n_sh} shadow "
-          f"rays): K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.1f} ms, bound "
+          f"rays; kernel ms on the device, then around the wrapper): K1 "
+          f"{k1_ms:.3f} / {k1_win:.3f} ms (plain {k1_plain_ms:.1f} ms, bound "
           f"{k1_b:.4f} ms by {k1_by}, {int(walk['nodes'].sum())} nodes "
           f"and {int(walk['slots'].sum())} triangles touched); {tex_line}"
-          f"K1 any-hit {any_ms:.3f} ms (plain {any_plain_ms:.1f} ms, bound "
+          f"K1 any-hit {any_ms:.3f} / {any_win:.3f} ms (plain "
+          f"{any_plain_ms:.1f} ms, bound "
           f"{any_bound:.4f} ms by {any_by}, "
           f"{int(walk_any['nodes'].sum())} nodes and "
           f"{int(walk_any['slots'].sum())} triangles touched); K2 s1 "
-          f"{s1_ms:.3f} ms (plain {s1_plain_ms:.1f} ms, bound "
+          f"{s1_ms:.3f} / {s1_win:.3f} ms (plain {s1_plain_ms:.1f} ms, bound "
           f"{s1_bound:.4f} ms, err {s1_err:.2e}, {differ} differing lanes); "
-          f"K2 s2 {s2_ms:.3f} ms (plain {s2_plain_ms:.1f} ms, bound "
+          f"K2 s2 {s2_ms:.3f} / {s2_win:.3f} ms (plain {s2_plain_ms:.1f} "
+          f"ms, bound "
           f"{s2_bound:.4f} ms, err {s2_err:.2e}, {differ2} differing lanes) "
           f"[{card}]")
     if not textured:
@@ -762,10 +856,460 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
         plain_ms=tex_plain_ms, bound_ms=tex_b, bound_by=tex_by)
 
 
+def compare_nearest(got, ref, label, count_ties=False):
+    """A K3 result (t, index) against another: t bit-equal on every lane,
+    the index equal too, except (``count_ties``) where two spheres give
+    the same t; returns (largest |t| difference, ties)."""
+    t_a, i_a = (x.cpu().numpy() for x in got)
+    t_b, i_b = (x.cpu().numpy() for x in ref)
+    bad_t = t_a.view(np.int32) != t_b.view(np.int32)
+    bad_i = i_a != i_b
+    if bad_t.any() or (bad_i.any() and not count_ties):
+        raise AssertionError(f"{label}: t differs on {int(bad_t.sum())} and "
+                             f"the index on {int(bad_i.sum())} lanes")
+    return float(np.abs(t_a - t_b).max()), int(bad_i.sum())
+
+
+def k3_bound(name, n, n_live, prims, group_tests=0):
+    """A K3 kernel's bound: each lane's ray and hit, the primitive set
+    once; the sphere or rectangle tests of the live lanes (K3b: the group
+    box tests and the 16 sphere tests of each box that passed)."""
+    if name == "rect_nearest":
+        return bound_ms(n * K3_LANE_BYTES + prims * K3_RECT_BYTES,
+                        n_live * prims * K3_RECT_OPS)
+    if name == "sphere_nearest_chunked":
+        groups = (prims + 15) // 16
+        return bound_ms(n * K3_LANE_BYTES + groups * (16 * K3_SLOT_BYTES
+                                                      + K3_BOX_BYTES),
+                        n_live * groups * K3_BOX_OPS
+                        + group_tests * 16 * K3_SPHERE_OPS)
+    return bound_ms(n * K3_LANE_BYTES + prims * K3_SPHERE_BYTES,
+                    n_live * prims * K3_SPHERE_OPS)
+
+
+def exact_gate(st_k, st_p, label):
+    """A render through the kernels against the plain path: the same
+    image (RMSE 0) and the same closest and shadow trace counts."""
+    img, ref = st_k.present().cpu().numpy(), st_p.present().cpu().numpy()
+    counts = (st_k.ray_count, st_k.shadow_ray_count)
+    counts_ref = (st_p.ray_count, st_p.shadow_ray_count)
+    d = np.abs(img - ref)
+    rmse = float(np.sqrt((d * d).mean()))
+    print(f"{label}: rmse={rmse:.3e} max_abs={float(d.max()):.3e} "
+          f"traces={counts} plain_traces={counts_ref}")
+    if counts != counts_ref or rmse != 0.0 or not np.isfinite(img).all():
+        raise AssertionError(f"{label}: kernel path differs from the plain "
+                             "path")
+    return float(d.max())
+
+
+def prim_wavefronts(scene, settings, res, w, h, dev):
+    """The primary wavefront of sample 0 and the one after a K2 ``full``
+    bounce: [(label, origin, direction, t_max)], plus the primary carry
+    and its (static, uniforms)."""
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+
+    static, uni = scene_setup(settings, res, w, h, dev)
+    carry = primary_carry(uni, static, dev)
+    waves = []
+    c = clone(carry)
+    for depth in (0, 1):
+        waves.append((f"depth {depth}", c.ray_o.clone(), c.ray_d.clone(),
+                      torch.where(c.alive, C.INFINITY_T, 0.0)))
+        if depth == 0:
+            t, idx, u, v, kind = S._trace(scene, c)
+            S.shade_full(c, t, idx, u, v, scene.triangles, scene.materials,
+                         S.ShadeParams.of(uni, static), 0, kind=kind,
+                         scene=scene)
+    return waves, carry, static, uni
+
+
+def cornell_shadow_wave(scene, carry, static, uni):
+    """The Cornell box's first-depth rect-light shadow wavefront (s1, the
+    light sample from its draws, the offset origins): (origin, direction,
+    t_max)."""
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops import integrator
+    from metal_pathtracer_tpu_torch.ops.intersect import analytic_point
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+
+    c = clone(carry)
+    t, idx, u, v, kind = S._trace(scene, c)
+    rectpdf = integrator.rect_light_pdf_for_hit(
+        scene, analytic_point(c.ray_o, t, c.ray_d), kind, idx, c.ray_o)
+    trans = S.shade_s1(c, t, idx, u, v, scene.triangles, scene.materials,
+                       None, None, S.ShadeParams.of(uni, static), 0,
+                       kind=kind, scene=scene, rectpdf=rectpdf)
+    l_dir, l_dist, l_pdf, _, l_valid = \
+        integrator.rect_light_sample_from_uniforms(
+            scene, trans[:, 10:13], trans[:, 0], trans[:, 1], trans[:, 2])
+    sh_o, sh_max, _ = S.nee_shadow_rays(
+        trans, t, l_dir, l_pdf, l_valid, None,
+        torch.clamp_min(l_dist - C.EPSILON_T, C.EPSILON_T))
+    return sh_o, l_dir.contiguous(), sh_max
+
+
+def compare_bits(label, pairs):
+    """Every (name, kernel's tensor, plain version's tensor) equal bit for
+    bit, lane by lane; raises naming the fields that are not."""
+    bad = {}
+    for name, got, want in pairs:
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        lanes = int((got != want).reshape(got.shape[0], -1).any(-1).sum())
+        if lanes:
+            bad[name] = lanes
+    if bad:
+        raise AssertionError(f"{label}: differs from its plain version on "
+                             f"these lanes: {bad}")
+
+
+def carry_pairs(a, b):
+    return [(k, getattr(a, k), getattr(b, k)) for k in vars(a)]
+
+
+def prim_k2(cells, dev, card):
+    """K2 against its plain version at the analytic cells' full size: s1
+    and s2 (rect-light NEE, emissive-hit MIS, metal, glass) on the Cornell
+    box's first-depth wavefront with its rect-light bank, ``full`` on
+    rtow's first two depths; carry, transients and chain bit-equal, each
+    stage timed beside its bound."""
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops import integrator
+    from metal_pathtracer_tpu_torch.ops.intersect import (
+        analytic_point,
+        trace_occluded,
+    )
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    out = {}
+    settings, res, scene, _ = cells["cornell"]
+    w, h = B.CORNELL_FRAME
+    n = w * h
+    static, uni = scene_setup(settings, res, w, h, dev)
+    params = S.ShadeParams.of(uni, static)
+    carry = primary_carry(uni, static, dev)
+    t, idx, u, v, kind = S._trace(scene, carry)
+    rectpdf = integrator.rect_light_pdf_for_hit(
+        scene, analytic_point(carry.ray_o, t, carry.ray_d), kind, idx,
+        carry.ray_o)
+    hit = (t, idx, u, v, scene.triangles, scene.materials)
+
+    def s1(fn, c):
+        return fn(c, *hit, None, None, params, 0, kind=kind, scene=scene,
+                  rectpdf=rectpdf)
+
+    ck, cp = clone(carry), clone(carry)
+    trans, trans_p = s1(S.shade_s1, ck), s1(S.shade_s1_reference, cp)
+    torch.cuda.synchronize()
+    compare_bits("K2 s1 cornell first depth",
+                 carry_pairs(ck, cp) + [("trans", trans, trans_p)])
+    # the rect-light bank from s1's draws, as trace_paths_nee builds it
+    l_dir, l_dist, l_pdf, l_em, l_valid = \
+        integrator.rect_light_sample_from_uniforms(
+            scene, trans[:, 10:13], trans[:, 0], trans[:, 1], trans[:, 2])
+    sh_o, sh_max, do_sh = S.nee_shadow_rays(
+        trans, t, l_dir, l_pdf, l_valid, None,
+        torch.clamp_min(l_dist - C.EPSILON_T, C.EPSILON_T))
+    occ = trace_occluded(sh_o, l_dir, scene, C.EPSILON_T, sh_max)
+    esmp = torch.cat([l_dir, l_em, l_pdf[:, None],
+                      l_valid[:, None].to(torch.float32),
+                      occ[:, None].to(torch.float32)], 1)
+
+    def s2(fn, c):
+        return fn(c, *hit, trans, esmp, params, 0, kind=kind, scene=scene)
+
+    c2k, c2p = clone(ck), clone(ck)
+    chain, chain_p = s2(S.shade_s2, c2k), s2(S.shade_s2_reference, c2p)
+    torch.cuda.synchronize()
+    compare_bits("K2 s2 cornell first depth",
+                 carry_pairs(c2k, c2p) + [("chain", chain, chain_p)])
+
+    def prep(stage, fn, c0):
+        def make():
+            c = clone(c0)
+            return lambda: stage(fn, c)
+        return make
+
+    n_hit = int((carry.alive & (idx >= 0)).sum())
+    n_live = int(ck.alive.sum())
+    s1_ms, s1_win = timed(prep(s1, S.shade_s1, carry), 5)
+    s2_ms, s2_win = timed(prep(s2, S.shade_s2, ck), 5)
+    out["shade_s1"] = (s1_ms, cuda_ms(prep(s1, S.shade_s1_reference, carry),
+                                      2),
+                       *k2_bound("shade_s1", n_hit, n - n_hit, 0,
+                                 analytic=True))
+    out["shade_s2"] = (s2_ms, cuda_ms(prep(s2, S.shade_s2_reference, ck), 2),
+                       *k2_bound("shade_s2", n_live, 0, n - n_live,
+                                 analytic=True))
+    print(f"cornell first depth ({n} lanes, {n_hit} hits, "
+          f"{int(do_sh.sum())} rect-light shadow rays): K2 s1 and s2 "
+          f"bit-equal to their plain versions in carry, transients and "
+          f"chain; s1 {s1_ms:.4f} ms on the device, {s1_win:.4f} ms around "
+          f"the wrapper (plain {out['shade_s1'][1]:.1f} ms, bound "
+          f"{out['shade_s1'][2]:.4f} ms by {out['shade_s1'][3]}); s2 "
+          f"{s2_ms:.4f} / {s2_win:.4f} ms (plain {out['shade_s2'][1]:.1f} "
+          f"ms, bound {out['shade_s2'][2]:.4f} ms by {out['shade_s2'][3]}) "
+          f"[{card}]")
+
+    settings, res, scene, _ = cells["rtow"]
+    w, h = B.RTOW_FRAME
+    n = w * h
+    static, uni = scene_setup(settings, res, w, h, dev)
+    params = S.ShadeParams.of(uni, static)
+    carry = primary_carry(uni, static, dev)
+    for depth in (0, 1):
+        t, idx, u, v, kind = S._trace(scene, carry)
+
+        def full(fn, c):
+            fn(c, t, idx, u, v, scene.triangles, scene.materials, params,
+               depth, kind=kind, scene=scene)
+
+        ck, cp = clone(carry), clone(carry)
+        full(S.shade_full, ck)
+        full(S.shade_full_reference, cp)
+        torch.cuda.synchronize()
+        compare_bits(f"K2 full rtow depth {depth}", carry_pairs(ck, cp))
+        n_live = int(carry.alive.sum())
+        n_hit = int((carry.alive & (idx >= 0)).sum())
+        ms, win = timed(prep(full, S.shade_full, carry), 5)
+        plain = cuda_ms(prep(full, S.shade_full_reference, carry), 2)
+        b, by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live,
+                         analytic=True)
+        print(f"rtow depth {depth} ({n_live} live of {n} lanes, {n_hit} "
+              f"hits): K2 full bit-equal to its plain version in the carry; "
+              f"{ms:.4f} ms on the device, {win:.4f} ms around the wrapper "
+              f"(plain {plain:.1f} ms, bound {b:.4f} ms by {by}) [{card}]")
+        carry = ck
+
+
+def prim_timed(label, resources, settings, w, h, spp, dev, card, kernels,
+               path):
+    """A warm-up, then ``spp`` samples at w x h through ``CudaBackend``
+    with the launch counts reset just before; fails if a kernel of
+    ``path`` was not launched. Returns the launches."""
+    from metal_pathtracer_tpu_torch.renderer.headless import CudaBackend
+
+    backend = CudaBackend()
+    backend.render(resources, settings, *CHECK_FRAME, 1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    t0 = time.time()
+    res = backend.render(resources, settings, w, h, spp, device=dev)
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    img = res.linear_rgb
+    if not (np.isfinite(img).all() and img.max() > 0.0):
+        raise AssertionError(f"{label}: image is not finite and non-zero")
+    if res.ray_count < w * h * spp:
+        raise AssertionError(f"{label}: ray_count {res.ray_count} < pixels "
+                             "x spp")
+    if min(launches[k] for k in path) <= 0:
+        raise AssertionError(f"{label}: a kernel of the path was not "
+                             f"launched: {launches}")
+    traces = res.ray_count + res.shadow_ray_count
+    print(f"{label} {w}x{h} d{settings.maxDepth}: {spp} spp in "
+          f"{res.total_seconds:.3f}s, {res.avg_ms_per_sample:.2f} ms/spp, "
+          f"{traces / res.total_seconds / 1e6:.2f} Mrays/s "
+          f"({res.ray_count} closest + {res.shadow_ray_count} shadow "
+          f"traces), peak {peak / 2**20:.0f} MiB, set-up "
+          f"{wall - res.total_seconds:.1f}s, launches {launches}, mean "
+          f"{float(img.mean()):.4f} [{card}]")
+    return launches
+
+
+def cornell_under_env():
+    """The Cornell box without its ceiling and spheres under a 32x16 HDR
+    sky with a sun block (the JAX package's ``test_fused_shade.py:
+    593-605``): rect-light and environment NEE together. Returns
+    (settings, resources, environment texels)."""
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import (
+        BackgroundMode,
+        RenderSettings,
+    )
+    from metal_pathtracer_tpu_torch.utils.benchscene import (
+        cornell_scene_text,
+    )
+
+    text = "\n".join(line for line in cornell_scene_text().splitlines()
+                     if not line.startswith("sphere")
+                     and "y=2 z=-1,1" not in line)
+    settings, res = RenderSettings(), SceneResources()
+    dsl.parse_scene(text, settings, res)
+    settings.backgroundMode = BackgroundMode.ENVIRONMENT
+    settings.maxDepth = 4
+    texels = np.full((16, 32, 3), 0.25, np.float32)
+    texels[3:6, 6:9] = (40.0, 35.0, 28.0)
+    texels[:, :, 2] += 0.15
+    return settings, res, texels
+
+
+def primitives_path(dev, card, kernels, out):
+    """The analytic primitives: K3a/K3b/K3c bit for bit against their plain
+    versions, the four scenes at 160x96 against the plain path, the
+    Cornell box and rtow at full size through ``CudaBackend``, and each K3
+    kernel timed at the first depth."""
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    def build(make):
+        t0 = time.time()
+        settings, res, *texels = make()
+        env = env_ops.environment_from_texels(texels[0], dev) if texels \
+            else None
+        scene = res.build_arrays(environment=env, device=dev)
+        torch.cuda.synchronize()
+        return settings, res, scene, time.time() - t0
+
+    cells = {"cornell": build(B.build_cornell_scene),
+             "rtow": build(lambda: B.build_rtow_scene(RTOW_SEED)),
+             "smoke": build(B.build_smoke_scene),
+             "mixed": build(B.build_mixed_scene),
+             "cornell under an environment": build(cornell_under_env)}
+    for name, (_, _, scene, secs) in cells.items():
+        print(f"# {name} scene: {scene.n_spheres} spheres, {scene.n_rects} "
+              f"rectangles ({scene.n_rect_lights} lights), "
+              f"{scene.n_triangles} triangles, "
+              f"{scene.materials.count} materials, set-up {secs:.2f}s")
+
+    # ---- K3a/K3b/K3c vs their plain versions on the cells' wavefronts ---
+    t_err, ties = 0.0, 0
+    first = {}
+    for name, (w, h) in (("cornell", B.CORNELL_FRAME),
+                         ("rtow", B.RTOW_FRAME)):
+        settings, res, scene, _ = cells[name]
+        waves, carry, static, uni = prim_wavefronts(scene, settings, res, w,
+                                                    h, dev)
+        if name == "cornell":
+            waves.append(("rect-light shadow rays",
+                          *cornell_shadow_wave(scene, carry, static, uni)))
+        for label, o, d, tmax in waves:
+            args = (o, d, C.EPSILON_T, tmax)
+            checked = []
+            if scene.n_rects:
+                e, _ = compare_nearest(
+                    P.rect_nearest(*args, scene.rects),
+                    P.rect_nearest_reference(*args, scene.rects),
+                    f"K3c {name} {label}")
+                t_err = max(t_err, e)
+                checked.append("K3c")
+            brute = P.sphere_nearest_brute(*args, scene.spheres)
+            e, _ = compare_nearest(
+                brute, P.sphere_nearest_reference(*args, scene.spheres),
+                f"K3a {name} {label}")
+            t_err = max(t_err, e)
+            checked.append("K3a")
+            if scene.n_spheres > P.BRUTE_MAX_SPHERES:
+                groups = scene.sphere_groups
+                chunked = P.sphere_nearest_chunked(*args, groups)
+                e, _ = compare_nearest(
+                    chunked, P.sphere_nearest_chunked_reference(*args,
+                                                                groups),
+                    f"K3b {name} {label}")
+                _, n_ties = compare_nearest(chunked, brute,
+                                            f"K3b vs K3a {name} {label}",
+                                            count_ties=True)
+                t_err, ties = max(t_err, e), ties + n_ties
+                checked.append(f"K3b (vs K3a: {n_ties} exact-t ties)")
+            n_live = int((tmax > 0).sum())
+            print(f"{name} {label} ({n_live} live of {o.shape[0]} lanes): "
+                  f"{', '.join(checked)} bit-equal to the plain versions")
+            if label == "depth 0":
+                first[name] = (args, scene, n_live)
+
+    # ---- every K3 kernel timed at the first depth ----------------------
+    timing = {}
+    for kname, cell, prims_of in (
+            ("sphere_nearest_brute", "cornell", lambda s: s.spheres),
+            ("rect_nearest", "cornell", lambda s: s.rects),
+            ("sphere_nearest_chunked", "rtow", lambda s: s.sphere_groups),
+            ("sphere_nearest_brute", "rtow", lambda s: s.spheres)):
+        args, scene, n_live = first[cell]
+        prims = prims_of(scene)
+        fn = getattr(P, kname)
+        plain = {"sphere_nearest_brute": P.sphere_nearest_reference,
+                 "sphere_nearest_chunked": P.sphere_nearest_chunked_reference,
+                 "rect_nearest": P.rect_nearest_reference}[kname]
+        ms, win_ms = timed(lambda: lambda: fn(*args, prims), 20)
+        plain_ms = cuda_ms(lambda: lambda: plain(*args, prims), 2)
+        stats = {}
+        if kname == "sphere_nearest_chunked":
+            plain(*args, prims, stats=stats)
+        count = scene.n_rects if kname == "rect_nearest" else scene.n_spheres
+        b, by = k3_bound(kname, args[0].shape[0], n_live, count,
+                         stats.get("group_tests", 0))
+        extra = (f", {stats['group_tests']} lane x group boxes passed of "
+                 f"{n_live * prims.n_groups}" if stats else "")
+        print(f"{kname} on the {cell} first depth ({args[0].shape[0]} lanes, "
+              f"{count} primitives): {ms:.4f} ms on the device, {win_ms:.4f} "
+              f"ms around the wrapper (plain {plain_ms:.1f} ms, bound "
+              f"{b:.4f} ms by {by}{extra}) [{card}]")
+        timing.setdefault(kname, (ms, plain_ms, b, by))
+
+    # ---- K2 vs its plain version at the cells' full size ----------------
+    prim_k2(cells, dev, card)
+
+    # ---- the four scenes at 160x96, kernels vs plain path ----------------
+    w, h = CHECK_FRAME
+    render_err = 0.0
+    for name, (settings, res, scene, _) in cells.items():
+        static, uni = scene_setup(settings, res, w, h, dev)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                    static, PRIM_CHECK_SPP)
+        used = [k for k, fn in kernels.items() if fn.launches > before[k]]
+        with plain_kernels():
+            st_p = frame.render_samples(scene, uni,
+                                        RenderState.create(w, h, dev), static,
+                                        PRIM_CHECK_SPP)
+        render_err = max(render_err, exact_gate(
+            st_k, st_p, f"{name} {w}x{h} {PRIM_CHECK_SPP}spp d"
+            f"{settings.maxDepth} through {'+'.join(used)} vs plain"))
+
+    # ---- the Cornell box and rtow at full size through CudaBackend -------
+    settings, res, _, _ = cells["cornell"]
+    launches = prim_timed("cornell", res, settings, *B.CORNELL_FRAME,
+                          CORNELL_TIMED_SPP, dev, card, kernels,
+                          ("sphere_nearest_brute", "rect_nearest", "shade_s1",
+                           "shade_s2"))
+    settings, res, _, _ = cells["rtow"]
+    launches_r = prim_timed("rtow", res, settings, *B.RTOW_FRAME,
+                            RTOW_TIMED_SPP, dev, card, kernels,
+                            ("sphere_nearest_chunked", "shade_full"))
+    print(f"K3b against K3a: {ties} exact-t ties over the rtow wavefronts")
+    for kname, n_launch in (
+            ("sphere_nearest_brute", launches["sphere_nearest_brute"]),
+            ("sphere_nearest_chunked", launches_r["sphere_nearest_chunked"]),
+            ("rect_nearest", launches["rect_nearest"])):
+        ms, plain_ms, b, by = timing[kname]
+        out[kname] = dict(
+            source=ROOT + "primitives.cu",
+            replaces={"sphere_nearest_brute":
+                      "metal_pathtracer_tpu/ops/pallas/primitives.py:37",
+                      "sphere_nearest_chunked":
+                      "metal_pathtracer_tpu/ops/pallas/primitives.py:183",
+                      "rect_nearest":
+                      "metal_pathtracer_tpu/ops/pallas/primitives.py:314"}[
+                          kname],
+            launches=n_launch, max_abs_err=max(t_err, render_err), ms=ms,
+            plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
     from metal_pathtracer_tpu_torch.ops.kernels import texture as X
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
@@ -789,7 +1333,10 @@ def main() -> None:
 
     kernels = {"trace_closest": T.trace_closest, "trace_any": T.trace_any,
                "shade_full": S.shade_full, "shade_s1": S.shade_s1,
-               "shade_s2": S.shade_s2, "texture_stage": X.texture_stage}
+               "shade_s2": S.shade_s2, "texture_stage": X.texture_stage,
+               "sphere_nearest_brute": P.sphere_nearest_brute,
+               "sphere_nearest_chunked": P.sphere_nearest_chunked,
+               "rect_nearest": P.rect_nearest}
     out = {}
     t0 = time.time()
     k1_probe_err = lambert_path(dev, card, kernels, out)
@@ -799,6 +1346,9 @@ def main() -> None:
         nee_path(dev, card, kernels, out, k1_probe_err, textured)
         print(f"# {'textured' if textured else 'untextured'} headline "
               f"phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    primitives_path(dev, card, kernels, out)
+    print(f"# analytic-primitives phases took {time.time() - t0:.1f}s")
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])

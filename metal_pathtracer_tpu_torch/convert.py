@@ -18,13 +18,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from metal_pathtracer_tpu_torch.ops.kernels import primitives
 from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
 from metal_pathtracer_tpu_torch.schema import (
     BvhSoA,
     CameraUniforms,
     EnvironmentSoA,
     MaterialsSoA,
+    RectsSoA,
     SceneArrays,
+    SpheresSoA,
     StaticConfig,
     TextureArrays,
     TrianglesSoA,
@@ -65,25 +68,27 @@ def textures(d: dict, device="cuda") -> TextureArrays:
 
 
 def scene_arrays(d: dict, device="cuda") -> SceneArrays:
-    """Materials, triangle soup, BVH, environment and texture atlas; the
-    JAX scene must hold no spheres, rects or instances (not ported
-    yet)."""
-    for key in ("spheres", "rects"):
-        sub = d.get(key)
-        if sub is not None and np.asarray(sub["material"]).shape[0] > 0:
-            raise NotImplementedError(
-                f"{key}: ROADMAP Queue 1, step 11 (analytic primitives)")
-    tris = d.get("triangles")
-    bvh = d.get("tri_bvh")
-    env = d.get("environment")
-    tex = d.get("textures")
+    """Materials, spheres, rectangles and their light list, triangle soup,
+    BVH, environment and texture atlas (the JAX scene must hold no
+    instances: not ported yet), with the K3b layout of more than 32
+    spheres."""
+    opt = lambda key, fn: None if d.get(key) is None else fn(d[key])
+    spheres = opt("spheres", lambda x: _build(SpheresSoA, x, device))
     return SceneArrays(
         materials=_build(MaterialsSoA, d["materials"], device),
-        triangles=None if tris is None else _build(TrianglesSoA, tris,
-                                                   device),
-        tri_bvh=None if bvh is None else _build(BvhSoA, bvh, device),
-        environment=None if env is None else environment(env, device),
-        textures=None if tex is None else textures(tex, device))
+        triangles=opt("triangles",
+                      lambda x: _build(TrianglesSoA, x, device)),
+        tri_bvh=opt("tri_bvh", lambda x: _build(BvhSoA, x, device)),
+        environment=opt("environment", lambda x: environment(x, device)),
+        textures=opt("textures", lambda x: textures(x, device)),
+        spheres=spheres,
+        rects=opt("rects", lambda x: _build(RectsSoA, x, device)),
+        light_rect_indices=opt(
+            "light_rect_indices",
+            lambda x: torch.tensor(np.asarray(x, np.int32).reshape(-1),
+                                   device=device)),
+        sphere_groups=None if spheres is None
+        else primitives.groups_of(spheres))
 
 
 _UNIFORM_SCALARS = ("environment_", "firefly_", "throughput_", "specular_",

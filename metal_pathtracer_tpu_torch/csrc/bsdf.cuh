@@ -1,5 +1,6 @@
 // BSDFs of the shade kernels: clamps, Fresnel/GGX helpers, and sampling
-// and evaluation for lambert, dielectric and PBR.
+// and evaluation for lambert, metal, dielectric and PBR (a diffuse light
+// ends its path before any sample: sample_bsdf returns the invalid one).
 //
 // Each function mirrors its plain PyTorch twin in ops/bsdf.py or
 // ops/pbr.py operation for operation (same association, FMAs only inside
@@ -16,8 +17,11 @@
 #define TWO_PI_F 6.283185307179586f
 #define SCHLICK_AVG_F 0.047619047619047616f  // 1/21
 #define MAT_LAMBERT 0
+#define MAT_METAL 1
 #define MAT_DIELECTRIC 2
+#define MAT_LIGHT 3
 #define MAT_PBR 7
+#define MAT_COLS 24
 
 // bsdf.ClampParams
 struct ClampP {
@@ -25,17 +29,19 @@ struct ClampP {
       max_contribution, enabled;
 };
 
-// One row of the s1/s2 material table (kernels/shade.py MAT_COLS)
+// One row of the shade kernels' material table (kernels/shade.py MAT_COLS)
 struct Mat {
   int type;
   V3 base;
   float roughness, eta, thin;
   V3 emission, sigma_a;
   float metallic, transmission, thickness, double_sided;
+  V3 cond_eta, cond_k;
+  float has_cond;
 };
 
 __device__ __forceinline__ Mat fetch_material(const float* table, int mid) {
-  const float* r = table + 17 * mid;
+  const float* r = table + (long long)MAT_COLS * mid;
   Mat m;
   m.type = (int)r[0];
   m.base = v3(r[1], r[2], r[3]);
@@ -48,6 +54,9 @@ __device__ __forceinline__ Mat fetch_material(const float* table, int mid) {
   m.transmission = r[14];
   m.thickness = r[15];
   m.double_sided = r[16];
+  m.cond_eta = v3(r[17], r[18], r[19]);
+  m.cond_k = v3(r[20], r[21], r[22]);
+  m.has_cond = r[23];
   return m;
 }
 
@@ -139,6 +148,24 @@ __device__ inline float fresnel_dielectric_exact(float cos_i, float eta_i,
   return tir ? 1.0f : fr;
 }
 
+// bsdf.fresnel_conductor, one channel
+__device__ inline float fresnel_conductor1(float ci, float eta, float k) {
+  ci = clampf(ci, -1.0f, 1.0f);
+  float cos2 = ci * ci;
+  float sin2 = cmin(1.0f - cos2, 0.0f);
+  float eta2 = eta * eta, k2 = k * k;
+  float t0 = eta2 - k2 - sin2;
+  float a2b2 = sqrtf(cmin(t0 * t0 + 4.0f * eta2 * k2, 0.0f));
+  float a = sqrtf(cmin(0.5f * (a2b2 + t0), 0.0f));
+  float term1 = a2b2 + cos2;
+  float term2 = 2.0f * ci * a;
+  float rs = (term1 - term2) / (term1 + term2);
+  float term3 = cos2 * a2b2 + sin2 * sin2;
+  float term4 = term2 * sin2;
+  float rp = (term3 - term4) / (term3 + term4);
+  return clampf(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f);
+}
+
 __device__ inline float ggx_lambda(float alpha, float cos_theta) {
   float abs_cos = fabsf(cos_theta);
   float sin_theta = sqrtf(cmin(1.0f - abs_cos * abs_cos, 0.0f));
@@ -153,7 +180,7 @@ __device__ __forceinline__ float ggx_g1(float alpha, float c) {
 __device__ inline float ggx_d(float alpha, float cos_h) {
   float abs_ch = fabsf(cos_h);
   float a2 = alpha * alpha;
-  float denom = abs_ch * abs_ch * (a2 - 1.0f) + 1.0f;
+  float denom = fmaf_rn(abs_ch * abs_ch, a2 - 1.0f, 1.0f);
   return a2 / (PI_F * denom * denom);
 }
 __device__ inline float ggx_pdf(float alpha, V3 n, V3 wo, V3 wi) {
@@ -261,10 +288,30 @@ __device__ __forceinline__ float lambert_pdf(V3 n, V3 d) {
 // bsdf.material_is_delta, environment_lighting_roughness
 __device__ __forceinline__ bool material_is_delta(const Mat& m) {
   float rough = clampf(m.roughness, 0.0f, 1.0f);
-  return m.type == MAT_DIELECTRIC || (m.type == MAT_PBR && rough <= 1e-3f);
+  return m.type == MAT_DIELECTRIC ||
+         ((m.type == MAT_METAL || m.type == MAT_PBR) && rough <= 1e-3f);
 }
 __device__ __forceinline__ float env_lighting_roughness(const Mat& m) {
-  return m.type == MAT_PBR ? clampf(m.roughness, 0.0f, 1.0f) : 1.0f;
+  return m.type == MAT_METAL || m.type == MAT_PBR
+             ? clampf(m.roughness, 0.0f, 1.0f)
+             : 1.0f;
+}
+
+// bsdf.material_has_conductor_ior, conductor_f0, metal_fresnel
+__device__ __forceinline__ bool has_conductor_ior(const Mat& m) {
+  return m.has_cond > 0.0f || m.cond_eta.x > 0.0f || m.cond_eta.y > 0.0f ||
+         m.cond_eta.z > 0.0f || m.cond_k.x > 0.0f || m.cond_k.y > 0.0f ||
+         m.cond_k.z > 0.0f;
+}
+__device__ inline V3 metal_fresnel(const Mat& m, V3 f0, float c) {
+  if (!has_conductor_ior(m)) return schlick_fresnel(f0, c);
+  return v3(fresnel_conductor1(c, m.cond_eta.x, m.cond_k.x),
+            fresnel_conductor1(c, m.cond_eta.y, m.cond_k.y),
+            fresnel_conductor1(c, m.cond_eta.z, m.cond_k.z));
+}
+__device__ inline V3 conductor_f0(const Mat& m) {
+  if (!has_conductor_ior(m)) return clamp3(m.base, 0.0f, 1.0f);
+  return metal_fresnel(m, zero3(), 1.0f);
 }
 
 struct Sample {
@@ -299,6 +346,51 @@ __device__ inline Sample sample_lambert(const Mat& m, V3 n, uint32_t* s,
     o.weight = weight;
     o.pdf = o.dpdf = pdf;
     o.lobe_roughness = 1.0f;
+  }
+  return o;
+}
+
+// ---- metal (bsdf._sample_metal): a mirror at roughness <= 1e-3 (no
+// draw), else a GGX lobe (2 draws) ------------------------------------------
+__device__ inline Sample sample_metal(const Mat& m, V3 n, V3 wo, V3 incident,
+                                      uint32_t* s, const ClampP& p) {
+  float roughness = clampf(m.roughness, 0.0f, 1.0f);
+  V3 f0 = conductor_f0(m);
+  float cos_o = dot3(n, wo);
+  Sample o = invalid_sample();
+  if (roughness <= 1e-3f) {
+    V3 wi_d = reflect3(incident, n);
+    if (dot3(n, wi_d) > 0.0f) {
+      o.dir = wi_d;
+      o.weight = metal_fresnel(m, f0, cmin(cos_o, 0.0f));
+      o.pdf = o.dpdf = 1.0f;
+      o.is_delta = true;
+      o.lobe_type = 1;
+      o.lobe_roughness = roughness;
+    }
+    return o;
+  }
+  V3 wh = sample_ggx_vndf(n, wo, roughness, s);
+  float alpha = roughness * roughness;
+  V3 wi = safe_normalize3(reflect3(-wo, wh));
+  float cos_i = dot3(n, wi);
+  float dot_wo_wh = dot3(wo, wh);
+  float d = ggx_d(alpha, dot3(n, wh));
+  float g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
+  V3 f = metal_fresnel(m, f0, dot3(wi, wh)) *
+         ((d * g) / cmin(4.0f * cos_o * cos_i, 1e-6f));
+  f = f * specular_energy_compensation(f0, roughness, cos_o);
+  f = clamp_specular_tail(f, roughness, f0, p);
+  float pdf_raw = ggx_pdf(alpha, n, wo, wi);
+  float pdf = clamp_specular_pdf(pdf_raw, p);
+  V3 weight = cmin3(f * (cos_i / cmin(pdf, 1e-20f)), 0.0f);
+  if (dot3(wh, n) > 0.0f && finite3(wi) && cos_i > 0.0f && cos_o > 0.0f &&
+      dot_wo_wh > 0.0f && pdf_raw > 0.0f && finite3(weight)) {
+    o.dir = wi;
+    o.weight = weight;
+    o.pdf = o.dpdf = pdf;
+    o.lobe_type = 1;
+    o.lobe_roughness = roughness;
   }
   return o;
 }
@@ -467,7 +559,36 @@ __device__ inline Eval evaluate_pbr(const Mat& m, V3 n, V3 wo, V3 wi,
   return e;
 }
 
-// bsdf.evaluate_bsdf over lambert, dielectric, PBR
+// bsdf._evaluate_metal; cos_o, cos_i clamped at 0
+__device__ inline Eval evaluate_metal(const Mat& m, V3 n, V3 wo, V3 wi,
+                                      float cos_o, float cos_i,
+                                      const ClampP& p) {
+  float rough = clampf(m.roughness, 0.0f, 1.0f);
+  Eval e;
+  e.value = zero3();
+  e.pdf = 0.0f;
+  e.is_delta = rough <= 1e-3f;
+  if (e.is_delta) return e;
+  float alpha = rough * rough;
+  V3 wh = safe_normalize3(wo + wi);
+  bool half_ok = dot3(wh, n) > 0.0f && dot3(wo, wh) > 0.0f &&
+                 dot3(wi, wh) > 0.0f;
+  float d = ggx_d(alpha, dot3(n, wh));
+  float g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
+  V3 f0 = conductor_f0(m);
+  V3 spec = metal_fresnel(m, f0, dot3(wi, wh)) *
+            ((d * g) / cmin(4.0f * cos_o * cos_i, 1e-6f));
+  spec = spec * specular_energy_compensation(f0, rough, cos_o);
+  spec = clamp_specular_tail(spec, rough, f0, p);
+  float p_raw = ggx_pdf(alpha, n, wo, wi);
+  if (half_ok && p_raw > 0.0f) {
+    e.value = cmin3(spec, 0.0f);
+    e.pdf = clamp_specular_pdf(p_raw, p);
+  }
+  return e;
+}
+
+// bsdf.evaluate_bsdf over lambert, metal, dielectric, PBR
 __device__ inline Eval evaluate_bsdf(const Mat& m, V3 n, V3 wo, V3 wi,
                               const ClampP& p, float occ) {
   float cos_o = cmin(dot3(n, wo), 0.0f);
@@ -480,6 +601,8 @@ __device__ inline Eval evaluate_bsdf(const Mat& m, V3 n, V3 wo, V3 wi,
   if (m.type == MAT_LAMBERT && geom_ok) {
     e.value = (clamp3(m.base, 0.0f, 1.0f) * clampf(occ, 0.0f, 1.0f)) / PI_F;
     e.pdf = lambert_pdf(n, wi);
+  } else if (m.type == MAT_METAL && geom_ok) {
+    e = evaluate_metal(m, n, wo, wi, cos_o, cos_i, p);
   } else if (m.type == MAT_DIELECTRIC) {
     e.is_delta = true;
   } else if (m.type == MAT_PBR && geom_ok) {
@@ -593,11 +716,12 @@ __device__ inline Sample sample_pbr(const Mat& m, V3 n, V3 wo, V3 incident,
   return o;
 }
 
-// bsdf.sample_bsdf over lambert, dielectric, PBR
+// bsdf.sample_bsdf over lambert, metal, dielectric, PBR
 __device__ inline Sample sample_bsdf(const Mat& m, V3 n, V3 wo, V3 incident,
                               bool front, uint32_t* s, const ClampP& p,
                               float occ) {
   if (m.type == MAT_LAMBERT) return sample_lambert(m, n, s, occ);
+  if (m.type == MAT_METAL) return sample_metal(m, n, wo, incident, s, p);
   if (m.type == MAT_DIELECTRIC) return sample_dielectric(m, n, incident, front, s);
   if (m.type == MAT_PBR) return sample_pbr(m, n, wo, incident, s, p, occ);
   return invalid_sample();

@@ -118,10 +118,13 @@ __device__ inline V3 to_acescg(V3 c) {
 // traversal._hit_record_from_best for one lane: the shade_packed row of
 // triangle `tri` gives the point, the faced geometric normal and the
 // interpolated shading normal, as the hit record holds it (shading_rec)
-// and with the integrator's bad-normal fallback (shading_n)
+// and with the integrator's bad-normal fallback (shading_n). is_tri and
+// two_sided tell a triangle from an analytic primitive (shade.cu
+// rebuild_analytic): only triangles take the self-hit exclusion ids, and
+// spheres and some rectangles emit from both sides.
 struct Hit {
   V3 point, n_faced, shading_rec, shading_n;
-  bool front;
+  bool front, is_tri, two_sided;
   int material, mesh;
 };
 __device__ inline Hit rebuild_hit(const float* shade_packed, int tri, V3 ray_o,
@@ -134,6 +137,8 @@ __device__ inline Hit rebuild_hit(const float* shade_packed, int tri, V3 ray_o,
   V3 n1 = v3(row[12], row[13], row[14]);
   V3 n2 = v3(row[15], row[16], row[17]);
   Hit h;
+  h.is_tri = true;
+  h.two_sided = false;
   h.material = (int)row[18];
   h.mesh = (int)row[19];
   h.point = fma3(t, ray_d, ray_o);

@@ -2,20 +2,36 @@
 //
 // Replaces the TPU fused shade megakernel ops/pallas/shade.py
 // (_shade_kernel:1845, launched by _shade_call:2536):
-//   shade_full  stage "full" for the lambert type set (no NEE);
-//   shade_s1    stage "s1" for lambert, dielectric and PBR under an
-//               environment map: misses add the environment with MIS and
-//               end their path; hits get Beer-Lambert absorption from the
-//               top of the medium stack, the dielectric geometric normal,
-//               first-hit AOVs, the PBR emissive add and the three NEE
-//               draws (taken only on NEE lanes), and export 18 transient
-//               columns per lane (ops/kernels/shade.py TRANS);
-//   shade_s2    stage "s2": the NEE add with MIS from the alias sample and
-//               shadow flag (ESMP, 9 columns), BSDF sampling from the
-//               post-s1 state, the spec-NEE chain exports (CHAIN, 7
-//               columns), medium push/pop (8 clamped slots), next origin,
-//               throughput clamp, environment LOD, ray cone, Russian
-//               roulette at depth >= 5, commit.
+//   shade_full  stage "full" for scenes without a light integral: misses
+//               add the gradient or solid background and end; hits get
+//               Beer-Lambert absorption, the dielectric geometric normal,
+//               first-hit AOVs, PBR emission, diffuse lights emit and end,
+//               the others sample lambert, metal, dielectric or PBR, push
+//               or pop the medium stack, clamp, Russian roulette, commit;
+//   shade_s1    stage "s1" under a light integral (an environment map, rect
+//               lights, or both): misses add the environment with MIS (or
+//               the gradient/solid background) and end; hits get the same
+//               absorption, normal, AOVs and emission, diffuse lights emit
+//               with MIS against the rect-light pdf of the hit and end, and
+//               the NEE draws (3 per light integral, rect first) are taken
+//               on NEE lanes; 18 transient columns per lane are exported
+//               (ops/kernels/shade.py TRANS);
+//   shade_s2    stage "s2": the NEE adds with MIS from one bank of light
+//               sample + shadow flag per light integral (ESMP, 9 columns
+//               each, rect first), BSDF sampling from the post-s1 state, the
+//               spec-NEE chain exports (CHAIN, 7 columns), medium push/pop
+//               (8 clamped slots), next origin, throughput clamp,
+//               environment LOD, ray cone, Russian roulette at depth >= 5,
+//               commit.
+// A hit is rebuilt from the winner of the merged trace (intersect.py
+// trace_merged): a triangle from its shade_packed row, a sphere or a
+// rectangle from its own arrays (the design choice of this port: the
+// kernel takes each lane's family and index and branches, instead of the
+// TPU path's 24 gathered floats per lane): the sphere normal (p - c) / r
+// and the stored rectangle normal, each faced toward the ray, are also the
+// shading normal; spheres are two-sided, rectangles as stored; only
+// triangles set the self-hit exclusion ids (shade.py:1966-1988,
+// 2012-2018, 2132-2143, 2449).
 // In a textured scene s1 and s2 read the texture stage's 15 planes per
 // lane (csrc/texture.cu; a NULL pointer otherwise): lanes whose tpbr flag
 // is set take the textured material values, diffuse occlusion and (s1)
@@ -28,18 +44,18 @@
 // arrays and the RNG state (uint32 values held in int64) IN PLACE, and
 // lanes that enter dead keep every value.
 //
-// What bounds them on an H100: bytes. A live lane reads its carry (~100 B
-// for full, ~150 B with the environment fields), gathers one 96 B
-// shade_packed row at a random triangle, reads or writes 72 B of
-// transients (s1/s2), reads 60 B of texture planes in a textured scene,
-// and writes the carry back; the arithmetic (a few
+// What bounds them on an H100: bytes. A live lane reads its carry (~150
+// B), gathers one 96 B shade_packed row at a random triangle (or 16-28 B of
+// a sphere or rectangle), reads or writes 72 B of transients (s1/s2), reads
+// 36 B of light sample per bank, reads 60 B of texture planes in a
+// textured scene, and writes the carry back; the arithmetic (a few
 // sqrt/div/exp, one or two sin/cos pairs) is small beside that. The design
 // touches each carry value once per stage, keeps every intermediate in
 // registers, and returns at once for dead lanes so late depths cost
 // little. It is written in CUDA rather than Triton for the uint32 PCG
-// arithmetic, the per-lane material branches, and explicit control of FMA
-// contraction (__fmaf_rn only where the plain version fuses; the build
-// passes --fmad=false).
+// arithmetic, the per-lane material and primitive branches, and explicit
+// control of FMA contraction (__fmaf_rn only where the plain version
+// fuses; the build passes --fmad=false).
 #include "bsdf.cuh"
 
 #define RAY_ORIGIN_EPSILON 1.0e-4f
@@ -51,26 +67,78 @@
 #define N_ESMP 9
 #define N_CHAIN 7
 #define N_TEX 15
+#define PRIM_SPHERE 1
+#define PRIM_RECT 2
+#define PRIM_TRIANGLE 3
 
 namespace {
 
+// The launch constants, unpacked from ShadeParams.scalars()
 struct ShadeParams {
-  int background_mode;  // 0 gradient, 1 solid
-  int working_space;    // 0 linear sRGB, 1 ACEScg
-  int russian_roulette;
-  V3 background;
-  ClampP c;
-};
-
-// The s1/s2 launch constants, unpacked from NeeParams.scalars()
-struct NeeParams {
   int depth;
   ClampP c;
   int russian_roulette;
   int specular_mis;
-  float env_max_mip;  // 0: no mip chain, the LOD carry stays off
-  int working_space;  // 0 linear sRGB, 1 ACEScg
+  float env_max_mip;    // 0: no mip chain, the LOD carry stays off
+  int working_space;    // 0 linear sRGB, 1 ACEScg
+  int background_mode;  // 0 gradient, 1 solid (without an environment map)
+  V3 background;        // the solid background, linear sRGB
+  int n_banks;          // s2: light integrals (1 or 2 ESMP banks)
 };
+
+// The merged trace's winner per lane and the geometry it indexes
+struct Geo {
+  const float* t;
+  const int* idx;             // index within its family, -1: miss
+  const float* u;
+  const float* v;
+  const int* kind;            // PRIMITIVE_* per lane; NULL: all triangles
+  const float* shade_packed;  // (T, 24); NULL without triangles
+  const float* sph_center;    // (S, 3)
+  const float* sph_radius;
+  const int* sph_material;
+  const float* rect_normal;   // (R, 3)
+  const int* rect_material;
+  const float* rect_two_sided;
+};
+
+// intersect.analytic_record for one lane: the point o + t d (x and y
+// fused, as XLA:CPU computes the JAX package's), the faced normal as
+// geometric and shading normal, the material, two-sidedness
+__device__ inline Hit rebuild_analytic(const Geo& g, int kind, int idx,
+                                       V3 ray_o, V3 ray_d, float t) {
+  Hit h;
+  h.point = v3(fmaf_rn(t, ray_d.x, ray_o.x), fmaf_rn(t, ray_d.y, ray_o.y),
+               ray_o.z + t * ray_d.z);
+  V3 raw;
+  if (kind == PRIM_SPHERE) {
+    V3 c = load3(g.sph_center, idx);
+    float r = g.sph_radius[idx];
+    raw = v3((h.point.x - c.x) / r, (h.point.y - c.y) / r,
+             (h.point.z - c.z) / r);
+    h.material = g.sph_material[idx];
+    h.two_sided = true;
+  } else {
+    raw = load3(g.rect_normal, idx);
+    h.material = g.rect_material[idx];
+    h.two_sided = g.rect_two_sided[idx] > 0.5f;
+  }
+  h.front = dot3(ray_d, raw) < 0.0f;
+  h.n_faced = sel(h.front, raw, -raw);
+  h.shading_rec = h.shading_n = h.n_faced;
+  h.is_tri = false;
+  h.mesh = 0;
+  return h;
+}
+
+__device__ __forceinline__ Hit rebuild(const Geo& g, long long i, V3 ray_o,
+                                       V3 ray_d) {
+  int kind = g.kind == nullptr ? PRIM_TRIANGLE : g.kind[i];
+  if (kind == PRIM_TRIANGLE)
+    return rebuild_hit(g.shade_packed, g.idx[i], ray_o, ray_d, g.t[i], g.u[i],
+                       g.v[i]);
+  return rebuild_analytic(g, kind, g.idx[i], ray_o, ray_d, g.t[i]);
+}
 
 // The texture planes' overrides of one lane (kernels/shade.py _textured):
 // where tpbr, the textured material values; the PBR emission (the
@@ -156,84 +224,171 @@ __device__ __forceinline__ float mis_weight(float a, float denom) {
   return clampf(a / cmin(denom, 1e-30f), MIS_MIN, MIS_MAX);
 }
 
-__global__ void shade_full_kernel(
-    int n, int depth, const float* __restrict__ hit_t,
-    const int* __restrict__ hit_tri, const float* __restrict__ hit_u,
-    const float* __restrict__ hit_v, const float* __restrict__ shade_packed,
-    const float* __restrict__ mat_base, int m_count, ShadeParams p,
-    Carry c) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !c.alive[i]) return;
-  int tri = hit_tri[i];
-  V3 ray_d = load3(c.ray_d, i);
-  V3 tp0 = load3(c.throughput, i);
+// the gradient or solid background in the working space (shade.py
+// _background; integrator.sky_color)
+__device__ inline V3 background(V3 ray_d, const ShadeParams& p) {
+  V3 bg;
+  if (p.background_mode == 1) {
+    bg = p.background;
+  } else {
+    float t = 0.5f * (normalize3(ray_d).y + 1.0f);
+    bg = v3(fmaf_rn(0.5f - 1.0f, t, 1.0f), fmaf_rn(0.7f - 1.0f, t, 1.0f),
+            fmaf_rn(1.0f - 1.0f, t, 1.0f));
+  }
+  return p.working_space == 1 ? to_acescg(bg) : bg;
+}
 
-  if (tri < 0) {
-    // ---- miss: background, then the path ends --------------------------
-    V3 bg;
-    if (p.background_mode == 1) {
-      bg = p.background;
-    } else {  // integrator.sky_color
-      float t = 0.5f * (normalize3(ray_d).y + 1.0f);
-      bg = v3(fmaf_rn(0.5f - 1.0f, t, 1.0f), fmaf_rn(0.7f - 1.0f, t, 1.0f),
-              fmaf_rn(1.0f - 1.0f, t, 1.0f));
+// Beer-Lambert absorption by the innermost medium over the segment t
+__device__ inline V3 absorb(const Carry& c, long long i, float t, V3 tp0) {
+  int md = c.medium_depth[i];
+  if (md <= 0) return tp0;
+  int top = min(max(md - 1, 0), MAX_MEDIUM_STACK - 1);
+  V3 sigma = load3(c.medium_stack, (long long)MAX_MEDIUM_STACK * i + top);
+  float seg = cmin(t, 0.0f);
+  V3 att = v3(expf(-sigma.x * seg), expf(-sigma.y * seg),
+              expf(-sigma.z * seg));
+  return (sigma.x > 0.0f || sigma.y > 0.0f || sigma.z > 0.0f) ? tp0 * att
+                                                                : tp0;
+}
+
+// The part of a hit lane that stages full and s1 share (shade.py
+// :2101-2177): hit rebuild, absorption, material (+ texture overrides),
+// the dielectric geometric normal, first-hit AOVs, PBR emission, and a
+// diffuse light's emission with MIS against `rectpdf` (the rect-light pdf
+// of this hit; NULL: weight 1), after which the lane's path ends
+struct Front {
+  Hit h;
+  Mat m;
+  TexLane tl;
+  V3 sn, tp, radiance;
+  bool ended;
+};
+__device__ inline Front shade_front(const Geo& g, long long i,
+                                    const ShadeParams& p,
+                                    const float* mat_table, int m_count,
+                                    const float* tex, const float* rectpdf,
+                                    const Carry& c) {
+  Front f;
+  f.h = rebuild(g, i, load3(c.ray_o, i), load3(c.ray_d, i));
+  f.m = fetch_material(mat_table, min(max(f.h.material, 0), m_count - 1));
+  f.tl = apply_tex(tex, i, &f.m, p.working_space);
+  f.tp = absorb(c, i, g.t[i], load3(c.throughput, i));
+  f.sn = f.m.type == MAT_DIELECTRIC ? f.h.n_faced
+                                    : (f.tl.tpbr ? f.tl.normal : f.h.shading_n);
+  bool two_sided =
+      f.h.two_sided || (f.m.type == MAT_PBR && f.m.double_sided > 0.5f);
+  bool facing = f.h.front || two_sided;
+  V3 radiance = load3(c.radiance, i);
+  if (c.first_hit[i] && !f.tl.passthrough) {
+    store3(c.aov_albedo, i, clamp3(f.m.base, 0.0f, 1.0f));
+    store3(c.aov_normal, i, f.sn);
+    c.first_hit[i] = false;
+  }
+  V3 em = f.tl.emission;
+  if (!f.tl.passthrough && f.m.type == MAT_PBR &&
+      (em.x != 0.0f || em.y != 0.0f || em.z != 0.0f) && facing)
+    radiance = radiance + clamp_firefly(f.tp, em, p.c);
+  f.ended = f.m.type == MAT_LIGHT;
+  V3 le = f.m.emission;
+  if (f.ended && (le.x != 0.0f || le.y != 0.0f || le.z != 0.0f) && facing) {
+    float l_mis = 1.0f;
+    if (rectpdf != nullptr) {
+      float last_pdf = c.last_pdf[i];
+      float denom = last_pdf + rectpdf[i];
+      if ((!c.last_delta[i] || p.specular_mis) && denom > 0.0f)
+        l_mis = mis_weight(last_pdf, denom);
     }
-    if (p.working_space == 1) bg = to_acescg(bg);
-    store3(c.radiance, i, load3(c.radiance, i) + clamp_firefly(tp0, bg, p.c));
-    c.prev_valid[i] = false;
-    c.prev_mesh[i] = -1;
-    c.prev_prim[i] = -1;
+    radiance = radiance + clamp_firefly(f.tp, le * l_mis, p.c);
+  }
+  f.radiance = radiance;
+  return f;
+}
+
+// a miss: the path ends (no self-hit exclusion for the next trace)
+__device__ __forceinline__ void end_miss(const Carry& c, long long i,
+                                         V3 radiance) {
+  store3(c.radiance, i, radiance);
+  c.prev_valid[i] = false;
+  c.prev_mesh[i] = -1;
+  c.prev_prim[i] = -1;
+  c.alive[i] = false;
+}
+
+// medium stack push/pop (8 slots, clamped); returns the new depth
+__device__ inline int medium_update(const Carry& c, long long i,
+                                    const Sample& smp, const Mat& m,
+                                    bool active) {
+  int md = c.medium_depth[i];
+  if (active && smp.medium_event == 1) {
+    int slot = min(max(md, 0), MAX_MEDIUM_STACK - 1);
+    store3(c.medium_stack, (long long)MAX_MEDIUM_STACK * i + slot,
+           cmin3(m.sigma_a, 0.0f));
+    md = min(md + 1, MAX_MEDIUM_STACK);
+  } else if (active && smp.medium_event == -1) {
+    md = max(md - 1, 0);
+  }
+  return md;
+}
+
+// the ray cone at the hit, and its update on lanes that go on
+__device__ inline void cone_update(const Carry& c, long long i, V3 ray_d,
+                                   float t, const Sample& smp, bool active) {
+  float cone_w = c.cone_w[i], cone_s = c.cone_s[i];
+  float ray_len = sqrtf(cmin(dot3(ray_d, ray_d), 1e-12f));
+  float cone_at_hit =
+      cmin(fmaf_rn(cone_s, cmin(t, 0.0f) * ray_len, cone_w), 1e-7f);
+  if (active) {
+    c.cone_w[i] = cone_at_hit;
+    c.cone_s[i] = cmax(cone_s + cone_increment(smp), 1.5f);
+  }
+}
+
+// Russian roulette at depth >= 5 on lanes that go on
+__device__ inline bool roulette(const ShadeParams& p, uint32_t* s, V3* tp,
+                                bool active) {
+  if (!(p.russian_roulette && p.depth >= 5 && active)) return active;
+  float xi = rand_uniform(s);
+  float cont_p = clampf(max3(*tp), 0.05f, 0.95f);
+  bool survive = xi <= cont_p;
+  if (survive) *tp = v3(tp->x / cont_p, tp->y / cont_p, tp->z / cont_p);
+  return survive;
+}
+
+__global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
+                                  const float* __restrict__ mat_table,
+                                  int m_count, Carry c) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n || !c.alive[i]) return;
+  V3 ray_d = load3(c.ray_d, i);
+  if (g.idx[i] < 0) {
+    // ---- miss: background, then the path ends --------------------------
+    end_miss(c, i, load3(c.radiance, i) +
+                       clamp_firefly(load3(c.throughput, i),
+                                     background(ray_d, p), p.c));
+    return;
+  }
+  Front f = shade_front(g, i, p, mat_table, m_count, nullptr, nullptr, c);
+  store3(c.radiance, i, f.radiance);
+  if (f.ended) {
     c.alive[i] = false;
     return;
   }
+  float t = g.t[i];
 
-  float t = hit_t[i];
-  Hit h = rebuild_hit(shade_packed, tri, load3(c.ray_o, i), ray_d, t,
-                      hit_u[i], hit_v[i]);
-  V3 shading_n = h.shading_n;
-
-  // ---- material fetch, first-hit AOVs --------------------------------
-  int mid = min(max(h.material, 0), m_count - 1);
-  V3 base = v3(clampf(mat_base[3 * mid], 0.0f, 1.0f),
-               clampf(mat_base[3 * mid + 1], 0.0f, 1.0f),
-               clampf(mat_base[3 * mid + 2], 0.0f, 1.0f));
-  if (c.first_hit[i]) {
-    store3(c.aov_albedo, i, base);
-    store3(c.aov_normal, i, shading_n);
-    c.first_hit[i] = false;
-  }
-
-  // ---- ray cone at the hit -------------------------------------------
-  float cone_w = c.cone_w[i], cone_s = c.cone_s[i];
-  float ray_len = sqrtf(cmin(dot3(ray_d, ray_d), 1e-12f));
-  float hit_world = cmin(t, 0.0f) * ray_len;
-  float cone_at_hit = cmin(fmaf_rn(cone_s, hit_world, cone_w), 1e-7f);
-
-  // ---- lambert sample (bsdf._sample_lambert) --------------------------
+  // ---- BSDF sample, medium stack, next origin --------------------------
   uint32_t s = (uint32_t)c.state[i];
-  Mat m;
-  m.base = base;
-  Sample smp = sample_lambert(m, shading_n, &s);
+  V3 incident = normalize3(ray_d);
+  Sample smp = sample_bsdf(f.m, f.sn, -incident, incident, f.h.front, &s,
+                           p.c, 1.0f);
   bool active = smp.pdf > 0.0f;
-  V3 next_o = offset_origin(h.point, shading_n, h.n_faced, t, smp.dir);
+  c.medium_depth[i] = medium_update(c, i, smp, f.m, active);
+  V3 next_o = offset_origin(f.h.point, f.sn, f.h.n_faced, t, smp.dir);
 
-  // ---- throughput -----------------------------------------------------
-  V3 tp = clamp_throughput(tp0 * smp.weight, p.c);
-  float max_tp = max3(tp);
-  active = active && finite3(tp) && max_tp > 0.0f;
-  if (active) {
-    cone_w = cone_at_hit;
-    cone_s = cmax(cone_s + 0.55f, 1.5f);  // lambert: diffuse lobe
-  }
-
-  // ---- Russian roulette -----------------------------------------------
-  if (p.russian_roulette && depth >= 5 && active) {
-    float xi = rand_uniform(&s);
-    float cont_p = clampf(max_tp, 0.05f, 0.95f);
-    bool survive = xi <= cont_p;
-    if (survive) tp = v3(tp.x / cont_p, tp.y / cont_p, tp.z / cont_p);
-    active = survive;
-  }
+  // ---- throughput, ray cone, Russian roulette --------------------------
+  V3 tp = clamp_throughput(f.tp * smp.weight, p.c);
+  active = active && finite3(tp) && max3(tp) > 0.0f;
+  cone_update(c, i, ray_d, t, smp, active);
+  active = roulette(p, &s, &tp, active);
 
   // ---- commit -------------------------------------------------------------
   c.state[i] = (long long)s;
@@ -241,125 +396,92 @@ __global__ void shade_full_kernel(
   store3(c.ray_d, i, smp.dir);
   store3(c.throughput, i, tp);
   c.prev_valid[i] = true;
-  c.prev_mesh[i] = h.mesh;
-  c.prev_prim[i] = tri;
-  c.cone_w[i] = cone_w;
-  c.cone_s[i] = cone_s;
+  c.prev_mesh[i] = f.h.is_tri ? f.h.mesh : -1;
+  c.prev_prim[i] = f.h.is_tri ? g.idx[i] : -1;
   c.alive[i] = active;
 }
 
 __global__ void shade_s1_kernel(
-    int n, NeeParams p, const float* __restrict__ hit_t,
-    const int* __restrict__ hit_tri, const float* __restrict__ hit_u,
-    const float* __restrict__ hit_v, const float* __restrict__ shade_packed,
-    const float* __restrict__ mat_table, int m_count,
-    const float* __restrict__ envbg, const float* __restrict__ envpdf,
+    int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
+    int m_count, const float* __restrict__ envbg,
+    const float* __restrict__ envpdf, const float* __restrict__ rectpdf,
     const float* __restrict__ tex, Carry c, float* __restrict__ trans) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* tr = trans + (long long)N_TRANS * i;
   for (int k = 0; k < N_TRANS; ++k) tr[k] = 0.0f;
   if (!c.alive[i]) return;
-  int tri = hit_tri[i];
   V3 tp0 = load3(c.throughput, i);
-  V3 radiance = load3(c.radiance, i);
 
-  if (tri < 0) {
-    // ---- miss: the environment, MIS against the alias pdf; path ends ----
-    float last_pdf = c.last_pdf[i];
-    float denom = last_pdf + envpdf[i];
-    bool use_mis = (!c.last_delta[i] || p.specular_mis) && denom > 0.0f;
-    float mis = use_mis ? mis_weight(last_pdf, denom) : 1.0f;
-    store3(c.radiance, i,
-           radiance + clamp_firefly(tp0, load3(envbg, i) * mis, p.c));
-    c.prev_valid[i] = false;
-    c.prev_mesh[i] = -1;
-    c.prev_prim[i] = -1;
-    c.alive[i] = false;
+  if (g.idx[i] < 0) {
+    // ---- miss: the environment with MIS against the alias pdf, or the
+    // gradient/solid background; the path ends ------------------------------
+    V3 bg;
+    float mis = 1.0f;
+    if (envbg != nullptr) {
+      bg = load3(envbg, i);
+      float last_pdf = c.last_pdf[i];
+      float denom = last_pdf + envpdf[i];
+      if ((!c.last_delta[i] || p.specular_mis) && denom > 0.0f)
+        mis = mis_weight(last_pdf, denom);
+    } else {
+      bg = background(load3(c.ray_d, i), p);
+    }
+    end_miss(c, i, load3(c.radiance, i) + clamp_firefly(tp0, bg * mis, p.c));
     return;
   }
 
-  float t = hit_t[i];
-  Hit h = rebuild_hit(shade_packed, tri, load3(c.ray_o, i),
-                      load3(c.ray_d, i), t, hit_u[i], hit_v[i]);
-  Mat m = fetch_material(mat_table, min(max(h.material, 0), m_count - 1));
-  TexLane tl = apply_tex(tex, i, &m, p.working_space);
-  V3 sn = tl.tpbr ? tl.normal : h.shading_n;
-
-  // ---- Beer-Lambert absorption by the innermost medium ----------------
-  V3 tp = tp0;
-  int md = c.medium_depth[i];
-  if (md > 0) {
-    int top = min(max(md - 1, 0), MAX_MEDIUM_STACK - 1);
-    V3 sigma = load3(c.medium_stack, (long long)MAX_MEDIUM_STACK * i + top);
-    float seg = cmin(t, 0.0f);
-    V3 att = v3(expf(-sigma.x * seg), expf(-sigma.y * seg),
-                expf(-sigma.z * seg));
-    if (sigma.x > 0.0f || sigma.y > 0.0f || sigma.z > 0.0f) tp = tp0 * att;
+  Front f = shade_front(g, i, p, mat_table, m_count, tex, rectpdf, c);
+  store3(c.radiance, i, f.radiance);
+  if (f.ended) {
+    c.alive[i] = false;
+    return;
   }
+  store3(c.throughput, i, f.tp);
 
-  V3 shading_n = m.type == MAT_DIELECTRIC ? h.n_faced : sn;
-  bool two_sided = m.type == MAT_PBR && m.double_sided > 0.5f;
-  bool delta = material_is_delta(m);
-  V3 em = tl.emission;
-
-  // ---- first-hit AOVs, PBR emission (pass-through lanes: neither) -------
-  if (c.first_hit[i] && !tl.passthrough) {
-    store3(c.aov_albedo, i, clamp3(m.base, 0.0f, 1.0f));
-    store3(c.aov_normal, i, shading_n);
-    c.first_hit[i] = false;
-  }
-  if (!tl.passthrough && m.type == MAT_PBR &&
-      (em.x != 0.0f || em.y != 0.0f || em.z != 0.0f) &&
-      (h.front || two_sided))
-    radiance = radiance + clamp_firefly(tp, em, p.c);
-
-  // ---- the NEE draws, committed on NEE lanes only ----------------------
+  // ---- the NEE draws (3 per light integral, rect first), committed on
+  // NEE lanes only -------------------------------------------------------
+  bool delta = material_is_delta(f.m);
   uint32_t s0 = (uint32_t)c.state[i];
-  uint32_t s_env = s0;
-  float u1 = rand_uniform(&s_env);
-  float u2 = rand_uniform(&s_env);
-  float u3 = rand_uniform(&s_env);
-  c.state[i] = (long long)(delta || tl.passthrough ? s0 : s_env);
-  store3(c.radiance, i, radiance);
-  store3(c.throughput, i, tp);
+  uint32_t s_nee = s0;
+  tr[0] = rand_uniform(&s_nee);
+  tr[1] = rand_uniform(&s_nee);
+  tr[2] = rand_uniform(&s_nee);
+  if (envbg != nullptr && rectpdf != nullptr) {
+    tr[15] = rand_uniform(&s_nee);
+    tr[16] = rand_uniform(&s_nee);
+    tr[17] = rand_uniform(&s_nee);
+  }
+  c.state[i] = (long long)(delta || f.tl.passthrough ? s0 : s_nee);
 
-  tr[0] = u1;
-  tr[1] = u2;
-  tr[2] = u3;
-  tr[3] = env_lighting_roughness(m);
-  tr[4] = shading_n.x;
-  tr[5] = shading_n.y;
-  tr[6] = shading_n.z;
-  tr[7] = h.n_faced.x;
-  tr[8] = h.n_faced.y;
-  tr[9] = h.n_faced.z;
-  tr[10] = h.point.x;
-  tr[11] = h.point.y;
-  tr[12] = h.point.z;
+  tr[3] = env_lighting_roughness(f.m);
+  tr[4] = f.sn.x;
+  tr[5] = f.sn.y;
+  tr[6] = f.sn.z;
+  tr[7] = f.h.n_faced.x;
+  tr[8] = f.h.n_faced.y;
+  tr[9] = f.h.n_faced.z;
+  tr[10] = f.h.point.x;
+  tr[11] = f.h.point.y;
+  tr[12] = f.h.point.z;
   tr[13] = 1.0f;
   tr[14] = delta ? 1.0f : 0.0f;
 }
 
 __global__ void shade_s2_kernel(
-    int n, NeeParams p, const float* __restrict__ hit_t,
-    const int* __restrict__ hit_tri, const float* __restrict__ hit_u,
-    const float* __restrict__ hit_v, const float* __restrict__ shade_packed,
-    const float* __restrict__ mat_table, int m_count,
-    const float* __restrict__ trans, const float* __restrict__ esmp,
-    const float* __restrict__ tex, Carry c, float* __restrict__ chain) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
+    int m_count, const float* __restrict__ trans,
+    const float* __restrict__ esmp, const float* __restrict__ tex, Carry c,
+    float* __restrict__ chain) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* ch = chain + (long long)N_CHAIN * i;
   for (int k = 0; k < N_CHAIN; ++k) ch[k] = 0.0f;
   if (!c.alive[i]) return;  // after s1: the live hits only
   const float* tr = trans + (long long)N_TRANS * i;
-  const float* es = esmp + (long long)N_ESMP * i;
-  int tri = hit_tri[i];
-  float t = hit_t[i];
+  float t = g.t[i];
   V3 ray_d = load3(c.ray_d, i);
-  Hit h = rebuild_hit(shade_packed, tri, load3(c.ray_o, i), ray_d, t,
-                      hit_u[i], hit_v[i]);
+  Hit h = rebuild(g, i, load3(c.ray_o, i), ray_d);
   Mat m = fetch_material(mat_table, min(max(h.material, 0), m_count - 1));
   TexLane tl = apply_tex(tex, i, &m, p.working_space);
   V3 sn = v3(tr[4], tr[5], tr[6]);
@@ -370,19 +492,23 @@ __global__ void shade_s2_kernel(
   V3 tp = load3(c.throughput, i);
   V3 radiance = load3(c.radiance, i);
 
-  // ---- NEE add: alias sample + shadow flag, MIS against the BSDF ------
-  V3 e_dir = v3(es[0], es[1], es[2]);
-  float e_pdf = es[6];
-  float n_dot_l = cmin(dot3(sn, e_dir), 0.0f);
-  bool do_shadow = tr[14] < 0.5f && !tl.passthrough && es[7] > 0.5f &&
-                   e_pdf > 0.0f && n_dot_l > 0.0f;
-  if (do_shadow && !(es[8] > 0.5f)) {
-    Eval ev = evaluate_bsdf(m, sn, wo, e_dir, p.c, tl.occlusion);
-    float w = ev.pdf > 0.0f ? mis_weight(e_pdf, e_pdf + ev.pdf) : 1.0f;
-    V3 contribution = v3(es[3], es[4], es[5]) * ev.value * n_dot_l *
-                      (w / cmin(e_pdf, 1e-30f));
-    if (!ev.is_delta && max3(ev.value) > 0.0f && finite3(contribution))
-      radiance = radiance + clamp_firefly(tp, contribution, p.c);
+  // ---- NEE adds: one bank (light sample + shadow flag) per light
+  // integral, rect first; MIS against the BSDF --------------------------
+  for (int b = 0; b < p.n_banks; ++b) {
+    const float* es = esmp + (long long)N_ESMP * p.n_banks * i + N_ESMP * b;
+    V3 e_dir = v3(es[0], es[1], es[2]);
+    float e_pdf = es[6];
+    float n_dot_l = cmin(dot3(sn, e_dir), 0.0f);
+    bool do_shadow = tr[14] < 0.5f && !tl.passthrough && es[7] > 0.5f &&
+                     e_pdf > 0.0f && n_dot_l > 0.0f;
+    if (do_shadow && !(es[8] > 0.5f)) {
+      Eval ev = evaluate_bsdf(m, sn, wo, e_dir, p.c, tl.occlusion);
+      float w = ev.pdf > 0.0f ? mis_weight(e_pdf, e_pdf + ev.pdf) : 1.0f;
+      V3 contribution = v3(es[3], es[4], es[5]) * ev.value * n_dot_l *
+                        (w / cmin(e_pdf, 1e-30f));
+      if (!ev.is_delta && max3(ev.value) > 0.0f && finite3(contribution))
+        radiance = radiance + clamp_firefly(tp, contribution, p.c);
+    }
   }
 
   // ---- BSDF sample from the post-s1 state ------------------------------
@@ -408,45 +534,20 @@ __global__ void shade_s2_kernel(
   ch[5] = active && !tl.passthrough ? 1.0f : 0.0f;
   ch[6] = h.front ? 1.0f : 0.0f;
 
-  // ---- medium stack push/pop (8 slots, clamped) ------------------------
-  int md = c.medium_depth[i];
-  if (active && smp.medium_event == 1) {
-    int slot = min(max(md, 0), MAX_MEDIUM_STACK - 1);
-    store3(c.medium_stack, (long long)MAX_MEDIUM_STACK * i + slot,
-           cmin3(m.sigma_a, 0.0f));
-    md = min(md + 1, MAX_MEDIUM_STACK);
-  } else if (active && smp.medium_event == -1) {
-    md = max(md - 1, 0);
-  }
+  int md = medium_update(c, i, smp, m, active);
 
   // ---- next origin, throughput, environment LOD, ray cone --------------
   V3 next_o = offset_origin(point, sn, n_faced, t, smp.dir);
   tp = clamp_throughput(tp * smp.weight, p.c);
-  float max_tp = max3(tp);
-  active = active && finite3(tp) && max_tp > 0.0f;
+  active = active && finite3(tp) && max3(tp) > 0.0f;
   bool lod_lane = p.env_max_mip > 0.0f && active && smp.lobe_type == 1 &&
                   !smp.is_delta;
   float alpha_l = clampf(smp.lobe_roughness, 0.0f, 1.0f);
   float env_lod = lod_lane ? clampf(alpha_l * alpha_l * p.env_max_mip, 0.0f,
                                     p.env_max_mip)
                            : 0.0f;
-  float cone_w = c.cone_w[i], cone_s = c.cone_s[i];
-  float ray_len = sqrtf(cmin(dot3(ray_d, ray_d), 1e-12f));
-  float cone_at_hit =
-      cmin(fmaf_rn(cone_s, cmin(t, 0.0f) * ray_len, cone_w), 1e-7f);
-  if (active) {
-    cone_w = cone_at_hit;
-    cone_s = cmax(cone_s + cone_increment(smp), 1.5f);
-  }
-
-  // ---- Russian roulette -----------------------------------------------
-  if (p.russian_roulette && p.depth >= 5 && active) {
-    float xi = rand_uniform(&s);
-    float cont_p = clampf(max_tp, 0.05f, 0.95f);
-    bool survive = xi <= cont_p;
-    if (survive) tp = v3(tp.x / cont_p, tp.y / cont_p, tp.z / cont_p);
-    active = survive;
-  }
+  cone_update(c, i, ray_d, t, smp, active);
+  active = roulette(p, &s, &tp, active);
 
   // ---- commit -------------------------------------------------------------
   c.state[i] = (long long)s;
@@ -458,14 +559,12 @@ __global__ void shade_s2_kernel(
   c.last_pdf[i] = smp.dpdf > 0.0f ? smp.dpdf : smp.pdf;
   c.last_delta[i] = smp.is_delta;
   c.prev_valid[i] = true;
-  c.prev_mesh[i] = h.mesh;
-  c.prev_prim[i] = tri;
+  c.prev_mesh[i] = h.is_tri ? h.mesh : -1;
+  c.prev_prim[i] = h.is_tri ? g.idx[i] : -1;
   c.medium_depth[i] = md;
   c.specular_depth[i] = smp.is_delta ? c.specular_depth[i] + 1 : 0;
   c.env_lod[i] = env_lod;
   c.env_lod_active[i] = lod_lane;
-  c.cone_w[i] = cone_w;
-  c.cone_s[i] = cone_s;
 }
 
 Carry carry_of(void* const* ptrs) {
@@ -509,84 +608,83 @@ ClampP clamp_of(float enabled, float factor, float floor,
   return c;
 }
 
-// NeeParams.scalars(): depth, clamp factor, floor, throughput, tail base,
+// ShadeParams.scalars(): depth, clamp factor, floor, throughput, tail base,
 // tail roughness scale, min specular pdf, max contribution, enabled,
-// russian roulette, specular MIS, env max mip, working colour space
-NeeParams nee_params_of(const float* s) {
-  NeeParams p;
+// russian roulette, specular MIS, env max mip, working colour space,
+// background mode, solid background (3), ESMP banks
+ShadeParams shade_params_of(const float* s) {
+  ShadeParams p;
   p.depth = (int)s[0];
   p.c = clamp_of(s[8], s[1], s[2], s[7], s[3], s[4], s[5], s[6]);
   p.russian_roulette = s[9] > 0.5f;
   p.specular_mis = s[10] > 0.5f;
   p.env_max_mip = s[11];
   p.working_space = (int)s[12];
+  p.background_mode = (int)s[13];
+  p.background = v3(s[14], s[15], s[16]);
+  p.n_banks = (int)s[17];
   return p;
+}
+
+// kernels/shade.py _geo_pointers: t, index, u, v, family (NULL: all
+// triangles), shade_packed, sphere centre, radius, material, rectangle
+// normal, material, two-sidedness
+Geo geo_of(void* const* q) {
+  Geo g;
+  g.t = (const float*)q[0];
+  g.idx = (const int*)q[1];
+  g.u = (const float*)q[2];
+  g.v = (const float*)q[3];
+  g.kind = (const int*)q[4];
+  g.shade_packed = (const float*)q[5];
+  g.sph_center = (const float*)q[6];
+  g.sph_radius = (const float*)q[7];
+  g.sph_material = (const int*)q[8];
+  g.rect_normal = (const float*)q[9];
+  g.rect_material = (const int*)q[10];
+  g.rect_two_sided = (const float*)q[11];
+  return g;
 }
 
 const int kBlock = 128;
 
+int grid(int n) { return (n + kBlock - 1) / kBlock; }
+
 }  // namespace
 
-extern "C" int mpt_shade_full(
-    int n, int depth, const void* t, const void* tri, const void* u,
-    const void* v, const void* shade_packed, const void* mat_base,
-    int m_count, int background_mode, int working_space,
-    int russian_roulette, float bg_r, float bg_g, float bg_b,
-    float clamp_enabled, float clamp_factor, float clamp_floor,
-    float max_contribution, float throughput_clamp, void* state, void* ray_o,
-    void* ray_d, void* throughput, void* radiance, void* alive,
-    void* prev_valid, void* prev_mesh, void* prev_prim, void* first_hit,
-    void* aov_albedo, void* aov_normal, void* cone_w, void* cone_s,
-    void* stream) {
+extern "C" int mpt_shade_full(int n, const float* scalars, void* const* geo,
+                              const void* mat_table, int m_count,
+                              void* const* carry, void* stream) {
   if (n <= 0) return 0;
-  ShadeParams p;
-  p.background_mode = background_mode;
-  p.working_space = working_space;
-  p.russian_roulette = russian_roulette;
-  p.background = v3(bg_r, bg_g, bg_b);
-  p.c = clamp_of(clamp_enabled, clamp_factor, clamp_floor, max_contribution,
-                 throughput_clamp, 0.0f, 0.0f, 0.0f);
-  void* ptrs[21] = {state,      ray_o,     ray_d,      throughput, radiance,
-                    alive,      prev_valid, prev_mesh, prev_prim,  first_hit,
-                    aov_albedo, aov_normal, cone_w,    cone_s};
-  shade_full_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                      (cudaStream_t)stream>>>(
-      n, depth, (const float*)t, (const int*)tri, (const float*)u,
-      (const float*)v, (const float*)shade_packed, (const float*)mat_base,
-      m_count, p, carry_of(ptrs));
+  shade_full_kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
+      n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
+      m_count, carry_of(carry));
   return (int)cudaGetLastError();
 }
 
-extern "C" int mpt_shade_s1(int n, const float* scalars, const void* t,
-                            const void* tri, const void* u, const void* v,
-                            const void* shade_packed, const void* mat_table,
-                            int m_count, const void* envbg,
-                            const void* envpdf, const void* tex,
+extern "C" int mpt_shade_s1(int n, const float* scalars, void* const* geo,
+                            const void* mat_table, int m_count,
+                            const void* envbg, const void* envpdf,
+                            const void* rectpdf, const void* tex,
                             void* const* carry, void* trans, void* stream) {
   if (n <= 0) return 0;
-  shade_s1_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                    (cudaStream_t)stream>>>(
-      n, nee_params_of(scalars), (const float*)t, (const int*)tri,
-      (const float*)u, (const float*)v, (const float*)shade_packed,
-      (const float*)mat_table, m_count, (const float*)envbg,
-      (const float*)envpdf, (const float*)tex, carry_of(carry),
+  shade_s1_kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
+      n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
+      m_count, (const float*)envbg, (const float*)envpdf,
+      (const float*)rectpdf, (const float*)tex, carry_of(carry),
       (float*)trans);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mpt_shade_s2(int n, const float* scalars, const void* t,
-                            const void* tri, const void* u, const void* v,
-                            const void* shade_packed, const void* mat_table,
-                            int m_count, const void* trans, const void* esmp,
+extern "C" int mpt_shade_s2(int n, const float* scalars, void* const* geo,
+                            const void* mat_table, int m_count,
+                            const void* trans, const void* esmp,
                             const void* tex, void* const* carry, void* chain,
                             void* stream) {
   if (n <= 0) return 0;
-  shade_s2_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                    (cudaStream_t)stream>>>(
-      n, nee_params_of(scalars), (const float*)t, (const int*)tri,
-      (const float*)u, (const float*)v, (const float*)shade_packed,
-      (const float*)mat_table, m_count, (const float*)trans,
-      (const float*)esmp, (const float*)tex, carry_of(carry),
-      (float*)chain);
+  shade_s2_kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
+      n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
+      m_count, (const float*)trans, (const float*)esmp, (const float*)tex,
+      carry_of(carry), (float*)chain);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
 """BSDF sampling, evaluation and clamps (``ops/bsdf.py`` twin) for the
-lambert, dielectric and PBR types.
+lambert, metal, dielectric and PBR types (diffuse lights emit and end
+their path before any BSDF is sampled).
 
 Every type present in the scene is evaluated over the whole wavefront and
 each lane keeps its own type's result, so each lane's RNG stream advances
-exactly as the reference's per-thread branch does. Metal, plastic,
-subsurface and carpaint are ROADMAP Queue 1 steps 6 and 13: ``sample_bsdf``
-and ``evaluate_bsdf`` raise for them.
+exactly as the reference's per-thread branch does. Plastic, subsurface
+and carpaint are ROADMAP Queue 1 step 13: ``sample_bsdf`` and
+``evaluate_bsdf`` raise for them.
 
 The CUDA shade kernels (``csrc/shade.cu``) repeat this arithmetic
 operation for operation: products and sums stay unfused except inside
@@ -27,6 +28,7 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
     cross,
     dot,
     fdiv,
+    fma,
     luminance,
     normalize,
     safe_normalize,
@@ -35,7 +37,9 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
 )
 
 PI = 3.14159265358979323846
-PORTED_TYPES = (C.MATERIAL_LAMBERTIAN, C.MATERIAL_DIELECTRIC, C.MATERIAL_PBR)
+PORTED_TYPES = (C.MATERIAL_LAMBERTIAN, C.MATERIAL_METAL,
+                C.MATERIAL_DIELECTRIC, C.MATERIAL_DIFFUSE_LIGHT,
+                C.MATERIAL_PBR)
 
 
 class ClampParams(NamedTuple):
@@ -152,6 +156,25 @@ def fresnel_dielectric_exact(cos_theta_i, eta_i, eta_t):
     return torch.where(tir, 1.0, fr), torch.where(tir, 0.0, cos_t)
 
 
+def fresnel_conductor(cos_theta_i, eta, k):
+    """(reference: pathtrace.metal fresnel_conductor:3677-3698)"""
+    cos_theta_i = torch.clamp(cos_theta_i, -1.0, 1.0)
+    cos2 = (cos_theta_i * cos_theta_i)[..., None]
+    sin2 = torch.clamp_min(1.0 - cos2, 0.0)
+    eta2 = eta * eta
+    k2 = k * k
+    t0 = eta2 - k2 - sin2
+    a2b2 = torch.sqrt(torch.clamp_min(t0 * t0 + 4.0 * eta2 * k2, 0.0))
+    a = torch.sqrt(torch.clamp_min(0.5 * (a2b2 + t0), 0.0))
+    term1 = a2b2 + cos2
+    term2 = 2.0 * cos_theta_i[..., None] * a
+    rs = (term1 - term2) / (term1 + term2)
+    term3 = cos2 * a2b2 + sin2 * sin2
+    term4 = term2 * sin2
+    rp = (term3 - term4) / (term3 + term4)
+    return torch.clamp(0.5 * (rs * rs + rp * rp), 0.0, 1.0)
+
+
 def ggx_lambda(alpha, cos_theta):
     abs_cos = cos_theta.abs()
     sin_theta = torch.sqrt(torch.clamp_min(1.0 - abs_cos * abs_cos, 0.0))
@@ -168,7 +191,7 @@ def ggx_g1(alpha, cos_theta):
 def ggx_d(alpha, cos_theta_h):
     abs_ch = cos_theta_h.abs()
     a2 = alpha * alpha
-    denom = abs_ch * abs_ch * (a2 - 1.0) + 1.0
+    denom = fma(abs_ch * abs_ch, a2 - 1.0, 1.0)
     return a2 / (PI * denom * denom)
 
 
@@ -263,8 +286,8 @@ def specular_energy_compensation(f0, roughness, nov):
 
 @dataclasses.dataclass(frozen=True)
 class MatLanes:
-    """Material rows gathered onto lanes: the fields lambert, dielectric
-    and PBR read."""
+    """Material rows gathered onto lanes: the fields lambert, metal,
+    dielectric, diffuse lights and PBR read."""
 
     base_color: torch.Tensor          # (N,3)
     roughness: torch.Tensor
@@ -272,6 +295,10 @@ class MatLanes:
     eta: torch.Tensor
     thin: torch.Tensor
     emission: torch.Tensor            # (N,3)
+    emission_env: torch.Tensor
+    conductor_eta: torch.Tensor       # (N,3)
+    conductor_k: torch.Tensor         # (N,3)
+    has_conductor: torch.Tensor
     dielectric_sigma_a: torch.Tensor  # (N,3)
     pbr_metallic: torch.Tensor
     pbr_transmission: torch.Tensor
@@ -290,17 +317,39 @@ def material_base_color(m: MatLanes):
 
 
 def material_is_delta(m: MatLanes):
-    """(reference: pathtrace.metal material_is_delta) — for this slice's
-    types; metal joins with ROADMAP step 6."""
+    """(reference: pathtrace.metal material_is_delta)"""
     rough = torch.clamp(m.roughness, 0.0, 1.0)
-    return ((m.mat_type == C.MATERIAL_DIELECTRIC)
-            | ((m.mat_type == C.MATERIAL_PBR) & (rough <= 1e-3)))
+    glossy = (m.mat_type == C.MATERIAL_METAL) | (m.mat_type == C.MATERIAL_PBR)
+    return (m.mat_type == C.MATERIAL_DIELECTRIC) | (glossy & (rough <= 1e-3))
+
+
+def material_has_conductor_ior(m: MatLanes):
+    return ((m.has_conductor > 0.0) | (m.conductor_eta > 0.0).any(-1)
+            | (m.conductor_k > 0.0).any(-1))
+
+
+def conductor_f0(m: MatLanes):
+    """Normal-incidence reflectance of a metal: the conductor Fresnel at
+    cos 1 where the material carries an eta/k, else its base colour."""
+    fc = fresnel_conductor(torch.ones_like(m.roughness), m.conductor_eta,
+                           m.conductor_k)
+    return where3(material_has_conductor_ior(m), fc, material_base_color(m))
+
+
+def metal_fresnel(m: MatLanes, f0, cos_theta):
+    """The conductor Fresnel where the material has an eta/k, else
+    Schlick's from ``f0``."""
+    return where3(material_has_conductor_ior(m),
+                  fresnel_conductor(cos_theta, m.conductor_eta,
+                                    m.conductor_k),
+                  schlick_fresnel(f0, cos_theta))
 
 
 def environment_lighting_roughness(m: MatLanes):
     """(reference: pathtrace.metal environment_lighting_roughness)"""
     rough = torch.clamp(m.roughness, 0.0, 1.0)
-    return torch.where(m.mat_type == C.MATERIAL_PBR, rough, 1.0)
+    glossy = (m.mat_type == C.MATERIAL_METAL) | (m.mat_type == C.MATERIAL_PBR)
+    return torch.where(glossy, rough, 1.0)
 
 
 def lambert_pdf(normal, direction):
@@ -378,6 +427,80 @@ def _sample_lambert(m: MatLanes, normal, state, diffuse_occlusion):
         lobe_roughness=torch.where(ok, 1.0, 0.0))
 
 
+def _sample_metal(m: MatLanes, normal, wo, incident, state,
+                  clamp_p: ClampParams):
+    """case 1 (reference: pathtrace.metal:5197-5284): a mirror at
+    roughness <= 1e-3 (no draw), else a GGX lobe (2 draws)."""
+    roughness = torch.clamp(m.roughness, 0.0, 1.0)
+    f0 = conductor_f0(m)
+    smooth = roughness <= 1e-3
+    # delta (mirror) branch
+    wi_d = reflect(incident, normal)
+    cos_i_d = dot(normal, wi_d)
+    cos_o = dot(normal, wo)
+    f_delta = metal_fresnel(m, f0, torch.clamp_min(cos_o, 0.0))
+    # rough GGX branch
+    state_r, wh = sample_ggx_vndf(normal, wo, roughness, state)
+    alpha = roughness * roughness
+    wi_r = safe_normalize(reflect(-wo, wh))
+    cos_i = dot(normal, wi_r)
+    dot_wo_wh = dot(wo, wh)
+    d = ggx_d(alpha, dot(normal, wh))
+    g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i)
+    f_val = metal_fresnel(m, f0, dot(wi_r, wh)) * fdiv(
+        d * g, torch.clamp_min(4.0 * cos_o * cos_i, 1e-6))[..., None]
+    f_val = f_val * specular_energy_compensation(f0, roughness, cos_o)
+    f_val = clamp_specular_tail(f_val, roughness, f0, clamp_p)
+    pdf_raw = ggx_pdf(alpha, normal, wo, wi_r)
+    pdf = clamp_specular_pdf(pdf_raw, clamp_p)
+    weight = torch.clamp_min(
+        f_val * fdiv(cos_i, torch.clamp_min(pdf, 1e-20))[..., None], 0.0)
+    rough_ok = ((dot(wh, normal) > 0.0) & torch.isfinite(wi_r).all(-1)
+                & (cos_i > 0.0) & (cos_o > 0.0) & (dot_wo_wh > 0.0)
+                & (pdf_raw > 0.0) & torch.isfinite(weight).all(-1))
+    rough_valid = ~smooth & rough_ok
+    delta_valid = smooth & (cos_i_d > 0.0)
+    out = BsdfSample.invalid(pdf.shape, pdf.device)
+    ones = torch.ones_like(pdf)
+    ok = rough_valid | delta_valid
+    return torch.where(smooth, state, state_r), out.replace(
+        direction=where3(rough_valid, wi_r,
+                         where3(delta_valid, wi_d, out.direction)),
+        weight=where3(rough_valid, weight,
+                      where3(delta_valid, f_delta, out.weight)),
+        pdf=torch.where(rough_valid, pdf, torch.where(delta_valid, ones,
+                                                      out.pdf)),
+        directional_pdf=torch.where(rough_valid, pdf,
+                                    torch.where(delta_valid, ones,
+                                                out.directional_pdf)),
+        is_delta=delta_valid,
+        lobe_type=torch.where(ok, 1, out.lobe_type).to(torch.int32),
+        lobe_roughness=torch.where(ok, roughness, out.lobe_roughness))
+
+
+def _evaluate_metal(m: MatLanes, normal, wo, wi, cos_o, cos_i,
+                    clamp_p: ClampParams):
+    """The metal branch of ``evaluate_bsdf`` (``bsdf.py:846-867``):
+    (value, pdf, valid, smooth); ``cos_o``/``cos_i`` are clamped at 0."""
+    rough = torch.clamp(m.roughness, 0.0, 1.0)
+    smooth = rough <= 1e-3
+    alpha = rough * rough
+    wh = safe_normalize(wo + wi)
+    half_ok = ((dot(wh, normal) > 0.0) & (dot(wo, wh) > 0.0)
+               & (dot(wi, wh) > 0.0))
+    d = ggx_d(alpha, dot(normal, wh))
+    g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i)
+    f0 = conductor_f0(m)
+    spec = metal_fresnel(m, f0, dot(wi, wh)) * fdiv(
+        d * g, torch.clamp_min(4.0 * cos_o * cos_i, 1e-6))[..., None]
+    spec = spec * specular_energy_compensation(f0, rough, cos_o)
+    spec = clamp_specular_tail(spec, rough, f0, clamp_p)
+    p_raw = ggx_pdf(alpha, normal, wo, wi)
+    valid = ~smooth & half_ok & (p_raw > 0.0)
+    return (torch.clamp_min(spec, 0.0), clamp_specular_pdf(p_raw, clamp_p),
+            valid, smooth)
+
+
 def _sample_dielectric(m: MatLanes, normal, incident, front_face, state):
     """case 2 (reference: pathtrace.metal:5647-5695); 1 draw"""
     is_thin = (m.mat_type == C.MATERIAL_DIELECTRIC) & (m.thin > 0.5)
@@ -418,8 +541,8 @@ def _check_types(material_types):
     extra = set(int(t) for t in material_types) - set(PORTED_TYPES)
     if extra:
         raise NotImplementedError(
-            f"material types {sorted(extra)} are not ported (metal: ROADMAP "
-            "Queue 1 step 6; plastic, subsurface, carpaint: step 13)")
+            f"material types {sorted(extra)} are not ported (plastic, "
+            "subsurface, carpaint: ROADMAP Queue 1 step 13)")
 
 
 def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
@@ -444,6 +567,9 @@ def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
     if C.MATERIAL_LAMBERTIAN in types:
         merge(C.MATERIAL_LAMBERTIAN,
               _sample_lambert(m, normal, state, diffuse_occlusion))
+    if C.MATERIAL_METAL in types:
+        merge(C.MATERIAL_METAL,
+              _sample_metal(m, normal, wo, incident, state, clamp_p))
     if C.MATERIAL_DIELECTRIC in types:
         merge(C.MATERIAL_DIELECTRIC,
               _sample_dielectric(m, normal, incident, front_face, state))
@@ -474,6 +600,13 @@ def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
             diffuse_occlusion, 0.0, 1.0)[..., None]
         value = where3(mask, fdiv(albedo, PI), value)
         pdf = torch.where(mask, lambert_pdf(normal, wi), pdf)
+    if C.MATERIAL_METAL in types:
+        mask = (m.mat_type == C.MATERIAL_METAL) & geom_ok
+        v, p, valid, smooth = _evaluate_metal(m, normal, wo, wi, cos_o,
+                                              cos_i, clamp_p)
+        is_delta = is_delta | (mask & smooth)
+        value = where3(mask & valid, v, value)
+        pdf = torch.where(mask & valid, p, pdf)
     if C.MATERIAL_DIELECTRIC in types:
         is_delta = is_delta | (m.mat_type == C.MATERIAL_DIELECTRIC)
     if C.MATERIAL_PBR in types:

@@ -1,14 +1,17 @@
 """Wavefront path integrator (``ops/integrator.py`` twin).
 
-``trace_paths`` covers two configurations, each a depth loop in
-``ops/kernels/shade.py``:
+``trace_paths`` covers the lambert, metal, dielectric, PBR and
+diffuse-light types over triangles, spheres and rectangles, with the
+medium stack, in two depth loops of ``ops/kernels/shade.py``:
 
-- lambert under the gradient or solid background, no NEE: one K1 trace
-  and one K2 ``full`` shade per depth;
-- lambert, dielectric and untextured PBR under an environment map with
-  alias-table NEE, MIS, the medium stack and the environment spec-NEE
-  chain: K1, K2 ``s1``, the alias sample, a K1 any-hit shadow trace, K2
-  ``s2`` and the spec-NEE estimator per depth.
+- without a light integral (the gradient or solid background and no
+  emissive rectangle): one merged trace (K1, K3) and one K2 ``full``
+  shade per depth; a diffuse light hit emits and ends its path;
+- with one or two light integrals, rect lights (NEE sampled from
+  ``light_rect_indices``, emissive-hit MIS) and/or an environment map
+  (alias-table NEE, MIS): the merged trace, K2 ``s1``, the light samples
+  and their shadow traces (K1 any-hit, K3), K2 ``s2`` and the spec-NEE
+  estimators (environment and rect lights) per depth.
 
 Other configurations raise ``NotImplementedError`` naming their ROADMAP
 step.
@@ -25,6 +28,9 @@ from metal_pathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from metal_pathtracer_tpu_torch.ops import camera as camera_ops
 from metal_pathtracer_tpu_torch.ops import rng as rng_ops
 from metal_pathtracer_tpu_torch.ops.vecmath import (
+    cross,
+    dot,
+    fdiv,
     fma,
     length,
     linear_srgb_to_acescg,
@@ -115,33 +121,106 @@ def _primary_cone_spread(uniforms: Uniforms, static: StaticConfig) -> float:
 
 
 def env_nee(scene: SceneArrays, static: StaticConfig) -> bool:
-    """The environment path: an environment background with a map."""
+    """The environment light integral: an environment background with a
+    map."""
     return static.background_mode == 2 and scene.environment is not None
+
+
+def rect_nee(scene: SceneArrays) -> bool:
+    """The rect-light integral: at least one emissive rectangle."""
+    return scene.n_rect_lights > 0
 
 
 def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
     """Raise NotImplementedError for configurations not ported yet."""
     types = set(static.material_types)
-    if env_nee(scene, static):
-        if not types <= set(bsdf_ops.PORTED_TYPES):
-            raise NotImplementedError(
-                f"material types {sorted(types)}: lambert, dielectric and "
-                "PBR are ported (metal: ROADMAP Queue 1 step 6; plastic, "
-                "subsurface, carpaint, diffuse lights: step 13)")
-        if static.enable_mnee:
-            raise NotImplementedError(
-                "MNEE chains: ROADMAP Queue 1, step 8 (spec-NEE is ported)")
-    elif not types <= {C.MATERIAL_LAMBERTIAN}:
+    if not types <= set(bsdf_ops.PORTED_TYPES):
         raise NotImplementedError(
-            f"material types {sorted(types)} without an environment map: "
-            "the no-NEE path ports lambert only (ROADMAP Queue 1, steps 6 "
-            "and 13)")
+            f"material types {sorted(types)}: lambert, metal, dielectric, "
+            "diffuse lights and PBR are ported (plastic, subsurface, "
+            "carpaint: ROADMAP Queue 1 step 13)")
+    if static.enable_mnee:
+        raise NotImplementedError(
+            "MNEE chains: ROADMAP Queue 1, step 8 (spec-NEE is ported)")
     if static.debug_specular_only:
         raise NotImplementedError("debugSpecularOnly is not ported")
-    if scene.triangles is None or scene.triangles.count == 0:
+    if env_nee(scene, static) and C.MATERIAL_DIFFUSE_LIGHT in types and \
+            bool((scene.materials.emission_env > 0.0).any()):
         raise NotImplementedError(
-            "scenes without triangles: analytic primitives are ROADMAP "
-            "Queue 1, step 11")
+            "environment-modulated diffuse lights (emitEnv under an "
+            "environment map): ROADMAP Queue 1, step 12")
+    if scene.textures is not None and C.MATERIAL_PBR in types and \
+            not (env_nee(scene, static) or rect_nee(scene)):
+        raise NotImplementedError(
+            "textured PBR without a light integral (the texture planes in "
+            "stage full): ROADMAP Queue 1, step 7")
+    if scene.n_triangles + scene.n_spheres + scene.n_rects == 0:
+        raise NotImplementedError("a scene without any primitive")
+
+
+def rect_light_pdf_for_hit(scene: SceneArrays, point, prim_type, prim_index,
+                           origin):
+    """Solid-angle pdf of sampling the hit rectangle by NEE, for MIS on
+    emissive hits (``integrator.py _rect_light_pdf_for_hit:95-122``;
+    reference: pathtrace.metal rect_light_pdf_for_hit); 0 on lanes that
+    did not hit an emissive rectangle."""
+    rects, mats = scene.rects, scene.materials
+    idx = torch.clamp(prim_index, 0, rects.count - 1).long()
+    mat = torch.clamp(rects.material[idx], 0, mats.count - 1).long()
+    is_light = (mats.mat_type[mat] == C.MATERIAL_DIFFUSE_LIGHT) \
+        & (mats.emission[mat] != 0.0).any(-1)
+    cr = cross(rects.edge_u[idx], rects.edge_v[idx])
+    area = torch.sqrt(torch.clamp_min(dot(cr, cr), 0.0))
+    to_light = point - origin
+    dist_sq = dot(to_light, to_light)
+    distance = torch.sqrt(torch.clamp_min(dist_sq, 1e-30))
+    direction = fdiv(to_light, distance[:, None])
+    cos_light = dot(-direction, rects.normal[idx])
+    cos_light = torch.where(rects.two_sided[idx] > 0.5, cos_light.abs(),
+                            cos_light)
+    pdf = fdiv(fdiv(1.0, torch.clamp_min(area, 1e-20)) * dist_sq,
+               torch.clamp_min(cos_light, 1e-6))
+    pdf = fdiv(pdf, float(scene.n_rect_lights))
+    valid = ((prim_type == C.PRIMITIVE_RECTANGLE) & is_light & (area > 0.0)
+             & (dist_sq > 0.0) & (cos_light > 0.0))
+    return torch.where(valid, pdf, 0.0)
+
+
+def rect_light_sample_from_uniforms(scene: SceneArrays, point, sel_u, u, v):
+    """Rect-light NEE sample from three drawn uniforms
+    (``integrator.py _rect_light_sample_from_uniforms:125-172``; reference:
+    pathtrace.metal sample_rect_light): a light by ``sel_u``, a point on
+    it by (u, v). Returns (direction, distance, pdf, emission, valid).
+    The sample point is corner + u edge_u + v edge_v with the placement
+    XLA:CPU gives the JAX package's (N,3) sum: the x and y components
+    unfused, the z component as two FMAs."""
+    n = scene.n_rect_lights
+    rects, mats = scene.rects, scene.materials
+    selected = torch.clamp_max((sel_u * float(n)).to(torch.int64), n - 1)
+    idx = scene.light_rect_indices[selected].long()
+    eu, ev, corner = rects.edge_u[idx], rects.edge_v[idx], rects.corner[idx]
+    uu, vv = u[:, None], v[:, None]
+    plain = (corner + uu * eu) + vv * ev
+    fused = fma(vv, ev, fma(uu, eu, corner))
+    sample_point = torch.cat([plain[:, :2], fused[:, 2:]], -1)
+    to_light = sample_point - point
+    dist_sq = dot(to_light, to_light)
+    distance = torch.sqrt(torch.clamp_min(dist_sq, 1e-30))
+    direction = fdiv(to_light, distance[:, None])
+    cr = cross(eu, ev)
+    area = torch.sqrt(torch.clamp_min(dot(cr, cr), 0.0))
+    cos_light = dot(-direction, rects.normal[idx])
+    two_sided = rects.two_sided[idx] > 0.5
+    cos_ok = two_sided | (cos_light > 0.0)
+    cos_light = torch.where(two_sided, cos_light.abs(), cos_light)
+    pdf = fdiv(fdiv(1.0, torch.clamp_min(area, 1e-20)) * dist_sq,
+               torch.clamp_min(cos_light, 1e-6))
+    pdf = fdiv(pdf, float(n))
+    emission = mats.emission[torch.clamp(rects.material[idx], 0,
+                                         mats.count - 1).long()]
+    valid = ((dist_sq > 0.0) & (area > 0.0) & cos_ok & (cos_light > 0.0)
+             & (pdf > 0.0) & torch.isfinite(pdf) & (emission != 0.0).any(-1))
+    return direction, distance, torch.where(valid, pdf, 0.0), emission, valid
 
 
 def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
@@ -158,7 +237,7 @@ def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
     lens = max(2.0 * float(uniforms.camera.lens_radius), 0.0)
     carry = PathCarry.start(state, ray_o, ray_d, lens,
                             _primary_cone_spread(uniforms, static))
-    if env_nee(scene, static):
+    if env_nee(scene, static) or rect_nee(scene):
         rays, shadow = shade.trace_paths_nee(scene, uniforms, static, carry)
     else:
         rays = shade.trace_paths_fused(scene, uniforms, static, carry)

@@ -1,8 +1,10 @@
-"""Hit records and scene tracing (``ops/intersect.py`` twin, triangle half).
+"""Hit records and scene tracing (``ops/intersect.py`` twin).
 
-Spheres and rectangles (the analytic primitives and their TPU kernels)
-are ROADMAP Queue 1 step 11; the port traces the triangle soup only:
-nearest hits through K1 closest-hit, shadow rays through K1 any-hit.
+Nearest hits go through K1 closest-hit (triangles), K3a or K3b (spheres)
+and K3c (rectangles), shadow rays through K1 any-hit and the same K3
+kernels with the shadow window. ``trace_merged`` folds the families in
+the reference's order and returns each lane's winner as (t, index, u, v,
+family); ``trace_scene`` turns that into a full ``HitRecord``.
 """
 
 from __future__ import annotations
@@ -14,9 +16,12 @@ import torch
 from metal_pathtracer_tpu_torch.constants import (
     INFINITY_T,
     PRIMITIVE_NONE,
+    PRIMITIVE_RECTANGLE,
+    PRIMITIVE_SPHERE,
+    PRIMITIVE_TRIANGLE,
     RAY_ORIGIN_EPSILON,
 )
-from metal_pathtracer_tpu_torch.ops.vecmath import dot, fma, where3
+from metal_pathtracer_tpu_torch.ops.vecmath import dot, fdiv, fma, where3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,30 +69,144 @@ def _closer(a: HitRecord, b: HitRecord) -> HitRecord:
     return HitRecord(**out)
 
 
+def analytic_point(origin, t, direction):
+    """o + t d of a sphere or rectangle hit. XLA:CPU contracts the x and y
+    components of the JAX package's (N,3) ``origin + t * direction`` into
+    FMAs and not the z component (measured on ``hit_spheres`` and
+    ``hit_rects``); the sphere normal is rebuilt from this point, so the
+    port keeps that placement here and in K2."""
+    return torch.stack([fma(t, direction[..., 0], origin[..., 0]),
+                        fma(t, direction[..., 1], origin[..., 1]),
+                        origin[..., 2] + t * direction[..., 2]], -1)
+
+
+def sphere_outward(point, center, radius):
+    """(p - c) / r, one IEEE division per component (``hit_spheres``)."""
+    return fdiv(point - center, radius[..., None])
+
+
+def analytic_record(origin, direction, t, idx, kind, scene) -> HitRecord:
+    """The hit record of sphere (``kind`` 1) and rectangle (2) lanes from
+    (t, index), as ``hit_spheres``/``hit_rects`` build it: the normal
+    faced toward the ray is also the shading normal, spheres are
+    two-sided and rectangles as stored. Other lanes keep the miss
+    record."""
+    shape = t.shape
+    dev = t.device
+    is_s = kind == PRIMITIVE_SPHERE
+    is_r = kind == PRIMITIVE_RECTANGLE
+    point = analytic_point(origin, t, direction)
+    raw = torch.zeros(shape + (3,), device=dev)
+    zi = torch.zeros(shape, dtype=torch.int32, device=dev)
+    material, two_sided = zi, torch.zeros(shape, dtype=torch.bool, device=dev)
+    if scene.n_spheres:
+        i = torch.clamp(idx, 0, scene.spheres.count - 1).long()
+        raw = where3(is_s, sphere_outward(point, scene.spheres.center[i],
+                                          scene.spheres.radius[i]), raw)
+        material = torch.where(is_s, scene.spheres.material[i], material)
+        two_sided = two_sided | is_s
+    if scene.n_rects:
+        i = torch.clamp(idx, 0, scene.rects.count - 1).long()
+        raw = where3(is_r, scene.rects.normal[i], raw)
+        material = torch.where(is_r, scene.rects.material[i], material)
+        two_sided = two_sided | (is_r & (scene.rects.two_sided[i] > 0.5))
+    front = dot(direction, raw) < 0.0
+    normal = where3(front, raw, -raw)
+    return _closer(HitRecord.miss(shape, dev), HitRecord(
+        hit=is_s | is_r, t=t, point=point, normal=normal,
+        shading_normal=normal, front_face=front, two_sided=two_sided,
+        material=material, prim_type=kind.to(torch.int32),
+        prim_index=idx.to(torch.int32), mesh_index=zi,
+        barycentric=torch.zeros(shape + (2,), device=dev)))
+
+
+def trace_merged(origin, direction, scene, t_min, t_max, exclude_mesh=None,
+                 exclude_prim=None):
+    """Nearest hit over every primitive family: (t, index, u, v, family).
+
+    ``family`` is the winner's ``PRIMITIVE_*`` id (0 on a miss) and
+    ``index`` its index within the family (-1 on a miss); u, v are the
+    triangle's barycentrics (0 otherwise). The fold is ``trace_scene``'s
+    (``intersect.py:277-300``; ``shade.py _trace_merged:2641-2755``):
+    spheres, then rectangles, then triangles, each later family taking a
+    lane only when strictly nearer, so an exact-t tie goes to the sphere,
+    then the rectangle. The self-hit exclusion applies to triangles only.
+    """
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives, traverse
+
+    n = origin.shape[0]
+    dev = origin.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,)).contiguous()
+    zero = torch.zeros(n, device=dev)
+    if scene.n_triangles:
+        t, idx, u, v = traverse.trace_closest(
+            origin, direction, t_min, t_max, scene.tri_bvh, scene.triangles,
+            exclude_mesh, exclude_prim)
+    else:
+        t = torch.full((n,), INFINITY_T, device=dev)
+        idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        u, v = zero, zero
+    kind = torch.where(idx >= 0, PRIMITIVE_TRIANGLE,
+                       PRIMITIVE_NONE).to(torch.int32)
+    best_t = torch.where(idx >= 0, t, INFINITY_T)
+    nearest = []
+    if scene.n_rects:
+        nearest.append((PRIMITIVE_RECTANGLE, primitives.rect_nearest(
+            origin, direction, t_min, t_max, scene.rects)))
+    if scene.n_spheres:
+        nearest.append((PRIMITIVE_SPHERE, primitives.sphere_nearest(
+            origin, direction, t_min, t_max, scene.spheres,
+            scene.sphere_groups)))
+    for family, (pt, pi) in nearest:
+        take = (pi >= 0) & ((kind == PRIMITIVE_NONE) | (pt <= best_t))
+        best_t = torch.where(take, pt, best_t)
+        idx = torch.where(take, pi, idx)
+        kind = torch.where(take, family, kind).to(torch.int32)
+        u = torch.where(take, 0.0, u)
+        v = torch.where(take, 0.0, v)
+    return best_t, idx, u, v, kind
+
+
 def trace_scene(origin, direction, scene, t_min, t_max,
                 exclude_mesh=None, exclude_prim=None) -> HitRecord:
-    """Nearest hit over the scene's triangles, folded into a miss record
-    the way the reference folds every primitive family."""
+    """Nearest-hit record over every primitive family (``trace_merged``)."""
     from metal_pathtracer_tpu_torch.ops import traversal
 
-    rec = HitRecord.miss(origin.shape[:-1], origin.device)
-    if scene.triangles is not None and scene.triangles.count > 0:
-        rec = _closer(rec, traversal.trace_triangles(
-            origin, direction, scene, t_min, t_max,
-            exclude_mesh=exclude_mesh, exclude_prim=exclude_prim))
+    t, idx, u, v, kind = trace_merged(origin, direction, scene, t_min, t_max,
+                                      exclude_mesh, exclude_prim)
+    rec = analytic_record(origin, direction, t, idx, kind, scene)
+    if scene.n_triangles:
+        tri = torch.where(kind == PRIMITIVE_TRIANGLE, idx, -1)
+        tri_rec = traversal._hit_record_from_best(
+            origin, direction, scene.triangles, t, tri, u, v)
+        rec = _closer(rec, tri_rec)
     return rec
 
 
 def trace_occluded(origin, direction, scene, t_min, t_max):
-    """Any-hit (shadow) trace over the scene's triangles: (N,) bool
-    (``intersect.trace_occluded:303``; K1 any-hit)."""
-    from metal_pathtracer_tpu_torch.ops.kernels import traverse
+    """Any-hit (shadow) trace over every family: (N,) bool
+    (``intersect.trace_occluded:303``). Triangles take K1 any-hit; spheres
+    and rectangles the nearest kernels with the same window, any index
+    >= 0 (``shade.py _occluded_merged:2758``)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives, traverse
 
-    if scene.triangles is None or scene.triangles.count == 0:
-        return torch.zeros(origin.shape[:-1], dtype=torch.bool,
-                           device=origin.device)
-    return traverse.trace_any(origin, direction, t_min, t_max,
-                              scene.tri_bvh, scene.triangles)
+    n = origin.shape[0]
+    dev = origin.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,)).contiguous()
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    if scene.n_triangles:
+        occ = occ | traverse.trace_any(origin, direction, t_min, t_max,
+                                       scene.tri_bvh, scene.triangles)
+    if scene.n_spheres:
+        occ = occ | (primitives.sphere_nearest(
+            origin, direction, t_min, t_max, scene.spheres,
+            scene.sphere_groups)[1] >= 0)
+    if scene.n_rects:
+        occ = occ | (primitives.rect_nearest(
+            origin, direction, t_min, t_max, scene.rects)[1] >= 0)
+    return occ
 
 
 def offset_origin(point, shading_normal, normal, t, direction):

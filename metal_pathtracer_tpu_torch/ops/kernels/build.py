@@ -47,30 +47,36 @@ SIGNATURES = {
         _vp, _vp, _vp, _vp,                     # v0 v1 v2 mesh_index
         _vp, _vp, _vp, _vp,                     # out t tri u v
         _vp],                                   # stream
-    "mpt_shade_full": [
-        _i, _i, _vp, _vp, _vp, _vp,             # n, depth, t tri u v
-        _vp, _vp, _i,                           # shade_packed, base colours
-        _i, _i, _i, _f, _f, _f,                 # modes, solid background
-        _f, _f, _f, _f, _f,                     # clamp settings
-        *[_vp] * 14,                            # PathCarry tensors
-        _vp],                                   # stream
+    # n, scalars (host float[]), geometry pointers (host void*[]: hit t,
+    # index, u, v, family, shade_packed, sphere and rectangle arrays),
+    # material table, its row count, PathCarry pointers (host void*[]),
+    # stream
+    "mpt_shade_full": [_i, _vp, _vp, _vp, _i, _vp, _vp],
     "mpt_trace_any": [
         _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
         _vp, _vp, _vp,                          # v0 v1 v2
         _vp, _vp],                              # out flags, stream
-    # n, scalars (host float[]), t tri u v, shade_packed, material table,
-    # its row count, two stage inputs, texture planes (NULL: untextured),
-    # PathCarry pointers (host void*[]), output, stream
-    "mpt_shade_s1": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                     _vp, _vp, _vp, _vp, _vp, _vp],
-    "mpt_shade_s2": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                     _vp, _vp, _vp, _vp, _vp, _vp],
+    # n, scalars, geometry pointers, material table, its row count, the
+    # stage inputs (s1: environment background and pdf, rect-light pdf;
+    # s2: transients and light samples; NULL where absent), texture planes
+    # (NULL: untextured), PathCarry pointers, output, stream
+    "mpt_shade_s1": [_i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp,
+                     _vp],
+    "mpt_shade_s2": [_i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
     # n, scalars (host float[]), t tri u v, texture material table, its row
     # count, carry / triangle attribute / atlas pointers (host void*[]),
     # texture count, levels per texture, output planes, stream
     "mpt_texture_stage": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                           _vp, _vp, _vp, _i, _i, _vp, _vp],
+    # n, o, d, t_min, t_max, the primitive arrays, their count, out t,
+    # out index, stream
+    "mpt_sphere_nearest": [_i, _vp, _vp, _f, _vp, _vp, _vp, _i,
+                           _vp, _vp, _vp],
+    "mpt_sphere_nearest_chunked": [_i, _vp, _vp, _f, _vp,
+                                   *[_vp] * 5, _i, _vp, _vp, _vp],
+    "mpt_rect_nearest": [_i, _vp, _vp, _f, _vp, *[_vp] * 7, _i,
+                         _vp, _vp, _vp],
 }
 
 

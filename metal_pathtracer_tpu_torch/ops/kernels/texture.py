@@ -109,7 +109,7 @@ def texture_stage(carry, t, tri, u, v, scene, uniforms, static,
         raise ValueError(f"texture_stage: unsupported device {dev}")
     n = t.shape[0]
     tris, tex = scene.triangles, scene.textures
-    mat_table = pack_texture_material_table(scene.materials)
+    mat_table = scene.materials.table(pack_texture_material_table)
     carry_in = [carry.state, carry.ray_o, carry.ray_d, carry.alive,
                 carry.cone_width, carry.cone_spread]
     attrs = [tris.shade_packed, tris.uv0, tris.uv1, tris.uv2, tris.uvb0,

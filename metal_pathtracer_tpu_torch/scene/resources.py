@@ -1,9 +1,10 @@
 """Host-side scene container and device-array builder (jax-free twin of
 ``scene/resources.py``).
 
-Materials, world-space triangle meshes, material textures and an
-environment map are supported; the other primitive families raise
-``NotImplementedError`` naming the ROADMAP step that brings them.
+Materials, analytic spheres and oriented rectangles, world-space triangle
+meshes, material textures and an environment map are supported; mesh
+instances raise ``NotImplementedError`` naming the ROADMAP step that
+brings them.
 """
 
 from __future__ import annotations
@@ -15,7 +16,13 @@ import numpy as np
 import torch
 
 from metal_pathtracer_tpu_torch import constants as C
-from metal_pathtracer_tpu_torch.schema import MaterialsSoA, SceneArrays
+from metal_pathtracer_tpu_torch.ops.kernels import primitives
+from metal_pathtracer_tpu_torch.schema import (
+    MaterialsSoA,
+    RectsSoA,
+    SceneArrays,
+    SpheresSoA,
+)
 
 
 def _clamp01(v):
@@ -110,6 +117,23 @@ class Material:
 
 
 @dataclasses.dataclass
+class Sphere:
+    center: Tuple[float, float, float]
+    radius: float
+    material: int
+
+
+@dataclasses.dataclass
+class Rect:
+    corner: np.ndarray
+    edge_u: np.ndarray
+    edge_v: np.ndarray
+    normal: np.ndarray
+    material: int
+    two_sided: bool
+
+
+@dataclasses.dataclass
 class Mesh:
     """A triangle mesh already composed into world space."""
 
@@ -133,6 +157,8 @@ class SceneResources:
 
     def __init__(self):
         self.materials: List[Material] = []
+        self.spheres: List[Sphere] = []
+        self.rects: List[Rect] = []
         self.meshes: List[Mesh] = []
         self.material_names: Dict[str, int] = {}
         # texture pixels ((H,W,4) uint8), sRGB flags and (wrap_s, wrap_t)
@@ -157,14 +183,128 @@ class SceneResources:
     def add_mesh(self, mesh: Mesh) -> None:
         self.meshes.append(mesh)
 
-    def add_sphere(self, *args, **kwargs):
-        _not_in_slice("spheres", "step 11, analytic primitives")
+    def add_sphere(self, center, radius, material_index) -> None:
+        if len(self.spheres) >= C.MAX_SPHERES:
+            return
+        self.spheres.append(Sphere(tuple(center), float(radius),
+                                   int(material_index)))
 
-    def add_rectangle(self, *args, **kwargs):
-        _not_in_slice("rectangles", "step 11, analytic primitives")
+    def add_rectangle(self, bounds_min, bounds_max, normal_axis: int,
+                      normal_positive: bool, two_sided: bool,
+                      material_index: int) -> None:
+        """Axis-aligned rectangle -> oriented corner/edge representation
+        (reference: SceneResources.mm addRectangle:1743-1834)."""
+        if len(self.rects) >= C.MAX_RECTANGLES:
+            return
+        material_index = int(material_index)
+        if material_index >= len(self.materials):
+            material_index = max(len(self.materials) - 1, 0)
+        normal_axis = min(int(normal_axis), 2)
+        mn = np.minimum(np.asarray(bounds_min, np.float64),
+                        np.asarray(bounds_max, np.float64))
+        mx = np.maximum(np.asarray(bounds_min, np.float64),
+                        np.asarray(bounds_max, np.float64))
+        if normal_axis == 0:  # X constant
+            edge_u = np.array([0.0, mx[1] - mn[1], 0.0])
+            if normal_positive:
+                corner = np.array([mx[0], mn[1], mn[2]])
+                edge_v = np.array([0.0, 0.0, mx[2] - mn[2]])
+            else:
+                corner = np.array([mn[0], mn[1], mx[2]])
+                edge_v = np.array([0.0, 0.0, mn[2] - mx[2]])
+        elif normal_axis == 1:  # Y constant
+            edge_u = np.array([mx[0] - mn[0], 0.0, 0.0])
+            if normal_positive:
+                corner = np.array([mn[0], mx[1], mn[2]])
+                edge_v = np.array([0.0, 0.0, mx[2] - mn[2]])
+            else:
+                corner = np.array([mn[0], mn[1], mx[2]])
+                edge_v = np.array([0.0, 0.0, mn[2] - mx[2]])
+        else:  # Z constant
+            if normal_positive:
+                corner = np.array([mn[0], mn[1], mx[2]])
+                edge_u = np.array([mx[0] - mn[0], 0.0, 0.0])
+                edge_v = np.array([0.0, mx[1] - mn[1], 0.0])
+            else:
+                corner = np.array([mx[0], mn[1], mn[2]])
+                edge_u = np.array([mn[0] - mx[0], 0.0, 0.0])
+                edge_v = np.array([0.0, mx[1] - mn[1], 0.0])
+        desired = np.zeros(3)
+        desired[normal_axis] = 1.0 if normal_positive else -1.0
+        self.add_rectangle_oriented(corner, edge_u, edge_v, two_sided,
+                                    material_index, desired)
 
-    def add_box(self, *args, **kwargs):
-        _not_in_slice("boxes (rectangles)", "step 11, analytic primitives")
+    def add_rectangle_oriented(self, corner, edge_u, edge_v, two_sided,
+                               material_index, desired_normal) -> None:
+        """(reference: SceneResources.mm storeRectangleOriented): the
+        stored normal is flipped toward ``desired_normal``; the edges keep
+        their winding (light sampling uses that parameterisation)."""
+        if len(self.rects) >= C.MAX_RECTANGLES:
+            return
+        corner = np.asarray(corner, np.float64)
+        edge_u = np.asarray(edge_u, np.float64)
+        edge_v = np.asarray(edge_v, np.float64)
+        if np.dot(edge_u, edge_u) <= 0.0 or np.dot(edge_v, edge_v) <= 0.0:
+            return
+        normal = np.cross(edge_u, edge_v)
+        norm = np.linalg.norm(normal)
+        if norm <= 0.0:
+            return
+        normal = normal / norm
+        desired = np.asarray(desired_normal, np.float64)
+        if np.linalg.norm(desired) > 0.0 \
+                and float(np.dot(normal, desired)) < 0.0:
+            normal = -normal
+        if not np.all(np.isfinite(normal)):
+            return
+        self.rects.append(Rect(
+            corner=corner.astype(np.float32),
+            edge_u=edge_u.astype(np.float32),
+            edge_v=edge_v.astype(np.float32),
+            normal=normal.astype(np.float32),
+            material=int(material_index),
+            two_sided=bool(two_sided)))
+
+    def add_box(self, min_corner, max_corner, material_index,
+                transform: Optional[np.ndarray] = None,
+                include_bottom: bool = True, two_sided: bool = False) -> None:
+        """Box as 5 or 6 oriented rectangles, faces in the reference's
+        order and windings (reference: SceneResources.mm
+        addBoxTransformed:1835+)."""
+        if self.materials and material_index >= len(self.materials):
+            material_index = len(self.materials) - 1
+        mn = np.minimum(np.asarray(min_corner, np.float64),
+                        np.asarray(max_corner, np.float64))
+        mx = np.maximum(np.asarray(min_corner, np.float64),
+                        np.asarray(max_corner, np.float64))
+        dy = np.array([0, mx[1] - mn[1], 0])
+        dx = np.array([mx[0] - mn[0], 0, 0])
+        faces = [
+            (np.array([mx[0], mn[1], mn[2]]), dy,
+             np.array([0, 0, mx[2] - mn[2]]), np.array([1.0, 0, 0]), True),
+            (np.array([mn[0], mn[1], mx[2]]), dy,
+             np.array([0, 0, mn[2] - mx[2]]), np.array([-1.0, 0, 0]), True),
+            (np.array([mn[0], mx[1], mn[2]]), dx,
+             np.array([0, 0, mx[2] - mn[2]]), np.array([0, 1.0, 0]), True),
+            (np.array([mn[0], mn[1], mx[2]]), dx,
+             np.array([0, 0, mn[2] - mx[2]]), np.array([0, -1.0, 0]),
+             include_bottom),
+            (np.array([mn[0], mn[1], mx[2]]), dx, dy,
+             np.array([0, 0, 1.0]), True),
+            (np.array([mx[0], mn[1], mn[2]]), np.array([mn[0] - mx[0], 0, 0]),
+             dy, np.array([0, 0, -1.0]), True),
+        ]
+        for corner, eu, ev, desired, include in faces:
+            if not include:
+                continue
+            if transform is not None:
+                tf = np.asarray(transform, np.float64)
+                corner = (tf @ np.append(corner, 1.0))[:3]
+                eu = tf[:3, :3] @ eu
+                ev = tf[:3, :3] @ ev
+                desired = tf[:3, :3] @ desired
+            self.add_rectangle_oriented(corner, eu, ev, two_sided,
+                                        material_index, desired)
 
     def add_mesh_instance(self, *args, **kwargs):
         _not_in_slice("mesh instances", "step 14, instancing")
@@ -305,9 +445,56 @@ class SceneResources:
             from metal_pathtracer_tpu_torch.scene import meshbuild
             triangles, tri_bvh = meshbuild.build_triangle_arrays(
                 self.meshes, device=device)
+        spheres = self.build_spheres_soa(device)
         return SceneArrays(materials=self.build_materials_soa(device),
                            triangles=triangles, tri_bvh=tri_bvh,
-                           environment=environment, textures=textures)
+                           environment=environment, textures=textures,
+                           spheres=spheres,
+                           rects=self.build_rects_soa(device),
+                           light_rect_indices=torch.as_tensor(
+                               np.array(self.light_rect_indices(), np.int32),
+                               device=device),
+                           sphere_groups=primitives.groups_of(spheres))
+
+    def build_spheres_soa(self, device="cuda") -> SpheresSoA:
+        """The spheres as (S,...) arrays; zero rows without spheres."""
+        t = lambda a, dt: torch.as_tensor(np.array(a, dt), device=device)
+        return SpheresSoA(
+            center=t([s.center for s in self.spheres], np.float32).reshape(
+                -1, 3),
+            radius=t([s.radius for s in self.spheres], np.float32),
+            material=t([s.material for s in self.spheres], np.int32))
+
+    def build_rects_soa(self, device="cuda") -> RectsSoA:
+        """The rectangles with their derived rows (inverse squared edge
+        lengths and plane offsets in float32, as the JAX package computes
+        them); zero rows without rectangles."""
+        cols = lambda f: np.array([f(r) for r in self.rects],
+                                  np.float32).reshape(-1, 3)
+        eu, ev = cols(lambda r: r.edge_u), cols(lambda r: r.edge_v)
+        nrm, corner = cols(lambda r: r.normal), cols(lambda r: r.corner)
+        t = lambda a: torch.as_tensor(a, device=device)
+        return RectsSoA(
+            corner=t(corner), edge_u=t(eu), edge_v=t(ev),
+            inv_len2_u=t(1.0 / np.maximum((eu * eu).sum(-1), 1e-20)),
+            inv_len2_v=t(1.0 / np.maximum((ev * ev).sum(-1), 1e-20)),
+            normal=t(nrm), plane=t((nrm * corner).sum(-1)),
+            material=t(np.array([r.material for r in self.rects], np.int32)),
+            two_sided=t(np.array([1.0 if r.two_sided else 0.0
+                                  for r in self.rects], np.float32)))
+
+    def light_rect_indices(self) -> List[int]:
+        """Emissive rectangles for NEE: diffuse-light material with a
+        non-zero emission (reference: pathtrace.metal count_rect_lights)."""
+        out = []
+        for i, r in enumerate(self.rects):
+            if not self.materials:
+                break
+            m = self.materials[min(r.material, len(self.materials) - 1)]
+            if m.mat_type == C.MATERIAL_DIFFUSE_LIGHT \
+                    and any(e != 0.0 for e in m.emission):
+                out.append(i)
+        return out
 
     def material_types_present(self):
         return sorted({m.mat_type for m in self.materials})

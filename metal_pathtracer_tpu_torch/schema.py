@@ -1,9 +1,8 @@
 """Device-side data layouts as torch dataclasses (``schema.py`` twin).
 
 Each struct-of-arrays container of the JAX package becomes a frozen
-dataclass of tensors, field for field. Spheres, rects and instancing are
-not ported yet: their containers land with the ROADMAP steps that read
-them.
+dataclass of tensors, field for field. Instancing is not ported yet: its
+container lands with the ROADMAP step that reads it.
 """
 
 from __future__ import annotations
@@ -75,6 +74,67 @@ class MaterialsSoA:
     @property
     def count(self) -> int:
         return self.mat_type.shape[0]
+
+    def table(self, pack) -> torch.Tensor:
+        """``pack(self)``, made on first use and kept on this immutable
+        object: a kernel's packed material rows are built once per scene,
+        not once per launch."""
+        tables = self.__dict__.setdefault("_tables", {})
+        if pack not in tables:
+            tables[pack] = pack(self)
+        return tables[pack]
+
+
+@dataclasses.dataclass(frozen=True)
+class SpheresSoA:
+    """(reference: MetalShaderTypes.h SphereData)"""
+
+    center: torch.Tensor    # (S,3) f32
+    radius: torch.Tensor    # (S,)  f32
+    material: torch.Tensor  # (S,)  i32
+
+    @property
+    def count(self) -> int:
+        return self.radius.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class RectsSoA:
+    """Oriented rectangles (reference: MetalShaderTypes.h RectData)."""
+
+    corner: torch.Tensor      # (R,3) f32
+    edge_u: torch.Tensor      # (R,3) f32
+    edge_v: torch.Tensor      # (R,3) f32
+    inv_len2_u: torch.Tensor  # (R,)  f32
+    inv_len2_v: torch.Tensor  # (R,)  f32
+    normal: torch.Tensor      # (R,3) f32, normalised
+    plane: torch.Tensor       # (R,)  f32, dot(normal, corner)
+    material: torch.Tensor    # (R,)  i32
+    two_sided: torch.Tensor   # (R,)  f32
+
+    @property
+    def count(self) -> int:
+        return self.plane.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class SphereGroups:
+    """The layout of the chunked sphere kernel (K3b) for more than 32
+    spheres: the spheres in Morton order, padded to whole groups of 16 by
+    repeating the last one (a repeat gives the same t and index, so it
+    changes no result), each slot's own sphere index, and one AABB per
+    group, widened so that rounding cannot cull a hit
+    (``ops/kernels/primitives.py sphere_groups``)."""
+
+    center: torch.Tensor    # (G*16, 3) f32, Morton order
+    radius: torch.Tensor    # (G*16,)   f32
+    index: torch.Tensor     # (G*16,)   i32, the sphere's own index
+    box_min: torch.Tensor   # (G, 3)    f32
+    box_max: torch.Tensor   # (G, 3)    f32
+
+    @property
+    def n_groups(self) -> int:
+        return self.box_min.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,13 +239,37 @@ class TextureArrays:
 
 @dataclasses.dataclass(frozen=True)
 class SceneArrays:
-    """Everything the integrator reads on the device."""
+    """Everything the integrator reads on the device. ``spheres`` and
+    ``rects`` may be None or hold no rows when the scene has none."""
 
     materials: MaterialsSoA
     triangles: Optional[TrianglesSoA] = None
     tri_bvh: Optional[BvhSoA] = None
     environment: Optional[EnvironmentSoA] = None
     textures: Optional[TextureArrays] = None
+    spheres: Optional[SpheresSoA] = None
+    rects: Optional[RectsSoA] = None
+    # emissive rectangles for NEE (rect indices), (L,) i32
+    light_rect_indices: Optional[torch.Tensor] = None
+    # the chunked sphere kernel's layout, above 32 spheres
+    sphere_groups: Optional[SphereGroups] = None
+
+    @property
+    def n_spheres(self) -> int:
+        return 0 if self.spheres is None else self.spheres.count
+
+    @property
+    def n_rects(self) -> int:
+        return 0 if self.rects is None else self.rects.count
+
+    @property
+    def n_triangles(self) -> int:
+        return 0 if self.triangles is None else self.triangles.count
+
+    @property
+    def n_rect_lights(self) -> int:
+        idx = self.light_rect_indices
+        return 0 if idx is None else idx.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)

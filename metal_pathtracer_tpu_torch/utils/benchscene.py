@@ -19,18 +19,40 @@ value for value):
   a lambert ground, with a normal map on tangents of handedness +1 and -1
   and on zero tangents (the ONB fallback), ORM, occlusion, emissive and
   transmission, UV set 1 and a KHR transform, alpha MASK and BLEND.
+
+The analytic-primitive scenes are ``.scene`` DSL text (the repository's
+files ``CORNELL_PATH`` and ``SMOKE_PATH``, and ``rtow_scene_text``), so
+that the JAX package's parser can read the same text:
+
+- ``build_cornell_scene``: ``assets/scenes/cornell.scene`` as written, six
+  rectangles (one an area light), a mirror and a glass sphere, gradient
+  sky, 512x512, maxDepth 8, seed 7;
+- ``build_rtow_scene``: the final scene of *Ray Tracing in One Weekend*
+  (v4), ~485 spheres of lambert, metal and glass, thin-lens camera,
+  gradient sky, 1200x675, maxDepth 50;
+- ``build_smoke_scene``: ``tests/scenes/smoke.scene``, two lambert spheres
+  under a solid sky, 64x64, maxDepth 4;
+- ``build_mixed_scene``: every primitive family in one frame, the JAX
+  package's fused-shade test scene (``tests/test_fused_shade.py:166-196``):
+  a displaced icosphere, a lambert and an emissive sphere and a lambert
+  rectangle under the gradient sky, maxDepth 5.
 """
 
 from __future__ import annotations
+
+import pathlib
 
 import numpy as np
 
 from metal_pathtracer_tpu_torch import constants as C
 from metal_pathtracer_tpu_torch.ops import env as env_ops
+from metal_pathtracer_tpu_torch.scene import dsl
 from metal_pathtracer_tpu_torch.scene.resources import (
     Material,
     Mesh,
+    Rect,
     SceneResources,
+    Sphere,
 )
 from metal_pathtracer_tpu_torch.settings import BackgroundMode, RenderSettings
 from metal_pathtracer_tpu_torch.utils.procgen import (
@@ -289,4 +311,132 @@ def build_six_slot_scene(subdivisions: int = 3):
                                           (1.6, 0.5, False))):
         res.add_mesh(_tangent_sphere(subdivisions, (x, 0.0, 0.0), r, k + 1,
                                      tangents, res.materials[k + 1].name))
+    return settings, res
+
+
+#: the repository's scene files of the Cornell box and the smoke scene
+_REPO = pathlib.Path(__file__).resolve().parents[2]
+CORNELL_PATH = _REPO / "assets" / "scenes" / "cornell.scene"
+SMOKE_PATH = _REPO / "tests" / "scenes" / "smoke.scene"
+
+
+def cornell_scene_text() -> str:
+    """The text of ``assets/scenes/cornell.scene``."""
+    return CORNELL_PATH.read_text()
+
+
+#: (width, height) of the cornell, rtow and smoke cells
+CORNELL_FRAME = (512, 512)
+RTOW_FRAME = (1200, 675)
+SMOKE_FRAME = (64, 64)
+
+
+def rtow_scene_text(seed: int = 0) -> str:
+    """The final scene of Peter Shirley's *Ray Tracing in One Weekend*
+    (v4, "Where Next?") in the DSL: a lambert ground sphere (radius 1000,
+    albedo 0.5), for a, b in [-11, 11) a small sphere of radius 0.2 at
+    (a + 0.9 xi, 0.2, b + 0.9 xi) unless within 0.9 of (4, 0.2, 0) (xi <
+    0.8: lambert, albedo xi*xi per channel; < 0.95: metal, albedo U(0.5,
+    1), roughness = the book's fuzz U(0, 0.5); else glass, ior 1.5), and
+    three spheres of radius 1 (glass, lambert (0.4, 0.2, 0.1), a mirror
+    (0.7, 0.6, 0.5)). Camera: vfov 20 from (13, 2, 3) at the origin,
+    defocus angle 0.6, focus distance 10. The xi come from
+    ``numpy.random.default_rng(seed)`` in the book's draw order, so the
+    layout is the book's and the draws are not."""
+    rng = np.random.default_rng(seed)
+    f3 = lambda v: ",".join(f"{x:.6f}" for x in v)
+    lines = [
+        "# Ray Tracing in One Weekend, final scene (book v4, Where Next?)",
+        "camera target=0,0,0 distance=13.4907 yaw=0.22689 pitch=0.14884 "
+        "vfov=20 defocusAngle=0.6 focusDist=10",
+        f"renderer maxDepth=50 width={RTOW_FRAME[0]} height={RTOW_FRAME[1]}",
+    ]
+    n_mat = 0
+
+    def add(material, center, radius):
+        nonlocal n_mat
+        lines.append(f"material {material}")
+        lines.append(f"sphere center={f3(center)} radius={radius} "
+                     f"material={n_mat}")
+        n_mat += 1
+
+    add("type=lambert albedo=0.5,0.5,0.5", (0.0, -1000.0, 0.0), 1000)
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose = rng.random()
+            center = (a + 0.9 * rng.random(), 0.2, b + 0.9 * rng.random())
+            if np.linalg.norm(np.subtract(center, (4.0, 0.2, 0.0))) <= 0.9:
+                continue
+            if choose < 0.8:
+                albedo = rng.random(3) * rng.random(3)
+                add(f"type=lambert albedo={f3(albedo)}", center, 0.2)
+            elif choose < 0.95:
+                albedo = rng.uniform(0.5, 1.0, 3)
+                fuzz = rng.uniform(0.0, 0.5)
+                add(f"type=metal albedo={f3(albedo)} roughness={fuzz:.6f}",
+                    center, 0.2)
+            else:
+                add("type=glass ior=1.5", center, 0.2)
+    add("type=glass ior=1.5", (0.0, 1.0, 0.0), 1)
+    add("type=lambert albedo=0.4,0.2,0.1", (-4.0, 1.0, 0.0), 1)
+    add("type=metal albedo=0.7,0.6,0.5 roughness=0", (4.0, 1.0, 0.0), 1)
+    return "\n".join(lines) + "\n"
+
+
+def _parse(text: str):
+    settings, res = RenderSettings(), SceneResources()
+    dsl.parse_scene(text, settings, res)
+    return settings, res
+
+
+def _load(path):
+    settings, res = RenderSettings(), SceneResources()
+    dsl.load_scene_file(str(path), settings, res)
+    return settings, res
+
+
+def build_cornell_scene():
+    """Returns (settings, resources) of ``assets/scenes/cornell.scene``."""
+    return _load(CORNELL_PATH)
+
+
+def build_rtow_scene(seed: int = 0):
+    """Returns (settings, resources) of ``rtow_scene_text(seed)``."""
+    return _parse(rtow_scene_text(seed))
+
+
+def build_smoke_scene():
+    """Returns (settings, resources) of ``tests/scenes/smoke.scene``."""
+    return _load(SMOKE_PATH)
+
+
+def build_mixed_scene(subdivisions: int = 2):
+    """Returns (settings, resources): triangles, spheres (one of them a
+    diffuse light) and a one-sided rectangle, the reference's scene for
+    the merged trace's tie order, two-sided emission and triangle-only
+    self-exclusion."""
+    settings = RenderSettings()
+    settings.cameraTarget = (0.0, 0.5, 0.0)
+    settings.cameraDistance = 4.5
+    settings.cameraYaw = -0.4
+    settings.cameraPitch = 0.2
+    settings.maxDepth = 5
+    settings.fixedRngSeed = 4242
+    res = SceneResources()
+    m_mesh = res.add_material(Material(base_color=(0.6, 0.3, 0.3)))
+    m_s = res.add_material(Material(base_color=(0.3, 0.4, 0.7)))
+    m_l = res.add_material(Material(mat_type=C.MATERIAL_DIFFUSE_LIGHT,
+                                    emission=(9.0, 8.0, 7.0)))
+    m_r = res.add_material(Material(base_color=(0.5, 0.5, 0.45)))
+    res.add_mesh(dragon_class_scene_mesh(subdivisions, material=m_mesh))
+    res.spheres.append(Sphere(center=(1.4, 0.4, 0.6), radius=0.4,
+                              material=m_s))
+    res.spheres.append(Sphere(center=(-1.2, 1.6, -0.5), radius=0.35,
+                              material=m_l))
+    res.rects.append(Rect(
+        corner=np.array([-3, -0.8, -3], np.float32),
+        edge_u=np.array([6, 0, 0], np.float32),
+        edge_v=np.array([0, 0, 6], np.float32),
+        normal=np.array([0, 1, 0], np.float32),
+        material=m_r, two_sided=False))
     return settings, res

@@ -1,15 +1,16 @@
 """Where the time goes: a ``torch.profiler`` trace of the port on one card.
 
 Renders the textured headline (default), the untextured headline or the
-lambert series at 1920x1080 d8, or the refdefault cell (the headline at
-1280x720 d20): one warm-up sample, then two samples under the profiler.
+lambert series at 1920x1080 d8, the refdefault cell (the headline at
+1280x720 d20), the Cornell box (512x512 d8) or the rtow sphere field
+(1200x675 d50): one warm-up sample, then two samples under the profiler.
 Prints the wall time per sample, the device's busy share of the wall
 time, device time by kernel (the port's six kernels by name, the rest of
 the torch glue summed), and the kernels' launch counts.
 Run on a machine with a CUDA device:
 
     python -m metal_pathtracer_tpu_torch.utils.profile \
-        [--scene headline|untextured|lambert|refdefault]
+        [--scene headline|untextured|lambert|refdefault|cornell|rtow]
 """
 
 from __future__ import annotations
@@ -23,13 +24,20 @@ import torch
 WIDTH, HEIGHT, SPP = 1920, 1080, 2
 PORT_KERNELS = ("trace_closest_kernel", "trace_any_kernel",
                 "shade_full_kernel", "shade_s1_kernel", "shade_s2_kernel",
-                "texture_stage_kernel")
+                "texture_stage_kernel", "sphere_nearest_kernel",
+                "sphere_nearest_chunked_kernel", "rect_nearest_kernel")
 
 
 def _scene(name: str, dev):
     from metal_pathtracer_tpu_torch.utils import benchscene
 
-    if name == "lambert":
+    if name == "cornell":
+        settings, res = benchscene.build_cornell_scene()
+        env = None
+    elif name == "rtow":
+        settings, res = benchscene.build_rtow_scene()
+        env = None
+    elif name == "lambert":
         settings, res = benchscene.build_lambert_series(7)
         env = None
     elif name == "untextured":
@@ -45,7 +53,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--scene",
                         choices=["headline", "untextured", "lambert",
-                                 "refdefault"],
+                                 "refdefault", "cornell", "rtow"],
                         default="headline")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -66,8 +74,9 @@ def main(argv=None) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     settings, res, scene = _scene(args.scene, dev)
-    w, h = benchscene.REFDEFAULT_FRAME if args.scene == "refdefault" \
-        else (WIDTH, HEIGHT)
+    w, h = {"refdefault": benchscene.REFDEFAULT_FRAME,
+            "cornell": benchscene.CORNELL_FRAME,
+            "rtow": benchscene.RTOW_FRAME}.get(args.scene, (WIDTH, HEIGHT))
     static = settings_to_static(settings, w, h, res.material_types_present(),
                                 res.texture_slots_present(),
                                 res.texture_uses_uv1())
@@ -96,7 +105,7 @@ def main(argv=None) -> None:
           f"{st.ray_count} closest + {st.shadow_ray_count} shadow traces "
           f"[{card}]")
     for k, (t, c) in sorted(port.items(), key=lambda kv: -kv[1][0]):
-        name = next(n for n in PORT_KERNELS if n in k)
+        name = max((n for n in PORT_KERNELS if n in k), key=len)
         print(f"  {name}: {t / 1e3 / SPP:.3f} ms/spp device, "
               f"{c / SPP:.0f} launches/spp")
     print(f"  torch glue: {glue / 1e3 / SPP:.3f} ms/spp device, "

@@ -262,3 +262,91 @@ def test_textured_render_kernels_vs_plain_on_card(dev):
     diff = (k.present() - p.present()).abs()
     assert float(diff.square().mean().sqrt()) < 2e-4
     assert float((diff.amax(-1) < 1e-5).float().mean()) > 0.98
+
+
+@pytest.mark.parametrize("name", ["cornell", "rtow"])
+def test_primitive_kernels_vs_plain_on_card(dev, name):
+    """K3a, K3c and (rtow, 487 spheres) K3b against their plain versions
+    on a primary wavefront, t and index bit for bit; K3b equals K3a except
+    where two spheres meet a ray at the same t."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    settings, res = (benchscene.build_cornell_scene() if name == "cornell"
+                     else benchscene.build_rtow_scene(0))
+    scene = res.build_arrays(device=dev)
+    w, h = 256, 144
+    static = settings_to_static(settings, w, h, res.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    flat = torch.arange(w * h, device=dev)
+    seed = rng_ops.make_seed(uni.fixed_rng_seed, 0, flat % w, flat // w, 0,
+                             torch.zeros_like(flat))
+    _, o, d = camera_ops.generate_primary_rays(uni.camera, flat % w,
+                                               flat // w, w, h, seed)
+    tmax = torch.full((w * h,), C.INFINITY_T, device=dev)
+    tmax[::13] = 0.0
+    args = (o.contiguous(), d.contiguous(), C.EPSILON_T, tmax)
+    brute = P.sphere_nearest_brute(*args, scene.spheres)
+    for got, want in [
+            (brute, P.sphere_nearest_reference(*args, scene.spheres))] + (
+            [(P.rect_nearest(*args, scene.rects),
+              P.rect_nearest_reference(*args, scene.rects))]
+            if scene.n_rects else []):
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+        assert (got[1] >= 0).any()
+    if scene.n_spheres > P.BRUTE_MAX_SPHERES:
+        groups = scene.sphere_groups
+        before = P.sphere_nearest_chunked.launches
+        got = P.sphere_nearest_chunked(*args, groups)
+        assert P.sphere_nearest_chunked.launches == before + 1
+        want = P.sphere_nearest_chunked_reference(*args, groups)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32),
+                           brute[0].view(torch.int32))
+        assert int((got[1] != brute[1]).sum()) <= 4
+
+
+@pytest.mark.parametrize("name", ["cornell", "rtow"])
+def test_primitive_render_kernels_vs_plain_on_card(dev, name):
+    """The Cornell box (K3a, K3c, K2 s1/s2 with rect-light NEE) and rtow
+    (K3b, K2 full) at 160x96, 2 spp, through the kernels against the plain
+    path: the same image and the same trace counts."""
+    from unittest import mock
+
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    settings, res = (benchscene.build_cornell_scene() if name == "cornell"
+                     else benchscene.build_rtow_scene(0))
+    scene = res.build_arrays(device=dev)
+    w, h = 160, 96
+    static = settings_to_static(settings, w, h, res.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                             static, 2)
+
+    def plain(reference):
+        return lambda o, d, t_min, t_max, prims: reference(
+            o, d, float(t_min), P._prepare(o, t_max), prims)
+
+    with mock.patch.object(P, "sphere_nearest_brute",
+                           plain(P.sphere_nearest_reference)), \
+            mock.patch.object(P, "sphere_nearest_chunked",
+                              plain(P.sphere_nearest_chunked_reference)), \
+            mock.patch.object(P, "rect_nearest",
+                              plain(P.rect_nearest_reference)), \
+            mock.patch.object(shade, "shade_full",
+                              shade.shade_full_reference), \
+            mock.patch.object(shade, "shade_s1", shade.shade_s1_reference), \
+            mock.patch.object(shade, "shade_s2", shade.shade_s2_reference):
+        p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 2)
+    assert (k.ray_count, k.shadow_ray_count) == (p.ray_count,
+                                                 p.shadow_ray_count)
+    assert torch.equal(k.present(), p.present())

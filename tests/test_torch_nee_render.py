@@ -147,7 +147,7 @@ def test_s2_commits_every_live_hit():
     carry = integrator.PathCarry.start(state, o, d, 0.0, 0.01)
     carry.alive[::5] = False
     before = {k: v.clone() for k, v in vars(carry).items()}
-    params = shade.NeeParams.of(uni, static, env)
+    params = shade.ShadeParams.of(uni, static, env)
     t, tri, u, v = traverse.trace_closest(
         carry.ray_o, carry.ray_d, C.EPSILON_T,
         torch.where(carry.alive, C.INFINITY_T, 0.0), scene.tri_bvh,

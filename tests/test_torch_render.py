@@ -134,9 +134,10 @@ def _run(code, env=None):
 
 
 def test_port_renders_without_jax():
-    """The port imports and renders 16x16 on the CPU, the lambert series
-    and the environment-NEE headline, without loading jax, flax or any
-    module of the JAX package."""
+    """The port imports and renders 16x16 on the CPU, the lambert series,
+    the environment-NEE headline and the Cornell box (spheres, rectangles,
+    rect-light NEE), without loading jax, flax or any module of the JAX
+    package."""
     proc = _run("""
         import sys
         import numpy as np
@@ -150,7 +151,8 @@ def test_port_renders_without_jax():
         from metal_pathtracer_tpu_torch.schema import (
             settings_to_static, settings_to_uniforms)
         from metal_pathtracer_tpu_torch.utils.benchscene import (
-            build_lambert_series, build_untextured_bench_scene)
+            build_cornell_scene, build_lambert_series,
+            build_untextured_bench_scene)
         settings, resources = build_lambert_series(2)
         settings.maxDepth = 3
         out = CudaBackend().render(resources, settings, 16, 16, 1,
@@ -171,6 +173,11 @@ def test_port_renders_without_jax():
         img = st.present().numpy()
         assert np.isfinite(img).all() and img.max() > 0
         assert st.ray_count >= 256 and st.shadow_ray_count > 0
+        settings, res = build_cornell_scene()
+        settings.maxDepth = 3
+        out = CudaBackend().render(res, settings, 16, 16, 1, device="cpu")
+        assert np.isfinite(out.linear_rgb).all()
+        assert out.linear_rgb.max() > 0 and out.shadow_ray_count > 0
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                       "metal_pathtracer_tpu")]
@@ -192,6 +199,10 @@ def test_kernel_modules_import_without_nvcc():
     proc = _run("""
         from metal_pathtracer_tpu_torch.ops.kernels import build, shade
         from metal_pathtracer_tpu_torch.ops.kernels import texture, traverse
+        from metal_pathtracer_tpu_torch.ops.kernels import primitives
+        assert primitives.sphere_nearest_brute.launches == 0
+        assert primitives.sphere_nearest_chunked.launches == 0
+        assert primitives.rect_nearest.launches == 0
         assert traverse.trace_closest.launches == 0
         assert texture.texture_stage.launches == 0
         assert traverse.trace_any.launches == 0

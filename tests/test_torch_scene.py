@@ -166,10 +166,7 @@ def test_convert_uniforms_static_state():
 def test_unported_features_raise():
     r = SceneResources()
     r.add_material(Material())
-    for call in (lambda: r.add_sphere((0, 0, 0), 1.0, 0),
-                 lambda: r.add_rectangle((0, 0, 0), (1, 1, 1), 1, True, False,
-                                         0),
-                 lambda: r.add_mesh_instance(None, np.eye(4)),
+    for call in (lambda: r.add_mesh_instance(None, np.eye(4)),
                  # a texture that needs a resample: the image loaders
                  lambda: build_texture_arrays([np.zeros((20, 48, 4),
                                                         np.uint8)], [True],
@@ -178,28 +175,29 @@ def test_unported_features_raise():
             call()
     m = bsdf.gather_material(r.build_materials_soa("cpu"), torch.zeros(2))
     z3 = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="step 6"):
+    with pytest.raises(NotImplementedError, match="step 13"):
         bsdf.sample_bsdf(m, z3, z3, z3, torch.ones(2, dtype=torch.bool),
                          torch.zeros(2, dtype=torch.long),
                          bsdf.make_clamp_params(
                              settings_to_uniforms(RenderSettings(), None, 0,
                                                   0)),
-                         torch.ones(2), (C.MATERIAL_METAL,))
+                         torch.ones(2), (C.MATERIAL_PLASTIC,))
     s = RenderSettings()
     s.backgroundMode = BackgroundMode.ENVIRONMENT
     env = env_ops.environment_from_texels(np.ones((4, 8, 3), np.float32),
                                           "cpu")
     r.add_mesh(_port_mesh(dragon_class_scene_mesh(0)))
     scene = r.build_arrays(environment=env, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 6"):
+    with pytest.raises(NotImplementedError, match="step 13"):
         integrator.check_supported(
-            scene, settings_to_static(s, 8, 8, [C.MATERIAL_METAL]))
+            scene, settings_to_static(s, 8, 8, [C.MATERIAL_PLASTIC]))
     s.enableMnee = True
     with pytest.raises(NotImplementedError, match="step 8"):
         integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
     s.enableMnee = False
     integrator.check_supported(scene, settings_to_static(
-        s, 8, 8, [0, C.MATERIAL_DIELECTRIC, C.MATERIAL_PBR]))
+        s, 8, 8, [0, C.MATERIAL_METAL, C.MATERIAL_DIELECTRIC,
+                  C.MATERIAL_DIFFUSE_LIGHT, C.MATERIAL_PBR]))
 
 
 def _assert_arrays_equal(got, ref, label):

@@ -170,3 +170,23 @@ def test_shade_full_keeps_dead_lanes(scenes):
     assert torch.equal(carry.state[live_miss], before["state"][live_miss])
     assert not carry.alive[live_miss].any()
     assert (carry.radiance[live_miss] > 0).all()
+
+
+def test_material_tables_packed_once(scenes):
+    """K2's and the texture stage's material tables are packed on first
+    use and kept on the materials object, value for value what the
+    packers give; a new materials object gets its own."""
+    from metal_pathtracer_tpu_torch.ops.kernels import texture
+
+    _, _, ps = scenes
+    m = ps.materials
+    for pack in (shade.pack_material_table,
+                 texture.pack_texture_material_table):
+        table = m.table(pack)
+        assert m.table(pack) is table
+        assert torch.equal(table, pack(m))
+    assert m.table(shade.pack_material_table).shape == (
+        m.count, len(shade.MAT_COLS))
+    other = dataclasses.replace(m, roughness=m.roughness + 0.25)
+    assert not torch.equal(other.table(shade.pack_material_table),
+                           m.table(shade.pack_material_table))
