@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's three paths:
+(one nvcc per source, in parallel) and drives the port's five paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -39,7 +39,21 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    NEE together) at 160x96 4 spp through the kernels against the plain
    path (RMSE 0, equal trace counts); the Cornell box at 512x512 d8 and
    rtow at 1200x675 d50 through ``CudaBackend``; each K3 and K2 stage
-   timed at the first depth with its bound.
+   timed at the first depth with its bound;
+5. the material zoo (plastic, carpaint, subsurface in its separable and
+   random-walk modes, env-modulated lights; K2's extended instantiation,
+   the random-walk pre-stage over K3a): K2 ``full`` on
+   ``assets/scenes/materials.scene``'s 960x320 depths 0 and 1, ``s1``/``s2``
+   on materials-env-rw's first depth (the HDR sky, the random walk's planes
+   fed to both sides) and ``s1`` with the emod plane on cornell-emitenv's
+   first depth, against their plain versions bit for bit and timed with
+   their bounds; the three configurations, a plastic + carpaint and a
+   separable-SSS triangle-icosphere scene and the six-slot textured scene
+   under the gradient sky (stage ``full`` with texture planes) at 160x96
+   4 spp against the plain path (RMSE 0, equal trace counts); the three
+   configurations at full size through ``CudaBackend``. The kernels line
+   lists the extended K2 stages as ``shade_*_zoo``, with this phase's
+   launches.
 
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
@@ -127,6 +141,14 @@ RTOW_SEED = 0
 K3_LANE_BYTES = 28 + 8
 K3_SPHERE_BYTES, K3_SLOT_BYTES, K3_BOX_BYTES, K3_RECT_BYTES = 16, 20, 24, 60
 K3_SPHERE_OPS, K3_RECT_OPS, K3_BOX_OPS = 25, 35, 12
+# K2's device ms at the earlier phases' first depths as PERF.md records
+# them (its run G, on an NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's (K2_NOW) at the end: the material zoo's extended
+# instantiation must leave the other paths' code as it was
+K2_RUN_G = {"lambert full": 0.0417, "textured headline s1": 0.751,
+            "textured headline s2": 0.361, "cornell s1": 0.1066,
+            "cornell s2": 0.0560, "rtow full depth 0": 0.0726}
+K2_NOW = {}
 
 
 def device_line() -> str:
@@ -204,12 +226,16 @@ def k1_bound(walk, lane_bytes):
                     + walk["tri_tests"] * K1_TRI_OPS)
 
 
-def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False):
+def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False,
+             extra=0, table=0):
+    """K2's bound by lane kind; ``extra``: bytes more per hit (the
+    random-walk or emod planes); ``table``: the material table's bytes,
+    read once."""
     b = K2_BYTES[name]
-    hit = b["hit"] + (TEX_BYTES if textured else 0) \
+    hit = b["hit"] + (TEX_BYTES if textured else 0) + extra \
         - (TRI_ROW_BYTES - 4 if analytic else 0)
     return bound_ms(n_hit * hit + n_miss * b["miss"] + n_dead * b["dead"]
-                    + (n_hit + n_miss + n_dead) * b["out"],
+                    + (n_hit + n_miss + n_dead) * b["out"] + table,
                     (n_hit + n_miss) * b["ops"])
 
 
@@ -472,6 +498,7 @@ def lambert_path(dev, card, kernels, out):
           f"differing lanes [{card}]")
     if differ > 1e-4 * n or not call_err <= 1e-4:
         raise AssertionError("K2 full disagrees with its plain version")
+    K2_NOW["lambert full"] = k2_ms
     out["shade_full"] = dict(
         source=ROOT + "shade.cu",
         replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
@@ -837,6 +864,9 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
         replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:60",
         launches=launches["trace_any"], max_abs_err=0.0, ms=any_ms,
         plain_ms=any_plain_ms, bound_ms=any_bound, bound_by=any_by)
+    if textured:
+        K2_NOW["textured headline s1"] = s1_ms
+        K2_NOW["textured headline s2"] = s2_ms
     out["shade_s1"] = dict(
         source=ROOT + "shade.cu",
         replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
@@ -943,7 +973,8 @@ def cornell_shadow_wave(scene, carry, static, uni):
                        kind=kind, scene=scene, rectpdf=rectpdf)
     l_dir, l_dist, l_pdf, _, l_valid = \
         integrator.rect_light_sample_from_uniforms(
-            scene, trans[:, 10:13], trans[:, 0], trans[:, 1], trans[:, 2])
+            scene, trans[:, 10:13], trans[:, 0], trans[:, 1], trans[:, 2],
+            uni, static)
     sh_o, sh_max, _ = S.nee_shadow_rays(
         trans, t, l_dir, l_pdf, l_valid, None,
         torch.clamp_min(l_dist - C.EPSILON_T, C.EPSILON_T))
@@ -975,12 +1006,8 @@ def prim_k2(cells, dev, card):
     box's first-depth wavefront with its rect-light bank, ``full`` on
     rtow's first two depths; carry, transients and chain bit-equal, each
     stage timed beside its bound."""
-    from metal_pathtracer_tpu_torch import constants as C
     from metal_pathtracer_tpu_torch.ops import integrator
-    from metal_pathtracer_tpu_torch.ops.intersect import (
-        analytic_point,
-        trace_occluded,
-    )
+    from metal_pathtracer_tpu_torch.ops.intersect import analytic_point
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
     from metal_pathtracer_tpu_torch.utils import benchscene as B
 
@@ -1007,16 +1034,7 @@ def prim_k2(cells, dev, card):
     compare_bits("K2 s1 cornell first depth",
                  carry_pairs(ck, cp) + [("trans", trans, trans_p)])
     # the rect-light bank from s1's draws, as trace_paths_nee builds it
-    l_dir, l_dist, l_pdf, l_em, l_valid = \
-        integrator.rect_light_sample_from_uniforms(
-            scene, trans[:, 10:13], trans[:, 0], trans[:, 1], trans[:, 2])
-    sh_o, sh_max, do_sh = S.nee_shadow_rays(
-        trans, t, l_dir, l_pdf, l_valid, None,
-        torch.clamp_min(l_dist - C.EPSILON_T, C.EPSILON_T))
-    occ = trace_occluded(sh_o, l_dir, scene, C.EPSILON_T, sh_max)
-    esmp = torch.cat([l_dir, l_em, l_pdf[:, None],
-                      l_valid[:, None].to(torch.float32),
-                      occ[:, None].to(torch.float32)], 1)
+    esmp, n_shadow = S.light_banks(scene, uni, static, trans, t)
 
     def s2(fn, c):
         return fn(c, *hit, trans, esmp, params, 0, kind=kind, scene=scene)
@@ -1037,6 +1055,7 @@ def prim_k2(cells, dev, card):
     n_live = int(ck.alive.sum())
     s1_ms, s1_win = timed(prep(s1, S.shade_s1, carry), 5)
     s2_ms, s2_win = timed(prep(s2, S.shade_s2, ck), 5)
+    K2_NOW["cornell s1"], K2_NOW["cornell s2"] = s1_ms, s2_ms
     out["shade_s1"] = (s1_ms, cuda_ms(prep(s1, S.shade_s1_reference, carry),
                                       2),
                        *k2_bound("shade_s1", n_hit, n - n_hit, 0,
@@ -1045,7 +1064,7 @@ def prim_k2(cells, dev, card):
                        *k2_bound("shade_s2", n_live, 0, n - n_live,
                                  analytic=True))
     print(f"cornell first depth ({n} lanes, {n_hit} hits, "
-          f"{int(do_sh.sum())} rect-light shadow rays): K2 s1 and s2 "
+          f"{int(n_shadow)} rect-light shadow rays): K2 s1 and s2 "
           f"bit-equal to their plain versions in carry, transients and "
           f"chain; s1 {s1_ms:.4f} ms on the device, {s1_win:.4f} ms around "
           f"the wrapper (plain {out['shade_s1'][1]:.1f} ms, bound "
@@ -1075,6 +1094,7 @@ def prim_k2(cells, dev, card):
         n_live = int(carry.alive.sum())
         n_hit = int((carry.alive & (idx >= 0)).sum())
         ms, win = timed(prep(full, S.shade_full, carry), 5)
+        K2_NOW[f"rtow full depth {depth}"] = ms
         plain = cuda_ms(prep(full, S.shade_full_reference, carry), 2)
         b, by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live,
                          analytic=True)
@@ -1086,19 +1106,21 @@ def prim_k2(cells, dev, card):
 
 
 def prim_timed(label, resources, settings, w, h, spp, dev, card, kernels,
-               path):
+               path, environment=None):
     """A warm-up, then ``spp`` samples at w x h through ``CudaBackend``
     with the launch counts reset just before; fails if a kernel of
     ``path`` was not launched. Returns the launches."""
     from metal_pathtracer_tpu_torch.renderer.headless import CudaBackend
 
     backend = CudaBackend()
-    backend.render(resources, settings, *CHECK_FRAME, 1, device=dev)
+    backend.render(resources, settings, *CHECK_FRAME, 1, device=dev,
+                   environment=environment)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(kernels)
     t0 = time.time()
-    res = backend.render(resources, settings, w, h, spp, device=dev)
+    res = backend.render(resources, settings, w, h, spp, device=dev,
+                         environment=environment)
     wall = time.time() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1305,6 +1327,273 @@ def primitives_path(dev, card, kernels, out):
             plain_ms=plain_ms, bound_ms=b, bound_by=by)
 
 
+# ---------------------------------------------------------------------------
+# The material zoo: plastic, carpaint, subsurface, env-modulated lights
+# ---------------------------------------------------------------------------
+
+MATERIALS_TIMED_SPP = 4
+MATERIALS_RW_TIMED_SPP = 2
+CORNELL_EMITENV_TIMED_SPP = 4
+# K2 extras per lane: the random-walk planes and state a lane reads in
+# full and s2 (18 floats + 8 B), the emod plane s1 reads (3 floats)
+RW_BYTES, EMOD_BYTES = 18 * 4 + 8, 3 * 4
+
+
+def zoo_cells(dev):
+    """The material zoo's three configurations and the two triangle
+    icosphere scenes of the 160x96 check: name -> (settings, resources,
+    environment or None)."""
+    from metal_pathtracer_tpu_torch.settings import SssMode
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    rows = B.ICOSPHERE_ROWS
+    pc = B.build_icosphere_scene(
+        [rows["plastic"], rows["carpaint"], rows["ground"]],
+        [((-1.0, 0.6, 0.0), 0.8, 0), ((1.0, 0.6, 0.0), 0.8, 1)], 13)
+    sep = B.build_icosphere_scene([rows["sss"], rows["ground"]],
+                                  [((0.0, 0.6, 0.0), 0.8, 0)], 23)
+    sep[0].sssMode = SssMode.SEPARABLE
+    six = B.build_six_slot_scene()
+    six[0].maxDepth = 8
+    return {"materials": (*B.build_materials_scene(), None),
+            "materials-env-rw": B.build_materials_env_rw_scene(dev),
+            "cornell-emitenv": B.build_cornell_emitenv_scene(dev),
+            "icosphere plastic+carpaint": (*pc, None),
+            "icosphere separable sss": (*sep, None),
+            "six-slot textured, gradient sky": (*six, None)}
+
+
+def zoo_k2(cells, dev, card, out):
+    """K2 against its plain version on the zoo's full-size wavefronts, bit
+    for bit: ``full`` (the extended instantiation) on materials' depths 0
+    and 1; ``s1``/``s2`` on materials-env-rw's first depth with its
+    environment bank and the random walk's planes fed to both; ``s1`` with
+    ``emod`` on cornell-emitenv's first depth. Each timed beside its
+    bound."""
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops import integrator
+    from metal_pathtracer_tpu_torch.ops.intersect import analytic_point
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    def prep(stage, fn, c0):
+        def make():
+            c = clone(c0)
+            return lambda: stage(fn, c)
+        return make
+
+    def build(name, w, h):
+        settings, res, env = cells[name]
+        scene = res.build_arrays(environment=env, device=dev)
+        static, uni = scene_setup(settings, res, w, h, dev)
+        return scene, static, uni, env
+
+    def table(scene):
+        return scene.materials.count * len(S.MAT_COLS) * 4
+
+    # ---- full on materials 960x320, depths 0 and 1 ----------------------
+    w, h = B.MATERIALS_FRAME
+    n = w * h
+    scene, static, uni, _ = build("materials", w, h)
+    params = S.ShadeParams.of(uni, static)
+    assert params.extended
+    carry = primary_carry(uni, static, dev)
+    for depth in (0, 1):
+        t, idx, u, v, kind = S._trace(scene, carry)
+
+        def full(fn, c):
+            fn(c, t, idx, u, v, scene.triangles, scene.materials, params,
+               depth, kind=kind, scene=scene)
+
+        ck, cp = clone(carry), clone(carry)
+        full(S.shade_full, ck)
+        full(S.shade_full_reference, cp)
+        torch.cuda.synchronize()
+        compare_bits(f"K2 full (zoo) materials depth {depth}",
+                     carry_pairs(ck, cp))
+        n_live = int(carry.alive.sum())
+        n_hit = int((carry.alive & (idx >= 0)).sum())
+        ms, win = timed(prep(full, S.shade_full, carry), 5)
+        plain = cuda_ms(prep(full, S.shade_full_reference, carry), 2)
+        b, by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live,
+                         analytic=True, table=table(scene))
+        print(f"materials depth {depth} ({n_live} live of {n} lanes, {n_hit} "
+              f"hits): K2 full (zoo) bit-equal to its plain version in the "
+              f"carry; {ms:.4f} ms on the device, {win:.4f} ms around the "
+              f"wrapper (plain {plain:.1f} ms, bound {b:.4f} ms by {by}) "
+              f"[{card}]")
+        if depth == 0:
+            out["shade_full_zoo"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                         bound_by=by)
+        carry = ck
+
+    # ---- s1/s2 on materials-env-rw's first depth, the walk's planes -----
+    scene, static, uni, env = build("materials-env-rw", w, h)
+    params = S.ShadeParams.of(uni, static, env)
+    carry = primary_carry(uni, static, dev)
+    t, idx, u, v, kind = S._trace(scene, carry)
+    envbg = env_ops.environment_background(env, carry.ray_d, uni, static,
+                                           carry.env_lod,
+                                           carry.env_lod_active)
+    envpdf = env_ops.environment_pdf(env, carry.ray_d,
+                                     uni.environment_rotation)
+    hit = (t, idx, u, v, scene.triangles, scene.materials)
+
+    def s1(fn, c, **kw):
+        return fn(c, *hit, envbg, envpdf, params, 0, kind=kind, scene=scene,
+                  **kw)
+
+    ck, cp = clone(carry), clone(carry)
+    trans, trans_p = s1(S.shade_s1, ck), s1(S.shade_s1_reference, cp)
+    torch.cuda.synchronize()
+    compare_bits("K2 s1 (zoo) materials-env-rw first depth",
+                 carry_pairs(ck, cp) + [("trans", trans, trans_p)])
+    t0 = time.perf_counter()
+    rw, rw_state = S.random_walks(scene, uni, static, ck, t, idx, u, v, kind)
+    torch.cuda.synchronize()
+    walk_ms = (time.perf_counter() - t0) * 1e3
+    n_walk = int((rw[:, 0] > 0.5).sum())
+    n_used = int(((rw[:, 0] > 0.5) & (rw[:, 7] > 0.0)).sum())
+    n_exit = int((rw[:, 11] > 0.5).sum())
+    esmp, _ = S.light_banks(scene, uni, static, trans, t)
+
+    def s2(fn, c):
+        return fn(c, *hit, trans, esmp, params, 0, kind=kind, scene=scene,
+                  rw=rw, rw_state=rw_state)
+
+    c2k, c2p = clone(ck), clone(ck)
+    chain, chain_p = s2(S.shade_s2, c2k), s2(S.shade_s2_reference, c2p)
+    torch.cuda.synchronize()
+    compare_bits("K2 s2 (zoo) materials-env-rw first depth",
+                 carry_pairs(c2k, c2p) + [("chain", chain, chain_p)])
+    n_hit = int((carry.alive & (idx >= 0)).sum())
+    n_live = int(ck.alive.sum())
+    s1_ms, s1_win = timed(prep(s1, S.shade_s1, carry), 5)
+    s2_ms, s2_win = timed(prep(s2, S.shade_s2, ck), 5)
+    s1_plain = cuda_ms(prep(s1, S.shade_s1_reference, carry), 2)
+    s2_plain = cuda_ms(prep(s2, S.shade_s2_reference, ck), 2)
+    b1, by1 = k2_bound("shade_s1", n_hit, n - n_hit, 0, analytic=True,
+                       table=table(scene))
+    b2, by2 = k2_bound("shade_s2", n_live, 0, n - n_live, analytic=True,
+                       extra=RW_BYTES, table=table(scene))
+    out["shade_s1_zoo"] = dict(ms=s1_ms, plain_ms=s1_plain, bound_ms=b1,
+                               bound_by=by1)
+    out["shade_s2_zoo"] = dict(ms=s2_ms, plain_ms=s2_plain, bound_ms=b2,
+                               bound_by=by2)
+    print(f"materials-env-rw first depth ({n} lanes, {n_hit} hits, {n_walk} "
+          f"walk lanes, {n_used} with a sample (coat lobe or exit), "
+          f"{n_exit} exits, walk pre-stage {walk_ms:.1f} ms around it): K2 "
+          f"s1 and s2 (zoo) bit-equal to "
+          f"their plain versions in carry, transients and chain; s1 "
+          f"{s1_ms:.4f} ms on the device, {s1_win:.4f} ms around the wrapper "
+          f"(plain {s1_plain:.1f} ms, bound {b1:.4f} ms by {by1}); s2 "
+          f"{s2_ms:.4f} / {s2_win:.4f} ms (plain {s2_plain:.1f} ms, bound "
+          f"{b2:.4f} ms by {by2}) [{card}]")
+
+    # ---- s1 with emod on cornell-emitenv's first depth ------------------
+    w, h = B.CORNELL_FRAME
+    n = w * h
+    scene, static, uni, env = build("cornell-emitenv", w, h)
+    params = S.ShadeParams.of(uni, static, env)
+    carry = primary_carry(uni, static, dev)
+    t, idx, u, v, kind = S._trace(scene, carry)
+    envbg = env_ops.environment_background(env, carry.ray_d, uni, static,
+                                           carry.env_lod,
+                                           carry.env_lod_active)
+    envpdf = env_ops.environment_pdf(env, carry.ray_d,
+                                     uni.environment_rotation)
+    rectpdf = integrator.rect_light_pdf_for_hit(
+        scene, analytic_point(carry.ray_o, t, carry.ray_d), kind, idx,
+        carry.ray_o)
+    emod = S.env_modulation(scene, uni, static, carry, t, idx, u, v, kind)
+    hit = (t, idx, u, v, scene.triangles, scene.materials)
+
+    def s1e(fn, c):
+        return fn(c, *hit, envbg, envpdf, params, 0, kind=kind, scene=scene,
+                  rectpdf=rectpdf, emod=emod)
+
+    ck, cp = clone(carry), clone(carry)
+    trans, trans_p = s1e(S.shade_s1, ck), s1e(S.shade_s1_reference, cp)
+    torch.cuda.synchronize()
+    compare_bits("K2 s1 with emod cornell-emitenv first depth",
+                 carry_pairs(ck, cp) + [("trans", trans, trans_p)])
+    n_hit = int((carry.alive & (idx >= 0)).sum())
+    ms, win = timed(prep(s1e, S.shade_s1, carry), 5)
+    plain = cuda_ms(prep(s1e, S.shade_s1_reference, carry), 2)
+    b, by = k2_bound("shade_s1", n_hit, n - n_hit, 0, analytic=True,
+                     extra=EMOD_BYTES, table=table(scene))
+    print(f"cornell-emitenv first depth ({n} lanes, {n_hit} hits): K2 s1 "
+          f"with emod bit-equal to its plain version in carry and "
+          f"transients; {ms:.4f} ms on the device, {win:.4f} ms around the "
+          f"wrapper (plain {plain:.1f} ms, bound {b:.4f} ms by {by}) [{card}]")
+
+
+def materials_path(dev, card, kernels, out):
+    """The material zoo: K2's extended stages bit for bit against their
+    plain versions at full size, the zoo's three configurations, two
+    triangle-icosphere scenes and the six-slot textured scene (stage full
+    with texture planes) at 160x96 4 spp through the kernels against the
+    plain path, and the three configurations at full size through
+    ``CudaBackend``."""
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    t0 = time.time()
+    cells = zoo_cells(dev)
+    t1 = time.time()
+    zoo_k2(cells, dev, card, out)
+    t2 = time.time()
+
+    # ---- 160x96 4 spp: the kernels against the plain path ---------------
+    w, h = CHECK_FRAME
+    render_err = 0.0
+    for name, (settings, res, env) in cells.items():
+        scene = res.build_arrays(environment=env, device=dev)
+        static, uni = scene_setup(settings, res, w, h, dev)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t_k = time.time()
+        st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                    static, PRIM_CHECK_SPP)
+        torch.cuda.synchronize()
+        t_p = time.time()
+        used = [k for k, fn in kernels.items() if fn.launches > before[k]]
+        with plain_kernels():
+            st_p = frame.render_samples(scene, uni,
+                                        RenderState.create(w, h, dev), static,
+                                        PRIM_CHECK_SPP)
+        torch.cuda.synchronize()
+        render_err = max(render_err, exact_gate(
+            st_k, st_p, f"{name} {w}x{h} {PRIM_CHECK_SPP}spp d"
+            f"{settings.maxDepth} through {'+'.join(used)} vs plain "
+            f"({t_p - t_k:.1f}s / {time.time() - t_p:.1f}s)"))
+
+    # ---- the three configurations at full size through CudaBackend ------
+    t3 = time.time()
+    runs = {}
+    for name, frame_size, spp, path in (
+            ("materials", B.MATERIALS_FRAME, MATERIALS_TIMED_SPP,
+             ("sphere_nearest_brute", "shade_full")),
+            ("materials-env-rw", B.MATERIALS_FRAME, MATERIALS_RW_TIMED_SPP,
+             ("sphere_nearest_brute", "shade_s1", "shade_s2")),
+            ("cornell-emitenv", B.CORNELL_FRAME, CORNELL_EMITENV_TIMED_SPP,
+             ("sphere_nearest_brute", "rect_nearest", "shade_s1",
+              "shade_s2"))):
+        settings, res, env = cells[name]
+        runs[name] = prim_timed(name, res, settings, *frame_size, spp, dev,
+                                card, kernels, path, environment=env)
+    for stage, cell in (("shade_full", "materials"),
+                        ("shade_s1", "materials-env-rw"),
+                        ("shade_s2", "materials-env-rw")):
+        out[f"{stage}_zoo"].update(
+            source=ROOT + "shade.cu",
+            replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
+            launches=runs[cell][stage], max_abs_err=render_err)
+    print(f"# material-zoo phase: scenes {t1 - t0:.1f}s, K2 checks "
+          f"{t2 - t1:.1f}s, 160x96 renders {t3 - t2:.1f}s, timed renders "
+          f"{time.time() - t3:.1f}s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -1349,10 +1638,19 @@ def main() -> None:
     t0 = time.time()
     primitives_path(dev, card, kernels, out)
     print(f"# analytic-primitives phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    materials_path(dev, card, kernels, out)
+    print(f"# material-zoo phases took {time.time() - t0:.1f}s")
 
+    print("K2 device ms at the earlier phases' first depths, this run "
+          "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"
+                                   for k, v in K2_RUN_G.items())
+          + f" [{card}]")
+    names = list(kernels) + ["shade_full_zoo", "shade_s1_zoo",
+                             "shade_s2_zoo"]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])
-        for name in kernels]}))
+        for name in names]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

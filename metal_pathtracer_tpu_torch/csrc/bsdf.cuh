@@ -1,6 +1,8 @@
 // BSDFs of the shade kernels: clamps, Fresnel/GGX helpers, and sampling
-// and evaluation for lambert, metal, dielectric and PBR (a diffuse light
-// ends its path before any sample: sample_bsdf returns the invalid one).
+// and evaluation for lambert, metal, dielectric and PBR, and (the EXT
+// instantiations of sample_bsdf/evaluate_bsdf only) plastic, carpaint and
+// subsurface (a diffuse light ends its path before any sample:
+// sample_bsdf returns the invalid one).
 //
 // Each function mirrors its plain PyTorch twin in ops/bsdf.py or
 // ops/pbr.py operation for operation (same association, FMAs only inside
@@ -20,8 +22,12 @@
 #define MAT_METAL 1
 #define MAT_DIELECTRIC 2
 #define MAT_LIGHT 3
+#define MAT_PLASTIC 4
+#define MAT_SSS 5
+#define MAT_CARPAINT 6
 #define MAT_PBR 7
-#define MAT_COLS 24
+#define MAT_COLS 61
+#define RAY_ORIGIN_EPSILON 1.0e-4f
 
 // bsdf.ClampParams
 struct ClampP {
@@ -37,7 +43,17 @@ struct Mat {
   V3 emission, sigma_a;
   float metallic, transmission, thickness, double_sided;
   V3 cond_eta, cond_k;
-  float has_cond;
+  float has_cond, emission_env;
+  // plastic / carpaint coat layer
+  float coat_ior, coat_roughness, coat_thickness, coat_weight, coat_favg;
+  V3 coat_tint, coat_abs;
+  // carpaint base and flake lobes
+  float cp_metallic, cp_roughness, cp_flake_scale, cp_flake_weight,
+      cp_flake_roughness, cp_flake_anis, cp_flake_strength, cp_has_cond;
+  V3 cp_eta, cp_k;
+  // subsurface
+  float sss_g, sss_mfp, sss_method, sss_coat, sss_override;
+  V3 sss_sigma_a, sss_sigma_s;
 };
 
 __device__ __forceinline__ Mat fetch_material(const float* table, int mid) {
@@ -57,6 +73,31 @@ __device__ __forceinline__ Mat fetch_material(const float* table, int mid) {
   m.cond_eta = v3(r[17], r[18], r[19]);
   m.cond_k = v3(r[20], r[21], r[22]);
   m.has_cond = r[23];
+  m.emission_env = r[24];
+  m.coat_ior = r[25];
+  m.coat_roughness = r[26];
+  m.coat_thickness = r[27];
+  m.coat_weight = r[28];
+  m.coat_favg = r[29];
+  m.coat_tint = v3(r[30], r[31], r[32]);
+  m.coat_abs = v3(r[33], r[34], r[35]);
+  m.cp_metallic = r[36];
+  m.cp_roughness = r[37];
+  m.cp_flake_scale = r[38];
+  m.cp_flake_weight = r[39];
+  m.cp_flake_roughness = r[40];
+  m.cp_flake_anis = r[41];
+  m.cp_flake_strength = r[42];
+  m.cp_has_cond = r[43];
+  m.cp_eta = v3(r[44], r[45], r[46]);
+  m.cp_k = v3(r[47], r[48], r[49]);
+  m.sss_g = r[50];
+  m.sss_mfp = r[51];
+  m.sss_method = r[52];
+  m.sss_coat = r[53];
+  m.sss_override = r[54];
+  m.sss_sigma_a = v3(r[55], r[56], r[57]);
+  m.sss_sigma_s = v3(r[58], r[59], r[60]);
   return m;
 }
 
@@ -291,7 +332,14 @@ __device__ __forceinline__ bool material_is_delta(const Mat& m) {
   return m.type == MAT_DIELECTRIC ||
          ((m.type == MAT_METAL || m.type == MAT_PBR) && rough <= 1e-3f);
 }
+__device__ __forceinline__ float plastic_coat_roughness(const Mat& m) {
+  return cmin(clampf(m.coat_roughness, 0.0f, 1.0f), 1e-3f);
+}
+template <bool EXT>
 __device__ __forceinline__ float env_lighting_roughness(const Mat& m) {
+  if (EXT && m.type == MAT_PLASTIC)
+    return clampf(plastic_coat_roughness(m), 0.0f, 1.0f);
+  if (EXT && m.type == MAT_CARPAINT) return clampf(m.cp_roughness, 0.0f, 1.0f);
   return m.type == MAT_METAL || m.type == MAT_PBR
              ? clampf(m.roughness, 0.0f, 1.0f)
              : 1.0f;
@@ -320,6 +368,8 @@ struct Sample {
   bool is_delta;
   int medium_event, lobe_type;
   float lobe_roughness;
+  bool has_exit;           // the next ray leaves from the BSSRDF exit
+  V3 exit_point, exit_n;   // point, off its normal
 };
 __device__ __forceinline__ Sample invalid_sample() {
   Sample o;
@@ -328,6 +378,8 @@ __device__ __forceinline__ Sample invalid_sample() {
   o.is_delta = false;
   o.medium_event = o.lobe_type = 0;
   o.lobe_roughness = 0.0f;
+  o.has_exit = false;
+  o.exit_point = o.exit_n = zero3();
   return o;
 }
 
@@ -487,7 +539,7 @@ __device__ inline float ggx_vndf_pdf(float alpha, V3 n, V3 wo, V3 wh) {
 struct Eval {
   V3 value;
   float pdf;
-  bool is_delta;
+  bool is_delta, is_bssrdf;
 };
 
 // pbr.evaluate_pbr
@@ -499,6 +551,7 @@ __device__ inline Eval evaluate_pbr(const Mat& m, V3 n, V3 wo, V3 wi,
   PbrLobes L = pbr_lobes(m, occ);
   Eval e;
   e.is_delta = L.roughness <= 1e-3f;
+  e.is_bssrdf = false;
   e.value = zero3();
   e.pdf = 0.0f;
   if (!(geom_ok && L.weights_ok && !e.is_delta)) return e;
@@ -568,6 +621,7 @@ __device__ inline Eval evaluate_metal(const Mat& m, V3 n, V3 wo, V3 wi,
   e.value = zero3();
   e.pdf = 0.0f;
   e.is_delta = rough <= 1e-3f;
+  e.is_bssrdf = false;
   if (e.is_delta) return e;
   float alpha = rough * rough;
   V3 wh = safe_normalize3(wo + wi);
@@ -585,30 +639,6 @@ __device__ inline Eval evaluate_metal(const Mat& m, V3 n, V3 wo, V3 wi,
     e.value = cmin3(spec, 0.0f);
     e.pdf = clamp_specular_pdf(p_raw, p);
   }
-  return e;
-}
-
-// bsdf.evaluate_bsdf over lambert, metal, dielectric, PBR
-__device__ inline Eval evaluate_bsdf(const Mat& m, V3 n, V3 wo, V3 wi,
-                              const ClampP& p, float occ) {
-  float cos_o = cmin(dot3(n, wo), 0.0f);
-  float cos_i = cmin(dot3(n, wi), 0.0f);
-  bool geom_ok = cos_i > 0.0f && cos_o > 0.0f;
-  Eval e;
-  e.value = zero3();
-  e.pdf = 0.0f;
-  e.is_delta = false;
-  if (m.type == MAT_LAMBERT && geom_ok) {
-    e.value = (clamp3(m.base, 0.0f, 1.0f) * clampf(occ, 0.0f, 1.0f)) / PI_F;
-    e.pdf = lambert_pdf(n, wi);
-  } else if (m.type == MAT_METAL && geom_ok) {
-    e = evaluate_metal(m, n, wo, wi, cos_o, cos_i, p);
-  } else if (m.type == MAT_DIELECTRIC) {
-    e.is_delta = true;
-  } else if (m.type == MAT_PBR && geom_ok) {
-    e = evaluate_pbr(m, n, wo, wi, p, occ);
-  }
-  if (e.pdf <= 0.0f || !finite3(e.value)) e.value = zero3();
   return e;
 }
 
@@ -716,13 +746,511 @@ __device__ inline Sample sample_pbr(const Mat& m, V3 n, V3 wo, V3 incident,
   return o;
 }
 
-// bsdf.sample_bsdf over lambert, metal, dielectric, PBR
-__device__ inline Sample sample_bsdf(const Mat& m, V3 n, V3 wo, V3 incident,
-                              bool front, uint32_t* s, const ClampP& p,
-                              float occ) {
+// ---- plastic (bsdf._sample_plastic, _evaluate_plastic) -----------------
+__device__ __forceinline__ float plastic_coat_f0(const Mat& m) {
+  float eta = cmin(m.eta, 1.0f);
+  float ratio = (eta - 1.0f) / cmin(eta + 1.0f, 1e-6f);
+  return clampf(ratio * ratio, 0.0f, 0.999f);
+}
+__device__ inline V3 plastic_specular_tint(const Mat& m) {
+  V3 tint = clamp3(m.coat_tint, 0.0f, 1.0f);
+  float th = cmin(m.coat_thickness, 0.0f);
+  V3 ab = cmin3(m.coat_abs, 0.0f);
+  V3 att = clamp3(tint * v3(expf(-ab.x * th), expf(-ab.y * th),
+                            expf(-ab.z * th)),
+                  0.0f, 1.0f);
+  bool skip = th <= 0.0f || (ab.x <= 1e-6f && ab.y <= 1e-6f && ab.z <= 1e-6f);
+  return skip ? tint : att;
+}
+__device__ inline V3 plastic_diffuse_transmission(const Mat& m, float cos_i,
+                                                  float cos_o) {
+  float th = cmin(m.coat_thickness, 0.0f);
+  V3 tint = clamp3(m.coat_tint, 0.0f, 1.0f);
+  V3 ab = cmin3(m.coat_abs, 0.0f);
+  float di = th / cmin(cos_i, 1e-3f), d_o = th / cmin(cos_o, 1e-3f);
+  V3 att_i = v3(expf(-ab.x * di), expf(-ab.y * di), expf(-ab.z * di));
+  V3 att_o = v3(expf(-ab.x * d_o), expf(-ab.y * d_o), expf(-ab.z * d_o));
+  V3 full = clamp3(tint * att_i * att_o, 0.0f, 1.0f);
+  return th <= 0.0f ? tint : full;
+}
+__device__ __forceinline__ V3 one_minus(V3 a) {
+  return v3(1.0f - a.x, 1.0f - a.y, 1.0f - a.z);
+}
+__device__ __forceinline__ V3 splat(float a) { return v3(a, a, a); }
+__device__ __forceinline__ V3 max0(V3 a) { return cmin3(a, 0.0f); }
+// (d * g) / max(4 cos_o cos_i, 1e-6): the GGX specular factor
+__device__ __forceinline__ float ggx_factor(float d, float g, float cos_o,
+                                           float cos_i) {
+  return (d * g) / cmin(4.0f * cos_o * cos_i, 1e-6f);
+}
+
+// the plastic diffuse lobe at wi, before its pdf: (base / pi) occ,
+// through the coat (both Fresnel transmissions, the coat average)
+__device__ inline V3 plastic_diffuse(const Mat& m, V3 f0c, float cos_i,
+                                     float cos_o, float occ) {
+  V3 d = (clamp3(m.base, 0.0f, 1.0f) / PI_F) * clampf(occ, 0.0f, 1.0f);
+  d = d * plastic_diffuse_transmission(m, cos_i, cos_o) *
+      one_minus(schlick_fresnel(f0c, cos_i)) *
+      one_minus(schlick_fresnel(f0c, cos_o));
+  return max0(d * cmin(1.0f - clampf(m.coat_favg, 0.0f, 1.0f), 0.0f));
+}
+
+// 1 selector draw, then 2 for either lobe
+__device__ inline Sample sample_plastic(const Mat& m, V3 n, V3 wo,
+                                        uint32_t* s, const ClampP& p,
+                                        float occ) {
+  float cos_o = dot3(n, wo);
+  float cr = plastic_coat_roughness(m);
+  float alpha = cr * cr;
+  V3 f0c = splat(plastic_coat_f0(m));
+  float p_coat = clampf(m.coat_weight, 0.0f, 1.0f);
+  float p_diffuse = 1.0f - p_coat;
+  float selector = rand_uniform(s);
+  Sample o = invalid_sample();
+  if (selector < p_coat && p_coat > 0.0f) {
+    V3 wh = sample_ggx_vndf(n, wo, cr, s);
+    V3 wi = safe_normalize3(reflect3(-wo, wh));
+    float cos_i = dot3(n, wi);
+    float dot_wi_wh = dot3(wi, wh);
+    float d = ggx_d(alpha, dot3(n, wh));
+    float g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
+    V3 spec = schlick_fresnel(f0c, dot_wi_wh) * ggx_factor(d, g, cos_o, cos_i);
+    spec = clamp_specular_tail(spec, cr, f0c, p) * plastic_specular_tint(m);
+    float raw = ggx_pdf(alpha, n, wo, wi);
+    float spec_pdf = raw > 0.0f ? clamp_specular_pdf(raw, p) : 0.0f;
+    float pdf = p_coat * spec_pdf + p_diffuse * lambert_pdf(n, wi);
+    V3 weight = spec * (cos_i / cmin(pdf, 1e-20f));
+    if (dot3(wh, n) > 0.0f && cos_i > 0.0f && dot_wi_wh > 0.0f &&
+        pdf > 0.0f && finite3(weight) && cos_o > 0.0f) {
+      o.dir = wi;
+      o.weight = max0(weight);
+      o.pdf = o.dpdf = pdf;
+      o.lobe_type = 1;
+      o.lobe_roughness = cr;
+    }
+    return o;
+  }
+  V3 wi = safe_normalize3(to_world(sample_cosine_hemisphere(s), n));
+  float cos_i = dot3(n, wi);
+  V3 diffuse = plastic_diffuse(m, f0c, cos_i, cos_o, occ);
+  float raw = ggx_pdf(alpha, n, wo, wi);
+  float spec_pdf = raw > 0.0f ? clamp_specular_pdf(raw, p) : 0.0f;
+  float pdf = p_coat * spec_pdf + p_diffuse * lambert_pdf(n, wi);
+  V3 weight = diffuse * (cos_i / cmin(pdf, 1e-20f));
+  if (cos_i > 0.0f && pdf > 0.0f && finite3(weight) && cos_o > 0.0f) {
+    o.dir = wi;
+    o.weight = max0(weight);
+    o.pdf = o.dpdf = pdf;
+    o.lobe_roughness = 1.0f;
+  }
+  return o;
+}
+
+// cos_o, cos_i clamped at 0, both > 0
+__device__ inline Eval evaluate_plastic(const Mat& m, V3 n, V3 wo, V3 wi,
+                                        float cos_o, float cos_i,
+                                        const ClampP& p, float occ) {
+  float cr = plastic_coat_roughness(m);
+  float alpha = cr * cr;
+  V3 f0c = splat(plastic_coat_f0(m));
+  V3 wh = safe_normalize3(wo + wi);
+  bool half_ok = dot3(wh, n) > 0.0f && dot3(wo, wh) > 0.0f &&
+                 dot3(wi, wh) > 0.0f;
+  float d = ggx_d(alpha, dot3(n, wh));
+  float g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
+  V3 spec = schlick_fresnel(f0c, dot3(wi, wh)) * ggx_factor(d, g, cos_o, cos_i);
+  spec = clamp_specular_tail(spec, cr, f0c, p) * plastic_specular_tint(m);
+  spec = half_ok ? max0(spec) : zero3();
+  float raw = ggx_pdf(alpha, n, wo, wi);
+  float spec_pdf = half_ok && raw > 0.0f ? clamp_specular_pdf(raw, p) : 0.0f;
+  float p_coat = clampf(m.coat_weight, 0.0f, 1.0f);
+  Eval e;
+  e.value = spec + plastic_diffuse(m, f0c, cos_i, cos_o, occ);
+  e.pdf = p_coat * spec_pdf + (1.0f - p_coat) * lambert_pdf(n, wi);
+  e.is_delta = e.is_bssrdf = false;
+  return e;
+}
+
+// ---- carpaint (ops/carpaint.py) ------------------------------------------
+// jnp.mod(x, 1): the truncated remainder moved into [0, 1)
+__device__ __forceinline__ float mod1(float x) {
+  float r = fmodf(x, 1.0f);
+  return (r != 0.0f && r < 0.0f) ? r + 1.0f : r;
+}
+// carpaint._hash3 with the jitted reference's two FMAs
+__device__ inline V3 carpaint_hash3(V3 q) {
+  float px = mod1(fmaf_rn(q.x, 0.3183099f, 0.1f));
+  float py = mod1(fmaf_rn(q.y, 0.3183099f, 0.3f));
+  float pz = mod1(fmaf_rn(q.z, 0.3183099f, 0.7f));
+  float s = fmaf_rn(pz, px + 77.77f, fmaf_rn(px, py + 33.33f,
+                                            py * (pz + 55.55f)));
+  px = px + s;
+  py = py + s;
+  pz = pz + s;
+  return v3(mod1((px + py) * 13.5453123f), mod1((px + pz) * 13.5453123f),
+            mod1((py + pz) * 13.5453123f));
+}
+__device__ inline V3 flake_normal(const Mat& m, V3 pos, V3 n) {
+  float sc = m.cp_flake_scale;
+  V3 rnd = carpaint_hash3(v3(pos.x * sc, pos.y * sc, pos.z * sc));
+  float ax = cmin(1.0f - m.cp_flake_anis, 1e-3f);
+  float ay = cmin(1.0f + m.cp_flake_anis, 1e-3f);
+  float phi = TWO_PI_F * rnd.x;
+  float r = sqrtf(cmin(rnd.y, 1e-4f));
+  float x = r * cosf(phi) * ax;
+  float y = r * sinf(phi) * ay;
+  float m2 = clampf(x * x + y * y, 0.0f, 0.99f);
+  float z = sqrtf(cmin(1.0f - m2, 0.0f));
+  V3 t, b;
+  build_onb(n, &t, &b);
+  V3 perturbed = normalize3(t * x + b * y + n * z);
+  return normalize3(n + (perturbed - n) * m.cp_flake_strength);
+}
+__device__ inline V3 carpaint_base_f0(const Mat& m) {
+  if (!(m.cp_has_cond > 0.0f)) return clamp3(m.base, 0.0f, 1.0f);
+  return v3(fresnel_conductor1(1.0f, m.cp_eta.x, m.cp_k.x),
+            fresnel_conductor1(1.0f, m.cp_eta.y, m.cp_k.y),
+            fresnel_conductor1(1.0f, m.cp_eta.z, m.cp_k.z));
+}
+struct Lobe {
+  V3 f;
+  float pdf;
+};
+__device__ inline Lobe carpaint_coat(const Mat& m, V3 n, V3 wo, V3 wi,
+                                     const ClampP& p) {
+  float cos_o = cmin(dot3(n, wo), 0.0f), cos_i = cmin(dot3(n, wi), 0.0f);
+  float rough = plastic_coat_roughness(m);
+  float alpha = cmin(rough * rough, 1e-4f);
+  V3 wh = safe_normalize3(wo + wi);
+  bool geo = cos_i > 0.0f && cos_o > 0.0f && dot3(wh, n) > 0.0f &&
+             dot3(wo, wh) > 0.0f && dot3(wi, wh) > 0.0f;
+  float d = ggx_d(alpha, dot3(n, wh));
+  float g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
+  V3 f0c = splat(plastic_coat_f0(m));
+  V3 spec = schlick_fresnel(f0c, dot3(wi, wh)) * ggx_factor(d, g, cos_o, cos_i);
+  spec = clamp_specular_tail(spec * plastic_specular_tint(m), rough, f0c, p);
+  float raw = ggx_pdf(alpha, n, wo, wi);
+  bool ok = geo && raw > 0.0f;
+  Lobe l;
+  l.f = ok ? spec : zero3();
+  l.pdf = ok ? clamp_specular_pdf(raw, p) : 0.0f;
+  return l;
+}
+__device__ inline Lobe carpaint_flake(const Mat& m, V3 fn, V3 wo, V3 wi,
+                                      const ClampP& p) {
+  float cos_o = cmin(dot3(fn, wo), 0.0f), cos_i = cmin(dot3(fn, wi), 0.0f);
+  float rough = cmin(clampf(m.cp_flake_roughness, 0.0f, 1.0f), 1e-3f);
+  float alpha = rough * rough;
+  V3 wh = safe_normalize3(wo + wi);
+  bool geo = cos_i > 0.0f && cos_o > 0.0f && dot3(wh, fn) > 0.0f &&
+             dot3(wo, wh) > 0.0f && dot3(wi, wh) > 0.0f;
+  float d = ggx_d(alpha, dot3(fn, wh));
+  float g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
+  V3 f0 = carpaint_base_f0(m);
+  V3 spec = schlick_fresnel(f0, dot3(wi, wh)) * ggx_factor(d, g, cos_o, cos_i);
+  spec = clamp_specular_tail(spec * plastic_specular_tint(m), rough, f0, p);
+  spec = spec * cmin(1.0f - clampf(m.coat_favg, 0.0f, 1.0f), 0.0f);
+  float raw = ggx_pdf(alpha, fn, wo, wi);
+  bool ok = geo && raw > 0.0f;
+  Lobe l;
+  l.f = ok ? spec : zero3();
+  l.pdf = ok ? clamp_specular_pdf(raw, p) : 0.0f;
+  return l;
+}
+__device__ inline Lobe carpaint_base(const Mat& m, V3 n, V3 wo, V3 wi,
+                                     const ClampP& p) {
+  float cos_o = cmin(dot3(n, wo), 0.0f), cos_i = cmin(dot3(n, wi), 0.0f);
+  bool geo = cos_i > 0.0f && cos_o > 0.0f;
+  float metallic = clampf(m.cp_metallic, 0.0f, 1.0f);
+  float dw = cmin(1.0f - metallic, 0.0f), sw = cmin(metallic, 0.0f);
+  float coat_t = cmin(1.0f - clampf(m.coat_favg, 0.0f, 1.0f), 0.0f);
+  V3 base = clamp3(m.base, 0.0f, 1.0f);
+  V3 diffuse = max0((base / PI_F) * plastic_diffuse_transmission(m, cos_i,
+                                                                 cos_o) *
+                    coat_t);
+  bool use_diff = dw > 1e-4f;
+  V3 combined = zero3() + (use_diff ? diffuse * dw : zero3());
+  float pdf_diffuse = use_diff ? lambert_pdf(n, wi) : 0.0f;
+  float rough = cmin(clampf(m.cp_roughness, 0.0f, 1.0f), 1e-3f);
+  float alpha = rough * rough;
+  V3 wh = safe_normalize3(wo + wi);
+  bool half_ok = dot3(wh, n) > 0.0f && dot3(wo, wh) > 0.0f &&
+                 dot3(wi, wh) > 0.0f;
+  float d = ggx_d(alpha, dot3(n, wh));
+  float g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
+  float c = dot3(wi, wh);
+  V3 f = m.cp_has_cond > 0.0f
+             ? v3(fresnel_conductor1(c, m.cp_eta.x, m.cp_k.x),
+                  fresnel_conductor1(c, m.cp_eta.y, m.cp_k.y),
+                  fresnel_conductor1(c, m.cp_eta.z, m.cp_k.z))
+             : schlick_fresnel(base, c);
+  V3 spec = f * ggx_factor(d, g, cos_o, cos_i);
+  spec = max0(clamp_specular_tail(spec * plastic_specular_tint(m) * coat_t,
+                                  rough, carpaint_base_f0(m), p));
+  bool use_spec = sw > 1e-4f && half_ok;
+  combined = combined + (use_spec ? spec * sw : zero3());
+  float raw = ggx_pdf(alpha, n, wo, wi);
+  float pdf_spec = use_spec && raw > 0.0f ? clamp_specular_pdf(raw, p) : 0.0f;
+  bool ok = geo && (dw > 1e-4f || sw > 1e-4f);
+  Lobe l;
+  l.f = ok ? max0(combined) : zero3();
+  l.pdf = ok ? dw * pdf_diffuse + sw * pdf_spec : 0.0f;
+  return l;
+}
+// carpaint._lobe_probs: (p_coat, p_flake, p_base)
+__device__ inline void carpaint_probs(const Mat& m, float* pc, float* pf,
+                                      float* pb) {
+  float c = clampf(m.coat_weight, 0.0f, 0.95f);
+  float f = clampf(m.cp_flake_weight, 0.0f, 0.95f);
+  float b = cmin(1.0f - (c + f), 0.0f);
+  float norm = c + f + b;
+  if (norm <= 1e-6f) {
+    c = f = 0.0f;
+    b = norm = 1.0f;
+  }
+  *pc = c / norm;
+  *pf = f / norm;
+  *pb = b / norm;
+}
+__device__ inline Eval evaluate_carpaint(const Mat& m, V3 pos, V3 n, V3 wo,
+                                         V3 wi, const ClampP& p) {
+  float pc, pf, pb;
+  carpaint_probs(m, &pc, &pf, &pb);
+  Lobe coat = carpaint_coat(m, n, wo, wi, p);
+  Lobe flake = carpaint_flake(m, flake_normal(m, pos, n), wo, wi, p);
+  Lobe base = carpaint_base(m, n, wo, wi, p);
+  Eval e;
+  e.value = base.f * pb + flake.f * pf + coat.f * pc;
+  e.pdf = pb * base.pdf + pf * flake.pdf + pc * coat.pdf;
+  e.is_delta = e.is_bssrdf = false;
+  return e;
+}
+// 1 selector draw; coat and flake 2 more, the base 1 + 2
+__device__ inline Sample sample_carpaint(const Mat& m, V3 pos, V3 n, V3 wo,
+                                         uint32_t* s, const ClampP& p) {
+  float pc, pf, pb;
+  carpaint_probs(m, &pc, &pf, &pb);
+  float r = rand_uniform(s);
+  int lobe = (pc > 0.0f && r < pc) ? 2 : ((pf > 0.0f && r < pc + pf) ? 1 : 0);
+  if (lobe == 0 && pb <= 1e-6f)
+    lobe = (pf > pc && pf > 0.0f) ? 1 : (pc > 0.0f ? 2 : 0);
+  float cr = plastic_coat_roughness(m);
+  V3 fn = flake_normal(m, pos, n);
+  float fr = cmin(clampf(m.cp_flake_roughness, 0.0f, 1.0f), 1e-3f);
+  float br = cmin(clampf(m.cp_roughness, 0.0f, 1.0f), 1e-3f);
+  V3 wi;
+  bool branch_ok = true, sample_spec = false;
+  if (lobe == 2) {
+    V3 wh = sample_ggx_vndf(n, wo, cr, s);
+    wi = safe_normalize3(reflect3(-wo, wh));
+    branch_ok = dot3(wh, n) > 0.0f;
+  } else if (lobe == 1) {
+    V3 wh = sample_ggx_vndf(fn, wo, fr, s);
+    wi = safe_normalize3(reflect3(-wo, wh));
+    branch_ok = dot3(wh, fn) > 0.0f;
+  } else {
+    float metallic = clampf(m.cp_metallic, 0.0f, 1.0f);
+    float dw = cmin(1.0f - metallic, 0.0f), sw = cmin(metallic, 0.0f);
+    float choose = rand_uniform(s);
+    sample_spec = sw > 0.0f && (dw + sw) > 0.0f &&
+                  choose < sw / cmin(dw + sw, 1e-6f);
+    if (sample_spec) {
+      V3 wh = sample_ggx_vndf(n, wo, br, s);
+      wi = safe_normalize3(reflect3(-wo, wh));
+      branch_ok = dot3(wh, n) > 0.0f;
+    } else {
+      wi = safe_normalize3(to_world(sample_cosine_hemisphere(s), n));
+    }
+  }
+  bool dir_ok = branch_ok && finite3(wi) && dot3(n, wi) > 0.0f;
+  Lobe coat = carpaint_coat(m, n, wo, wi, p);
+  Lobe flake = carpaint_flake(m, fn, wo, wi, p);
+  Lobe base = carpaint_base(m, n, wo, wi, p);
+  float combined = pb * base.pdf + pf * flake.pdf + pc * coat.pdf;
+  Lobe sel = lobe == 2 ? coat : (lobe == 1 ? flake : base);
+  float cos_i = cmin(dot3(n, wi), 0.0f);
+  V3 weight = sel.f * (cos_i / cmin(combined, 1e-20f));
+  Sample o = invalid_sample();
+  if (dir_ok && combined > 0.0f && sel.pdf > 0.0f &&
+      (sel.f.x > 0.0f || sel.f.y > 0.0f || sel.f.z > 0.0f) && cos_i > 0.0f &&
+      finite3(weight)) {
+    o.dir = wi;
+    o.weight = max0(weight);
+    o.pdf = combined;
+    o.dpdf = cmin(sel.pdf, 0.0f);
+    o.lobe_type = (lobe == 0 && !sample_spec) ? 0 : 1;
+    o.lobe_roughness = lobe == 2 ? cr : (lobe == 1 ? fr : (sample_spec ? br
+                                                                        : 1.0f));
+  }
+  return o;
+}
+
+// ---- subsurface (ops/sss.py) ---------------------------------------------
+// sss._lambert_fallback: 2 draws
+__device__ inline Sample sss_fallback(const Mat& m, V3 n, uint32_t* s) {
+  V3 wi = safe_normalize3(to_world(sample_cosine_hemisphere(s), n));
+  float cos_i = dot3(n, wi);
+  float pdf = lambert_pdf(n, wi);
+  V3 weight = max0((clamp3(m.base, 0.0f, 1.0f) / PI_F) *
+                   (cos_i / cmin(pdf, 1e-20f)));
+  Sample o = invalid_sample();
+  if (cos_i > 0.0f && pdf > 0.0f && finite3(weight)) {
+    o.dir = wi;
+    o.weight = weight;
+    o.pdf = o.dpdf = pdf;
+    o.lobe_roughness = 1.0f;
+  }
+  return o;
+}
+// sss._sigma_tr for one channel: (sigma_t', d, sigma_tr)
+__device__ inline void sss_sigma_tr(float sa, float ss, float* stp, float* d,
+                                    float* str) {
+  *stp = cmin(sa + ss, 1e-6f);
+  *d = 1.0f / cmin(3.0f * *stp, 1e-6f);
+  *str = sqrtf(cmin(sa / *d, 1e-6f));
+}
+// sss.normalized_diffusion_profile for one channel
+__device__ inline float sss_profile(float radius, float sa, float ss) {
+  float stp, d, str;
+  sss_sigma_tr(sa, ss, &stp, &d, &str);
+  float ap = clampf(ss / stp, 0.0f, 1.0f);
+  float r = cmin(radius, 1e-4f);
+  float zr = 1.0f / stp;
+  float dr = sqrtf(r * r + zr * zr);
+  float vr = zr + 4.0f * d;
+  float dv = sqrtf(r * r + vr * vr);
+  float term_dr = (zr * (1.0f + str * dr)) / cmin(dr * dr * dr, 1e-6f);
+  float term_dv = (vr * (1.0f + str * dv)) / cmin(dv * dv * dv, 1e-6f);
+  float profile = (ap / 12.566370614359172f) *
+                  (term_dr * expf(-str * dr) + term_dv * expf(-str * dv));
+  return cmin(profile, 0.0f);
+}
+// sss.sample_subsurface: the separable BSSRDF (sss_mode 1, separable lanes:
+// 4 draws) or the lambert fallback (2 draws)
+__device__ inline Sample sample_subsurface(const Mat& m, V3 pos, V3 n, V3 wo,
+                                           uint32_t* s, int sss_mode) {
+  if (sss_mode != 1) return sss_fallback(m, n, s);
+  float mfp = cmin(m.sss_mfp, 1e-4f);
+  float anis = clampf(m.sss_g, -0.99f, 0.99f);
+  float sigma_t = 1.0f / cmin(mfp, 1e-4f);
+  float keep = cmin(1.0f - anis, 0.01f);
+  bool over = m.sss_override > 0.5f;
+  float base[3] = {m.base.x, m.base.y, m.base.z};
+  float ova[3] = {m.sss_sigma_a.x, m.sss_sigma_a.y, m.sss_sigma_a.z};
+  float ovs[3] = {m.sss_sigma_s.x, m.sss_sigma_s.y, m.sss_sigma_s.z};
+  float sa[3], ss[3], tr[3];
+  for (int c = 0; c < 3; ++c) {
+    float b = clampf(clampf(base[c], 0.0f, 1.0f), 0.0f, 0.999f);
+    float sig_s = cmin(b * sigma_t, 0.0f) * keep;
+    sa[c] = over ? cmin(ova[c], 1e-6f) : cmin(sigma_t - sig_s, 1e-6f);
+    ss[c] = (over ? cmin(ovs[c], 0.0f) : cmin(b * sigma_t, 0.0f)) * keep;
+    float stp, d;
+    sss_sigma_tr(sa[c], ss[c], &stp, &d, &tr[c]);
+  }
+  float sigma_tr = cmin(luminance3(v3(tr[0], tr[1], tr[2])), 1e-4f);
+  if (!(m.sss_method < 0.5f && mfp > 1e-4f && sigma_tr > 0.0f))
+    return sss_fallback(m, n, s);
+  float u_r = clampf(rand_uniform(s), 1e-6f, 0.999999f);
+  float s_tr = cmin(sigma_tr, 1e-4f);
+  float radius = minn(-logf(1.0f - u_r) / s_tr, mfp * 10.0f);
+  float pdf_radius = s_tr * expf(-s_tr * radius);
+  float phi = TWO_PI_F * rand_uniform(s);
+  V3 t, b;
+  build_onb(n, &t, &b);
+  V3 exit_point = fma3v(b, radius * sinf(phi),
+                        fma3v(t, radius * cosf(phi), pos));
+  V3 wi = safe_normalize3(to_world(sample_cosine_hemisphere(s), n));
+  float cos_exit = dot3(n, wi);
+  float pdf_dir = lambert_pdf(n, wi);
+  float pdf_area = pdf_radius / (TWO_PI_F * cmin(radius, 1e-4f));
+  V3 profile = v3(sss_profile(radius, sa[0], ss[0]),
+                  sss_profile(radius, sa[1], ss[1]),
+                  sss_profile(radius, sa[2], ss[2]));
+  float coat_average = 1.0f - clampf(m.coat_favg, 0.0f, 1.0f);
+  float ci = cmin(m.coat_ior, 1.0f);
+  float ratio = (ci - 1.0f) / (ci + 1.0f);
+  float f0 = ratio * ratio;
+  float trans_in =
+      1.0f - (f0 + (1.0f - f0) * schlick_weight(cmin(dot3(n, wo), 0.0f)));
+  float trans_out = 1.0f - (f0 + (1.0f - f0) * schlick_weight(cos_exit));
+  bool has_coat = m.sss_coat > 0.5f;
+  if (has_coat) profile = profile * clamp3(m.coat_tint, 0.0f, 1.0f);
+  float coat_trans = has_coat ? clampf(trans_in * trans_out, 0.0f, 1.0f)
+                              : 1.0f;
+  V3 weight = profile * (cos_exit * coat_average * coat_trans);
+  float denom = cmin(pdf_area * pdf_dir, 1e-6f);
+  weight = max0(weight / denom);
+  Sample o = invalid_sample();
+  if (pdf_radius > 0.0f && isfinite(pdf_radius) && cos_exit > 0.0f &&
+      pdf_dir > 0.0f && pdf_area > 0.0f && finite3(weight)) {
+    o.dir = wi;
+    o.weight = weight;
+    o.pdf = denom;
+    o.dpdf = pdf_dir;
+    o.has_exit = true;
+    o.exit_point = exit_point;
+    o.exit_n = n;
+  }
+  return o;
+}
+// sss.exit_point_origin: off the exit normal (the faced normal where that
+// is not finite and non-zero) by eps, then 32 eps along the normal and 32
+// eps along the direction
+__device__ inline V3 exit_point_origin(const Sample& smp, V3 n_faced) {
+  V3 en = smp.exit_n;
+  if (!finite3(en) || dot3(en, en) <= 0.0f) en = n_faced;
+  en = safe_normalize3(en);
+  float sign = dot3(smp.dir, en) >= 0.0f ? 1.0f : -1.0f;
+  V3 o = fma3v(en, sign * RAY_ORIGIN_EPSILON, smp.exit_point);
+  o = fma3v(en, RAY_ORIGIN_EPSILON * 32.0f, o);
+  return fma3v(safe_normalize3(smp.dir), RAY_ORIGIN_EPSILON * 32.0f, o);
+}
+
+// ---- the type dispatch -------------------------------------------------
+// bsdf.evaluate_bsdf; EXT: with plastic, carpaint and subsurface
+template <bool EXT>
+__device__ inline Eval evaluate_bsdf(const Mat& m, V3 pos, V3 n, V3 wo, V3 wi,
+                                     const ClampP& p, float occ) {
+  float cos_o = cmin(dot3(n, wo), 0.0f);
+  float cos_i = cmin(dot3(n, wi), 0.0f);
+  bool geom_ok = cos_i > 0.0f && cos_o > 0.0f;
+  Eval e;
+  e.value = zero3();
+  e.pdf = 0.0f;
+  e.is_delta = e.is_bssrdf = false;
+  if (m.type == MAT_LAMBERT && geom_ok) {
+    e.value = (clamp3(m.base, 0.0f, 1.0f) * clampf(occ, 0.0f, 1.0f)) / PI_F;
+    e.pdf = lambert_pdf(n, wi);
+  } else if (m.type == MAT_METAL && geom_ok) {
+    e = evaluate_metal(m, n, wo, wi, cos_o, cos_i, p);
+  } else if (m.type == MAT_DIELECTRIC) {
+    e.is_delta = true;
+  } else if (m.type == MAT_PBR && geom_ok) {
+    e = evaluate_pbr(m, n, wo, wi, p, occ);
+  } else if (EXT && m.type == MAT_PLASTIC && geom_ok) {
+    e = evaluate_plastic(m, n, wo, wi, cos_o, cos_i, p, occ);
+  } else if (EXT && m.type == MAT_CARPAINT && geom_ok) {
+    e = evaluate_carpaint(m, pos, n, wo, wi, p);
+  } else if (EXT && m.type == MAT_SSS) {
+    e.is_bssrdf = true;
+  }
+  if (e.pdf <= 0.0f || !finite3(e.value)) e.value = zero3();
+  return e;
+}
+
+// bsdf.sample_bsdf; EXT: with plastic, carpaint and subsurface
+template <bool EXT>
+__device__ inline Sample sample_bsdf(const Mat& m, V3 pos, V3 n, V3 wo,
+                                     V3 incident, bool front, uint32_t* s,
+                                     const ClampP& p, float occ,
+                                     int sss_mode) {
   if (m.type == MAT_LAMBERT) return sample_lambert(m, n, s, occ);
   if (m.type == MAT_METAL) return sample_metal(m, n, wo, incident, s, p);
   if (m.type == MAT_DIELECTRIC) return sample_dielectric(m, n, incident, front, s);
   if (m.type == MAT_PBR) return sample_pbr(m, n, wo, incident, s, p, occ);
+  if (EXT && m.type == MAT_PLASTIC) return sample_plastic(m, n, wo, s, p, occ);
+  if (EXT && m.type == MAT_SSS)
+    return sample_subsurface(m, pos, n, wo, s, sss_mode);
+  if (EXT && m.type == MAT_CARPAINT) return sample_carpaint(m, pos, n, wo, s, p);
   return invalid_sample();
 }

@@ -6,8 +6,8 @@
 //               add the gradient or solid background and end; hits get
 //               Beer-Lambert absorption, the dielectric geometric normal,
 //               first-hit AOVs, PBR emission, diffuse lights emit and end,
-//               the others sample lambert, metal, dielectric or PBR, push
-//               or pop the medium stack, clamp, Russian roulette, commit;
+//               the others sample their BSDF, push or pop the medium
+//               stack, clamp, Russian roulette, commit;
 //   shade_s1    stage "s1" under a light integral (an environment map, rect
 //               lights, or both): misses add the environment with MIS (or
 //               the gradient/solid background) and end; hits get the same
@@ -32,13 +32,26 @@
 // shading normal; spheres are two-sided, rectangles as stored; only
 // triangles set the self-hit exclusion ids (shade.py:1966-1988,
 // 2012-2018, 2132-2143, 2449).
-// In a textured scene s1 and s2 read the texture stage's 15 planes per
+// In a textured scene every stage reads the texture stage's 15 planes per
 // lane (csrc/texture.cu; a NULL pointer otherwise): lanes whose tpbr flag
-// is set take the textured material values, diffuse occlusion and (s1)
-// mapped normal, and alpha pass-through lanes record no AOV, add no
-// emission, draw no NEE or BSDF sample and go on along their ray as a
-// delta bounce of weight 1 (shade.py:2027-2059, 2123-2139, 2188,
-// 2306-2331).
+// is set take the textured material values, diffuse occlusion and (full,
+// s1) mapped normal, and alpha pass-through lanes record no AOV, add no
+// emission, draw no NEE or BSDF sample, skip Russian roulette and go on
+// along their ray as a delta bounce of weight 1 (shade.py:2027-2059,
+// 2123-2139, 2188, 2306-2331, 2414).
+// Random-walk subsurface lanes (the walk traces the scene, so it runs
+// before the stage, ops/kernels/shade.py random_walks) come in as 18
+// override columns and a state per lane (RW, NULL without a walk): where
+// the walk exited, its sample and state replace the lane's own
+// (shade.py:2284-2300). s1 scales the emission of the front faces of
+// emission_env lights by the emod plane (shade.py:2149-2154). full and s2
+// leave a BSSRDF exit point off its normal (shade.py:2359-2371).
+//
+// Each stage is compiled twice (template flag EXT, chosen on the host from
+// the scene's material types): without and with the plastic, carpaint and
+// subsurface branches, so that scenes without them run code that holds
+// none of them (the JAX kernel is specialised on its static type set).
+//
 // Each kernel does what its plain version in ops/kernels/shade.py does, in
 // the same order and with the same arithmetic; they update the PathCarry
 // arrays and the RNG state (uint32 values held in int64) IN PLACE, and
@@ -58,7 +71,6 @@
 // fuses; the build passes --fmad=false).
 #include "bsdf.cuh"
 
-#define RAY_ORIGIN_EPSILON 1.0e-4f
 #define INFINITY_T 1.0e20f
 #define MIS_MIN 1.0e-4f
 #define MIS_MAX 0.9999f
@@ -67,6 +79,7 @@
 #define N_ESMP 9
 #define N_CHAIN 7
 #define N_TEX 15
+#define N_RW 18
 #define PRIM_SPHERE 1
 #define PRIM_RECT 2
 #define PRIM_TRIANGLE 3
@@ -84,6 +97,7 @@ struct ShadeParams {
   int background_mode;  // 0 gradient, 1 solid (without an environment map)
   V3 background;        // the solid background, linear sRGB
   int n_banks;          // s2: light integrals (1 or 2 ESMP banks)
+  int sss_mode;         // 0 off (lambert fallback), 1 separable, 2 walk
 };
 
 // The merged trace's winner per lane and the geometry it indexes
@@ -267,7 +281,7 @@ __device__ inline Front shade_front(const Geo& g, long long i,
                                     const ShadeParams& p,
                                     const float* mat_table, int m_count,
                                     const float* tex, const float* rectpdf,
-                                    const Carry& c) {
+                                    const float* emod, const Carry& c) {
   Front f;
   f.h = rebuild(g, i, load3(c.ray_o, i), load3(c.ray_d, i));
   f.m = fetch_material(mat_table, min(max(f.h.material, 0), m_count - 1));
@@ -290,6 +304,8 @@ __device__ inline Front shade_front(const Geo& g, long long i,
     radiance = radiance + clamp_firefly(f.tp, em, p.c);
   f.ended = f.m.type == MAT_LIGHT;
   V3 le = f.m.emission;
+  if (emod != nullptr && f.m.emission_env > 0.0f && f.h.front)
+    le = le * load3(emod, i);
   if (f.ended && (le.x != 0.0f || le.y != 0.0f || le.z != 0.0f) && facing) {
     float l_mis = 1.0f;
     if (rectpdf != nullptr) {
@@ -343,10 +359,12 @@ __device__ inline void cone_update(const Carry& c, long long i, V3 ray_d,
   }
 }
 
-// Russian roulette at depth >= 5 on lanes that go on
+// Russian roulette at depth >= 5 on lanes that go on, alpha pass-through
+// lanes excepted
 __device__ inline bool roulette(const ShadeParams& p, uint32_t* s, V3* tp,
-                                bool active) {
-  if (!(p.russian_roulette && p.depth >= 5 && active)) return active;
+                                bool active, bool passthrough) {
+  if (!(p.russian_roulette && p.depth >= 5 && active && !passthrough))
+    return active;
   float xi = rand_uniform(s);
   float cont_p = clampf(max3(*tp), 0.05f, 0.95f);
   bool survive = xi <= cont_p;
@@ -354,9 +372,69 @@ __device__ inline bool roulette(const ShadeParams& p, uint32_t* s, V3* tp,
   return survive;
 }
 
+// the alpha pass-through sample: a delta bounce along the same ray,
+// weight 1, no draw
+__device__ inline Sample passthrough_sample(V3 ray_d) {
+  Sample smp = invalid_sample();
+  smp.dir = ray_d;
+  smp.weight = v3(1.0f, 1.0f, 1.0f);
+  smp.pdf = smp.dpdf = 1.0f;
+  smp.is_delta = true;
+  return smp;
+}
+
+// the lane's random-walk override, if the walk exited: its sample and state
+__device__ inline bool walk_override(const float* rw,
+                                     const long long* rw_state, long long i,
+                                     Sample* smp, uint32_t* s) {
+  if (rw == nullptr) return false;
+  const float* r = rw + (long long)N_RW * i;
+  if (!(r[0] > 0.5f && r[7] > 0.0f)) return false;
+  *smp = invalid_sample();
+  smp->dir = v3(r[1], r[2], r[3]);
+  smp->weight = v3(r[4], r[5], r[6]);
+  smp->pdf = r[7];
+  smp->dpdf = r[8];
+  smp->lobe_type = (int)r[9];
+  smp->lobe_roughness = r[10];
+  smp->has_exit = r[11] > 0.5f;
+  smp->exit_point = v3(r[12], r[13], r[14]);
+  smp->exit_n = v3(r[15], r[16], r[17]);
+  *s = (uint32_t)rw_state[i];
+  return true;
+}
+
+// the BSDF sample of a hit lane: pass-through, the walk's, or its own
+template <bool EXT>
+__device__ inline Sample lane_sample(const Mat& m, V3 point, V3 sn, V3 wo,
+                                     V3 incident, bool front, uint32_t* s,
+                                     const ShadeParams& p, float occ,
+                                     bool passthrough, V3 ray_d,
+                                     const float* rw,
+                                     const long long* rw_state,
+                                     long long i) {
+  if (passthrough) return passthrough_sample(ray_d);
+  Sample smp;
+  if (EXT && walk_override(rw, rw_state, i, &smp, s)) return smp;
+  return sample_bsdf<EXT>(m, point, sn, wo, incident, front, s, p.c, occ,
+                          p.sss_mode);
+}
+
+// the next ray's origin: off the hit, or off a BSSRDF exit point
+template <bool EXT>
+__device__ __forceinline__ V3 next_origin(V3 point, V3 sn, V3 n_faced,
+                                          float t, const Sample& smp) {
+  if (EXT && smp.has_exit) return exit_point_origin(smp, n_faced);
+  return offset_origin(point, sn, n_faced, t, smp.dir);
+}
+
+template <bool EXT>
 __global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
                                   const float* __restrict__ mat_table,
-                                  int m_count, Carry c) {
+                                  int m_count, const float* __restrict__ tex,
+                                  const float* __restrict__ rw,
+                                  const long long* __restrict__ rw_state,
+                                  Carry c) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n || !c.alive[i]) return;
   V3 ray_d = load3(c.ray_d, i);
@@ -367,7 +445,8 @@ __global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
                                      background(ray_d, p), p.c));
     return;
   }
-  Front f = shade_front(g, i, p, mat_table, m_count, nullptr, nullptr, c);
+  Front f = shade_front(g, i, p, mat_table, m_count, tex, nullptr, nullptr,
+                        c);
   store3(c.radiance, i, f.radiance);
   if (f.ended) {
     c.alive[i] = false;
@@ -378,17 +457,18 @@ __global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
   // ---- BSDF sample, medium stack, next origin --------------------------
   uint32_t s = (uint32_t)c.state[i];
   V3 incident = normalize3(ray_d);
-  Sample smp = sample_bsdf(f.m, f.sn, -incident, incident, f.h.front, &s,
-                           p.c, 1.0f);
+  Sample smp = lane_sample<EXT>(f.m, f.h.point, f.sn, -incident, incident,
+                                f.h.front, &s, p, f.tl.occlusion,
+                                f.tl.passthrough, ray_d, rw, rw_state, i);
   bool active = smp.pdf > 0.0f;
   c.medium_depth[i] = medium_update(c, i, smp, f.m, active);
-  V3 next_o = offset_origin(f.h.point, f.sn, f.h.n_faced, t, smp.dir);
+  V3 next_o = next_origin<EXT>(f.h.point, f.sn, f.h.n_faced, t, smp);
 
   // ---- throughput, ray cone, Russian roulette --------------------------
   V3 tp = clamp_throughput(f.tp * smp.weight, p.c);
   active = active && finite3(tp) && max3(tp) > 0.0f;
   cone_update(c, i, ray_d, t, smp, active);
-  active = roulette(p, &s, &tp, active);
+  active = roulette(p, &s, &tp, active, f.tl.passthrough);
 
   // ---- commit -------------------------------------------------------------
   c.state[i] = (long long)s;
@@ -401,11 +481,13 @@ __global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
   c.alive[i] = active;
 }
 
+template <bool EXT>
 __global__ void shade_s1_kernel(
     int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
     int m_count, const float* __restrict__ envbg,
     const float* __restrict__ envpdf, const float* __restrict__ rectpdf,
-    const float* __restrict__ tex, Carry c, float* __restrict__ trans) {
+    const float* __restrict__ emod, const float* __restrict__ tex, Carry c,
+    float* __restrict__ trans) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* tr = trans + (long long)N_TRANS * i;
@@ -431,7 +513,7 @@ __global__ void shade_s1_kernel(
     return;
   }
 
-  Front f = shade_front(g, i, p, mat_table, m_count, tex, rectpdf, c);
+  Front f = shade_front(g, i, p, mat_table, m_count, tex, rectpdf, emod, c);
   store3(c.radiance, i, f.radiance);
   if (f.ended) {
     c.alive[i] = false;
@@ -454,7 +536,7 @@ __global__ void shade_s1_kernel(
   }
   c.state[i] = (long long)(delta || f.tl.passthrough ? s0 : s_nee);
 
-  tr[3] = env_lighting_roughness(f.m);
+  tr[3] = env_lighting_roughness<EXT>(f.m);
   tr[4] = f.sn.x;
   tr[5] = f.sn.y;
   tr[6] = f.sn.z;
@@ -468,11 +550,13 @@ __global__ void shade_s1_kernel(
   tr[14] = delta ? 1.0f : 0.0f;
 }
 
+template <bool EXT>
 __global__ void shade_s2_kernel(
     int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
     int m_count, const float* __restrict__ trans,
-    const float* __restrict__ esmp, const float* __restrict__ tex, Carry c,
-    float* __restrict__ chain) {
+    const float* __restrict__ esmp, const float* __restrict__ tex,
+    const float* __restrict__ rw, const long long* __restrict__ rw_state,
+    Carry c, float* __restrict__ chain) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* ch = chain + (long long)N_CHAIN * i;
@@ -502,29 +586,21 @@ __global__ void shade_s2_kernel(
     bool do_shadow = tr[14] < 0.5f && !tl.passthrough && es[7] > 0.5f &&
                      e_pdf > 0.0f && n_dot_l > 0.0f;
     if (do_shadow && !(es[8] > 0.5f)) {
-      Eval ev = evaluate_bsdf(m, sn, wo, e_dir, p.c, tl.occlusion);
+      Eval ev = evaluate_bsdf<EXT>(m, point, sn, wo, e_dir, p.c, tl.occlusion);
       float w = ev.pdf > 0.0f ? mis_weight(e_pdf, e_pdf + ev.pdf) : 1.0f;
       V3 contribution = v3(es[3], es[4], es[5]) * ev.value * n_dot_l *
                         (w / cmin(e_pdf, 1e-30f));
-      if (!ev.is_delta && max3(ev.value) > 0.0f && finite3(contribution))
+      if (!ev.is_delta && !ev.is_bssrdf && max3(ev.value) > 0.0f &&
+          finite3(contribution))
         radiance = radiance + clamp_firefly(tp, contribution, p.c);
     }
   }
 
   // ---- BSDF sample from the post-s1 state ------------------------------
   uint32_t s = (uint32_t)c.state[i];
-  Sample smp;
-  if (tl.passthrough) {
-    // alpha pass-through: a delta bounce along the same ray, weight 1,
-    // no draw
-    smp = invalid_sample();
-    smp.dir = ray_d;
-    smp.weight = v3(1.0f, 1.0f, 1.0f);
-    smp.pdf = smp.dpdf = 1.0f;
-    smp.is_delta = true;
-  } else {
-    smp = sample_bsdf(m, sn, wo, incident, h.front, &s, p.c, tl.occlusion);
-  }
+  Sample smp = lane_sample<EXT>(m, point, sn, wo, incident, h.front, &s, p,
+                                tl.occlusion, tl.passthrough, ray_d, rw,
+                                rw_state, i);
   bool active = smp.pdf > 0.0f;
   ch[0] = smp.weight.x;
   ch[1] = smp.weight.y;
@@ -537,7 +613,7 @@ __global__ void shade_s2_kernel(
   int md = medium_update(c, i, smp, m, active);
 
   // ---- next origin, throughput, environment LOD, ray cone --------------
-  V3 next_o = offset_origin(point, sn, n_faced, t, smp.dir);
+  V3 next_o = next_origin<EXT>(point, sn, n_faced, t, smp);
   tp = clamp_throughput(tp * smp.weight, p.c);
   active = active && finite3(tp) && max3(tp) > 0.0f;
   bool lod_lane = p.env_max_mip > 0.0f && active && smp.lobe_type == 1 &&
@@ -547,7 +623,7 @@ __global__ void shade_s2_kernel(
                                     p.env_max_mip)
                            : 0.0f;
   cone_update(c, i, ray_d, t, smp, active);
-  active = roulette(p, &s, &tp, active);
+  active = roulette(p, &s, &tp, active, tl.passthrough);
 
   // ---- commit -------------------------------------------------------------
   c.state[i] = (long long)s;
@@ -611,7 +687,7 @@ ClampP clamp_of(float enabled, float factor, float floor,
 // ShadeParams.scalars(): depth, clamp factor, floor, throughput, tail base,
 // tail roughness scale, min specular pdf, max contribution, enabled,
 // russian roulette, specular MIS, env max mip, working colour space,
-// background mode, solid background (3), ESMP banks
+// background mode, solid background (3), ESMP banks, SSS mode
 ShadeParams shade_params_of(const float* s) {
   ShadeParams p;
   p.depth = (int)s[0];
@@ -623,6 +699,7 @@ ShadeParams shade_params_of(const float* s) {
   p.background_mode = (int)s[13];
   p.background = v3(s[14], s[15], s[16]);
   p.n_banks = (int)s[17];
+  p.sss_mode = (int)s[18];
   return p;
 }
 
@@ -652,39 +729,49 @@ int grid(int n) { return (n + kBlock - 1) / kBlock; }
 
 }  // namespace
 
-extern "C" int mpt_shade_full(int n, const float* scalars, void* const* geo,
-                              const void* mat_table, int m_count,
-                              void* const* carry, void* stream) {
+// ext selects the instantiation with plastic, carpaint and subsurface
+extern "C" int mpt_shade_full(int n, int ext, const float* scalars,
+                              void* const* geo, const void* mat_table,
+                              int m_count, const void* tex, const void* rw,
+                              const void* rw_state, void* const* carry,
+                              void* stream) {
   if (n <= 0) return 0;
-  shade_full_kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
+  auto kernel = ext ? shade_full_kernel<true> : shade_full_kernel<false>;
+  kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
       n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
-      m_count, carry_of(carry));
+      m_count, (const float*)tex, (const float*)rw,
+      (const long long*)rw_state, carry_of(carry));
   return (int)cudaGetLastError();
 }
 
-extern "C" int mpt_shade_s1(int n, const float* scalars, void* const* geo,
-                            const void* mat_table, int m_count,
-                            const void* envbg, const void* envpdf,
-                            const void* rectpdf, const void* tex,
+extern "C" int mpt_shade_s1(int n, int ext, const float* scalars,
+                            void* const* geo, const void* mat_table,
+                            int m_count, const void* envbg,
+                            const void* envpdf, const void* rectpdf,
+                            const void* emod, const void* tex,
                             void* const* carry, void* trans, void* stream) {
   if (n <= 0) return 0;
-  shade_s1_kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
+  auto kernel = ext ? shade_s1_kernel<true> : shade_s1_kernel<false>;
+  kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
       n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
       m_count, (const float*)envbg, (const float*)envpdf,
-      (const float*)rectpdf, (const float*)tex, carry_of(carry),
-      (float*)trans);
+      (const float*)rectpdf, (const float*)emod, (const float*)tex,
+      carry_of(carry), (float*)trans);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mpt_shade_s2(int n, const float* scalars, void* const* geo,
-                            const void* mat_table, int m_count,
-                            const void* trans, const void* esmp,
-                            const void* tex, void* const* carry, void* chain,
-                            void* stream) {
+extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
+                            void* const* geo, const void* mat_table,
+                            int m_count, const void* trans, const void* esmp,
+                            const void* tex, const void* rw,
+                            const void* rw_state, void* const* carry,
+                            void* chain, void* stream) {
   if (n <= 0) return 0;
-  shade_s2_kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
+  auto kernel = ext ? shade_s2_kernel<true> : shade_s2_kernel<false>;
+  kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
       n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
       m_count, (const float*)trans, (const float*)esmp, (const float*)tex,
-      carry_of(carry), (float*)chain);
+      (const float*)rw, (const long long*)rw_state, carry_of(carry),
+      (float*)chain);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,17 @@
-"""BSDF sampling, evaluation and clamps (``ops/bsdf.py`` twin) for the
-lambert, metal, dielectric and PBR types (diffuse lights emit and end
-their path before any BSDF is sampled).
+"""BSDF sampling, evaluation and clamps (``ops/bsdf.py`` twin) for every
+material type: lambert, metal, dielectric, plastic, PBR, and through
+``ops/carpaint.py`` and ``ops/sss.py`` carpaint and subsurface (diffuse
+lights emit and end their path before any BSDF is sampled).
 
 Every type present in the scene is evaluated over the whole wavefront and
 each lane keeps its own type's result, so each lane's RNG stream advances
-exactly as the reference's per-thread branch does. Plastic, subsurface
-and carpaint are ROADMAP Queue 1 step 13: ``sample_bsdf`` and
-``evaluate_bsdf`` raise for them.
+exactly as the reference's per-thread branch does.
 
 The CUDA shade kernels (``csrc/shade.cu``) repeat this arithmetic
 operation for operation: products and sums stay unfused except inside
-``vecmath.dot``/``cross``/``luminance``/``to_world``, and every division
-is one IEEE division (``vecmath.fdiv``).
+``vecmath.dot``/``cross``/``luminance``/``to_world`` and where a function
+says otherwise, and every division is one IEEE division
+(``vecmath.fdiv``).
 """
 
 from __future__ import annotations
@@ -37,9 +37,6 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
 )
 
 PI = 3.14159265358979323846
-PORTED_TYPES = (C.MATERIAL_LAMBERTIAN, C.MATERIAL_METAL,
-                C.MATERIAL_DIELECTRIC, C.MATERIAL_DIFFUSE_LIGHT,
-                C.MATERIAL_PBR)
 
 
 class ClampParams(NamedTuple):
@@ -286,8 +283,8 @@ def specular_energy_compensation(f0, roughness, nov):
 
 @dataclasses.dataclass(frozen=True)
 class MatLanes:
-    """Material rows gathered onto lanes: the fields lambert, metal,
-    dielectric, diffuse lights and PBR read."""
+    """Material rows gathered onto lanes: the fields the BSDFs, the
+    emission and the medium stack read."""
 
     base_color: torch.Tensor          # (N,3)
     roughness: torch.Tensor
@@ -304,6 +301,33 @@ class MatLanes:
     pbr_transmission: torch.Tensor
     pbr_thickness: torch.Tensor
     pbr_double_sided: torch.Tensor
+    # plastic / carpaint coat layer
+    coat_ior: torch.Tensor
+    coat_roughness: torch.Tensor
+    coat_thickness: torch.Tensor
+    coat_sample_weight: torch.Tensor
+    coat_fresnel_avg: torch.Tensor
+    coat_tint: torch.Tensor           # (N,3)
+    coat_absorption: torch.Tensor     # (N,3)
+    # carpaint base and flake lobes
+    carpaint_base_metallic: torch.Tensor
+    carpaint_base_roughness: torch.Tensor
+    carpaint_flake_scale: torch.Tensor
+    carpaint_flake_sample_weight: torch.Tensor
+    carpaint_flake_roughness: torch.Tensor
+    carpaint_flake_anisotropy: torch.Tensor
+    carpaint_flake_normal_strength: torch.Tensor
+    carpaint_has_base_conductor: torch.Tensor
+    carpaint_base_eta: torch.Tensor   # (N,3)
+    carpaint_base_k: torch.Tensor     # (N,3)
+    # subsurface
+    sss_g: torch.Tensor
+    sss_mfp: torch.Tensor
+    sss_method: torch.Tensor          # 0 separable / 1 random walk
+    sss_coat: torch.Tensor
+    sss_sigma_override: torch.Tensor
+    sss_sigma_a: torch.Tensor         # (N,3)
+    sss_sigma_s: torch.Tensor         # (N,3)
 
 
 def gather_material(materials, index) -> MatLanes:
@@ -345,11 +369,53 @@ def metal_fresnel(m: MatLanes, f0, cos_theta):
                   schlick_fresnel(f0, cos_theta))
 
 
+def plastic_coat_ior(m: MatLanes):
+    return torch.clamp_min(m.eta, 1.0)
+
+
+def plastic_coat_roughness(m: MatLanes):
+    return torch.clamp_min(torch.clamp(m.coat_roughness, 0.0, 1.0), 1e-3)
+
+
+def plastic_coat_f0(m: MatLanes):
+    eta = plastic_coat_ior(m)
+    ratio = (eta - 1.0) / torch.clamp_min(eta + 1.0, 1e-6)
+    return torch.clamp(ratio * ratio, 0.0, 0.999)
+
+
+def plastic_specular_tint(m: MatLanes):
+    """(reference: pathtrace.metal plastic_specular_tint)"""
+    tint = torch.clamp(m.coat_tint, 0.0, 1.0)
+    thickness = torch.clamp_min(m.coat_thickness, 0.0)
+    absorption = torch.clamp_min(m.coat_absorption, 0.0)
+    attenuated = torch.clamp(
+        tint * torch.exp(-absorption * thickness[..., None]), 0.0, 1.0)
+    skip = (thickness <= 0.0) | (absorption <= 1e-6).all(-1)
+    return where3(skip, tint, attenuated)
+
+
+def plastic_diffuse_transmission(m: MatLanes, cos_i, cos_o):
+    """(reference: pathtrace.metal plastic_diffuse_transmission)"""
+    thickness = torch.clamp_min(m.coat_thickness, 0.0)
+    tint = torch.clamp(m.coat_tint, 0.0, 1.0)
+    absorption = torch.clamp_min(m.coat_absorption, 0.0)
+    safe_i = torch.clamp_min(cos_i, 1e-3)
+    safe_o = torch.clamp_min(cos_o, 1e-3)
+    att_i = torch.exp(-absorption * (thickness / safe_i)[..., None])
+    att_o = torch.exp(-absorption * (thickness / safe_o)[..., None])
+    full = torch.clamp(tint * att_i * att_o, 0.0, 1.0)
+    return where3(thickness <= 0.0, tint, full)
+
+
 def environment_lighting_roughness(m: MatLanes):
     """(reference: pathtrace.metal environment_lighting_roughness)"""
     rough = torch.clamp(m.roughness, 0.0, 1.0)
     glossy = (m.mat_type == C.MATERIAL_METAL) | (m.mat_type == C.MATERIAL_PBR)
-    return torch.where(glossy, rough, 1.0)
+    out = torch.where(glossy, rough, 1.0)
+    out = torch.where(m.mat_type == C.MATERIAL_PLASTIC,
+                      torch.clamp(plastic_coat_roughness(m), 0.0, 1.0), out)
+    return torch.where(m.mat_type == C.MATERIAL_CARPAINT,
+                       torch.clamp(m.carpaint_base_roughness, 0.0, 1.0), out)
 
 
 def lambert_pdf(normal, direction):
@@ -371,16 +437,21 @@ class BsdfSample:
     medium_event: torch.Tensor     # (N,) i32: +1 enter a medium, -1 leave
     lobe_type: torch.Tensor        # (N,) i32: 0 diffuse, 1 glossy, 2 trans
     lobe_roughness: torch.Tensor   # (N,)
+    is_bssrdf: torch.Tensor        # (N,) bool
+    has_exit_point: torch.Tensor   # (N,) bool: the next ray leaves from
+    exit_point: torch.Tensor       # (N,3)      the BSSRDF exit point,
+    exit_normal: torch.Tensor      # (N,3)      off its normal
 
     @classmethod
     def invalid(cls, shape, device):
         z = torch.zeros(shape, device=device)
         z3 = torch.zeros(shape + (3,), device=device)
         zi = torch.zeros(shape, dtype=torch.int32, device=device)
+        zb = torch.zeros(shape, dtype=torch.bool, device=device)
         return cls(direction=z3, weight=z3, pdf=z, directional_pdf=z,
-                   is_delta=torch.zeros(shape, dtype=torch.bool,
-                                        device=device),
-                   medium_event=zi, lobe_type=zi, lobe_roughness=z)
+                   is_delta=zb, medium_event=zi, lobe_type=zi,
+                   lobe_roughness=z, is_bssrdf=zb, has_exit_point=zb,
+                   exit_point=z3, exit_normal=z3)
 
     def replace(self, **changes) -> "BsdfSample":
         return dataclasses.replace(self, **changes)
@@ -390,6 +461,7 @@ class BsdfEval(NamedTuple):
     value: torch.Tensor   # (N,3)
     pdf: torch.Tensor     # (N,)
     is_delta: torch.Tensor
+    is_bssrdf: torch.Tensor = None  # subsurface lanes (no NEE add)
 
 
 def select_sample(mask, a: BsdfSample, b: BsdfSample) -> BsdfSample:
@@ -528,7 +600,7 @@ def _sample_dielectric(m: MatLanes, normal, incident, front_face, state):
     medium_event = torch.where(~reflecting & ~is_thin,
                                torch.where(front_face, 1, -1), 0)
     one = torch.ones_like(fr)
-    return state, BsdfSample(
+    return state, BsdfSample.invalid(fr.shape, fr.device).replace(
         direction=safe_normalize(direction), weight=weight.contiguous(),
         pdf=one, directional_pdf=one.clone(),
         is_delta=torch.ones_like(front_face),
@@ -537,22 +609,122 @@ def _sample_dielectric(m: MatLanes, normal, incident, front_face, state):
         lobe_roughness=torch.zeros_like(fr))
 
 
-def _check_types(material_types):
-    extra = set(int(t) for t in material_types) - set(PORTED_TYPES)
-    if extra:
-        raise NotImplementedError(
-            f"material types {sorted(extra)} are not ported (plastic, "
-            "subsurface, carpaint: ROADMAP Queue 1 step 13)")
+def _sample_plastic(m: MatLanes, normal, wo, state, clamp_p: ClampParams,
+                    diffuse_occlusion):
+    """case 4 (reference: pathtrace.metal:5285-5419): 1 selector draw,
+    then 2 for either lobe (GGX coat or cosine diffuse)."""
+    cos_o = dot(normal, wo)
+    coat_roughness = plastic_coat_roughness(m)
+    alpha = coat_roughness * coat_roughness
+    f0c = plastic_coat_f0(m)[..., None].expand(normal.shape)
+    p_coat = torch.clamp(m.coat_sample_weight, 0.0, 1.0)
+    p_diffuse = 1.0 - p_coat
+    fresnel_avg = torch.clamp(m.coat_fresnel_avg, 0.0, 1.0)
+    spec_tint = plastic_specular_tint(m)
+
+    state, selector = rng_ops.rand_uniform(state)
+    sample_coat = (selector < p_coat) & (p_coat > 0.0)
+
+    # coat lobe (2 draws)
+    state_c, wh = sample_ggx_vndf(normal, wo, coat_roughness, state)
+    wi_c = safe_normalize(reflect(-wo, wh))
+    cos_i_c = dot(normal, wi_c)
+    dot_wi_wh = dot(wi_c, wh)
+    d = ggx_d(alpha, dot(normal, wh))
+    g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i_c)
+    spec = schlick_fresnel(f0c, dot_wi_wh) * fdiv(
+        d * g, torch.clamp_min(4.0 * cos_o * cos_i_c, 1e-6))[..., None]
+    spec = clamp_specular_tail(spec, coat_roughness, f0c, clamp_p)
+    spec = spec * spec_tint
+    spec_pdf_raw = ggx_pdf(alpha, normal, wo, wi_c)
+    spec_pdf = torch.where(spec_pdf_raw > 0.0,
+                           clamp_specular_pdf(spec_pdf_raw, clamp_p), 0.0)
+    pdf_c = p_coat * spec_pdf + p_diffuse * lambert_pdf(normal, wi_c)
+    weight_c = spec * fdiv(cos_i_c, torch.clamp_min(pdf_c, 1e-20))[..., None]
+    coat_ok = ((dot(wh, normal) > 0.0) & (cos_i_c > 0.0) & (dot_wi_wh > 0.0)
+               & (pdf_c > 0.0) & torch.isfinite(weight_c).all(-1))
+
+    # diffuse lobe (2 draws)
+    state_d, local = rng_ops.sample_cosine_hemisphere(state)
+    wi_d = safe_normalize(to_world(local, normal))
+    cos_i_d = dot(normal, wi_d)
+    diffuse = fdiv(material_base_color(m), PI) \
+        * torch.clamp(diffuse_occlusion, 0.0, 1.0)[..., None]
+    diffuse = diffuse * plastic_diffuse_transmission(m, cos_i_d, cos_o) \
+        * (1.0 - schlick_fresnel(f0c, cos_i_d)) \
+        * (1.0 - schlick_fresnel(f0c, cos_o))
+    diffuse = torch.clamp_min(
+        diffuse * torch.clamp_min(1.0 - fresnel_avg, 0.0)[..., None], 0.0)
+    spec_pdf_raw_d = ggx_pdf(alpha, normal, wo, wi_d)
+    spec_pdf_d = torch.where(spec_pdf_raw_d > 0.0,
+                             clamp_specular_pdf(spec_pdf_raw_d, clamp_p), 0.0)
+    pdf_d = p_coat * spec_pdf_d + p_diffuse * lambert_pdf(normal, wi_d)
+    weight_d = diffuse * fdiv(cos_i_d,
+                              torch.clamp_min(pdf_d, 1e-20))[..., None]
+    diff_ok = ((cos_i_d > 0.0) & (pdf_d > 0.0)
+               & torch.isfinite(weight_d).all(-1))
+
+    coat_valid = sample_coat & coat_ok & (cos_o > 0.0)
+    diff_valid = ~sample_coat & diff_ok & (cos_o > 0.0)
+    out = BsdfSample.invalid(cos_o.shape, cos_o.device)
+    pdf = torch.where(coat_valid, pdf_c, torch.where(diff_valid, pdf_d, 0.0))
+    return torch.where(sample_coat, state_c, state_d), out.replace(
+        direction=where3(coat_valid, wi_c,
+                         where3(diff_valid, wi_d, out.direction)),
+        weight=where3(coat_valid, torch.clamp_min(weight_c, 0.0),
+                      where3(diff_valid, torch.clamp_min(weight_d, 0.0),
+                             out.weight)),
+        pdf=pdf, directional_pdf=pdf,
+        lobe_type=coat_valid.to(torch.int32),
+        lobe_roughness=torch.where(coat_valid, coat_roughness,
+                                   torch.where(diff_valid, 1.0, 0.0)))
+
+
+def _evaluate_plastic(m: MatLanes, normal, wo, wi, cos_o, cos_i,
+                      clamp_p: ClampParams, diffuse_occlusion):
+    """The plastic branch of ``evaluate_bsdf`` (``bsdf.py:872-917``):
+    (value, pdf); ``cos_o``/``cos_i`` are clamped at 0."""
+    coat_roughness = plastic_coat_roughness(m)
+    alpha = coat_roughness * coat_roughness
+    f0c = plastic_coat_f0(m)[..., None].expand(normal.shape)
+    wh = safe_normalize(wo + wi)
+    half_ok = ((dot(wh, normal) > 0.0) & (dot(wo, wh) > 0.0)
+               & (dot(wi, wh) > 0.0))
+    d = ggx_d(alpha, dot(normal, wh))
+    g = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i)
+    spec = schlick_fresnel(f0c, dot(wi, wh)) * fdiv(
+        d * g, torch.clamp_min(4.0 * cos_o * cos_i, 1e-6))[..., None]
+    spec = clamp_specular_tail(spec, coat_roughness, f0c, clamp_p)
+    spec = spec * plastic_specular_tint(m)
+    spec = where3(half_ok, torch.clamp_min(spec, 0.0), torch.zeros_like(spec))
+    spec_pdf_raw = ggx_pdf(alpha, normal, wo, wi)
+    spec_pdf = torch.where(half_ok & (spec_pdf_raw > 0.0),
+                           clamp_specular_pdf(spec_pdf_raw, clamp_p), 0.0)
+    diffuse = fdiv(material_base_color(m), PI) \
+        * torch.clamp(diffuse_occlusion, 0.0, 1.0)[..., None]
+    diffuse = diffuse * plastic_diffuse_transmission(m, cos_i, cos_o) \
+        * (1.0 - schlick_fresnel(f0c, cos_i)) \
+        * (1.0 - schlick_fresnel(f0c, cos_o))
+    diffuse = torch.clamp_min(diffuse * torch.clamp_min(
+        1.0 - torch.clamp(m.coat_fresnel_avg, 0.0, 1.0), 0.0)[..., None], 0.0)
+    p_coat = torch.clamp(m.coat_sample_weight, 0.0, 1.0)
+    return spec + diffuse, p_coat * spec_pdf \
+        + (1.0 - p_coat) * lambert_pdf(normal, wi)
 
 
 def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
-                clamp_p: ClampParams, diffuse_occlusion, material_types):
+                clamp_p: ClampParams, diffuse_occlusion, material_types,
+                position=None, sss_mode: int = 0):
     """Type-dispatched sampling over the wavefront (reference:
-    pathtrace.metal sample_bsdf:5136-5717). Returns (new_state,
-    BsdfSample)."""
+    pathtrace.metal sample_bsdf:5136-5717). ``position`` is the hit point
+    (carpaint's flakes and the separable BSSRDF's exit point read it);
+    ``sss_mode`` 1 takes the separable BSSRDF on subsurface lanes, other
+    modes the lambert fallback (random-walk lanes are overridden by the
+    walk, ``ops/sss.py``). Returns (new_state, BsdfSample)."""
+    from metal_pathtracer_tpu_torch.ops import carpaint as carpaint_ops
     from metal_pathtracer_tpu_torch.ops import pbr as pbr_ops
+    from metal_pathtracer_tpu_torch.ops import sss as sss_ops
 
-    _check_types(material_types)
     types = set(int(t) for t in material_types)
     out = BsdfSample.invalid(state.shape, state.device)
     new_state = state
@@ -573,6 +745,18 @@ def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
     if C.MATERIAL_DIELECTRIC in types:
         merge(C.MATERIAL_DIELECTRIC,
               _sample_dielectric(m, normal, incident, front_face, state))
+    if C.MATERIAL_PLASTIC in types:
+        merge(C.MATERIAL_PLASTIC,
+              _sample_plastic(m, normal, wo, state, clamp_p,
+                              diffuse_occlusion))
+    if C.MATERIAL_SUBSURFACE in types:
+        merge(C.MATERIAL_SUBSURFACE,
+              sss_ops.sample_subsurface(m, position, normal, wo, state,
+                                        sss_mode))
+    if C.MATERIAL_CARPAINT in types:
+        merge(C.MATERIAL_CARPAINT,
+              carpaint_ops.sample_carpaint(m, position, normal, wo, state,
+                                           clamp_p))
     if C.MATERIAL_PBR in types:
         merge(C.MATERIAL_PBR,
               pbr_ops.sample_pbr(m, normal, wo, incident, state, clamp_p,
@@ -581,12 +765,14 @@ def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
 
 
 def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
-                  diffuse_occlusion, material_types) -> BsdfEval:
+                  diffuse_occlusion, material_types,
+                  position=None) -> BsdfEval:
     """Type-dispatched evaluation, no RNG (reference: pathtrace.metal
-    evaluate_bsdf:4950-5136)."""
+    evaluate_bsdf:4950-5136). Subsurface lanes evaluate to zero and are
+    flagged ``is_bssrdf``."""
+    from metal_pathtracer_tpu_torch.ops import carpaint as carpaint_ops
     from metal_pathtracer_tpu_torch.ops import pbr as pbr_ops
 
-    _check_types(material_types)
     types = set(int(t) for t in material_types)
     cos_o = torch.clamp_min(dot(normal, wo), 0.0)
     cos_i = torch.clamp_min(dot(normal, wi), 0.0)
@@ -609,6 +795,19 @@ def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
         pdf = torch.where(mask & valid, p, pdf)
     if C.MATERIAL_DIELECTRIC in types:
         is_delta = is_delta | (m.mat_type == C.MATERIAL_DIELECTRIC)
+    if C.MATERIAL_PLASTIC in types:
+        mask = (m.mat_type == C.MATERIAL_PLASTIC) & geom_ok
+        v, p = _evaluate_plastic(m, normal, wo, wi, cos_o, cos_i, clamp_p,
+                                 diffuse_occlusion)
+        value = where3(mask, v, value)
+        pdf = torch.where(mask, p, pdf)
+    is_bssrdf = m.mat_type == C.MATERIAL_SUBSURFACE
+    if C.MATERIAL_CARPAINT in types:
+        mask = (m.mat_type == C.MATERIAL_CARPAINT) & geom_ok
+        v, p = carpaint_ops.evaluate_carpaint(m, position, normal, wo, wi,
+                                              clamp_p)
+        value = where3(mask, v, value)
+        pdf = torch.where(mask, p, pdf)
     if C.MATERIAL_PBR in types:
         mask = (m.mat_type == C.MATERIAL_PBR) & geom_ok
         ev = pbr_ops.evaluate_pbr(m, normal, wo, wi, clamp_p,
@@ -618,7 +817,8 @@ def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
         is_delta = torch.where(mask, ev.is_delta, is_delta)
     bad = (pdf <= 0.0) | ~torch.isfinite(value).all(-1)
     value = where3(bad, torch.zeros_like(value), value)
-    return BsdfEval(value=value, pdf=pdf, is_delta=is_delta)
+    return BsdfEval(value=value, pdf=pdf, is_delta=is_delta,
+                    is_bssrdf=is_bssrdf)
 
 
 def bsdf_cone_spread_increment(lobe_type, roughness, is_delta):

@@ -1,20 +1,23 @@
 """Wavefront path integrator (``ops/integrator.py`` twin).
 
-``trace_paths`` covers the lambert, metal, dielectric, PBR and
-diffuse-light types over triangles, spheres and rectangles, with the
-medium stack, in two depth loops of ``ops/kernels/shade.py``:
+``trace_paths`` covers every material type (lambert, metal, dielectric,
+plastic, carpaint, subsurface in its three modes, PBR, diffuse lights,
+``emission_env`` lights under an environment map) over triangles,
+spheres and rectangles, with the medium stack and the texture stage, in
+two depth loops of ``ops/kernels/shade.py``:
 
 - without a light integral (the gradient or solid background and no
-  emissive rectangle): one merged trace (K1, K3) and one K2 ``full``
-  shade per depth; a diffuse light hit emits and ends its path;
+  emissive rectangle): one merged trace (K1, K3), the texture stage in a
+  textured scene, the random walk on its lanes, and one K2 ``full`` shade
+  per depth; a diffuse light hit emits and ends its path;
 - with one or two light integrals, rect lights (NEE sampled from
   ``light_rect_indices``, emissive-hit MIS) and/or an environment map
   (alias-table NEE, MIS): the merged trace, K2 ``s1``, the light samples
-  and their shadow traces (K1 any-hit, K3), K2 ``s2`` and the spec-NEE
-  estimators (environment and rect lights) per depth.
+  and their shadow traces (K1 any-hit, K3), the random walk, K2 ``s2``
+  and the spec-NEE estimators (environment and rect lights) per depth.
 
-Other configurations raise ``NotImplementedError`` naming their ROADMAP
-step.
+MNEE and ``debugSpecularOnly`` raise ``NotImplementedError`` naming their
+ROADMAP step (instances raise where a scene adds one).
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ import dataclasses
 import torch
 
 from metal_pathtracer_tpu_torch import constants as C
-from metal_pathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from metal_pathtracer_tpu_torch.ops import camera as camera_ops
+from metal_pathtracer_tpu_torch.ops import env as env_ops
 from metal_pathtracer_tpu_torch.ops import rng as rng_ops
 from metal_pathtracer_tpu_torch.ops.vecmath import (
     cross,
@@ -35,6 +38,7 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
     length,
     linear_srgb_to_acescg,
     normalize,
+    where3,
 )
 from metal_pathtracer_tpu_torch.schema import SceneArrays, StaticConfig, Uniforms
 
@@ -133,27 +137,12 @@ def rect_nee(scene: SceneArrays) -> bool:
 
 def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
     """Raise NotImplementedError for configurations not ported yet."""
-    types = set(static.material_types)
-    if not types <= set(bsdf_ops.PORTED_TYPES):
-        raise NotImplementedError(
-            f"material types {sorted(types)}: lambert, metal, dielectric, "
-            "diffuse lights and PBR are ported (plastic, subsurface, "
-            "carpaint: ROADMAP Queue 1 step 13)")
     if static.enable_mnee:
         raise NotImplementedError(
             "MNEE chains: ROADMAP Queue 1, step 8 (spec-NEE is ported)")
     if static.debug_specular_only:
-        raise NotImplementedError("debugSpecularOnly is not ported")
-    if env_nee(scene, static) and C.MATERIAL_DIFFUSE_LIGHT in types and \
-            bool((scene.materials.emission_env > 0.0).any()):
         raise NotImplementedError(
-            "environment-modulated diffuse lights (emitEnv under an "
-            "environment map): ROADMAP Queue 1, step 12")
-    if scene.textures is not None and C.MATERIAL_PBR in types and \
-            not (env_nee(scene, static) or rect_nee(scene)):
-        raise NotImplementedError(
-            "textured PBR without a light integral (the texture planes in "
-            "stage full): ROADMAP Queue 1, step 7")
+            "debugSpecularOnly: ROADMAP Queue 1, step 16 (debug tooling)")
     if scene.n_triangles + scene.n_spheres + scene.n_rects == 0:
         raise NotImplementedError("a scene without any primitive")
 
@@ -186,11 +175,16 @@ def rect_light_pdf_for_hit(scene: SceneArrays, point, prim_type, prim_index,
     return torch.where(valid, pdf, 0.0)
 
 
-def rect_light_sample_from_uniforms(scene: SceneArrays, point, sel_u, u, v):
+def rect_light_sample_from_uniforms(scene: SceneArrays, point, sel_u, u, v,
+                                    uniforms: Uniforms,
+                                    static: StaticConfig):
     """Rect-light NEE sample from three drawn uniforms
     (``integrator.py _rect_light_sample_from_uniforms:125-172``; reference:
     pathtrace.metal sample_rect_light): a light by ``sel_u``, a point on
-    it by (u, v). Returns (direction, distance, pdf, emission, valid).
+    it by (u, v). Under an environment light integral an ``emission_env``
+    light's emission is scaled by the environment seen along its reversed
+    normal (``:161-167``).
+    Returns (direction, distance, pdf, emission, valid).
     The sample point is corner + u edge_u + v edge_v with the placement
     XLA:CPU gives the JAX package's (N,3) sum: the x and y components
     unfused, the z component as two FMAs."""
@@ -216,8 +210,15 @@ def rect_light_sample_from_uniforms(scene: SceneArrays, point, sel_u, u, v):
     pdf = fdiv(fdiv(1.0, torch.clamp_min(area, 1e-20)) * dist_sq,
                torch.clamp_min(cos_light, 1e-6))
     pdf = fdiv(pdf, float(n))
-    emission = mats.emission[torch.clamp(rects.material[idx], 0,
-                                         mats.count - 1).long()]
+    mat = torch.clamp(rects.material[idx], 0, mats.count - 1).long()
+    emission = mats.emission[mat]
+    if env_nee(scene, static):
+        env_mod = env_ops.environment_color(
+            scene.environment, -rects.normal[idx],
+            uniforms.environment_rotation, uniforms.environment_intensity,
+            static)
+        emission = where3(mats.emission_env[mat] > 0.0, emission * env_mod,
+                          emission)
     valid = ((dist_sq > 0.0) & (area > 0.0) & cos_ok & (cos_light > 0.0)
              & (pdf > 0.0) & torch.isfinite(pdf) & (emission != 0.0).any(-1))
     return direction, distance, torch.where(valid, pdf, 0.0), emission, valid

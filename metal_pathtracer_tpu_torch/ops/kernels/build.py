@@ -47,23 +47,27 @@ SIGNATURES = {
         _vp, _vp, _vp, _vp,                     # v0 v1 v2 mesh_index
         _vp, _vp, _vp, _vp,                     # out t tri u v
         _vp],                                   # stream
-    # n, scalars (host float[]), geometry pointers (host void*[]: hit t,
+    # n, the K2 instantiation (1: with plastic, carpaint and subsurface),
+    # scalars (host float[]), geometry pointers (host void*[]: hit t,
     # index, u, v, family, shade_packed, sphere and rectangle arrays),
-    # material table, its row count, PathCarry pointers (host void*[]),
+    # material table, its row count, texture planes, random-walk planes
+    # and states (NULL where absent), PathCarry pointers (host void*[]),
     # stream
-    "mpt_shade_full": [_i, _vp, _vp, _vp, _i, _vp, _vp],
+    "mpt_shade_full": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp],
     "mpt_trace_any": [
         _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
         _vp, _vp, _vp,                          # v0 v1 v2
         _vp, _vp],                              # out flags, stream
-    # n, scalars, geometry pointers, material table, its row count, the
-    # stage inputs (s1: environment background and pdf, rect-light pdf;
-    # s2: transients and light samples; NULL where absent), texture planes
-    # (NULL: untextured), PathCarry pointers, output, stream
-    "mpt_shade_s1": [_i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp,
-                     _vp],
-    "mpt_shade_s2": [_i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
+    # n, the K2 instantiation, scalars, geometry pointers, material table,
+    # its row count, the stage inputs (s1: environment background and pdf,
+    # rect-light pdf, environment modulation, texture planes; s2:
+    # transients, light samples, texture planes, random-walk planes and
+    # states; NULL where absent), PathCarry pointers, output, stream
+    "mpt_shade_s1": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
+                     _vp, _vp, _vp],
+    "mpt_shade_s2": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
+                     _vp, _vp, _vp],
     # n, scalars (host float[]), t tri u v, texture material table, its row
     # count, carry / triangle attribute / atlas pointers (host void*[]),
     # texture count, levels per texture, output planes, stream

@@ -11,20 +11,30 @@ place, and lanes that enter dead keep every value:
   background and end; hits get Beer-Lambert absorption from the top of the
   medium stack, the dielectric geometric normal, first-hit AOVs, the PBR
   emissive add; a diffuse light emits and ends its path; the others sample
-  lambert, metal, dielectric or PBR, push or pop the medium stack, and get
-  the next origin, throughput clamp, ray cone, Russian roulette at depth
-  >= 5 and the commit (the integrator body's order);
+  their BSDF (every material type), push or pop the medium stack, and get
+  the next origin (off a BSSRDF exit point where the sample has one),
+  throughput clamp, ray cone, Russian roulette at depth >= 5 and the
+  commit (the integrator body's order);
 - ``shade_s1`` (rect lights and/or an environment map): misses add the
   environment with MIS (or the gradient/solid background) and end; hits
   get the same absorption, normal, AOVs and emission, a diffuse light
-  emits with MIS against the rect-light pdf of the hit and ends, and the
+  emits (an ``emission_env`` light's front face times the ``emod``
+  plane) with MIS against the rect-light pdf of the hit and ends, and the
   NEE draws are taken, 3 per light integral, rect first; 18 transient
   columns are exported (``TRANS``);
 - ``shade_s2``: the NEE adds with MIS, one bank (light sample + shadow
-  flag, ``ESMP``) per light integral, rect first; BSDF sampling from the
-  post-s1 state, the spec-NEE chain exports (``CHAIN``), medium push/pop,
-  next origin, throughput clamp, environment LOD, ray cone, Russian
-  roulette and the commit.
+  flag, ``ESMP``) per light integral, rect first, none on subsurface
+  lanes; BSDF sampling from the post-s1 state, the spec-NEE chain exports
+  (``CHAIN``), medium push/pop, next origin, throughput clamp,
+  environment LOD, ray cone, Russian roulette and the commit.
+
+Stages ``full`` and ``s2`` take the random walk's override planes
+(``RW``, from ``random_walks``, which runs ``sss.sample_sss_random_walk``
+over the scene's trace kernels on the walk lanes only): where the walk
+left a sample, it and the walk's RNG state replace the lane's own. Each
+stage launches one of two instantiations of its kernel, chosen from the
+scene's material types (``ShadeParams.extended``): without, or with, the
+plastic, carpaint and subsurface branches.
 
 The hit comes from the merged trace (``intersect.trace_merged``): each
 lane's winning family and index, and K2 rebuilds it. A triangle from its
@@ -35,21 +45,25 @@ as stored; only triangles set the self-hit exclusion ids
 (``shade.py:1966-1988, 2012-2018, 2132-2143, 2449``). Triangle-only
 scenes pass no family (``kind`` None).
 
-In a textured scene s1 and s2 also read the texture stage's 15 ``TEX``
+In a textured scene every stage reads the texture stage's 15 ``TEX``
 planes (``ops/kernels/texture.py``; ``shade.py:2027-2059``): lanes whose
 ``tpbr`` flag is set take the textured base colour, roughness, metallic,
-transmission, emission and occlusion (s1 also the mapped normal), and
-alpha pass-through lanes record no AOV, add no emission, draw no NEE or
-BSDF sample and continue along their ray as a delta bounce of weight 1
-(``shade.py:2123-2139, 2188, 2306-2331``).
+transmission, emission and occlusion (full and s1 also the mapped
+normal), and alpha pass-through lanes record no AOV, add no emission,
+draw no NEE or BSDF sample, skip Russian roulette and continue along
+their ray as a delta bounce of weight 1 (``shade.py:2123-2139, 2188,
+2306-2331, 2414``).
 
 The depth loops are ``trace_paths_fused:2915``'s no-light branch
-(``shade.py:3152-3163``) and its NEE branch (``shade.py:3165-3351``).
+(``shade.py:3152-3163``) and its NEE branch (``shade.py:3165-3351``);
+the random walk forks from the stage's input state before ``full`` and
+from the post-s1 state under NEE (``shade.py:3157, 3245``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import torch
 
@@ -59,6 +73,7 @@ from metal_pathtracer_tpu_torch.ops import env as env_ops
 from metal_pathtracer_tpu_torch.ops import integrator
 from metal_pathtracer_tpu_torch.ops import rng as rng_ops
 from metal_pathtracer_tpu_torch.ops import specnee
+from metal_pathtracer_tpu_torch.ops import sss as sss_ops
 from metal_pathtracer_tpu_torch.ops.integrator import (
     PathCarry,
     sky_color,
@@ -101,6 +116,7 @@ class ShadeParams:
     material_types: tuple
     specular_mis: bool = False    # MIS on hits after delta bounces too
     env_max_mip: float = 0.0      # mip levels below mip0; 0: LOD off
+    sss_mode: int = 0             # 0 off / 1 separable / 2 random walk
 
     @classmethod
     def of(cls, uniforms, static, env=None) -> "ShadeParams":
@@ -114,7 +130,14 @@ class ShadeParams:
                    material_types=tuple(static.material_types),
                    specular_mis=static.enable_specular_nee
                    or static.enable_mnee,
-                   env_max_mip=0.0 if env is None else env_ops.max_mip(env))
+                   env_max_mip=0.0 if env is None else env_ops.max_mip(env),
+                   sss_mode=static.sss_mode)
+
+    @property
+    def extended(self) -> bool:
+        """The K2 instantiation with the plastic, carpaint and subsurface
+        branches (``csrc/shade.cu``: the other one holds none of them)."""
+        return bool(set(self.material_types) & set(EXTENDED_TYPES))
 
     def scalars(self, depth: int, n_banks: int = 0):
         """The float vector the kernels unpack (``shade_params_of`` in
@@ -127,7 +150,12 @@ class ShadeParams:
                 float(self.use_russian_roulette), float(self.specular_mis),
                 self.env_max_mip, float(self.working_color_space),
                 float(self.background_mode), *self.background_color,
-                float(n_banks)]
+                float(n_banks), float(self.sss_mode)]
+
+
+#: the material types only K2's extended instantiation holds
+EXTENDED_TYPES = (C.MATERIAL_PLASTIC, C.MATERIAL_SUBSURFACE,
+                  C.MATERIAL_CARPAINT)
 
 
 def _background(ray_d, params: ShadeParams):
@@ -198,12 +226,14 @@ class _Front:
 
 def _shade_front(carry: PathCarry, t, tri, u, v, triangles, materials,
                  params: ShadeParams, hit_lanes, radiance, kind, scene,
-                 tex=None, rectpdf=None) -> _Front:
+                 tex=None, rectpdf=None, emod=None) -> _Front:
     """The part of a hit lane that stages full and s1 share
     (``shade.py:2101-2177``; integrator body :323-459): hit rebuild,
     absorption, material (+ texture overrides), the dielectric geometric
     normal, first-hit AOVs (committed here), PBR emission, and a diffuse
-    light's emission with MIS against ``rectpdf`` (None: weight 1)."""
+    light's emission, front faces of an ``emission_env`` light times the
+    ``emod`` plane (``shade.py:2149-2154``), with MIS against ``rectpdf``
+    (None: weight 1)."""
     rec = rebuild_hit(carry.ray_o, carry.ray_d, triangles, t, tri, u, v,
                       kind, scene)
     sn = rec.shading_normal
@@ -246,9 +276,13 @@ def _shade_front(carry: PathCarry, t, tri, u, v, triangles, materials,
         w, denom = _mis_weight(carry.last_pdf, rectpdf)
         use_mis = (~carry.last_delta | params.specular_mis) & (denom > 0.0)
         l_mis = torch.where(use_mis, w, 1.0)
-    emit = light & (m.emission != 0.0).any(-1) & facing
+    emission = m.emission
+    if emod is not None:
+        emission = where3((m.emission_env > 0.0) & rec.front_face,
+                          emission * emod, emission)
+    emit = light & (emission != 0.0).any(-1) & facing
     radiance = radiance + where3(emit, bsdf_ops.clamp_firefly_contribution(
-        throughput, m.emission * l_mis[:, None], params.clamp), zero)
+        throughput, emission * l_mis[:, None], params.clamp), zero)
     return _Front(rec=rec, m=m, sn=shading_normal, throughput=throughput,
                   radiance=radiance, occlusion=occlusion,
                   passthrough=passthrough, light=light)
@@ -287,17 +321,60 @@ def _cone_update(carry: PathCarry, t, smp, active):
 
 
 def _roulette(params: ShadeParams, depth: int, state, throughput, max_tp,
-              active):
-    """Russian roulette at depth >= 5 on lanes that go on: (state,
-    throughput, active)."""
+              active, passthrough):
+    """Russian roulette at depth >= 5 on lanes that go on, alpha
+    pass-through lanes excepted: (state, throughput, active)."""
     if not (params.use_russian_roulette and depth >= 5):
         return state, throughput, active
+    do_rr = active & ~passthrough
     rr_state, xi = rng_ops.rand_uniform(state)
     cont_p = torch.clamp(max_tp, 0.05, 0.95)
     survive = xi <= cont_p
-    throughput = where3(active & survive, throughput / cont_p[:, None],
+    throughput = where3(do_rr & survive, throughput / cont_p[:, None],
                         throughput)
-    return torch.where(active, rr_state, state), throughput, active & survive
+    return (torch.where(do_rr, rr_state, state), throughput,
+            active & (survive | ~do_rr))
+
+
+def _passthrough_sample(smp, passthrough, ray_d):
+    """Alpha pass-through lanes: a delta bounce along the same ray, weight
+    1 (``shade.py:2306-2313``)."""
+    ones = torch.ones_like(ray_d[:, 0])
+    through = bsdf_ops.BsdfSample.invalid(ones.shape, ones.device).replace(
+        direction=ray_d, weight=torch.ones_like(ray_d), pdf=ones,
+        directional_pdf=ones, is_delta=torch.ones_like(passthrough))
+    return bsdf_ops.select_sample(passthrough, through, smp)
+
+
+#: random-walk override columns, the walk pre-stage -> stages full and s2
+#: (``shade.py:1804``)
+RW = ["mask", "dx", "dy", "dz", "wr", "wg", "wb", "pdf", "dpdf", "lobe",
+      "lrough", "hasexit", "ex", "ey", "ez", "enx", "eny", "enz"]
+
+
+def _rw_override(smp, nstate, rw, rw_state):
+    """Random-walk lanes (mask set, pdf > 0) replace both the sample and
+    the RNG state (``shade.py:2284-2300``)."""
+    if rw is None:
+        return smp, nstate
+    used = (rw[:, 0] > 0.5) & (rw[:, 7] > 0.0)
+    walk = bsdf_ops.BsdfSample.invalid(used.shape, used.device).replace(
+        direction=rw[:, 1:4], weight=rw[:, 4:7], pdf=rw[:, 7],
+        directional_pdf=rw[:, 8], lobe_type=rw[:, 9].to(torch.int32),
+        lobe_roughness=rw[:, 10], has_exit_point=rw[:, 11] > 0.5,
+        exit_point=rw[:, 12:15], exit_normal=rw[:, 15:18])
+    return (bsdf_ops.select_sample(used, walk, smp),
+            torch.where(used, rw_state, nstate))
+
+
+def _next_origin(point, sn, n_faced, t, smp, params: ShadeParams):
+    """The next ray's origin: off the hit (``offset_origin``), or off the
+    BSSRDF exit point on lanes that have one (``shade.py:2359-2371``)."""
+    origin = offset_origin(point, sn, n_faced, t, smp.direction)
+    if C.MATERIAL_SUBSURFACE not in params.material_types:
+        return origin
+    return where3(smp.has_exit_point,
+                  sss_ops.exit_point_origin(smp, n_faced), origin)
 
 
 def _max3(x):
@@ -306,7 +383,8 @@ def _max3(x):
 
 def shade_full_reference(carry: PathCarry, t, tri, u, v, triangles,
                          materials, params: ShadeParams, depth: int,
-                         kind=None, scene=None):
+                         kind=None, scene=None, tex=None, rw=None,
+                         rw_state=None):
     """Plain PyTorch K2 stage full (see the module docstring)."""
     alive0 = carry.alive.clone()
     hit = tri >= 0
@@ -315,26 +393,29 @@ def shade_full_reference(carry: PathCarry, t, tri, u, v, triangles,
         carry.throughput, _background(carry.ray_d, params), params.clamp)
     radiance = where3(miss, carry.radiance + bg, carry.radiance)
     f = _shade_front(carry, t, tri, u, v, triangles, materials, params,
-                     alive0 & hit, radiance, kind, scene)
+                     alive0 & hit, radiance, kind, scene, tex)
     active = alive0 & hit & ~f.light
     go = active.clone()                 # the hit lanes that sample
 
     incident = normalize(carry.ray_d)
     nstate, smp = bsdf_ops.sample_bsdf(
         f.m, f.sn, -incident, incident, f.rec.front_face, carry.state,
-        params.clamp, torch.ones_like(t), params.material_types)
-    state = torch.where(active, nstate, carry.state)
+        params.clamp, f.occlusion, params.material_types,
+        position=f.rec.point, sss_mode=params.sss_mode)
+    smp, nstate = _rw_override(smp, nstate, rw, rw_state)
+    state = torch.where(active & ~f.passthrough, nstate, carry.state)
+    smp = _passthrough_sample(smp, f.passthrough, carry.ray_d)
     active = active & (smp.pdf > 0.0)
     stack, medium_depth = _medium_update(carry, smp, f.m, active)
-    next_origin = offset_origin(f.rec.point, f.sn, f.rec.normal, t,
-                                smp.direction)
+    next_origin = _next_origin(f.rec.point, f.sn, f.rec.normal, t, smp,
+                               params)
     throughput = bsdf_ops.clamp_path_throughput(f.throughput * smp.weight,
                                                 params.clamp)
     max_tp = _max3(throughput)
     active = active & torch.isfinite(throughput).all(-1) & (max_tp > 0.0)
     cone_width, cone_spread = _cone_update(carry, t, smp, active)
     state, throughput, active = _roulette(params, depth, state, throughput,
-                                          max_tp, active)
+                                          max_tp, active, f.passthrough)
 
     # ---- commit: misses and lights end their path, dead lanes keep all --
     is_tri = f.rec.prim_type == C.PRIMITIVE_TRIANGLE
@@ -422,30 +503,55 @@ def _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, who: str):
 
 
 #: material table columns the shade kernels read (``pack_material_table:292``
-#: cut to lambert, metal, dielectric, diffuse lights and PBR)
+#: columns ``:240-281``, in the order of ``csrc/bsdf.cuh fetch_material``)
 MAT_COLS = ["mat_type", "base_r", "base_g", "base_b", "roughness", "eta",
             "thin", "em_r", "em_g", "em_b", "sa_r", "sa_g", "sa_b",
             "pbr_metallic", "pbr_transmission", "pbr_thickness",
             "pbr_double_sided", "ce_r", "ce_g", "ce_b", "ck_r", "ck_g",
-            "ck_b", "has_conductor"]
+            "ck_b", "has_conductor", "emission_env",
+            # plastic / carpaint coat layer
+            "coat_ior", "coat_roughness", "coat_thickness",
+            "coat_sample_weight", "coat_fresnel_avg",
+            "coat_tint_r", "coat_tint_g", "coat_tint_b",
+            "coat_abs_r", "coat_abs_g", "coat_abs_b",
+            # carpaint base and flake lobes
+            "carpaint_base_metallic", "carpaint_base_roughness",
+            "carpaint_flake_scale", "carpaint_flake_sample_weight",
+            "carpaint_flake_roughness", "carpaint_flake_anisotropy",
+            "carpaint_flake_normal_strength", "carpaint_has_base_conductor",
+            "cpe_r", "cpe_g", "cpe_b", "cpk_r", "cpk_g", "cpk_b",
+            # subsurface
+            "sss_g", "sss_mfp", "sss_method", "sss_coat",
+            "sss_sigma_override", "ssa_r", "ssa_g", "ssa_b",
+            "ssss_r", "ssss_g", "ssss_b"]
 
 
 def pack_material_table(materials) -> torch.Tensor:
-    """(M, 24) f32 table in ``MAT_COLS`` order (``_launch`` packs it once
+    """(M, 61) f32 table in ``MAT_COLS`` order (``_launch`` packs it once
     per materials object, ``MaterialsSoA.table``)."""
-    cols = [materials.mat_type.to(torch.float32),
-            *materials.base_color.unbind(-1), materials.roughness,
-            materials.eta, materials.thin, *materials.emission.unbind(-1),
-            *materials.dielectric_sigma_a.unbind(-1), materials.pbr_metallic,
-            materials.pbr_transmission, materials.pbr_thickness,
-            materials.pbr_double_sided, *materials.conductor_eta.unbind(-1),
-            *materials.conductor_k.unbind(-1), materials.has_conductor]
-    return torch.stack(cols, 1).contiguous()
+    v = lambda x: x.unbind(-1)
+    m = materials
+    cols = [m.mat_type.to(torch.float32), *v(m.base_color), m.roughness,
+            m.eta, m.thin, *v(m.emission), *v(m.dielectric_sigma_a),
+            m.pbr_metallic, m.pbr_transmission, m.pbr_thickness,
+            m.pbr_double_sided, *v(m.conductor_eta), *v(m.conductor_k),
+            m.has_conductor, m.emission_env, m.coat_ior, m.coat_roughness,
+            m.coat_thickness, m.coat_sample_weight, m.coat_fresnel_avg,
+            *v(m.coat_tint), *v(m.coat_absorption), m.carpaint_base_metallic,
+            m.carpaint_base_roughness, m.carpaint_flake_scale,
+            m.carpaint_flake_sample_weight, m.carpaint_flake_roughness,
+            m.carpaint_flake_anisotropy, m.carpaint_flake_normal_strength,
+            m.carpaint_has_base_conductor, *v(m.carpaint_base_eta),
+            *v(m.carpaint_base_k), m.sss_g, m.sss_mfp, m.sss_method,
+            m.sss_coat, m.sss_sigma_override, *v(m.sss_sigma_a),
+            *v(m.sss_sigma_s)]
+    return torch.stack([c.to(torch.float32) for c in cols], 1).contiguous()
 
 
 def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
-            inputs, out_cols, scalars):
-    """Check, then launch ``mpt_<name>`` with the stage ``inputs`` (device
+            inputs, out_cols, params: ShadeParams, depth: int, n_banks=0):
+    """Check, then launch ``mpt_<name>`` (the instantiation that
+    ``params.material_types`` needs) with the stage ``inputs`` (device
     tensors or None) after the material table (packed on the first
     launch for these materials); returns its (N, out_cols) output (None
     without one)."""
@@ -455,15 +561,17 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
     geo = _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, name)
     mat_table = materials.table(pack_material_table)
     for x in inputs:
-        if x is not None and (x.device != dev or not x.is_contiguous()):
-            raise ValueError(f"{name}: stage inputs must be contiguous and "
-                             f"on {dev}")
+        if x is not None and (x.device != dev or not x.is_contiguous()
+                              or x.shape[0] != n):
+            raise ValueError(f"{name}: stage inputs must be contiguous, of "
+                             f"{n} lanes and on {dev}")
     out = None if out_cols is None else torch.empty(
         (n, out_cols), dtype=torch.float32, device=dev)
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = getattr(lib, f"mpt_{name}")(
-        n, build.floats(scalars), geo, p(mat_table), mat_table.shape[0],
+        n, int(params.extended), build.floats(params.scalars(depth, n_banks)),
+        geo, p(mat_table), mat_table.shape[0],
         *[p(x) for x in inputs], build.pointers(ptrs),
         *([] if out is None else [p(out)]),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -471,22 +579,33 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
     return out
 
 
+def _check_rw(name, rw, rw_state, n):
+    if rw is not None and (rw.shape != (n, len(RW)) or rw_state is None
+                           or rw_state.dtype != torch.int64):
+        raise ValueError(f"{name}: rw must be ({n}, {len(RW)}) with int64 "
+                         "states")
+
+
 def shade_full(carry: PathCarry, t, tri, u, v, triangles, materials,
                params: ShadeParams, depth: int, kind=None,
-               scene=None) -> None:
+               scene=None, tex=None, rw=None, rw_state=None) -> None:
     """Stage full, in place on ``carry``. ``tri`` is each lane's index in
     its family (-1: a miss), ``kind`` the family (None: triangles only)
-    and ``scene`` the spheres and rectangles it indexes. CPU tensors take
-    the plain version; CUDA tensors launch K2."""
+    and ``scene`` the spheres and rectangles it indexes; ``tex`` the
+    texture planes of a textured scene, ``rw``/``rw_state`` the
+    random-walk override. CPU tensors take the plain version; CUDA tensors
+    launch K2."""
     dev = t.device
     if dev.type == "cpu":
         shade_full_reference(carry, t, tri, u, v, triangles, materials,
-                             params, depth, kind, scene)
+                             params, depth, kind, scene, tex, rw, rw_state)
         return
     if dev.type != "cuda":
         raise ValueError(f"shade_full: unsupported device {dev}")
+    _check_tex("shade_full", tex, t.shape[0])
+    _check_rw("shade_full", rw, rw_state, t.shape[0])
     _launch("shade_full", carry, t, tri, u, v, triangles, materials, kind,
-            scene, [], None, params.scalars(depth))
+            scene, [tex, rw, rw_state], None, params, depth)
     shade_full.launches += 1
 
 
@@ -509,13 +628,54 @@ def _trace(scene, carry: PathCarry):
     return t, tri, u, v, None
 
 
+def random_walks(scene, uniforms, static, carry: PathCarry, t, idx, u, v,
+                 kind):
+    """The random-walk pre-stage of one depth (``shade.py:3064-3150``):
+    ``sss.sample_sss_random_walk`` on the live front-face hits of a
+    random-walk subsurface material only, from the carry's RNG state (the
+    stage's fork point), gathered into a dense batch. Returns the (N,18)
+    ``RW`` planes (zero off the walk's lanes) and the (N,) states (the
+    carry's off them); (None, None) when the scene walks nowhere."""
+    if not (static.sss_mode == 2
+            and C.MATERIAL_SUBSURFACE in static.material_types):
+        return None, None
+    mats = scene.materials
+    rec = rebuild_hit(carry.ray_o, carry.ray_d, scene.triangles, t, idx, u,
+                      v, kind, scene)
+    walk_mat = (mats.mat_type == C.MATERIAL_SUBSURFACE) \
+        & (mats.sss_method >= 0.5)
+    mat = torch.clamp(rec.material, 0, mats.count - 1).long()
+    lanes = torch.nonzero(carry.alive & (idx >= 0) & walk_mat[mat]
+                          & rec.front_face).squeeze(1)
+    rw = torch.zeros((t.shape[0], len(RW)), device=t.device)
+    rw_state = carry.state.clone()
+    if lanes.numel() == 0:
+        return rw, rw_state
+    incident = normalize(carry.ray_d[lanes])
+    hit = SimpleNamespace(normal=rec.normal[lanes], point=rec.point[lanes],
+                          front_face=torch.ones_like(lanes, dtype=torch.bool))
+    state, smp = sss_ops.sample_sss_random_walk(
+        scene, bsdf_ops.gather_material(mats, rec.material[lanes]), hit,
+        -incident, incident, carry.state[lanes],
+        bsdf_ops.make_clamp_params(uniforms), static.sss_max_steps)
+    f = lambda x: x.to(torch.float32)[:, None]
+    rw[lanes] = torch.cat([
+        torch.ones_like(f(lanes)), smp.direction, smp.weight, f(smp.pdf),
+        f(smp.directional_pdf), f(smp.lobe_type), f(smp.lobe_roughness),
+        f(smp.has_exit_point), smp.exit_point, smp.exit_normal], 1)
+    rw_state[lanes] = state
+    return rw, rw_state
+
+
 def trace_paths_fused(scene, uniforms, static, carry: PathCarry) -> int:
-    """Depth loop without a light integral: the merged trace then K2
-    ``full`` until ``max_depth`` or no lane is alive
+    """Depth loop without a light integral: the merged trace, in a
+    textured scene the texture stage, the random walk on its lanes, then
+    K2 ``full`` until ``max_depth`` or no lane is alive
     (``shade.py:2991-2995, 3152-3163``). Syncs once per depth on the alive
-    count, which is also that depth's trace count. Returns the traces
-    issued."""
+    count, which is also that depth's trace count (and once per walk
+    step). Returns the traces issued."""
     params = ShadeParams.of(uniforms, static)
+    textured = has_textures(scene, static) and scene.n_triangles > 0
     rays = 0
     for depth in range(static.max_depth):
         n_alive = int(carry.alive.sum())
@@ -523,8 +683,18 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry) -> int:
             break
         rays += n_alive
         t, idx, u, v, kind = _trace(scene, carry)
+        tex = None
+        if textured:
+            tri = idx if kind is None else torch.where(
+                kind == C.PRIMITIVE_TRIANGLE, idx, -1)
+            tex = texture_stage(carry, t, tri, u, v, scene, uniforms, static,
+                                depth)
+        # the full stage samples from its input state: the walk's fork
+        rw, rw_state = random_walks(scene, uniforms, static, carry, t, idx,
+                                    u, v, kind)
         shade_full(carry, t, idx, u, v, scene.triangles, scene.materials,
-                   params, depth, kind=kind, scene=scene)
+                   params, depth, kind=kind, scene=scene, tex=tex, rw=rw,
+                   rw_state=rw_state)
     return rays
 
 
@@ -550,14 +720,16 @@ CHAIN_IDX = {n: i for i, n in enumerate(CHAIN)}
 
 def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                        envbg, envpdf, params: ShadeParams, depth: int,
-                       tex=None, kind=None, scene=None, rectpdf=None):
+                       tex=None, kind=None, scene=None, rectpdf=None,
+                       emod=None):
     """Plain PyTorch K2 stage s1 (``_shade_kernel`` stage "s1",
     integrator body :280-460). ``envbg``/``envpdf``: the environment
     background and alias pdf of an environment light integral (None: the
     gradient or solid background, no MIS); ``rectpdf``: the rect-light
     pdf of each hit, under a rect-light integral; ``tex``: the texture
-    planes. Updates ``carry`` in place and returns the (N,18)
-    transients."""
+    planes; ``emod``: the environment seen along each hit's reversed
+    shading normal, for ``emission_env`` lights (``env_modulation``).
+    Updates ``carry`` in place and returns the (N,18) transients."""
     del depth
     alive0 = carry.alive.clone()
     hit = tri >= 0
@@ -576,7 +748,7 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     radiance = where3(miss, carry.radiance + bg_contrib, carry.radiance)
 
     f = _shade_front(carry, t, tri, u, v, triangles, materials, params,
-                     alive0 & hit, radiance, kind, scene, tex, rectpdf)
+                     alive0 & hit, radiance, kind, scene, tex, rectpdf, emod)
     active = alive0 & hit & ~f.light
     surface_is_delta = bsdf_ops.material_is_delta(f.m)
 
@@ -611,11 +783,13 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
 
 def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                        trans, esmp, params: ShadeParams, depth: int,
-                       tex=None, kind=None, scene=None):
+                       tex=None, kind=None, scene=None, rw=None,
+                       rw_state=None):
     """Plain PyTorch K2 stage s2 (``_shade_kernel`` stage "s2",
     integrator body :461-716). ``esmp`` holds one 9-column bank per light
-    integral, rect first. Updates ``carry`` in place and returns the (N,7)
-    chain exports."""
+    integral, rect first; ``rw``/``rw_state`` the random-walk override
+    planes and states (``RW``). Updates ``carry`` in place and returns the
+    (N,7) chain exports."""
     alive0 = carry.alive.clone()    # after s1: the live hits
     active = alive0
     sn = trans[:, 4:7]
@@ -638,12 +812,14 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
         n_dot_l = torch.clamp_min(dot(sn, e_dir), 0.0)
         do_shadow = nee_lanes & e_valid & (e_pdf > 0.0) & (n_dot_l > 0.0)
         ev = bsdf_ops.evaluate_bsdf(m, sn, wo, e_dir, params.clamp,
-                                    occlusion, params.material_types)
+                                    occlusion, params.material_types,
+                                    position=point)
         w, _ = _mis_weight(e_pdf, ev.pdf)
         w = torch.where(ev.pdf > 0.0, w, 1.0)
         contribution = e_rad * ev.value * n_dot_l[:, None] \
             * fdiv(w, torch.clamp_min(e_pdf, 1e-30))[:, None]
-        add = (do_shadow & ~occluded & ~ev.is_delta & (_max3(ev.value) > 0.0)
+        add = (do_shadow & ~occluded & ~ev.is_delta & ~ev.is_bssrdf
+               & (_max3(ev.value) > 0.0)
                & torch.isfinite(contribution).all(-1))
         radiance = radiance + where3(
             add, bsdf_ops.clamp_firefly_contribution(throughput, contribution,
@@ -653,21 +829,18 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     # ---- BSDF sample from the post-s1 state ------------------------------
     nstate, smp = bsdf_ops.sample_bsdf(
         m, sn, wo, incident, rec.front_face, carry.state, params.clamp,
-        occlusion, params.material_types)
+        occlusion, params.material_types, position=point,
+        sss_mode=params.sss_mode)
+    smp, nstate = _rw_override(smp, nstate, rw, rw_state)
     state = torch.where(active & ~passthrough, nstate, carry.state)
-    # alpha pass-through: a delta bounce along the same ray, weight 1
-    ones = torch.ones_like(t)
-    through = bsdf_ops.BsdfSample.invalid(t.shape, t.device).replace(
-        direction=carry.ray_d, weight=torch.ones_like(carry.ray_d), pdf=ones,
-        directional_pdf=ones, is_delta=torch.ones_like(passthrough))
-    smp = bsdf_ops.select_sample(passthrough, through, smp)
+    smp = _passthrough_sample(smp, passthrough, carry.ray_d)
     active = active & (smp.pdf > 0.0)
     chain = torch.stack([*smp.weight.unbind(-1), smp.directional_pdf,
                          smp.medium_event.to(torch.float32),
                          (active & ~passthrough).to(torch.float32),
                          rec.front_face.to(torch.float32)], -1)
     stack, medium_depth = _medium_update(carry, smp, m, active)
-    next_origin = offset_origin(point, sn, n_faced, t, smp.direction)
+    next_origin = _next_origin(point, sn, n_faced, t, smp, params)
 
     # ---- throughput, environment LOD, ray cone ---------------------------
     throughput = bsdf_ops.clamp_path_throughput(throughput * smp.weight,
@@ -687,7 +860,7 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     last_pdf = torch.where(smp.directional_pdf > 0.0, smp.directional_pdf,
                            smp.pdf)
     state, throughput, active = _roulette(params, depth, state, throughput,
-                                          max_tp, active)
+                                          max_tp, active, passthrough)
 
     # ---- commit: the live hits only --------------------------------------
     h = alive0
@@ -725,49 +898,52 @@ def _check_tex(name, tex, n):
 
 def shade_s1(carry: PathCarry, t, tri, u, v, triangles, materials, envbg,
              envpdf, params: ShadeParams, depth: int, tex=None, kind=None,
-             scene=None, rectpdf=None):
+             scene=None, rectpdf=None, emod=None):
     """Stage s1, in place on ``carry``; returns the (N,18) transients
     (zero on lanes that are not live hits afterwards). ``envbg``/
     ``envpdf`` for an environment light integral (None without one),
     ``rectpdf`` for a rect-light integral, ``tex`` the texture planes of a
-    textured scene, ``kind``/``scene`` as in ``shade_full``. CPU tensors
-    take the plain version; CUDA tensors launch K2 s1."""
+    textured scene, ``emod`` the environment modulation of
+    ``emission_env`` lights, ``kind``/``scene`` as in ``shade_full``. CPU
+    tensors take the plain version; CUDA tensors launch K2 s1."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s1_reference(carry, t, tri, u, v, triangles, materials,
                                   envbg, envpdf, params, depth, tex, kind,
-                                  scene, rectpdf)
+                                  scene, rectpdf, emod)
     if dev.type != "cuda":
         raise ValueError(f"shade_s1: unsupported device {dev}")
     _check_tex("shade_s1", tex, t.shape[0])
     out = _launch("shade_s1", carry, t, tri, u, v, triangles, materials,
-                  kind, scene, [envbg, envpdf, rectpdf, tex], len(TRANS),
-                  params.scalars(depth))
+                  kind, scene, [envbg, envpdf, rectpdf, emod, tex],
+                  len(TRANS), params, depth)
     shade_s1.launches += 1
     return out
 
 
 def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
              esmp, params: ShadeParams, depth: int, tex=None, kind=None,
-             scene=None):
+             scene=None, rw=None, rw_state=None):
     """Stage s2, in place on ``carry``; returns the (N,7) chain exports
     (zero on lanes that were not live hits). ``esmp``: one 9-column bank
-    per light integral, rect first. CPU tensors take the plain version;
-    CUDA tensors launch K2 s2."""
+    per light integral, rect first; ``rw``/``rw_state`` the random-walk
+    override. CPU tensors take the plain version; CUDA tensors launch K2
+    s2."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s2_reference(carry, t, tri, u, v, triangles, materials,
                                   trans, esmp, params, depth, tex, kind,
-                                  scene)
+                                  scene, rw, rw_state)
     if dev.type != "cuda":
         raise ValueError(f"shade_s2: unsupported device {dev}")
     _check_tex("shade_s2", tex, t.shape[0])
+    _check_rw("shade_s2", rw, rw_state, t.shape[0])
     if esmp.shape[1] not in (len(ESMP), 2 * len(ESMP)):
         raise ValueError("shade_s2: esmp holds one or two banks")
     out = _launch("shade_s2", carry, t, tri, u, v, triangles, materials,
-                  kind, scene, [trans.contiguous(), esmp.contiguous(), tex],
-                  len(CHAIN), params.scalars(depth,
-                                             esmp.shape[1] // len(ESMP)))
+                  kind, scene, [trans.contiguous(), esmp.contiguous(), tex,
+                                rw, rw_state], len(CHAIN), params, depth,
+                  esmp.shape[1] // len(ESMP))
     shade_s2.launches += 1
     return out
 
@@ -795,19 +971,79 @@ def nee_shadow_rays(trans, t, e_dir, e_pdf, e_valid, tex=None,
     return origin, torch.where(do_sh, t_max, 0.0), do_sh
 
 
+def env_modulation(scene, uniforms, static, carry: PathCarry, t, idx, u, v,
+                   kind):
+    """The ``emod`` plane of one depth (``shade.py:3210-3234``;
+    integrator body :435-442): the environment seen along each hit's
+    reversed shading normal, by which s1 scales the emission of the front
+    faces of ``emission_env`` lights."""
+    rec = rebuild_hit(carry.ray_o, carry.ray_d, scene.triangles, t, idx, u,
+                      v, kind, scene)
+    sn = rec.shading_normal
+    bad = ~torch.isfinite(sn).all(-1) | (dot(sn, sn) <= 0.0)
+    return env_ops.environment_color(
+        scene.environment, -where3(bad, rec.normal, sn),
+        uniforms.environment_rotation, uniforms.environment_intensity,
+        static)
+
+
+def light_banks(scene, uniforms, static, trans, t, tex=None):
+    """Per light integral (rect first, ``shade.py:3251-3290``) the light
+    sample from s1's draws and its shadow trace: the ESMP columns s2
+    reads (one bank of ``len(ESMP)`` per integral) and the shadow traces
+    issued, a 0-dim tensor."""
+    banks = []
+    shadow = torch.zeros((), dtype=torch.int64, device=t.device)
+    rects = integrator.rect_nee(scene)
+
+    def bank(l_dir, l_rad, l_pdf, l_valid, t_max):
+        nonlocal shadow
+        sh_o, sh_max, do_sh = nee_shadow_rays(trans, t, l_dir, l_pdf,
+                                              l_valid, tex, t_max)
+        occ = trace_occluded(sh_o, l_dir, scene, C.EPSILON_T, sh_max)
+        shadow = shadow + do_sh.sum()
+        banks.append(torch.cat([l_dir, l_rad, l_pdf[:, None],
+                                l_valid[:, None].to(torch.float32),
+                                occ[:, None].to(torch.float32)], 1))
+
+    if rects:
+        l_dir, l_dist, l_pdf, l_em, l_valid = \
+            integrator.rect_light_sample_from_uniforms(
+                scene, trans[:, 10:13], trans[:, 0], trans[:, 1],
+                trans[:, 2], uniforms, static)
+        bank(l_dir, l_em, l_pdf, l_valid,
+             torch.clamp_min(l_dist - C.EPSILON_T, C.EPSILON_T))
+    if integrator.env_nee(scene, static):
+        k = TRANS_IDX["u4"] if rects else TRANS_IDX["u1"]
+        e_dir, e_rad, e_pdf, e_valid = \
+            env_ops.sample_environment_from_uniforms(
+                scene.environment, trans[:, k], trans[:, k + 1],
+                trans[:, k + 2], uniforms, static)
+        bank(e_dir, e_rad, e_pdf, e_valid, C.INFINITY_T)
+    return torch.cat(banks, 1), shadow
+
+
 def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
     """The depth loop under one or two light integrals (``trace_paths_fused``
     's NEE branch, ``shade.py:3165-3351``): the merged trace, in a textured
     scene the texture stage (``shade.py:3023-3063``), the environment
     background and pdf of the wavefront, the rect-light pdf of each hit,
-    K2 s1, per light integral (rect first) its sample from s1's draws and
-    a shadow trace, K2 s2 and the spec-NEE estimators. One host sync per
-    depth (the alive count); the shadow count stays on the device. Returns
-    (traces issued, shadow traces as a 0-dim tensor); the spec-NEE
-    rect estimator's scene traces count as traces."""
+    the environment modulation of ``emission_env`` lights, K2 s1, the
+    random walk from the post-s1 state, the light banks (``light_banks``:
+    per light integral its sample from s1's draws and a shadow trace), K2
+    s2 and the spec-NEE estimators. One host sync per depth (the alive
+    count, and one per walk step); the shadow count stays on the device.
+    Returns (traces issued,
+    shadow traces as a 0-dim tensor); the spec-NEE rect estimator's scene
+    traces count as traces."""
     env = scene.environment if integrator.env_nee(scene, static) else None
     rects = integrator.rect_nee(scene)
     params = ShadeParams.of(uniforms, static, env)
+    mats = scene.materials
+    modulated = env is not None \
+        and C.MATERIAL_DIFFUSE_LIGHT in static.material_types \
+        and bool(((mats.mat_type == C.MATERIAL_DIFFUSE_LIGHT)
+                  & (mats.emission_env > 0.0)).any())
     # only triangles carry texture coordinates
     textured = has_textures(scene, static) and scene.n_triangles > 0
     rot = uniforms.environment_rotation
@@ -838,43 +1074,22 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
             rectpdf = integrator.rect_light_pdf_for_hit(
                 scene, analytic_point(carry.ray_o, t, carry.ray_d), kind,
                 idx, carry.ray_o)
+        emod = env_modulation(scene, uniforms, static, carry, t, idx, u, v,
+                              kind) if modulated else None
         trans = shade_s1(carry, t, idx, u, v, scene.triangles,
                          scene.materials, envbg, envpdf, params, depth, tex,
-                         kind=kind, scene=scene, rectpdf=rectpdf)
+                         kind=kind, scene=scene, rectpdf=rectpdf, emod=emod)
+        # s2 samples from the post-s1 state: the walk's fork
+        rw, rw_state = random_walks(scene, uniforms, static, carry, t, idx,
+                                    u, v, kind)
 
-        # ---- per light integral: the sample from s1's draws, a shadow
-        # trace -----------------------------------------------------------
-        banks = []
-
-        def bank(l_dir, l_rad, l_pdf, l_valid, t_max):
-            nonlocal shadow
-            sh_o, sh_max, do_sh = nee_shadow_rays(trans, t, l_dir, l_pdf,
-                                                  l_valid, tex, t_max)
-            occ = trace_occluded(sh_o, l_dir, scene, C.EPSILON_T, sh_max)
-            shadow = shadow + do_sh.sum()
-            banks.append(torch.cat([l_dir, l_rad, l_pdf[:, None],
-                                    l_valid[:, None].to(torch.float32),
-                                    occ[:, None].to(torch.float32)], 1))
-
-        if rects:
-            l_dir, l_dist, l_pdf, l_em, l_valid = \
-                integrator.rect_light_sample_from_uniforms(
-                    scene, trans[:, 10:13], trans[:, 0], trans[:, 1],
-                    trans[:, 2])
-            bank(l_dir, l_em, l_pdf, l_valid,
-                 torch.clamp_min(l_dist - C.EPSILON_T, C.EPSILON_T))
-        if env is not None:
-            k = TRANS_IDX["u4"] if rects else TRANS_IDX["u1"]
-            e_dir, e_rad, e_pdf, e_valid = \
-                env_ops.sample_environment_from_uniforms(
-                    env, trans[:, k], trans[:, k + 1], trans[:, k + 2],
-                    uniforms, static)
-            bank(e_dir, e_rad, e_pdf, e_valid, C.INFINITY_T)
+        esmp, n_shadow = light_banks(scene, uniforms, static, trans, t, tex)
+        shadow = shadow + n_shadow
 
         throughput_s1 = carry.throughput.clone()
         chain = shade_s2(carry, t, idx, u, v, scene.triangles,
-                         scene.materials, trans, torch.cat(banks, 1), params,
-                         depth, tex, kind=kind, scene=scene)
+                         scene.materials, trans, esmp, params, depth, tex,
+                         kind=kind, scene=scene, rw=rw, rw_state=rw_state)
 
         # ---- spec-NEE: the lights through the delta bounce --------------
         add, n_scene, n_shadow = specnee.delta_chain_estimators(

@@ -41,22 +41,32 @@ def _mis(light_pdf, bsdf_pdf):
     return w * inv
 
 
-def rect_hit_light(scene, rec, origin):
+def rect_hit_light(scene, uniforms, static, rec, origin):
     """mnee_rect_light_hit (``specnee.py _rect_hit_light:35-60``;
     reference: shaders/mnee.metal:1-62): the emission and NEE pdf of a
-    hit on an emissive rectangle seen from ``origin``. Returns (emission
-    (N,3), pdf (N,), valid (N,))."""
+    hit on an emissive rectangle seen from ``origin``; under an
+    environment light integral the front face of an ``emission_env``
+    light emits times the environment seen along its reversed shading
+    normal. Returns (emission (N,3), pdf (N,), valid (N,))."""
     mats = scene.materials
     idx = torch.clamp(rec.prim_index, 0, max(scene.n_rects - 1, 0)).long()
     mat = torch.clamp(scene.rects.material[idx], 0, mats.count - 1).long()
     emission = mats.emission[mat]
-    has_em = (emission != 0.0).any(-1)
-    is_light = (mats.mat_type[mat] == C.MATERIAL_DIFFUSE_LIGHT) & has_em
+    is_light = (mats.mat_type[mat] == C.MATERIAL_DIFFUSE_LIGHT) \
+        & (emission != 0.0).any(-1)
+    if env_nee(scene, static):
+        env_mod = env_ops.environment_color(
+            scene.environment, -rec.shading_normal,
+            uniforms.environment_rotation, uniforms.environment_intensity,
+            static)
+        emission = torch.where(
+            ((mats.emission_env[mat] > 0.0) & rec.front_face)[:, None],
+            emission * env_mod, emission)
     pdf = rect_light_pdf_for_hit(scene, rec.point, rec.prim_type,
                                  rec.prim_index, origin)
     valid = ((rec.prim_type == C.PRIMITIVE_RECTANGLE) & is_light
-             & (rec.front_face | rec.two_sided) & has_em & (pdf > 0.0)
-             & torch.isfinite(pdf))
+             & (rec.front_face | rec.two_sided) & (emission != 0.0).any(-1)
+             & (pdf > 0.0) & torch.isfinite(pdf))
     return emission, pdf, valid
 
 
@@ -109,7 +119,8 @@ def delta_chain_estimators(scene, uniforms, static, clamp_p, throughput,
         n_shadow = n_shadow + lanes.sum(dtype=torch.int64)
     if use_rect:
         hit = trace_scene(next_origin, nee_dir, scene, C.EPSILON_T, lane_tmax)
-        emission, pdf, valid = rect_hit_light(scene, hit, next_origin)
+        emission, pdf, valid = rect_hit_light(scene, uniforms, static, hit,
+                                              next_origin)
         factor = _mis(pdf, directional_pdf)
         radiance = radiance + add(weight * emission * factor[:, None],
                                   lanes & hit.hit & valid)

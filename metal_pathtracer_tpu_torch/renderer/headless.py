@@ -49,9 +49,13 @@ class CudaBackend:
 
     def render(self, resources, settings: RenderSettings, width: int,
                height: int, spp_total: int, device="cuda",
-               batch: int = DEFAULT_BATCH) -> HeadlessRenderOutput:
-        environment = None
-        if settings.backgroundMode == BackgroundMode.ENVIRONMENT \
+               batch: int = DEFAULT_BATCH,
+               environment=None) -> HeadlessRenderOutput:
+        """``environment``: an ``EnvironmentSoA`` on ``device`` for an
+        environment background (default: the settings' map file, if
+        any)."""
+        if environment is None \
+                and settings.backgroundMode == BackgroundMode.ENVIRONMENT \
                 and settings.environmentMapPath:
             from metal_pathtracer_tpu_torch.ops import env as env_ops
             environment = env_ops.load_environment(

@@ -328,6 +328,10 @@ class StaticConfig:
     debug_disable_normal_map: bool = False
     debug_disable_orm: bool = False
     debug_flip_normal_green: bool = False
+    # subsurface: 0 off (lambert fallback) / 1 separable / 2 random walk,
+    # and the walk's step count
+    sss_mode: int = 0
+    sss_max_steps: int = 32
     material_types: Tuple[int, ...] = ()
     # texture slots (base/ORM/normal/occlusion/emissive/transmission) bound
     # by at least one material: absent slots take their defaults unsampled
@@ -358,6 +362,8 @@ def settings_to_static(settings, width: int, height: int, material_types,
         debug_disable_normal_map=bool(settings.debugDisableNormalMap),
         debug_disable_orm=bool(settings.debugDisableOrmTexture),
         debug_flip_normal_green=bool(settings.debugFlipNormalGreen),
+        sss_mode=int(settings.sssMode),
+        sss_max_steps=int(settings.sssMaxSteps),
         material_types=tuple(sorted(set(int(t) for t in material_types))),
     )
 

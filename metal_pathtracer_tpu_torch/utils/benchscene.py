@@ -36,6 +36,20 @@ that the JAX package's parser can read the same text:
   package's fused-shade test scene (``tests/test_fused_shade.py:166-196``):
   a displaced icosphere, a lambert and an emissive sphere and a lambert
   rectangle under the gradient sky, maxDepth 5.
+
+The material zoo (``assets/scenes/materials.scene``, the reference's
+material row) and its variants:
+
+- ``build_materials_scene``: the file as written, lambert, brushed metal,
+  glass, plastic, carpaint and separable-SSS spheres on a ground sphere,
+  gradient sky, 960x320, maxDepth 8, seed 42;
+- ``build_materials_env_rw_scene``: the same file with the headline's
+  procedural HDR sun/sky (``hdr_sky(1024, 512)``) and ``sss=randomwalk``
+  with the skin material's ``method=randomwalk`` (``sssMaxSteps`` at its
+  default 32);
+- ``build_cornell_emitenv_scene``: ``assets/scenes/cornell.scene`` with
+  ``emitEnv=1`` on the lamp's material, under the same HDR sky: rect and
+  environment NEE together, the lamp's emission modulated by the sky.
 """
 
 from __future__ import annotations
@@ -318,6 +332,7 @@ def build_six_slot_scene(subdivisions: int = 3):
 _REPO = pathlib.Path(__file__).resolve().parents[2]
 CORNELL_PATH = _REPO / "assets" / "scenes" / "cornell.scene"
 SMOKE_PATH = _REPO / "tests" / "scenes" / "smoke.scene"
+MATERIALS_PATH = _REPO / "assets" / "scenes" / "materials.scene"
 
 
 def cornell_scene_text() -> str:
@@ -329,6 +344,7 @@ def cornell_scene_text() -> str:
 CORNELL_FRAME = (512, 512)
 RTOW_FRAME = (1200, 675)
 SMOKE_FRAME = (64, 64)
+MATERIALS_FRAME = (960, 320)
 
 
 def rtow_scene_text(seed: int = 0) -> str:
@@ -439,4 +455,86 @@ def build_mixed_scene(subdivisions: int = 2):
         edge_v=np.array([0, 0, 6], np.float32),
         normal=np.array([0, 1, 0], np.float32),
         material=m_r, two_sided=False))
+    return settings, res
+
+
+def build_materials_scene():
+    """Returns (settings, resources) of ``assets/scenes/materials.scene``."""
+    return _load(MATERIALS_PATH)
+
+
+def materials_env_rw_text() -> str:
+    """``materials.scene`` with the random walk for its subsurface sphere:
+    ``sss=randomwalk`` and the skin material's ``method=randomwalk``."""
+    text = MATERIALS_PATH.read_text()
+    for old, new in (("sss=separable", "sss=randomwalk"),
+                     ("method=separable", "method=randomwalk")):
+        if old not in text:
+            raise ValueError(f"{MATERIALS_PATH} has no '{old}'")
+        text = text.replace(old, new)
+    return text
+
+
+def build_materials_env_rw_scene(device="cuda"):
+    """Returns (settings, resources, environment): ``materials_env_rw_text``
+    under the headline's HDR sun/sky (alias NEE), built on ``device``."""
+    settings, res = _parse(materials_env_rw_text())
+    settings.backgroundMode = BackgroundMode.ENVIRONMENT
+    return settings, res, env_ops.environment_from_texels(hdr_sky(), device)
+
+
+def cornell_emitenv_text() -> str:
+    """``cornell.scene`` with ``emitEnv=1`` on the lamp's material."""
+    text = cornell_scene_text()
+    if "name=lamp" not in text:
+        raise ValueError(f"{CORNELL_PATH} has no lamp material")
+    return text.replace("name=lamp", "emitEnv=1 name=lamp")
+
+
+def build_cornell_emitenv_scene(device="cuda"):
+    """Returns (settings, resources, environment): ``cornell_emitenv_text``
+    under the headline's HDR sun/sky, built on ``device``."""
+    settings, res = _parse(cornell_emitenv_text())
+    settings.backgroundMode = BackgroundMode.ENVIRONMENT
+    return settings, res, env_ops.environment_from_texels(hdr_sky(), device)
+
+
+#: the material rows of the JAX package's material tests on triangle
+#: icospheres (``test_fused_shade.py:796-899``), ``Material`` keyword dicts
+ICOSPHERE_ROWS = {
+    "plastic": dict(mat_type=C.MATERIAL_PLASTIC, base_color=(0.6, 0.1, 0.1),
+                    coat_roughness=0.15, coat_thickness=0.4,
+                    coat_tint=(0.9, 0.95, 1.0),
+                    coat_absorption=(0.2, 0.1, 0.05), ior=1.5),
+    "carpaint": dict(mat_type=C.MATERIAL_CARPAINT,
+                     base_color=(0.5, 0.05, 0.05), coat_roughness=0.2,
+                     carpaint_base_metallic=0.3, carpaint_base_roughness=0.25,
+                     carpaint_flake_sample_weight=0.2,
+                     carpaint_flake_roughness=0.2, carpaint_flake_scale=8.0,
+                     carpaint_flake_normal_strength=0.5, ior=1.5),
+    "sss": dict(mat_type=C.MATERIAL_SUBSURFACE, base_color=(0.8, 0.4, 0.2),
+                sss_mfp=0.25, sss_g=0.2, sss_method=0, ior=1.4),
+    "ground": dict(base_color=(0.6, 0.6, 0.6)),
+}
+
+
+def build_icosphere_scene(materials, spheres, seed: int):
+    """Returns (settings, resources): ``materials`` (``Material`` keyword
+    dicts, the last one the ground's), icospheres (subdivision 2) of
+    ``(center, radius, material)`` and the ground quad, seen by the camera
+    of the JAX package's material tests (``test_fused_shade.py:796-975``),
+    maxDepth 4: triangle meshes, where t, u and v of a hit are
+    bit-exact."""
+    settings = RenderSettings()
+    settings.cameraTarget = (0.0, 0.6, 0.0)
+    settings.cameraDistance = 5.0
+    settings.cameraPitch = 0.3
+    settings.maxDepth = 4
+    settings.fixedRngSeed = seed
+    res = SceneResources()
+    for kw in materials:
+        res.add_material(Material(**kw))
+    for i, (center, radius, material) in enumerate(spheres):
+        res.add_mesh(_sphere_mesh(2, center, radius, material, f"sphere{i}"))
+    res.add_mesh(_ground_mesh(len(materials) - 1))
     return settings, res

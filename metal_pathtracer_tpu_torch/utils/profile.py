@@ -2,15 +2,20 @@
 
 Renders the textured headline (default), the untextured headline or the
 lambert series at 1920x1080 d8, the refdefault cell (the headline at
-1280x720 d20), the Cornell box (512x512 d8) or the rtow sphere field
-(1200x675 d50): one warm-up sample, then two samples under the profiler.
-Prints the wall time per sample, the device's busy share of the wall
-time, device time by kernel (the port's six kernels by name, the rest of
-the torch glue summed), and the kernels' launch counts.
+1280x720 d20), the Cornell box (512x512 d8), the rtow sphere field
+(1200x675 d50), or the material zoo (``materials``, ``materials-env-rw``
+at 960x320 d8, ``cornell-emitenv`` at 512x512 d8): one warm-up sample,
+then two samples under the profiler. Prints the wall time per sample,
+the device's busy share of the wall time, device time by kernel (the
+port's kernels by name, the rest of the torch glue summed), the kernels'
+launch counts, and in a scene with a random walk the walk pre-stage's
+wall time and the K3a launches inside it (a second pass without the
+profiler, each walk synchronised before and after).
 Run on a machine with a CUDA device:
 
     python -m metal_pathtracer_tpu_torch.utils.profile \
-        [--scene headline|untextured|lambert|refdefault|cornell|rtow]
+        [--scene headline|untextured|lambert|refdefault|cornell|rtow|
+                 materials|materials-env-rw|cornell-emitenv]
 """
 
 from __future__ import annotations
@@ -34,6 +39,13 @@ def _scene(name: str, dev):
     if name == "cornell":
         settings, res = benchscene.build_cornell_scene()
         env = None
+    elif name == "materials":
+        settings, res = benchscene.build_materials_scene()
+        env = None
+    elif name == "materials-env-rw":
+        settings, res, env = benchscene.build_materials_env_rw_scene(dev)
+    elif name == "cornell-emitenv":
+        settings, res, env = benchscene.build_cornell_emitenv_scene(dev)
     elif name == "rtow":
         settings, res = benchscene.build_rtow_scene()
         env = None
@@ -53,7 +65,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--scene",
                         choices=["headline", "untextured", "lambert",
-                                 "refdefault", "cornell", "rtow"],
+                                 "refdefault", "cornell", "rtow",
+                                 "materials", "materials-env-rw",
+                                 "cornell-emitenv"],
                         default="headline")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -76,6 +90,9 @@ def main(argv=None) -> None:
     settings, res, scene = _scene(args.scene, dev)
     w, h = {"refdefault": benchscene.REFDEFAULT_FRAME,
             "cornell": benchscene.CORNELL_FRAME,
+            "cornell-emitenv": benchscene.CORNELL_FRAME,
+            "materials": benchscene.MATERIALS_FRAME,
+            "materials-env-rw": benchscene.MATERIALS_FRAME,
             "rtow": benchscene.RTOW_FRAME}.get(args.scene, (WIDTH, HEIGHT))
     static = settings_to_static(settings, w, h, res.material_types_present(),
                                 res.texture_slots_present(),
@@ -115,6 +132,48 @@ def main(argv=None) -> None:
     for t, c, k in top:
         print(f"    {t / 1e3 / SPP:8.3f} ms/spp {c / SPP:7.0f}x "
               f"{k[:90]}")
+    if static.sss_mode == 2:
+        _walk_share(scene, uni, static, w, h, dev)
+
+
+def _walk_share(scene, uni, static, w, h, dev):
+    """The random-walk pre-stage's share of a sample's wall time: its
+    calls synchronised and timed on the host clock, and the K3a launches
+    inside them, over ``SPP`` samples."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives, shade
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    real = shade.random_walks
+    spent = {"s": 0.0, "k3": 0, "calls": 0, "lanes": 0}
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        before = primitives.sphere_nearest_brute.launches \
+            + primitives.sphere_nearest_chunked.launches
+        t0 = time.time()
+        out = real(*args)
+        torch.cuda.synchronize()
+        spent["s"] += time.time() - t0
+        spent["k3"] += primitives.sphere_nearest_brute.launches \
+            + primitives.sphere_nearest_chunked.launches - before
+        spent["calls"] += 1
+        spent["lanes"] += int((out[0][:, 0] > 0.5).sum())
+        return out
+
+    shade.random_walks = timed
+    try:
+        t0 = time.time()
+        frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                             static, SPP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        shade.random_walks = real
+    print(f"  random-walk pre-stage: {1e3 * spent['s'] / SPP:.1f} ms/spp "
+          f"wall of {1e3 * wall / SPP:.1f} ms/spp, {spent['calls'] / SPP:.0f}"
+          f" calls/spp over {spent['lanes'] / SPP:.0f} walk lanes/spp, "
+          f"{spent['k3'] / SPP:.0f} K3 launches/spp inside it")
 
 
 if __name__ == "__main__":

@@ -350,3 +350,132 @@ def test_primitive_render_kernels_vs_plain_on_card(dev, name):
     assert (k.ray_count, k.shadow_ray_count) == (p.ray_count,
                                                  p.shadow_ray_count)
     assert torch.equal(k.present(), p.present())
+
+
+def _zoo_stage_inputs(dev, which, w=192, h=64):
+    """A zoo configuration's first-depth wavefront on the card: (scene,
+    static, uniforms, environment, carry, hit)."""
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    env = None
+    if which == "materials":
+        settings, res = benchscene.build_materials_scene()
+    elif which == "materials-env-rw":
+        settings, res, env = benchscene.build_materials_env_rw_scene(dev)
+    else:
+        settings, res, env = benchscene.build_cornell_emitenv_scene(dev)
+    scene = res.build_arrays(environment=env, device=dev)
+    static = settings_to_static(settings, w, h, res.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    flat = torch.arange(w * h, device=dev)
+    seed = rng_ops.make_seed(uni.fixed_rng_seed, 0, flat % w, flat // w, 0,
+                             torch.zeros_like(flat))
+    state, o, d = camera_ops.generate_primary_rays(uni.camera, flat % w,
+                                                   flat // w, w, h, seed)
+    carry = integrator.PathCarry.start(
+        state, o, d, 0.0, integrator._primary_cone_spread(uni, static))
+    return scene, static, uni, env, carry, shade._trace(scene, carry)
+
+
+def _clone(c):
+    return integrator.PathCarry(**{k: v.clone() for k, v in vars(c).items()})
+
+
+def _assert_carry_equal(a, b):
+    for k in vars(a):
+        x, y = getattr(a, k), getattr(b, k)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), k
+
+
+def test_zoo_full_vs_plain_on_card(dev):
+    """K2 full's extended instantiation (plastic, carpaint, separable SSS)
+    on materials.scene's first two depths: carry bit for bit."""
+    scene, static, uni, _, carry, hit = _zoo_stage_inputs(dev, "materials")
+    params = shade.ShadeParams.of(uni, static)
+    assert params.extended
+    for depth in (0, 1):
+        t, idx, u, v, kind = hit
+        ck, cp = _clone(carry), _clone(carry)
+        before = shade.shade_full.launches
+        shade.shade_full(ck, t, idx, u, v, scene.triangles, scene.materials,
+                         params, depth, kind=kind, scene=scene)
+        assert shade.shade_full.launches == before + 1
+        shade.shade_full_reference(cp, t, idx, u, v, scene.triangles,
+                                   scene.materials, params, depth, kind=kind,
+                                   scene=scene)
+        _assert_carry_equal(ck, cp)
+        carry = ck
+        hit = shade._trace(scene, carry)
+
+
+def test_zoo_s1_s2_random_walk_vs_plain_on_card(dev):
+    """K2 s1 and s2 (extended) on materials-env-rw's first depth with its
+    environment bank and the random walk's override planes fed to both:
+    carry, transients and chain bit for bit."""
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+
+    scene, static, uni, env, carry, hit = _zoo_stage_inputs(
+        dev, "materials-env-rw")
+    t, idx, u, v, kind = hit
+    params = shade.ShadeParams.of(uni, static, env)
+    envbg = env_ops.environment_background(env, carry.ray_d, uni, static,
+                                           carry.env_lod,
+                                           carry.env_lod_active)
+    envpdf = env_ops.environment_pdf(env, carry.ray_d,
+                                     uni.environment_rotation)
+    args = (t, idx, u, v, scene.triangles, scene.materials)
+    ck, cp = _clone(carry), _clone(carry)
+    trans = shade.shade_s1(ck, *args, envbg, envpdf, params, 0, kind=kind,
+                           scene=scene)
+    trans_p = shade.shade_s1_reference(cp, *args, envbg, envpdf, params, 0,
+                                       kind=kind, scene=scene)
+    _assert_carry_equal(ck, cp)
+    assert torch.equal(trans.view(torch.int32), trans_p.view(torch.int32))
+    rw, rw_state = shade.random_walks(scene, uni, static, ck, t, idx, u, v,
+                                      kind)
+    assert (rw[:, 0] > 0.5).any()
+    esmp, _ = shade.light_banks(scene, uni, static, trans, t)
+    c2k, c2p = _clone(ck), _clone(ck)
+    chain = shade.shade_s2(c2k, *args, trans, esmp, params, 0, kind=kind,
+                           scene=scene, rw=rw, rw_state=rw_state)
+    chain_p = shade.shade_s2_reference(c2p, *args, trans, esmp, params, 0,
+                                       kind=kind, scene=scene, rw=rw,
+                                       rw_state=rw_state)
+    _assert_carry_equal(c2k, c2p)
+    assert torch.equal(chain.view(torch.int32), chain_p.view(torch.int32))
+
+
+def test_zoo_s1_emod_vs_plain_on_card(dev):
+    """K2 s1 with the emod plane on cornell-emitenv's first depth (rect
+    and environment NEE, an ``emission_env`` lamp): carry and transients
+    bit for bit."""
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.intersect import analytic_point
+
+    scene, static, uni, env, carry, hit = _zoo_stage_inputs(
+        dev, "cornell-emitenv", 128, 128)
+    t, idx, u, v, kind = hit
+    params = shade.ShadeParams.of(uni, static, env)
+    assert not params.extended
+    envbg = env_ops.environment_background(env, carry.ray_d, uni, static,
+                                           carry.env_lod,
+                                           carry.env_lod_active)
+    envpdf = env_ops.environment_pdf(env, carry.ray_d,
+                                     uni.environment_rotation)
+    rectpdf = integrator.rect_light_pdf_for_hit(
+        scene, analytic_point(carry.ray_o, t, carry.ray_d), kind, idx,
+        carry.ray_o)
+    emod = shade.env_modulation(scene, uni, static, carry, t, idx, u, v,
+                                kind)
+    args = (t, idx, u, v, scene.triangles, scene.materials, envbg, envpdf,
+            params, 0)
+    ck, cp = _clone(carry), _clone(carry)
+    trans = shade.shade_s1(ck, *args, kind=kind, scene=scene,
+                           rectpdf=rectpdf, emod=emod)
+    trans_p = shade.shade_s1_reference(cp, *args, kind=kind, scene=scene,
+                                       rectpdf=rectpdf, emod=emod)
+    _assert_carry_equal(ck, cp)
+    assert torch.equal(trans.view(torch.int32), trans_p.view(torch.int32))

@@ -12,9 +12,12 @@ same inputs made from a numpy seed:
   (``integrator._rect_light_sample_from_uniforms``), the light pdf of a
   hit for emissive-hit MIS (``_rect_light_pdf_for_hit``) and the
   spec-NEE chain's light hit (``specnee._rect_hit_light``) on the Cornell
-  box;
-- what the slice still refuses: environment-modulated lights under an
-  environment map (ROADMAP step 12), MNEE (step 8), plastic (step 13).
+  box, and the sample and the chain's hit again with ``emitEnv=1`` on the
+  lamp under an environment map, where the lamp's emission is scaled by
+  the environment seen along its reversed normal;
+- what the port still refuses: MNEE (ROADMAP step 8) and instances (step
+  14); environment-modulated lights and the plastic, subsurface and
+  carpaint materials pass.
 """
 
 import jax
@@ -48,6 +51,7 @@ from metal_pathtracer_tpu_torch.schema import (
     settings_to_uniforms,
 )
 from metal_pathtracer_tpu_torch.settings import BackgroundMode, RenderSettings
+from metal_pathtracer_tpu_torch.utils import benchscene as B
 from metal_pathtracer_tpu_torch.utils.benchscene import cornell_scene_text
 
 N = 4000
@@ -302,8 +306,11 @@ def test_rect_light_sample_matches_jax(cornell):
                   _rect_light_sample_from_uniforms(jscene, p, a, b, e,
                                                    static, uni))(
         o, u[0], u[1], u[2])
+    ps = c["ps"]
     got = integrator.rect_light_sample_from_uniforms(
-        pscene, torch.from_numpy(o), *(torch.from_numpy(x) for x in u))
+        pscene, torch.from_numpy(o), *(torch.from_numpy(x) for x in u),
+        settings_to_uniforms(ps, None, 0, 0),
+        settings_to_static(ps, 8, 8, [0, 1, 2, 3]))
     valid = np.asarray(ref[4])
     np.testing.assert_array_equal(got[4].numpy(), valid)
     assert 0.3 < valid.mean() < 1.0
@@ -337,8 +344,10 @@ def test_rect_light_pdf_and_chain_hit_match_jax(cornell):
     uni = jax_uniforms(c["js"], None, 0, 0)
     em_j, cpdf_j, ok_j = jax.jit(lambda r, o: jax_specnee._rect_hit_light(
         jscene, uni, static, r, o))(rec_j, o)
-    em_p, cpdf_p, ok_p = specnee.rect_hit_light(pscene, rec_p,
-                                                torch.from_numpy(o))
+    em_p, cpdf_p, ok_p = specnee.rect_hit_light(
+        pscene, settings_to_uniforms(c["ps"], None, 0, 0),
+        settings_to_static(c["ps"], 8, 8, [0, 1, 2, 3]), rec_p,
+        torch.from_numpy(o))
     ok = np.asarray(ok_j)
     np.testing.assert_array_equal(ok_p.numpy(), ok)
     np.testing.assert_array_equal(em_p.numpy()[ok], np.asarray(em_j)[ok])
@@ -346,10 +355,75 @@ def test_rect_light_pdf_and_chain_hit_match_jax(cornell):
                                rtol=1e-5)
 
 
+def test_emission_env_light_matches_jax(cornell):
+    """``emitEnv=1`` on the Cornell box's lamp under the toy environment
+    map of ``test_torch_cornell_render.py``, both functions against the
+    JAX package's jitted ones on the same rays and draws: the light
+    sample's and the chain hit's validity and emission exactly, with the
+    emission modulated on every valid lane (the sample scales it by the
+    environment seen along the lamp's reversed normal; the chain hit does
+    so on front faces, along the reversed shading normal); directions,
+    distances and pdfs within 1e-5 relative."""
+    from test_torch_cornell_render import _toy_env
+
+    c = cornell
+    penv, jenv = _toy_env()
+    js, jr = JSettings(), JResources()
+    jax_dsl.parse_scene(B.cornell_emitenv_text(), js, jr)
+    ps, pr = RenderSettings(), SceneResources()
+    dsl.parse_scene(B.cornell_emitenv_text(), ps, pr)
+    assert pr.materials[3].emission_env
+    js.backgroundMode = ps.backgroundMode = BackgroundMode.ENVIRONMENT
+    jscene = jr.build_arrays(environment=jenv)
+    pscene = pr.build_arrays(environment=penv, device="cpu")
+    jstatic, juni = jax_static(js, 8, 8, [0, 1, 2, 3]), \
+        jax_uniforms(js, None, 0, 0)
+    pstatic, puni = settings_to_static(ps, 8, 8, [0, 1, 2, 3]), \
+        settings_to_uniforms(ps, None, 0, 0)
+    assert integrator.env_nee(pscene, pstatic)
+    lamp = np.asarray(pscene.materials.emission[3])
+    o, d, u = c["o"], c["d"], c["u"]
+
+    ref = jax.jit(lambda p, a, b, e: jax_integrator.
+                  _rect_light_sample_from_uniforms(jscene, p, a, b, e,
+                                                   jstatic, juni))(
+        o, u[0], u[1], u[2])
+    got = integrator.rect_light_sample_from_uniforms(
+        pscene, torch.from_numpy(o), *(torch.from_numpy(x) for x in u),
+        puni, pstatic)
+    valid = np.asarray(ref[4])
+    np.testing.assert_array_equal(got[4].numpy(), valid)
+    assert valid.mean() > 0.3
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    assert not np.isclose(got[3].numpy()[valid], lamp).all(-1).any()
+    for i, name in enumerate(("direction", "distance", "pdf")):
+        np.testing.assert_allclose(got[i].numpy()[valid],
+                                   np.asarray(ref[i])[valid], rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+
+    rec_j = jax.jit(lambda o, d: jax_intersect.trace_scene(
+        o, d, jscene, JC.EPSILON_T, JC.INFINITY_T))(o, d)
+    rec_p = intersect.trace_scene(torch.from_numpy(o), torch.from_numpy(d),
+                                  pscene, C.EPSILON_T, C.INFINITY_T)
+    em_j, pdf_j, ok_j = jax.jit(lambda r, o: jax_specnee._rect_hit_light(
+        jscene, juni, jstatic, r, o))(rec_j, o)
+    em_p, pdf_p, ok_p = specnee.rect_hit_light(pscene, puni, pstatic, rec_p,
+                                               torch.from_numpy(o))
+    ok = np.asarray(ok_j)
+    np.testing.assert_array_equal(ok_p.numpy(), ok)
+    assert ok.sum() > 100
+    np.testing.assert_array_equal(em_p.numpy()[ok], np.asarray(em_j)[ok])
+    assert not np.isclose(em_p.numpy()[ok], lamp).all(-1).any()
+    np.testing.assert_allclose(pdf_p.numpy()[ok], np.asarray(pdf_j)[ok],
+                               rtol=1e-5)
+
+
 def test_unported_light_paths_raise(cornell):
-    """Env-modulated lights under an environment map (step 12), MNEE
-    (step 8) and plastic (step 13) raise with their ROADMAP step; the
-    Cornell box and an env-lit scene with plain rect lights pass."""
+    """Env-modulated lights under an environment map (step 12) and the
+    plastic, subsurface and carpaint materials (step 13) are ported and
+    pass; MNEE (step 8) and instances (step 14) raise with their ROADMAP
+    step; the Cornell box and an env-lit scene with plain rect lights
+    pass."""
     ps, pr = RenderSettings(), SceneResources()
     dsl.parse_scene(cornell_scene_text(), ps, pr)
     types = pr.material_types_present()
@@ -359,16 +433,16 @@ def test_unported_light_paths_raise(cornell):
     with pytest.raises(NotImplementedError, match="step 8"):
         integrator.check_supported(scene, settings_to_static(ps, 8, 8, types))
     ps.enableMnee = False
-    with pytest.raises(NotImplementedError, match="step 13"):
-        integrator.check_supported(scene, settings_to_static(
-            ps, 8, 8, types + [C.MATERIAL_PLASTIC]))
+    integrator.check_supported(scene, settings_to_static(
+        ps, 8, 8, types + [C.MATERIAL_PLASTIC, C.MATERIAL_SUBSURFACE,
+                           C.MATERIAL_CARPAINT]))
+    with pytest.raises(NotImplementedError, match="step 14"):
+        pr.add_mesh_instance(None, np.eye(4))
     env = env_ops.environment_from_texels(np.ones((4, 8, 3), np.float32),
                                           "cpu")
     ps.backgroundMode = BackgroundMode.ENVIRONMENT
     integrator.check_supported(pr.build_arrays(environment=env, device="cpu"),
                                settings_to_static(ps, 8, 8, types))
     pr.materials[3].emission_env = True
-    with pytest.raises(NotImplementedError, match="step 12"):
-        integrator.check_supported(
-            pr.build_arrays(environment=env, device="cpu"),
-            settings_to_static(ps, 8, 8, types))
+    integrator.check_supported(pr.build_arrays(environment=env, device="cpu"),
+                               settings_to_static(ps, 8, 8, types))

@@ -135,9 +135,10 @@ def _run(code, env=None):
 
 def test_port_renders_without_jax():
     """The port imports and renders 16x16 on the CPU, the lambert series,
-    the environment-NEE headline and the Cornell box (spheres, rectangles,
-    rect-light NEE), without loading jax, flax or any module of the JAX
-    package."""
+    the environment-NEE headline, the Cornell box (spheres, rectangles,
+    rect-light NEE) and ``materials.scene`` (plastic, carpaint, separable
+    SSS) with its random-walk variant under an environment, without
+    loading jax, flax or any module of the JAX package."""
     proc = _run("""
         import sys
         import numpy as np
@@ -152,6 +153,7 @@ def test_port_renders_without_jax():
             settings_to_static, settings_to_uniforms)
         from metal_pathtracer_tpu_torch.utils.benchscene import (
             build_cornell_scene, build_lambert_series,
+            build_materials_env_rw_scene, build_materials_scene,
             build_untextured_bench_scene)
         settings, resources = build_lambert_series(2)
         settings.maxDepth = 3
@@ -178,6 +180,17 @@ def test_port_renders_without_jax():
         out = CudaBackend().render(res, settings, 16, 16, 1, device="cpu")
         assert np.isfinite(out.linear_rgb).all()
         assert out.linear_rgb.max() > 0 and out.shadow_ray_count > 0
+        settings, res = build_materials_scene()
+        settings.maxDepth = 3
+        out = CudaBackend().render(res, settings, 16, 16, 1, device="cpu")
+        assert np.isfinite(out.linear_rgb).all() and out.linear_rgb.max() > 0
+        settings, res, env = build_materials_env_rw_scene("cpu")
+        settings.maxDepth = 2
+        settings.sssMaxSteps = 4
+        out = CudaBackend().render(res, settings, 16, 16, 1, device="cpu",
+                                   environment=env)
+        assert np.isfinite(out.linear_rgb).all()
+        assert out.shadow_ray_count > 0
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                       "metal_pathtracer_tpu")]

@@ -173,28 +173,33 @@ def test_unported_features_raise():
                                               device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # plastic (ROADMAP step 13, landed) samples instead of raising
+    r.materials[0].mat_type = C.MATERIAL_PLASTIC
     m = bsdf.gather_material(r.build_materials_soa("cpu"), torch.zeros(2))
-    z3 = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="step 13"):
-        bsdf.sample_bsdf(m, z3, z3, z3, torch.ones(2, dtype=torch.bool),
-                         torch.zeros(2, dtype=torch.long),
-                         bsdf.make_clamp_params(
-                             settings_to_uniforms(RenderSettings(), None, 0,
-                                                  0)),
-                         torch.ones(2), (C.MATERIAL_PLASTIC,))
+    up = torch.tensor([[0.0, 0.0, 1.0]] * 2)
+    state, smp = bsdf.sample_bsdf(
+        m, up, up, -up, torch.ones(2, dtype=torch.bool),
+        torch.zeros(2, dtype=torch.long),
+        bsdf.make_clamp_params(settings_to_uniforms(RenderSettings(), None,
+                                                    0, 0)),
+        torch.ones(2), (C.MATERIAL_PLASTIC,), position=torch.zeros(2, 3))
+    assert (state != 0).all() and (smp.pdf > 0.0).all()
     s = RenderSettings()
     s.backgroundMode = BackgroundMode.ENVIRONMENT
     env = env_ops.environment_from_texels(np.ones((4, 8, 3), np.float32),
                                           "cpu")
     r.add_mesh(_port_mesh(dragon_class_scene_mesh(0)))
     scene = r.build_arrays(environment=env, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 13"):
-        integrator.check_supported(
-            scene, settings_to_static(s, 8, 8, [C.MATERIAL_PLASTIC]))
+    integrator.check_supported(
+        scene, settings_to_static(s, 8, 8, [C.MATERIAL_PLASTIC]))
     s.enableMnee = True
     with pytest.raises(NotImplementedError, match="step 8"):
         integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
     s.enableMnee = False
+    s.debugSpecularOnly = True
+    with pytest.raises(NotImplementedError, match="step 16"):
+        integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
+    s.debugSpecularOnly = False
     integrator.check_supported(scene, settings_to_static(
         s, 8, 8, [0, C.MATERIAL_METAL, C.MATERIAL_DIELECTRIC,
                   C.MATERIAL_DIFFUSE_LIGHT, C.MATERIAL_PBR]))
