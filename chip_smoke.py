@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's five paths:
+(one nvcc per source, in parallel) and drives the port's six paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -53,7 +53,25 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    4 spp against the plain path (RMSE 0, equal trace counts); the three
    configurations at full size through ``CudaBackend``. The kernels line
    lists the extended K2 stages as ``shade_*_zoo``, with this phase's
-   launches.
+   launches;
+6. headless and debug (K1's counting instantiation, K2's
+   ``debugSpecularOnly`` flag and probe plane, the CLI): ``traversal_profile``
+   of the textured headline's 1920x1080 first-depth wavefront and its
+   shadow wavefront through ``trace_closest_stats``/``trace_any_stats``,
+   their outputs bit-equal to the counter-free kernels' and their four
+   totals equal to the plain walk's (whole wavefronts and 4096 probes),
+   each timed beside the counter-free kernel with its bound;
+   ``probe_pixel`` on the smoke scene's centre and on a headline pixel
+   through the glass sphere, the rows equal to the plain path's field by
+   field; the CLI on the card (``python -m ...cli --scene cornell`` at
+   512x512 8 spp to a multilayer EXR, the same to a PNG, a 4 spp
+   ``--checkpoint`` run resumed to 8 equal to the straight run byte for
+   byte, ``read_exr`` of the EXR equal to the rendered image, and the
+   default scene, the 353-sphere field through K3b, at 1280x720 2 spp);
+   ``debugSpecularOnly`` at 160x96 4 spp through the kernels against the
+   plain path (RMSE 0) on ``materials.scene`` and the textured headline at
+   subdivision 5; and each K1 and K2 instantiation's registers from the
+   build log.
 
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
@@ -616,7 +634,8 @@ def timed_render(scene, settings, res, w, h, spp, dev, kernels):
 
 def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     """The environment-NEE headline, untextured (no texture stage) or
-    textured (the bench's real headline, with the texture stage)."""
+    textured (the bench's real headline, with the texture stage); returns
+    the textured headline's (settings, resources, scene arrays)."""
     from metal_pathtracer_tpu_torch import constants as C
     from metal_pathtracer_tpu_torch.ops import env as env_ops
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
@@ -884,6 +903,7 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
         launches=launches["texture_stage"],
         max_abs_err=max(nee_err, tex_err, six_err), ms=tex_ms,
         plain_ms=tex_plain_ms, bound_ms=tex_b, bound_by=tex_by)
+    return settings, res, scene
 
 
 def compare_nearest(got, ref, label, count_ties=False):
@@ -1594,6 +1614,274 @@ def materials_path(dev, card, kernels, out):
           f"{time.time() - t3:.1f}s")
 
 
+def k1_stats_bound(walk, lane_bytes):
+    """The counting kernel's bound: K1's, plus one left-sibling int per
+    touched node and the four int64 totals written once."""
+    return bound_ms(lane_bytes + 32
+                    + int(walk["nodes"].sum()) * (K1_NODE_BYTES + 4)
+                    + int(walk["slots"].sum()) * K1_SLOT_BYTES,
+                    walk["node_visits"] * K1_NODE_OPS
+                    + walk["tri_tests"] * K1_TRI_OPS)
+
+
+def probe_rows_equal(a, b, label):
+    """Two probes' rows, field by field (NaN equal to NaN)."""
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} rows against {len(b)}")
+    for depth, (ra, rb) in enumerate(zip(a, b)):
+        for k in ra:
+            if not np.array_equal(np.float32(ra[k]), np.float32(rb[k]),
+                                  equal_nan=True):
+                raise AssertionError(f"{label}: depth {depth} {k} "
+                                     f"{ra[k]} != {rb[k]}")
+
+
+def headless_path(dev, card, kernels, out, headline):
+    """Phase 6, the headless surface and its debug tooling: K1's counting
+    kernels on the textured headline's first-depth wavefronts (closest and
+    shadow) through ``traversal_profile``, their outputs bit-equal to the
+    counter-free kernels' and their totals equal to the plain walk's;
+    ``debugSpecularOnly`` at 160x96 against the plain path on
+    ``materials.scene`` and the textured headline; ``probe_pixel`` through
+    the kernels against the plain path; the CLI on the card (Cornell box
+    EXR and PNG, the default scene, a checkpoint resume)."""
+    import os
+    import shutil
+    import tempfile
+
+    from metal_pathtracer_tpu_torch import cli
+    from metal_pathtracer_tpu_torch import constants as C
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.renderer.debugprobe import probe_pixel
+    from metal_pathtracer_tpu_torch.renderer.headless import CudaBackend
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+    from metal_pathtracer_tpu_torch.utils import image_io
+    from metal_pathtracer_tpu_torch.utils.stats import traversal_profile
+
+    regs = build.register_counts(build.build_log())
+    print("registers per instantiation (-Xptxas -v): " + ", ".join(
+        f"{k} {v}" for k, v in sorted(regs.items())))
+
+    # ---- the first-depth wavefronts of the textured headline -------------
+    settings, res, scene = headline
+    W, H = FRAME
+    n = W * H
+    static, uni = scene_setup(settings, res, W, H, dev)
+    params = S.ShadeParams.of(uni, static, scene.environment)
+    carry = primary_carry(uni, static, dev)
+    k1_args = trace_inputs(carry, scene)
+    hit = T.trace_closest(*k1_args)
+    c = clone(carry)
+    tex = X.texture_stage(c, *hit, scene, uni, static, 0)
+    envbg = env_ops.environment_background(
+        scene.environment, c.ray_d, uni, static, c.env_lod, c.env_lod_active)
+    envpdf = env_ops.environment_pdf(scene.environment, c.ray_d,
+                                     uni.environment_rotation)
+    trans = S.shade_s1(c, *hit, scene.triangles, scene.materials, envbg,
+                       envpdf, params, 0, tex)
+    e_dir, _, e_pdf, e_valid = env_ops.sample_environment_from_uniforms(
+        scene.environment, trans[:, 0], trans[:, 1], trans[:, 2], uni,
+        static)
+    sh_o, sh_max, do_sh = S.nee_shadow_rays(trans, hit[0], e_dir, e_pdf,
+                                            e_valid, tex)
+    sh_args = (sh_o, e_dir.contiguous(), C.EPSILON_T, sh_max, scene.tri_bvh,
+               scene.triangles)
+    lanes_dielectric = torch.nonzero(
+        (hit[1] >= 0) & (scene.materials.mat_type[scene.triangles.material[
+            hit[1].clamp_min(0).long()].long()] == C.MATERIAL_DIELECTRIC))
+    glass = int(lanes_dielectric[lanes_dielectric.shape[0] // 2])
+    torch.cuda.synchronize()
+
+    # ---- the main path of the phase, with every count reset just before --
+    reset_launches(kernels)
+    t_main = time.time()
+    profile = traversal_profile(carry.ray_o, carry.ray_d, scene.tri_bvh,
+                                scene.triangles, C.EPSILON_T, C.INFINITY_T)
+    profile_any = traversal_profile(sh_o, e_dir.contiguous(), scene.tri_bvh,
+                                    scene.triangles, C.EPSILON_T, sh_max,
+                                    any_hit=True)
+    smoke_settings, smoke_res = B.build_smoke_scene()
+    sw, sh = 64, 64
+    smoke_scene = smoke_res.build_arrays(device=dev)
+    smoke_static, smoke_uni = scene_setup(smoke_settings, smoke_res, sw, sh,
+                                          dev)
+    rows_smoke = probe_pixel(smoke_scene, smoke_uni, smoke_static, sw // 2,
+                             sh // 2)
+    rows_glass = probe_pixel(scene, uni, static, glass % W, glass // W)
+    tmp = tempfile.mkdtemp(prefix="mpt_cli_")
+    cli_args = ["--scene", "cornell", "--width", "512", "--height", "512"]
+    exr = os.path.join(tmp, "cornell.exr")
+    png = os.path.join(tmp, "cornell.png")
+    ckpt = os.path.join(tmp, "cornell.npz")
+    resumed = os.path.join(tmp, "resumed.exr")
+    default = os.path.join(tmp, "default.exr")
+    t_cli = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "metal_pathtracer_tpu_torch.cli", *cli_args,
+         "--sppTotal", "8", "--output", exr], capture_output=True,
+        text=True, timeout=600)
+    print(f"CLI (python -m, {time.time() - t_cli:.1f}s): "
+          f"{proc.stdout.strip()} [{card}]")
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed: {proc.stderr[-2000:]}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    for argv in ([*cli_args, "--sppTotal", "8", "--format", "png",
+                  "--output", png],
+                 [*cli_args, "--sppTotal", "4", "--checkpoint", ckpt,
+                  "--output", os.path.join(tmp, "half.exr")],
+                 [*cli_args, "--sppTotal", "8", "--checkpoint", ckpt,
+                  "--output", resumed],
+                 ["--width", "1280", "--height", "720", "--sppTotal", "2",
+                  "--output", default]):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"the CLI failed on {argv}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    main_s = time.time() - t_main
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the headless phase was not "
+                             f"launched: {launches}")
+    print(f"headless phase main path in {main_s:.1f}s: launches {launches}, "
+          f"CLI peak {peak / 2**20:.0f} MiB [{card}]")
+
+    # ---- the CLI's outputs -----------------------------------------------
+    if open(resumed, "rb").read() != open(exr, "rb").read():
+        raise AssertionError("the checkpoint resume (4 + 4 spp) differs "
+                             "from the straight 8 spp render")
+    cs, cr = B.build_cornell_scene()
+    direct = CudaBackend().render(cr, cs, 512, 512, 8)
+    ch = image_io.read_exr(exr)
+    linear = np.stack([ch["R"], ch["G"], ch["B"]], -1)
+    if not (np.array_equal(linear, direct.linear_rgb)
+            and (ch["SAMPLES"] == 8.0).all()):
+        raise AssertionError("read_exr of the CLI's EXR differs from the "
+                             "rendered linear image")
+    dch = image_io.read_exr(default)
+    dimg = np.stack([dch["R"], dch["G"], dch["B"]], -1)
+    if not (np.isfinite(dimg).all() and dimg.max() > 0.0
+            and os.path.getsize(png) > 1000):
+        raise AssertionError("the CLI's PNG or default-scene image is empty")
+    print(f"CLI: the resume (4 + 4 spp) equals the straight 8 spp EXR byte "
+          f"for byte; read_exr of it equals the rendered linear image "
+          f"(mean {float(linear.mean()):.4f}); default scene 1280x720 2 spp "
+          f"mean {float(dimg.mean()):.4f}; PNG {os.path.getsize(png)} B")
+    shutil.rmtree(tmp)
+
+    # ---- K1 stats: outputs, counters, times and bounds --------------------
+    t_k, tri_k, u_k, v_k, tot = T.trace_closest_stats(*k1_args)
+    compare_trace((t_k, tri_k, u_k, v_k), hit)
+    occ_k, tot_any = T.trace_any_stats(*sh_args)
+    occ = T.trace_any(*sh_args)
+    compare_flags(occ_k, occ, "K1 any-hit stats vs counter-free")
+    # the plain walks, timed (their counts are the totals' reference)
+    t0 = time.time()
+    walk, walk_any = {}, {}
+    st_plain = cuda_ms(lambda: lambda: T.trace_closest_reference(
+        *k1_args, walk=walk), 1)
+    sa_plain = cuda_ms(lambda: lambda: T.trace_any_reference(
+        *sh_args, walk=walk_any), 1)
+    plain_walk_s = time.time() - t0
+    for label, got, w in (("closest", tot, walk), ("any-hit", tot_any,
+                                                   walk_any)):
+        want = T.walk_totals(w, dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 {label} stats {got.tolist()} differ "
+                                 f"from the plain walk's {want.tolist()}")
+    po, pd, ptmax = (torch.from_numpy(x).to(dev) for x in probes(scene))
+    pwalk = {}
+    T.trace_closest_reference(po, pd, C.EPSILON_T, ptmax, scene.tri_bvh,
+                              scene.triangles, T._as_i32(None, 4096, dev),
+                              T._as_i32(None, 4096, dev), walk=pwalk)
+    if not torch.equal(T.trace_closest_stats(po, pd, C.EPSILON_T, ptmax,
+                                             scene.tri_bvh,
+                                             scene.triangles)[4],
+                       T.walk_totals(pwalk, dev)):
+        raise AssertionError("K1 stats differ from the plain walk on the "
+                             "4096 probes")
+    k1_ms = kernel_ms(lambda: lambda: T.trace_closest(*k1_args), 5)
+    st_ms, st_win = timed(lambda: lambda: T.trace_closest_stats(*k1_args), 5)
+    any_ms = kernel_ms(lambda: lambda: T.trace_any(*sh_args), 5)
+    sa_ms, sa_win = timed(lambda: lambda: T.trace_any_stats(*sh_args), 5)
+    st_b, st_by = k1_stats_bound(walk, n * K1_LANE_BYTES)
+    n_sh = int(do_sh.sum())
+    sa_b, sa_by = k1_stats_bound(walk_any, n * (4 + 1) + n_sh * 24)
+    per_ray = lambda t: ", ".join(
+        f"{k} {v / n:.3f}/ray" for k, v in zip(T.STATS_KEYS, t.tolist()))
+    print(f"K1 stats, textured headline first depth ({n} rays, {n_sh} "
+          f"shadow rays): outputs bit-equal to the counter-free kernels, "
+          f"totals equal to the plain walk's (whole wavefronts, {plain_walk_s:.1f}s; "
+          f"and 4096 probes); closest: {per_ray(tot)}; any-hit: "
+          f"{per_ray(tot_any)} [{card}]")
+    print(f"K1 stats device ms beside the counter-free kernel on the same "
+          f"wavefront: closest {st_ms:.4f} / {st_win:.4f} around the wrapper "
+          f"(K1 {k1_ms:.4f}; plain {st_plain:.1f} ms; bound {st_b:.4f} ms by "
+          f"{st_by}); any-hit {sa_ms:.4f} / {sa_win:.4f} (K1 any-hit "
+          f"{any_ms:.4f}; plain {sa_plain:.1f} ms; bound {sa_b:.4f} ms by "
+          f"{sa_by}) [{card}]")
+    print("traversal_profile closest: " + json.dumps(profile))
+    print("traversal_profile any-hit: " + json.dumps(profile_any))
+
+    # ---- the probe: kernels against the plain path -----------------------
+    with plain_kernels():
+        plain_smoke = probe_pixel(smoke_scene, smoke_uni, smoke_static,
+                                  sw // 2, sh // 2)
+        plain_glass = probe_pixel(scene, uni, static, glass % W, glass // W)
+    probe_rows_equal(rows_smoke, plain_smoke, "smoke centre probe")
+    probe_rows_equal(rows_glass, plain_glass, "headline glass probe")
+    first = rows_glass[0]
+    if not (first["hit"] == 1.0 and first["is_delta"] == 1.0
+            and len(rows_glass) >= 2):
+        raise AssertionError(f"the headline probe did not enter the glass: "
+                             f"{rows_glass}")
+    print(f"probe_pixel: smoke centre {len(rows_smoke)} rows, headline "
+          f"pixel {(glass % W, glass // W)} through the glass "
+          f"{len(rows_glass)} rows, equal to the plain path's field by "
+          f"field; (material, medium event, pdf) per row "
+          f"{[tuple(float(r[k]) for k in ('material', 'medium_event', 'pdf')) for r in rows_glass]}")
+
+    # ---- debugSpecularOnly: 160x96 4 spp, kernels against plain ----------
+    w, h = CHECK_FRAME
+    spec_err = 0.0
+    hs, hr, henv = B.build_bench_scene(CHECK_SUBDIVISIONS, dev)
+    ms_, mr = B.build_materials_scene()
+    for name, (s_, r_, env) in (("materials.scene", (ms_, mr, None)),
+                                ("textured headline sub 5", (hs, hr, henv))):
+        s_.debugSpecularOnly = True
+        sc = r_.build_arrays(environment=env, device=dev)
+        st_, un_ = scene_setup(s_, r_, w, h, dev)
+        t_k = time.time()
+        st_k = frame.render_samples(sc, un_, RenderState.create(w, h, dev),
+                                    st_, 4)
+        torch.cuda.synchronize()
+        t_p = time.time()
+        with plain_kernels():
+            st_p = frame.render_samples(sc, un_, RenderState.create(w, h, dev),
+                                        st_, 4)
+        torch.cuda.synchronize()
+        spec_err = max(spec_err, exact_gate(
+            st_k, st_p, f"debugSpecularOnly {name} {w}x{h} 4spp kernels vs "
+            f"plain ({t_p - t_k:.1f}s / {time.time() - t_p:.1f}s)"))
+
+    out["trace_closest_stats"] = dict(
+        source=ROOT + "traverse.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:726",
+        launches=launches["trace_closest_stats"], max_abs_err=0.0,
+        ms=st_ms, plain_ms=st_plain, bound_ms=st_b, bound_by=st_by)
+    out["trace_any_stats"] = dict(
+        source=ROOT + "traverse.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:726",
+        launches=launches["trace_any_stats"], max_abs_err=0.0, ms=sa_ms,
+        plain_ms=sa_plain, bound_ms=sa_b, bound_by=sa_by)
+    for k in ("shade_s1", "shade_s2"):
+        out[k]["max_abs_err"] = max(out[k]["max_abs_err"], spec_err)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -1625,14 +1913,16 @@ def main() -> None:
                "shade_s2": S.shade_s2, "texture_stage": X.texture_stage,
                "sphere_nearest_brute": P.sphere_nearest_brute,
                "sphere_nearest_chunked": P.sphere_nearest_chunked,
-               "rect_nearest": P.rect_nearest}
+               "rect_nearest": P.rect_nearest,
+               "trace_closest_stats": T.trace_closest_stats,
+               "trace_any_stats": T.trace_any_stats}
     out = {}
     t0 = time.time()
     k1_probe_err = lambert_path(dev, card, kernels, out)
     print(f"# lambert path phases took {time.time() - t0:.1f}s")
     for textured in (False, True):
         t0 = time.time()
-        nee_path(dev, card, kernels, out, k1_probe_err, textured)
+        headline = nee_path(dev, card, kernels, out, k1_probe_err, textured)
         print(f"# {'textured' if textured else 'untextured'} headline "
               f"phases took {time.time() - t0:.1f}s")
     t0 = time.time()
@@ -1641,6 +1931,9 @@ def main() -> None:
     t0 = time.time()
     materials_path(dev, card, kernels, out)
     print(f"# material-zoo phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    headless_path(dev, card, kernels, out, headline)
+    print(f"# headless and debug phases took {time.time() - t0:.1f}s")
 
     print("K2 device ms at the earlier phases' first depths, this run "
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"

@@ -489,7 +489,9 @@ struct PbrLobes {
   float transmission, reflect_scale, p_spec, p_diff, p_trans;
   bool weights_ok;
 };
-__device__ inline PbrLobes pbr_lobes(const Mat& m, float occ) {
+// spec_only (debugSpecularOnly, pbr.py:81-89): no diffuse colour, the
+// specular lobe takes the whole reflection weight
+__device__ inline PbrLobes pbr_lobes(const Mat& m, float occ, bool spec_only) {
   PbrLobes L;
   V3 base = clamp3(m.base, 0.0f, 1.0f);
   float metallic = clampf(m.metallic, 0.0f, 1.0f);
@@ -499,10 +501,12 @@ __device__ inline PbrLobes pbr_lobes(const Mat& m, float occ) {
   float f0d = clampf(ratio * ratio, 0.0f, 0.99f);
   L.f0 = v3(f0d + (base.x - f0d) * metallic, f0d + (base.y - f0d) * metallic,
             f0d + (base.z - f0d) * metallic);
-  L.diffuse_color = (base * (1.0f - metallic)) * clampf(occ, 0.0f, 1.0f);
+  L.diffuse_color = spec_only ? zero3()
+                              : (base * (1.0f - metallic)) *
+                                    clampf(occ, 0.0f, 1.0f);
   L.transmission = clampf(m.transmission, 0.0f, 1.0f) * (1.0f - metallic);
   L.reflect_scale = 1.0f - L.transmission;
-  float swb = clampf(max3(L.f0), 0.05f, 0.95f);
+  float swb = spec_only ? 1.0f : clampf(max3(L.f0), 0.05f, 0.95f);
   float w_spec = swb * L.reflect_scale;
   float w_diff = (1.0f - swb) * L.reflect_scale;
   float w_trans = L.transmission;
@@ -544,11 +548,11 @@ struct Eval {
 
 // pbr.evaluate_pbr
 __device__ inline Eval evaluate_pbr(const Mat& m, V3 n, V3 wo, V3 wi,
-                             const ClampP& p, float occ) {
+                             const ClampP& p, float occ, bool spec_only) {
   float cos_o = dot3(n, wo), cos_i = dot3(n, wi);
   float abs_o = fabsf(cos_o), abs_i = fabsf(cos_i);
   bool geom_ok = abs_o > 0.0f && abs_i > 0.0f;
-  PbrLobes L = pbr_lobes(m, occ);
+  PbrLobes L = pbr_lobes(m, occ, spec_only);
   Eval e;
   e.is_delta = L.roughness <= 1e-3f;
   e.is_bssrdf = false;
@@ -644,8 +648,9 @@ __device__ inline Eval evaluate_metal(const Mat& m, V3 n, V3 wo, V3 wi,
 
 // pbr.sample_pbr: 1 selector draw, then 0 (smooth) or 2 more
 __device__ inline Sample sample_pbr(const Mat& m, V3 n, V3 wo, V3 incident,
-                             uint32_t* s, const ClampP& p, float occ) {
-  PbrLobes L = pbr_lobes(m, occ);
+                             uint32_t* s, const ClampP& p, float occ,
+                             bool spec_only) {
+  PbrLobes L = pbr_lobes(m, occ, spec_only);
   bool smooth = L.roughness <= 1e-3f;
   float alpha = cmin(L.roughness * L.roughness, 1e-4f);
   float choose = rand_uniform(s);
@@ -795,15 +800,16 @@ __device__ inline V3 plastic_diffuse(const Mat& m, V3 f0c, float cos_i,
   return max0(d * cmin(1.0f - clampf(m.coat_favg, 0.0f, 1.0f), 0.0f));
 }
 
-// 1 selector draw, then 2 for either lobe
+// 1 selector draw, then 2 for either lobe; spec_only: always the coat,
+// a black diffuse lobe
 __device__ inline Sample sample_plastic(const Mat& m, V3 n, V3 wo,
                                         uint32_t* s, const ClampP& p,
-                                        float occ) {
+                                        float occ, bool spec_only) {
   float cos_o = dot3(n, wo);
   float cr = plastic_coat_roughness(m);
   float alpha = cr * cr;
   V3 f0c = splat(plastic_coat_f0(m));
-  float p_coat = clampf(m.coat_weight, 0.0f, 1.0f);
+  float p_coat = spec_only ? 1.0f : clampf(m.coat_weight, 0.0f, 1.0f);
   float p_diffuse = 1.0f - p_coat;
   float selector = rand_uniform(s);
   Sample o = invalid_sample();
@@ -832,7 +838,8 @@ __device__ inline Sample sample_plastic(const Mat& m, V3 n, V3 wo,
   }
   V3 wi = safe_normalize3(to_world(sample_cosine_hemisphere(s), n));
   float cos_i = dot3(n, wi);
-  V3 diffuse = plastic_diffuse(m, f0c, cos_i, cos_o, occ);
+  V3 diffuse =
+      spec_only ? zero3() : plastic_diffuse(m, f0c, cos_i, cos_o, occ);
   float raw = ggx_pdf(alpha, n, wo, wi);
   float spec_pdf = raw > 0.0f ? clamp_specular_pdf(raw, p) : 0.0f;
   float pdf = p_coat * spec_pdf + p_diffuse * lambert_pdf(n, wi);
@@ -846,10 +853,11 @@ __device__ inline Sample sample_plastic(const Mat& m, V3 n, V3 wo,
   return o;
 }
 
-// cos_o, cos_i clamped at 0, both > 0
+// cos_o, cos_i clamped at 0, both > 0; spec_only: the coat alone
 __device__ inline Eval evaluate_plastic(const Mat& m, V3 n, V3 wo, V3 wi,
                                         float cos_o, float cos_i,
-                                        const ClampP& p, float occ) {
+                                        const ClampP& p, float occ,
+                                        bool spec_only) {
   float cr = plastic_coat_roughness(m);
   float alpha = cr * cr;
   V3 f0c = splat(plastic_coat_f0(m));
@@ -863,9 +871,10 @@ __device__ inline Eval evaluate_plastic(const Mat& m, V3 n, V3 wo, V3 wi,
   spec = half_ok ? max0(spec) : zero3();
   float raw = ggx_pdf(alpha, n, wo, wi);
   float spec_pdf = half_ok && raw > 0.0f ? clamp_specular_pdf(raw, p) : 0.0f;
-  float p_coat = clampf(m.coat_weight, 0.0f, 1.0f);
+  float p_coat = spec_only ? 1.0f : clampf(m.coat_weight, 0.0f, 1.0f);
   Eval e;
-  e.value = spec + plastic_diffuse(m, f0c, cos_i, cos_o, occ);
+  e.value = spec_only ? spec + zero3()
+                      : spec + plastic_diffuse(m, f0c, cos_i, cos_o, occ);
   e.pdf = p_coat * spec_pdf + (1.0f - p_coat) * lambert_pdf(n, wi);
   e.is_delta = e.is_bssrdf = false;
   return e;
@@ -1208,9 +1217,12 @@ __device__ inline V3 exit_point_origin(const Sample& smp, V3 n_faced) {
 
 // ---- the type dispatch -------------------------------------------------
 // bsdf.evaluate_bsdf; EXT: with plastic, carpaint and subsurface
+// spec_only (debugSpecularOnly, bsdf.py:838): lambert lanes evaluate to
+// zero, plastic and PBR without their diffuse lobes
 template <bool EXT>
 __device__ inline Eval evaluate_bsdf(const Mat& m, V3 pos, V3 n, V3 wo, V3 wi,
-                                     const ClampP& p, float occ) {
+                                     const ClampP& p, float occ,
+                                     bool spec_only) {
   float cos_o = cmin(dot3(n, wo), 0.0f);
   float cos_i = cmin(dot3(n, wi), 0.0f);
   bool geom_ok = cos_i > 0.0f && cos_o > 0.0f;
@@ -1218,7 +1230,7 @@ __device__ inline Eval evaluate_bsdf(const Mat& m, V3 pos, V3 n, V3 wo, V3 wi,
   e.value = zero3();
   e.pdf = 0.0f;
   e.is_delta = e.is_bssrdf = false;
-  if (m.type == MAT_LAMBERT && geom_ok) {
+  if (m.type == MAT_LAMBERT && geom_ok && !spec_only) {
     e.value = (clamp3(m.base, 0.0f, 1.0f) * clampf(occ, 0.0f, 1.0f)) / PI_F;
     e.pdf = lambert_pdf(n, wi);
   } else if (m.type == MAT_METAL && geom_ok) {
@@ -1226,9 +1238,9 @@ __device__ inline Eval evaluate_bsdf(const Mat& m, V3 pos, V3 n, V3 wo, V3 wi,
   } else if (m.type == MAT_DIELECTRIC) {
     e.is_delta = true;
   } else if (m.type == MAT_PBR && geom_ok) {
-    e = evaluate_pbr(m, n, wo, wi, p, occ);
+    e = evaluate_pbr(m, n, wo, wi, p, occ, spec_only);
   } else if (EXT && m.type == MAT_PLASTIC && geom_ok) {
-    e = evaluate_plastic(m, n, wo, wi, cos_o, cos_i, p, occ);
+    e = evaluate_plastic(m, n, wo, wi, cos_o, cos_i, p, occ, spec_only);
   } else if (EXT && m.type == MAT_CARPAINT && geom_ok) {
     e = evaluate_carpaint(m, pos, n, wo, wi, p);
   } else if (EXT && m.type == MAT_SSS) {
@@ -1238,17 +1250,24 @@ __device__ inline Eval evaluate_bsdf(const Mat& m, V3 pos, V3 n, V3 wo, V3 wi,
   return e;
 }
 
-// bsdf.sample_bsdf; EXT: with plastic, carpaint and subsurface
+// bsdf.sample_bsdf; EXT: with plastic, carpaint and subsurface.
+// spec_only (debugSpecularOnly, bsdf.py:786): lambert and subsurface lanes
+// draw nothing and keep the invalid sample, plastic and PBR drop their
+// diffuse lobes
 template <bool EXT>
 __device__ inline Sample sample_bsdf(const Mat& m, V3 pos, V3 n, V3 wo,
                                      V3 incident, bool front, uint32_t* s,
                                      const ClampP& p, float occ,
-                                     int sss_mode) {
+                                     int sss_mode, bool spec_only) {
+  if (spec_only && (m.type == MAT_LAMBERT || (EXT && m.type == MAT_SSS)))
+    return invalid_sample();
   if (m.type == MAT_LAMBERT) return sample_lambert(m, n, s, occ);
   if (m.type == MAT_METAL) return sample_metal(m, n, wo, incident, s, p);
   if (m.type == MAT_DIELECTRIC) return sample_dielectric(m, n, incident, front, s);
-  if (m.type == MAT_PBR) return sample_pbr(m, n, wo, incident, s, p, occ);
-  if (EXT && m.type == MAT_PLASTIC) return sample_plastic(m, n, wo, s, p, occ);
+  if (m.type == MAT_PBR)
+    return sample_pbr(m, n, wo, incident, s, p, occ, spec_only);
+  if (EXT && m.type == MAT_PLASTIC)
+    return sample_plastic(m, n, wo, s, p, occ, spec_only);
   if (EXT && m.type == MAT_SSS)
     return sample_subsurface(m, pos, n, wo, s, sss_mode);
   if (EXT && m.type == MAT_CARPAINT) return sample_carpaint(m, pos, n, wo, s, p);

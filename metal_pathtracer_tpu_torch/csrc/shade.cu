@@ -46,6 +46,12 @@
 // (shade.py:2284-2300). s1 scales the emission of the front faces of
 // emission_env lights by the emod plane (shade.py:2149-2154). full and s2
 // leave a BSSRDF exit point off its normal (shade.py:2359-2371).
+// The pixel probe (renderer/debugprobe.py) passes a 6-column plane per
+// lane (PROBE, NULL otherwise): full and s1 write the throughput after
+// absorption of each hit, full and s2 the sample's pdf, delta flag and
+// medium event (zero on a diffuse light, which draws none), the columns
+// of the reference's per-bounce record (integrator.py:676-688) that the
+// carry does not keep.
 //
 // Each stage is compiled twice (template flag EXT, chosen on the host from
 // the scene's material types): without and with the plastic, carpaint and
@@ -80,6 +86,7 @@
 #define N_CHAIN 7
 #define N_TEX 15
 #define N_RW 18
+#define N_PROBE 6
 #define PRIM_SPHERE 1
 #define PRIM_RECT 2
 #define PRIM_TRIANGLE 3
@@ -98,6 +105,7 @@ struct ShadeParams {
   V3 background;        // the solid background, linear sRGB
   int n_banks;          // s2: light integrals (1 or 2 ESMP banks)
   int sss_mode;         // 0 off (lambert fallback), 1 separable, 2 walk
+  bool spec_only;       // debugSpecularOnly
 };
 
 // The merged trace's winner per lane and the geometry it indexes
@@ -300,13 +308,15 @@ __device__ inline Front shade_front(const Geo& g, long long i,
   }
   V3 em = f.tl.emission;
   if (!f.tl.passthrough && f.m.type == MAT_PBR &&
-      (em.x != 0.0f || em.y != 0.0f || em.z != 0.0f) && facing)
+      (em.x != 0.0f || em.y != 0.0f || em.z != 0.0f) && facing &&
+      !p.spec_only)
     radiance = radiance + clamp_firefly(f.tp, em, p.c);
   f.ended = f.m.type == MAT_LIGHT;
   V3 le = f.m.emission;
   if (emod != nullptr && f.m.emission_env > 0.0f && f.h.front)
     le = le * load3(emod, i);
-  if (f.ended && (le.x != 0.0f || le.y != 0.0f || le.z != 0.0f) && facing) {
+  if (f.ended && (le.x != 0.0f || le.y != 0.0f || le.z != 0.0f) && facing &&
+      !p.spec_only) {
     float l_mis = 1.0f;
     if (rectpdf != nullptr) {
       float last_pdf = c.last_pdf[i];
@@ -404,6 +414,29 @@ __device__ inline bool walk_override(const float* rw,
   return true;
 }
 
+// the probe plane of a lane (NULL: no probe): the throughput after
+// absorption (probe_throughput), and the sample's pdf, delta flag and
+// medium event (probe_sample); probe_lane writes both at once
+__device__ __forceinline__ void probe_throughput(float* probe, long long i,
+                                                 V3 tp) {
+  if (probe != nullptr) store3(probe, 2 * i, tp);
+}
+__device__ __forceinline__ void probe_sample(float* probe, long long i,
+                                             float pdf, bool is_delta,
+                                             int medium_event) {
+  if (probe == nullptr) return;
+  float* q = probe + (long long)N_PROBE * i;
+  q[3] = pdf;
+  q[4] = is_delta ? 1.0f : 0.0f;
+  q[5] = (float)medium_event;
+}
+__device__ __forceinline__ void probe_lane(float* probe, long long i, V3 tp,
+                                           float pdf, bool is_delta,
+                                           int medium_event) {
+  probe_throughput(probe, i, tp);
+  probe_sample(probe, i, pdf, is_delta, medium_event);
+}
+
 // the BSDF sample of a hit lane: pass-through, the walk's, or its own
 template <bool EXT>
 __device__ inline Sample lane_sample(const Mat& m, V3 point, V3 sn, V3 wo,
@@ -417,7 +450,7 @@ __device__ inline Sample lane_sample(const Mat& m, V3 point, V3 sn, V3 wo,
   Sample smp;
   if (EXT && walk_override(rw, rw_state, i, &smp, s)) return smp;
   return sample_bsdf<EXT>(m, point, sn, wo, incident, front, s, p.c, occ,
-                          p.sss_mode);
+                          p.sss_mode, p.spec_only);
 }
 
 // the next ray's origin: off the hit, or off a BSSRDF exit point
@@ -428,13 +461,20 @@ __device__ __forceinline__ V3 next_origin(V3 point, V3 sn, V3 n_faced,
   return offset_origin(point, sn, n_faced, t, smp.dir);
 }
 
+// Registers are allocated in steps of 8 per thread. The probe plane's
+// writes and the debugSpecularOnly flag take the base instantiation from
+// 77 to 80 registers (the same step: six 128-thread blocks per SM) and
+// the extended one from 128 to 131, which the allocator rounds to 136,
+// three blocks per SM instead of four; so each is held to its old
+// occupancy (the extended one compiles to 124, no spills).
 template <bool EXT>
-__global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
+__global__ void __launch_bounds__(128, EXT ? 4 : 6)
+    shade_full_kernel(int n, ShadeParams p, Geo g,
                                   const float* __restrict__ mat_table,
                                   int m_count, const float* __restrict__ tex,
                                   const float* __restrict__ rw,
                                   const long long* __restrict__ rw_state,
-                                  Carry c) {
+                                  Carry c, float* __restrict__ probe) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n || !c.alive[i]) return;
   V3 ray_d = load3(c.ray_d, i);
@@ -449,6 +489,7 @@ __global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
                         c);
   store3(c.radiance, i, f.radiance);
   if (f.ended) {
+    probe_lane(probe, i, f.tp, 0.0f, false, 0);
     c.alive[i] = false;
     return;
   }
@@ -460,6 +501,7 @@ __global__ void shade_full_kernel(int n, ShadeParams p, Geo g,
   Sample smp = lane_sample<EXT>(f.m, f.h.point, f.sn, -incident, incident,
                                 f.h.front, &s, p, f.tl.occlusion,
                                 f.tl.passthrough, ray_d, rw, rw_state, i);
+  probe_lane(probe, i, f.tp, smp.pdf, smp.is_delta, smp.medium_event);
   bool active = smp.pdf > 0.0f;
   c.medium_depth[i] = medium_update(c, i, smp, f.m, active);
   V3 next_o = next_origin<EXT>(f.h.point, f.sn, f.h.n_faced, t, smp);
@@ -487,7 +529,7 @@ __global__ void shade_s1_kernel(
     int m_count, const float* __restrict__ envbg,
     const float* __restrict__ envpdf, const float* __restrict__ rectpdf,
     const float* __restrict__ emod, const float* __restrict__ tex, Carry c,
-    float* __restrict__ trans) {
+    float* __restrict__ trans, float* __restrict__ probe) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* tr = trans + (long long)N_TRANS * i;
@@ -516,10 +558,12 @@ __global__ void shade_s1_kernel(
   Front f = shade_front(g, i, p, mat_table, m_count, tex, rectpdf, emod, c);
   store3(c.radiance, i, f.radiance);
   if (f.ended) {
+    probe_lane(probe, i, f.tp, 0.0f, false, 0);
     c.alive[i] = false;
     return;
   }
   store3(c.throughput, i, f.tp);
+  probe_throughput(probe, i, f.tp);
 
   // ---- the NEE draws (3 per light integral, rect first), committed on
   // NEE lanes only -------------------------------------------------------
@@ -556,7 +600,7 @@ __global__ void shade_s2_kernel(
     int m_count, const float* __restrict__ trans,
     const float* __restrict__ esmp, const float* __restrict__ tex,
     const float* __restrict__ rw, const long long* __restrict__ rw_state,
-    Carry c, float* __restrict__ chain) {
+    Carry c, float* __restrict__ chain, float* __restrict__ probe) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* ch = chain + (long long)N_CHAIN * i;
@@ -586,7 +630,8 @@ __global__ void shade_s2_kernel(
     bool do_shadow = tr[14] < 0.5f && !tl.passthrough && es[7] > 0.5f &&
                      e_pdf > 0.0f && n_dot_l > 0.0f;
     if (do_shadow && !(es[8] > 0.5f)) {
-      Eval ev = evaluate_bsdf<EXT>(m, point, sn, wo, e_dir, p.c, tl.occlusion);
+      Eval ev = evaluate_bsdf<EXT>(m, point, sn, wo, e_dir, p.c, tl.occlusion,
+                                   p.spec_only);
       float w = ev.pdf > 0.0f ? mis_weight(e_pdf, e_pdf + ev.pdf) : 1.0f;
       V3 contribution = v3(es[3], es[4], es[5]) * ev.value * n_dot_l *
                         (w / cmin(e_pdf, 1e-30f));
@@ -601,6 +646,7 @@ __global__ void shade_s2_kernel(
   Sample smp = lane_sample<EXT>(m, point, sn, wo, incident, h.front, &s, p,
                                 tl.occlusion, tl.passthrough, ray_d, rw,
                                 rw_state, i);
+  probe_sample(probe, i, smp.pdf, smp.is_delta, smp.medium_event);
   bool active = smp.pdf > 0.0f;
   ch[0] = smp.weight.x;
   ch[1] = smp.weight.y;
@@ -687,7 +733,8 @@ ClampP clamp_of(float enabled, float factor, float floor,
 // ShadeParams.scalars(): depth, clamp factor, floor, throughput, tail base,
 // tail roughness scale, min specular pdf, max contribution, enabled,
 // russian roulette, specular MIS, env max mip, working colour space,
-// background mode, solid background (3), ESMP banks, SSS mode
+// background mode, solid background (3), ESMP banks, SSS mode,
+// debugSpecularOnly
 ShadeParams shade_params_of(const float* s) {
   ShadeParams p;
   p.depth = (int)s[0];
@@ -700,6 +747,7 @@ ShadeParams shade_params_of(const float* s) {
   p.background = v3(s[14], s[15], s[16]);
   p.n_banks = (int)s[17];
   p.sss_mode = (int)s[18];
+  p.spec_only = s[19] > 0.5f;
   return p;
 }
 
@@ -734,13 +782,13 @@ extern "C" int mpt_shade_full(int n, int ext, const float* scalars,
                               void* const* geo, const void* mat_table,
                               int m_count, const void* tex, const void* rw,
                               const void* rw_state, void* const* carry,
-                              void* stream) {
+                              void* probe, void* stream) {
   if (n <= 0) return 0;
   auto kernel = ext ? shade_full_kernel<true> : shade_full_kernel<false>;
   kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
       n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
       m_count, (const float*)tex, (const float*)rw,
-      (const long long*)rw_state, carry_of(carry));
+      (const long long*)rw_state, carry_of(carry), (float*)probe);
   return (int)cudaGetLastError();
 }
 
@@ -749,14 +797,15 @@ extern "C" int mpt_shade_s1(int n, int ext, const float* scalars,
                             int m_count, const void* envbg,
                             const void* envpdf, const void* rectpdf,
                             const void* emod, const void* tex,
-                            void* const* carry, void* trans, void* stream) {
+                            void* const* carry, void* trans, void* probe,
+                            void* stream) {
   if (n <= 0) return 0;
   auto kernel = ext ? shade_s1_kernel<true> : shade_s1_kernel<false>;
   kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
       n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
       m_count, (const float*)envbg, (const float*)envpdf,
       (const float*)rectpdf, (const float*)emod, (const float*)tex,
-      carry_of(carry), (float*)trans);
+      carry_of(carry), (float*)trans, (float*)probe);
   return (int)cudaGetLastError();
 }
 
@@ -765,13 +814,13 @@ extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
                             int m_count, const void* trans, const void* esmp,
                             const void* tex, const void* rw,
                             const void* rw_state, void* const* carry,
-                            void* chain, void* stream) {
+                            void* chain, void* probe, void* stream) {
   if (n <= 0) return 0;
   auto kernel = ext ? shade_s2_kernel<true> : shade_s2_kernel<false>;
   kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
       n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
       m_count, (const float*)trans, (const float*)esmp, (const float*)tex,
       (const float*)rw, (const long long*)rw_state, carry_of(carry),
-      (float*)chain);
+      (float*)chain, (float*)probe);
   return (int)cudaGetLastError();
 }

@@ -28,6 +28,20 @@
 // needs no per-thread stack. Near-first child order, a wide BVH and
 // sorting rays by direction are left for later work: each changes which
 // of two equal-t triangles wins, which needs its own parity argument.
+//
+// Counting mode (template flag STATS) replaces the TPU kernel's
+// return_stats mode (traverse.py packet_trace_unsorted(...,
+// return_stats=True):726, totals :792-809). Per ray it counts the slab
+// tests (nodes visited), the leaf visits whose box passed (the analogue of
+// the packet walk's leaf chunks tested), the interior nodes both of whose
+// children's boxes passed (counted at the right child: its left sibling
+// passed unless the walk came to it straight from that sibling's failed
+// test) and the triangle tests; the counts are summed per block in shared
+// memory and added with one atomic per block and counter into an int64
+// vector of 4. Counting reads one more int per visited node (its left
+// sibling, BvhSoA.left_sibling) and writes 32 bytes per launch; it
+// changes no t, tri, u, v or occlusion bit. STATS=false is the kernel
+// without any of it.
 #include "common.cuh"
 
 #define MAX_LEAF 4
@@ -93,8 +107,44 @@ __device__ __forceinline__ void inverse_dir(V3 d, float* inv) {
   }
 }
 
-__global__ void trace_closest_kernel(
-    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+// the four counters of one ray (counting mode)
+struct Counts {
+  unsigned int nodes, leaves, both, tris;
+};
+
+// one slab test of the counting walk: `node` was reached from `prev`
+// (whose test gave `prev_hit`); a right child (left sibling >= 0) whose
+// box passed counts "both children passed" unless its sibling failed just
+// before it
+__device__ __forceinline__ void count_node(Counts* c, const int* left_sib,
+                                           int node, int prev, bool prev_hit,
+                                           bool hit_box, int pcount) {
+  c->nodes += 1;
+  if (hit_box && pcount > 0) c->leaves += 1;
+  int ls = __ldg(left_sib + node);
+  if (ls >= 0 && hit_box && !(prev == ls && !prev_hit)) c->both += 1;
+}
+
+// the block's sums of the four counters, one atomic per block and counter
+// (every thread of the block calls it)
+__device__ __forceinline__ void add_counts(const Counts& c,
+                                          unsigned long long* out) {
+  __shared__ unsigned long long sums[4];
+  if (threadIdx.x < 4) sums[threadIdx.x] = 0ull;
+  __syncthreads();
+  unsigned long long v[4] = {c.nodes, c.leaves, c.both, c.tris};
+  for (int k = 0; k < 4; ++k) {
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+    if ((threadIdx.x & 31) == 0) atomicAdd(&sums[k], v[k]);
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) atomicAdd(out + threadIdx.x, sums[threadIdx.x]);
+}
+
+template <bool STATS>
+__device__ __forceinline__ void closest_lane(
+    int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax,
     const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
     int n_nodes, const float* __restrict__ bmin, const float* __restrict__ bmax,
@@ -103,9 +153,8 @@ __global__ void trace_closest_kernel(
     int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
     const float* __restrict__ tv2, const int* __restrict__ mesh_index,
     float* __restrict__ out_t, int* __restrict__ out_tri,
-    float* __restrict__ out_u, float* __restrict__ out_v) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    const int* __restrict__ left_sib, Counts* cnt) {
   float best_t = tmax[i];
   int best_tri = -1;
   float best_u = 0.0f, best_v = 0.0f;
@@ -119,9 +168,16 @@ __global__ void trace_closest_kernel(
     inverse_dir(d, inv);
     float oo[3] = {o.x, o.y, o.z};
     int node = 0;
+    int prev = -1;
+    bool prev_hit = false;
     while (node < n_nodes) {
       bool hit_box = box_hit(bmin, bmax, node, oo, inv, t_min, best_t);
       int pcount = __ldg(prim_count + node);
+      if constexpr (STATS) {
+        count_node(cnt, left_sib, node, prev, prev_hit, hit_box, pcount);
+        prev = node;
+        prev_hit = hit_box;
+      }
       if (hit_box && pcount > 0) {
         int poff = __ldg(prim_offset + node);
         float tm[MAX_LEAF], uu[MAX_LEAF], vv[MAX_LEAF];
@@ -132,6 +188,7 @@ __global__ void trace_closest_kernel(
           uu[k] = vv[k] = 0.0f;
           ids[k] = -1;
           if (k >= pcount) continue;
+          if constexpr (STATS) cnt->tris += 1;
           int slot = min(max(poff + k, 0), n_slots - 1);
           int tid = __ldg(prim_indices + slot);
           ids[k] = tid;
@@ -163,16 +220,40 @@ __global__ void trace_closest_kernel(
   out_v[i] = best_v;
 }
 
-__global__ void trace_any_kernel(
+template <bool STATS>
+__global__ void trace_closest_kernel(
     int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax,
+    const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
+    int n_nodes, const float* __restrict__ bmin, const float* __restrict__ bmax,
+    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
+    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
+    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
+    const float* __restrict__ tv2, const int* __restrict__ mesh_index,
+    float* __restrict__ out_t, int* __restrict__ out_tri,
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    const int* __restrict__ left_sib, unsigned long long* __restrict__ stats) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  Counts cnt = {0u, 0u, 0u, 0u};
+  if (i < n)
+    closest_lane<STATS>(i, ray_o, ray_d, t_min, tmax, excl_mesh, excl_prim,
+                        n_nodes, bmin, bmax, prim_offset, prim_count,
+                        exit_index, prim_indices, n_slots, tv0, tv1, tv2,
+                        mesh_index, out_t, out_tri, out_u, out_v, left_sib,
+                        &cnt);
+  if constexpr (STATS) add_counts(cnt, stats);
+}
+
+template <bool STATS>
+__device__ __forceinline__ void any_lane(
+    int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax, int n_nodes,
     const float* __restrict__ bmin, const float* __restrict__ bmax,
     const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
     const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
     int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
-    const float* __restrict__ tv2, bool* __restrict__ out_occluded) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+    const float* __restrict__ tv2, bool* __restrict__ out_occluded,
+    const int* __restrict__ left_sib, Counts* cnt) {
   float t_max = tmax[i];
   bool occluded = false;
   if (t_max >= t_min) {
@@ -182,12 +263,20 @@ __global__ void trace_any_kernel(
     inverse_dir(d, inv);
     float oo[3] = {o.x, o.y, o.z};
     int node = 0;
+    int prev = -1;
+    bool prev_hit = false;
     while (node < n_nodes && !occluded) {
       bool hit_box = box_hit(bmin, bmax, node, oo, inv, t_min, t_max);
       int pcount = __ldg(prim_count + node);
+      if constexpr (STATS) {
+        count_node(cnt, left_sib, node, prev, prev_hit, hit_box, pcount);
+        prev = node;
+        prev_hit = hit_box;
+      }
       if (hit_box && pcount > 0) {
         int poff = __ldg(prim_offset + node);
         for (int k = 0; k < pcount && k < MAX_LEAF; ++k) {
+          if constexpr (STATS) cnt->tris += 1;
           int tid = __ldg(prim_indices + min(max(poff + k, 0), n_slots - 1));
           TriHit h = intersect_tri(o, d, tid, tv0, tv1, tv2);
           // strict '<': the closest-hit walk records a hit only below its
@@ -204,24 +293,49 @@ __global__ void trace_any_kernel(
   out_occluded[i] = occluded;
 }
 
+template <bool STATS>
+__global__ void trace_any_kernel(
+    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax, int n_nodes,
+    const float* __restrict__ bmin, const float* __restrict__ bmax,
+    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
+    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
+    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
+    const float* __restrict__ tv2, bool* __restrict__ out_occluded,
+    const int* __restrict__ left_sib, unsigned long long* __restrict__ stats) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  Counts cnt = {0u, 0u, 0u, 0u};
+  if (i < n)
+    any_lane<STATS>(i, ray_o, ray_d, t_min, tmax, n_nodes, bmin, bmax,
+                    prim_offset, prim_count, exit_index, prim_indices,
+                    n_slots, tv0, tv1, tv2, out_occluded, left_sib, &cnt);
+  if constexpr (STATS) add_counts(cnt, stats);
+}
+
 }  // namespace
 
+// `stats` NULL launches the counter-free kernel; otherwise the counting one
+// adds its four totals (nodes, leaves passed, both children passed,
+// triangle tests) to the int64 vector `stats`, reading `left_sib`
 extern "C" int mpt_trace_any(
     int n, const void* ray_o, const void* ray_d, float t_min,
     const void* tmax, int n_nodes, const void* bmin, const void* bmax,
     const void* prim_offset, const void* prim_count, const void* exit_index,
     const void* prim_indices, int n_slots, const void* v0, const void* v1,
-    const void* v2, void* out_occluded, void* stream) {
+    const void* v2, void* out_occluded, const void* left_sib, void* stats,
+    void* stream) {
   if (n <= 0) return 0;
   const int block = 128;
-  trace_any_kernel<<<(n + block - 1) / block, block, 0,
-                     (cudaStream_t)stream>>>(
+  auto kernel = stats == nullptr ? trace_any_kernel<false>
+                                 : trace_any_kernel<true>;
+  kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
       n, (const float*)ray_o, (const float*)ray_d, t_min, (const float*)tmax,
       n_nodes, (const float*)bmin, (const float*)bmax,
       (const int*)prim_offset, (const int*)prim_count,
       (const int*)exit_index, (const int*)prim_indices, n_slots,
       (const float*)v0, (const float*)v1, (const float*)v2,
-      (bool*)out_occluded);
+      (bool*)out_occluded, (const int*)left_sib,
+      (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 
@@ -232,17 +346,19 @@ extern "C" int mpt_trace_closest(
     const void* prim_count, const void* exit_index, const void* prim_indices,
     int n_slots, const void* v0, const void* v1, const void* v2,
     const void* mesh_index, void* out_t, void* out_tri, void* out_u,
-    void* out_v, void* stream) {
+    void* out_v, const void* left_sib, void* stats, void* stream) {
   if (n <= 0) return 0;
   const int block = 128;
-  trace_closest_kernel<<<(n + block - 1) / block, block, 0,
-                         (cudaStream_t)stream>>>(
+  auto kernel = stats == nullptr ? trace_closest_kernel<false>
+                                 : trace_closest_kernel<true>;
+  kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
       n, (const float*)ray_o, (const float*)ray_d, t_min, (const float*)tmax,
       (const int*)excl_mesh, (const int*)excl_prim, n_nodes,
       (const float*)bmin, (const float*)bmax, (const int*)prim_offset,
       (const int*)prim_count, (const int*)exit_index,
       (const int*)prim_indices, n_slots, (const float*)v0, (const float*)v1,
       (const float*)v2, (const int*)mesh_index, (float*)out_t,
-      (int*)out_tri, (float*)out_u, (float*)out_v);
+      (int*)out_tri, (float*)out_u, (float*)out_v, (const int*)left_sib,
+      (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }

@@ -610,14 +610,18 @@ def _sample_dielectric(m: MatLanes, normal, incident, front_face, state):
 
 
 def _sample_plastic(m: MatLanes, normal, wo, state, clamp_p: ClampParams,
-                    diffuse_occlusion):
+                    diffuse_occlusion, specular_only: bool = False):
     """case 4 (reference: pathtrace.metal:5285-5419): 1 selector draw,
-    then 2 for either lobe (GGX coat or cosine diffuse)."""
+    then 2 for either lobe (GGX coat or cosine diffuse).
+    ``specular_only``: the coat is always chosen, the diffuse lobe is
+    black (``bsdf.py:666, 707``)."""
     cos_o = dot(normal, wo)
     coat_roughness = plastic_coat_roughness(m)
     alpha = coat_roughness * coat_roughness
     f0c = plastic_coat_f0(m)[..., None].expand(normal.shape)
     p_coat = torch.clamp(m.coat_sample_weight, 0.0, 1.0)
+    if specular_only:
+        p_coat = torch.ones_like(p_coat)
     p_diffuse = 1.0 - p_coat
     fresnel_avg = torch.clamp(m.coat_fresnel_avg, 0.0, 1.0)
     spec_tint = plastic_specular_tint(m)
@@ -655,6 +659,8 @@ def _sample_plastic(m: MatLanes, normal, wo, state, clamp_p: ClampParams,
         * (1.0 - schlick_fresnel(f0c, cos_o))
     diffuse = torch.clamp_min(
         diffuse * torch.clamp_min(1.0 - fresnel_avg, 0.0)[..., None], 0.0)
+    if specular_only:
+        diffuse = torch.zeros_like(diffuse)
     spec_pdf_raw_d = ggx_pdf(alpha, normal, wo, wi_d)
     spec_pdf_d = torch.where(spec_pdf_raw_d > 0.0,
                              clamp_specular_pdf(spec_pdf_raw_d, clamp_p), 0.0)
@@ -681,9 +687,11 @@ def _sample_plastic(m: MatLanes, normal, wo, state, clamp_p: ClampParams,
 
 
 def _evaluate_plastic(m: MatLanes, normal, wo, wi, cos_o, cos_i,
-                      clamp_p: ClampParams, diffuse_occlusion):
+                      clamp_p: ClampParams, diffuse_occlusion,
+                      specular_only: bool = False):
     """The plastic branch of ``evaluate_bsdf`` (``bsdf.py:872-917``):
-    (value, pdf); ``cos_o``/``cos_i`` are clamped at 0."""
+    (value, pdf); ``cos_o``/``cos_i`` are clamped at 0. ``specular_only``:
+    the coat alone (``bsdf.py:900, 905``)."""
     coat_roughness = plastic_coat_roughness(m)
     alpha = coat_roughness * coat_roughness
     f0c = plastic_coat_f0(m)[..., None].expand(normal.shape)
@@ -708,19 +716,27 @@ def _evaluate_plastic(m: MatLanes, normal, wo, wi, cos_o, cos_i,
     diffuse = torch.clamp_min(diffuse * torch.clamp_min(
         1.0 - torch.clamp(m.coat_fresnel_avg, 0.0, 1.0), 0.0)[..., None], 0.0)
     p_coat = torch.clamp(m.coat_sample_weight, 0.0, 1.0)
+    if specular_only:
+        diffuse = torch.zeros_like(diffuse)
+        p_coat = torch.ones_like(p_coat)
     return spec + diffuse, p_coat * spec_pdf \
         + (1.0 - p_coat) * lambert_pdf(normal, wi)
 
 
 def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
                 clamp_p: ClampParams, diffuse_occlusion, material_types,
-                position=None, sss_mode: int = 0):
+                position=None, sss_mode: int = 0,
+                specular_only: bool = False):
     """Type-dispatched sampling over the wavefront (reference:
     pathtrace.metal sample_bsdf:5136-5717). ``position`` is the hit point
     (carpaint's flakes and the separable BSSRDF's exit point read it);
     ``sss_mode`` 1 takes the separable BSSRDF on subsurface lanes, other
     modes the lambert fallback (random-walk lanes are overridden by the
-    walk, ``ops/sss.py``). Returns (new_state, BsdfSample)."""
+    walk, ``ops/sss.py``). ``specular_only`` (``debugSpecularOnly``,
+    ``bsdf.py:786``): lambert and subsurface lanes draw nothing and keep
+    the invalid sample, plastic and PBR drop their diffuse lobes; metal,
+    dielectric and carpaint are unchanged. Returns (new_state,
+    BsdfSample)."""
     from metal_pathtracer_tpu_torch.ops import carpaint as carpaint_ops
     from metal_pathtracer_tpu_torch.ops import pbr as pbr_ops
     from metal_pathtracer_tpu_torch.ops import sss as sss_ops
@@ -736,7 +752,7 @@ def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
         out = select_sample(mask, o, out)
         new_state = torch.where(mask, s, new_state)
 
-    if C.MATERIAL_LAMBERTIAN in types:
+    if C.MATERIAL_LAMBERTIAN in types and not specular_only:
         merge(C.MATERIAL_LAMBERTIAN,
               _sample_lambert(m, normal, state, diffuse_occlusion))
     if C.MATERIAL_METAL in types:
@@ -748,8 +764,8 @@ def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
     if C.MATERIAL_PLASTIC in types:
         merge(C.MATERIAL_PLASTIC,
               _sample_plastic(m, normal, wo, state, clamp_p,
-                              diffuse_occlusion))
-    if C.MATERIAL_SUBSURFACE in types:
+                              diffuse_occlusion, specular_only))
+    if C.MATERIAL_SUBSURFACE in types and not specular_only:
         merge(C.MATERIAL_SUBSURFACE,
               sss_ops.sample_subsurface(m, position, normal, wo, state,
                                         sss_mode))
@@ -760,16 +776,18 @@ def sample_bsdf(m: MatLanes, normal, wo, incident, front_face, state,
     if C.MATERIAL_PBR in types:
         merge(C.MATERIAL_PBR,
               pbr_ops.sample_pbr(m, normal, wo, incident, state, clamp_p,
-                                 diffuse_occlusion))
+                                 diffuse_occlusion, specular_only))
     return new_state, out
 
 
 def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
                   diffuse_occlusion, material_types,
-                  position=None) -> BsdfEval:
+                  position=None, specular_only: bool = False) -> BsdfEval:
     """Type-dispatched evaluation, no RNG (reference: pathtrace.metal
     evaluate_bsdf:4950-5136). Subsurface lanes evaluate to zero and are
-    flagged ``is_bssrdf``."""
+    flagged ``is_bssrdf``. ``specular_only`` (``bsdf.py:838``): lambert
+    lanes evaluate to zero, plastic and PBR without their diffuse
+    lobes."""
     from metal_pathtracer_tpu_torch.ops import carpaint as carpaint_ops
     from metal_pathtracer_tpu_torch.ops import pbr as pbr_ops
 
@@ -780,7 +798,7 @@ def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
     value = torch.zeros_like(normal)
     pdf = torch.zeros_like(cos_o)
     is_delta = torch.zeros_like(geom_ok)
-    if C.MATERIAL_LAMBERTIAN in types:
+    if C.MATERIAL_LAMBERTIAN in types and not specular_only:
         mask = (m.mat_type == C.MATERIAL_LAMBERTIAN) & geom_ok
         albedo = material_base_color(m) * torch.clamp(
             diffuse_occlusion, 0.0, 1.0)[..., None]
@@ -798,7 +816,7 @@ def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
     if C.MATERIAL_PLASTIC in types:
         mask = (m.mat_type == C.MATERIAL_PLASTIC) & geom_ok
         v, p = _evaluate_plastic(m, normal, wo, wi, cos_o, cos_i, clamp_p,
-                                 diffuse_occlusion)
+                                 diffuse_occlusion, specular_only)
         value = where3(mask, v, value)
         pdf = torch.where(mask, p, pdf)
     is_bssrdf = m.mat_type == C.MATERIAL_SUBSURFACE
@@ -811,7 +829,7 @@ def evaluate_bsdf(m: MatLanes, normal, wo, wi, clamp_p: ClampParams,
     if C.MATERIAL_PBR in types:
         mask = (m.mat_type == C.MATERIAL_PBR) & geom_ok
         ev = pbr_ops.evaluate_pbr(m, normal, wo, wi, clamp_p,
-                                  diffuse_occlusion)
+                                  diffuse_occlusion, specular_only)
         value = where3(mask, ev.value, value)
         pdf = torch.where(mask, ev.pdf, pdf)
         is_delta = torch.where(mask, ev.is_delta, is_delta)

@@ -228,7 +228,9 @@ def evaluate_carpaint(m, position, normal, wo, wi, clamp_p: ClampParams):
 def sample_carpaint(m, position, normal, wo, state, clamp_p: ClampParams):
     """(reference: sample_bsdf case 6:5508-5633). RNG: 1 lobe selector,
     then the coat and flake lobes draw 2 (VNDF) and the base 1 (sub-lobe
-    choice) + 2 (VNDF or cosine). Returns (new_state, BsdfSample)."""
+    choice) + 2 (VNDF or cosine). Returns (new_state, BsdfSample).
+    ``debugSpecularOnly`` leaves carpaint as it is (the reference's case 6
+    has no carve-out, ``carpaint.py:291``)."""
     p_coat, p_flake, p_base = _lobe_probs(m)
     state, r = rng_ops.rand_uniform(state)
     lobe = torch.where((p_coat > 0.0) & (r < p_coat), 2,

@@ -94,30 +94,25 @@ def _load_radiance_hdr(path: str) -> np.ndarray:
     return mantissa * scale[..., None]
 
 
-def _read_pfm(path: str) -> np.ndarray:
-    """Portable float map -> (H,W,C) float32, top row first."""
-    with open(path, "rb") as f:
-        header = f.readline().strip()
-        if header not in (b"PF", b"Pf"):
-            raise ValueError(f"not a PFM file: {path}")
-        channels = 3 if header == b"PF" else 1
-        w, h = map(int, f.readline().split())
-        scale = float(f.readline())
-        dtype = "<f4" if scale < 0 else ">f4"
-        data = np.frombuffer(f.read(), dtype, count=w * h * channels)
-    return data.reshape(h, w, channels)[::-1].astype(np.float32)
-
-
 def load_hdr_image(path: str) -> np.ndarray:
-    """(H,W,3) float32 linear radiance from .hdr or .pfm; other formats go
-    through imageio where it is installed (LDR images are linearised with
-    gamma 2.2, as the JAX package does)."""
+    """(H,W,3) float32 linear radiance from .hdr, .pfm or uncompressed
+    .exr (``image_io.read_exr`` first, as ``env.py:90-102`` does); other
+    formats and compressed EXR go through imageio where it is installed
+    (LDR images are linearised with gamma 2.2, as the JAX package does)."""
+    from metal_pathtracer_tpu_torch.utils import image_io
+
     ext = os.path.splitext(path)[1].lower()
     if ext == ".hdr":
         return _load_radiance_hdr(path)
     if ext == ".pfm":
-        img = _read_pfm(path)
+        img = image_io.read_pfm(path)
         return img if img.shape[-1] == 3 else np.repeat(img, 3, -1)
+    if ext == ".exr":
+        try:
+            ch = image_io.read_exr(path)
+            return np.stack([ch["R"], ch["G"], ch["B"]], -1)
+        except (ValueError, KeyError):
+            pass  # compressed or not RGB float: imageio below
     try:
         import imageio.v3 as iio
     except ImportError as exc:

@@ -16,8 +16,9 @@ two depth loops of ``ops/kernels/shade.py``:
   and their shadow traces (K1 any-hit, K3), the random walk, K2 ``s2``
   and the spec-NEE estimators (environment and rect lights) per depth.
 
-MNEE and ``debugSpecularOnly`` raise ``NotImplementedError`` naming their
-ROADMAP step (instances raise where a scene adds one).
+``debugSpecularOnly`` runs through K2 (a runtime flag of every stage).
+MNEE raises ``NotImplementedError`` naming its ROADMAP item (instances
+raise where a scene adds one).
 """
 
 from __future__ import annotations
@@ -139,10 +140,7 @@ def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
     """Raise NotImplementedError for configurations not ported yet."""
     if static.enable_mnee:
         raise NotImplementedError(
-            "MNEE chains: ROADMAP Queue 1, step 8 (spec-NEE is ported)")
-    if static.debug_specular_only:
-        raise NotImplementedError(
-            "debugSpecularOnly: ROADMAP Queue 1, step 16 (debug tooling)")
+            "MNEE chains: ROADMAP Queue 1, MNEE (spec-NEE is ported)")
     if scene.n_triangles + scene.n_spheres + scene.n_rects == 0:
         raise NotImplementedError("a scene without any primitive")
 
@@ -225,13 +223,15 @@ def rect_light_sample_from_uniforms(scene: SceneArrays, point, sel_u, u, v,
 
 
 def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
-                state, ray_o, ray_d):
+                state, ray_o, ray_d, probe=None):
     """Trace a wavefront of primary rays to completion.
 
     Returns (state, radiance, aov_albedo, aov_normal, stats) with
     ``stats["rays"]`` the scene traces issued (an int) and
     ``stats["shadow_rays"]`` the shadow traces (a 0-dim tensor on the
-    wavefront's device, so counting them costs no host sync)."""
+    wavefront's device, so counting them costs no host sync). ``probe``,
+    a list, receives one ``kernels.shade.ProbeDepth`` per depth (the
+    pixel probe, ``renderer/debugprobe.py``)."""
     from metal_pathtracer_tpu_torch.ops.kernels import shade
 
     check_supported(scene, static)
@@ -239,9 +239,10 @@ def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
     carry = PathCarry.start(state, ray_o, ray_d, lens,
                             _primary_cone_spread(uniforms, static))
     if env_nee(scene, static) or rect_nee(scene):
-        rays, shadow = shade.trace_paths_nee(scene, uniforms, static, carry)
+        rays, shadow = shade.trace_paths_nee(scene, uniforms, static, carry,
+                                             probe)
     else:
-        rays = shade.trace_paths_fused(scene, uniforms, static, carry)
+        rays = shade.trace_paths_fused(scene, uniforms, static, carry, probe)
         shadow = torch.zeros((), dtype=torch.int64, device=ray_o.device)
     return (carry.state, carry.radiance, carry.aov_albedo, carry.aov_normal,
             {"rays": rays, "shadow_rays": shadow})

@@ -19,9 +19,13 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -46,28 +50,32 @@ SIGNATURES = {
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
         _vp, _vp, _vp, _vp,                     # v0 v1 v2 mesh_index
         _vp, _vp, _vp, _vp,                     # out t tri u v
+        _vp, _vp,                               # left siblings, totals
         _vp],                                   # stream
     # n, the K2 instantiation (1: with plastic, carpaint and subsurface),
     # scalars (host float[]), geometry pointers (host void*[]: hit t,
     # index, u, v, family, shade_packed, sphere and rectangle arrays),
     # material table, its row count, texture planes, random-walk planes
     # and states (NULL where absent), PathCarry pointers (host void*[]),
-    # stream
-    "mpt_shade_full": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp],
+    # the probe plane (NULL without a probe), stream
+    "mpt_shade_full": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
+                       _vp],
     "mpt_trace_any": [
         _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
         _vp, _vp, _vp,                          # v0 v1 v2
-        _vp, _vp],                              # out flags, stream
+        _vp, _vp, _vp,                          # out flags, left
+        _vp],                                   # siblings, totals, stream
     # n, the K2 instantiation, scalars, geometry pointers, material table,
     # its row count, the stage inputs (s1: environment background and pdf,
     # rect-light pdf, environment modulation, texture planes; s2:
     # transients, light samples, texture planes, random-walk planes and
-    # states; NULL where absent), PathCarry pointers, output, stream
+    # states; NULL where absent), PathCarry pointers, output, the probe
+    # plane (NULL without a probe), stream
     "mpt_shade_s1": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
-                     _vp, _vp, _vp],
+                     _vp, _vp, _vp, _vp],
     "mpt_shade_s2": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
-                     _vp, _vp, _vp],
+                     _vp, _vp, _vp, _vp],
     # n, scalars (host float[]), t tri u v, texture material table, its row
     # count, carry / triangle attribute / atlas pointers (host void*[]),
     # texture count, levels per texture, output planes, stream
@@ -178,7 +186,66 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def _kernel_name(mangled: str):
+    """``name`` or ``name<true|false>`` of a mangled kernel symbol: the
+    length-prefixed identifier ending in ``_kernel`` (the anonymous
+    namespace's hash may run into the length's digits, so of the
+    candidates the one that starts last), then its bool template argument
+    (``ILb0E``/``ILb1E``) if any."""
+    found = None
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):
+            n = int(m.group()[k:])
+            ident = mangled[m.end():m.end() + n]
+            if ident.endswith("_kernel") and ident[0].isalpha():
+                flag = re.match(r"ILb([01])E", mangled[m.end() + n:])
+                found = ident + ("" if flag is None else
+                                 "<true>" if flag.group(1) == "1"
+                                 else "<false>")
+    return found
+
+
+def register_counts(log: str) -> dict:
+    """Registers per kernel instantiation in ``-Xptxas -v`` output, keyed
+    ``name<flag>`` for a kernel templated on one bool (``name`` alone
+    otherwise), e.g. ``shade_full_kernel<false>``."""
+    counts, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            counts[current] = int(m.group(1))
+            current = None
+    return counts
+
+
+def compile_registers(csrc_dir: str = CSRC_DIR) -> dict:
+    """Compile every ``.cu`` of ``csrc_dir`` with the build's flags (objects
+    thrown away) and return ``register_counts`` of the compiler's output:
+    how two source trees' kernels compare."""
+    log = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(glob.glob(os.path.join(csrc_dir, "*.cu"))):
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-c", "-o",
+                 os.path.join(tmp, "k.o"), src], capture_output=True,
+                text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            log.append(proc.stdout + proc.stderr)
+    return register_counts("\n".join(log))
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+if __name__ == "__main__":
+    # python -m metal_pathtracer_tpu_torch.ops.kernels.build [csrc_dir]:
+    # the registers of each kernel instantiation in that source tree
+    print(json.dumps(compile_registers(*sys.argv[1:2]), sort_keys=True))

@@ -54,6 +54,19 @@ draw no NEE or BSDF sample, skip Russian roulette and continue along
 their ray as a delta bounce of weight 1 (``shade.py:2123-2139, 2188,
 2306-2331, 2414``).
 
+``debugSpecularOnly`` (``ShadeParams.specular_only``, a runtime argument
+of every stage) drops the diffuse lobes (lambert and subsurface lanes
+draw no sample; plastic and PBR sample and evaluate their specular lobes
+only), the PBR emission and diffuse lights' emission, as the reference's
+XLA integrator does (``integrator.py:421, 454``; the Pallas path refuses
+the flag, ``shade.py:2507``).
+
+For the pixel probe every stage takes an optional (N,6) ``PROBE`` plane:
+``full`` and ``s1`` write each hit's throughput after absorption, ``full``
+and ``s2`` the sample's pdf, delta flag and medium event (zero on a
+diffuse light). The depth loops record, per depth, what a probe row
+needs (``ProbeDepth``) when given a list.
+
 The depth loops are ``trace_paths_fused:2915``'s no-light branch
 (``shade.py:3152-3163``) and its NEE branch (``shade.py:3165-3351``);
 the random walk forks from the stage's input state before ``full`` and
@@ -117,6 +130,7 @@ class ShadeParams:
     specular_mis: bool = False    # MIS on hits after delta bounces too
     env_max_mip: float = 0.0      # mip levels below mip0; 0: LOD off
     sss_mode: int = 0             # 0 off / 1 separable / 2 random walk
+    specular_only: bool = False   # debugSpecularOnly
 
     @classmethod
     def of(cls, uniforms, static, env=None) -> "ShadeParams":
@@ -131,7 +145,8 @@ class ShadeParams:
                    specular_mis=static.enable_specular_nee
                    or static.enable_mnee,
                    env_max_mip=0.0 if env is None else env_ops.max_mip(env),
-                   sss_mode=static.sss_mode)
+                   sss_mode=static.sss_mode,
+                   specular_only=static.debug_specular_only)
 
     @property
     def extended(self) -> bool:
@@ -150,7 +165,8 @@ class ShadeParams:
                 float(self.use_russian_roulette), float(self.specular_mis),
                 self.env_max_mip, float(self.working_color_space),
                 float(self.background_mode), *self.background_color,
-                float(n_banks), float(self.sss_mode)]
+                float(n_banks), float(self.sss_mode),
+                float(self.specular_only)]
 
 
 #: the material types only K2's extended instantiation holds
@@ -266,7 +282,8 @@ def _shade_front(carry: PathCarry, t, tri, u, v, triangles, materials,
     carry.is_first_hit.copy_(carry.is_first_hit & ~shaded)
     zero = torch.zeros_like(radiance)
     pbr_emit = (shaded & (m.mat_type == C.MATERIAL_PBR)
-                & (emissive != 0.0).any(-1) & facing)
+                & (emissive != 0.0).any(-1) & facing
+                & (not params.specular_only))
     radiance = radiance + where3(pbr_emit, bsdf_ops.clamp_firefly_contribution(
         throughput, emissive, params.clamp), zero)
 
@@ -280,7 +297,8 @@ def _shade_front(carry: PathCarry, t, tri, u, v, triangles, materials,
     if emod is not None:
         emission = where3((m.emission_env > 0.0) & rec.front_face,
                           emission * emod, emission)
-    emit = light & (emission != 0.0).any(-1) & facing
+    emit = light & (emission != 0.0).any(-1) & facing \
+        & (not params.specular_only)
     radiance = radiance + where3(emit, bsdf_ops.clamp_firefly_contribution(
         throughput, emission * l_mis[:, None], params.clamp), zero)
     return _Front(rec=rec, m=m, sn=shading_normal, throughput=throughput,
@@ -381,10 +399,24 @@ def _max3(x):
     return torch.maximum(torch.maximum(x[:, 0], x[:, 1]), x[:, 2])
 
 
+#: the probe plane's columns: the throughput after absorption, then the
+#: BSDF sample's pdf, delta flag and medium event
+PROBE = ["tpr", "tpg", "tpb", "pdf", "delta", "medev"]
+
+
+def _probe_sample(probe, lanes, smp):
+    """Write the sample's probe columns on ``lanes`` (no-op without a
+    plane)."""
+    if probe is not None:
+        probe[lanes, 3:6] = torch.stack(
+            [smp.pdf, smp.is_delta.to(torch.float32),
+             smp.medium_event.to(torch.float32)], -1)[lanes]
+
+
 def shade_full_reference(carry: PathCarry, t, tri, u, v, triangles,
                          materials, params: ShadeParams, depth: int,
                          kind=None, scene=None, tex=None, rw=None,
-                         rw_state=None):
+                         rw_state=None, probe=None):
     """Plain PyTorch K2 stage full (see the module docstring)."""
     alive0 = carry.alive.clone()
     hit = tri >= 0
@@ -401,10 +433,16 @@ def shade_full_reference(carry: PathCarry, t, tri, u, v, triangles,
     nstate, smp = bsdf_ops.sample_bsdf(
         f.m, f.sn, -incident, incident, f.rec.front_face, carry.state,
         params.clamp, f.occlusion, params.material_types,
-        position=f.rec.point, sss_mode=params.sss_mode)
+        position=f.rec.point, sss_mode=params.sss_mode,
+        specular_only=params.specular_only)
     smp, nstate = _rw_override(smp, nstate, rw, rw_state)
     state = torch.where(active & ~f.passthrough, nstate, carry.state)
     smp = _passthrough_sample(smp, f.passthrough, carry.ray_d)
+    if probe is not None:
+        hit_lanes = alive0 & hit
+        probe[hit_lanes, 0:3] = f.throughput[hit_lanes]
+        probe[hit_lanes & f.light, 3:6] = 0.0
+        _probe_sample(probe, go, smp)
     active = active & (smp.pdf > 0.0)
     stack, medium_depth = _medium_update(carry, smp, f.m, active)
     next_origin = _next_origin(f.rec.point, f.sn, f.rec.normal, t, smp,
@@ -549,12 +587,13 @@ def pack_material_table(materials) -> torch.Tensor:
 
 
 def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
-            inputs, out_cols, params: ShadeParams, depth: int, n_banks=0):
+            inputs, out_cols, params: ShadeParams, depth: int, n_banks=0,
+            probe=None):
     """Check, then launch ``mpt_<name>`` (the instantiation that
     ``params.material_types`` needs) with the stage ``inputs`` (device
     tensors or None) after the material table (packed on the first
-    launch for these materials); returns its (N, out_cols) output (None
-    without one)."""
+    launch for these materials) and the probe plane (or None); returns
+    its (N, out_cols) output (None without one)."""
     dev = t.device
     n = t.shape[0]
     ptrs = _carry_pointers(carry, n, dev, name)
@@ -565,6 +604,12 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
                               or x.shape[0] != n):
             raise ValueError(f"{name}: stage inputs must be contiguous, of "
                              f"{n} lanes and on {dev}")
+    if probe is not None and (probe.shape != (n, len(PROBE))
+                              or probe.dtype != torch.float32
+                              or probe.device != dev
+                              or not probe.is_contiguous()):
+        raise ValueError(f"{name}: probe must be a contiguous ({n}, "
+                         f"{len(PROBE)}) float32 plane on {dev}")
     out = None if out_cols is None else torch.empty(
         (n, out_cols), dtype=torch.float32, device=dev)
     lib = build.load()
@@ -573,7 +618,7 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
         n, int(params.extended), build.floats(params.scalars(depth, n_banks)),
         geo, p(mat_table), mat_table.shape[0],
         *[p(x) for x in inputs], build.pointers(ptrs),
-        *([] if out is None else [p(out)]),
+        *([] if out is None else [p(out)]), p(probe),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"mpt_{name}")
     return out
@@ -588,24 +633,26 @@ def _check_rw(name, rw, rw_state, n):
 
 def shade_full(carry: PathCarry, t, tri, u, v, triangles, materials,
                params: ShadeParams, depth: int, kind=None,
-               scene=None, tex=None, rw=None, rw_state=None) -> None:
+               scene=None, tex=None, rw=None, rw_state=None,
+               probe=None) -> None:
     """Stage full, in place on ``carry``. ``tri`` is each lane's index in
     its family (-1: a miss), ``kind`` the family (None: triangles only)
     and ``scene`` the spheres and rectangles it indexes; ``tex`` the
     texture planes of a textured scene, ``rw``/``rw_state`` the
-    random-walk override. CPU tensors take the plain version; CUDA tensors
-    launch K2."""
+    random-walk override, ``probe`` the (N,6) probe plane. CPU tensors
+    take the plain version; CUDA tensors launch K2."""
     dev = t.device
     if dev.type == "cpu":
         shade_full_reference(carry, t, tri, u, v, triangles, materials,
-                             params, depth, kind, scene, tex, rw, rw_state)
+                             params, depth, kind, scene, tex, rw, rw_state,
+                             probe)
         return
     if dev.type != "cuda":
         raise ValueError(f"shade_full: unsupported device {dev}")
     _check_tex("shade_full", tex, t.shape[0])
     _check_rw("shade_full", rw, rw_state, t.shape[0])
     _launch("shade_full", carry, t, tri, u, v, triangles, materials, kind,
-            scene, [tex, rw, rw_state], None, params, depth)
+            scene, [tex, rw, rw_state], None, params, depth, probe=probe)
     shade_full.launches += 1
 
 
@@ -667,13 +714,51 @@ def random_walks(scene, uniforms, static, carry: PathCarry, t, idx, u, v,
     return rw, rw_state
 
 
-def trace_paths_fused(scene, uniforms, static, carry: PathCarry) -> int:
+@dataclasses.dataclass
+class ProbeDepth:
+    """What one depth of a probed wavefront leaves for its probe rows
+    (``renderer/debugprobe.py``): the lanes alive at entry and their
+    entry state and ray, the trace's winner, the probe plane (``PROBE``;
+    the entry throughput on misses) and the carry's radiance and medium
+    depth after the depth."""
+
+    alive: torch.Tensor
+    state: torch.Tensor
+    ray_o: torch.Tensor
+    ray_d: torch.Tensor
+    t: torch.Tensor
+    idx: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    kind: object
+    plane: torch.Tensor
+    radiance: torch.Tensor = None
+    medium_depth: torch.Tensor = None
+
+
+def _probe_depth(carry: PathCarry, t, idx, u, v, kind) -> ProbeDepth:
+    plane = torch.zeros((t.shape[0], len(PROBE)), device=t.device)
+    plane[:, 0:3] = carry.throughput
+    return ProbeDepth(alive=carry.alive.clone(), state=carry.state.clone(),
+                      ray_o=carry.ray_o.clone(), ray_d=carry.ray_d.clone(),
+                      t=t, idx=idx, u=u, v=v, kind=kind, plane=plane)
+
+
+def _probe_end(probe, rec: ProbeDepth, carry: PathCarry) -> None:
+    rec.radiance = carry.radiance.clone()
+    rec.medium_depth = carry.medium_depth.clone()
+    probe.append(rec)
+
+
+def trace_paths_fused(scene, uniforms, static, carry: PathCarry,
+                      probe=None) -> int:
     """Depth loop without a light integral: the merged trace, in a
     textured scene the texture stage, the random walk on its lanes, then
     K2 ``full`` until ``max_depth`` or no lane is alive
     (``shade.py:2991-2995, 3152-3163``). Syncs once per depth on the alive
     count, which is also that depth's trace count (and once per walk
-    step). Returns the traces issued."""
+    step). ``probe``, a list, receives one ``ProbeDepth`` per depth.
+    Returns the traces issued."""
     params = ShadeParams.of(uniforms, static)
     textured = has_textures(scene, static) and scene.n_triangles > 0
     rays = 0
@@ -683,6 +768,8 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry) -> int:
             break
         rays += n_alive
         t, idx, u, v, kind = _trace(scene, carry)
+        rec = None if probe is None else _probe_depth(carry, t, idx, u, v,
+                                                      kind)
         tex = None
         if textured:
             tri = idx if kind is None else torch.where(
@@ -694,7 +781,9 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry) -> int:
                                     u, v, kind)
         shade_full(carry, t, idx, u, v, scene.triangles, scene.materials,
                    params, depth, kind=kind, scene=scene, tex=tex, rw=rw,
-                   rw_state=rw_state)
+                   rw_state=rw_state, probe=None if rec is None else rec.plane)
+        if rec is not None:
+            _probe_end(probe, rec, carry)
     return rays
 
 
@@ -721,7 +810,7 @@ CHAIN_IDX = {n: i for i, n in enumerate(CHAIN)}
 def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                        envbg, envpdf, params: ShadeParams, depth: int,
                        tex=None, kind=None, scene=None, rectpdf=None,
-                       emod=None):
+                       emod=None, probe=None):
     """Plain PyTorch K2 stage s1 (``_shade_kernel`` stage "s1",
     integrator body :280-460). ``envbg``/``envpdf``: the environment
     background and alias pdf of an environment light integral (None: the
@@ -751,6 +840,10 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                      alive0 & hit, radiance, kind, scene, tex, rectpdf, emod)
     active = alive0 & hit & ~f.light
     surface_is_delta = bsdf_ops.material_is_delta(f.m)
+    if probe is not None:
+        hit_lanes = alive0 & hit
+        probe[hit_lanes, 0:3] = f.throughput[hit_lanes]
+        probe[hit_lanes & f.light, 3:6] = 0.0
 
     # ---- the NEE draws (3 per light integral, rect first): NEE lanes only
     nee_lanes = active & ~f.passthrough & ~surface_is_delta
@@ -784,7 +877,7 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
 def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                        trans, esmp, params: ShadeParams, depth: int,
                        tex=None, kind=None, scene=None, rw=None,
-                       rw_state=None):
+                       rw_state=None, probe=None):
     """Plain PyTorch K2 stage s2 (``_shade_kernel`` stage "s2",
     integrator body :461-716). ``esmp`` holds one 9-column bank per light
     integral, rect first; ``rw``/``rw_state`` the random-walk override
@@ -813,7 +906,8 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
         do_shadow = nee_lanes & e_valid & (e_pdf > 0.0) & (n_dot_l > 0.0)
         ev = bsdf_ops.evaluate_bsdf(m, sn, wo, e_dir, params.clamp,
                                     occlusion, params.material_types,
-                                    position=point)
+                                    position=point,
+                                    specular_only=params.specular_only)
         w, _ = _mis_weight(e_pdf, ev.pdf)
         w = torch.where(ev.pdf > 0.0, w, 1.0)
         contribution = e_rad * ev.value * n_dot_l[:, None] \
@@ -830,10 +924,11 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     nstate, smp = bsdf_ops.sample_bsdf(
         m, sn, wo, incident, rec.front_face, carry.state, params.clamp,
         occlusion, params.material_types, position=point,
-        sss_mode=params.sss_mode)
+        sss_mode=params.sss_mode, specular_only=params.specular_only)
     smp, nstate = _rw_override(smp, nstate, rw, rw_state)
     state = torch.where(active & ~passthrough, nstate, carry.state)
     smp = _passthrough_sample(smp, passthrough, carry.ray_d)
+    _probe_sample(probe, alive0, smp)
     active = active & (smp.pdf > 0.0)
     chain = torch.stack([*smp.weight.unbind(-1), smp.directional_pdf,
                          smp.medium_event.to(torch.float32),
@@ -898,42 +993,43 @@ def _check_tex(name, tex, n):
 
 def shade_s1(carry: PathCarry, t, tri, u, v, triangles, materials, envbg,
              envpdf, params: ShadeParams, depth: int, tex=None, kind=None,
-             scene=None, rectpdf=None, emod=None):
+             scene=None, rectpdf=None, emod=None, probe=None):
     """Stage s1, in place on ``carry``; returns the (N,18) transients
     (zero on lanes that are not live hits afterwards). ``envbg``/
     ``envpdf`` for an environment light integral (None without one),
     ``rectpdf`` for a rect-light integral, ``tex`` the texture planes of a
     textured scene, ``emod`` the environment modulation of
-    ``emission_env`` lights, ``kind``/``scene`` as in ``shade_full``. CPU
-    tensors take the plain version; CUDA tensors launch K2 s1."""
+    ``emission_env`` lights, ``kind``/``scene``/``probe`` as in
+    ``shade_full``. CPU tensors take the plain version; CUDA tensors
+    launch K2 s1."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s1_reference(carry, t, tri, u, v, triangles, materials,
                                   envbg, envpdf, params, depth, tex, kind,
-                                  scene, rectpdf, emod)
+                                  scene, rectpdf, emod, probe)
     if dev.type != "cuda":
         raise ValueError(f"shade_s1: unsupported device {dev}")
     _check_tex("shade_s1", tex, t.shape[0])
     out = _launch("shade_s1", carry, t, tri, u, v, triangles, materials,
                   kind, scene, [envbg, envpdf, rectpdf, emod, tex],
-                  len(TRANS), params, depth)
+                  len(TRANS), params, depth, probe=probe)
     shade_s1.launches += 1
     return out
 
 
 def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
              esmp, params: ShadeParams, depth: int, tex=None, kind=None,
-             scene=None, rw=None, rw_state=None):
+             scene=None, rw=None, rw_state=None, probe=None):
     """Stage s2, in place on ``carry``; returns the (N,7) chain exports
     (zero on lanes that were not live hits). ``esmp``: one 9-column bank
     per light integral, rect first; ``rw``/``rw_state`` the random-walk
-    override. CPU tensors take the plain version; CUDA tensors launch K2
-    s2."""
+    override, ``probe`` the probe plane. CPU tensors take the plain
+    version; CUDA tensors launch K2 s2."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s2_reference(carry, t, tri, u, v, triangles, materials,
                                   trans, esmp, params, depth, tex, kind,
-                                  scene, rw, rw_state)
+                                  scene, rw, rw_state, probe)
     if dev.type != "cuda":
         raise ValueError(f"shade_s2: unsupported device {dev}")
     _check_tex("shade_s2", tex, t.shape[0])
@@ -943,7 +1039,7 @@ def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
     out = _launch("shade_s2", carry, t, tri, u, v, triangles, materials,
                   kind, scene, [trans.contiguous(), esmp.contiguous(), tex,
                                 rw, rw_state], len(CHAIN), params, depth,
-                  esmp.shape[1] // len(ESMP))
+                  esmp.shape[1] // len(ESMP), probe=probe)
     shade_s2.launches += 1
     return out
 
@@ -1023,7 +1119,7 @@ def light_banks(scene, uniforms, static, trans, t, tex=None):
     return torch.cat(banks, 1), shadow
 
 
-def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
+def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
     """The depth loop under one or two light integrals (``trace_paths_fused``
     's NEE branch, ``shade.py:3165-3351``): the merged trace, in a textured
     scene the texture stage (``shade.py:3023-3063``), the environment
@@ -1033,7 +1129,8 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
     per light integral its sample from s1's draws and a shadow trace), K2
     s2 and the spec-NEE estimators. One host sync per depth (the alive
     count, and one per walk step); the shadow count stays on the device.
-    Returns (traces issued,
+    ``probe``, a list, receives one ``ProbeDepth`` per depth. Returns
+    (traces issued,
     shadow traces as a 0-dim tensor); the spec-NEE rect estimator's scene
     traces count as traces."""
     env = scene.environment if integrator.env_nee(scene, static) else None
@@ -1057,6 +1154,9 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
             break
         rays += n_alive
         t, idx, u, v, kind = _trace(scene, carry)
+        rec = None if probe is None else _probe_depth(carry, t, idx, u, v,
+                                                      kind)
+        plane = None if rec is None else rec.plane
         tri = idx if kind is None else torch.where(
             kind == C.PRIMITIVE_TRIANGLE, idx, -1)
         # the alpha-BLEND draw lands before s1's NEE draws
@@ -1078,7 +1178,8 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
                               kind) if modulated else None
         trans = shade_s1(carry, t, idx, u, v, scene.triangles,
                          scene.materials, envbg, envpdf, params, depth, tex,
-                         kind=kind, scene=scene, rectpdf=rectpdf, emod=emod)
+                         kind=kind, scene=scene, rectpdf=rectpdf, emod=emod,
+                         probe=plane)
         # s2 samples from the post-s1 state: the walk's fork
         rw, rw_state = random_walks(scene, uniforms, static, carry, t, idx,
                                     u, v, kind)
@@ -1089,7 +1190,8 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
         throughput_s1 = carry.throughput.clone()
         chain = shade_s2(carry, t, idx, u, v, scene.triangles,
                          scene.materials, trans, esmp, params, depth, tex,
-                         kind=kind, scene=scene, rw=rw, rw_state=rw_state)
+                         kind=kind, scene=scene, rw=rw, rw_state=rw_state,
+                         probe=plane)
 
         # ---- spec-NEE: the lights through the delta bounce --------------
         add, n_scene, n_shadow = specnee.delta_chain_estimators(
@@ -1100,4 +1202,6 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry):
         carry.radiance.add_(add)
         shadow = shadow + n_shadow
         chain_rays = chain_rays + n_scene
+        if rec is not None:
+            _probe_end(probe, rec, carry)
     return rays + int(chain_rays), shadow

@@ -16,6 +16,25 @@ plain versions on CPU tensors:
   any-hit kernel walks the same tree and stops at the first triangle
   inside the window, so its flag equals that one bit for bit (which hit
   it found may differ; only the flag is the contract).
+
+``stats=True`` (``trace_closest_stats`` / ``trace_any_stats``) launches
+the counting instantiation of the same kernels, which replaces the TPU
+kernel's ``return_stats`` mode (``packet_trace_unsorted(...,
+return_stats=True):726``, totals ``:792-809``): it returns the usual
+outputs, bit for bit, plus an int64 vector of four totals over the
+wavefront (``STATS_KEYS``). The plain versions count the same walk
+(``walk=``). The names are the JAX package's; on the exit-link tree:
+
+- ``nodes_visited``: slab tests (the packet walk counts its node visits
+  per 1024-ray packet, this one per ray);
+- ``leaf_chunks_tested``: leaf visits whose box passed (a packet tests a
+  leaf's triangle chunk once for the packet; a ray tests its own leaf);
+- ``both_children_visited``: interior nodes both of whose children's
+  boxes passed, counted at the right child when the walk reaches it (the
+  packet walk asks it of both children at the parent, before the left
+  subtree can shorten the window);
+- ``leaf_prim_tests``: triangle tests (a packet counts a chunk's
+  triangles once for its 1024 rays).
 """
 
 from __future__ import annotations
@@ -27,6 +46,10 @@ from metal_pathtracer_tpu_torch.ops.kernels import build
 from metal_pathtracer_tpu_torch.ops.vecmath import cross, dot
 
 MAX_LEAF = 4
+
+#: the counting kernels' totals, in order (the JAX package's key names)
+STATS_KEYS = ("nodes_visited", "leaf_chunks_tested", "both_children_visited",
+              "leaf_prim_tests")
 
 
 def _intersect_tris(origin, direction, tri_ids, tris, t_min, t_max,
@@ -66,8 +89,10 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
 
     ``walk``, a dict, receives what the walk touched (the kernel visits
     the same nodes): ``nodes`` and ``slots`` masks over the node and
-    triangle-slot arrays, and the ``node_visits`` and ``tri_tests``
-    counts."""
+    triangle-slot arrays, and the counts of K1's counting mode:
+    ``node_visits`` (slab tests), ``leaf_visits`` (leaves whose box
+    passed), ``both_children`` (right children whose box passed, their
+    left sibling's too) and ``tri_tests``."""
     n = origin.shape[0]
     dev = origin.device
     n_nodes = bvh.node_count
@@ -88,7 +113,12 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
     if walk is not None:
         walk.update(nodes=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
                     slots=torch.zeros(n_slots, dtype=torch.bool, device=dev),
-                    node_visits=0, tri_tests=0)
+                    node_visits=0, leaf_visits=0, both_children=0,
+                    tri_tests=0)
+        left_sib = bvh.left_sibling().long()
+        # each lane's previous slab test: its node and whether it passed
+        prev = torch.full_like(node, -1)
+        prev_hit = torch.zeros_like(node, dtype=torch.bool)
     while live.numel():
         if walk is not None:
             walk["nodes"][node] = True
@@ -103,6 +133,12 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
         box_hit = torch.minimum(tfar, best_t[live]) >= tnear
         pcount = bvh.prim_count[node]
         leaf = box_hit & (pcount > 0)
+        if walk is not None:
+            ls = left_sib[node]
+            walk["leaf_visits"] += int(leaf.sum())
+            walk["both_children"] += int(
+                ((ls >= 0) & box_hit & ~((prev == ls) & ~prev_hit)).sum())
+            prev, prev_hit = node, box_hit
         if bool(leaf.any()):
             li, ln = live[leaf], node[leaf]
             slot = torch.clamp(bvh.prim_offset[ln, None] + ar, 0, n_slots - 1)
@@ -137,7 +173,17 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
         if first_hit:
             more &= best_tri[live] < 0
         live, node = live[more], node[more]
+        if walk is not None:
+            prev, prev_hit = prev[more], prev_hit[more]
     return best_t, best_tri, best_u, best_v
+
+
+def walk_totals(walk, device) -> torch.Tensor:
+    """The plain walk's counts as the counting kernel's (4,) int64 totals
+    (``STATS_KEYS`` order)."""
+    return torch.tensor([walk["node_visits"], walk["leaf_visits"],
+                         walk["both_children"], walk["tri_tests"]],
+                        dtype=torch.int64, device=device)
 
 
 def _as_i32(x, n, dev):
@@ -147,22 +193,26 @@ def _as_i32(x, n, dev):
 
 
 def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
-                  exclude_mesh=None, exclude_prim=None):
+                  exclude_mesh=None, exclude_prim=None, stats: bool = False):
     """Nearest triangle hit per ray: (t, tri, u, v), each (N,).
 
     origin/direction (N,3) f32, t_max (N,) f32 (0 marks a dead lane),
     exclude_mesh/exclude_prim (N,) ids of a triangle each lane must skip.
-    CPU tensors take the plain version; CUDA tensors launch K1."""
+    ``stats``: also return the walk's (4,) int64 totals (``STATS_KEYS``)
+    from K1's counting instantiation. CPU tensors take the plain version;
+    CUDA tensors launch K1."""
     n = origin.shape[0]
     dev = origin.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                               device=dev), (n,))
+                                               device=dev), (n,)).contiguous()
     exclude_mesh = _as_i32(exclude_mesh, n, dev)
     exclude_prim = _as_i32(exclude_prim, n, dev)
     if dev.type == "cpu":
-        return trace_closest_reference(origin, direction, float(t_min),
-                                       t_max, bvh, tris, exclude_mesh,
-                                       exclude_prim)
+        walk = {} if stats else None
+        out = trace_closest_reference(origin, direction, float(t_min),
+                                      t_max, bvh, tris, exclude_mesh,
+                                      exclude_prim, walk=walk)
+        return (*out, walk_totals(walk, dev)) if stats else out
     if dev.type != "cuda":
         raise ValueError(f"trace_closest: unsupported device {dev}")
     args = [origin, direction, t_max, bvh.bounds_min, bvh.bounds_max,
@@ -178,8 +228,9 @@ def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
     out_tri = torch.empty(n, dtype=torch.int32, device=dev)
     out_u = torch.empty(n, dtype=torch.float32, device=dev)
     out_v = torch.empty(n, dtype=torch.float32, device=dev)
+    left_sib, totals = _stats_buffers(bvh, dev, stats)
     lib = build.load()
-    p = lambda x: x.data_ptr()
+    p = lambda x: None if x is None else x.data_ptr()
     err = lib.mpt_trace_closest(
         n, p(origin), p(direction), float(t_min), p(t_max),
         p(exclude_mesh), p(exclude_prim),
@@ -187,15 +238,39 @@ def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
         p(bvh.prim_offset), p(bvh.prim_count), p(bvh.exit_index),
         p(bvh.prim_indices), bvh.prim_indices.shape[0],
         p(tris.v0), p(tris.v1), p(tris.v2), p(tris.mesh_index),
-        p(out_t), p(out_tri), p(out_u), p(out_v),
+        p(out_t), p(out_tri), p(out_u), p(out_v), p(left_sib), p(totals),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mpt_trace_closest")
+    if stats:
+        trace_closest_stats.launches += 1
+        return out_t, out_tri, out_u, out_v, totals
     trace_closest.launches += 1
     return out_t, out_tri, out_u, out_v
 
 
-#: K1 launches since the last reset (chip_smoke.py reads and resets it)
+def _stats_buffers(bvh, dev, stats: bool):
+    """The counting kernel's inputs: the left-sibling array and a zeroed
+    (4,) int64 totals vector; (None, None) for the counter-free kernel."""
+    if not stats:
+        return None, None
+    left_sib = bvh.left_sibling()
+    if left_sib.device != dev:
+        raise ValueError(f"K1 stats: the BVH must be on {dev}")
+    return left_sib, torch.zeros(len(STATS_KEYS), dtype=torch.int64,
+                                 device=dev)
+
+
+def trace_closest_stats(origin, direction, t_min: float, t_max, bvh, tris,
+                        exclude_mesh=None, exclude_prim=None):
+    """``trace_closest(..., stats=True)``: (t, tri, u, v, totals)."""
+    return trace_closest(origin, direction, t_min, t_max, bvh, tris,
+                         exclude_mesh, exclude_prim, stats=True)
+
+
+#: K1 launches since the last reset (chip_smoke.py reads and resets it);
+#: the counting kernel's are counted on ``trace_closest_stats``
 trace_closest.launches = 0
+trace_closest_stats.launches = 0
 
 
 def trace_any_reference(origin, direction, t_min, t_max, bvh, tris,
@@ -210,17 +285,22 @@ def trace_any_reference(origin, direction, t_min, t_max, bvh, tris,
                                    first_hit=True)[1] >= 0
 
 
-def trace_any(origin, direction, t_min: float, t_max, bvh, tris):
+def trace_any(origin, direction, t_min: float, t_max, bvh, tris,
+              stats: bool = False):
     """Occlusion flag per ray: a triangle at t in [t_min, t_max], (N,)
-    bool. t_max (N,) f32, 0 marks a lane that traces nothing. CPU tensors
-    take the plain version; CUDA tensors launch K1's any-hit kernel."""
+    bool. t_max (N,) f32, 0 marks a lane that traces nothing. ``stats``:
+    also return the walk's (4,) int64 totals (``STATS_KEYS``) from the
+    counting instantiation. CPU tensors take the plain version; CUDA
+    tensors launch K1's any-hit kernel."""
     n = origin.shape[0]
     dev = origin.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=dev), (n,))
     if dev.type == "cpu":
-        return trace_any_reference(origin, direction, float(t_min), t_max,
-                                   bvh, tris)
+        walk = {} if stats else None
+        occ = trace_any_reference(origin, direction, float(t_min), t_max,
+                                  bvh, tris, walk=walk)
+        return (occ, walk_totals(walk, dev)) if stats else occ
     if dev.type != "cuda":
         raise ValueError(f"trace_any: unsupported device {dev}")
     t_max = t_max.contiguous()
@@ -234,19 +314,30 @@ def trace_any(origin, direction, t_min: float, t_max, bvh, tris):
     if origin.dtype != torch.float32 or direction.dtype != torch.float32:
         raise ValueError("trace_any: rays must be float32")
     out = torch.empty(n, dtype=torch.bool, device=dev)
+    left_sib, totals = _stats_buffers(bvh, dev, stats)
     lib = build.load()
-    p = lambda x: x.data_ptr()
+    p = lambda x: None if x is None else x.data_ptr()
     err = lib.mpt_trace_any(
         n, p(origin), p(direction), float(t_min), p(t_max),
         bvh.node_count, p(bvh.bounds_min), p(bvh.bounds_max),
         p(bvh.prim_offset), p(bvh.prim_count), p(bvh.exit_index),
         p(bvh.prim_indices), bvh.prim_indices.shape[0],
-        p(tris.v0), p(tris.v1), p(tris.v2), p(out),
+        p(tris.v0), p(tris.v1), p(tris.v2), p(out), p(left_sib), p(totals),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mpt_trace_any")
+    if stats:
+        trace_any_stats.launches += 1
+        return out, totals
     trace_any.launches += 1
     return out
 
 
-#: any-hit launches since the last reset
+def trace_any_stats(origin, direction, t_min: float, t_max, bvh, tris):
+    """``trace_any(..., stats=True)``: (occluded, totals)."""
+    return trace_any(origin, direction, t_min, t_max, bvh, tris, stats=True)
+
+
+#: any-hit launches since the last reset; the counting kernel's are
+#: counted on ``trace_any_stats``
 trace_any.launches = 0
+trace_any_stats.launches = 0

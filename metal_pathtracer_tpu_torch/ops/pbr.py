@@ -66,9 +66,11 @@ def ggx_vndf_pdf(alpha, normal, wo, wh):
     return torch.where((cos_o <= 0.0) | (cos_h <= 0.0), 0.0, pdf)
 
 
-def _lobe_params(m, diffuse_occlusion):
+def _lobe_params(m, diffuse_occlusion, specular_only: bool = False):
     """(base, metallic, roughness, f0, diffuse colour, transmission,
-    reflect scale, p_spec, p_diff, p_trans, weights_ok)"""
+    reflect scale, p_spec, p_diff, p_trans, weights_ok). ``specular_only``
+    (``debugSpecularOnly``, ``pbr.py:81-89``): no diffuse colour, the
+    specular lobe takes the whole reflection weight."""
     base_color = torch.clamp(m.base_color, 0.0, 1.0)
     metallic = torch.clamp(m.pbr_metallic, 0.0, 1.0)
     roughness = torch.clamp(m.roughness, 0.0, 1.0)
@@ -77,12 +79,14 @@ def _lobe_params(m, diffuse_occlusion):
     diffuse_color = base_color * (1.0 - metallic)[..., None]
     diffuse_color = diffuse_color * torch.clamp(diffuse_occlusion, 0.0,
                                                 1.0)[..., None]
+    if specular_only:
+        diffuse_color = torch.zeros_like(diffuse_color)
     transmission = torch.clamp(m.pbr_transmission, 0.0, 1.0) \
         * (1.0 - metallic)
     reflect_scale = 1.0 - transmission
-    spec_weight_base = torch.clamp(
-        torch.maximum(torch.maximum(f0[..., 0], f0[..., 1]), f0[..., 2]),
-        0.05, 0.95)
+    spec_weight_base = torch.ones_like(metallic) if specular_only \
+        else torch.clamp(torch.maximum(torch.maximum(f0[..., 0], f0[..., 1]),
+                                       f0[..., 2]), 0.05, 0.95)
     w_spec = spec_weight_base * reflect_scale
     w_diff = (1.0 - spec_weight_base) * reflect_scale
     w_trans = transmission
@@ -94,7 +98,7 @@ def _lobe_params(m, diffuse_occlusion):
 
 
 def evaluate_pbr(m, normal, wo, wi, clamp_p: ClampParams,
-                 diffuse_occlusion) -> BsdfEval:
+                 diffuse_occlusion, specular_only: bool = False) -> BsdfEval:
     """(reference: evaluate_pbr_metallic_roughness:4632-4766)"""
     cos_o = dot(normal, wo)
     cos_i = dot(normal, wi)
@@ -102,7 +106,8 @@ def evaluate_pbr(m, normal, wo, wi, clamp_p: ClampParams,
     abs_i = cos_i.abs()
     geom_ok = (abs_o > 0.0) & (abs_i > 0.0)
     (_, _, roughness, f0, diffuse_color, transmission, reflect_scale,
-     p_spec, p_diff, p_trans, weights_ok) = _lobe_params(m, diffuse_occlusion)
+     p_spec, p_diff, p_trans, weights_ok) = _lobe_params(m, diffuse_occlusion,
+                                                         specular_only)
     is_delta = (m.mat_type == C.MATERIAL_PBR) & (roughness <= 1e-3)
 
     # reflection side (both cosines positive)
@@ -168,13 +173,14 @@ def evaluate_pbr(m, normal, wo, wi, clamp_p: ClampParams,
 
 
 def sample_pbr(m, normal, wo, incident, state, clamp_p: ClampParams,
-               diffuse_occlusion):
+               diffuse_occlusion, specular_only: bool = False):
     """(reference: sample_pbr_metallic_roughness:4768-4945).
 
     RNG: 1 lobe selector; smooth specular/transmission draw nothing more,
     rough lobes and the diffuse lobe draw 2."""
     (_, _, roughness, f0, diffuse_color, transmission, reflect_scale,
-     p_spec, p_diff, p_trans, weights_ok) = _lobe_params(m, diffuse_occlusion)
+     p_spec, p_diff, p_trans, weights_ok) = _lobe_params(m, diffuse_occlusion,
+                                                         specular_only)
     smooth = roughness <= 1e-3
     alpha = torch.clamp_min(roughness * roughness, 1e-4)
 

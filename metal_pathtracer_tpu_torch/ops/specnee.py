@@ -6,7 +6,7 @@ reference traces one more ray along the sampled direction and adds the
 light seen through it with MIS against the delta lobe's pdf (reference:
 shaders/pathtrace.metal:6770-7235): the environment through a shadow ray,
 and an emissive rectangle through a closest-hit trace of the scene. MNEE
-(and its secondary chain) is ROADMAP Queue 1 step 8.
+(and its secondary chain) is ROADMAP Queue 1's MNEE item.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def delta_chain_estimators(scene, uniforms, static, clamp_p, throughput,
     secondary chain. Returns (radiance (N,3), scene traces, shadow
     traces), the counts as 0-dim tensors."""
     if static.enable_mnee:
-        raise NotImplementedError("MNEE chains: ROADMAP Queue 1, step 8")
+        raise NotImplementedError("MNEE chains: ROADMAP Queue 1, MNEE")
     radiance = torch.zeros_like(next_origin)
     n_scene = torch.zeros((), dtype=torch.int64, device=active.device)
     n_shadow = torch.zeros((), dtype=torch.int64, device=active.device)

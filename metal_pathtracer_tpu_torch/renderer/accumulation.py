@@ -1,11 +1,23 @@
-"""Progressive accumulation state (``renderer/accumulation.py`` twin,
-without the ``.npz`` checkpoint, which is ROADMAP Queue 1 step 10)."""
+"""Progressive accumulation state (``renderer/accumulation.py`` twin),
+with the ``.npz`` checkpoint.
+
+A checkpoint holds the JAX package's keys and dtypes (``accumulation.py
+:69-155``: uint32 sample counts and dispatch counter, float32 moments and
+counters, an empty ``denoised`` plane), so either package reads the
+other's files. The trace counters are float32 there, exact up to 2^24.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
+
+
+class CheckpointError(RuntimeError):
+    """A render-state checkpoint could not be read."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,3 +56,77 @@ class RenderState:
         count = torch.clamp_min(self.sample_count.to(torch.float32), 1.0)
         avg = self.radiance_sum / count[..., None]
         return torch.where((self.sample_count > 0)[..., None], avg, 0.0)
+
+    def variance_of_mean(self) -> torch.Tensor:
+        """Per-pixel, per-channel variance of the accumulated mean:
+        max(E[x^2] - E[x]^2, 0) / n; zero where n < 2."""
+        n = torch.clamp_min(self.sample_count.to(torch.float32),
+                            1.0)[..., None]
+        mean = self.radiance_sum / n
+        var = torch.clamp_min(self.radiance_sq_sum / n - mean * mean,
+                              0.0) / n
+        return torch.where((self.sample_count > 1)[..., None], var, 0.0)
+
+    def save(self, path: str, digest: str = "") -> None:
+        """Checkpoint to ``.npz``; resume with ``RenderState.load``.
+        ``digest`` names the (scene, settings) the accumulation belongs to,
+        and ``load`` refuses a different one."""
+        parent = os.path.dirname(path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        f32 = lambda x: x.detach().cpu().numpy().astype(np.float32)
+        # a handle, so np.savez cannot append ".npz" to the name
+        with open(path, "wb") as fh:
+            np.savez(
+                fh,
+                digest=np.asarray(digest),
+                radiance_sum=f32(self.radiance_sum),
+                sample_count=self.sample_count.cpu().numpy().astype(np.uint32),
+                albedo=f32(self.albedo),
+                normal=f32(self.normal),
+                frame_index=np.asarray(self.frame_index, np.uint32),
+                denoised=np.zeros(tuple(self.radiance_sum.shape), np.float32),
+                ray_count=np.asarray(self.ray_count, np.float32),
+                shadow_ray_count=np.asarray(self.shadow_ray_count,
+                                            np.float32),
+                radiance_sq_sum=f32(self.radiance_sq_sum))
+
+    @classmethod
+    def load(cls, path: str, expect_digest: str = None,
+             expect_size: tuple = None, device="cuda") -> "RenderState":
+        """Load a checkpoint onto ``device``. ``expect_size`` is (width,
+        height) and ``expect_digest`` the digest the caller would save
+        with; a mismatch of either raises ``CheckpointError`` rather than
+        resume another accumulation."""
+        try:
+            data = np.load(path)
+            radiance_sum = data["radiance_sum"]
+        except (OSError, ValueError, KeyError) as exc:
+            raise CheckpointError(
+                f"could not load render-state checkpoint {path!r}: {exc}"
+            ) from exc
+        h, w = radiance_sum.shape[:2]
+        if expect_size is not None and (w, h) != tuple(expect_size):
+            raise CheckpointError(
+                f"checkpoint {path!r} is {w}x{h} but this render is "
+                f"{expect_size[0]}x{expect_size[1]}; delete the checkpoint "
+                "or match the resolution")
+        if expect_digest:
+            stored = str(data["digest"]) if "digest" in data else ""
+            if stored and stored != expect_digest:
+                raise CheckpointError(
+                    f"checkpoint {path!r} was rendered with a different "
+                    "scene/settings (digest mismatch); delete it to start "
+                    "fresh")
+        t = lambda x, dtype=torch.float32: torch.as_tensor(
+            np.asarray(x), dtype=dtype, device=device)
+        sq = data["radiance_sq_sum"] if "radiance_sq_sum" in data \
+            else np.zeros_like(radiance_sum)
+        scalar = lambda k: float(data[k]) if k in data else 0.0
+        return cls(radiance_sum=t(radiance_sum),
+                   sample_count=t(data["sample_count"], torch.int64),
+                   albedo=t(data["albedo"]), normal=t(data["normal"]),
+                   radiance_sq_sum=t(sq),
+                   frame_index=int(data["frame_index"]),
+                   ray_count=int(scalar("ray_count")),
+                   shadow_ray_count=int(scalar("shadow_ray_count")))

@@ -1,13 +1,24 @@
-"""Headless rendering on a CUDA device (``renderer/headless.py`` twin of
-``TpuBackend``, without checkpoints)."""
+"""Headless rendering (``renderer/headless.py`` twin).
+
+``CudaBackend`` renders progressive sample batches on a torch device: the
+card by default, the CPU where the caller asks (every kernel then runs
+its plain version). It keeps the JAX ``TpuBackend``'s surface: the scene
+digest and the ``.npz`` checkpoint it resumes from, ``PerformanceStats``
+and the ``[Headless]`` log lines (``headless.py:48-62, 69-160``).
+``make_backend`` picks ``cuda`` or ``cpu`` and never falls back from one
+to the other.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from metal_pathtracer_tpu_torch.ops.camera import build_camera
 from metal_pathtracer_tpu_torch.renderer import frame
@@ -17,6 +28,7 @@ from metal_pathtracer_tpu_torch.schema import (
     settings_to_uniforms,
 )
 from metal_pathtracer_tpu_torch.settings import BackgroundMode, RenderSettings
+from metal_pathtracer_tpu_torch.utils import stats as stats_mod
 
 
 @dataclasses.dataclass
@@ -40,20 +52,55 @@ class HeadlessRenderOutput:
 # per command buffer, MetalHeadlessRenderer.mm:48).
 DEFAULT_BATCH = 16
 
+# Seconds between periodic checkpoint saves during a render
+CHECKPOINT_INTERVAL = 30.0
+
+
+def _leaves(obj):
+    """The tensors and scalars of nested dataclasses, in field order."""
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _leaves(getattr(obj, f.name))
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from _leaves(x)
+    elif obj is not None:
+        yield obj
+
+
+def scene_digest(scene, static, uniforms) -> str:
+    """sha256 over the static configuration, the uniforms and the scene
+    arrays: what a checkpointed accumulation was rendered with."""
+    h = hashlib.sha256()
+    h.update(repr(static).encode())
+    for leaf in (*_leaves(uniforms), *_leaves(scene)):
+        if torch.is_tensor(leaf):
+            leaf = leaf.detach().cpu().numpy()
+        h.update(np.asarray(leaf).tobytes())
+    return h.hexdigest()
+
 
 class CudaBackend:
-    """Progressive batch renderer on a torch device. The device is the
-    caller's choice; CPU tensors run every kernel's plain version."""
+    """Progressive batch renderer on a torch device (``device``: the card
+    by default; CPU tensors run every kernel's plain version)."""
 
-    name = "cuda"
+    def __init__(self, device="cuda"):
+        self.device = device
+        self.name = torch.device(device).type   # "cuda" or "cpu"
+        self.last_stats = None
 
     def render(self, resources, settings: RenderSettings, width: int,
-               height: int, spp_total: int, device="cuda",
-               batch: int = DEFAULT_BATCH,
-               environment=None) -> HeadlessRenderOutput:
-        """``environment``: an ``EnvironmentSoA`` on ``device`` for an
-        environment background (default: the settings' map file, if
-        any)."""
+               height: int, spp_total: int, device=None,
+               batch: int = DEFAULT_BATCH, environment=None,
+               verbose: bool = False, progress_interval: float = 0.5,
+               checkpoint_path: str = "") -> HeadlessRenderOutput:
+        """Render ``spp_total`` samples per pixel. ``device`` overrides the
+        backend's; ``environment``, an ``EnvironmentSoA`` on that device,
+        the settings' map file. With ``checkpoint_path`` the render
+        resumes from that file when it exists (raising ``CheckpointError``
+        if it belongs to another scene, settings or size), saves it every
+        ``CHECKPOINT_INTERVAL`` seconds and at the end."""
+        device = self.device if device is None else device
         if environment is None \
                 and settings.backgroundMode == BackgroundMode.ENVIRONMENT \
                 and settings.environmentMapPath:
@@ -67,15 +114,50 @@ class CudaBackend:
                                     resources.texture_uses_uv1())
         uniforms = settings_to_uniforms(
             settings, build_camera(settings, width, height, device), 0, 0)
-        state = RenderState.create(width, height, device)
-        start = time.time()
-        done = 0
+        log = stats_mod.get_logger("Headless")
+        stats_mod.set_verbose(verbose)
+        digest = scene_digest(scene, static, uniforms) \
+            if checkpoint_path else ""
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            state = RenderState.load(checkpoint_path, expect_digest=digest,
+                                     expect_size=(width, height),
+                                     device=device)
+            log.debug(f"resumed {state.frame_index} spp from "
+                      f"{checkpoint_path}")
+        else:
+            state = RenderState.create(width, height, device)
+
+        perf = stats_mod.PerformanceStats()
+        # counters restored from a checkpoint are history, not this run's
+        perf.total_rays = float(state.ray_count)
+        perf.total_shadow_rays = float(state.shadow_ray_count)
+        sync = torch.cuda.synchronize if state.radiance_sum.is_cuda \
+            else (lambda: None)
+        start = last_report = last_save = time.time()
+        done = state.frame_index
         while done < spp_total:
             n = min(batch, spp_total - done)
-            state = frame.render_samples(scene, uniforms, state, static, n)
+            with stats_mod.BatchTimer() as bt:
+                state = frame.render_samples(scene, uniforms, state, static,
+                                             n)
+                sync()
             done += n
+            if checkpoint_path and done < spp_total \
+                    and time.time() - last_save >= CHECKPOINT_INTERVAL:
+                state.save(checkpoint_path, digest=digest)
+                last_save = time.time()
+            perf.update(samples=n, seconds=bt.seconds, width=width,
+                        height=height, ray_count=float(state.ray_count),
+                        shadow_ray_count=float(state.shadow_ray_count))
+            now = time.time()
+            if now - last_report >= progress_interval or done >= spp_total:
+                log.debug(f"{done}/{spp_total} spp — {perf.summary()}")
+                last_report = now
         img = state.present().cpu().numpy()  # waits for the device
         total = time.time() - start
+        self.last_stats = perf
+        if checkpoint_path:
+            state.save(checkpoint_path, digest=digest)
         return HeadlessRenderOutput(
             linear_rgb=img, width=width, height=height, samples=done,
             total_seconds=total,
@@ -85,3 +167,18 @@ class CudaBackend:
             sample_count=state.sample_count.cpu().numpy(),
             ray_count=state.ray_count,
             shadow_ray_count=state.shadow_ray_count)
+
+
+def make_backend(name: str = "cuda") -> CudaBackend:
+    """``cuda`` (the card; raises without one) or ``cpu`` (torch on the
+    CPU: every kernel's plain version). No fallback from one to the
+    other."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend 'cuda': no CUDA device is available "
+                               "(use --backend cpu for the plain versions "
+                               "on the CPU)")
+        return CudaBackend("cuda")
+    if name == "cpu":
+        return CudaBackend("cpu")
+    raise ValueError(f"unknown backend: {name} (choose cuda | cpu)")

@@ -155,6 +155,20 @@ class BvhSoA:
     def node_count(self) -> int:
         return self.prim_offset.shape[0]
 
+    def left_sibling(self) -> torch.Tensor:
+        """(N,) i32: for a right child, its left sibling (an interior node
+        P has children P + 1 and ``exit_index[P + 1]``); -1 elsewhere. Made
+        on first use and kept on this immutable object (K1's counting
+        mode reads it)."""
+        cached = self.__dict__.get("_left_sibling")
+        if cached is None:
+            interior = torch.nonzero(self.prim_count == 0).squeeze(1)
+            left = interior + 1
+            cached = torch.full_like(self.prim_count, -1)
+            cached[self.exit_index[left].long()] = left.to(torch.int32)
+            self.__dict__["_left_sibling"] = cached
+        return cached
+
 
 @dataclasses.dataclass(frozen=True)
 class TrianglesSoA:

@@ -479,3 +479,95 @@ def test_zoo_s1_emod_vs_plain_on_card(dev):
                                        rectpdf=rectpdf, emod=emod)
     _assert_carry_equal(ck, cp)
     assert torch.equal(trans.view(torch.int32), trans_p.view(torch.int32))
+
+
+def test_trace_stats_vs_counter_free_and_plain_on_card(dev, lambert):
+    """K1's counting instantiation on 4096 probes of a 5,120-triangle
+    soup: t, tri, u, v and the occlusion flags bit-equal to the
+    counter-free kernels, the four totals equal to the plain walk's."""
+    _, _, scene = lambert
+    o, d, tmax = _rays(scene, dev)
+    none = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    args = (o, d, C.EPSILON_T, tmax, scene.tri_bvh, scene.triangles)
+    before = (traverse.trace_closest_stats.launches,
+              traverse.trace_any_stats.launches)
+    *got, totals = traverse.trace_closest_stats(*args)
+    occ, totals_any = traverse.trace_any_stats(*args)
+    assert (traverse.trace_closest_stats.launches,
+            traverse.trace_any_stats.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    for a, b in zip(got, traverse.trace_closest(*args)):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, traverse.trace_any(*args))
+    walk, walk_any = {}, {}
+    traverse.trace_closest_reference(*args, none, none, walk=walk)
+    traverse.trace_any_reference(*args, walk=walk_any)
+    assert torch.equal(totals, traverse.walk_totals(walk, dev))
+    assert torch.equal(totals_any, traverse.walk_totals(walk_any, dev))
+    assert (totals > 0).all()
+
+
+@pytest.mark.parametrize("which", ["materials", "headline"])
+def test_specular_only_kernels_vs_plain_on_card(dev, which):
+    """``debugSpecularOnly`` through K2 (materials.scene: stage full,
+    extended; the textured headline at subdivision 3: texture stage and
+    s1/s2) against the plain path at 48x32, 2 spp: the same image and
+    trace counts."""
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    if which == "materials":
+        settings, res = B.build_materials_scene()
+        env = None
+    else:
+        settings, res, env = build_bench_scene(3, dev)
+        settings.maxDepth = 5
+    settings.debugSpecularOnly = True
+    scene = res.build_arrays(environment=env, device=dev)
+    w, h = 48, 32
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                             static, 2)
+    saved = (shade.trace_closest, traverse.trace_any, shade.shade_full,
+             shade.shade_s1, shade.shade_s2, shade.texture_stage)
+
+    def plain_trace(o, d, t_min, t_max, bvh, tris, em, ep):
+        return traverse.trace_closest_reference(o, d, float(t_min), t_max,
+                                                bvh, tris, em.int(), ep.int())
+
+    shade.trace_closest = plain_trace
+    traverse.trace_any = lambda o, d, t_min, t_max, bvh, tris: \
+        traverse.trace_any_reference(o, d, float(t_min), t_max, bvh, tris)
+    shade.shade_full = shade.shade_full_reference
+    shade.shade_s1, shade.shade_s2 = (shade.shade_s1_reference,
+                                      shade.shade_s2_reference)
+    shade.texture_stage = texture.texture_stage_reference
+    try:
+        p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 2)
+    finally:
+        (shade.trace_closest, traverse.trace_any, shade.shade_full,
+         shade.shade_s1, shade.shade_s2, shade.texture_stage) = saved
+    assert (k.ray_count, k.shadow_ray_count) == (p.ray_count,
+                                                 p.shadow_ray_count)
+    assert torch.equal(k.present(), p.present())
+
+
+def test_cli_checkpoint_resume_on_card(dev, tmp_path):
+    """The CLI on the card: the smoke scene at 64x64, 2 spp checkpointed
+    then resumed to 4, equal byte for byte to the straight 4 spp EXR."""
+    from metal_pathtracer_tpu_torch import cli
+
+    base = ["--scene", "tests/scenes/smoke.scene", "--width", "64",
+            "--height", "64"]
+    straight, resumed = str(tmp_path / "a.exr"), str(tmp_path / "b.exr")
+    ckpt = str(tmp_path / "state.npz")
+    assert cli.main([*base, "--sppTotal", "4", "--output", straight]) == 0
+    assert cli.main([*base, "--sppTotal", "2", "--checkpoint", ckpt,
+                     "--output", str(tmp_path / "half.exr")]) == 0
+    assert cli.main([*base, "--sppTotal", "4", "--checkpoint", ckpt,
+                     "--output", resumed]) == 0
+    assert open(straight, "rb").read() == open(resumed, "rb").read()

@@ -15,7 +15,7 @@ same inputs made from a numpy seed:
   box, and the sample and the chain's hit again with ``emitEnv=1`` on the
   lamp under an environment map, where the lamp's emission is scaled by
   the environment seen along its reversed normal;
-- what the port still refuses: MNEE (ROADMAP step 8) and instances (step
+- what the port still refuses: MNEE (ROADMAP Queue 1) and instances (step
   14); environment-modulated lights and the plastic, subsurface and
   carpaint materials pass.
 """
@@ -421,7 +421,7 @@ def test_emission_env_light_matches_jax(cornell):
 def test_unported_light_paths_raise(cornell):
     """Env-modulated lights under an environment map (step 12) and the
     plastic, subsurface and carpaint materials (step 13) are ported and
-    pass; MNEE (step 8) and instances (step 14) raise with their ROADMAP
+    pass; MNEE and instances (step 14) raise with their ROADMAP
     step; the Cornell box and an env-lit scene with plain rect lights
     pass."""
     ps, pr = RenderSettings(), SceneResources()
@@ -430,7 +430,7 @@ def test_unported_light_paths_raise(cornell):
     scene = cornell["pscene"]
     integrator.check_supported(scene, settings_to_static(ps, 8, 8, types))
     ps.enableMnee = True
-    with pytest.raises(NotImplementedError, match="step 8"):
+    with pytest.raises(NotImplementedError, match="MNEE"):
         integrator.check_supported(scene, settings_to_static(ps, 8, 8, types))
     ps.enableMnee = False
     integrator.check_supported(scene, settings_to_static(

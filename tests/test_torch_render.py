@@ -137,8 +137,10 @@ def test_port_renders_without_jax():
     """The port imports and renders 16x16 on the CPU, the lambert series,
     the environment-NEE headline, the Cornell box (spheres, rectangles,
     rect-light NEE) and ``materials.scene`` (plastic, carpaint, separable
-    SSS) with its random-walk variant under an environment, without
-    loading jax, flax or any module of the JAX package."""
+    SSS) with its random-walk variant under an environment, renders the
+    smoke scene through the CLI and profiles a wavefront with
+    ``traversal_profile``, without loading jax, flax or any module of the
+    JAX package."""
     proc = _run("""
         import sys
         import numpy as np
@@ -191,6 +193,22 @@ def test_port_renders_without_jax():
                                    environment=env)
         assert np.isfinite(out.linear_rgb).all()
         assert out.shadow_ray_count > 0
+        import os, tempfile
+        from metal_pathtracer_tpu_torch import cli
+        from metal_pathtracer_tpu_torch.utils.stats import traversal_profile
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "smoke.ppm")
+            assert cli.main(["--scene", "tests/scenes/smoke.scene", "--width",
+                             "16", "--height", "16", "--sppTotal", "1",
+                             "--format", "ppm", "--backend", "cpu",
+                             "--output", out]) == 0
+            assert os.path.getsize(out) == 13 + 16 * 16 * 3
+        scene = build_lambert_series(1)[1].build_arrays(device="cpu")
+        o = torch.zeros((64, 3))
+        o[:, 2] = 4.0
+        d = torch.nn.functional.normalize(torch.randn(64, 3) * 0.3 - o, dim=1)
+        prof = traversal_profile(o, d, scene.tri_bvh, scene.triangles)
+        assert prof["rays"] == 64 and prof["nodes_per_ray"] >= 1
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                       "metal_pathtracer_tpu")]

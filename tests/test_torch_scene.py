@@ -193,12 +193,12 @@ def test_unported_features_raise():
     integrator.check_supported(
         scene, settings_to_static(s, 8, 8, [C.MATERIAL_PLASTIC]))
     s.enableMnee = True
-    with pytest.raises(NotImplementedError, match="step 8"):
+    with pytest.raises(NotImplementedError, match="MNEE"):
         integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
     s.enableMnee = False
+    # debugSpecularOnly (ported: a K2 flag) passes
     s.debugSpecularOnly = True
-    with pytest.raises(NotImplementedError, match="step 16"):
-        integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
+    integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
     s.debugSpecularOnly = False
     integrator.check_supported(scene, settings_to_static(
         s, 8, 8, [0, C.MATERIAL_METAL, C.MATERIAL_DIELECTRIC,
