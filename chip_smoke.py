@@ -23,7 +23,11 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    render, every kernel timed at the first-depth wavefront against its
    plain version with its bound, the texture kernel also on a scene that
    binds all six texture slots, and the refdefault cell (the same scene
-   at 1280x720, maxDepth 20);
+   at 1280x720, maxDepth 20); K1 closest-hit and any-hit also on the
+   depth-1 wavefronts (secondary rays and their shadow rays, kept from
+   one sample of the frame loop by ``frame_loop_k1``, which also counts
+   the live lanes of every K1 launch) bit for bit against the plain walks
+   and timed, each with its live lanes and its bound beside the old one;
 4. the analytic primitives (the sphere kernels K3a and K3b, the rectangle
    kernel K3c, K2 ``full`` and ``s1``/``s2`` with rect-light NEE, metal and
    diffuse lights): each K3 kernel against its plain version bit for bit
@@ -138,13 +142,21 @@ TRI_ROW_BYTES = 24 * 4
 # the texture stage's float operations per textured lane, and per bound
 # slot (transform, LOD, two bilinear levels)
 TEX_OPS, TEX_SLOT_OPS = 400, 120
-# K1: a lane's ray in (origin, direction, t_max, exclusion ids) and hit
-# out (t, tri, u, v); a node is 24 B of bounds and three ints; a triangle
-# slot is its index and three vertices; ~24 flops per node visit and ~45
-# per triangle test
+# K1: a live lane's ray in (origin, direction, t_max, exclusion ids) and
+# hit out (t, tri, u, v), a dead lane's t_max in and hit out. What the
+# walk needs of a touched node: 24 B of bounds, its exit link and its leaf
+# range; of a touched triangle slot: three vertices, and for closest-hit
+# also the triangle and mesh ids (the exclusion test and the returned
+# tri), whatever the layout holds (the packed node is 32 B, the slot
+# record 48 B with 4 B of padding). The bound before the packed layout
+# charged 36 B a node and 40 B a slot (an index and three vertices) to
+# both kernels; it is printed beside, as "old layout". ~24 flops per node
+# visit and ~45 per triangle test
 K1_LANE_BYTES = 36 + 16
-K1_NODE_BYTES = 36
-K1_SLOT_BYTES = 4 + 36
+K1_DEAD_BYTES = 4 + 16
+K1_NODE_BYTES = 32
+K1_CLOSEST_SLOT_BYTES, K1_ANY_SLOT_BYTES = 36 + 8, 36
+K1_OLD_NODE_BYTES, K1_OLD_SLOT_BYTES = 36, 4 + 36
 K1_NODE_OPS, K1_TRI_OPS = 24, 45
 # the analytic-primitive cells: samples of the 160x96 checks and of the
 # timed full-size renders, and rtow's layout seed
@@ -234,14 +246,32 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_bound(walk, lane_bytes):
+def k1_bound(walk, lane_bytes, node_bytes, slot_bytes):
     """K1's bound: the lanes' own bytes, plus every node and triangle slot
-    the walk touched read once."""
+    the walk touched read once, at ``node_bytes`` and ``slot_bytes``."""
     return bound_ms(lane_bytes
-                    + int(walk["nodes"].sum()) * K1_NODE_BYTES
-                    + int(walk["slots"].sum()) * K1_SLOT_BYTES,
+                    + int(walk["nodes"].sum()) * node_bytes
+                    + int(walk["slots"].sum()) * slot_bytes,
                     walk["node_visits"] * K1_NODE_OPS
                     + walk["tri_tests"] * K1_TRI_OPS)
+
+
+def k1_bounds(walk, lane_bytes, slot_bytes):
+    """``k1_bound`` at the bytes the walk needs (``slot_bytes``: the
+    closest-hit or the any-hit figure) and at the old 36 / 40 B charge:
+    (ms, by, old ms)."""
+    new, by = k1_bound(walk, lane_bytes, K1_NODE_BYTES, slot_bytes)
+    old, _ = k1_bound(walk, lane_bytes, K1_OLD_NODE_BYTES, K1_OLD_SLOT_BYTES)
+    return new, by, old
+
+
+def closest_lane_bytes(n, n_live):
+    return n_live * K1_LANE_BYTES + (n - n_live) * K1_DEAD_BYTES
+
+
+def any_lane_bytes(n, n_live):
+    """any-hit: every lane's window in and flag out, a live lane's ray"""
+    return n * (4 + 1) + n_live * 24
 
 
 def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False,
@@ -679,10 +709,14 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
 
     # ---- the headline at full size -------------------------------------
     settings, res, scene, setup_s = build(HEADLINE_SUBDIVISIONS)
+    nodes = scene.tri_bvh.packed_nodes()
+    recs = scene.tri_bvh.slot_records(scene.triangles)
     print(f"# {name} scene: {scene.triangles.count} triangles, "
           f"{scene.tri_bvh.node_count} BVH nodes, "
           f"{scene.environment.width}x{scene.environment.height} sky, "
-          f"set-up {setup_s:.1f}s")
+          f"set-up {setup_s:.1f}s; K1's layout: {nodes.shape[0]} packed "
+          f"nodes, {nodes.numel() * 4} B, and {recs.shape[0]} slot records, "
+          f"{recs.numel() * 4} B")
     if not textured:
         o, d, tmax = (torch.from_numpy(x).to(dev) for x in probes(scene))
         occ = T.trace_any(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
@@ -741,7 +775,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     walk = {}
     k1_err = max(k1_probe_err, compare_trace(
         hit, T.trace_closest_reference(*k1_args, walk=walk)))
-    k1_b, k1_by = k1_bound(walk, n * K1_LANE_BYTES)
+    k1_b, k1_by, k1_old = k1_bounds(walk, closest_lane_bytes(n, n),
+                                     K1_CLOSEST_SLOT_BYTES)
 
     tex = None
     if textured:
@@ -811,7 +846,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     # per lane: the window read and the flag written; shadow lanes also
     # read their ray; plus the nodes and triangles the walks touched up to
     # each lane's first hit
-    any_bound, any_by = k1_bound(walk_any, n * (4 + 1) + n_sh * 24)
+    any_bound, any_by, any_old = k1_bounds(walk_any, any_lane_bytes(n, n_sh),
+                                           K1_ANY_SLOT_BYTES)
     esmp = torch.cat([e_dir, e_rad, e_pdf[:, None],
                       e_valid[:, None].to(torch.float32),
                       occ[:, None].to(torch.float32)], 1)
@@ -850,11 +886,12 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     print(f"{name} first depth ({n} lanes, {n_hit} hits, {n_sh} shadow "
           f"rays; kernel ms on the device, then around the wrapper): K1 "
           f"{k1_ms:.3f} / {k1_win:.3f} ms (plain {k1_plain_ms:.1f} ms, bound "
-          f"{k1_b:.4f} ms by {k1_by}, {int(walk['nodes'].sum())} nodes "
+          f"{k1_b:.4f} ms by {k1_by}, old layout {k1_old:.4f}, "
+          f"{int(walk['nodes'].sum())} nodes "
           f"and {int(walk['slots'].sum())} triangles touched); {tex_line}"
           f"K1 any-hit {any_ms:.3f} / {any_win:.3f} ms (plain "
           f"{any_plain_ms:.1f} ms, bound "
-          f"{any_bound:.4f} ms by {any_by}, "
+          f"{any_bound:.4f} ms by {any_by}, old layout {any_old:.4f}, "
           f"{int(walk_any['nodes'].sum())} nodes and "
           f"{int(walk_any['slots'].sum())} triangles touched); K2 s1 "
           f"{s1_ms:.3f} / {s1_win:.3f} ms (plain {s1_plain_ms:.1f} ms, bound "
@@ -866,6 +903,9 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     if not textured:
         return
 
+    # ---- K1 past the first depth: live lanes per launch, depth 1 --------
+    depth1_err = k1_depth1(scene, uni, static, dev, card)
+
     # ---- the texture kernel on the all-six-slots scene ------------------
     six_settings, six_res = benchscene.build_six_slot_scene()
     six_scene = six_res.build_arrays(device=dev)
@@ -876,7 +916,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     out["trace_closest"] = dict(
         source=ROOT + "traverse.cu",
         replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:60",
-        launches=launches["trace_closest"], max_abs_err=k1_err, ms=k1_ms,
+        launches=launches["trace_closest"],
+        max_abs_err=max(k1_err, depth1_err), ms=k1_ms,
         plain_ms=k1_plain_ms, bound_ms=k1_b, bound_by=k1_by)
     out["trace_any"] = dict(
         source=ROOT + "traverse.cu",
@@ -904,6 +945,101 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
         max_abs_err=max(nee_err, tex_err, six_err), ms=tex_ms,
         plain_ms=tex_plain_ms, bound_ms=tex_b, bound_by=tex_by)
     return settings, res, scene
+
+
+#: the textured headline's K1 launches that ``k1_depth1`` and
+#: ``utils/ab.py k1`` take from one sample of the frame loop, by (wrapper,
+#: index in launch order): the closest-hit launch of each depth, and the
+#: environment bank's shadow rays of each depth (any-hit launches by depth:
+#: that bank, then the spec-NEE chain's)
+K1_WAVES = {"closest depth 0": ("closest", 0),
+            "shadow depth 0": ("any", 0),
+            "closest depth 1": ("closest", 1),
+            "shadow depth 1": ("any", 2)}
+
+
+def frame_loop_k1(scene, uni, static, dev, keep=()):
+    """One sample of the frame loop with K1's wrappers spied on. Returns
+    the live lanes (t_max >= t_min) of every launch in launch order,
+    {"closest": [...], "any": [...]}, and the inputs of the launches that
+    ``keep`` names as (wrapper, index) pairs, cloned as the wrappers take
+    them: {(wrapper, index): args}. A host sync per launch, so it runs
+    apart from the timed renders."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    seen, kept = {"closest": [], "any": []}, {}
+
+    def spy(fn, key):
+        def traced(o, d, t_min, t_max, bvh, tris, *ex, **kw):
+            n = o.shape[0]
+            tm = torch.broadcast_to(torch.as_tensor(
+                t_max, dtype=torch.float32, device=o.device), (n,))
+            if (key, len(seen[key])) in keep:
+                kept[key, len(seen[key])] = (
+                    o.clone(), d.clone(), t_min, tm.clone(), bvh, tris,
+                    *(T._as_i32(x, n, o.device).clone() for x in ex))
+            seen[key].append(int((tm >= t_min).sum()))
+            return fn(o, d, t_min, t_max, bvh, tris, *ex, **kw)
+        # the wrappers count their launches on the name they are called
+        # by, here the spy's
+        traced.launches = 0
+        return traced
+
+    closest = spy(T.trace_closest, "closest")
+    with mock.patch.object(S, "trace_closest", closest), \
+            mock.patch.object(T, "trace_closest", closest), \
+            mock.patch.object(T, "trace_any", spy(T.trace_any, "any")):
+        frame.render_samples(scene, uni, RenderState.create(
+            static.width, static.height, dev), static, 1)
+    return seen, kept
+
+
+def k1_depth1(scene, uni, static, dev, card):
+    """K1 past the first depth on the textured headline: the live lanes of
+    every K1 launch of one sample of the frame loop, and closest-hit and
+    any-hit on that sample's depth-1 wavefronts (secondary rays and the
+    environment bank's shadow rays), bit-equal to the plain walks,
+    device-timed, each with its live lanes and its bound beside the old
+    one. Returns the largest |t| difference (0: equal bits)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+
+    live, waves = frame_loop_k1(scene, uni, static, dev, keep=(
+        K1_WAVES["closest depth 1"], K1_WAVES["shadow depth 1"]))
+    print(f"K1 live lanes per launch over one {static.width}x"
+          f"{static.height} sample of the frame loop (closest: one per "
+          f"depth; any-hit: the environment and the spec-NEE shadow rays "
+          f"per depth): closest {live['closest']}, any-hit {live['any']} "
+          f"[{card}]")
+    args = waves[K1_WAVES["closest depth 1"]]
+    sh_args = waves[K1_WAVES["shadow depth 1"]]
+    n = args[0].shape[0]
+    n_live = int((args[3] >= args[2]).sum())
+    n_sh = int((sh_args[3] >= sh_args[2]).sum())
+    walk, walk_any = {}, {}
+    err = compare_trace(T.trace_closest(*args),
+                        T.trace_closest_reference(*args, walk=walk))
+    occ = T.trace_any(*sh_args)
+    compare_flags(occ, T.trace_any_reference(*sh_args, walk=walk_any),
+                  "K1 any-hit depth-1 shadow wavefront")
+    ms = kernel_ms(lambda: lambda: T.trace_closest(*args), 5)
+    any_ms = kernel_ms(lambda: lambda: T.trace_any(*sh_args), 5)
+    b, by, b_old = k1_bounds(walk, closest_lane_bytes(n, n_live),
+                             K1_CLOSEST_SLOT_BYTES)
+    ab, aby, ab_old = k1_bounds(walk_any, any_lane_bytes(n, n_sh),
+                                K1_ANY_SLOT_BYTES)
+    print(f"K1 depth 1 ({n} lanes; device ms, bit-equal to the plain walks): "
+          f"closest {ms:.4f} ms on {n_live} live lanes ({walk['node_visits']} "
+          f"slab and {walk['tri_tests']} triangle tests; bound {b:.4f} ms by "
+          f"{by}, old layout {b_old:.4f}; {int(walk['nodes'].sum())} nodes "
+          f"and {int(walk['slots'].sum())} triangles touched); any-hit "
+          f"{any_ms:.4f} ms on {n_sh} live lanes ({walk_any['node_visits']} "
+          f"slab and {walk_any['tri_tests']} triangle tests; {int(occ.sum())} "
+          f"occluded; bound {ab:.4f} ms by {aby}, old layout {ab_old:.4f}) "
+          f"[{card}]")
+    return err
 
 
 def compare_nearest(got, ref, label, count_ties=False):
@@ -1614,14 +1750,10 @@ def materials_path(dev, card, kernels, out):
           f"{time.time() - t3:.1f}s")
 
 
-def k1_stats_bound(walk, lane_bytes):
+def k1_stats_bound(walk, lane_bytes, slot_bytes):
     """The counting kernel's bound: K1's, plus one left-sibling int per
     touched node and the four int64 totals written once."""
-    return bound_ms(lane_bytes + 32
-                    + int(walk["nodes"].sum()) * (K1_NODE_BYTES + 4)
-                    + int(walk["slots"].sum()) * K1_SLOT_BYTES,
-                    walk["node_visits"] * K1_NODE_OPS
-                    + walk["tri_tests"] * K1_TRI_OPS)
+    return k1_bound(walk, lane_bytes + 32, K1_NODE_BYTES + 4, slot_bytes)
 
 
 def probe_rows_equal(a, b, label):
@@ -1808,9 +1940,11 @@ def headless_path(dev, card, kernels, out, headline):
     st_ms, st_win = timed(lambda: lambda: T.trace_closest_stats(*k1_args), 5)
     any_ms = kernel_ms(lambda: lambda: T.trace_any(*sh_args), 5)
     sa_ms, sa_win = timed(lambda: lambda: T.trace_any_stats(*sh_args), 5)
-    st_b, st_by = k1_stats_bound(walk, n * K1_LANE_BYTES)
+    st_b, st_by = k1_stats_bound(walk, closest_lane_bytes(n, n),
+                                  K1_CLOSEST_SLOT_BYTES)
     n_sh = int(do_sh.sum())
-    sa_b, sa_by = k1_stats_bound(walk_any, n * (4 + 1) + n_sh * 24)
+    sa_b, sa_by = k1_stats_bound(walk_any, any_lane_bytes(n, n_sh),
+                                  K1_ANY_SLOT_BYTES)
     per_ray = lambda t: ", ".join(
         f"{k} {v / n:.3f}/ray" for k, v in zip(T.STATS_KEYS, t.tolist()))
     print(f"K1 stats, textured headline first depth ({n} rays, {n_sh} "

@@ -1,33 +1,58 @@
-// K1: closest-hit and any-hit triangle traces, one thread per ray.
+// K1: closest-hit and any-hit triangle traces of a ray wavefront.
 //
 // Replaces the TPU packet-traversal kernel ops/pallas/traverse.py
 // (_kernel:60 / _packet_body:106, launched by _call:596 from
 // packet_trace:659), in closest-hit mode and in its any_hit=True mode
-// (traverse.py:280-296: shadow rays). trace_any_kernel makes the same
-// exit-link walk with the window fixed at tmax and returns at the first
-// triangle that passes the test, so its occlusion flag equals the
-// closest-hit walk's hit flag bit for bit: both visit the same nodes until
-// the first valid triangle, with the same arithmetic. The TPU kernel walks 1024-ray packets through a
-// chunked tree with a shared scalar stack and SMEM-resident nodes,
-// because its vector unit only pays off when a whole packet moves
-// together. A GPU thread can walk its own ray, so this kernel walks the
+// (traverse.py:280-296: shadow rays). The TPU kernel walks 1024-ray packets
+// through a chunked tree with a shared scalar stack and SMEM-resident
+// nodes, because its vector unit only pays off when a whole packet moves
+// together. A GPU thread walks its own ray: this kernel walks the
 // exit-link BVH (scene/meshbuild.py _flatten_with_exit_links) stacklessly
 // -- node = hit ? (leaf ? exit : node + 1) : exit -- exactly as the
 // reference loop ops/traversal.py trace_triangles:66-171 does, and so
 // returns the same bits as its plain version (ops/kernels/traverse.py):
-// strict '<' across leaves in depth-first order, the first minimal slot
-// within a leaf, the inverse-direction clamp, the 1e-8 determinant test
-// and the (mesh, prim) self-hit exclusion.
+// the same depth-first order, the same slab tests each decided against
+// the same running best t, strict '<' across leaves, the first minimal
+// slot within a leaf, the inverse-direction clamp, the 1e-8 determinant
+// test and the (mesh, prim) self-hit exclusion. trace_any_kernel makes the
+// same walk with the window fixed at tmax and returns at the first
+// triangle that passes the test, so its occlusion flag equals the
+// closest-hit walk's hit flag bit for bit.
 //
-// What bounds it on an H100: latency of dependent global loads. Each step
-// reads one node (24 B of bounds plus three ints) whose address depends
-// on the previous step, and each leaf gathers up to four triangles
-// (36 B each) from a 16-to-70 MB soup; neighbouring threads diverge after
-// a few bounces. The design keeps every ray in registers and reads nodes
-// and triangles through the read-only cache (__ldg); the exit-link order
-// needs no per-thread stack. Near-first child order, a wide BVH and
-// sorting rays by direction are left for later work: each changes which
-// of two equal-t triangles wins, which needs its own parity argument.
+// What bounds it on an H100. The byte bound (each touched node and
+// triangle read once, every ray in and out once) is 2-3 % of the time: on
+// the textured headline's first depth a primary ray makes ~57 slab tests
+// and ~8 triangle tests, each one read whose address depends on the step
+// before. So the walk pays per memory transaction, not per byte: the
+// earlier layout read a node as six scalar bounds at a 12-byte stride plus
+// its count and exit link (four 32-byte sectors a step) and a triangle
+// through prim_indices, mesh_index and nine scalar vertex loads (five to
+// eight sectors), ~271 sectors a primary ray. This layout
+// (BvhSoA.packed_nodes, BvhSoA.slot_records) makes one slab test one
+// sector, two 16-byte loads: {bmin.xyz, exit}, {bmax.xyz, offset << 3 |
+// count}; and a triangle test one 48-byte record in leaf order, {v0, tid},
+// {e1, mesh}, {e2, 0}, two sectors, consecutive for the slots of a leaf:
+// ~74 sectors a primary ray. e1 = v1 - v0 and e2 = v2 - v0 are rounded
+// once at build time, the same bits the walk computed from the vertices.
+//
+// Scheduling. live_lanes_kernel lists the lanes whose window is not empty
+// (tmax >= t_min), one atomic per block over a block-local scan of warp
+// ballots, and writes the dead lanes' outputs itself. The walk kernels
+// then run as persistent blocks (as many as fit on the SMs): each warp
+// takes the next 32 listed lanes from a device counter until the list is
+// spent, so warps hold live rays only, a warp that finishes early takes
+// more, and the host never waits for the count. The list keeps lane order
+// within a warp batch, so neighbouring pixels still walk together; every
+// lane's output lands at its own index, unchanged. __launch_bounds__
+// (128, 8) keeps the counter-free walks at <= 64 registers, 32 warps an
+// SM; the counting walks keep a bound of their own (6 blocks).
+//
+// Not applicable: wgmma and TMA need dense tiles; here every address
+// depends on the previous step and no two lanes share a tile. Left for
+// later, each with its own parity argument: near-first child order and
+// child-pair (or 4-/8-wide) nodes change the set of slab tests and which of
+// two equal-t triangles in different leaves wins; ray reordering between
+// depths changes nothing per lane but needs the sort.
 //
 // Counting mode (template flag STATS) replaces the TPU kernel's
 // return_stats mode (traverse.py packet_trace_unsorted(...,
@@ -36,36 +61,35 @@
 // the packet walk's leaf chunks tested), the interior nodes both of whose
 // children's boxes passed (counted at the right child: its left sibling
 // passed unless the walk came to it straight from that sibling's failed
-// test) and the triangle tests; the counts are summed per block in shared
-// memory and added with one atomic per block and counter into an int64
-// vector of 4. Counting reads one more int per visited node (its left
-// sibling, BvhSoA.left_sibling) and writes 32 bytes per launch; it
-// changes no t, tri, u, v or occlusion bit. STATS=false is the kernel
-// without any of it.
+// test) and the triangle tests; each thread sums its rays' counts, the
+// block sums its threads' in shared memory and adds them with one atomic
+// per block and counter into an int64 vector of 4. Counting reads one
+// more int per visited node (its left sibling, BvhSoA.left_sibling) and
+// writes 32 bytes per launch; it changes no t, tri, u, v or occlusion bit.
+// STATS=false is the kernel without any of it.
 #include "common.cuh"
 
 #define MAX_LEAF 4
 #define INFINITY_T 1.0e20f
+#define BLOCK 128
+#define LIST_BLOCK 1024
 
 namespace {
 
-// Moller-Trumbore (reference: intersect_triangle_parametric) against
-// triangle `tid`; the window test is the caller's.
+// Moller-Trumbore (reference: intersect_triangle_parametric) against the
+// record of slot `slot`; the window test is the caller's.
 struct TriHit {
   float t, u, v;
+  int tid, mesh;
   bool ok;  // determinant and barycentric tests passed
 };
-__device__ __forceinline__ TriHit intersect_tri(
-    V3 o, V3 d, int tid, const float* __restrict__ tv0,
-    const float* __restrict__ tv1, const float* __restrict__ tv2) {
-  V3 v0 = v3(__ldg(tv0 + 3 * tid), __ldg(tv0 + 3 * tid + 1),
-             __ldg(tv0 + 3 * tid + 2));
-  V3 v1 = v3(__ldg(tv1 + 3 * tid), __ldg(tv1 + 3 * tid + 1),
-             __ldg(tv1 + 3 * tid + 2));
-  V3 v2 = v3(__ldg(tv2 + 3 * tid), __ldg(tv2 + 3 * tid + 1),
-             __ldg(tv2 + 3 * tid + 2));
-  V3 edge1 = v1 - v0;
-  V3 edge2 = v2 - v0;
+__device__ __forceinline__ TriHit intersect_slot(
+    V3 o, V3 d, const float4* __restrict__ recs, int slot) {
+  const float4* r = recs + 3 * slot;
+  float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
+  V3 v0 = v3(a.x, a.y, a.z);
+  V3 edge1 = v3(b.x, b.y, b.z);
+  V3 edge2 = v3(c.x, c.y, c.z);
   V3 pvec = cross3(d, edge2);
   float det = dot3(edge1, pvec);
   float inv_det = 1.0f / (fabsf(det) < 1e-8f ? 1.0f : det);
@@ -77,23 +101,26 @@ __device__ __forceinline__ TriHit intersect_tri(
   h.t = dot3(edge2, qvec) * inv_det;
   h.ok = fabsf(det) >= 1e-8f && h.u >= 0.0f && h.u <= 1.0f && h.v >= 0.0f &&
          h.u + h.v <= 1.0f;
+  h.tid = __float_as_int(a.w);
+  h.mesh = __float_as_int(b.w);
   return h;
 }
 
-// The slab test of node `node` against [t_min, min(tfar, t_best)].
-__device__ __forceinline__ bool box_hit(const float* __restrict__ bmin,
-                                        const float* __restrict__ bmax,
-                                        int node, const float* oo,
+// The slab test of a node ({bmin, exit}, {bmax, meta}) against
+// [t_min, min(tfar, t_best)].
+__device__ __forceinline__ bool box_hit(float4 lo, float4 hi, const float* oo,
                                         const float* inv, float t_min,
                                         float t_best) {
+  const float bmin[3] = {lo.x, lo.y, lo.z};
+  const float bmax[3] = {hi.x, hi.y, hi.z};
   float tnear = 0.0f, tfar = 0.0f;
   for (int a = 0; a < 3; ++a) {
-    float t0 = (__ldg(bmin + 3 * node + a) - oo[a]) * inv[a];
-    float t1 = (__ldg(bmax + 3 * node + a) - oo[a]) * inv[a];
-    float lo = cmin(minn(t0, t1), t_min);
-    float hi = maxn(t0, t1);
-    tnear = a == 0 ? lo : maxn(tnear, lo);
-    tfar = a == 0 ? hi : minn(tfar, hi);
+    float t0 = (bmin[a] - oo[a]) * inv[a];
+    float t1 = (bmax[a] - oo[a]) * inv[a];
+    float lo_a = cmin(minn(t0, t1), t_min);
+    float hi_a = maxn(t0, t1);
+    tnear = a == 0 ? lo_a : maxn(tnear, lo_a);
+    tfar = a == 0 ? hi_a : minn(tfar, hi_a);
   }
   return minn(tfar, t_best) >= tnear;
 }
@@ -107,7 +134,7 @@ __device__ __forceinline__ void inverse_dir(V3 d, float* inv) {
   }
 }
 
-// the four counters of one ray (counting mode)
+// the four counters of one thread's rays (counting mode)
 struct Counts {
   unsigned int nodes, leaves, both, tris;
 };
@@ -142,77 +169,132 @@ __device__ __forceinline__ void add_counts(const Counts& c,
   if (threadIdx.x < 4) atomicAdd(out + threadIdx.x, sums[threadIdx.x]);
 }
 
+// The live-lane list: lanes with tmax >= t_min (NaN and empty windows are
+// dead), appended in warp order at list[0..counters[0]) with one atomic
+// per block; a dead lane gets its output here: (tmax, -1, 0, 0) for the
+// closest-hit walk (out_t non-null), false for the any-hit walk.
+__global__ void __launch_bounds__(LIST_BLOCK) live_lanes_kernel(
+    int n, const float* __restrict__ tmax, float t_min,
+    int* __restrict__ counters, int* __restrict__ list,
+    float* __restrict__ out_t, int* __restrict__ out_tri,
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    bool* __restrict__ out_occluded) {
+  __shared__ int warp_base[LIST_BLOCK / 32];
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float tm = i < n ? tmax[i] : 0.0f;
+  bool live = i < n && tm >= t_min;
+  unsigned mask = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) warp_base[warp] = __popc(mask);
+  __syncthreads();
+  if (warp == 0) {
+    int own = lane < (int)(blockDim.x >> 5) ? warp_base[lane] : 0;
+    int incl = own;
+    for (int off = 1; off < 32; off <<= 1) {
+      int up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    int total = __shfl_sync(0xffffffffu, incl, 31);
+    int base = 0;
+    if (lane == 0 && total > 0) base = atomicAdd(counters, total);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (lane < (int)(blockDim.x >> 5)) warp_base[lane] = base + incl - own;
+  }
+  __syncthreads();
+  if (live) {
+    list[warp_base[warp] + __popc(mask & ((1u << lane) - 1u))] = i;
+  } else if (i < n) {
+    if (out_t != nullptr) {
+      out_t[i] = tm;
+      out_tri[i] = -1;
+      out_u[i] = 0.0f;
+      out_v[i] = 0.0f;
+    } else {
+      out_occluded[i] = false;
+    }
+  }
+}
+
+// the first list position of this warp's next batch of 32 (the same on
+// every lane; every lane of the warp calls it)
+__device__ __forceinline__ int next_batch(int* fetch) {
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(fetch, 32);
+  return __shfl_sync(0xffffffffu, base, 0);
+}
+
+// the closest-hit walk of live lane i
 template <bool STATS>
 __device__ __forceinline__ void closest_lane(
     int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax,
     const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
-    int n_nodes, const float* __restrict__ bmin, const float* __restrict__ bmax,
-    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
-    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
-    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
-    const float* __restrict__ tv2, const int* __restrict__ mesh_index,
-    float* __restrict__ out_t, int* __restrict__ out_tri,
-    float* __restrict__ out_u, float* __restrict__ out_v,
-    const int* __restrict__ left_sib, Counts* cnt) {
+    int n_nodes, const float4* __restrict__ nodes, int n_slots,
+    const float4* __restrict__ recs, float* __restrict__ out_t,
+    int* __restrict__ out_tri, float* __restrict__ out_u,
+    float* __restrict__ out_v, const int* __restrict__ left_sib,
+    Counts* cnt) {
   float best_t = tmax[i];
   int best_tri = -1;
   float best_u = 0.0f, best_v = 0.0f;
-  // an empty window (dead lanes carry tmax = 0) misses the root box
-  if (best_t >= t_min) {
-    V3 o = load3(ray_o, i);
-    V3 d = load3(ray_d, i);
-    int ex_mesh = excl_mesh[i];
-    int ex_prim = excl_prim[i];
-    float inv[3];
-    inverse_dir(d, inv);
-    float oo[3] = {o.x, o.y, o.z};
-    int node = 0;
-    int prev = -1;
-    bool prev_hit = false;
-    while (node < n_nodes) {
-      bool hit_box = box_hit(bmin, bmax, node, oo, inv, t_min, best_t);
-      int pcount = __ldg(prim_count + node);
-      if constexpr (STATS) {
-        count_node(cnt, left_sib, node, prev, prev_hit, hit_box, pcount);
-        prev = node;
-        prev_hit = hit_box;
-      }
-      if (hit_box && pcount > 0) {
-        int poff = __ldg(prim_offset + node);
-        float tm[MAX_LEAF], uu[MAX_LEAF], vv[MAX_LEAF];
-        int ids[MAX_LEAF];
-        bool any_valid = false;
-        for (int k = 0; k < MAX_LEAF; ++k) {
-          tm[k] = INFINITY_T;
-          uu[k] = vv[k] = 0.0f;
-          ids[k] = -1;
-          if (k >= pcount) continue;
+  V3 o = load3(ray_o, i);
+  V3 d = load3(ray_d, i);
+  int ex_mesh = excl_mesh[i];
+  int ex_prim = excl_prim[i];
+  float inv[3];
+  inverse_dir(d, inv);
+  float oo[3] = {o.x, o.y, o.z};
+  int node = 0;
+  int prev = -1;
+  bool prev_hit = false;
+  while (node < n_nodes) {
+    float4 lo = __ldg(nodes + 2 * node), hi = __ldg(nodes + 2 * node + 1);
+    bool hit_box = box_hit(lo, hi, oo, inv, t_min, best_t);
+    int meta = __float_as_int(hi.w);
+    int pcount = meta & 7;
+    if constexpr (STATS) {
+      count_node(cnt, left_sib, node, prev, prev_hit, hit_box, pcount);
+      prev = node;
+      prev_hit = hit_box;
+    }
+    if (hit_box && pcount > 0) {
+      int poff = meta >> 3;
+      // argmin over the leaf's MAX_LEAF candidates (INFINITY_T where a
+      // slot is past the count or fails the test), first minimum kept
+      float kt = INFINITY_T, ku = 0.0f, kv = 0.0f;
+      int kid = -1;
+      bool any_valid = false;
+      for (int k = 0; k < MAX_LEAF; ++k) {
+        float t = INFINITY_T, u = 0.0f, v = 0.0f;
+        int id = -1;
+        if (k < pcount) {
           if constexpr (STATS) cnt->tris += 1;
-          int slot = min(max(poff + k, 0), n_slots - 1);
-          int tid = __ldg(prim_indices + slot);
-          ids[k] = tid;
-          TriHit h = intersect_tri(o, d, tid, tv0, tv1, tv2);
-          bool excl = __ldg(mesh_index + tid) == ex_mesh && tid == ex_prim;
+          TriHit h = intersect_slot(o, d, recs,
+                                    min(max(poff + k, 0), n_slots - 1));
+          id = h.tid;
+          bool excl = h.mesh == ex_mesh && h.tid == ex_prim;
           if (h.ok && h.t >= t_min && h.t <= best_t && !excl) {
-            tm[k] = h.t;
-            uu[k] = h.u;
-            vv[k] = h.v;
+            t = h.t;
+            u = h.u;
+            v = h.v;
             any_valid = true;
           }
         }
-        int kb = 0;  // first minimum, as argmin
-        for (int k = 1; k < MAX_LEAF; ++k)
-          if (tm[k] < tm[kb]) kb = k;
-        if (any_valid && tm[kb] < best_t) {
-          best_t = tm[kb];
-          best_tri = ids[kb];
-          best_u = uu[kb];
-          best_v = vv[kb];
+        if (k == 0 || t < kt) {
+          kt = t;
+          ku = u;
+          kv = v;
+          kid = id;
         }
       }
-      node = (hit_box && pcount == 0) ? node + 1 : __ldg(exit_index + node);
+      if (any_valid && kt < best_t) {
+        best_t = kt;
+        best_tri = kid;
+        best_u = ku;
+        best_v = kv;
+      }
     }
+    node = (hit_box && pcount == 0) ? node + 1 : __float_as_int(lo.w);
   }
   out_t[i] = best_t;
   out_tri[i] = best_tri;
@@ -221,120 +303,154 @@ __device__ __forceinline__ void closest_lane(
 }
 
 template <bool STATS>
-__global__ void trace_closest_kernel(
-    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+__global__ void __launch_bounds__(BLOCK, STATS ? 6 : 8) trace_closest_kernel(
+    const int* __restrict__ list, int* __restrict__ counters,
+    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax,
     const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
-    int n_nodes, const float* __restrict__ bmin, const float* __restrict__ bmax,
-    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
-    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
-    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
-    const float* __restrict__ tv2, const int* __restrict__ mesh_index,
-    float* __restrict__ out_t, int* __restrict__ out_tri,
-    float* __restrict__ out_u, float* __restrict__ out_v,
-    const int* __restrict__ left_sib, unsigned long long* __restrict__ stats) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int n_nodes, const float4* __restrict__ nodes, int n_slots,
+    const float4* __restrict__ recs, float* __restrict__ out_t,
+    int* __restrict__ out_tri, float* __restrict__ out_u,
+    float* __restrict__ out_v, const int* __restrict__ left_sib,
+    unsigned long long* __restrict__ stats) {
   Counts cnt = {0u, 0u, 0u, 0u};
-  if (i < n)
-    closest_lane<STATS>(i, ray_o, ray_d, t_min, tmax, excl_mesh, excl_prim,
-                        n_nodes, bmin, bmax, prim_offset, prim_count,
-                        exit_index, prim_indices, n_slots, tv0, tv1, tv2,
-                        mesh_index, out_t, out_tri, out_u, out_v, left_sib,
-                        &cnt);
+  const int n_live = counters[0];
+  for (;;) {
+    int k = next_batch(counters + 1);
+    if (k >= n_live) break;
+    k += threadIdx.x & 31;
+    if (k < n_live)
+      closest_lane<STATS>(list[k], ray_o, ray_d, t_min, tmax, excl_mesh,
+                          excl_prim, n_nodes, nodes, n_slots, recs, out_t,
+                          out_tri, out_u, out_v, left_sib, &cnt);
+  }
   if constexpr (STATS) add_counts(cnt, stats);
 }
 
+// the any-hit walk of live lane i
 template <bool STATS>
 __device__ __forceinline__ void any_lane(
     int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax, int n_nodes,
-    const float* __restrict__ bmin, const float* __restrict__ bmax,
-    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
-    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
-    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
-    const float* __restrict__ tv2, bool* __restrict__ out_occluded,
+    const float4* __restrict__ nodes, int n_slots,
+    const float4* __restrict__ recs, bool* __restrict__ out_occluded,
     const int* __restrict__ left_sib, Counts* cnt) {
   float t_max = tmax[i];
   bool occluded = false;
-  if (t_max >= t_min) {
-    V3 o = load3(ray_o, i);
-    V3 d = load3(ray_d, i);
-    float inv[3];
-    inverse_dir(d, inv);
-    float oo[3] = {o.x, o.y, o.z};
-    int node = 0;
-    int prev = -1;
-    bool prev_hit = false;
-    while (node < n_nodes && !occluded) {
-      bool hit_box = box_hit(bmin, bmax, node, oo, inv, t_min, t_max);
-      int pcount = __ldg(prim_count + node);
-      if constexpr (STATS) {
-        count_node(cnt, left_sib, node, prev, prev_hit, hit_box, pcount);
-        prev = node;
-        prev_hit = hit_box;
-      }
-      if (hit_box && pcount > 0) {
-        int poff = __ldg(prim_offset + node);
-        for (int k = 0; k < pcount && k < MAX_LEAF; ++k) {
-          if constexpr (STATS) cnt->tris += 1;
-          int tid = __ldg(prim_indices + min(max(poff + k, 0), n_slots - 1));
-          TriHit h = intersect_tri(o, d, tid, tv0, tv1, tv2);
-          // strict '<': the closest-hit walk records a hit only below its
-          // running best, which is t_max until the first one
-          if (h.ok && h.t >= t_min && h.t < t_max) {
-            occluded = true;
-            break;
-          }
+  V3 o = load3(ray_o, i);
+  V3 d = load3(ray_d, i);
+  float inv[3];
+  inverse_dir(d, inv);
+  float oo[3] = {o.x, o.y, o.z};
+  int node = 0;
+  int prev = -1;
+  bool prev_hit = false;
+  while (node < n_nodes && !occluded) {
+    float4 lo = __ldg(nodes + 2 * node), hi = __ldg(nodes + 2 * node + 1);
+    bool hit_box = box_hit(lo, hi, oo, inv, t_min, t_max);
+    int meta = __float_as_int(hi.w);
+    int pcount = meta & 7;
+    if constexpr (STATS) {
+      count_node(cnt, left_sib, node, prev, prev_hit, hit_box, pcount);
+      prev = node;
+      prev_hit = hit_box;
+    }
+    if (hit_box && pcount > 0) {
+      int poff = meta >> 3;
+      for (int k = 0; k < pcount && k < MAX_LEAF; ++k) {
+        if constexpr (STATS) cnt->tris += 1;
+        TriHit h = intersect_slot(o, d, recs,
+                                  min(max(poff + k, 0), n_slots - 1));
+        // strict '<': the closest-hit walk records a hit only below its
+        // running best, which is t_max until the first one
+        if (h.ok && h.t >= t_min && h.t < t_max) {
+          occluded = true;
+          break;
         }
       }
-      node = (hit_box && pcount == 0) ? node + 1 : __ldg(exit_index + node);
     }
+    node = (hit_box && pcount == 0) ? node + 1 : __float_as_int(lo.w);
   }
   out_occluded[i] = occluded;
 }
 
 template <bool STATS>
-__global__ void trace_any_kernel(
-    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+__global__ void __launch_bounds__(BLOCK, STATS ? 6 : 8) trace_any_kernel(
+    const int* __restrict__ list, int* __restrict__ counters,
+    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax, int n_nodes,
-    const float* __restrict__ bmin, const float* __restrict__ bmax,
-    const int* __restrict__ prim_offset, const int* __restrict__ prim_count,
-    const int* __restrict__ exit_index, const int* __restrict__ prim_indices,
-    int n_slots, const float* __restrict__ tv0, const float* __restrict__ tv1,
-    const float* __restrict__ tv2, bool* __restrict__ out_occluded,
+    const float4* __restrict__ nodes, int n_slots,
+    const float4* __restrict__ recs, bool* __restrict__ out_occluded,
     const int* __restrict__ left_sib, unsigned long long* __restrict__ stats) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
   Counts cnt = {0u, 0u, 0u, 0u};
-  if (i < n)
-    any_lane<STATS>(i, ray_o, ray_d, t_min, tmax, n_nodes, bmin, bmax,
-                    prim_offset, prim_count, exit_index, prim_indices,
-                    n_slots, tv0, tv1, tv2, out_occluded, left_sib, &cnt);
+  const int n_live = counters[0];
+  for (;;) {
+    int k = next_batch(counters + 1);
+    if (k >= n_live) break;
+    k += threadIdx.x & 31;
+    if (k < n_live)
+      any_lane<STATS>(list[k], ray_o, ray_d, t_min, tmax, n_nodes, nodes,
+                      n_slots, recs, out_occluded, left_sib, &cnt);
+  }
   if constexpr (STATS) add_counts(cnt, stats);
 }
 
+// persistent blocks of `kernel`: as many as fit on every SM, found once
+// per instantiation (for the current device), at most one per BLOCK lanes
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int* cache, int n) {
+  if (*cache == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
+    *cache = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  int need = (n + BLOCK - 1) / BLOCK;
+  return need < *cache ? need : *cache;
+}
+
+// zero the two counters (live count, fetch position) at scratch[0..1] and
+// list the live lanes at scratch[2..n+2)
+int list_live(int n, const void* tmax, float t_min, int* scratch,
+              void* out_t, void* out_tri, void* out_u, void* out_v,
+              void* out_occluded, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  live_lanes_kernel<<<(n + LIST_BLOCK - 1) / LIST_BLOCK, LIST_BLOCK, 0,
+                      stream>>>(n, (const float*)tmax, t_min, scratch,
+                                scratch + 2, (float*)out_t, (int*)out_tri,
+                                (float*)out_u, (float*)out_v,
+                                (bool*)out_occluded);
+  return (int)cudaGetLastError();
+}
+
+int grid_cache[4];
+
 }  // namespace
 
+// `scratch`: n + 2 int32 (the live-lane list and its two counters).
 // `stats` NULL launches the counter-free kernel; otherwise the counting one
 // adds its four totals (nodes, leaves passed, both children passed,
 // triangle tests) to the int64 vector `stats`, reading `left_sib`
 extern "C" int mpt_trace_any(
     int n, const void* ray_o, const void* ray_d, float t_min,
-    const void* tmax, int n_nodes, const void* bmin, const void* bmax,
-    const void* prim_offset, const void* prim_count, const void* exit_index,
-    const void* prim_indices, int n_slots, const void* v0, const void* v1,
-    const void* v2, void* out_occluded, const void* left_sib, void* stats,
-    void* stream) {
+    const void* tmax, int n_nodes, const void* nodes, int n_slots,
+    const void* recs, void* out_occluded, const void* left_sib, void* stats,
+    void* scratch, void* stream) {
   if (n <= 0) return 0;
-  const int block = 128;
-  auto kernel = stats == nullptr ? trace_any_kernel<false>
-                                 : trace_any_kernel<true>;
-  kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-      n, (const float*)ray_o, (const float*)ray_d, t_min, (const float*)tmax,
-      n_nodes, (const float*)bmin, (const float*)bmax,
-      (const int*)prim_offset, (const int*)prim_count,
-      (const int*)exit_index, (const int*)prim_indices, n_slots,
-      (const float*)v0, (const float*)v1, (const float*)v2,
-      (bool*)out_occluded, (const int*)left_sib,
+  cudaStream_t s = (cudaStream_t)stream;
+  int* sc = (int*)scratch;
+  int err = list_live(n, tmax, t_min, sc, nullptr, nullptr, nullptr, nullptr,
+                      out_occluded, s);
+  if (err != 0) return err;
+  bool counting = stats != nullptr;
+  auto kernel = counting ? trace_any_kernel<true> : trace_any_kernel<false>;
+  int grid = persistent_grid(kernel, &grid_cache[counting ? 1 : 0], n);
+  kernel<<<grid, BLOCK, 0, s>>>(
+      sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
+      (const float*)tmax, n_nodes, (const float4*)nodes, n_slots,
+      (const float4*)recs, (bool*)out_occluded, (const int*)left_sib,
       (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
@@ -342,23 +458,24 @@ extern "C" int mpt_trace_any(
 extern "C" int mpt_trace_closest(
     int n, const void* ray_o, const void* ray_d, float t_min,
     const void* tmax, const void* excl_mesh, const void* excl_prim,
-    int n_nodes, const void* bmin, const void* bmax, const void* prim_offset,
-    const void* prim_count, const void* exit_index, const void* prim_indices,
-    int n_slots, const void* v0, const void* v1, const void* v2,
-    const void* mesh_index, void* out_t, void* out_tri, void* out_u,
-    void* out_v, const void* left_sib, void* stats, void* stream) {
+    int n_nodes, const void* nodes, int n_slots, const void* recs,
+    void* out_t, void* out_tri, void* out_u, void* out_v,
+    const void* left_sib, void* stats, void* scratch, void* stream) {
   if (n <= 0) return 0;
-  const int block = 128;
-  auto kernel = stats == nullptr ? trace_closest_kernel<false>
-                                 : trace_closest_kernel<true>;
-  kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-      n, (const float*)ray_o, (const float*)ray_d, t_min, (const float*)tmax,
-      (const int*)excl_mesh, (const int*)excl_prim, n_nodes,
-      (const float*)bmin, (const float*)bmax, (const int*)prim_offset,
-      (const int*)prim_count, (const int*)exit_index,
-      (const int*)prim_indices, n_slots, (const float*)v0, (const float*)v1,
-      (const float*)v2, (const int*)mesh_index, (float*)out_t,
-      (int*)out_tri, (float*)out_u, (float*)out_v, (const int*)left_sib,
-      (unsigned long long*)stats);
+  cudaStream_t s = (cudaStream_t)stream;
+  int* sc = (int*)scratch;
+  int err = list_live(n, tmax, t_min, sc, out_t, out_tri, out_u, out_v,
+                      nullptr, s);
+  if (err != 0) return err;
+  bool counting = stats != nullptr;
+  auto kernel =
+      counting ? trace_closest_kernel<true> : trace_closest_kernel<false>;
+  int grid = persistent_grid(kernel, &grid_cache[counting ? 3 : 2], n);
+  kernel<<<grid, BLOCK, 0, s>>>(
+      sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
+      (const float*)tmax, (const int*)excl_mesh, (const int*)excl_prim,
+      n_nodes, (const float4*)nodes, n_slots, (const float4*)recs,
+      (float*)out_t, (int*)out_tri, (float*)out_u, (float*)out_v,
+      (const int*)left_sib, (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }

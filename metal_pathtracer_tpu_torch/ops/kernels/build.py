@@ -47,11 +47,10 @@ _f = ctypes.c_float
 SIGNATURES = {
     "mpt_trace_closest": [
         _i, _vp, _vp, _f, _vp, _vp, _vp,        # n, o, d, t_min, tmax, excl
-        _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
-        _vp, _vp, _vp, _vp,                     # v0 v1 v2 mesh_index
+        _i, _vp, _i, _vp,                       # packed nodes, slot records
         _vp, _vp, _vp, _vp,                     # out t tri u v
         _vp, _vp,                               # left siblings, totals
-        _vp],                                   # stream
+        _vp, _vp],                              # scratch, stream
     # n, the K2 instantiation (1: with plastic, carpaint and subsurface),
     # scalars (host float[]), geometry pointers (host void*[]: hit t,
     # index, u, v, family, shade_packed, sphere and rectangle arrays),
@@ -62,10 +61,9 @@ SIGNATURES = {
                        _vp],
     "mpt_trace_any": [
         _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
-        _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,   # BVH
-        _vp, _vp, _vp,                          # v0 v1 v2
-        _vp, _vp, _vp,                          # out flags, left
-        _vp],                                   # siblings, totals, stream
+        _i, _vp, _i, _vp,                       # packed nodes, slot records
+        _vp, _vp, _vp,                          # out flags, left siblings,
+        _vp, _vp],                              # totals, scratch, stream
     # n, the K2 instantiation, scalars, geometry pointers, material table,
     # its row count, the stage inputs (s1: environment background and pdf,
     # rect-light pdf, environment modulation, texture planes; s2:

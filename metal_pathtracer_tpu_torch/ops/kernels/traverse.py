@@ -35,6 +35,11 @@ wavefront (``STATS_KEYS``). The plain versions count the same walk
   subtree can shorten the window);
 - ``leaf_prim_tests``: triangle tests (a packet counts a chunk's
   triangles once for its 1024 rays).
+
+Both the kernels and the plain versions read K1's own layout, built once
+per tree and kept on it: ``BvhSoA.packed_nodes()`` (32 bytes a node) and
+``BvhSoA.slot_records(tris)`` (48 bytes a triangle slot, in leaf order);
+``csrc/traverse.cu`` says why.
 """
 
 from __future__ import annotations
@@ -52,14 +57,14 @@ STATS_KEYS = ("nodes_visited", "leaf_chunks_tested", "both_children_visited",
               "leaf_prim_tests")
 
 
-def _intersect_tris(origin, direction, tri_ids, tris, t_min, t_max,
-                    exclude_mesh, exclude_prim):
-    """Möller–Trumbore over a (lanes, K) block of candidates (reference:
+def _intersect_tris(origin, direction, rec, t_min, t_max, exclude_mesh,
+                    exclude_prim):
+    """Möller–Trumbore over a (lanes, K) block of slot records (reference:
     pathtrace.metal intersect_triangle_parametric:544-592).
-    Returns (t, u, v, valid), each (lanes, K)."""
-    v0 = tris.v0[tri_ids]
-    edge1 = tris.v1[tri_ids] - v0
-    edge2 = tris.v2[tri_ids] - v0
+    Returns (t, u, v, valid, tri), each (lanes, K)."""
+    v0, edge1, edge2 = rec[..., 0:3], rec[..., 4:7], rec[..., 8:11]
+    ids = rec.view(torch.int32)
+    tri_ids, mesh = ids[..., 3], ids[..., 7]
     d = direction[:, None, :].expand_as(edge1)
     pvec = cross(d, edge2)
     det = dot(edge1, pvec)
@@ -69,12 +74,12 @@ def _intersect_tris(origin, direction, tri_ids, tris, t_min, t_max,
     qvec = cross(tvec, edge1)
     v = dot(d, qvec) * inv_det
     t = dot(edge2, qvec) * inv_det
-    excl = ((tris.mesh_index[tri_ids] == exclude_mesh[:, None])
+    excl = ((mesh == exclude_mesh[:, None])
             & (tri_ids == exclude_prim[:, None]))
     valid = ((det.abs() >= 1e-8) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
              & (u + v <= 1.0) & (t >= t_min) & (t <= t_max[:, None])
              & ~excl)
-    return t, u, v, valid
+    return t, u, v, valid, tri_ids
 
 
 def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
@@ -82,10 +87,11 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
                             first_hit=False):
     """Plain PyTorch K1: every lane walks the exit-link BVH in lockstep
     (node = hit ? (leaf ? exit : node + 1) : exit) until all lanes leave
-    the tree. Returns (t, tri, u, v); tri is -1 on a miss and t then is
-    the lane's t_max. ``first_hit`` ends each lane's walk at its first
-    hit, at the slot where the any-hit kernel returns: the hit flag is
-    the same, (t, tri, u, v) are then that first hit's.
+    the tree, reading the kernel's packed nodes and slot records. Returns
+    (t, tri, u, v); tri is -1 on a miss and t then is the lane's t_max.
+    ``first_hit`` ends each lane's walk at its first hit, at the slot
+    where the any-hit kernel returns: the hit flag is the same, (t, tri,
+    u, v) are then that first hit's.
 
     ``walk``, a dict, receives what the walk touched (the kernel visits
     the same nodes): ``nodes`` and ``slots`` masks over the node and
@@ -97,6 +103,7 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
     dev = origin.device
     n_nodes = bvh.node_count
     n_slots = bvh.prim_indices.shape[0]
+    nodes, recs = bvh.packed_nodes(), bvh.slot_records(tris)
     inv_dir = 1.0 / torch.where(direction.abs() < 1e-20,
                                 torch.where(direction >= 0, 1e-20, -1e-20),
                                 direction)
@@ -124,14 +131,16 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
             walk["nodes"][node] = True
             walk["node_visits"] += int(node.numel())
         o, inv = origin[live], inv_dir[live]
-        t0 = (bvh.bounds_min[node] - o) * inv
-        t1 = (bvh.bounds_max[node] - o) * inv
+        row = nodes[node]
+        meta = row[:, 7].view(torch.int32)
+        t0 = (row[:, 0:3] - o) * inv
+        t1 = (row[:, 4:7] - o) * inv
         lo = torch.clamp_min(torch.minimum(t0, t1), t_min)
         hi = torch.maximum(t0, t1)
         tnear = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
         tfar = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
         box_hit = torch.minimum(tfar, best_t[live]) >= tnear
-        pcount = bvh.prim_count[node]
+        pcount = meta & 7
         leaf = box_hit & (pcount > 0)
         if walk is not None:
             ls = left_sib[node]
@@ -140,11 +149,11 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
                 ((ls >= 0) & box_hit & ~((prev == ls) & ~prev_hit)).sum())
             prev, prev_hit = node, box_hit
         if bool(leaf.any()):
-            li, ln = live[leaf], node[leaf]
-            slot = torch.clamp(bvh.prim_offset[ln, None] + ar, 0, n_slots - 1)
-            tri_ids = bvh.prim_indices[slot].long()
-            t, u, v, valid = _intersect_tris(
-                origin[li], direction[li], tri_ids, tris, t_min, best_t[li],
+            li = live[leaf]
+            slot = torch.clamp((meta[leaf] >> 3)[:, None] + ar, 0,
+                               n_slots - 1)
+            t, u, v, valid, tri_ids = _intersect_tris(
+                origin[li], direction[li], recs[slot], t_min, best_t[li],
                 exclude_mesh[li], exclude_prim[li])
             in_leaf = ar < pcount[leaf, None]
             valid &= in_leaf
@@ -164,11 +173,12 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
             better = valid.any(-1) & (t_hit < best_t[li])
             upd = li[better]
             best_t[upd] = t_hit[better]
-            best_tri[upd] = tri_ids.gather(-1, k)[better, 0].to(torch.int32)
+            best_tri[upd] = tri_ids.gather(-1, k)[better, 0]
             best_u[upd] = u.gather(-1, k)[better, 0]
             best_v[upd] = v.gather(-1, k)[better, 0]
         descend = box_hit & (pcount == 0)
-        node = torch.where(descend, node + 1, bvh.exit_index[node].long())
+        node = torch.where(descend, node + 1,
+                           row[:, 3].view(torch.int32).long())
         more = node < n_nodes
         if first_hit:
             more &= best_tri[live] < 0
@@ -215,30 +225,21 @@ def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
         return (*out, walk_totals(walk, dev)) if stats else out
     if dev.type != "cuda":
         raise ValueError(f"trace_closest: unsupported device {dev}")
-    args = [origin, direction, t_max, bvh.bounds_min, bvh.bounds_max,
-            bvh.prim_offset, bvh.prim_count, bvh.exit_index,
-            bvh.prim_indices, tris.v0, tris.v1, tris.v2, tris.mesh_index]
-    for a in args:
-        if a.device != dev or not a.is_contiguous():
-            raise ValueError("trace_closest: every tensor must be contiguous "
-                             f"and on {dev}")
-    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
-        raise ValueError("trace_closest: rays must be float32")
+    nodes, recs = _k1_layout("trace_closest", bvh, tris, dev, [
+        origin, direction, t_max, exclude_mesh, exclude_prim])
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_tri = torch.empty(n, dtype=torch.int32, device=dev)
     out_u = torch.empty(n, dtype=torch.float32, device=dev)
     out_v = torch.empty(n, dtype=torch.float32, device=dev)
     left_sib, totals = _stats_buffers(bvh, dev, stats)
+    scratch = torch.empty(n + 2, dtype=torch.int32, device=dev)
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = lib.mpt_trace_closest(
         n, p(origin), p(direction), float(t_min), p(t_max),
-        p(exclude_mesh), p(exclude_prim),
-        bvh.node_count, p(bvh.bounds_min), p(bvh.bounds_max),
-        p(bvh.prim_offset), p(bvh.prim_count), p(bvh.exit_index),
-        p(bvh.prim_indices), bvh.prim_indices.shape[0],
-        p(tris.v0), p(tris.v1), p(tris.v2), p(tris.mesh_index),
-        p(out_t), p(out_tri), p(out_u), p(out_v), p(left_sib), p(totals),
+        p(exclude_mesh), p(exclude_prim), bvh.node_count, p(nodes),
+        recs.shape[0], p(recs), p(out_t), p(out_tri), p(out_u), p(out_v),
+        p(left_sib), p(totals), p(scratch),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mpt_trace_closest")
     if stats:
@@ -246,6 +247,24 @@ def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
         return out_t, out_tri, out_u, out_v, totals
     trace_closest.launches += 1
     return out_t, out_tri, out_u, out_v
+
+
+def _k1_layout(name, bvh, tris, dev, lanes):
+    """K1's packed nodes and slot records for a launch on ``dev``, after
+    checking them and the lane tensors: contiguous, on ``dev``, the rays
+    float32 and the layouts aligned for 16-byte loads (nodes on 32)."""
+    nodes, recs = bvh.packed_nodes(), bvh.slot_records(tris)
+    for a in (*lanes, nodes, recs):
+        if a.device != dev or not a.is_contiguous():
+            raise ValueError(f"{name}: every tensor, the packed nodes and "
+                             f"slot records included, must be contiguous "
+                             f"and on {dev}")
+    if lanes[0].dtype != torch.float32 or lanes[1].dtype != torch.float32:
+        raise ValueError(f"{name}: rays must be float32")
+    if nodes.data_ptr() % 32 or recs.data_ptr() % 16:
+        raise ValueError(f"{name}: the packed nodes must be 32-byte and the "
+                         "slot records 16-byte aligned")
+    return nodes, recs
 
 
 def _stats_buffers(bvh, dev, stats: bool):
@@ -304,26 +323,17 @@ def trace_any(origin, direction, t_min: float, t_max, bvh, tris,
     if dev.type != "cuda":
         raise ValueError(f"trace_any: unsupported device {dev}")
     t_max = t_max.contiguous()
-    args = [origin, direction, t_max, bvh.bounds_min, bvh.bounds_max,
-            bvh.prim_offset, bvh.prim_count, bvh.exit_index,
-            bvh.prim_indices, tris.v0, tris.v1, tris.v2]
-    for a in args:
-        if a.device != dev or not a.is_contiguous():
-            raise ValueError("trace_any: every tensor must be contiguous "
-                             f"and on {dev}")
-    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
-        raise ValueError("trace_any: rays must be float32")
+    nodes, recs = _k1_layout("trace_any", bvh, tris, dev,
+                             [origin, direction, t_max])
     out = torch.empty(n, dtype=torch.bool, device=dev)
     left_sib, totals = _stats_buffers(bvh, dev, stats)
+    scratch = torch.empty(n + 2, dtype=torch.int32, device=dev)
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = lib.mpt_trace_any(
-        n, p(origin), p(direction), float(t_min), p(t_max),
-        bvh.node_count, p(bvh.bounds_min), p(bvh.bounds_max),
-        p(bvh.prim_offset), p(bvh.prim_count), p(bvh.exit_index),
-        p(bvh.prim_indices), bvh.prim_indices.shape[0],
-        p(tris.v0), p(tris.v1), p(tris.v2), p(out), p(left_sib), p(totals),
-        torch.cuda.current_stream(dev).cuda_stream)
+        n, p(origin), p(direction), float(t_min), p(t_max), bvh.node_count,
+        p(nodes), recs.shape[0], p(recs), p(out), p(left_sib), p(totals),
+        p(scratch), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mpt_trace_any")
     if stats:
         trace_any_stats.launches += 1

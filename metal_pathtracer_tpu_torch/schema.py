@@ -169,6 +169,50 @@ class BvhSoA:
             self.__dict__["_left_sibling"] = cached
         return cached
 
+    def packed_nodes(self) -> torch.Tensor:
+        """(N, 8) f32, K1's node layout: 32 bytes per node, read as two
+        16-byte loads, ``[bounds_min xyz, exit_index]`` and ``[bounds_max
+        xyz, meta]`` with ``meta = prim_offset << 3 | prim_count``; the two
+        ints travel as their bits. Made on first use, on this tree's
+        device, and kept on this immutable object."""
+        cached = self.__dict__.get("_packed_nodes")
+        if cached is None:
+            off, cnt = self.prim_offset, self.prim_count
+            if self.node_count and not (
+                    int(cnt.min()) >= 0 and int(cnt.max()) < 8
+                    and int(off.min()) >= 0 and int(off.max()) < 1 << 28):
+                raise ValueError("packed_nodes: prim_count must fit 3 bits "
+                                 "and prim_offset 28")
+            meta = (off << 3) | cnt
+            cached = torch.cat(
+                [self.bounds_min.view(torch.int32), self.exit_index[:, None],
+                 self.bounds_max.view(torch.int32), meta[:, None]],
+                1).view(torch.float32)
+            self.__dict__["_packed_nodes"] = cached
+        return cached
+
+    def slot_records(self, tris: "TrianglesSoA") -> torch.Tensor:
+        """(P, 12) f32, K1's triangle layout: 48 bytes per slot of
+        ``prim_indices`` (leaf order), ``[v0 xyz, tid, e1 xyz, mesh, e2
+        xyz, 0]`` with ``e1 = v1 - v0``, ``e2 = v2 - v0`` in float32 (the
+        bits the walk computed from the vertices) and the slot's triangle
+        and mesh index as their bits. Made on first use for ``tris`` and
+        kept on this immutable object."""
+        cached = self.__dict__.get("_slot_records")
+        if cached is None or cached[0] is not tris:
+            tid = self.prim_indices.long()
+            v0 = tris.v0[tid]
+            rec = torch.zeros((tid.shape[0], 12), dtype=torch.int32,
+                              device=tid.device)
+            rec[:, 0:3] = v0.view(torch.int32)
+            rec[:, 3] = self.prim_indices
+            rec[:, 4:7] = (tris.v1[tid] - v0).view(torch.int32)
+            rec[:, 7] = tris.mesh_index[tid]
+            rec[:, 8:11] = (tris.v2[tid] - v0).view(torch.int32)
+            cached = (tris, rec.view(torch.float32))
+            self.__dict__["_slot_records"] = cached
+        return cached[1]
+
 
 @dataclasses.dataclass(frozen=True)
 class TrianglesSoA:

@@ -1,0 +1,201 @@
+"""Parent-against-change timing on the card, two checkouts alternating.
+
+Runs one measurement from two checkouts in separate, alternating
+processes (by default parent, change, change, parent, parent, change).
+Each process builds its own checkout's kernels and is timed with the
+change's ``chip_smoke.py`` helpers, so both sides are measured alike:
+
+- ``lambert``: ``chip_smoke.py``'s lambert phase of the checkout, then
+  four more timed 4 spp renders at 1920x1080 d8; every ms/spp, with K2
+  ``full``'s device time at the first bounce beside its window around the
+  wrapper;
+- ``k1``: K1 closest-hit and any-hit on the textured headline's
+  wavefronts (1920x1080, 1,310,720-triangle displaced icosphere): the
+  closest and environment shadow wavefronts of depths 0 and 1, kept from
+  one sample of the checkout's own frame loop (``chip_smoke.py
+  frame_loop_k1``), each timed three times with ``kernel_ms`` (device
+  time of 5 launches back to back); the trace kernels' registers.
+
+Make the parent's checkout with ``git archive`` into a git-ignored
+directory, then::
+
+    python3 metal_pathtracer_tpu_torch/utils/ab.py {lambert,k1} PARENT CHANGE
+
+Lines starting with ``AB`` carry the numbers; per series, the medians and
+quartiles of each side and the parent/change ratio of the medians close
+the output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import traceback
+
+RENDERS, RENDER_SPP, FRAME = 4, 4, (1920, 1080)
+K1_REPS = 3
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def child_lambert(timer):
+    """The lambert phase of the checkout's ``chip_smoke.py`` with its own
+    package, K2 ``full`` timed by ``timer``'s ``kernel_ms``."""
+    import torch
+
+    c = _load("chip_smoke", "chip_smoke.py")
+    new = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer.headless import CudaBackend
+    from metal_pathtracer_tpu_torch.utils.benchscene import (
+        build_lambert_series,
+    )
+    window = c.cuda_ms
+
+    def k2_timed(prepare, reps):
+        if reps != 5:   # the lambert phase times K2 full with 5 runs
+            return window(prepare, reps)
+        d, w = new.kernel_ms(prepare, reps), window(prepare, reps)
+        print(f"AB K2 full first bounce: {d:.4f} ms on the device, "
+              f"{w:.4f} ms around the wrapper", flush=True)
+        return w
+
+    c.cuda_ms = k2_timed
+    if hasattr(c, "timed"):
+        c.timed = lambda prepare, reps: (new.kernel_ms(prepare, reps),
+                                         k2_timed(prepare, reps))
+    build.load()
+    kernels = {"trace_closest": T.trace_closest, "trace_any": T.trace_any,
+               "shade_full": S.shade_full, "shade_s1": S.shade_s1,
+               "shade_s2": S.shade_s2}
+    dev = torch.device("cuda", 0)
+    c.lambert_path(dev, c.device_line(), kernels, {})
+    settings, resources = build_lambert_series(c.LAMBERT_SUBDIVISIONS)
+    backend = CudaBackend()
+    backend.render(resources, settings, *FRAME, 1, device=dev)
+    for rep in range(RENDERS):
+        res = backend.render(resources, settings, *FRAME, RENDER_SPP,
+                             device=dev)
+        print(f"AB lambert {FRAME[0]}x{FRAME[1]} d8 rep {rep}: "
+              f"{res.avg_ms_per_sample:.2f} ms/spp", flush=True)
+
+
+def child_k1(timer):
+    """K1 of the checkout's package on the headline's wavefronts, kept
+    from its frame loop and timed by ``timer``'s helpers."""
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    build.load()
+    regs = build.register_counts(build.build_log())
+    print("AB registers " + json.dumps(
+        {k: v for k, v in sorted(regs.items()) if k.startswith("trace")}),
+        flush=True)
+    dev = torch.device("cuda", 0)
+    settings, res, env = benchscene.build_bench_scene(
+        c.HEADLINE_SUBDIVISIONS, dev)
+    scene = res.build_arrays(environment=env, device=dev)
+    static, uni = c.scene_setup(settings, res, *c.FRAME, dev)
+    _, waves = c.frame_loop_k1(scene, uni, static, dev,
+                               keep=tuple(c.K1_WAVES.values()))
+    card = c.device_line()
+    for rep in range(K1_REPS):
+        for name, key in c.K1_WAVES.items():
+            args = waves[key]
+            fn = T.trace_closest if key[0] == "closest" else T.trace_any
+            ms = c.kernel_ms(lambda: lambda: fn(*args), 5)
+            print(f"AB {name} rep {rep}: {ms:.4f} ms [{card}]", flush=True)
+
+
+def lambert_value(line):
+    m = re.search(r"([\d.]+) ms/spp", line)
+    if m and line.startswith(("AB lambert", "lambert")):
+        return "lambert 1920x1080 d8 ms/spp", float(m.group(1))
+    return None
+
+
+def k1_value(line):
+    m = re.match(r"AB (.+) rep \d+: ([\d.]+) ms", line)
+    return (m.group(1), float(m.group(2))) if m else None
+
+
+#: measurement: (child run in the checkout, line -> (series, value) or None)
+MEASURES = {"lambert": (child_lambert, lambert_value),
+            "k1": (child_k1, k1_value)}
+
+
+def main() -> None:
+    if len(sys.argv) > 1 and sys.argv[1] == "--child":
+        measure, tree, timer = sys.argv[2:5]
+        sys.path.insert(0, tree)
+        os.chdir(tree)
+        try:
+            from metal_pathtracer_tpu_torch.ops.kernels import build
+            print("# tree", tree, "package", os.path.dirname(build.__file__),
+                  flush=True)
+            MEASURES[measure][0](timer)
+        except Exception:
+            traceback.print_exc()
+            sys.exit(1)
+        return
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("measure", choices=sorted(MEASURES))
+    ap.add_argument("parent")
+    ap.add_argument("change")
+    ap.add_argument("--order", default="pccppc",
+                    help="p (parent) and c (change), one process each")
+    args = ap.parse_args()
+    value_of = MEASURES[args.measure][1]
+    trees = {"p": ("parent", os.path.abspath(args.parent)),
+             "c": ("change", os.path.abspath(args.change))}
+    timer = os.path.join(trees["c"][1], "chip_smoke.py")
+    series = {"parent": {}, "change": {}}
+    failed = False
+    for key in args.order:
+        who, tree = trees[key]
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child",
+             args.measure, tree, timer], capture_output=True, text=True)
+        for line in (run.stdout + run.stderr).splitlines():
+            if re.search(r"^(AB|lambert|# tree)|Error|Traceback", line):
+                print(f"[{who}] {line}", flush=True)
+            got = value_of(line)
+            if got:
+                series[who].setdefault(got[0], []).append(got[1])
+        print(f"[{who}] rc={run.returncode}", flush=True)
+        failed |= run.returncode != 0
+    for name in series["change"] | series["parent"]:
+        med = {}
+        for who in ("parent", "change"):
+            values = series[who].get(name, [])
+            if len(values) >= 2:
+                q = statistics.quantiles(values, n=4)
+                med[who] = statistics.median(values)
+                print(f"AB {who} {name}: {len(values)} timings, median "
+                      f"{med[who]:.4f}, quartiles {q[0]:.4f}-{q[2]:.4f}")
+        if len(med) == 2:
+            print(f"AB {name}: parent / change "
+                  f"{med['parent'] / med['change']:.3f}x")
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -28,7 +28,7 @@ import torch
 
 WIDTH, HEIGHT, SPP = 1920, 1080, 2
 PORT_KERNELS = ("trace_closest_kernel", "trace_any_kernel",
-                "shade_full_kernel", "shade_s1_kernel", "shade_s2_kernel",
+                "live_lanes_kernel", "shade_full_kernel", "shade_s1_kernel", "shade_s2_kernel",
                 "texture_stage_kernel", "sphere_nearest_kernel",
                 "sphere_nearest_chunked_kernel", "rect_nearest_kernel")
 

@@ -54,19 +54,68 @@ def _rays(scene, dev, n=4096, seed=3):
     return [torch.from_numpy(a).to(dev) for a in (o, d, tmax)]
 
 
-def test_trace_closest_bitexact_on_card(dev, lambert):
-    _, _, scene = lambert
+#: K1's test wavefronts: probes (every 17th lane dead), the depth-1
+#: wavefront after the camera rays, and probes with every other lane dead
+#: and each live lane excluding the triangle it hits first
+WAVES = ("probes", "depth1", "half_dead")
+
+
+def _depth1_rays(settings, res, scene, dev, w=96, h=64):
+    """The depth-1 wavefront of sample 0 (``_primary_hits`` through the
+    plain K2 ``full``): (o, d, tmax, exclude_mesh, exclude_prim), dead
+    lanes at tmax 0, each live lane excluding the triangle it leaves."""
+    static = settings_to_static(settings, w, h,
+                                res.material_types_present())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    carry, hit = _primary_hits(scene, uni, static, dev)
+    shade.shade_full_reference(carry, *hit, scene.triangles, scene.materials,
+                               shade.ShadeParams.of(uni, static,
+                                                    scene.environment), 0)
+    assert 0 < int(carry.alive.sum()) < w * h
+    return (carry.ray_o.contiguous(), carry.ray_d.contiguous(),
+            torch.where(carry.alive, C.INFINITY_T, 0.0),
+            torch.where(carry.prev_valid, carry.prev_mesh, -1).int(),
+            torch.where(carry.prev_valid, carry.prev_prim, -1).int())
+
+
+def _wave(which, settings, res, scene, dev):
+    """K1's inputs (o, d, tmax, exclude_mesh, exclude_prim) for one of
+    ``WAVES``."""
+    if which == "depth1":
+        return _depth1_rays(settings, res, scene, dev)
     o, d, tmax = _rays(scene, dev)
     none = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    if which == "probes":
+        return o, d, tmax, none, none
+    tmax[::2] = 0.0
+    _, tri, _, _ = traverse.trace_closest_reference(
+        o, d, C.EPSILON_T, tmax, scene.tri_bvh, scene.triangles, none, none)
+    mesh = torch.where(tri >= 0, scene.triangles.mesh_index[
+        tri.clamp_min(0).long()], -1).int()
+    assert (tri >= 0).sum() > 100
+    return o, d, tmax, mesh, tri
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", WAVES)
+def test_trace_closest_bitexact_on_card(dev, lambert, which):
+    settings, res, scene = lambert
+    o, d, tmax, em, ep = _wave(which, settings, res, scene, dev)
     before = traverse.trace_closest.launches
     got = traverse.trace_closest(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
-                                 scene.triangles, none, none)
+                                 scene.triangles, em, ep)
     ref = traverse.trace_closest_reference(o, d, C.EPSILON_T, tmax,
                                            scene.tri_bvh, scene.triangles,
-                                           none, none)
+                                           em, ep)
     assert traverse.trace_closest.launches == before + 1
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert _bits_equal(a, b)
     assert (got[1] >= 0).any()
 
 
@@ -106,9 +155,10 @@ def headline(dev):
     return settings, res, res.build_arrays(environment=env, device=dev)
 
 
-def test_trace_any_bitexact_on_card(dev, headline):
-    _, _, scene = headline
-    o, d, tmax = _rays(scene, dev)
+@pytest.mark.parametrize("which", WAVES)
+def test_trace_any_bitexact_on_card(dev, headline, which):
+    settings, res, scene = headline
+    o, d, tmax, _, _ = _wave(which, settings, res, scene, dev)
     before = traverse.trace_any.launches
     got = traverse.trace_any(o, d, C.EPSILON_T, tmax, scene.tri_bvh,
                              scene.triangles)
@@ -481,26 +531,26 @@ def test_zoo_s1_emod_vs_plain_on_card(dev):
     assert torch.equal(trans.view(torch.int32), trans_p.view(torch.int32))
 
 
-def test_trace_stats_vs_counter_free_and_plain_on_card(dev, lambert):
-    """K1's counting instantiation on 4096 probes of a 5,120-triangle
-    soup: t, tri, u, v and the occlusion flags bit-equal to the
+@pytest.mark.parametrize("which", WAVES)
+def test_trace_stats_vs_counter_free_and_plain_on_card(dev, lambert, which):
+    """K1's counting instantiation on a 5,120-triangle soup (each of
+    ``WAVES``): t, tri, u, v and the occlusion flags bit-equal to the
     counter-free kernels, the four totals equal to the plain walk's."""
-    _, _, scene = lambert
-    o, d, tmax = _rays(scene, dev)
-    none = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    settings, res, scene = lambert
+    o, d, tmax, em, ep = _wave(which, settings, res, scene, dev)
     args = (o, d, C.EPSILON_T, tmax, scene.tri_bvh, scene.triangles)
     before = (traverse.trace_closest_stats.launches,
               traverse.trace_any_stats.launches)
-    *got, totals = traverse.trace_closest_stats(*args)
+    *got, totals = traverse.trace_closest_stats(*args, em, ep)
     occ, totals_any = traverse.trace_any_stats(*args)
     assert (traverse.trace_closest_stats.launches,
             traverse.trace_any_stats.launches) == (before[0] + 1,
                                                    before[1] + 1)
-    for a, b in zip(got, traverse.trace_closest(*args)):
-        assert torch.equal(a, b)
+    for a, b in zip(got, traverse.trace_closest(*args, em, ep)):
+        assert _bits_equal(a, b)
     assert torch.equal(occ, traverse.trace_any(*args))
     walk, walk_any = {}, {}
-    traverse.trace_closest_reference(*args, none, none, walk=walk)
+    traverse.trace_closest_reference(*args, em, ep, walk=walk)
     traverse.trace_any_reference(*args, walk=walk_any)
     assert torch.equal(totals, traverse.walk_totals(walk, dev))
     assert torch.equal(totals_any, traverse.walk_totals(walk_any, dev))
