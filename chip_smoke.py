@@ -26,8 +26,13 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    at 1280x720, maxDepth 20); K1 closest-hit and any-hit also on the
    depth-1 wavefronts (secondary rays and their shadow rays, kept from
    one sample of the frame loop by ``frame_loop_k1``, which also counts
-   the live lanes of every K1 launch) bit for bit against the plain walks
-   and timed, each with its live lanes and its bound beside the old one;
+   the live lanes of every K1 launch and each launch is timed) bit for
+   bit against the plain walks and timed, each with its live lanes and
+   its bound beside the old one; the texture stage and K2 s1 at every
+   depth of one sample (kept by ``frame_loop_k2``): against their plain
+   versions at depths 0 and 1, their plane-major outputs checked, and
+   each depth's device time beside its bound with its live, hit and
+   textured lanes, K2 s2's beside them;
 4. the analytic primitives (the sphere kernels K3a and K3b, the rectangle
    kernel K3c, K2 ``full`` and ``s1``/``s2`` with rect-light NEE, metal and
    diffuse lights): each K3 kernel against its plain version bit for bit
@@ -80,8 +85,9 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
 the kernels and not their wrappers' host work, which is printed beside it
-as the time around the wrapper. The texture stage, whose wrapper reads
-back to the host, is timed around its wrapper.
+as the time around the wrapper. The texture stage takes its launch
+constants from the caller and reads nothing back, so it is timed the same
+way.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
@@ -125,20 +131,28 @@ F32_FLOPS = 67e12
 ROOT = "metal_pathtracer_tpu_torch/csrc/"
 
 # Bytes a lane's K2 launch must move, by lane kind, from the kernels'
-# loads and stores (csrc/shade.cu): a live hit, a live miss, a dead lane
-# (its alive flag), plus the per-lane output columns every lane writes;
-# in a textured scene a hit also reads its 15 texture planes (TEX_BYTES).
-# Rough operation counts per live lane (float ops in the source) give
-# the compute side of the bound.
+# loads and stores (csrc/shade.cu): a live hit (less its triangle's row,
+# "row": each distinct row is read once), a live miss, a dead lane (its
+# alive flag), plus the per-lane output columns every lane writes; a
+# first hit also writes its AOVs and flag ("first"); in a textured scene
+# a hit also reads the tpbr plane and a textured lane the other 14
+# (TEX_BYTES in all). s1's charges were re-derived in PR 8 from the
+# kernel: a hit reads alive, index, t, u, v, ray, medium depth,
+# throughput, radiance, first-hit flag and state (78 B) and writes
+# radiance, throughput and state (32 B); its row is cols 0-19 (80 B).
+# Before PR 8 it charged 238 + 32 B a hit with a 96 B row per hit, 60 B
+# of planes per textured-scene hit, AOVs included; full's and s2's are
+# the old ones, a 96 B row per hit. Rough operation counts per live lane
+# (float ops in the source) give the compute side of the bound.
 K2_BYTES = {
-    "shade_full": dict(hit=178 + 63, miss=41 + 22, dead=1, out=0, ops=200),
-    "shade_s1": dict(hit=238 + 32, miss=50 + 22, dead=1, out=72, ops=300),
-    "shade_s2": dict(hit=345 + 92, miss=1, dead=1, out=28, ops=1200),
+    "shade_full": dict(hit=178 + 63 - 96, row=96, first=0, miss=41 + 22,
+                       dead=1, out=0, ops=200),
+    "shade_s1": dict(hit=78 + 32, row=80, first=1 + 24, miss=50 + 22,
+                     dead=1, out=72, ops=300),
+    "shade_s2": dict(hit=345 + 92 - 96, row=96, first=0, miss=1, dead=1,
+                     out=28, ops=1200),
 }
 TEX_BYTES = 15 * 4
-# a triangle hit reads its 24-float shade_packed row; an analytic hit reads
-# its family (4 B) instead, and its sphere or rectangle stays in cache
-TRI_ROW_BYTES = 24 * 4
 # the texture stage's float operations per textured lane, and per bound
 # slot (transform, LOD, two bilinear levels)
 TEX_OPS, TEX_SLOT_OPS = 400, 120
@@ -275,16 +289,33 @@ def any_lane_bytes(n, n_live):
 
 
 def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False,
-             extra=0, table=0):
-    """K2's bound by lane kind; ``extra``: bytes more per hit (the
-    random-walk or emod planes); ``table``: the material table's bytes,
-    read once."""
+             extra=0, table=0, n_rows=None, n_tex=None, n_first=None):
+    """K2's bound by lane kind. Triangle hits read ``n_rows`` distinct
+    shade_packed rows (None: one per hit, the charge before PR 8); an
+    analytic hit reads its family (4 B) instead, and its sphere or
+    rectangle stays in cache. In a textured scene ``n_tex`` lanes (None:
+    every hit) read all the texture planes, the other hits the tpbr
+    plane; ``n_first`` hits write the first-hit AOVs (None: every hit).
+    ``extra``: bytes more per hit (the random-walk or emod planes);
+    ``table``: the material table's bytes, read once."""
     b = K2_BYTES[name]
-    hit = b["hit"] + (TEX_BYTES if textured else 0) + extra \
-        - (TRI_ROW_BYTES - 4 if analytic else 0)
-    return bound_ms(n_hit * hit + n_miss * b["miss"] + n_dead * b["dead"]
-                    + (n_hit + n_miss + n_dead) * b["out"] + table,
-                    (n_hit + n_miss) * b["ops"])
+    rows = 0 if analytic else n_hit if n_rows is None else n_rows
+    tex = n_hit * 4 + (n_hit if n_tex is None else n_tex) * (TEX_BYTES - 4) \
+        if textured else 0
+    n_bytes = n_hit * (b["hit"] + extra + (4 if analytic else 0)) \
+        + rows * b["row"] + tex \
+        + (n_hit if n_first is None else n_first) * b["first"] \
+        + n_miss * b["miss"] + n_dead * b["dead"] \
+        + (n_hit + n_miss + n_dead) * b["out"] + table
+    return bound_ms(n_bytes, (n_hit + n_miss) * b["ops"])
+
+
+def s1_counts(carry, idx):
+    """k2_bound's s1 counts of a wavefront (carry and hit index as s1
+    takes them): live hits, distinct triangle rows, first hits."""
+    hits = carry.alive & (idx >= 0)
+    return dict(n_rows=int(torch.unique(idx[hits]).numel()),
+                n_first=int((hits & carry.is_first_hit).sum()))
 
 
 def probes(scene, n=4096, seed=7):
@@ -556,22 +587,33 @@ def lambert_path(dev, card, kernels, out):
 
 
 def texture_bound(scene, static, carry, hit, planes):
-    """The texture stage's bound from this wavefront: every lane's hit,
-    ray, cone, state and planes, plus the triangle rows and attributes and
-    the texels the eligible lanes need (each unique triangle once, at most
-    the whole atlas), and the material table."""
+    """The texture stage's bound from this wavefront: every lane's alive
+    flag read and its 60 B of planes written, a live lane's hit index, a
+    live hit's material id (4 B per distinct triangle), a textured lane's
+    t, u, v, ray, cone and state (its state written back), its triangle's
+    row, UV pairs and tangents (each distinct triangle once) and the
+    texels of its bound slots (at most the whole atlas), and the material
+    table. Returns (ms, "bytes" or "operations", ms at the charge before
+    PR 8, which gave every lane a textured lane's own 117 B)."""
     n = carry.alive.shape[0]
+    live = carry.alive
+    hits = live & (hit[1] >= 0)
     elig = planes[:, -1] > 0.5
-    n_elig = int(elig.sum())
+    n_live, n_elig = int(live.sum()), int(elig.sum())
     slots = len(static.texture_slots)
     tri_bytes = 96 + 24 * (2 if static.texture_uv1 else 1) \
         + (48 if 2 in static.texture_slots else 0)
     n_tris = int(torch.unique(hit[1][elig]).numel())
-    atlas = scene.textures.texels.numel() * 4
-    n_bytes = n * (1 + 4 + 12 + 24 + 8 + 8 + 60) + n_elig * 8 \
-        + n_tris * tri_bytes + min(n_elig * slots * 2 * 4 * 16, atlas) \
+    n_hit_tris = int(torch.unique(hit[1][hits]).numel())
+    shared = n_tris * tri_bytes + min(n_elig * slots * 2 * 4 * 16,
+                                      scene.textures.texels.numel() * 4) \
         + scene.materials.count * 64 * 4
-    return bound_ms(n_bytes, n_elig * (TEX_OPS + TEX_SLOT_OPS * slots))
+    n_bytes = n * (1 + 60) + n_live * 4 + n_hit_tris * 4 \
+        + n_elig * (12 + 24 + 8 + 8 + 8) + shared
+    n_ops = n_elig * (TEX_OPS + TEX_SLOT_OPS * slots)
+    old = bound_ms(n * (1 + 4 + 12 + 24 + 8 + 8 + 60) + n_elig * 8 + shared,
+                   n_ops)[0]
+    return (*bound_ms(n_bytes, n_ops), old)
 
 
 def compare_texture(got, want, ck, cp, label):
@@ -604,9 +646,11 @@ def texture_probe(dev, card, label, settings, res, scene, w, h, depths):
     carry.alive[::9] = False
     hit = T.trace_closest(*trace_inputs(carry, scene))
     err, n_elig, n_pass, n_blend = 0.0, 0, 0, 0
+    tex_params = X.TexParams.of(uni, static, scene.textures)
     for depth in depths:
         ck, cp = clone(carry), clone(carry)
-        got = X.texture_stage(ck, *hit, scene, uni, static, depth)
+        got = X.texture_stage(ck, *hit, scene, uni, static, depth,
+                              tex_params)
         want = X.texture_stage_reference(cp, *hit, scene, uni, static, depth)
         torch.cuda.synchronize()
         err = max(err, compare_texture(got, want, ck, cp, label))
@@ -780,21 +824,24 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
 
     tex = None
     if textured:
+        tex_params = X.TexParams.of(uni, static, scene.textures)
+
         def tex_run(fn):
             def prep():
                 c = clone(carry)
-                return lambda: fn(c, *hit, scene, uni, static, 0)
+                return lambda: fn(c, *hit, scene, uni, static, 0, tex_params)
             return prep
 
-        tex_ms = cuda_ms(tex_run(X.texture_stage), 5)
+        tex_ms, tex_win = timed(tex_run(X.texture_stage), 5)
         tex_plain_ms = cuda_ms(tex_run(X.texture_stage_reference), 2)
         ck, cp = clone(carry), clone(carry)
-        tex = X.texture_stage(ck, *hit, scene, uni, static, 0)
+        tex = X.texture_stage(ck, *hit, scene, uni, static, 0, tex_params)
         tex_p = X.texture_stage_reference(cp, *hit, scene, uni, static, 0)
         torch.cuda.synchronize()
         tex_err = compare_texture(tex, tex_p, ck, cp,
                                   f"{name} first-depth texture stage")
-        tex_b, tex_by = texture_bound(scene, static, carry, hit, tex_p)
+        tex_b, tex_by, tex_old = texture_bound(scene, static, carry, hit,
+                                               tex_p)
         carry = ck   # the stage's BLEND draws land before s1
         n_tex = int((tex_p[:, -1] > 0.5).sum())
 
@@ -823,7 +870,13 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     torch.cuda.synchronize()
     differ, s1_err = carry_error(ck, cp, n)
     s1_err = max(s1_err, float((trans - trans_p).abs().max()))
-    s1_bound, s1_by = k2_bound("shade_s1", n_hit, n - n_hit, 0, textured)
+    s1_bound, s1_by = k2_bound(
+        "shade_s1", n_hit, n - n_hit, 0, textured,
+        n_tex=int((tex[:, -1] > 0.5).sum()) if textured else None,
+        **s1_counts(carry, hit[1]))
+    # the charge before PR 8: 238 + 32 B a hit, its 60 B of planes
+    s1_old = bound_ms(n_hit * (270 + (TEX_BYTES if textured else 0))
+                      + (n - n_hit) * 72 + n * 72, 0)[0]
     if differ > 1e-4 * n or not s1_err <= 1e-4:
         raise AssertionError(f"K2 s1 disagrees with its plain version: "
                              f"{differ} lanes, err {s1_err}")
@@ -877,11 +930,10 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     if differ2 > 1e-4 * n or not s2_err <= 1e-4:
         raise AssertionError(f"K2 s2 disagrees with its plain version: "
                              f"{differ2} lanes, err {s2_err}")
-    # the texture wrapper reads the camera back to the host, so its
-    # time is the window around the wrapper
-    tex_line = (f"texture stage {tex_ms:.3f} ms (plain {tex_plain_ms:.1f} "
-                f"ms, bound {tex_b:.4f} ms by {tex_by}, {n_tex} textured "
-                f"lanes, largest plane difference {tex_err:.2e}); "
+    tex_line = (f"texture stage {tex_ms:.4f} / {tex_win:.3f} ms (plain "
+                f"{tex_plain_ms:.1f} ms, bound {tex_b:.4f} ms by {tex_by}, "
+                f"{tex_old:.4f} at the charge before PR 8, {n_tex} "
+                f"textured lanes, largest plane difference {tex_err:.2e}); "
                 if textured else "")
     print(f"{name} first depth ({n} lanes, {n_hit} hits, {n_sh} shadow "
           f"rays; kernel ms on the device, then around the wrapper): K1 "
@@ -895,7 +947,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
           f"{int(walk_any['nodes'].sum())} nodes and "
           f"{int(walk_any['slots'].sum())} triangles touched); K2 s1 "
           f"{s1_ms:.3f} / {s1_win:.3f} ms (plain {s1_plain_ms:.1f} ms, bound "
-          f"{s1_bound:.4f} ms, err {s1_err:.2e}, {differ} differing lanes); "
+          f"{s1_bound:.4f} ms, {s1_old:.4f} at the charge before PR 8, err "
+          f"{s1_err:.2e}, {differ} differing lanes); "
           f"K2 s2 {s2_ms:.3f} / {s2_win:.3f} ms (plain {s2_plain_ms:.1f} "
           f"ms, bound "
           f"{s2_bound:.4f} ms, err {s2_err:.2e}, {differ2} differing lanes) "
@@ -905,6 +958,9 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
 
     # ---- K1 past the first depth: live lanes per launch, depth 1 --------
     depth1_err = k1_depth1(scene, uni, static, dev, card)
+
+    # ---- the texture stage and s1 at every depth of one sample ---------
+    tex_depth_err, s1_depth_err = k2_depths(scene, uni, static, dev, card)
 
     # ---- the texture kernel on the all-six-slots scene ------------------
     six_settings, six_res = benchscene.build_six_slot_scene()
@@ -930,7 +986,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     out["shade_s1"] = dict(
         source=ROOT + "shade.cu",
         replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
-        launches=launches["shade_s1"], max_abs_err=max(nee_err, s1_err),
+        launches=launches["shade_s1"],
+        max_abs_err=max(nee_err, s1_err, s1_depth_err),
         ms=s1_ms, plain_ms=s1_plain_ms, bound_ms=s1_bound, bound_by=s1_by)
     out["shade_s2"] = dict(
         source=ROOT + "shade.cu",
@@ -942,7 +999,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
         # an XLA stage in the JAX package, not a TPU kernel
         replaces="metal_pathtracer_tpu/ops/pallas/shade.py:3600",
         launches=launches["texture_stage"],
-        max_abs_err=max(nee_err, tex_err, six_err), ms=tex_ms,
+        max_abs_err=max(nee_err, tex_err, six_err, tex_depth_err),
+        ms=tex_ms,
         plain_ms=tex_plain_ms, bound_ms=tex_b, bound_by=tex_by)
     return settings, res, scene
 
@@ -998,21 +1056,31 @@ def frame_loop_k1(scene, uni, static, dev, keep=()):
 
 
 def k1_depth1(scene, uni, static, dev, card):
-    """K1 past the first depth on the textured headline: the live lanes of
-    every K1 launch of one sample of the frame loop, and closest-hit and
+    """K1 past the first depth on the textured headline: the live lanes and
+    the device time of every K1 launch of one sample of the frame loop,
+    and closest-hit and
     any-hit on that sample's depth-1 wavefronts (secondary rays and the
     environment bank's shadow rays), bit-equal to the plain walks,
     device-timed, each with its live lanes and its bound beside the old
     one. Returns the largest |t| difference (0: equal bits)."""
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
-    live, waves = frame_loop_k1(scene, uni, static, dev, keep=(
-        K1_WAVES["closest depth 1"], K1_WAVES["shadow depth 1"]))
+    # every launch: one closest-hit and up to two any-hit per depth
+    live, waves = frame_loop_k1(scene, uni, static, dev, keep=tuple(
+        (key, k) for key in ("closest", "any")
+        for k in range(2 * static.max_depth)))
     print(f"K1 live lanes per launch over one {static.width}x"
           f"{static.height} sample of the frame loop (closest: one per "
           f"depth; any-hit: the environment and the spec-NEE shadow rays "
           f"per depth): closest {live['closest']}, any-hit {live['any']} "
           f"[{card}]")
+    per_launch = {key: [kernel_ms((lambda a, fn: lambda: lambda: fn(*a))(
+        waves[key, k], T.trace_closest if key == "closest" else T.trace_any),
+        5) for k in range(len(live[key]))] for key in live}
+    print("K1 device ms per launch of that sample: " + "; ".join(
+        f"{key} " + ", ".join(f"{ms:.4f}" for ms in times)
+        + f" (sum {sum(times):.4f})" for key, times in per_launch.items())
+        + f" [{card}]")
     args = waves[K1_WAVES["closest depth 1"]]
     sh_args = waves[K1_WAVES["shadow depth 1"]]
     n = args[0].shape[0]
@@ -1040,6 +1108,208 @@ def k1_depth1(scene, uni, static, dev, card):
           f"occluded; bound {ab:.4f} ms by {aby}, old layout {ab_old:.4f}) "
           f"[{card}]")
     return err
+
+
+def _kept(x):
+    """A spied argument as a later launch takes it: tensors and carries
+    cloned (a clone keeps the strides), everything else as it is."""
+    from metal_pathtracer_tpu_torch.ops.integrator import PathCarry
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return clone(x) if isinstance(x, PathCarry) else x
+
+
+def frame_loop_k2(scene, uni, static, dev, keep=()):
+    """One sample of the frame loop with the texture stage and K2 s1 and
+    s2 spied on. Returns per depth {"live", "hit", "textured", "s2_live"}
+    (live lanes, live hits, lanes the texture stage textured, s2's live
+    lanes; "textured" absent without texture) and the inputs of the three
+    at the depths in ``keep``, cloned as the wrappers take them:
+    {("tex" | "s1" | "s2", depth): (args, kwargs)}. A host sync per
+    launch, so it runs apart from the timed renders."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    rows, kept = [], {}
+    real_tex, real_s1, real_s2 = S.texture_stage, S.shade_s1, S.shade_s2
+
+    def tex_spy(*args):
+        depth = len(rows)
+        if depth in keep:
+            kept["tex", depth] = (tuple(_kept(x) for x in args), {})
+        out = real_tex(*args)
+        rows.append({"textured": int((out[:, X.TEX_IDX["tpbr"]] > 0.5)
+                                     .sum())})
+        return out
+
+    def s1_spy(carry, t, idx, *args, **kw):
+        depth = s1_spy.calls
+        s1_spy.calls += 1
+        if len(rows) == depth:          # an untextured scene
+            rows.append({})
+        rows[depth].update(live=int(carry.alive.sum()),
+                           hit=int((carry.alive & (idx >= 0)).sum()))
+        if depth in keep:
+            kept["s1", depth] = (tuple(_kept(x) for x in
+                                       (carry, t, idx, *args)),
+                                 {k: _kept(x) for k, x in kw.items()})
+        return real_s1(carry, t, idx, *args, **kw)
+
+    def s2_spy(carry, *args, **kw):
+        depth = s2_spy.calls
+        s2_spy.calls += 1
+        rows[depth]["s2_live"] = int(carry.alive.sum())
+        if depth in keep:
+            kept["s2", depth] = (tuple(_kept(x) for x in (carry, *args)),
+                                 {k: _kept(x) for k, x in kw.items()})
+        return real_s2(carry, *args, **kw)
+
+    # the wrappers count their launches on the name they are called by
+    s1_spy.calls = s1_spy.launches = s2_spy.calls = s2_spy.launches = 0
+    with mock.patch.object(S, "texture_stage", tex_spy), \
+            mock.patch.object(S, "shade_s1", s1_spy), \
+            mock.patch.object(S, "shade_s2", s2_spy):
+        frame.render_samples(scene, uni, RenderState.create(
+            static.width, static.height, dev), static, 1)
+    return rows, kept
+
+
+def _k2_wrapper(which):
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+
+    return {"tex": X.texture_stage, "s1": S.shade_s1,
+            "s2": S.shade_s2}[which]
+
+
+def k2_launch(kept, which, depth):
+    """``kernel_ms``'s ``prepare`` for a kept texture-stage, s1 or s2
+    launch: each run on a fresh clone of the kept carry."""
+    fn = _k2_wrapper(which)
+    args, kw = kept[which, depth]
+
+    def prepare():
+        a = (clone(args[0]),) + args[1:]
+        return lambda: fn(*a, **kw)
+    return prepare
+
+
+def k2_once(kept, which, depth, fn=None):
+    """One run of a kept launch on a fresh clone of its carry, by the
+    wrapper (or ``fn``, e.g. the plain version): (output, carry)."""
+    args, kw = kept[which, depth]
+    carry = clone(args[0])
+    return (fn or _k2_wrapper(which))(carry, *args[1:], **kw), carry
+
+
+def k2_digest(out, carry) -> str:
+    """SHA-256 of a launch's result in one layout: the (N, k) output made
+    contiguous, then every carry tensor (the state included)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in (out, *vars(carry).values()):
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kernel_resources(log: str) -> dict:
+    """{instantiation: (registers, spill store bytes, spill load bytes)}
+    from the build's ``-Xptxas -v`` output."""
+    import re
+
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+
+    out, current, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current, spills = build._kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            out[current] = (int(m.group(1)), *spills)
+            current = None
+    return out
+
+
+def k2_depths(scene, uni, static, dev, card):
+    """The texture stage and K2 s1 at every depth of one sample of the
+    textured headline's frame loop (``frame_loop_k2``): both against their
+    plain versions at depths 0 and 1 (the outputs plane-major; state and
+    flags exact, planes within TEX_PLANE_TOL; s1's carry and transients
+    within 1e-4), then each depth's device time (``kernel_ms``) beside its
+    bound, with its live, hit and textured lanes, s2's beside it, and the
+    sums over the sample. Returns the largest plane and s1 differences."""
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+
+    rows, kept = frame_loop_k2(scene, uni, static, dev,
+                               keep=range(static.max_depth))
+    n = static.width * static.height
+    tex_err = s1_err = 0.0
+    for depth in (0, 1):
+        got, ck = k2_once(kept, "tex", depth)
+        want, cp = k2_once(kept, "tex", depth, X.texture_stage_reference)
+        torch.cuda.synchronize()
+        build.check_planes("texture stage", got, n, len(X.TEX))
+        tex_err = max(tex_err, compare_texture(
+            got, want, ck, cp, f"textured headline depth {depth} texture "
+            f"stage"))
+        got, ck = k2_once(kept, "s1", depth)
+        want, cp = k2_once(kept, "s1", depth, S.shade_s1_reference)
+        torch.cuda.synchronize()
+        build.check_planes("K2 s1", got, n, len(S.TRANS))
+        differ, err = carry_error(ck, cp, n)
+        err = max(err, float((got - want).abs().max()))
+        if differ > 1e-4 * n or not err <= 1e-4:
+            raise AssertionError(f"K2 s1 at depth {depth} disagrees with its "
+                                 f"plain version: {differ} lanes, err {err}")
+        s1_err = max(s1_err, err)
+    print(f"textured headline depths 0 and 1: the texture stage and K2 s1 "
+          f"against their plain versions, outputs plane-major: state and "
+          f"flags bit-equal, largest plane difference {tex_err:.2e}, s1 "
+          f"err {s1_err:.2e} [{card}]")
+    sums = [0.0] * 6
+    for depth, row in enumerate(rows):
+        args = kept["tex", depth][0]
+        tex_ms = kernel_ms(k2_launch(kept, "tex", depth), 5)
+        s1_ms = kernel_ms(k2_launch(kept, "s1", depth), 5)
+        s2_ms = kernel_ms(k2_launch(kept, "s2", depth), 5)
+        planes, _ = k2_once(kept, "tex", depth)
+        tex_b, tex_by, tex_old = texture_bound(scene, static, args[0],
+                                               args[1:5], planes)
+        s1_args = kept["s1", depth][0]
+        s1_b, s1_by = k2_bound("shade_s1", row["hit"],
+                               row["live"] - row["hit"], n - row["live"],
+                               textured=True, n_tex=row["textured"],
+                               **s1_counts(s1_args[0], s1_args[2]))
+        s2_b, s2_by = k2_bound("shade_s2", row["s2_live"], 0,
+                               n - row["s2_live"], textured=True)
+        for k, x in enumerate((tex_ms, tex_b, s1_ms, s1_b, s2_ms, s2_b)):
+            sums[k] += x
+        print(f"textured headline depth {depth}: {row['live']} live lanes, "
+              f"{row['hit']} hits, {row['textured']} textured, "
+              f"{row['s2_live']} into s2; texture stage {tex_ms:.4f} ms "
+              f"(bound {tex_b:.4f} ms by {tex_by}, {tex_old:.4f} at the "
+              f"charge before PR 8), K2 s1 {s1_ms:.4f} ms (bound "
+              f"{s1_b:.4f} ms by {s1_by}), K2 s2 {s2_ms:.4f} ms (bound "
+              f"{s2_b:.4f} ms by {s2_by}) [{card}]")
+    print(f"textured headline, one sample's {len(rows)} depths: texture "
+          f"stage {sums[0]:.4f} ms (bounds {sums[1]:.4f}), K2 s1 "
+          f"{sums[2]:.4f} ms (bounds {sums[3]:.4f}), the two together "
+          f"{sums[0] + sums[2]:.4f} ms; K2 s2 {sums[4]:.4f} ms (bounds "
+          f"{sums[5]:.4f}) [{card}]")
+    return tex_err, s1_err
 
 
 def compare_nearest(got, ref, label, count_ties=False):
@@ -1810,7 +2080,8 @@ def headless_path(dev, card, kernels, out, headline):
     k1_args = trace_inputs(carry, scene)
     hit = T.trace_closest(*k1_args)
     c = clone(carry)
-    tex = X.texture_stage(c, *hit, scene, uni, static, 0)
+    tex = X.texture_stage(c, *hit, scene, uni, static, 0,
+                          X.TexParams.of(uni, static, scene.textures))
     envbg = env_ops.environment_background(
         scene.environment, c.ray_d, uni, static, c.env_lod, c.env_lod_active)
     envpdf = env_ops.environment_pdf(scene.environment, c.ray_d,

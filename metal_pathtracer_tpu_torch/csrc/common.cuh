@@ -115,8 +115,40 @@ __device__ inline V3 to_acescg(V3 c) {
             fmaf_rn(0.869816f, c.z, fmaf_rn(0.109569f, c.y, 0.020615f * c.x)));
 }
 
+// One triangle's shade_packed row, columns 0-19 (v0, v1, v2, n0, n1, n2,
+// material, mesh), as five 16-byte loads of its 96-byte row (the table is
+// 16-byte aligned: the wrappers check)
+struct TriRow {
+  float4 a, b, c, d, e;
+};
+__device__ __forceinline__ const float4* tri_row(const float* shade_packed,
+                                                 int tri) {
+  return reinterpret_cast<const float4*>(shade_packed) + 6LL * tri;
+}
+// the row's columns 16-19 alone (n2.yz, material, mesh)
+__device__ __forceinline__ float4 tri_row_tail(const float* shade_packed,
+                                               int tri) {
+  return __ldg(tri_row(shade_packed, tri) + 4);
+}
+// the rest of a row whose tail is already loaded
+__device__ __forceinline__ TriRow load_tri_row(const float* shade_packed,
+                                               int tri, float4 tail) {
+  const float4* r = tri_row(shade_packed, tri);
+  TriRow row = {__ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3), tail};
+  return row;
+}
+__device__ __forceinline__ V3 row_v0(const TriRow& r) {
+  return v3(r.a.x, r.a.y, r.a.z);
+}
+__device__ __forceinline__ V3 row_v1(const TriRow& r) {
+  return v3(r.a.w, r.b.x, r.b.y);
+}
+__device__ __forceinline__ V3 row_v2(const TriRow& r) {
+  return v3(r.b.z, r.b.w, r.c.x);
+}
+
 // traversal._hit_record_from_best for one lane: the shade_packed row of
-// triangle `tri` gives the point, the faced geometric normal and the
+// the hit triangle gives the point, the faced geometric normal and the
 // interpolated shading normal, as the hit record holds it (shading_rec)
 // and with the integrator's bad-normal fallback (shading_n). is_tri and
 // two_sided tell a triangle from an analytic primitive (shade.cu
@@ -127,20 +159,17 @@ struct Hit {
   bool front, is_tri, two_sided;
   int material, mesh;
 };
-__device__ inline Hit rebuild_hit(const float* shade_packed, int tri, V3 ray_o,
-                           V3 ray_d, float t, float u, float v) {
-  const float* row = shade_packed + 24LL * tri;
-  V3 v0 = v3(row[0], row[1], row[2]);
-  V3 v1 = v3(row[3], row[4], row[5]);
-  V3 v2 = v3(row[6], row[7], row[8]);
-  V3 n0 = v3(row[9], row[10], row[11]);
-  V3 n1 = v3(row[12], row[13], row[14]);
-  V3 n2 = v3(row[15], row[16], row[17]);
+__device__ inline Hit rebuild_hit_row(const TriRow& row, V3 ray_o, V3 ray_d,
+                                      float t, float u, float v) {
+  V3 v0 = row_v0(row), v1 = row_v1(row), v2 = row_v2(row);
+  V3 n0 = v3(row.c.y, row.c.z, row.c.w);
+  V3 n1 = v3(row.d.x, row.d.y, row.d.z);
+  V3 n2 = v3(row.d.w, row.e.x, row.e.y);
   Hit h;
   h.is_tri = true;
   h.two_sided = false;
-  h.material = (int)row[18];
-  h.mesh = (int)row[19];
+  h.material = (int)row.e.z;
+  h.mesh = (int)row.e.w;
   h.point = fma3(t, ray_d, ray_o);
   V3 geo_n = safe_normalize3(cross3(v1 - v0, v2 - v0));
   h.front = dot3(ray_d, geo_n) < 0.0f;
@@ -164,4 +193,17 @@ __device__ inline Hit rebuild_hit(const float* shade_packed, int tri, V3 ray_o,
   if (!finite3(h.shading_n) || dot3(h.shading_n, h.shading_n) <= 0.0f)
     h.shading_n = h.n_faced;
   return h;
+}
+__device__ __forceinline__ Hit rebuild_hit(const float* shade_packed, int tri,
+                                           V3 ray_o, V3 ray_d, float t,
+                                           float u, float v) {
+  return rebuild_hit_row(
+      load_tri_row(shade_packed, tri, tri_row_tail(shade_packed, tri)),
+      ray_o, ray_d, t, u, v);
+}
+
+// value k of lane i in a plane-major (k, n) float32 array
+__device__ __forceinline__ float plane_at(const float* p, int n,
+                                          long long i, int k) {
+  return p[(long long)k * n + i];
 }

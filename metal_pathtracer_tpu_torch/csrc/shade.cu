@@ -14,8 +14,8 @@
 //               absorption, normal, AOVs and emission, diffuse lights emit
 //               with MIS against the rect-light pdf of the hit and end, and
 //               the NEE draws (3 per light integral, rect first) are taken
-//               on NEE lanes; 18 transient columns per lane are exported
-//               (ops/kernels/shade.py TRANS);
+//               on NEE lanes; 18 transient planes are exported
+//               (ops/kernels/shade.py TRANS, plane-major: (18, n));
 //   shade_s2    stage "s2": the NEE adds with MIS from one bank of light
 //               sample + shadow flag per light integral (ESMP, 9 columns
 //               each, rect first), BSDF sampling from the post-s1 state, the
@@ -32,8 +32,9 @@
 // shading normal; spheres are two-sided, rectangles as stored; only
 // triangles set the self-hit exclusion ids (shade.py:1966-1988,
 // 2012-2018, 2132-2143, 2449).
-// In a textured scene every stage reads the texture stage's 15 planes per
-// lane (csrc/texture.cu; a NULL pointer otherwise): lanes whose tpbr flag
+// In a textured scene every stage reads the texture stage's 15 planes
+// (csrc/texture.cu, plane-major: (15, n); a NULL pointer otherwise): lanes
+// whose tpbr flag
 // is set take the textured material values, diffuse occlusion and (full,
 // s1) mapped normal, and alpha pass-through lanes record no AOV, add no
 // emission, draw no NEE or BSDF sample, skip Russian roulette and go on
@@ -64,17 +65,19 @@
 // lanes that enter dead keep every value.
 //
 // What bounds them on an H100: bytes. A live lane reads its carry (~150
-// B), gathers one 96 B shade_packed row at a random triangle (or 16-28 B of
-// a sphere or rectangle), reads or writes 72 B of transients (s1/s2), reads
-// 36 B of light sample per bank, reads 60 B of texture planes in a
-// textured scene, and writes the carry back; the arithmetic (a few
-// sqrt/div/exp, one or two sin/cos pairs) is small beside that. The design
-// touches each carry value once per stage, keeps every intermediate in
-// registers, and returns at once for dead lanes so late depths cost
-// little. It is written in CUDA rather than Triton for the uint32 PCG
-// arithmetic, the per-lane material and primitive branches, and explicit
-// control of FMA contraction (__fmaf_rn only where the plain version
-// fuses; the build passes --fmad=false).
+// B), gathers 80 B of a 96 B shade_packed row at a random triangle as five
+// 16-byte loads (or 16-28 B of a sphere or rectangle), reads or writes 72
+// B of transients (s1/s2), reads 36 B of light sample per bank, reads 60 B
+// of texture planes in a textured scene, and writes the carry back; the
+// arithmetic (a few sqrt/div/exp, one or two sin/cos pairs) is small
+// beside that. The design touches each carry value once per stage, keeps
+// every intermediate in registers, and returns at once for dead lanes so
+// late depths cost little; s1 still writes every lane's transients (zero
+// where the lane is not a live hit), each plane once and coalesced, which
+// is all a dead lane costs. It is written in CUDA rather than Triton for
+// the uint32 PCG arithmetic, the per-lane material and primitive branches,
+// and explicit control of FMA contraction (__fmaf_rn only where the plain
+// version fuses; the build passes --fmad=false).
 #include "bsdf.cuh"
 
 #define INFINITY_T 1.0e20f
@@ -84,7 +87,6 @@
 #define N_TRANS 18
 #define N_ESMP 9
 #define N_CHAIN 7
-#define N_TEX 15
 #define N_RW 18
 #define N_PROBE 6
 #define PRIM_SPHERE 1
@@ -162,7 +164,8 @@ __device__ __forceinline__ Hit rebuild(const Geo& g, long long i, V3 ray_o,
   return rebuild_analytic(g, kind, g.idx[i], ray_o, ray_d, g.t[i]);
 }
 
-// The texture planes' overrides of one lane (kernels/shade.py _textured):
+// The texture planes' overrides of one lane (kernels/shade.py _textured;
+// the planes plane-major, (15, n)):
 // where tpbr, the textured material values; the PBR emission (the
 // material's own, in the working space when the scene is textured), the
 // diffuse occlusion, the pass-through flag and the mapped normal
@@ -171,27 +174,27 @@ struct TexLane {
   float occlusion;
   bool tpbr, passthrough;
 };
-__device__ TexLane apply_tex(const float* tex, long long i, Mat* m,
+__device__ TexLane apply_tex(const float* tex, int n, long long i, Mat* m,
                              int working_space) {
   TexLane o;
   o.emission = m->emission;
   o.occlusion = 1.0f;
   o.tpbr = o.passthrough = false;
   if (tex == nullptr) return o;
-  const float* tx = tex + (long long)N_TEX * i;
-  o.tpbr = tx[14] > 0.5f;
+  auto tx = [&](int k) { return plane_at(tex, n, i, k); };
+  o.tpbr = tx(14) > 0.5f;
   if (!o.tpbr) {
     if (working_space == 1) o.emission = to_acescg(m->emission);
     return o;
   }
-  m->base = v3(tx[0], tx[1], tx[2]);
-  m->roughness = tx[3];
-  m->metallic = tx[4];
-  m->transmission = tx[13];
-  o.emission = v3(tx[5], tx[6], tx[7]);
-  o.occlusion = tx[8];
-  o.passthrough = tx[9] > 0.5f;
-  o.normal = v3(tx[10], tx[11], tx[12]);
+  m->base = v3(tx(0), tx(1), tx(2));
+  m->roughness = tx(3);
+  m->metallic = tx(4);
+  m->transmission = tx(13);
+  o.emission = v3(tx(5), tx(6), tx(7));
+  o.occlusion = tx(8);
+  o.passthrough = tx(9) > 0.5f;
+  o.normal = v3(tx(10), tx(11), tx(12));
   return o;
 }
 
@@ -285,7 +288,7 @@ struct Front {
   V3 sn, tp, radiance;
   bool ended;
 };
-__device__ inline Front shade_front(const Geo& g, long long i,
+__device__ inline Front shade_front(const Geo& g, int n, long long i,
                                     const ShadeParams& p,
                                     const float* mat_table, int m_count,
                                     const float* tex, const float* rectpdf,
@@ -293,7 +296,7 @@ __device__ inline Front shade_front(const Geo& g, long long i,
   Front f;
   f.h = rebuild(g, i, load3(c.ray_o, i), load3(c.ray_d, i));
   f.m = fetch_material(mat_table, min(max(f.h.material, 0), m_count - 1));
-  f.tl = apply_tex(tex, i, &f.m, p.working_space);
+  f.tl = apply_tex(tex, n, i, &f.m, p.working_space);
   f.tp = absorb(c, i, g.t[i], load3(c.throughput, i));
   f.sn = f.m.type == MAT_DIELECTRIC ? f.h.n_faced
                                     : (f.tl.tpbr ? f.tl.normal : f.h.shading_n);
@@ -485,8 +488,8 @@ __global__ void __launch_bounds__(128, EXT ? 4 : 6)
                                      background(ray_d, p), p.c));
     return;
   }
-  Front f = shade_front(g, i, p, mat_table, m_count, tex, nullptr, nullptr,
-                        c);
+  Front f = shade_front(g, n, i, p, mat_table, m_count, tex, nullptr,
+                        nullptr, c);
   store3(c.radiance, i, f.radiance);
   if (f.ended) {
     probe_lane(probe, i, f.tp, 0.0f, false, 0);
@@ -523,17 +526,14 @@ __global__ void __launch_bounds__(128, EXT ? 4 : 6)
   c.alive[i] = active;
 }
 
+// Stage s1 of one lane: updates the carry and fills tr, the lane's 18
+// transients, which stay zero unless the lane is a live hit after s1
 template <bool EXT>
-__global__ void shade_s1_kernel(
-    int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
-    int m_count, const float* __restrict__ envbg,
-    const float* __restrict__ envpdf, const float* __restrict__ rectpdf,
-    const float* __restrict__ emod, const float* __restrict__ tex, Carry c,
-    float* __restrict__ trans, float* __restrict__ probe) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float* tr = trans + (long long)N_TRANS * i;
-  for (int k = 0; k < N_TRANS; ++k) tr[k] = 0.0f;
+__device__ __forceinline__ void s1_lane(
+    int n, long long i, const ShadeParams& p, const Geo& g,
+    const float* mat_table, int m_count, const float* envbg,
+    const float* envpdf, const float* rectpdf, const float* emod,
+    const float* tex, const Carry& c, float* probe, float* tr) {
   if (!c.alive[i]) return;
   V3 tp0 = load3(c.throughput, i);
 
@@ -555,7 +555,8 @@ __global__ void shade_s1_kernel(
     return;
   }
 
-  Front f = shade_front(g, i, p, mat_table, m_count, tex, rectpdf, emod, c);
+  Front f =
+      shade_front(g, n, i, p, mat_table, m_count, tex, rectpdf, emod, c);
   store3(c.radiance, i, f.radiance);
   if (f.ended) {
     probe_lane(probe, i, f.tp, 0.0f, false, 0);
@@ -594,6 +595,32 @@ __global__ void shade_s1_kernel(
   tr[14] = delta ? 1.0f : 0.0f;
 }
 
+// The transients are plane-major, (18, n): each lane keeps its 18 values
+// in registers and stores each plane once at the end, so a warp's store
+// covers 32 consecutive floats of one plane (a lane-major (n, 18) record
+// put each of a warp's stores in 32 different sectors, and every value
+// was stored twice: a zero first, then the value). Holding the 18 values
+// took the base instantiation from 48 to 56 registers; its launch bound
+// keeps it at 48 (ten 128-thread blocks per SM), no spills; the extended
+// one's 56 registers fit nine blocks, as its 55 did before.
+template <bool EXT>
+__global__ void __launch_bounds__(128, EXT ? 9 : 10) shade_s1_kernel(
+    int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
+    int m_count, const float* __restrict__ envbg,
+    const float* __restrict__ envpdf, const float* __restrict__ rectpdf,
+    const float* __restrict__ emod, const float* __restrict__ tex, Carry c,
+    float* __restrict__ trans, float* __restrict__ probe) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float tr[N_TRANS];
+#pragma unroll
+  for (int k = 0; k < N_TRANS; ++k) tr[k] = 0.0f;
+  s1_lane<EXT>(n, i, p, g, mat_table, m_count, envbg, envpdf, rectpdf, emod,
+               tex, c, probe, tr);
+#pragma unroll
+  for (int k = 0; k < N_TRANS; ++k) trans[(long long)k * n + i] = tr[k];
+}
+
 template <bool EXT>
 __global__ void shade_s2_kernel(
     int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
@@ -606,15 +633,15 @@ __global__ void shade_s2_kernel(
   float* ch = chain + (long long)N_CHAIN * i;
   for (int k = 0; k < N_CHAIN; ++k) ch[k] = 0.0f;
   if (!c.alive[i]) return;  // after s1: the live hits only
-  const float* tr = trans + (long long)N_TRANS * i;
+  auto tr = [&](int k) { return plane_at(trans, n, i, k); };
   float t = g.t[i];
   V3 ray_d = load3(c.ray_d, i);
   Hit h = rebuild(g, i, load3(c.ray_o, i), ray_d);
   Mat m = fetch_material(mat_table, min(max(h.material, 0), m_count - 1));
-  TexLane tl = apply_tex(tex, i, &m, p.working_space);
-  V3 sn = v3(tr[4], tr[5], tr[6]);
-  V3 n_faced = v3(tr[7], tr[8], tr[9]);
-  V3 point = v3(tr[10], tr[11], tr[12]);
+  TexLane tl = apply_tex(tex, n, i, &m, p.working_space);
+  V3 sn = v3(tr(4), tr(5), tr(6));
+  V3 n_faced = v3(tr(7), tr(8), tr(9));
+  V3 point = v3(tr(10), tr(11), tr(12));
   V3 incident = normalize3(ray_d);
   V3 wo = -incident;
   V3 tp = load3(c.throughput, i);
@@ -627,7 +654,7 @@ __global__ void shade_s2_kernel(
     V3 e_dir = v3(es[0], es[1], es[2]);
     float e_pdf = es[6];
     float n_dot_l = cmin(dot3(sn, e_dir), 0.0f);
-    bool do_shadow = tr[14] < 0.5f && !tl.passthrough && es[7] > 0.5f &&
+    bool do_shadow = tr(14) < 0.5f && !tl.passthrough && es[7] > 0.5f &&
                      e_pdf > 0.0f && n_dot_l > 0.0f;
     if (do_shadow && !(es[8] > 0.5f)) {
       Eval ev = evaluate_bsdf<EXT>(m, point, sn, wo, e_dir, p.c, tl.occlusion,

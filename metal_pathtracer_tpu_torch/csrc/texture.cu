@@ -14,13 +14,18 @@
 // applies ORM, transmission, alpha MASK/BLEND (one RNG draw on BLEND
 // lanes, committed to the state in place), occlusion, emissive and the
 // normal map with Toksvig widening, and writes the 15 planes of
-// ops/kernels/texture.py TEX.
+// ops/kernels/texture.py TEX, plane-major: (15, n).
 //
 // What bounds it on an H100: bytes. An eligible lane reads its ray and
-// cone (~40 B), one 96 B shade_packed row, up to 2x3 UV pairs and three
-// tangents of its triangle, a 256 B material row and 8 texels (128 B) per
-// bound slot, and writes 60 B of planes; every other lane reads its flag
-// and hit id and writes 60 B of zeros. The arithmetic (a few sqrt, div
+// cone (~40 B), 80 B of its triangle's 96 B shade_packed row (five 16-byte
+// loads), up to 2x3 UV pairs (8-byte loads) and three tangents (16-byte
+// loads) of its triangle, a 256 B material row and 8 texels (16 B each,
+// one load) per bound slot, and writes 60 B of planes; a live hit on a
+// non-PBR material reads 16 B of its row (the material id) and a dead lane
+// only its flag, and every such lane writes 60 B of zeros, each plane
+// once and coalesced, which is what a late depth costs. The launch
+// constants come from the caller, built once per frame on the host, so a
+// launch reads nothing back. The arithmetic (a few sqrt, div
 // and log2 per slot) is small beside that. Slots no material binds take
 // their defaults without a read, as in the plain version. Every operation
 // mirrors ops/pbr_textures.py and ops/textures.py in order, with
@@ -35,9 +40,9 @@
 
 namespace {
 
-// texture.py _scalars(): depth, width, height, camera horizontal and
-// vertical, working space, slot bit mask, UV set 1, the debug flags, the
-// normal strength scale and the atlas's top LOD
+// texture.py TexParams.scalars(): depth, width, height, camera horizontal
+// and vertical, working space, slot bit mask, UV set 1, the debug flags,
+// the normal strength scale and the atlas's top LOD
 struct TexParams {
   int depth, width, height;
   V3 hor, ver;
@@ -55,8 +60,8 @@ struct Atlas {
   int n_textures, max_levels;
 };
 
-// the triangle attributes, by value: shade_packed, uv0-uv2, uvb0-uvb2,
-// t0-t2 (TrianglesSoA)
+// the triangle attributes, by value: shade_packed, uv0-uv2, uvb0-uvb2
+// ((T, 2), 8-byte aligned), t0-t2 ((T, 4), 16-byte aligned) (TrianglesSoA)
 struct TriAttrs {
   const float* p[10];
 };
@@ -72,8 +77,10 @@ __device__ __forceinline__ F4 f4(float x, float y, float z, float w) {
 struct V2 {
   float x, y;
 };
-__device__ __forceinline__ V2 load2(const float* p, long long i) {
-  V2 r = {p[2 * i], p[2 * i + 1]};
+// a UV pair as one 8-byte load
+__device__ __forceinline__ V2 load2(const float* p, int i) {
+  float2 a = __ldg(reinterpret_cast<const float2*>(p) + i);
+  V2 r = {a.x, a.y};
   return r;
 }
 
@@ -102,9 +109,10 @@ __device__ __forceinline__ F4 lerp4(F4 a, F4 b, float f) {
             lerpf(a.w, b.w, f));
 }
 
-__device__ F4 texel(const Atlas& A, long long idx) {
-  const float* t = A.texels + 4 * idx;
-  return f4(t[0], t[1], t[2], t[3]);
+// an RGBA texel as one 16-byte load
+__device__ __forceinline__ F4 texel(const Atlas& A, long long idx) {
+  float4 t = __ldg(reinterpret_cast<const float4*>(A.texels) + idx);
+  return f4(t.x, t.y, t.z, t.w);
 }
 
 // textures._bilinear_level
@@ -234,34 +242,32 @@ __device__ F4 slot_sample(const TexParams& p, const Atlas& A,
   return sample_texture(A, tid, u, v, lod);
 }
 
-__global__ void texture_stage_kernel(
-    int n, TexParams p, const float* __restrict__ hit_t,
-    const int* __restrict__ hit_tri, const float* __restrict__ hit_u,
-    const float* __restrict__ hit_v, const float* __restrict__ mat_table,
-    int m_count, long long* __restrict__ state,
-    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-    const bool* __restrict__ alive, const float* __restrict__ cone_w,
-    const float* __restrict__ cone_s, TriAttrs tris, Atlas A,
-    float* __restrict__ planes) {
+// The texture stage of one lane: fills out, its 15 planes, which stay
+// the identity (zero, tpbr 0) unless the lane is alive and hit a PBR
+// material; commits the BLEND draw to the state
+__device__ __forceinline__ void texture_lane(
+    int i, const TexParams& p, const float* hit_t, const int* hit_tri,
+    const float* hit_u, const float* hit_v, const float* mat_table,
+    int m_count, long long* state, const float* ray_o, const float* ray_d,
+    const bool* alive, const float* cone_w, const float* cone_s,
+    const TriAttrs& tris, const Atlas& A, float* out) {
   const float* const* attrs = tris.p;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float* out = planes + (long long)N_TEX * i;
-  for (int k = 0; k < N_TEX; ++k) out[k] = 0.0f;
+  if (!alive[i]) return;
   int tri = hit_tri[i];
-  if (!alive[i] || tri < 0) return;
+  if (tri < 0) return;
+  // the material first: a non-PBR hit reads no more of its row
   const float* shade_packed = attrs[0];
-  float t = hit_t[i], bu = hit_u[i], bv = hit_v[i];
-  V3 d = load3(ray_d, i);
-  Hit h = rebuild_hit(shade_packed, tri, load3(ray_o, i), d, t, bu, bv);
-  int mid = min(max(h.material, 0), m_count - 1);
+  float4 tail = tri_row_tail(shade_packed, tri);
+  int mid = min(max((int)tail.z, 0), m_count - 1);
   const float* mat = mat_table + (long long)TEX_MAT_COLS * mid;
   if ((int)mat[0] != MAT_PBR) return;
+  TriRow row = load_tri_row(shade_packed, tri, tail);
+  float t = hit_t[i], bu = hit_u[i], bv = hit_v[i];
+  V3 d = load3(ray_d, i);
+  Hit h = rebuild_hit_row(row, load3(ray_o, i), d, t, bu, bv);
 
   // ---- corners, barycentric weights, footprint ----------------------
-  const float* row = shade_packed + 24LL * tri;
-  V3 v0 = v3(row[0], row[1], row[2]), v1 = v3(row[3], row[4], row[5]),
-     v2 = v3(row[6], row[7], row[8]);
+  V3 v0 = row_v0(row), v1 = row_v1(row), v2 = row_v2(row);
   float w0 = cmin((1.0f - bu) - bv, 0.0f), w1 = cmin(bu, 0.0f),
         w2 = cmin(bv, 0.0f);
   float w_sum = (w0 + w1) + w2;
@@ -365,10 +371,14 @@ __global__ void texture_stage_kernel(
   n_ts = safe_normalize3(v3(n_ts.x, n_ts.y, sqrtf(cmin(1.0f - xy2, 0.0f))));
   V3 new_normal = sn;
   if (use_nm) {
-    float tg[4];
-    for (int k = 0; k < 4; ++k)
-      tg[k] = interp1(w0, w1, w2, attrs[7][4LL * tri + k],
-                      attrs[8][4LL * tri + k], attrs[9][4LL * tri + k]);
+    // each corner's tangent as one 16-byte load
+    float4 c0 = __ldg(reinterpret_cast<const float4*>(attrs[7]) + tri);
+    float4 c1 = __ldg(reinterpret_cast<const float4*>(attrs[8]) + tri);
+    float4 c2 = __ldg(reinterpret_cast<const float4*>(attrs[9]) + tri);
+    float tg[4] = {interp1(w0, w1, w2, c0.x, c1.x, c2.x),
+                   interp1(w0, w1, w2, c0.y, c1.y, c2.y),
+                   interp1(w0, w1, w2, c0.z, c1.z, c2.z),
+                   interp1(w0, w1, w2, c0.w, c1.w, c2.w)};
     V3 t_raw = v3(tg[0], tg[1], tg[2]);
     bool trust = fabsf(tg[3]) > 0.5f && finite3(t_raw) &&
                  dot3(t_raw, t_raw) > 1e-6f;
@@ -408,6 +418,31 @@ __global__ void texture_stage_kernel(
   out[12] = new_normal.z;
   out[13] = transmission;
   out[14] = 1.0f;
+}
+
+// The planes are plane-major, (15, n): each lane keeps its 15 values in
+// registers and stores each plane once at the end, so a warp's store
+// covers 32 consecutive floats of one plane (a lane-major (n, 15) record
+// put each of a warp's stores in 32 different sectors, and an eligible
+// lane stored every value twice: a zero first, then the value).
+__global__ void texture_stage_kernel(
+    int n, TexParams p, const float* __restrict__ hit_t,
+    const int* __restrict__ hit_tri, const float* __restrict__ hit_u,
+    const float* __restrict__ hit_v, const float* __restrict__ mat_table,
+    int m_count, long long* __restrict__ state,
+    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    const bool* __restrict__ alive, const float* __restrict__ cone_w,
+    const float* __restrict__ cone_s, TriAttrs tris, Atlas A,
+    float* __restrict__ planes) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float out[N_TEX];
+#pragma unroll
+  for (int k = 0; k < N_TEX; ++k) out[k] = 0.0f;
+  texture_lane(i, p, hit_t, hit_tri, hit_u, hit_v, mat_table, m_count, state,
+               ray_o, ray_d, alive, cone_w, cone_s, tris, A, out);
+#pragma unroll
+  for (int k = 0; k < N_TEX; ++k) planes[(long long)k * n + i] = out[k];
 }
 
 const int kBlock = 128;

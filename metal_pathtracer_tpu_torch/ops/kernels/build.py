@@ -28,6 +28,8 @@ import sys
 import tempfile
 import threading
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -98,6 +100,34 @@ def floats(values) -> ctypes.Array:
 def pointers(values) -> ctypes.Array:
     """A host void*[] argument of device pointers."""
     return (ctypes.c_void_p * len(values))(*values)
+
+
+def planes(n: int, cols: int, device) -> torch.Tensor:
+    """An (n, cols) float32 output stored plane-major: the transposed
+    view of a contiguous (cols, n) tensor, so that column k is contiguous
+    and a kernel stores plane k of lane i at ``k * n + i``."""
+    return torch.empty((cols, n), dtype=torch.float32, device=device).t()
+
+
+def check_planes(who: str, x: torch.Tensor, n: int, cols: int) -> None:
+    """Raise unless ``x`` is an (n, cols) float32 view of a contiguous
+    (cols, n) tensor, the layout ``planes`` makes and the kernels read."""
+    if x.shape != (n, cols) or x.dtype != torch.float32 \
+            or not x.t().is_contiguous():
+        raise ValueError(f"{who}: expected ({n}, {cols}) float32 planes "
+                         f"stored plane-major (the .t() of a contiguous "
+                         f"({cols}, {n}) tensor), got {tuple(x.shape)} "
+                         f"{x.dtype} with strides {x.stride()}")
+
+
+def check_aligned(who: str, tensors, align: int) -> None:
+    """Raise unless every tensor starts on an ``align``-byte boundary (the
+    kernels read them with ``align``-byte vector loads)."""
+    for x in tensors:
+        if x.data_ptr() % align:
+            raise ValueError(f"{who}: a {tuple(x.shape)} tensor read with "
+                             f"{align}-byte loads is not {align}-byte "
+                             "aligned")
 
 
 def nvcc_path() -> str:

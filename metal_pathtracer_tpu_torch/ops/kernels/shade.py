@@ -21,7 +21,9 @@ place, and lanes that enter dead keep every value:
   emits (an ``emission_env`` light's front face times the ``emod``
   plane) with MIS against the rect-light pdf of the hit and ends, and the
   NEE draws are taken, 3 per light integral, rect first; 18 transient
-  columns are exported (``TRANS``);
+  columns are exported (``TRANS``, an (N, 18) view of plane-major
+  (18, N) storage: the kernel stores each plane coalesced, and each
+  column is contiguous);
 - ``shade_s2``: the NEE adds with MIS, one bank (light sample + shadow
   flag, ``ESMP``) per light integral, rect first, none on subsurface
   lanes; BSDF sampling from the post-s1 state, the spec-NEE chain exports
@@ -46,7 +48,8 @@ as stored; only triangles set the self-hit exclusion ids
 scenes pass no family (``kind`` None).
 
 In a textured scene every stage reads the texture stage's 15 ``TEX``
-planes (``ops/kernels/texture.py``; ``shade.py:2027-2059``): lanes whose
+planes (``ops/kernels/texture.py``, plane-major like ``TRANS``;
+``shade.py:2027-2059``): lanes whose
 ``tpbr`` flag is set take the textured base colour, roughness, metallic,
 transmission, emission and occlusion (full and s1 also the mapped
 normal), and alpha pass-through lanes record no AOV, add no emission,
@@ -102,7 +105,9 @@ from metal_pathtracer_tpu_torch.ops.intersect import (
 )
 from metal_pathtracer_tpu_torch.ops.kernels import build
 from metal_pathtracer_tpu_torch.ops.kernels.texture import (
+    TEX,
     TEX_IDX,
+    TexParams,
     has_textures,
     texture_stage,
 )
@@ -530,6 +535,8 @@ def _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, who: str):
             or (kind is not None and kind.dtype != torch.int32):
         raise ValueError(f"{who}: hit and geometry tensors must be "
                          f"contiguous, on {dev}, with int32 indices")
+    if triangles is not None:   # its rows are read as 16-byte loads
+        build.check_aligned(who, [triangles.shade_packed], 16)
     p = lambda x: None if x is None else x.data_ptr()
     return build.pointers(
         [p(t), p(tri), p(u), p(v), p(kind),
@@ -588,30 +595,38 @@ def pack_material_table(materials) -> torch.Tensor:
 
 def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
             inputs, out_cols, params: ShadeParams, depth: int, n_banks=0,
-            probe=None):
+            probe=None, plane_inputs=(), plane_out=False):
     """Check, then launch ``mpt_<name>`` (the instantiation that
     ``params.material_types`` needs) with the stage ``inputs`` (device
-    tensors or None) after the material table (packed on the first
-    launch for these materials) and the probe plane (or None); returns
-    its (N, out_cols) output (None without one)."""
+    tensors or None; those at the positions ``plane_inputs`` names are
+    plane-major ``TRANS`` or ``TEX`` planes, the others contiguous) after
+    the material table (packed on the first launch for these materials)
+    and the probe plane (or None); returns its (N, out_cols) output,
+    plane-major if ``plane_out`` (None without one)."""
     dev = t.device
     n = t.shape[0]
     ptrs = _carry_pointers(carry, n, dev, name)
     geo = _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, name)
     mat_table = materials.table(pack_material_table)
-    for x in inputs:
-        if x is not None and (x.device != dev or not x.is_contiguous()
-                              or x.shape[0] != n):
-            raise ValueError(f"{name}: stage inputs must be contiguous, of "
-                             f"{n} lanes and on {dev}")
+    for k, x in enumerate(inputs):
+        if x is None:
+            continue
+        if k in plane_inputs:
+            build.check_planes(name, x, n, x.shape[1])
+        elif not x.is_contiguous():
+            raise ValueError(f"{name}: stage inputs must be contiguous")
+        if x.device != dev or x.shape[0] != n:
+            raise ValueError(f"{name}: stage inputs must be of {n} lanes "
+                             f"and on {dev}")
     if probe is not None and (probe.shape != (n, len(PROBE))
                               or probe.dtype != torch.float32
                               or probe.device != dev
                               or not probe.is_contiguous()):
         raise ValueError(f"{name}: probe must be a contiguous ({n}, "
                          f"{len(PROBE)}) float32 plane on {dev}")
-    out = None if out_cols is None else torch.empty(
-        (n, out_cols), dtype=torch.float32, device=dev)
+    out = None if out_cols is None else build.planes(n, out_cols, dev) \
+        if plane_out else torch.empty((n, out_cols), dtype=torch.float32,
+                                      device=dev)
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = getattr(lib, f"mpt_{name}")(
@@ -652,7 +667,8 @@ def shade_full(carry: PathCarry, t, tri, u, v, triangles, materials,
     _check_tex("shade_full", tex, t.shape[0])
     _check_rw("shade_full", rw, rw_state, t.shape[0])
     _launch("shade_full", carry, t, tri, u, v, triangles, materials, kind,
-            scene, [tex, rw, rw_state], None, params, depth, probe=probe)
+            scene, [tex, rw, rw_state], None, params, depth, probe=probe,
+            plane_inputs=(0,))
     shade_full.launches += 1
 
 
@@ -757,10 +773,12 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry,
     K2 ``full`` until ``max_depth`` or no lane is alive
     (``shade.py:2991-2995, 3152-3163``). Syncs once per depth on the alive
     count, which is also that depth's trace count (and once per walk
-    step). ``probe``, a list, receives one ``ProbeDepth`` per depth.
+    step, and once per call for the texture stage's ``TexParams``). ``probe``, a list, receives one ``ProbeDepth`` per depth.
     Returns the traces issued."""
     params = ShadeParams.of(uniforms, static)
     textured = has_textures(scene, static) and scene.n_triangles > 0
+    tex_params = TexParams.of(uniforms, static, scene.textures) \
+        if textured else None
     rays = 0
     for depth in range(static.max_depth):
         n_alive = int(carry.alive.sum())
@@ -775,7 +793,7 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry,
             tri = idx if kind is None else torch.where(
                 kind == C.PRIMITIVE_TRIANGLE, idx, -1)
             tex = texture_stage(carry, t, tri, u, v, scene, uniforms, static,
-                                depth)
+                                depth, tex_params)
         # the full stage samples from its input state: the walk's fork
         rw, rw_state = random_walks(scene, uniforms, static, carry, t, idx,
                                     u, v, kind)
@@ -818,7 +836,8 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     pdf of each hit, under a rect-light integral; ``tex``: the texture
     planes; ``emod``: the environment seen along each hit's reversed
     shading normal, for ``emission_env`` lights (``env_modulation``).
-    Updates ``carry`` in place and returns the (N,18) transients."""
+    Updates ``carry`` in place and returns the (N,18) transients as a
+    view of plane-major (18, N) storage, the kernel's layout."""
     del depth
     alive0 = carry.alive.clone()
     hit = tri >= 0
@@ -870,8 +889,8 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
         [u1, u2, u3, bsdf_ops.environment_lighting_roughness(f.m),
          *f.sn.unbind(-1), *f.rec.normal.unbind(-1),
          *f.rec.point.unbind(-1), active.to(torch.float32),
-         surface_is_delta.to(torch.float32), u4, u5, u6], -1)
-    return where3(active, trans, torch.zeros_like(trans))
+         surface_is_delta.to(torch.float32), u4, u5, u6])
+    return torch.where(active, trans, 0.0).t()
 
 
 def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
@@ -987,18 +1006,18 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
 
 
 def _check_tex(name, tex, n):
-    if tex is not None and tex.shape != (n, len(TEX_IDX)):
-        raise ValueError(f"{name}: tex must be ({n}, {len(TEX_IDX)})")
+    if tex is not None:
+        build.check_planes(name, tex, n, len(TEX))
 
 
 def shade_s1(carry: PathCarry, t, tri, u, v, triangles, materials, envbg,
              envpdf, params: ShadeParams, depth: int, tex=None, kind=None,
              scene=None, rectpdf=None, emod=None, probe=None):
-    """Stage s1, in place on ``carry``; returns the (N,18) transients
-    (zero on lanes that are not live hits afterwards). ``envbg``/
-    ``envpdf`` for an environment light integral (None without one),
-    ``rectpdf`` for a rect-light integral, ``tex`` the texture planes of a
-    textured scene, ``emod`` the environment modulation of
+    """Stage s1, in place on ``carry``; returns the (N,18) transients,
+    plane-major (zero on lanes that are not live hits afterwards).
+    ``envbg``/``envpdf`` for an environment light integral (None without
+    one), ``rectpdf`` for a rect-light integral, ``tex`` the texture
+    planes of a textured scene, ``emod`` the environment modulation of
     ``emission_env`` lights, ``kind``/``scene``/``probe`` as in
     ``shade_full``. CPU tensors take the plain version; CUDA tensors
     launch K2 s1."""
@@ -1012,7 +1031,8 @@ def shade_s1(carry: PathCarry, t, tri, u, v, triangles, materials, envbg,
     _check_tex("shade_s1", tex, t.shape[0])
     out = _launch("shade_s1", carry, t, tri, u, v, triangles, materials,
                   kind, scene, [envbg, envpdf, rectpdf, emod, tex],
-                  len(TRANS), params, depth, probe=probe)
+                  len(TRANS), params, depth, probe=probe, plane_inputs=(4,),
+                  plane_out=True)
     shade_s1.launches += 1
     return out
 
@@ -1021,8 +1041,9 @@ def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
              esmp, params: ShadeParams, depth: int, tex=None, kind=None,
              scene=None, rw=None, rw_state=None, probe=None):
     """Stage s2, in place on ``carry``; returns the (N,7) chain exports
-    (zero on lanes that were not live hits). ``esmp``: one 9-column bank
-    per light integral, rect first; ``rw``/``rw_state`` the random-walk
+    (zero on lanes that were not live hits). ``trans``: s1's plane-major
+    transients; ``esmp``: one 9-column bank per light integral, rect
+    first; ``rw``/``rw_state`` the random-walk
     override, ``probe`` the probe plane. CPU tensors take the plain
     version; CUDA tensors launch K2 s2."""
     dev = t.device
@@ -1036,10 +1057,11 @@ def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
     _check_rw("shade_s2", rw, rw_state, t.shape[0])
     if esmp.shape[1] not in (len(ESMP), 2 * len(ESMP)):
         raise ValueError("shade_s2: esmp holds one or two banks")
+    build.check_planes("shade_s2", trans, t.shape[0], len(TRANS))
     out = _launch("shade_s2", carry, t, tri, u, v, triangles, materials,
-                  kind, scene, [trans.contiguous(), esmp.contiguous(), tex,
-                                rw, rw_state], len(CHAIN), params, depth,
-                  esmp.shape[1] // len(ESMP), probe=probe)
+                  kind, scene, [trans, esmp.contiguous(), tex, rw, rw_state],
+                  len(CHAIN), params, depth, esmp.shape[1] // len(ESMP),
+                  probe=probe, plane_inputs=(0, 2))
     shade_s2.launches += 1
     return out
 
@@ -1064,7 +1086,9 @@ def nee_shadow_rays(trans, t, e_dir, e_pdf, e_valid, tex=None,
     do_sh = nee_lanes & e_valid & (e_pdf > 0.0) \
         & (torch.clamp_min(dot(sn, e_dir), 0.0) > 0.0)
     origin = offset_origin(trans[:, 10:13], sn, trans[:, 7:10], t, e_dir)
-    return origin, torch.where(do_sh, t_max, 0.0), do_sh
+    # the planes' (N,3) views give a plane-major origin: the traces take
+    # contiguous rays
+    return origin.contiguous(), torch.where(do_sh, t_max, 0.0), do_sh
 
 
 def env_modulation(scene, uniforms, static, carry: PathCarry, t, idx, u, v,
@@ -1094,6 +1118,7 @@ def light_banks(scene, uniforms, static, trans, t, tex=None):
 
     def bank(l_dir, l_rad, l_pdf, l_valid, t_max):
         nonlocal shadow
+        l_dir = l_dir.contiguous()
         sh_o, sh_max, do_sh = nee_shadow_rays(trans, t, l_dir, l_pdf,
                                               l_valid, tex, t_max)
         occ = trace_occluded(sh_o, l_dir, scene, C.EPSILON_T, sh_max)
@@ -1128,7 +1153,8 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
     random walk from the post-s1 state, the light banks (``light_banks``:
     per light integral its sample from s1's draws and a shadow trace), K2
     s2 and the spec-NEE estimators. One host sync per depth (the alive
-    count, and one per walk step); the shadow count stays on the device.
+    count, and one per walk step; one per call for the texture stage's
+    ``TexParams``); the shadow count stays on the device.
     ``probe``, a list, receives one ``ProbeDepth`` per depth. Returns
     (traces issued,
     shadow traces as a 0-dim tensor); the spec-NEE rect estimator's scene
@@ -1143,6 +1169,8 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
                   & (mats.emission_env > 0.0)).any())
     # only triangles carry texture coordinates
     textured = has_textures(scene, static) and scene.n_triangles > 0
+    tex_params = TexParams.of(uniforms, static, scene.textures) \
+        if textured else None
     rot = uniforms.environment_rotation
     rays = 0
     dev = carry.ray_o.device
@@ -1161,7 +1189,7 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
             kind == C.PRIMITIVE_TRIANGLE, idx, -1)
         # the alpha-BLEND draw lands before s1's NEE draws
         tex = texture_stage(carry, t, tri, u, v, scene, uniforms, static,
-                            depth) if textured else None
+                            depth, tex_params) if textured else None
         envbg = envpdf = rectpdf = None
         if env is not None:
             # miss lanes read these; every lane computes them

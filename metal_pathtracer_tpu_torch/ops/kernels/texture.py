@@ -11,12 +11,18 @@ state and writes the identity, all-zero planes with ``tpbr`` 0.
 
 ``texture_stage`` launches the kernel on CUDA tensors and runs
 ``texture_stage_reference``, ``apply_pbr_textures`` over the wavefront,
-on CPU tensors. Both return the 15 ``TEX`` planes per lane (lane-major,
-``shade.py:1822-1825`` order) and commit the alpha-BLEND draw to
-``carry.state`` in place (``shade.py:3060-3063``), before s1's NEE draws.
+on CPU tensors. Both return the 15 ``TEX`` planes per lane as an (N, 15)
+view of plane-major (15, N) storage (``shade.py:1822-1825`` order; the
+kernel stores each plane coalesced, and ``tex[:, k]`` is contiguous) and
+commit the alpha-BLEND draw to ``carry.state`` in place
+(``shade.py:3060-3063``), before s1's NEE draws. The launch constants
+(``TexParams``) are built on the host once per frame by the depth loops,
+so a launch makes no device-to-host copy.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -56,9 +62,12 @@ def has_textures(scene, static) -> bool:
 
 
 def texture_stage_reference(carry, t, tri, u, v, scene, uniforms, static,
-                            depth: int):
+                            depth: int, params=None):
     """Plain PyTorch texture stage (``shade.py _texture_stage:3600`` over
-    the port's ``apply_pbr_textures``); see the module docstring."""
+    the port's ``apply_pbr_textures``); see the module docstring. It takes
+    ``texture_stage``'s arguments, so that it can stand in for it; the
+    launch constants ``params`` it does not need."""
+    del params
     d3 = carry.ray_d
     rec = _hit_record_from_best(carry.ray_o, d3, scene.triangles, t, tri,
                                 u, v)
@@ -72,41 +81,61 @@ def texture_stage_reference(carry, t, tri, u, v, scene, uniforms, static,
     eligible = carry.alive & rec.hit & r.pbr_lane
     f = lambda x: x.to(torch.float32)
     planes = torch.cat([
-        r.base_color, r.roughness[:, None], r.metallic[:, None], r.emissive,
-        r.diffuse_occlusion[:, None], f(r.passthrough)[:, None],
-        r.shading_normal, r.transmission[:, None], f(r.pbr_lane)[:, None]],
-        1)
+        r.base_color.t(), r.roughness[None], r.metallic[None],
+        r.emissive.t(), r.diffuse_occlusion[None], f(r.passthrough)[None],
+        r.shading_normal.t(), r.transmission[None], f(r.pbr_lane)[None]])
     carry.state.copy_(torch.where(eligible, r.state, carry.state))
-    return torch.where(eligible[:, None], planes, torch.zeros_like(planes))
+    return torch.where(eligible[None], planes, 0.0).t()
 
 
-def _scalars(uniforms, static, textures, depth: int):
-    """The float vector the kernel unpacks (``TexParams`` in
-    ``csrc/texture.cu``)."""
-    cam = uniforms.camera
-    slots = sum(1 << s for s in static.texture_slots)
-    return [float(depth), float(static.width), float(static.height),
-            *cam.horizontal.tolist(), *cam.vertical.tolist(),
-            float(static.working_color_space), float(slots),
-            float(static.texture_uv1), float(static.debug_disable_ao),
-            float(static.debug_ao_indirect_only),
-            float(static.debug_disable_normal_map),
-            float(static.debug_disable_orm),
-            float(static.debug_flip_normal_green),
-            float(uniforms.debug_normal_strength_scale), textures.max_lod]
+@dataclasses.dataclass(frozen=True)
+class TexParams:
+    """The texture stage's launch constants of one frame, but the depth:
+    image size, camera horizontal and vertical (read back to the host
+    once, here), working space, slot bit mask, UV set 1, the debug flags,
+    the normal strength scale and the atlas's top LOD."""
+
+    values: tuple
+
+    @classmethod
+    def of(cls, uniforms, static, textures) -> "TexParams":
+        cam = uniforms.camera
+        slots = sum(1 << s for s in static.texture_slots)
+        return cls((float(static.width), float(static.height),
+                    *cam.horizontal.tolist(), *cam.vertical.tolist(),
+                    float(static.working_color_space), float(slots),
+                    float(static.texture_uv1),
+                    float(static.debug_disable_ao),
+                    float(static.debug_ao_indirect_only),
+                    float(static.debug_disable_normal_map),
+                    float(static.debug_disable_orm),
+                    float(static.debug_flip_normal_green),
+                    float(uniforms.debug_normal_strength_scale),
+                    float(textures.max_lod)))
+
+    def scalars(self, depth: int):
+        """The float vector the kernel unpacks (``TexParams`` in
+        ``csrc/texture.cu``)."""
+        return [float(depth), *self.values]
 
 
-def texture_stage(carry, t, tri, u, v, scene, uniforms, static,
-                  depth: int) -> torch.Tensor:
-    """The texture stage of one depth: (N,15) ``TEX`` planes; commits the
-    BLEND draw to ``carry.state``. CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/texture.cu``."""
+def texture_stage(carry, t, tri, u, v, scene, uniforms, static, depth: int,
+                  params: TexParams | None = None) -> torch.Tensor:
+    """The texture stage of one depth: (N,15) ``TEX`` planes, stored
+    plane-major; commits the BLEND draw to ``carry.state``. CPU tensors
+    take the plain version; CUDA tensors launch ``csrc/texture.cu`` with
+    ``params``, the frame's ``TexParams`` (required there: the launch
+    reads nothing back to the host)."""
     dev = t.device
     if dev.type == "cpu":
         return texture_stage_reference(carry, t, tri, u, v, scene, uniforms,
                                        static, depth)
     if dev.type != "cuda":
         raise ValueError(f"texture_stage: unsupported device {dev}")
+    if params is None:
+        raise ValueError("texture_stage: a CUDA launch needs the frame's "
+                         "TexParams (TexParams.of(uniforms, static, "
+                         "scene.textures))")
     n = t.shape[0]
     tris, tex = scene.triangles, scene.textures
     mat_table = scene.materials.table(pack_texture_material_table)
@@ -123,11 +152,14 @@ def texture_stage(carry, t, tri, u, v, scene, uniforms, static,
         raise ValueError(f"texture_stage: inputs must be contiguous, on "
                          f"{dev}, with int32 ids and tables and an int64 "
                          f"state")
-    out = torch.empty((n, len(TEX)), dtype=torch.float32, device=dev)
+    build.check_aligned("texture_stage", [attrs[0], *attrs[7:], tex.texels],
+                        16)
+    build.check_aligned("texture_stage", attrs[1:7], 8)
+    out = build.planes(n, len(TEX), dev)
     lib = build.load()
     p = lambda x: x.data_ptr()
     err = lib.mpt_texture_stage(
-        n, build.floats(_scalars(uniforms, static, tex, depth)),
+        n, build.floats(params.scalars(depth)),
         *[p(x) for x in (t, tri, u, v)], p(mat_table), mat_table.shape[0],
         build.pointers([p(x) for x in carry_in]),
         build.pointers([p(x) for x in attrs]),

@@ -14,21 +14,34 @@ change's ``chip_smoke.py`` helpers, so both sides are measured alike:
   closest and environment shadow wavefronts of depths 0 and 1, kept from
   one sample of the checkout's own frame loop (``chip_smoke.py
   frame_loop_k1``), each timed three times with ``kernel_ms`` (device
-  time of 5 launches back to back); the trace kernels' registers.
+  time of 5 launches back to back); the trace kernels' registers;
+- ``s1`` and ``tex``: K2 stage s1 or the texture stage on the textured
+  headline's wavefronts at the depths ``--depths`` names (default 0, 1
+  and 5: the first, the second, a late one), kept from one sample of the
+  checkout's own frame loop (``chip_smoke.py frame_loop_k2``), each timed
+  three times with ``kernel_ms``; the kernel's registers and spill
+  bytes. Each process prints a SHA-256 of each wavefront's result (the
+  (N, k) output made contiguous, then the carry with its state:
+  ``chip_smoke.py k2_digest``), and the run fails unless the digests of
+  every process agree. A texture wrapper that reads the camera back on
+  every call (before the stage took its launch constants from the
+  caller) is timed with those constants computed once per depth.
 
 Make the parent's checkout with ``git archive`` into a git-ignored
 directory, then::
 
-    python3 metal_pathtracer_tpu_torch/utils/ab.py {lambert,k1} PARENT CHANGE
+    python3 metal_pathtracer_tpu_torch/utils/ab.py {lambert,k1,s1,tex} \
+        PARENT CHANGE
 
 Lines starting with ``AB`` carry the numbers; per series, the medians and
 quartiles of each side and the parent/change ratio of the medians close
-the output.
+the output, after the digest check.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -50,7 +63,7 @@ def _load(name, path):
     return module
 
 
-def child_lambert(timer):
+def child_lambert(timer, depths):
     """The lambert phase of the checkout's ``chip_smoke.py`` with its own
     package, K2 ``full`` timed by ``timer``'s ``kernel_ms``."""
     import torch
@@ -94,7 +107,7 @@ def child_lambert(timer):
               f"{res.avg_ms_per_sample:.2f} ms/spp", flush=True)
 
 
-def child_k1(timer):
+def child_k1(timer, depths):
     """K1 of the checkout's package on the headline's wavefronts, kept
     from its frame loop and timed by ``timer``'s helpers."""
     import torch
@@ -125,6 +138,53 @@ def child_k1(timer):
             print(f"AB {name} rep {rep}: {ms:.4f} ms [{card}]", flush=True)
 
 
+def child_k2(which, timer, depths):
+    """K2 s1 or the texture stage of the checkout's package on the
+    headline's wavefronts at ``depths``, kept from its frame loop and
+    timed by ``timer``'s helpers."""
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    build.load()
+    name = "shade_s1" if which == "s1" else "texture_stage"
+    print("AB registers, spill bytes " + json.dumps(
+        {k: v for k, v in sorted(c.kernel_resources(build.build_log())
+                                 .items()) if k.startswith(name)}),
+          flush=True)
+    if hasattr(X, "_scalars"):
+        # this texture wrapper reads the camera back on every call: its
+        # constants, once per depth (the frame loop below computes them)
+        computed, scalars = {}, X._scalars
+
+        def once(uniforms, static, textures, depth):
+            if depth not in computed:
+                computed[depth] = scalars(uniforms, static, textures, depth)
+            return computed[depth]
+        X._scalars = once
+    dev = torch.device("cuda", 0)
+    settings, res, env = benchscene.build_bench_scene(
+        c.HEADLINE_SUBDIVISIONS, dev)
+    scene = res.build_arrays(environment=env, device=dev)
+    static, uni = c.scene_setup(settings, res, *c.FRAME, dev)
+    rows, kept = c.frame_loop_k2(scene, uni, static, dev, keep=depths)
+    card = c.device_line()
+    for depth in depths:
+        out, carry = c.k2_once(kept, which, depth)
+        print(f"AB lanes {which} depth {depth}: {json.dumps(rows[depth])}",
+              flush=True)
+        print(f"AB digest {which} depth {depth}: "
+              f"{c.k2_digest(out, carry)}", flush=True)
+    for rep in range(K1_REPS):
+        for depth in depths:
+            ms = c.kernel_ms(c.k2_launch(kept, which, depth), 5)
+            print(f"AB {which} depth {depth} rep {rep}: {ms:.4f} ms "
+                  f"[{card}]", flush=True)
+
+
 def lambert_value(line):
     m = re.search(r"([\d.]+) ms/spp", line)
     if m and line.startswith(("AB lambert", "lambert")):
@@ -139,19 +199,22 @@ def k1_value(line):
 
 #: measurement: (child run in the checkout, line -> (series, value) or None)
 MEASURES = {"lambert": (child_lambert, lambert_value),
-            "k1": (child_k1, k1_value)}
+            "k1": (child_k1, k1_value),
+            "s1": (functools.partial(child_k2, "s1"), k1_value),
+            "tex": (functools.partial(child_k2, "tex"), k1_value)}
 
 
 def main() -> None:
     if len(sys.argv) > 1 and sys.argv[1] == "--child":
-        measure, tree, timer = sys.argv[2:5]
+        measure, tree, timer, depths = sys.argv[2:6]
         sys.path.insert(0, tree)
         os.chdir(tree)
         try:
             from metal_pathtracer_tpu_torch.ops.kernels import build
             print("# tree", tree, "package", os.path.dirname(build.__file__),
                   flush=True)
-            MEASURES[measure][0](timer)
+            MEASURES[measure][0](timer, tuple(
+                int(d) for d in depths.split(",")))
         except Exception:
             traceback.print_exc()
             sys.exit(1)
@@ -162,26 +225,38 @@ def main() -> None:
     ap.add_argument("change")
     ap.add_argument("--order", default="pccppc",
                     help="p (parent) and c (change), one process each")
+    ap.add_argument("--depths", default="0,1,5",
+                    help="s1, tex: the depths of the kept wavefronts")
     args = ap.parse_args()
     value_of = MEASURES[args.measure][1]
     trees = {"p": ("parent", os.path.abspath(args.parent)),
              "c": ("change", os.path.abspath(args.change))}
     timer = os.path.join(trees["c"][1], "chip_smoke.py")
     series = {"parent": {}, "change": {}}
+    digests = {}
     failed = False
     for key in args.order:
         who, tree = trees[key]
         run = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
-             args.measure, tree, timer], capture_output=True, text=True)
+             args.measure, tree, timer, args.depths], capture_output=True,
+            text=True)
         for line in (run.stdout + run.stderr).splitlines():
             if re.search(r"^(AB|lambert|# tree)|Error|Traceback", line):
                 print(f"[{who}] {line}", flush=True)
+            m = re.match(r"AB digest (.+): ([0-9a-f]+)$", line)
+            if m:
+                digests.setdefault(m.group(1), set()).add(m.group(2))
             got = value_of(line)
             if got:
                 series[who].setdefault(got[0], []).append(got[1])
         print(f"[{who}] rc={run.returncode}", flush=True)
         failed |= run.returncode != 0
+    for name, seen in sorted(digests.items()):
+        print(f"AB digest {name}: "
+              f"{'equal' if len(seen) == 1 else 'DIFFERENT'} over every "
+              f"process")
+        failed |= len(seen) != 1
     for name in series["change"] | series["parent"]:
         med = {}
         for who in ("parent", "change"):

@@ -4,6 +4,8 @@ machine (``--noconftest``: ``tests/conftest.py`` imports jax, which the
 port's GPU host need not have):
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -251,13 +253,15 @@ def test_texture_stage_vs_plain_on_card(dev, which):
                                0, 0)
     carry, hit = _primary_hits(scene, uni, static, dev)
     idx = texture.TEX_IDX
+    params = texture.TexParams.of(uni, static, scene.textures)
     for depth in (0, 2):
         ck = integrator.PathCarry(**{k: v.clone()
                                      for k, v in vars(carry).items()})
         cp = integrator.PathCarry(**{k: v.clone()
                                      for k, v in vars(carry).items()})
         before = texture.texture_stage.launches
-        got = texture.texture_stage(ck, *hit, scene, uni, static, depth)
+        got = texture.texture_stage(ck, *hit, scene, uni, static, depth,
+                                    params)
         want = texture.texture_stage_reference(cp, *hit, scene, uni, static,
                                                depth)
         torch.cuda.synchronize()
@@ -267,6 +271,106 @@ def test_texture_stage_vs_plain_on_card(dev, which):
             assert torch.equal(got[:, idx[name]], want[:, idx[name]]), name
         assert (want[:, idx["tpbr"]] > 0.5).sum() > 100
         assert float((got - want).abs().max()) <= 1e-5
+
+
+def _kept(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, integrator.PathCarry):
+        return integrator.PathCarry(**{k: v.clone()
+                                       for k, v in vars(x).items()})
+    return x
+
+
+@pytest.fixture(scope="module")
+def stage_inputs(dev):
+    """The textured headline (subdivision 3, 96x64): the texture stage's
+    and s1's inputs at depths 0 and 1 of one sample of the frame loop,
+    cloned as the wrappers took them, every third lane of each carry
+    dead."""
+    settings, res, env = build_bench_scene(3, dev)
+    scene = res.build_arrays(environment=env, device=dev)
+    w, h = 96, 64
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    kept = {}
+    real = {"tex": shade.texture_stage, "s1": shade.shade_s1}
+
+    def spy(which):
+        def run(*args, **kw):
+            depth = sum(k[0] == which for k in kept)
+            copy = tuple(_kept(x) for x in args)
+            copy[0].alive[::3] = False
+            kept[which, depth] = (copy, {k: _kept(x) for k, x in kw.items()})
+            return real[which](*args, **kw)
+        run.launches = 0
+        return run
+
+    saved = (shade.texture_stage, shade.shade_s1)
+    shade.texture_stage, shade.shade_s1 = spy("tex"), spy("s1")
+    try:
+        frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                             static, 1)
+    finally:
+        shade.texture_stage, shade.shade_s1 = saved
+    return kept
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_planes_vs_plain_on_card(dev, stage_inputs, depth):
+    """The texture stage and K2 s1 against their plain versions at depths 0
+    and 1 of the textured headline, every third lane dead: both return
+    (N, k) views of plane-major (k, N) storage; the state, flags and carry
+    equal, the texture planes within 1e-5, the transients within 1e-4."""
+    idx = texture.TEX_IDX
+    args, _ = stage_inputs["tex", depth]
+    n = args[1].shape[0]
+    ck, cp = _kept(args[0]), _kept(args[0])
+    got = texture.texture_stage(ck, *args[1:])
+    want = texture.texture_stage_reference(cp, *args[1:])
+    torch.cuda.synchronize()
+    for planes in (got, want):
+        assert planes.shape == (n, len(texture.TEX))
+        assert planes.stride() == (1, n)
+    assert torch.equal(ck.state, cp.state)
+    for name in ("tpass", "tpbr"):
+        assert torch.equal(got[:, idx[name]], want[:, idx[name]]), name
+    assert (want[:, idx["tpbr"]] > 0.5).any()
+    assert (got[::3] == 0).all()
+    assert float((got - want).abs().max()) <= 1e-5
+
+    args, kw = stage_inputs["s1", depth]
+    ck, cp = _kept(args[0]), _kept(args[0])
+    got = shade.shade_s1(ck, *args[1:], **kw)
+    want = shade.shade_s1_reference(cp, *args[1:], **kw)
+    torch.cuda.synchronize()
+    for planes in (got, want):
+        assert planes.shape == (n, len(shade.TRANS))
+        assert planes.stride() == (1, n)
+    for name in ("state", "alive", "prev_prim", "is_first_hit"):
+        assert torch.equal(getattr(ck, name), getattr(cp, name)), name
+    for name in ("throughput", "radiance", "aov_albedo", "aov_normal"):
+        assert float((getattr(ck, name) - getattr(cp, name)).abs().max()) \
+            <= 1e-4, name
+    assert (got[::3] == 0).all() and (got[:, 13] > 0.5).any()
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_texture_stage_raises_on_misaligned_texels(dev, stage_inputs):
+    """The texture wrapper reads a texel as one 16-byte load and refuses a
+    texel buffer that does not start on a 16-byte boundary."""
+    args, _ = stage_inputs["tex", 0]
+    scene = args[5]
+    texels = scene.textures.texels
+    shifted = torch.empty(texels.numel() + 1, device=dev)[1:].view_as(texels)
+    shifted.copy_(texels)
+    bad = dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, texels=shifted))
+    with pytest.raises(ValueError, match="aligned"):
+        texture.texture_stage(_kept(args[0]), *args[1:5], bad, *args[6:])
 
 
 def test_textured_render_kernels_vs_plain_on_card(dev):
