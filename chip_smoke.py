@@ -28,11 +28,11 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    one sample of the frame loop by ``frame_loop_k1``, which also counts
    the live lanes of every K1 launch and each launch is timed) bit for
    bit against the plain walks and timed, each with its live lanes and
-   its bound beside the old one; the texture stage and K2 s1 at every
-   depth of one sample (kept by ``frame_loop_k2``): against their plain
-   versions at depths 0 and 1, their plane-major outputs checked, and
-   each depth's device time beside its bound with its live, hit and
-   textured lanes, K2 s2's beside them;
+   its bound beside the old one; the texture stage, K2 s1 and K2 s2 at
+   every depth of one sample (kept by ``frame_loop_k2``): against their
+   plain versions at depths 0 and 1, their plane-major outputs checked,
+   and each depth's device time beside its bound with its live, hit and
+   textured lanes;
 4. the analytic primitives (the sphere kernels K3a and K3b, the rectangle
    kernel K3c, K2 ``full`` and ``s1``/``s2`` with rect-light NEE, metal and
    diffuse lights): each K3 kernel against its plain version bit for bit
@@ -48,7 +48,10 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    NEE together) at 160x96 4 spp through the kernels against the plain
    path (RMSE 0, equal trace counts); the Cornell box at 512x512 d8 and
    rtow at 1200x675 d50 through ``CudaBackend``; each K3 and K2 stage
-   timed at the first depth with its bound;
+   timed at the first depth with its bound, K3b beside its own group
+   visits and sphere tests (its schedule in plain PyTorch, bit-equal) and
+   at every depth of one rtow sample (kept by ``frame_loop_k3b``), which
+   gives its time a sample;
 5. the material zoo (plastic, carpaint, subsurface in its separable and
    random-walk modes, env-modulated lights; K2's extended instantiation,
    the random-walk pre-stage over K3a): K2 ``full`` on
@@ -141,17 +144,28 @@ ROOT = "metal_pathtracer_tpu_torch/csrc/"
 # throughput, radiance, first-hit flag and state (78 B) and writes
 # radiance, throughput and state (32 B); its row is cols 0-19 (80 B).
 # Before PR 8 it charged 238 + 32 B a hit with a 96 B row per hit, 60 B
-# of planes per textured-scene hit, AOVs included; full's and s2's are
-# the old ones, a 96 B row per hit. Rough operation counts per live lane
-# (float ops in the source) give the compute side of the bound.
+# of planes per textured-scene hit, AOVs included. s2's were re-derived in
+# PR 9 from the listed kernel: every lane's alive flag is read (the
+# listing pass) and its 28 B of CHAIN written once ("out": the listing
+# pass's zeros, or a listed lane's values); a listed lane (alive after s1,
+# a hit) reads index, t, u, v, ray, 10 TRANS planes, throughput, radiance,
+# state, medium depth, cone and specular depth (128 B) and one 36 B ESMP
+# bank (a second bank is ``extra``), and writes the carry (92 B); its row
+# is cols 0-19 (80 B) and only its textured lanes read the 14 texture
+# planes past tpbr. Before PR 9 it charged 341 B a hit with a 96 B row per
+# hit (``K2_S2_BEFORE``, printed beside). full's is the old one, a 96 B
+# row per hit. Rough operation counts per live lane (float ops in the
+# source) give the compute side of the bound.
 K2_BYTES = {
     "shade_full": dict(hit=178 + 63 - 96, row=96, first=0, miss=41 + 22,
                        dead=1, out=0, ops=200),
     "shade_s1": dict(hit=78 + 32, row=80, first=1 + 24, miss=50 + 22,
                      dead=1, out=72, ops=300),
-    "shade_s2": dict(hit=345 + 92 - 96, row=96, first=0, miss=1, dead=1,
+    "shade_s2": dict(hit=1 + 128 + 36 + 92, row=80, first=0, miss=0, dead=1,
                      out=28, ops=1200),
 }
+K2_S2_BEFORE = dict(hit=345 + 92 - 96, row=96, first=0, miss=1, dead=1,
+                    out=28, ops=1200)
 TEX_BYTES = 15 * 4
 # the texture stage's float operations per textured lane, and per bound
 # slot (transform, LOD, two bilinear levels)
@@ -289,7 +303,8 @@ def any_lane_bytes(n, n_live):
 
 
 def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False,
-             extra=0, table=0, n_rows=None, n_tex=None, n_first=None):
+             extra=0, table=0, n_rows=None, n_tex=None, n_first=None,
+             charge=None):
     """K2's bound by lane kind. Triangle hits read ``n_rows`` distinct
     shade_packed rows (None: one per hit, the charge before PR 8); an
     analytic hit reads its family (4 B) instead, and its sphere or
@@ -297,8 +312,9 @@ def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False,
     every hit) read all the texture planes, the other hits the tpbr
     plane; ``n_first`` hits write the first-hit AOVs (None: every hit).
     ``extra``: bytes more per hit (the random-walk or emod planes);
-    ``table``: the material table's bytes, read once."""
-    b = K2_BYTES[name]
+    ``table``: the material table's bytes, read once; ``charge``: other
+    per-lane charges than ``K2_BYTES[name]`` (an older charge)."""
+    b = K2_BYTES[name] if charge is None else charge
     rows = 0 if analytic else n_hit if n_rows is None else n_rows
     tex = n_hit * 4 + (n_hit if n_tex is None else n_tex) * (TEX_BYTES - 4) \
         if textured else 0
@@ -316,6 +332,29 @@ def s1_counts(carry, idx):
     hits = carry.alive & (idx >= 0)
     return dict(n_rows=int(torch.unique(idx[hits]).numel()),
                 n_first=int((hits & carry.is_first_hit).sum()))
+
+
+def s2_counts(carry, idx, tex=None):
+    """k2_bound's s2 counts of a wavefront (carry and hit index as s2
+    takes them): distinct triangle rows of the live lanes and, in a
+    textured scene, the live lanes the texture stage textured."""
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+
+    out = dict(n_rows=int(torch.unique(idx[carry.alive]).numel()))
+    if tex is not None:
+        out["n_tex"] = int((carry.alive
+                            & (tex[:, X.TEX_IDX["tpbr"]] > 0.5)).sum())
+    return out
+
+
+def s2_bounds(n, n_live, tex=None, carry=None, idx=None):
+    """s2's bound on a triangle wavefront at PR 9's charge (textured if
+    ``tex``) and at the charge before it: (ms, by, ms before)."""
+    b, by = k2_bound("shade_s2", n_live, 0, n - n_live, tex is not None,
+                     **s2_counts(carry, idx, tex))
+    old, _ = k2_bound("shade_s2", n_live, 0, n - n_live, tex is not None,
+                      charge=K2_S2_BEFORE)
+    return b, by, old
 
 
 def probes(scene, n=4096, seed=7):
@@ -926,7 +965,7 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     differ2, s2_err = carry_error(c2k, c2p, n)
     s2_err = max(s2_err, float(((chain - chain_p).abs()
                                 / chain_p.abs().clamp_min(1.0)).max()))
-    s2_bound, s2_by = k2_bound("shade_s2", n_live, 0, n - n_live, textured)
+    s2_bound, s2_by, s2_old = s2_bounds(n, n_live, tex, ck, hit[1])
     if differ2 > 1e-4 * n or not s2_err <= 1e-4:
         raise AssertionError(f"K2 s2 disagrees with its plain version: "
                              f"{differ2} lanes, err {s2_err}")
@@ -950,9 +989,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
           f"{s1_bound:.4f} ms, {s1_old:.4f} at the charge before PR 8, err "
           f"{s1_err:.2e}, {differ} differing lanes); "
           f"K2 s2 {s2_ms:.3f} / {s2_win:.3f} ms (plain {s2_plain_ms:.1f} "
-          f"ms, bound "
-          f"{s2_bound:.4f} ms, err {s2_err:.2e}, {differ2} differing lanes) "
-          f"[{card}]")
+          f"ms, bound {s2_bound:.4f} ms, {s2_old:.4f} at the charge before "
+          f"PR 9, err {s2_err:.2e}, {differ2} differing lanes) [{card}]")
     if not textured:
         return
 
@@ -960,7 +998,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     depth1_err = k1_depth1(scene, uni, static, dev, card)
 
     # ---- the texture stage and s1 at every depth of one sample ---------
-    tex_depth_err, s1_depth_err = k2_depths(scene, uni, static, dev, card)
+    tex_depth_err, s1_depth_err, s2_depth_err = k2_depths(scene, uni,
+                                                          static, dev, card)
 
     # ---- the texture kernel on the all-six-slots scene ------------------
     six_settings, six_res = benchscene.build_six_slot_scene()
@@ -992,7 +1031,8 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
     out["shade_s2"] = dict(
         source=ROOT + "shade.cu",
         replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
-        launches=launches["shade_s2"], max_abs_err=max(nee_err, s2_err),
+        launches=launches["shade_s2"],
+        max_abs_err=max(nee_err, s2_err, s2_depth_err),
         ms=s2_ms, plain_ms=s2_plain_ms, bound_ms=s2_bound, bound_by=s2_by)
     out["texture_stage"] = dict(
         source=ROOT + "texture.cu",
@@ -1242,13 +1282,14 @@ def kernel_resources(log: str) -> dict:
 
 
 def k2_depths(scene, uni, static, dev, card):
-    """The texture stage and K2 s1 at every depth of one sample of the
-    textured headline's frame loop (``frame_loop_k2``): both against their
-    plain versions at depths 0 and 1 (the outputs plane-major; state and
-    flags exact, planes within TEX_PLANE_TOL; s1's carry and transients
-    within 1e-4), then each depth's device time (``kernel_ms``) beside its
-    bound, with its live, hit and textured lanes, s2's beside it, and the
-    sums over the sample. Returns the largest plane and s1 differences."""
+    """The texture stage, K2 s1 and K2 s2 at every depth of one sample of
+    the textured headline's frame loop (``frame_loop_k2``): each against
+    its plain version at depths 0 and 1 (the outputs plane-major; state
+    and flags exact, planes within TEX_PLANE_TOL; s1's and s2's carry,
+    transients and chain within 1e-4, as at the first depth), then each
+    depth's device time (``kernel_ms``) beside its bound, with its live,
+    hit and textured lanes, and the sums over the sample. Returns the
+    largest plane, s1 and s2 differences."""
     from metal_pathtracer_tpu_torch.ops.kernels import build
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
     from metal_pathtracer_tpu_torch.ops.kernels import texture as X
@@ -1256,7 +1297,7 @@ def k2_depths(scene, uni, static, dev, card):
     rows, kept = frame_loop_k2(scene, uni, static, dev,
                                keep=range(static.max_depth))
     n = static.width * static.height
-    tex_err = s1_err = 0.0
+    tex_err = s1_err = s2_err = 0.0
     for depth in (0, 1):
         got, ck = k2_once(kept, "tex", depth)
         want, cp = k2_once(kept, "tex", depth, X.texture_stage_reference)
@@ -1275,11 +1316,22 @@ def k2_depths(scene, uni, static, dev, card):
             raise AssertionError(f"K2 s1 at depth {depth} disagrees with its "
                                  f"plain version: {differ} lanes, err {err}")
         s1_err = max(s1_err, err)
-    print(f"textured headline depths 0 and 1: the texture stage and K2 s1 "
-          f"against their plain versions, outputs plane-major: state and "
-          f"flags bit-equal, largest plane difference {tex_err:.2e}, s1 "
-          f"err {s1_err:.2e} [{card}]")
-    sums = [0.0] * 6
+        got, ck = k2_once(kept, "s2", depth)
+        want, cp = k2_once(kept, "s2", depth, S.shade_s2_reference)
+        torch.cuda.synchronize()
+        build.check_planes("K2 s2", got, n, len(S.CHAIN))
+        differ, err = carry_error(ck, cp, n)
+        err = max(err, float(((got - want).abs()
+                              / want.abs().clamp_min(1.0)).max()))
+        if differ > 1e-4 * n or not err <= 1e-4:
+            raise AssertionError(f"K2 s2 at depth {depth} disagrees with its "
+                                 f"plain version: {differ} lanes, err {err}")
+        s2_err = max(s2_err, err)
+    print(f"textured headline depths 0 and 1: the texture stage, K2 s1 and "
+          f"K2 s2 against their plain versions, outputs plane-major: state "
+          f"and flags bit-equal, largest plane difference {tex_err:.2e}, s1 "
+          f"err {s1_err:.2e}, s2 err {s2_err:.2e} [{card}]")
+    sums = [0.0] * 7
     for depth, row in enumerate(rows):
         args = kept["tex", depth][0]
         tex_ms = kernel_ms(k2_launch(kept, "tex", depth), 5)
@@ -1293,9 +1345,11 @@ def k2_depths(scene, uni, static, dev, card):
                                row["live"] - row["hit"], n - row["live"],
                                textured=True, n_tex=row["textured"],
                                **s1_counts(s1_args[0], s1_args[2]))
-        s2_b, s2_by = k2_bound("shade_s2", row["s2_live"], 0,
-                               n - row["s2_live"], textured=True)
-        for k, x in enumerate((tex_ms, tex_b, s1_ms, s1_b, s2_ms, s2_b)):
+        s2_args = kept["s2", depth][0]
+        s2_b, s2_by, s2_old = s2_bounds(n, row["s2_live"], s2_args[11],
+                                        s2_args[0], s2_args[2])
+        for k, x in enumerate((tex_ms, tex_b, s1_ms, s1_b, s2_ms, s2_b,
+                               s2_old)):
             sums[k] += x
         print(f"textured headline depth {depth}: {row['live']} live lanes, "
               f"{row['hit']} hits, {row['textured']} textured, "
@@ -1303,13 +1357,15 @@ def k2_depths(scene, uni, static, dev, card):
               f"(bound {tex_b:.4f} ms by {tex_by}, {tex_old:.4f} at the "
               f"charge before PR 8), K2 s1 {s1_ms:.4f} ms (bound "
               f"{s1_b:.4f} ms by {s1_by}), K2 s2 {s2_ms:.4f} ms (bound "
-              f"{s2_b:.4f} ms by {s2_by}) [{card}]")
+              f"{s2_b:.4f} ms by {s2_by}, {s2_old:.4f} at the charge before "
+              f"PR 9) [{card}]")
     print(f"textured headline, one sample's {len(rows)} depths: texture "
           f"stage {sums[0]:.4f} ms (bounds {sums[1]:.4f}), K2 s1 "
           f"{sums[2]:.4f} ms (bounds {sums[3]:.4f}), the two together "
           f"{sums[0] + sums[2]:.4f} ms; K2 s2 {sums[4]:.4f} ms (bounds "
-          f"{sums[5]:.4f}) [{card}]")
-    return tex_err, s1_err
+          f"{sums[5]:.4f}, {sums[6]:.4f} at the charge before PR 9) "
+          f"[{card}]")
+    return tex_err, s1_err, s2_err
 
 
 def compare_nearest(got, ref, label, count_ties=False):
@@ -1341,6 +1397,50 @@ def k3_bound(name, n, n_live, prims, group_tests=0):
                         + group_tests * 16 * K3_SPHERE_OPS)
     return bound_ms(n * K3_LANE_BYTES + prims * K3_SPHERE_BYTES,
                     n_live * prims * K3_SPHERE_OPS)
+
+
+def frame_loop_k3b(scene, uni, static, dev):
+    """One sample of the frame loop with K3b spied on: each launch's
+    inputs (origin, direction, t_min, t_max, groups), cloned, in launch
+    order (on rtow, which has no light integral: one closest-hit launch a
+    depth). A host sync per launch, so it runs apart from timed renders."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    kept, real = [], P.sphere_nearest_chunked
+
+    def spy(*args):
+        kept.append(tuple(_kept(x) for x in args))
+        return real(*args)
+
+    spy.launches = 0
+    with mock.patch.object(P, "sphere_nearest_chunked", spy):
+        frame.render_samples(scene, uni, RenderState.create(
+            static.width, static.height, dev), static, 1)
+    return kept
+
+
+def k3b_depths(cell, dev, card):
+    """K3b's device time at every depth of one sample of rtow at 1200x675
+    (``frame_loop_k3b``), with each depth's live lanes, and the sum: the
+    kernel's time a sample. Returns the sum."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    settings, res, scene, _ = cell
+    static, uni = scene_setup(settings, res, *B.RTOW_FRAME, dev)
+    kept = frame_loop_k3b(scene, uni, static, dev)
+    total, parts = 0.0, []
+    for args in kept:
+        ms = kernel_ms(lambda: lambda: P.sphere_nearest_chunked(*args), 5)
+        live = int((P._prepare(args[0], args[3]) >= args[2]).sum())
+        total += ms
+        parts.append(f"{ms:.4f} ({live})")
+    print(f"K3b at each of one rtow sample's {len(kept)} depths, ms on the "
+          f"device (live lanes): {', '.join(parts)}; {total:.4f} ms a "
+          f"sample [{card}]")
+    return total
 
 
 def exact_gate(st_k, st_p, label):
@@ -1691,18 +1791,33 @@ def primitives_path(dev, card, kernels, out):
         ms, win_ms = timed(lambda: lambda: fn(*args, prims), 20)
         plain_ms = cuda_ms(lambda: lambda: plain(*args, prims), 2)
         stats = {}
+        count = scene.n_rects if kname == "rect_nearest" else scene.n_spheres
+        extra = ""
         if kname == "sphere_nearest_chunked":
             plain(*args, prims, stats=stats)
-        count = scene.n_rects if kname == "rect_nearest" else scene.n_spheres
+            # the kernel's own schedule: its group visits and sphere tests,
+            # and its bits
+            own = {}
+            compare_nearest(fn(*args, prims),
+                            P.sphere_nearest_visits(*args, prims, stats=own),
+                            "K3b against its schedule in plain PyTorch")
+            b_own, _ = k3_bound(kname, args[0].shape[0], n_live, count,
+                                own["group_visits"])
+            extra = (f", its own {own['group_visits']} lane x group visits "
+                     f"and {own['sphere_tests']} sphere tests: bound "
+                     f"{b_own:.4f} ms at them")
         b, by = k3_bound(kname, args[0].shape[0], n_live, count,
                          stats.get("group_tests", 0))
         extra = (f", {stats['group_tests']} lane x group boxes passed of "
-                 f"{n_live * prims.n_groups}" if stats else "")
+                 f"{n_live * prims.n_groups}{extra}" if stats else "")
         print(f"{kname} on the {cell} first depth ({args[0].shape[0]} lanes, "
               f"{count} primitives): {ms:.4f} ms on the device, {win_ms:.4f} "
               f"ms around the wrapper (plain {plain_ms:.1f} ms, bound "
               f"{b:.4f} ms by {by}{extra}) [{card}]")
         timing.setdefault(kname, (ms, plain_ms, b, by))
+
+    # ---- K3b at every depth of one rtow sample ---------------------------
+    k3b_depths(cells["rtow"], dev, card)
 
     # ---- K2 vs its plain version at the cells' full size ----------------
     prim_k2(cells, dev, card)

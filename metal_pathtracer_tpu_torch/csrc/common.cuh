@@ -207,3 +207,59 @@ __device__ __forceinline__ float plane_at(const float* p, int n,
                                           long long i, int k) {
   return p[(long long)k * n + i];
 }
+
+// ---- live-lane lists (K1's walks, K2 s2, K3b) ------------------------------
+// Appends lane i to list[0..*count) when `live`: each warp's ballot, a
+// block-local scan of the warps' counts and one atomic per block, so the
+// listed lanes of a block stay in ascending order. Every thread of the block
+// calls it (it holds two __syncthreads); BLOCK_THREADS is the block size, a
+// multiple of 32 up to 1024.
+template <int BLOCK_THREADS>
+__device__ __forceinline__ void list_append(bool live, int i, int* count,
+                                            int* list) {
+  constexpr int kWarps = BLOCK_THREADS / 32;
+  __shared__ int warp_base[kWarps];
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned mask = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) warp_base[warp] = __popc(mask);
+  __syncthreads();
+  if (warp == 0) {
+    int own = lane < kWarps ? warp_base[lane] : 0;
+    int incl = own;
+    for (int off = 1; off < 32; off <<= 1) {
+      int up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    int total = __shfl_sync(0xffffffffu, incl, 31);
+    int base = 0;
+    if (lane == 0 && total > 0) base = atomicAdd(count, total);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (lane < kWarps) warp_base[lane] = base + incl - own;
+  }
+  __syncthreads();
+  if (live) list[warp_base[warp] + __popc(mask & ((1u << lane) - 1u))] = i;
+}
+
+// the first list position of this warp's next batch of 32 (the same on
+// every lane; every lane of the warp calls it)
+__device__ __forceinline__ int next_batch(int* fetch) {
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(fetch, 32);
+  return __shfl_sync(0xffffffffu, base, 0);
+}
+
+// persistent blocks of `kernel` at `block` threads: as many as fit on every
+// SM, found once per instantiation (for the current device), at most one
+// per `block` lanes of n
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int block, int* cache, int n) {
+  if (*cache == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, 0);
+    *cache = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  int need = (n + block - 1) / block;
+  return need < *cache ? need : *cache;
+}

@@ -14,21 +14,45 @@
 //
 // Design. One thread per ray, as the TPU kernel is one vector lane per ray;
 // the primitive set (at most 512 spheres or 128 rectangles, the scene caps
-// of MetalShaderTypes.h) is copied once per block into shared memory, 8 KB
-// for 512 spheres, and every thread walks it in the same order, so each
-// read is a shared-memory broadcast. K3b tests a group's 16 spheres only
-// when the ray's initial window [t_min, t_max] meets the group's box: the
-// per-ray form of the TPU kernel's per-packet slab cull. The boxes are
-// widened on the host (primitives.py sphere_groups) so that rounding in
-// the quadratic or the slab test cannot drop a hit: K3b then equals K3a
-// except where two spheres give the same float t. A lane whose window is
-// empty (t_max < t_min: a dead lane) writes a miss without a test.
+// of MetalShaderTypes.h) is copied into shared memory, 8 KB for 512
+// spheres, and every thread of K3a and K3c walks it in the same order, so
+// each read is a shared-memory broadcast. A lane whose window is empty
+// (t_max < t_min: a dead lane) writes a miss without a test.
+//
+// K3b visits the groups near first and shrinks its window as it goes. It
+// slab-tests every group box once against the ray's initial window
+// [t_min, t_max] (the per-ray form of the TPU kernel's per-packet cull),
+// keeping the entry distance tnear of each box that passed in shared
+// memory; then it repeatedly takes the pending group of least tnear
+// (lowest group on a tie), tests its 16 spheres, and drops every group
+// whose tnear now exceeds the window [t_min, w], w the best t so far
+// (t_max before the first hit). For a box that passed the first test,
+// "tnear <= w" is exactly the slab test against [t_min, w]. The boxes are
+// widened on the host (primitives.py sphere_groups) so that a sphere whose
+// computed root lies in [t_min, w] lies inside its group's box along the
+// ray: the slab test against [t_min, w] passes for every w >= that root,
+// so the cull drops no sphere that could win or tie. A candidate is taken
+// when (t, slot) is lexicographically below the best (slot = g * 16 + j,
+// the group-major position), which is the plain version's rule (groups in
+// Morton order, strictly nearer across groups, the first of smallest t in
+// a group), whatever the visit order: K3b returns its plain version's bits,
+// and K3a's answer except where two spheres give the same float t. The
+// square root and the two divisions of a sphere test run only where its
+// discriminant is >= 0 (sphere_root discards them otherwise). A listing
+// pass (chunked_list_kernel) lists the live lanes, in order, and writes
+// the dead lanes' misses; K3b then runs as persistent blocks that stage
+// the spheres, slot ids and boxes into shared memory once per block and
+// take listed rays in a grid-stride loop, so warps hold live rays only,
+// and a block past the list's end stages nothing (late depths of a few
+// hundred rays cost a launch, not 1,000 blocks' staging).
 //
 // What bounds them on an H100: operations, for a scene of many spheres.
 // A ray reads 28 B (origin, direction, t_max) and writes 8 B, while K3a
 // spends ~25 flops and one sqrt and two divisions per sphere; at 485
 // spheres that is ~12,000 flops per ray against 36 B. K3b cuts the sphere
-// tests to the groups whose box the ray's window reaches.
+// tests to the groups that can still hold the nearest hit. Its warps run
+// as many group rounds as their busiest lane; on a wavefront of a few
+// rays (rtow's late depths) one ray's chain of group visits sets the time.
 #include "common.cuh"
 
 #define INFINITY_T 1.0e20f
@@ -37,11 +61,16 @@
 #define GROUP 16
 #define MAX_RECTS 128
 #define RECT_FLOATS 16
+#define K3B_BLOCK 128
+#define LIST_BLOCK 1024
 
 namespace {
 
 // primitives.sphere_roots for one sphere: the candidate t (near root if
-// inside the window, else far) and whether it is valid
+// inside the window, else far) and whether it is valid. CULL (K3b) skips
+// the square root and the divisions where the discriminant is not >= 0:
+// the sphere is then invalid whatever they give, so the bits are the same.
+template <bool CULL = false>
 __device__ __forceinline__ bool sphere_root(V3 o, V3 d, float a, float4 s,
                                             float t_min, float t_max,
                                             float* t_out) {
@@ -49,6 +78,7 @@ __device__ __forceinline__ bool sphere_root(V3 o, V3 d, float a, float4 s,
   float half_b = dot3(oc, d);
   float c = dot3(oc, oc) - s.w * s.w;
   float disc = fmaf_rn(half_b, half_b, -(a * c));
+  if (CULL && !(disc >= 0.0f)) return false;
   float sqrt_d = sqrtf(cmin(disc, 0.0f));
   float t_near = (-half_b - sqrt_d) / a;
   float t_far = (-half_b + sqrt_d) / a;
@@ -95,8 +125,25 @@ __global__ void sphere_nearest_kernel(int n, const float* __restrict__ ray_o,
   out_i[i] = best_i;
 }
 
-__global__ void sphere_nearest_chunked_kernel(
-    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+// K3b's live-lane list: lanes with t_max >= t_min (NaN and empty windows
+// are dead) at list[0..counters[0]) in warp order, one atomic per block
+// (common.cuh list_append); a dead lane gets its miss here
+__global__ void __launch_bounds__(LIST_BLOCK) chunked_list_kernel(
+    int n, const float* __restrict__ t_max, float t_min,
+    int* __restrict__ counters, int* __restrict__ list,
+    float* __restrict__ out_t, int* __restrict__ out_i) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool live = i < n && t_max[i] >= t_min;
+  list_append<LIST_BLOCK>(live, i, counters, list);
+  if (!live && i < n) {
+    out_t[i] = INFINITY_T;
+    out_i[i] = -1;
+  }
+}
+
+__global__ void __launch_bounds__(K3B_BLOCK) sphere_nearest_chunked_kernel(
+    const int* __restrict__ list, const int* __restrict__ counters,
+    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ t_max,
     const float* __restrict__ center, const float* __restrict__ radius,
     const int* __restrict__ index, const float* __restrict__ box_min,
@@ -105,6 +152,10 @@ __global__ void sphere_nearest_chunked_kernel(
   __shared__ float4 sph[MAX_SPHERES];
   __shared__ int sid[MAX_SPHERES];
   __shared__ float box[MAX_GROUPS * 6];
+  // each thread's box entry distances, one row per group (conflict-free)
+  __shared__ float entry[MAX_GROUPS][K3B_BLOCK];
+  const int n_live = counters[0];
+  if (blockIdx.x * K3B_BLOCK >= n_live) return;  // stages nothing
   for (int k = threadIdx.x; k < n_groups * GROUP; k += blockDim.x) {
     sph[k] = make_float4(center[3 * k], center[3 * k + 1], center[3 * k + 2],
                          radius[k]);
@@ -115,49 +166,69 @@ __global__ void sphere_nearest_chunked_kernel(
     box[2 * k + 1] = box_max[k];
   }
   __syncthreads();
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float tmax = t_max[i];
-  if (!(tmax >= t_min)) {  // an empty window (a dead lane): no hit
-    out_t[i] = INFINITY_T;
-    out_i[i] = -1;
-    return;
-  }
-  V3 o = load3(ray_o, i), d = load3(ray_d, i);
-  float a = dot3(d, d);
-  // primitives.slab_inverse
-  float dd[3] = {d.x, d.y, d.z}, oo[3] = {o.x, o.y, o.z}, inv[3];
-  for (int c = 0; c < 3; ++c) {
-    float x = fabsf(dd[c]) < 1e-20f ? (dd[c] >= 0.0f ? 1e-20f : -1e-20f)
-                                    : dd[c];
-    inv[c] = 1.0f / x;
-  }
-  float best_t = INFINITY_T;
-  int best_i = -1;
-  for (int g = 0; g < n_groups; ++g) {
-    // primitives.group_passes
-    float lo[3], hi[3];
+  float* my_entry = &entry[0][threadIdx.x];
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n_live;
+       k += gridDim.x * blockDim.x) {
+    int i = list[k];
+    float tmax = t_max[i];
+    V3 o = load3(ray_o, i), d = load3(ray_d, i);
+    float a = dot3(d, d);
+    // primitives.slab_inverse
+    float dd[3] = {d.x, d.y, d.z}, oo[3] = {o.x, o.y, o.z}, inv[3];
     for (int c = 0; c < 3; ++c) {
-      float t0 = (box[6 * g + 2 * c] - oo[c]) * inv[c];
-      float t1 = (box[6 * g + 2 * c + 1] - oo[c]) * inv[c];
-      lo[c] = minn(t0, t1);
-      hi[c] = maxn(t0, t1);
+      float x = fabsf(dd[c]) < 1e-20f ? (dd[c] >= 0.0f ? 1e-20f : -1e-20f)
+                                      : dd[c];
+      inv[c] = 1.0f / x;
     }
-    float tnear = maxn(maxn(lo[0], lo[1]), cmin(lo[2], t_min));
-    float tfar = minn(minn(hi[0], hi[1]), minn(hi[2], tmax));
-    if (!(tfar >= tnear)) continue;
-    for (int j = 0; j < GROUP; ++j) {
-      int s = g * GROUP + j;
-      float t;
-      if (sphere_root(o, d, a, sph[s], t_min, tmax, &t) &&
-          (best_i < 0 || t < best_t)) {
-        best_t = t;
-        best_i = sid[s];
+    // primitives.group_entry against the initial window, every group once
+    unsigned pending = 0u;
+    for (int g = 0; g < n_groups; ++g) {
+      float lo[3], hi[3];
+      for (int c = 0; c < 3; ++c) {
+        float t0 = (box[6 * g + 2 * c] - oo[c]) * inv[c];
+        float t1 = (box[6 * g + 2 * c + 1] - oo[c]) * inv[c];
+        lo[c] = minn(t0, t1);
+        hi[c] = maxn(t0, t1);
+      }
+      float tnear = maxn(maxn(lo[0], lo[1]), cmin(lo[2], t_min));
+      float tfar = minn(minn(hi[0], hi[1]), minn(hi[2], tmax));
+      if (tfar >= tnear) {
+        pending |= 1u << g;
+        my_entry[g * K3B_BLOCK] = tnear;
       }
     }
+    float best_t = INFINITY_T, w = tmax;
+    int best_s = -1;
+    while (pending != 0u) {
+      // the pending group of least entry, dropping those past the window
+      int gsel = -1;
+      float esel = 0.0f;
+      for (unsigned m = pending; m != 0u; m &= m - 1u) {
+        int g = __ffs(m) - 1;
+        float e = my_entry[g * K3B_BLOCK];
+        if (e > w) {
+          pending &= ~(1u << g);
+        } else if (gsel < 0 || e < esel) {
+          gsel = g;
+          esel = e;
+        }
+      }
+      if (gsel < 0) break;
+      pending &= ~(1u << gsel);
+      for (int j = 0; j < GROUP; ++j) {
+        int s = gsel * GROUP + j;
+        float t;
+        if (sphere_root<true>(o, d, a, sph[s], t_min, tmax, &t) &&
+            (best_s < 0 || t < best_t || (t == best_t && s < best_s))) {
+          best_t = t;
+          best_s = s;
+        }
+      }
+      if (best_s >= 0) w = best_t;
+    }
+    out_t[i] = best_s < 0 ? INFINITY_T : best_t;
+    out_i[i] = best_s < 0 ? -1 : sid[best_s];
   }
-  out_t[i] = best_i < 0 ? INFINITY_T : best_t;
-  out_i[i] = best_i;
 }
 
 __global__ void rect_nearest_kernel(
@@ -216,6 +287,8 @@ __global__ void rect_nearest_kernel(
 
 const int kBlock = 128;
 
+int k3b_grid_cache;
+
 }  // namespace
 
 extern "C" int mpt_sphere_nearest(int n, const void* o, const void* d,
@@ -233,19 +306,34 @@ extern "C" int mpt_sphere_nearest(int n, const void* o, const void* d,
   return (int)cudaGetLastError();
 }
 
+// `scratch`: n + 2 int32 (the live-lane list's count and unused fetch
+// position, then the list)
 extern "C" int mpt_sphere_nearest_chunked(
     int n, const void* o, const void* d, float t_min, const void* t_max,
     const void* center, const void* radius, const void* index,
     const void* box_min, const void* box_max, int n_groups, void* out_t,
-    void* out_i, void* stream) {
+    void* out_i, void* scratch, void* stream) {
   if (n <= 0) return 0;
   if (n_groups > MAX_GROUPS) return (int)cudaErrorInvalidValue;
-  sphere_nearest_chunked_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                                  (cudaStream_t)stream>>>(
-      n, (const float*)o, (const float*)d, t_min, (const float*)t_max,
-      (const float*)center, (const float*)radius, (const int*)index,
-      (const float*)box_min, (const float*)box_max, n_groups, (float*)out_t,
-      (int*)out_i);
+  cudaStream_t st = (cudaStream_t)stream;
+  int* sc = (int*)scratch;
+  cudaError_t err = cudaMemsetAsync(sc, 0, 2 * sizeof(int), st);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch
+    return (int)err;
+  }
+  chunked_list_kernel<<<(n + LIST_BLOCK - 1) / LIST_BLOCK, LIST_BLOCK, 0,
+                        st>>>(n, (const float*)t_max, t_min, sc, sc + 2,
+                              (float*)out_t, (int*)out_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int blocks = persistent_grid(sphere_nearest_chunked_kernel, K3B_BLOCK,
+                               &k3b_grid_cache, n);
+  sphere_nearest_chunked_kernel<<<blocks, K3B_BLOCK, 0, st>>>(
+      sc + 2, sc, (const float*)o, (const float*)d, t_min,
+      (const float*)t_max, (const float*)center, (const float*)radius,
+      (const int*)index, (const float*)box_min, (const float*)box_max,
+      n_groups, (float*)out_t, (int*)out_i);
   return (int)cudaGetLastError();
 }
 

@@ -16,13 +16,14 @@
 //               the NEE draws (3 per light integral, rect first) are taken
 //               on NEE lanes; 18 transient planes are exported
 //               (ops/kernels/shade.py TRANS, plane-major: (18, n));
-//   shade_s2    stage "s2": the NEE adds with MIS from one bank of light
-//               sample + shadow flag per light integral (ESMP, 9 columns
-//               each, rect first), BSDF sampling from the post-s1 state, the
-//               spec-NEE chain exports (CHAIN, 7 columns), medium push/pop
-//               (8 clamped slots), next origin, throughput clamp,
-//               environment LOD, ray cone, Russian roulette at depth >= 5,
-//               commit.
+//   shade_s2    stage "s2" (the base instantiation over a list of the
+//               lanes alive after s1, s2_list_kernel): the NEE adds with MIS from one bank of
+//               light sample + shadow flag per light integral (ESMP, 9
+//               columns each, rect first), BSDF sampling from the post-s1
+//               state, the spec-NEE chain exports (CHAIN, plane-major: (7,
+//               n)), medium push/pop (8 clamped slots), next origin,
+//               throughput clamp, environment LOD, ray cone, Russian
+//               roulette at depth >= 5, commit.
 // A hit is rebuilt from the winner of the merged trace (intersect.py
 // trace_merged): a triangle from its shade_packed row, a sphere or a
 // rectangle from its own arrays (the design choice of this port: the
@@ -70,11 +71,14 @@
 // B of transients (s1/s2), reads 36 B of light sample per bank, reads 60 B
 // of texture planes in a textured scene, and writes the carry back; the
 // arithmetic (a few sqrt/div/exp, one or two sin/cos pairs) is small
-// beside that. The design touches each carry value once per stage, keeps
-// every intermediate in registers, and returns at once for dead lanes so
-// late depths cost little; s1 still writes every lane's transients (zero
-// where the lane is not a live hit), each plane once and coalesced, which
-// is all a dead lane costs. It is written in CUDA rather than Triton for
+// beside that, but for s2, whose BSDF evaluation per light bank and BSDF
+// sample make a live lane's work long and divergent. The design touches
+// each carry value once per stage, keeps every intermediate in registers,
+// and returns at once for dead lanes so late depths cost little; s1 still
+// writes every lane's transients (zero where the lane is not a live hit),
+// each plane once and coalesced, which is all a dead lane costs. The
+// base s2 runs its warps over listed live lanes only, so its time follows
+// the live hits and not the wavefront. It is written in CUDA rather than Triton for
 // the uint32 PCG arithmetic, the per-lane material and primitive branches,
 // and explicit control of FMA contraction (__fmaf_rn only where the plain
 // version fuses; the build passes --fmad=false).
@@ -92,8 +96,11 @@
 #define PRIM_SPHERE 1
 #define PRIM_RECT 2
 #define PRIM_TRIANGLE 3
+#define LIST_BLOCK 1024
 
 namespace {
+
+const int kBlock = 128;
 
 // The launch constants, unpacked from ShadeParams.scalars()
 struct ShadeParams {
@@ -621,18 +628,31 @@ __global__ void __launch_bounds__(128, EXT ? 9 : 10) shade_s1_kernel(
   for (int k = 0; k < N_TRANS; ++k) trans[(long long)k * n + i] = tr[k];
 }
 
+// Stage s2's base instantiation runs over the lanes alive after s1 (the
+// live hits) and nothing else. s2_list_kernel lists them, one atomic per block over a scan of
+// warp ballots (common.cuh list_append), so listed lanes keep their order
+// within a block, and writes the CHAIN zeros of every other lane, one
+// coalesced store a plane. The s2 kernel then runs as persistent blocks
+// whose warps take the next 32 listed lanes from a device counter until
+// the list is spent (K1's scheme, csrc/traverse.cu), so a warp holds live
+// hits only: before, one thread ran per wavefront lane, and at the
+// headline's depth 1 a warp held about five live hits of 32 and paid for
+// its slowest. CHAIN is plane-major, (7, n), like TRANS: a listed lane
+// stores each of its 7 values once, and no lane's value is stored twice.
+// The host never reads the count. Each listed lane indexes every input
+// (carry, hit, TRANS, TEX, ESMP, RW, PROBE) by its own lane index.
+// The extended instantiation (227 registers, two blocks an SM) keeps one
+// thread per wavefront lane (shade_s2_lanes_kernel), each lane storing
+// its CHAIN planes once: over the list it read 0.76x at materials-env-rw's
+// first depth and 0.94x a sample, for its long, divergent lanes packed
+// 32 to a warp cannot overlap as the scattered ones of a sparse wavefront
+// do (PERF.md, PR 9).
 template <bool EXT>
-__global__ void shade_s2_kernel(
-    int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
-    int m_count, const float* __restrict__ trans,
-    const float* __restrict__ esmp, const float* __restrict__ tex,
-    const float* __restrict__ rw, const long long* __restrict__ rw_state,
-    Carry c, float* __restrict__ chain, float* __restrict__ probe) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float* ch = chain + (long long)N_CHAIN * i;
-  for (int k = 0; k < N_CHAIN; ++k) ch[k] = 0.0f;
-  if (!c.alive[i]) return;  // after s1: the live hits only
+__device__ __forceinline__ void s2_lane(
+    long long i, int n, const ShadeParams& p, const Geo& g,
+    const float* mat_table, int m_count, const float* trans,
+    const float* esmp, const float* tex, const float* rw,
+    const long long* rw_state, const Carry& c, float* chain, float* probe) {
   auto tr = [&](int k) { return plane_at(trans, n, i, k); };
   float t = g.t[i];
   V3 ray_d = load3(c.ray_d, i);
@@ -675,13 +695,15 @@ __global__ void shade_s2_kernel(
                                 rw_state, i);
   probe_sample(probe, i, smp.pdf, smp.is_delta, smp.medium_event);
   bool active = smp.pdf > 0.0f;
-  ch[0] = smp.weight.x;
-  ch[1] = smp.weight.y;
-  ch[2] = smp.weight.z;
-  ch[3] = smp.dpdf;
-  ch[4] = (float)smp.medium_event;
-  ch[5] = active && !tl.passthrough ? 1.0f : 0.0f;
-  ch[6] = h.front ? 1.0f : 0.0f;
+  float ch[N_CHAIN] = {smp.weight.x,
+                       smp.weight.y,
+                       smp.weight.z,
+                       smp.dpdf,
+                       (float)smp.medium_event,
+                       active && !tl.passthrough ? 1.0f : 0.0f,
+                       h.front ? 1.0f : 0.0f};
+#pragma unroll
+  for (int k = 0; k < N_CHAIN; ++k) chain[(long long)k * n + i] = ch[k];
 
   int md = medium_update(c, i, smp, m, active);
 
@@ -714,6 +736,59 @@ __global__ void shade_s2_kernel(
   c.specular_depth[i] = smp.is_delta ? c.specular_depth[i] + 1 : 0;
   c.env_lod[i] = env_lod;
   c.env_lod_active[i] = lod_lane;
+}
+
+// the listing pass: lanes alive after s1 at list[0..counters[0]), the
+// CHAIN planes of every other lane zero
+__global__ void __launch_bounds__(LIST_BLOCK) s2_list_kernel(
+    int n, const bool* __restrict__ alive, int* __restrict__ counters,
+    int* __restrict__ list, float* __restrict__ chain) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool live = i < n && alive[i];
+  list_append<LIST_BLOCK>(live, i, counters, list);
+  if (!live && i < n) {
+#pragma unroll
+    for (int k = 0; k < N_CHAIN; ++k) chain[(long long)k * n + i] = 0.0f;
+  }
+}
+
+template <bool EXT>
+__global__ void __launch_bounds__(kBlock) shade_s2_kernel(
+    const int* __restrict__ list, int* __restrict__ counters, int n,
+    ShadeParams p, Geo g, const float* __restrict__ mat_table, int m_count,
+    const float* __restrict__ trans, const float* __restrict__ esmp,
+    const float* __restrict__ tex, const float* __restrict__ rw,
+    const long long* __restrict__ rw_state, Carry c,
+    float* __restrict__ chain, float* __restrict__ probe) {
+  const int n_live = counters[0];
+  for (;;) {
+    int k = next_batch(counters + 1);
+    if (k >= n_live) break;
+    k += threadIdx.x & 31;
+    if (k < n_live)
+      s2_lane<EXT>(list[k], n, p, g, mat_table, m_count, trans, esmp, tex,
+                   rw, rw_state, c, chain, probe);
+  }
+}
+
+// the extended instantiation: one thread per wavefront lane, CHAIN zero
+// on lanes not alive after s1
+template <bool EXT>
+__global__ void __launch_bounds__(kBlock) shade_s2_lanes_kernel(
+    int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
+    int m_count, const float* __restrict__ trans,
+    const float* __restrict__ esmp, const float* __restrict__ tex,
+    const float* __restrict__ rw, const long long* __restrict__ rw_state,
+    Carry c, float* __restrict__ chain, float* __restrict__ probe) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (!c.alive[i]) {
+#pragma unroll
+    for (int k = 0; k < N_CHAIN; ++k) chain[(long long)k * n + i] = 0.0f;
+    return;
+  }
+  s2_lane<EXT>(i, n, p, g, mat_table, m_count, trans, esmp, tex, rw,
+               rw_state, c, chain, probe);
 }
 
 Carry carry_of(void* const* ptrs) {
@@ -798,9 +873,9 @@ Geo geo_of(void* const* q) {
   return g;
 }
 
-const int kBlock = 128;
-
 int grid(int n) { return (n + kBlock - 1) / kBlock; }
+
+int s2_grid_cache;
 
 }  // namespace
 
@@ -836,18 +911,42 @@ extern "C" int mpt_shade_s1(int n, int ext, const float* scalars,
   return (int)cudaGetLastError();
 }
 
+// `scratch`: n + 2 int32, the list of lanes alive after s1 and its two
+// counters (listed count, fetch position), for the base instantiation
 extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
                             void* const* geo, const void* mat_table,
                             int m_count, const void* trans, const void* esmp,
                             const void* tex, const void* rw,
                             const void* rw_state, void* const* carry,
-                            void* chain, void* probe, void* stream) {
+                            void* chain, void* probe, void* scratch,
+                            void* stream) {
   if (n <= 0) return 0;
-  auto kernel = ext ? shade_s2_kernel<true> : shade_s2_kernel<false>;
-  kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
-      n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
-      m_count, (const float*)trans, (const float*)esmp, (const float*)tex,
-      (const float*)rw, (const long long*)rw_state, carry_of(carry),
-      (float*)chain, (float*)probe);
+  cudaStream_t st = (cudaStream_t)stream;
+  Carry c = carry_of(carry);
+  if (ext) {
+    shade_s2_lanes_kernel<true><<<grid(n), kBlock, 0, st>>>(
+        n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
+        m_count, (const float*)trans, (const float*)esmp, (const float*)tex,
+        (const float*)rw, (const long long*)rw_state, c, (float*)chain,
+        (float*)probe);
+    return (int)cudaGetLastError();
+  }
+  int* sc = (int*)scratch;
+  cudaError_t err = cudaMemsetAsync(sc, 0, 2 * sizeof(int), st);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch
+    return (int)err;
+  }
+  s2_list_kernel<<<(n + LIST_BLOCK - 1) / LIST_BLOCK, LIST_BLOCK, 0, st>>>(
+      n, c.alive, sc, sc + 2, (float*)chain);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int blocks =
+      persistent_grid(shade_s2_kernel<false>, kBlock, &s2_grid_cache, n);
+  shade_s2_kernel<false><<<blocks, kBlock, 0, st>>>(
+      sc + 2, sc, n, shade_params_of(scalars), geo_of(geo),
+      (const float*)mat_table, m_count, (const float*)trans,
+      (const float*)esmp, (const float*)tex, (const float*)rw,
+      (const long long*)rw_state, c, (float*)chain, (float*)probe);
   return (int)cudaGetLastError();
 }

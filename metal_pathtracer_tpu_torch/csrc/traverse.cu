@@ -37,7 +37,8 @@
 //
 // Scheduling. live_lanes_kernel lists the lanes whose window is not empty
 // (tmax >= t_min), one atomic per block over a block-local scan of warp
-// ballots, and writes the dead lanes' outputs itself. The walk kernels
+// ballots (common.cuh list_append, which K2 s2's listing pass shares),
+// and writes the dead lanes' outputs itself. The walk kernels
 // then run as persistent blocks (as many as fit on the SMs): each warp
 // takes the next 32 listed lanes from a device counter until the list is
 // spent, so warps hold live rays only, a warp that finishes early takes
@@ -179,31 +180,11 @@ __global__ void __launch_bounds__(LIST_BLOCK) live_lanes_kernel(
     float* __restrict__ out_t, int* __restrict__ out_tri,
     float* __restrict__ out_u, float* __restrict__ out_v,
     bool* __restrict__ out_occluded) {
-  __shared__ int warp_base[LIST_BLOCK / 32];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float tm = i < n ? tmax[i] : 0.0f;
   bool live = i < n && tm >= t_min;
-  unsigned mask = __ballot_sync(0xffffffffu, live);
-  if (lane == 0) warp_base[warp] = __popc(mask);
-  __syncthreads();
-  if (warp == 0) {
-    int own = lane < (int)(blockDim.x >> 5) ? warp_base[lane] : 0;
-    int incl = own;
-    for (int off = 1; off < 32; off <<= 1) {
-      int up = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += up;
-    }
-    int total = __shfl_sync(0xffffffffu, incl, 31);
-    int base = 0;
-    if (lane == 0 && total > 0) base = atomicAdd(counters, total);
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (lane < (int)(blockDim.x >> 5)) warp_base[lane] = base + incl - own;
-  }
-  __syncthreads();
-  if (live) {
-    list[warp_base[warp] + __popc(mask & ((1u << lane) - 1u))] = i;
-  } else if (i < n) {
+  list_append<LIST_BLOCK>(live, i, counters, list);
+  if (!live && i < n) {
     if (out_t != nullptr) {
       out_t[i] = tm;
       out_tri[i] = -1;
@@ -213,14 +194,6 @@ __global__ void __launch_bounds__(LIST_BLOCK) live_lanes_kernel(
       out_occluded[i] = false;
     }
   }
-}
-
-// the first list position of this warp's next batch of 32 (the same on
-// every lane; every lane of the warp calls it)
-__device__ __forceinline__ int next_batch(int* fetch) {
-  int base = 0;
-  if ((threadIdx.x & 31) == 0) base = atomicAdd(fetch, 32);
-  return __shfl_sync(0xffffffffu, base, 0);
 }
 
 // the closest-hit walk of live lane i
@@ -395,21 +368,6 @@ __global__ void __launch_bounds__(BLOCK, STATS ? 6 : 8) trace_any_kernel(
   if constexpr (STATS) add_counts(cnt, stats);
 }
 
-// persistent blocks of `kernel`: as many as fit on every SM, found once
-// per instantiation (for the current device), at most one per BLOCK lanes
-template <typename Kernel>
-int persistent_grid(Kernel kernel, int* cache, int n) {
-  if (*cache == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
-    *cache = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  int need = (n + BLOCK - 1) / BLOCK;
-  return need < *cache ? need : *cache;
-}
-
 // zero the two counters (live count, fetch position) at scratch[0..1] and
 // list the live lanes at scratch[2..n+2)
 int list_live(int n, const void* tmax, float t_min, int* scratch,
@@ -446,7 +404,8 @@ extern "C" int mpt_trace_any(
   if (err != 0) return err;
   bool counting = stats != nullptr;
   auto kernel = counting ? trace_any_kernel<true> : trace_any_kernel<false>;
-  int grid = persistent_grid(kernel, &grid_cache[counting ? 1 : 0], n);
+  int grid =
+      persistent_grid(kernel, BLOCK, &grid_cache[counting ? 1 : 0], n);
   kernel<<<grid, BLOCK, 0, s>>>(
       sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
       (const float*)tmax, n_nodes, (const float4*)nodes, n_slots,
@@ -470,7 +429,8 @@ extern "C" int mpt_trace_closest(
   bool counting = stats != nullptr;
   auto kernel =
       counting ? trace_closest_kernel<true> : trace_closest_kernel<false>;
-  int grid = persistent_grid(kernel, &grid_cache[counting ? 3 : 2], n);
+  int grid =
+      persistent_grid(kernel, BLOCK, &grid_cache[counting ? 3 : 2], n);
   kernel<<<grid, BLOCK, 0, s>>>(
       sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
       (const float*)tmax, (const int*)excl_mesh, (const int*)excl_prim,

@@ -74,8 +74,9 @@ SIGNATURES = {
     # plane (NULL without a probe), stream
     "mpt_shade_s1": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
                      _vp, _vp, _vp, _vp],
+    # s2 also takes the live-lane list's scratch before the stream
     "mpt_shade_s2": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
-                     _vp, _vp, _vp, _vp],
+                     _vp, _vp, _vp, _vp, _vp],
     # n, scalars (host float[]), t tri u v, texture material table, its row
     # count, carry / triangle attribute / atlas pointers (host void*[]),
     # texture count, levels per texture, output planes, stream
@@ -85,8 +86,9 @@ SIGNATURES = {
     # out index, stream
     "mpt_sphere_nearest": [_i, _vp, _vp, _f, _vp, _vp, _vp, _i,
                            _vp, _vp, _vp],
+    # K3b also takes its live-lane list's scratch before the stream
     "mpt_sphere_nearest_chunked": [_i, _vp, _vp, _f, _vp,
-                                   *[_vp] * 5, _i, _vp, _vp, _vp],
+                                   *[_vp] * 5, _i, _vp, _vp, _vp, _vp],
     "mpt_rect_nearest": [_i, _vp, _vp, _f, _vp, *[_vp] * 7, _i,
                          _vp, _vp, _vp],
 }
@@ -107,6 +109,12 @@ def planes(n: int, cols: int, device) -> torch.Tensor:
     view of a contiguous (cols, n) tensor, so that column k is contiguous
     and a kernel stores plane k of lane i at ``k * n + i``."""
     return torch.empty((cols, n), dtype=torch.float32, device=device).t()
+
+
+def list_scratch(n: int, device) -> torch.Tensor:
+    """The n + 2 int32 of a kernel's live-lane list (K1, K2 s2, K3b): its
+    two counters (listed lanes, fetch position), then the list."""
+    return torch.empty(n + 2, dtype=torch.int32, device=device)
 
 
 def check_planes(who: str, x: torch.Tensor, n: int, cols: int) -> None:

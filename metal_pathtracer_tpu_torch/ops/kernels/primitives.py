@@ -30,7 +30,11 @@ of smallest t. The plain versions:
   whose window reaches its box. The box is widened beyond rounding (see
   ``sphere_groups``), so the cull drops no hit and K3b returns K3a's
   answer; only when two spheres meet a ray at the same float t can the
-  first one tested (Morton order here, index order in K3a) differ.
+  first one tested (Morton order here, index order in K3a) differ;
+- ``sphere_nearest_visits``: the K3b kernel's own schedule (groups near
+  first, a window that shrinks to the best t, the lexicographic (t, slot)
+  rule), which returns the same bits in any visit order; it gives the
+  kernel's group visits and sphere tests, and the tests run it.
 
 Shadow rays use the same functions with their own t_max and test
 ``index >= 0``.
@@ -71,8 +75,9 @@ def _nearest(t, valid):
 
 def sphere_roots(origin, direction, center, radius, t_min, t_max):
     """(lanes, spheres) candidate t and validity (``hit_spheres``'
-    quadratic: near root, else far root, inside [t_min, t_max])."""
-    oc = origin[:, None, :] - center[None]
+    quadratic: near root, else far root, inside [t_min, t_max]). The
+    spheres are shared, ``center`` (S, 3), or per lane, (lanes, S, 3)."""
+    oc = origin[:, None, :] - (center if center.dim() == 3 else center[None])
     a = dot(direction, direction)[:, None]
     half_b = dot(oc, direction[:, None, :])
     c = dot(oc, oc) - radius * radius
@@ -139,9 +144,10 @@ def _outward_f32(x: np.ndarray, direction: float) -> np.ndarray:
     return np.where(off, np.nextafter(y, np.float32(direction * np.inf)), y)
 
 
-def sphere_groups(spheres) -> SphereGroups:
+def sphere_groups(spheres, order=None) -> SphereGroups:
     """Build the K3b layout on the host (``primitives.py:136-162``), once
-    per scene (``SceneArrays.sphere_groups``). Each
+    per scene (``SceneArrays.sphere_groups``), the spheres in ``order``
+    (default: their Morton order; the tests pass others). Each
     box is the group's spheres' box widened by 1e-3 x (1 + its largest
     coordinate magnitude), then rounded outward to float32: a quadratic
     that grazes a sphere can report a hit a little outside it (about
@@ -150,7 +156,7 @@ def sphere_groups(spheres) -> SphereGroups:
     center = spheres.center.detach().cpu().numpy()
     radius = spheres.radius.detach().cpu().numpy()
     s = len(radius)
-    order = morton_order(center)
+    order = morton_order(center) if order is None else np.asarray(order)
     n_groups = (s + SPHERE_GROUP - 1) // SPHERE_GROUP
     rep = order[np.minimum(np.arange(n_groups * SPHERE_GROUP), s - 1)]
     c64 = center[rep].astype(np.float64).reshape(n_groups, SPHERE_GROUP, 3)
@@ -183,9 +189,9 @@ def slab_inverse(direction):
                                  direction))
 
 
-def group_passes(origin, inv_dir, t_min, t_max, box_min, box_max):
-    """Per lane, whether [t_min, t_max] meets the box (the TPU kernel's
-    slab margin ``tfar - tnear >= 0``, per ray instead of per packet)."""
+def group_entry(origin, inv_dir, t_min, t_max, box_min, box_max):
+    """Per lane, the slab interval (tnear, tfar) of ``[t_min, t_max]``
+    against one box."""
     t0 = (box_min - origin) * inv_dir
     t1 = (box_max - origin) * inv_dir
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
@@ -193,6 +199,14 @@ def group_passes(origin, inv_dir, t_min, t_max, box_min, box_max):
                           torch.clamp_min(lo[:, 2], t_min))
     tfar = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
                          torch.minimum(hi[:, 2], t_max))
+    return tnear, tfar
+
+
+def group_passes(origin, inv_dir, t_min, t_max, box_min, box_max):
+    """Per lane, whether [t_min, t_max] meets the box (the TPU kernel's
+    slab margin ``tfar - tnear >= 0``, per ray instead of per packet)."""
+    tnear, tfar = group_entry(origin, inv_dir, t_min, t_max, box_min,
+                              box_max)
     return tfar >= tnear
 
 
@@ -225,6 +239,69 @@ def sphere_nearest_chunked_reference(origin, direction, t_min, t_max,
     return best_t, best_i
 
 
+def sphere_nearest_visits(origin, direction, t_min, t_max,
+                          groups: SphereGroups, rank=None, near_first=True,
+                          stats=None):
+    """The K3b kernel's schedule in plain PyTorch (``csrc/primitives.cu
+    sphere_nearest_chunked_kernel``), for its counts and for the tests:
+    every box slab-tested once against [t_min, t_max]; then, until none is
+    pending, the pending group of least entry tnear (``near_first``; the
+    lowest ``rank`` on a tie; without ``near_first``, the next in ``rank``
+    order) is tested, 16 spheres, and groups whose tnear exceeds the
+    window [t_min, w] are dropped, w the best t so far (t_max before a
+    hit). A candidate is taken when (t, slot) is lexicographically below
+    the best. ``rank``: each group's priority (default: its position).
+    Returns (t, index) like ``sphere_nearest_chunked_reference``;
+    ``stats``, a dict, receives ``group_visits`` (lane x group visits) and
+    ``sphere_tests`` (16 a visit)."""
+    n, n_groups = origin.shape[0], groups.n_groups
+    dev = origin.device
+    rank = torch.arange(n_groups, device=dev) if rank is None \
+        else torch.as_tensor(rank, device=dev)
+    by_rank = torch.argsort(rank)           # groups in priority order
+    inv = slab_inverse(direction)
+    entry = torch.empty((n, n_groups), device=dev)
+    pending = torch.empty((n, n_groups), dtype=torch.bool, device=dev)
+    for col, g in enumerate(by_rank.tolist()):
+        tnear, tfar = group_entry(origin, inv, t_min, t_max,
+                                  groups.box_min[g], groups.box_max[g])
+        entry[:, col], pending[:, col] = tnear, tfar >= tnear
+    pending &= (t_max >= t_min)[:, None]
+    center = groups.center.view(n_groups, SPHERE_GROUP, 3)
+    radius = groups.radius.view(n_groups, SPHERE_GROUP)
+    lanes = torch.arange(n, device=dev)
+    best_t = torch.full((n,), INFINITY_T, device=dev)
+    best_s = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    visits = 0
+    while True:
+        w = torch.where(best_s >= 0, best_t, t_max)
+        pending &= entry <= w[:, None]
+        go = pending.any(1)
+        if not bool(go.any()):
+            break
+        visits += int(go.sum())
+        key = torch.where(pending, entry, float("inf")) if near_first \
+            else (~pending).to(torch.int8)
+        col = torch.argmin(key, 1)          # the first of least key
+        pending[lanes, col] = False
+        g = by_rank[col]
+        t, valid = sphere_roots(origin, direction, center[g], radius[g],
+                                t_min, t_max)
+        valid &= go[:, None]
+        tg, j = _nearest(t, valid)
+        slot = g * SPHERE_GROUP + j.long()
+        take = (j >= 0) & ((best_s < 0) | (tg < best_t)
+                           | ((tg == best_t) & (slot < best_s)))
+        best_t = torch.where(take, tg, best_t)
+        best_s = torch.where(take, slot, best_s)
+    if stats is not None:
+        stats["group_visits"] = visits
+        stats["sphere_tests"] = visits * SPHERE_GROUP
+    return (torch.where(best_s >= 0, best_t, INFINITY_T),
+            torch.where(best_s >= 0,
+                        groups.index[best_s.clamp_min(0)], -1).to(torch.int32))
+
+
 def _check(name, tensors, dev):
     for x in tensors:
         if x.device != dev or not x.is_contiguous() \
@@ -233,7 +310,10 @@ def _check(name, tensors, dev):
                              f"float32/int32 tensor on {dev}")
 
 
-def _launch(name, origin, direction, t_min, t_max, prim_args, count):
+def _launch(name, origin, direction, t_min, t_max, prim_args, count,
+            listed=False):
+    """Check, then launch ``mpt_<name>``; ``listed``: the kernel also takes
+    its live-lane list's scratch (K3b)."""
     n = origin.shape[0]
     dev = origin.device
     _check(name, [origin, direction, t_max, *prim_args], dev)
@@ -243,6 +323,7 @@ def _launch(name, origin, direction, t_min, t_max, prim_args, count):
     err = getattr(build.load(), f"mpt_{name}")(
         n, p(origin), p(direction), float(t_min), p(t_max),
         *[p(x) for x in prim_args], count, p(out_t), p(out_i),
+        *([p(build.list_scratch(n, dev))] if listed else []),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"mpt_{name}")
     return out_t, out_i
@@ -298,7 +379,8 @@ def sphere_nearest_chunked(origin, direction, t_min: float, t_max,
         raise ValueError(f"sphere_nearest_chunked: unsupported device {dev}")
     out = _launch("sphere_nearest_chunked", origin, direction, t_min, t_max,
                   [groups.center, groups.radius, groups.index,
-                   groups.box_min, groups.box_max], groups.n_groups)
+                   groups.box_min, groups.box_max], groups.n_groups,
+                  listed=True)
     sphere_nearest_chunked.launches += 1
     return out
 

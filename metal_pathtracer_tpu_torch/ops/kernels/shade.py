@@ -27,8 +27,11 @@ place, and lanes that enter dead keep every value:
 - ``shade_s2``: the NEE adds with MIS, one bank (light sample + shadow
   flag, ``ESMP``) per light integral, rect first, none on subsurface
   lanes; BSDF sampling from the post-s1 state, the spec-NEE chain exports
-  (``CHAIN``), medium push/pop, next origin, throughput clamp,
-  environment LOD, ray cone, Russian roulette and the commit.
+  (``CHAIN``, plane-major like ``TRANS``), medium push/pop, next origin,
+  throughput clamp, environment LOD, ray cone, Russian roulette and the
+  commit. On CUDA the base instantiation first lists the lanes alive
+  after s1 (and zeroes the others' chain planes) and runs over the list;
+  the extended one runs a thread per lane.
 
 Stages ``full`` and ``s2`` take the random walk's override planes
 (``RW``, from ``random_walks``, which runs ``sss.sample_sss_random_walk``
@@ -595,14 +598,16 @@ def pack_material_table(materials) -> torch.Tensor:
 
 def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
             inputs, out_cols, params: ShadeParams, depth: int, n_banks=0,
-            probe=None, plane_inputs=(), plane_out=False):
+            probe=None, plane_inputs=(), plane_out=False, listed=False):
     """Check, then launch ``mpt_<name>`` (the instantiation that
     ``params.material_types`` needs) with the stage ``inputs`` (device
     tensors or None; those at the positions ``plane_inputs`` names are
     plane-major ``TRANS`` or ``TEX`` planes, the others contiguous) after
     the material table (packed on the first launch for these materials)
-    and the probe plane (or None); returns its (N, out_cols) output,
-    plane-major if ``plane_out`` (None without one)."""
+    and the probe plane (or None), and, if ``listed``, the stage's
+    live-lane list scratch (``build.list_scratch``); returns its
+    (N, out_cols) output, plane-major if ``plane_out`` (None without
+    one)."""
     dev = t.device
     n = t.shape[0]
     ptrs = _carry_pointers(carry, n, dev, name)
@@ -634,6 +639,7 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
         geo, p(mat_table), mat_table.shape[0],
         *[p(x) for x in inputs], build.pointers(ptrs),
         *([] if out is None else [p(out)]), p(probe),
+        *([p(build.list_scratch(n, dev))] if listed else []),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"mpt_{name}")
     return out
@@ -820,7 +826,8 @@ TRANS_IDX = {n: i for i, n in enumerate(TRANS)}
 #: light sample + shadow trace -> s2 (rect bank first)
 ESMP = ["edx", "edy", "edz", "err", "erg", "erb", "epdf", "evalid", "occl"]
 
-#: spec-NEE chain exports, s2 -> the chain estimators
+#: spec-NEE chain exports, s2 -> the chain estimators: an (N, 7) view of
+#: plane-major (7, N) storage, like ``TRANS`` (``csrc/shade.cu N_CHAIN``)
 CHAIN = ["wr", "wg", "wb", "dpdf", "medev", "active", "front"]
 CHAIN_IDX = {n: i for i, n in enumerate(CHAIN)}
 
@@ -901,7 +908,8 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     integrator body :461-716). ``esmp`` holds one 9-column bank per light
     integral, rect first; ``rw``/``rw_state`` the random-walk override
     planes and states (``RW``). Updates ``carry`` in place and returns the
-    (N,7) chain exports."""
+    (N,7) chain exports as a view of plane-major (7, N) storage, the
+    kernel's layout, zero off the lanes alive on entry."""
     alive0 = carry.alive.clone()    # after s1: the live hits
     active = alive0
     sn = trans[:, 4:7]
@@ -952,7 +960,7 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     chain = torch.stack([*smp.weight.unbind(-1), smp.directional_pdf,
                          smp.medium_event.to(torch.float32),
                          (active & ~passthrough).to(torch.float32),
-                         rec.front_face.to(torch.float32)], -1)
+                         rec.front_face.to(torch.float32)])
     stack, medium_depth = _medium_update(carry, smp, m, active)
     next_origin = _next_origin(point, sn, n_faced, t, smp, params)
 
@@ -1002,7 +1010,7 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                                            carry.env_lod_active))
     carry.cone_width.copy_(cone_width)
     carry.cone_spread.copy_(cone_spread)
-    return where3(h, chain, torch.zeros_like(chain))
+    return torch.where(h, chain, 0.0).t()
 
 
 def _check_tex(name, tex, n):
@@ -1040,12 +1048,14 @@ def shade_s1(carry: PathCarry, t, tri, u, v, triangles, materials, envbg,
 def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
              esmp, params: ShadeParams, depth: int, tex=None, kind=None,
              scene=None, rw=None, rw_state=None, probe=None):
-    """Stage s2, in place on ``carry``; returns the (N,7) chain exports
-    (zero on lanes that were not live hits). ``trans``: s1's plane-major
-    transients; ``esmp``: one 9-column bank per light integral, rect
-    first; ``rw``/``rw_state`` the random-walk
-    override, ``probe`` the probe plane. CPU tensors take the plain
-    version; CUDA tensors launch K2 s2."""
+    """Stage s2, in place on ``carry``; returns the (N,7) chain exports,
+    plane-major (zero on lanes that were not live hits). ``trans``: s1's
+    plane-major transients; ``esmp``: one 9-column bank per light
+    integral, rect first; ``rw``/``rw_state`` the random-walk override,
+    ``probe`` the probe plane. CPU tensors take the plain version; CUDA
+    tensors launch K2 s2: the base instantiation after its listing pass
+    (the lanes alive after s1; the chain zeros of the others) over the
+    listed lanes, the extended one a thread per lane."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s2_reference(carry, t, tri, u, v, triangles, materials,
@@ -1061,7 +1071,8 @@ def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
     out = _launch("shade_s2", carry, t, tri, u, v, triangles, materials,
                   kind, scene, [trans, esmp.contiguous(), tex, rw, rw_state],
                   len(CHAIN), params, depth, esmp.shape[1] // len(ESMP),
-                  probe=probe, plane_inputs=(0, 2))
+                  probe=probe, plane_inputs=(0, 2), plane_out=True,
+                  listed=True)
     shade_s2.launches += 1
     return out
 

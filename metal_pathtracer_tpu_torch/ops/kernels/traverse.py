@@ -232,7 +232,7 @@ def trace_closest(origin, direction, t_min: float, t_max, bvh, tris,
     out_u = torch.empty(n, dtype=torch.float32, device=dev)
     out_v = torch.empty(n, dtype=torch.float32, device=dev)
     left_sib, totals = _stats_buffers(bvh, dev, stats)
-    scratch = torch.empty(n + 2, dtype=torch.int32, device=dev)
+    scratch = build.list_scratch(n, dev)
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = lib.mpt_trace_closest(
@@ -327,7 +327,7 @@ def trace_any(origin, direction, t_min: float, t_max, bvh, tris,
                              [origin, direction, t_max])
     out = torch.empty(n, dtype=torch.bool, device=dev)
     left_sib, totals = _stats_buffers(bvh, dev, stats)
-    scratch = torch.empty(n + 2, dtype=torch.int32, device=dev)
+    scratch = build.list_scratch(n, dev)
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = lib.mpt_trace_any(

@@ -15,23 +15,33 @@ change's ``chip_smoke.py`` helpers, so both sides are measured alike:
   one sample of the checkout's own frame loop (``chip_smoke.py
   frame_loop_k1``), each timed three times with ``kernel_ms`` (device
   time of 5 launches back to back); the trace kernels' registers;
-- ``s1`` and ``tex``: K2 stage s1 or the texture stage on the textured
-  headline's wavefronts at the depths ``--depths`` names (default 0, 1
-  and 5: the first, the second, a late one), kept from one sample of the
-  checkout's own frame loop (``chip_smoke.py frame_loop_k2``), each timed
-  three times with ``kernel_ms``; the kernel's registers and spill
-  bytes. Each process prints a SHA-256 of each wavefront's result (the
-  (N, k) output made contiguous, then the carry with its state:
-  ``chip_smoke.py k2_digest``), and the run fails unless the digests of
-  every process agree. A texture wrapper that reads the camera back on
-  every call (before the stage took its launch constants from the
-  caller) is timed with those constants computed once per depth.
+- ``s1``, ``s2`` and ``tex``: K2 stage s1, K2 stage s2 or the texture
+  stage on the textured headline's wavefronts at the depths ``--depths``
+  names (default 0, 1 and 5: the first, the second, a late one), kept
+  from one sample of the checkout's own frame loop (``chip_smoke.py
+  frame_loop_k2``), each timed three times with ``kernel_ms``; the
+  kernel's registers and spill bytes. Each process prints a SHA-256 of
+  each wavefront's result (the (N, k) output made contiguous, then the
+  carry with its state: ``chip_smoke.py k2_digest``), and the run fails
+  unless the digests of every process agree. A texture wrapper that reads
+  the camera back on every call (before the stage took its launch
+  constants from the caller) is timed with those constants computed once
+  per depth;
+- ``s2zoo``: K2 s2's extended instantiation the same way on
+  materials-env-rw's wavefronts (``materials.scene`` at 960x320 under
+  the HDR sky, the random walk's planes);
+- ``k3b``: K3b on rtow's 1200x675 closest-hit wavefronts (487 spheres)
+  at the depths ``--depths`` names (default 0 and 1), kept from one
+  sample of the checkout's own frame loop (``chip_smoke.py
+  frame_loop_k3b``), each timed three times with ``kernel_ms``; a
+  SHA-256 of each wavefront's (t, index), which must agree over every
+  process; the sphere kernels' registers and spill bytes.
 
 Make the parent's checkout with ``git archive`` into a git-ignored
 directory, then::
 
-    python3 metal_pathtracer_tpu_torch/utils/ab.py {lambert,k1,s1,tex} \
-        PARENT CHANGE
+    python3 metal_pathtracer_tpu_torch/utils/ab.py \
+        {lambert,k1,s1,s2,s2zoo,tex,k3b} PARENT CHANGE
 
 Lines starting with ``AB`` carry the numbers; per series, the medians and
 quartiles of each side and the parent/change ratio of the medians close
@@ -138,10 +148,20 @@ def child_k1(timer, depths):
             print(f"AB {name} rep {rep}: {ms:.4f} ms [{card}]", flush=True)
 
 
+def registers(c, build, prefix):
+    """The registers and spill bytes of the checkout's kernels whose names
+    start with ``prefix``, from its build log."""
+    print("AB registers, spill bytes " + json.dumps(
+        {k: v for k, v in sorted(c.kernel_resources(build.build_log())
+                                 .items()) if k.startswith(prefix)}),
+          flush=True)
+
+
 def child_k2(which, timer, depths):
-    """K2 s1 or the texture stage of the checkout's package on the
-    headline's wavefronts at ``depths``, kept from its frame loop and
-    timed by ``timer``'s helpers."""
+    """K2 s1, K2 s2 or the texture stage of the checkout's package on the
+    headline's wavefronts (``s2zoo``: s2 on materials-env-rw's) at
+    ``depths``, kept from its frame loop and timed by ``timer``'s
+    helpers."""
     import torch
 
     c = _load("chip_smoke_timer", timer)
@@ -150,11 +170,9 @@ def child_k2(which, timer, depths):
     from metal_pathtracer_tpu_torch.utils import benchscene
 
     build.load()
-    name = "shade_s1" if which == "s1" else "texture_stage"
-    print("AB registers, spill bytes " + json.dumps(
-        {k: v for k, v in sorted(c.kernel_resources(build.build_log())
-                                 .items()) if k.startswith(name)}),
-          flush=True)
+    stage = "s2" if which == "s2zoo" else which
+    registers(c, build, {"s1": "shade_s1", "s2": "shade_s2",
+                         "tex": "texture_stage"}[stage])
     if hasattr(X, "_scalars"):
         # this texture wrapper reads the camera back on every call: its
         # constants, once per depth (the frame loop below computes them)
@@ -166,23 +184,63 @@ def child_k2(which, timer, depths):
             return computed[depth]
         X._scalars = once
     dev = torch.device("cuda", 0)
-    settings, res, env = benchscene.build_bench_scene(
-        c.HEADLINE_SUBDIVISIONS, dev)
+    if which == "s2zoo":
+        settings, res, env = benchscene.build_materials_env_rw_scene(dev)
+        size = benchscene.MATERIALS_FRAME
+    else:
+        settings, res, env = benchscene.build_bench_scene(
+            c.HEADLINE_SUBDIVISIONS, dev)
+        size = c.FRAME
     scene = res.build_arrays(environment=env, device=dev)
-    static, uni = c.scene_setup(settings, res, *c.FRAME, dev)
+    static, uni = c.scene_setup(settings, res, *size, dev)
     rows, kept = c.frame_loop_k2(scene, uni, static, dev, keep=depths)
     card = c.device_line()
     for depth in depths:
-        out, carry = c.k2_once(kept, which, depth)
+        out, carry = c.k2_once(kept, stage, depth)
         print(f"AB lanes {which} depth {depth}: {json.dumps(rows[depth])}",
               flush=True)
         print(f"AB digest {which} depth {depth}: "
               f"{c.k2_digest(out, carry)}", flush=True)
     for rep in range(K1_REPS):
         for depth in depths:
-            ms = c.kernel_ms(c.k2_launch(kept, which, depth), 5)
+            ms = c.kernel_ms(c.k2_launch(kept, stage, depth), 5)
             print(f"AB {which} depth {depth} rep {rep}: {ms:.4f} ms "
                   f"[{card}]", flush=True)
+
+
+def child_k3b(timer, depths):
+    """K3b of the checkout's package on rtow's closest-hit wavefronts at
+    ``depths``, kept from its frame loop and timed by ``timer``'s
+    helpers."""
+    import hashlib
+
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    build.load()
+    registers(c, build, "sphere_nearest")
+    dev = torch.device("cuda", 0)
+    settings, res = benchscene.build_rtow_scene(c.RTOW_SEED)
+    scene = res.build_arrays(device=dev)
+    static, uni = c.scene_setup(settings, res, *benchscene.RTOW_FRAME, dev)
+    kept = c.frame_loop_k3b(scene, uni, static, dev)
+    card = c.device_line()
+    for depth in depths:
+        h = hashlib.sha256()
+        for x in P.sphere_nearest_chunked(*kept[depth]):
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        print(f"AB digest k3b depth {depth}: {h.hexdigest()}", flush=True)
+    for rep in range(K1_REPS):
+        for depth in depths:
+            args = kept[depth]
+            ms = c.kernel_ms(lambda: lambda: P.sphere_nearest_chunked(*args),
+                             5)
+            print(f"AB k3b depth {depth} rep {rep}: {ms:.4f} ms [{card}]",
+                  flush=True)
 
 
 def lambert_value(line):
@@ -201,7 +259,10 @@ def k1_value(line):
 MEASURES = {"lambert": (child_lambert, lambert_value),
             "k1": (child_k1, k1_value),
             "s1": (functools.partial(child_k2, "s1"), k1_value),
-            "tex": (functools.partial(child_k2, "tex"), k1_value)}
+            "s2": (functools.partial(child_k2, "s2"), k1_value),
+            "s2zoo": (functools.partial(child_k2, "s2zoo"), k1_value),
+            "tex": (functools.partial(child_k2, "tex"), k1_value),
+            "k3b": (child_k3b, k1_value)}
 
 
 def main() -> None:
@@ -225,9 +286,12 @@ def main() -> None:
     ap.add_argument("change")
     ap.add_argument("--order", default="pccppc",
                     help="p (parent) and c (change), one process each")
-    ap.add_argument("--depths", default="0,1,5",
-                    help="s1, tex: the depths of the kept wavefronts")
+    ap.add_argument("--depths", default=None,
+                    help="s1, s2, s2zoo, tex, k3b: the depths of the kept "
+                    "wavefronts (default 0,1,5; k3b 0,1)")
     args = ap.parse_args()
+    if args.depths is None:
+        args.depths = "0,1" if args.measure == "k3b" else "0,1,5"
     value_of = MEASURES[args.measure][1]
     trees = {"p": ("parent", os.path.abspath(args.parent)),
              "c": ("change", os.path.abspath(args.change))}

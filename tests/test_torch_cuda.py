@@ -5,6 +5,7 @@ port's GPU host need not have):
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -15,7 +16,12 @@ from metal_pathtracer_tpu_torch.ops.camera import build_camera
 from metal_pathtracer_tpu_torch.ops import camera as camera_ops
 from metal_pathtracer_tpu_torch.ops import integrator
 from metal_pathtracer_tpu_torch.ops import rng as rng_ops
-from metal_pathtracer_tpu_torch.ops.kernels import shade, texture, traverse
+from metal_pathtracer_tpu_torch.ops.kernels import (
+    build,
+    shade,
+    texture,
+    traverse,
+)
 from metal_pathtracer_tpu_torch.renderer import frame
 from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
 from metal_pathtracer_tpu_torch.schema import (
@@ -725,3 +731,155 @@ def test_cli_checkpoint_resume_on_card(dev, tmp_path):
     assert cli.main([*base, "--sppTotal", "4", "--checkpoint", ckpt,
                      "--output", resumed]) == 0
     assert open(straight, "rb").read() == open(resumed, "rb").read()
+
+
+@pytest.fixture(scope="module")
+def s2_inputs(dev):
+    """s2's inputs at depths 1 and 5 of one sample of the frame loop,
+    cloned as the wrapper took them: the textured headline (subdivision
+    3, 96x64; the base instantiation) and materials-env-rw (192x64, the
+    random walk's planes; the extended one). {which: {depth: (args,
+    kwargs)}}."""
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    out = {}
+    for which in ("headline", "zoo"):
+        if which == "headline":
+            settings, res, env = build_bench_scene(3, dev)
+            w, h = 96, 64
+        else:
+            settings, res, env = benchscene.build_materials_env_rw_scene(dev)
+            w, h = 192, 64
+        scene = res.build_arrays(environment=env, device=dev)
+        static = settings_to_static(settings, w, h,
+                                    res.material_types_present(),
+                                    res.texture_slots_present(),
+                                    res.texture_uses_uv1())
+        uni = settings_to_uniforms(settings,
+                                   build_camera(settings, w, h, dev), 0, 0)
+        kept, real = {}, shade.shade_s2
+
+        def spy(*args, **kw):
+            depth = spy.calls
+            spy.calls += 1
+            if depth in (1, 5):
+                kept[depth] = (tuple(_kept(x) for x in args),
+                               {k: _kept(x) for k, x in kw.items()})
+            return real(*args, **kw)
+
+        spy.calls = spy.launches = 0
+        with mock.patch.object(shade, "shade_s2", spy):
+            frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 1)
+        out[which] = kept
+    return out
+
+
+def _s2_pair(args, kw):
+    """s2 by the wrapper and by the plain version on clones of the kept
+    carry: (chain, carry, plain chain, plain carry)."""
+    ck, cp = _kept(args[0]), _kept(args[0])
+    before = shade.shade_s2.launches
+    got = shade.shade_s2(ck, *args[1:], **kw)
+    assert shade.shade_s2.launches == before + 1
+    want = shade.shade_s2_reference(cp, *args[1:], **kw)
+    torch.cuda.synchronize()
+    return got, ck, want, cp
+
+
+@pytest.mark.parametrize("depth", [1, 5])
+@pytest.mark.parametrize("which", ["headline", "zoo"])
+def test_s2_sparse_vs_plain_on_card(dev, s2_inputs, which, depth):
+    """K2 s2 against the plain version on the sparse depth-1 and depth-5
+    wavefronts (base, over its live-lane list; extended, a thread per
+    lane): CHAIN
+    plane-major from both and zero off the lanes alive after s1, dead
+    lanes' carry untouched, the carry and chain within ``chip_smoke.py``'s
+    tolerance (state, alive, prim, delta flag and medium depth on all but
+    1e-4 of the lanes; floats within 1e-4 of max(1, |plain|))."""
+    args, kw = s2_inputs[which][depth]
+    if which == "zoo":
+        assert kw["rw"] is not None
+    n = args[1].shape[0]
+    alive = args[0].alive
+    assert 0 < int(alive.sum()) < n // 2
+    got, ck, want, cp = _s2_pair(args, kw)
+    for chain in (got, want):
+        build.check_planes("CHAIN", chain, n, len(shade.CHAIN))
+    assert (got[~alive] == 0).all() and (got[alive] != 0).any()
+    for k, x in vars(ck).items():
+        assert torch.equal(x[~alive], getattr(args[0], k)[~alive]), k
+    differ = sum(int((getattr(ck, k) != getattr(cp, k)).reshape(n, -1)
+                     .any(-1).sum())
+                 for k in ("state", "alive", "prev_prim", "last_delta",
+                           "medium_depth"))
+    assert differ <= 1e-4 * n
+    for k in ("ray_o", "ray_d", "throughput", "radiance", "last_pdf",
+              "medium_stack", "cone_width"):
+        a, b = getattr(ck, k), getattr(cp, k)
+        assert float(((a - b).abs() / b.abs().clamp_min(1.0)).max()) <= 1e-4
+    assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) \
+        <= 1e-4
+
+
+def test_chain_layout_refused_lane_major_on_card(dev, s2_inputs):
+    """s2's CHAIN is an (N, 7) view of plane-major (7, N) storage;
+    ``check_planes`` refuses a lane-major copy of it."""
+    args, kw = s2_inputs["headline"][1]
+    n = args[1].shape[0]
+    got = _s2_pair(args, kw)[0]
+    build.check_planes("CHAIN", got, n, len(shade.CHAIN))
+    with pytest.raises(ValueError, match="plane-major"):
+        build.check_planes("CHAIN", got.contiguous(), n, len(shade.CHAIN))
+
+
+@pytest.mark.parametrize("wave", ["depth 0", "depth 1", "exact tie"])
+def test_k3b_bitexact_on_card(dev, wave):
+    """K3b (near first, shrinking window) against its plain version bit
+    for bit: rtow's 256x144 wavefronts at depths 0 and 1 and the scene
+    with two identical spheres in different groups; the tie goes to the
+    lower slot."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from test_torch_k3b import rtow_waves, tie_scene
+
+    if wave == "exact tie":
+        spheres, groups, args = tie_scene()
+        groups = type(groups)(**{k: v.to(dev)
+                                 for k, v in vars(groups).items()})
+        args = tuple(x.to(dev) if isinstance(x, torch.Tensor) else x
+                     for x in args)
+    else:
+        groups, waves = rtow_waves(dev, 256, 144)
+        args = (*waves[wave][:2], C.EPSILON_T, waves[wave][2])
+    before = P.sphere_nearest_chunked.launches
+    got = P.sphere_nearest_chunked(*args, groups)
+    assert P.sphere_nearest_chunked.launches == before + 1
+    want = P.sphere_nearest_chunked_reference(*args, groups)
+    model = P.sphere_nearest_visits(*args, groups)
+    for ref in (want, model):
+        assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+        assert torch.equal(got[1], ref[1])
+    assert (got[1] >= 0).sum() > 100
+    if wave == "exact tie":
+        assert (got[1] == 40).sum() > 100 and not (got[1] == 3).any()
+
+
+def test_s2_listing_pass_raises_on_cuda_error(dev, s2_inputs, monkeypatch):
+    """A CUDA error in s2's listing pass (its list at a null address)
+    raises from the wrapper, with no launch counted and no fallback; the
+    next launch runs clean. Last in the file: it provokes an error."""
+    args, kw = s2_inputs["headline"][1]
+
+    class Null:
+        def data_ptr(self):
+            return 0
+
+    monkeypatch.setattr(build, "list_scratch", lambda n, dev: Null())
+    before = shade.shade_s2.launches
+    with pytest.raises(RuntimeError, match="mpt_shade_s2: CUDA error"):
+        shade.shade_s2(_kept(args[0]), *args[1:], **kw)
+    assert shade.shade_s2.launches == before
+    monkeypatch.undo()
+    got, _, want, _ = _s2_pair(args, kw)
+    assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) \
+        <= 1e-4

@@ -1,14 +1,15 @@
-"""The plane-major layout of the texture stage's ``TEX`` planes and K2 s1's
-``TRANS`` transients, on the CPU.
+"""The plane-major layout of the texture stage's ``TEX`` planes, K2 s1's
+``TRANS`` transients and K2 s2's ``CHAIN`` exports, on the CPU.
 
-- The plain texture stage and s1 return what the kernels return: (N, k)
+- The plain texture stage, s1 and s2 return what the kernels return: (N, k)
   views of contiguous (k, N) storage, zero off their lanes; the layout
   check the CUDA wrappers use (``build.check_planes``) accepts exactly
   that and rejects a lane-major tensor; the alignment check refuses a
   tensor that does not start on the vector loads' boundary.
-- The glue that reads the planes (``nee_shadow_rays``, ``light_banks``)
-  gives the same bits from the plane-major planes as from lane-major
-  copies, and hands the traces contiguous rays.
+- The glue that reads the planes (``nee_shadow_rays``, ``light_banks``,
+  the spec-NEE ``delta_chain_estimators`` on s2's ``CHAIN``) gives the
+  same bits from the plane-major planes as from lane-major copies, and
+  hands the traces contiguous rays.
 - The texture stage's launch constants (``TexParams``) are built once per
   depth loop, not per launch, and equal the per-launch vector the stage
   used to build (its ``_scalars``).
@@ -64,11 +65,12 @@ def _clone(x):
 
 
 def _render(scene, static, uni):
-    """One sample of the frame loop; returns the texture stage's and s1's
-    calls in order, each (name, inputs as they came, output) with the
+    """One sample of the frame loop; returns the texture stage's, s1's
+    and s2's calls in order, each (name, inputs as they came, output) with the
     inputs cloned, and the ``TexParams.of`` calls."""
     calls, built = [], []
-    real = {"tex": shade.texture_stage, "s1": shade.shade_s1}
+    real = {"tex": shade.texture_stage, "s1": shade.shade_s1,
+            "s2": shade.shade_s2}
     real_of = texture.TexParams.of
 
     def spy(name):
@@ -86,6 +88,7 @@ def _render(scene, static, uni):
 
     with mock.patch.object(shade, "texture_stage", spy("tex")), \
             mock.patch.object(shade, "shade_s1", spy("s1")), \
+            mock.patch.object(shade, "shade_s2", spy("s2")), \
             mock.patch.object(texture.TexParams, "of", of):
         frame.render_samples(scene, uni, RenderState.create(W, H, "cpu"),
                              static, 1)
@@ -114,7 +117,8 @@ def _same_bits(a, b):
 
 
 @pytest.mark.parametrize("name,cols", [("tex", len(texture.TEX)),
-                                       ("s1", len(shade.TRANS))])
+                                       ("s1", len(shade.TRANS)),
+                                       ("s2", len(shade.CHAIN))])
 @pytest.mark.parametrize("depth", [0, 1])
 def test_plain_stages_return_plane_major(headline, name, cols, depth):
     _, _, _, calls, _ = headline
@@ -123,9 +127,13 @@ def test_plain_stages_return_plane_major(headline, name, cols, depth):
     assert out.shape == (n, cols) and out.dtype == torch.float32
     assert out.t().is_contiguous() and out.stride() == (1, n)
     build.check_planes(name, out, n, cols)
-    # zero off the lanes the stage fills: dead and missed lanes
+    # zero off the lanes the stage fills: dead and missed lanes (s2: the
+    # lanes not alive after s1, which are all hits)
     lanes = args[0].alive & (args[2] >= 0)
     assert (out[~lanes] == 0).all() and (out[lanes] != 0).any()
+    if name == "s2":
+        assert torch.equal(lanes, args[0].alive)
+        assert (~lanes).any()
 
 
 def test_check_planes_accepts_plane_major_only():
@@ -178,6 +186,27 @@ def test_light_banks_layout_independent(headline):
                                              tex.contiguous())
         assert _same_bits(esmp, esmp_l)
         assert int(shadow) == int(shadow_l) > 0
+
+
+def test_chain_estimators_layout_independent(headline):
+    """``delta_chain_estimators`` gives the same bits from s2's plane-major
+    CHAIN as from a lane-major copy (the depth loop's call)."""
+    scene, static, uni, calls, _ = headline
+    idx = shade.CHAIN_IDX
+    for depth in (0, 1):
+        (args, kw), chain = _first(calls, "s2", depth)[1:]
+        carry = _clone(args[0])
+        shade.shade_s2(carry, *args[1:], **kw)
+        params = shade.ShadeParams.of(uni, static, scene.environment)
+        got, want = (shade.specnee.delta_chain_estimators(
+            scene, uni, static, params.clamp, args[0].throughput,
+            carry.ray_d, carry.last_delta, ch[:, 0:3], ch[:, idx["dpdf"]],
+            ch[:, idx["medev"]], carry.ray_o, ch[:, idx["active"]] > 0.5)
+            for ch in (chain, chain.contiguous()))
+        assert not chain.is_contiguous()
+        assert (got[0] != 0).any()
+        for a, b in zip(got, want):
+            assert _same_bits(a, b)
 
 
 def _old_scalars(uni, static, textures, depth):
