@@ -752,7 +752,6 @@ __global__ void __launch_bounds__(LIST_BLOCK) s2_list_kernel(
   }
 }
 
-template <bool EXT>
 __global__ void __launch_bounds__(kBlock) shade_s2_kernel(
     const int* __restrict__ list, int* __restrict__ counters, int n,
     ShadeParams p, Geo g, const float* __restrict__ mat_table, int m_count,
@@ -766,14 +765,13 @@ __global__ void __launch_bounds__(kBlock) shade_s2_kernel(
     if (k >= n_live) break;
     k += threadIdx.x & 31;
     if (k < n_live)
-      s2_lane<EXT>(list[k], n, p, g, mat_table, m_count, trans, esmp, tex,
-                   rw, rw_state, c, chain, probe);
+      s2_lane<false>(list[k], n, p, g, mat_table, m_count, trans, esmp,
+                     tex, rw, rw_state, c, chain, probe);
   }
 }
 
 // the extended instantiation: one thread per wavefront lane, CHAIN zero
 // on lanes not alive after s1
-template <bool EXT>
 __global__ void __launch_bounds__(kBlock) shade_s2_lanes_kernel(
     int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
     int m_count, const float* __restrict__ trans,
@@ -787,8 +785,8 @@ __global__ void __launch_bounds__(kBlock) shade_s2_lanes_kernel(
     for (int k = 0; k < N_CHAIN; ++k) chain[(long long)k * n + i] = 0.0f;
     return;
   }
-  s2_lane<EXT>(i, n, p, g, mat_table, m_count, trans, esmp, tex, rw,
-               rw_state, c, chain, probe);
+  s2_lane<true>(i, n, p, g, mat_table, m_count, trans, esmp, tex, rw,
+                rw_state, c, chain, probe);
 }
 
 Carry carry_of(void* const* ptrs) {
@@ -912,7 +910,8 @@ extern "C" int mpt_shade_s1(int n, int ext, const float* scalars,
 }
 
 // `scratch`: n + 2 int32, the list of lanes alive after s1 and its two
-// counters (listed count, fetch position), for the base instantiation
+// counters (listed count, fetch position), for the base instantiation;
+// null for the extended one, which takes no list
 extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
                             void* const* geo, const void* mat_table,
                             int m_count, const void* trans, const void* esmp,
@@ -924,7 +923,7 @@ extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
   cudaStream_t st = (cudaStream_t)stream;
   Carry c = carry_of(carry);
   if (ext) {
-    shade_s2_lanes_kernel<true><<<grid(n), kBlock, 0, st>>>(
+    shade_s2_lanes_kernel<<<grid(n), kBlock, 0, st>>>(
         n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
         m_count, (const float*)trans, (const float*)esmp, (const float*)tex,
         (const float*)rw, (const long long*)rw_state, c, (float*)chain,
@@ -942,8 +941,8 @@ extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int blocks =
-      persistent_grid(shade_s2_kernel<false>, kBlock, &s2_grid_cache, n);
-  shade_s2_kernel<false><<<blocks, kBlock, 0, st>>>(
+      persistent_grid(shade_s2_kernel, kBlock, &s2_grid_cache, n);
+  shade_s2_kernel<<<blocks, kBlock, 0, st>>>(
       sc + 2, sc, n, shade_params_of(scalars), geo_of(geo),
       (const float*)mat_table, m_count, (const float*)trans,
       (const float*)esmp, (const float*)tex, (const float*)rw,

@@ -144,19 +144,18 @@ def _outward_f32(x: np.ndarray, direction: float) -> np.ndarray:
     return np.where(off, np.nextafter(y, np.float32(direction * np.inf)), y)
 
 
-def sphere_groups(spheres, order=None) -> SphereGroups:
+def sphere_groups(spheres) -> SphereGroups:
     """Build the K3b layout on the host (``primitives.py:136-162``), once
-    per scene (``SceneArrays.sphere_groups``), the spheres in ``order``
-    (default: their Morton order; the tests pass others). Each
-    box is the group's spheres' box widened by 1e-3 x (1 + its largest
-    coordinate magnitude), then rounded outward to float32: a quadratic
-    that grazes a sphere can report a hit a little outside it (about
-    eps |o - c|^2 / r), and the slab test rounds too, so an exact box
-    could drop a hit that K3a keeps."""
+    per scene (``SceneArrays.sphere_groups``), the spheres in their Morton
+    order. Each box is the group's spheres' box widened by 1e-3 x (1 + its
+    largest coordinate magnitude), then rounded outward to float32: a
+    quadratic that grazes a sphere can report a hit a little outside it
+    (about eps |o - c|^2 / r), and the slab test rounds too, so an exact
+    box could drop a hit that K3a keeps."""
     center = spheres.center.detach().cpu().numpy()
     radius = spheres.radius.detach().cpu().numpy()
     s = len(radius)
-    order = morton_order(center) if order is None else np.asarray(order)
+    order = morton_order(center)
     n_groups = (s + SPHERE_GROUP - 1) // SPHERE_GROUP
     rep = order[np.minimum(np.arange(n_groups * SPHERE_GROUP), s - 1)]
     c64 = center[rep].astype(np.float64).reshape(n_groups, SPHERE_GROUP, 3)
@@ -240,32 +239,26 @@ def sphere_nearest_chunked_reference(origin, direction, t_min, t_max,
 
 
 def sphere_nearest_visits(origin, direction, t_min, t_max,
-                          groups: SphereGroups, rank=None, near_first=True,
-                          stats=None):
+                          groups: SphereGroups, stats=None):
     """The K3b kernel's schedule in plain PyTorch (``csrc/primitives.cu
     sphere_nearest_chunked_kernel``), for its counts and for the tests:
     every box slab-tested once against [t_min, t_max]; then, until none is
-    pending, the pending group of least entry tnear (``near_first``; the
-    lowest ``rank`` on a tie; without ``near_first``, the next in ``rank``
-    order) is tested, 16 spheres, and groups whose tnear exceeds the
-    window [t_min, w] are dropped, w the best t so far (t_max before a
-    hit). A candidate is taken when (t, slot) is lexicographically below
-    the best. ``rank``: each group's priority (default: its position).
+    pending, the pending group of least entry tnear (the lowest group on a
+    tie) is tested, 16 spheres, and groups whose tnear exceeds the window
+    [t_min, w] are dropped, w the best t so far (t_max before a hit). A
+    candidate is taken when (t, slot) is lexicographically below the best.
     Returns (t, index) like ``sphere_nearest_chunked_reference``;
     ``stats``, a dict, receives ``group_visits`` (lane x group visits) and
     ``sphere_tests`` (16 a visit)."""
     n, n_groups = origin.shape[0], groups.n_groups
     dev = origin.device
-    rank = torch.arange(n_groups, device=dev) if rank is None \
-        else torch.as_tensor(rank, device=dev)
-    by_rank = torch.argsort(rank)           # groups in priority order
     inv = slab_inverse(direction)
     entry = torch.empty((n, n_groups), device=dev)
     pending = torch.empty((n, n_groups), dtype=torch.bool, device=dev)
-    for col, g in enumerate(by_rank.tolist()):
+    for g in range(n_groups):
         tnear, tfar = group_entry(origin, inv, t_min, t_max,
                                   groups.box_min[g], groups.box_max[g])
-        entry[:, col], pending[:, col] = tnear, tfar >= tnear
+        entry[:, g], pending[:, g] = tnear, tfar >= tnear
     pending &= (t_max >= t_min)[:, None]
     center = groups.center.view(n_groups, SPHERE_GROUP, 3)
     radius = groups.radius.view(n_groups, SPHERE_GROUP)
@@ -280,11 +273,8 @@ def sphere_nearest_visits(origin, direction, t_min, t_max,
         if not bool(go.any()):
             break
         visits += int(go.sum())
-        key = torch.where(pending, entry, float("inf")) if near_first \
-            else (~pending).to(torch.int8)
-        col = torch.argmin(key, 1)          # the first of least key
-        pending[lanes, col] = False
-        g = by_rank[col]
+        g = torch.argmin(torch.where(pending, entry, float("inf")), 1)
+        pending[lanes, g] = False
         t, valid = sphere_roots(origin, direction, center[g], radius[g],
                                 t_min, t_max)
         valid &= go[:, None]
@@ -319,11 +309,12 @@ def _launch(name, origin, direction, t_min, t_max, prim_args, count,
     _check(name, [origin, direction, t_max, *prim_args], dev)
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = build.list_scratch(n, dev) if listed else None
     p = lambda x: x.data_ptr()
     err = getattr(build.load(), f"mpt_{name}")(
         n, p(origin), p(direction), float(t_min), p(t_max),
         *[p(x) for x in prim_args], count, p(out_t), p(out_i),
-        *([p(build.list_scratch(n, dev))] if listed else []),
+        *([p(scratch)] if listed else []),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"mpt_{name}")
     return out_t, out_i

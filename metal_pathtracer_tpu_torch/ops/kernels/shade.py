@@ -605,7 +605,8 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
     plane-major ``TRANS`` or ``TEX`` planes, the others contiguous) after
     the material table (packed on the first launch for these materials)
     and the probe plane (or None), and, if ``listed``, the stage's
-    live-lane list scratch (``build.list_scratch``); returns its
+    live-lane list scratch (``build.list_scratch``; the base instantiation
+    only, a null pointer for the extended one); returns its
     (N, out_cols) output, plane-major if ``plane_out`` (None without
     one)."""
     dev = t.device
@@ -632,6 +633,8 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
     out = None if out_cols is None else build.planes(n, out_cols, dev) \
         if plane_out else torch.empty((n, out_cols), dtype=torch.float32,
                                       device=dev)
+    scratch = build.list_scratch(n, dev) \
+        if listed and not params.extended else None
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = getattr(lib, f"mpt_{name}")(
@@ -639,7 +642,7 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
         geo, p(mat_table), mat_table.shape[0],
         *[p(x) for x in inputs], build.pointers(ptrs),
         *([] if out is None else [p(out)]), p(probe),
-        *([p(build.list_scratch(n, dev))] if listed else []),
+        *([p(scratch)] if listed else []),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"mpt_{name}")
     return out
