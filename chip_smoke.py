@@ -66,6 +66,13 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    configurations at full size through ``CudaBackend``. The kernels line
    lists the extended K2 stages as ``shade_*_zoo``, with this phase's
    launches;
+   then K2 ``full`` at every depth of one sample of rtow and materials
+   and at the lambert series' first 3 depths (``full_path``: kept by
+   ``frame_loop_full``): each of its kernels (a thread per lane, the
+   sparse sweep, the listing pass and the bucket kernel) against the
+   plain version bit for bit at depths 0, 1 and a sparse one, and each
+   depth's time as the main path runs it and by each kernel, beside its
+   bound, lanes by kind and (warp, kind) pairs;
 6. headless and debug (K1's counting instantiation, K2's
    ``debugSpecularOnly`` flag and probe plane, the CLI): ``traversal_profile``
    of the textured headline's 1920x1080 first-depth wavefront and its
@@ -153,17 +160,36 @@ ROOT = "metal_pathtracer_tpu_torch/csrc/"
 # bank (a second bank is ``extra``), and writes the carry (92 B); its row
 # is cols 0-19 (80 B) and only its textured lanes read the 14 texture
 # planes past tpbr. Before PR 9 it charged 341 B a hit with a 96 B row per
-# hit (``K2_S2_BEFORE``, printed beside). full's is the old one, a 96 B
-# row per hit. Rough operation counts per live lane (float ops in the
+# hit (``K2_S2_BEFORE``, printed beside). full's follow the kernel
+# (``full_bound``): a dead lane reads its alive flag; a
+# miss reads alive, index, direction, radiance and throughput (41 B) and
+# writes radiance, the exclusion ids and alive (22 B); a hit reads alive,
+# index, t, u, v, ray, medium depth, throughput, radiance, first-hit
+# flag, state and cone (86 B) and writes radiance, medium depth, cone,
+# state, ray, throughput, the exclusion ids and alive (78 B), a first hit
+# also its AOVs and flag (25 B); each distinct triangle row is cols 0-19
+# (80 B); an analytic hit reads its family (4 B, as every hit of a scene
+# with analytic primitives does) and no u, v, and each distinct sphere or
+# rectangle record once (20 B). The listing pass reads only what the
+# stage reads anyway; its list is its own output (``list_bound``). The
+# older charge, 145 B a hit with a 96 B row per triangle hit and nothing
+# for analytic records or AOVs, is ``K2_FULL_BEFORE``, printed beside.
+# Rough operation counts per live lane (float ops in the
 # source) give the compute side of the bound.
 K2_BYTES = {
-    "shade_full": dict(hit=178 + 63 - 96, row=96, first=0, miss=41 + 22,
-                       dead=1, out=0, ops=200),
+    "shade_full": dict(hit=86 + 78, row=80, prim=20, uv=8, first=25,
+                       miss=41 + 22, dead=1, out=0, ops=200),
     "shade_s1": dict(hit=78 + 32, row=80, first=1 + 24, miss=50 + 22,
                      dead=1, out=72, ops=300),
     "shade_s2": dict(hit=1 + 128 + 36 + 92, row=80, first=0, miss=0, dead=1,
                      out=28, ops=1200),
 }
+K2_FULL_BEFORE = dict(hit=178 + 63 - 96, row=96, row_per_hit=True, prim=0,
+                      uv=0, first=0, miss=41 + 22, dead=1, out=0, ops=200)
+# K2 full's lane kinds (``full_counts``): dead, a miss, then the hit's
+# material type (``constants.MATERIAL_*`` order)
+LANE_KINDS = ["dead", "miss", "lambert", "metal", "dielectric", "light",
+              "plastic", "subsurface", "carpaint", "pbr"]
 K2_S2_BEFORE = dict(hit=345 + 92 - 96, row=96, first=0, miss=1, dead=1,
                     out=28, ops=1200)
 TEX_BYTES = 15 * 4
@@ -207,6 +233,8 @@ K2_RUN_G = {"lambert full": 0.0417, "textured headline s1": 0.751,
             "textured headline s2": 0.361, "cornell s1": 0.1066,
             "cornell s2": 0.0560, "rtow full depth 0": 0.0726}
 K2_NOW = {}
+# each cell's launch counts from its main path's run (the kernels line)
+MAIN_LAUNCHES = {}
 
 
 def device_line() -> str:
@@ -553,9 +581,9 @@ def lambert_path(dev, card, kernels, out):
     with plain_kernels():
         st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
                                     static, 4)
-    k2_err = image_gate(st_k.present().cpu().numpy(),
-                        st_p.present().cpu().numpy(), st_k.ray_count,
-                        st_p.ray_count, f"K2 full {w}x{h} 4spp kernel vs plain")
+    image_gate(st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
+               st_k.ray_count, st_p.ray_count,
+               f"K2 full {w}x{h} 4spp kernel vs plain")
 
     # ---- the lambert series at 1920x1080 through CudaBackend -----------
     W, H = FRAME
@@ -590,7 +618,6 @@ def lambert_path(dev, card, kernels, out):
     S.shade_full(carry, *hit0, scene.triangles, scene.materials, params, 0)
     hit1 = T.trace_closest(*trace_inputs(carry, scene))
     n = W * H
-    n_hit = int((carry.alive & (hit1[1] >= 0)).sum())
     n_live = int(carry.alive.sum())
 
     def k2_run(fn):
@@ -608,7 +635,9 @@ def lambert_path(dev, card, kernels, out):
                            params, 1)
     torch.cuda.synchronize()
     differ, call_err = carry_error(ck, cp, n)
-    bound, bound_by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live)
+    bound, bound_by = full_bound(
+        full_counts(scene, carry, hit1[1], None),
+        scene.materials.count * len(S.MAT_COLS) * 4)
     print(f"lambert first bounce ({n_live} live of {n} lanes): K2 full "
           f"{k2_ms:.4f} ms on the device, {k2_win_ms:.4f} ms around the "
           f"wrapper (plain {k2_plain_ms:.1f} ms, bound {bound:.4f} ms "
@@ -617,11 +646,6 @@ def lambert_path(dev, card, kernels, out):
     if differ > 1e-4 * n or not call_err <= 1e-4:
         raise AssertionError("K2 full disagrees with its plain version")
     K2_NOW["lambert full"] = k2_ms
-    out["shade_full"] = dict(
-        source=ROOT + "shade.cu",
-        replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
-        launches=launches["shade_full"], max_abs_err=max(k2_err, call_err),
-        ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=bound, bound_by=bound_by)
     return k1_err
 
 
@@ -1247,11 +1271,12 @@ def k2_once(kept, which, depth, fn=None):
 
 def k2_digest(out, carry) -> str:
     """SHA-256 of a launch's result in one layout: the (N, k) output made
-    contiguous, then every carry tensor (the state included)."""
+    contiguous (none for stage full), then every carry tensor (the state
+    included)."""
     import hashlib
 
     h = hashlib.sha256()
-    for x in (out, *vars(carry).values()):
+    for x in ([] if out is None else [out]) + list(vars(carry).values()):
         h.update(x.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -1444,6 +1469,317 @@ def k3b_depths(cell, dev, card):
     return total
 
 
+def frame_loop_full(scene, uni, static, dev, keep=None):
+    """One sample of the frame loop with K2 ``full`` spied on: the inputs
+    of each launch (of the first ``keep`` depths; None: all), cloned as
+    the wrapper takes them, in launch order (one a depth): [(args,
+    kwargs)]. A host sync per launch, so it runs apart from timed
+    renders."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    kept, real = [], S.shade_full
+
+    def spy(*args, **kw):
+        if keep is None or len(kept) < keep:
+            kept.append((tuple(_kept(x) for x in args),
+                         {k: _kept(x) for k, x in kw.items()}))
+        return real(*args, **kw)
+
+    spy.launches = 0
+    with mock.patch.object(S, "shade_full", spy):
+        frame.render_samples(scene, uni, RenderState.create(
+            static.width, static.height, dev), static, 1)
+    return kept
+
+
+def full_counts(scene, carry, idx, kind):
+    """What one K2 ``full`` launch's lanes are, from its inputs: dead,
+    live, misses, triangle and analytic hits, hits per material type,
+    distinct triangle rows and analytic primitives of the hits, first
+    hits, and the distinct (warp of 32 lanes, lane kind) pairs, a lane's
+    kind being dead, a miss or its hit's material type (how much
+    divergence a warp over consecutive lanes holds)."""
+    from metal_pathtracer_tpu_torch import constants as C
+
+    n = idx.shape[0]
+    live = carry.alive
+    hit = live & (idx >= 0)
+    fam = torch.full_like(idx, C.PRIMITIVE_TRIANGLE) if kind is None \
+        else kind
+    safe = idx.clamp_min(0).long()
+    mat = torch.zeros_like(idx)
+    for f, count, prims in ((C.PRIMITIVE_TRIANGLE, scene.n_triangles,
+                             scene.triangles),
+                            (C.PRIMITIVE_SPHERE, scene.n_spheres,
+                             scene.spheres),
+                            (C.PRIMITIVE_RECTANGLE, scene.n_rects,
+                             scene.rects)):
+        if count:
+            mat = torch.where(hit & (fam == f),
+                              prims.material[safe.clamp_max(count - 1)], mat)
+    mats = scene.materials
+    mtype = mats.mat_type[mat.clamp(0, mats.count - 1).long()].long()
+    codes = torch.where(hit, 2 + mtype, live.long())
+    tri = hit & (fam == C.PRIMITIVE_TRIANGLE)
+    ana = hit & ~tri
+    by_kind = torch.bincount(codes, minlength=len(LANE_KINDS)).tolist()
+    warps = torch.arange(n, device=idx.device) // 32
+    key = (fam.long() << 32) | idx.long()
+    return dict(
+        n=n, dead=by_kind[0], live=int(live.sum()), miss=by_kind[1],
+        tri=int(tri.sum()), analytic=int(ana.sum()),
+        types={k: v for k, v in zip(LANE_KINDS[2:], by_kind[2:]) if v},
+        rows=int(torch.unique(idx[tri]).numel()),
+        prims=int(torch.unique(key[ana]).numel()),
+        first=int((hit & carry.is_first_hit).sum()),
+        pairs=int(torch.unique(warps * len(LANE_KINDS) + codes).numel()),
+        warps=(n + 31) // 32, family=kind is not None)
+
+
+def full_bound(counts, table, charge=None):
+    """K2 ``full``'s bound for ``full_counts`` at ``charge`` (None:
+    ``K2_BYTES["shade_full"]``, the kernel's; ``K2_FULL_BEFORE``, the
+    older charge: a 96 B row a triangle hit, none for an analytic hit, no
+    AOVs). ``table``: the material table's bytes, read once."""
+    b = K2_BYTES["shade_full"] if charge is None else charge
+    c = counts
+    rows = c["tri"] if b.get("row_per_hit") else c["rows"]
+    n_bytes = c["dead"] * b["dead"] + c["miss"] * b["miss"] \
+        + c["tri"] * (b["hit"] + 4 * c["family"]) \
+        + c["analytic"] * (b["hit"] + 4 - b["uv"]) + rows * b["row"] + c["prims"] * b["prim"] + c["first"] * b["first"] \
+        + table
+    return bound_ms(n_bytes, (c["tri"] + c["analytic"] + c["miss"])
+                    * b["ops"])
+
+
+def list_bound(counts, n_types):
+    """The listing pass's own bound: every lane's alive flag, a live lane's
+    index (and family), each distinct hit record's material id, the
+    material types, a listed hit's 4 B list entry written, and the misses
+    it ends (a miss's stage-full bytes)."""
+    c = counts
+    live_bytes = 4 + 4 * c["family"]
+    n_bytes = c["n"] + c["live"] * live_bytes \
+        + (c["rows"] + c["prims"]) * 4 + n_types * 4 \
+        + (c["tri"] + c["analytic"]) * 4 \
+        + c["miss"] * K2_BYTES["shade_full"]["miss"]
+    return bound_ms(n_bytes, 0)
+
+
+def bucket_bound(counts, table):
+    """The bucket kernel's own bound: the hits' stage-full bytes (the
+    misses ended in the listing pass, no dead lane touched) and each
+    listed lane's 4 B list entry."""
+    c = dict(counts, dead=0, miss=0)
+    b, by = full_bound(c, table)
+    extra = bound_ms((c["tri"] + c["analytic"]) * 4, 0)[0]
+    return b + extra, by
+
+
+def full_variants(args, kw):
+    """``kernel_ms`` ``prepare``s of one kept stage-full launch: the
+    wrapper as the main path calls it (``main``), each kernel forced
+    (``lanes``: a thread per lane; ``sparse``: the sparse sweep, base
+    instantiation only; ``buckets``: listing pass and bucket kernel), the
+    listing pass alone
+    (``list``), the bucket kernel alone
+    on a listing made outside the window (``bucket``) and the plain
+    version (``plain``)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+
+    bare = {k: x for k, x in kw.items() if k != "n_alive"}
+    fam = dict(kind=kw.get("kind"), scene=kw.get("scene"))
+
+    def run(fn, opts, listed=False):
+        def prepare():
+            c = clone(args[0])
+            more = dict(buckets=S.full_buckets(c, *args[1:8], **fam)) \
+                if listed else {}
+            return lambda: fn(c, *args[1:], **opts, **more)
+        return prepare
+
+    def listing():
+        c = clone(args[0])
+        return lambda: S.full_buckets(c, *args[1:8], **fam)
+
+    out = {"main": run(S.shade_full, kw),
+           "lanes": run(S.shade_full_lanes, bare),
+           "buckets": run(S.shade_full_buckets, bare),
+           "list": listing, "bucket": run(S.shade_full_buckets, bare, True),
+           "plain": run(S.shade_full_reference, bare)}
+    if not args[7].extended:
+        out["sparse"] = run(S.shade_full_sparse, bare)
+    return out
+
+
+def check_full(args, kw, label):
+    """Stage full of one kept launch against its plain version, bit for
+    bit in the carry, by each kernel (a thread per lane; the listing pass
+    and the bucket kernel), and the listing pass's buckets against the
+    plain listing (the misses ended in the pass: their bucket empty)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+
+    plain = {k: x for k, x in kw.items() if k != "n_alive"}
+    cp = clone(args[0])
+    S.shade_full_reference(cp, *args[1:], **plain)
+    runs = [("a thread per lane", S.shade_full_lanes),
+            ("buckets", S.shade_full_buckets)]
+    if not args[7].extended:
+        runs.append(("the sparse sweep", S.shade_full_sparse))
+    for name, fn in runs:
+        ck = clone(args[0])
+        fn(ck, *args[1:], **plain)
+        torch.cuda.synchronize()
+        compare_bits(f"{label} K2 full ({name})", carry_pairs(ck, cp))
+    c = clone(args[0])
+    n = args[1].shape[0]
+    got = S.bucket_lanes(S.full_buckets(c, *args[1:8], kind=kw.get("kind"),
+                                        scene=kw.get("scene")), n)
+    want = S.full_buckets_reference(args[0], *args[1:8], kind=kw.get("kind"),
+                                    scene=kw.get("scene"))
+    if len(got[0]) or any(not torch.equal(a, b)
+                          for a, b in zip(got[1:], want[1:])):
+        raise AssertionError(f"{label}: the listing pass's buckets differ "
+                             f"from the plain listing: "
+                             f"{[len(x) for x in got]} against "
+                             f"{[len(x) for x in want]}")
+
+
+def full_depths(name, settings, res, scene, w, h, dev, card, keep=None):
+    """K2 ``full`` at every depth of one sample (the first ``keep``) of a
+    cell (``frame_loop_full``): each depth's device time as the main path
+    calls it, of each kernel forced, of the listing pass and of the
+    bucket kernel alone, its live, hit and miss lanes, hits per material
+    type, distinct (warp, lane kind) pairs, bound at the kernel's charge
+    and at the older one; the sums over the sample. Each kernel against its
+    plain version bit for bit at depths 0 and 1 and at the first sparse
+    depth from depth 2 (under ``FULL_SPARSE_ALIVE`` of the lanes alive:
+    rtow's 6, materials' 4, lambert's 2). Returns
+    {"depths": [...], "sums": {...}}."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+
+    static, uni = scene_setup(settings, res, w, h, dev)
+    kept = frame_loop_full(scene, uni, static, dev, keep)
+    table = scene.materials.count * len(S.MAT_COLS) * 4
+    n = w * h
+    sparse = next((d for d, (a, _) in enumerate(kept)
+                   if d >= 2 and int(a[0].alive.sum())
+                   < S.FULL_SPARSE_ALIVE * n), None)
+    checked = [d for d in (0, 1, sparse) if d is not None and d < len(kept)]
+    for d in checked:
+        check_full(*kept[d], f"{name} depth {d}")
+    print(f"{name} {w}x{h}: K2 full bit-equal to its plain version at "
+          f"depths {checked} by each kernel, the listing pass's buckets "
+          f"equal to the plain listing's [{card}]")
+    rows, sums = [], {}
+    for depth, (args, kw) in enumerate(kept):
+        cnt = full_counts(scene, args[0], args[2], kw.get("kind"))
+        times = {k: kernel_ms(prep, 5)
+                 for k, prep in full_variants(args, kw).items()
+                 if k != "plain"}
+        b, by = full_bound(cnt, table)
+        old, _ = full_bound(cnt, table, K2_FULL_BEFORE)
+        lb, _ = list_bound(cnt, scene.materials.count)
+        run = S.full_schedule(args[7], depth, kw.get("n_alive"), n)
+        ran = "buckets" if run is S.shade_full_buckets else \
+            "the sparse sweep" if run is S.shade_full_sparse else \
+            "a thread per lane"
+        row = dict(times, bound=b, old=old, list_bound=lb)
+        for k, x in row.items():
+            sums[k] = sums.get(k, 0.0) + x
+        rows.append(dict(row, counts=cnt, by=by,
+                         sparse_run=run is S.shade_full_sparse))
+        print(f"{name} depth {depth}: {cnt['live']} live of {n} lanes, "
+              f"{cnt['tri'] + cnt['analytic']} hits {cnt['types']}, "
+              f"{cnt['miss']} misses, {cnt['pairs']} (warp, kind) pairs "
+              f"over {cnt['warps']} warps; K2 full {times['main']:.4f} ms "
+              f"({ran}; a thread per lane {times['lanes']:.4f}, "
+              + (f"the sparse sweep {times['sparse']:.4f}, "
+                 if "sparse" in times else "") + f"buckets "
+              f"{times['buckets']:.4f}: listing pass {times['list']:.4f}, "
+              f"bucket kernel {times['bucket']:.4f}); bound {b:.4f} ms by "
+              f"{by} ({old:.4f} at K2_FULL_BEFORE), listing pass's "
+              f"{lb:.4f} [{card}]")
+    print(f"{name}, one sample's {len(rows)} depths: K2 full "
+          f"{sums['main']:.4f} ms (a thread per lane throughout "
+          f"{sums['lanes']:.4f}, "
+          + (f"the sparse sweep throughout {sums['sparse']:.4f}, "
+             if "sparse" in sums else "") + f"buckets throughout "
+          f"{sums['buckets']:.4f}, "
+          f"of which listing {sums['list']:.4f}); bounds {sums['bound']:.4f}"
+          f" ({sums['old']:.4f} at K2_FULL_BEFORE) [{card}]")
+    return {"depths": rows, "sums": sums, "kept": kept, "table": table,
+            "sparse": next((d for d, r in enumerate(rows) if r["sparse_run"]),
+                           None)}
+
+
+def full_path(dev, card, kernels, out):
+    """K2 ``full`` at every depth of one sample of rtow (1200x675, ~44
+    depths) and materials (960x320, 8) and at the lambert series' first 3
+    depths (1920x1080), each kernel held against its plain version bit
+    for bit at depths 0 and 1 and a sparse depth (``full_depths``); the
+    kernels line's stage-full entries (the thread-per-lane and bucket
+    kernels of each instantiation, the sparse sweep and the listing pass:
+    each timed on a wavefront of its regime, with the launches of the
+    main path's rtow or materials run)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    cells = (("rtow", lambda: B.build_rtow_scene(RTOW_SEED), B.RTOW_FRAME,
+              None),
+             ("materials", B.build_materials_scene, B.MATERIALS_FRAME, None),
+             ("lambert", lambda: B.build_lambert_series(
+                 LAMBERT_SUBDIVISIONS), FRAME, 3))
+    res_by = {}
+    for name, make, (w, h), keep in cells:
+        settings, res = make()
+        scene = res.build_arrays(device=dev)
+        res_by[name] = full_depths(name, settings, res, scene, w, h, dev,
+                                   card, keep)
+        res_by[name]["scene"] = scene
+        torch.cuda.synchronize()
+
+    def entry(cell, depth, time_key, bound, launches_of):
+        r = res_by[cell]
+        args, kw = r["kept"][depth]
+        if time_key == "list":
+            fam = dict(kind=kw.get("kind"), scene=kw.get("scene"))
+            plain = lambda: lambda: S.full_buckets_reference(
+                args[0], *args[1:8], **fam)
+        else:
+            plain = full_variants(args, kw)["plain"]
+        plain_ms = cuda_ms(plain, 2)
+        b, by = bound(r["depths"][depth]["counts"], r["table"])
+        return dict(source=ROOT + "shade.cu",
+                    replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
+                    launches=MAIN_LAUNCHES[launches_of[0]][launches_of[1]],
+                    max_abs_err=0.0, ms=r["depths"][depth][time_key],
+                    plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+    n_types = lambda cell: res_by[cell]["scene"].materials.count
+    out["shade_full"] = entry("rtow", 0, "lanes", full_bound,
+                              ("rtow", "shade_full_lanes"))
+    out["shade_full_sparse"] = entry("rtow", res_by["rtow"]["sparse"],
+                                     "sparse", full_bound,
+                                     ("rtow", "shade_full_sparse"))
+    out["shade_full_buckets"] = entry("rtow", 1, "bucket", bucket_bound,
+                                      ("rtow", "shade_full_buckets"))
+    out["full_buckets"] = entry(
+        "rtow", 1, "list", lambda c, _: list_bound(c, n_types("rtow")),
+        ("rtow", "full_buckets"))
+    out["shade_full_zoo"] = entry("materials", 0, "lanes", full_bound,
+                                  ("materials", "shade_full_lanes"))
+    out["shade_full_buckets_zoo"] = entry(
+        "materials", 1, "bucket", bucket_bound,
+        ("materials", "shade_full_buckets"))
+    for k in ("shade_full", "shade_full_sparse", "shade_full_buckets",
+              "full_buckets", "shade_full_zoo", "shade_full_buckets_zoo"):
+        if out[k]["launches"] <= 0:
+            raise AssertionError(f"{k} was not launched on its main path")
+
+
 def exact_gate(st_k, st_p, label):
     """A render through the kernels against the plain path: the same
     image (RMSE 0) and the same closest and shadow trace counts."""
@@ -1623,8 +1959,8 @@ def prim_k2(cells, dev, card):
         ms, win = timed(prep(full, S.shade_full, carry), 5)
         K2_NOW[f"rtow full depth {depth}"] = ms
         plain = cuda_ms(prep(full, S.shade_full_reference, carry), 2)
-        b, by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live,
-                         analytic=True)
+        b, by = full_bound(full_counts(scene, carry, idx, kind),
+                           scene.materials.count * len(S.MAT_COLS) * 4)
         print(f"rtow depth {depth} ({n_live} live of {n} lanes, {n_hit} "
               f"hits): K2 full bit-equal to its plain version in the carry; "
               f"{ms:.4f} ms on the device, {win:.4f} ms around the wrapper "
@@ -1850,7 +2186,10 @@ def primitives_path(dev, card, kernels, out):
     settings, res, _, _ = cells["rtow"]
     launches_r = prim_timed("rtow", res, settings, *B.RTOW_FRAME,
                             RTOW_TIMED_SPP, dev, card, kernels,
-                            ("sphere_nearest_chunked", "shade_full"))
+                            ("sphere_nearest_chunked", "shade_full",
+                             "shade_full_lanes", "shade_full_sparse",
+                             "shade_full_buckets", "full_buckets"))
+    MAIN_LAUNCHES["rtow"] = launches_r
     print(f"K3b against K3a: {ties} exact-t ties over the rtow wavefronts")
     for kname, n_launch in (
             ("sphere_nearest_brute", launches["sphere_nearest_brute"]),
@@ -1958,16 +2297,13 @@ def zoo_k2(cells, dev, card, out):
         n_hit = int((carry.alive & (idx >= 0)).sum())
         ms, win = timed(prep(full, S.shade_full, carry), 5)
         plain = cuda_ms(prep(full, S.shade_full_reference, carry), 2)
-        b, by = k2_bound("shade_full", n_hit, n_live - n_hit, n - n_live,
-                         analytic=True, table=table(scene))
+        b, by = full_bound(full_counts(scene, carry, idx, kind),
+                           table(scene))
         print(f"materials depth {depth} ({n_live} live of {n} lanes, {n_hit} "
               f"hits): K2 full (zoo) bit-equal to its plain version in the "
               f"carry; {ms:.4f} ms on the device, {win:.4f} ms around the "
               f"wrapper (plain {plain:.1f} ms, bound {b:.4f} ms by {by}) "
               f"[{card}]")
-        if depth == 0:
-            out["shade_full_zoo"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                         bound_by=by)
         carry = ck
 
     # ---- s1/s2 on materials-env-rw's first depth, the walk's planes -----
@@ -2116,7 +2452,8 @@ def materials_path(dev, card, kernels, out):
     runs = {}
     for name, frame_size, spp, path in (
             ("materials", B.MATERIALS_FRAME, MATERIALS_TIMED_SPP,
-             ("sphere_nearest_brute", "shade_full")),
+             ("sphere_nearest_brute", "shade_full", "shade_full_lanes",
+              "shade_full_buckets", "full_buckets")),
             ("materials-env-rw", B.MATERIALS_FRAME, MATERIALS_RW_TIMED_SPP,
              ("sphere_nearest_brute", "shade_s1", "shade_s2")),
             ("cornell-emitenv", B.CORNELL_FRAME, CORNELL_EMITENV_TIMED_SPP,
@@ -2125,8 +2462,8 @@ def materials_path(dev, card, kernels, out):
         settings, res, env = cells[name]
         runs[name] = prim_timed(name, res, settings, *frame_size, spp, dev,
                                 card, kernels, path, environment=env)
-    for stage, cell in (("shade_full", "materials"),
-                        ("shade_s1", "materials-env-rw"),
+    MAIN_LAUNCHES["materials"] = runs["materials"]
+    for stage, cell in (("shade_s1", "materials-env-rw"),
                         ("shade_s2", "materials-env-rw")):
         out[f"{stage}_zoo"].update(
             source=ROOT + "shade.cu",
@@ -2437,7 +2774,11 @@ def main() -> None:
                "sphere_nearest_chunked": P.sphere_nearest_chunked,
                "rect_nearest": P.rect_nearest,
                "trace_closest_stats": T.trace_closest_stats,
-               "trace_any_stats": T.trace_any_stats}
+               "trace_any_stats": T.trace_any_stats,
+               "shade_full_lanes": S.shade_full_lanes,
+               "shade_full_sparse": S.shade_full_sparse,
+               "shade_full_buckets": S.shade_full_buckets,
+               "full_buckets": S.full_buckets}
     out = {}
     t0 = time.time()
     k1_probe_err = lambert_path(dev, card, kernels, out)
@@ -2454,6 +2795,9 @@ def main() -> None:
     materials_path(dev, card, kernels, out)
     print(f"# material-zoo phases took {time.time() - t0:.1f}s")
     t0 = time.time()
+    full_path(dev, card, kernels, out)
+    print(f"# K2 full depth phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
     headless_path(dev, card, kernels, out, headline)
     print(f"# headless and debug phases took {time.time() - t0:.1f}s")
 
@@ -2461,8 +2805,9 @@ def main() -> None:
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"
                                    for k, v in K2_RUN_G.items())
           + f" [{card}]")
-    names = list(kernels) + ["shade_full_zoo", "shade_s1_zoo",
-                             "shade_s2_zoo"]
+    names = [k for k in kernels if k != "shade_full_lanes"] + [
+        "shade_full_zoo", "shade_full_buckets_zoo", "shade_s1_zoo",
+        "shade_s2_zoo"]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])
         for name in names]}))

@@ -208,7 +208,7 @@ __device__ __forceinline__ float plane_at(const float* p, int n,
   return p[(long long)k * n + i];
 }
 
-// ---- live-lane lists (K1's walks, K2 s2, K3b) ------------------------------
+// ---- live-lane lists (K1's walks, K2 s2 and full, K3b) --------------------
 // Appends lane i to list[0..*count) when `live`: each warp's ballot, a
 // block-local scan of the warps' counts and one atomic per block, so the
 // listed lanes of a block stay in ascending order. Every thread of the block
@@ -238,6 +238,45 @@ __device__ __forceinline__ void list_append(bool live, int i, int* count,
   }
   __syncthreads();
   if (live) list[warp_base[warp] + __popc(mask & ((1u << lane) - 1u))] = i;
+}
+
+// list_append over KEYS lists at once: lane i goes to list `key` (none when
+// key < 0), at lists[key * stride + position]. One ballot per key a warp,
+// the warps' counts scanned per key by one warp each and one atomic per
+// block and key present, so each list's lanes of a block stay in ascending
+// order. Every thread of the block calls it (two __syncthreads).
+template <int BLOCK_THREADS, int KEYS>
+__device__ __forceinline__ void list_append_keyed(int key, int i, int* counts,
+                                                  int* lists, int stride) {
+  constexpr int kWarps = BLOCK_THREADS / 32;
+  static_assert(KEYS <= kWarps, "one warp scans each key");
+  __shared__ int warp_base[KEYS][kWarps];
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned mine = 0;
+#pragma unroll
+  for (int k = 0; k < KEYS; ++k) {
+    unsigned mask = __ballot_sync(0xffffffffu, key == k);
+    if (key == k) mine = mask;
+    if (lane == 0) warp_base[k][warp] = __popc(mask);
+  }
+  __syncthreads();
+  if (warp < KEYS) {
+    int own = lane < kWarps ? warp_base[warp][lane] : 0;
+    int incl = own;
+    for (int off = 1; off < 32; off <<= 1) {
+      int up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    int total = __shfl_sync(0xffffffffu, incl, 31);
+    int base = 0;
+    if (lane == 0 && total > 0) base = atomicAdd(counts + warp, total);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (lane < kWarps) warp_base[warp][lane] = base + incl - own;
+  }
+  __syncthreads();
+  if (key >= 0)
+    lists[(long long)key * stride + warp_base[key][warp] +
+          __popc(mine & ((1u << lane) - 1u))] = i;
 }
 
 // the first list position of this warp's next batch of 32 (the same on

@@ -7,7 +7,12 @@
 //               Beer-Lambert absorption, the dielectric geometric normal,
 //               first-hit AOVs, PBR emission, diffuse lights emit and end,
 //               the others sample their BSDF, push or pop the medium
-//               stack, clamp, Russian roulette, commit;
+//               stack, clamp, Russian roulette, commit (a thread per
+//               lane; on a sparse wavefront a sweep whose warps pack their
+//               live lanes; between the first and the sparse depths of a
+//               scene of several material types, a listing pass that
+//               ends the misses and buckets the hits by material type,
+//               then persistent warps over the buckets);
 //   shade_s1    stage "s1" under a light integral (an environment map, rect
 //               lights, or both): misses add the environment with MIS (or
 //               the gradient/solid background) and end; hits get the same
@@ -78,7 +83,8 @@
 // writes every lane's transients (zero where the lane is not a live hit),
 // each plane once and coalesced, which is all a dead lane costs. The
 // base s2 runs its warps over listed live lanes only, so its time follows
-// the live hits and not the wavefront. It is written in CUDA rather than Triton for
+// the live hits and not the wavefront; full runs warps of one material
+// type at the depths where a warp of lanes would mix them. It is written in CUDA rather than Triton for
 // the uint32 PCG arithmetic, the per-lane material and primitive branches,
 // and explicit control of FMA contraction (__fmaf_rn only where the plain
 // version fuses; the build passes --fmad=false).
@@ -471,30 +477,27 @@ __device__ __forceinline__ V3 next_origin(V3 point, V3 sn, V3 n_faced,
   return offset_origin(point, sn, n_faced, t, smp.dir);
 }
 
-// Registers are allocated in steps of 8 per thread. The probe plane's
-// writes and the debugSpecularOnly flag take the base instantiation from
-// 77 to 80 registers (the same step: six 128-thread blocks per SM) and
-// the extended one from 128 to 131, which the allocator rounds to 136,
-// three blocks per SM instead of four; so each is held to its old
-// occupancy (the extended one compiles to 124, no spills).
+// a live miss of stage full: the background, then the path ends
+__device__ __forceinline__ void full_miss(const Carry& c, long long i,
+                                          const ShadeParams& p) {
+  end_miss(c, i, load3(c.radiance, i) +
+                     clamp_firefly(load3(c.throughput, i),
+                                   background(load3(c.ray_d, i), p), p.c));
+}
+
+// Stage full of one live lane i
 template <bool EXT>
-__global__ void __launch_bounds__(128, EXT ? 4 : 6)
-    shade_full_kernel(int n, ShadeParams p, Geo g,
-                                  const float* __restrict__ mat_table,
-                                  int m_count, const float* __restrict__ tex,
-                                  const float* __restrict__ rw,
-                                  const long long* __restrict__ rw_state,
-                                  Carry c, float* __restrict__ probe) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n || !c.alive[i]) return;
-  V3 ray_d = load3(c.ray_d, i);
+__device__ __forceinline__ void full_lane(long long i, int n,
+                                          const ShadeParams& p, const Geo& g,
+                                          const float* mat_table, int m_count,
+                                          const float* tex, const float* rw,
+                                          const long long* rw_state,
+                                          const Carry& c, float* probe) {
   if (g.idx[i] < 0) {
-    // ---- miss: background, then the path ends --------------------------
-    end_miss(c, i, load3(c.radiance, i) +
-                       clamp_firefly(load3(c.throughput, i),
-                                     background(ray_d, p), p.c));
+    full_miss(c, i, p);
     return;
   }
+  V3 ray_d = load3(c.ray_d, i);
   Front f = shade_front(g, n, i, p, mat_table, m_count, tex, nullptr,
                         nullptr, c);
   store3(c.radiance, i, f.radiance);
@@ -531,6 +534,187 @@ __global__ void __launch_bounds__(128, EXT ? 4 : 6)
   c.prev_mesh[i] = f.h.is_tri ? f.h.mesh : -1;
   c.prev_prim[i] = f.h.is_tri ? g.idx[i] : -1;
   c.alive[i] = active;
+}
+
+// Stage full, a thread per wavefront lane: the kernel of the first depth
+// and of scenes of one material type (kernels/shade.py full_schedule).
+// Registers are allocated in steps of 8 per thread. The probe plane's
+// writes and the debugSpecularOnly flag take the base instantiation from
+// 77 to 80 registers (the same step: six 128-thread blocks per SM) and
+// the extended one from 128 to 131, which the allocator rounds to 136,
+// three blocks per SM instead of four; so each is held to its old
+// occupancy (the extended one compiles to 120, no spills).
+template <bool EXT>
+__global__ void __launch_bounds__(128, EXT ? 4 : 6)
+    shade_full_kernel(int n, ShadeParams p, Geo g,
+                                  const float* __restrict__ mat_table,
+                                  int m_count, const float* __restrict__ tex,
+                                  const float* __restrict__ rw,
+                                  const long long* __restrict__ rw_state,
+                                  Carry c, float* __restrict__ probe) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n || !c.alive[i]) return;
+  full_lane<EXT>(i, n, p, g, mat_table, m_count, tex, rw, rw_state, c,
+                 probe);
+}
+
+// Stage full on a sparse wavefront (under 1/64 of the lanes alive), base
+// instantiation only: there the thread-per-lane grid's sweep of the dead
+// lanes set the time. Each warp takes FULL_SPARSE_SPANS spans of 32
+// consecutive lanes, its threads read their alive flags together (one
+// coalesced load a span), and the warp packs its live lanes 32 to a round
+// (a ring of 64 lane indices in shared memory) and runs full_lane on
+// each: a sixteenth of the warps sweep the wavefront, and a warp's few
+// live lanes run side by side. Measured on an H100 (PERF.md): 1.34x on the
+// lambert series' 2,073,600-lane sparse depths, even on rtow's 810,000;
+// 0.83-0.94x on dense wavefronts, which keep shade_full_kernel, and 0.84x
+// for the extended lanes, long and divergent, packed (as in s2). No
+// minimum of blocks an SM: a sparse wavefront's warps fit in one wave,
+// and the kernel spills under six.
+#define FULL_SPARSE_SPANS 16
+__global__ void __launch_bounds__(128) shade_full_sparse_kernel(
+    int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
+    int m_count, const float* __restrict__ tex, const float* __restrict__ rw,
+    const long long* __restrict__ rw_state, Carry c,
+    float* __restrict__ probe) {
+  __shared__ int rings[kBlock / 32][64];
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* ring = rings[warp];
+  long long base =
+      ((long long)blockIdx.x * (kBlock / 32) + warp) * 32LL *
+          FULL_SPARSE_SPANS + lane;
+  unsigned live = 0;  // bit j: lane base + 32 j is alive
+#pragma unroll
+  for (int j = 0; j < FULL_SPARSE_SPANS; ++j) {
+    long long i = base + 32LL * j;
+    if (i < n && c.alive[i]) live |= 1u << j;
+  }
+  int head = 0, pending = 0;  // the ring's packed lanes not yet run
+  for (int j = 0; j <= FULL_SPARSE_SPANS; ++j) {
+    if (j < FULL_SPARSE_SPANS) {
+      bool mine = (live >> j) & 1u;
+      unsigned b = __ballot_sync(0xffffffffu, mine);
+      if (mine)
+        ring[(head + pending + __popc(b & ((1u << lane) - 1u))) & 63] =
+            (int)(base + 32LL * j);
+      pending += __popc(b);
+      __syncwarp();
+    }
+    int k = j < FULL_SPARSE_SPANS ? (pending >= 32 ? 32 : 0) : pending;
+    if (k == 0) continue;
+    int i = lane < k ? ring[(head + lane) & 63] : -1;
+    __syncwarp();
+    head = (head + k) & 63;
+    pending -= k;
+    if (i >= 0)
+      full_lane<false>(i, n, p, g, mat_table, m_count, tex, rw, rw_state, c,
+                       probe);
+  }
+}
+
+// Stage full over buckets of one lane kind each, for the depths between
+// the first and the sparse ones in scenes of several material types
+// (kernels/shade.py full_schedule). There a warp of the thread-per-lane
+// kernel holds a few live lanes that mix misses with lambert, metal,
+// dielectric, PBR (and, extended, plastic, carpaint, subsurface) hits,
+// whose sample_bsdf branches run one after another. full_list_kernel
+// ends the live misses' paths itself (their background; a bucket of
+// their own measured slower) and appends each live hit to the bucket of
+// its key, 1 + the MAT_* type of its material (read from the material
+// types staged in shared memory; bucket 0, the misses', stays empty):
+// one ballot per key, a block-local scan and one atomic per block and key
+// (common.cuh list_append_keyed), so each block's lanes stay in ascending
+// order within a bucket; a block without a live lane returns after one
+// barrier. shade_full_buckets_kernel then runs persistent warps over the
+// buckets in kFullOrder (the long types first), 32 lanes of one bucket at
+// a time, so a warp's lanes take one branch: each warp's first batch by
+// its index, the next ones from a device counter. Each listed lane
+// indexes every input by its own lane index and runs full_lane, the same
+// arithmetic in the same order as the thread-per-lane kernel, so the bits
+// cannot change. The host never reads a count. Scratch: FULL_HEADER int32
+// (a count per key, the fetch position), then one region of n lanes per
+// key.
+#define N_FULL_KEYS 9
+#define FULL_HEADER 16
+#define FULL_TYPES_SHARED 2048
+
+// the material id of the hit of lane i (its family's record)
+__device__ __forceinline__ int hit_material(const Geo& g, long long i,
+                                            int idx) {
+  int kind = g.kind == nullptr ? PRIM_TRIANGLE : g.kind[i];
+  if (kind == PRIM_TRIANGLE)
+    return (int)tri_row_tail(g.shade_packed, idx).z;
+  return kind == PRIM_SPHERE ? g.sph_material[idx] : g.rect_material[idx];
+}
+
+__global__ void __launch_bounds__(LIST_BLOCK) full_list_kernel(
+    int n, ShadeParams p, Geo g, const int* __restrict__ mat_type,
+    int m_count, Carry c, int* __restrict__ counters,
+    int* __restrict__ lists) {
+  __shared__ int types[FULL_TYPES_SHARED];
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool live = i < n && c.alive[i];
+  if (!__syncthreads_or(live)) return;
+  int staged = min(m_count, FULL_TYPES_SHARED);
+  for (int m = threadIdx.x; m < staged; m += blockDim.x)
+    types[m] = mat_type[m];
+  __syncthreads();
+  int key = -1;
+  if (live) {
+    int idx = g.idx[i];
+    if (idx < 0) {
+      full_miss(c, i, p);
+    } else {
+      int mid = min(max(hit_material(g, i, idx), 0), m_count - 1);
+      int type = mid < staged ? types[mid] : mat_type[mid];
+      // a type outside MAT_* shares bucket 1: a bucket only schedules a
+      // lane, whose shading reads its own material
+      key = type >= 0 && type < N_FULL_KEYS - 1 ? 1 + type : 1;
+    }
+  }
+  if (__syncthreads_or(key >= 0))
+    list_append_keyed<LIST_BLOCK, N_FULL_KEYS>(key, i, counters, lists, n);
+}
+
+// the order in which the warps take the buckets: the long types first
+__constant__ int kFullOrder[N_FULL_KEYS] = {
+    1 + MAT_SSS,        1 + MAT_CARPAINT, 1 + MAT_PLASTIC,
+    1 + MAT_PBR,        1 + MAT_DIELECTRIC, 1 + MAT_METAL,
+    1 + MAT_LAMBERT,    1 + MAT_LIGHT,    0};
+
+template <bool EXT>
+__global__ void __launch_bounds__(kBlock, EXT ? 4 : 6)
+    shade_full_buckets_kernel(const int* __restrict__ lists,
+                              int* __restrict__ counters, int n,
+                              ShadeParams p, Geo g,
+                              const float* __restrict__ mat_table,
+                              int m_count, const float* __restrict__ tex,
+                              const float* __restrict__ rw,
+                              const long long* __restrict__ rw_state,
+                              Carry c, float* __restrict__ probe) {
+  // each bucket's lanes and its span of batch positions (whole batches
+  // of 32), in kFullOrder
+  __shared__ int count[N_FULL_KEYS], span[N_FULL_KEYS];
+  if (threadIdx.x < N_FULL_KEYS) {
+    int k = counters[kFullOrder[threadIdx.x]];
+    count[threadIdx.x] = k;
+    span[threadIdx.x] = (k + 31) & ~31;
+  }
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int b = 0; b < N_FULL_KEYS; ++b) total += span[b];
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  int k = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
+  while (k < total) {
+    int b = 0, j = k;
+    while (j >= span[b]) j -= span[b++];
+    j += threadIdx.x & 31;
+    if (j < count[b])
+      full_lane<EXT>(lists[(long long)kFullOrder[b] * n + j], n, p, g,
+                     mat_table, m_count, tex, rw, rw_state, c, probe);
+    k = warps * 32 + next_batch(counters + N_FULL_KEYS);
+  }
 }
 
 // Stage s1 of one lane: updates the carry and fills tr, the lane's 18
@@ -874,21 +1058,69 @@ Geo geo_of(void* const* q) {
 int grid(int n) { return (n + kBlock - 1) / kBlock; }
 
 int s2_grid_cache;
+int full_grid_cache[2];
 
 }  // namespace
 
-// ext selects the instantiation with plastic, carpaint and subsurface
-extern "C" int mpt_shade_full(int n, int ext, const float* scalars,
-                              void* const* geo, const void* mat_table,
-                              int m_count, const void* tex, const void* rw,
-                              const void* rw_state, void* const* carry,
-                              void* probe, void* stream) {
+// K2 full's listing pass alone: the live hits' buckets into `scratch`
+// (FULL_HEADER + N_FULL_KEYS * n int32), the live misses' paths ended;
+// mat_type: the (m_count,) int32 material types
+extern "C" int mpt_full_list(int n, const float* scalars, void* const* geo,
+                             const void* mat_type, int m_count,
+                             void* const* carry, void* scratch,
+                             void* stream) {
   if (n <= 0) return 0;
-  auto kernel = ext ? shade_full_kernel<true> : shade_full_kernel<false>;
-  kernel<<<grid(n), kBlock, 0, (cudaStream_t)stream>>>(
-      n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
-      m_count, (const float*)tex, (const float*)rw,
-      (const long long*)rw_state, carry_of(carry), (float*)probe);
+  cudaStream_t st = (cudaStream_t)stream;
+  int* sc = (int*)scratch;
+  cudaError_t err = cudaMemsetAsync(sc, 0, FULL_HEADER * sizeof(int), st);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch
+    return (int)err;
+  }
+  full_list_kernel<<<(n + LIST_BLOCK - 1) / LIST_BLOCK, LIST_BLOCK, 0, st>>>(
+      n, shade_params_of(scalars), geo_of(geo), (const int*)mat_type,
+      m_count, carry_of(carry), sc, sc + FULL_HEADER);
+  return (int)cudaGetLastError();
+}
+
+// ext selects the instantiation with plastic, carpaint and subsurface;
+// `scratch`: NULL, a thread per lane (sparse: shade_full_sparse_kernel,
+// base only); else the buckets that mpt_full_list filled, run by
+// persistent warps
+extern "C" int mpt_shade_full(int n, int ext, int sparse,
+                              const float* scalars, void* const* geo,
+                              const void* mat_table, int m_count,
+                              const void* tex, const void* rw,
+                              const void* rw_state, void* const* carry,
+                              void* probe, void* scratch, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  ShadeParams p = shade_params_of(scalars);
+  Geo g = geo_of(geo);
+  Carry c = carry_of(carry);
+  if (scratch == nullptr && sparse) {
+    if (ext) return (int)cudaErrorInvalidValue;
+    int span = kBlock * FULL_SPARSE_SPANS;
+    shade_full_sparse_kernel<<<(n + span - 1) / span, kBlock, 0, st>>>(
+        n, p, g, (const float*)mat_table, m_count, (const float*)tex,
+        (const float*)rw, (const long long*)rw_state, c, (float*)probe);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr) {
+    auto kernel = ext ? shade_full_kernel<true> : shade_full_kernel<false>;
+    kernel<<<grid(n), kBlock, 0, st>>>(
+        n, p, g, (const float*)mat_table, m_count, (const float*)tex,
+        (const float*)rw, (const long long*)rw_state, c, (float*)probe);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = ext ? shade_full_buckets_kernel<true>
+                    : shade_full_buckets_kernel<false>;
+  int blocks = persistent_grid(kernel, kBlock, &full_grid_cache[ext], n);
+  int* sc = (int*)scratch;
+  kernel<<<blocks, kBlock, 0, st>>>(
+      sc + FULL_HEADER, sc, n, p, g, (const float*)mat_table, m_count,
+      (const float*)tex, (const float*)rw, (const long long*)rw_state, c,
+      (float*)probe);
   return (int)cudaGetLastError();
 }
 

@@ -54,13 +54,18 @@ SIGNATURES = {
         _vp, _vp,                               # left siblings, totals
         _vp, _vp],                              # scratch, stream
     # n, the K2 instantiation (1: with plastic, carpaint and subsurface),
-    # scalars (host float[]), geometry pointers (host void*[]: hit t,
+    # the sparse sweep (1) or a thread per lane (0), scalars (host
+    # float[]), geometry pointers (host void*[]: hit t,
     # index, u, v, family, shade_packed, sphere and rectangle arrays),
     # material table, its row count, texture planes, random-walk planes
     # and states (NULL where absent), PathCarry pointers (host void*[]),
-    # the probe plane (NULL without a probe), stream
-    "mpt_shade_full": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
-                       _vp],
+    # the probe plane (NULL without a probe), the bucket scratch (NULL: a
+    # thread per lane), stream
+    "mpt_shade_full": [_i, _i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp,
+                       _vp, _vp, _vp],
+    # K2 full's listing pass: n, scalars, geometry pointers, material types
+    # (int32), their count, PathCarry pointers, the bucket scratch, stream
+    "mpt_full_list": [_i, _vp, _vp, _vp, _i, _vp, _vp, _vp],
     "mpt_trace_any": [
         _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
         _i, _vp, _i, _vp,                       # packed nodes, slot records
@@ -111,10 +116,12 @@ def planes(n: int, cols: int, device) -> torch.Tensor:
     return torch.empty((cols, n), dtype=torch.float32, device=device).t()
 
 
-def list_scratch(n: int, device) -> torch.Tensor:
-    """The n + 2 int32 of a kernel's live-lane list (K1, K2 s2, K3b): its
-    two counters (listed lanes, fetch position), then the list."""
-    return torch.empty(n + 2, dtype=torch.int32, device=device)
+def list_scratch(n: int, device, keys: int = 1,
+                 header: int = 2) -> torch.Tensor:
+    """The int32 scratch of a kernel's live-lane lists: ``header`` counters
+    (K1, K2 s2, K3b: the listed lanes and the fetch position), then
+    ``keys`` lists of n lanes (K2 full: one per bucket)."""
+    return torch.empty(header + keys * n, dtype=torch.int32, device=device)
 
 
 def check_planes(who: str, x: torch.Tensor, n: int, cols: int) -> None:

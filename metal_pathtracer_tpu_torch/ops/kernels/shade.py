@@ -14,7 +14,12 @@ place, and lanes that enter dead keep every value:
   their BSDF (every material type), push or pop the medium stack, and get
   the next origin (off a BSSRDF exit point where the sample has one),
   throughput clamp, ray cone, Russian roulette at depth >= 5 and the
-  commit (the integrator body's order);
+  commit (the integrator body's order). On CUDA, as ``full_schedule``
+  says: a thread per lane (the first depth; scenes of one material
+  type), a sweep whose warps take 16 spans of 32 lanes and run their
+  live lanes packed (sparse wavefronts), or a listing pass that ends the
+  misses and buckets the hits by material type (``full_buckets``), then
+  persistent warps over the buckets (the depths between);
 - ``shade_s1`` (rect lights and/or an environment map): misses add the
   environment with MIS (or the gradient/solid background) and end; hits
   get the same absorption, normal, AOVs and emission, a diffuse light
@@ -424,9 +429,17 @@ def _probe_sample(probe, lanes, smp):
 def shade_full_reference(carry: PathCarry, t, tri, u, v, triangles,
                          materials, params: ShadeParams, depth: int,
                          kind=None, scene=None, tex=None, rw=None,
-                         rw_state=None, probe=None):
-    """Plain PyTorch K2 stage full (see the module docstring)."""
+                         rw_state=None, probe=None, lanes=None, n_alive=None):
+    """Plain PyTorch K2 stage full (see the module docstring). ``lanes``:
+    shade only these lane indices (a bucket of ``full_buckets``); every
+    other lane keeps every value. ``n_alive`` is the kernels' regime
+    hint, unused here."""
+    del n_alive
     alive0 = carry.alive.clone()
+    if lanes is not None:
+        chosen = torch.zeros_like(alive0)
+        chosen[lanes] = True
+        alive0 = alive0 & chosen
     hit = tri >= 0
     miss = alive0 & ~hit
     bg = bsdf_ops.clamp_firefly_contribution(
@@ -483,7 +496,7 @@ def shade_full_reference(carry: PathCarry, t, tri, u, v, triangles,
                                          carry.medium_depth))
     carry.cone_width.copy_(cone_width)
     carry.cone_spread.copy_(cone_spread)
-    carry.alive.copy_(alive0 & active)
+    carry.alive.copy_(torch.where(alive0, active, carry.alive))
 
 
 #: every PathCarry field and its dtype, in the order the kernels take them
@@ -598,17 +611,17 @@ def pack_material_table(materials) -> torch.Tensor:
 
 def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
             inputs, out_cols, params: ShadeParams, depth: int, n_banks=0,
-            probe=None, plane_inputs=(), plane_out=False, listed=False):
+            probe=None, plane_inputs=(), plane_out=False, listed=False,
+            scratch=None, lead=()):
     """Check, then launch ``mpt_<name>`` (the instantiation that
     ``params.material_types`` needs) with the stage ``inputs`` (device
     tensors or None; those at the positions ``plane_inputs`` names are
     plane-major ``TRANS`` or ``TEX`` planes, the others contiguous) after
     the material table (packed on the first launch for these materials)
     and the probe plane (or None), and, if ``listed``, the stage's
-    live-lane list scratch (``build.list_scratch``; the base instantiation
-    only, a null pointer for the extended one); returns its
-    (N, out_cols) output, plane-major if ``plane_out`` (None without
-    one)."""
+    live-lane list ``scratch`` (a null pointer for None); ``lead``: ints
+    the entry takes after the instantiation flag; returns its (N,
+    out_cols) output, plane-major if ``plane_out`` (None without one)."""
     dev = t.device
     n = t.shape[0]
     ptrs = _carry_pointers(carry, n, dev, name)
@@ -633,12 +646,11 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
     out = None if out_cols is None else build.planes(n, out_cols, dev) \
         if plane_out else torch.empty((n, out_cols), dtype=torch.float32,
                                       device=dev)
-    scratch = build.list_scratch(n, dev) \
-        if listed and not params.extended else None
     lib = build.load()
     p = lambda x: None if x is None else x.data_ptr()
     err = getattr(lib, f"mpt_{name}")(
-        n, int(params.extended), build.floats(params.scalars(depth, n_banks)),
+        n, int(params.extended), *lead,
+        build.floats(params.scalars(depth, n_banks)),
         geo, p(mat_table), mat_table.shape[0],
         *[p(x) for x in inputs], build.pointers(ptrs),
         *([] if out is None else [p(out)]), p(probe),
@@ -655,34 +667,194 @@ def _check_rw(name, rw, rw_state, n):
                          "states")
 
 
+#: K2 full's buckets (``csrc/shade.cu N_FULL_KEYS``): the misses, then the
+#: hits by their material's type, key 1 + ``constants.MATERIAL_*``
+FULL_KEYS = ["miss", "lambert", "metal", "dielectric", "light", "plastic",
+             "subsurface", "carpaint", "pbr"]
+#: int32 counters ahead of the bucket lists (``csrc/shade.cu FULL_HEADER``)
+FULL_HEADER = 16
+
+
+def full_buckets_reference(carry: PathCarry, t, tri, u, v, triangles,
+                           materials, params: ShadeParams = None, kind=None,
+                           scene=None):
+    """Plain listing of stage full's buckets: for each key of
+    ``FULL_KEYS``, the live lanes of that key in ascending order (a miss,
+    or 1 + the type of the hit's material; a type outside them takes key
+    1). ``params`` is the kernel's (it ends the misses there); unused."""
+    del params
+    rec = rebuild_hit(carry.ray_o, carry.ray_d, triangles, t, tri, u, v,
+                      kind, scene)
+    mat = torch.clamp(rec.material, 0, materials.count - 1).long()
+    mtype = materials.mat_type[mat].long()
+    typed = (mtype >= 0) & (mtype < len(FULL_KEYS) - 1)
+    key = torch.where(tri >= 0, torch.where(typed, 1 + mtype, 1), 0)
+    key = torch.where(carry.alive, key, -1)
+    return [torch.nonzero(key == k).squeeze(1) for k in range(len(FULL_KEYS))]
+
+
+def full_buckets(carry: PathCarry, t, tri, u, v, triangles, materials,
+                 params: ShadeParams, kind=None, scene=None):
+    """Stage full's listing pass. CPU tensors: ``full_buckets_reference``.
+    CUDA tensors: ``csrc/shade.cu full_list_kernel`` lists every live hit
+    into its key's bucket and ends the misses' paths in place (their
+    bucket stays empty); returns the scratch (``FULL_HEADER`` counters,
+    then a region of N lanes per key) that ``shade_full`` runs over
+    (``bucket_lanes`` reads it back)."""
+    dev = t.device
+    if dev.type == "cpu":
+        return full_buckets_reference(carry, t, tri, u, v, triangles,
+                                      materials, params, kind, scene)
+    if dev.type != "cuda":
+        raise ValueError(f"full_buckets: unsupported device {dev}")
+    n = t.shape[0]
+    ptrs = _carry_pointers(carry, n, dev, "full_buckets")
+    geo = _geo_pointers(t, tri, u, v, triangles, kind, scene, dev,
+                        "full_buckets")
+    types = materials.mat_type
+    if types.device != dev or types.dtype != torch.int32 \
+            or not types.is_contiguous():
+        raise ValueError(f"full_buckets: materials.mat_type must be a "
+                         f"contiguous int32 tensor on {dev}")
+    scratch = build.list_scratch(n, dev, len(FULL_KEYS), FULL_HEADER)
+    err = build.load().mpt_full_list(
+        n, build.floats(params.scalars(0)), geo, types.data_ptr(),
+        types.shape[0], build.pointers(ptrs), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "mpt_full_list")
+    full_buckets.launches += 1
+    return scratch
+
+
+def bucket_lanes(scratch, n: int):
+    """The buckets of a ``full_buckets`` scratch as ``full_buckets_reference``
+    gives them: per key its lanes in ascending order (reads the counts
+    back: for checks, not the depth loop)."""
+    counts = scratch[:len(FULL_KEYS)].tolist()
+    lists = scratch[FULL_HEADER:].view(len(FULL_KEYS), n)
+    return [torch.sort(lists[k, :c]).values.long()
+            for k, c in enumerate(counts)]
+
+
+def _check_full(t, tex, rw, rw_state):
+    if t.device.type != "cuda":
+        raise ValueError(f"shade_full: unsupported device {t.device}")
+    _check_tex("shade_full", tex, t.shape[0])
+    _check_rw("shade_full", rw, rw_state, t.shape[0])
+
+
+def _sweep(carry: PathCarry, t, tri, u, v, triangles, materials,
+           params: ShadeParams, depth: int, kind, scene, tex, rw, rw_state,
+           probe, sparse: bool) -> None:
+    _check_full(t, tex, rw, rw_state)
+    _launch("shade_full", carry, t, tri, u, v, triangles, materials, kind,
+            scene, [tex, rw, rw_state], None, params, depth, probe=probe,
+            plane_inputs=(0,), listed=True, lead=(int(sparse),))
+
+
+def shade_full_lanes(carry: PathCarry, t, tri, u, v, triangles, materials,
+                     params: ShadeParams, depth: int, kind=None, scene=None,
+                     tex=None, rw=None, rw_state=None, probe=None) -> None:
+    """Stage full on CUDA tensors, a thread per wavefront lane
+    (``shade_full_kernel``): the first depth's kernel, and that of scenes
+    of one material type."""
+    _sweep(carry, t, tri, u, v, triangles, materials, params, depth, kind,
+           scene, tex, rw, rw_state, probe, False)
+    shade_full_lanes.launches += 1
+
+
+def shade_full_sparse(carry: PathCarry, t, tri, u, v, triangles, materials,
+                      params: ShadeParams, depth: int, kind=None, scene=None,
+                      tex=None, rw=None, rw_state=None, probe=None) -> None:
+    """Stage full on CUDA tensors for a sparse wavefront, base
+    instantiation only (``shade_full_sparse_kernel``): each warp sweeps 16
+    spans of 32 lanes and runs its live lanes packed 32 to a round."""
+    if params.extended:
+        raise ValueError("shade_full_sparse: the base instantiation only")
+    _sweep(carry, t, tri, u, v, triangles, materials, params, depth, kind,
+           scene, tex, rw, rw_state, probe, True)
+    shade_full_sparse.launches += 1
+
+
+def shade_full_buckets(carry: PathCarry, t, tri, u, v, triangles, materials,
+                       params: ShadeParams, depth: int, kind=None,
+                       scene=None, tex=None, rw=None, rw_state=None,
+                       probe=None, buckets=None) -> None:
+    """Stage full on CUDA tensors over buckets of one lane kind each: the
+    listing pass (``full_buckets``; ``buckets``: its scratch, already made
+    on this carry), then persistent warps taking 32 lanes of one bucket at
+    a time (``shade_full_buckets_kernel``)."""
+    _check_full(t, tex, rw, rw_state)
+    scratch = full_buckets(carry, t, tri, u, v, triangles, materials, params,
+                           kind, scene) if buckets is None else buckets
+    n = t.shape[0]
+    if scratch.dtype != torch.int32 or scratch.device != t.device \
+            or scratch.numel() != FULL_HEADER + len(FULL_KEYS) * n:
+        raise ValueError("shade_full: buckets must be full_buckets' int32 "
+                         f"scratch of {n} lanes on {t.device}")
+    _launch("shade_full", carry, t, tri, u, v, triangles, materials, kind,
+            scene, [tex, rw, rw_state], None, params, depth, probe=probe,
+            plane_inputs=(0,), listed=True, scratch=scratch, lead=(0,))
+    shade_full_buckets.launches += 1
+
+
+#: below this share of live lanes a wavefront is sparse: no listing pass
+#: pays for itself there, and the base instantiation runs
+#: ``shade_full_sparse`` (measured on an H100: ``PERF.md``)
+FULL_SPARSE_ALIVE = 1 / 64
+
+
+def full_schedule(params: ShadeParams, depth: int, n_alive=None,
+                  n: int = 0):
+    """Which wrapper runs stage full on CUDA, from what the caller knows
+    (no host sync). On a sparse wavefront (``n_alive``, the caller's live
+    lanes, under ``FULL_SPARSE_ALIVE`` of the ``n``) ``shade_full_sparse``
+    for the base instantiation and ``shade_full_lanes`` for the extended
+    one (its long lanes run slower packed); ``shade_full_lanes`` at the
+    first depth (where nearly every lane lives and shades alike) and in
+    scenes of one material type (no divergence to remove);
+    ``shade_full_buckets`` at the other depths (``n_alive`` None: not
+    known to be sparse)."""
+    if n_alive is not None and n_alive < FULL_SPARSE_ALIVE * n:
+        return shade_full_lanes if params.extended else shade_full_sparse
+    if depth == 0 or len(set(params.material_types)) < 2:
+        return shade_full_lanes
+    return shade_full_buckets
+
+
 def shade_full(carry: PathCarry, t, tri, u, v, triangles, materials,
                params: ShadeParams, depth: int, kind=None,
                scene=None, tex=None, rw=None, rw_state=None,
-               probe=None) -> None:
+               probe=None, n_alive=None) -> None:
     """Stage full, in place on ``carry``. ``tri`` is each lane's index in
     its family (-1: a miss), ``kind`` the family (None: triangles only)
     and ``scene`` the spheres and rectangles it indexes; ``tex`` the
     texture planes of a textured scene, ``rw``/``rw_state`` the
-    random-walk override, ``probe`` the (N,6) probe plane. CPU tensors
-    take the plain version; CUDA tensors launch K2."""
-    dev = t.device
-    if dev.type == "cpu":
+    random-walk override, ``probe`` the (N,6) probe plane, ``n_alive``
+    the live lanes if the caller knows them (no host sync here). CPU
+    tensors take the plain version; CUDA tensors launch K2: a thread per
+    lane, a sweep for sparse wavefronts, or the listing pass and
+    persistent warps over buckets of one lane kind each
+    (``full_schedule`` decides)."""
+    if t.device.type == "cpu":
         shade_full_reference(carry, t, tri, u, v, triangles, materials,
                              params, depth, kind, scene, tex, rw, rw_state,
                              probe)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"shade_full: unsupported device {dev}")
-    _check_tex("shade_full", tex, t.shape[0])
-    _check_rw("shade_full", rw, rw_state, t.shape[0])
-    _launch("shade_full", carry, t, tri, u, v, triangles, materials, kind,
-            scene, [tex, rw, rw_state], None, params, depth, probe=probe,
-            plane_inputs=(0,))
+    run = full_schedule(params, depth, n_alive, t.shape[0])
+    run(carry, t, tri, u, v, triangles, materials, params, depth, kind=kind,
+        scene=scene, tex=tex, rw=rw, rw_state=rw_state, probe=probe)
     shade_full.launches += 1
 
 
-#: K2 launches since the last reset (chip_smoke.py reads and resets it)
+#: K2 full launches since the last reset (chip_smoke.py reads and resets
+#: them): every stage-full call, and each kernel's: a thread per lane, the
+#: sparse sweep, the buckets and the listing pass
 shade_full.launches = 0
+shade_full_lanes.launches = 0
+shade_full_sparse.launches = 0
+shade_full_buckets.launches = 0
+full_buckets.launches = 0
 
 
 def _trace(scene, carry: PathCarry):
@@ -808,7 +980,8 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry,
                                     u, v, kind)
         shade_full(carry, t, idx, u, v, scene.triangles, scene.materials,
                    params, depth, kind=kind, scene=scene, tex=tex, rw=rw,
-                   rw_state=rw_state, probe=None if rec is None else rec.plane)
+                   rw_state=rw_state, probe=None if rec is None else rec.plane,
+                   n_alive=n_alive)
         if rec is not None:
             _probe_end(probe, rec, carry)
     return rays
@@ -1075,7 +1248,8 @@ def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
                   kind, scene, [trans, esmp.contiguous(), tex, rw, rw_state],
                   len(CHAIN), params, depth, esmp.shape[1] // len(ESMP),
                   probe=probe, plane_inputs=(0, 2), plane_out=True,
-                  listed=True)
+                  listed=True, scratch=None if params.extended
+                  else build.list_scratch(t.shape[0], dev))
     shade_s2.launches += 1
     return out
 

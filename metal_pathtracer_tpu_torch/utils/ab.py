@@ -30,6 +30,16 @@ change's ``chip_smoke.py`` helpers, so both sides are measured alike:
 - ``s2zoo``: K2 s2's extended instantiation the same way on
   materials-env-rw's wavefronts (``materials.scene`` at 960x320 under
   the HDR sky, the random walk's planes);
+- ``full``, ``fullzoo`` and ``fulllambert``: K2 stage full on rtow
+  (1200x675, 487 spheres, ~44 depths), on ``materials.scene`` (960x320;
+  the extended instantiation) or on the lambert series (1920x1080, 8
+  depths), every depth of one sample kept by the change's ``chip_smoke.py
+  frame_loop_full`` and timed three times with ``kernel_ms``, through the
+  wrapper as the frame loop calls it; medians at the depths ``--depths``
+  names (default 0, 1 and 5) and of the sample's sum; each depth's lanes
+  (``chip_smoke.py full_counts``) and bound; a SHA-256 of the carry after
+  each named depth, which must agree over every process; the registers
+  and spill bytes of the stage-full kernels;
 - ``k3b``: K3b on rtow's 1200x675 closest-hit wavefronts (487 spheres)
   at the depths ``--depths`` names (default 0 and 1), kept from one
   sample of the checkout's own frame loop (``chip_smoke.py
@@ -41,7 +51,8 @@ Make the parent's checkout with ``git archive`` into a git-ignored
 directory, then::
 
     python3 metal_pathtracer_tpu_torch/utils/ab.py \
-        {lambert,k1,s1,s2,s2zoo,tex,k3b} PARENT CHANGE
+        {lambert,k1,s1,s2,s2zoo,tex,k3b,full,fullzoo,fulllambert} \
+        PARENT CHANGE
 
 Lines starting with ``AB`` carry the numbers; per series, the medians and
 quartiles of each side and the parent/change ratio of the medians close
@@ -150,7 +161,8 @@ def child_k1(timer, depths):
 
 def registers(c, build, prefix):
     """The registers and spill bytes of the checkout's kernels whose names
-    start with ``prefix``, from its build log."""
+    start with ``prefix`` (a string or a tuple of them), from its build
+    log."""
     print("AB registers, spill bytes " + json.dumps(
         {k: v for k, v in sorted(c.kernel_resources(build.build_log())
                                  .items()) if k.startswith(prefix)}),
@@ -208,6 +220,61 @@ def child_k2(which, timer, depths):
                   f"[{card}]", flush=True)
 
 
+def child_full(which, timer, depths):
+    """K2 stage full of the checkout's package at every depth of one
+    sample of rtow, materials or the lambert series, kept by ``timer``'s
+    frame loop and timed by its helpers."""
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    build.load()
+    registers(c, build, ("shade_full", "full_list"))
+    dev = torch.device("cuda", 0)
+    settings, res = {"full": lambda: B.build_rtow_scene(c.RTOW_SEED),
+                     "fullzoo": B.build_materials_scene,
+                     "fulllambert": lambda: B.build_lambert_series(
+                         c.LAMBERT_SUBDIVISIONS)}[which]()
+    size = {"full": B.RTOW_FRAME, "fullzoo": B.MATERIALS_FRAME,
+            "fulllambert": c.FRAME}[which]
+    scene = res.build_arrays(device=dev)
+    static, uni = c.scene_setup(settings, res, *size, dev)
+    kept = c.frame_loop_full(scene, uni, static, dev)
+    card = c.device_line()
+
+    def launch(args, kw):
+        def prepare():
+            carry = c.clone(args[0])
+            return lambda: S.shade_full(carry, *args[1:], **kw)
+        return prepare
+
+    table = scene.materials.count * len(S.MAT_COLS) * 4
+    for depth, (args, kw) in enumerate(kept):
+        cnt = c.full_counts(scene, args[0], args[2], kw.get("kind"))
+        bound, _ = c.full_bound(cnt, table)
+        old, _ = c.full_bound(cnt, table, c.K2_FULL_BEFORE)
+        print(f"AB lanes {which} depth {depth}: {json.dumps(cnt)}, bound "
+              f"{bound:.4f} ms ({old:.4f} at K2_FULL_BEFORE)", flush=True)
+        if depth in depths:
+            carry = c.clone(args[0])
+            S.shade_full(carry, *args[1:], **kw)
+            print(f"AB digest {which} depth {depth}: "
+                  f"{c.k2_digest(None, carry)}", flush=True)
+    for rep in range(K1_REPS):
+        total = 0.0
+        for depth, (args, kw) in enumerate(kept):
+            ms = c.kernel_ms(launch(args, kw), 5)
+            total += ms
+            if depth in depths:
+                print(f"AB {which} depth {depth} rep {rep}: {ms:.4f} ms "
+                      f"[{card}]", flush=True)
+        print(f"AB {which} sample of {len(kept)} depths rep {rep}: "
+              f"{total:.4f} ms [{card}]", flush=True)
+
+
 def child_k3b(timer, depths):
     """K3b of the checkout's package on rtow's closest-hit wavefronts at
     ``depths``, kept from its frame loop and timed by ``timer``'s
@@ -262,7 +329,11 @@ MEASURES = {"lambert": (child_lambert, lambert_value),
             "s2": (functools.partial(child_k2, "s2"), k1_value),
             "s2zoo": (functools.partial(child_k2, "s2zoo"), k1_value),
             "tex": (functools.partial(child_k2, "tex"), k1_value),
-            "k3b": (child_k3b, k1_value)}
+            "k3b": (child_k3b, k1_value),
+            "full": (functools.partial(child_full, "full"), k1_value),
+            "fullzoo": (functools.partial(child_full, "fullzoo"), k1_value),
+            "fulllambert": (functools.partial(child_full, "fulllambert"),
+                            k1_value)}
 
 
 def main() -> None:
@@ -287,8 +358,9 @@ def main() -> None:
     ap.add_argument("--order", default="pccppc",
                     help="p (parent) and c (change), one process each")
     ap.add_argument("--depths", default=None,
-                    help="s1, s2, s2zoo, tex, k3b: the depths of the kept "
-                    "wavefronts (default 0,1,5; k3b 0,1)")
+                    help="s1, s2, s2zoo, tex, k3b, full, fullzoo, "
+                    "fulllambert: the depths of the kept wavefronts "
+                    "(default 0,1,5; k3b 0,1)")
     args = ap.parse_args()
     if args.depths is None:
         args.depths = "0,1" if args.measure == "k3b" else "0,1,5"

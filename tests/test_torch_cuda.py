@@ -864,10 +864,98 @@ def test_k3b_bitexact_on_card(dev, wave):
         assert (got[1] == 40).sum() > 100 and not (got[1] == 3).any()
 
 
+@pytest.fixture(scope="module")
+def full_inputs(dev):
+    """Stage full's inputs at every depth of one sample of the frame loop,
+    cloned as the wrapper took them: rtow (256x144, the base
+    instantiation) and materials.scene (192x64, the extended one).
+    {which: [(args, kwargs)]}."""
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    out = {}
+    for which in ("rtow", "materials"):
+        if which == "rtow":
+            settings, res = benchscene.build_rtow_scene(0)
+            w, h = 256, 144
+        else:
+            settings, res = benchscene.build_materials_scene()
+            w, h = 192, 64
+        scene = res.build_arrays(device=dev)
+        static = settings_to_static(settings, w, h,
+                                    res.material_types_present())
+        uni = settings_to_uniforms(settings,
+                                   build_camera(settings, w, h, dev), 0, 0)
+        kept, real = [], shade.shade_full
+
+        def spy(*args, **kw):
+            kept.append((tuple(_kept(x) for x in args),
+                         {k: _kept(x) for k, x in kw.items()}))
+            return real(*args, **kw)
+
+        spy.launches = 0
+        with mock.patch.object(shade, "shade_full", spy):
+            frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 1)
+        out[which] = kept
+    return out
+
+
+def _sparse_depth(kept):
+    """The first depth from 5 with under a tenth of the lanes alive."""
+    n = kept[0][0][1].shape[0]
+    return next(d for d, (a, _) in enumerate(kept)
+                if d >= 5 and 0 < int(a[0].alive.sum()) < n // 10)
+
+
+@pytest.mark.parametrize("which,depth", [("rtow", 0), ("rtow", 1),
+                                         ("rtow", "sparse"),
+                                         ("materials", 0),
+                                         ("materials", 1)])
+def test_full_buckets_vs_plain_on_card(dev, full_inputs, which, depth):
+    """K2 full against its plain version bit for bit in the carry: through
+    the wrapper as the frame loop calls it, and by each kernel (a thread
+    per lane; the listing pass and the bucket kernel; on rtow the sparse
+    sweep), at rtow's depths
+    0, 1 and a sparse one from depth 5, and materials' depths 0 and 1
+    (the extended instantiation). The listing pass's buckets hold the
+    plain listing's hits, each in its bucket, and no miss (it ends them);
+    each wrapper counts one launch."""
+    kept = full_inputs[which]
+    if depth == "sparse":
+        depth = _sparse_depth(kept)
+    args, kw = kept[depth]
+    assert "n_alive" in kw
+    bare = {k: x for k, x in kw.items() if k != "n_alive"}
+    want = _clone(args[0])
+    shade.shade_full_reference(want, *args[1:], **bare)
+    runs = [(shade.shade_full, kw), (shade.shade_full_lanes, bare),
+            (shade.shade_full_buckets, bare)]
+    if which == "rtow":     # the base instantiation only
+        runs.append((shade.shade_full_sparse, bare))
+    for fn, opts in runs:
+        got = _clone(args[0])
+        before = fn.launches
+        fn(got, *args[1:], **opts)
+        assert fn.launches == before + 1
+        torch.cuda.synchronize()
+        _assert_carry_equal(got, want)
+    fam = dict(kind=kw["kind"], scene=kw["scene"])
+    before = shade.full_buckets.launches
+    scratch = shade.full_buckets(_clone(args[0]), *args[1:8], **fam)
+    assert shade.full_buckets.launches == before + 1
+    got = shade.bucket_lanes(scratch, args[1].shape[0])
+    ref = shade.full_buckets_reference(args[0], *args[1:8], **fam)
+    assert len(got[0]) == 0 and len(ref[0]) > 0
+    for a, b in zip(got[1:], ref[1:]):
+        assert torch.equal(a, b)
+    assert sum(len(b) > 0 for b in ref[1:]) >= 3
+
+
 def test_s2_listing_pass_raises_on_cuda_error(dev, s2_inputs, monkeypatch):
     """A CUDA error in s2's listing pass (its list at a null address)
     raises from the wrapper, with no launch counted and no fallback; the
-    next launch runs clean. Last in the file: it provokes an error."""
+    next launch runs clean. At the end of the file: it provokes an
+    error."""
     args, kw = s2_inputs["headline"][1]
 
     class Null:
@@ -883,3 +971,32 @@ def test_s2_listing_pass_raises_on_cuda_error(dev, s2_inputs, monkeypatch):
     got, _, want, _ = _s2_pair(args, kw)
     assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) \
         <= 1e-4
+
+
+def test_full_listing_pass_raises_on_cuda_error(dev, full_inputs,
+                                                monkeypatch):
+    """A CUDA error in stage full's listing pass (its scratch at a null
+    address) raises from the wrapper, with no launch counted and no
+    fallback; the next launch runs clean. At the end of the file: it
+    provokes an error."""
+    args, kw = full_inputs["rtow"][1]
+
+    class Null:
+        def data_ptr(self):
+            return 0
+
+    monkeypatch.setattr(build, "list_scratch", lambda *a, **k: Null())
+    before = (shade.shade_full.launches, shade.full_buckets.launches,
+              shade.shade_full_buckets.launches)
+    with pytest.raises(RuntimeError, match="mpt_full_list: CUDA error"):
+        shade.shade_full(_clone(args[0]), *args[1:], **kw)
+    assert (shade.shade_full.launches, shade.full_buckets.launches,
+            shade.shade_full_buckets.launches) == before
+    monkeypatch.undo()
+    got, want = _clone(args[0]), _clone(args[0])
+    shade.shade_full(got, *args[1:], **kw)
+    shade.shade_full_reference(want, *args[1:],
+                               **{k: x for k, x in kw.items()
+                                  if k != "n_alive"})
+    torch.cuda.synchronize()
+    _assert_carry_equal(got, want)
