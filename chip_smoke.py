@@ -26,9 +26,10 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    at 1280x720, maxDepth 20); K1 closest-hit and any-hit also on the
    depth-1 wavefronts (secondary rays and their shadow rays, kept from
    one sample of the frame loop by ``frame_loop_k1``, which also counts
-   the live lanes of every K1 launch and each launch is timed) bit for
-   bit against the plain walks and timed, each with its live lanes and
-   its bound beside the old one; the texture stage, K2 s1 and K2 s2 at
+   the live lanes of every K1 launch; each of its launches is timed, held
+   bit for bit against the plain walk and given its bound) bit for bit
+   against the plain walks and timed, each with its live lanes and its
+   bound beside the old one; the texture stage, K2 s1 and K2 s2 at
    every depth of one sample (kept by ``frame_loop_k2``): against their
    plain versions at depths 0 and 1, their plane-major outputs checked,
    and each depth's device time beside its bound with its live, hit and
@@ -51,7 +52,13 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    timed at the first depth with its bound, K3b beside its own group
    visits and sphere tests (its schedule in plain PyTorch, bit-equal) and
    at every depth of one rtow sample (kept by ``frame_loop_k3b``), which
-   gives its time a sample;
+   gives its time a sample; K3c at every launch of one Cornell and one
+   cornell-emitenv sample and K3a at every launch of one Cornell,
+   materials and materials-env-rw sample (the random walk's launches
+   included; kept by ``frame_loop_k3``), each bit for bit against its
+   plain version, with its call (closest, shadow, spec-NEE chain, walk),
+   lanes and live lanes, device time, bound and the same launch with
+   every lane dead (``k3_depths``);
 5. the material zoo (plastic, carpaint, subsurface in its separable and
    random-walk modes, env-modulated lights; K2's extended instantiation,
    the random-walk pre-stage over K3a): K2 ``full`` on
@@ -85,8 +92,11 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    field; the CLI on the card (``python -m ...cli --scene cornell`` at
    512x512 8 spp to a multilayer EXR, the same to a PNG, a 4 spp
    ``--checkpoint`` run resumed to 8 equal to the straight run byte for
-   byte, ``read_exr`` of the EXR equal to the rendered image, and the
-   default scene, the 353-sphere field through K3b, at 1280x720 2 spp);
+   byte, ``read_exr`` of the EXR equal to the rendered image, the
+   default scene, the 353-sphere field through K3b, at 1280x720 2 spp,
+   and the JAX package's oracle-parity Cornell box at 128x128 64 spp
+   through ``--backend metal`` and ``--backend oracle``, the native C++
+   oracle, held to that test's gate: RMSE < 0.02, means within 0.005);
    ``debugSpecularOnly`` at 160x96 4 spp through the kernels against the
    plain path (RMSE 0) on ``materials.scene`` and the textured headline at
    subdivision 5; and each K1 and K2 instantiation's registers from the
@@ -235,6 +245,26 @@ K2_RUN_G = {"lambert full": 0.0417, "textured headline s1": 0.751,
 K2_NOW = {}
 # each cell's launch counts from its main path's run (the kernels line)
 MAIN_LAUNCHES = {}
+# the card against the native C++ oracle (``renderer/oracle.py``): the
+# JAX package's ``tests/test_oracle_parity.py test_cornell_box_rmse``
+# scene and gate (RMSE < 0.02, means within 0.005), rendered through the
+# CLI with ``--backend metal`` and ``--backend oracle``
+ORACLE_CORNELL = """\
+camera target=0,1,0 distance=3.9 yaw=1.5708 pitch=0 vfov=40
+renderer maxDepth=5 seed=7
+material type=lambert albedo=0.73,0.73,0.73
+material type=lambert albedo=0.65,0.05,0.05
+material type=lambert albedo=0.12,0.45,0.15
+material type=light emit=15,15,15
+rectangle x=-1,1 y=0 z=-1,1 normal=1 material=0
+rectangle x=-1,1 y=2 z=-1,1 normal=-1 material=0
+rectangle x=-1 y=0,2 z=-1,1 normal=1 material=2
+rectangle x=1 y=0,2 z=-1,1 normal=-1 material=1
+rectangle x=-1,1 y=0,2 z=-1 normal=1 material=0
+rectangle x=-0.4,0.4 y=1.99 z=-0.4,0.4 normal=-1 material=3
+"""
+ORACLE_GATE = dict(max_rmse=0.02, max_mean_diff=0.005)
+ORACLE_FRAME, ORACLE_SPP = (128, 128), 64
 
 
 def device_line() -> str:
@@ -1119,6 +1149,28 @@ def frame_loop_k1(scene, uni, static, dev, keep=()):
     return seen, kept
 
 
+def k1_launch_bound(key, args):
+    """One kept K1 launch (``frame_loop_k1``): the kernel held bit for bit
+    against its plain walk, and the walk's bound (``k1_bounds``) at the
+    closest-hit or any-hit charge: (ms, by)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+
+    n, walk = args[0].shape[0], {}
+    n_live = int((args[3] >= args[2]).sum())
+    if key == "closest":
+        compare_trace(T.trace_closest(*args),
+                      T.trace_closest_reference(*args, walk=walk))
+        b, by, _ = k1_bounds(walk, closest_lane_bytes(n, n_live),
+                             K1_CLOSEST_SLOT_BYTES)
+    else:
+        compare_flags(T.trace_any(*args),
+                      T.trace_any_reference(*args, walk=walk),
+                      "K1 any-hit on a kept launch")
+        b, by, _ = k1_bounds(walk, any_lane_bytes(n, n_live),
+                             K1_ANY_SLOT_BYTES)
+    return b, by
+
+
 def k1_depth1(scene, uni, static, dev, card):
     """K1 past the first depth on the textured headline: the live lanes and
     the device time of every K1 launch of one sample of the frame loop,
@@ -1141,10 +1193,17 @@ def k1_depth1(scene, uni, static, dev, card):
     per_launch = {key: [kernel_ms((lambda a, fn: lambda: lambda: fn(*a))(
         waves[key, k], T.trace_closest if key == "closest" else T.trace_any),
         5) for k in range(len(live[key]))] for key in live}
-    print("K1 device ms per launch of that sample: " + "; ".join(
-        f"{key} " + ", ".join(f"{ms:.4f}" for ms in times)
-        + f" (sum {sum(times):.4f})" for key, times in per_launch.items())
-        + f" [{card}]")
+    bounds = {key: [k1_launch_bound(key, waves[key, k])
+                    for k in range(len(live[key]))] for key in live}
+    print("K1 device ms per launch of that sample, each bit-equal to the "
+          "plain walk, beside its bound (ms, by bytes unless marked ops): "
+          + "; ".join(
+              f"{key} " + ", ".join(
+                  f"{ms:.4f} ({b:.4f}{'' if by == 'bytes' else ' ops'})"
+                  for ms, (b, by) in zip(times, bounds[key]))
+              + f" (sum {sum(times):.4f}, bounds "
+              f"{sum(b for b, _ in bounds[key]):.4f})"
+              for key, times in per_launch.items()) + f" [{card}]")
     args = waves[K1_WAVES["closest depth 1"]]
     sh_args = waves[K1_WAVES["shadow depth 1"]]
     n = args[0].shape[0]
@@ -1467,6 +1526,133 @@ def k3b_depths(cell, dev, card):
           f"device (live lanes): {', '.join(parts)}; {total:.4f} ms a "
           f"sample [{card}]")
     return total
+
+
+def call_kind() -> str:
+    """Which trace made a K3 launch, read from the caller's stack: "walk"
+    (the random walk), "chain" (a spec-NEE chain's re-trace or shadow
+    test), "shadow" (``intersect.trace_occluded``) or "closest"
+    (``intersect.trace_merged``)."""
+    kind, f = "closest", sys._getframe(2)
+    while f is not None:
+        name, path = f.f_code.co_name, f.f_code.co_filename
+        if name == "sample_sss_random_walk":
+            return "walk"
+        if path.endswith("specnee.py"):
+            return "chain"
+        if name == "trace_occluded":
+            kind = "shadow"
+        f = f.f_back
+    return kind
+
+
+def frame_loop_k3(scene, uni, static, dev, name):
+    """One sample of the frame loop with the K3 wrapper ``name`` of
+    ``ops/kernels/primitives.py`` (``rect_nearest``, K3c;
+    ``sphere_nearest_brute``, K3a) spied on: each launch as (``call_kind``,
+    its inputs (origin, direction, t_min, t_max, primitives) cloned), in
+    launch order. A host sync per launch, so it runs apart from timed
+    renders."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    kept, real = [], getattr(P, name)
+
+    def spy(*args):
+        kept.append((call_kind(), tuple(_kept(x) for x in args)))
+        return real(*args)
+
+    spy.launches = 0
+    with mock.patch.object(P, name, spy):
+        frame.render_samples(scene, uni, RenderState.create(
+            static.width, static.height, dev), static, 1)
+    return kept
+
+
+#: the plain version of each K3 wrapper that ``k3_depths`` times
+K3_PLAIN = {"rect_nearest": "rect_nearest_reference",
+            "sphere_nearest_brute": "sphere_nearest_reference"}
+#: a launch "sits at the floor" within this factor of the same launch
+#: with every lane dead
+FLOOR_SLACK = 1.15
+
+
+def k3_depths(label, name, cell, size, dev, card):
+    """K3c or K3a (``name``) at every launch of one sample of a cell
+    ((settings, resources, environment or None) at ``size``), kept by
+    ``frame_loop_k3``: each launch bit for bit against its plain version,
+    its call, lanes and live lanes, its device time beside its bound
+    (``k3_bound``) and beside the same launch with every lane dead (the
+    sweep's floor at that width), then the sums a sample by call. Returns
+    {"ms", "bound", "launches", "floor": launches at the floor}."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+
+    settings, res, env = cell
+    scene = res.build_arrays(environment=env, device=dev)
+    static, uni = scene_setup(settings, res, *size, dev)
+    kept = frame_loop_k3(scene, uni, static, dev, name)
+    fn, plain = getattr(P, name), getattr(P, K3_PLAIN[name])
+    rows, floors = [], {}
+    for k, (kind, args) in enumerate(kept):
+        o, d, t_min, t_max, prims = args
+        tm = P._prepare(o, t_max)
+        n, live = o.shape[0], int((tm >= t_min).sum())
+        compare_nearest(fn(*args), plain(o, d, t_min, tm, prims),
+                        f"{name} {label} launch {k} ({kind})")
+        ms = kernel_ms(lambda: lambda: fn(*args), 5)
+        if n not in floors:
+            dead = torch.zeros_like(tm)
+            floors[n] = kernel_ms(
+                lambda: lambda: fn(o, d, 1.0, dead, prims), 5)
+        b, by = k3_bound(name, n, live, prims.count)
+        rows.append(dict(kind=kind, n=n, live=live, ms=ms, bound=b, by=by,
+                         floor=ms <= FLOOR_SLACK * floors[n]))
+    print(f"{name} at each of one {label} {size[0]}x{size[1]} sample's "
+          f"{len(rows)} launches, bit-equal to {K3_PLAIN[name]}; call "
+          f"lanes/live: device ms (bound ms), * at the floor: " + ", ".join(
+              f"{r['kind']} {r['n']}/{r['live']}: {r['ms']:.4f} "
+              f"({r['bound']:.4f}){'*' if r['floor'] else ''}"
+              for r in rows) + f" [{card}]")
+    sums = {}
+    for r in rows:
+        acc = sums.setdefault(r["kind"], [0, 0.0, 0.0, 0])
+        acc[0] += 1
+        acc[1] += r["ms"]
+        acc[2] += r["bound"]
+        acc[3] += r["floor"]
+    total = sum(r["ms"] for r in rows)
+    bound = sum(r["bound"] for r in rows)
+    print(f"{name} {label} a sample: {total:.4f} ms in {len(rows)} launches "
+          f"against a bound of {bound:.4f} ({100 * bound / total:.1f} %); "
+          f"by call: " + ", ".join(
+              f"{kind} {c} launches {ms:.4f} ms (bound {b:.4f}; {fl} at the "
+              f"floor)" for kind, (c, ms, b, fl) in sums.items())
+          + "; the floor (every lane dead) at each width: " + ", ".join(
+              f"{n} lanes {ms:.4f}" for n, ms in floors.items())
+          + f" [{card}]")
+    return dict(ms=total, bound=bound, launches=len(rows),
+                floor=sum(r["floor"] for r in rows))
+
+
+def k3c_depths(dev, card):
+    """K3c at every launch of one sample of the Cornell box (512x512) and
+    of cornell-emitenv, and K3a at every launch of one sample of the
+    Cornell box, ``materials.scene`` (960x320) and materials-env-rw (its
+    random walk's launches included), through ``k3_depths``."""
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    cornell = (*B.build_cornell_scene(), None)
+    emitenv = B.build_cornell_emitenv_scene(dev)
+    for label, name, cell, size in (
+            ("cornell", "rect_nearest", cornell, B.CORNELL_FRAME),
+            ("cornell-emitenv", "rect_nearest", emitenv, B.CORNELL_FRAME),
+            ("cornell", "sphere_nearest_brute", cornell, B.CORNELL_FRAME),
+            ("materials", "sphere_nearest_brute",
+             (*B.build_materials_scene(), None), B.MATERIALS_FRAME),
+            ("materials-env-rw", "sphere_nearest_brute",
+             B.build_materials_env_rw_scene(dev), B.MATERIALS_FRAME)):
+        k3_depths(label, name, cell, size, dev, card)
 
 
 def frame_loop_full(scene, uni, static, dev, keep=None):
@@ -2157,6 +2343,9 @@ def primitives_path(dev, card, kernels, out):
     # ---- K3b at every depth of one rtow sample ---------------------------
     k3b_depths(cells["rtow"], dev, card)
 
+    # ---- K3c and K3a at every launch of one sample of their cells --------
+    k3c_depths(dev, card)
+
     # ---- K2 vs its plain version at the cells' full size ----------------
     prim_k2(cells, dev, card)
 
@@ -2492,6 +2681,50 @@ def probe_rows_equal(a, b, label):
                                      f"{ra[k]} != {rb[k]}")
 
 
+def oracle_renders(tmp, card):
+    """``ORACLE_CORNELL`` through the CLI twice, ``--backend metal`` (the
+    card) and ``--backend oracle`` (the native C++ oracle), each to an
+    EXR in ``tmp``: returns the two linear images."""
+    import os
+
+    from metal_pathtracer_tpu_torch import cli
+    from metal_pathtracer_tpu_torch.utils import image_io
+
+    scene = os.path.join(tmp, "oracle_cornell.scene")
+    with open(scene, "w") as fh:
+        fh.write(ORACLE_CORNELL)
+    images = []
+    for backend in ("metal", "oracle"):
+        path = os.path.join(tmp, f"oracle_{backend}.exr")
+        t0 = time.time()
+        if cli.main(["--scene", scene, "--width", str(ORACLE_FRAME[0]),
+                     "--height", str(ORACLE_FRAME[1]), "--sppTotal",
+                     str(ORACLE_SPP), "--backend", backend, "--output",
+                     path]) != 0:
+            raise AssertionError(f"the CLI failed with --backend {backend}")
+        print(f"CLI --backend {backend}: {time.time() - t0:.2f}s [{card}]")
+        ch = image_io.read_exr(path)
+        images.append(np.stack([ch["R"], ch["G"], ch["B"]], -1))
+    return images
+
+
+def oracle_gate(card_img, oracle_img, card):
+    """The card's render against the oracle's at ``ORACLE_GATE``."""
+    d = card_img.astype(np.float64) - oracle_img.astype(np.float64)
+    rmse = float(np.sqrt((d * d).mean()))
+    mean_diff = abs(float(card_img.mean()) - float(oracle_img.mean()))
+    ok = (np.isfinite(card_img).all() and card_img.max() > 0.0
+          and rmse < ORACLE_GATE["max_rmse"]
+          and mean_diff < ORACLE_GATE["max_mean_diff"])
+    print(f"the card against the native oracle, test_oracle_parity's "
+          f"Cornell box at {ORACLE_FRAME[0]}x{ORACLE_FRAME[1]} {ORACLE_SPP} "
+          f"spp through the CLI (--backend metal, --backend oracle): RMSE "
+          f"{rmse:.3e}, means {float(card_img.mean()):.6f} / "
+          f"{float(oracle_img.mean()):.6f} (gate {ORACLE_GATE}) [{card}]")
+    if not ok:
+        raise AssertionError("the card's render fails the oracle gate")
+
+
 def headless_path(dev, card, kernels, out, headline):
     """Phase 6, the headless surface and its debug tooling: K1's counting
     kernels on the textured headline's first-depth wavefronts (closest and
@@ -2599,6 +2832,7 @@ def headless_path(dev, card, kernels, out, headline):
         if cli.main(argv) != 0:
             raise AssertionError(f"the CLI failed on {argv}")
     peak = torch.cuda.max_memory_allocated(dev)
+    oracle_cells = oracle_renders(tmp, card)
     main_s = time.time() - t_main
     launches = {k: fn.launches for k, fn in kernels.items()}
     if min(launches.values()) <= 0:
@@ -2624,6 +2858,7 @@ def headless_path(dev, card, kernels, out, headline):
     if not (np.isfinite(dimg).all() and dimg.max() > 0.0
             and os.path.getsize(png) > 1000):
         raise AssertionError("the CLI's PNG or default-scene image is empty")
+    oracle_gate(*oracle_cells, card)
     print(f"CLI: the resume (4 + 4 spp) equals the straight 8 spp EXR byte "
           f"for byte; read_exr of it equals the rendered linear image "
           f"(mean {float(linear.mean()):.4f}); default scene 1280x720 2 spp "
@@ -2750,6 +2985,7 @@ def main() -> None:
     from metal_pathtracer_tpu_torch.ops.kernels import texture as X
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
+    t_start = time.time()
     dev = torch.device("cuda", 0)
     card = device_line()
     nvcc = [line for line in subprocess.run(
@@ -2805,6 +3041,8 @@ def main() -> None:
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"
                                    for k, v in K2_RUN_G.items())
           + f" [{card}]")
+    print(f"# chip_smoke.py ran in {time.time() - t_start:.1f}s, the "
+          f"kernels' build included")
     names = [k for k in kernels if k != "shade_full_lanes"] + [
         "shade_full_zoo", "shade_full_buckets_zoo", "shade_s1_zoo",
         "shade_s2_zoo"]

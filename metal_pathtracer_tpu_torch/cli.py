@@ -6,10 +6,14 @@ the default output path).
     python -m metal_pathtracer_tpu_torch.cli --scene cornell --width 512 \\
         --height 512 --sppTotal 8
 
-renders on the card (``--backend cpu``: torch on the CPU, every kernel's
-plain version) and writes a multilayer EXR (``--format``: exr, png, pfm,
-ppm). ``--threads`` and ``--enableSoftwareRayTracing`` are accepted and
-ignored; ``--enableEmbree 1`` is an alias of ``--backend cpu``.
+renders on the card and writes a multilayer EXR (``--format``: exr, png,
+pfm, ppm). ``--backend`` takes the JAX package's names: ``cuda`` or the
+reference's ``metal`` (the card), ``cpu``, ``oracle`` or ``embree`` (the
+native C++ oracle, ``native/cpu_oracle.cpp``, built on first use), and
+``cpu-torch`` (torch on the CPU, every kernel's plain version; the JAX
+package's ``cpu-jax``). ``--enableEmbree 1`` is an alias of ``--backend
+cpu``; ``--threads`` sets the oracle's worker threads.
+``--enableSoftwareRayTracing`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ import os
 import sys
 
 from metal_pathtracer_tpu_torch.renderer.accumulation import CheckpointError
-from metal_pathtracer_tpu_torch.renderer.headless import make_backend
+from metal_pathtracer_tpu_torch.renderer.headless import (
+    OracleBackend,
+    make_backend,
+)
 from metal_pathtracer_tpu_torch.scene import dsl
 from metal_pathtracer_tpu_torch.scene.manager import SceneManager
 from metal_pathtracer_tpu_torch.settings import RenderSettings
@@ -38,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sppTotal", type=int, default=1024)
     p.add_argument("--maxDepth", type=int, default=0)
     p.add_argument("--threads", type=int, default=0,
-                   help="accepted for compatibility; ignored")
+                   help="CPU oracle worker threads (0: all cores)")
     p.add_argument("--seed", type=int, default=-1)
     p.add_argument("--envRotation", type=float, default=None)
     p.add_argument("--envIntensity", type=float, default=None)
@@ -50,9 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--format", default="",
                    choices=["", "exr", "png", "pfm", "ppm"])
     p.add_argument("--backend", default="cuda",
-                   help="cuda | cpu (torch on the CPU)")
+                   help="cuda | metal (the card), cpu | oracle | embree "
+                   "(the native CPU oracle), cpu-torch (torch on the CPU)")
     p.add_argument("--enableEmbree", type=int, default=None,
-                   help="compat alias: use the CPU backend")
+                   help="compat alias: use the CPU oracle backend")
     p.add_argument("--checkpoint", default="",
                    help="render-state checkpoint path (resume if it exists)")
     p.add_argument("--verbose", action="store_true")
@@ -126,10 +134,12 @@ def main(argv=None) -> int:
 
     fmt = args.format or "exr"
     output = args.output or default_output(args.scene, width, height, fmt)
+    extra = {"n_threads": args.threads} \
+        if isinstance(backend, OracleBackend) else {}
     try:
         out = backend.render(resources, settings, width, height,
                              args.sppTotal, verbose=args.verbose,
-                             checkpoint_path=args.checkpoint)
+                             checkpoint_path=args.checkpoint, **extra)
     except (CheckpointError, NotImplementedError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 1

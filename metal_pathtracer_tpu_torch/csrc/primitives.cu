@@ -17,7 +17,12 @@
 // of MetalShaderTypes.h) is copied into shared memory, 8 KB for 512
 // spheres, and every thread of K3a and K3c walks it in the same order, so
 // each read is a shared-memory broadcast. A lane whose window is empty
-// (t_max < t_min: a dead lane) writes a miss without a test.
+// (t_max < t_min: a dead lane) writes a miss without a test. K3a and K3c
+// stage one packed record a primitive (SpheresSoA.records, 16 B;
+// RectsSoA.records, 64 B), one 16-byte load a staging thread, and each
+// thread reads its window before the staging barrier, so the two trips to
+// memory overlap; K3a on a narrow wavefront (the random walk's) reads the
+// whole ray then too.
 //
 // K3b visits the groups near first and shrinks its window as it goes. It
 // slab-tests every group box once against the ray's initial window
@@ -53,6 +58,13 @@
 // tests to the groups that can still hold the nearest hit. Its warps run
 // as many group rounds as their busiest lane; on a wavefront of a few
 // rays (rtow's late depths) one ray's chain of group visits sets the time.
+// K3a on a few spheres and K3c on a few rectangles move 36 B a lane: a
+// wavefront of 262,144 lanes is 9.4 MB, 0.0028 ms at the bound, and runs
+// as one wave whose time is a chain (launch, window and record loads,
+// barrier, ray loads, tests, stores); the launch alone, with every lane
+// dead, takes 0.003-0.0045 ms. Per-thread uniform record loads in place of
+// the staging (54 registers: two waves), two rays a thread, 256-thread
+// blocks and a bound to 32 registers (spills) each measured slower.
 #include "common.cuh"
 
 #define INFINITY_T 1.0e20f
@@ -60,7 +72,7 @@
 #define MAX_GROUPS 32
 #define GROUP 16
 #define MAX_RECTS 128
-#define RECT_FLOATS 16
+#define K3_BLOCK 128
 #define K3B_BLOCK 128
 #define LIST_BLOCK 1024
 
@@ -88,28 +100,38 @@ __device__ __forceinline__ bool sphere_root(V3 o, V3 d, float a, float4 s,
   return disc >= 0.0f && (near_ok || far_ok);
 }
 
-__global__ void sphere_nearest_kernel(int n, const float* __restrict__ ray_o,
-                                      const float* __restrict__ ray_d,
-                                      float t_min,
-                                      const float* __restrict__ t_max,
-                                      const float* __restrict__ center,
-                                      const float* __restrict__ radius,
-                                      int count, float* __restrict__ out_t,
-                                      int* __restrict__ out_i) {
+// K3a: a thread per lane. The lane's window is read before the block stages
+// the sphere records (one 16-byte load a thread, SpheresSoA.records), so the
+// two loads are in flight together. NARROW (a wavefront of at most one block
+// an SM, the random walk's): the ray is read then too, dead lanes' included,
+// since such a launch waits on each trip to memory in turn; a wide one is
+// bound by bytes and reads the ray only where the lane is live.
+template <bool NARROW>
+__global__ void __launch_bounds__(K3_BLOCK) sphere_nearest_kernel(
+    int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ t_max,
+    const float4* __restrict__ rec, int count, float* __restrict__ out_t,
+    int* __restrict__ out_i) {
   __shared__ float4 sph[MAX_SPHERES];
-  for (int k = threadIdx.x; k < count; k += blockDim.x)
-    sph[k] = make_float4(center[3 * k], center[3 * k + 1], center[3 * k + 2],
-                         radius[k]);
-  __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float tmax = i < n ? t_max[i] : 0.0f;
+  V3 o = v3(0.0f, 0.0f, 0.0f), d = o;
+  if (NARROW && i < n) {
+    o = load3(ray_o, i);
+    d = load3(ray_d, i);
+  }
+  for (int k = threadIdx.x; k < count; k += blockDim.x) sph[k] = rec[k];
+  __syncthreads();
   if (i >= n) return;
-  float tmax = t_max[i];
   if (!(tmax >= t_min)) {  // an empty window (a dead lane): no hit
     out_t[i] = INFINITY_T;
     out_i[i] = -1;
     return;
   }
-  V3 o = load3(ray_o, i), d = load3(ray_d, i);
+  if (!NARROW) {
+    o = load3(ray_o, i);
+    d = load3(ray_d, i);
+  }
   float a = dot3(d, d);
   float best_t = INFINITY_T;
   int best_i = -1;
@@ -231,52 +253,50 @@ __global__ void __launch_bounds__(K3B_BLOCK) sphere_nearest_chunked_kernel(
   }
 }
 
-__global__ void rect_nearest_kernel(
+// one rectangle of a K3c record (RectsSoA.records: corner, edge_u, edge_v,
+// 1/|u|^2, 1/|v|^2, normal, plane, a pad) against a ray, each value read
+// where it is used: rect_nearest_reference's operations in its order
+__device__ __forceinline__ bool rect_root(V3 o, V3 d, float t_min,
+                                          float t_max, const float* r,
+                                          float* t_out) {
+  V3 nrm = v3(r[11], r[12], r[13]);
+  float denom = dot3(d, nrm);
+  float t = (r[14] - dot3(o, nrm)) / denom;
+  V3 rel = v3(fmaf_rn(t, d.x, o.x) - r[0], fmaf_rn(t, d.y, o.y) - r[1],
+              fmaf_rn(t, d.z, o.z) - r[2]);
+  float u = dot3(rel, v3(r[3], r[4], r[5])) * r[9];
+  float v = dot3(rel, v3(r[6], r[7], r[8])) * r[10];
+  *t_out = t;
+  return fabsf(denom) >= 1e-6f && t >= t_min && t <= t_max && u >= 0.0f &&
+         u <= 1.0f && v >= 0.0f && v <= 1.0f;
+}
+
+// K3c: K3a's wide scheme over the rectangle records (four 16-byte loads
+// each, one a staging thread)
+__global__ void __launch_bounds__(K3_BLOCK) rect_nearest_kernel(
     int n, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ t_max,
-    const float* __restrict__ corner, const float* __restrict__ edge_u,
-    const float* __restrict__ edge_v, const float* __restrict__ inv_len2_u,
-    const float* __restrict__ inv_len2_v, const float* __restrict__ normal,
-    const float* __restrict__ plane, int count, float* __restrict__ out_t,
+    const float4* __restrict__ rec, int count, float* __restrict__ out_t,
     int* __restrict__ out_i) {
-  // per rectangle: corner, edge_u, edge_v, 1/|u|^2, 1/|v|^2, normal, plane
-  __shared__ float rect[MAX_RECTS * RECT_FLOATS];
-  for (int k = threadIdx.x; k < count; k += blockDim.x) {
-    float* r = rect + RECT_FLOATS * k;
-    for (int c = 0; c < 3; ++c) {
-      r[c] = corner[3 * k + c];
-      r[3 + c] = edge_u[3 * k + c];
-      r[6 + c] = edge_v[3 * k + c];
-      r[11 + c] = normal[3 * k + c];
-    }
-    r[9] = inv_len2_u[k];
-    r[10] = inv_len2_v[k];
-    r[14] = plane[k];
-  }
-  __syncthreads();
+  __shared__ float4 rect[MAX_RECTS * 4];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float tmax = i < n ? t_max[i] : 0.0f;
+  for (int k = threadIdx.x; k < 4 * count; k += blockDim.x) rect[k] = rec[k];
+  __syncthreads();
   if (i >= n) return;
-  float tmax = t_max[i];
   if (!(tmax >= t_min)) {  // an empty window (a dead lane): no hit
     out_t[i] = INFINITY_T;
     out_i[i] = -1;
     return;
   }
   V3 o = load3(ray_o, i), d = load3(ray_d, i);
+  const float* rf = reinterpret_cast<const float*>(rect);
   float best_t = INFINITY_T;
   int best_i = -1;
   for (int s = 0; s < count; ++s) {
-    const float* r = rect + RECT_FLOATS * s;
-    V3 nrm = v3(r[11], r[12], r[13]);
-    float denom = dot3(d, nrm);
-    float t = (r[14] - dot3(o, nrm)) / denom;
-    V3 rel = v3(fmaf_rn(t, d.x, o.x) - r[0], fmaf_rn(t, d.y, o.y) - r[1],
-                fmaf_rn(t, d.z, o.z) - r[2]);
-    float u = dot3(rel, v3(r[3], r[4], r[5])) * r[9];
-    float v = dot3(rel, v3(r[6], r[7], r[8])) * r[10];
-    bool valid = fabsf(denom) >= 1e-6f && t >= t_min && t <= tmax &&
-                 u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f;
-    if (valid && (best_i < 0 || t < best_t)) {
+    float t;
+    if (rect_root(o, d, t_min, tmax, rf + 16 * s, &t) &&
+        (best_i < 0 || t < best_t)) {
       best_t = t;
       best_i = s;
     }
@@ -285,24 +305,35 @@ __global__ void rect_nearest_kernel(
   out_i[i] = best_i;
 }
 
-const int kBlock = 128;
-
 int k3b_grid_cache;
+int k3a_sm_cache;
+
+// the card's SM count, found once
+int sm_count(int* cache) {
+  if (*cache == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(cache, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return *cache;
+}
 
 }  // namespace
 
+// `records`: SpheresSoA.records(), (count, 4) float32, 16-byte aligned
 extern "C" int mpt_sphere_nearest(int n, const void* o, const void* d,
                                   float t_min, const void* t_max,
-                                  const void* center, const void* radius,
-                                  int count, void* out_t, void* out_i,
-                                  void* stream) {
+                                  const void* records, int count, void* out_t,
+                                  void* out_i, void* stream) {
   if (n <= 0) return 0;
   if (count > MAX_SPHERES) return (int)cudaErrorInvalidValue;
-  sphere_nearest_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                          (cudaStream_t)stream>>>(
+  int blocks = (n + K3_BLOCK - 1) / K3_BLOCK;
+  auto kernel = blocks <= sm_count(&k3a_sm_cache)
+                    ? sphere_nearest_kernel<true>
+                    : sphere_nearest_kernel<false>;
+  kernel<<<blocks, K3_BLOCK, 0, (cudaStream_t)stream>>>(
       n, (const float*)o, (const float*)d, t_min, (const float*)t_max,
-      (const float*)center, (const float*)radius, count, (float*)out_t,
-      (int*)out_i);
+      (const float4*)records, count, (float*)out_t, (int*)out_i);
   return (int)cudaGetLastError();
 }
 
@@ -337,21 +368,16 @@ extern "C" int mpt_sphere_nearest_chunked(
   return (int)cudaGetLastError();
 }
 
+// `records`: RectsSoA.records(), (count, 16) float32, 16-byte aligned
 extern "C" int mpt_rect_nearest(int n, const void* o, const void* d,
                                 float t_min, const void* t_max,
-                                const void* corner, const void* edge_u,
-                                const void* edge_v, const void* inv_len2_u,
-                                const void* inv_len2_v, const void* normal,
-                                const void* plane, int count, void* out_t,
+                                const void* records, int count, void* out_t,
                                 void* out_i, void* stream) {
   if (n <= 0) return 0;
   if (count > MAX_RECTS) return (int)cudaErrorInvalidValue;
-  rect_nearest_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
+  rect_nearest_kernel<<<(n + K3_BLOCK - 1) / K3_BLOCK, K3_BLOCK, 0,
                         (cudaStream_t)stream>>>(
       n, (const float*)o, (const float*)d, t_min, (const float*)t_max,
-      (const float*)corner, (const float*)edge_u, (const float*)edge_v,
-      (const float*)inv_len2_u, (const float*)inv_len2_v,
-      (const float*)normal, (const float*)plane, count, (float*)out_t,
-      (int*)out_i);
+      (const float4*)records, count, (float*)out_t, (int*)out_i);
   return (int)cudaGetLastError();
 }

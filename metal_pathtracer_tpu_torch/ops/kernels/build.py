@@ -87,15 +87,14 @@ SIGNATURES = {
     # texture count, levels per texture, output planes, stream
     "mpt_texture_stage": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                           _vp, _vp, _vp, _i, _i, _vp, _vp],
-    # n, o, d, t_min, t_max, the primitive arrays, their count, out t,
-    # out index, stream
-    "mpt_sphere_nearest": [_i, _vp, _vp, _f, _vp, _vp, _vp, _i,
-                           _vp, _vp, _vp],
+    # n, o, d, t_min, t_max, the primitives (K3a, K3c: one packed record
+    # each, SpheresSoA.records / RectsSoA.records; K3b: its group arrays),
+    # their count, out t, out index, stream
+    "mpt_sphere_nearest": [_i, _vp, _vp, _f, _vp, _vp, _i, _vp, _vp, _vp],
     # K3b also takes its live-lane list's scratch before the stream
     "mpt_sphere_nearest_chunked": [_i, _vp, _vp, _f, _vp,
                                    *[_vp] * 5, _i, _vp, _vp, _vp, _vp],
-    "mpt_rect_nearest": [_i, _vp, _vp, _f, _vp, *[_vp] * 7, _i,
-                         _vp, _vp, _vp],
+    "mpt_rect_nearest": [_i, _vp, _vp, _f, _vp, _vp, _i, _vp, _vp, _vp],
 }
 
 

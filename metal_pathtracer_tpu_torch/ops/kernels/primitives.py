@@ -13,7 +13,9 @@ Replace the TPU analytic-primitive kernels of
   every oriented rectangle against every ray.
 
 ``sphere_nearest`` and ``rect_nearest`` launch ``csrc/primitives.cu`` on
-CUDA tensors and run the plain versions below on CPU tensors. Each
+CUDA tensors (K3a and K3c over one packed record a primitive,
+``SpheresSoA.records()`` and ``RectsSoA.records()``, made once per scene)
+and run the plain versions below on CPU tensors. Each
 returns (t, index): index -1 and t = INFINITY_T on a miss. The function
 is the one ``ops/intersect.py hit_spheres``/``hit_rects`` of the JAX
 package reduce to: per primitive, the near root of the half-b quadratic
@@ -303,10 +305,13 @@ def _check(name, tensors, dev):
 def _launch(name, origin, direction, t_min, t_max, prim_args, count,
             listed=False):
     """Check, then launch ``mpt_<name>``; ``listed``: the kernel also takes
-    its live-lane list's scratch (K3b)."""
+    its live-lane list's scratch (K3b). K3a and K3c read their one record
+    argument with 16-byte loads."""
     n = origin.shape[0]
     dev = origin.device
     _check(name, [origin, direction, t_max, *prim_args], dev)
+    if not listed:
+        build.check_aligned(name, prim_args, 16)
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = build.list_scratch(n, dev) if listed else None
@@ -343,7 +348,7 @@ def sphere_nearest(origin, direction, t_min: float, t_max, spheres,
 def sphere_nearest_brute(origin, direction, t_min: float, t_max, spheres):
     """K3a: every sphere against every ray (any sphere count up to the
     scene cap of 512). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel over ``spheres.records()``."""
     t_max = _prepare(origin, t_max)
     dev = origin.device
     if dev.type == "cpu":
@@ -352,7 +357,7 @@ def sphere_nearest_brute(origin, direction, t_min: float, t_max, spheres):
     if dev.type != "cuda":
         raise ValueError(f"sphere_nearest_brute: unsupported device {dev}")
     out = _launch("sphere_nearest", origin, direction, t_min, t_max,
-                  [spheres.center, spheres.radius], spheres.count)
+                  [spheres.records()], spheres.count)
     sphere_nearest_brute.launches += 1
     return out
 
@@ -383,7 +388,7 @@ sphere_nearest_chunked.launches = 0
 
 def rect_nearest(origin, direction, t_min: float, t_max, rects):
     """Nearest rectangle per ray: (t, index). CPU tensors take the plain
-    version; CUDA tensors launch K3c."""
+    version; CUDA tensors launch K3c over ``rects.records()``."""
     t_max = _prepare(origin, t_max)
     dev = origin.device
     if dev.type == "cpu":
@@ -391,9 +396,7 @@ def rect_nearest(origin, direction, t_min: float, t_max, rects):
     if dev.type != "cuda":
         raise ValueError(f"rect_nearest: unsupported device {dev}")
     out = _launch("rect_nearest", origin, direction, t_min, t_max,
-                  [rects.corner, rects.edge_u, rects.edge_v,
-                   rects.inv_len2_u, rects.inv_len2_v, rects.normal,
-                   rects.plane], rects.count)
+                  [rects.records()], rects.count)
     rect_nearest.launches += 1
     return out
 

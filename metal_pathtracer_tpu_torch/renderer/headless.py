@@ -5,8 +5,9 @@ card by default, the CPU where the caller asks (every kernel then runs
 its plain version). It keeps the JAX ``TpuBackend``'s surface: the scene
 digest and the ``.npz`` checkpoint it resumes from, ``PerformanceStats``
 and the ``[Headless]`` log lines (``headless.py:48-62, 69-160``).
-``make_backend`` picks ``cuda`` or ``cpu`` and never falls back from one
-to the other.
+``OracleBackend`` renders with the native C++ oracle (``renderer/oracle.py``),
+the reference's Embree role. ``make_backend`` takes the JAX package's
+names and never falls back from one backend to another.
 """
 
 from __future__ import annotations
@@ -169,16 +170,65 @@ class CudaBackend:
             shadow_ray_count=state.shadow_ray_count)
 
 
-def make_backend(name: str = "cuda") -> CudaBackend:
-    """``cuda`` (the card; raises without one) or ``cpu`` (torch on the
-    CPU: every kernel's plain version). No fallback from one to the
-    other."""
-    if name == "cuda":
+class OracleBackend:
+    """The native C++ CPU oracle, the parity reference backend, in the
+    reference's ``--backend=embree`` role (JAX ``headless.py:175-209``;
+    reference: src/headless/EmbreeHeadlessRenderer.mm)."""
+
+    name = "oracle"
+
+    def render(self, resources, settings: RenderSettings, width: int,
+               height: int, spp_total: int, verbose: bool = False,
+               n_threads: int = 0, **_kwargs) -> HeadlessRenderOutput:
+        from metal_pathtracer_tpu_torch.renderer import oracle
+
+        if _kwargs.get("checkpoint_path"):
+            print("[Oracle] warning: --checkpoint is not supported by the "
+                  "CPU oracle backend; rendering from scratch")
+        environment = None
+        if settings.backgroundMode == BackgroundMode.ENVIRONMENT \
+                and settings.environmentMapPath:
+            from metal_pathtracer_tpu_torch.ops import env as env_ops
+            environment = env_ops.load_environment(
+                settings.environmentMapPath, "cpu")
+        start = time.time()
+        img = oracle.render_oracle(resources, settings, width, height,
+                                   spp_total, environment=environment,
+                                   n_threads=n_threads)
+        total = time.time() - start
+        if verbose:
+            print(f"[Oracle] {spp_total} spp in {total:.1f}s")
+        return HeadlessRenderOutput(
+            linear_rgb=img, width=width, height=height, samples=spp_total,
+            total_seconds=total,
+            avg_ms_per_sample=1000.0 * total / max(spp_total, 1))
+
+
+#: backend names (JAX ``make_backend``): the reference's ``metal`` is the
+#: card; ``cpu``, ``oracle`` and ``embree`` the native oracle;
+#: ``cpu-torch`` (JAX ``cpu-jax``) the port's own plain path on the CPU
+CUDA_NAMES = ("cuda", "metal")
+ORACLE_NAMES = ("cpu", "oracle", "embree")
+
+
+def make_backend(name: str = "cuda"):
+    """``cuda`` or ``metal`` (the card; raises without one), ``cpu``,
+    ``oracle`` or ``embree`` (the native oracle; raises when it cannot be
+    built) or ``cpu-torch`` (torch on the CPU: every kernel's plain
+    version). No fallback from one to another."""
+    if name in CUDA_NAMES:
         if not torch.cuda.is_available():
-            raise RuntimeError("backend 'cuda': no CUDA device is available "
-                               "(use --backend cpu for the plain versions "
-                               "on the CPU)")
+            raise RuntimeError(f"backend {name!r}: no CUDA device is "
+                               "available (use --backend cpu-torch for the "
+                               "plain versions on the CPU)")
         return CudaBackend("cuda")
-    if name == "cpu":
+    if name in ORACLE_NAMES:
+        from metal_pathtracer_tpu_torch.renderer import oracle
+        if not oracle.oracle_available():
+            raise RuntimeError(f"backend {name!r}: the native CPU oracle "
+                               "cannot be built (run native/build.sh)")
+        return OracleBackend()
+    if name == "cpu-torch":
         return CudaBackend("cpu")
-    raise ValueError(f"unknown backend: {name} (choose cuda | cpu)")
+    raise ValueError(f"unknown backend: {name} (choose "
+                     f"{' | '.join(CUDA_NAMES + ORACLE_NAMES)} | cpu-torch)")

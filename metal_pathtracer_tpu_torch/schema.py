@@ -97,6 +97,17 @@ class SpheresSoA:
     def count(self) -> int:
         return self.radius.shape[0]
 
+    def records(self) -> torch.Tensor:
+        """(S, 4) f32, K3a's layout: ``[centre xyz, radius]``, one 16-byte
+        load a sphere, copies of the fields' bits. Made on first use, on
+        these arrays' device, and kept on this immutable object."""
+        cached = self.__dict__.get("_records")
+        if cached is None:
+            cached = torch.cat([self.center, self.radius[:, None]],
+                               1).contiguous()
+            self.__dict__["_records"] = cached
+        return cached
+
 
 @dataclasses.dataclass(frozen=True)
 class RectsSoA:
@@ -115,6 +126,22 @@ class RectsSoA:
     @property
     def count(self) -> int:
         return self.plane.shape[0]
+
+    def records(self) -> torch.Tensor:
+        """(R, 16) f32, K3c's layout: 64 bytes a rectangle, read as four
+        16-byte loads, ``[corner xyz, edge_u xyz, edge_v xyz, 1/|u|^2,
+        1/|v|^2, normal xyz, plane, 0]``, copies of the fields' bits. Made
+        on first use, on these arrays' device, and kept on this immutable
+        object."""
+        cached = self.__dict__.get("_records")
+        if cached is None:
+            cached = torch.cat(
+                [self.corner, self.edge_u, self.edge_v,
+                 self.inv_len2_u[:, None], self.inv_len2_v[:, None],
+                 self.normal, self.plane[:, None],
+                 torch.zeros_like(self.plane)[:, None]], 1).contiguous()
+            self.__dict__["_records"] = cached
+        return cached
 
 
 @dataclasses.dataclass(frozen=True)

@@ -46,12 +46,21 @@ change's ``chip_smoke.py`` helpers, so both sides are measured alike:
   frame_loop_k3b``), each timed three times with ``kernel_ms``; a
   SHA-256 of each wavefront's (t, index), which must agree over every
   process; the sphere kernels' registers and spill bytes.
+- ``k3c`` and ``k3a``: K3c at every launch of one sample of the Cornell
+  box (512x512, six rectangles: the closest, shadow and spec-NEE chain
+  rays of each depth, 24 launches), or K3a at every launch of one sample
+  of materials-env-rw (960x320, eight spheres; ~217 launches, ~193 of
+  them the random walk's), kept by the change's ``chip_smoke.py
+  frame_loop_k3``, each timed three times with ``kernel_ms``: every K3c
+  launch and K3a's first, the sums by call (closest, shadow, chain,
+  walk) and a sample; a SHA-256 of each launch's (t, index), which must
+  agree over every process; the kernel's registers and spill bytes.
 
 Make the parent's checkout with ``git archive`` into a git-ignored
 directory, then::
 
     python3 metal_pathtracer_tpu_torch/utils/ab.py \
-        {lambert,k1,s1,s2,s2zoo,tex,k3b,full,fullzoo,fulllambert} \
+        {lambert,k1,s1,s2,s2zoo,tex,k3a,k3b,k3c,full,fullzoo,fulllambert} \
         PARENT CHANGE
 
 Lines starting with ``AB`` carry the numbers; per series, the medians and
@@ -310,6 +319,56 @@ def child_k3b(timer, depths):
                   flush=True)
 
 
+def child_k3(which, timer, depths):
+    """K3c (``k3c``: every launch of one Cornell box sample) or K3a
+    (``k3a``: every launch of one materials-env-rw sample, the random
+    walk's included) of the checkout's package, kept by ``timer``'s
+    ``frame_loop_k3`` and timed by its helpers; ``depths`` is not used."""
+    import hashlib
+
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+
+    build.load()
+    name = {"k3c": "rect_nearest", "k3a": "sphere_nearest_brute"}[which]
+    registers(c, build, name.replace("_brute", "_kernel"))
+    dev = torch.device("cuda", 0)
+    if which == "k3c":
+        (settings, res), env = B.build_cornell_scene(), None
+        size = B.CORNELL_FRAME
+    else:
+        settings, res, env = B.build_materials_env_rw_scene(dev)
+        size = B.MATERIALS_FRAME
+    scene = res.build_arrays(environment=env, device=dev)
+    static, uni = c.scene_setup(settings, res, *size, dev)
+    kept = c.frame_loop_k3(scene, uni, static, dev, name)
+    fn = getattr(P, name)
+    card = c.device_line()
+    for k, (kind, args) in enumerate(kept):
+        h = hashlib.sha256()
+        for x in fn(*args):
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        print(f"AB digest {which} launch {k:03d} ({kind}): {h.hexdigest()}",
+              flush=True)
+    for rep in range(K1_REPS):
+        sums = {}
+        for k, (kind, args) in enumerate(kept):
+            ms = c.kernel_ms(lambda: lambda: fn(*args), 5)
+            sums[kind] = sums.get(kind, 0.0) + ms
+            if which == "k3c" or k == 0:
+                print(f"AB {which} launch {k:03d} ({kind}) rep {rep}: "
+                      f"{ms:.4f} ms [{card}]", flush=True)
+        for kind, ms in sums.items():
+            print(f"AB {which} {kind} launches of a sample rep {rep}: "
+                  f"{ms:.4f} ms [{card}]", flush=True)
+        print(f"AB {which} sample of {len(kept)} launches rep {rep}: "
+              f"{sum(sums.values()):.4f} ms [{card}]", flush=True)
+
+
 def lambert_value(line):
     m = re.search(r"([\d.]+) ms/spp", line)
     if m and line.startswith(("AB lambert", "lambert")):
@@ -330,6 +389,8 @@ MEASURES = {"lambert": (child_lambert, lambert_value),
             "s2zoo": (functools.partial(child_k2, "s2zoo"), k1_value),
             "tex": (functools.partial(child_k2, "tex"), k1_value),
             "k3b": (child_k3b, k1_value),
+            "k3a": (functools.partial(child_k3, "k3a"), k1_value),
+            "k3c": (functools.partial(child_k3, "k3c"), k1_value),
             "full": (functools.partial(child_full, "full"), k1_value),
             "fullzoo": (functools.partial(child_full, "fullzoo"), k1_value),
             "fulllambert": (functools.partial(child_full, "fulllambert"),

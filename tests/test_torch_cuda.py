@@ -471,6 +471,54 @@ def test_primitive_kernels_vs_plain_on_card(dev, name):
         assert int((got[1] != brute[1]).sum()) <= 4
 
 
+@pytest.mark.parametrize("blocks", ["one", "an SM each", "one more"])
+def test_k3a_narrow_and_wide_on_card(dev, blocks):
+    """K3a's two instantiations against the plain version bit for bit, at
+    the widths around the launcher's choice (at most one 128-thread block
+    an SM reads the whole ray before the staging barrier), on rays from
+    inside ``materials.scene``'s spheres' box, every fifth lane dead."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = {"one": 100, "an SM each": 128 * sms,
+         "one more": 128 * sms + 1}[blocks]
+    _, res = benchscene.build_materials_scene()
+    spheres = res.build_spheres_soa(dev)
+    rng = np.random.default_rng(n)
+    o = torch.from_numpy(rng.uniform(-2.0, 2.0, (n, 3)).astype(
+        np.float32)).to(dev)
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    tmax = torch.full((n,), C.INFINITY_T, device=dev)
+    tmax[::5] = 0.0
+    got = P.sphere_nearest_brute(o, d, C.EPSILON_T, tmax, spheres)
+    want = P.sphere_nearest_reference(o, d, C.EPSILON_T, tmax, spheres)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert (got[1] >= 0).any() and (got[1][::5] == -1).all()
+
+
+def test_k3_records_must_be_aligned_on_card(dev):
+    """K3a and K3c read their records with 16-byte loads: a record that
+    does not start on a 16-byte boundary raises."""
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    _, res = benchscene.build_cornell_scene()
+    scene = res.build_arrays(device=dev)
+    o = torch.zeros((64, 3), device=dev)
+    d = torch.ones((64, 3), device=dev)
+    for soa, fn in ((scene.spheres, P.sphere_nearest_brute),
+                    (scene.rects, P.rect_nearest)):
+        rec = soa.records()
+        bad = torch.empty(rec.numel() + 1, device=dev)[1:].view(rec.shape)
+        bad.copy_(rec)
+        soa.__dict__["_records"] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(o, d, C.EPSILON_T, C.INFINITY_T, soa)
+        soa.__dict__["_records"] = rec
+
+
 @pytest.mark.parametrize("name", ["cornell", "rtow"])
 def test_primitive_render_kernels_vs_plain_on_card(dev, name):
     """The Cornell box (K3a, K3c, K2 s1/s2 with rect-light NEE) and rtow

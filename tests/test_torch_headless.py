@@ -77,7 +77,7 @@ def _scene():
 
 @pytest.fixture
 def backend():
-    return make_backend("cpu")
+    return make_backend("cpu-torch")
 
 
 # ---- checkpoints (tests/test_checkpoint.py on the port) -------------------
@@ -123,7 +123,7 @@ def test_resume_rejects_scene_mismatch(tmp_path, backend):
 
 
 def test_make_backend_never_falls_back():
-    assert make_backend("cpu").device == "cpu"
+    assert make_backend("cpu-torch").device == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_backend("cuda")
@@ -270,7 +270,8 @@ def test_cli_smoke_scene_ppm(tmp_path, capsys):
         assert cli.main(["--scene", "tests/scenes/smoke.scene", "--width",
                          "48", "--height", "48", "--sppTotal", "2",
                          "--maxDepth", "4", "--seed", "1337", "--format",
-                         "ppm", "--backend", "cpu", "--output", out]) == 0
+                         "ppm", "--backend", "cpu-torch", "--output",
+                         out]) == 0
         outs.append(open(out, "rb").read())
     printed = capsys.readouterr().out
     assert "Rendered 2 spp at 48x48" in printed and "[Output]" in printed
@@ -281,11 +282,12 @@ def test_cli_smoke_scene_ppm(tmp_path, capsys):
 
 
 def test_cli_error_paths(tmp_path, capsys):
-    assert cli.main(["--scene", "no_such_scene", "--backend", "cpu"]) == 1
+    assert cli.main(["--scene", "no_such_scene", "--backend",
+                     "cpu-torch"]) == 1
     assert "scene not found" in capsys.readouterr().err
     assert cli.main(["--scene", "tests/scenes/smoke.scene", "--width", "8",
                      "--height", "8", "--sppTotal", "1", "--enableMnee",
-                     "1", "--backend", "cpu", "--output",
+                     "1", "--backend", "cpu-torch", "--output",
                      str(tmp_path / "x.exr")]) == 1
     err = capsys.readouterr().err
     assert err.startswith("error: MNEE") and "Traceback" not in err

@@ -138,7 +138,8 @@ def test_port_renders_without_jax():
     the environment-NEE headline, the Cornell box (spheres, rectangles,
     rect-light NEE) and ``materials.scene`` (plastic, carpaint, separable
     SSS) with its random-walk variant under an environment, renders the
-    smoke scene through the CLI and profiles a wavefront with
+    smoke scene through the CLI (the plain path, then the native oracle's
+    wrapper) and profiles a wavefront with
     ``traversal_profile``, without loading jax, flax or any module of the
     JAX package."""
     proc = _run("""
@@ -198,11 +199,14 @@ def test_port_renders_without_jax():
         from metal_pathtracer_tpu_torch.utils.stats import traversal_profile
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "smoke.ppm")
-            assert cli.main(["--scene", "tests/scenes/smoke.scene", "--width",
-                             "16", "--height", "16", "--sppTotal", "1",
-                             "--format", "ppm", "--backend", "cpu",
-                             "--output", out]) == 0
-            assert os.path.getsize(out) == 13 + 16 * 16 * 3
+            # the port's plain path, then the native oracle's wrapper
+            for backend in ("cpu-torch", "cpu"):
+                assert cli.main(["--scene", "tests/scenes/smoke.scene",
+                                 "--width", "16", "--height", "16",
+                                 "--sppTotal", "1", "--format", "ppm",
+                                 "--backend", backend, "--output",
+                                 out]) == 0
+                assert os.path.getsize(out) == 13 + 16 * 16 * 3
         scene = build_lambert_series(1)[1].build_arrays(device="cpu")
         o = torch.zeros((64, 3))
         o[:, 2] = 4.0
