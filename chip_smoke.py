@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's six paths:
+(one nvcc per source, in parallel) and drives the port's eight paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -100,7 +100,34 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    ``debugSpecularOnly`` at 160x96 4 spp through the kernels against the
    plain path (RMSE 0) on ``materials.scene`` and the textured headline at
    subdivision 5; and each K1 and K2 instantiation's registers from the
-   build log.
+   build log;
+7. MNEE (K2 s2's fork-state export, the delta-chain estimators over K1,
+   K3a and K3c): the headline with MNEE on at 160x96 2 spp (subdivision
+   5) through the kernels against the plain path and at 1920x1080 d8,
+   one timed sample; its MNEE-eligible and secondary-chain lanes per
+   depth, and its trace count equal to the closest traces plus the
+   chains' (``mnee_lanes``); s2's fork state bit for bit against its
+   plain version at depths 0 and 1, the base instantiation on the
+   headline and the extended one on the Cornell box with a plastic
+   sphere, and s2 timed with and without the export (the kernels line's
+   ``shade_s2_mnee``); the Cornell box through the CLI with
+   ``--enableMnee 1 --backend metal`` at 512x512 d8; and
+   ``test_oracle_parity.py test_mnee_chain_rmse``'s scene at 128x128 64
+   spp through ``--backend metal`` and ``--backend oracle``, means within
+   1e-5, and at 4 spp the card against the plain path on the CPU
+   (``--backend cpu-torch``) under the image gate, its gap to
+   the oracle the plain path's (the oracle parts from the JAX package on
+   a caustic path there: ROADMAP Queue 3);
+8. the mesh loaders: the headline's meshes written as files (the
+   1.31M-triangle icosphere as binary PLY, the glass icosphere as OBJ,
+   the checker sphere and the ground as a GLB with an embedded PNG
+   checker and a 200x120 texture the atlas resamples), its sky as an EXR
+   and a ``.scene`` of ``mesh`` records: the PLY and OBJ triangles,
+   normals and UVs against the in-memory meshes bit for bit, the GLB's
+   tangents MikkTSpace's, a 160x96 2 spp render (subdivision 5) through
+   the kernels against the plain path, and the scene at 1920x1080 d8
+   through the CLI with ``--backend metal``, its set-up seconds (parse,
+   SAH and atlas) beside its ms/spp.
 
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
@@ -370,7 +397,8 @@ def k2_bound(name, n_hit, n_miss, n_dead, textured=False, analytic=False,
     every hit) read all the texture planes, the other hits the tpbr
     plane; ``n_first`` hits write the first-hit AOVs (None: every hit).
     ``extra``: bytes more per hit (the random-walk or emod planes);
-    ``table``: the material table's bytes, read once; ``charge``: other
+    ``table``: bytes moved once more (the material table's, read once;
+    s2's fork states, written once); ``charge``: other
     per-lane charges than ``K2_BYTES[name]`` (an older charge)."""
     b = K2_BYTES[name] if charge is None else charge
     rows = 0 if analytic else n_hit if n_rows is None else n_rows
@@ -405,10 +433,12 @@ def s2_counts(carry, idx, tex=None):
     return out
 
 
-def s2_bounds(n, n_live, tex=None, carry=None, idx=None):
+def s2_bounds(n, n_live, tex=None, carry=None, idx=None, fork=False):
     """s2's bound on a triangle wavefront at PR 9's charge (textured if
-    ``tex``) and at the charge before it: (ms, by, ms before)."""
+    ``tex``; with ``fork``, every lane's 8 B fork state written too) and
+    at the charge before it: (ms, by, ms before)."""
     b, by = k2_bound("shade_s2", n_live, 0, n - n_live, tex is not None,
+                     table=n * FORK_BYTES if fork else 0,
                      **s2_counts(carry, idx, tex))
     old, _ = k2_bound("shade_s2", n_live, 0, n - n_live, tex is not None,
                       charge=K2_S2_BEFORE)
@@ -2681,26 +2711,28 @@ def probe_rows_equal(a, b, label):
                                      f"{ra[k]} != {rb[k]}")
 
 
-def oracle_renders(tmp, card):
-    """``ORACLE_CORNELL`` through the CLI twice, ``--backend metal`` (the
-    card) and ``--backend oracle`` (the native C++ oracle), each to an
-    EXR in ``tmp``: returns the two linear images."""
+def oracle_renders(tmp, card, text=ORACLE_CORNELL, tag="oracle_cornell",
+                   extra=()):
+    """A scene ``text`` (default ``ORACLE_CORNELL``) through the CLI twice,
+    ``--backend metal`` (the card) and ``--backend oracle`` (the native
+    C++ oracle), with the CLI arguments ``extra``, each to an EXR in
+    ``tmp``: returns the two linear images."""
     import os
 
     from metal_pathtracer_tpu_torch import cli
     from metal_pathtracer_tpu_torch.utils import image_io
 
-    scene = os.path.join(tmp, "oracle_cornell.scene")
+    scene = os.path.join(tmp, f"{tag}.scene")
     with open(scene, "w") as fh:
-        fh.write(ORACLE_CORNELL)
+        fh.write(text)
     images = []
     for backend in ("metal", "oracle"):
-        path = os.path.join(tmp, f"oracle_{backend}.exr")
+        path = os.path.join(tmp, f"{tag}_{backend}.exr")
         t0 = time.time()
         if cli.main(["--scene", scene, "--width", str(ORACLE_FRAME[0]),
                      "--height", str(ORACLE_FRAME[1]), "--sppTotal",
-                     str(ORACLE_SPP), "--backend", backend, "--output",
-                     path]) != 0:
+                     str(ORACLE_SPP), "--backend", backend, *extra,
+                     "--output", path]) != 0:
             raise AssertionError(f"the CLI failed with --backend {backend}")
         print(f"CLI --backend {backend}: {time.time() - t0:.2f}s [{card}]")
         ch = image_io.read_exr(path)
@@ -2976,6 +3008,503 @@ def headless_path(dev, card, kernels, out, headline):
         out[k]["max_abs_err"] = max(out[k]["max_abs_err"], spec_err)
 
 
+
+# ---- phase 7: MNEE -----------------------------------------------------------
+
+#: the headline with MNEE on: one timed sample after a warm-up
+MNEE_TIMED_SPP = 1
+#: samples of the MNEE and mesh-files phases' 160x96 renders through the
+#: kernels against the plain path (the plain path takes ~25 s a sample
+#: there, and the script has 1,200 s)
+NEW_CHECK_SPP = 2
+#: the Cornell box with MNEE on through the CLI
+MNEE_CORNELL_SPP = 8
+#: the fork state s2 writes per lane with MNEE's secondary chain on
+FORK_BYTES = 8
+#: the card against the native oracle on ``tests/test_oracle_parity.py
+#: test_mnee_chain_rmse``'s scene (a glass sphere on a radius-100 ground
+#: sphere under a rect light, both chains on), through the CLI. The two
+#: are RNG twins but not bit twins there: a caustic path under the glass
+#: takes another turn in the oracle than in the JAX package, and the port
+#: follows the JAX package (ROADMAP Queue 3; ``tests/test_torch_mnee.py
+#: test_mnee_oracle_gap_is_the_references``). So the card is held to the
+#: port's plain path on the CPU (``--backend cpu-torch``, the JAX
+#: render's twin) at ``IMAGE_GATE`` over ``ORACLE_MNEE_CHECK_SPP`` samples,
+#: and its gap to the oracle to the plain path's; at ``ORACLE_SPP`` the
+#: means must agree with the oracle's within ``ORACLE_MNEE_MEAN``
+ORACLE_MNEE = """\
+camera target=0,0.5,0 distance=3.2 yaw=0 pitch=0.15 vfov=45
+renderer maxDepth=8 seed=11 enableSpecularNee=1 enableMnee=1 enableMneeSecondary=1
+material type=lambert albedo=0.65,0.65,0.65
+material type=glass ior=1.5
+material type=light emit=24,22,18
+sphere center=0,-100,0 radius=100 material=0
+sphere center=0,0.55,0 radius=0.5 material=1
+rectangle x=-0.5,0.5 y=2.2 z=-0.5,0.5 normal=-1 material=2
+"""
+ORACLE_MNEE_CHECK_SPP = 4
+ORACLE_MNEE_MEAN = 1e-5
+
+
+def mnee_lanes(scene, uni, static, dev):
+    """One sample of the frame loop with the chain estimators spied on:
+    per depth the closest traces, the MNEE-eligible lanes (those the
+    secondary chain traces), the secondary-chain lanes (those whose chain
+    sample reached the estimators) and the chain estimators' scene and
+    shadow traces; and the sample's render state. A host sync per depth,
+    so it runs apart from the timed renders."""
+    from metal_pathtracer_tpu_torch.ops import specnee
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    rows = []
+    real_s1, real_dce = S.shade_s1, specnee.delta_chain_estimators
+    real_chain = specnee._secondary_chain
+
+    def s1_spy(carry, *args, **kw):
+        rows.append({"closest": int(carry.alive.sum()), "eligible": 0,
+                     "chain": 0})
+        return real_s1(carry, *args, **kw)
+
+    def chain_spy(*args):
+        # (scene, uniforms, static, clamp, origin, ...): the chain's lanes
+        got = real_chain(*args)
+        rows[-1].update(eligible=int(args[4].shape[0]),
+                        chain=int(got[0].sum()))
+        return got
+
+    def dce_spy(*args, **kw):
+        add, n_scene, n_shadow = real_dce(*args, **kw)
+        rows[-1].update(scene=int(n_scene), shadow=int(n_shadow))
+        return add, n_scene, n_shadow
+
+    s1_spy.launches = 0
+    with mock.patch.object(S, "shade_s1", s1_spy), \
+            mock.patch.object(specnee, "delta_chain_estimators", dce_spy), \
+            mock.patch.object(specnee, "_secondary_chain", chain_spy):
+        st = frame.render_samples(scene, uni, RenderState.create(
+            static.width, static.height, dev), static, 1)
+    return rows, st
+
+
+def s2_fork_check(kept, depth, n, label):
+    """A kept s2 launch with the fork-state export against its plain
+    version: the fork state bit-equal (and, before the roulette's depths,
+    equal to the carry state s2 commits), carry and chain within 1e-4 as
+    at the headline's depths; returns the largest carry or chain
+    difference."""
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+
+    (chain, fork), ck = k2_once(kept, "s2", depth)
+    (chain_p, fork_p), cp = k2_once(kept, "s2", depth, S.shade_s2_reference)
+    torch.cuda.synchronize()
+    build.check_planes("K2 s2", chain, n, len(S.CHAIN))
+    if fork.dtype != torch.int64 or not torch.equal(fork, fork_p):
+        bad = int((fork != fork_p).sum())
+        raise AssertionError(f"{label}: s2's fork state differs from its "
+                             f"plain version on {bad} lanes")
+    if depth < 5 and not torch.equal(fork, ck.state):
+        raise AssertionError(f"{label}: the fork state differs from the "
+                             "committed state before the roulette's depths")
+    differ, err = carry_error(ck, cp, n)
+    err = max(err, float(((chain - chain_p).abs()
+                          / chain_p.abs().clamp_min(1.0)).max()))
+    if differ > 1e-4 * n or not err <= 1e-4:
+        raise AssertionError(f"{label}: K2 s2 with the fork export disagrees "
+                             f"with its plain version: {differ} lanes, err "
+                             f"{err}")
+    return err
+
+
+def cli_run(args, kernels, label, card):
+    """The port's CLI in this process with the launch counts reset just
+    before: (linear image of its EXR, launches, wall seconds, the CLI's
+    own "Rendered" line)."""
+    import io
+
+    from metal_pathtracer_tpu_torch import cli
+    from metal_pathtracer_tpu_torch.utils import image_io
+
+    output = args[args.index("--output") + 1]
+    reset_launches(kernels)
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    said = [line for line in buf.getvalue().splitlines()
+            if line.startswith("Rendered")]
+    if rc != 0 or not said:
+        raise AssertionError(f"{label}: the CLI failed ({rc}): "
+                             f"{buf.getvalue()}")
+    ch = image_io.read_exr(output)
+    img = np.stack([ch["R"], ch["G"], ch["B"]], -1)
+    if not (np.isfinite(img).all() and img.max() > 0.0):
+        raise AssertionError(f"{label}: image is not finite and non-zero")
+    print(f"{label}: {said[0]}, {wall:.2f}s of wall time with the scene's "
+          f"set-up, mean {float(img.mean()):.4f}, launches {launches} "
+          f"[{card}]")
+    return img, launches, wall, said[0]
+
+
+def mnee_path(dev, card, kernels, out):
+    """Phase 7, MNEE's delta chains: the headline with MNEE on (the glass
+    icosphere under the HDR sun) at 160x96 2 spp through the kernels
+    against the plain path and at 1920x1080 d8 timed, its MNEE-eligible
+    and secondary-chain lanes per depth and its ray counts with the chain
+    traces, K2 s2's fork-state export bit for bit against its plain
+    version at depths 0 and 1 in both instantiations (the base on the
+    headline, the extended on the Cornell box with a plastic sphere), the
+    Cornell box with ``--enableMnee 1`` through the CLI at 512x512 d8,
+    and ``test_mnee_chain_rmse``'s scene through the CLI on the card and
+    on the native oracle at 128x128 64 spp."""
+    import os
+    import tempfile
+
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.renderer import frame, oracle
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    def build(subdivisions):
+        t0 = time.time()
+        settings, res, env = benchscene.build_bench_scene(subdivisions, dev)
+        settings.enableMnee = settings.enableMneeSecondary = True
+        scene = res.build_arrays(environment=env, device=dev)
+        torch.cuda.synchronize()
+        return settings, res, scene, time.time() - t0
+
+    # ---- 160x96 at subdivision 5: the kernels against plain ------
+    marks = [("start", time.time())]
+    settings, res, scene, _ = build(CHECK_SUBDIVISIONS)
+    w, h = CHECK_FRAME
+    static, uni = scene_setup(settings, res, w, h, dev)
+    if not (static.enable_mnee and static.enable_mnee_secondary):
+        raise AssertionError("headline-mnee: MNEE is not on")
+    st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                static, NEW_CHECK_SPP)
+    with plain_kernels():
+        st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                    static, NEW_CHECK_SPP)
+    check_err = image_gate(
+        st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
+        (st_k.ray_count, st_k.shadow_ray_count),
+        (st_p.ray_count, st_p.shadow_ray_count),
+        f"headline-mnee: texture stage + K1 + K2 s1/s2 (fork export) "
+        f"{w}x{h} {NEW_CHECK_SPP}spp kernel vs plain")
+
+    # ---- 1920x1080 d8: one timed sample --------------------------------
+    marks.append(("160x96 check", time.time()))
+    settings, res, scene, setup_s = build(HEADLINE_SUBDIVISIONS)
+    W, H = FRAME
+    n = W * H
+    st, img, secs, launches, peak = timed_render(
+        scene, settings, res, W, H, MNEE_TIMED_SPP, dev, kernels)
+    path = ("trace_closest", "trace_any", "shade_s1", "shade_s2",
+            "texture_stage")
+    if min(launches[k] for k in path) <= 0:
+        raise AssertionError(f"a kernel of the headline-mnee path was not "
+                             f"launched: {launches}")
+    MAIN_LAUNCHES["headline-mnee"] = launches
+    traces = st.ray_count + st.shadow_ray_count
+    print(f"headline-mnee {W}x{H} d8: {MNEE_TIMED_SPP} spp in {secs:.3f}s, "
+          f"{1e3 * secs / MNEE_TIMED_SPP:.2f} ms/spp, "
+          f"{traces / secs / 1e6:.2f} Mrays/s ({st.ray_count} closest + "
+          f"{st.shadow_ray_count} shadow traces), peak {peak / 2**20:.0f} "
+          f"MiB, set-up {setup_s:.1f}s, launches a sample {launches}, mean "
+          f"{float(img.mean()):.4f} [{card}]")
+
+    # ---- the chain lanes per depth, and the ray counts -----------------
+    marks.append(("1080p build and sample", time.time()))
+    static, uni = scene_setup(settings, res, W, H, dev)
+    rows, st1 = mnee_lanes(scene, uni, static, dev)
+    for depth, row in enumerate(rows):
+        print(f"headline-mnee depth {depth}: {row['closest']} closest "
+              f"traces, {row['eligible']} MNEE-eligible lanes, "
+              f"{row['chain']} secondary-chain lanes, chain estimators "
+              f"{row.get('scene', 0)} scene + {row.get('shadow', 0)} shadow "
+              f"traces [{card}]")
+    closest = sum(r["closest"] for r in rows)
+    chain_scene = sum(r.get("scene", 0) for r in rows)
+    eligible = sum(r["eligible"] for r in rows)
+    if st1.ray_count != closest + chain_scene:
+        raise AssertionError(f"headline-mnee: {st1.ray_count} traces counted "
+                             f"against {closest} closest + {chain_scene} "
+                             "chain traces")
+    # no rect light: the chains' scene traces are the secondary chain's
+    if eligible == 0 or chain_scene != eligible \
+            or sum(r["chain"] for r in rows) == 0:
+        raise AssertionError(f"headline-mnee: the secondary chain traced "
+                             f"{chain_scene} rays for {eligible} eligible "
+                             "lanes")
+    print(f"headline-mnee, one sample: {st1.ray_count} traces = {closest} "
+          f"closest + {chain_scene} secondary-chain traces; "
+          f"{st1.shadow_ray_count} shadow traces [{card}]")
+
+    # ---- s2's fork export at depths 0 and 1, timed at depth 0 -----------
+    rows2, kept = frame_loop_k2(scene, uni, static, dev, keep=(0, 1))
+    if not all(kept["s2", d][1].get("fork") for d in (0, 1)):
+        raise AssertionError("headline-mnee: s2 was not asked for the fork "
+                             "state")
+    s2_err = max(s2_fork_check(kept, d, n, f"headline-mnee depth {d}")
+                 for d in (0, 1))
+    args, kw = kept["s2", 0]
+    no_fork = {("s2", 0): (args, {**kw, "fork": False})}
+    fork_ms, fork_win = timed(k2_launch(kept, "s2", 0), 5)
+    plain_ms = cuda_ms(lambda: (lambda c: lambda: S.shade_s2_reference(
+        c, *args[1:], **kw))(clone(args[0])), 2)
+    nofork_ms = kernel_ms(k2_launch(no_fork, "s2", 0), 5)
+    b, by, _ = s2_bounds(n, rows2[0]["s2_live"], args[11], args[0], args[2],
+                         fork=True)
+    b_off, _, _ = s2_bounds(n, rows2[0]["s2_live"], args[11], args[0],
+                            args[2])
+    print(f"headline-mnee depth 0 ({rows2[0]['s2_live']} lanes into s2): K2 "
+          f"s2 with the fork export {fork_ms:.4f} / {fork_win:.4f} ms "
+          f"(plain {plain_ms:.1f} ms, bound {b:.4f} ms by {by}), without "
+          f"it {nofork_ms:.4f} ms (bound {b_off:.4f}); fork state bit-equal "
+          f"to the plain version at depths 0 and 1, carry and chain err "
+          f"{s2_err:.2e} [{card}]")
+
+    # ---- the extended instantiation's export: Cornell + plastic ---------
+    marks.append(("chain lanes and the export", time.time()))
+    mirror = "type=metal albedo=0.95,0.95,0.95 roughness=0.02"
+    text = benchscene.cornell_scene_text()
+    if mirror not in text:
+        raise AssertionError("cornell.scene has no mirror line to replace")
+    text = text.replace(mirror,
+                        "type=plastic color=0.2,0.4,0.8 coatRoughness=0.1")
+    ps, pr = RenderSettings(), SceneResources()
+    dsl.parse_scene(text, ps, pr)
+    ps.enableMnee = True
+    cscene = pr.build_arrays(device=dev)
+    cw, ch = benchscene.CORNELL_FRAME
+    cstatic, cuni = scene_setup(ps, pr, cw, ch, dev)
+    _, ckept = frame_loop_k2(cscene, cuni, cstatic, dev, keep=(0, 1))
+    if not ckept["s2", 0][0][9].extended:
+        raise AssertionError("cornell-plastic-mnee: not the extended "
+                             "instantiation")
+    ext_err = max(s2_fork_check(ckept, d, cw * ch,
+                                f"cornell-plastic-mnee depth {d}")
+                  for d in (0, 1))
+    print(f"cornell-plastic-mnee {cw}x{ch}: the extended s2's fork state "
+          f"bit-equal to its plain version at depths 0 and 1, carry and "
+          f"chain err {ext_err:.2e} [{card}]")
+
+    out["shade_s2_mnee"] = dict(
+        source=ROOT + "shade.cu",
+        replaces="metal_pathtracer_tpu/ops/pallas/shade.py:1845",
+        launches=launches["shade_s2"],
+        max_abs_err=max(check_err, s2_err, ext_err), ms=fork_ms,
+        plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+    # ---- cornell-mnee through the CLI; the oracle's MNEE scene ---------
+    marks.append(("the extended export", time.time()))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_run(["--scene", str(benchscene.CORNELL_PATH), "--width",
+                 str(cw), "--height", str(ch), "--sppTotal",
+                 str(MNEE_CORNELL_SPP), "--maxDepth", "8", "--enableMnee",
+                 "1", "--backend", "metal", "--output",
+                 os.path.join(tmp, "cornell_mnee.exr")], kernels,
+                f"cornell-mnee {cw}x{ch} d8 --enableMnee 1 --backend metal",
+                card)
+        launches_c = {k: fn.launches for k, fn in kernels.items()}
+        for k in ("sphere_nearest_brute", "rect_nearest", "shade_s1",
+                  "shade_s2"):
+            if launches_c[k] <= 0:
+                raise AssertionError(f"cornell-mnee: {k} was not launched")
+        MAIN_LAUNCHES["cornell-mnee"] = launches_c
+        card_img, oracle_img = oracle_renders(tmp, card, ORACLE_MNEE,
+                                              "oracle_mnee")
+        diff = abs(float(card_img.mean()) - float(oracle_img.mean()))
+        print(f"the card against the native oracle, test_mnee_chain_rmse's "
+              f"scene at {ORACLE_FRAME[0]}x{ORACLE_FRAME[1]} {ORACLE_SPP} "
+              f"spp through the CLI: RMSE "
+              f"{oracle.rmse(card_img, oracle_img):.3e}, means within "
+              f"{diff:.3e} (means gate {ORACLE_MNEE_MEAN}) [{card}]")
+        if not diff < ORACLE_MNEE_MEAN:
+            raise AssertionError("the card's MNEE render's mean is off the "
+                                 "oracle's")
+        marks.append(("cornell-mnee and the oracle at 64 spp", time.time()))
+        # the card against the plain path on the CPU, and both against
+        # the oracle, at fewer samples
+        spp = ORACLE_MNEE_CHECK_SPP
+        imgs = {}
+        for backend in ("metal", "cpu-torch", "oracle"):
+            imgs[backend] = cli_run(
+                ["--scene", os.path.join(tmp, "oracle_mnee.scene"),
+                 "--width", str(ORACLE_FRAME[0]), "--height",
+                 str(ORACLE_FRAME[1]), "--sppTotal", str(spp), "--backend",
+                 backend, "--output",
+                 os.path.join(tmp, f"mnee_check_{backend}.exr")], kernels,
+                f"test_mnee_chain_rmse's scene {spp} spp --backend "
+                f"{backend}", card)[0]
+        d = np.abs(imgs["metal"] - imgs["cpu-torch"])
+        rmse = oracle.rmse(imgs["metal"], imgs["cpu-torch"])
+        within = float((d.max(-1) < 1e-5).mean())
+        gap, plain_gap = (oracle.rmse(imgs[k], imgs["oracle"])
+                          for k in ("metal", "cpu-torch"))
+        print(f"test_mnee_chain_rmse's scene at {ORACLE_FRAME[0]}x"
+              f"{ORACLE_FRAME[1]} {spp} spp: the card against the plain "
+              f"path on the CPU RMSE {rmse:.3e}, {within:.5f} of pixels "
+              f"within 1e-5; against the oracle {gap:.3e}, the plain "
+              f"path's {plain_gap:.3e} [{card}]")
+        if not (rmse < IMAGE_GATE["max_rmse"]
+                and within > IMAGE_GATE["min_within_1e5"]
+                and abs(gap - plain_gap) <= 1e-2 * plain_gap + 1e-7):
+            raise AssertionError("the card's MNEE render is off the plain "
+                                 "path's")
+    marks.append(("the plain-path check", time.time()))
+    print("# MNEE phase: " + ", ".join(
+        f"{name} {t - marks[k][1]:.1f}s"
+        for k, (name, t) in enumerate(marks[1:])))
+
+
+# ---- phase 8: mesh files -----------------------------------------------------
+
+#: samples of the mesh-files render through the CLI
+MESH_FILES_SPP = 4
+
+
+def mesh_files_path(dev, card, kernels, out):
+    """Phase 8, the mesh loaders: the headline's meshes written as PLY,
+    OBJ and GLB files and a ``.scene`` of ``mesh`` records, loaded (the
+    PLY and OBJ triangles, normals and UVs against the in-memory meshes
+    bit for bit, MikkTSpace tangents, the resampled texture), rendered at
+    160x96 2 spp (subdivision 5) through the kernels against the plain
+    path, and at 1920x1080 d8 through the CLI with ``--backend metal``,
+    its set-up seconds (parse, SAH and atlas) beside its ms/spp."""
+    import os
+    import tempfile
+
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.textures import build_texture_arrays
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.scene import dsl, tangent
+    from metal_pathtracer_tpu_torch.scene.obj import transform_mesh
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    from metal_pathtracer_tpu_torch.utils import meshfiles
+
+    def load(path):
+        settings, res = RenderSettings(), SceneResources()
+        t0 = time.time()
+        dsl.load_scene_file(path, settings, res)
+        t1 = time.time()
+        env = env_ops.load_environment(settings.environmentMapPath, dev)
+        t2 = time.time()
+        scene = res.build_arrays(environment=env, device=dev)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        build_texture_arrays(res.texture_images, res.texture_srgb,
+                             res.texture_wrap, device=dev)
+        torch.cuda.synchronize()
+        times = dict(parse=t1 - t0, sky=t2 - t1, build=t3 - t2,
+                     atlas=time.time() - t3)
+        return settings, res, scene, times
+
+    t_start = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 160x96 at subdivision 5: the kernels against plain --
+        small = os.path.join(tmp, "check")
+        os.mkdir(small)
+        path, _ = meshfiles.write_headline_files(small, CHECK_SUBDIVISIONS,
+                                                 dev)
+        settings, res, scene, _ = load(path)
+        w, h = CHECK_FRAME
+        static, uni = scene_setup(settings, res, w, h, dev)
+        st_k = frame.render_samples(scene, uni,
+                                    RenderState.create(w, h, dev), static,
+                                    NEW_CHECK_SPP)
+        with plain_kernels():
+            st_p = frame.render_samples(scene, uni,
+                                        RenderState.create(w, h, dev),
+                                        static, NEW_CHECK_SPP)
+        check_err = image_gate(
+            st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
+            (st_k.ray_count, st_k.shadow_ray_count),
+            (st_p.ray_count, st_p.shadow_ray_count),
+            f"mesh-files: texture stage + K1 + K2 s1/s2 {w}x{h} "
+            f"{NEW_CHECK_SPP}spp kernel vs plain")
+
+        # ---- the full-size files: loaded and checked ---------------------
+        check_s = time.time() - t_start
+        t0 = time.time()
+        path, meshes = meshfiles.write_headline_files(
+            tmp, HEADLINE_SUBDIVISIONS, dev)
+        write_s = time.time() - t0
+        sizes = {f: os.path.getsize(os.path.join(tmp, f)) for f in
+                 ("dragon.ply", "glass.obj", "props.glb")}
+        settings, res, scene, times = load(path)
+        for k, (got, want) in enumerate(zip(res.meshes[:2], meshes[:2])):
+            _, nrm = transform_mesh(want.vertices, want.normals, np.eye(4))
+            for label, a, b in (
+                    ("triangles", got.vertices[got.indices],
+                     want.vertices[want.indices]),
+                    ("UVs", got.uv0[got.indices], want.uv0[want.indices]),
+                    ("normals", got.normals[got.indices],
+                     nrm[want.indices])):
+                if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                    raise AssertionError(f"mesh-files: the {got.name} "
+                                         f"{label} differ from the "
+                                         "in-memory mesh")
+        # MikkTSpace made the GLB meshes' tangents; on the sphere they
+        # differ from the fallback's (on the flat ground they coincide)
+        differ = []
+        for m in res.meshes[2:]:
+            mikkt = tangent.generate_tangents_mikktspace(
+                m.vertices, m.normals, m.uv0, m.indices)
+            if mikkt is None or not np.array_equal(m.tangents, mikkt):
+                raise AssertionError(f"mesh-files: {m.name}'s tangents are "
+                                     "not MikkTSpace's")
+            differ.append(not np.array_equal(
+                m.tangents, tangent.generate_tangents_fallback(
+                    m.vertices, m.normals, m.uv0, m.indices)))
+        if not differ[0]:
+            raise AssertionError("mesh-files: the checker sphere's tangents "
+                                 "are the fallback's")
+        tex = scene.textures
+        sizes_tex = [(int(tex.level_w[k, 0]), int(tex.level_h[k, 0]))
+                     for k in range(len(res.texture_images))]
+        if [im.shape[:2] for im in res.texture_images] != \
+                [(512, 512), (120, 200)] or sizes_tex[1] != (256, 128):
+            raise AssertionError(f"mesh-files: textures {sizes_tex}")
+        print(f"mesh-files: {scene.triangles.count} triangles from "
+              f"{sizes} bytes of files (written in {write_s:.1f}s); the PLY "
+              f"and OBJ triangles and UVs bit-equal to the in-memory "
+              f"meshes, their normals to the in-memory normals renormalised "
+              f"as every mesh record's transform does; the GLB's tangents "
+              f"MikkTSpace's; textures {sizes_tex} (the 200x120 one "
+              f"resampled); set-up: parse {times['parse']:.2f}s, sky "
+              f"{times['sky']:.2f}s, build_arrays (SAH, atlas, upload) "
+              f"{times['build']:.2f}s, of which the atlas alone "
+              f"{times['atlas']:.2f}s [{card}]")
+
+        # ---- 1920x1080 d8 through the CLI --------------------------------
+        checks_s = time.time() - t0
+        W, H = FRAME
+        img, launches, wall, said = cli_run(
+            ["--scene", path, "--width", str(W), "--height", str(H),
+             "--sppTotal", str(MESH_FILES_SPP), "--backend", "metal",
+             "--output", os.path.join(tmp, "mesh_files.exr")], kernels,
+            f"mesh-files {W}x{H} d8 --backend metal", card)
+        for k in ("trace_closest", "trace_any", "shade_s1", "shade_s2",
+                  "texture_stage"):
+            if launches[k] <= 0:
+                raise AssertionError(f"mesh-files: {k} was not launched")
+        MAIN_LAUNCHES["mesh-files"] = launches
+    print(f"# mesh-files phase: 160x96 check {check_s:.1f}s, files written, "
+          f"loaded and checked {checks_s:.1f}s, the CLI render {wall:.1f}s")
+    return check_err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -3036,6 +3565,12 @@ def main() -> None:
     t0 = time.time()
     headless_path(dev, card, kernels, out, headline)
     print(f"# headless and debug phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    mnee_path(dev, card, kernels, out)
+    print(f"# MNEE phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    mesh_files_path(dev, card, kernels, out)
+    print(f"# mesh-files phases took {time.time() - t0:.1f}s")
 
     print("K2 device ms at the earlier phases' first depths, this run "
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"
@@ -3045,7 +3580,7 @@ def main() -> None:
           f"kernels' build included")
     names = [k for k in kernels if k != "shade_full_lanes"] + [
         "shade_full_zoo", "shade_full_buckets_zoo", "shade_s1_zoo",
-        "shade_s2_zoo"]
+        "shade_s2_zoo", "shade_s2_mnee"]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])
         for name in names]}))

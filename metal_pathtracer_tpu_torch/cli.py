@@ -27,7 +27,6 @@ from metal_pathtracer_tpu_torch.renderer.headless import (
     OracleBackend,
     make_backend,
 )
-from metal_pathtracer_tpu_torch.scene import dsl
 from metal_pathtracer_tpu_torch.scene.manager import SceneManager
 from metal_pathtracer_tpu_torch.settings import RenderSettings
 from metal_pathtracer_tpu_torch.utils import image_io
@@ -102,7 +101,9 @@ def main(argv=None) -> int:
             manager.load_scene_from_path(scene_path, settings, resources)
         else:
             manager.load_default_scene(settings, resources)
-    except (dsl.SceneParseError, OSError, NotImplementedError) as exc:
+    except (ValueError, OSError, NotImplementedError) as exc:
+        # a parse error (dsl.SceneParseError), a mesh or image file the
+        # loaders refuse, or a feature not ported yet
         print(f"error: {exc}", file=sys.stderr)
         return 1
 

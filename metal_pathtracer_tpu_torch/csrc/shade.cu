@@ -26,9 +26,12 @@
 //               light sample + shadow flag per light integral (ESMP, 9
 //               columns each, rect first), BSDF sampling from the post-s1
 //               state, the spec-NEE chain exports (CHAIN, plane-major: (7,
-//               n)), medium push/pop (8 clamped slots), next origin,
-//               throughput clamp, environment LOD, ray cone, Russian
-//               roulette at depth >= 5, commit.
+//               n)) and, with MNEE's secondary chain on, the RNG state at
+//               the chain's fork point (an int64 per lane, written after
+//               the sample commits and before the roulette draw,
+//               shade.py:2319-2333), medium push/pop (8 clamped slots),
+//               next origin, throughput clamp, environment LOD, ray cone,
+//               Russian roulette at depth >= 5, commit.
 // A hit is rebuilt from the winner of the merged trace (intersect.py
 // trace_merged): a triangle from its shade_packed row, a sphere or a
 // rectangle from its own arrays (the design choice of this port: the
@@ -836,7 +839,8 @@ __device__ __forceinline__ void s2_lane(
     long long i, int n, const ShadeParams& p, const Geo& g,
     const float* mat_table, int m_count, const float* trans,
     const float* esmp, const float* tex, const float* rw,
-    const long long* rw_state, const Carry& c, float* chain, float* probe) {
+    const long long* rw_state, const Carry& c, float* chain, long long* fork,
+    float* probe) {
   auto tr = [&](int k) { return plane_at(trans, n, i, k); };
   float t = g.t[i];
   V3 ray_d = load3(c.ray_d, i);
@@ -888,6 +892,9 @@ __device__ __forceinline__ void s2_lane(
                        h.front ? 1.0f : 0.0f};
 #pragma unroll
   for (int k = 0; k < N_CHAIN; ++k) chain[(long long)k * n + i] = ch[k];
+  // the fork state: the BSDF sample's commit (lane_sample leaves `s` as
+  // it was on pass-through lanes), before the roulette draw
+  if (fork != nullptr) fork[i] = (long long)s;
 
   int md = medium_update(c, i, smp, m, active);
 
@@ -923,16 +930,19 @@ __device__ __forceinline__ void s2_lane(
 }
 
 // the listing pass: lanes alive after s1 at list[0..counters[0]), the
-// CHAIN planes of every other lane zero
+// CHAIN planes of every other lane zero and its fork state (if asked for)
+// its entry state
 __global__ void __launch_bounds__(LIST_BLOCK) s2_list_kernel(
     int n, const bool* __restrict__ alive, int* __restrict__ counters,
-    int* __restrict__ list, float* __restrict__ chain) {
+    int* __restrict__ list, float* __restrict__ chain,
+    const long long* __restrict__ state, long long* __restrict__ fork) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool live = i < n && alive[i];
   list_append<LIST_BLOCK>(live, i, counters, list);
   if (!live && i < n) {
 #pragma unroll
     for (int k = 0; k < N_CHAIN; ++k) chain[(long long)k * n + i] = 0.0f;
+    if (fork != nullptr) fork[i] = state[i];
   }
 }
 
@@ -942,7 +952,8 @@ __global__ void __launch_bounds__(kBlock) shade_s2_kernel(
     const float* __restrict__ trans, const float* __restrict__ esmp,
     const float* __restrict__ tex, const float* __restrict__ rw,
     const long long* __restrict__ rw_state, Carry c,
-    float* __restrict__ chain, float* __restrict__ probe) {
+    float* __restrict__ chain, long long* __restrict__ fork,
+    float* __restrict__ probe) {
   const int n_live = counters[0];
   for (;;) {
     int k = next_batch(counters + 1);
@@ -950,27 +961,30 @@ __global__ void __launch_bounds__(kBlock) shade_s2_kernel(
     k += threadIdx.x & 31;
     if (k < n_live)
       s2_lane<false>(list[k], n, p, g, mat_table, m_count, trans, esmp,
-                     tex, rw, rw_state, c, chain, probe);
+                     tex, rw, rw_state, c, chain, fork, probe);
   }
 }
 
 // the extended instantiation: one thread per wavefront lane, CHAIN zero
-// on lanes not alive after s1
+// and the fork state (if asked for) the entry state on lanes not alive
+// after s1
 __global__ void __launch_bounds__(kBlock) shade_s2_lanes_kernel(
     int n, ShadeParams p, Geo g, const float* __restrict__ mat_table,
     int m_count, const float* __restrict__ trans,
     const float* __restrict__ esmp, const float* __restrict__ tex,
     const float* __restrict__ rw, const long long* __restrict__ rw_state,
-    Carry c, float* __restrict__ chain, float* __restrict__ probe) {
+    Carry c, float* __restrict__ chain, long long* __restrict__ fork,
+    float* __restrict__ probe) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (!c.alive[i]) {
 #pragma unroll
     for (int k = 0; k < N_CHAIN; ++k) chain[(long long)k * n + i] = 0.0f;
+    if (fork != nullptr) fork[i] = c.state[i];
     return;
   }
   s2_lane<true>(i, n, p, g, mat_table, m_count, trans, esmp, tex, rw,
-                rw_state, c, chain, probe);
+                rw_state, c, chain, fork, probe);
 }
 
 Carry carry_of(void* const* ptrs) {
@@ -1141,6 +1155,8 @@ extern "C" int mpt_shade_s1(int n, int ext, const float* scalars,
   return (int)cudaGetLastError();
 }
 
+// `fork`: the (n,) int64 fork-state output of MNEE's secondary chain,
+// NULL when it is off (then s2 reads and writes what it does without it);
 // `scratch`: n + 2 int32, the list of lanes alive after s1 and its two
 // counters (listed count, fetch position), for the base instantiation;
 // null for the extended one, which takes no list
@@ -1149,8 +1165,8 @@ extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
                             int m_count, const void* trans, const void* esmp,
                             const void* tex, const void* rw,
                             const void* rw_state, void* const* carry,
-                            void* chain, void* probe, void* scratch,
-                            void* stream) {
+                            void* chain, void* fork, void* probe,
+                            void* scratch, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   Carry c = carry_of(carry);
@@ -1159,7 +1175,7 @@ extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
         n, shade_params_of(scalars), geo_of(geo), (const float*)mat_table,
         m_count, (const float*)trans, (const float*)esmp, (const float*)tex,
         (const float*)rw, (const long long*)rw_state, c, (float*)chain,
-        (float*)probe);
+        (long long*)fork, (float*)probe);
     return (int)cudaGetLastError();
   }
   int* sc = (int*)scratch;
@@ -1169,7 +1185,7 @@ extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
     return (int)err;
   }
   s2_list_kernel<<<(n + LIST_BLOCK - 1) / LIST_BLOCK, LIST_BLOCK, 0, st>>>(
-      n, c.alive, sc, sc + 2, (float*)chain);
+      n, c.alive, sc, sc + 2, (float*)chain, c.state, (long long*)fork);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int blocks =
@@ -1178,6 +1194,7 @@ extern "C" int mpt_shade_s2(int n, int ext, const float* scalars,
       sc + 2, sc, n, shade_params_of(scalars), geo_of(geo),
       (const float*)mat_table, m_count, (const float*)trans,
       (const float*)esmp, (const float*)tex, (const float*)rw,
-      (const long long*)rw_state, c, (float*)chain, (float*)probe);
+      (const long long*)rw_state, c, (float*)chain, (long long*)fork,
+      (float*)probe);
   return (int)cudaGetLastError();
 }

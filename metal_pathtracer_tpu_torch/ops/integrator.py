@@ -14,11 +14,11 @@ two depth loops of ``ops/kernels/shade.py``:
   ``light_rect_indices``, emissive-hit MIS) and/or an environment map
   (alias-table NEE, MIS): the merged trace, K2 ``s1``, the light samples
   and their shadow traces (K1 any-hit, K3), the random walk, K2 ``s2``
-  and the spec-NEE estimators (environment and rect lights) per depth.
+  and the spec-NEE and MNEE delta-chain estimators (environment and rect
+  lights; MNEE's secondary chain from s2's fork-state export) per depth.
 
 ``debugSpecularOnly`` runs through K2 (a runtime flag of every stage).
-MNEE raises ``NotImplementedError`` naming its ROADMAP item (instances
-raise where a scene adds one).
+Mesh instances raise where a scene adds one.
 """
 
 from __future__ import annotations
@@ -138,9 +138,6 @@ def rect_nee(scene: SceneArrays) -> bool:
 
 def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
     """Raise NotImplementedError for configurations not ported yet."""
-    if static.enable_mnee:
-        raise NotImplementedError(
-            "MNEE chains: ROADMAP Queue 1, MNEE (spec-NEE is ported)")
     if scene.n_triangles + scene.n_spheres + scene.n_rects == 0:
         raise NotImplementedError("a scene without any primitive")
 

@@ -79,9 +79,11 @@ SIGNATURES = {
     # plane (NULL without a probe), stream
     "mpt_shade_s1": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
                      _vp, _vp, _vp, _vp],
-    # s2 also takes the live-lane list's scratch before the stream
+    # s2 also takes its fork-state output (NULL: MNEE's secondary chain
+    # off) after the output, and the live-lane list's scratch before the
+    # stream
     "mpt_shade_s2": [_i, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp,
-                     _vp, _vp, _vp, _vp, _vp],
+                     _vp, _vp, _vp, _vp, _vp, _vp],
     # n, scalars (host float[]), t tri u v, texture material table, its row
     # count, carry / triangle attribute / atlas pointers (host void*[]),
     # texture count, levels per texture, output planes, stream

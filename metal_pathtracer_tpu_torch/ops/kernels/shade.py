@@ -612,7 +612,7 @@ def pack_material_table(materials) -> torch.Tensor:
 def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
             inputs, out_cols, params: ShadeParams, depth: int, n_banks=0,
             probe=None, plane_inputs=(), plane_out=False, listed=False,
-            scratch=None, lead=()):
+            scratch=None, lead=(), extra_out=()):
     """Check, then launch ``mpt_<name>`` (the instantiation that
     ``params.material_types`` needs) with the stage ``inputs`` (device
     tensors or None; those at the positions ``plane_inputs`` names are
@@ -620,8 +620,10 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
     the material table (packed on the first launch for these materials)
     and the probe plane (or None), and, if ``listed``, the stage's
     live-lane list ``scratch`` (a null pointer for None); ``lead``: ints
-    the entry takes after the instantiation flag; returns its (N,
-    out_cols) output, plane-major if ``plane_out`` (None without one)."""
+    the entry takes after the instantiation flag; ``extra_out``: tensors
+    or None (a null pointer) the entry takes after the output (s2's fork
+    state); returns its (N, out_cols) output, plane-major if ``plane_out``
+    (None without one)."""
     dev = t.device
     n = t.shape[0]
     ptrs = _carry_pointers(carry, n, dev, name)
@@ -653,7 +655,8 @@ def _launch(name, carry, t, tri, u, v, triangles, materials, kind, scene,
         build.floats(params.scalars(depth, n_banks)),
         geo, p(mat_table), mat_table.shape[0],
         *[p(x) for x in inputs], build.pointers(ptrs),
-        *([] if out is None else [p(out)]), p(probe),
+        *([] if out is None else [p(out)]),
+        *[p(x) for x in extra_out], p(probe),
         *([p(scratch)] if listed else []),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"mpt_{name}")
@@ -1079,13 +1082,17 @@ def shade_s1_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
 def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                        trans, esmp, params: ShadeParams, depth: int,
                        tex=None, kind=None, scene=None, rw=None,
-                       rw_state=None, probe=None):
+                       rw_state=None, probe=None, fork=False):
     """Plain PyTorch K2 stage s2 (``_shade_kernel`` stage "s2",
     integrator body :461-716). ``esmp`` holds one 9-column bank per light
     integral, rect first; ``rw``/``rw_state`` the random-walk override
     planes and states (``RW``). Updates ``carry`` in place and returns the
     (N,7) chain exports as a view of plane-major (7, N) storage, the
-    kernel's layout, zero off the lanes alive on entry."""
+    kernel's layout, zero off the lanes alive on entry; with ``fork``,
+    (chain, fork state): the (N,) int64 RNG state at the chain's fork
+    point (``shade.py:2319-2333``, ``chain_state``), after the BSDF
+    sample commits and before the roulette draw, the entry state on the
+    lanes not alive on entry."""
     alive0 = carry.alive.clone()    # after s1: the live hits
     active = alive0
     sn = trans[:, 4:7]
@@ -1157,6 +1164,7 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
     cone_width, cone_spread = _cone_update(carry, t, smp, active)
     last_pdf = torch.where(smp.directional_pdf > 0.0, smp.directional_pdf,
                            smp.pdf)
+    fork_state = state
     state, throughput, active = _roulette(params, depth, state, throughput,
                                           max_tp, active, passthrough)
 
@@ -1186,7 +1194,8 @@ def shade_s2_reference(carry: PathCarry, t, tri, u, v, triangles, materials,
                                            carry.env_lod_active))
     carry.cone_width.copy_(cone_width)
     carry.cone_spread.copy_(cone_spread)
-    return torch.where(h, chain, 0.0).t()
+    chain = torch.where(h, chain, 0.0).t()
+    return (chain, fork_state) if fork else chain
 
 
 def _check_tex(name, tex, n):
@@ -1223,20 +1232,22 @@ def shade_s1(carry: PathCarry, t, tri, u, v, triangles, materials, envbg,
 
 def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
              esmp, params: ShadeParams, depth: int, tex=None, kind=None,
-             scene=None, rw=None, rw_state=None, probe=None):
+             scene=None, rw=None, rw_state=None, probe=None, fork=False):
     """Stage s2, in place on ``carry``; returns the (N,7) chain exports,
-    plane-major (zero on lanes that were not live hits). ``trans``: s1's
-    plane-major transients; ``esmp``: one 9-column bank per light
-    integral, rect first; ``rw``/``rw_state`` the random-walk override,
-    ``probe`` the probe plane. CPU tensors take the plain version; CUDA
-    tensors launch K2 s2: the base instantiation after its listing pass
-    (the lanes alive after s1; the chain zeros of the others) over the
-    listed lanes, the extended one a thread per lane."""
+    plane-major (zero on lanes that were not live hits), and with
+    ``fork`` (MNEE's secondary chain) also the (N,) int64 fork state
+    (``shade_s2_reference``). ``trans``: s1's plane-major transients;
+    ``esmp``: one 9-column bank per light integral, rect first;
+    ``rw``/``rw_state`` the random-walk override, ``probe`` the probe
+    plane. CPU tensors take the plain version; CUDA tensors launch K2 s2:
+    the base instantiation after its listing pass (the lanes alive after
+    s1; the chain zeros and, with ``fork``, the entry states of the
+    others) over the listed lanes, the extended one a thread per lane."""
     dev = t.device
     if dev.type == "cpu":
         return shade_s2_reference(carry, t, tri, u, v, triangles, materials,
                                   trans, esmp, params, depth, tex, kind,
-                                  scene, rw, rw_state, probe)
+                                  scene, rw, rw_state, probe, fork)
     if dev.type != "cuda":
         raise ValueError(f"shade_s2: unsupported device {dev}")
     _check_tex("shade_s2", tex, t.shape[0])
@@ -1244,14 +1255,17 @@ def shade_s2(carry: PathCarry, t, tri, u, v, triangles, materials, trans,
     if esmp.shape[1] not in (len(ESMP), 2 * len(ESMP)):
         raise ValueError("shade_s2: esmp holds one or two banks")
     build.check_planes("shade_s2", trans, t.shape[0], len(TRANS))
+    fork_state = torch.empty(t.shape[0], dtype=torch.int64, device=dev) \
+        if fork else None
     out = _launch("shade_s2", carry, t, tri, u, v, triangles, materials,
                   kind, scene, [trans, esmp.contiguous(), tex, rw, rw_state],
                   len(CHAIN), params, depth, esmp.shape[1] // len(ESMP),
                   probe=probe, plane_inputs=(0, 2), plane_out=True,
                   listed=True, scratch=None if params.extended
-                  else build.list_scratch(t.shape[0], dev))
+                  else build.list_scratch(t.shape[0], dev),
+                  extra_out=(fork_state,))
     shade_s2.launches += 1
-    return out
+    return (out, fork_state) if fork else out
 
 
 #: K2 s1/s2 launches since the last reset
@@ -1332,6 +1346,24 @@ def light_banks(scene, uniforms, static, trans, t, tex=None):
     return torch.cat(banks, 1), shadow
 
 
+def hit_material(scene, idx, kind, materials):
+    """The material type of each lane's hit from its (kind, index): a
+    triangle's, a sphere's or a rectangle's material (``kind`` None:
+    every hit is a triangle); misses read material 0."""
+    mat = torch.zeros_like(idx)
+    for family, count, prims in (
+            (C.PRIMITIVE_TRIANGLE, scene.n_triangles, scene.triangles),
+            (C.PRIMITIVE_SPHERE, scene.n_spheres, scene.spheres),
+            (C.PRIMITIVE_RECTANGLE, scene.n_rects, scene.rects)):
+        if not count or (kind is None and family != C.PRIMITIVE_TRIANGLE):
+            continue
+        lanes = idx >= 0 if kind is None else kind == family
+        own = prims.material[torch.clamp(idx, 0, count - 1).long()]
+        mat = torch.where(lanes, own, mat)
+    return materials.mat_type[torch.clamp(mat, 0, materials.count - 1)
+                              .long()]
+
+
 def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
     """The depth loop under one or two light integrals (``trace_paths_fused``
     's NEE branch, ``shade.py:3165-3351``): the merged trace, in a textured
@@ -1360,6 +1392,8 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
     tex_params = TexParams.of(uniforms, static, scene.textures) \
         if textured else None
     rot = uniforms.environment_rotation
+    # MNEE's secondary chain samples from s2's fork-state export
+    fork = static.enable_mnee and static.enable_mnee_secondary
     rays = 0
     dev = carry.ray_o.device
     shadow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1407,14 +1441,20 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
         chain = shade_s2(carry, t, idx, u, v, scene.triangles,
                          scene.materials, trans, esmp, params, depth, tex,
                          kind=kind, scene=scene, rw=rw, rw_state=rw_state,
-                         probe=plane)
+                         probe=plane, fork=fork)
+        chain, fork_state = chain if fork else (chain, None)
 
-        # ---- spec-NEE: the lights through the delta bounce --------------
+        # ---- spec-NEE and MNEE: the lights through the delta bounce -----
+        # (``_apply_delta_chains``, shade.py:2780-2822)
+        dielectric = hit_material(scene, idx, kind, mats) \
+            == C.MATERIAL_DIELECTRIC if static.enable_mnee else None
         add, n_scene, n_shadow = specnee.delta_chain_estimators(
             scene, uniforms, static, params.clamp, throughput_s1,
             carry.ray_d, carry.last_delta, chain[:, 0:3],
             chain[:, CHAIN_IDX["dpdf"]], chain[:, CHAIN_IDX["medev"]],
-            carry.ray_o, chain[:, CHAIN_IDX["active"]] > 0.5)
+            carry.ray_o, chain[:, CHAIN_IDX["active"]] > 0.5,
+            chain[:, CHAIN_IDX["front"]] > 0.5, trans[:, 4:7],
+            carry.specular_depth, fork_state, dielectric)
         carry.radiance.add_(add)
         shadow = shadow + n_shadow
         chain_rays = chain_rays + n_scene

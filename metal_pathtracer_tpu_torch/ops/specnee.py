@@ -1,12 +1,18 @@
-"""Specular-NEE delta-chain estimators (``ops/specnee.py`` twin, MNEE
-off).
+"""Specular-NEE and MNEE delta-chain estimators (``ops/specnee.py``
+twin).
 
 After a delta bounce (a dielectric, a mirror, or smooth PBR), the
 reference traces one more ray along the sampled direction and adds the
 light seen through it with MIS against the delta lobe's pdf (reference:
 shaders/pathtrace.metal:6770-7235): the environment through a shadow ray,
-and an emissive rectangle through a closest-hit trace of the scene. MNEE
-(and its secondary chain) is ROADMAP Queue 1's MNEE item.
+and an emissive rectangle through a closest-hit trace of the scene. With
+MNEE on, the delta dielectric lanes at the first delta bounce of a run
+(``mneeEligible``) take these primary estimators in place of spec-NEE,
+and, with its secondary chain on, trace the scene along that direction,
+sample the delta surface they reach from a copy of the RNG state at the
+fork point and run both estimators again from there. Despite the name
+this is specular-chain NEE, not a manifold walk (SURVEY.md section 2.2);
+the port replicates the implemented behaviour.
 """
 
 from __future__ import annotations
@@ -22,10 +28,17 @@ from metal_pathtracer_tpu_torch.ops.integrator import (
     rect_nee,
 )
 from metal_pathtracer_tpu_torch.ops.intersect import (
+    offset_ray_origin,
     trace_occluded,
     trace_scene,
 )
-from metal_pathtracer_tpu_torch.ops.vecmath import dot, fdiv, safe_normalize
+from metal_pathtracer_tpu_torch.ops.vecmath import (
+    dot,
+    fdiv,
+    normalize,
+    safe_normalize,
+    where3,
+)
 
 PDF_FLOOR = 1.0e-4       # kSpecularNeePdfFloor (pathtrace.metal:38)
 INV_PDF_CLAMP = 1.0e4    # kSpecularNeeInvPdfClamp (pathtrace.metal:39)
@@ -72,57 +85,158 @@ def rect_hit_light(scene, uniforms, static, rec, origin):
 
 def delta_chain_estimators(scene, uniforms, static, clamp_p, throughput,
                            direction, is_delta, weight, directional_pdf,
-                           medium_event, next_origin, active):
-    """The spec-NEE contributions of this bounce (``specnee.py:63-151``
-    with MNEE off): the environment estimator when an environment map
-    lights the scene, then the rect-light estimator when rectangles emit.
+                           medium_event, next_origin, active, front_face,
+                           shading_normal, specular_depth, state,
+                           is_dielectric):
+    """The spec-NEE and MNEE contributions of this bounce
+    (``specnee.py:63-209``): the primary estimators on the spec-NEE and
+    MNEE lanes, the environment's when an environment map lights the
+    scene, then the rect lights' when rectangles emit; then, with MNEE's
+    secondary chain on, the chain trace and both estimators again from
+    the delta surface it reaches.
 
     ``direction``/``is_delta``/``weight``/``directional_pdf``/
     ``medium_event`` describe the BSDF sample just taken, ``next_origin``
     the offset origin of the next ray, ``throughput`` the path throughput
-    before that sample's weight, ``active`` the lanes that sampled. The
-    RNG state is not read: the reference forks a copy only for the MNEE
-    secondary chain. Returns (radiance (N,3), scene traces, shadow
-    traces), the counts as 0-dim tensors."""
-    if static.enable_mnee:
-        raise NotImplementedError("MNEE chains: ROADMAP Queue 1, MNEE")
+    before that sample's weight, ``active`` the lanes that sampled,
+    ``front_face`` the side the sample was taken on, ``shading_normal``
+    the normal it was taken about, ``specular_depth`` the run of delta
+    bounces including this one, ``is_dielectric`` the lanes whose hit
+    material is a dielectric (these four are read with MNEE on only).
+    ``state`` is the RNG state at the fork point, read only: the
+    secondary chain samples from a copy of it (pathtrace.metal:7113); it
+    may be None when the secondary chain is off. Returns (radiance (N,3),
+    scene traces, shadow traces), the counts as 0-dim tensors: every lane
+    a chain traces counts, before any hit test."""
     radiance = torch.zeros_like(next_origin)
     n_scene = torch.zeros((), dtype=torch.int64, device=active.device)
     n_shadow = torch.zeros((), dtype=torch.int64, device=active.device)
     use_env, use_rect = env_nee(scene, static), rect_nee(scene)
-    if not static.enable_specular_nee or not (use_env or use_rect):
+    if not (static.enable_specular_nee or static.enable_mnee) \
+            or not (use_env or use_rect):
         return radiance, n_scene, n_shadow
     dir_valid = (dot(direction, direction) > 0.0) \
         & torch.isfinite(direction).all(-1)
-    lanes = active & is_delta & (medium_event <= 0) & dir_valid
+    mnee = torch.zeros_like(active)
+    if static.enable_mnee:
+        # didTransmission (reference: pathtrace.metal:6727-6738), then
+        # mneeEligible (:6777-6782)
+        side = torch.where(front_face, 1.0, -1.0)
+        did_transmission = is_dielectric & is_delta \
+            & (dot(shading_normal, direction) * side < 0.0)
+        mnee = is_delta & ((medium_event <= 0) | did_transmission) \
+            & is_dielectric & (specular_depth == 1) & dir_valid
+    spec = torch.zeros_like(active)
+    if static.enable_specular_nee:
+        spec = is_delta & (medium_event <= 0) & dir_valid & ~mnee
     nee_dir = safe_normalize(direction)
-    lane_tmax = torch.where(lanes, C.INFINITY_T, 0.0)
 
-    def add(contribution, ok):
-        clamped = bsdf_ops.clamp_firefly_contribution(throughput,
-                                                      contribution, clamp_p)
+    def add(contribution, ok, tp):
+        clamped = bsdf_ops.clamp_firefly_contribution(tp, contribution,
+                                                      clamp_p)
         return torch.where((ok & torch.isfinite(contribution).all(-1))[:, None],
                            clamped, 0.0)
 
-    if use_env:
+    def env_estimator(lanes, origin, ray_dir, w, bsdf_pdf, tp):
         env = scene.environment
-        occluded = trace_occluded(next_origin, nee_dir, scene, C.EPSILON_T,
-                                  lane_tmax)
-        factor = _mis(env_ops.environment_pdf(env, nee_dir,
+        occluded = trace_occluded(origin, ray_dir, scene, C.EPSILON_T,
+                                  torch.where(lanes, C.INFINITY_T, 0.0))
+        factor = _mis(env_ops.environment_pdf(env, ray_dir,
                                               uniforms.environment_rotation),
-                      directional_pdf)
+                      bsdf_pdf)
         env_color = env_ops.environment_color(
-            env, nee_dir, uniforms.environment_rotation,
+            env, ray_dir, uniforms.environment_rotation,
             uniforms.environment_intensity, static)
-        radiance = radiance + add(weight * env_color * factor[:, None],
-                                  lanes & ~occluded)
-        n_shadow = n_shadow + lanes.sum(dtype=torch.int64)
-    if use_rect:
-        hit = trace_scene(next_origin, nee_dir, scene, C.EPSILON_T, lane_tmax)
+        return add(w * env_color * factor[:, None], lanes & ~occluded, tp)
+
+    def rect_estimator(lanes, origin, ray_dir, w, bsdf_pdf, tp):
+        hit = trace_scene(origin, ray_dir, scene, C.EPSILON_T,
+                          torch.where(lanes, C.INFINITY_T, 0.0))
         emission, pdf, valid = rect_hit_light(scene, uniforms, static, hit,
-                                              next_origin)
-        factor = _mis(pdf, directional_pdf)
-        radiance = radiance + add(weight * emission * factor[:, None],
-                                  lanes & hit.hit & valid)
-        n_scene = n_scene + lanes.sum(dtype=torch.int64)
+                                              origin)
+        factor = _mis(pdf, bsdf_pdf)
+        return add(w * emission * factor[:, None], lanes & hit.hit & valid,
+                   tp)
+
+    def estimators(lanes, origin, ray_dir, w, bsdf_pdf, rows=None):
+        """Both estimators on ``lanes``, over the whole wavefront or (with
+        ``rows``, the wavefront's lane of each entry) a subset of it; each
+        contribution is added as the reference adds it, environment
+        first."""
+        nonlocal radiance, n_scene, n_shadow
+        tp = throughput if rows is None else throughput[rows]
+        count = lanes.sum(dtype=torch.int64)
+        for on, estimator in ((use_env, env_estimator),
+                              (use_rect, rect_estimator)):
+            if not on:
+                continue
+            got = estimator(lanes, origin, ray_dir, w, bsdf_pdf, tp)
+            if rows is None:
+                radiance = radiance + got
+            else:
+                radiance = radiance.index_put((rows,), radiance[rows] + got)
+        if use_env:
+            n_shadow = n_shadow + count
+        if use_rect:
+            n_scene = n_scene + count
+
+    estimators(active & (spec | mnee), next_origin, nee_dir, weight,
+               directional_pdf)
+    if static.enable_mnee and static.enable_mnee_secondary:
+        chain = active & mnee
+        n_scene = n_scene + chain.sum(dtype=torch.int64)
+        # the secondary chain runs on its own lanes only (a few percent of
+        # the wavefront; one host sync for their count): every step is
+        # per lane, so the subset gives each lane what the whole
+        # wavefront would
+        rows = torch.nonzero(chain).squeeze(1)
+        if rows.numel():
+            estimators(*_secondary_chain(
+                scene, uniforms, static, clamp_p, next_origin[rows],
+                nee_dir[rows], weight[rows], directional_pdf[rows],
+                state[rows], use_rect), rows=rows)
     return radiance, n_scene, n_shadow
+
+
+def _secondary_chain(scene, uniforms, static, clamp_p, origin, nee_dir,
+                     weight, directional_pdf, state, use_rect):
+    """MNEE's secondary chain up to its estimators (``specnee.py:153-
+    200``; reference: pathtrace.metal:7060-7232), on the chain's lanes
+    only: trace the scene from the delta surface along ``nee_dir``; where
+    the ray reaches a delta surface that is not an emissive rectangle,
+    sample its BSDF from a copy of ``state`` about the geometric normal
+    ((0, 1, 0) where that is not finite and non-zero). Returns the
+    estimators' arguments: the lanes whose sample is a delta lobe
+    without a medium event, its offset origin and direction, the product
+    of both weights and of both pdfs (floored at ``PDF_FLOOR``)."""
+    rec = trace_scene(origin, nee_dir, scene, C.EPSILON_T, C.INFINITY_T)
+    if use_rect:
+        hit_is_light = rect_hit_light(scene, uniforms, static, rec,
+                                      origin)[2]
+    else:
+        hit_is_light = torch.zeros_like(rec.hit)
+    mats = scene.materials
+    m2 = bsdf_ops.gather_material(
+        mats, torch.clamp(rec.material, 0, mats.count - 1))
+    ok = rec.hit & ~hit_is_light & bsdf_ops.material_is_delta(m2)
+    normal = rec.normal
+    bad = ~torch.isfinite(normal).all(-1) | (dot(normal, normal) <= 0.0)
+    up = torch.tensor([0.0, 1.0, 0.0], device=normal.device)
+    normal = normalize(where3(bad, up.expand_as(normal), normal))
+    incident = normalize(nee_dir)
+    # only the material types of the lanes that go on are sampled (one
+    # host sync): every type's sampler runs over all lanes, and the other
+    # lanes' samples are never read
+    types = [t for t in torch.unique(m2.mat_type[ok]).tolist()
+             if t in static.material_types]
+    _, smp = bsdf_ops.sample_bsdf(
+        m2, normal, -incident, incident, rec.front_face, state, clamp_p,
+        torch.ones_like(rec.t), types, position=rec.point,
+        sss_mode=static.sss_mode, specular_only=static.debug_specular_only)
+    ok = ok & (smp.pdf > 0.0) & smp.is_delta & (smp.medium_event <= 0)
+    chain_dir = safe_normalize(smp.direction)
+    ok = ok & torch.isfinite(chain_dir).all(-1) \
+        & (dot(chain_dir, chain_dir) > 0.0)
+    pdf = torch.clamp_min(directional_pdf * smp.directional_pdf, PDF_FLOOR)
+    return (ok, offset_ray_origin(rec, chain_dir), chain_dir,
+            weight * smp.weight, pdf)

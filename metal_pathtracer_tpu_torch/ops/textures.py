@@ -1,8 +1,9 @@
 """Texture atlas and texture sampling (the port's own copy of the JAX
 package's ``ops/textures.py``).
 
-Every material texture keeps its native resolution, which must already be
-a power of two per side no larger than the cap (default 2048). All
+Every material texture keeps its native resolution snapped to a power of
+two per side no larger than the cap (default 2048), resampled to it as
+Pillow's bilinear resize does when it is not one already. All
 textures and all their mip levels are flattened into one (TOTAL, 4) texel
 buffer plus small per-(texture, level) offset and size tables, so a
 filtered sample is a handful of gathers into the flat buffer: trilinear is
@@ -48,26 +49,110 @@ def _pow2_snap(n: int, cap: int) -> int:
     return min(p, cap)
 
 
+#: fixed-point bits of the resample's filter coefficients (Pillow's
+#: ``PRECISION_BITS``, 32 - 8 - 2)
+_PRECISION_BITS = 22
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` for the bilinear (triangle) filter
+    over the whole axis, then ``normalize_coeffs_8bpc``: per output
+    sample its first input index, its tap count and (out, taps) int
+    coefficients. Downscaling widens the support by the scale."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    bounds = np.zeros((out_size, 2), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        x = np.arange(xmax)
+        w = np.maximum(1.0 - np.abs((x + xmin - center + 0.5)
+                                    / filterscale), 0.0)
+        total = 0.0
+        for v in w:   # Pillow's running sum, in its order
+            total += v
+        if total != 0.0:
+            w = w / total
+        kk[xx, :xmax] = w
+        bounds[xx] = (xmin, xmax)
+    one = float(1 << _PRECISION_BITS)
+    coeffs = np.where(kk < 0, np.trunc(-0.5 + kk * one),
+                      np.trunc(0.5 + kk * one)).astype(np.int64)
+    return bounds, coeffs
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resample along ``axis`` (1: horizontal,
+    0: vertical) of an (H, W, C) uint8 image: each output sample sums its
+    taps in fixed point from a half, shifts and clips to 0-255."""
+    bounds, coeffs = _bilinear_coeffs(img.shape[axis], out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    out = np.empty((out_size,) + src.shape[1:], np.uint8)
+    for xx in range(out_size):
+        xmin, n = bounds[xx]
+        acc = np.full(src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+        for k in range(n):
+            acc += src[xmin + k] * coeffs[xx, k]
+        out[xx] = np.clip(acc >> _PRECISION_BITS, 0, 255)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_rgba_bilinear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """(H, W, 4) uint8 RGBA resampled to (h, w), bit for bit as Pillow's
+    ``Image.resize((w, h), Image.BILINEAR)`` on an RGBA image (the JAX
+    package's ``build_texture_arrays``): the colour premultiplied by
+    alpha (``RGBa``, a rounded division by 255), the bilinear filter with
+    22-bit fixed-point coefficients, horizontal pass first over the rows
+    the vertical pass reads, then the vertical pass, then the colour
+    divided back by alpha (truncated, clipped to 255; alpha 0 and 255
+    keep the premultiplied colour)."""
+    if img.shape[:2] == (h, w):
+        return img.copy()
+    src = img.astype(np.int64)
+    alpha = src[..., 3:4]
+    tmp = src[..., :3] * alpha + 128
+    pre = np.concatenate([((tmp >> 8) + tmp) >> 8, alpha], -1) \
+        .astype(np.uint8)
+    out = pre
+    if w != img.shape[1]:
+        # the rows the vertical pass reads: Pillow crops the horizontal
+        # pass to them, which changes no value
+        out = _resample_axis(out, w, 1)
+    if h != img.shape[0]:
+        out = _resample_axis(out, h, 0)
+    res = out.astype(np.int64)
+    a = res[..., 3:4]
+    un = np.minimum((255 * res[..., :3]) // np.maximum(a, 1), 255)
+    rgb = np.where((a == 0) | (a == 255), res[..., :3], un)
+    return np.concatenate([rgb, a], -1).astype(np.uint8)
+
+
 def build_texture_arrays(images: List[np.ndarray], srgb_flags: List[bool],
                          wrap_modes: Optional[List] = None,
-                         cap: int = DEFAULT_CAP,
+                         cap: int = DEFAULT_CAP, size: Optional[int] = None,
                          device="cuda") -> Optional[TextureArrays]:
     """The flat native-resolution mip atlas of ``images`` ((H,W,4) uint8
-    RGBA each) on ``device``; None for no images. An image whose sides
-    are not powers of two no larger than ``cap`` would need a resample,
-    which the image loaders bring (ROADMAP Queue 1, step 10)."""
+    RGBA each) on ``device``; None for no images. Each image keeps its
+    size snapped to a power of two per side no larger than ``cap``, or
+    ``size`` x ``size`` when given (one resolution class); an image of
+    another size is resampled to it first (``resize_rgba_bilinear``)."""
     if not images:
         return None
     flat_chunks, offsets, widths, heights, counts, sizes0 = \
         [], [], [], [], [], []
     total = 0
     for img, srgb in zip(images, srgb_flags):
-        w = _pow2_snap(img.shape[1], cap)
-        h = _pow2_snap(img.shape[0], cap)
+        if size is not None:
+            w = h = size
+        else:
+            w = _pow2_snap(img.shape[1], cap)
+            h = _pow2_snap(img.shape[0], cap)
         if (img.shape[1], img.shape[0]) != (w, h):
-            raise NotImplementedError(
-                f"a {img.shape[1]}x{img.shape[0]} texture needs a resample "
-                f"to {w}x{h}: ROADMAP Queue 1, step 10 (image loaders)")
+            img = resize_rgba_bilinear(img, w, h)
         arr = img.astype(np.float32)
         base = np.zeros((h, w, 4), np.float32)
         if srgb:

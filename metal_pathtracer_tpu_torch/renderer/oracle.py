@@ -170,26 +170,25 @@ def _triangles(resources):
 
 def _texture_pool(resources):
     """(count, side, texels (T, side, side, 3), wrap (T, 2)): level 0 of
-    the texture atlas the integrator samples. The library takes one pool
-    of equal square textures; the JAX wrapper resamples other sets to
-    512x512, which needs the image resampler the port does not have yet
-    (ROADMAP Queue 1, mesh loaders), so they raise here."""
+    the texture atlas the integrator samples, as the JAX wrapper builds
+    it. The library takes one pool of equal square textures: a set of
+    square power-of-two textures of one side keeps it (the oracle then
+    sees the integrator's level-0 texels exactly); any other set is
+    resampled to 512 x 512."""
     from metal_pathtracer_tpu_torch.ops.textures import build_texture_arrays
 
     images = resources.texture_images
     if not images:
         return 0, 0, np.zeros(1, np.float32), np.zeros(2, np.int32)
     shapes = {im.shape[:2] for im in images}
-    side = images[0].shape[0]
-    if len(shapes) != 1 or len(set(shapes.pop())) != 1 or side & (side - 1):
-        raise NotImplementedError(
-            "the oracle's texture pool needs equal square power-of-two "
-            "textures; other sets need the image resampler (ROADMAP Queue "
-            "1, mesh loaders)")
+    side = 512
+    if len(shapes) == 1 and len(set(shapes.pop())) == 1:
+        native = images[0].shape[0]
+        side = native if native & (native - 1) == 0 else 512
     wraps = resources.texture_wrap \
         if len(resources.texture_wrap) == len(images) else None
     ta = build_texture_arrays(images, resources.texture_srgb, wraps,
-                              cap=side, device="cpu")
+                              size=side, device="cpu")
     flat = ta.texels.numpy()
     base = np.stack([flat[o:o + side * side].reshape(side, side, 4)
                      for o in ta.level_offset[:, 0].tolist()])

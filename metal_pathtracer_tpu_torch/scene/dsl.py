@@ -4,8 +4,8 @@ own copy of the JAX package's ``scene/dsl.py``, record for record).
 Line-oriented `keyword key=value ...` records with `\\` continuations and
 `#` comments (reference: src/renderer/SceneManager.mm tokenize:907-930,
 parseScene:795-905). Keywords: camera / renderer / background / material /
-sphere / box / rectangle|rect. The `mesh` keyword needs the OBJ/PLY/glTF
-loaders, which are not ported yet: it raises ``NotImplementedError``.
+sphere / box / rectangle|rect / mesh (an OBJ, PLY or glTF file, through
+``scene/meshload.py``).
 """
 
 from __future__ import annotations
@@ -589,19 +589,25 @@ def _parse_rectangle(tokens, resources: SceneResources):
 def parse_scene(text: str, settings: RenderSettings,
                 resources: SceneResources, scene_directory: str = "") -> None:
     """Parse scene text into settings + resources
-    (reference: SceneManager.mm parseScene:795-905). A `mesh` record
-    raises ``NotImplementedError`` (the mesh loaders: ROADMAP Queue 1,
-    step 10)."""
+    (reference: SceneManager.mm parseScene:795-905). `mesh` records load
+    their OBJ, PLY or glTF file (``scene/meshload.py``) from
+    ``scene_directory``; a glTF camera is imported unless a `camera`
+    record came first."""
+    from metal_pathtracer_tpu_torch.scene.meshload import mesh_loader
+
     pending = ""
     pending_line = 0
+    saw_camera = False
 
     def flush(content: str, line_no: int):
+        nonlocal saw_camera
         keyword, tokens = tokenize(content)
         if keyword is None:
             return
         try:
             if keyword == "camera":
                 _parse_camera(tokens, settings)
+                saw_camera = True
             elif keyword == "renderer":
                 _parse_renderer(tokens, settings)
             elif keyword == "background":
@@ -615,9 +621,8 @@ def parse_scene(text: str, settings: RenderSettings,
             elif keyword in ("rectangle", "rect"):
                 _parse_rectangle(tokens, resources)
             elif keyword == "mesh":
-                raise NotImplementedError(
-                    f"line {line_no}: mesh records need the OBJ/PLY/glTF "
-                    "loaders (ROADMAP Queue 1, step 10)")
+                mesh_loader(tokens, settings, resources, not saw_camera,
+                            scene_directory)
             # unknown keywords are silently ignored, like the reference
         except SceneParseError as exc:
             raise SceneParseError(f"line {line_no}: {exc}") from exc

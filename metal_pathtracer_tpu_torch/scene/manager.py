@@ -54,7 +54,8 @@ class SceneManager:
 
     def load_scene_from_path(self, path: str, settings: RenderSettings,
                              resources: SceneResources) -> None:
-        """(``mesh`` records raise: the mesh loaders are not ported.)"""
+        """Parse a ``.scene`` file; its ``mesh`` records load their files
+        from the scene's directory."""
         dsl.load_scene_file(path, settings, resources)
 
     def load_scene(self, name: str, settings: RenderSettings,

@@ -3,7 +3,7 @@
 
 Materials, analytic spheres and oriented rectangles, world-space triangle
 meshes, material textures and an environment map are supported; mesh
-instances raise ``NotImplementedError`` naming the ROADMAP step that
+instances raise ``NotImplementedError`` naming the ROADMAP item that
 brings them.
 """
 
@@ -166,6 +166,8 @@ class SceneResources:
         self.texture_images: List[np.ndarray] = []
         self.texture_srgb: List[bool] = []
         self.texture_wrap: List = []
+        # object-space meshes of `mesh ... instanced=1` records, by path
+        self.instance_mesh_cache: Dict[str, Mesh] = {}
 
     def add_material(self, material: Material) -> int:
         """(reference: SceneResources.mm addMaterial:902-1038)"""
@@ -307,7 +309,7 @@ class SceneResources:
                                         material_index, desired)
 
     def add_mesh_instance(self, *args, **kwargs):
-        _not_in_slice("mesh instances", "step 14, instancing")
+        _not_in_slice("mesh instances", "instancing")
 
     def build_materials_soa(self, device="cuda") -> MaterialsSoA:
         mats = self.materials or [Material()]

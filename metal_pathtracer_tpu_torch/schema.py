@@ -407,6 +407,7 @@ class StaticConfig:
     working_color_space: int        # 0 linear sRGB / 1 ACEScg
     enable_specular_nee: bool = True
     enable_mnee: bool = False
+    enable_mnee_secondary: bool = True
     debug_specular_only: bool = False
     debug_disable_ao: bool = False
     debug_ao_indirect_only: bool = True
@@ -441,6 +442,7 @@ def settings_to_static(settings, width: int, height: int, material_types,
         working_color_space=int(settings.workingColorSpace),
         enable_specular_nee=bool(settings.enableSpecularNee),
         enable_mnee=bool(settings.enableMnee),
+        enable_mnee_secondary=bool(settings.enableMneeSecondary),
         debug_specular_only=bool(settings.debugSpecularOnly),
         debug_disable_ao=bool(settings.debugDisableAO),
         debug_ao_indirect_only=bool(settings.debugAoIndirectOnly),

@@ -132,6 +132,127 @@ def write_png_u8(path: str, rgb_u8: np.ndarray) -> None:
 
 
 # ---------------------------------------------------------------------------
+# PNG decoding: the texture images of glTF files
+# ---------------------------------------------------------------------------
+
+#: PNG colour type -> samples per pixel (0 grey, 2 RGB, 3 palette, 4 grey
+#: + alpha, 6 RGBA)
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+class ImageFormatError(ValueError):
+    """An image in a format the port does not decode."""
+
+
+def _unsupported(what: str):
+    raise ImageFormatError(
+        f"{what} images are not decoded (ROADMAP Queue 1, image formats)")
+
+
+def _png_chunks(data: bytes):
+    if not data.startswith(b"\x89PNG\r\n\x1a\n"):
+        if data[:3] == b"\xff\xd8\xff":
+            _unsupported("JPEG")
+        raise ImageFormatError("not a PNG image")
+    pos = 8
+    while pos + 8 <= len(data):
+        length, tag = _struct.unpack_from(">I4s", data, pos)
+        yield tag, data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IEND":
+            return
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The PNG filters undone (types 0-4: none, Sub, Up, Average,
+    Paeth), row after row: (h, stride) uint8."""
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind = raw[y * (stride + 1)]
+        row = np.frombuffer(raw, np.uint8, stride, y * (stride + 1) + 1)
+        if kind == 0:
+            cur = row.copy()
+        elif kind == 1:   # Sub: a running sum per byte of a pixel
+            cur = np.cumsum(row.reshape(-1, bpp), 0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = row + prior
+        elif kind in (3, 4):
+            cur = bytearray(row.tobytes())
+            up = prior.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else b if pb <= pc \
+                        else c
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ImageFormatError(f"PNG filter type {kind} is not valid")
+        out[y] = cur
+        prior = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Decode a PNG into (H, W, 4) uint8 RGBA, as Pillow's
+    ``Image.open(...).convert("RGBA")`` gives it (the JAX package's
+    ``gltf._decode_image``): grey expands to RGB, a palette through PLTE
+    with its tRNS alphas, and a tRNS colour key of a grey or RGB image
+    makes that colour transparent; alpha is 255 elsewhere. 8-bit,
+    non-interlaced images of colour types 0, 2, 3, 4 and 6 only: other
+    bit depths, interlaced images and JPEG raise ``ImageFormatError``."""
+    header, palette, trns, idat = None, None, None, []
+    for tag, body in _png_chunks(data):
+        if tag == b"IHDR":
+            header = _struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = body
+        elif tag == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ImageFormatError("PNG without an IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if ctype not in _PNG_CHANNELS:
+        raise ImageFormatError(f"PNG colour type {ctype} is not valid")
+    if depth != 8:
+        _unsupported(f"{depth}-bit PNG")
+    if interlace:
+        _unsupported("interlaced PNG")
+    ch = _PNG_CHANNELS[ctype]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch,
+                   ch).reshape(h, w, ch)
+    out = np.empty((h, w, 4), np.uint8)
+    out[..., 3] = 255
+    if ctype == 3:
+        if palette is None:
+            raise ImageFormatError("palette PNG without a PLTE chunk")
+        lut = np.zeros((256, 4), np.uint8)
+        lut[:len(palette), :3] = palette
+        lut[:, 3] = 255
+        if trns is not None:
+            alpha = np.frombuffer(trns, np.uint8)[:256]
+            lut[:len(alpha), 3] = alpha
+        return lut[px[..., 0]]
+    colour = px[..., :3] if ch >= 3 else px[..., :1]
+    out[..., :3] = colour
+    if ch in (2, 4):
+        out[..., 3] = px[..., ch - 1]
+    elif trns is not None:   # a colour key, 16-bit samples
+        key = np.frombuffer(trns, ">u2")[:ch].astype(np.int64)
+        out[..., 3] = np.where((colour == key).all(-1), 0, 255)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # EXR: uncompressed scanline writer (+ multilayer with SAMPLES channel)
 # ---------------------------------------------------------------------------
 

@@ -3,8 +3,13 @@
 Renders the textured headline (default), the untextured headline or the
 lambert series at 1920x1080 d8, the refdefault cell (the headline at
 1280x720 d20), the Cornell box (512x512 d8), the rtow sphere field
-(1200x675 d50), or the material zoo (``materials``, ``materials-env-rw``
-at 960x320 d8, ``cornell-emitenv`` at 512x512 d8): one warm-up sample,
+(1200x675 d50), the material zoo (``materials``, ``materials-env-rw``
+at 960x320 d8, ``cornell-emitenv`` at 512x512 d8), the headline and the
+Cornell box with MNEE on (``headline-mnee``, ``cornell-mnee``), or the
+headline loaded from mesh files (``mesh-files``: PLY, OBJ and GLB
+written by ``utils/meshfiles.write_headline_files`` into a temporary
+directory and read through a ``.scene`` of ``mesh`` records): one
+warm-up sample,
 then two samples under the profiler. Prints the wall time per sample,
 the device's busy share of the wall time, device time by kernel (the
 port's kernels by name, the rest of the torch glue summed), the kernels'
@@ -15,7 +20,8 @@ Run on a machine with a CUDA device:
 
     python -m metal_pathtracer_tpu_torch.utils.profile \
         [--scene headline|untextured|lambert|refdefault|cornell|rtow|
-                 materials|materials-env-rw|cornell-emitenv]
+                 materials|materials-env-rw|cornell-emitenv|
+                 headline-mnee|cornell-mnee|mesh-files]
 """
 
 from __future__ import annotations
@@ -28,14 +34,37 @@ import torch
 
 WIDTH, HEIGHT, SPP = 1920, 1080, 2
 PORT_KERNELS = ("trace_closest_kernel", "trace_any_kernel",
-                "live_lanes_kernel", "shade_full_kernel", "shade_s1_kernel", "shade_s2_kernel",
+                "live_lanes_kernel", "shade_full_kernel",
+                "shade_full_sparse_kernel", "full_list_kernel",
+                "shade_full_buckets_kernel", "shade_s1_kernel",
+                "s2_list_kernel", "shade_s2_kernel", "shade_s2_lanes_kernel",
                 "texture_stage_kernel", "sphere_nearest_kernel",
-                "sphere_nearest_chunked_kernel", "rect_nearest_kernel")
+                "chunked_list_kernel", "sphere_nearest_chunked_kernel",
+                "rect_nearest_kernel")
 
 
 def _scene(name: str, dev):
     from metal_pathtracer_tpu_torch.utils import benchscene
 
+    if name == "mesh-files":
+        import tempfile
+
+        from metal_pathtracer_tpu_torch.ops import env as env_ops
+        from metal_pathtracer_tpu_torch.scene import dsl
+        from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+        from metal_pathtracer_tpu_torch.settings import RenderSettings
+        from metal_pathtracer_tpu_torch.utils import meshfiles
+
+        settings, res = RenderSettings(), SceneResources()
+        with tempfile.TemporaryDirectory() as tmp:
+            path, _ = meshfiles.write_headline_files(tmp, 8, dev)
+            dsl.load_scene_file(path, settings, res)
+            env = env_ops.load_environment(settings.environmentMapPath, dev)
+        return settings, res, res.build_arrays(environment=env, device=dev)
+    if name in ("headline-mnee", "cornell-mnee"):
+        settings, res, scene = _scene(name[:-len("-mnee")], dev)
+        settings.enableMnee = True
+        return settings, res, scene
     if name == "cornell":
         settings, res = benchscene.build_cornell_scene()
         env = None
@@ -67,7 +96,8 @@ def main(argv=None) -> None:
                         choices=["headline", "untextured", "lambert",
                                  "refdefault", "cornell", "rtow",
                                  "materials", "materials-env-rw",
-                                 "cornell-emitenv"],
+                                 "cornell-emitenv", "headline-mnee",
+                                 "cornell-mnee", "mesh-files"],
                         default="headline")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -90,6 +120,7 @@ def main(argv=None) -> None:
     settings, res, scene = _scene(args.scene, dev)
     w, h = {"refdefault": benchscene.REFDEFAULT_FRAME,
             "cornell": benchscene.CORNELL_FRAME,
+            "cornell-mnee": benchscene.CORNELL_FRAME,
             "cornell-emitenv": benchscene.CORNELL_FRAME,
             "materials": benchscene.MATERIALS_FRAME,
             "materials-env-rw": benchscene.MATERIALS_FRAME,

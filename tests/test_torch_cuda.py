@@ -881,6 +881,134 @@ def test_chain_layout_refused_lane_major_on_card(dev, s2_inputs):
         build.check_planes("CHAIN", got.contiguous(), n, len(shade.CHAIN))
 
 
+@pytest.fixture(scope="module")
+def mnee_s2_inputs(dev):
+    """s2's inputs at depths 0, 1 and 5 of one sample with MNEE on (its
+    secondary chain asks s2 for the fork state): the textured headline
+    (subdivision 3, 96x64; the base instantiation) and materials-env-rw
+    (192x64, the glass sphere under the sky; the extended one).
+    {which: {depth: (args, kwargs)}}."""
+    from metal_pathtracer_tpu_torch.utils import benchscene
+
+    out = {}
+    for which in ("headline", "zoo"):
+        if which == "headline":
+            settings, res, env = build_bench_scene(3, dev)
+            w, h = 96, 64
+        else:
+            settings, res, env = benchscene.build_materials_env_rw_scene(dev)
+            w, h = 192, 64
+        settings.enableMnee = True
+        scene = res.build_arrays(environment=env, device=dev)
+        static = settings_to_static(settings, w, h,
+                                    res.material_types_present(),
+                                    res.texture_slots_present(),
+                                    res.texture_uses_uv1())
+        uni = settings_to_uniforms(settings,
+                                   build_camera(settings, w, h, dev), 0, 0)
+        kept, real = {}, shade.shade_s2
+
+        def spy(*args, **kw):
+            depth = spy.calls
+            spy.calls += 1
+            if depth in (0, 1, 5):
+                kept[depth] = (tuple(_kept(x) for x in args),
+                               {k: _kept(x) for k, x in kw.items()})
+            return real(*args, **kw)
+
+        spy.calls = spy.launches = 0
+        with mock.patch.object(shade, "shade_s2", spy):
+            frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 1)
+        out[which] = kept
+    return out
+
+
+@pytest.mark.parametrize("depth", [0, 1, 5])
+@pytest.mark.parametrize("which", ["headline", "zoo"])
+def test_s2_fork_state_vs_plain_on_card(dev, mnee_s2_inputs, which, depth):
+    """K2 s2's fork-state export (MNEE's secondary chain) against the
+    plain version, in both instantiations: the (N,) int64 fork state bit
+    for bit; lanes not alive on entry export their entry state; on each
+    lane it equals the committed state or is one PCG step behind it (the
+    roulette's draw, from depth 5 only); the chain and carry as without
+    the export (``test_s2_sparse_vs_plain_on_card``'s tolerance)."""
+    args, kw = mnee_s2_inputs[which][depth]
+    assert kw["fork"] is True
+    assert args[9].extended == (which == "zoo")
+    n = args[1].shape[0]
+    alive = args[0].alive
+    (chain, fork), ck, (chain_p, fork_p), cp = _s2_pair(args, kw)
+    assert fork.dtype == torch.int64 and fork.shape == (n,)
+    assert torch.equal(fork, fork_p)
+    assert torch.equal(fork[~alive], args[0].state[~alive])
+    same = fork == ck.state
+    step = rng_ops.rand_uniform(fork)[0] == ck.state
+    assert bool((same | step).all())
+    if depth < 5:
+        assert bool(same.all())
+    differ = sum(int((getattr(ck, k) != getattr(cp, k)).reshape(n, -1)
+                     .any(-1).sum())
+                 for k in ("state", "alive", "prev_prim", "last_delta",
+                           "medium_depth"))
+    assert differ <= 1e-4 * n
+    assert float(((chain - chain_p).abs()
+                  / chain_p.abs().clamp_min(1.0)).max()) <= 1e-4
+    # the same launch without the export: the same chain and carry
+    c_off = _kept(args[0])
+    off = shade.shade_s2(c_off, *args[1:], **{**kw, "fork": False})
+    torch.cuda.synchronize()
+    assert torch.equal(off, chain)
+    for k, x in vars(c_off).items():
+        assert torch.equal(x, getattr(ck, k)), k
+
+
+def test_mnee_render_kernels_vs_plain_on_card(dev):
+    """The textured headline (subdivision 3, maxDepth 8) with MNEE on
+    through every kernel against the plain path: equal trace counts (the
+    chains' included) and the image gate."""
+    settings, res, env = build_bench_scene(3, dev)
+    settings.enableMnee = True
+    scene = res.build_arrays(environment=env, device=dev)
+    w, h = 48, 32
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
+    assert static.enable_mnee_secondary
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    before = shade.shade_s2.launches
+    k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                             static, 2)
+    assert shade.shade_s2.launches > before
+
+    def plain_trace(o, d, t_min, t_max, bvh, tris, em=None, ep=None):
+        n = o.shape[0]
+        return traverse.trace_closest_reference(
+            o, d, float(t_min), t_max, bvh, tris,
+            traverse._as_i32(em, n, o.device),
+            traverse._as_i32(ep, n, o.device))
+
+    def plain_any(o, d, t_min, t_max, bvh, tris):
+        return traverse.trace_any_reference(o, d, float(t_min), t_max, bvh,
+                                            tris)
+
+    with mock.patch.object(shade, "trace_closest", plain_trace), \
+            mock.patch.object(traverse, "trace_closest", plain_trace), \
+            mock.patch.object(traverse, "trace_any", plain_any), \
+            mock.patch.object(shade, "shade_s1", shade.shade_s1_reference), \
+            mock.patch.object(shade, "shade_s2", shade.shade_s2_reference), \
+            mock.patch.object(shade, "texture_stage",
+                              texture.texture_stage_reference):
+        p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 2)
+    assert (k.ray_count, k.shadow_ray_count) == (p.ray_count,
+                                                 p.shadow_ray_count)
+    diff = (k.present() - p.present()).abs()
+    assert float(diff.square().mean().sqrt()) < 2e-4
+    assert float((diff.amax(-1) < 1e-5).float().mean()) > 0.98
+
+
 @pytest.mark.parametrize("wave", ["depth 0", "depth 1", "exact tie"])
 def test_k3b_bitexact_on_card(dev, wave):
     """K3b (near first, shrinking window) against its plain version bit

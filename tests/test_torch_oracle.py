@@ -189,11 +189,33 @@ def test_plain_path_meets_the_cornell_gate():
 
 
 def test_texture_pool_needs_equal_squares():
-    """The library takes one pool of equal square textures; the six-slot
-    scene's mixed sizes need the resampler the port does not have."""
+    """The library takes one pool of equal square textures: the six-slot
+    scene's mixed sizes are resampled to 512 x 512, bit for bit as the
+    JAX wrapper does (its ``build_texture_arrays(size=512)``, Pillow's
+    bilinear resize), and the render is the JAX wrapper's."""
+    from metal_pathtracer_tpu.ops.textures import (
+        build_texture_arrays as jax_atlas,
+    )
+
     settings, res = B.build_six_slot_scene(0)
-    with pytest.raises(NotImplementedError, match="resampler"):
-        oracle.render_oracle(res, settings, 8, 8, 1)
+    assert len({im.shape[:2] for im in res.texture_images}) > 1
+    count, side, texels, wrap = oracle._texture_pool(res)
+    ta = jax_atlas(res.texture_images, res.texture_srgb, res.texture_wrap,
+                   size=512)
+    flat = np.asarray(ta.texels)
+    want = np.stack([flat[o:o + 512 * 512].reshape(512, 512, 4)[..., :3]
+                     for o in np.asarray(ta.level_offset[:, 0]).tolist()])
+    assert (count, side) == (len(res.texture_images), 512)
+    np.testing.assert_array_equal(texels.view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(wrap, np.asarray(ta.wrap_mode))
+    got = oracle.render_oracle(res, settings, 16, 16, 1)
+    jsettings = JSettings()
+    for key, value in vars(settings).items():
+        setattr(jsettings, key, value)
+    ref = jax_oracle.render_oracle(jax_twin(res), jsettings, 16, 16, 1)
+    assert np.isfinite(got).all() and got.max() > 0.0
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
 def _cli_bytes(main, tmp_path, tag, *extra):

@@ -201,7 +201,9 @@ def test_chain_estimators_layout_independent(headline):
         got, want = (shade.specnee.delta_chain_estimators(
             scene, uni, static, params.clamp, args[0].throughput,
             carry.ray_d, carry.last_delta, ch[:, 0:3], ch[:, idx["dpdf"]],
-            ch[:, idx["medev"]], carry.ray_o, ch[:, idx["active"]] > 0.5)
+            ch[:, idx["medev"]], carry.ray_o, ch[:, idx["active"]] > 0.5,
+            ch[:, idx["front"]] > 0.5, args[7][:, 4:7], carry.specular_depth,
+            None, None)
             for ch in (chain, chain.contiguous()))
         assert not chain.is_contiguous()
         assert (got[0] != 0).any()

@@ -4,8 +4,8 @@ building the scene with its own code:
 
 - the smoke scene (``tests/scenes/smoke.scene``, two lambert spheres under
   a solid sky) at 48x48, 2 spp, seed 1337: the scene and shape of the
-  reference's golden pin (``tests/test_golden_pinned.py:20-28``), ROADMAP
-  step 11's gate; stage ``full``, K3a only;
+  reference's golden pin (``tests/test_golden_pinned.py:20-28``), the
+  analytic primitives' gate; stage ``full``, K3a only;
 - the mixed scene (``test_fused_shade.py:166-196``: triangles, a lambert
   and an emissive sphere, a one-sided rectangle) at 40x24, 2 spp, d5:
   the merged trace's tie order, two-sided emission and the triangle-only

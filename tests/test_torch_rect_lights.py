@@ -419,24 +419,24 @@ def test_emission_env_light_matches_jax(cornell):
 
 
 def test_unported_light_paths_raise(cornell):
-    """Env-modulated lights under an environment map (step 12) and the
-    plastic, subsurface and carpaint materials (step 13) are ported and
-    pass; MNEE and instances (step 14) raise with their ROADMAP
-    step; the Cornell box and an env-lit scene with plain rect lights
-    pass."""
+    """Env-modulated lights under an environment map, the plastic,
+    subsurface and carpaint materials and MNEE are ported and pass;
+    instances raise with their ROADMAP item; the Cornell box and an
+    env-lit scene with plain rect lights pass."""
     ps, pr = RenderSettings(), SceneResources()
     dsl.parse_scene(cornell_scene_text(), ps, pr)
     types = pr.material_types_present()
     scene = cornell["pscene"]
     integrator.check_supported(scene, settings_to_static(ps, 8, 8, types))
     ps.enableMnee = True
-    with pytest.raises(NotImplementedError, match="MNEE"):
-        integrator.check_supported(scene, settings_to_static(ps, 8, 8, types))
+    static = settings_to_static(ps, 8, 8, types)
+    assert static.enable_mnee and static.enable_mnee_secondary
+    integrator.check_supported(scene, static)
     ps.enableMnee = False
     integrator.check_supported(scene, settings_to_static(
         ps, 8, 8, types + [C.MATERIAL_PLASTIC, C.MATERIAL_SUBSURFACE,
                            C.MATERIAL_CARPAINT]))
-    with pytest.raises(NotImplementedError, match="step 14"):
+    with pytest.raises(NotImplementedError, match="instancing"):
         pr.add_mesh_instance(None, np.eye(4))
     env = env_ops.environment_from_texels(np.ones((4, 8, 3), np.float32),
                                           "cpu")

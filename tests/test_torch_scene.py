@@ -166,14 +166,22 @@ def test_convert_uniforms_static_state():
 def test_unported_features_raise():
     r = SceneResources()
     r.add_material(Material())
-    for call in (lambda: r.add_mesh_instance(None, np.eye(4)),
-                 # a texture that needs a resample: the image loaders
-                 lambda: build_texture_arrays([np.zeros((20, 48, 4),
-                                                        np.uint8)], [True],
-                                              device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    # plastic (ROADMAP step 13, landed) samples instead of raising
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.add_mesh_instance(None, np.eye(4))
+    # a texture that needs a resample (ported): 48x20 snaps to 32x16 and
+    # the atlas equals the JAX package's, Pillow's bilinear resize included
+    from metal_pathtracer_tpu.ops.textures import (
+        build_texture_arrays as jax_atlas,
+    )
+
+    img = np.random.default_rng(4).integers(0, 256, (20, 48, 4),
+                                            dtype=np.uint8)
+    got = build_texture_arrays([img], [True], device="cpu")
+    want = jax_atlas([img], [True])
+    assert (int(got.level_w[0, 0]), int(got.level_h[0, 0])) == (32, 16)
+    np.testing.assert_array_equal(got.texels.numpy(),
+                                  np.asarray(want.texels))
+    # plastic (ported) samples instead of raising
     r.materials[0].mat_type = C.MATERIAL_PLASTIC
     m = bsdf.gather_material(r.build_materials_soa("cpu"), torch.zeros(2))
     up = torch.tensor([[0.0, 0.0, 1.0]] * 2)
@@ -192,9 +200,11 @@ def test_unported_features_raise():
     scene = r.build_arrays(environment=env, device="cpu")
     integrator.check_supported(
         scene, settings_to_static(s, 8, 8, [C.MATERIAL_PLASTIC]))
+    # MNEE (ported) passes, its secondary chain on by default
     s.enableMnee = True
-    with pytest.raises(NotImplementedError, match="MNEE"):
-        integrator.check_supported(scene, settings_to_static(s, 8, 8, [0]))
+    static = settings_to_static(s, 8, 8, [0])
+    assert static.enable_mnee and static.enable_mnee_secondary
+    integrator.check_supported(scene, static)
     s.enableMnee = False
     # debugSpecularOnly (ported: a K2 flag) passes
     s.debugSpecularOnly = True
