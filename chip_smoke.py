@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's eight paths:
+(one nvcc per source, in parallel) and drives the port's nine paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -12,7 +12,7 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
 2. the untextured headline (1.31M-triangle displaced icosphere, glass and
    PBR spheres, HDR sun/sky with alias NEE and spec-NEE; K1 closest-hit,
    K1 any-hit, K2 ``s1`` and ``s2``): K1 any-hit bit for bit on probes and
-   on the first-depth shadow wavefront, a 160x96 4 spp render of the
+   on the first-depth shadow wavefront, a 160x96 2 spp render of the
    same scene at subdivision 5 through the kernels against the plain
    path, the scene at 1920x1080 d8 through ``frame.render_samples``, and
    every kernel checked at the first-depth wavefront against its plain
@@ -46,7 +46,7 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    depths against their plain versions, carry, transients and chain bit
    for bit; the Cornell box, rtow, the smoke scene, the mixed scene and
    the open Cornell box under an environment (rect-light and environment
-   NEE together) at 160x96 4 spp through the kernels against the plain
+   NEE together) at 160x96 2 spp through the kernels against the plain
    path (RMSE 0, equal trace counts); the Cornell box at 512x512 d8 and
    rtow at 1200x675 d50 through ``CudaBackend``; each K3 and K2 stage
    timed at the first depth with its bound, K3b beside its own group
@@ -69,7 +69,7 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    their bounds; the three configurations, a plastic + carpaint and a
    separable-SSS triangle-icosphere scene and the six-slot textured scene
    under the gradient sky (stage ``full`` with texture planes) at 160x96
-   4 spp against the plain path (RMSE 0, equal trace counts); the three
+   2 spp against the plain path (RMSE 0, equal trace counts); the three
    configurations at full size through ``CudaBackend``. The kernels line
    lists the extended K2 stages as ``shade_*_zoo``, with this phase's
    launches;
@@ -97,7 +97,7 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    and the JAX package's oracle-parity Cornell box at 128x128 64 spp
    through ``--backend metal`` and ``--backend oracle``, the native C++
    oracle, held to that test's gate: RMSE < 0.02, means within 0.005);
-   ``debugSpecularOnly`` at 160x96 4 spp through the kernels against the
+   ``debugSpecularOnly`` at 160x96 2 spp through the kernels against the
    plain path (RMSE 0) on ``materials.scene`` and the textured headline at
    subdivision 5; and each K1 and K2 instantiation's registers from the
    build log;
@@ -127,7 +127,24 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    tangents MikkTSpace's, a 160x96 2 spp render (subdivision 5) through
    the kernels against the plain path, and the scene at 1920x1080 d8
    through the CLI with ``--backend metal``, its set-up seconds (parse,
-   SAH and atlas) beside its ms/spp.
+   SAH and atlas) beside its ms/spp;
+9. instancing (the instanced K1, closest-hit and any-hit, one launch
+   over every placement; K2 and the texture stage rebuilding instanced
+   hits): the same files with the 1.31M-triangle PLY placed three times
+   (rotated, scaled) and the glass OBJ twice with ``instanced=1`` beside
+   the GLB soup (``meshfiles.instanced_scene_text``): the instanced K1
+   against its plain per-placement walks bit for bit on 4,096 probes
+   (half of them excluding a first hit) and on the depth-0 and depth-1
+   closest and shadow wavefronts of one 1920x1080 sample, each timed
+   beside its bound (``ki_bound``) with its live lanes; the texture stage
+   and K2 s1/s2 at depths 0 and 1 against their plain versions; the
+   scene at 160x96 2 spp (subdivision 5) and its lambert variant at 1
+   spp (K2 ``full``) through the kernels against the plain path and
+   against the same scenes baked into world-space meshes (RMSE < 2e-3,
+   ``tests/test_instancing.py``'s gate); and the scene at 1920x1080 d8
+   through the CLI: ms/spp, set-up seconds, peak device memory beside
+   the baked scene's triangle and tree bytes, launches a sample, the
+   instanced K1 once per trace.
 
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
@@ -249,9 +266,17 @@ K1_NODE_BYTES = 32
 K1_CLOSEST_SLOT_BYTES, K1_ANY_SLOT_BYTES = 36 + 8, 36
 K1_OLD_NODE_BYTES, K1_OLD_SLOT_BYTES = 36, 4 + 36
 K1_NODE_OPS, K1_TRI_OPS = 24, 45
+# the depths of one headline sample whose K1 launches ``k1_depth1`` holds
+# against the plain walk and times: the first 4 of 8 (the script's
+# run-time limit)
+K1_CHECK_DEPTHS = 4
 # the analytic-primitive cells: samples of the 160x96 checks and of the
 # timed full-size renders, and rtow's layout seed
-PRIM_CHECK_SPP = 4
+PRIM_CHECK_SPP = 2
+# samples of the 160x96 kernel-against-plain checks of the headline
+# phases, the material zoo and debugSpecularOnly (the script's run-time
+# limit)
+NEE_CHECK_SPP = ZOO_CHECK_SPP = SPEC_CHECK_SPP = 2
 CORNELL_TIMED_SPP = 4
 RTOW_TIMED_SPP = 2
 RTOW_SEED = 0
@@ -514,6 +539,16 @@ def plain_kernels():
     def plain_any(o, d, t_min, t_max, bvh, tris):
         return T.trace_any_reference(o, d, float(t_min), t_max, bvh, tris)
 
+    def plain_inst(o, d, t_min, t_max, groups, ex_mesh=None, ex_prim=None):
+        n = o.shape[0]
+        return T.trace_instanced_closest_reference(
+            o, d, float(t_min), _lanes_tmax(o, t_max), groups,
+            T._as_i32(ex_mesh, n, o.device), T._as_i32(ex_prim, n, o.device))
+
+    def plain_inst_any(o, d, t_min, t_max, groups):
+        return T.trace_instanced_any_reference(o, d, float(t_min),
+                                               _lanes_tmax(o, t_max), groups)
+
     def plain_prims(reference):
         return lambda o, d, t_min, t_max, prims: reference(
             o, d, float(t_min), P._prepare(o, t_max), prims)
@@ -521,6 +556,8 @@ def plain_kernels():
     with mock.patch.object(S, "trace_closest", plain_trace), \
             mock.patch.object(T, "trace_closest", plain_trace), \
             mock.patch.object(T, "trace_any", plain_any), \
+            mock.patch.object(T, "trace_instanced_closest", plain_inst), \
+            mock.patch.object(T, "trace_instanced_any", plain_inst_any), \
             mock.patch.object(P, "sphere_nearest_brute",
                               plain_prims(P.sphere_nearest_reference)), \
             mock.patch.object(P, "sphere_nearest_chunked", plain_prims(
@@ -533,6 +570,13 @@ def plain_kernels():
             mock.patch.object(S, "texture_stage",
                               X.texture_stage_reference):
         yield
+
+
+def _lanes_tmax(o, t_max):
+    """A trace's window end as the (N,) float32 tensor the wrappers make."""
+    return torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=o.device),
+        (o.shape[0],)).contiguous()
 
 
 def reset_launches(kernels):
@@ -853,26 +897,27 @@ def nee_path(dev, card, kernels, out, k1_probe_err, textured):
         torch.cuda.synchronize()
         return settings, res, scene, time.time() - t0
 
-    # ---- every kernel of the path: 160x96 4 spp at subdivision 5 vs plain
+    # ---- every kernel of the path: 160x96 at subdivision 5 vs plain -----
     settings, res, scene, _ = build(CHECK_SUBDIVISIONS)
     w, h = CHECK_FRAME
     static, uni = scene_setup(settings, res, w, h, dev)
     before = X.texture_stage.launches
     st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
-                                static, 4)
+                                static, NEE_CHECK_SPP)
     if textured and X.texture_stage.launches == before:
         raise AssertionError("the textured check render launched no "
                              "texture stage")
     with plain_kernels():
         st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
-                                    static, 4)
+                                    static, NEE_CHECK_SPP)
     kernels_used = "texture stage + K2 s1/s2 + K1 any-hit" if textured \
         else "K2 s1/s2 + K1 any-hit"
     nee_err = image_gate(
         st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
         (st_k.ray_count, st_k.shadow_ray_count),
         (st_p.ray_count, st_p.shadow_ray_count),
-        f"{name}: {kernels_used} {w}x{h} 4spp kernel vs plain")
+        f"{name}: {kernels_used} {w}x{h} {NEE_CHECK_SPP}spp kernel vs "
+        f"plain")
 
     # ---- the headline at full size -------------------------------------
     settings, res, scene, setup_s = build(HEADLINE_SUBDIVISIONS)
@@ -1211,21 +1256,25 @@ def k1_depth1(scene, uni, static, dev, card):
     one. Returns the largest |t| difference (0: equal bits)."""
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
-    # every launch: one closest-hit and up to two any-hit per depth
+    # the launches of the first K1_CHECK_DEPTHS depths: one closest-hit
+    # and up to two any-hit a depth
     live, waves = frame_loop_k1(scene, uni, static, dev, keep=tuple(
         (key, k) for key in ("closest", "any")
-        for k in range(2 * static.max_depth)))
+        for k in range(K1_CHECK_DEPTHS * (1 if key == "closest" else 2))))
     print(f"K1 live lanes per launch over one {static.width}x"
           f"{static.height} sample of the frame loop (closest: one per "
           f"depth; any-hit: the environment and the spec-NEE shadow rays "
           f"per depth): closest {live['closest']}, any-hit {live['any']} "
           f"[{card}]")
+    kept = {key: [k for k in range(len(live[key])) if (key, k) in waves]
+            for key in live}
     per_launch = {key: [kernel_ms((lambda a, fn: lambda: lambda: fn(*a))(
         waves[key, k], T.trace_closest if key == "closest" else T.trace_any),
-        5) for k in range(len(live[key]))] for key in live}
-    bounds = {key: [k1_launch_bound(key, waves[key, k])
-                    for k in range(len(live[key]))] for key in live}
-    print("K1 device ms per launch of that sample, each bit-equal to the "
+        5) for k in kept[key]] for key in live}
+    bounds = {key: [k1_launch_bound(key, waves[key, k]) for k in kept[key]]
+              for key in live}
+    print(f"K1 device ms per launch of that sample's first {K1_CHECK_DEPTHS} "
+          "depths, each bit-equal to the "
           "plain walk, beside its bound (ms, by bytes unless marked ops): "
           + "; ".join(
               f"{key} " + ", ".join(
@@ -2630,7 +2679,7 @@ def materials_path(dev, card, kernels, out):
     """The material zoo: K2's extended stages bit for bit against their
     plain versions at full size, the zoo's three configurations, two
     triangle-icosphere scenes and the six-slot textured scene (stage full
-    with texture planes) at 160x96 4 spp through the kernels against the
+    with texture planes) at 160x96 2 spp through the kernels against the
     plain path, and the three configurations at full size through
     ``CudaBackend``."""
     from metal_pathtracer_tpu_torch.renderer import frame
@@ -2643,7 +2692,7 @@ def materials_path(dev, card, kernels, out):
     zoo_k2(cells, dev, card, out)
     t2 = time.time()
 
-    # ---- 160x96 4 spp: the kernels against the plain path ---------------
+    # ---- 160x96: the kernels against the plain path ---------------
     w, h = CHECK_FRAME
     render_err = 0.0
     for name, (settings, res, env) in cells.items():
@@ -2652,17 +2701,17 @@ def materials_path(dev, card, kernels, out):
         before = {k: fn.launches for k, fn in kernels.items()}
         t_k = time.time()
         st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
-                                    static, PRIM_CHECK_SPP)
+                                    static, ZOO_CHECK_SPP)
         torch.cuda.synchronize()
         t_p = time.time()
         used = [k for k, fn in kernels.items() if fn.launches > before[k]]
         with plain_kernels():
             st_p = frame.render_samples(scene, uni,
                                         RenderState.create(w, h, dev), static,
-                                        PRIM_CHECK_SPP)
+                                        ZOO_CHECK_SPP)
         torch.cuda.synchronize()
         render_err = max(render_err, exact_gate(
-            st_k, st_p, f"{name} {w}x{h} {PRIM_CHECK_SPP}spp d"
+            st_k, st_p, f"{name} {w}x{h} {ZOO_CHECK_SPP}spp d"
             f"{settings.maxDepth} through {'+'.join(used)} vs plain "
             f"({t_p - t_k:.1f}s / {time.time() - t_p:.1f}s)"))
 
@@ -2866,7 +2915,9 @@ def headless_path(dev, card, kernels, out, headline):
     peak = torch.cuda.max_memory_allocated(dev)
     oracle_cells = oracle_renders(tmp, card)
     main_s = time.time() - t_main
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    # every kernel but the instanced K1, which only instanced scenes run
+    launches = {k: fn.launches for k, fn in kernels.items()
+                if not k.startswith("trace_instanced")}
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the headless phase was not "
                              f"launched: {launches}")
@@ -2971,7 +3022,7 @@ def headless_path(dev, card, kernels, out, headline):
           f"field; (material, medium event, pdf) per row "
           f"{[tuple(float(r[k]) for k in ('material', 'medium_event', 'pdf')) for r in rows_glass]}")
 
-    # ---- debugSpecularOnly: 160x96 4 spp, kernels against plain ----------
+    # ---- debugSpecularOnly: 160x96, kernels against plain ----------------
     w, h = CHECK_FRAME
     spec_err = 0.0
     hs, hr, henv = B.build_bench_scene(CHECK_SUBDIVISIONS, dev)
@@ -2983,15 +3034,16 @@ def headless_path(dev, card, kernels, out, headline):
         st_, un_ = scene_setup(s_, r_, w, h, dev)
         t_k = time.time()
         st_k = frame.render_samples(sc, un_, RenderState.create(w, h, dev),
-                                    st_, 4)
+                                    st_, SPEC_CHECK_SPP)
         torch.cuda.synchronize()
         t_p = time.time()
         with plain_kernels():
             st_p = frame.render_samples(sc, un_, RenderState.create(w, h, dev),
-                                        st_, 4)
+                                        st_, SPEC_CHECK_SPP)
         torch.cuda.synchronize()
         spec_err = max(spec_err, exact_gate(
-            st_k, st_p, f"debugSpecularOnly {name} {w}x{h} 4spp kernels vs "
+            st_k, st_p, f"debugSpecularOnly {name} {w}x{h} "
+            f"{SPEC_CHECK_SPP}spp kernels vs "
             f"plain ({t_p - t_k:.1f}s / {time.time() - t_p:.1f}s)"))
 
     out["trace_closest_stats"] = dict(
@@ -3016,7 +3068,7 @@ MNEE_TIMED_SPP = 1
 #: samples of the MNEE and mesh-files phases' 160x96 renders through the
 #: kernels against the plain path (the plain path takes ~25 s a sample
 #: there, and the script has 1,200 s)
-NEW_CHECK_SPP = 2
+NEW_CHECK_SPP = 1
 #: the Cornell box with MNEE on through the CLI
 MNEE_CORNELL_SPP = 8
 #: the fork state s2 writes per lane with MNEE's secondary chain on
@@ -3505,6 +3557,432 @@ def mesh_files_path(dev, card, kernels, out):
     return check_err
 
 
+# ---- phase 9: instancing ---------------------------------------------------
+
+#: samples of the instanced-headline render through the CLI, and of its
+#: 160x96 check against the plain path
+INSTANCED_SPP = INSTANCED_CHECK_SPP = 2
+#: the instanced scene against the same scene baked into world-space
+#: meshes: tests/test_instancing.py test_instanced_matches_baked's gate
+BAKED_MAX_RMSE = 2e-3
+# instanced K1: a lane's ray in (origin, direction, t_max, exclusion ids)
+# and hit out (t, tri, u, v, placement); a dead lane's t_max in and hit
+# out; each placement's 128 B table row read once a launch; ~21 flops to
+# map a ray into a placement's object space
+KI_LANE_BYTES = 36 + 20
+KI_DEAD_BYTES = 4 + 20
+KI_ROW_BYTES = 128
+KI_MAP_OPS = 21
+
+
+def baked_resources(res):
+    """``res`` with every placement of an instanced mesh baked into a
+    world-space mesh, as ``tests/test_instancing.py
+    test_instanced_matches_baked`` bakes them: the vertices through the
+    float64 4x4, the normals through the inverse transpose, renormalised;
+    the placement's material."""
+    import copy
+    import dataclasses
+
+    out = copy.copy(res)
+    out.meshes = list(res.meshes)
+    out.mesh_instances = []
+    for inst in res.mesh_instances:
+        src, m = inst.source, np.asarray(inst.transform, np.float64)
+        v = src.vertices @ m[:3, :3].T + m[:3, 3]
+        n = src.normals @ np.linalg.inv(m)[:3, :3]
+        n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-20)
+        out.meshes.append(dataclasses.replace(
+            src, name=src.name + "-baked", vertices=v.astype(np.float32),
+            normals=n.astype(np.float32), material=inst.material))
+    return out
+
+
+def instanced_probes(scene, dev, n=4096, seed=11):
+    """4096 probes of the instanced groups: half aimed at random points of
+    placed triangles, every 61st lane dead, and each live lane of the
+    second half excluding the first hit of a first trace (its global
+    instance id and object triangle): (o, d, t_max, ex_mesh, ex_prim)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3.0, 3.0, (n, 3))
+    d = rng.normal(size=(n, 3))
+    targets = []
+    for _, _, g, i, _ in T.placements(scene.instanced):
+        tri = g.triangles.shade_packed[:, :9].cpu().numpy().reshape(-1, 3, 3)
+        l2w = g.l2w[i].cpu().numpy().astype(np.float64)
+        k = rng.integers(0, len(tri), n // 2)
+        p = (rng.dirichlet([1.0, 1.0, 1.0], n // 2)[:, :, None]
+             * tri[k]).sum(1)
+        targets.append(p @ l2w[:, :3].T + l2w[:, 3])
+    pick = rng.integers(0, len(targets), n // 2)
+    d[: n // 2] = np.stack(targets, 1)[np.arange(n // 2), pick] - o[: n // 2]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(n, 1e20, np.float32)
+    tmax[::61] = 0.0
+    t = lambda a, dt=np.float32: torch.from_numpy(a.astype(dt)).to(dev)
+    o, d, tmax = t(o), t(d), t(tmax)
+    none = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    _, tri, _, _, inst = T.trace_instanced_closest(o, d, 1e-3, tmax,
+                                                   scene.instanced)
+    ids = instance_ids(scene, inst)
+    half = torch.arange(n, device=dev) >= n // 2
+    ex_mesh = torch.where(half & (inst >= 0), ids, none)
+    ex_prim = torch.where(half & (inst >= 0), tri, none)
+    return o, d, tmax, ex_mesh, ex_prim
+
+
+def instance_ids(scene, inst):
+    """The global instance id of each flat placement index (-1 stays)."""
+    base = scene.instanced[0].base_id
+    return torch.where(inst >= 0, inst + base, -1).to(torch.int32)
+
+
+def compare_instanced(got, ref, label):
+    """Instanced K1 outputs (t, tri, u, v, placement) bit for bit; returns
+    the largest |t| difference (0)."""
+    err = compare_trace(got[:4], ref[:4])
+    if not torch.equal(got[4], ref[4]):
+        raise AssertionError(f"{label}: the placement differs on "
+                             f"{int((got[4] != ref[4]).sum())} lanes")
+    return err
+
+
+def ki_bound(scene, walk, n, n_live, any_hit=False):
+    """Instanced K1's bound: the lanes' own bytes, every placement's table
+    row, and every node and triangle slot of each group that the walks
+    of its placements touched read once (``k1_bound``'s charges); the
+    flops of the slab and triangle tests and of mapping each live ray
+    into every placement: (ms, by)."""
+    lane = any_lane_bytes(n, n_live) if any_hit else \
+        n_live * KI_LANE_BYTES + (n - n_live) * KI_DEAD_BYTES
+    slot = K1_ANY_SLOT_BYTES if any_hit else K1_CLOSEST_SLOT_BYTES
+    touched = sum(int(w["nodes"].sum()) * K1_NODE_BYTES
+                  + int(w["slots"].sum()) * slot
+                  for w in walk.get("groups", {}).values())
+    return bound_ms(lane + touched + scene.n_instances * KI_ROW_BYTES,
+                    walk.get("node_visits", 0) * K1_NODE_OPS
+                    + walk.get("tri_tests", 0) * K1_TRI_OPS
+                    + n_live * scene.n_instances * KI_MAP_OPS)
+
+
+def frame_loop_inst(scene, uni, static, dev, keep=()):
+    """One sample of the frame loop with the instanced K1 wrappers spied
+    on, as ``frame_loop_k1`` spies on K1's: the live lanes of every
+    launch, {"closest": [...], "any": [...]}, and the inputs of the
+    launches ``keep`` names, {(wrapper, index): args}."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    seen, kept = {"closest": [], "any": []}, {}
+
+    def spy(fn, key):
+        def traced(o, d, t_min, t_max, groups, *ex):
+            n = o.shape[0]
+            tm = _lanes_tmax(o, t_max)
+            if (key, len(seen[key])) in keep:
+                kept[key, len(seen[key])] = (
+                    o.clone(), d.clone(), t_min, tm.clone(), groups,
+                    *(T._as_i32(x, n, o.device).clone() for x in ex))
+            seen[key].append(int((tm >= t_min).sum()))
+            return fn(o, d, t_min, t_max, groups, *ex)
+        traced.launches = 0
+        return traced
+
+    with mock.patch.object(T, "trace_instanced_closest",
+                           spy(T.trace_instanced_closest, "closest")), \
+            mock.patch.object(T, "trace_instanced_any",
+                              spy(T.trace_instanced_any, "any")):
+        frame.render_samples(scene, uni, RenderState.create(
+            static.width, static.height, dev), static, 1)
+    return seen, kept
+
+
+def instanced_k1(scene, uni, static, dev, card):
+    """Instanced K1, closest and any-hit, against the plain versions bit
+    for bit on 4096 probes and on the depth-0 and depth-1 wavefronts of
+    one sample (``frame_loop_inst``), each launch of that sample's first
+    two depths device-timed beside its bound with its live lanes. Returns
+    (closest entry, any-hit entry) of the kernels line but the launches."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+
+    o, d, tmax, ex_mesh, ex_prim = instanced_probes(scene, dev)
+    probe = (o, d, 1e-3, tmax, scene.instanced, ex_mesh, ex_prim)
+    err = compare_instanced(T.trace_instanced_closest(*probe),
+                            T.trace_instanced_closest_reference(*probe),
+                            "instanced K1 probes")
+    compare_flags(T.trace_instanced_any(*probe[:5]),
+                  T.trace_instanced_any_reference(*probe[:5]),
+                  "instanced K1 any-hit probes")
+    # depths 0 and 1: a closest launch each, and each depth's first
+    # any-hit launch (the environment bank's shadow rays)
+    live, waves = frame_loop_inst(scene, uni, static, dev, keep=(
+        ("closest", 0), ("closest", 1), ("any", 0), ("any", 2)))
+    print(f"instanced K1 live lanes per launch over one {static.width}x"
+          f"{static.height} sample: closest {live['closest']}, any-hit "
+          f"{live['any']} [{card}]")
+    entry = {}
+    for key, fn, ref in (
+            ("closest", T.trace_instanced_closest,
+             T.trace_instanced_closest_reference),
+            ("any", T.trace_instanced_any, T.trace_instanced_any_reference)):
+        rows = []
+        for k in (0, 2) if key == "any" else (0, 1):
+            if (key, k) not in waves:
+                continue
+            args = waves[key, k] if key == "closest" else waves[key, k][:5]
+            n = args[0].shape[0]
+            n_live = int((args[3] >= args[2]).sum())
+            walk = {}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            want = ref(*args, walk=walk)
+            torch.cuda.synchronize()
+            plain = (time.time() - t0) * 1e3
+            got = fn(*args)
+            if key == "closest":
+                err = max(err, compare_instanced(
+                    got, want, f"instanced K1 on launch {k}"))
+            else:
+                compare_flags(got, want, f"instanced any-hit launch {k}")
+            ms, win = timed(lambda a=args: lambda: fn(*a), 5)
+            b, by = ki_bound(scene, walk, n, n_live, key == "any")
+            rows.append(dict(ms=ms, win=win, plain=plain, bound=b, by=by,
+                             live=n_live, nodes=walk.get("node_visits", 0),
+                             tris=walk.get("tri_tests", 0)))
+            print(f"instanced K1 {key} launch {k} ({n} lanes, {n_live} "
+                  f"live, {scene.n_instances} placements: "
+                  f"{rows[-1]['nodes']} slab and {rows[-1]['tris']} "
+                  f"triangle tests), bit-equal to the plain version: "
+                  f"{ms:.4f} ms device, {win:.4f} ms around the wrapper, "
+                  f"plain {plain:.1f} ms (host clock, its walk counted), "
+                  f"bound {b:.4f} ms by {by} "
+                  f"[{card}]")
+        first = rows[0]
+        entry[key] = dict(
+            source=ROOT + "traverse.cu",
+            replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:60",
+            max_abs_err=err if key == "closest" else 0.0, ms=first["ms"],
+            plain_ms=first["plain"], bound_ms=first["bound"],
+            bound_by=first["by"])
+    return entry["closest"], entry["any"]
+
+
+def instanced_k2(scene, uni, static, dev, card):
+    """The texture stage, K2 s1 and K2 s2 with instanced lanes against
+    their plain versions at depths 0 and 1 of one sample
+    (``frame_loop_k2``), as ``k2_depths`` holds them, with each launch's
+    SHA-256 digests (``k2_digest``) and device time."""
+    from metal_pathtracer_tpu_torch.ops import intersect
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as S
+    from metal_pathtracer_tpu_torch.ops.kernels import texture as X
+
+    rows, kept = frame_loop_k2(scene, uni, static, dev, keep=(0, 1))
+    n = static.width * static.height
+    for depth in (0, 1):
+        args = kept["s1", depth][0]
+        carry, kind = args[0], kept["s1", depth][1]["kind"]
+        inst = int((carry.alive & (kind >= intersect.KIND_INSTANCE)).sum())
+        tex_args = kept["tex", depth][0]
+        got, ck = k2_once(kept, "tex", depth)
+        want, cp = k2_once(kept, "tex", depth, X.texture_stage_reference)
+        tex_err = compare_texture(got, want, ck, cp, f"instanced-headline "
+                                  f"depth {depth} texture stage")
+        tpbr = got[:, X.TEX_IDX["tpbr"]] > 0.5
+        inst_tex = int((tpbr & (tex_args[-1] >= intersect.KIND_INSTANCE))
+                       .sum())
+        digests = []
+        errs = []
+        for which, ref in (("s1", S.shade_s1_reference),
+                           ("s2", S.shade_s2_reference)):
+            got, ck = k2_once(kept, which, depth)
+            want, cp = k2_once(kept, which, depth, ref)
+            torch.cuda.synchronize()
+            differ, err = carry_error(ck, cp, n)
+            err = max(err, float(((got - want).abs()
+                                  / want.abs().clamp_min(1.0)).max()))
+            if differ > 1e-4 * n or not err <= 1e-4:
+                raise AssertionError(
+                    f"instanced-headline K2 {which} at depth {depth} "
+                    f"disagrees with its plain version: {differ} lanes, "
+                    f"err {err}")
+            errs.append(err)
+            digests.append((k2_digest(got, ck)[:12],
+                            k2_digest(want, cp)[:12]))
+        times = [kernel_ms(k2_launch(kept, w, depth), 5)
+                 for w in ("tex", "s1", "s2")]
+        print(f"instanced-headline depth {depth}: {rows[depth]['live']} "
+              f"live lanes, {inst} on placements, {inst_tex} of them "
+              f"textured; texture stage plane err "
+              f"{tex_err:.2e}, s1 err {errs[0]:.2e}, s2 err {errs[1]:.2e} "
+              f"against the plain versions; digests (kernel, plain) s1 "
+              f"{digests[0]}, s2 {digests[1]}; device ms texture "
+              f"{times[0]:.4f}, s1 {times[1]:.4f}, s2 {times[2]:.4f} "
+              f"[{card}]")
+        if depth == 0 and inst == 0:
+            raise AssertionError("instanced-headline: no lane hit a "
+                                 "placement")
+
+
+def instanced_path(dev, card, kernels, out):
+    """Phase 9, instancing: the headline's files with the displaced
+    icosphere PLY placed three times and the glass icosphere OBJ twice
+    with ``instanced=1`` beside the GLB soup (``meshfiles.
+    instanced_scene_text``). Instanced K1 against its plain versions;
+    the texture stage and K2 s1/s2 with instanced lanes against theirs;
+    160x96 renders through the kernels against the plain path (the
+    headline at 2 spp, its lambert variant through K2 ``full`` at 1 spp)
+    and against the same scenes baked into world-space meshes; then the
+    scene at 1920x1080 d8 through the CLI with ``--backend metal``: its
+    ms/spp, set-up seconds, peak device memory beside what the baked
+    scene's triangles and trees would take, and the launches a sample,
+    the instanced K1 once per trace."""
+    import os
+    import tempfile
+
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    from metal_pathtracer_tpu_torch.utils import meshfiles
+
+    def load(path, bake=False):
+        settings, res = RenderSettings(), SceneResources()
+        t0 = time.time()
+        dsl.load_scene_file(path, settings, res)
+        t1 = time.time()
+        if bake:
+            res = baked_resources(res)
+        env = env_ops.load_environment(settings.environmentMapPath, dev) \
+            if settings.environmentMapPath else None
+        scene = res.build_arrays(environment=env, device=dev)
+        torch.cuda.synchronize()
+        return settings, res, scene, dict(parse=t1 - t0,
+                                          build=time.time() - t1)
+
+    def render(settings, res, scene, w, h, spp):
+        static, uni = scene_setup(settings, res, w, h, dev)
+        return frame.render_samples(scene, uni,
+                                    RenderState.create(w, h, dev), static,
+                                    spp)
+
+    marks = [("start", time.time())]
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 160x96 at subdivision 5: kernels against plain and baked ---
+        small = os.path.join(tmp, "check")
+        os.mkdir(small)
+        meshfiles.write_headline_files(small, CHECK_SUBDIVISIONS, dev)
+        w, h = CHECK_FRAME
+        check_err = 0.0
+        for name, spp in (("instanced_headline", INSTANCED_CHECK_SPP),
+                          ("instanced_lambert", 1)):
+            path = os.path.join(small, name + ".scene")
+            settings, res, scene, _ = load(path)
+            if [g.count for g in scene.instanced] != [3, 2]:
+                raise AssertionError(f"{name}: groups "
+                                     f"{[g.count for g in scene.instanced]}")
+            before = {k: fn.launches for k, fn in kernels.items()}
+            st_k = render(settings, res, scene, w, h, spp)
+            used = [k for k, fn in kernels.items()
+                    if fn.launches > before[k]]
+            with plain_kernels():
+                st_p = render(settings, res, scene, w, h, spp)
+            check_err = max(check_err, image_gate(
+                st_k.present().cpu().numpy(), st_p.present().cpu().numpy(),
+                (st_k.ray_count, st_k.shadow_ray_count),
+                (st_p.ray_count, st_p.shadow_ray_count),
+                f"{name} {w}x{h} {spp}spp through {'+'.join(used)} vs "
+                f"plain"))
+            need = ["trace_instanced_closest"] + (
+                ["shade_full"] if name == "instanced_lambert" else
+                ["trace_instanced_any", "shade_s1", "shade_s2",
+                 "texture_stage"])
+            if any(k not in used for k in need):
+                raise AssertionError(f"{name}: {need} not all launched")
+            bs, br, bscene, _ = load(path, bake=True)
+            st_b = render(bs, br, bscene, w, h, spp)
+            d = np.abs(st_k.present().cpu().numpy()
+                       - st_b.present().cpu().numpy())
+            rmse = float(np.sqrt((d * d).mean()))
+            print(f"{name} {w}x{h} {spp}spp instanced against baked "
+                  f"({bscene.triangles.count} world-space triangles): "
+                  f"rmse={rmse:.3e} max_abs={float(d.max()):.3e} [{card}]")
+            if not rmse < BAKED_MAX_RMSE:
+                raise AssertionError(f"{name}: instanced and baked renders "
+                                     f"differ (RMSE {rmse})")
+        marks.append(("the 160x96 checks", time.time()))
+
+        # ---- the full-size files: kernels at their wavefronts ------------
+        path, _ = meshfiles.write_headline_files(tmp, HEADLINE_SUBDIVISIONS,
+                                                 dev)
+        path = os.path.join(tmp, "instanced_headline.scene")
+        settings, res, scene, times = load(path)
+        stored = sum(x.numel() * x.element_size()
+                     for g in scene.instanced for part in
+                     (g.triangles, g.tri_bvh) for x in vars(part).values()
+                     if torch.is_tensor(x))
+        baked = sum(x.numel() * x.element_size() * g.count
+                    for g in scene.instanced for part in
+                    (g.triangles, g.tri_bvh) for x in vars(part).values()
+                    if torch.is_tensor(x))
+        placed = sum(g.triangles.count * g.count for g in scene.instanced)
+        print(f"instanced-headline: groups "
+              f"{[(g.triangles.count, g.count) for g in scene.instanced]} "
+              f"(object triangles, placements): "
+              f"{sum(g.triangles.count for g in scene.instanced)} stored "
+              f"for {placed} placed, plus {scene.n_triangles} soup; their "
+              f"triangles and trees {stored / 2**20:.1f} MiB against "
+              f"{baked / 2**20:.1f} MiB baked; set-up parse "
+              f"{times['parse']:.2f}s, build_arrays (SAH of each group "
+              f"once, atlas, upload) {times['build']:.2f}s [{card}]")
+        W, H = FRAME
+        static, uni = scene_setup(settings, res, W, H, dev)
+        k1_closest, k1_any = instanced_k1(scene, uni, static, dev, card)
+        marks.append(("instanced K1", time.time()))
+        instanced_k2(scene, uni, static, dev, card)
+        marks.append(("K2 and the texture stage", time.time()))
+
+        # ---- 1920x1080 d8 through the CLI --------------------------------
+        torch.cuda.reset_peak_memory_stats(dev)
+        img, launches, wall, said = cli_run(
+            ["--scene", path, "--width", str(W), "--height", str(H),
+             "--sppTotal", str(INSTANCED_SPP), "--backend", "metal",
+             "--output", os.path.join(tmp, "instanced.exr")], kernels,
+            f"instanced-headline {W}x{H} d8 --backend metal", card)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for k in ("trace_instanced_closest", "trace_instanced_any",
+                  "trace_closest", "trace_any", "shade_s1", "shade_s2",
+                  "texture_stage"):
+            if launches[k] <= 0:
+                raise AssertionError(f"instanced-headline: {k} was not "
+                                     "launched")
+        if launches["trace_instanced_closest"] != launches["trace_closest"] \
+                or launches["trace_instanced_any"] != launches["trace_any"]:
+            raise AssertionError(
+                "instanced-headline: the instanced K1 must launch once per "
+                f"trace: {launches}")
+        per = {k: v / INSTANCED_SPP for k, v in launches.items() if v}
+        print(f"instanced-headline {W}x{H} d8: peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches a sample {per}; the "
+              f"instanced K1 once per trace ({scene.n_instances} "
+              f"placements a launch) [{card}]")
+        MAIN_LAUNCHES["instanced-headline"] = launches
+        out["trace_instanced_closest"] = dict(
+            launches=launches["trace_instanced_closest"], **k1_closest)
+        out["trace_instanced_any"] = dict(
+            launches=launches["trace_instanced_any"], **k1_any)
+        marks.append(("the CLI render", time.time()))
+    print("# instancing phase: " + ", ".join(
+        f"{name} {t - marks[k][1]:.1f}s"
+        for k, (name, t) in enumerate(marks[1:])))
+    return check_err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -3543,7 +4021,9 @@ def main() -> None:
                "shade_full_lanes": S.shade_full_lanes,
                "shade_full_sparse": S.shade_full_sparse,
                "shade_full_buckets": S.shade_full_buckets,
-               "full_buckets": S.full_buckets}
+               "full_buckets": S.full_buckets,
+               "trace_instanced_closest": T.trace_instanced_closest,
+               "trace_instanced_any": T.trace_instanced_any}
     out = {}
     t0 = time.time()
     k1_probe_err = lambert_path(dev, card, kernels, out)
@@ -3571,6 +4051,9 @@ def main() -> None:
     t0 = time.time()
     mesh_files_path(dev, card, kernels, out)
     print(f"# mesh-files phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    instanced_path(dev, card, kernels, out)
+    print(f"# instancing phases took {time.time() - t0:.1f}s")
 
     print("K2 device ms at the earlier phases' first depths, this run "
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"

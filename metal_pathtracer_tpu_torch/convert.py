@@ -24,6 +24,7 @@ from metal_pathtracer_tpu_torch.schema import (
     BvhSoA,
     CameraUniforms,
     EnvironmentSoA,
+    InstanceGroup,
     MaterialsSoA,
     RectsSoA,
     SceneArrays,
@@ -67,11 +68,23 @@ def textures(d: dict, device="cuda") -> TextureArrays:
         for f in dataclasses.fields(TextureArrays)})
 
 
+def instance_group(d: dict, device="cuda") -> InstanceGroup:
+    """A JAX ``InstanceGroup`` (as a dict, its ``triangles`` and
+    ``tri_bvh`` dicts too) on ``device``; its TPU packet BVH is not
+    carried over."""
+    t = lambda k: torch.tensor(np.asarray(d[k]), device=device)
+    return InstanceGroup(
+        triangles=_build(TrianglesSoA, d["triangles"], device),
+        tri_bvh=_build(BvhSoA, d["tri_bvh"], device), l2w=t("l2w"),
+        w2l=t("w2l"), nrm_mat=t("nrm_mat"), material=t("material"),
+        base_id=int(d["base_id"]), count=int(d["count"]))
+
+
 def scene_arrays(d: dict, device="cuda") -> SceneArrays:
     """Materials, spheres, rectangles and their light list, triangle soup,
-    BVH, environment and texture atlas (the JAX scene must hold no
-    instances: not ported yet), with the K3b layout of more than 32
-    spheres."""
+    BVH, environment, texture atlas and instanced groups (``instanced``:
+    a sequence of ``instance_group`` dicts), with the K3b layout of more
+    than 32 spheres."""
     opt = lambda key, fn: None if d.get(key) is None else fn(d[key])
     spheres = opt("spheres", lambda x: _build(SpheresSoA, x, device))
     return SceneArrays(
@@ -88,7 +101,9 @@ def scene_arrays(d: dict, device="cuda") -> SceneArrays:
             lambda x: torch.tensor(np.asarray(x, np.int32).reshape(-1),
                                    device=device)),
         sphere_groups=None if spheres is None
-        else primitives.groups_of(spheres))
+        else primitives.groups_of(spheres),
+        instanced=tuple(instance_group(g, device)
+                        for g in d.get("instanced") or ()))
 
 
 _UNIFORM_SCALARS = ("environment_", "firefly_", "throughput_", "specular_",
@@ -140,4 +155,6 @@ def to_numpy(obj):
                 for f in dataclasses.fields(obj)}
     if torch.is_tensor(obj):
         return obj.cpu().numpy()
+    if isinstance(obj, tuple):
+        return tuple(to_numpy(x) for x in obj)
     return obj

@@ -202,6 +202,66 @@ __device__ __forceinline__ Hit rebuild_hit(const float* shade_packed, int tri,
       ray_o, ray_d, t, u, v);
 }
 
+// The port-internal family code of flat placement 0 of the instanced
+// groups (ops/intersect.py KIND_INSTANCE): a lane's family KIND_INSTANCE + k
+// names row k of the instance table (schema.InstanceTable, 32 floats:
+// world -> local rows, normal matrix at 12-20, then as int bits the
+// material at 21, the object-triangle offset at 26, the global instance id
+// at 27).
+#define KIND_INSTANCE 4
+
+// x @ nrm.T with the 3x3 matrix at m (row-major): a 3-term dot per row
+__device__ __forceinline__ V3 mat3_rows(const float* m, V3 x) {
+  return v3(dot3(x, v3(m[0], m[1], m[2])), dot3(x, v3(m[3], m[4], m[5])),
+            dot3(x, v3(m[6], m[7], m[8])));
+}
+
+// traversal.instanced_record for one lane (ops/traversal.py _trace_group's
+// arithmetic): the object-space shade_packed row of the placement's group
+// (inst_shade: the groups' rows one after the other) gives the world-space
+// point, the geometric normal cross(v1 - v0, v2 - v0) mapped by the normal
+// matrix, normalised and faced, and the shading normal interpolated with
+// the clamped weights over their sum, mapped, flipped to the faced normal
+// and finite-checked; the placement's material, its global instance id as
+// the mesh.
+__device__ inline Hit rebuild_instanced(const float* table,
+                                        const float* inst_shade, int k,
+                                        int tri, V3 ray_o, V3 ray_d, float t,
+                                        float u, float v) {
+  const float* row_k = table + 32LL * k;
+  const float* nrm = row_k + 12;
+  TriRow row = load_tri_row(
+      inst_shade, __float_as_int(__ldg(row_k + 26)) + tri,
+      tri_row_tail(inst_shade, __float_as_int(__ldg(row_k + 26)) + tri));
+  V3 v0 = row_v0(row), v1 = row_v1(row), v2 = row_v2(row);
+  V3 n0 = v3(row.c.y, row.c.z, row.c.w);
+  V3 n1 = v3(row.d.x, row.d.y, row.d.z);
+  V3 n2 = v3(row.d.w, row.e.x, row.e.y);
+  Hit h;
+  h.is_tri = true;
+  h.two_sided = false;
+  h.material = __float_as_int(__ldg(row_k + 21));
+  h.mesh = __float_as_int(__ldg(row_k + 27));
+  h.point = fma3(t, ray_d, ray_o);
+  V3 geo_w = safe_normalize3(mat3_rows(nrm, cross3(v1 - v0, v2 - v0)));
+  h.front = dot3(ray_d, geo_w) < 0.0f;
+  h.n_faced = sel(h.front, geo_w, -geo_w);
+  float w0 = cmin((1.0f - u) - v, 0.0f), w1 = cmin(u, 0.0f),
+        w2 = cmin(v, 0.0f);
+  float w_sum = cmin((w0 + w1) + w2, 1e-8f);
+  V3 sn_l = v3(fmaf_rn(w2, n2.x, fmaf_rn(w0, n0.x, w1 * n1.x)) / w_sum,
+               fmaf_rn(w2, n2.y, fmaf_rn(w0, n0.y, w1 * n1.y)) / w_sum,
+               fmaf_rn(w2, n2.z, fmaf_rn(w0, n0.z, w1 * n1.z)) / w_sum);
+  V3 sn = mat3_rows(nrm, sn_l);
+  bool sn_ok = finite3(sn) && dot3(sn, sn) > 0.0f;
+  sn = dot3(sn, h.n_faced) < 0.0f ? -sn : sn;
+  h.shading_rec = sel(sn_ok, safe_normalize3(sn), h.n_faced);
+  h.shading_n = h.shading_rec;
+  if (!finite3(h.shading_n) || dot3(h.shading_n, h.shading_n) <= 0.0f)
+    h.shading_n = h.n_faced;
+  return h;
+}
+
 // value k of lane i in a plane-major (k, n) float32 array
 __device__ __forceinline__ float plane_at(const float* p, int n,
                                           long long i, int k) {

@@ -40,7 +40,12 @@
 // and the stored rectangle normal, each faced toward the ray, are also the
 // shading normal; spheres are two-sided, rectangles as stored; only
 // triangles set the self-hit exclusion ids (shade.py:1966-1988,
-// 2012-2018, 2132-2143, 2449).
+// 2012-2018, 2132-2143, 2449). A placement of an instanced mesh (family
+// KIND_INSTANCE + k) is rebuilt here too, from its group's object-space
+// shade_packed row and its instance-table row (common.cuh
+// rebuild_instanced), where the TPU kernel takes XLA's precomputed normal
+// ("flavor 2" rows, shade.py:1969-2015): its mesh is the global instance
+// id and its material the placement's.
 // In a textured scene every stage reads the texture stage's 15 planes
 // (csrc/texture.cu, plane-major: (15, n); a NULL pointer otherwise): lanes
 // whose tpbr flag
@@ -140,6 +145,8 @@ struct Geo {
   const float* rect_normal;   // (R, 3)
   const int* rect_material;
   const float* rect_two_sided;
+  const float* inst_table;    // (K, 32) schema.InstanceTable; NULL: none
+  const float* inst_shade;    // the groups' object-space shade_packed rows
 };
 
 // intersect.analytic_record for one lane: the point o + t d (x and y
@@ -177,6 +184,9 @@ __device__ __forceinline__ Hit rebuild(const Geo& g, long long i, V3 ray_o,
   if (kind == PRIM_TRIANGLE)
     return rebuild_hit(g.shade_packed, g.idx[i], ray_o, ray_d, g.t[i], g.u[i],
                        g.v[i]);
+  if (kind >= KIND_INSTANCE)
+    return rebuild_instanced(g.inst_table, g.inst_shade, kind - KIND_INSTANCE,
+                             g.idx[i], ray_o, ray_d, g.t[i], g.u[i], g.v[i]);
   return rebuild_analytic(g, kind, g.idx[i], ray_o, ray_d, g.t[i]);
 }
 
@@ -647,6 +657,9 @@ __device__ __forceinline__ int hit_material(const Geo& g, long long i,
   int kind = g.kind == nullptr ? PRIM_TRIANGLE : g.kind[i];
   if (kind == PRIM_TRIANGLE)
     return (int)tri_row_tail(g.shade_packed, idx).z;
+  if (kind >= KIND_INSTANCE)
+    return __float_as_int(
+        __ldg(g.inst_table + 32LL * (kind - KIND_INSTANCE) + 21));
   return kind == PRIM_SPHERE ? g.sph_material[idx] : g.rect_material[idx];
 }
 
@@ -1051,7 +1064,8 @@ ShadeParams shade_params_of(const float* s) {
 
 // kernels/shade.py _geo_pointers: t, index, u, v, family (NULL: all
 // triangles), shade_packed, sphere centre, radius, material, rectangle
-// normal, material, two-sidedness
+// normal, material, two-sidedness, instance table and the instanced
+// groups' shade_packed rows
 Geo geo_of(void* const* q) {
   Geo g;
   g.t = (const float*)q[0];
@@ -1066,6 +1080,8 @@ Geo geo_of(void* const* q) {
   g.rect_normal = (const float*)q[9];
   g.rect_material = (const int*)q[10];
   g.rect_two_sided = (const float*)q[11];
+  g.inst_table = (const float*)q[12];
+  g.inst_shade = (const float*)q[13];
   return g;
 }
 

@@ -33,6 +33,13 @@
 // the libm log2f and the plain version's torch.log2 may differ in the
 // last place, which can move a LOD, so planes are compared with a
 // tolerance and the state and flags exactly.
+//
+// A lane that hit a placement of an instanced mesh (family KIND_INSTANCE +
+// k, Inst below) takes its hit record from common.cuh rebuild_instanced
+// (world-space normals, the placement's material) and, as the JAX
+// package's XLA stage does (ops/pbr_textures.py:177-211: the instanced
+// record says PRIMITIVE_TRIANGLE), the UVs, tangents and Igehy triangle
+// of the SOUP triangle at clip(object triangle, 0, soup count - 1).
 #include "bsdf.cuh"
 
 #define N_TEX 15
@@ -242,6 +249,16 @@ __device__ F4 slot_sample(const TexParams& p, const Atlas& A,
   return sample_texture(A, tid, u, v, lod);
 }
 
+// The instanced meshes of the scene: each lane's family (NULL: no
+// instanced meshes), the instance table and the groups' object-space
+// shade_packed rows, and the soup's triangle count
+struct Inst {
+  const int* kind;
+  const float* table;
+  const float* shade;
+  int n_soup;
+};
+
 // The texture stage of one lane: fills out, its 15 planes, which stay
 // the identity (zero, tpbr 0) unless the lane is alive and hit a PBR
 // material; commits the BLEND draw to the state
@@ -250,21 +267,33 @@ __device__ __forceinline__ void texture_lane(
     const float* hit_u, const float* hit_v, const float* mat_table,
     int m_count, long long* state, const float* ray_o, const float* ray_d,
     const bool* alive, const float* cone_w, const float* cone_s,
-    const TriAttrs& tris, const Atlas& A, float* out) {
+    const TriAttrs& tris, const Atlas& A, const Inst& I, float* out) {
   const float* const* attrs = tris.p;
   if (!alive[i]) return;
   int tri = hit_tri[i];
   if (tri < 0) return;
+  int k = I.kind == nullptr ? -1 : I.kind[i] - KIND_INSTANCE;
   // the material first: a non-PBR hit reads no more of its row
   const float* shade_packed = attrs[0];
-  float4 tail = tri_row_tail(shade_packed, tri);
-  int mid = min(max((int)tail.z, 0), m_count - 1);
+  int mid;
+  float4 tail;
+  if (k >= 0) {
+    mid = __float_as_int(__ldg(I.table + 32LL * k + 21));
+    tri = min(tri, I.n_soup - 1);   // the soup triangle's attributes
+    tail = tri_row_tail(shade_packed, tri);
+  } else {
+    tail = tri_row_tail(shade_packed, tri);
+    mid = (int)tail.z;
+  }
+  mid = min(max(mid, 0), m_count - 1);
   const float* mat = mat_table + (long long)TEX_MAT_COLS * mid;
   if ((int)mat[0] != MAT_PBR) return;
   TriRow row = load_tri_row(shade_packed, tri, tail);
   float t = hit_t[i], bu = hit_u[i], bv = hit_v[i];
   V3 d = load3(ray_d, i);
-  Hit h = rebuild_hit_row(row, load3(ray_o, i), d, t, bu, bv);
+  Hit h = k >= 0 ? rebuild_instanced(I.table, I.shade, k, hit_tri[i],
+                                     load3(ray_o, i), d, t, bu, bv)
+                 : rebuild_hit_row(row, load3(ray_o, i), d, t, bu, bv);
 
   // ---- corners, barycentric weights, footprint ----------------------
   V3 v0 = row_v0(row), v1 = row_v1(row), v2 = row_v2(row);
@@ -432,7 +461,7 @@ __global__ void texture_stage_kernel(
     int m_count, long long* __restrict__ state,
     const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     const bool* __restrict__ alive, const float* __restrict__ cone_w,
-    const float* __restrict__ cone_s, TriAttrs tris, Atlas A,
+    const float* __restrict__ cone_s, TriAttrs tris, Atlas A, Inst I,
     float* __restrict__ planes) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -440,7 +469,7 @@ __global__ void texture_stage_kernel(
 #pragma unroll
   for (int k = 0; k < N_TEX; ++k) out[k] = 0.0f;
   texture_lane(i, p, hit_t, hit_tri, hit_u, hit_v, mat_table, m_count, state,
-               ray_o, ray_d, alive, cone_w, cone_s, tris, A, out);
+               ray_o, ray_d, alive, cone_w, cone_s, tris, A, I, out);
 #pragma unroll
   for (int k = 0; k < N_TEX; ++k) planes[(long long)k * n + i] = out[k];
 }
@@ -455,6 +484,7 @@ extern "C" int mpt_texture_stage(int n, const float* s, const void* t,
                                  int m_count, void* const* carry,
                                  void* const* attrs, void* const* atlas,
                                  int n_textures, int max_levels,
+                                 void* const* inst, int n_soup,
                                  void* planes, void* stream) {
   if (n <= 0) return 0;
   TexParams p;
@@ -485,12 +515,17 @@ extern "C" int mpt_texture_stage(int n, const float* s, const void* t,
   A.max_levels = max_levels;
   TriAttrs tris;
   for (int k = 0; k < 10; ++k) tris.p[k] = (const float*)attrs[k];
+  Inst I;
+  I.kind = (const int*)inst[0];
+  I.table = (const float*)inst[1];
+  I.shade = (const float*)inst[2];
+  I.n_soup = n_soup;
   texture_stage_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                          (cudaStream_t)stream>>>(
       n, p, (const float*)t, (const int*)tri, (const float*)u,
       (const float*)v, (const float*)mat_table, m_count,
       (long long*)carry[0], (const float*)carry[1], (const float*)carry[2],
       (const bool*)carry[3], (const float*)carry[4], (const float*)carry[5],
-      tris, A, (float*)planes);
+      tris, A, I, (float*)planes);
   return (int)cudaGetLastError();
 }

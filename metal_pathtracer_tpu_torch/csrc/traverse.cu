@@ -68,6 +68,22 @@
 // more int per visited node (its left sibling, BvhSoA.left_sibling) and
 // writes 32 bytes per launch; it changes no t, tri, u, v or occlusion bit.
 // STATS=false is the kernel without any of it.
+//
+// Instanced meshes (trace_instanced_closest_kernel,
+// trace_instanced_any_kernel) replace the same TPU kernel where the JAX
+// package launches it once per placement of a shared object-space mesh
+// (ops/traversal.py trace_instanced:241 -> _trace_group:286, and
+// trace_instanced_occluded:364), a Python loop of I launches a trace. Here
+// one launch covers every placement of every group: the groups' nodes and
+// slot records lie one after the other (schema.InstanceTable), each
+// placement's row holds its world -> local rows and its group's offsets,
+// and each lane runs the same walks (walk_closest, walk_any) once per
+// placement, in the JAX order, its ray mapped into object space in
+// registers. The bound is again the dependent reads: a lane walks every
+// placement's tree, so its slab tests add up over the placements (a TLAS
+// over the placements, which skips those the ray misses, is speed work
+// with a parity argument of its own: ROADMAP). The table is 128 bytes a
+// placement, read through the read-only cache by every lane.
 #include "common.cuh"
 
 #define MAX_LEAF 4
@@ -173,13 +189,14 @@ __device__ __forceinline__ void add_counts(const Counts& c,
 // The live-lane list: lanes with tmax >= t_min (NaN and empty windows are
 // dead), appended in warp order at list[0..counters[0]) with one atomic
 // per block; a dead lane gets its output here: (tmax, -1, 0, 0) for the
-// closest-hit walk (out_t non-null), false for the any-hit walk.
+// closest-hit walk (out_t non-null; and placement -1 where out_inst is
+// non-null), false for the any-hit walk.
 __global__ void __launch_bounds__(LIST_BLOCK) live_lanes_kernel(
     int n, const float* __restrict__ tmax, float t_min,
     int* __restrict__ counters, int* __restrict__ list,
     float* __restrict__ out_t, int* __restrict__ out_tri,
     float* __restrict__ out_u, float* __restrict__ out_v,
-    bool* __restrict__ out_occluded) {
+    int* __restrict__ out_inst, bool* __restrict__ out_occluded) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   float tm = i < n ? tmax[i] : 0.0f;
   bool live = i < n && tm >= t_min;
@@ -190,30 +207,26 @@ __global__ void __launch_bounds__(LIST_BLOCK) live_lanes_kernel(
       out_tri[i] = -1;
       out_u[i] = 0.0f;
       out_v[i] = 0.0f;
+      if (out_inst != nullptr) out_inst[i] = -1;
     } else {
       out_occluded[i] = false;
     }
   }
 }
 
-// the closest-hit walk of live lane i
+// The closest-hit walk of one ray (o, d) through one tree from its root,
+// against the running best (t, tri, u, v), which it updates in place;
+// returns whether it found a nearer hit. The (mesh, prim) pair is the one
+// triangle the ray must skip.
 template <bool STATS>
-__device__ __forceinline__ void closest_lane(
-    int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-    float t_min, const float* __restrict__ tmax,
-    const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
-    int n_nodes, const float4* __restrict__ nodes, int n_slots,
-    const float4* __restrict__ recs, float* __restrict__ out_t,
-    int* __restrict__ out_tri, float* __restrict__ out_u,
-    float* __restrict__ out_v, const int* __restrict__ left_sib,
+__device__ __forceinline__ bool walk_closest(
+    V3 o, V3 d, float t_min, int ex_mesh, int ex_prim, int n_nodes,
+    const float4* __restrict__ nodes, int n_slots,
+    const float4* __restrict__ recs, float* best_t_io, int* best_tri_io,
+    float* best_u_io, float* best_v_io, const int* __restrict__ left_sib,
     Counts* cnt) {
-  float best_t = tmax[i];
-  int best_tri = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  V3 o = load3(ray_o, i);
-  V3 d = load3(ray_d, i);
-  int ex_mesh = excl_mesh[i];
-  int ex_prim = excl_prim[i];
+  float best_t = *best_t_io;
+  bool found = false;
   float inv[3];
   inverse_dir(d, inv);
   float oo[3] = {o.x, o.y, o.z};
@@ -262,13 +275,35 @@ __device__ __forceinline__ void closest_lane(
       }
       if (any_valid && kt < best_t) {
         best_t = kt;
-        best_tri = kid;
-        best_u = ku;
-        best_v = kv;
+        *best_tri_io = kid;
+        *best_u_io = ku;
+        *best_v_io = kv;
+        found = true;
       }
     }
     node = (hit_box && pcount == 0) ? node + 1 : __float_as_int(lo.w);
   }
+  *best_t_io = best_t;
+  return found;
+}
+
+// the closest-hit walk of live lane i
+template <bool STATS>
+__device__ __forceinline__ void closest_lane(
+    int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax,
+    const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
+    int n_nodes, const float4* __restrict__ nodes, int n_slots,
+    const float4* __restrict__ recs, float* __restrict__ out_t,
+    int* __restrict__ out_tri, float* __restrict__ out_u,
+    float* __restrict__ out_v, const int* __restrict__ left_sib,
+    Counts* cnt) {
+  float best_t = tmax[i];
+  int best_tri = -1;
+  float best_u = 0.0f, best_v = 0.0f;
+  walk_closest<STATS>(load3(ray_o, i), load3(ray_d, i), t_min, excl_mesh[i],
+                      excl_prim[i], n_nodes, nodes, n_slots, recs, &best_t,
+                      &best_tri, &best_u, &best_v, left_sib, cnt);
   out_t[i] = best_t;
   out_tri[i] = best_tri;
   out_u[i] = best_u;
@@ -300,18 +335,15 @@ __global__ void __launch_bounds__(BLOCK, STATS ? 6 : 8) trace_closest_kernel(
   if constexpr (STATS) add_counts(cnt, stats);
 }
 
-// the any-hit walk of live lane i
+// The any-hit walk of one ray through one tree: whether a triangle lies
+// at t in [t_min, t_max), stopping at the first one found.
 template <bool STATS>
-__device__ __forceinline__ void any_lane(
-    int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-    float t_min, const float* __restrict__ tmax, int n_nodes,
+__device__ __forceinline__ bool walk_any(
+    V3 o, V3 d, float t_min, float t_max, int n_nodes,
     const float4* __restrict__ nodes, int n_slots,
-    const float4* __restrict__ recs, bool* __restrict__ out_occluded,
-    const int* __restrict__ left_sib, Counts* cnt) {
-  float t_max = tmax[i];
+    const float4* __restrict__ recs, const int* __restrict__ left_sib,
+    Counts* cnt) {
   bool occluded = false;
-  V3 o = load3(ray_o, i);
-  V3 d = load3(ray_d, i);
   float inv[3];
   inverse_dir(d, inv);
   float oo[3] = {o.x, o.y, o.z};
@@ -344,7 +376,20 @@ __device__ __forceinline__ void any_lane(
     }
     node = (hit_box && pcount == 0) ? node + 1 : __float_as_int(lo.w);
   }
-  out_occluded[i] = occluded;
+  return occluded;
+}
+
+// the any-hit walk of live lane i
+template <bool STATS>
+__device__ __forceinline__ void any_lane(
+    int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax, int n_nodes,
+    const float4* __restrict__ nodes, int n_slots,
+    const float4* __restrict__ recs, bool* __restrict__ out_occluded,
+    const int* __restrict__ left_sib, Counts* cnt) {
+  out_occluded[i] =
+      walk_any<STATS>(load3(ray_o, i), load3(ray_d, i), t_min, tmax[i],
+                      n_nodes, nodes, n_slots, recs, left_sib, cnt);
 }
 
 template <bool STATS>
@@ -368,22 +413,134 @@ __global__ void __launch_bounds__(BLOCK, STATS ? 6 : 8) trace_any_kernel(
   if constexpr (STATS) add_counts(cnt, stats);
 }
 
+// ---- Instanced meshes --------------------------------------------------
+// One row of the instance table (schema.InstanceTable, 32 floats, read as
+// float4s): rows 0-2 the world -> local affine rows, then the normal
+// matrix (floats 12-20) and, as int bits, the material (21), the group's
+// node offset and count (22, 23), slot offset and count (24, 25), object
+// triangle offset (26) and the global instance id (27).
+struct Placement {
+  float4 r0, r1, r2;
+  int node_off, n_nodes, slot_off, n_slots, inst_id;
+};
+__device__ __forceinline__ Placement load_placement(
+    const float4* __restrict__ table, int k) {
+  const float4* row = table + 8 * k;
+  Placement p;
+  p.r0 = __ldg(row);
+  p.r1 = __ldg(row + 1);
+  p.r2 = __ldg(row + 2);
+  float4 a = __ldg(row + 5), b = __ldg(row + 6);
+  p.node_off = __float_as_int(a.z);
+  p.n_nodes = __float_as_int(a.w);
+  p.slot_off = __float_as_int(b.x);
+  p.n_slots = __float_as_int(b.y);
+  p.inst_id = __float_as_int(b.w);
+  return p;
+}
+// kernels/traverse.py object_ray: a 3-term dot per component (XLA:CPU's
+// jitted (N,3) x (3,3) product), the translation added unfused
+__device__ __forceinline__ void object_ray(const Placement& p, V3 o, V3 d,
+                                           V3* o_l, V3* d_l) {
+  V3 a = v3(p.r0.x, p.r0.y, p.r0.z), b = v3(p.r1.x, p.r1.y, p.r1.z),
+     c = v3(p.r2.x, p.r2.y, p.r2.z);
+  *o_l = v3(dot3(o, a) + p.r0.w, dot3(o, b) + p.r1.w, dot3(o, c) + p.r2.w);
+  *d_l = v3(dot3(d, a), dot3(d, b), dot3(d, c));
+}
+
+// The instanced closest-hit walk of live lane i: placement after placement
+// in the table's order (the JAX package's), the ray mapped into the
+// placement's object space in registers, the group's tree walked against
+// the running best with the exclusion only where the previous hit was this
+// placement (object triangle ids repeat across placements; a group's slot
+// records carry mesh 0), a hit kept only when strictly nearer.
+__global__ void __launch_bounds__(BLOCK, 8) trace_instanced_closest_kernel(
+    const int* __restrict__ list, int* __restrict__ counters,
+    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax,
+    const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
+    int n_inst, const float4* __restrict__ table,
+    const float4* __restrict__ nodes, const float4* __restrict__ recs,
+    float* __restrict__ out_t, int* __restrict__ out_tri,
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    int* __restrict__ out_inst) {
+  const int n_live = counters[0];
+  for (;;) {
+    int k = next_batch(counters + 1);
+    if (k >= n_live) break;
+    k += threadIdx.x & 31;
+    if (k >= n_live) continue;
+    int i = list[k];
+    float best_t = tmax[i];
+    int best_tri = -1, best_inst = -1;
+    float best_u = 0.0f, best_v = 0.0f;
+    V3 o = load3(ray_o, i), d = load3(ray_d, i);
+    int ex_mesh = excl_mesh[i], ex_prim = excl_prim[i];
+    for (int q = 0; q < n_inst; ++q) {
+      Placement p = load_placement(table, q);
+      V3 o_l, d_l;
+      object_ray(p, o, d, &o_l, &d_l);
+      int ex_p = ex_mesh == p.inst_id ? ex_prim : -1;
+      if (walk_closest<false>(o_l, d_l, t_min, 0, ex_p, p.n_nodes,
+                              nodes + 2LL * p.node_off, p.n_slots,
+                              recs + 3LL * p.slot_off, &best_t, &best_tri,
+                              &best_u, &best_v, nullptr, nullptr))
+        best_inst = q;
+    }
+    out_t[i] = best_t;
+    out_tri[i] = best_tri;
+    out_u[i] = best_u;
+    out_v[i] = best_v;
+    out_inst[i] = best_inst;
+  }
+}
+
+// The instanced any-hit walk: placement after placement until one
+// occludes, each walked with the lane's own window.
+__global__ void __launch_bounds__(BLOCK, 8) trace_instanced_any_kernel(
+    const int* __restrict__ list, int* __restrict__ counters,
+    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax, int n_inst,
+    const float4* __restrict__ table, const float4* __restrict__ nodes,
+    const float4* __restrict__ recs, bool* __restrict__ out_occluded) {
+  const int n_live = counters[0];
+  for (;;) {
+    int k = next_batch(counters + 1);
+    if (k >= n_live) break;
+    k += threadIdx.x & 31;
+    if (k >= n_live) continue;
+    int i = list[k];
+    float t_max = tmax[i];
+    V3 o = load3(ray_o, i), d = load3(ray_d, i);
+    bool occluded = false;
+    for (int q = 0; q < n_inst && !occluded; ++q) {
+      Placement p = load_placement(table, q);
+      V3 o_l, d_l;
+      object_ray(p, o, d, &o_l, &d_l);
+      occluded = walk_any<false>(o_l, d_l, t_min, t_max, p.n_nodes,
+                                 nodes + 2LL * p.node_off, p.n_slots,
+                                 recs + 3LL * p.slot_off, nullptr, nullptr);
+    }
+    out_occluded[i] = occluded;
+  }
+}
+
 // zero the two counters (live count, fetch position) at scratch[0..1] and
 // list the live lanes at scratch[2..n+2)
 int list_live(int n, const void* tmax, float t_min, int* scratch,
               void* out_t, void* out_tri, void* out_u, void* out_v,
-              void* out_occluded, cudaStream_t stream) {
+              void* out_inst, void* out_occluded, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   live_lanes_kernel<<<(n + LIST_BLOCK - 1) / LIST_BLOCK, LIST_BLOCK, 0,
                       stream>>>(n, (const float*)tmax, t_min, scratch,
                                 scratch + 2, (float*)out_t, (int*)out_tri,
                                 (float*)out_u, (float*)out_v,
-                                (bool*)out_occluded);
+                                (int*)out_inst, (bool*)out_occluded);
   return (int)cudaGetLastError();
 }
 
-int grid_cache[4];
+int grid_cache[6];
 
 }  // namespace
 
@@ -400,7 +557,7 @@ extern "C" int mpt_trace_any(
   cudaStream_t s = (cudaStream_t)stream;
   int* sc = (int*)scratch;
   int err = list_live(n, tmax, t_min, sc, nullptr, nullptr, nullptr, nullptr,
-                      out_occluded, s);
+                      nullptr, out_occluded, s);
   if (err != 0) return err;
   bool counting = stats != nullptr;
   auto kernel = counting ? trace_any_kernel<true> : trace_any_kernel<false>;
@@ -424,7 +581,7 @@ extern "C" int mpt_trace_closest(
   cudaStream_t s = (cudaStream_t)stream;
   int* sc = (int*)scratch;
   int err = list_live(n, tmax, t_min, sc, out_t, out_tri, out_u, out_v,
-                      nullptr, s);
+                      nullptr, nullptr, s);
   if (err != 0) return err;
   bool counting = stats != nullptr;
   auto kernel =
@@ -437,5 +594,51 @@ extern "C" int mpt_trace_closest(
       n_nodes, (const float4*)nodes, n_slots, (const float4*)recs,
       (float*)out_t, (int*)out_tri, (float*)out_u, (float*)out_v,
       (const int*)left_sib, (unsigned long long*)stats);
+  return (int)cudaGetLastError();
+}
+
+// One launch over every placement of every instanced group: `table` the
+// n_inst rows of schema.InstanceTable, `nodes` / `recs` the groups'
+// packed nodes and slot records one after the other; out_inst the flat
+// placement index of each lane's hit (-1: none). `scratch` as above.
+extern "C" int mpt_trace_instanced_closest(
+    int n, const void* ray_o, const void* ray_d, float t_min,
+    const void* tmax, const void* excl_mesh, const void* excl_prim,
+    int n_inst, const void* table, const void* nodes, const void* recs,
+    void* out_t, void* out_tri, void* out_u, void* out_v, void* out_inst,
+    void* scratch, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  int* sc = (int*)scratch;
+  int err = list_live(n, tmax, t_min, sc, out_t, out_tri, out_u, out_v,
+                      out_inst, nullptr, s);
+  if (err != 0) return err;
+  int grid = persistent_grid(trace_instanced_closest_kernel, BLOCK,
+                             &grid_cache[4], n);
+  trace_instanced_closest_kernel<<<grid, BLOCK, 0, s>>>(
+      sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
+      (const float*)tmax, (const int*)excl_mesh, (const int*)excl_prim,
+      n_inst, (const float4*)table, (const float4*)nodes,
+      (const float4*)recs, (float*)out_t, (int*)out_tri, (float*)out_u,
+      (float*)out_v, (int*)out_inst);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mpt_trace_instanced_any(
+    int n, const void* ray_o, const void* ray_d, float t_min,
+    const void* tmax, int n_inst, const void* table, const void* nodes,
+    const void* recs, void* out_occluded, void* scratch, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  int* sc = (int*)scratch;
+  int err = list_live(n, tmax, t_min, sc, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, out_occluded, s);
+  if (err != 0) return err;
+  int grid = persistent_grid(trace_instanced_any_kernel, BLOCK,
+                             &grid_cache[5], n);
+  trace_instanced_any_kernel<<<grid, BLOCK, 0, s>>>(
+      sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
+      (const float*)tmax, n_inst, (const float4*)table,
+      (const float4*)nodes, (const float4*)recs, (bool*)out_occluded);
   return (int)cudaGetLastError();
 }

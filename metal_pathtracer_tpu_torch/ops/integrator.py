@@ -3,11 +3,11 @@
 ``trace_paths`` covers every material type (lambert, metal, dielectric,
 plastic, carpaint, subsurface in its three modes, PBR, diffuse lights,
 ``emission_env`` lights under an environment map) over triangles,
-spheres and rectangles, with the medium stack and the texture stage, in
-two depth loops of ``ops/kernels/shade.py``:
+spheres, rectangles and placements of instanced meshes, with the medium
+stack and the texture stage, in two depth loops of ``ops/kernels/shade.py``:
 
 - without a light integral (the gradient or solid background and no
-  emissive rectangle): one merged trace (K1, K3), the texture stage in a
+  emissive rectangle): one merged trace (K1, K1 instanced, K3), the texture stage in a
   textured scene, the random walk on its lanes, and one K2 ``full`` shade
   per depth; a diffuse light hit emits and ends its path;
 - with one or two light integrals, rect lights (NEE sampled from
@@ -18,7 +18,6 @@ two depth loops of ``ops/kernels/shade.py``:
   lights; MNEE's secondary chain from s2's fork-state export) per depth.
 
 ``debugSpecularOnly`` runs through K2 (a runtime flag of every stage).
-Mesh instances raise where a scene adds one.
 """
 
 from __future__ import annotations
@@ -138,7 +137,8 @@ def rect_nee(scene: SceneArrays) -> bool:
 
 def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
     """Raise NotImplementedError for configurations not ported yet."""
-    if scene.n_triangles + scene.n_spheres + scene.n_rects == 0:
+    if scene.n_triangles + scene.n_spheres + scene.n_rects \
+            + scene.n_instances == 0:
         raise NotImplementedError("a scene without any primitive")
 
 

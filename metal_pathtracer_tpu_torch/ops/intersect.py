@@ -1,10 +1,18 @@
 """Hit records and scene tracing (``ops/intersect.py`` twin).
 
-Nearest hits go through K1 closest-hit (triangles), K3a or K3b (spheres)
-and K3c (rectangles), shadow rays through K1 any-hit and the same K3
-kernels with the shadow window. ``trace_merged`` folds the families in
-the reference's order and returns each lane's winner as (t, index, u, v,
-family); ``trace_scene`` turns that into a full ``HitRecord``.
+Nearest hits go through K1 closest-hit (triangles), K1 instanced
+(placements of instanced meshes), K3a or K3b (spheres) and K3c
+(rectangles), shadow rays through K1 any-hit, K1 instanced any-hit and
+the same K3 kernels with the shadow window. ``trace_merged`` folds the
+families in the reference's order and returns each lane's winner as (t,
+index, u, v, family); ``trace_scene`` turns that into a full
+``HitRecord`` (``hit_record``).
+
+The family of an instanced hit is a port-internal code, not a
+``PRIMITIVE_*`` id: ``KIND_INSTANCE + k`` for flat placement k (row k of
+``schema.InstanceTable``), with the object triangle as its index, so the
+five (N,) planes carry the placement too and no sixth is needed. Its
+``HitRecord`` says ``PRIMITIVE_TRIANGLE``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -120,17 +128,26 @@ def analytic_record(origin, direction, t, idx, kind, scene) -> HitRecord:
         barycentric=torch.zeros(shape + (2,), device=dev)))
 
 
+#: the family code of flat placement 0 of the instanced groups
+KIND_INSTANCE = 4
+
+
 def trace_merged(origin, direction, scene, t_min, t_max, exclude_mesh=None,
                  exclude_prim=None):
     """Nearest hit over every primitive family: (t, index, u, v, family).
 
-    ``family`` is the winner's ``PRIMITIVE_*`` id (0 on a miss) and
-    ``index`` its index within the family (-1 on a miss); u, v are the
-    triangle's barycentrics (0 otherwise). The fold is ``trace_scene``'s
-    (``intersect.py:277-300``; ``shade.py _trace_merged:2641-2755``):
-    spheres, then rectangles, then triangles, each later family taking a
-    lane only when strictly nearer, so an exact-t tie goes to the sphere,
-    then the rectangle. The self-hit exclusion applies to triangles only.
+    ``family`` is the winner's ``PRIMITIVE_*`` id (0 on a miss), or
+    ``KIND_INSTANCE + k`` for placement k of an instanced mesh, and
+    ``index`` its index within the family (the object triangle of an
+    instanced hit; -1 on a miss); u, v are the triangle's barycentrics (0
+    otherwise). The fold is ``trace_scene``'s (``intersect.py:277-300``;
+    ``shade.py _trace_merged:2641-2755``): spheres, then rectangles, then
+    triangles, then instances, each later family taking a lane only when
+    strictly nearer, so an exact-t tie goes to the sphere, then the
+    rectangle, then the soup triangle. The self-hit exclusion applies to
+    triangles and instances only: a soup triangle's (mesh, triangle) and
+    an instance's (global instance id, object triangle) never name each
+    other, since instance ids start after the soup's mesh ids.
     """
     from metal_pathtracer_tpu_torch.ops.kernels import primitives, traverse
 
@@ -150,6 +167,16 @@ def trace_merged(origin, direction, scene, t_min, t_max, exclude_mesh=None,
     kind = torch.where(idx >= 0, PRIMITIVE_TRIANGLE,
                        PRIMITIVE_NONE).to(torch.int32)
     best_t = torch.where(idx >= 0, t, INFINITY_T)
+    if scene.instanced:
+        it, itri, iu, iv, inst = traverse.trace_instanced_closest(
+            origin, direction, t_min, t_max, scene.instanced, exclude_mesh,
+            exclude_prim)
+        take = (inst >= 0) & ((kind == PRIMITIVE_NONE) | (it < best_t))
+        best_t = torch.where(take, it, best_t)
+        idx = torch.where(take, itri, idx)
+        kind = torch.where(take, KIND_INSTANCE + inst, kind).to(torch.int32)
+        u = torch.where(take, iu, u)
+        v = torch.where(take, iv, v)
     nearest = []
     if scene.n_rects:
         nearest.append((PRIMITIVE_RECTANGLE, primitives.rect_nearest(
@@ -168,27 +195,39 @@ def trace_merged(origin, direction, scene, t_min, t_max, exclude_mesh=None,
     return best_t, idx, u, v, kind
 
 
-def trace_scene(origin, direction, scene, t_min, t_max,
-                exclude_mesh=None, exclude_prim=None) -> HitRecord:
-    """Nearest-hit record over every primitive family (``trace_merged``)."""
+def hit_record(origin, direction, t, idx, u, v, kind, scene) -> HitRecord:
+    """The hit record of each lane's winner of ``trace_merged``: a
+    sphere's or rectangle's from its arrays, a triangle's from its
+    ``shade_packed`` row, an instance's in world space
+    (``traversal.instanced_record``)."""
     from metal_pathtracer_tpu_torch.ops import traversal
 
-    t, idx, u, v, kind = trace_merged(origin, direction, scene, t_min, t_max,
-                                      exclude_mesh, exclude_prim)
     rec = analytic_record(origin, direction, t, idx, kind, scene)
     if scene.n_triangles:
         tri = torch.where(kind == PRIMITIVE_TRIANGLE, idx, -1)
-        tri_rec = traversal._hit_record_from_best(
-            origin, direction, scene.triangles, t, tri, u, v)
-        rec = _closer(rec, tri_rec)
+        rec = _closer(rec, traversal._hit_record_from_best(
+            origin, direction, scene.triangles, t, tri, u, v))
+    if scene.instanced:
+        inst = torch.where(kind >= KIND_INSTANCE, kind - KIND_INSTANCE, -1)
+        rec = _closer(rec, traversal.instanced_record(
+            origin, direction, t, idx, u, v, inst, scene.instanced))
     return rec
+
+
+def trace_scene(origin, direction, scene, t_min, t_max,
+                exclude_mesh=None, exclude_prim=None) -> HitRecord:
+    """Nearest-hit record over every primitive family (``trace_merged``)."""
+    t, idx, u, v, kind = trace_merged(origin, direction, scene, t_min, t_max,
+                                      exclude_mesh, exclude_prim)
+    return hit_record(origin, direction, t, idx, u, v, kind, scene)
 
 
 def trace_occluded(origin, direction, scene, t_min, t_max):
     """Any-hit (shadow) trace over every family: (N,) bool
-    (``intersect.trace_occluded:303``). Triangles take K1 any-hit; spheres
-    and rectangles the nearest kernels with the same window, any index
-    >= 0 (``shade.py _occluded_merged:2758``)."""
+    (``intersect.trace_occluded:303``). Triangles take K1 any-hit and
+    instances K1 instanced any-hit; spheres and rectangles the nearest
+    kernels with the same window, any index >= 0 (``shade.py
+    _occluded_merged:2758``)."""
     from metal_pathtracer_tpu_torch.ops.kernels import primitives, traverse
 
     n = origin.shape[0]
@@ -199,6 +238,9 @@ def trace_occluded(origin, direction, scene, t_min, t_max):
     if scene.n_triangles:
         occ = occ | traverse.trace_any(origin, direction, t_min, t_max,
                                        scene.tri_bvh, scene.triangles)
+    if scene.instanced:
+        occ = occ | traverse.trace_instanced_any(origin, direction, t_min,
+                                                 t_max, scene.instanced)
     if scene.n_spheres:
         occ = occ | (primitives.sphere_nearest(
             origin, direction, t_min, t_max, scene.spheres,

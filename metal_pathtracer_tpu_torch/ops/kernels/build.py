@@ -66,6 +66,16 @@ SIGNATURES = {
     # K2 full's listing pass: n, scalars, geometry pointers, material types
     # (int32), their count, PathCarry pointers, the bucket scratch, stream
     "mpt_full_list": [_i, _vp, _vp, _vp, _i, _vp, _vp, _vp],
+    # n, o, d, t_min, tmax, excl mesh/prim, placements, instance table,
+    # concatenated packed nodes and slot records, out t tri u v inst,
+    # scratch, stream
+    "mpt_trace_instanced_closest": [
+        _i, _vp, _vp, _f, _vp, _vp, _vp, _i, _vp, _vp, _vp,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    # n, o, d, t_min, tmax, placements, table, nodes, records, out flags,
+    # scratch, stream
+    "mpt_trace_instanced_any": [
+        _i, _vp, _vp, _f, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
     "mpt_trace_any": [
         _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
         _i, _vp, _i, _vp,                       # packed nodes, slot records
@@ -86,9 +96,11 @@ SIGNATURES = {
                      _vp, _vp, _vp, _vp, _vp, _vp],
     # n, scalars (host float[]), t tri u v, texture material table, its row
     # count, carry / triangle attribute / atlas pointers (host void*[]),
-    # texture count, levels per texture, output planes, stream
+    # texture count, levels per texture, instanced pointers (host void*[]:
+    # families, instance table, the groups' shade_packed rows; NULL
+    # without instances), soup triangle count, output planes, stream
     "mpt_texture_stage": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                          _vp, _vp, _vp, _i, _i, _vp, _vp],
+                          _vp, _vp, _vp, _i, _i, _vp, _i, _vp, _vp],
     # n, o, d, t_min, t_max, the primitives (K3a, K3c: one packed record
     # each, SpheresSoA.records / RectsSoA.records; K3b: its group arrays),
     # their count, out t, out index, stream

@@ -52,8 +52,13 @@ lane's winning family and index, and K2 rebuilds it. A triangle from its
 raw normal ((p - c) / r, or the stored rectangle normal) faced toward the
 ray as both geometric and shading normal, spheres two-sided and rectangles
 as stored; only triangles set the self-hit exclusion ids
-(``shade.py:1966-1988, 2012-2018, 2132-2143, 2449``). Triangle-only
-scenes pass no family (``kind`` None).
+(``shade.py:1966-1988, 2012-2018, 2132-2143, 2449``). A placement of an
+instanced mesh (family ``intersect.KIND_INSTANCE + k``) is rebuilt in
+world space from its group's object-space row and its instance-table
+row (``traversal.instanced_record``), where the TPU kernel takes XLA's
+precomputed normal (``shade.py:1969-2015``); its exclusion ids are its
+global instance id and object triangle (``integrator.py:701``).
+Triangle-only scenes pass no family (``kind`` None).
 
 In a textured scene every stage reads the texture stage's 15 ``TEX``
 planes (``ops/kernels/texture.py``, plane-major like ``TRANS``;
@@ -104,9 +109,9 @@ from metal_pathtracer_tpu_torch.ops.integrator import (
     to_working_space,
 )
 from metal_pathtracer_tpu_torch.ops.intersect import (
-    _closer,
+    KIND_INSTANCE,
     analytic_point,
-    analytic_record,
+    hit_record,
     offset_origin,
     trace_merged,
     trace_occluded,
@@ -128,6 +133,7 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
     normalize,
     where3,
 )
+from metal_pathtracer_tpu_torch.schema import INST_MAT, instance_table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,16 +212,20 @@ def _mis_weight(pdf_a, pdf_b):
 
 def rebuild_hit(ray_o, ray_d, triangles, t, idx, u, v, kind=None, scene=None):
     """The hit record of each lane's winner: the triangle's from its
-    ``shade_packed`` row, a sphere's or rectangle's from its arrays
-    (``kind`` None: every hit is a triangle)."""
+    ``shade_packed`` row, a sphere's or rectangle's from its arrays, an
+    instance's in world space (``kind`` None: every hit is a triangle)."""
     if kind is None:
         return _hit_record_from_best(ray_o, ray_d, triangles, t, idx, u, v)
-    rec = analytic_record(ray_o, ray_d, t, idx, kind, scene)
-    if triangles is not None and triangles.count:
-        tri = torch.where(kind == C.PRIMITIVE_TRIANGLE, idx, -1)
-        rec = _closer(rec, _hit_record_from_best(ray_o, ray_d, triangles, t,
-                                                 tri, u, v))
-    return rec
+    return hit_record(ray_o, ray_d, t, idx, u, v, kind, scene)
+
+
+def triangle_lanes(idx, kind):
+    """Each lane's triangle, soup or instanced (the texture stage's
+    input), -1 on other lanes."""
+    if kind is None:
+        return idx
+    return torch.where((kind == C.PRIMITIVE_TRIANGLE) | (kind >= KIND_INSTANCE),
+                       idx, -1)
 
 
 def _textured(m, tex, params: ShadeParams):
@@ -531,10 +541,15 @@ def _carry_pointers(carry: PathCarry, n: int, dev, who: str):
 def _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, who: str):
     """The geometry pointer array of ``csrc/shade.cu geo_of``: hit t,
     index, u, v, family, ``shade_packed``, sphere centre, radius and
-    material, rectangle normal, material and two-sidedness (NULL where
-    the scene has none)."""
+    material, rectangle normal, material and two-sidedness, the instance
+    table and the instanced groups' ``shade_packed`` rows (NULL where the
+    scene has none)."""
     spheres = None if scene is None or not scene.n_spheres else scene.spheres
     rects = None if scene is None or not scene.n_rects else scene.rects
+    inst = instance_table(scene.instanced) \
+        if scene is not None and scene.instanced else None
+    if inst is not None and kind is None:
+        raise ValueError(f"{who}: an instanced scene's hits need a family")
     tensors = [t, tri, u, v]
     if kind is not None:
         tensors.append(kind)
@@ -546,6 +561,8 @@ def _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, who: str):
                          (rects, ("normal", "material", "two_sided"))):
         if prims is not None:
             tensors += [getattr(prims, nm) for nm in names]
+    if inst is not None:
+        tensors += [inst.table, inst.shade_packed]
     if any(x.device != dev or not x.is_contiguous() for x in tensors) \
             or tri.dtype != torch.int32 \
             or (kind is not None and kind.dtype != torch.int32):
@@ -553,6 +570,8 @@ def _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, who: str):
                          f"contiguous, on {dev}, with int32 indices")
     if triangles is not None:   # its rows are read as 16-byte loads
         build.check_aligned(who, [triangles.shade_packed], 16)
+    if inst is not None:
+        build.check_aligned(who, [inst.table, inst.shade_packed], 16)
     p = lambda x: None if x is None else x.data_ptr()
     return build.pointers(
         [p(t), p(tri), p(u), p(v), p(kind),
@@ -560,7 +579,9 @@ def _geo_pointers(t, tri, u, v, triangles, kind, scene, dev, who: str):
          *[p(None if spheres is None else getattr(spheres, nm))
            for nm in ("center", "radius", "material")],
          *[p(None if rects is None else getattr(rects, nm))
-           for nm in ("normal", "material", "two_sided")]])
+           for nm in ("normal", "material", "two_sided")],
+         p(None if inst is None else inst.table),
+         p(None if inst is None else inst.shade_packed)])
 
 
 #: material table columns the shade kernels read (``pack_material_table:292``
@@ -862,11 +883,13 @@ full_buckets.launches = 0
 
 def _trace(scene, carry: PathCarry):
     """The closest-hit trace of the wavefront's live lanes with the
-    triangle self-hit exclusion: (t, index, u, v, family or None)."""
+    triangle self-hit exclusion: (t, index, u, v, family or None). A
+    scene of soup triangles alone takes K1 alone (family None); any other
+    family, instanced meshes included, takes the merged trace."""
     ex_mesh = torch.where(carry.prev_valid, carry.prev_mesh, -1)
     ex_prim = torch.where(carry.prev_valid, carry.prev_prim, -1)
     lane_tmax = torch.where(carry.alive, C.INFINITY_T, 0.0)
-    if scene.n_spheres or scene.n_rects:
+    if scene.n_spheres or scene.n_rects or scene.instanced:
         return trace_merged(carry.ray_o, carry.ray_d, scene, C.EPSILON_T,
                             lane_tmax, ex_mesh, ex_prim)
     t, tri, u, v = trace_closest(carry.ray_o, carry.ray_d, C.EPSILON_T,
@@ -974,10 +997,9 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry,
                                                       kind)
         tex = None
         if textured:
-            tri = idx if kind is None else torch.where(
-                kind == C.PRIMITIVE_TRIANGLE, idx, -1)
-            tex = texture_stage(carry, t, tri, u, v, scene, uniforms, static,
-                                depth, tex_params)
+            tex = texture_stage(carry, t, triangle_lanes(idx, kind), u, v,
+                                scene, uniforms, static, depth, tex_params,
+                                kind)
         # the full stage samples from its input state: the walk's fork
         rw, rw_state = random_walks(scene, uniforms, static, carry, t, idx,
                                     u, v, kind)
@@ -1348,9 +1370,13 @@ def light_banks(scene, uniforms, static, trans, t, tex=None):
 
 def hit_material(scene, idx, kind, materials):
     """The material type of each lane's hit from its (kind, index): a
-    triangle's, a sphere's or a rectangle's material (``kind`` None:
-    every hit is a triangle); misses read material 0."""
+    triangle's, a sphere's, a rectangle's or a placement's material
+    (``kind`` None: every hit is a triangle); misses read material 0."""
     mat = torch.zeros_like(idx)
+    if scene.instanced and kind is not None:
+        rows = instance_table(scene.instanced).table.view(torch.int32)
+        k = torch.clamp(kind - KIND_INSTANCE, 0, rows.shape[0] - 1).long()
+        mat = torch.where(kind >= KIND_INSTANCE, rows[k, INST_MAT], mat)
     for family, count, prims in (
             (C.PRIMITIVE_TRIANGLE, scene.n_triangles, scene.triangles),
             (C.PRIMITIVE_SPHERE, scene.n_spheres, scene.spheres),
@@ -1407,11 +1433,10 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
         rec = None if probe is None else _probe_depth(carry, t, idx, u, v,
                                                       kind)
         plane = None if rec is None else rec.plane
-        tri = idx if kind is None else torch.where(
-            kind == C.PRIMITIVE_TRIANGLE, idx, -1)
         # the alpha-BLEND draw lands before s1's NEE draws
-        tex = texture_stage(carry, t, tri, u, v, scene, uniforms, static,
-                            depth, tex_params) if textured else None
+        tex = texture_stage(carry, t, triangle_lanes(idx, kind), u, v, scene,
+                            uniforms, static, depth, tex_params,
+                            kind) if textured else None
         envbg = envpdf = rectpdf = None
         if env is not None:
             # miss lanes read these; every lane computes them

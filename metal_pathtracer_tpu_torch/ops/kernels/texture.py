@@ -18,6 +18,14 @@ commit the alpha-BLEND draw to ``carry.state`` in place
 (``shade.py:3060-3063``), before s1's NEE draws. The launch constants
 (``TexParams``) are built on the host once per frame by the depth loops,
 so a launch makes no device-to-host copy.
+
+Lanes that hit a placement of an instanced mesh (``kind``, family
+``intersect.KIND_INSTANCE + k``) take their hit record from the
+instanced rebuild (world-space normals, the placement's material) and,
+as the JAX package's XLA stage does (``ops/pbr_textures.py:177-211``:
+the record says ``PRIMITIVE_TRIANGLE``), the UVs, tangents and Igehy
+triangle of the SOUP triangle at ``clip(object triangle, 0, soup count
+- 1)``. A scene without a soup runs no texture stage (``:181``).
 """
 
 from __future__ import annotations
@@ -28,9 +36,14 @@ import torch
 
 from metal_pathtracer_tpu_torch import constants as C
 from metal_pathtracer_tpu_torch.ops import pbr_textures
+from metal_pathtracer_tpu_torch.ops.intersect import KIND_INSTANCE, _closer
 from metal_pathtracer_tpu_torch.ops.kernels import build
-from metal_pathtracer_tpu_torch.ops.traversal import _hit_record_from_best
+from metal_pathtracer_tpu_torch.ops.traversal import (
+    _hit_record_from_best,
+    instanced_record,
+)
 from metal_pathtracer_tpu_torch.ops.vecmath import dot, fma, normalize
+from metal_pathtracer_tpu_torch.schema import instance_table
 
 #: texture-stage override planes, s1/s2 read them per lane
 TEX = ["tbr", "tbg", "tbb", "trough", "tmetal", "temr", "temg", "temb",
@@ -61,16 +74,29 @@ def has_textures(scene, static) -> bool:
         C.MATERIAL_PBR in static.material_types
 
 
+def _instanced_lanes(kind, scene):
+    """Each lane's flat placement (-1: not an instanced hit), or None when
+    the scene has no instanced meshes."""
+    if kind is None or not scene.instanced:
+        return None
+    return torch.where(kind >= KIND_INSTANCE, kind - KIND_INSTANCE, -1)
+
+
 def texture_stage_reference(carry, t, tri, u, v, scene, uniforms, static,
-                            depth: int, params=None):
+                            depth: int, params=None, kind=None):
     """Plain PyTorch texture stage (``shade.py _texture_stage:3600`` over
     the port's ``apply_pbr_textures``); see the module docstring. It takes
     ``texture_stage``'s arguments, so that it can stand in for it; the
     launch constants ``params`` it does not need."""
     del params
     d3 = carry.ray_d
-    rec = _hit_record_from_best(carry.ray_o, d3, scene.triangles, t, tri,
+    inst = _instanced_lanes(kind, scene)
+    soup = tri if inst is None else torch.where(inst >= 0, -1, tri)
+    rec = _hit_record_from_best(carry.ray_o, d3, scene.triangles, t, soup,
                                 u, v)
+    if inst is not None:
+        rec = _closer(rec, instanced_record(carry.ray_o, d3, t, tri, u, v,
+                                            inst, scene.instanced))
     hit_world = torch.clamp_min(t, 0.0) * torch.sqrt(
         torch.clamp_min(dot(d3, d3), 1e-12))
     cone = torch.clamp_min(fma(carry.cone_spread, hit_world,
@@ -120,16 +146,18 @@ class TexParams:
 
 
 def texture_stage(carry, t, tri, u, v, scene, uniforms, static, depth: int,
-                  params: TexParams | None = None) -> torch.Tensor:
+                  params: TexParams | None = None, kind=None) -> torch.Tensor:
     """The texture stage of one depth: (N,15) ``TEX`` planes, stored
-    plane-major; commits the BLEND draw to ``carry.state``. CPU tensors
-    take the plain version; CUDA tensors launch ``csrc/texture.cu`` with
-    ``params``, the frame's ``TexParams`` (required there: the launch
-    reads nothing back to the host)."""
+    plane-major; commits the BLEND draw to ``carry.state``. ``tri``: each
+    lane's soup or object triangle (-1 elsewhere), ``kind`` the merged
+    trace's families (needed in a scene with instanced meshes). CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/texture.cu`` with ``params``, the frame's ``TexParams``
+    (required there: the launch reads nothing back to the host)."""
     dev = t.device
     if dev.type == "cpu":
         return texture_stage_reference(carry, t, tri, u, v, scene, uniforms,
-                                       static, depth)
+                                       static, depth, None, kind)
     if dev.type != "cuda":
         raise ValueError(f"texture_stage: unsupported device {dev}")
     if params is None:
@@ -146,6 +174,13 @@ def texture_stage(carry, t, tri, u, v, scene, uniforms, static, depth: int,
     atlas = [tex.texels, tex.level_offset, tex.level_w, tex.level_h,
              tex.n_levels, tex.size0, tex.wrap_mode]
     inputs = [t, tri, u, v, mat_table, *carry_in, *attrs, *atlas]
+    inst = None
+    if scene.instanced:
+        if kind is None or kind.dtype != torch.int32:
+            raise ValueError("texture_stage: an instanced scene needs the "
+                             "int32 families of its hits")
+        inst = instance_table(scene.instanced)
+        inputs += [kind, inst.table, inst.shade_packed]
     if any(x.device != dev or not x.is_contiguous() for x in inputs) \
             or tri.dtype != torch.int32 or carry.state.dtype != torch.int64 \
             or any(x.dtype != torch.int32 for x in atlas[1:5] + atlas[6:]):
@@ -154,17 +189,24 @@ def texture_stage(carry, t, tri, u, v, scene, uniforms, static, depth: int,
                          f"state")
     build.check_aligned("texture_stage", [attrs[0], *attrs[7:], tex.texels],
                         16)
+    if inst is not None:
+        build.check_aligned("texture_stage", [inst.table, inst.shade_packed],
+                            16)
     build.check_aligned("texture_stage", attrs[1:7], 8)
     out = build.planes(n, len(TEX), dev)
     lib = build.load()
-    p = lambda x: x.data_ptr()
+    p = lambda x: None if x is None else x.data_ptr()
     err = lib.mpt_texture_stage(
         n, build.floats(params.scalars(depth)),
         *[p(x) for x in (t, tri, u, v)], p(mat_table), mat_table.shape[0],
         build.pointers([p(x) for x in carry_in]),
         build.pointers([p(x) for x in attrs]),
         build.pointers([p(x) for x in atlas]), tex.n_textures,
-        tex.max_levels, p(out), torch.cuda.current_stream(dev).cuda_stream)
+        tex.max_levels, build.pointers(
+            [p(None if inst is None else kind),
+             p(None if inst is None else inst.table),
+             p(None if inst is None else inst.shade_packed)]),
+        tris.count, p(out), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mpt_texture_stage")
     texture_stage.launches += 1
     return out

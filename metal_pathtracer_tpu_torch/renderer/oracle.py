@@ -13,6 +13,7 @@ it is missing (``utils/nativebuild.py``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 
@@ -141,11 +142,30 @@ def _camera(settings, width, height) -> np.ndarray:
         [float(cam.lens_radius)]]).astype(np.float32)
 
 
+def baked_meshes(resources):
+    """The scene's world-space meshes, then every placement of an
+    instanced mesh baked into world space as the JAX wrapper bakes it
+    (``renderer/oracle.py:141-160``): the source's vertices through the
+    float64 4x4, rounded to float32, the placement's material; UVs,
+    tangents and indices shared with the source. The oracle is the
+    scalar parity backend: memory is no concern at its scene sizes."""
+    baked = list(resources.meshes)
+    for inst in resources.mesh_instances:
+        src = inst.source
+        m44 = np.asarray(inst.transform, np.float64)
+        v = (src.vertices @ m44[:3, :3].T) + m44[:3, 3]
+        baked.append(dataclasses.replace(
+            src, name=src.name + "-inst", vertices=v.astype(np.float32),
+            material=inst.material))
+    return baked
+
+
 def _triangles(resources):
     """World-space triangles with their material, UVs and tangents per
-    corner; one zero row when there are none."""
+    corner, instanced placements baked; one zero row when there are
+    none."""
     tris, mat, uvs, tans = [], [], [], []
-    for mesh in resources.meshes:
+    for mesh in baked_meshes(resources):
         idx, v = mesh.indices, mesh.vertices
         tris.append(np.concatenate([v[idx[:, 0]], v[idx[:, 1]],
                                     v[idx[:, 2]]], 1))

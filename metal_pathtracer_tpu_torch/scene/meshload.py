@@ -72,8 +72,9 @@ def mesh_loader(tokens, settings, resources, allow_camera_import: bool,
     """Load a ``mesh path=... [translate= rotate= scale= material= name=
     instanced=]`` record; a relative path is read from
     ``scene_directory``. ``instanced=1`` on an OBJ or PLY file places one
-    shared object-space mesh through ``add_mesh_instance`` (which raises
-    until instancing is ported); a glTF file's own materials and camera
+    shared object-space mesh through ``add_mesh_instance`` (every record
+    of one path shares the mesh loaded first, so they form one instanced
+    group); a glTF file's own materials and camera
     come with it (the camera when no ``camera`` record came first)."""
     path = tokens.get("path") or tokens.get("file")
     if not path:

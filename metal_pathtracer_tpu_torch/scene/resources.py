@@ -2,9 +2,9 @@
 ``scene/resources.py``).
 
 Materials, analytic spheres and oriented rectangles, world-space triangle
-meshes, material textures and an environment map are supported; mesh
-instances raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+meshes, placements of shared object-space meshes (true instancing: one
+BLAS per source, ``InstanceGroup``), material textures and an
+environment map.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from metal_pathtracer_tpu_torch import constants as C
 from metal_pathtracer_tpu_torch.ops.kernels import primitives
 from metal_pathtracer_tpu_torch.schema import (
+    InstanceGroup,
     MaterialsSoA,
     RectsSoA,
     SceneArrays,
@@ -147,9 +148,15 @@ class Mesh:
     material: int = 0
 
 
-def _not_in_slice(what: str, step: str):
-    raise NotImplementedError(
-        f"{what} are not ported yet (ROADMAP Queue 1, {step})")
+@dataclasses.dataclass
+class MeshInstance:
+    """A placement of a shared OBJECT-space mesh (reference: SceneAccel.mm
+    SoftwareInstanceInfo :173-247): N placements of one source keep one
+    triangle store and BVH."""
+
+    source: Mesh              # object-space geometry (shared by reference)
+    transform: np.ndarray     # (4,4) f64 local -> world
+    material: int = 0
 
 
 class SceneResources:
@@ -160,6 +167,7 @@ class SceneResources:
         self.spheres: List[Sphere] = []
         self.rects: List[Rect] = []
         self.meshes: List[Mesh] = []
+        self.mesh_instances: List[MeshInstance] = []
         self.material_names: Dict[str, int] = {}
         # texture pixels ((H,W,4) uint8), sRGB flags and (wrap_s, wrap_t)
         # modes: 0 repeat / 1 clamp / 2 mirror
@@ -308,8 +316,14 @@ class SceneResources:
             self.add_rectangle_oriented(corner, eu, ev, two_sided,
                                         material_index, desired)
 
-    def add_mesh_instance(self, *args, **kwargs):
-        _not_in_slice("mesh instances", "instancing")
+    def add_mesh_instance(self, source: Mesh, transform,
+                          material: int = 0) -> None:
+        """Place ``source`` (object space) with a shared BLAS: N
+        placements of the same source object keep one triangle store."""
+        self.mesh_instances.append(MeshInstance(
+            source=source,
+            transform=np.asarray(transform, np.float64).reshape(4, 4),
+            material=int(material)))
 
     def build_materials_soa(self, device="cuda") -> MaterialsSoA:
         mats = self.materials or [Material()]
@@ -456,7 +470,44 @@ class SceneResources:
                            light_rect_indices=torch.as_tensor(
                                np.array(self.light_rect_indices(), np.int32),
                                device=device),
-                           sphere_groups=primitives.groups_of(spheres))
+                           sphere_groups=primitives.groups_of(spheres),
+                           instanced=self._build_instance_groups(device))
+
+    def _build_instance_groups(self, device="cuda"):
+        """One ``InstanceGroup`` per source object, in order of first
+        appearance: its object-space soup and BVH, shared by its
+        placements; global instance ids follow the soup's mesh ids.
+        ``w2l`` and ``nrm_mat`` come from the float64 inverse of each
+        placement's 4x4, stored as float32."""
+        if not self.mesh_instances:
+            return ()
+        from metal_pathtracer_tpu_torch.scene import meshbuild
+
+        by_source: Dict[int, list] = {}
+        for inst in self.mesh_instances:
+            by_source.setdefault(id(inst.source), []).append(inst)
+        groups = []
+        base_id = len(self.meshes)
+        for insts in by_source.values():
+            tris, bvh = meshbuild.build_triangle_arrays([insts[0].source],
+                                                        device=device)
+            l2w = np.zeros((len(insts), 3, 4), np.float32)
+            w2l = np.zeros((len(insts), 3, 4), np.float32)
+            nrm = np.zeros((len(insts), 3, 3), np.float32)
+            for i, inst in enumerate(insts):
+                m44 = np.asarray(inst.transform, np.float64)
+                inv = np.linalg.inv(m44)
+                l2w[i] = m44[:3, :4]
+                w2l[i] = inv[:3, :4]
+                nrm[i] = inv[:3, :3].T
+            t = lambda a: torch.as_tensor(a, device=device)
+            groups.append(InstanceGroup(
+                triangles=tris, tri_bvh=bvh, l2w=t(l2w), w2l=t(w2l),
+                nrm_mat=t(nrm),
+                material=t(np.array([i.material for i in insts], np.int32)),
+                base_id=base_id, count=len(insts)))
+            base_id += len(insts)
+        return tuple(groups)
 
     def build_spheres_soa(self, device="cuda") -> SpheresSoA:
         """The spheres as (S,...) arrays; zero rows without spheres."""

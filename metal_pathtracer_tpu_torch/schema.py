@@ -1,8 +1,9 @@
 """Device-side data layouts as torch dataclasses (``schema.py`` twin).
 
 Each struct-of-arrays container of the JAX package becomes a frozen
-dataclass of tensors, field for field. Instancing is not ported yet: its
-container lands with the ROADMAP step that reads it.
+dataclass of tensors, field for field. ``InstanceGroup`` holds one
+shared object-space mesh and its placements; ``InstanceTable`` is the
+flat layout the instanced trace kernels and K2 read.
 """
 
 from __future__ import annotations
@@ -272,6 +273,89 @@ class TrianglesSoA:
 
 
 @dataclasses.dataclass(frozen=True)
+class InstanceGroup:
+    """One shared object-space BLAS and its placements (``schema.py
+    InstanceGroup:398-416``; reference: SceneAccel.mm:173-247
+    SoftwareInstanceInfo). Every placement traces the same triangles with
+    its ray mapped into object space (the direction is not renormalised,
+    so t is the same in both spaces), so N placements store the mesh
+    once."""
+
+    triangles: TrianglesSoA   # OBJECT-space soup of the source mesh
+    tri_bvh: BvhSoA
+    l2w: torch.Tensor         # (I,3,4) f32 local -> world affine rows
+    w2l: torch.Tensor         # (I,3,4) f32 world -> local affine rows
+    nrm_mat: torch.Tensor     # (I,3,3) f32 inverse-transpose linear part
+    material: torch.Tensor    # (I,)    i32 per-placement material
+    base_id: int = 0          # global instance id of placement 0
+    count: int = 0
+
+
+#: ``InstanceTable.table`` columns the host reads: the normal matrix (9
+#: floats), then as int bits the material, the object-triangle offset and
+#: the global instance id (``csrc/common.cuh rebuild_instanced``)
+INST_NRM, INST_MAT, INST_TRI_OFF, INST_ID = 12, 21, 26, 27
+
+
+@dataclasses.dataclass(frozen=True)
+class InstanceTable:
+    """Every placement of every group in one flat layout, in the JAX
+    package's trace order (group by group, placement by placement): row
+    k of ``table`` (32 floats, 128 bytes) is flat instance k, whose global
+    id is the first group's ``base_id`` + k: its world -> local rows (12
+    floats), normal
+    matrix (9), then as int bits its material, its group's node offset
+    and count, slot offset and count, object-triangle offset, and its
+    global id (``csrc/traverse.cu load_placement``). ``nodes`` and
+    ``recs`` are the groups' K1 layouts (``packed_nodes``,
+    ``slot_records``) one after the other, ``shade_packed`` their
+    object-space hit rows; a row's offsets index them, and a group's
+    exit links and leaf offsets stay relative to its own start."""
+
+    table: torch.Tensor         # (K, 32) f32
+    nodes: torch.Tensor         # (sum N_g, 8) f32
+    recs: torch.Tensor          # (sum P_g, 12) f32
+    shade_packed: torch.Tensor  # (sum T_g, 24) f32
+
+    @property
+    def count(self) -> int:
+        return self.table.shape[0]
+
+
+def instance_table(groups) -> InstanceTable:
+    """The ``InstanceTable`` of a tuple of ``InstanceGroup``s, on their
+    device; made on first use and kept on the first group (rebuilt when
+    asked for another tuple)."""
+    cached = groups[0].__dict__.get("_table")
+    if cached is not None and len(cached[0]) == len(groups) and all(
+            a is b for a, b in zip(cached[0], groups)):
+        return cached[1]
+    rows, nodes, recs, shade = [], [], [], []
+    node_off = slot_off = tri_off = 0
+    for g in groups:
+        nd, rc = g.tri_bvh.packed_nodes(), g.tri_bvh.slot_records(g.triangles)
+        ints = torch.tensor(
+            [[int(m), node_off, nd.shape[0], slot_off, rc.shape[0], tri_off,
+              g.base_id + i, 0, 0, 0, 0]
+             for i, m in enumerate(g.material.tolist())], dtype=torch.int32,
+            device=g.w2l.device).reshape(-1, 11)
+        rows.append(torch.cat([g.w2l.reshape(-1, 12), g.nrm_mat.reshape(-1, 9),
+                               ints.view(torch.float32)], 1))
+        nodes.append(nd)
+        recs.append(rc)
+        shade.append(g.triangles.shade_packed)
+        node_off += nd.shape[0]
+        slot_off += rc.shape[0]
+        tri_off += g.triangles.count
+    out = InstanceTable(table=torch.cat(rows).contiguous(),
+                        nodes=torch.cat(nodes).contiguous(),
+                        recs=torch.cat(recs).contiguous(),
+                        shade_packed=torch.cat(shade).contiguous())
+    groups[0].__dict__["_table"] = (tuple(groups), out)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
 class EnvironmentSoA:
     """Equirect environment map plus alias tables for importance sampling
     (reference: src/renderer/EnvImportanceSampler.mm:16-236), field for
@@ -338,6 +422,8 @@ class SceneArrays:
     light_rect_indices: Optional[torch.Tensor] = None
     # the chunked sphere kernel's layout, above 32 spheres
     sphere_groups: Optional[SphereGroups] = None
+    # instanced mesh groups (shared BLAS per source; ``InstanceGroup``)
+    instanced: Tuple[InstanceGroup, ...] = ()
 
     @property
     def n_spheres(self) -> int:
@@ -350,6 +436,11 @@ class SceneArrays:
     @property
     def n_triangles(self) -> int:
         return 0 if self.triangles is None else self.triangles.count
+
+    @property
+    def n_instances(self) -> int:
+        """Placements over every instanced group."""
+        return sum(g.count for g in self.instanced)
 
     @property
     def n_rect_lights(self) -> int:

@@ -157,6 +157,45 @@ def write_glb(path: str, meshes: Sequence, materials: Sequence[dict],
         f.write(glb_bytes(*gltf_document(meshes, materials, images, nodes)))
 
 
+#: the instanced-headline cell's placements of the displaced icosphere
+#: (translate, rotate in degrees, uniform scale: each resting on the
+#: ground) and of the glass icosphere (translate only; the OBJ holds it
+#: where the headline has it)
+INSTANCED_DRAGONS = (((-2.31, -0.55, 0.03), (0, 40, 0), 0.6),
+                     ((-0.95, -0.38, -0.87), (0, -25, 0), 0.8),
+                     ((0.49, -0.6, -1.72), (10, 110, 0), 0.55))
+INSTANCED_GLASS = ((0.0, 0.0, 0.0), (2.67, 0.0, -1.32))
+
+
+def instanced_scene_text(lambert: bool = False) -> str:
+    """The ``.scene`` of the instanced-headline cell, beside the files
+    ``write_headline_files`` writes: the headline's camera and sky, the
+    displaced icosphere PLY placed three times and the glass icosphere
+    OBJ twice with ``instanced=1``, the GLB's checker sphere and ground
+    as the soup. ``lambert``: every placement lambert and the gradient
+    sky instead of the EXR (the depth loop without a light integral:
+    K2 ``full``)."""
+    lines = ["camera target=0,-0.1,-0.3 distance=4.6 yaw=0.4 pitch=0.18 "
+             "vfov=42", "renderer maxDepth=8 seed=1234"]
+    if lambert:
+        lines += ["material type=lambert albedo=0.72,0.68,0.62 name=dragon",
+                  "material type=lambert albedo=0.5,0.6,0.75 name=glass"]
+    else:
+        lines += ["background env=./sky.exr",
+                  "material type=lambert albedo=0.72,0.68,0.62 name=dragon",
+                  "material type=glass ior=1.5 sigmaA=0.08,0.02,0.02 "
+                  "name=glass"]
+    lines.append("mesh path=props.glb")
+    for (t, r, sc) in INSTANCED_DRAGONS:
+        lines.append("mesh path=dragon.ply material=dragon instanced=1 "
+                     f"translate={t[0]},{t[1]},{t[2]} "
+                     f"rotate={r[0]},{r[1]},{r[2]} scale={sc}")
+    for t in INSTANCED_GLASS:
+        lines.append("mesh path=glass.obj material=glass instanced=1 "
+                     f"translate={t[0]},{t[1]},{t[2]}")
+    return "\n".join(lines) + "\n"
+
+
 def write_headline_files(directory: str, subdivisions: int = 8,
                          device="cuda"):
     """The headline scene (``benchscene.build_bench_scene``) as files in
@@ -164,9 +203,11 @@ def write_headline_files(directory: str, subdivisions: int = 8,
     icosphere as OBJ, the checker sphere and the ground as a GLB (the
     checker an embedded PNG from ``image_io.encode_png_u8``; the ground a
     PBR material with a 200x120 metallic-roughness texture, which the
-    atlas resamples), the HDR sky as an EXR, and ``mesh_files.scene``
-    with the headline's camera and ``mesh`` records. Returns (the scene
-    file's path, the in-memory meshes)."""
+    atlas resamples), the HDR sky as an EXR, ``mesh_files.scene`` with
+    the headline's camera and ``mesh`` records, and the instanced cell's
+    ``instanced_headline.scene`` and ``instanced_lambert.scene``
+    (``instanced_scene_text``). Returns (the scene file's path, the
+    in-memory meshes)."""
     import dataclasses
     import os
 
@@ -206,4 +247,8 @@ def write_headline_files(directory: str, subdivisions: int = 8,
                  "mesh path=dragon.ply material=dragon\n"
                  "mesh path=glass.obj material=glass\n"
                  "mesh path=props.glb\n")
+    for name, lambert in (("instanced_headline.scene", False),
+                          ("instanced_lambert.scene", True)):
+        with open(os.path.join(directory, name), "w") as fh:
+            fh.write(instanced_scene_text(lambert))
     return path, res.meshes

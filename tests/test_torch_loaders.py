@@ -575,13 +575,33 @@ def test_mesh_records_scene_matches_jax(tmp_path):
         np.testing.assert_array_equal(getattr(scene.textures, f).numpy(),
                                       np.asarray(getattr(jscene.textures,
                                                          f)))
-    # instanced OBJ and PLY placements reach the instancing refusal
+    # instanced PLY and OBJ placements (ported): one group per file, the
+    # loaded object-space mesh shared by its records, as in the JAX package
     (tmp_path / "i.scene").write_text(
         "material type=lambert albedo=0.5,0.5,0.5\n"
-        "mesh path=meshes/ball.ply instanced=1\n")
-    with pytest.raises(NotImplementedError, match="instancing"):
-        dsl.load_scene_file(str(tmp_path / "i.scene"), RenderSettings(),
-                            SceneResources())
+        "mesh path=meshes/ball.ply instanced=1\n"
+        "mesh path=meshes/faces.obj instanced=1 translate=2,0,0\n"
+        "mesh path=meshes/ball.ply instanced=1 scale=0.5 rotate=0,30,0\n")
+    ir, jir = SceneResources(), JResources()
+    dsl.load_scene_file(str(tmp_path / "i.scene"), RenderSettings(), ir)
+    jax_dsl.load_scene_file(str(tmp_path / "i.scene"), JSettings(), jir,
+                            mesh_loader=jax_loader)
+    assert ir.mesh_instances[0].source is ir.mesh_instances[2].source
+    for got, want in zip(ir.mesh_instances, jir.mesh_instances,
+                         strict=True):
+        np.testing.assert_array_equal(got.transform, want.transform)
+        for f in ("vertices", "normals", "uv0", "indices"):
+            np.testing.assert_array_equal(getattr(got.source, f),
+                                          getattr(want.source, f))
+    placed, jplaced = ir.build_arrays(device="cpu"), jir.build_arrays()
+    assert placed.triangles is None and jplaced.triangles is None
+    assert [(g.base_id, g.count) for g in placed.instanced] == \
+        [(g.base_id, g.count) for g in jplaced.instanced] == [(0, 2), (2, 1)]
+    for g, jg in zip(placed.instanced, jplaced.instanced):
+        for f in ("v0", "v1", "v2", "n0", "n1", "n2", "mesh_index"):
+            np.testing.assert_array_equal(getattr(g.triangles, f).numpy(),
+                                          np.asarray(getattr(jg.triangles,
+                                                             f)))
     (tmp_path / "bad.scene").write_text("mesh path=meshes/none.obj\n")
     with pytest.raises(dsl.SceneParseError, match="not found"):
         dsl.load_scene_file(str(tmp_path / "bad.scene"), RenderSettings(),

@@ -44,6 +44,7 @@ from metal_pathtracer_tpu_torch.ops import specnee
 from metal_pathtracer_tpu_torch.scene import dsl
 from metal_pathtracer_tpu_torch.scene.resources import (
     Material,
+    Mesh,
     SceneResources,
 )
 from metal_pathtracer_tpu_torch.schema import (
@@ -52,6 +53,7 @@ from metal_pathtracer_tpu_torch.schema import (
 )
 from metal_pathtracer_tpu_torch.settings import BackgroundMode, RenderSettings
 from metal_pathtracer_tpu_torch.utils import benchscene as B
+from metal_pathtracer_tpu_torch.utils import procgen
 from metal_pathtracer_tpu_torch.utils.benchscene import cornell_scene_text
 
 N = 4000
@@ -420,9 +422,9 @@ def test_emission_env_light_matches_jax(cornell):
 
 def test_unported_light_paths_raise(cornell):
     """Env-modulated lights under an environment map, the plastic,
-    subsurface and carpaint materials and MNEE are ported and pass;
-    instances raise with their ROADMAP item; the Cornell box and an
-    env-lit scene with plain rect lights pass."""
+    subsurface and carpaint materials and MNEE are ported and pass; an
+    instanced placement builds its group; the Cornell box and an env-lit
+    scene with plain rect lights pass."""
     ps, pr = RenderSettings(), SceneResources()
     dsl.parse_scene(cornell_scene_text(), ps, pr)
     types = pr.material_types_present()
@@ -436,8 +438,24 @@ def test_unported_light_paths_raise(cornell):
     integrator.check_supported(scene, settings_to_static(
         ps, 8, 8, types + [C.MATERIAL_PLASTIC, C.MATERIAL_SUBSURFACE,
                            C.MATERIAL_CARPAINT]))
-    with pytest.raises(NotImplementedError, match="instancing"):
-        pr.add_mesh_instance(None, np.eye(4))
+    # an instanced placement (ported) joins the box as its own group, ids
+    # after the box's meshes, and the scene still passes
+    verts, faces = procgen.icosphere(1)
+    ball = Mesh("ball", (0.2 * verts).astype(np.float32),
+                verts.astype(np.float32),
+                np.zeros((len(verts), 2), np.float32),
+                np.zeros((len(verts), 2), np.float32),
+                np.zeros((len(verts), 4), np.float32), faces.astype(np.int32))
+    tf = np.eye(4)
+    tf[:3, 3] = [0.0, 0.3, 0.0]
+    pr.add_mesh_instance(ball, tf, 1)
+    placed = pr.build_arrays(device="cpu")
+    (group,) = placed.instanced
+    assert (group.count, group.base_id) == (1, len(pr.meshes))
+    assert group.material.tolist() == [1]
+    np.testing.assert_array_equal(group.triangles.v1.numpy(),
+                                  ball.vertices[ball.indices[:, 1]])
+    integrator.check_supported(placed, settings_to_static(ps, 8, 8, types))
     env = env_ops.environment_from_texels(np.ones((4, 8, 3), np.float32),
                                           "cpu")
     ps.backgroundMode = BackgroundMode.ENVIRONMENT

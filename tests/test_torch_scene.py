@@ -166,8 +166,22 @@ def test_convert_uniforms_static_state():
 def test_unported_features_raise():
     r = SceneResources()
     r.add_material(Material())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.add_mesh_instance(None, np.eye(4))
+    # mesh instances (ported): two placements of one source object make one
+    # group whose object-space soup is the source's own
+    src = _port_mesh(dragon_class_scene_mesh(0))
+    moved = np.eye(4)
+    moved[:3, 3] = [1.5, 0.0, 0.0]
+    r.add_mesh_instance(src, np.eye(4))
+    r.add_mesh_instance(src, moved)
+    assert r.mesh_instances[0].source is r.mesh_instances[1].source
+    placed = r.build_arrays(device="cpu")
+    assert placed.triangles is None and placed.n_instances == 2
+    (group,) = placed.instanced
+    assert (group.count, group.base_id) == (2, 0)
+    np.testing.assert_array_equal(
+        group.triangles.v0.numpy(), src.vertices[src.indices[:, 0]])
+    np.testing.assert_array_equal(group.w2l.numpy()[1, :, 3], [-1.5, 0, 0])
+    r.mesh_instances.clear()
     # a texture that needs a resample (ported): 48x20 snaps to 32x16 and
     # the atlas equals the JAX package's, Pillow's bilinear resize included
     from metal_pathtracer_tpu.ops.textures import (
