@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's nine paths:
+(one nvcc per source, in parallel) and drives the port's ten paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -144,7 +144,20 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    ``tests/test_instancing.py``'s gate); and the scene at 1920x1080 d8
    through the CLI: ms/spp, set-up seconds, peak device memory beside
    the baked scene's triangle and tree bytes, launches a sample, the
-   instanced K1 once per trace.
+   instanced K1 once per trace;
+10. the interactive path (the ``Renderer`` facade, the display pass, the
+   denoisers' à-trous kernel and U-Net, the live viewer): the facade at
+   1920x1080 on the mesh-files scene, 4 ``draw_frame(1)`` (K1, the texture
+   stage, K2 s1/s2) and ``display()`` with ``denoiseEnabled`` at both
+   filter types (9 à-trous launches); the à-trous kernel against its
+   plain version at every iteration of the fixed and SVGF filters (4)
+   and the learned one (4 and 5) on that state, within 1e-6 relative,
+   each iteration's device time beside ``denoise_bound``; the U-Net at
+   1080p with TF32 off beside ``unet_flops``; the denoised displays
+   against the plain filters' within one LDR step, display ms with and
+   without denoise; and ``ViewerServer`` on the Cornell box at 320x180
+   over HTTP (3 spp, ``/frame.png``, a denoised pass, an orbit's preview
+   and landing), failing on the loop's ``last_error``.
 
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
@@ -3983,10 +3996,395 @@ def instanced_path(dev, card, kernels, out):
     return check_err
 
 
+# ---- phase 10: the interactive path ----------------------------------------
+
+#: draw_frame(1) calls of the 1920x1080 facade before its displays
+FACADE_FRAMES = 4
+#: the filters held against their plain versions on the facade's state:
+#: (mode, iterations)
+ATROUS_CASES = (("fixed", 4), ("svgf", 4), ("learned", 4), ("learned", 5))
+#: the à-trous kernel against its plain version, relative to 1 + |plain|
+ATROUS_REL_TOL = 1e-6
+# one à-trous iteration: a pixel's colour, albedo and normal read (36 B)
+# and colour written (12 B); the variance-guided modes also read and write
+# the luminance variance (4 B each). Float operations a tap, counted in
+# csrc/denoise.cu (a transcendental as one): the shared part (albedo
+# difference and its square, the normal dot, the weighted sums) 20; the
+# fixed weight 23 more; SVGF's 30; the learned one 273 (features 21, the
+# MLP's 6-16 layer 208 and 16-1 layer 32, softplus and weight 12); 30 a
+# pixel for the variance blur and the normalisation
+ATROUS_BYTES = {"fixed": 48, "svgf": 56, "learned": 56}
+ATROUS_TAP_OPS = {"fixed": 43, "svgf": 50, "learned": 293}
+ATROUS_PIXEL_OPS = 30
+#: the viewer cell: Cornell box at this size, passes to wait for
+VIEWER_SIZE = (320, 180)
+VIEWER_SPP = 3
+
+
+def denoise_bound(mode: str, h: int, w: int):
+    """The least time of one à-trous iteration over an h x w image: (ms,
+    "bytes" or "operations")."""
+    n = h * w
+    return bound_ms(n * ATROUS_BYTES[mode],
+                    n * (25 * ATROUS_TAP_OPS[mode] + ATROUS_PIXEL_OPS))
+
+
+def unet_flops(h: int, w: int) -> float:
+    """The U-Net's float operations on an h x w input padded to a
+    multiple of 8: 2 x 9 x cin x cout a pixel of each convolution at its
+    level (enc1, dec1 and out at full size, enc2 and dec2 at 1/2, enc3 and
+    dec3 at 1/4, the bottleneck at 1/8)."""
+    from metal_pathtracer_tpu_torch.ops.denoise_unet import LAYERS
+
+    h, w = h + (-h) % 8, w + (-w) % 8
+    level = {"enc1": 1, "enc2": 2, "enc3": 4, "bottle": 8, "dec3": 4,
+             "dec2": 2, "dec1": 1, "out": 1}
+    return sum(2.0 * 9 * cin * cout * (h // level[name]) * (w // level[name])
+               for name, cin, cout in LAYERS)
+
+
+@contextlib.contextmanager
+def kept_atrous(kept):
+    """Each launch of the à-trous kernel appended to ``kept`` as its
+    (args, kwargs), and passed on."""
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    real = DK.atrous_step
+
+    def keep(*a, **k):
+        kept.append((a, k))
+        return real(*a, **k)
+
+    # the wrapper counts on the name it is reached by
+    keep.launches = real.launches
+    try:
+        with mock.patch.object(DK, "atrous_step", keep):
+            yield
+    finally:
+        real.launches = keep.launches
+
+
+def plain_atrous():
+    """The denoisers with the à-trous kernel replaced by its plain
+    version (run on the card)."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    return mock.patch.object(DK, "atrous_step", D.atrous_step_reference)
+
+
+def rel_err(got, ref):
+    """(max |got - ref| / (1 + |ref|), max |got - ref|, share of values
+    bit-equal)."""
+    d = (got - ref).abs()
+    return (float((d / (1.0 + ref.abs())).max()), float(d.max()),
+            float((got == ref).float().mean()))
+
+
+def atrous_checks(state, dev, card):
+    """The à-trous kernel at every iteration of each filter of
+    ``ATROUS_CASES`` on ``state`` (kept from the filter as it runs),
+    against the plain version on the same inputs, timed with its bound;
+    the filters' outputs through the kernel against the plain filters.
+    Returns (max abs error, per-iteration ms, plain ms and bound of the
+    learned filter's 4 iterations, launches made)."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    h, w = state.height, state.width
+    var = state.variance_of_mean()
+    tparams = D._learned_params(dev)
+    args = (state.present(), state.albedo, state.normal)
+
+    def run(mode, iters):
+        if mode == "fixed":
+            return D.atrous_denoise(*args, iterations=iters)
+        if mode == "svgf":
+            return D.svgf_denoise(*args, var, iterations=iters)
+        return D.learned_denoise(*args, var, tparams, iterations=iters)
+
+    worst, learned4, launches = 0.0, None, 0
+    for mode, iters in ATROUS_CASES:
+        kept = []
+        with kept_atrous(kept):
+            out_k = run(mode, iters)
+        with plain_atrous():
+            out_p = run(mode, iters)
+        torch.cuda.synchronize()
+        launches += len(kept)
+        if len(kept) != iters:
+            raise AssertionError(f"{mode} x{iters}: {len(kept)} launches")
+        f_rel, f_abs, f_eq = rel_err(out_k, out_p)
+        rows, ms_sum, plain_sum, bound_sum = [], 0.0, 0.0, 0.0
+        for it, (a, k) in enumerate(kept):
+            got, got_var = DK.atrous_step(*a, **k)
+            ref, ref_var = D.atrous_step_reference(*a, **k)
+            torch.cuda.synchronize()
+            r, e, eq = rel_err(got, ref)
+            if got_var is not None:
+                rv, ev, _ = rel_err(got_var, ref_var)
+                r, e = max(r, rv), max(e, ev)
+            worst = max(worst, e)
+            if not r <= ATROUS_REL_TOL:
+                raise AssertionError(f"atrous {mode} x{iters} iteration "
+                                     f"{it}: {r} relative to plain")
+            ms = kernel_ms(lambda: (lambda: DK.atrous_step(*a, **k)), 20)
+            plain = cuda_ms(lambda: (lambda: D.atrous_step_reference(
+                *a, **k)), 2)
+            bound, by = denoise_bound(mode, h, w)
+            ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain,
+                                            bound_sum + bound)
+            rows.append(f"step {a[4].step}: {ms:.4f} ms (plain "
+                        f"{plain:.1f}, bound {bound:.4f} by {by}; rel "
+                        f"{r:.2e}, bit-equal {eq:.4f})")
+        print(f"atrous {mode} x{iters} at {w}x{h}: kernel {ms_sum:.4f} ms, "
+              f"plain {plain_sum:.1f} ms, bound {bound_sum:.4f} ms "
+              f"({100 * bound_sum / ms_sum:.1f} % of it); the filter "
+              f"through the kernel against the plain filter: rel "
+              f"{f_rel:.2e}, abs {f_abs:.2e}, bit-equal {f_eq:.4f}; "
+              + "; ".join(rows) + f" [{card}]")
+        if not f_rel <= ATROUS_REL_TOL:
+            raise AssertionError(f"atrous {mode} x{iters}: the filter "
+                                 f"differs from the plain one ({f_rel})")
+        if (mode, iters) == ("learned", 4):
+            learned4 = (ms_sum / iters, plain_sum / iters, bound_sum / iters,
+                        denoise_bound(mode, h, w)[1])
+    return worst, learned4, launches
+
+
+def unet_timing(state, dev, card):
+    """The vendored U-Net at the state's size on the card with TF32 off:
+    its time beside its float-operation bound, its peak memory."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops import denoise_unet as U
+
+    h, w = state.height, state.width
+    net = D._unet_params(dev)
+    var = state.variance_of_mean()
+    base = D.learned_denoise(state.present(), state.albedo, state.normal,
+                             var, D._learned_params(dev))
+    feats = U._pad_edge(U._features(base, state.present(), state.albedo,
+                                    state.normal, var), (-h) % 8, (-w) % 8)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    ms = cuda_ms(lambda: (lambda: net(feats[None])), 5)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    if torch.backends.cudnn.allow_tf32 != flag:
+        raise AssertionError("the U-Net changed the global TF32 switch")
+    flops = unet_flops(h, w)
+    bound, by = bound_ms(0.0, flops)
+    print(f"U-Net at {w}x{h} (TF32 off, cuDNN): {ms:.3f} ms against a "
+          f"bound of {bound:.3f} ms ({flops / 1e9:.2f} GFLOP at "
+          f"{F32_FLOPS / 1e12:.0f} TFLOP/s, {100 * bound / ms:.1f} %), "
+          f"peak {peak / 2**20:.0f} MiB above the state [{card}]")
+    return ms, bound
+
+
+def http(port, path, method="GET"):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 method=method)
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.read()
+
+
+def viewer_cell(dev, card, kernels):
+    """The live viewer on the Cornell box at 320x180 through HTTP: passes
+    accumulate, ``/frame.png`` decodes at its size, ``denoiseEnabled``
+    runs the à-trous kernel in the loop, an orbit runs preview passes at
+    half scale and lands at full size with reset CAMERA. Fails on the
+    loop's ``last_error`` or when spp never advances."""
+    from metal_pathtracer_tpu_torch.renderer.renderer import Renderer
+    from metal_pathtracer_tpu_torch.utils.image_io import decode_png
+    from metal_pathtracer_tpu_torch.viewer.server import ViewerServer
+
+    w, h = VIEWER_SIZE
+    r = Renderer(w, h)
+    r.load_scene_from_path("assets/scenes/cornell.scene")
+    s = r.settings.copy()
+    s.renderWidth, s.renderHeight = w, h
+    r.apply_settings(s)
+    reset_launches(kernels)
+    srv = ViewerServer(r, port=0).start()
+    marks = [("start", time.time())]
+
+    def stats():
+        st = json.loads(http(srv.port, "/stats"))
+        if st["error"]:
+            raise AssertionError(f"viewer: a pass failed:\n{st['error']}")
+        return st
+
+    def wait(cond, what, timeout=120.0):
+        t0 = time.time()
+        while time.time() - t0 < timeout:
+            st = stats()
+            if cond(st):
+                return st
+            time.sleep(0.02)
+        raise AssertionError(f"viewer: {what} never happened: {stats()}")
+
+    try:
+        st = wait(lambda st: st["spp"] >= VIEWER_SPP,
+                  f"spp >= {VIEWER_SPP}")
+        marks.append((f"{VIEWER_SPP} spp", time.time()))
+        img = decode_png(http(srv.port, "/frame.png"))
+        if img.shape != (h, w, 4) or img[..., :3].max() == 0:
+            raise AssertionError(f"viewer: /frame.png {img.shape}")
+        atrous_before = kernels["atrous_step"].launches
+        out = json.loads(http(srv.port, "/set?denoiseEnabled=1", "POST"))
+        if not out["ok"] or out["reset"]:
+            raise AssertionError(f"viewer: denoiseEnabled {out}")
+        done = stats()["spp"]
+        wait(lambda st: st["spp"] > done, "a denoised pass")
+        denoised = kernels["atrous_step"].launches - atrous_before
+        if denoised <= 0:
+            raise AssertionError("viewer: no à-trous launch after "
+                                 "denoiseEnabled=1")
+        marks.append(("a denoised pass", time.time()))
+        out = json.loads(http(srv.port, "/set?orbit=0.1,0", "POST"))
+        if not out["motion"]:
+            raise AssertionError(f"viewer: orbit {out}")
+        wait(lambda st: st["preview"] and st["width"] < w, "a preview pass")
+        marks.append(("a preview pass", time.time()))
+        st = wait(lambda st: not st["preview"] and st["width"] == w
+                  and st["spp"] >= 1 and st["reset"] == "CAMERA",
+                  "the landing at full size")
+        marks.append(("the landing", time.time()))
+        if abs(r.settings.cameraYaw - srv._cam_target[0]) > 1e-6:
+            raise AssertionError("viewer: the camera did not land on its "
+                                 "target")
+    finally:
+        srv.stop()
+    if srv.last_error:
+        raise AssertionError(f"viewer: a pass failed:\n{srv.last_error}")
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    for k in ("sphere_nearest_brute", "rect_nearest", "shade_s1",
+              "shade_s2", "atrous_step"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"viewer: {k} was not launched: {launches}")
+    MAIN_LAUNCHES["viewer-cornell"] = launches
+    print(f"viewer on cornell.scene at {w}x{h}: spp {st['spp']} after the "
+          f"landing, {st['sps']} samples/s, {denoised} à-trous launches in "
+          f"the denoised passes; launches {launches}; "
+          + ", ".join(f"{name} at {t - marks[0][1]:.1f}s"
+                      for name, t in marks[1:]) + f" [{card}]")
+
+
+def interactive_path(dev, card, kernels, out):
+    """Phase 10, the interactive path: the ``Renderer`` facade at
+    1920x1080 on the mesh-files cell's scene (K1, the texture stage, K2
+    s1/s2), its denoised displays (the à-trous kernel, the U-Net); the
+    à-trous kernel against its plain version on that state; the U-Net's
+    time beside its bound; the display against the plain filters' within
+    one LDR step; the viewer over HTTP."""
+    import os
+    import tempfile
+
+    from metal_pathtracer_tpu_torch.renderer.renderer import Renderer
+    from metal_pathtracer_tpu_torch.utils import meshfiles
+
+    W, H = FRAME
+    marks = [("start", time.time())]
+    with tempfile.TemporaryDirectory() as tmp:
+        meshfiles.write_headline_files(tmp, HEADLINE_SUBDIVISIONS, dev)
+        marks.append(("files written", time.time()))
+        # ---- the main path: the facade, then its denoised displays ------
+        reset_launches(kernels)
+        r = Renderer(W, H)
+        r.load_scene_from_path(os.path.join(tmp, "mesh_files.scene"))
+        frame_s = []
+        for _ in range(FACADE_FRAMES):
+            t0 = time.time()
+            r.draw_frame(1)
+            torch.cuda.synchronize()
+            frame_s.append(time.time() - t0)
+        marks.append(("facade frames", time.time()))
+        r.settings.denoiseEnabled = True
+        shown = {}
+        for ftype in (0, 1):
+            r.settings.denoiseFilterType = ftype
+            shown[ftype] = r.display()
+        launches = {k: fn.launches for k, fn in kernels.items()
+                    if not k.startswith("trace_instanced")}
+    for k, v in launches.items():
+        if v <= 0 and k in ("trace_closest", "trace_any", "shade_s1",
+                            "shade_s2", "texture_stage", "atrous_step"):
+            raise AssertionError(f"facade: {k} was not launched: {launches}")
+    if launches["atrous_step"] != 4 + 5:
+        raise AssertionError(f"facade: {launches['atrous_step']} à-trous "
+                             "launches in the two denoised displays, not 9")
+    MAIN_LAUNCHES["facade"] = {k: v for k, v in launches.items() if v}
+    if r.sample_count() != FACADE_FRAMES or r.render_size != (W, H):
+        raise AssertionError(f"facade: {r.sample_count()} spp at "
+                             f"{r.render_size}")
+    img = r.capture_average_image()
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("facade: the image is not finite and non-zero")
+    for ftype, ldr in shown.items():
+        if ldr.shape != (H, W, 3) or not np.isfinite(ldr).all():
+            raise AssertionError(f"facade: display {ftype} {ldr.shape}")
+    print(f"facade {W}x{H} d8 (mesh-files scene): {FACADE_FRAMES} "
+          f"draw_frame(1), the first {frame_s[0]:.2f}s with the scene's "
+          f"build (SAH, atlas, sky), then "
+          + ", ".join(f"{1e3 * s:.1f}" for s in frame_s[1:])
+          + f" ms; two denoised displays; launches "
+          f"{MAIN_LAUNCHES['facade']} [{card}]")
+
+    # ---- the à-trous kernel against its plain version ----------------------
+    worst, learned4, _ = atrous_checks(r.state, dev, card)
+    marks.append(("à-trous checks", time.time()))
+    unet_ms, unet_bound = unet_timing(r.state, dev, card)
+    marks.append(("U-Net", time.time()))
+
+    # ---- the display through the kernel against the plain filters --------
+    from metal_pathtracer_tpu_torch.renderer import display as disp
+
+    display_ms = {}
+    for ftype in (0, 1):
+        r.settings.denoiseFilterType = ftype
+        got = disp.display_to_u8(r.state, r.settings)
+        with plain_atrous():
+            ref = disp.display_to_u8(r.state, r.settings)
+        diff = np.abs(got.astype(int) - ref.astype(int))
+        if diff.max() > 1:
+            raise AssertionError(f"display type {ftype}: LDR bytes differ "
+                                 f"by {diff.max()} from the plain filters'")
+        display_ms[f"denoised type {ftype}"] = cuda_ms(
+            lambda: r.display, 3)
+        print(f"display with denoise type {ftype} at {W}x{H}: LDR bytes "
+              f"equal to the plain filters' on {(diff == 0).mean():.6f} of "
+              f"the values, at most {diff.max()} apart [{card}]")
+    r.settings.denoiseEnabled = False
+    display_ms["plain"] = cuda_ms(lambda: r.display, 3)
+    print(f"display ms at {W}x{H} (to host, uint8 rounding excluded): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in display_ms.items())
+          + f" [{card}]")
+    marks.append(("displays", time.time()))
+
+    # ---- the viewer ---------------------------------------------------------
+    viewer_cell(dev, card, kernels)
+    marks.append(("viewer", time.time()))
+    ms, plain_ms, bound, by = learned4
+    out["atrous_step"] = dict(
+        source=ROOT + "denoise.cu",
+        # an XLA loop in the JAX package, not a TPU kernel
+        replaces="metal_pathtracer_tpu/ops/denoise.py:48",
+        launches=launches["atrous_step"], max_abs_err=worst, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    print(f"U-Net {unet_ms:.3f} ms (bound {unet_bound:.3f}) [{card}]")
+    print("# interactive phase: " + ", ".join(
+        f"{name} {t - marks[k][1]:.1f}s"
+        for k, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
     from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
     from metal_pathtracer_tpu_torch.ops.kernels import texture as X
@@ -4054,6 +4452,10 @@ def main() -> None:
     t0 = time.time()
     instanced_path(dev, card, kernels, out)
     print(f"# instancing phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    interactive_path(dev, card, dict(kernels, atrous_step=DK.atrous_step),
+                     out)
+    print(f"# interactive phases took {time.time() - t0:.1f}s")
 
     print("K2 device ms at the earlier phases' first depths, this run "
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"
@@ -4063,7 +4465,7 @@ def main() -> None:
           f"kernels' build included")
     names = [k for k in kernels if k != "shade_full_lanes"] + [
         "shade_full_zoo", "shade_full_buckets_zoo", "shade_s1_zoo",
-        "shade_s2_zoo", "shade_s2_mnee"]
+        "shade_s2_zoo", "shade_s2_mnee", "atrous_step"]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])
         for name in names]}))

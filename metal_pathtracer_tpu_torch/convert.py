@@ -141,8 +141,7 @@ def render_state(d: dict, device="cuda") -> RenderState:
         sample_count=torch.tensor(
             np.asarray(d["sample_count"]).astype(np.int64), device=device),
         albedo=t("albedo"), normal=t("normal"),
-        radiance_sq_sum=torch.zeros_like(radiance) if sq is None
-        else t("radiance_sq_sum"),
+        radiance_sq_sum=None if sq is None else t("radiance_sq_sum"),
         frame_index=int(np.asarray(d["frame_index"]).item()),
         ray_count=int(np.asarray(d.get("ray_count", 0)).item()),
         shadow_ray_count=int(np.asarray(d.get("shadow_ray_count", 0)).item()))
@@ -158,3 +157,19 @@ def to_numpy(obj):
     if isinstance(obj, tuple):
         return tuple(to_numpy(x) for x in obj)
     return obj
+
+
+def denoiser_params(d: dict, device="cuda") -> dict:
+    """The denoisers' weights (a vendored ``.npz``'s arrays, the JAX
+    package's parameter dicts or ``denoise_unet.init_params``) as float32
+    tensors on ``device``: the tap MLP's ``w1`` (6, 16), ``b1``, ``w2``
+    (16, 1), ``b2`` as they are, and each U-Net ``*_w`` from the JAX
+    package's (3, 3, cin, cout) HWIO to ``conv2d``'s (cout, cin, 3, 3)
+    OIHW, so both packages compute the same thing from the same file."""
+    out = {}
+    for k, v in d.items():
+        x = torch.as_tensor(np.asarray(v), dtype=torch.float32)
+        if k.endswith("_w") and x.dim() == 4:
+            x = x.permute(3, 2, 0, 1)
+        out[k] = x.contiguous().to(device)
+    return out

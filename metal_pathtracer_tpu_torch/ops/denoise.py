@@ -1,0 +1,298 @@
+"""Edge-aware à-trous denoising (``ops/denoise.py`` twin).
+
+The three tap filters of the JAX package, each a pyramid of iterations
+over 5x5 B3-spline taps at step ``1 << it`` that wrap around the image
+(``jnp.roll``): ``atrous_denoise`` (fixed sigmas, decaying colour sigma),
+``svgf_denoise`` (luminance weight scaled by the smoothed standard
+deviation of the variance, normal weight ``max(n.n', 0)^64``, variance
+propagated with squared weights) and ``learned_denoise`` (SVGF's pyramid
+with each tap's weight from a 6-16-1 MLP, ``w_k exp(-softplus(z))``).
+``denoise_state`` picks the best filter the state and the vendored
+weights allow, with the JAX package's tiers: the conv U-Net
+(``ops/denoise_unet.py``) over the learned prepass, the learned filter,
+SVGF, and the fixed filter for a state without a second moment.
+
+Each iteration goes through ``ops/kernels/denoise.atrous_step``: on CUDA
+tensors one launch of ``csrc/denoise.cu``, on CPU tensors
+``atrous_step_reference`` below, the plain version. Both compute the JAX
+package's eager arithmetic in its order: no fused multiply-adds (the
+eager ops round one by one) but in the MLP's second layer, where XLA's
+dot places them, sums left to right but in the MLP (``_mlp_logit``),
+taps in (ky, kx) row-major order, the Python constants rounded once to float32 and
+divisions as one IEEE division each (``vecmath.fdiv``).
+
+The vendored weights are the JAX package's files, copied into
+``metal_pathtracer_tpu_torch/data`` (the tests hold the copies equal);
+``MPT_UNET_DENOISE=0`` and ``MPT_LEARNED_DENOISE=0`` switch each tier off,
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+from metal_pathtracer_tpu_torch.ops.kernels.denoise import (
+    FIXED,
+    LEARNED,
+    SVGF,
+    StepParams,
+)
+from metal_pathtracer_tpu_torch.ops.vecmath import fdiv, fma
+
+# 5-tap B3-spline kernel for the à-trous pyramid
+_KERNEL = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
+_TAPS = (-2, -1, 0, 1, 2)
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
+
+
+def _dot(a, b):
+    """``jnp.sum(a * b, -1)`` over 3 components, as the eager JAX rounds
+    it: three products, summed left to right."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def _luminance(rgb):
+    return (0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1]) \
+        + 0.0722 * rgb[..., 2]
+
+
+def _gauss3(img):
+    """Separable 3x3 (1,2,1)/4 blur of (H,W) or (H,W,C), wrapping."""
+    w = (0.25, 0.5, 0.25)
+    out = 0.0
+    for k, wk in zip((-1, 0, 1), w):
+        out = out + wk * torch.roll(img, k, 0)
+    res = 0.0
+    for k, wk in zip((-1, 0, 1), w):
+        res = res + wk * torch.roll(out, k, 1)
+    return res
+
+
+def _tap_features(lum_p, gstd, normal, albedo, s_col, s_nrm, s_alb,
+                  it_feature, radius):
+    """Per-tap (H,W,6) feature planes for the learned weight net."""
+    both_bg = (_dot(normal, normal) < 0.5) & (_dot(s_nrm, s_nrm) < 0.5)
+    ndiff = torch.where(both_bg, 0.0,
+                        torch.clamp_min(1.0 - _dot(s_nrm, normal), 0.0))
+    da = s_alb - albedo
+    return torch.stack([
+        fdiv(torch.abs(_luminance(s_col) - lum_p), gstd + 1e-4),
+        ndiff,
+        _dot(da, da),
+        gstd,
+        torch.full_like(lum_p, it_feature),
+        torch.full_like(lum_p, radius),
+    ], -1)
+
+
+def _mlp_logit(mlp, f):
+    """The tap MLP on (H,W,6) features, from the packed weights
+    (``kernels/denoise.pack_mlp``), summed as XLA:CPU's eager dots sum
+    them (bit-equal on 5,000 random feature rows): the six products of
+    the first layer in pairs, ((p0 + p1) + (p2 + p3)) + (p4 + p5), then
+    the bias; the second layer in eight lanes, lane l = fma(h[l + 8],
+    w2[l + 8], h[l] w2[l]), the lanes in a tree, then the bias."""
+    w1 = mlp[:96].reshape(6, 16)
+    b1, w2, b2 = mlp[96:112], mlp[112:128], mlp[128]
+    p = [f[..., k:k + 1] * w1[k] for k in range(6)]
+    h = torch.clamp_min(((p[0] + p[1]) + (p[2] + p[3])) + (p[4] + p[5])
+                        + b1, 0.0)
+    lanes = [fma(h[..., l + 8], w2[l + 8], h[..., l] * w2[l])
+             for l in range(8)]
+    z = ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) \
+        + ((lanes[4] + lanes[5]) + (lanes[6] + lanes[7]))
+    return z + b2
+
+
+def _softplus(z):
+    """``jax.nn.softplus``: ``logaddexp(z, 0)`` = max(z, 0) +
+    log1p(exp(-|z|)), with no threshold."""
+    return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+
+def atrous_step_reference(color, var, albedo, normal, p: StepParams,
+                          mlp=None):
+    """Plain PyTorch version of one iteration (``kernels/denoise.
+    atrous_step``'s arguments and results): the loop bodies of
+    ``denoise.py:53-64``, ``:96-129`` and ``:175-201``."""
+    step = p.step
+    dev = color.device
+    c_color, c_normal, c_albedo = (
+        torch.tensor(x, dtype=torch.float32, device=dev)
+        for x in (p.c_color, p.c_normal, p.c_albedo))
+    if p.mode == SVGF:
+        gvar = torch.clamp_min(_gauss3(var), 0.0)
+        denom = p.sigma_lum * torch.sqrt(gvar) + 1e-4
+    elif p.mode == LEARNED:
+        gstd = torch.sqrt(torch.clamp_min(_gauss3(var), 1e-12))
+    if p.mode != FIXED:
+        lum_p = _luminance(color)
+        var_accum = torch.zeros_like(var)
+    nn = _dot(normal, normal)
+    accum = torch.zeros_like(color)
+    weight_sum = torch.zeros_like(color[..., 0])
+    for ky, wy in zip(_TAPS, _KERNEL):
+        for kx, wx in zip(_TAPS, _KERNEL):
+            w_k = wy * wx
+            shift = (ky * step, kx * step)
+            s_col = torch.roll(color, shift, (0, 1))
+            s_alb = torch.roll(albedo, shift, (0, 1))
+            s_nrm = torch.roll(normal, shift, (0, 1))
+            da = s_alb - albedo
+            if p.mode == FIXED:
+                dc = s_col - color
+                dn = torch.clamp_min(1.0 - _dot(s_nrm, normal), 0.0)
+                wc = torch.exp(fdiv(-_dot(dc, dc), c_color))
+                wn = torch.exp(fdiv(-dn, c_normal))
+                wa = torch.exp(fdiv(-_dot(da, da), c_albedo))
+                w = w_k * (wc * wn * wa)
+            elif p.mode == SVGF:
+                w_l = torch.exp(fdiv(-torch.abs(_luminance(s_col) - lum_p),
+                                     denom))
+                both_bg = (nn < 0.5) & (_dot(s_nrm, s_nrm) < 0.5)
+                w_n = torch.where(both_bg, 1.0, torch.pow(torch.clamp_min(
+                    _dot(s_nrm, normal), 0.0), p.normal_pow))
+                w_a = torch.exp(fdiv(-_dot(da, da), c_albedo))
+                w = w_k * w_l * w_n * w_a
+            else:
+                f = _tap_features(lum_p, gstd, normal, albedo, s_col, s_nrm,
+                                  s_alb, p.it_feature,
+                                  (abs(ky) + abs(kx)) / 4.0)
+                w = w_k * torch.exp(-_softplus(_mlp_logit(mlp, f)))
+            accum = accum + s_col * w[..., None]
+            if p.mode != FIXED:
+                s_var = torch.roll(var, shift, (0, 1))
+                var_accum = var_accum + s_var * (w * w)
+            weight_sum = weight_sum + w
+    m = torch.clamp_min(weight_sum, 1e-6)
+    out = fdiv(accum, m[..., None])
+    return out, None if p.mode == FIXED else fdiv(var_accum, m * m)
+
+
+def _prepare(*xs):
+    return [x.to(torch.float32).contiguous() for x in xs]
+
+
+def atrous_denoise(color, albedo, normal, iterations: int = 4,
+                   sigma_color: float = 0.35, sigma_normal: float = 0.25,
+                   sigma_albedo: float = 0.2, sigma_color_decay: float = 3.0):
+    """Edge-aware à-trous filtering of (H,W,3) radiance guided by the
+    first-hit albedo and normal AOVs; ``sigma_color`` decays by
+    ``sigma_color_decay`` per iteration (``denoise.py:25-64``)."""
+    out, albedo, normal = _prepare(color, albedo, normal)
+    for it in range(iterations):
+        sc = sigma_color / (sigma_color_decay ** it)
+        p = StepParams.fixed(1 << it, 2.0 * sc ** 2, 2.0 * sigma_normal ** 2,
+                             2.0 * sigma_albedo ** 2)
+        out, _ = K.atrous_step(out, None, albedo, normal, p)
+    return out
+
+
+def svgf_denoise(color, albedo, normal, variance, iterations: int = 4,
+                 sigma_lum: float = 1.5, sigma_normal_pow: float = 64.0,
+                 sigma_albedo: float = 0.25):
+    """Variance-guided à-trous filtering, the spatial core of SVGF
+    (``denoise.py:79-130``); ``variance`` is the per-pixel, per-channel
+    variance of the mean (``RenderState.variance_of_mean``)."""
+    out, albedo, normal, variance = _prepare(color, albedo, normal, variance)
+    var = _luminance(variance).contiguous()
+    for it in range(iterations):
+        p = StepParams.svgf(1 << it, sigma_lum, sigma_normal_pow,
+                            2.0 * sigma_albedo ** 2)
+        out, var = K.atrous_step(out, var, albedo, normal, p)
+    return out
+
+
+def learned_denoise(color, albedo, normal, variance, params,
+                    iterations: int = 4):
+    """À-trous filtering with learned tap weights (``denoise.py
+    :157-202``); ``params``: the MLP's ``w1``, ``b1``, ``w2``, ``b2`` as
+    tensors (``convert.denoiser_params``)."""
+    out, albedo, normal, variance = _prepare(color, albedo, normal, variance)
+    var = _luminance(variance).contiguous()
+    mlp = K.pack_mlp(params).to(out.device)
+    for it in range(iterations):
+        p = StepParams.learned(1 << it, it / max(iterations - 1, 1))
+        out, var = K.atrous_step(out, var, albedo, normal, p, mlp)
+    return out
+
+
+#: the vendored weights by device: a model, a dict of tensors, or False
+#: where the file is absent
+_UNET_PARAMS = {}
+_LEARNED_PARAMS = {}
+
+
+def _vendored(name, switch, cache, device, make):
+    if os.environ.get(switch, "1") != "1":
+        return None
+    key = str(torch.device(device))
+    if key not in cache:
+        path = os.path.join(DATA_DIR, name)
+        if not os.path.exists(path):
+            cache[key] = False
+        else:
+            from metal_pathtracer_tpu_torch import convert
+
+            with np.load(path) as z:
+                cache[key] = make(convert.denoiser_params(
+                    {k: z[k] for k in z.files}, device))
+    return cache[key] or None
+
+
+def _unet_params(device):
+    """The vendored conv U-Net (``data/denoiser_unet.npz``) as a
+    ``DenoiseUNet`` on ``device``; None if absent or disabled via
+    ``MPT_UNET_DENOISE=0``."""
+    from metal_pathtracer_tpu_torch.ops.denoise_unet import DenoiseUNet
+
+    return _vendored("denoiser_unet.npz", "MPT_UNET_DENOISE", _UNET_PARAMS,
+                     device, DenoiseUNet.from_params)
+
+
+def _learned_params(device):
+    """The vendored tap MLP (``data/denoiser_weights.npz``) on ``device``;
+    None if absent or disabled via ``MPT_LEARNED_DENOISE=0``."""
+    return _vendored("denoiser_weights.npz", "MPT_LEARNED_DENOISE",
+                     _LEARNED_PARAMS, device, lambda params: params)
+
+
+def denoise_state(state, settings):
+    """Denoise the averaged image with the state's AOVs: (H,W,3).
+
+    Filter choice, best first (``denoise.py:251-290``): the conv U-Net
+    over the learned prepass (SVGF without the tap weights); the learned
+    filter at 4 or 5 iterations; SVGF; the fixed-sigma filter for a state
+    without a second moment (a pre-sq_sum checkpoint)."""
+    avg = state.present()
+    iterations = 5 if settings.denoiseFilterType == 1 else 4
+    normal = state.normal
+    dev = avg.device
+    if state.radiance_sq_sum is not None:
+        net = _unet_params(dev)
+        tparams = _learned_params(dev)
+        var = state.variance_of_mean()
+        if net is not None:
+            from metal_pathtracer_tpu_torch.ops import denoise_unet
+
+            if tparams is not None:
+                base = learned_denoise(avg, state.albedo, normal, var,
+                                       tparams, iterations=iterations)
+            else:
+                base = svgf_denoise(avg, state.albedo, normal, var,
+                                    iterations=iterations)
+            return denoise_unet.denoise(avg, state.albedo, normal, var, net,
+                                        base)
+        if tparams is not None and iterations in (4, 5):
+            return learned_denoise(avg, state.albedo, normal, var, tparams,
+                                   iterations=iterations)
+        return svgf_denoise(avg, state.albedo, normal, var,
+                            iterations=iterations)
+    return atrous_denoise(avg, state.albedo, normal, iterations=iterations)

@@ -109,6 +109,12 @@ SIGNATURES = {
     "mpt_sphere_nearest_chunked": [_i, _vp, _vp, _f, _vp,
                                    *[_vp] * 5, _i, _vp, _vp, _vp, _vp],
     "mpt_rect_nearest": [_i, _vp, _vp, _f, _vp, _vp, _i, _vp, _vp, _vp],
+    # the à-trous iteration: mode, height, width, tap step, scalars (host
+    # float[8]), the packed MLP (NULL but in the learned mode), colour,
+    # luminance variance (NULL in the fixed mode), albedo, normal, out
+    # colour, out variance, stream
+    "mpt_atrous_step": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                        _vp, _vp],
 }
 
 
@@ -243,11 +249,11 @@ def load() -> ctypes.CDLL:
 
 
 def _kernel_name(mangled: str):
-    """``name`` or ``name<true|false>`` of a mangled kernel symbol: the
-    length-prefixed identifier ending in ``_kernel`` (the anonymous
-    namespace's hash may run into the length's digits, so of the
-    candidates the one that starts last), then its bool template argument
-    (``ILb0E``/``ILb1E``) if any."""
+    """``name``, ``name<true|false>`` or ``name<N>`` of a mangled kernel
+    symbol: the length-prefixed identifier ending in ``_kernel`` (the
+    anonymous namespace's hash may run into the length's digits, so of the
+    candidates the one that starts last), then its bool or int template
+    argument (``ILb0E``/``ILb1E``, ``ILi2E``) if any."""
     found = None
     for m in re.finditer(r"\d+", mangled):
         for k in range(len(m.group())):
@@ -255,7 +261,9 @@ def _kernel_name(mangled: str):
             ident = mangled[m.end():m.end() + n]
             if ident.endswith("_kernel") and ident[0].isalpha():
                 flag = re.match(r"ILb([01])E", mangled[m.end() + n:])
-                found = ident + ("" if flag is None else
+                num = re.match(r"ILi(\d+)E", mangled[m.end() + n:])
+                found = ident + (f"<{num.group(1)}>" if num is not None
+                                 else "" if flag is None else
                                  "<true>" if flag.group(1) == "1"
                                  else "<false>")
     return found

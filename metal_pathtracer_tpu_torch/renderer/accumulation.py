@@ -5,12 +5,17 @@ A checkpoint holds the JAX package's keys and dtypes (``accumulation.py
 :69-155``: uint32 sample counts and dispatch counter, float32 moments and
 counters, an empty ``denoised`` plane), so either package reads the
 other's files. The trace counters are float32 there, exact up to 2^24.
+A checkpoint written before the second moment existed has no
+``radiance_sq_sum``: it loads as ``None`` (``accumulation.py:153-154``),
+which ``variance_of_mean`` reads as zeros, the next frame starts from
+zeros, and ``ops/denoise.denoise_state`` takes the fixed-sigma filter for.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,7 +31,8 @@ class RenderState:
     sample_count: torch.Tensor     # (H,W)   i64 — per-pixel sample counts
     albedo: torch.Tensor           # (H,W,3) f32 — first-hit albedo AOV
     normal: torch.Tensor           # (H,W,3) f32 — first-hit normal AOV
-    radiance_sq_sum: torch.Tensor  # (H,W,3) f32 — sum of sample^2
+    radiance_sq_sum: Optional[torch.Tensor]  # (H,W,3) f32 — sum of
+    #                                  sample^2; None: a pre-sq_sum checkpoint
     frame_index: int = 0           # dispatch counter
     ray_count: int = 0             # scene traces issued
     shadow_ray_count: int = 0      # shadow traces issued (NEE + spec-NEE)
@@ -59,7 +65,10 @@ class RenderState:
 
     def variance_of_mean(self) -> torch.Tensor:
         """Per-pixel, per-channel variance of the accumulated mean:
-        max(E[x^2] - E[x]^2, 0) / n; zero where n < 2."""
+        max(E[x^2] - E[x]^2, 0) / n; zero where n < 2, and everywhere
+        without a second moment (a pre-sq_sum checkpoint)."""
+        if self.radiance_sq_sum is None:
+            return torch.zeros_like(self.radiance_sum)
         n = torch.clamp_min(self.sample_count.to(torch.float32),
                             1.0)[..., None]
         mean = self.radiance_sum / n
@@ -89,7 +98,12 @@ class RenderState:
                 ray_count=np.asarray(self.ray_count, np.float32),
                 shadow_ray_count=np.asarray(self.shadow_ray_count,
                                             np.float32),
-                radiance_sq_sum=f32(self.radiance_sq_sum))
+                # zeros for a state without a second moment, as the JAX
+                # package writes it: the file's keys stay the same
+                radiance_sq_sum=np.zeros(tuple(self.radiance_sum.shape),
+                                         np.float32)
+                if self.radiance_sq_sum is None
+                else f32(self.radiance_sq_sum))
 
     @classmethod
     def load(cls, path: str, expect_digest: str = None,
@@ -120,13 +134,12 @@ class RenderState:
                     "fresh")
         t = lambda x, dtype=torch.float32: torch.as_tensor(
             np.asarray(x), dtype=dtype, device=device)
-        sq = data["radiance_sq_sum"] if "radiance_sq_sum" in data \
-            else np.zeros_like(radiance_sum)
         scalar = lambda k: float(data[k]) if k in data else 0.0
         return cls(radiance_sum=t(radiance_sum),
                    sample_count=t(data["sample_count"], torch.int64),
                    albedo=t(data["albedo"]), normal=t(data["normal"]),
-                   radiance_sq_sum=t(sq),
+                   radiance_sq_sum=t(data["radiance_sq_sum"])
+                   if "radiance_sq_sum" in data else None,
                    frame_index=int(data["frame_index"]),
                    ray_count=int(scalar("ray_count")),
                    shadow_ray_count=int(scalar("shadow_ray_count")))

@@ -43,7 +43,10 @@ def render_rows(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
     ys = flat // width + row_offset
     prev0 = state.sample_count.reshape(-1)
     lane_rad = state.radiance_sum.reshape(-1, 3).clone()
-    lane_sq = state.radiance_sq_sum.reshape(-1, 3).clone()
+    # a pre-sq_sum checkpoint's second moment starts from zeros
+    # (``frame.py:143-144``)
+    lane_sq = torch.zeros_like(lane_rad) if state.radiance_sq_sum is None \
+        else state.radiance_sq_sum.reshape(-1, 3).clone()
     lane_alb = torch.zeros_like(lane_rad)
     lane_nrm = torch.zeros_like(lane_rad)
     rays = state.ray_count

@@ -1,7 +1,7 @@
 """Render configuration (the port's own copy of the JAX package's
-``settings.py``: the enums and ``RenderSettings`` with the same field
-names and defaults; the radiometric change detector, which only the
-interactive viewer reads, is not copied).
+``settings.py``: the enums, ``RenderSettings`` with the same field
+names and defaults, and the radiometric change detector that the
+``Renderer`` facade and the live viewer reset accumulation with).
 
 Field names keep the reference's camelCase spelling (reference:
 include/renderer/RenderSettings.h:16-145), so a settings object of either
@@ -128,3 +128,80 @@ class RenderSettings:
 
     def copy(self) -> "RenderSettings":
         return dataclasses.replace(self)
+
+
+# ---------------------------------------------------------------------------
+# Radiometric change detection
+# ---------------------------------------------------------------------------
+
+# Fields whose change alters the rendered radiance and therefore must reset
+# progressive accumulation (reference: src/renderer/SettingsUtils.mm:13-96).
+# Maps field name -> human-readable reset reason.
+_RADIOMETRIC_FIELDS = {
+    "maxDepth": "MAX_DEPTH",
+    "enableRussianRoulette": "RUSSIAN_ROULETTE",
+    "fixedRngSeed": "RNG_SEED",
+    "enableSoftwareRayTracing": "INTERSECTION_BACKEND",
+    "sssMode": "SSS_MODE",
+    "sssMaxSteps": "SSS_MAX_STEPS",
+    "enableSpecularNee": "SPECULAR_NEE",
+    "enableMnee": "MNEE",
+    "enableMneeSecondary": "MNEE_SECONDARY",
+    "workingColorSpace": "WORKING_COLOR_SPACE",
+    "gltfViewerCompatibilityMode": "GLTF_COMPAT",
+    "gltfThinWalledFallback": "GLTF_THIN_FALLBACK",
+    "gltfEmissiveScale": "GLTF_EMISSIVE_SCALE",
+    "gltfCompatForceLinearBaseColor": "GLTF_LINEAR_BASECOLOR",
+    "gltfCompatForceLinearEmissive": "GLTF_LINEAR_EMISSIVE",
+    "debugShowBaseColor": "DEBUG_VIEW",
+    "debugShowMetallic": "DEBUG_VIEW",
+    "debugShowRoughness": "DEBUG_VIEW",
+    "debugShowAO": "DEBUG_VIEW",
+    "debugDisableAO": "DEBUG_AO",
+    "debugAoIndirectOnly": "DEBUG_AO",
+    "debugDisableNormalMap": "DEBUG_NORMAL_MAP",
+    "debugDisableOrmTexture": "DEBUG_ORM",
+    "debugFlipNormalGreen": "DEBUG_NORMAL_MAP",
+    "debugSpecularOnly": "DEBUG_SPECULAR_ONLY",
+    "debugNormalStrengthScale": "DEBUG_NORMAL_MAP",
+    "debugNormalLodBias": "DEBUG_LOD",
+    "debugOrmLodBias": "DEBUG_LOD",
+    "debugEnvMipOverride": "DEBUG_ENV_MIP",
+    "debugEnvNearest": "DEBUG_ENV_FILTER",
+    "cameraTarget": "CAMERA",
+    "cameraDistance": "CAMERA",
+    "cameraYaw": "CAMERA",
+    "cameraPitch": "CAMERA",
+    "cameraVerticalFov": "CAMERA",
+    "cameraDefocusAngle": "CAMERA",
+    "cameraFocusDistance": "CAMERA",
+    "backgroundMode": "BACKGROUND",
+    "backgroundColor": "BACKGROUND",
+    "environmentMapPath": "ENVIRONMENT",
+    "environmentRotation": "ENVIRONMENT",
+    "environmentIntensity": "ENVIRONMENT",
+    "fireflyClampEnabled": "FIREFLY_CLAMP",
+    "fireflyClampFactor": "FIREFLY_CLAMP",
+    "fireflyClampFloor": "FIREFLY_CLAMP",
+    "throughputClamp": "THROUGHPUT_CLAMP",
+    "specularTailClampBase": "SPECULAR_CLAMP",
+    "specularTailClampRoughnessScale": "SPECULAR_CLAMP",
+    "minSpecularPdf": "SPECULAR_CLAMP",
+    "fireflyClampMaxContribution": "FIREFLY_CLAMP",
+    "renderWidth": "RENDER_SIZE",
+    "renderHeight": "RENDER_SIZE",
+    "renderScale": "RENDER_SIZE",
+}
+
+
+def detect_radiometric_change(prev: RenderSettings, nxt: RenderSettings):
+    """Field-by-field diff of two settings -> (changed, reason).
+
+    Pure function mirroring the reference's radiometric change detector used
+    to decide when progressive accumulation must restart
+    (reference: src/renderer/SettingsUtils.mm:13-96).
+    """
+    for field, reason in _RADIOMETRIC_FIELDS.items():
+        if getattr(prev, field) != getattr(nxt, field):
+            return True, reason
+    return False, ""

@@ -1,0 +1,3 @@
+from metal_pathtracer_tpu_torch.viewer.server import main
+
+raise SystemExit(main())

@@ -1355,3 +1355,118 @@ def test_instanced_render_kernels_vs_plain_on_card(dev, instanced, name):
     diff = (k.present() - p.present()).abs()
     assert float(diff.square().mean().sqrt()) < 2e-4
     assert float((diff.amax(-1) < 1e-5).float().mean()) > 0.98
+
+
+# ---- the à-trous kernel and the U-Net (the interactive path) ---------------
+
+def _denoise_inputs(dev, h, w, seed=21):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(rng.random(s, dtype=np.float32), device=dev)
+    color = f(h, w, 3) * 3.0
+    albedo = f(h, w, 3)
+    normal = torch.nn.functional.normalize(
+        torch.tensor(rng.normal(size=(h, w, 3)).astype(np.float32),
+                     device=dev), dim=-1)
+    normal[: h // 5] = 0.0           # a band of background pixels
+    var = f(h, w) * 0.05
+    return color, var, albedo, normal
+
+
+@pytest.mark.parametrize("mode", ["fixed", "svgf", "learned"])
+@pytest.mark.parametrize("size", [(24, 24), (37, 53)])
+def test_atrous_step_vs_plain_on_card(dev, mode, size):
+    """One launch of ``csrc/denoise.cu`` per iteration against
+    ``ops/denoise.atrous_step_reference`` on the card, at every step of
+    a 5-iteration pyramid (steps 1-16: at 24x24 the taps wrap around more
+    than once) and at an odd size: within 1e-6 relative."""
+    from metal_pathtracer_tpu_torch import convert
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+
+    h, w = size
+    color, var, albedo, normal = _denoise_inputs(dev, h, w)
+    with np.load(D.DATA_DIR + "/denoiser_weights.npz") as z:
+        mlp = K.pack_mlp(convert.denoiser_params(
+            {k: z[k] for k in z.files}, dev))
+    for it in range(5):
+        p = {"fixed": K.StepParams.fixed(1 << it, 0.245 / 9 ** it, 0.125,
+                                         0.08),
+             "svgf": K.StepParams.svgf(1 << it, 1.5, 64.0, 0.125),
+             "learned": K.StepParams.learned(1 << it, it / 4)}[mode]
+        before = K.atrous_step.launches
+        got, got_var = K.atrous_step(color, var, albedo, normal, p, mlp)
+        assert K.atrous_step.launches == before + 1
+        ref, ref_var = D.atrous_step_reference(color, var, albedo, normal,
+                                               p, mlp)
+        torch.cuda.synchronize()
+        rel = ((got - ref).abs() / (1 + ref.abs())).max().item()
+        assert rel <= 1e-6, (mode, it, rel)
+        if mode == "fixed":
+            assert got_var is None and ref_var is None
+        else:
+            rel = ((got_var - ref_var).abs() / (1 + ref_var.abs())).max()
+            assert rel.item() <= 1e-6, (mode, it, rel.item())
+            var = got_var
+        color = got
+
+
+def test_atrous_step_refuses_bad_inputs_on_card(dev):
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+
+    color, var, albedo, normal = _denoise_inputs(dev, 8, 8)
+    with pytest.raises(ValueError, match="variance"):
+        K.atrous_step(color, None, albedo, normal,
+                      K.StepParams.svgf(1, 1.5, 64.0, 0.125))
+    with pytest.raises(ValueError, match="color"):
+        K.atrous_step(color.transpose(0, 1), var, albedo, normal,
+                      K.StepParams.fixed(1, 1.0, 1.0, 1.0))
+
+
+def test_unet_tf32_off_vs_cpu(dev):
+    """The vendored U-Net on the card (cuDNN, TF32 off inside ``forward``)
+    against the same net on the CPU, over a learned prepass: within 1e-4
+    relative; the global TF32 switch is left as it was."""
+    from metal_pathtracer_tpu_torch import convert
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops import denoise_unet as U
+
+    with np.load(D.DATA_DIR + "/denoiser_unet.npz") as z:
+        raw = {k: z[k] for k in z.files}
+    color, var, albedo, normal = _denoise_inputs(dev, 45, 67)
+    var3 = var[..., None].expand(-1, -1, 3).contiguous()
+    base = color * 0.8
+    flag = torch.backends.cudnn.allow_tf32
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        net = U.DenoiseUNet.from_params(convert.denoiser_params(raw, d))
+        out[d.type] = U.denoise(*(x.to(d) for x in (color, albedo, normal,
+                                                     var3)), net,
+                                base.to(d)).cpu()
+    assert torch.backends.cudnn.allow_tf32 == flag
+    ref = out["cpu"]
+    rel = ((out["cuda"] - ref).abs() / (1 + ref.abs())).max().item()
+    assert rel <= 1e-4, rel
+
+
+def test_denoised_display_launches_the_kernel(dev):
+    """``display_image`` with ``denoiseEnabled`` on a card state launches
+    the à-trous kernel once an iteration (4, or 5 for RTLightmap) and
+    matches the display through the plain filters within one LDR step."""
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+    from metal_pathtracer_tpu_torch.renderer import display
+
+    color, var, albedo, normal = _denoise_inputs(dev, 40, 56)
+    n = torch.full((40, 56), 4, dtype=torch.int64, device=dev)
+    st = RenderState(radiance_sum=color * 4, sample_count=n, albedo=albedo,
+                     normal=normal, radiance_sq_sum=color * color * 4 + 0.3)
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    for ftype, iters in ((0, 4), (1, 5)):
+        s = RenderSettings()
+        s.denoiseEnabled, s.denoiseFilterType = True, ftype
+        before = K.atrous_step.launches
+        got = display.display_to_u8(st, s)
+        assert K.atrous_step.launches == before + iters
+        from metal_pathtracer_tpu_torch.ops import denoise as D
+        with mock.patch.object(K, "atrous_step", D.atrous_step_reference):
+            ref = display.display_to_u8(st, s)
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
