@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's ten paths:
+(one nvcc per source, in parallel) and drives the port's eleven paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -157,7 +157,23 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    against the plain filters' within one LDR step, display ms with and
    without denoise; and ``ViewerServer`` on the Cornell box at 320x180
    over HTTP (3 spp, ``/frame.png``, a denoised pass, an orbit's preview
-   and landing), failing on the loop's ``last_error``.
+   and landing), failing on the loop's ``last_error``;
+11. multi-GPU rendering and texture formats (``parallel/mesh.py`` on
+   ``torch.distributed``; the PNG and JPEG decoders): the textured
+   headline at 1920x1080 d8, 1 spp, sharded over an NCCL group of world
+   size 1 in this process and over two ``parallel.dryrun`` gloo ranks
+   sharing the card (540 rows each), each bit for bit against this
+   process's single ``render_samples`` in all five image fields with
+   equal trace totals, each rank's slab ms beside the single render's;
+   the Cornell box at 512x510 d8, 2 spp, over four gloo ranks (padded to
+   512 rows: K3a, K3c, K2 s1/s2), unpadded bit-equal to the single
+   render, its totals those of one render over the 512 rows; the
+   committed texture fixtures (``tests/images``) decoded on this host,
+   their RGBA digests Pillow's, the decode times of the 2048x2048 4:2:0
+   JPEG and the 2048x2048 interlaced 16-bit RGBA PNG; and the mesh-files
+   scene with its ground textured by that JPEG through the CLI at
+   1920x1080 d8, 1 spp, bit-equal to the same scene with the texture
+   re-encoded as an 8-bit PNG.
 
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
@@ -181,6 +197,8 @@ import contextlib
 import importlib.metadata
 import importlib.util
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -4380,6 +4398,282 @@ def interactive_path(dev, card, kernels, out):
         for k, (name, t) in enumerate(marks[1:])))
 
 
+# ---- phase 11: multi-GPU rendering and texture formats ---------------------
+
+#: samples of the sharded headline; the sharded Cornell box (width,
+#: height, samples: 510 rows pad to 512 over 4 ranks); the JPEG-textured
+#: GLB's samples
+DIST_SPP = 1
+DIST_CORNELL = (512, 510, 2)
+DIST_RANKS = {"headline": 2, "cornell": 4}
+JPEG_GLB_SPP = 1
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(REPO_DIR, "tests", "images")
+#: the fixtures whose decode times are printed
+BIG_FIXTURES = ("tex_2048_420.jpg", "tex_2048_rgba16_adam7.png")
+#: the kernels of the sharded headline's and the sharded Cornell box's
+#: paths, each launched by every rank
+HEADLINE_KERNELS = ("trace_closest", "trace_any", "shade_s1", "shade_s2",
+                    "texture_stage")
+CORNELL_KERNELS = ("sphere_nearest_brute", "rect_nearest", "shade_s1",
+                   "shade_s2")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(world, scene, w, h, spp, out):
+    """``world`` ``parallel.dryrun`` processes over gloo, all on cuda:0,
+    rank 0 writing the gathered frame to ``out``."""
+    init = f"tcp://127.0.0.1:{free_port()}"
+    return [subprocess.Popen(
+        [sys.executable, "-m", "metal_pathtracer_tpu_torch.parallel.dryrun",
+         "--backend", "gloo", "--init-method", init, "--world-size",
+         str(world), "--rank", str(rank), "--device", "cuda:0", "--scene",
+         scene, "--width", str(w), "--height", str(h), "--spp", str(spp),
+         "--out", out], cwd=REPO_DIR, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+
+
+def finish_ranks(procs, label, timeout=600):
+    """Each rank's report line (``rank=K ...``), once every rank printed
+    ``DIST_DRYRUN_OK``; no rank outlives the call."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"DIST_DRYRUN_OK rank={rank}" not in text:
+            raise AssertionError(f"{label}: rank {rank} failed "
+                                 f"({p.returncode}):\n{text[-4000:]}")
+    return [line for text in outs for line in text.splitlines()
+            if line.startswith("rank=")]
+
+
+def rank_launches(line: str) -> dict:
+    return json.loads(line.split("launches=", 1)[1])
+
+
+def compare_frame(got, want, totals, label):
+    """A gathered frame (``.npz`` or ``RenderState`` on the host) against
+    the single render, image fields byte for byte; traces against
+    ``totals``."""
+    from metal_pathtracer_tpu_torch.parallel.mesh import IMAGE_FIELDS
+
+    def field(x, f):
+        v = x[f] if isinstance(x, dict) or hasattr(x, "files") \
+            else getattr(x, f)
+        return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    for f in IMAGE_FIELDS:
+        a, b = field(got, f), field(want, f)
+        if a.shape != b.shape or a.dtype != b.dtype \
+                or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{label}: {f} differs from the single "
+                                 "render")
+    traces = tuple(int(field(got, f)) for f in ("ray_count",
+                                                "shadow_ray_count"))
+    if traces != (totals.ray_count, totals.shadow_ray_count):
+        raise AssertionError(f"{label}: traces {traces} != "
+                             f"{(totals.ray_count, totals.shadow_ray_count)}")
+    return traces
+
+
+def texture_formats(card):
+    """Decode every committed fixture here (no Pillow on this host): RGBA
+    SHA-256 against Pillow's recorded digest; the 2048x2048 images'
+    decode times, three each."""
+    import hashlib
+
+    from metal_pathtracer_tpu_torch.utils import nativebuild
+    from metal_pathtracer_tpu_torch.utils.image_io import decode_image
+
+    t0 = time.perf_counter()
+    nativebuild.build_host_library()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(FIXTURES, "pillow_rgba.json")) as fh:
+        record = json.load(fh)
+    times = {}
+    for name, want in sorted(record.items()):
+        with open(os.path.join(FIXTURES, name), "rb") as fh:
+            data = fh.read()
+        runs = []
+        for _ in range(3 if name in BIG_FIXTURES else 1):
+            t0 = time.perf_counter()
+            rgba = decode_image(data)
+            runs.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(np.ascontiguousarray(rgba).tobytes())
+        if digest.hexdigest() != want["sha256"] \
+                or list(rgba.shape) != want["shape"]:
+            raise AssertionError(f"texture formats: {name} decodes to "
+                                 "other bytes than Pillow's")
+        times[name] = runs
+    print(f"texture formats: {len(record)} fixtures decoded on this host, "
+          f"each RGBA digest Pillow's; the host C library built in "
+          f"{build_s:.2f}s; decode seconds "
+          + ", ".join(f"{n} {', '.join(f'{t:.3f}' for t in times[n])}"
+                      for n in BIG_FIXTURES) + f" [{card}]")
+
+
+def jpeg_glb(dev, card, kernels, tmp):
+    """The mesh-files scene with its ground's base colour the 2048x2048
+    JPEG fixture, through the CLI, against its twin with the texture
+    re-encoded as an 8-bit PNG of the decoded pixels: every EXR channel
+    bit for bit."""
+    from metal_pathtracer_tpu_torch.utils import image_io, meshfiles
+
+    _, meshes = meshfiles.write_headline_files(tmp, HEADLINE_SUBDIVISIONS,
+                                               dev)
+    with open(os.path.join(FIXTURES, "tex_2048_420.jpg"), "rb") as fh:
+        jpg = fh.read()
+    twin = image_io.encode_png_u8(image_io.decode_image(jpg)[..., :3])
+    W, H = FRAME
+    channels = []
+    for stem, image in (("ground_jpeg", jpg), ("ground_png", twin)):
+        path = meshfiles.write_ground_texture_files(tmp, meshes, image, stem)
+        output = os.path.join(tmp, f"{stem}.exr")
+        _, launches, wall, said = cli_run(
+            ["--scene", path, "--width", str(W), "--height", str(H),
+             "--sppTotal", str(JPEG_GLB_SPP), "--backend", "metal",
+             "--output", output], kernels,
+            f"jpeg-glb {stem} {W}x{H} d8 --backend metal", card)
+        for k in HEADLINE_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError(f"jpeg-glb: {k} was not launched")
+        if stem == "ground_jpeg":
+            MAIN_LAUNCHES["jpeg-glb"] = launches
+        channels.append(image_io.read_exr(output))
+    jpeg_ch, png_ch = channels
+    if sorted(jpeg_ch) != sorted(png_ch) or any(
+            jpeg_ch[k].tobytes() != png_ch[k].tobytes() for k in jpeg_ch):
+        raise AssertionError("jpeg-glb: the JPEG-textured render differs "
+                             "from its PNG twin")
+    print(f"jpeg-glb {W}x{H} d8 {JPEG_GLB_SPP} spp: every EXR channel "
+          f"({len(jpeg_ch)}) bit-equal to the PNG twin's [{card}]")
+
+
+def multi_gpu_path(dev, card, kernels, out):
+    """Phase 11: the headline sharded over NCCL (world 1, this process)
+    and over two gloo ranks on this card; the Cornell box over four gloo
+    ranks with pad rows; the texture fixtures; the JPEG-textured GLB."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from metal_pathtracer_tpu_torch.parallel import dryrun
+    from metal_pathtracer_tpu_torch.parallel import mesh as mesh_ops
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    W, H = FRAME
+    cw, chh, cspp = DIST_CORNELL
+    cornell = os.path.join(REPO_DIR, "assets", "scenes", "cornell.scene")
+    marks = [("start", time.time())]
+    with tempfile.TemporaryDirectory() as tmp:
+        head_npz = os.path.join(tmp, "headline.npz")
+        corn_npz = os.path.join(tmp, "cornell.npz")
+        # the headline's ranks build their scenes while this process
+        # renders; the Cornell box's while it decodes the fixtures
+        ranks = start_ranks(DIST_RANKS["headline"], "headline", W, H,
+                            DIST_SPP, head_npz)
+        try:
+            scene, uni, static = dryrun.build_scene("headline", W, H, dev)
+            single = frame.render_samples(scene, uni,
+                                          RenderState.create(W, H, dev),
+                                          static, DIST_SPP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame.render_samples(scene, uni, RenderState.create(W, H, dev),
+                                 static, DIST_SPP)
+            torch.cuda.synchronize()
+            single_ms = 1e3 * (time.perf_counter() - t0)
+            marks.append(("headline built and rendered", time.time()))
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                world_size=1, rank=0, device_id=dev)
+            try:
+                mesh = mesh_ops.make_mesh(device=dev)
+                res = dryrun.check_case(mesh, scene, uni, static, DIST_SPP)
+            finally:
+                dist.destroy_process_group()
+            # counted from just before the sharded render to just after
+            launches = res["launches"]
+            for k in HEADLINE_KERNELS:
+                if launches.get(k, 0) <= 0:
+                    raise AssertionError(f"sharded-headline: {k} was not "
+                                         "launched")
+            MAIN_LAUNCHES["sharded-headline"] = launches
+            traces = compare_frame(res["state"], single, single,
+                                   "sharded-headline NCCL world 1")
+            print(f"sharded-headline {W}x{H} d8 {DIST_SPP} spp, NCCL world "
+                  f"1: bit-equal to the single render in the five image "
+                  f"fields, traces {traces} equal; slab "
+                  f"{res['slab_ms']:.2f} ms, single {single_ms:.2f} ms; "
+                  f"launches {launches} [{card}]")
+            marks.append(("NCCL world 1", time.time()))
+        finally:
+            lines = finish_ranks(ranks, "sharded-headline")
+        marks.append(("headline ranks", time.time()))
+        traces = compare_frame(np.load(head_npz), single, single,
+                               "sharded-headline 2 gloo ranks")
+        for line in lines:
+            got = rank_launches(line)
+            if not all(got.get(k, 0) > 0 for k in HEADLINE_KERNELS):
+                raise AssertionError(f"sharded-headline: a kernel of the "
+                                     f"path was not launched: {line}")
+        print(f"sharded-headline {W}x{H} d8 {DIST_SPP} spp, 2 gloo ranks on "
+              f"cuda:0 ({H // 2} rows each): the gathered frame bit-equal "
+              f"to this process's single render ({single_ms:.2f} ms), "
+              f"traces {traces} equal; the ranks (sharing the card): "
+              + " | ".join(lines) + f" [{card}]")
+        del scene, single
+
+        ranks = start_ranks(DIST_RANKS["cornell"], cornell, cw, chh, cspp,
+                            corn_npz)
+        try:
+            texture_formats(card)
+            marks.append(("texture formats", time.time()))
+        finally:
+            lines = finish_ranks(ranks, "sharded-cornell")
+        marks.append(("cornell ranks", time.time()))
+
+        cscene, cuni, cstatic = dryrun.build_scene(cornell, cw, chh, dev)
+        csingle = frame.render_samples(cscene, cuni,
+                                       RenderState.create(cw, chh, dev),
+                                       cstatic, cspp)
+        padded = mesh_ops.padded_height(chh, DIST_RANKS["cornell"])
+        ctotals = frame.render_samples(cscene, cuni,
+                                       RenderState.create(cw, padded, dev),
+                                       cstatic, cspp)
+        traces = compare_frame(np.load(corn_npz), csingle, ctotals,
+                               "sharded-cornell 4 gloo ranks")
+        for line in lines:
+            got = rank_launches(line)
+            if not all(got.get(k, 0) > 0 for k in CORNELL_KERNELS):
+                raise AssertionError(f"sharded-cornell: a kernel of the "
+                                     f"path was not launched: {line}")
+        print(f"sharded-cornell {cw}x{chh} d8 {cspp} spp, 4 gloo ranks on "
+              f"cuda:0, padded to {padded} rows: bit-equal to the single "
+              f"render, traces {traces} those of one render over {padded} "
+              f"rows (the single render's "
+              f"{(csingle.ray_count, csingle.shadow_ray_count)}); the "
+              "ranks: " + " | ".join(lines) + f" [{card}]")
+        marks.append(("cornell checked", time.time()))
+        jpeg_glb(dev, card, kernels, tmp)
+        marks.append(("jpeg-glb", time.time()))
+    print("# multi-GPU phase: " + ", ".join(
+        f"{name} {t - marks[k][1]:.1f}s"
+        for k, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -4456,6 +4750,10 @@ def main() -> None:
     interactive_path(dev, card, dict(kernels, atrous_step=DK.atrous_step),
                      out)
     print(f"# interactive phases took {time.time() - t0:.1f}s")
+    t0 = time.time()
+    multi_gpu_path(dev, card, kernels, out)
+    print(f"# multi-GPU and texture-format phases took "
+          f"{time.time() - t0:.1f}s")
 
     print("K2 device ms at the earlier phases' first depths, this run "
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"

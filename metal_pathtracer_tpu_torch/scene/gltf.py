@@ -8,8 +8,8 @@ metallic-roughness materials with KHR_materials_transmission,
 KHR_materials_volume, KHR_materials_ior, KHR_materials_emissive_strength
 and KHR_texture_transform, per-slot UV sets, alpha modes, double-sided
 materials, the emissive scale of the ``gltf*`` settings, and the first
-camera node. Texture images are decoded by ``utils/image_io.decode_png``
-into ``SceneResources.texture_images``; tangents a primitive lacks are
+camera node. Texture images (PNG or JPEG) are decoded by
+``utils/image_io.decode_image`` into ``SceneResources.texture_images``; tangents a primitive lacks are
 generated (``scene/tangent.py``) when it has UVs.
 """
 
@@ -30,7 +30,7 @@ from metal_pathtracer_tpu_torch.scene.resources import (
     Mesh,
     SceneResources,
 )
-from metal_pathtracer_tpu_torch.utils.image_io import decode_png
+from metal_pathtracer_tpu_torch.utils.image_io import decode_image
 
 _COMPONENT_DTYPES = {
     5120: np.int8, 5121: np.uint8, 5122: np.int16,
@@ -343,7 +343,7 @@ def load_gltf_into(path: str, settings, resources: SceneResources,
         key = (tex["source"], srgb)
         if key not in textures:
             resources.texture_images.append(
-                decode_png(gltf.image_bytes(tex["source"])))
+                decode_image(gltf.image_bytes(tex["source"])))
             resources.texture_srgb.append(srgb)
             resources.texture_wrap.append(
                 (_WRAP.get(sampler.get("wrapS", 10497), 0),

@@ -132,27 +132,30 @@ def write_png_u8(path: str, rgb_u8: np.ndarray) -> None:
 
 
 # ---------------------------------------------------------------------------
-# PNG decoding: the texture images of glTF files
+# Texture image decoding: PNG and JPEG, as Pillow decodes them
 # ---------------------------------------------------------------------------
 
 #: PNG colour type -> samples per pixel (0 grey, 2 RGB, 3 palette, 4 grey
 #: + alpha, 6 RGBA)
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
+#: PNG colour type -> the bit depths it may have
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+
+#: Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
 
 class ImageFormatError(ValueError):
     """An image in a format the port does not decode."""
 
 
-def _unsupported(what: str):
-    raise ImageFormatError(
-        f"{what} images are not decoded (ROADMAP Queue 1, image formats)")
-
-
 def _png_chunks(data: bytes):
-    if not data.startswith(b"\x89PNG\r\n\x1a\n"):
-        if data[:3] == b"\xff\xd8\xff":
-            _unsupported("JPEG")
+    if not data.startswith(PNG_SIGNATURE):
         raise ImageFormatError("not a PNG image")
     pos = 8
     while pos + 8 <= len(data):
@@ -164,56 +167,79 @@ def _png_chunks(data: bytes):
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """The PNG filters undone (types 0-4: none, Sub, Up, Average,
-    Paeth), row after row: (h, stride) uint8."""
-    out = np.zeros((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind = raw[y * (stride + 1)]
-        row = np.frombuffer(raw, np.uint8, stride, y * (stride + 1) + 1)
-        if kind == 0:
-            cur = row.copy()
-        elif kind == 1:   # Sub: a running sum per byte of a pixel
-            cur = np.cumsum(row.reshape(-1, bpp), 0,
-                            dtype=np.uint8).reshape(-1)
-        elif kind == 2:
-            cur = row + prior
-        elif kind in (3, 4):
-            cur = bytearray(row.tobytes())
-            up = prior.tobytes()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = up[i]
-                if kind == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[i - bpp] if i >= bpp else 0
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    pred = a if pa <= pb and pa <= pc else b if pb <= pc \
-                        else c
-                cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ImageFormatError(f"PNG filter type {kind} is not valid")
-        out[y] = cur
-        prior = out[y]
+    """The PNG filters undone (types 0-4: none, Sub, Up, Average, Paeth),
+    in C (``hostsrc/png_unfilter.c``): (h, stride) uint8."""
+    from metal_pathtracer_tpu_torch.utils import nativebuild
+
+    if len(raw) < h * (stride + 1):
+        raise ImageFormatError("PNG image data is truncated")
+    out = np.empty((h, stride), np.uint8)
+    err = nativebuild.host_library().mpt_png_unfilter(
+        raw, out.ctypes.data, h, stride, bpp)
+    if err:
+        row = -err - 1
+        raise ImageFormatError(f"PNG filter type {raw[row * (stride + 1)]} "
+                               "is not valid")
+    return out
+
+
+def _png_samples(rows: np.ndarray, width: int, depth: int,
+                 channels: int) -> np.ndarray:
+    """Unfiltered rows -> (h, width, channels) samples (uint8, or uint16
+    at depth 16); sub-byte samples unpacked most significant bits
+    first."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)[:, :width * channels] \
+            .reshape(h, width, channels)
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return samples.reshape(h, -1)[:, :width].reshape(h, width, 1)
+
+
+def _png_pixels(raw: bytes, w: int, h: int, depth: int, ch: int,
+                interlace: int) -> np.ndarray:
+    """The image's samples, (h, w, ch), with Adam7's passes put back in
+    place; a pass without columns or rows has no bytes, not even filter
+    bytes."""
+    bpp = max(1, depth * ch // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * ch * depth // 8)
+        size = ph * (stride + 1)
+        rows = _unfilter(raw[pos:pos + size], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _png_samples(rows, pw, depth, ch)
+        pos += size
     return out
 
 
 def decode_png(data: bytes) -> np.ndarray:
     """Decode a PNG into (H, W, 4) uint8 RGBA, as Pillow's
     ``Image.open(...).convert("RGBA")`` gives it (the JAX package's
-    ``gltf._decode_image``): grey expands to RGB, a palette through PLTE
-    with its tRNS alphas, and a tRNS colour key of a grey or RGB image
-    makes that colour transparent; alpha is 255 elsewhere. 8-bit,
-    non-interlaced images of colour types 0, 2, 3, 4 and 6 only: other
-    bit depths, interlaced images and JPEG raise ``ImageFormatError``."""
+    ``gltf._decode_image``), at every bit depth and colour type,
+    interlaced or not. Pillow's rules:
+
+    - 16-bit samples keep their high byte, except 16-bit grey (mode
+      ``I;16``), which clips at 255;
+    - sub-byte grey is scaled (1-bit: 0/255, 2-bit: x85, 4-bit: x17);
+      palette indices index PLTE, with its tRNS alphas;
+    - a tRNS colour key of a grey or RGB image makes transparent the
+      pixels whose 8-bit values equal the key's low bytes (at 1 bit, 255
+      for any key but 0); alpha is 255 elsewhere."""
     header, palette, trns, idat = None, None, None, []
     for tag, body in _png_chunks(data):
         if tag == b"IHDR":
             header = _struct.unpack(">IIBBBBB", body)
         elif tag == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3] \
+                .reshape(-1, 3)
         elif tag == b"tRNS":
             trns = body
         elif tag == b"IDAT":
@@ -223,13 +249,18 @@ def decode_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _PNG_CHANNELS:
         raise ImageFormatError(f"PNG colour type {ctype} is not valid")
-    if depth != 8:
-        _unsupported(f"{depth}-bit PNG")
-    if interlace:
-        _unsupported("interlaced PNG")
+    if depth not in _PNG_DEPTHS[ctype]:
+        raise ImageFormatError(f"PNG colour type {ctype} at {depth} bits "
+                               "is not valid")
+    if interlace > 1:
+        raise ImageFormatError(f"PNG interlace method {interlace} is not "
+                               "valid")
     ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch,
-                   ch).reshape(h, w, ch)
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as exc:
+        raise ImageFormatError(f"PNG image data: {exc}") from exc
+    px = _png_pixels(raw, w, h, depth, ch, interlace)
     out = np.empty((h, w, 4), np.uint8)
     out[..., 3] = 255
     if ctype == 3:
@@ -242,14 +273,34 @@ def decode_png(data: bytes) -> np.ndarray:
             alpha = np.frombuffer(trns, np.uint8)[:256]
             lut[:len(alpha), 3] = alpha
         return lut[px[..., 0]]
+    if depth == 16:   # Pillow's I;16 clips; its other 16-bit modes keep
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8   # the high byte
+    elif depth < 8:
+        px = px * (255 // ((1 << depth) - 1))
+    px = px.astype(np.uint8)
     colour = px[..., :3] if ch >= 3 else px[..., :1]
     out[..., :3] = colour
     if ch in (2, 4):
         out[..., 3] = px[..., ch - 1]
-    elif trns is not None:   # a colour key, 16-bit samples
-        key = np.frombuffer(trns, ">u2")[:ch].astype(np.int64)
+    elif trns is not None and len(trns) >= 2 * ch:   # a colour key
+        key = np.frombuffer(trns, ">u2")[:ch]
+        key = np.where(key != 0, 255, 0) if depth == 1 else key & 0xFF
         out[..., 3] = np.where((colour == key).all(-1), 0, 255)
     return out
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """A texture image (PNG or JPEG, told apart by their first bytes, as
+    Pillow tells them apart) as (H, W, 4) uint8 RGBA, Pillow's
+    ``convert("RGBA")`` bit for bit; anything else raises
+    ``ImageFormatError``."""
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:3] == b"\xff\xd8\xff":
+        from metal_pathtracer_tpu_torch.utils import jpeg
+
+        return jpeg.decode_jpeg(data)
+    raise ImageFormatError("texture image is neither PNG nor JPEG")
 
 
 # ---------------------------------------------------------------------------

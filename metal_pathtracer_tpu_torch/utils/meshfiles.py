@@ -101,8 +101,8 @@ def gltf_document(meshes: Sequence, materials: Sequence[dict],
     """(glTF document, its buffer's bytes) of ``meshes`` (one primitive
     each: POSITION, NORMAL, TEXCOORD_0, TEXCOORD_1 when any is non-zero,
     uint32 indices; the primitive's material is ``mesh.material``, an
-    index into ``materials``, glTF material objects), ``images`` (PNG
-    bytes, texture k samples image k with the default sampler) and
+    index into ``materials``, glTF material objects), ``images`` (PNG or
+    JPEG bytes, texture k samples image k with the default sampler) and
     ``nodes`` (default: one node per mesh at the identity; the nodes no
     other node lists as a child are the scene's roots). The buffer has
     no ``uri``: it is a GLB's BIN chunk unless the caller sets one."""
@@ -125,8 +125,9 @@ def gltf_document(meshes: Sequence, materials: Sequence[dict],
             "attributes": attrs, "indices": indices,
             "material": int(m.material)}]})
     if images:
-        doc["images"] = [{"bufferView": b.view(png), "mimeType": "image/png"}
-                         for png in images]
+        doc["images"] = [{"bufferView": b.view(img), "mimeType":
+                          "image/jpeg" if img[:3] == b"\xff\xd8\xff"
+                          else "image/png"} for img in images]
         doc["textures"] = [{"source": k} for k in range(len(images))]
     doc["nodes"] = nodes if nodes is not None else \
         [{"mesh": k, "name": m.name} for k, m in enumerate(meshes)]
@@ -155,6 +156,18 @@ def write_glb(path: str, meshes: Sequence, materials: Sequence[dict],
     """``gltf_document`` of the arguments as a GLB file."""
     with open(path, "wb") as f:
         f.write(glb_bytes(*gltf_document(meshes, materials, images, nodes)))
+
+
+#: ``mesh_files.scene`` but its GLB: the headline's camera, depth, seed
+#: and sky, the displaced icosphere PLY and the glass icosphere OBJ
+MESH_FILES_HEAD = (
+    "camera target=0,-0.1,0 distance=4.2 yaw=0.4 pitch=0.18 vfov=40\n"
+    "renderer maxDepth=8 seed=1234\n"
+    "background env=./sky.exr\n"
+    "material type=lambert albedo=0.72,0.68,0.62 name=dragon\n"
+    "material type=glass ior=1.5 sigmaA=0.08,0.02,0.02 name=glass\n"
+    "mesh path=dragon.ply material=dragon\n"
+    "mesh path=glass.obj material=glass\n")
 
 
 #: the instanced-headline cell's placements of the displaced icosphere
@@ -237,18 +250,41 @@ def write_headline_files(directory: str, subdivisions: int = 8,
                            benchscene.hdr_sky())
     path = os.path.join(directory, "mesh_files.scene")
     with open(path, "w") as fh:
-        fh.write("camera target=0,-0.1,0 distance=4.2 yaw=0.4 pitch=0.18 "
-                 "vfov=40\n"
-                 "renderer maxDepth=8 seed=1234\n"
-                 "background env=./sky.exr\n"
-                 "material type=lambert albedo=0.72,0.68,0.62 name=dragon\n"
-                 "material type=glass ior=1.5 sigmaA=0.08,0.02,0.02 "
-                 "name=glass\n"
-                 "mesh path=dragon.ply material=dragon\n"
-                 "mesh path=glass.obj material=glass\n"
-                 "mesh path=props.glb\n")
+        fh.write(MESH_FILES_HEAD + "mesh path=props.glb\n")
     for name, lambert in (("instanced_headline.scene", False),
                           ("instanced_lambert.scene", True)):
         with open(os.path.join(directory, name), "w") as fh:
             fh.write(instanced_scene_text(lambert))
     return path, res.meshes
+
+
+def write_ground_texture_files(directory: str, meshes, image: bytes,
+                               stem: str) -> str:
+    """The mesh-files scene with a textured ground: ``<stem>.glb`` holds
+    the headline's checker sphere and its ground, whose base colour is
+    ``image`` (PNG or JPEG bytes, embedded as they are), and
+    ``<stem>.scene`` places it beside the PLY, OBJ and sky that
+    ``write_headline_files`` wrote into ``directory``; ``meshes`` are the
+    meshes it returned. Returns the scene file's path."""
+    import dataclasses
+    import os
+
+    from metal_pathtracer_tpu_torch.utils import benchscene, image_io
+
+    _, _, checker, ground = meshes
+    write_glb(
+        os.path.join(directory, f"{stem}.glb"),
+        [dataclasses.replace(checker, material=0),
+         dataclasses.replace(ground, material=1)],
+        [{"name": "checker", "pbrMetallicRoughness": {
+            "baseColorTexture": {"index": 0}, "metallicFactor": 0.15,
+            "roughnessFactor": 0.35}},
+         {"name": "ground-textured", "pbrMetallicRoughness": {
+             "baseColorTexture": {"index": 1}, "metallicFactor": 0.0,
+             "roughnessFactor": 0.8}}],
+        [image_io.encode_png_u8(benchscene.checker_texture()[..., :3]),
+         image])
+    path = os.path.join(directory, f"{stem}.scene")
+    with open(path, "w") as fh:
+        fh.write(MESH_FILES_HEAD + f"mesh path={stem}.glb\n")
+    return path

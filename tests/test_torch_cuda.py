@@ -1470,3 +1470,112 @@ def test_denoised_display_launches_the_kernel(dev):
         with mock.patch.object(K, "atrous_step", D.atrous_step_reference):
             ref = display.display_to_u8(st, s)
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_render_nccl_world_one_on_card(dev):
+    """``parallel/mesh.py`` over an NCCL group of world size 1: the
+    textured headline (subdivision 3, maxDepth 5) at 160x96, 1 spp,
+    gathered bit-equal to ``render_samples`` through the kernels, and
+    against the plain path: equal trace counts, the lambert image gate."""
+    import torch.distributed as dist
+
+    from metal_pathtracer_tpu_torch.parallel import mesh as mesh_ops
+
+    settings, res, env = build_bench_scene(3, dev)
+    settings.maxDepth = 5
+    scene = res.build_arrays(environment=env, device=dev)
+    w, h = 160, 96
+    static = settings_to_static(settings, w, h, res.material_types_present(),
+                                res.texture_slots_present(),
+                                res.texture_uses_uv1())
+    uni = settings_to_uniforms(settings, build_camera(settings, w, h, dev),
+                               0, 0)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = mesh_ops.make_mesh(device=dev)
+        assert mesh.collective_device == dev
+        slab = mesh_ops.shard_state(RenderState.create(w, h, dev), mesh)
+        out = mesh_ops.render_samples_sharded(scene, uni, slab, static, 1,
+                                              mesh)
+        full = mesh_ops.gather_state(out, mesh)
+    finally:
+        dist.destroy_process_group()
+    single = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                  static, 1)
+    for f in mesh_ops.IMAGE_FIELDS:
+        assert torch.equal(getattr(full, f), getattr(single, f).cpu()), f
+    assert (out.ray_count, out.shadow_ray_count) == (single.ray_count,
+                                                     single.shadow_ray_count)
+
+    def plain_trace(o, d, t_min, t_max, bvh, tris, em, ep):
+        return traverse.trace_closest_reference(o, d, float(t_min), t_max,
+                                                bvh, tris, em.int(), ep.int())
+
+    def plain_any(o, d, t_min, t_max, bvh, tris):
+        return traverse.trace_any_reference(o, d, float(t_min), t_max, bvh,
+                                            tris)
+
+    with mock.patch.object(shade, "trace_closest", plain_trace), \
+            mock.patch.object(traverse, "trace_any", plain_any), \
+            mock.patch.object(shade, "shade_s1", shade.shade_s1_reference), \
+            mock.patch.object(shade, "shade_s2", shade.shade_s2_reference), \
+            mock.patch.object(shade, "texture_stage",
+                              texture.texture_stage_reference):
+        p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                 static, 1)
+    assert (out.ray_count, out.shadow_ray_count) == (p.ray_count,
+                                                     p.shadow_ray_count)
+    diff = (single.present() - p.present()).abs()
+    assert float(diff.square().mean().sqrt()) < 2e-4
+    assert float((diff.amax(-1) < 1e-5).float().mean()) > 0.98
+
+
+def test_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two ``parallel.dryrun`` ranks over gloo, both on cuda:0, render the
+    bench-class scene at 160x96: each checks itself against its own
+    single render, and rank 0's gathered frame equals this process's."""
+    import os
+    import subprocess
+    import sys
+
+    from metal_pathtracer_tpu_torch.parallel import dryrun
+    from metal_pathtracer_tpu_torch.parallel import mesh as mesh_ops
+
+    build.load()   # the ranks only load the built library
+    out = str(tmp_path / "frame.npz")
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "metal_pathtracer_tpu_torch.parallel.dryrun",
+         "--backend", "gloo", "--init-method", init, "--world-size", "2",
+         "--rank", str(rank), "--device", "cuda:0", "--scene", "bench",
+         "--width", "160", "--height", "96", "--spp", "1", "--out", out],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    try:
+        texts = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        assert p.returncode == 0, text
+        assert f"DIST_DRYRUN_OK rank={rank} world=2" in text, text
+    got = np.load(out)
+    scene, uni, static = dryrun.build_scene("bench", 160, 96, dev)
+    single = frame.render_samples(scene, uni,
+                                  RenderState.create(160, 96, dev), static, 1)
+    for f in mesh_ops.IMAGE_FIELDS:
+        np.testing.assert_array_equal(got[f], getattr(single, f).cpu()
+                                      .numpy(), err_msg=f)
+    assert (int(got["ray_count"]), int(got["shadow_ray_count"])) == \
+        (single.ray_count, single.shadow_ray_count)
