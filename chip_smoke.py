@@ -3592,18 +3592,25 @@ def mesh_files_path(dev, card, kernels, out):
 
 #: samples of the instanced-headline render through the CLI, and of its
 #: 160x96 check against the plain path
-INSTANCED_SPP = INSTANCED_CHECK_SPP = 2
+INSTANCED_SPP, INSTANCED_CHECK_SPP = 2, 1
+#: the depth of those 160x96 checks (the cells render to 8)
+INSTANCED_CHECK_DEPTH = 4
 #: the instanced scene against the same scene baked into world-space
 #: meshes: tests/test_instancing.py test_instanced_matches_baked's gate
 BAKED_MAX_RMSE = 2e-3
 # instanced K1: a lane's ray in (origin, direction, t_max, exclusion ids)
 # and hit out (t, tri, u, v, placement); a dead lane's t_max in and hit
 # out; each placement's 128 B table row read once a launch; ~21 flops to
-# map a ray into a placement's object space
+# map a ray into a placement's object space. The TLAS walk's own charge:
+# each TLAS node and placement box it tested (32 B), the 80 B of each row
+# it walked, and 24 flops a TLAS slab test
 KI_LANE_BYTES = 36 + 20
 KI_DEAD_BYTES = 4 + 20
 KI_ROW_BYTES = 128
+KI_WALK_ROW_BYTES = 80
 KI_MAP_OPS = 21
+#: probes of each instanced scene; every 61st lane dead
+KI_PROBES = 4096
 
 
 def baked_resources(res):
@@ -3629,30 +3636,60 @@ def baked_resources(res):
     return out
 
 
-def instanced_probes(scene, dev, n=4096, seed=11):
-    """4096 probes of the instanced groups: half aimed at random points of
-    placed triangles, every 61st lane dead, and each live lane of the
-    second half excluding the first hit of a first trace (its global
-    instance id and object triangle): (o, d, t_max, ex_mesh, ex_prim)."""
+def world_boxes(scene):
+    """Each placement's unpadded world box in float64, in flat order: the
+    8 corners of its group's root box mapped local -> world."""
+    lo, hi = [], []
+    for g in scene.instanced:
+        b = g.tri_bvh
+        c = np.array([[float((b.bounds_max if k >> a & 1 else b.bounds_min)
+                             [0, a]) for a in range(3)] for k in range(8)])
+        for m in g.l2w.double().cpu().numpy():
+            w = c @ m[:, :3].T + m[:, 3]
+            lo.append(w.min(0))
+            hi.append(w.max(0))
+    return np.array(lo), np.array(hi)
+
+
+def instanced_probes(scene, dev, n=KI_PROBES, seed=11):
+    """n probes of the instanced groups: a third aimed at random points of
+    placed triangles, a third grazing a face of a placement's world box
+    (origin on the face's plane, no direction component across it), a
+    third random; every 61st lane dead, and each live lane of the second
+    half excluding the first hit of a first trace (its global instance id
+    and object triangle): (o, d, t_max, ex_mesh, ex_prim)."""
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
     rng = np.random.default_rng(seed)
     o = rng.uniform(-3.0, 3.0, (n, 3))
     d = rng.normal(size=(n, 3))
+    third = n // 3
     targets = []
     for _, _, g, i, _ in T.placements(scene.instanced):
         tri = g.triangles.shade_packed[:, :9].cpu().numpy().reshape(-1, 3, 3)
         l2w = g.l2w[i].cpu().numpy().astype(np.float64)
-        k = rng.integers(0, len(tri), n // 2)
-        p = (rng.dirichlet([1.0, 1.0, 1.0], n // 2)[:, :, None]
+        k = rng.integers(0, len(tri), third)
+        p = (rng.dirichlet([1.0, 1.0, 1.0], third)[:, :, None]
              * tri[k]).sum(1)
         targets.append(p @ l2w[:, :3].T + l2w[:, 3])
-    pick = rng.integers(0, len(targets), n // 2)
-    d[: n // 2] = np.stack(targets, 1)[np.arange(n // 2), pick] - o[: n // 2]
+    pick = rng.integers(0, len(targets), third)
+    d[:third] = np.stack(targets, 1)[np.arange(third), pick] - o[:third]
+    lo, hi = world_boxes(scene)
+    g = np.arange(third, 2 * third)
+    k = rng.integers(0, len(lo), third)
+    axis = rng.integers(0, 3, third)
+    face = np.where(rng.integers(0, 2, third) == 0, lo[k, axis], hi[k, axis])
+    centre, size = (lo[k] + hi[k]) * 0.5, hi[k] - lo[k]
+    o[g] = centre + rng.uniform(-1.5, 1.5, (third, 3)) * size
+    o[g, axis] = face
+    d[g] = centre + rng.uniform(-0.5, 0.5, (third, 3)) * size - o[g]
+    d[g, axis] = 0.0
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    o[g, axis] = face.astype(np.float32)
     tmax = np.full(n, 1e20, np.float32)
     tmax[::61] = 0.0
-    t = lambda a, dt=np.float32: torch.from_numpy(a.astype(dt)).to(dev)
+    t = lambda a: torch.from_numpy(a).to(dev)
     o, d, tmax = t(o), t(d), t(tmax)
     none = torch.full((n,), -1, dtype=torch.int32, device=dev)
     _, tri, _, _, inst = T.trace_instanced_closest(o, d, 1e-3, tmax,
@@ -3681,28 +3718,39 @@ def compare_instanced(got, ref, label):
 
 
 def ki_bound(scene, walk, n, n_live, any_hit=False):
-    """Instanced K1's bound: the lanes' own bytes, every placement's table
-    row, and every node and triangle slot of each group that the walks
-    of its placements touched read once (``k1_bound``'s charges); the
-    flops of the slab and triangle tests and of mapping each live ray
-    into every placement: (ms, by)."""
+    """Instanced K1's bound at the sequential walk's charge (the charge
+    of the kernel as first ported): the lanes' own bytes, every
+    placement's table row, and every node and triangle slot of each group
+    that the walks of its placements touched read once (``k1_bound``'s
+    charges); the flops of the slab and triangle tests and of mapping each
+    live ray into every placement. With a TLAS walk's ``walk``
+    (``trace_instanced_*_tlas_reference``) the TLAS walk's own charge:
+    the TLAS nodes and placement boxes it tested and the rows it walked
+    in place of every row, the rays mapped only into those. (ms, by)."""
     lane = any_lane_bytes(n, n_live) if any_hit else \
         n_live * KI_LANE_BYTES + (n - n_live) * KI_DEAD_BYTES
     slot = K1_ANY_SLOT_BYTES if any_hit else K1_CLOSEST_SLOT_BYTES
     touched = sum(int(w["nodes"].sum()) * K1_NODE_BYTES
                   + int(w["slots"].sum()) * slot
                   for w in walk.get("groups", {}).values())
+    ops = walk.get("node_visits", 0) * K1_NODE_OPS \
+        + walk.get("tri_tests", 0) * K1_TRI_OPS
+    if "tlas_nodes" in walk:
+        tlas = (int(walk["tlas_nodes"].sum()) + int(walk["boxes"].sum())) \
+            * K1_NODE_BYTES + int(walk["rows"].sum()) * KI_WALK_ROW_BYTES
+        return bound_ms(lane + touched + tlas,
+                        ops + walk["tlas_tests"] * K1_NODE_OPS
+                        + walk["placement_walks"] * KI_MAP_OPS)
     return bound_ms(lane + touched + scene.n_instances * KI_ROW_BYTES,
-                    walk.get("node_visits", 0) * K1_NODE_OPS
-                    + walk.get("tri_tests", 0) * K1_TRI_OPS
-                    + n_live * scene.n_instances * KI_MAP_OPS)
+                    ops + n_live * scene.n_instances * KI_MAP_OPS)
 
 
 def frame_loop_inst(scene, uni, static, dev, keep=()):
     """One sample of the frame loop with the instanced K1 wrappers spied
     on, as ``frame_loop_k1`` spies on K1's: the live lanes of every
     launch, {"closest": [...], "any": [...]}, and the inputs of the
-    launches ``keep`` names, {(wrapper, index): args}."""
+    launches ``keep`` names (or of every launch: ``keep="all"``),
+    {(wrapper, index): args}."""
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
     from metal_pathtracer_tpu_torch.renderer import frame
     from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
@@ -3713,7 +3761,7 @@ def frame_loop_inst(scene, uni, static, dev, keep=()):
         def traced(o, d, t_min, t_max, groups, *ex):
             n = o.shape[0]
             tm = _lanes_tmax(o, t_max)
-            if (key, len(seen[key])) in keep:
+            if keep == "all" or (key, len(seen[key])) in keep:
                 kept[key, len(seen[key])] = (
                     o.clone(), d.clone(), t_min, tm.clone(), groups,
                     *(T._as_i32(x, n, o.device).clone() for x in ex))
@@ -3731,74 +3779,248 @@ def frame_loop_inst(scene, uni, static, dev, keep=()):
     return seen, kept
 
 
-def instanced_k1(scene, uni, static, dev, card):
-    """Instanced K1, closest and any-hit, against the plain versions bit
-    for bit on 4096 probes and on the depth-0 and depth-1 wavefronts of
-    one sample (``frame_loop_inst``), each launch of that sample's first
-    two depths device-timed beside its bound with its live lanes. Returns
-    (closest entry, any-hit entry) of the kernels line but the launches."""
+def instanced_probe_check(name, scene, dev, card):
+    """Both instanced kernels against the sequential plain walks on
+    ``KI_PROBES`` probes of ``scene`` (``instanced_probes``: grazing rays
+    included, the second half with exclusions), any-hit with every third
+    window cut to 2: bit for bit. Returns the largest |t| difference
+    (0)."""
     from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
 
     o, d, tmax, ex_mesh, ex_prim = instanced_probes(scene, dev)
+    n = o.shape[0]
+    t0 = time.time()
     probe = (o, d, 1e-3, tmax, scene.instanced, ex_mesh, ex_prim)
-    err = compare_instanced(T.trace_instanced_closest(*probe),
-                            T.trace_instanced_closest_reference(*probe),
-                            "instanced K1 probes")
-    compare_flags(T.trace_instanced_any(*probe[:5]),
-                  T.trace_instanced_any_reference(*probe[:5]),
-                  "instanced K1 any-hit probes")
-    # depths 0 and 1: a closest launch each, and each depth's first
-    # any-hit launch (the environment bank's shadow rays)
-    live, waves = frame_loop_inst(scene, uni, static, dev, keep=(
-        ("closest", 0), ("closest", 1), ("any", 0), ("any", 2)))
+    want = T.trace_instanced_closest_reference(*probe)
+    err = compare_instanced(T.trace_instanced_closest(*probe), want,
+                            f"{name} probes")
+    hits = int((want[4] >= 0).sum())
+    tm = torch.where(torch.arange(n, device=dev) % 3 == 0, 2.0, tmax)
+    occ = T.trace_instanced_any(o, d, 1e-3, tm, scene.instanced)
+    compare_flags(occ, T.trace_instanced_any_reference(
+        o, d, 1e-3, tm, scene.instanced), f"{name} any-hit probes")
+    print(f"{name}: instanced K1 and any-hit bit-equal to the sequential "
+          f"plain walks on {n} probes (a third grazing world-box "
+          f"faces; {hits} hits, {int(occ.sum())} occluded; "
+          f"{scene.n_instances} placements) in {time.time() - t0:.1f}s "
+          f"[{card}]")
+    return err
+
+
+#: the instanced headline's launches held against the sequential plain
+#: walk, bit for bit and for the bound at its charge: depths 0 and 1
+#: (closest-hit 0 and 1; any-hit 0-3, each depth's environment and
+#: spec-NEE shadow rays)
+KI_SEQ_CHECKS = {"closest": (0, 1), "any": (0, 1, 2, 3)}
+
+
+def group_walk(walk, g):
+    """Lane group ``g``'s part of a walk taken by lane group
+    (``trace_instanced_*_tlas_reference`` given ``lane_group``): the
+    masks and counts a walk of those lanes alone gives."""
+    out = {k: (v[g] if v.dim() == 2 else int(v[g]))
+           for k, v in walk.items()
+           if torch.is_tensor(v) and k != "lane_group"}
+    out["groups"] = {gi: {k: m[g] for k, m in masks.items()}
+                     for gi, masks in walk.get("groups", {}).items()}
+    return out
+
+
+def instanced_k1(scene, uni, static, dev, card):
+    """Instanced K1, closest and any-hit, at every launch of one sample
+    (``frame_loop_inst``: 8 closest and 16 any-hit on the instanced
+    headline): each held bit for bit against the plain model of its walk
+    order (``trace_instanced_*_tlas_reference``, one call a wrapper over
+    all its launches, walked by lane group), device-timed and printed
+    beside its live lanes and its bound at the TLAS walk's own charge
+    (``ki_bound``); those of depths 0 and 1 (``KI_SEQ_CHECKS``) also held
+    against the sequential plain walks, the kernels' plain versions,
+    with the bound at their charge (the kernel as first ported); then
+    the sums of the sample. Returns (closest entry, any-hit entry) of the
+    kernels line but the launches, from the first launch of each."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+
+    live, waves = frame_loop_inst(scene, uni, static, dev, keep="all")
     print(f"instanced K1 live lanes per launch over one {static.width}x"
           f"{static.height} sample: closest {live['closest']}, any-hit "
           f"{live['any']} [{card}]")
     entry = {}
-    for key, fn, ref in (
+    for key, fn, ref, tref in (
             ("closest", T.trace_instanced_closest,
-             T.trace_instanced_closest_reference),
-            ("any", T.trace_instanced_any, T.trace_instanced_any_reference)):
-        rows = []
-        for k in (0, 2) if key == "any" else (0, 1):
-            if (key, k) not in waves:
-                continue
-            args = waves[key, k] if key == "closest" else waves[key, k][:5]
-            n = args[0].shape[0]
+             T.trace_instanced_closest_reference,
+             T.trace_instanced_closest_tlas_reference),
+            ("any", T.trace_instanced_any, T.trace_instanced_any_reference,
+             T.trace_instanced_any_tlas_reference)):
+        launches = [waves[key, k] if key == "closest" else waves[key, k][:5]
+                    for k in range(len(live[key]))]
+        sizes = [a[0].shape[0] for a in launches]
+        cat = [torch.cat([a[j] for a in launches])
+               for j in range(len(launches[0])) if j not in (2, 4)]
+        twalk = {"lane_group": torch.repeat_interleave(
+            torch.arange(len(sizes), device=dev),
+            torch.tensor(sizes, device=dev)), "n_groups": len(sizes)}
+        t0 = time.time()
+        model = tref(cat[0], cat[1], launches[0][2], cat[2],
+                     scene.instanced, *cat[3:], walk=twalk)
+        torch.cuda.synchronize()
+        print(f"instanced K1 {key}: the walk model of all {len(sizes)} "
+              f"launches in {time.time() - t0:.1f}s [{card}]")
+        rows, err, start = [], 0.0, 0
+        for k, args in enumerate(launches):
+            n = sizes[k]
             n_live = int((args[3] >= args[2]).sum())
-            walk = {}
-            torch.cuda.synchronize()
-            t0 = time.time()
-            want = ref(*args, walk=walk)
-            torch.cuda.synchronize()
-            plain = (time.time() - t0) * 1e3
             got = fn(*args)
             if key == "closest":
                 err = max(err, compare_instanced(
-                    got, want, f"instanced K1 on launch {k}"))
+                    got, [x[start:start + n] for x in model],
+                    f"instanced K1 launch {k} (walk model)"))
             else:
-                compare_flags(got, want, f"instanced any-hit launch {k}")
+                compare_flags(got, model[start:start + n],
+                              f"instanced any-hit launch {k} (walk model)")
+            start += n
+            tw = group_walk(twalk, k)
             ms, win = timed(lambda a=args: lambda: fn(*a), 5)
-            b, by = ki_bound(scene, walk, n, n_live, key == "any")
-            rows.append(dict(ms=ms, win=win, plain=plain, bound=b, by=by,
-                             live=n_live, nodes=walk.get("node_visits", 0),
-                             tris=walk.get("tri_tests", 0)))
+            b, by = ki_bound(scene, tw, n, n_live, key == "any")
+            row = dict(ms=ms, b=b, by=by, plain=None, b_seq=None)
+            seq = ""
+            if k in KI_SEQ_CHECKS[key]:
+                walk = {}
+                torch.cuda.synchronize()
+                t0 = time.time()
+                want = ref(*args, walk=walk)
+                torch.cuda.synchronize()
+                row["plain"] = (time.time() - t0) * 1e3
+                if key == "closest":
+                    compare_instanced(got, want, f"instanced K1 launch {k}")
+                else:
+                    compare_flags(got, want, f"instanced any-hit launch {k}")
+                row["b_seq"], row["by_seq"] = ki_bound(
+                    scene, walk, n, n_live, key == "any")
+                seq = (f"; bit-equal to the sequential plain walk, plain "
+                       f"{row['plain']:.1f} ms (host clock, its walk "
+                       f"counted), bound {row['b_seq']:.4f} ms by "
+                       f"{row['by_seq']} at its charge "
+                       f"({walk.get('node_visits', 0)} slab and "
+                       f"{walk.get('tri_tests', 0)} triangle tests)")
+            rows.append(row)
             print(f"instanced K1 {key} launch {k} ({n} lanes, {n_live} "
-                  f"live, {scene.n_instances} placements: "
-                  f"{rows[-1]['nodes']} slab and {rows[-1]['tris']} "
-                  f"triangle tests), bit-equal to the plain version: "
-                  f"{ms:.4f} ms device, {win:.4f} ms around the wrapper, "
-                  f"plain {plain:.1f} ms (host clock, its walk counted), "
-                  f"bound {b:.4f} ms by {by} "
+                  f"live, {scene.n_instances} placements), bit-equal to "
+                  f"its walk model: {ms:.4f} ms device, {win:.4f} ms "
+                  f"around the wrapper; bound {b:.4f} ms by {by} at the "
+                  f"TLAS walk's charge ({tw['tlas_tests']} TLAS slab "
+                  f"tests, {tw['placement_walks']} placement walks, "
+                  f"{tw.get('node_visits', 0)} slab and "
+                  f"{tw.get('tri_tests', 0)} triangle tests){seq} "
                   f"[{card}]")
+        print(f"instanced K1 {key}: one sample's {len(rows)} launches "
+              f"{sum(r['ms'] for r in rows):.4f} ms device against bounds "
+              f"summing to {sum(r['b'] for r in rows):.4f} ms at the TLAS "
+              f"walk's charge [{card}]")
         first = rows[0]
+        bound, by = min((first["b"], first["by"]),
+                        (first["b_seq"], first["by_seq"]))
         entry[key] = dict(
             source=ROOT + "traverse.cu",
             replaces="metal_pathtracer_tpu/ops/pallas/traverse.py:60",
             max_abs_err=err if key == "closest" else 0.0, ms=first["ms"],
-            plain_ms=first["plain"], bound_ms=first["bound"],
-            bound_by=first["by"])
+            plain_ms=first["plain"], bound_ms=bound, bound_by=by)
     return entry["closest"], entry["any"]
+
+
+def instanced_grid(scene, settings, res, dev, card):
+    """The instanced-grid cell at 1920x1080 d8: one sample through the
+    kernels (ms, launches a sample: the instanced K1 once per trace over
+    80 placements) and the device time of the depth-0 closest-hit and
+    environment any-hit launches with their live lanes."""
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+
+    W, H = FRAME
+    static, uni = scene_setup(settings, res, W, H, dev)
+    live, waves = frame_loop_inst(scene, uni, static, dev,
+                                  keep=(("closest", 0), ("any", 0)))
+    for key, fn in (("closest", T.trace_instanced_closest),
+                    ("any", T.trace_instanced_any)):
+        args = waves[key, 0] if key == "closest" else waves[key, 0][:5]
+        ms, win = timed(lambda a=args: lambda: fn(*a), 5)
+        print(f"instanced-grid {key} depth 0 ({live[key][0]} live lanes, "
+              f"{scene.n_instances} placements): {ms:.4f} ms device, "
+              f"{win:.4f} ms around the wrapper [{card}]")
+    before = {k: fn.launches for k, fn in
+              (("closest", T.trace_instanced_closest),
+               ("any", T.trace_instanced_any))}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    st = frame.render_samples(scene, uni, RenderState.create(W, H, dev),
+                              static, 1)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    img = st.present().cpu().numpy()
+    if not (np.isfinite(img).all() and img.max() > 0.0):
+        raise AssertionError("instanced-grid: the image is not finite and "
+                             "lit")
+    print(f"instanced-grid {W}x{H} d8 1 spp: {wall:.2f} ms, instanced K1 "
+          f"launches {T.trace_instanced_closest.launches - before['closest']}"
+          f" closest and {T.trace_instanced_any.launches - before['any']} "
+          f"any-hit, mean {img.mean():.4f} [{card}]")
+
+
+def empty_scenes(tmp, dev, card, kernels):
+    """Scenes without any primitive on the card: a solid background and an
+    environment map (the headline's EXR sky) at 160x96 2 spp through the
+    kernels against the plain path (RMSE 0 expected: every lane misses),
+    then at 1920x1080 1 spp, with no K1 or K3 launched."""
+    import os
+
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+
+    traces = ("trace_closest", "trace_any", "trace_instanced_closest",
+              "trace_instanced_any", "sphere_nearest_brute",
+              "sphere_nearest_chunked", "rect_nearest")
+    for name, line in (("solid", "background solid=0.7,0.8,1.0"),
+                       ("sky", "background env=./sky.exr")):
+        path = os.path.join(tmp, f"empty_{name}.scene")
+        with open(path, "w") as fh:
+            fh.write("camera target=0,-0.1,-0.3 distance=4.6 yaw=0.4 "
+                     "pitch=0.18 vfov=42\nrenderer maxDepth=8 seed=1234\n"
+                     f"{line}\nmaterial type=lambert albedo=0.5,0.5,0.5\n")
+        settings, res = RenderSettings(), SceneResources()
+        dsl.load_scene_file(path, settings, res)
+        env = env_ops.load_environment(settings.environmentMapPath, dev) \
+            if settings.environmentMapPath else None
+        scene = res.build_arrays(environment=env, device=dev)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        for (w, h), spp in ((CHECK_FRAME, 2), (FRAME, 1)):
+            static, uni = scene_setup(settings, res, w, h, dev)
+            st_k = frame.render_samples(scene, uni,
+                                        RenderState.create(w, h, dev),
+                                        static, spp)
+            img = st_k.present().cpu().numpy()
+            if not (np.isfinite(img).all() and img.max() > 0.0):
+                raise AssertionError(f"empty {name}: not finite and lit")
+            if (w, h) != CHECK_FRAME:
+                continue
+            with plain_kernels():
+                st_p = frame.render_samples(
+                    scene, uni, RenderState.create(w, h, dev), static, spp)
+            image_gate(img, st_p.present().cpu().numpy(),
+                       (st_k.ray_count, st_k.shadow_ray_count),
+                       (st_p.ray_count, st_p.shadow_ray_count),
+                       f"empty {name} {w}x{h} {spp}spp vs plain")
+        used = {k: fn.launches - before[k] for k, fn in kernels.items()
+                if fn.launches > before[k]}
+        if any(k in used for k in traces):
+            raise AssertionError(f"empty {name}: a trace kernel launched "
+                                 f"for a family the scene lacks: {used}")
+        print(f"empty {name}: 160x96 2 spp equal to the plain path, "
+              f"1920x1080 1 spp finite; launches {used}, no trace kernel "
+              f"[{card}]")
 
 
 def instanced_k2(scene, uni, static, dev, card):
@@ -3861,10 +4083,17 @@ def instanced_path(dev, card, kernels, out):
     """Phase 9, instancing: the headline's files with the displaced
     icosphere PLY placed three times and the glass icosphere OBJ twice
     with ``instanced=1`` beside the GLB soup (``meshfiles.
-    instanced_scene_text``). Instanced K1 against its plain versions;
+    instanced_scene_text``), its grid variant (64 and 16 placements) and
+    its tie variant (the OBJ twice, one transform). Both instanced
+    kernels against the sequential plain walks on the probes of the three
+    scenes and at every launch of one instanced-headline sample, each
+    launch timed beside its bound at both charges (``instanced_k1``); one
+    grid sample (``instanced_grid``); the scenes without any primitive
+    (``empty_scenes``);
     the texture stage and K2 s1/s2 with instanced lanes against theirs;
-    160x96 renders through the kernels against the plain path (the
-    headline at 2 spp, its lambert variant through K2 ``full`` at 1 spp)
+    160x96 renders to depth 4 through the kernels against the plain
+    path (the headline and its lambert variant through K2 ``full``, 1 spp
+    each)
     and against the same scenes baked into world-space meshes; then the
     scene at 1920x1080 d8 through the CLI with ``--backend metal``: its
     ms/spp, set-up seconds, peak device memory beside what the baked
@@ -3914,6 +4143,7 @@ def instanced_path(dev, card, kernels, out):
                           ("instanced_lambert", 1)):
             path = os.path.join(small, name + ".scene")
             settings, res, scene, _ = load(path)
+            settings.maxDepth = INSTANCED_CHECK_DEPTH
             if [g.count for g in scene.instanced] != [3, 2]:
                 raise AssertionError(f"{name}: groups "
                                      f"{[g.count for g in scene.instanced]}")
@@ -3936,6 +4166,7 @@ def instanced_path(dev, card, kernels, out):
             if any(k not in used for k in need):
                 raise AssertionError(f"{name}: {need} not all launched")
             bs, br, bscene, _ = load(path, bake=True)
+            bs.maxDepth = INSTANCED_CHECK_DEPTH
             st_b = render(bs, br, bscene, w, h, spp)
             d = np.abs(st_k.present().cpu().numpy()
                        - st_b.present().cpu().numpy())
@@ -3973,10 +4204,31 @@ def instanced_path(dev, card, kernels, out):
               f"once, atlas, upload) {times['build']:.2f}s [{card}]")
         W, H = FRAME
         static, uni = scene_setup(settings, res, W, H, dev)
+        grid_settings, grid_res, grid, grid_times = load(
+            os.path.join(tmp, "instanced_grid.scene"))
+        _, _, tie, _ = load(os.path.join(tmp, "instanced_tie.scene"))
+        groups = {name: [(g.triangles.count, g.count) for g in sc.instanced]
+                  for name, sc in (("headline", scene), ("grid", grid),
+                                   ("tie", tie))}
+        if [c for _, c in groups["grid"]] != [64, 16] or \
+                [c for _, c in groups["tie"]] != [2]:
+            raise AssertionError(f"instanced scenes: groups {groups}")
+        print(f"instanced scenes (object triangles, placements): {groups}; "
+              f"the grid's set-up parse {grid_times['parse']:.2f}s, "
+              f"build_arrays {grid_times['build']:.2f}s [{card}]")
+        for name, sc in (("instanced-headline", scene),
+                         ("instanced-grid", grid), ("instanced-tie", tie)):
+            instanced_probe_check(name, sc, dev, card)
+        marks.append(("the probes of three scenes", time.time()))
         k1_closest, k1_any = instanced_k1(scene, uni, static, dev, card)
-        marks.append(("instanced K1", time.time()))
+        marks.append(("instanced K1 at every launch", time.time()))
         instanced_k2(scene, uni, static, dev, card)
         marks.append(("K2 and the texture stage", time.time()))
+        instanced_grid(grid, grid_settings, grid_res, dev, card)
+        del grid, tie
+        marks.append(("the grid's sample", time.time()))
+        empty_scenes(tmp, dev, card, kernels)
+        marks.append(("the empty scenes", time.time()))
 
         # ---- 1920x1080 d8 through the CLI --------------------------------
         torch.cuda.reset_peak_memory_stats(dev)

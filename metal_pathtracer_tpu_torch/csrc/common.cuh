@@ -347,16 +347,19 @@ __device__ __forceinline__ int next_batch(int* fetch) {
   return __shfl_sync(0xffffffffu, base, 0);
 }
 
-// persistent blocks of `kernel` at `block` threads: as many as fit on every
-// SM, found once per instantiation (for the current device), at most one
-// per `block` lanes of n
+// persistent blocks of `kernel` at `block` threads and `smem` bytes of
+// dynamic shared memory: as many as fit on every SM, found once per
+// instantiation (for the current device), at most one per `block` lanes
+// of n
 template <typename Kernel>
-int persistent_grid(Kernel kernel, int block, int* cache, int n) {
+int persistent_grid(Kernel kernel, int block, int* cache, int n,
+                    size_t smem = 0) {
   if (*cache == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block,
+                                                  smem);
     *cache = sms * (per_sm > 0 ? per_sm : 1);
   }
   int need = (n + block - 1) / block;

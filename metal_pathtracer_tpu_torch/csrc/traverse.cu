@@ -69,27 +69,79 @@
 // writes 32 bytes per launch; it changes no t, tri, u, v or occlusion bit.
 // STATS=false is the kernel without any of it.
 //
-// Instanced meshes (trace_instanced_closest_kernel,
-// trace_instanced_any_kernel) replace the same TPU kernel where the JAX
-// package launches it once per placement of a shared object-space mesh
-// (ops/traversal.py trace_instanced:241 -> _trace_group:286, and
+// Instanced meshes (trace_instanced_kernel<ANY, STAGED>: closest-hit and
+// any-hit) replace the same TPU kernel where the JAX package launches it
+// once per placement of a shared object-space mesh (ops/traversal.py
+// trace_instanced:241 -> _trace_group:286, and
 // trace_instanced_occluded:364), a Python loop of I launches a trace. Here
 // one launch covers every placement of every group: the groups' nodes and
 // slot records lie one after the other (schema.InstanceTable), each
-// placement's row holds its world -> local rows and its group's offsets,
-// and each lane runs the same walks (walk_closest, walk_any) once per
-// placement, in the JAX order, its ray mapped into object space in
-// registers. The bound is again the dependent reads: a lane walks every
-// placement's tree, so its slab tests add up over the placements (a TLAS
-// over the placements, which skips those the ray misses, is speed work
-// with a parity argument of its own: ROADMAP). The table is 128 bytes a
-// placement, read through the read-only cache by every lane.
+// placement's row holds its world -> local rows and its group's offsets.
+// A lane walks a two-level tree: schema.InstanceTlas, a median-split tree
+// over the placements' world boxes in K1's own 32-byte node format (an
+// interior node's offset is its right child, a leaf's its first placement
+// box; the reference's SWRT path walks such a TLAS, SceneAccel.mm
+// :188-247), near child first with a stack of TLAS_STACK entries (the
+// build refuses a deeper tree); at a leaf, each placement's own box is
+// tested before its row is read, and a placement that passes has its ray
+// mapped into object space in registers and its group's tree walked by
+// walk_closest / walk_any, K1's walks, unchanged. A box (node or
+// placement) whose entry lies beyond the lane's window is skipped. The
+// sequential walk it replaces paid a row, a mapping and a root test for
+// every placement, in table order; this one pays them only for the
+// placements whose box the ray enters before its window closes.
+//
+// Why the bits are the sequential walk's (trace_instanced_closest_
+// reference, the plain version):
+// - The window. A placement walked with window W returns the nearest hit
+//   of its tree with t < W, the first in the tree's depth-first order
+//   among equal t: the tree fixes that order, and a tighter window prunes
+//   only nodes whose entry lies beyond it, so any two windows above the
+//   placement's nearest t give the same (t, tri, u, v). The lane's
+//   result is then the lexicographic minimum of (t, flat placement index)
+//   over the placements, whatever the order they are visited in, if
+//   every placement whose index is below the running best's is walked
+//   with the window one ulp above the best (nextafterf): a tie then goes
+//   to the lower index, as the table-order loop gives it (strict '<'
+//   across placements). Others get the best itself. The exclusion stays
+//   per placement: only where ex_mesh is the placement's instance id.
+// - The padding. A placement whose box test fails is not walked, so the
+//   test must never fail where walk_closest / walk_any would find a hit
+//   inside its window: that walk's first step, the root's slab test in
+//   object space, then passed at some t* in [t_min, W], so the object ray
+//   at t* lies in the root box up to the slab test's rounding. The world
+//   box holds the root box's 8 corners mapped local -> world in float64.
+//   The world point o + t* d differs from the image of the object point
+//   by the rounding of the mapping (o_l, d_l each a 3-term dot, w2l the
+//   float inverse of l2w) and of the slab test: a few ulps of cond(L) x
+//   (|o| + t*|d| + |translation|), where cond(L) is the condition number
+//   of the placement's linear part; and t*|d| <= |o| + |the point|, the
+//   point lying in a box. So each box is padded at build by kappa x (the
+//   largest coordinate of any box + the largest translation), and each
+//   lane grows every box it tests by 2 kappa max|o_i| (InstanceTlas.pad),
+//   kappa = 2^-14 x max(1, the largest cond(L)): some 2^10 times the
+//   rounding's bound, so that bound, the float32 rounding of the padded
+//   box (outward) and of the slab test's own entry t are all inside the
+//   margin. Any-hit's window is t_max for every placement, so its flag is
+//   the OR of the same walks in any order.
+//
+// What the card offers. Persistent blocks on the live-lane list, as K1's.
+// Where the TLAS nodes, the placement boxes and the 5 float4s of a row
+// the walk reads (80 of its 128 bytes) fit TLAS_SMEM (12 KB: 32 B a node
+// and 112 B a placement, ~100 placements), each block stages them once in
+// dynamic shared memory and reads them there; 8 blocks an SM then hold at
+// most 96 KB of the SM's 228, so the register bound (8 blocks) still sets
+// the occupancy and L1 keeps the rest for the trees. Above it the walk
+// reads them through L1. No wgmma or TMA: as in K1, every address depends
+// on the step before and no two lanes share a tile.
 #include "common.cuh"
 
 #define MAX_LEAF 4
 #define INFINITY_T 1.0e20f
 #define BLOCK 128
 #define LIST_BLOCK 1024
+#define TLAS_STACK 16         // schema.TLAS_STACK
+#define TLAS_SMEM (12 * 1024)  // the staged copy's budget a block
 
 namespace {
 
@@ -418,19 +470,34 @@ __global__ void __launch_bounds__(BLOCK, STATS ? 6 : 8) trace_any_kernel(
 // float4s): rows 0-2 the world -> local affine rows, then the normal
 // matrix (floats 12-20) and, as int bits, the material (21), the group's
 // node offset and count (22, 23), slot offset and count (24, 25), object
-// triangle offset (26) and the global instance id (27).
+// triangle offset (26) and the global instance id (27). The walk reads 5
+// of its 8 float4s: 0-2, 5 and 6.
 struct Placement {
   float4 r0, r1, r2;
   int node_off, n_nodes, slot_off, n_slots, inst_id;
 };
+// the 5 float4s of placement k: from the table (stride 8) or, staged in
+// shared memory, packed at stride 5
+template <bool STAGED>
 __device__ __forceinline__ Placement load_placement(
-    const float4* __restrict__ table, int k) {
-  const float4* row = table + 8 * k;
+    const float4* __restrict__ rows, int k) {
   Placement p;
-  p.r0 = __ldg(row);
-  p.r1 = __ldg(row + 1);
-  p.r2 = __ldg(row + 2);
-  float4 a = __ldg(row + 5), b = __ldg(row + 6);
+  float4 a, b;
+  if constexpr (STAGED) {
+    const float4* row = rows + 5 * k;
+    p.r0 = row[0];
+    p.r1 = row[1];
+    p.r2 = row[2];
+    a = row[3];
+    b = row[4];
+  } else {
+    const float4* row = rows + 8 * k;
+    p.r0 = __ldg(row);
+    p.r1 = __ldg(row + 1);
+    p.r2 = __ldg(row + 2);
+    a = __ldg(row + 5);
+    b = __ldg(row + 6);
+  }
   p.node_off = __float_as_int(a.z);
   p.n_nodes = __float_as_int(a.w);
   p.slot_off = __float_as_int(b.x);
@@ -448,80 +515,218 @@ __device__ __forceinline__ void object_ray(const Placement& p, V3 o, V3 d,
   *d_l = v3(dot3(d, a), dot3(d, b), dot3(d, c));
 }
 
-// The instanced closest-hit walk of live lane i: placement after placement
-// in the table's order (the JAX package's), the ray mapped into the
-// placement's object space in registers, the group's tree walked against
-// the running best with the exclusion only where the previous hit was this
-// placement (object triangle ids repeat across placements; a group's slot
-// records carry mesh 0), a hit kept only when strictly nearer.
-__global__ void __launch_bounds__(BLOCK, 8) trace_instanced_closest_kernel(
+// The slab test of a TLAS node or placement box ({bmin, _}, {bmax, _}),
+// grown by the lane's pad, against [t_min, window]: the entry t, or
+// INFINITY where the box is missed (kernels/traverse.py _padded_entry).
+__device__ __forceinline__ float padded_entry(float4 lo, float4 hi,
+                                              const float* oo,
+                                              const float* inv, float pad,
+                                              float t_min, float window) {
+  const float bmin[3] = {lo.x - pad, lo.y - pad, lo.z - pad};
+  const float bmax[3] = {hi.x + pad, hi.y + pad, hi.z + pad};
+  float tnear = 0.0f, tfar = 0.0f;
+  for (int a = 0; a < 3; ++a) {
+    float t0 = (bmin[a] - oo[a]) * inv[a];
+    float t1 = (bmax[a] - oo[a]) * inv[a];
+    float lo_a = cmin(minn(t0, t1), t_min);
+    float hi_a = maxn(t0, t1);
+    tnear = a == 0 ? lo_a : maxn(tnear, lo_a);
+    tfar = a == 0 ? hi_a : minn(tfar, hi_a);
+  }
+  return minn(tfar, window) >= tnear ? tnear : __int_as_float(0x7f800000);
+}
+
+// Where the walk reads the TLAS nodes, the placement boxes and the rows:
+// global memory through the read-only cache, or the block's shared copy
+// (tlas_smem: nodes, then boxes, then the rows at stride 5). The
+// addresses are rebuilt from the kernel's parameters at each read, so no
+// register holds them across a placement's walk.
+}  // namespace
+extern __shared__ float4 tlas_smem[];
+namespace {
+template <bool STAGED>
+__device__ __forceinline__ float4 tlas_node(const float4* __restrict__ g,
+                                            int k) {
+  if constexpr (STAGED) return tlas_smem[k];
+  else return __ldg(g + k);
+}
+template <bool STAGED>
+__device__ __forceinline__ float4 tlas_box(const float4* __restrict__ g,
+                                           int n_tnodes, int k) {
+  if constexpr (STAGED) return tlas_smem[2 * n_tnodes + k];
+  else return __ldg(g + k);
+}
+template <bool STAGED>
+__device__ __forceinline__ const float4* tlas_rows(
+    const float4* __restrict__ table, int n_tnodes, int n_inst) {
+  if constexpr (STAGED) return tlas_smem + 2 * n_tnodes + 2 * n_inst;
+  else return table;
+}
+
+// The two-level walk of one live lane (ANY: any-hit): the TLAS near
+// first, a placement's own box tested before its row is read, each
+// placement that passes mapped into object space and walked by K1's
+// walk_closest / walk_any unchanged. The window of a node (and of a popped
+// node's kept entry) is the widest any placement can get: one ulp above
+// the best once the lane has a hit; a placement's window is the best, or
+// one ulp above it where its flat index is below the best's (the tie
+// rule). Any-hit's window is t_max throughout, and a lane ends at its
+// first occluder.
+template <bool ANY, bool STAGED>
+__device__ __forceinline__ void tlas_lane(
+    int i, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+    float t_min, const float* __restrict__ tmax,
+    const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
+    int n_inst, const float4* __restrict__ table, int n_tnodes,
+    const float4* __restrict__ tnodes, const float4* __restrict__ boxes,
+    float pad_scale, const float4* __restrict__ nodes,
+    const float4* __restrict__ recs, float* __restrict__ out_t,
+    int* __restrict__ out_tri, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ out_inst,
+    bool* __restrict__ out_occluded) {
+  const float t_max = tmax[i];
+  float best_t = t_max;
+  int best_inst = -1;
+  bool occluded = false;
+  V3 o = load3(ray_o, i), d = load3(ray_d, i);
+  if constexpr (!ANY) {
+    // the best hit's (tri, u, v) live in the outputs, written only where
+    // a walk finds a nearer hit: three registers fewer across the walk
+    out_tri[i] = -1;
+    out_u[i] = 0.0f;
+    out_v[i] = 0.0f;
+  }
+  float inv[3];
+  inverse_dir(d, inv);
+  const float oo[3] = {o.x, o.y, o.z};
+  const float pad =
+      pad_scale * fmaxf(fmaxf(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
+  const float inf = __int_as_float(0x7f800000);
+  int stack[TLAS_STACK];
+  float stack_t[TLAS_STACK];
+  int sp = 0;
+  auto widest = [&]() {
+    return ANY ? t_max : (best_inst >= 0 ? nextafterf(best_t, inf) : best_t);
+  };
+  int node = padded_entry(tlas_node<STAGED>(tnodes, 0),
+                          tlas_node<STAGED>(tnodes, 1), oo, inv, pad, t_min,
+                          widest()) < inf ? 0 : -1;
+  for (;;) {
+    if (node < 0) {
+      // the stack: the next kept node whose entry the window reaches
+      if (sp == 0) break;
+      --sp;
+      if (stack_t[sp] <= widest()) node = stack[sp];
+      continue;
+    }
+    int meta = __float_as_int(tlas_node<STAGED>(tnodes, 2 * node + 1).w);
+    int count = meta & 7, off = meta >> 3;
+    if (count == 0) {
+      // both children, the nearer next, the farther kept
+      int left = node + 1, right = off;
+      float w = widest();
+      float t_l = padded_entry(tlas_node<STAGED>(tnodes, 2 * left),
+                               tlas_node<STAGED>(tnodes, 2 * left + 1), oo,
+                               inv, pad, t_min, w);
+      float t_r = padded_entry(tlas_node<STAGED>(tnodes, 2 * right),
+                               tlas_node<STAGED>(tnodes, 2 * right + 1), oo,
+                               inv, pad, t_min, w);
+      bool ok_l = t_l < inf, ok_r = t_r < inf;
+      bool right_first = ok_r && (!ok_l || t_r < t_l);
+      if (ok_l && ok_r) {
+        stack[sp] = right_first ? left : right;
+        stack_t[sp] = right_first ? t_l : t_r;
+        ++sp;
+      }
+      node = ok_l || ok_r ? (right_first ? right : left) : -1;
+      continue;
+    }
+    // a leaf: each placement's own box, then its walk
+    for (int k = off; k < off + count; ++k) {
+      float4 lo = tlas_box<STAGED>(boxes, n_tnodes, 2 * k);
+      int q = __float_as_int(lo.w);
+      float w = ANY ? t_max
+                    : (best_inst >= 0 && q < best_inst
+                           ? nextafterf(best_t, inf)
+                           : best_t);
+      if (!(padded_entry(lo, tlas_box<STAGED>(boxes, n_tnodes, 2 * k + 1),
+                         oo, inv, pad, t_min, w) < inf))
+        continue;
+      Placement p = load_placement<STAGED>(
+          tlas_rows<STAGED>(table, n_tnodes, n_inst), q);
+      V3 o_l, d_l;
+      object_ray(p, o, d, &o_l, &d_l);
+      if constexpr (ANY) {
+        occluded = walk_any<false>(o_l, d_l, t_min, t_max, p.n_nodes,
+                                   nodes + 2LL * p.node_off, p.n_slots,
+                                   recs + 3LL * p.slot_off, nullptr, nullptr);
+        if (occluded) break;
+      } else {
+        int ex_p = __ldg(excl_mesh + i) == p.inst_id ? __ldg(excl_prim + i)
+                                                      : -1;
+        float wt = w;
+        if (walk_closest<false>(o_l, d_l, t_min, 0, ex_p, p.n_nodes,
+                                nodes + 2LL * p.node_off, p.n_slots,
+                                recs + 3LL * p.slot_off, &wt, out_tri + i,
+                                out_u + i, out_v + i, nullptr, nullptr)) {
+          best_t = wt;
+          best_inst = q;
+        }
+      }
+    }
+    if (ANY && occluded) break;
+    node = -1;
+  }
+  if constexpr (ANY) {
+    out_occluded[i] = occluded;
+  } else {
+    out_t[i] = best_t;
+    out_inst[i] = best_inst;
+  }
+}
+
+// One kernel for both instanced walks (ANY: any-hit), persistent warps on
+// the live-lane list as K1's. STAGED: the block first copies the TLAS
+// nodes, the placement boxes and the 5 float4s of every row the walk reads
+// into dynamic shared memory (n_tnodes * 32 + n_inst * 112 bytes, at most
+// TLAS_SMEM), and reads them there.
+template <bool ANY, bool STAGED>
+__global__ void __launch_bounds__(BLOCK, 8) trace_instanced_kernel(
     const int* __restrict__ list, int* __restrict__ counters,
     const float* __restrict__ ray_o, const float* __restrict__ ray_d,
     float t_min, const float* __restrict__ tmax,
     const int* __restrict__ excl_mesh, const int* __restrict__ excl_prim,
     int n_inst, const float4* __restrict__ table,
     const float4* __restrict__ nodes, const float4* __restrict__ recs,
+    int n_tnodes, const float4* __restrict__ tnodes,
+    const float4* __restrict__ boxes, float pad_scale,
     float* __restrict__ out_t, int* __restrict__ out_tri,
     float* __restrict__ out_u, float* __restrict__ out_v,
-    int* __restrict__ out_inst) {
-  const int n_live = counters[0];
-  for (;;) {
-    int k = next_batch(counters + 1);
-    if (k >= n_live) break;
-    k += threadIdx.x & 31;
-    if (k >= n_live) continue;
-    int i = list[k];
-    float best_t = tmax[i];
-    int best_tri = -1, best_inst = -1;
-    float best_u = 0.0f, best_v = 0.0f;
-    V3 o = load3(ray_o, i), d = load3(ray_d, i);
-    int ex_mesh = excl_mesh[i], ex_prim = excl_prim[i];
-    for (int q = 0; q < n_inst; ++q) {
-      Placement p = load_placement(table, q);
-      V3 o_l, d_l;
-      object_ray(p, o, d, &o_l, &d_l);
-      int ex_p = ex_mesh == p.inst_id ? ex_prim : -1;
-      if (walk_closest<false>(o_l, d_l, t_min, 0, ex_p, p.n_nodes,
-                              nodes + 2LL * p.node_off, p.n_slots,
-                              recs + 3LL * p.slot_off, &best_t, &best_tri,
-                              &best_u, &best_v, nullptr, nullptr))
-        best_inst = q;
+    int* __restrict__ out_inst, bool* __restrict__ out_occluded) {
+  if constexpr (STAGED) {
+    float4* s_nodes = tlas_smem;
+    float4* s_boxes = s_nodes + 2 * n_tnodes;
+    float4* s_rows = s_boxes + 2 * n_inst;
+    for (int k = threadIdx.x; k < 2 * n_tnodes; k += blockDim.x)
+      s_nodes[k] = __ldg(tnodes + k);
+    for (int k = threadIdx.x; k < 2 * n_inst; k += blockDim.x)
+      s_boxes[k] = __ldg(boxes + k);
+    for (int k = threadIdx.x; k < 5 * n_inst; k += blockDim.x) {
+      int q = k / 5, e = k - 5 * q;
+      s_rows[k] = __ldg(table + 8 * q + (e < 3 ? e : e + 2));
     }
-    out_t[i] = best_t;
-    out_tri[i] = best_tri;
-    out_u[i] = best_u;
-    out_v[i] = best_v;
-    out_inst[i] = best_inst;
+    __syncthreads();
   }
-}
-
-// The instanced any-hit walk: placement after placement until one
-// occludes, each walked with the lane's own window.
-__global__ void __launch_bounds__(BLOCK, 8) trace_instanced_any_kernel(
-    const int* __restrict__ list, int* __restrict__ counters,
-    const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-    float t_min, const float* __restrict__ tmax, int n_inst,
-    const float4* __restrict__ table, const float4* __restrict__ nodes,
-    const float4* __restrict__ recs, bool* __restrict__ out_occluded) {
   const int n_live = counters[0];
   for (;;) {
     int k = next_batch(counters + 1);
     if (k >= n_live) break;
     k += threadIdx.x & 31;
     if (k >= n_live) continue;
-    int i = list[k];
-    float t_max = tmax[i];
-    V3 o = load3(ray_o, i), d = load3(ray_d, i);
-    bool occluded = false;
-    for (int q = 0; q < n_inst && !occluded; ++q) {
-      Placement p = load_placement(table, q);
-      V3 o_l, d_l;
-      object_ray(p, o, d, &o_l, &d_l);
-      occluded = walk_any<false>(o_l, d_l, t_min, t_max, p.n_nodes,
-                                 nodes + 2LL * p.node_off, p.n_slots,
-                                 recs + 3LL * p.slot_off, nullptr, nullptr);
-    }
-    out_occluded[i] = occluded;
+    tlas_lane<ANY, STAGED>(list[k], ray_o, ray_d, t_min, tmax, excl_mesh,
+                           excl_prim, n_inst, table, n_tnodes, tnodes, boxes,
+                           pad_scale, nodes, recs, out_t, out_tri, out_u,
+                           out_v, out_inst, out_occluded);
   }
 }
 
@@ -540,7 +745,38 @@ int list_live(int n, const void* tmax, float t_min, int* scratch,
   return (int)cudaGetLastError();
 }
 
-int grid_cache[6];
+int grid_cache[8];
+
+// An instanced walk's launch: the staged instantiation, with the shared
+// copy's bytes, where the TLAS nodes, boxes and rows fit TLAS_SMEM (up to
+// which the register bound, not the copy, sets the blocks an SM), the
+// other one (reading them through L1) above it.
+template <bool ANY>
+int instanced_launch(int n, const void* ray_o, const void* ray_d,
+                     float t_min, const void* tmax, const void* excl_mesh,
+                     const void* excl_prim, int n_inst, const void* table,
+                     const void* nodes, const void* recs, int n_tnodes,
+                     const void* tnodes, const void* boxes, float pad_scale,
+                     void* out_t, void* out_tri, void* out_u, void* out_v,
+                     void* out_inst, void* out_occluded, int* sc,
+                     cudaStream_t s) {
+  size_t smem = (size_t)n_tnodes * 32 + (size_t)n_inst * (32 + 80);
+  bool staged = smem <= TLAS_SMEM;
+  auto kernel = staged ? trace_instanced_kernel<ANY, true>
+                       : trace_instanced_kernel<ANY, false>;
+  if (!staged) smem = 0;
+  int grid = persistent_grid(kernel, BLOCK,
+                             &grid_cache[4 + 2 * ANY + staged], n,
+                             staged ? TLAS_SMEM : 0);
+  kernel<<<grid, BLOCK, smem, s>>>(
+      sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
+      (const float*)tmax, (const int*)excl_mesh, (const int*)excl_prim,
+      n_inst, (const float4*)table, (const float4*)nodes,
+      (const float4*)recs, n_tnodes, (const float4*)tnodes,
+      (const float4*)boxes, pad_scale, (float*)out_t, (int*)out_tri,
+      (float*)out_u, (float*)out_v, (int*)out_inst, (bool*)out_occluded);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -599,12 +835,15 @@ extern "C" int mpt_trace_closest(
 
 // One launch over every placement of every instanced group: `table` the
 // n_inst rows of schema.InstanceTable, `nodes` / `recs` the groups'
-// packed nodes and slot records one after the other; out_inst the flat
-// placement index of each lane's hit (-1: none). `scratch` as above.
+// packed nodes and slot records one after the other, `tnodes` / `boxes`
+// the n_tnodes nodes of schema.InstanceTlas and its placement boxes,
+// `pad_scale` its pad; out_inst the flat placement index of each lane's
+// hit (-1: none). `scratch` as above.
 extern "C" int mpt_trace_instanced_closest(
     int n, const void* ray_o, const void* ray_d, float t_min,
     const void* tmax, const void* excl_mesh, const void* excl_prim,
     int n_inst, const void* table, const void* nodes, const void* recs,
+    int n_tnodes, const void* tnodes, const void* boxes, float pad_scale,
     void* out_t, void* out_tri, void* out_u, void* out_v, void* out_inst,
     void* scratch, void* stream) {
   if (n <= 0) return 0;
@@ -613,32 +852,25 @@ extern "C" int mpt_trace_instanced_closest(
   int err = list_live(n, tmax, t_min, sc, out_t, out_tri, out_u, out_v,
                       out_inst, nullptr, s);
   if (err != 0) return err;
-  int grid = persistent_grid(trace_instanced_closest_kernel, BLOCK,
-                             &grid_cache[4], n);
-  trace_instanced_closest_kernel<<<grid, BLOCK, 0, s>>>(
-      sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
-      (const float*)tmax, (const int*)excl_mesh, (const int*)excl_prim,
-      n_inst, (const float4*)table, (const float4*)nodes,
-      (const float4*)recs, (float*)out_t, (int*)out_tri, (float*)out_u,
-      (float*)out_v, (int*)out_inst);
-  return (int)cudaGetLastError();
+  return instanced_launch<false>(
+      n, ray_o, ray_d, t_min, tmax, excl_mesh, excl_prim, n_inst, table,
+      nodes, recs, n_tnodes, tnodes, boxes, pad_scale, out_t, out_tri, out_u,
+      out_v, out_inst, nullptr, sc, s);
 }
 
 extern "C" int mpt_trace_instanced_any(
     int n, const void* ray_o, const void* ray_d, float t_min,
     const void* tmax, int n_inst, const void* table, const void* nodes,
-    const void* recs, void* out_occluded, void* scratch, void* stream) {
+    const void* recs, int n_tnodes, const void* tnodes, const void* boxes,
+    float pad_scale, void* out_occluded, void* scratch, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   int* sc = (int*)scratch;
   int err = list_live(n, tmax, t_min, sc, nullptr, nullptr, nullptr, nullptr,
                       nullptr, out_occluded, s);
   if (err != 0) return err;
-  int grid = persistent_grid(trace_instanced_any_kernel, BLOCK,
-                             &grid_cache[5], n);
-  trace_instanced_any_kernel<<<grid, BLOCK, 0, s>>>(
-      sc + 2, sc, (const float*)ray_o, (const float*)ray_d, t_min,
-      (const float*)tmax, n_inst, (const float4*)table,
-      (const float4*)nodes, (const float4*)recs, (bool*)out_occluded);
-  return (int)cudaGetLastError();
+  return instanced_launch<true>(
+      n, ray_o, ray_d, t_min, tmax, nullptr, nullptr, n_inst, table, nodes,
+      recs, n_tnodes, tnodes, boxes, pad_scale, nullptr, nullptr, nullptr,
+      nullptr, nullptr, out_occluded, sc, s);
 }

@@ -135,13 +135,6 @@ def rect_nee(scene: SceneArrays) -> bool:
     return scene.n_rect_lights > 0
 
 
-def check_supported(scene: SceneArrays, static: StaticConfig) -> None:
-    """Raise NotImplementedError for configurations not ported yet."""
-    if scene.n_triangles + scene.n_spheres + scene.n_rects \
-            + scene.n_instances == 0:
-        raise NotImplementedError("a scene without any primitive")
-
-
 def rect_light_pdf_for_hit(scene: SceneArrays, point, prim_type, prim_index,
                            origin):
     """Solid-angle pdf of sampling the hit rectangle by NEE, for MIS on
@@ -231,7 +224,6 @@ def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
     pixel probe, ``renderer/debugprobe.py``)."""
     from metal_pathtracer_tpu_torch.ops.kernels import shade
 
-    check_supported(scene, static)
     lens = max(2.0 * float(uniforms.camera.lens_radius), 0.0)
     carry = PathCarry.start(state, ray_o, ray_d, lens,
                             _primary_cone_spread(uniforms, static))

@@ -67,15 +67,16 @@ SIGNATURES = {
     # (int32), their count, PathCarry pointers, the bucket scratch, stream
     "mpt_full_list": [_i, _vp, _vp, _vp, _i, _vp, _vp, _vp],
     # n, o, d, t_min, tmax, excl mesh/prim, placements, instance table,
-    # concatenated packed nodes and slot records, out t tri u v inst,
-    # scratch, stream
+    # concatenated packed nodes and slot records, TLAS nodes (count,
+    # array), placement boxes, pad, out t tri u v inst, scratch, stream
     "mpt_trace_instanced_closest": [
         _i, _vp, _vp, _f, _vp, _vp, _vp, _i, _vp, _vp, _vp,
-        _vp, _vp, _vp, _vp, _vp, _vp, _vp],
-    # n, o, d, t_min, tmax, placements, table, nodes, records, out flags,
-    # scratch, stream
+        _i, _vp, _vp, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    # n, o, d, t_min, tmax, placements, table, nodes, records, TLAS nodes
+    # (count, array), placement boxes, pad, out flags, scratch, stream
     "mpt_trace_instanced_any": [
-        _i, _vp, _vp, _f, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
+        _i, _vp, _vp, _f, _vp, _i, _vp, _vp, _vp, _i, _vp, _vp, _f, _vp,
+        _vp, _vp],
     "mpt_trace_any": [
         _i, _vp, _vp, _f, _vp,                  # n, o, d, t_min, tmax
         _i, _vp, _i, _vp,                       # packed nodes, slot records
@@ -249,23 +250,24 @@ def load() -> ctypes.CDLL:
 
 
 def _kernel_name(mangled: str):
-    """``name``, ``name<true|false>`` or ``name<N>`` of a mangled kernel
-    symbol: the length-prefixed identifier ending in ``_kernel`` (the
-    anonymous namespace's hash may run into the length's digits, so of the
+    """``name``, ``name<true|false>``, ``name<N>`` or, for several
+    template arguments, ``name<false, true>`` of a mangled kernel symbol:
+    the length-prefixed identifier ending in ``_kernel`` (the anonymous
+    namespace's hash may run into the length's digits, so of the
     candidates the one that starts last), then its bool or int template
-    argument (``ILb0E``/``ILb1E``, ``ILi2E``) if any."""
+    arguments (``ILb0E``/``ILb1E``, ``ILi2E``, ``ILb0ELb1EE``) if any."""
     found = None
     for m in re.finditer(r"\d+", mangled):
         for k in range(len(m.group())):
             n = int(m.group()[k:])
             ident = mangled[m.end():m.end() + n]
             if ident.endswith("_kernel") and ident[0].isalpha():
-                flag = re.match(r"ILb([01])E", mangled[m.end() + n:])
-                num = re.match(r"ILi(\d+)E", mangled[m.end() + n:])
-                found = ident + (f"<{num.group(1)}>" if num is not None
-                                 else "" if flag is None else
-                                 "<true>" if flag.group(1) == "1"
-                                 else "<false>")
+                args = re.match(r"I((?:L[bi]\d+E)+)",
+                                mangled[m.end() + n:])
+                names = [] if args is None else [
+                    v if t == "i" else "true" if v == "1" else "false"
+                    for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
+                found = ident + (f"<{', '.join(names)}>" if names else "")
     return found
 
 

@@ -885,11 +885,13 @@ def _trace(scene, carry: PathCarry):
     """The closest-hit trace of the wavefront's live lanes with the
     triangle self-hit exclusion: (t, index, u, v, family or None). A
     scene of soup triangles alone takes K1 alone (family None); any other
-    family, instanced meshes included, takes the merged trace."""
+    family, instanced meshes included, takes the merged trace, as does a
+    scene without any primitive (every lane misses; nothing launches)."""
     ex_mesh = torch.where(carry.prev_valid, carry.prev_mesh, -1)
     ex_prim = torch.where(carry.prev_valid, carry.prev_prim, -1)
     lane_tmax = torch.where(carry.alive, C.INFINITY_T, 0.0)
-    if scene.n_spheres or scene.n_rects or scene.instanced:
+    if scene.n_spheres or scene.n_rects or scene.instanced \
+            or not scene.n_triangles:
         return trace_merged(carry.ray_o, carry.ray_d, scene, C.EPSILON_T,
                             lane_tmax, ex_mesh, ex_prim)
     t, tri, u, v = trace_closest(carry.ray_o, carry.ray_d, C.EPSILON_T,

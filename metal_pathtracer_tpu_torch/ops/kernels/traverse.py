@@ -45,15 +45,21 @@ The instanced variants ``trace_instanced_closest`` / ``trace_instanced_any``
 replace the same TPU kernel where the JAX package launches it once per
 placement of an instanced mesh (``ops/traversal.py trace_instanced:241``
 -> ``_trace_group:286`` -> ``packet_trace``, and
-``trace_instanced_occluded:364``). One launch covers every placement of
-every group (``schema.InstanceTable``): each lane maps its ray into a
-placement's object space (``object_ray``, placed like XLA:CPU's jitted
-``p @ m[:, :3].T + m[:, 3]``), walks that group's tree with the window
-``[t_min, best t]`` and its exclusion (only where the previous hit was
-this placement: object triangle ids repeat across placements), and keeps
-a hit only when strictly nearer, placement after placement in the JAX
-package's order. The plain versions are that loop in Python, one
-``trace_closest_reference`` / ``trace_any_reference`` walk a placement.
+``trace_instanced_occluded:364``). The plain versions are the JAX
+package's loop in Python, one ``trace_closest_reference`` /
+``trace_any_reference`` walk a placement, in table order: each lane maps
+its ray into the placement's object space (``object_ray``, placed like
+XLA:CPU's jitted ``p @ m[:, :3].T + m[:, 3]``), walks that group's tree
+with the window ``[t_min, best t]`` and its exclusion (only where the
+previous hit was this placement: object triangle ids repeat across
+placements), and keeps a hit only when strictly nearer. One launch of
+the kernel covers every placement of every group
+(``schema.InstanceTable``) by a two-level walk: a TLAS over the
+placements' padded world boxes (``schema.InstanceTlas``), near first,
+each placement whose box the ray enters walked with the running best as
+its window, one ulp above it where its flat index is below the best's;
+``trace_instanced_*_tlas_reference`` is that walk order in plain
+PyTorch, and gives the loop's bits (``csrc/traverse.cu`` says why).
 """
 
 from __future__ import annotations
@@ -113,7 +119,10 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
     triangle-slot arrays, and the counts of K1's counting mode:
     ``node_visits`` (slab tests), ``leaf_visits`` (leaves whose box
     passed), ``both_children`` (right children whose box passed, their
-    left sibling's too) and ``tri_tests``."""
+    left sibling's too) and ``tri_tests``. Given ``walk["lane_group"]``,
+    an (N,) tensor of ints below ``walk["n_groups"]``, it receives them
+    per group: (G, ...) masks and (G,) count tensors, each group's as a
+    walk of its lanes alone gives them."""
     n = origin.shape[0]
     dev = origin.device
     n_nodes = bvh.node_count
@@ -133,18 +142,26 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
     live = lanes[t_max >= t_min]
     node = node[live]
     if walk is not None:
-        walk.update(nodes=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
-                    slots=torch.zeros(n_slots, dtype=torch.bool, device=dev),
-                    node_visits=0, leaf_visits=0, both_children=0,
-                    tri_tests=0)
+        # masks and counts by lane group, kept on the device until the
+        # walk ends: no host sync a step for them
+        n_groups = walk.get("n_groups", 1)
+        grp = walk.get("lane_group")
+        grp = (torch.zeros(n, dtype=torch.long, device=dev) if grp is None
+               else grp.long())[live]
+        touched = torch.zeros(n_groups * n_nodes, dtype=torch.bool,
+                              device=dev)
+        slot_hits = torch.zeros(n_groups * n_slots, dtype=torch.int32,
+                                device=dev)
+        counts = {k: torch.zeros(n_groups, dtype=torch.int64, device=dev)
+                  for k in WALK_COUNTS}
         left_sib = bvh.left_sibling().long()
         # each lane's previous slab test: its node and whether it passed
         prev = torch.full_like(node, -1)
         prev_hit = torch.zeros_like(node, dtype=torch.bool)
     while live.numel():
         if walk is not None:
-            walk["nodes"][node] = True
-            walk["node_visits"] += int(node.numel())
+            touched[grp * n_nodes + node] = True
+            counts["node_visits"].index_add_(0, grp, torch.ones_like(grp))
         o, inv = origin[live], inv_dir[live]
         row = nodes[node]
         meta = row[:, 7].view(torch.int32)
@@ -159,9 +176,9 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
         leaf = box_hit & (pcount > 0)
         if walk is not None:
             ls = left_sib[node]
-            walk["leaf_visits"] += int(leaf.sum())
-            walk["both_children"] += int(
-                ((ls >= 0) & box_hit & ~((prev == ls) & ~prev_hit)).sum())
+            counts["leaf_visits"].index_add_(0, grp, leaf.long())
+            counts["both_children"].index_add_(0, grp, (
+                (ls >= 0) & box_hit & ~((prev == ls) & ~prev_hit)).long())
             prev, prev_hit = node, box_hit
         if bool(leaf.any()):
             li = live[leaf]
@@ -180,8 +197,11 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
                 in_leaf &= ar <= first[:, None]
                 valid &= ar <= first[:, None]
             if walk is not None:
-                walk["slots"][slot[in_leaf]] = True
-                walk["tri_tests"] += int(in_leaf.sum())
+                g = grp[leaf]
+                slot_hits.index_add_(0, (g[:, None] * n_slots
+                                         + slot).reshape(-1),
+                                     in_leaf.reshape(-1).to(torch.int32))
+                counts["tri_tests"].index_add_(0, g, in_leaf.sum(-1))
             t_masked = torch.where(valid, t, INFINITY_T)
             k = torch.argmin(t_masked, -1, keepdim=True)  # first minimum
             t_hit = t_masked.gather(-1, k)[:, 0]
@@ -199,8 +219,25 @@ def trace_closest_reference(origin, direction, t_min, t_max, bvh, tris,
             more &= best_tri[live] < 0
         live, node = live[more], node[more]
         if walk is not None:
-            prev, prev_hit = prev[more], prev_hit[more]
+            prev, prev_hit, grp = prev[more], prev_hit[more], grp[more]
+    if walk is not None:
+        walk.update(nodes=touched.view(n_groups, n_nodes),
+                    slots=(slot_hits > 0).view(n_groups, n_slots), **counts)
+        if "lane_group" not in walk:
+            _one_group(walk)
     return best_t, best_tri, best_u, best_v
+
+
+#: the counts a walk receives (``trace_closest_reference``'s ``walk``)
+WALK_COUNTS = ("node_visits", "leaf_visits", "both_children", "tri_tests")
+
+
+def _one_group(walk):
+    """A walk's masks and counts of its one lane group as the ungrouped
+    walk gives them: 1-D masks and ints."""
+    for k, v in walk.items():
+        if torch.is_tensor(v) and v.dim() >= 1 and k != "lane_group":
+            walk[k] = v[0] if v.dim() == 2 else int(v[0])
 
 
 def walk_totals(walk, device) -> torch.Tensor:
@@ -374,15 +411,15 @@ trace_any_stats.launches = 0
 
 def object_ray(w2l, origin, direction):
     """A world ray in a placement's object space through its (3,4)
-    world -> local rows: each component a 3-term dot, contracted like
-    XLA:CPU's jitted (N,3) x (3,3) product (``fma(p2, m2, fma(p1, m1,
-    p0 m0))``, measured on 65,536 rays and matrices:
-    ``tests/test_torch_instancing.py``), then the translation added
-    unfused. The direction is not renormalised, so t is the same in both
+    world -> local rows (or one (N,3,4) matrix a lane): each component a
+    3-term dot, contracted like XLA:CPU's jitted (N,3) x (3,3) product
+    (``fma(p2, m2, fma(p1, m1, p0 m0))``, measured on 65,536 rays and
+    matrices: ``tests/test_torch_instancing.py``), then the translation
+    added unfused. The direction is not renormalised, so t is the same in both
     spaces."""
-    rows = [w2l[k, :3] for k in range(3)]
-    o = torch.stack([dot(origin, r) + w2l[k, 3] for k, r in enumerate(rows)],
-                    -1)
+    rows = [w2l[..., k, :3] for k in range(3)]
+    o = torch.stack([dot(origin, r) + w2l[..., k, 3]
+                     for k, r in enumerate(rows)], -1)
     d = torch.stack([dot(direction, r) for r in rows], -1)
     return o, d
 
@@ -447,64 +484,6 @@ def trace_instanced_closest_reference(origin, direction, t_min, t_max,
     return best_t, best_tri, best_u, best_v, best_inst
 
 
-def _instance_layout(name, groups, dev, lanes):
-    """The ``InstanceTable`` for a launch on ``dev``, after checking it and
-    the lane tensors as ``_k1_layout`` does."""
-    tab = instance_table(groups)
-    for a in (*lanes, tab.table, tab.nodes, tab.recs):
-        if a.device != dev or not a.is_contiguous():
-            raise ValueError(f"{name}: every tensor, the instance table "
-                             f"included, must be contiguous and on {dev}")
-    if lanes[0].dtype != torch.float32 or lanes[1].dtype != torch.float32:
-        raise ValueError(f"{name}: rays must be float32")
-    if tab.nodes.data_ptr() % 32 or tab.recs.data_ptr() % 16 \
-            or tab.table.data_ptr() % 16:
-        raise ValueError(f"{name}: the packed nodes must be 32-byte, the "
-                         "slot records and the table 16-byte aligned")
-    return tab
-
-
-def trace_instanced_closest(origin, direction, t_min: float, t_max, groups,
-                            exclude_mesh=None, exclude_prim=None):
-    """Nearest hit over every placement of the instanced ``groups``: (t,
-    tri, u, v, inst), each (N,); tri is the object triangle, inst the
-    flat placement index (``schema.InstanceTable`` row), -1 on a miss.
-    exclude_mesh/exclude_prim: each lane's previous hit (global instance
-    id, object triangle) or a soup triangle's (mesh, triangle), which no
-    placement excludes. CPU tensors take the plain version; CUDA tensors
-    launch ``trace_instanced_closest_kernel`` once."""
-    n = origin.shape[0]
-    dev = origin.device
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                               device=dev), (n,)).contiguous()
-    exclude_mesh = _as_i32(exclude_mesh, n, dev)
-    exclude_prim = _as_i32(exclude_prim, n, dev)
-    if dev.type == "cpu":
-        return trace_instanced_closest_reference(
-            origin, direction, float(t_min), t_max, groups, exclude_mesh,
-            exclude_prim)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_instanced_closest: unsupported device {dev}")
-    tab = _instance_layout("trace_instanced_closest", groups, dev, [
-        origin, direction, t_max, exclude_mesh, exclude_prim])
-    out_t = torch.empty(n, dtype=torch.float32, device=dev)
-    out_tri = torch.empty(n, dtype=torch.int32, device=dev)
-    out_u = torch.empty(n, dtype=torch.float32, device=dev)
-    out_v = torch.empty(n, dtype=torch.float32, device=dev)
-    out_inst = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = build.list_scratch(n, dev)
-    lib = build.load()
-    p = lambda x: x.data_ptr()
-    err = lib.mpt_trace_instanced_closest(
-        n, p(origin), p(direction), float(t_min), p(t_max), p(exclude_mesh),
-        p(exclude_prim), tab.count, p(tab.table), p(tab.nodes), p(tab.recs),
-        p(out_t), p(out_tri), p(out_u), p(out_v), p(out_inst), p(scratch),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "mpt_trace_instanced_closest")
-    trace_instanced_closest.launches += 1
-    return out_t, out_tri, out_u, out_v, out_inst
-
-
 def trace_instanced_any_reference(origin, direction, t_min, t_max, groups,
                                   walk=None):
     """Plain PyTorch instanced any-hit (``traversal.
@@ -523,11 +502,316 @@ def trace_instanced_any_reference(origin, direction, t_min, t_max, groups,
     return occ
 
 
+# ---------------------------------------------------------------------------
+# The kernels' walk order: a TLAS over the placements, near first
+# ---------------------------------------------------------------------------
+
+def _padded_entry(rows, o, inv, pad, t_min, window):
+    """K1's slab test (``box_hit``) of one box a lane, ``rows`` (L, 8) in
+    K1's node layout, each box grown by the lane's ``pad``, against
+    [t_min, window]: (passed, entry t)."""
+    lo = rows[:, 0:3] - pad[:, None]
+    hi = rows[:, 4:7] + pad[:, None]
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    lo_t = torch.clamp_min(torch.minimum(t0, t1), t_min)
+    hi_t = torch.maximum(t0, t1)
+    tnear = torch.maximum(torch.maximum(lo_t[:, 0], lo_t[:, 1]), lo_t[:, 2])
+    tfar = torch.minimum(torch.minimum(hi_t[:, 0], hi_t[:, 1]), hi_t[:, 2])
+    return torch.minimum(tfar, window) >= tnear, tnear
+
+
+def _tlas_walk(origin, direction, t_min, t_max, groups, exclude_mesh,
+               exclude_prim, any_hit, walk):
+    """The instanced kernels' walk in plain PyTorch, lane by lane in
+    lockstep: the TLAS near first with a short stack (the kernel's order
+    of slab tests, placement tests and walks, step for step), and each
+    placement that passes walked by ``trace_closest_reference`` /
+    ``trace_any_reference`` with the kernel's window: the running best,
+    one ulp above it (``nextafter``) for a placement whose flat index is
+    below the best's, ``t_max`` under any-hit. Returns (t, tri, u, v,
+    inst) or the (N,) occlusion flags."""
+    from metal_pathtracer_tpu_torch.schema import instance_tlas
+
+    n = origin.shape[0]
+    dev = origin.device
+    tlas = instance_tlas(groups)
+    nodes, boxes = tlas.nodes, tlas.boxes
+    box_row = boxes[:, 3].view(torch.int32).long()
+    meta_of = nodes[:, 7].view(torch.int32).long()
+    first_flat, group_of = [], []
+    for gi, g in enumerate(groups):
+        first_flat.append(len(group_of))
+        group_of += [gi] * g.count
+    group_of = torch.tensor(group_of, device=dev)
+    best_t = t_max.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_inst = best_tri.clone()
+    best_u = torch.zeros(n, device=dev)
+    best_v = torch.zeros(n, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    lanes = torch.arange(n, device=dev)[t_max >= t_min]
+    m = lanes.numel()
+    if walk is not None:
+        # masks and counts by lane group, as trace_closest_reference's
+        n_groups = walk.get("n_groups", 1)
+        grp = walk.get("lane_group")
+        grp = (torch.zeros(n, dtype=torch.long, device=dev) if grp is None
+               else grp.long())[lanes]
+        mask = lambda size: torch.zeros((n_groups, size), dtype=torch.bool,
+                                        device=dev)
+        count = lambda: torch.zeros(n_groups, dtype=torch.int64, device=dev)
+        walk.update(tlas_nodes=mask(tlas.node_count),
+                    boxes=mask(boxes.shape[0]), rows=mask(boxes.shape[0]),
+                    tlas_tests=count(), placement_walks=count())
+    o, d = origin[lanes], direction[lanes]
+    inv = 1.0 / torch.where(d.abs() < 1e-20,
+                            torch.where(d >= 0, 1e-20, -1e-20), d)
+    pad = torch.tensor(tlas.pad, dtype=torch.float32, device=dev) \
+        * o.abs().amax(-1)
+    cur = torch.zeros(m, dtype=torch.long, device=dev)
+    lpos = torch.zeros(m, dtype=torch.long, device=dev)
+    lend = torch.zeros(m, dtype=torch.long, device=dev)
+    stack = torch.zeros((m, tlas.depth + 1), dtype=torch.long, device=dev)
+    stack_t = torch.zeros((m, tlas.depth + 1), device=dev)
+    sp = torch.zeros(m, dtype=torch.long, device=dev)
+    pend = torch.full((m,), -1, dtype=torch.long, device=dev)
+    done = torch.zeros(m, dtype=torch.bool, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+
+    def widest(k):
+        """The window of a node: the widest any placement may get."""
+        if any_hit:
+            return t_max[lanes[k]]
+        bt, bi = best_t[lanes[k]], best_inst[lanes[k]]
+        return torch.where(bi >= 0, torch.nextafter(bt, inf), bt)
+
+    def test(k, rows, window, name, index):
+        if walk is not None:
+            walk[name][grp[k], index] = True
+            walk["tlas_tests"].index_add_(0, grp[k], torch.ones_like(k))
+        return _padded_entry(rows, o[k], inv[k], pad[k], t_min, window)
+
+    # the root: the lane walks nothing when its box fails
+    k = torch.arange(m, device=dev)
+    ok, _ = test(k, nodes[cur], widest(k), "tlas_nodes", cur)
+    done |= ~ok
+    while True:
+        # advance every lane that waits for nothing to its next placement
+        while True:
+            act = ~done & (pend < 0)
+            if not bool(act.any()):
+                break
+            k = act.nonzero().squeeze(1)
+            in_leaf = lpos[k] < lend[k]
+            at_node = ~in_leaf & (cur[k] >= 0)
+            pop = ~in_leaf & ~at_node
+            # a placement of the current leaf: its own box, its own window
+            a = k[in_leaf]
+            if a.numel():
+                pos = lpos[a]
+                q = box_row[pos]
+                if any_hit:
+                    window = t_max[lanes[a]]
+                else:
+                    bt, bi = best_t[lanes[a]], best_inst[lanes[a]]
+                    window = torch.where((bi >= 0) & (q < bi),
+                                         torch.nextafter(bt, inf), bt)
+                ok, _ = test(a, boxes[pos], window, "boxes", pos)
+                pend[a] = torch.where(ok, q, -1)
+                lpos[a] = pos + 1
+            # a node: a leaf opens its placements, an interior node tests
+            # both children, goes to the nearer and keeps the farther
+            a = k[at_node]
+            if a.numel():
+                node = cur[a]
+                meta = meta_of[node]
+                leaf = (meta & 7) > 0
+                b = a[leaf]
+                lpos[b] = meta[leaf] >> 3
+                lend[b] = lpos[b] + (meta[leaf] & 7)
+                cur[b] = -1
+                b = a[~leaf]
+                if b.numel():
+                    left = cur[b] + 1
+                    right = meta[~leaf] >> 3
+                    window = widest(b)
+                    ok_l, t_l = test(b, nodes[left], window, "tlas_nodes",
+                                     left)
+                    ok_r, t_r = test(b, nodes[right], window, "tlas_nodes",
+                                     right)
+                    right_first = ok_r & (~ok_l | (t_r < t_l))
+                    near = torch.where(right_first, right, left)
+                    far = torch.where(right_first, left, right)
+                    far_t = torch.where(right_first, t_l, t_r)
+                    both = ok_l & ok_r
+                    c = b[both]
+                    stack[c, sp[c]] = far[both]
+                    stack_t[c, sp[c]] = far_t[both]
+                    sp[c] += 1
+                    cur[b] = torch.where(ok_l | ok_r, near, -1)
+            # the stack: the next kept node whose entry the window reaches
+            a = k[pop]
+            if a.numel():
+                empty = sp[a] == 0
+                done[a[empty]] = True
+                b = a[~empty]
+                sp[b] -= 1
+                top = stack[b, sp[b]]
+                cur[b] = torch.where(stack_t[b, sp[b]] <= widest(b), top, -1)
+        k = (pend >= 0).nonzero().squeeze(1)
+        if not k.numel():
+            break
+        # walk each pending placement, a call per group
+        q = pend[k]
+        for gi, g in enumerate(groups):
+            a = k[group_of[q] == gi]
+            if not a.numel():
+                continue
+            qa = pend[a]
+            li = lanes[a]
+            o_l, d_l = object_ray(g.w2l[qa - first_flat[gi]], o[a], d[a])
+            one = None
+            if walk is not None:
+                one = dict(lane_group=grp[a], n_groups=n_groups)
+                walk["rows"][grp[a], qa] = True
+                walk["placement_walks"].index_add_(0, grp[a],
+                                                   torch.ones_like(a))
+            if any_hit:
+                hit = trace_any_reference(o_l, d_l, t_min, t_max[li],
+                                          g.tri_bvh, g.triangles, walk=one)
+                occ[li] |= hit
+                done[a] |= hit
+            else:
+                bt, bi = best_t[li], best_inst[li]
+                window = torch.where((bi >= 0) & (qa < bi),
+                                     torch.nextafter(bt, inf), bt)
+                ex_p = torch.where(exclude_mesh[li] == g.base_id + qa
+                                   - first_flat[gi], exclude_prim[li], -1)
+                t, tri, u, v = trace_closest_reference(
+                    o_l, d_l, t_min, window, g.tri_bvh, g.triangles,
+                    torch.zeros_like(ex_p), ex_p, walk=one)
+                hit = tri >= 0
+                h = li[hit]
+                best_t[h] = t[hit]
+                best_tri[h] = tri[hit]
+                best_u[h] = u[hit]
+                best_v[h] = v[hit]
+                best_inst[h] = qa[hit].to(torch.int32)
+            _walk_into(walk, gi, one)
+        pend[k] = -1
+    if walk is not None and "lane_group" not in walk:
+        _one_group(walk)
+        for masks in walk.get("groups", {}).values():
+            masks.update(nodes=masks["nodes"][0], slots=masks["slots"][0])
+    if any_hit:
+        return occ
+    return best_t, best_tri, best_u, best_v, best_inst
+
+
+def trace_instanced_closest_tlas_reference(origin, direction, t_min, t_max,
+                                           groups, exclude_mesh,
+                                           exclude_prim, walk=None):
+    """The instanced closest-hit kernel's own walk order in plain PyTorch
+    (``_tlas_walk``): the TLAS near first, each placement walked with the
+    running best as its window, one ulp above it where the placement's
+    flat index is below the best's, so the result is the lexicographic
+    minimum of (t, placement) and equals
+    ``trace_instanced_closest_reference`` bit for bit (``csrc/traverse.cu``
+    says why). The tests hold the two equal; nothing on the card's path
+    calls it. ``walk`` receives, besides the groups' masks and counts of
+    ``trace_instanced_closest_reference``, the TLAS nodes and placement
+    boxes tested (``tlas_nodes``, ``boxes``: masks; ``tlas_tests``: slab
+    tests), the placements walked (``rows``: a mask over the table;
+    ``placement_walks``: walks); by lane group, as
+    ``trace_closest_reference`` gives them, where ``walk`` holds
+    ``lane_group`` and ``n_groups``."""
+    return _tlas_walk(origin, direction, t_min, t_max, groups, exclude_mesh,
+                      exclude_prim, False, walk)
+
+
+def trace_instanced_any_tlas_reference(origin, direction, t_min, t_max,
+                                       groups, walk=None):
+    """The instanced any-hit kernel's walk order in plain PyTorch: the same
+    TLAS walk with the window fixed at ``t_max``, each lane ended by its
+    first occluder; equal to ``trace_instanced_any_reference`` in any
+    order. ``walk`` as in ``trace_instanced_closest_tlas_reference``."""
+    return _tlas_walk(origin, direction, t_min, t_max, groups, None, None,
+                      True, walk)
+
+
+def _instance_layout(name, groups, dev, lanes):
+    """The ``InstanceTable`` and its ``InstanceTlas`` for a launch on
+    ``dev``, after checking them and the lane tensors as ``_k1_layout``
+    does."""
+    from metal_pathtracer_tpu_torch.schema import instance_tlas
+
+    tab, tlas = instance_table(groups), instance_tlas(groups)
+    for a in (*lanes, tab.table, tab.nodes, tab.recs, tlas.nodes,
+              tlas.boxes):
+        if a.device != dev or not a.is_contiguous():
+            raise ValueError(f"{name}: every tensor, the instance table "
+                             f"and its TLAS included, must be contiguous "
+                             f"and on {dev}")
+    if lanes[0].dtype != torch.float32 or lanes[1].dtype != torch.float32:
+        raise ValueError(f"{name}: rays must be float32")
+    if any(x.data_ptr() % 32 for x in (tab.nodes, tlas.nodes, tlas.boxes)) \
+            or tab.recs.data_ptr() % 16 or tab.table.data_ptr() % 16:
+        raise ValueError(f"{name}: the packed nodes and boxes must be "
+                         "32-byte, the slot records and the table 16-byte "
+                         "aligned")
+    return tab, tlas
+
+
+def trace_instanced_closest(origin, direction, t_min: float, t_max, groups,
+                            exclude_mesh=None, exclude_prim=None):
+    """Nearest hit over every placement of the instanced ``groups``: (t,
+    tri, u, v, inst), each (N,); tri is the object triangle, inst the
+    flat placement index (``schema.InstanceTable`` row), -1 on a miss.
+    exclude_mesh/exclude_prim: each lane's previous hit (global instance
+    id, object triangle) or a soup triangle's (mesh, triangle), which no
+    placement excludes. CPU tensors take the plain version, the
+    sequential walk; CUDA tensors launch ``trace_instanced_closest_kernel``
+    once, which walks the ``schema.InstanceTlas`` and gives the same
+    bits."""
+    n = origin.shape[0]
+    dev = origin.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,)).contiguous()
+    exclude_mesh = _as_i32(exclude_mesh, n, dev)
+    exclude_prim = _as_i32(exclude_prim, n, dev)
+    if dev.type == "cpu":
+        return trace_instanced_closest_reference(
+            origin, direction, float(t_min), t_max, groups, exclude_mesh,
+            exclude_prim)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_instanced_closest: unsupported device {dev}")
+    tab, tlas = _instance_layout("trace_instanced_closest", groups, dev, [
+        origin, direction, t_max, exclude_mesh, exclude_prim])
+    out_t = torch.empty(n, dtype=torch.float32, device=dev)
+    out_tri = torch.empty(n, dtype=torch.int32, device=dev)
+    out_u = torch.empty(n, dtype=torch.float32, device=dev)
+    out_v = torch.empty(n, dtype=torch.float32, device=dev)
+    out_inst = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = build.list_scratch(n, dev)
+    lib = build.load()
+    p = lambda x: x.data_ptr()
+    err = lib.mpt_trace_instanced_closest(
+        n, p(origin), p(direction), float(t_min), p(t_max), p(exclude_mesh),
+        p(exclude_prim), tab.count, p(tab.table), p(tab.nodes), p(tab.recs),
+        tlas.node_count, p(tlas.nodes), p(tlas.boxes), tlas.pad,
+        p(out_t), p(out_tri), p(out_u), p(out_v), p(out_inst), p(scratch),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "mpt_trace_instanced_closest")
+    trace_instanced_closest.launches += 1
+    return out_t, out_tri, out_u, out_v, out_inst
+
+
 def trace_instanced_any(origin, direction, t_min: float, t_max, groups):
     """Occlusion flag per ray over every placement of the instanced
     ``groups``: (N,) bool, a triangle at t in [t_min, t_max). CPU tensors
     take the plain version; CUDA tensors launch
-    ``trace_instanced_any_kernel`` once."""
+    ``trace_instanced_any_kernel`` once, the TLAS walk."""
     n = origin.shape[0]
     dev = origin.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
@@ -537,15 +821,16 @@ def trace_instanced_any(origin, direction, t_min: float, t_max, groups):
                                              t_max, groups)
     if dev.type != "cuda":
         raise ValueError(f"trace_instanced_any: unsupported device {dev}")
-    tab = _instance_layout("trace_instanced_any", groups, dev,
-                           [origin, direction, t_max])
+    tab, tlas = _instance_layout("trace_instanced_any", groups, dev,
+                                 [origin, direction, t_max])
     out = torch.empty(n, dtype=torch.bool, device=dev)
     scratch = build.list_scratch(n, dev)
     lib = build.load()
     p = lambda x: x.data_ptr()
     err = lib.mpt_trace_instanced_any(
         n, p(origin), p(direction), float(t_min), p(t_max), tab.count,
-        p(tab.table), p(tab.nodes), p(tab.recs), p(out), p(scratch),
+        p(tab.table), p(tab.nodes), p(tab.recs), tlas.node_count,
+        p(tlas.nodes), p(tlas.boxes), tlas.pad, p(out), p(scratch),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mpt_trace_instanced_any")
     trace_instanced_any.launches += 1

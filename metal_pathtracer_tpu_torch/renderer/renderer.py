@@ -103,9 +103,10 @@ class Renderer:
         self._applied_settings = settings.copy()
         self.resources = resources
         self.active_scene = name
+        # the cached environment stays: a scene loaded after another
+        # renders under the previous map, as in the JAX package
+        # (``renderer.py _adopt:87-96``); only ``apply_settings`` drops it
         self._scene_dirty = True
-        # the new scene's own map (the JAX package keeps the previous one)
-        self._environment = None
         if settings.renderWidth and settings.renderHeight:
             self._logical = (settings.renderWidth, settings.renderHeight)
             self._size = self._scaled_size(*self._logical, windowed=False)

@@ -355,6 +355,129 @@ def instance_table(groups) -> InstanceTable:
     return out
 
 
+#: placements a TLAS leaf holds at most, and the instanced walk's stack
+#: depth (``csrc/traverse.cu TLAS_STACK``): a median split over K
+#: placements is ceil(log2(ceil(K / 4))) interior levels deep, so 16
+#: levels hold 262,144 placements
+TLAS_LEAF, TLAS_STACK = 4, 16
+#: the padding's scale: kappa = TLAS_KAPPA x the largest condition number
+#: of a placement's linear part (``csrc/traverse.cu`` says why it holds)
+TLAS_KAPPA = 2.0 ** -14
+
+
+@dataclasses.dataclass(frozen=True)
+class InstanceTlas:
+    """A tree over the placements' world boxes (reference: SceneAccel.mm
+    :188-247, a median split on the largest centroid axis, leaves of <= 4
+    placements), in K1's node layout (``BvhSoA.packed_nodes``): a node is
+    ``[bmin xyz, exit]``, ``[bmax xyz, offset << 3 | count]``, flattened
+    depth first; an interior node's offset is its right child (its left is
+    the next node), a leaf's its first row of ``boxes``. ``boxes`` holds
+    every placement's own world box in leaf order, ``[bmin xyz, table
+    row]``, ``[bmax xyz, 0]``: the 8 corners of its group's root box mapped
+    local -> world in float64, padded outward by kappa x (the largest
+    world coordinate of any box + the largest translation), rounded
+    outward to float32. A lane pads every box by ``pad`` x max |o_i| more
+    (``pad`` = 2 kappa). Interior boxes are their children's unions."""
+
+    nodes: torch.Tensor   # (T, 8) f32
+    boxes: torch.Tensor   # (K, 8) f32
+    pad: float
+    depth: int            # interior levels (the stack the walk needs)
+
+    @property
+    def node_count(self) -> int:
+        return self.nodes.shape[0]
+
+
+def _outward(x, down: bool):
+    """float64 -> float32 rounded away from the box's inside."""
+    import numpy as np
+
+    f = x.astype(np.float32)
+    away = f > x if down else f < x
+    return np.where(away, np.nextafter(f, np.float32(-np.inf if down
+                                                     else np.inf)), f)
+
+
+def instance_tlas(groups) -> InstanceTlas:
+    """The ``InstanceTlas`` of the groups' placements (flat index as in
+    ``instance_table``), on their device; made on first use and kept on
+    their ``InstanceTable``."""
+    import numpy as np
+
+    tab = instance_table(groups)
+    cached = tab.__dict__.get("_tlas")
+    if cached is not None:
+        return cached
+    lo, hi, l2w = [], [], []
+    for g in groups:
+        nd = g.tri_bvh.packed_nodes()[0].double().cpu().numpy()
+        corners = np.array([[nd[4 * (k >> a & 1) + a] for a in range(3)]
+                            for k in range(8)])
+        for m in g.l2w.double().cpu().numpy():
+            w = corners @ m[:, :3].T + m[:, 3]
+            lo.append(w.min(0))
+            hi.append(w.max(0))
+            l2w.append(m)
+    lo, hi, l2w = np.array(lo), np.array(hi), np.array(l2w)
+    cond = max(1.0, max(float(s[0] / s[-1]) if s[-1] > 0 else np.inf
+                        for s in np.linalg.svd(l2w[:, :, :3],
+                                               compute_uv=False)))
+    kappa = min(TLAS_KAPPA * cond, 1.0)
+    reach = max(np.abs(lo).max(), np.abs(hi).max()) \
+        + np.abs(l2w[:, :, 3]).max()
+    lo = _outward(lo - kappa * reach, True)
+    hi = _outward(hi + kappa * reach, False)
+    centre = (lo.astype(np.float64) + hi) * 0.5
+    nodes, order = [], []
+
+    def build(idx, level):
+        k = len(nodes)
+        nodes.append(None)
+        if len(idx) <= TLAS_LEAF:
+            first = len(order)
+            order.extend(idx.tolist())
+            nodes[k] = (lo[idx].min(0), hi[idx].max(0), first << 3 | len(idx))
+            return level
+        c = centre[idx]
+        axis = int(np.argmax(c.max(0) - c.min(0)))
+        idx = idx[np.argsort(c[:, axis], kind="stable")]
+        half = len(idx) // 2
+        depth = build(idx[:half], level + 1)
+        right = len(nodes)
+        depth = max(depth, build(idx[half:], level + 1))
+        nodes[k] = (np.minimum(nodes[k + 1][0], nodes[right][0]),
+                    np.maximum(nodes[k + 1][1], nodes[right][1]),
+                    right << 3)
+        return depth
+
+    depth = build(np.arange(len(lo)), 0)
+    if depth > TLAS_STACK:
+        raise ValueError(f"instance_tlas: {len(lo)} placements need "
+                         f"{depth} levels, the walk keeps {TLAS_STACK}")
+    # exit links: where a depth-first walk goes after a node's subtree
+    exits = [len(nodes)] * len(nodes)
+    for k, (_, _, meta) in enumerate(nodes):
+        if meta & 7 == 0:
+            right = meta >> 3
+            exits[k + 1] = right
+            exits[right] = exits[k]
+    dev = groups[0].w2l.device
+    as_f = lambda ints: np.asarray(ints, np.int32).view(np.float32)
+    packed = np.array([np.concatenate([b0, as_f([e]), b1, as_f([m])])
+                       for (b0, b1, m), e in zip(nodes, exits)], np.float32)
+    order = np.array(order)
+    boxes = np.concatenate([lo[order], as_f(order)[:, None], hi[order],
+                            np.zeros((len(order), 1), np.float32)], 1)
+    out = InstanceTlas(nodes=torch.from_numpy(packed).to(dev).contiguous(),
+                       boxes=torch.from_numpy(boxes.astype(np.float32))
+                       .to(dev).contiguous(),
+                       pad=float(np.float32(2.0 * kappa)), depth=depth)
+    tab.__dict__["_tlas"] = out
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class EnvironmentSoA:
     """Equirect environment map plus alias tables for importance sampling

@@ -15,6 +15,11 @@ change's ``chip_smoke.py`` helpers, so both sides are measured alike:
   one sample of the checkout's own frame loop (``chip_smoke.py
   frame_loop_k1``), each timed three times with ``kernel_ms`` (device
   time of 5 launches back to back); the trace kernels' registers;
+- ``ki`` and ``kiany``: the instanced K1, closest-hit or any-hit, on
+  the depth-0 and depth-1 wavefronts of the instanced headline and the
+  instanced grid (1920x1080; ``chip_smoke.py frame_loop_inst``), each
+  timed three times with ``kernel_ms``, with a SHA-256 of each result
+  that must agree over every process and the kernels' registers;
 - ``s1``, ``s2`` and ``tex``: K2 stage s1, K2 stage s2 or the texture
   stage on the textured headline's wavefronts at the depths ``--depths``
   names (default 0, 1 and 5: the first, the second, a late one), kept
@@ -60,7 +65,8 @@ Make the parent's checkout with ``git archive`` into a git-ignored
 directory, then::
 
     python3 metal_pathtracer_tpu_torch/utils/ab.py \
-        {lambert,k1,s1,s2,s2zoo,tex,k3a,k3b,k3c,full,fullzoo,fulllambert} \
+        {lambert,k1,ki,kiany,s1,s2,s2zoo,tex,k3a,k3b,k3c,full,fullzoo,
+         fulllambert} \
         PARENT CHANGE
 
 Lines starting with ``AB`` carry the numbers; per series, the medians and
@@ -164,6 +170,77 @@ def child_k1(timer, depths):
         for name, key in c.K1_WAVES.items():
             args = waves[key]
             fn = T.trace_closest if key[0] == "closest" else T.trace_any
+            ms = c.kernel_ms(lambda: lambda: fn(*args), 5)
+            print(f"AB {name} rep {rep}: {ms:.4f} ms [{card}]", flush=True)
+
+
+def child_ki(which, timer, depths):
+    """The instanced K1 of the checkout's package (``ki``: closest-hit,
+    ``kiany``: any-hit) on the depth-0 and depth-1 wavefronts of the
+    instanced headline and of the instanced grid (1920x1080, the
+    1,310,720-triangle displaced icosphere placed 3 and 64 times, the
+    glass icosphere 2 and 16 times), kept from one sample of the
+    checkout's own frame loop (``chip_smoke.py frame_loop_inst``: the
+    closest-hit launches 0 and 1, the environment shadow launches 0 and
+    2), each timed three times with ``kernel_ms``; a SHA-256 of each
+    wavefront's result, which must agree over every process; the
+    instanced kernels' registers and spill bytes. The grid's ``.scene``
+    comes from the change's ``utils/meshfiles.py`` (the timer's tree);
+    ``depths`` is not used."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    meshfiles_change = _load("meshfiles_change", os.path.join(
+        os.path.dirname(timer), "metal_pathtracer_tpu_torch", "utils",
+        "meshfiles.py"))
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import traverse as T
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    from metal_pathtracer_tpu_torch.utils import meshfiles
+
+    build.load()
+    registers(c, build, "trace_instanced")
+    dev = torch.device("cuda", 0)
+    key = "closest" if which == "ki" else "any"
+    fn = T.trace_instanced_closest if key == "closest" else \
+        T.trace_instanced_any
+    card = c.device_line()
+    kept = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        meshfiles.write_headline_files(tmp, c.HEADLINE_SUBDIVISIONS, dev)
+        with open(os.path.join(tmp, "instanced_grid.scene"), "w") as fh:
+            fh.write(meshfiles_change.instanced_scene_text(variant="grid"))
+        for cell in ("headline", "grid"):
+            settings, res = RenderSettings(), SceneResources()
+            dsl.load_scene_file(os.path.join(tmp, f"instanced_{cell}.scene"),
+                                settings, res)
+            env = env_ops.load_environment(settings.environmentMapPath, dev)
+            scene = res.build_arrays(environment=env, device=dev)
+            static, uni = c.scene_setup(settings, res, *c.FRAME, dev)
+            launches = (0, 1) if key == "closest" else (0, 2)
+            live, waves = c.frame_loop_inst(
+                scene, uni, static, dev, keep=tuple((key, k)
+                                                    for k in launches))
+            for depth, k in enumerate(launches):
+                args = waves[key, k] if key == "closest" else \
+                    waves[key, k][:5]
+                h = hashlib.sha256()
+                out = fn(*args)
+                for x in (out if isinstance(out, tuple) else (out,)):
+                    h.update(x.contiguous().cpu().numpy().tobytes())
+                name = f"{which} {cell} depth {depth}"
+                print(f"AB lanes {name}: {live[key][k]} live, "
+                      f"{scene.n_instances} placements", flush=True)
+                print(f"AB digest {name}: {h.hexdigest()}", flush=True)
+                kept[name] = args
+    for rep in range(K1_REPS):
+        for name, args in kept.items():
             ms = c.kernel_ms(lambda: lambda: fn(*args), 5)
             print(f"AB {name} rep {rep}: {ms:.4f} ms [{card}]", flush=True)
 
@@ -384,6 +461,8 @@ def k1_value(line):
 #: measurement: (child run in the checkout, line -> (series, value) or None)
 MEASURES = {"lambert": (child_lambert, lambert_value),
             "k1": (child_k1, k1_value),
+            "ki": (functools.partial(child_ki, "ki"), k1_value),
+            "kiany": (functools.partial(child_ki, "kiany"), k1_value),
             "s1": (functools.partial(child_k2, "s1"), k1_value),
             "s2": (functools.partial(child_k2, "s2"), k1_value),
             "s2zoo": (functools.partial(child_k2, "s2zoo"), k1_value),

@@ -180,14 +180,51 @@ INSTANCED_DRAGONS = (((-2.31, -0.55, 0.03), (0, 40, 0), 0.6),
 INSTANCED_GLASS = ((0.0, 0.0, 0.0), (2.67, 0.0, -1.32))
 
 
-def instanced_scene_text(lambert: bool = False) -> str:
-    """The ``.scene`` of the instanced-headline cell, beside the files
-    ``write_headline_files`` writes: the headline's camera and sky, the
-    displaced icosphere PLY placed three times and the glass icosphere
-    OBJ twice with ``instanced=1``, the GLB's checker sphere and ground
-    as the soup. ``lambert``: every placement lambert and the gradient
-    sky instead of the EXR (the depth loop without a light integral:
-    K2 ``full``)."""
+#: the instanced-grid cell: the displaced icosphere 8x8 at scale 0.25
+#: (0.55 apart, resting on the ground, each with a yaw drawn from this
+#: seed) and the glass icosphere 4x4 at scale 0.25 in the gaps between
+INSTANCED_GRID_SEED = 16
+GRID_STEP, GRID_ORIGIN, GRID_SCALE = 0.55, (-1.925, -2.2), 0.25
+#: the glass icosphere's centre in the OBJ (the headline's glass sphere)
+GLASS_CENTRE = (-1.55, -0.45, 0.95)
+
+
+def _grid_lines():
+    rng = np.random.default_rng(INSTANCED_GRID_SEED)
+    x0, z0 = GRID_ORIGIN
+    lines = []
+    for i in range(8):
+        for j in range(8):
+            lines.append(
+                "mesh path=dragon.ply material=dragon instanced=1 "
+                f"translate={x0 + GRID_STEP * i:.4f},-0.86,"
+                f"{z0 + GRID_STEP * j:.4f} rotate=0,"
+                f"{rng.uniform(0.0, 360.0):.3f},0 scale={GRID_SCALE}")
+    cx, cy, cz = GLASS_CENTRE
+    for a in range(4):
+        for b in range(4):
+            x = x0 + GRID_STEP * (2 * a + 0.5) - GRID_SCALE * cx
+            z = z0 + GRID_STEP * (2 * b + 0.5) - GRID_SCALE * cz
+            y = -1.08 + 0.62 * GRID_SCALE - GRID_SCALE * cy
+            lines.append("mesh path=glass.obj material=glass instanced=1 "
+                         f"translate={x:.4f},{y:.4f},{z:.4f} "
+                         f"scale={GRID_SCALE}")
+    return lines
+
+
+def instanced_scene_text(lambert: bool = False,
+                         variant: str = "headline") -> str:
+    """The ``.scene`` of an instanced cell, beside the files
+    ``write_headline_files`` writes, with the headline's camera and sky:
+    ``headline``, the displaced icosphere PLY placed three times and the
+    glass icosphere OBJ twice with ``instanced=1``, the GLB's checker
+    sphere and ground as the soup; ``grid``, the same soup with the PLY
+    placed 64 times (an 8x8 grid at scale 0.25, a seeded yaw each) and
+    the OBJ 16 times, one triangle store a source; ``tie``, the OBJ
+    placed twice with the same transform and nothing else, so that every
+    hit ties. ``lambert``: every placement lambert and the gradient sky
+    instead of the EXR (the depth loop without a light integral: K2
+    ``full``)."""
     lines = ["camera target=0,-0.1,-0.3 distance=4.6 yaw=0.4 pitch=0.18 "
              "vfov=42", "renderer maxDepth=8 seed=1234"]
     if lambert:
@@ -198,7 +235,12 @@ def instanced_scene_text(lambert: bool = False) -> str:
                   "material type=lambert albedo=0.72,0.68,0.62 name=dragon",
                   "material type=glass ior=1.5 sigmaA=0.08,0.02,0.02 "
                   "name=glass"]
+    if variant == "tie":
+        return "\n".join(lines + ["mesh path=glass.obj material=glass "
+                                   "instanced=1"] * 2) + "\n"
     lines.append("mesh path=props.glb")
+    if variant == "grid":
+        return "\n".join(lines + _grid_lines()) + "\n"
     for (t, r, sc) in INSTANCED_DRAGONS:
         lines.append("mesh path=dragon.ply material=dragon instanced=1 "
                      f"translate={t[0]},{t[1]},{t[2]} "
@@ -217,8 +259,9 @@ def write_headline_files(directory: str, subdivisions: int = 8,
     checker an embedded PNG from ``image_io.encode_png_u8``; the ground a
     PBR material with a 200x120 metallic-roughness texture, which the
     atlas resamples), the HDR sky as an EXR, ``mesh_files.scene`` with
-    the headline's camera and ``mesh`` records, and the instanced cell's
-    ``instanced_headline.scene`` and ``instanced_lambert.scene``
+    the headline's camera and ``mesh`` records, and the instanced cells'
+    ``instanced_headline.scene``, ``instanced_lambert.scene``,
+    ``instanced_grid.scene`` and ``instanced_tie.scene``
     (``instanced_scene_text``). Returns (the scene file's path, the
     in-memory meshes)."""
     import dataclasses
@@ -251,10 +294,13 @@ def write_headline_files(directory: str, subdivisions: int = 8,
     path = os.path.join(directory, "mesh_files.scene")
     with open(path, "w") as fh:
         fh.write(MESH_FILES_HEAD + "mesh path=props.glb\n")
-    for name, lambert in (("instanced_headline.scene", False),
-                          ("instanced_lambert.scene", True)):
+    for name, lambert, variant in (
+            ("instanced_headline.scene", False, "headline"),
+            ("instanced_lambert.scene", True, "headline"),
+            ("instanced_grid.scene", False, "grid"),
+            ("instanced_tie.scene", False, "tie")):
         with open(os.path.join(directory, name), "w") as fh:
-            fh.write(instanced_scene_text(lambert))
+            fh.write(instanced_scene_text(lambert, variant))
     return path, res.meshes
 
 

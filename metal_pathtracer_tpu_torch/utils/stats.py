@@ -164,7 +164,8 @@ def traversal_profile(origin, direction, bvh, tris, t_min=1e-3,
     JAX package's keys (``utils/stats.py traversal_profile:162``).
 
     ``bvh``/``tris``: the scene's exit-link BVH and triangles
-    (``SceneArrays.tri_bvh``/``triangles``). The JAX package walks
+    (``SceneArrays.tri_bvh``/``triangles``; None for a scene without
+    triangles, where every ray misses). The JAX package walks
     1024-ray packets through a packet tree, so where a key counts per
     packet this one counts per ray:
 
@@ -183,11 +184,17 @@ def traversal_profile(origin, direction, bvh, tris, t_min=1e-3,
       mean the same in both.
     """
     import numpy as np
+    import torch
 
     from metal_pathtracer_tpu_torch.ops.kernels import traverse
 
     n = origin.shape[0]
-    if any_hit:
+    if bvh is None:
+        # a scene without triangles: every ray misses, nothing is walked
+        totals = torch.zeros(len(traverse.STATS_KEYS), dtype=torch.int64)
+        hits = np.zeros(n, bool)
+        t = torch.zeros(n)
+    elif any_hit:
         occ, totals = traverse.trace_any_stats(origin, direction, t_min,
                                                t_max, bvh, tris)
         hits = occ.cpu().numpy()

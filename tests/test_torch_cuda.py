@@ -1357,6 +1357,124 @@ def test_instanced_render_kernels_vs_plain_on_card(dev, instanced, name):
     assert float((diff.amax(-1) < 1e-5).float().mean()) > 0.98
 
 
+#: the instanced cells the two-level walk is held on: the tie scene (the
+#: glass OBJ twice, one transform), the grid (64 + 16 placements, staged
+#: in shared memory) and a wide grid of 160 glass placements (past the
+#: staging budget: read through L1)
+_WIDE = "".join(
+    f"mesh path=glass.obj material=glass instanced=1 translate="
+    f"{0.3 * (k % 16) - 2.0},{0.25 * (k // 16) - 1.0},-1.0 scale=0.2\n"
+    for k in range(160))
+
+
+@pytest.fixture(scope="module")
+def tlas_cells(dev, tmp_path_factory):
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    from metal_pathtracer_tpu_torch.utils import meshfiles
+
+    d = tmp_path_factory.mktemp("tlas")
+    meshfiles.write_headline_files(str(d), 3, dev)
+    (d / "instanced_wide.scene").write_text(
+        meshfiles.instanced_scene_text(variant="tie").rsplit("mesh", 2)[0]
+        + _WIDE)
+    out = {}
+    for name in ("tie", "grid", "wide"):
+        settings, res = RenderSettings(), SceneResources()
+        dsl.load_scene_file(str(d / f"instanced_{name}.scene"), settings,
+                            res)
+        out[name] = res.build_arrays(device=dev)
+    return out
+
+
+@pytest.mark.parametrize("cell", ["tie", "grid", "wide"])
+def test_instanced_tlas_vs_plain_on_card(dev, tlas_cells, cell):
+    """The two-level instanced walks against the sequential plain walks
+    on 4096 probes, a third of them grazing the faces of the placements'
+    world boxes, the second half excluding a first trace's hits (each
+    wrapper launched once): (t, object triangle, u, v, placement) and the
+    flags bit for bit. Every tie goes to the lower placement; the wide
+    grid reads its TLAS through L1, the others stage it."""
+    import os
+    import sys
+
+    from metal_pathtracer_tpu_torch.schema import instance_tlas
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import compare_instanced, instanced_probes
+
+    scene = tlas_cells[cell]
+    tlas = instance_tlas(scene.instanced)
+    staged = tlas.node_count * 32 + scene.n_instances * 112 <= 12 * 1024
+    assert staged == (cell != "wide")
+    o, d, tmax, em, ep = instanced_probes(scene, dev)
+    n = o.shape[0]
+    args = (o, d, C.EPSILON_T, tmax, scene.instanced, em, ep)
+    before = traverse.trace_instanced_closest.launches
+    got = traverse.trace_instanced_closest(*args)
+    torch.cuda.synchronize()
+    assert traverse.trace_instanced_closest.launches == before + 1
+    want = traverse.trace_instanced_closest_reference(*args)
+    compare_instanced(got, want, cell)
+    assert int((want[4] >= 0).sum()) > n // 8
+    if cell == "tie":   # where no hit is excluded, placement 0 wins
+        assert not bool((want[4][em < 0] == 1).any())
+    tm = torch.where(torch.arange(n, device=dev) % 3 == 0, 2.0, tmax)
+    before = traverse.trace_instanced_any.launches
+    occ = traverse.trace_instanced_any(o, d, C.EPSILON_T, tm,
+                                       scene.instanced)
+    assert traverse.trace_instanced_any.launches == before + 1
+    assert torch.equal(occ, traverse.trace_instanced_any_reference(
+        o, d, C.EPSILON_T, tm, scene.instanced))
+    assert 0 < int(occ.sum()) < n
+
+
+@pytest.mark.parametrize("background", ["solid=0.7,0.8,1.0", "env=./sky.exr"])
+def test_empty_scene_on_card(dev, tmp_path, background):
+    """A scene without any primitive renders on the card, equal to its
+    plain render on the CPU, with no trace kernel launched."""
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    from metal_pathtracer_tpu_torch.utils import benchscene, image_io
+
+    image_io.write_exr_rgb(str(tmp_path / "sky.exr"),
+                           benchscene.hdr_sky(128, 64))
+    (tmp_path / "empty.scene").write_text(
+        "camera target=0,0,0 distance=4 yaw=0.3 pitch=0.15 vfov=45\n"
+        f"renderer maxDepth=4 seed=7\nbackground {background}\n"
+        "material type=lambert albedo=0.5,0.5,0.5\n")
+    settings, res = RenderSettings(), SceneResources()
+    dsl.load_scene_file(str(tmp_path / "empty.scene"), settings, res)
+    traces = (traverse.trace_closest, traverse.trace_any,
+              traverse.trace_instanced_closest, traverse.trace_instanced_any,
+              primitives.sphere_nearest_brute,
+              primitives.sphere_nearest_chunked, primitives.rect_nearest)
+    before = [f.launches for f in traces]
+    imgs = []
+    for device in (dev, torch.device("cpu")):
+        env = env_ops.load_environment(settings.environmentMapPath, device) \
+            if settings.environmentMapPath else None
+        scene = res.build_arrays(environment=env, device=device)
+        static = settings_to_static(settings, 64, 48,
+                                    res.material_types_present())
+        uni = settings_to_uniforms(
+            settings, build_camera(settings, 64, 48, device), 0, 0)
+        st = frame.render_samples(scene, uni,
+                                  RenderState.create(64, 48, device),
+                                  static, 2)
+        imgs.append(st.present().cpu().numpy())
+    assert [f.launches for f in traces] == before
+    assert np.isfinite(imgs[0]).all() and imgs[0].max() > 0.0
+    d = np.abs(imgs[0] - imgs[1])
+    assert float(np.sqrt((d * d).mean())) < 2e-4
+    assert float((d.max(-1) < 1e-5).mean()) > 0.98
+
+
 # ---- the à-trous kernel and the U-Net (the interactive path) ---------------
 
 def _denoise_inputs(dev, h, w, seed=21):

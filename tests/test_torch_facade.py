@@ -21,6 +21,9 @@ plain version).
 - that checkpoint: ``None`` in the port, and one more frame gives the
   JAX package's moments (``frame.py:143-144``: the second moment starts
   from zeros);
+- two scene loads with different ``environmentMapPath``: the second
+  scene renders under the first one's map in both facades (no JAX
+  render: the JAX facade's scene arrays are compared);
 - import hygiene: the facade, the display path, the denoiser and the
   viewer load no ``jax`` or ``metal_pathtracer_tpu`` module, and every
   entry point of the port that takes a device defaults to the card.
@@ -379,3 +382,70 @@ def test_entry_points_default_to_the_card():
     bad = [(n, d) for n, d in found
            if d not in ("cuda", None, inspect.Parameter.empty)]
     assert not bad, bad
+
+
+# ---- two scene loads: the environment stays ---------------------------------
+
+def _two_skies(tmp):
+    """Two ``.scene`` files, a lambert sphere under each one's own PFM sky
+    (a blue one and a red one); returns their paths and the skies."""
+    from metal_pathtracer_tpu_torch.utils import image_io
+
+    paths, skies = [], []
+    for k, tint in enumerate(((0.3, 0.5, 1.0), (1.0, 0.3, 0.2))):
+        sky = np.full((8, 16, 3), tint, np.float32)
+        sky[1:3, 3 + 5 * k:5 + 5 * k] = 30.0
+        image_io.write_pfm(os.path.join(tmp, f"sky{k}.pfm"), sky)
+        path = os.path.join(tmp, f"scene{k}.scene")
+        with open(path, "w") as fh:
+            fh.write("camera target=0,0,0 distance=3 yaw=0.2 pitch=0.1 "
+                     "vfov=40\nrenderer maxDepth=2 seed=5\n"
+                     f"background env=./sky{k}.pfm\n"
+                     "material type=lambert albedo=0.6,0.6,0.6 name=m\n"
+                     f"sphere center=0,{0.2 * k},0 radius=0.7 material=0\n")
+        paths.append(path)
+        skies.append(sky)
+    return paths, skies
+
+
+def test_scene_load_keeps_the_environment(tmp_path):
+    """A scene loaded after another renders under the first scene's map,
+    as the JAX facade does (``renderer.py _adopt:87-96`` keeps the cached
+    environment; only ``apply_settings`` drops it): after loading two
+    files with different ``environmentMapPath``, both facades' scene
+    arrays hold the first sky's texels, bit for bit, and the port's frame
+    is the one a fresh facade renders from the second file with the first
+    sky's path."""
+    paths, skies = _two_skies(str(tmp_path))
+    j, p = JRenderer(16, 12), Renderer(16, 12, device="cpu")
+    for r in (j, p):
+        r.load_scene_from_path(paths[0])
+        r._ensure_scene()
+        r.load_scene_from_path(paths[1])
+        r._ensure_scene()
+        assert r.settings.environmentMapPath.endswith("sky1.pfm")
+    first = np.asarray(j._scene_arrays.environment.texels)
+    np.testing.assert_array_equal(first, skies[0])
+    np.testing.assert_array_equal(
+        p._scene_arrays.environment.texels.numpy(), first)
+    p.draw_frame(1)
+    fresh = Renderer(16, 12, device="cpu")
+    fresh.load_scene_from_path(paths[1])
+    fresh.settings.environmentMapPath = \
+        paths[0].replace("scene0.scene", "sky0.pfm")
+    fresh.draw_frame(1)
+    np.testing.assert_array_equal(p.capture_average_image(),
+                                  fresh.capture_average_image())
+    # a settings change of the path drops it in both packages
+    for r in (j, p):
+        s = r.settings.copy()
+        s.environmentMapPath = paths[0].replace("scene0.scene", "sky0.pfm")
+        r.apply_settings(s)
+        s = r.settings.copy()
+        s.environmentMapPath = paths[1].replace("scene1.scene", "sky1.pfm")
+        r.apply_settings(s)
+        r._ensure_scene()
+    np.testing.assert_array_equal(
+        np.asarray(j._scene_arrays.environment.texels), skies[1])
+    np.testing.assert_array_equal(
+        p._scene_arrays.environment.texels.numpy(), skies[1])

@@ -428,16 +428,11 @@ def test_unported_light_paths_raise(cornell):
     ps, pr = RenderSettings(), SceneResources()
     dsl.parse_scene(cornell_scene_text(), ps, pr)
     types = pr.material_types_present()
-    scene = cornell["pscene"]
-    integrator.check_supported(scene, settings_to_static(ps, 8, 8, types))
+    assert integrator.rect_nee(cornell["pscene"])
     ps.enableMnee = True
     static = settings_to_static(ps, 8, 8, types)
     assert static.enable_mnee and static.enable_mnee_secondary
-    integrator.check_supported(scene, static)
     ps.enableMnee = False
-    integrator.check_supported(scene, settings_to_static(
-        ps, 8, 8, types + [C.MATERIAL_PLASTIC, C.MATERIAL_SUBSURFACE,
-                           C.MATERIAL_CARPAINT]))
     # an instanced placement (ported) joins the box as its own group, ids
     # after the box's meshes, and the scene still passes
     verts, faces = procgen.icosphere(1)
@@ -455,12 +450,12 @@ def test_unported_light_paths_raise(cornell):
     assert group.material.tolist() == [1]
     np.testing.assert_array_equal(group.triangles.v1.numpy(),
                                   ball.vertices[ball.indices[:, 1]])
-    integrator.check_supported(placed, settings_to_static(ps, 8, 8, types))
     env = env_ops.environment_from_texels(np.ones((4, 8, 3), np.float32),
                                           "cpu")
     ps.backgroundMode = BackgroundMode.ENVIRONMENT
-    integrator.check_supported(pr.build_arrays(environment=env, device="cpu"),
-                               settings_to_static(ps, 8, 8, types))
+    lit = pr.build_arrays(environment=env, device="cpu")
+    assert integrator.env_nee(lit, settings_to_static(ps, 8, 8, types))
+    assert integrator.rect_nee(lit)
     pr.materials[3].emission_env = True
-    integrator.check_supported(pr.build_arrays(environment=env, device="cpu"),
-                               settings_to_static(ps, 8, 8, types))
+    lit = pr.build_arrays(environment=env, device="cpu")
+    assert float(lit.materials.emission_env[3]) > 0.0
