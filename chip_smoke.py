@@ -69,7 +69,7 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    their bounds; the three configurations, a plastic + carpaint and a
    separable-SSS triangle-icosphere scene and the six-slot textured scene
    under the gradient sky (stage ``full`` with texture planes) at 160x96
-   2 spp against the plain path (RMSE 0, equal trace counts); the three
+   1 spp against the plain path (RMSE 0, equal trace counts); the three
    configurations at full size through ``CudaBackend``. The kernels line
    lists the extended K2 stages as ``shade_*_zoo``, with this phase's
    launches;
@@ -97,7 +97,7 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    and the JAX package's oracle-parity Cornell box at 128x128 64 spp
    through ``--backend metal`` and ``--backend oracle``, the native C++
    oracle, held to that test's gate: RMSE < 0.02, means within 0.005);
-   ``debugSpecularOnly`` at 160x96 2 spp through the kernels against the
+   ``debugSpecularOnly`` at 160x96 1 spp through the kernels against the
    plain path (RMSE 0) on ``materials.scene`` and the textured headline at
    subdivision 5; and each K1 and K2 instantiation's registers from the
    build log;
@@ -133,7 +133,7 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    hits): the same files with the 1.31M-triangle PLY placed three times
    (rotated, scaled) and the glass OBJ twice with ``instanced=1`` beside
    the GLB soup (``meshfiles.instanced_scene_text``): the instanced K1
-   against its plain per-placement walks bit for bit on 4,096 probes
+   against its plain per-placement walks bit for bit on 2,048 probes
    (half of them excluding a first hit) and on the depth-0 and depth-1
    closest and shadow wavefronts of one 1920x1080 sample, each timed
    beside its bound (``ki_bound``) with its live lanes; the texture stage
@@ -149,13 +149,19 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    denoisers' à-trous kernel and U-Net, the live viewer): the facade at
    1920x1080 on the mesh-files scene, 4 ``draw_frame(1)`` (K1, the texture
    stage, K2 s1/s2) and ``display()`` with ``denoiseEnabled`` at both
-   filter types (9 à-trous launches); the à-trous kernel against its
-   plain version at every iteration of the fixed and SVGF filters (4)
-   and the learned one (4 and 5) on that state, within 1e-6 relative,
-   each iteration's device time beside ``denoise_bound``; the U-Net at
+   filter types (9 à-trous launches and 2 pack launches); the à-trous
+   kernel against its plain version at every iteration of the fixed and
+   SVGF filters (4) and the learned one (4 and 5) on that state, within
+   1e-6 relative, each iteration's device time beside ``denoise_bound``
+   (the first port's charge), the charge with the kernel's hoists counted
+   and the lane-rate ceiling, each filter's pack launch a bit copy and
+   timed;
+   the à-trous kernels' registers, spills and shared memory and their
+   tap loops' instruction counts (``cuobjdump -sass``); the U-Net at
    1080p with TF32 off beside ``unet_flops``; the denoised displays
    against the plain filters' within one LDR step, display ms with and
-   without denoise; and ``ViewerServer`` on the Cornell box at 320x180
+   without denoise, and the type-0 display split with CUDA events
+   (``display_trace``); and ``ViewerServer`` on the Cornell box at 320x180
    over HTTP (3 spp, ``/frame.png``, a denoised pass, an orbit's preview
    and landing), failing on the loop's ``last_error``;
 11. multi-GPU rendering and texture formats (``parallel/mesh.py`` on
@@ -306,8 +312,10 @@ K1_CHECK_DEPTHS = 4
 PRIM_CHECK_SPP = 2
 # samples of the 160x96 kernel-against-plain checks of the headline
 # phases, the material zoo and debugSpecularOnly (the script's run-time
-# limit)
-NEE_CHECK_SPP = ZOO_CHECK_SPP = SPEC_CHECK_SPP = 2
+# limit: the zoo's and debugSpecularOnly's plain paths take ~30 s a
+# sample on a slow host)
+NEE_CHECK_SPP = 2
+ZOO_CHECK_SPP = SPEC_CHECK_SPP = 1
 CORNELL_TIMED_SPP = 4
 RTOW_TIMED_SPP = 2
 RTOW_SEED = 0
@@ -2710,7 +2718,7 @@ def materials_path(dev, card, kernels, out):
     """The material zoo: K2's extended stages bit for bit against their
     plain versions at full size, the zoo's three configurations, two
     triangle-icosphere scenes and the six-slot textured scene (stage full
-    with texture planes) at 160x96 2 spp through the kernels against the
+    with texture planes) at 160x96 1 spp through the kernels against the
     plain path, and the three configurations at full size through
     ``CudaBackend``."""
     from metal_pathtracer_tpu_torch.renderer import frame
@@ -3609,8 +3617,10 @@ KI_DEAD_BYTES = 4 + 20
 KI_ROW_BYTES = 128
 KI_WALK_ROW_BYTES = 80
 KI_MAP_OPS = 21
-#: probes of each instanced scene; every 61st lane dead
-KI_PROBES = 4096
+#: probes of each instanced scene; every 61st lane dead (the grid's
+#: sequential plain walk over 80 placements takes ~30 s a thousand
+#: probes on a slow host)
+KI_PROBES = 2048
 
 
 def baked_resources(res):
@@ -4278,14 +4288,26 @@ ATROUS_REL_TOL = 1e-6
 # one à-trous iteration: a pixel's colour, albedo and normal read (36 B)
 # and colour written (12 B); the variance-guided modes also read and write
 # the luminance variance (4 B each). Float operations a tap, counted in
-# csrc/denoise.cu (a transcendental as one): the shared part (albedo
-# difference and its square, the normal dot, the weighted sums) 20; the
-# fixed weight 23 more; SVGF's 30; the learned one 273 (features 21, the
-# MLP's 6-16 layer 208 and 16-1 layer 32, softplus and weight 12); 30 a
-# pixel for the variance blur and the normalisation
+# the first port's csrc/denoise.cu (a thread per pixel, a transcendental
+# as one): the shared part
+# (albedo difference and its square, the normal dot, the weighted sums)
+# 20; the fixed weight 23 more; SVGF's 30; the learned one 273 (features
+# 21, the MLP's 6-16 layer 208 and 16-1 layer 32, softplus and weight
+# 12); 30 a pixel for the variance blur and the normalisation
 ATROUS_BYTES = {"fixed": 48, "svgf": 56, "learned": 56}
 ATROUS_TAP_OPS = {"fixed": 43, "svgf": 50, "learned": 293}
 ATROUS_PIXEL_OPS = 30
+# the same work once the redesign's hoists are counted: a tap no longer
+# forms the learned MLP's constant terms (64: f3 w1[3] once a pixel, 16
+# more a pixel; f4 w1[4] + f5 w1[5] once a launch), the tap normal's n.n
+# (5: once a filter, in the pack) or the radius feature (2: a table row)
+ATROUS_TAP_OPS_HOISTED = {"fixed": 43, "svgf": 45, "learned": 222}
+ATROUS_PIXEL_OPS_HOISTED = {"fixed": 30, "svgf": 30, "learned": 46}
+# the pack launch: colour, variance, albedo and normal read (40 B), the
+# carried float4 and two guide rows written (48 B); n.n 5 operations
+PACK_BYTES, PACK_OPS = 88, 5
+# FP32 lanes of an H100 SXM: 132 SMs x 128
+F32_LANES = 132 * 128
 #: the viewer cell: Cornell box at this size, passes to wait for
 VIEWER_SIZE = (320, 180)
 VIEWER_SPP = 3
@@ -4297,6 +4319,31 @@ def denoise_bound(mode: str, h: int, w: int):
     n = h * w
     return bound_ms(n * ATROUS_BYTES[mode],
                     n * (25 * ATROUS_TAP_OPS[mode] + ATROUS_PIXEL_OPS))
+
+
+def denoise_ops(mode: str, h: int, w: int, hoisted: bool) -> float:
+    """Float operations of one iteration, at the first port's charge or
+    with the hoists counted."""
+    if hoisted:
+        return h * w * (25 * ATROUS_TAP_OPS_HOISTED[mode]
+                        + ATROUS_PIXEL_OPS_HOISTED[mode])
+    return h * w * (25 * ATROUS_TAP_OPS[mode] + ATROUS_PIXEL_OPS)
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock as ``nvidia-smi`` reports it (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0].split(",")[0])
+
+
+def lane_rate_ms(n_ops: float, mhz: float) -> float:
+    """n_ops at one FP32 operation a lane a clock over the card's 132 x 128
+    lanes at ``mhz`` (ms): the lane-rate ceiling of a kernel whose every
+    multiply and add is its own instruction."""
+    return n_ops / (F32_LANES * mhz * 1e6) * 1e3
 
 
 def unet_flops(h: int, w: int) -> float:
@@ -4315,32 +4362,27 @@ def unet_flops(h: int, w: int) -> float:
 
 @contextlib.contextmanager
 def kept_atrous(kept):
-    """Each launch of the à-trous kernel appended to ``kept`` as its
-    (args, kwargs), and passed on."""
+    """Each iteration of the à-trous kernel on a filter's rows appended to
+    ``kept`` as its (args, kwargs), and passed on."""
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
 
-    real = DK.atrous_step
+    real = DK.atrous_step_packed
 
     def keep(*a, **k):
         kept.append((a, k))
         return real(*a, **k)
 
-    # the wrapper counts on the name it is reached by
-    keep.launches = real.launches
-    try:
-        with mock.patch.object(DK, "atrous_step", keep):
-            yield
-    finally:
-        real.launches = keep.launches
+    with mock.patch.object(DK, "atrous_step_packed", keep):
+        yield
 
 
 def plain_atrous():
-    """The denoisers with the à-trous kernel replaced by its plain
+    """The denoisers with the à-trous filter replaced by its plain
     version (run on the card)."""
     from metal_pathtracer_tpu_torch.ops import denoise as D
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
 
-    return mock.patch.object(DK, "atrous_step", D.atrous_step_reference)
+    return mock.patch.object(DK, "atrous_filter", D.atrous_filter_reference)
 
 
 def rel_err(got, ref):
@@ -4351,13 +4393,101 @@ def rel_err(got, ref):
             float((got == ref).float().mean()))
 
 
+def packed_result(out, guide):
+    """(colour (H, W, 3), variance (H, W) or None) of one packed
+    iteration's result: the last one's as it is, the carried float4s'
+    unpacked."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+
+    return out if isinstance(out, tuple) else D.unpack(out, guide)[:2]
+
+
+def atrous_resources() -> str:
+    """The à-trous kernels' registers, spill bytes, stack frame and shared
+    memory a block from the build's ``-Xptxas -v`` output, with blocks an
+    SM at 256 threads (by registers and by shared memory)."""
+    import re
+
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+
+    rows, current = [], None
+    for line in build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = build._kernel_name(m.group(1))
+            frame = spill = None
+            continue
+        if current is None or not current.startswith("atrous"):
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame, spill = int(m.group(1)), int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
+                      line)
+        if m:
+            regs, smem = int(m.group(1)), int(m.group(2) or 0)
+            by_regs = 65536 // (256 * ((regs + 7) // 8 * 8))
+            by_smem = 233472 // (smem + 1024) if smem else 8
+            rows.append(f"{current} {regs} registers, {spill} B spilled, "
+                        f"{frame} B stack, {smem} B smem: "
+                        f"{min(8, by_regs, by_smem)} blocks an SM "
+                        f"(registers {by_regs}, smem {by_smem})")
+            current = None
+    return "; ".join(rows)
+
+
+def atrous_sass() -> str:
+    """Instruction counts of each ``atrous_step_kernel`` instantiation's tap
+    loop (the longest backward branch of its SASS, ``cuobjdump -sass`` of
+    the built library): all, shared-memory loads, constant-bank loads
+    (``ULDC`` into uniform registers, ``LDC``), the rounded-up reciprocal
+    conversions that begin an integer division or modulo (``I2F.RP``),
+    float operations reading a uniform register (a weight), FMUL, FADD,
+    FFMA, MUFU. A tap loop with no ``I2F.RP`` has no integer modulo; with
+    ``LDS`` 3 a tap, no shared-memory load of a weight."""
+    import re
+
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", build.library_path()],
+                          capture_output=True, text=True, check=True).stdout
+    out = []
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = build._kernel_name(part.split()[0])
+        if not name or not name.startswith("atrous_step"):
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
+        at = {int(a, 16): i for i, (a, _) in enumerate(ins)}
+        loop = (0, 0)
+        for i, (_, op) in enumerate(ins):
+            t = re.search(r"BRA\s+0x([0-9a-f]+)", op)
+            j = at.get(int(t.group(1), 16), i) if t else i
+            if i - j > loop[1] - loop[0]:
+                loop = (j, i)
+        body = [op for _, op in ins[loop[0]:loop[1] + 1]]
+        pats = {"LDS": r"\bLDS", "LDC": r"\bU?LDC",
+                "I2F.RP": r"\bI2F(\.U32)?\.RP\b",
+                "FP ops on a uniform register": r"^F(MUL|ADD|FMA)\b.*\bUR\d",
+                "FMUL": r"\bFMUL",
+                "FADD": r"\bFADD", "FFMA": r"\bFFMA", "MUFU": r"\bMUFU"}
+        out.append(f"{name}: tap loop {len(body)} instructions, " + ", ".join(
+            f"{k} {sum(bool(re.search(v, op)) for op in body)}"
+            for k, v in pats.items()))
+    return "; ".join(out)
+
+
 def atrous_checks(state, dev, card):
     """The à-trous kernel at every iteration of each filter of
-    ``ATROUS_CASES`` on ``state`` (kept from the filter as it runs),
-    against the plain version on the same inputs, timed with its bound;
-    the filters' outputs through the kernel against the plain filters.
-    Returns (max abs error, per-iteration ms, plain ms and bound of the
-    learned filter's 4 iterations, launches made)."""
+    ``ATROUS_CASES`` on ``state`` (kept from the filter as it runs, on its
+    packed rows), against the plain version on the same inputs, timed
+    with its bound at the first port's charge, at the hoisted charge and
+    at the lane-rate ceiling; each filter's pack launch against its plain
+    version, timed; the filters' outputs through the kernels against the
+    plain filters. Returns (max abs error, per-iteration ms, plain ms and
+    bound of the learned filter's 4 iterations, the pack's entry)."""
     from metal_pathtracer_tpu_torch.ops import denoise as D
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
 
@@ -4365,6 +4495,9 @@ def atrous_checks(state, dev, card):
     var = state.variance_of_mean()
     tparams = D._learned_params(dev)
     args = (state.present(), state.albedo, state.normal)
+    mhz = sm_clock_mhz()
+    print(f"à-trous kernels (-Xptxas -v): {atrous_resources()} [{card}]")
+    print(f"à-trous tap loops (cuobjdump -sass): {atrous_sass()}")
 
     def run(mode, iters):
         if mode == "fixed":
@@ -4373,45 +4506,81 @@ def atrous_checks(state, dev, card):
             return D.svgf_denoise(*args, var, iterations=iters)
         return D.learned_denoise(*args, var, tparams, iterations=iters)
 
-    worst, learned4, launches = 0.0, None, 0
+    worst, learned4, pack = 0.0, None, None
+    pack_bound = bound_ms(h * w * PACK_BYTES, h * w * PACK_OPS)
     for mode, iters in ATROUS_CASES:
         kept = []
+        packs = DK.pack.launches
         with kept_atrous(kept):
             out_k = run(mode, iters)
         with plain_atrous():
             out_p = run(mode, iters)
         torch.cuda.synchronize()
-        launches += len(kept)
-        if len(kept) != iters:
-            raise AssertionError(f"{mode} x{iters}: {len(kept)} launches")
+        if len(kept) != iters or DK.pack.launches != packs + 1:
+            raise AssertionError(f"{mode} x{iters}: {len(kept)} iterations, "
+                                 f"{DK.pack.launches - packs} packs")
         f_rel, f_abs, f_eq = rel_err(out_k, out_p)
+        # the pack launch that began this filter, against its plain version
+        cv0, guide = kept[0][0][:2]
+        col, v, alb, nrm = D.unpack(cv0, guide)
+        v = None if mode == "fixed" else v
+        pk = DK.pack(col, v, alb, nrm)
+        pr = D.pack_reference(col, v, alb, nrm)
+        if not (torch.equal(pk[0], pr[0]) and torch.equal(pk[1], pr[1])):
+            raise AssertionError(f"{mode} x{iters}: the pack launch is not "
+                                 "a bit copy")
+        pack_ms = kernel_ms(lambda: (lambda: DK.pack(col, v, alb, nrm)), 20)
+        pack_plain = cuda_ms(lambda: (lambda: D.pack_reference(
+            col, v, alb, nrm)), 5)
         rows, ms_sum, plain_sum, bound_sum = [], 0.0, 0.0, 0.0
+        hoist_sum = lane_sum = lane_old = 0.0
         for it, (a, k) in enumerate(kept):
-            got, got_var = DK.atrous_step(*a, **k)
-            ref, ref_var = D.atrous_step_reference(*a, **k)
+            got, got_var = packed_result(DK.atrous_step_packed(*a, **k),
+                                         a[1])
+            col, v, alb, nrm = D.unpack(a[0], a[1])
+            v = None if mode == "fixed" else v
+            mlp = a[3]
+            ref, ref_var = D.atrous_step_reference(col, v, alb, nrm, a[2],
+                                                   mlp)
             torch.cuda.synchronize()
             r, e, eq = rel_err(got, ref)
-            if got_var is not None:
-                rv, ev, _ = rel_err(got_var, ref_var)
-                r, e = max(r, rv), max(e, ev)
+            if mode != "fixed":
+                rv, ev, eqv = rel_err(got_var, ref_var)
+                r, e, eq = max(r, rv), max(e, ev), min(eq, eqv)
             worst = max(worst, e)
             if not r <= ATROUS_REL_TOL:
                 raise AssertionError(f"atrous {mode} x{iters} iteration "
                                      f"{it}: {r} relative to plain")
-            ms = kernel_ms(lambda: (lambda: DK.atrous_step(*a, **k)), 20)
+            ms = kernel_ms(lambda: (lambda: DK.atrous_step_packed(*a, **k)),
+                           20)
             plain = cuda_ms(lambda: (lambda: D.atrous_step_reference(
-                *a, **k)), 2)
+                col, v, alb, nrm, a[2], mlp)), 1)
             bound, by = denoise_bound(mode, h, w)
+            hoisted, hby = bound_ms(h * w * ATROUS_BYTES[mode],
+                                    denoise_ops(mode, h, w, True))
+            ceil_new = lane_rate_ms(denoise_ops(mode, h, w, True), mhz)
+            ceil_old = lane_rate_ms(denoise_ops(mode, h, w, False), mhz)
             ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain,
                                             bound_sum + bound)
-            rows.append(f"step {a[4].step}: {ms:.4f} ms (plain "
-                        f"{plain:.1f}, bound {bound:.4f} by {by}; rel "
-                        f"{r:.2e}, bit-equal {eq:.4f})")
-        print(f"atrous {mode} x{iters} at {w}x{h}: kernel {ms_sum:.4f} ms, "
-              f"plain {plain_sum:.1f} ms, bound {bound_sum:.4f} ms "
-              f"({100 * bound_sum / ms_sum:.1f} % of it); the filter "
-              f"through the kernel against the plain filter: rel "
-              f"{f_rel:.2e}, abs {f_abs:.2e}, bit-equal {f_eq:.4f}; "
+            hoist_sum, lane_sum, lane_old = (hoist_sum + hoisted,
+                                             lane_sum + ceil_new,
+                                             lane_old + ceil_old)
+            rows.append(f"step {a[2].step}: {ms:.4f} ms (plain {plain:.1f}; "
+                        f"bound {bound:.4f} by {by}, hoisted {hoisted:.4f} "
+                        f"by {hby}, lane rate {ceil_old:.4f} / "
+                        f"{ceil_new:.4f}; "
+                        f"rel {r:.2e}, bit-equal {eq:.4f})")
+        print(f"atrous {mode} x{iters} at {w}x{h}: kernel {ms_sum:.4f} ms "
+              f"in {iters} + pack {pack_ms:.4f} ms (plain {pack_plain:.2f}, "
+              f"bound {pack_bound[0]:.4f}), plain {plain_sum:.1f} ms, bound "
+              f"{bound_sum:.4f} ms "
+              f"({100 * bound_sum / ms_sum:.1f} % of it), hoisted "
+              f"{hoist_sum:.4f} ({100 * hoist_sum / ms_sum:.1f} %), lane-rate "
+              f"ceiling at {mhz:.0f} MHz {lane_old:.4f} / {lane_sum:.4f} "
+              f"({100 * lane_old / ms_sum:.1f} / "
+              f"{100 * lane_sum / ms_sum:.1f} %); the filter through the "
+              f"kernels against the plain filter: rel {f_rel:.2e}, abs "
+              f"{f_abs:.2e}, bit-equal {f_eq:.4f}; "
               + "; ".join(rows) + f" [{card}]")
         if not f_rel <= ATROUS_REL_TOL:
             raise AssertionError(f"atrous {mode} x{iters}: the filter "
@@ -4419,7 +4588,98 @@ def atrous_checks(state, dev, card):
         if (mode, iters) == ("learned", 4):
             learned4 = (ms_sum / iters, plain_sum / iters, bound_sum / iters,
                         denoise_bound(mode, h, w)[1])
-    return worst, learned4, launches
+            pack = dict(ms=pack_ms, plain_ms=pack_plain,
+                        bound_ms=pack_bound[0], bound_by=pack_bound[1])
+    return worst, learned4, pack
+
+
+def display_trace(r, card, reps: int = 5):
+    """The denoised display of type 0 (the learned prepass, 4 iterations,
+    then the U-Net) split with CUDA events in ``display_image``'s order:
+    present, variance_of_mean, the luminance, the pack and the à-trous
+    launches, the U-Net's features and padding, its convolutions, the
+    expm1 tail, exposure + bloom + tonemap, the copy to the host. Each
+    span's device ms (median of ``reps``) and the host's ms enqueueing it;
+    the traced image equals ``Renderer.display``'s bit for bit."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops import denoise_unet as U
+    from metal_pathtracer_tpu_torch.ops import tonemap as tonemap_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    st, s = r.state, r.settings
+    s.denoiseEnabled, s.denoiseFilterType = True, 0
+    net, tparams = D._unet_params(st.albedo.device), \
+        D._learned_params(st.albedo.device)
+    want = r.display()
+    spans = {}
+    for _ in range(reps):
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        mark("start")
+        avg = st.present()
+        mark("present")
+        var = st.variance_of_mean()
+        mark("variance_of_mean")
+        color, albedo, normal, variance = D._prepare(avg, st.albedo,
+                                                     st.normal, var)
+        lum = D._luminance(variance).contiguous()
+        mlp = DK.pack_mlp(tparams)
+        mark("luminance")
+        cv, guide = DK.pack(color, lum, albedo, normal)
+        mark("pack")
+        for it in range(4):
+            cv = DK.atrous_step_packed(
+                cv, guide, DK.StepParams.learned(1 << it, it / 3), mlp,
+                last=it == 3)
+        base = cv[0]
+        mark("4 à-trous launches")
+        h, w = avg.shape[:2]
+        ph, pw = (-h) % 8, (-w) % 8
+        feats = U._pad_edge(U._features(base, avg, st.albedo, st.normal,
+                                        var), ph, pw)
+        mark("U-Net features + pad")
+        res = net(feats[None])[0]
+        mark("U-Net convolutions")
+        log_out = torch.log1p(torch.clamp_min(U._pad_edge(base, ph, pw),
+                                              0.0)) + res
+        hdr = torch.expm1(torch.clamp_min(log_out, 0.0))[:h, :w]
+        mark("expm1 tail")
+        hdr = hdr * float(torch.exp2(torch.tensor(s.exposure,
+                                                  dtype=torch.float32)))
+        if s.bloomEnabled:
+            hdr = tonemap_ops.bloom(hdr, s.bloomThreshold, s.bloomIntensity,
+                                    s.bloomRadius)
+        ldr = tonemap_ops.apply_tonemap(hdr, s.tonemapMode, s.acesVariant,
+                                        0.0, s.reinhardWhitePoint)
+        mark("exposure, bloom, tonemap")
+        host = ldr.cpu().numpy()
+        mark("copy to host")
+        torch.cuda.synchronize()
+        same = np.array_equal(host, want)
+        del host
+        if not same:
+            raise AssertionError("display trace: the traced image differs "
+                                 "from Renderer.display's")
+        for (_, e0, h0), (name, e1, h1) in zip(marks, marks[1:]):
+            spans.setdefault(name, []).append(
+                (e0.elapsed_time(e1), (h1 - h0) * 1e3))
+        spans.setdefault("whole", []).append(
+            (marks[0][1].elapsed_time(marks[-1][1]),
+             (marks[-1][2] - marks[0][2]) * 1e3))
+    med = lambda xs: float(np.median(xs))
+    print(f"denoised display type 0 at {w}x{h}, traced (device ms / host "
+          f"ms enqueueing, median of {reps}; bloom "
+          f"{'on' if s.bloomEnabled else 'off'}): " + ", ".join(
+              f"{name} {med([d for d, _ in v]):.3f} / "
+              f"{med([hh for _, hh in v]):.3f}" for name, v in spans.items())
+          + f" [{card}]")
+    return {name: med([d for d, _ in v]) for name, v in spans.items()}
 
 
 def unet_timing(state, dev, card):
@@ -4583,9 +4843,11 @@ def interactive_path(dev, card, kernels, out):
         if v <= 0 and k in ("trace_closest", "trace_any", "shade_s1",
                             "shade_s2", "texture_stage", "atrous_step"):
             raise AssertionError(f"facade: {k} was not launched: {launches}")
-    if launches["atrous_step"] != 4 + 5:
+    if (launches["atrous_step"], launches["atrous_pack"]) != (4 + 5, 2):
         raise AssertionError(f"facade: {launches['atrous_step']} à-trous "
-                             "launches in the two denoised displays, not 9")
+                             f"iterations and {launches['atrous_pack']} "
+                             "packs in the two denoised displays, not 9 "
+                             "and 2")
     MAIN_LAUNCHES["facade"] = {k: v for k, v in launches.items() if v}
     if r.sample_count() != FACADE_FRAMES or r.render_size != (W, H):
         raise AssertionError(f"facade: {r.sample_count()} spp at "
@@ -4604,7 +4866,7 @@ def interactive_path(dev, card, kernels, out):
           f"{MAIN_LAUNCHES['facade']} [{card}]")
 
     # ---- the à-trous kernel against its plain version ----------------------
-    worst, learned4, _ = atrous_checks(r.state, dev, card)
+    worst, learned4, pack = atrous_checks(r.state, dev, card)
     marks.append(("à-trous checks", time.time()))
     unet_ms, unet_bound = unet_timing(r.state, dev, card)
     marks.append(("U-Net", time.time()))
@@ -4633,6 +4895,9 @@ def interactive_path(dev, card, kernels, out):
           + ", ".join(f"{k} {v:.2f}" for k, v in display_ms.items())
           + f" [{card}]")
     marks.append(("displays", time.time()))
+    display_trace(r, card)
+    r.settings.denoiseEnabled = False
+    marks.append(("display trace", time.time()))
 
     # ---- the viewer ---------------------------------------------------------
     viewer_cell(dev, card, kernels)
@@ -4644,6 +4909,10 @@ def interactive_path(dev, card, kernels, out):
         replaces="metal_pathtracer_tpu/ops/denoise.py:48",
         launches=launches["atrous_step"], max_abs_err=worst, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    out["atrous_pack"] = dict(
+        source=ROOT + "denoise.cu",
+        replaces="metal_pathtracer_tpu/ops/denoise.py:48",
+        launches=launches["atrous_pack"], max_abs_err=0.0, **pack)
     print(f"U-Net {unet_ms:.3f} ms (bound {unet_bound:.3f}) [{card}]")
     print("# interactive phase: " + ", ".join(
         f"{name} {t - marks[k][1]:.1f}s"
@@ -4999,8 +5268,8 @@ def main() -> None:
     instanced_path(dev, card, kernels, out)
     print(f"# instancing phases took {time.time() - t0:.1f}s")
     t0 = time.time()
-    interactive_path(dev, card, dict(kernels, atrous_step=DK.atrous_step),
-                     out)
+    interactive_path(dev, card, dict(kernels, atrous_step=DK.atrous_step,
+                                     atrous_pack=DK.pack), out)
     print(f"# interactive phases took {time.time() - t0:.1f}s")
     t0 = time.time()
     multi_gpu_path(dev, card, kernels, out)
@@ -5015,7 +5284,7 @@ def main() -> None:
           f"kernels' build included")
     names = [k for k in kernels if k != "shade_full_lanes"] + [
         "shade_full_zoo", "shade_full_buckets_zoo", "shade_s1_zoo",
-        "shade_s2_zoo", "shade_s2_mnee", "atrous_step"]
+        "shade_s2_zoo", "shade_s2_mnee", "atrous_step", "atrous_pack"]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])
         for name in names]}))

@@ -12,9 +12,11 @@ weights allow, with the JAX package's tiers: the conv U-Net
 (``ops/denoise_unet.py``) over the learned prepass, the learned filter,
 SVGF, and the fixed filter for a state without a second moment.
 
-Each iteration goes through ``ops/kernels/denoise.atrous_step``: on CUDA
-tensors one launch of ``csrc/denoise.cu``, on CPU tensors
-``atrous_step_reference`` below, the plain version. Both compute the JAX
+Each filter goes through ``ops/kernels/denoise.atrous_filter``: on CUDA
+tensors one ``pack`` launch (the state in 16-byte rows) and one launch
+of ``csrc/denoise.cu`` an iteration, on CPU tensors the plain versions
+below (``pack_reference``, then ``atrous_step_reference`` an iteration
+on the rows unpacked). Both compute the JAX
 package's eager arithmetic in its order: no fused multiply-adds (the
 eager ops round one by one) but in the MLP's second layer, where XLA's
 dot places them, sums left to right but in the MLP (``_mlp_logit``),
@@ -111,6 +113,36 @@ def _mlp_logit(mlp, f):
     return z + b2
 
 
+def _mlp_table(mlp, it_feature):
+    """The learned filter's per-launch constant terms, (5, 16): row r is
+    (p4 + p5) = it_feature w1[4] + (r / 4) w1[5] for the tap radius
+    (abs(ky) + abs(kx)) / 4, each product rounded to float32, then the sum,
+    as ``_mlp_logit`` forms them (``kernels/denoise.mlp_constants`` is the
+    host twin the kernel reads)."""
+    w1 = mlp[:96].reshape(6, 16)
+    it = torch.tensor(it_feature, dtype=torch.float32, device=mlp.device)
+    radius = torch.arange(5, dtype=torch.float32, device=mlp.device) * 0.25
+    return (it * w1[4])[None, :] + radius[:, None] * w1[5][None, :]
+
+
+def _mlp_logit_hoisted(mlp, f, p3, table_row):
+    """``_mlp_logit`` with the constant terms hoisted, as
+    ``csrc/denoise.cu`` sums it: the per-tap features f[..., :3], p3 =
+    gstd w1[3] once a pixel (..., 16), and the (p4 + p5) row of the tap's
+    radius from ``_mlp_table`` (..., 16); the same roundings in the same
+    order, so the same bits."""
+    w1 = mlp[:96].reshape(6, 16)
+    b1, w2, b2 = mlp[96:112], mlp[112:128], mlp[128]
+    p = [f[..., k:k + 1] * w1[k] for k in range(3)]
+    h = torch.clamp_min(((p[0] + p[1]) + (p[2] + p3)) + table_row + b1,
+                        0.0)
+    lanes = [fma(h[..., l + 8], w2[l + 8], h[..., l] * w2[l])
+             for l in range(8)]
+    z = ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) \
+        + ((lanes[4] + lanes[5]) + (lanes[6] + lanes[7]))
+    return z + b2
+
+
 def _softplus(z):
     """``jax.nn.softplus``: ``logaddexp(z, 0)`` = max(z, 0) +
     log1p(exp(-|z|)), with no threshold."""
@@ -176,6 +208,46 @@ def atrous_step_reference(color, var, albedo, normal, p: StepParams,
     return out, None if p.mode == FIXED else fdiv(var_accum, m * m)
 
 
+def pack_reference(color, var, albedo, normal):
+    """Plain version of ``kernels/denoise.pack``: (cv (H, W, 4): colour
+    and the luminance variance, 0 without one; guide (H, W, 8): albedo,
+    0, normal, n.n summed as ``_dot``)."""
+    zero = torch.zeros_like(color[..., :1])
+    v = zero if var is None else var[..., None]
+    return (torch.cat([color, v], -1).contiguous(),
+            torch.cat([albedo, zero, normal, _dot(normal, normal)[..., None]],
+                      -1).contiguous())
+
+
+def unpack(cv, guide):
+    """(colour, luminance variance, albedo, normal) of a filter's rows,
+    each contiguous."""
+    return (cv[..., :3].contiguous(), cv[..., 3].contiguous(),
+            guide[..., :3].contiguous(), guide[..., 4:7].contiguous())
+
+
+def atrous_step_packed_reference(cv, guide, p: StepParams, mlp=None,
+                                 last: bool = False):
+    """Plain version of ``kernels/denoise.atrous_step_packed``:
+    ``atrous_step_reference`` on the rows unpacked, the result packed
+    again unless ``last``."""
+    color, var, albedo, normal = unpack(cv, guide)
+    out, out_var = atrous_step_reference(
+        color, None if p.mode == FIXED else var, albedo, normal, p, mlp)
+    if last:
+        return out, out_var
+    return pack_reference(out, out_var, albedo, normal)[0]
+
+
+def atrous_filter_reference(color, var, albedo, normal, steps, mlp=None):
+    """Plain version of ``kernels/denoise.atrous_filter``:
+    ``atrous_step_reference`` an iteration on the unpacked tensors."""
+    for p in steps:
+        color, var = atrous_step_reference(color, var, albedo, normal, p,
+                                           mlp)
+    return color, var
+
+
 def _prepare(*xs):
     return [x.to(torch.float32).contiguous() for x in xs]
 
@@ -187,12 +259,13 @@ def atrous_denoise(color, albedo, normal, iterations: int = 4,
     first-hit albedo and normal AOVs; ``sigma_color`` decays by
     ``sigma_color_decay`` per iteration (``denoise.py:25-64``)."""
     out, albedo, normal = _prepare(color, albedo, normal)
+    steps = []
     for it in range(iterations):
         sc = sigma_color / (sigma_color_decay ** it)
-        p = StepParams.fixed(1 << it, 2.0 * sc ** 2, 2.0 * sigma_normal ** 2,
-                             2.0 * sigma_albedo ** 2)
-        out, _ = K.atrous_step(out, None, albedo, normal, p)
-    return out
+        steps.append(StepParams.fixed(1 << it, 2.0 * sc ** 2,
+                                      2.0 * sigma_normal ** 2,
+                                      2.0 * sigma_albedo ** 2))
+    return K.atrous_filter(out, None, albedo, normal, steps)[0]
 
 
 def svgf_denoise(color, albedo, normal, variance, iterations: int = 4,
@@ -203,11 +276,10 @@ def svgf_denoise(color, albedo, normal, variance, iterations: int = 4,
     variance of the mean (``RenderState.variance_of_mean``)."""
     out, albedo, normal, variance = _prepare(color, albedo, normal, variance)
     var = _luminance(variance).contiguous()
-    for it in range(iterations):
-        p = StepParams.svgf(1 << it, sigma_lum, sigma_normal_pow,
-                            2.0 * sigma_albedo ** 2)
-        out, var = K.atrous_step(out, var, albedo, normal, p)
-    return out
+    steps = [StepParams.svgf(1 << it, sigma_lum, sigma_normal_pow,
+                             2.0 * sigma_albedo ** 2)
+             for it in range(iterations)]
+    return K.atrous_filter(out, var, albedo, normal, steps)[0]
 
 
 def learned_denoise(color, albedo, normal, variance, params,
@@ -218,10 +290,9 @@ def learned_denoise(color, albedo, normal, variance, params,
     out, albedo, normal, variance = _prepare(color, albedo, normal, variance)
     var = _luminance(variance).contiguous()
     mlp = K.pack_mlp(params).to(out.device)
-    for it in range(iterations):
-        p = StepParams.learned(1 << it, it / max(iterations - 1, 1))
-        out, var = K.atrous_step(out, var, albedo, normal, p, mlp)
-    return out
+    steps = [StepParams.learned(1 << it, it / max(iterations - 1, 1))
+             for it in range(iterations)]
+    return K.atrous_filter(out, var, albedo, normal, steps, mlp)[0]
 
 
 #: the vendored weights by device: a model, a dict of tensors, or False

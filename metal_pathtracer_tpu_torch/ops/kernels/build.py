@@ -110,12 +110,17 @@ SIGNATURES = {
     "mpt_sphere_nearest_chunked": [_i, _vp, _vp, _f, _vp,
                                    *[_vp] * 5, _i, _vp, _vp, _vp, _vp],
     "mpt_rect_nearest": [_i, _vp, _vp, _f, _vp, _vp, _i, _vp, _vp, _vp],
+    # the à-trous pack: pixels, colour, luminance variance (NULL: 0),
+    # albedo, normal, out carried float4s, out guide rows, stream
+    "mpt_atrous_pack": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
     # the à-trous iteration: mode, height, width, tap step, scalars (host
-    # float[8]), the packed MLP (NULL but in the learned mode), colour,
-    # luminance variance (NULL in the fixed mode), albedo, normal, out
-    # colour, out variance, stream
+    # float[8]), the MLP's launch constants (host float[], NULL but in the
+    # learned mode), carried float4s, guide rows, out float4s (NULL at
+    # the last iteration), out colour, out variance (NULL in the fixed
+    # mode), stream
     "mpt_atrous_step": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                        _vp, _vp],
+                        _vp],
+    "mpt_atrous_mlp_floats": [],
 }
 
 

@@ -60,13 +60,24 @@ change's ``chip_smoke.py`` helpers, so both sides are measured alike:
   launch and K3a's first, the sums by call (closest, shadow, chain,
   walk) and a sample; a SHA-256 of each launch's (t, index), which must
   agree over every process; the kernel's registers and spill bytes.
+- ``atrous``: the à-trous kernel at every iteration of ``chip_smoke.py
+  ATROUS_CASES`` (fixed x4, SVGF x4, learned x4 and x5) on the 1080p
+  facade state (the mesh-files scene, ``FACADE_FRAMES`` ``draw_frame(1)``
+  through the checkout's ``Renderer``), each iteration kept from the
+  checkout's own filter (``atrous_step``, or ``atrous_step_packed`` where
+  the checkout packs its rows) and timed three times with ``kernel_ms``
+  (20 launches back to back), with each filter's sum and, where there is
+  one, its pack launch; a SHA-256 of the state and of each iteration's
+  colour and variance, which must agree over every process; the
+  kernels' registers and spill bytes and their tap loops' instruction
+  counts (``chip_smoke.py atrous_sass``).
 
 Make the parent's checkout with ``git archive`` into a git-ignored
 directory, then::
 
     python3 metal_pathtracer_tpu_torch/utils/ab.py \
         {lambert,k1,ki,kiany,s1,s2,s2zoo,tex,k3a,k3b,k3c,full,fullzoo,
-         fulllambert} \
+         fulllambert,atrous} \
         PARENT CHANGE
 
 Lines starting with ``AB`` carry the numbers; per series, the medians and
@@ -446,6 +457,98 @@ def child_k3(which, timer, depths):
               f"{sum(sums.values()):.4f} ms [{card}]", flush=True)
 
 
+def child_atrous(timer, depths):
+    """The à-trous kernel of the checkout's package at every iteration of
+    ``ATROUS_CASES`` on the 1080p facade state, kept from its own filters
+    and timed by ``timer``'s helpers; ``depths`` is not used."""
+    import hashlib
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+    from metal_pathtracer_tpu_torch.renderer.renderer import Renderer
+    from metal_pathtracer_tpu_torch.utils import meshfiles
+
+    build.load()
+    registers(c, build, "atrous")
+    print(f"AB sass {c.atrous_sass()}", flush=True)
+    dev = torch.device("cuda", 0)
+    card = c.device_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        meshfiles.write_headline_files(tmp, c.HEADLINE_SUBDIVISIONS, dev)
+        r = Renderer(*c.FRAME)
+        r.load_scene_from_path(os.path.join(tmp, "mesh_files.scene"))
+        for _ in range(c.FACADE_FRAMES):
+            r.draw_frame(1)
+    st = r.state
+
+    def digest(*xs):
+        h = hashlib.sha256()
+        for x in xs:
+            if x is not None:
+                h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    state = digest(st.radiance_sum, st.radiance_sq_sum, st.albedo,
+                   st.normal)
+    print(f"AB digest state: {state}", flush=True)
+    var = st.variance_of_mean()
+    tparams = D._learned_params(dev)
+    args = (st.present(), st.albedo, st.normal)
+    packed = hasattr(DK, "atrous_step_packed")
+    name = "atrous_step_packed" if packed else "atrous_step"
+    real = getattr(DK, name)
+    kept = {}
+    for mode, iters in c.ATROUS_CASES:
+        cell = kept.setdefault(f"{mode} x{iters}", [])
+
+        def keep(*a, **k):
+            cell.append((a, k))
+            return real(*a, **k)
+
+        # a wrapper that counts on the name it is reached by
+        keep.launches = getattr(real, "launches", 0)
+        with mock.patch.object(DK, name, keep):
+            if mode == "fixed":
+                D.atrous_denoise(*args, iterations=iters)
+            elif mode == "svgf":
+                D.svgf_denoise(*args, var, iterations=iters)
+            else:
+                D.learned_denoise(*args, var, tparams, iterations=iters)
+        for it, (a, k) in enumerate(cell):
+            out = real(*a, **k)
+            if not isinstance(out, tuple):     # the carried float4s
+                out = (out[..., :3], out[..., 3])
+            print(f"AB digest atrous {mode} x{iters} iteration {it}: "
+                  f"{digest(out[0], None if mode == 'fixed' else out[1])}",
+                  flush=True)
+    for rep in range(K1_REPS):
+        for cell, launches in kept.items():
+            total = 0.0
+            for a, k in launches:
+                ms = c.kernel_ms(lambda: lambda: real(*a, **k), 20)
+                total += ms
+                step = (a[2] if packed else a[4]).step
+                print(f"AB atrous {cell} step {step} rep {rep}: {ms:.4f} "
+                      f"ms [{card}]", flush=True)
+            if packed:
+                cv = launches[0][0][0]
+                col, v, alb, nrm = D.unpack(cv, launches[0][0][1])
+                v = None if cell.startswith("fixed") else v
+                ms = c.kernel_ms(lambda: lambda: DK.pack(col, v, alb, nrm),
+                                 20)
+                total += ms
+                print(f"AB atrous {cell} pack rep {rep}: {ms:.4f} ms "
+                      f"[{card}]", flush=True)
+            print(f"AB atrous {cell} filter rep {rep}: {total:.4f} ms "
+                  f"[{card}]", flush=True)
+
+
 def lambert_value(line):
     m = re.search(r"([\d.]+) ms/spp", line)
     if m and line.startswith(("AB lambert", "lambert")):
@@ -473,7 +576,8 @@ MEASURES = {"lambert": (child_lambert, lambert_value),
             "full": (functools.partial(child_full, "full"), k1_value),
             "fullzoo": (functools.partial(child_full, "fullzoo"), k1_value),
             "fulllambert": (functools.partial(child_full, "fulllambert"),
-                            k1_value)}
+                            k1_value),
+            "atrous": (child_atrous, k1_value)}
 
 
 def main() -> None:

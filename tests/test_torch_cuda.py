@@ -1491,12 +1491,15 @@ def _denoise_inputs(dev, h, w, seed=21):
 
 
 @pytest.mark.parametrize("mode", ["fixed", "svgf", "learned"])
-@pytest.mark.parametrize("size", [(24, 24), (37, 53)])
+@pytest.mark.parametrize("size", [(24, 24), (37, 53), (72, 136), (1, 97),
+                                  (97, 1)])
 def test_atrous_step_vs_plain_on_card(dev, mode, size):
     """One launch of ``csrc/denoise.cu`` per iteration against
     ``ops/denoise.atrous_step_reference`` on the card, at every step of
     a 5-iteration pyramid (steps 1-16: at 24x24 the taps wrap around more
-    than once) and at an odd size: within 1e-6 relative."""
+    than once; at 72x136 72 mod 16 = 8, so taps past the edge land on
+    another coset's row), at an odd size and on one row or one column:
+    within 1e-6 relative."""
     from metal_pathtracer_tpu_torch import convert
     from metal_pathtracer_tpu_torch.ops import denoise as D
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
@@ -1528,6 +1531,65 @@ def test_atrous_step_vs_plain_on_card(dev, mode, size):
         color = got
 
 
+@pytest.mark.parametrize("mode", ["fixed", "svgf", "learned"])
+@pytest.mark.parametrize("size", [(37, 53), (72, 136)])
+def test_atrous_filter_equals_the_iterations_on_card(dev, mode, size):
+    """The pack launch is a bit copy of ``pack_reference``; the whole
+    filter (one pack, then ``atrous_step_packed`` an iteration) gives the
+    per-iteration path's bits (``atrous_step``, pack and step each
+    iteration), with 1 + 5 and 2 x 5 launches counted; each packed
+    iteration holds against ``atrous_step_reference`` within 1e-6."""
+    from metal_pathtracer_tpu_torch import convert
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+
+    h, w = size
+    color, var, albedo, normal = _denoise_inputs(dev, h, w, seed=23)
+    with np.load(D.DATA_DIR + "/denoiser_weights.npz") as z:
+        mlp = K.pack_mlp(convert.denoiser_params(
+            {k: z[k] for k in z.files}, dev))
+    steps = [{"fixed": K.StepParams.fixed(1 << it, 0.245 / 9 ** it, 0.125,
+                                          0.08),
+              "svgf": K.StepParams.svgf(1 << it, 1.5, 64.0, 0.125),
+              "learned": K.StepParams.learned(1 << it, it / 4)}[mode]
+             for it in range(5)]
+    v = None if mode == "fixed" else var
+    cv, guide = K.pack(color, v, albedo, normal)
+    ref_cv, ref_guide = D.pack_reference(color, v, albedo, normal)
+    assert torch.equal(cv, ref_cv) and torch.equal(guide, ref_guide)
+    before = (K.atrous_step.launches, K.pack.launches)
+    got, got_var = K.atrous_filter(color, v, albedo, normal, steps, mlp)
+    assert (K.atrous_step.launches, K.pack.launches) == (
+        before[0] + 5, before[1] + 1)
+    c, cvar = color, v
+    for p in steps:
+        c, cvar = K.atrous_step(c, cvar, albedo, normal, p, mlp)
+    assert (K.atrous_step.launches, K.pack.launches) == (
+        before[0] + 10, before[1] + 6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, c)
+    if mode == "fixed":
+        assert got_var is None and cvar is None
+    else:
+        assert torch.equal(got_var, cvar)
+    x = cv
+    for k, p in enumerate(steps):
+        last = k == len(steps) - 1
+        nxt = K.atrous_step_packed(x, guide, p, mlp, last=last)
+        col, vv, alb, nrm = D.unpack(x, guide)
+        ref, ref_var = D.atrous_step_reference(
+            col, None if mode == "fixed" else vv, alb, nrm, p, mlp)
+        out, out_var = nxt if last else D.unpack(nxt, guide)[:2]
+        torch.cuda.synchronize()
+        rel = ((out - ref).abs() / (1 + ref.abs())).max().item()
+        assert rel <= 1e-6, (mode, k, rel)
+        if mode != "fixed":
+            rel = ((out_var - ref_var).abs() / (1 + ref_var.abs())).max()
+            assert rel.item() <= 1e-6, (mode, k, rel.item())
+        x = nxt
+    assert build.load().mpt_atrous_mlp_floats() == K.MLP_CONST_FLOATS
+
+
 def test_atrous_step_refuses_bad_inputs_on_card(dev):
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
 
@@ -1538,6 +1600,12 @@ def test_atrous_step_refuses_bad_inputs_on_card(dev):
     with pytest.raises(ValueError, match="color"):
         K.atrous_step(color.transpose(0, 1), var, albedo, normal,
                       K.StepParams.fixed(1, 1.0, 1.0, 1.0))
+    cv, guide = K.pack(color, var, albedo, normal)
+    with pytest.raises(ValueError, match="guide"):
+        K.atrous_step_packed(cv, guide[..., :4].contiguous(),
+                             K.StepParams.fixed(1, 1.0, 1.0, 1.0))
+    with pytest.raises(ValueError, match="mlp"):
+        K.atrous_step_packed(cv, guide, K.StepParams.learned(1, 0.0))
 
 
 def test_unet_tf32_off_vs_cpu(dev):
@@ -1585,7 +1653,8 @@ def test_denoised_display_launches_the_kernel(dev):
         got = display.display_to_u8(st, s)
         assert K.atrous_step.launches == before + iters
         from metal_pathtracer_tpu_torch.ops import denoise as D
-        with mock.patch.object(K, "atrous_step", D.atrous_step_reference):
+        with mock.patch.object(K, "atrous_filter",
+                               D.atrous_filter_reference):
             ref = display.display_to_u8(st, s)
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
