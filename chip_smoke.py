@@ -4930,8 +4930,11 @@ DIST_RANKS = {"headline": 2, "cornell": 4}
 JPEG_GLB_SPP = 1
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO_DIR, "tests", "images")
-#: the fixtures whose decode times are printed
+#: the fixtures whose decode times are printed, three each
 BIG_FIXTURES = ("tex_2048_420.jpg", "tex_2048_rgba16_adam7.png")
+#: the variant render's ground (arithmetic progressive 4:4:0) and sky
+VARIANT_GROUND = "arith_prog_440_256.jpg"
+VARIANT_SKY = "sky_rgb8_48x24.png"
 #: the kernels of the sharded headline's and the sharded Cornell box's
 #: paths, each launched by every rank
 HEADLINE_KERNELS = ("trace_closest", "trace_any", "shade_s1", "shade_s2",
@@ -5042,6 +5045,40 @@ def texture_formats(card):
           f"{build_s:.2f}s; decode seconds "
           + ", ".join(f"{n} {', '.join(f'{t:.3f}' for t in times[n])}"
                       for n in BIG_FIXTURES) + f" [{card}]")
+    print("texture formats, decode ms of the others (CMYK/YCCK, sampling "
+          "ratios, lossless, arithmetic, block-smoothed): "
+          + ", ".join(f"{n} {1e3 * times[n][0]:.2f}" for n in sorted(times)
+                      if n not in BIG_FIXTURES) + f" [{card}]")
+
+
+def ldr_skies(card):
+    """Each PNG and JPEG sky fixture through ``load_hdr_image`` here,
+    without imageio: the array's SHA-256 against the JAX package's
+    recorded in ``imageio_env.json``."""
+    import hashlib
+
+    from metal_pathtracer_tpu_torch.ops.env import load_hdr_image
+
+    with open(os.path.join(FIXTURES, "imageio_env.json")) as fh:
+        record = json.load(fh)
+    ms = {}
+    for name, want in sorted(record.items()):
+        t0 = time.perf_counter()
+        img = load_hdr_image(os.path.join(FIXTURES, name))
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        got = {"sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+               "shape": list(img.shape), "dtype": str(img.dtype)}
+        if got != want:
+            raise AssertionError(f"ldr skies: {name} loads to {got}, not the "
+                                 f"JAX package's {want}")
+    if "imageio" in sys.modules:
+        raise AssertionError("ldr skies: imageio was imported")
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("imageio", "PIL")}
+    print(f"ldr skies: {len(record)} PNG/JPEG skies loaded without imageio "
+          f"(importable here: {found}; numpy {np.__version__}), each array "
+          "the JAX package's bit for bit; ms "
+          + ", ".join(f"{n} {t:.2f}" for n, t in ms.items()) + f" [{card}]")
 
 
 def jpeg_glb(dev, card, kernels, tmp):
@@ -5079,12 +5116,62 @@ def jpeg_glb(dev, card, kernels, tmp):
                              "from its PNG twin")
     print(f"jpeg-glb {W}x{H} d8 {JPEG_GLB_SPP} spp: every EXR channel "
           f"({len(jpeg_ch)}) bit-equal to the PNG twin's [{card}]")
+    variant_glb(card, kernels, tmp, meshes)
+
+
+def variant_glb(card, kernels, tmp, meshes):
+    """The mesh-files scene with its ground's base colour the arithmetic
+    progressive 4:4:0 fixture under the 8-bit PNG sky, through the CLI,
+    against its twin: the ground a PNG of the decoded pixels, the sky a PFM
+    of ``load_hdr_image``'s own array; every EXR channel bit for bit."""
+    import shutil
+
+    from metal_pathtracer_tpu_torch.ops.env import load_hdr_image
+    from metal_pathtracer_tpu_torch.utils import image_io, meshfiles
+
+    with open(os.path.join(FIXTURES, VARIANT_GROUND), "rb") as fh:
+        ground = fh.read()
+    shutil.copy(os.path.join(FIXTURES, VARIANT_SKY),
+                os.path.join(tmp, "sky_ldr.png"))
+    image_io.write_pfm(os.path.join(tmp, "sky_ldr.pfm"),
+                       load_hdr_image(os.path.join(tmp, "sky_ldr.png")))
+    twin = image_io.encode_png_u8(image_io.decode_image(ground)[..., :3])
+    W, H = FRAME
+    channels = []
+    for stem, image, sky in (("ground_variant", ground, "sky_ldr.png"),
+                             ("ground_variant_png", twin, "sky_ldr.pfm")):
+        path = meshfiles.write_ground_texture_files(tmp, meshes, image, stem,
+                                                    sky)
+        output = os.path.join(tmp, f"{stem}.exr")
+        _, launches, _, _ = cli_run(
+            ["--scene", path, "--width", str(W), "--height", str(H),
+             "--sppTotal", str(JPEG_GLB_SPP), "--backend", "metal",
+             "--output", output], kernels,
+            f"variant-glb {stem} (sky {sky}) {W}x{H} d8 --backend metal",
+            card)
+        for k in HEADLINE_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError(f"variant-glb: {k} was not launched")
+        if stem == "ground_variant":
+            MAIN_LAUNCHES["variant-glb"] = launches
+        channels.append(image_io.read_exr(output))
+    var_ch, twin_ch = channels
+    if sorted(var_ch) != sorted(twin_ch) or any(
+            var_ch[k].tobytes() != twin_ch[k].tobytes() for k in var_ch):
+        raise AssertionError("variant-glb: the variant-textured render "
+                             "under the PNG sky differs from its PNG/PFM "
+                             "twin")
+    print(f"variant-glb {W}x{H} d8 {JPEG_GLB_SPP} spp ({VARIANT_GROUND} "
+          f"ground, {VARIANT_SKY} sky): every EXR channel ({len(var_ch)}) "
+          f"bit-equal to the PNG/PFM twin's [{card}]")
 
 
 def multi_gpu_path(dev, card, kernels, out):
     """Phase 11: the headline sharded over NCCL (world 1, this process)
     and over two gloo ranks on this card; the Cornell box over four gloo
-    ranks with pad rows; the texture fixtures; the JPEG-textured GLB."""
+    ranks with pad rows; the texture fixtures (every JPEG variant among
+    them) and the PNG/JPEG skies; the JPEG-textured GLB and the
+    variant-textured GLB under a PNG sky."""
     import tempfile
 
     import torch.distributed as dist
@@ -5161,7 +5248,8 @@ def multi_gpu_path(dev, card, kernels, out):
                             corn_npz)
         try:
             texture_formats(card)
-            marks.append(("texture formats", time.time()))
+            ldr_skies(card)
+            marks.append(("texture formats and skies", time.time()))
         finally:
             lines = finish_ranks(ranks, "sharded-cornell")
         marks.append(("cornell ranks", time.time()))
@@ -5189,7 +5277,7 @@ def multi_gpu_path(dev, card, kernels, out):
               "ranks: " + " | ".join(lines) + f" [{card}]")
         marks.append(("cornell checked", time.time()))
         jpeg_glb(dev, card, kernels, tmp)
-        marks.append(("jpeg-glb", time.time()))
+        marks.append(("jpeg-glb and variant-glb", time.time()))
     print("# multi-GPU phase: " + ", ".join(
         f"{name} {t - marks[k][1]:.1f}s"
         for k, (name, t) in enumerate(marks[1:])))

@@ -3,7 +3,8 @@
  * bit-serial part of utils/jpeg.py. Baseline and extended sequential
  * scans (SOF0, SOF1) and progressive scans (SOF2: DC first and refine, AC
  * first and refine with end-of-band runs), interleaved or not, with
- * restart intervals. Dequantisation, the IDCT, upsampling and colour
+ * restart intervals; and lossless scans (SOF3, Annex H) into samples,
+ * undifferenced here. Dequantisation, the IDCT, upsampling and colour
  * conversion stay in Python.
  *
  * Coefficients are stored in natural (row-major) order, int16, one
@@ -220,8 +221,8 @@ int64_t mpt_jpeg_decode_scan(const uint8_t *data, int64_t len, int64_t pos,
         comp[c].ac = &tab[4 + (p[4] & 3)];
         comp[c].coef = coefs[c];
         comp[c].pred = 0;
-        if ((need_dc && !comp[c].dc->present) ||
-            (need_ac && !comp[c].ac->present))
+        if ((need_dc && (p[3] > 3 || !comp[c].dc->present)) ||
+            (need_ac && (p[4] > 3 || !comp[c].ac->present)))
             return -1;
         if (ncomp == 1) comp[c].h = comp[c].v = 1;
     }
@@ -342,6 +343,116 @@ int64_t mpt_jpeg_decode_scan(const uint8_t *data, int64_t len, int64_t pos,
             }
         }
         if (interval) left--;
+    }
+    return next_marker(&b);
+}
+
+/*
+ * Decode one lossless (SOF3) scan into sample planes (T.81 Annex H;
+ * libjpeg-turbo's jdlhuff.c, jddiffct.c and jdlossls.c): the Huffman-coded
+ * differences (category 16 is 32768 with no extra bits), then each
+ * component row undifferenced with the scan's predictor, modulo 2^16.
+ * The first row of the scan and the first row after each restart marker
+ * predict from the left (the first sample from 2^(P - Pt - 1)); the
+ * first column of any other row from above. ``params`` (int32):
+ *   [0] components in the scan (1-4), [1] predictor (1-7), [2] point
+ *   transform Pt, [3] restart interval in MCUs (0: none; a multiple of
+ *   the MCUs in a row), [4], [5] MCUs per row and per column (a
+ *   one-component scan: the component's own width and height, one sample
+ *   an MCU), [6] sample precision,
+ *   then per scan component (at 7 + 4 c): h, v, samples per row of its
+ *   plane, DC table slot (0-3).
+ * ``planes``: each scan component's int32 plane, rows of ``samples per
+ * row``, at least MCUs per column x v rows; it receives the undifferenced
+ * samples (before the point transform's shift). Returns the offset of the
+ * marker that ends the scan, or jpeg_entropy's error codes.
+ */
+int64_t mpt_jpeg_decode_lossless(const uint8_t *data, int64_t len,
+                                 int64_t pos, const int32_t *params,
+                                 const int32_t *tables, int32_t present,
+                                 int32_t **planes) {
+    int ncomp = params[0], predictor = params[1], pt = params[2],
+        interval = params[3], mcus_x = params[4], mcus_y = params[5],
+        precision = params[6];
+    if (ncomp < 1 || ncomp > MAX_SCAN_COMPS || predictor < 1 ||
+        predictor > 7 || pt < 0 || pt >= precision || mcus_x <= 0 ||
+        mcus_y <= 0 || (interval && interval % mcus_x))
+        return -4;
+    huffman tab[4];
+    int h[MAX_SCAN_COMPS], v[MAX_SCAN_COMPS], bw[MAX_SCAN_COMPS];
+    const huffman *dc[MAX_SCAN_COMPS];
+    for (int t = 0; t < 4; t++) {
+        tab[t].present = 0;
+        if ((present & (1 << t)) &&
+            build_huffman(&tab[t], tables + t * 272, tables + t * 272 + 16))
+            return -2;
+    }
+    for (int c = 0; c < ncomp; c++) {
+        const int32_t *p = params + 7 + 4 * c;
+        h[c] = ncomp == 1 ? 1 : p[0];
+        v[c] = ncomp == 1 ? 1 : p[1];
+        bw[c] = p[2];
+        if (p[3] > 3) return -1;
+        dc[c] = &tab[p[3]];
+        if (!dc[c]->present) return -1;
+        if (mcus_x * h[c] > bw[c]) return -4;
+    }
+    bitreader b = {data, len, pos, 0, 0, 0};
+    int rows_per_interval = interval ? interval / mcus_x : 0;
+    const int initial = 1 << (precision - pt - 1);
+    for (int my = 0; my < mcus_y; my++) {
+        int first = my == 0;
+        if (rows_per_interval && my && my % rows_per_interval == 0) {
+            if (restart(&b)) return -3;
+            first = 1;
+        }
+        /* the differences of one MCU row */
+        for (int mx = 0; mx < mcus_x; mx++) {
+            for (int c = 0; c < ncomp; c++) {
+                for (int y = 0; y < v[c]; y++) {
+                    int32_t *row = planes[c] +
+                        ((int64_t)my * v[c] + y) * bw[c] + (int64_t)mx * h[c];
+                    for (int x = 0; x < h[c]; x++) {
+                        int s = decode_symbol(&b, dc[c]);
+                        if (s < 0 || s > 16) return -2;
+                        row[x] = s == 16 ? 32768
+                                         : s ? extend(get_bits(&b, s), s) : 0;
+                    }
+                }
+            }
+        }
+        /* undifference each component row of it, left to right */
+        for (int c = 0; c < ncomp; c++) {
+            int width = mcus_x * h[c];
+            for (int y = 0; y < v[c]; y++) {
+                int64_t r = (int64_t)my * v[c] + y;
+                int32_t *row = planes[c] + r * bw[c];
+                if (first && y == 0) {
+                    int ra = (row[0] + initial) & 0xFFFF;
+                    row[0] = ra;
+                    for (int x = 1; x < width; x++)
+                        row[x] = ra = (row[x] + ra) & 0xFFFF;
+                    continue;
+                }
+                const int32_t *up = row - bw[c];
+                int rb = up[0], ra = (row[0] + rb) & 0xFFFF, rc, px;
+                row[0] = ra;
+                for (int x = 1; x < width; x++) {
+                    rc = rb;
+                    rb = up[x];
+                    switch (predictor) {
+                    case 1: px = ra; break;
+                    case 2: px = rb; break;
+                    case 3: px = rc; break;
+                    case 4: px = ra + rb - rc; break;
+                    case 5: px = ra + ((rb - rc) >> 1); break;
+                    case 6: px = rb + ((ra - rc) >> 1); break;
+                    default: px = (ra + rb) >> 1; break;
+                    }
+                    row[x] = ra = (row[x] + px) & 0xFFFF;
+                }
+            }
+        }
     }
     return next_marker(&b);
 }

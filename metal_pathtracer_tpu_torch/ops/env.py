@@ -95,10 +95,19 @@ def _load_radiance_hdr(path: str) -> np.ndarray:
 
 
 def load_hdr_image(path: str) -> np.ndarray:
-    """(H,W,3) float32 linear radiance from .hdr, .pfm or uncompressed
-    .exr (``image_io.read_exr`` first, as ``env.py:90-102`` does); other
-    formats and compressed EXR go through imageio where it is installed
-    (LDR images are linearised with gamma 2.2, as the JAX package does)."""
+    """(H,W,3) float32 linear radiance, the JAX package's ``load_hdr_image``
+    bit for bit: .hdr, .pfm or uncompressed .exr (``image_io.read_exr``
+    first, as ``env.py:90-102`` does); PNG and JPEG skies whose imageio
+    array is the RGB or RGBA channels of the port's own decoder
+    (``image_io.imageio_channels``: 8- and 16-bit RGB and RGBA, palette,
+    16-bit grey + alpha, three-component JPEG) through that decoder on
+    every host, so the card and the CPU read the same bits, with the JAX
+    rule applied as it is there: above 64 in any channel imageio returns,
+    alpha included, the whole array becomes ``(img / 255) ** 2.2``
+    (float32) before its first three channels are kept. Other formats
+    (grey PNG, 8-bit grey + alpha, grey or CMYK JPEG, compressed EXR) go
+    through imageio where it is installed and raise ``ValueError`` naming
+    the kind where it is not."""
     from metal_pathtracer_tpu_torch.utils import image_io
 
     ext = os.path.splitext(path)[1].lower()
@@ -107,17 +116,29 @@ def load_hdr_image(path: str) -> np.ndarray:
     if ext == ".pfm":
         img = image_io.read_pfm(path)
         return img if img.shape[-1] == 3 else np.repeat(img, 3, -1)
+    kind = "a compressed or non-float EXR"
     if ext == ".exr":
         try:
             ch = image_io.read_exr(path)
             return np.stack([ch["R"], ch["G"], ch["B"]], -1)
         except (ValueError, KeyError):
             pass  # compressed or not RGB float: imageio below
+    else:
+        with open(path, "rb") as fh:
+            data = fh.read()
+        channels, kind = image_io.imageio_channels(data)
+        if channels is not None:
+            img = image_io.decode_image(data)[..., :channels].astype(
+                np.float32)
+            if img.max() > 64.0:
+                img = (img / 255.0) ** 2.2
+            return img[..., :3]
     try:
         import imageio.v3 as iio
     except ImportError as exc:
-        raise ValueError(f"unsupported environment format without "
-                         f"imageio: {path}") from exc
+        raise ValueError(f"environment map {path} is {kind}, which only "
+                         "imageio reads here, and imageio is not "
+                         "installed") from exc
     img = np.asarray(iio.imread(path), np.float32)
     if ext != ".exr" and img.max() > 64.0:
         img = (img / 255.0) ** 2.2

@@ -300,7 +300,38 @@ def decode_image(data: bytes) -> np.ndarray:
         from metal_pathtracer_tpu_torch.utils import jpeg
 
         return jpeg.decode_jpeg(data)
-    raise ImageFormatError("texture image is neither PNG nor JPEG")
+    raise ImageFormatError("texture image is neither PNG nor JPEG (the JAX "
+                           "package's Pillow would also read WebP, BMP, GIF "
+                           "and TIFF bytes; glTF 2.0 allows only PNG and "
+                           "JPEG)")
+
+
+#: PNG colour type -> the channels of imageio's uint8 array that are the
+#: first channels of ``decode_image``'s RGBA (imageio 2.37 over Pillow 12:
+#: palette images come back as RGB even with a tRNS chunk, 16-bit images
+#: as their high bytes); grey (a 2-D array) and 8-bit grey + alpha (two
+#: channels) are not
+_IMAGEIO_PNG = {2: 3, 3: 3, 6: 4}
+
+
+def imageio_channels(data: bytes) -> tuple:
+    """(channels, kind) of a PNG or JPEG sky: ``channels`` is the number
+    of ``decode_image``'s RGBA channels that ``imageio.v3.imread`` returns
+    for these bytes, as its uint8 array, or None where its array is
+    something else (grey, grey + alpha, CMYK) or the bytes are neither
+    format; ``kind`` names the image for messages."""
+    if data[:8] == PNG_SIGNATURE and len(data) >= 26 and data[12:16] == b"IHDR":
+        depth, ctype = data[24], data[25]
+        channels = _IMAGEIO_PNG.get(ctype)
+        if ctype == 4 and depth == 16:   # Pillow reads it as RGBA
+            channels = 4
+        return channels, f"a PNG of colour type {ctype} at {depth} bits"
+    if data[:3] == b"\xff\xd8\xff":
+        from metal_pathtracer_tpu_torch.utils import jpeg
+
+        n = jpeg.frame_components(data)
+        return (3 if n == 3 else None), f"a {n}-component JPEG"
+    return None, "an image that is neither PNG nor JPEG"
 
 
 # ---------------------------------------------------------------------------

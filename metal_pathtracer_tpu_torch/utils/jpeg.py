@@ -1,32 +1,47 @@
 """JPEG decoding for texture images, as Pillow decodes them:
 ``Image.open(...).convert("RGBA")`` over libjpeg-turbo's defaults, bit for
-bit (the JAX package's ``gltf._decode_image``; the card's host has no
-Pillow).
+bit (the JAX package's ``gltf._decode_image``), without Pillow.
 
-Baseline and extended sequential (SOF0, SOF1) and progressive (SOF2)
-Huffman JPEG, 8-bit, grey or three components (YCbCr, or RGB by
-libjpeg's rule), at the sampling layouts 4:4:4, 4:2:2, 4:2:0 and 4:1:1,
-with restart intervals. The entropy decoding into coefficient blocks is C
-(``hostsrc/jpeg_entropy.c``, built at first use); the rest is numpy
-integer code that ports libjpeg-turbo:
+Every 8-bit JPEG that Pillow decodes: sequential (SOF0, SOF1, SOF9) and
+progressive (SOF2, SOF10) DCT files, Huffman- or arithmetic-coded, and
+lossless files (SOF3); one, three or four components; any integer
+sampling ratio of factors 1-4; restart intervals. The entropy decoding
+into coefficient blocks (lossless: into samples) is C
+(``hostsrc/jpeg_entropy.c``, ``hostsrc/jpeg_arith.c``, built at first
+use), as is the block smoothing of a progressive file's unrefined
+coefficients (``hostsrc/jpeg_smooth.c``); the rest is numpy integer code
+that ports libjpeg-turbo:
 
 - the IDCT is ``JDCT_ISLOW`` (``jidctint.c``): CONST_BITS 13, PASS1_BITS
   2, and the post-IDCT range-limit table indexed under its 10-bit mask;
+- a progressive file that leaves one of the first zigzag coefficients
+  unrefined is block-smoothed first (``jdcoefct.c
+  decompress_smooth_data``), as libjpeg does by default;
 - chroma is upsampled by ``jdsample.c``'s fancy filters: h2v1 ``(3 near +
-  far + 1 or 2) >> 2``, h2v2 the triangle filter ``(3 near + far + 8 or
-  7) >> 4`` over column sums ``3 near + far``, with edges replicated at
-  the component's own width and height; plain replication for h4v1 and
-  for components at most two samples wide;
+  far + 1 or 2) >> 2``, h1v2 the same down the columns, h2v2 the triangle
+  filter ``(3 near + far + 8 or 7) >> 4`` over column sums ``3 near +
+  far``, with edges replicated at the component's own width and height;
+  plain replication (``int_upsample``) for every other ratio, for h2v1 and
+  h2v2 components at most two samples wide, and for every ratio of a
+  lossless file, which has no fancy upsampling;
 - colour is ``jdcolor.c ycc_rgb_convert`` (16-bit fixed-point tables);
-- a three-component file is RGB, not YCbCr, when it has no JFIF marker
-  and an Adobe marker with transform 0, or component ids ``R``, ``G``,
-  ``B`` (``jdapimin.c default_decompress_parms``).
+  YCCK is ``ycck_cmyk_convert`` (the same tables, inverted, K kept);
+  Pillow reads CMYK as Adobe's inverted ``CMYK;I`` and converts it with
+  its own ``cmyk2rgb``;
+- a three-component DCT file is RGB, not YCbCr, when it has no JFIF
+  marker and an Adobe marker with transform 0, or neither marker and
+  component ids ``R``, ``G``, ``B``; a lossless one is RGB without a JFIF
+  or Adobe marker whatever its ids; a four-component file is YCCK when
+  its Adobe marker says any transform but 0, else CMYK
+  (``jdapimin.c default_decompress_parms``, latched at the first scan).
 
 EXIF orientation is not applied, as Pillow's ``open`` + ``convert`` does
-not apply it. Other JPEGs (CMYK/YCCK, arithmetic-coded, 12-bit, lossless,
-hierarchical, other sampling factors, a progressive file that leaves a
-coefficient unrefined, which libjpeg would block-smooth) raise
-``ImageFormatError``.
+not apply it. The JPEGs refused raise ``ImageFormatError``; Pillow refuses
+each of them too: a precision other than 8, two components, a height
+defined by DNL, hierarchical and lossless arithmetic-coded files (SOF5-7,
+SOF11, SOF13-15), fractional sampling ratios, more than 10 blocks in an
+interleaved scan's MCU, lossless files in YCbCr or YCCK, and a lossless
+restart interval that is not a whole number of MCU rows.
 """
 
 from __future__ import annotations
@@ -46,16 +61,24 @@ NATURAL_ORDER = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-#: (horizontal, vertical) upsampling factors decoded
-SAMPLING = {(1, 1), (2, 1), (2, 2), (4, 1)}
+#: (horizontal, vertical) upsampling ratios decoded: every integer ratio
+#: of sampling factors 1-4, as libjpeg-turbo upsamples them
+SAMPLING = {(h, v) for h in range(1, 5) for v in range(1, 5)}
+
+#: blocks in an interleaved scan's MCU, at most (libjpeg's
+#: D_MAX_BLOCKS_IN_MCU)
+MAX_BLOCKS_IN_MCU = 10
+
+#: zigzag coefficients whose estimates block smoothing computes
+SMOOTHED_COEFS = 10
 
 #: blocks an IDCT batch (bounds the int64 temporaries)
 IDCT_BATCH = 16384
 
 
-def _variant(what: str):
-    raise ImageFormatError(f"{what} JPEG images are not decoded (ROADMAP "
-                           "Queue 1, JPEG variants)")
+def _refused(what: str):
+    raise ImageFormatError(f"JPEG with {what} is not decoded (Pillow "
+                           "refuses it too)")
 
 
 def _corrupt(what: str):
@@ -130,15 +153,24 @@ def _neighbours(x: np.ndarray, axis: int):
     return prev, nxt
 
 
-def upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
+def upsample(plane: np.ndarray, fh: int, fv: int,
+             fancy: bool = True) -> np.ndarray:
     """A component plane (its own width and height, uint8) upsampled by
-    (fh, fv) as libjpeg-turbo does with fancy upsampling on."""
+    (fh, fv) as libjpeg-turbo does: with fancy upsampling on, unless
+    ``fancy`` is false (a lossless file)."""
     if (fh, fv) == (1, 1):
         return plane
     h, w = plane.shape
-    if (fh, fv) == (4, 1) or w <= 2:   # int_upsample / h2v?_upsample
+    if not fancy or (fh, fv) not in ((2, 1), (2, 2), (1, 2)) \
+            or (fh == 2 and w <= 2):   # int_upsample / h2v?_upsample
         return np.repeat(np.repeat(plane, fv, 0), fh, 1)
     x = plane.astype(np.int32)
+    if (fh, fv) == (1, 2):   # h1v2_fancy_upsample
+        up, down = _neighbours(x, 0)
+        out = np.empty((2 * h, w), np.int32)
+        out[0::2] = (3 * x + up + 1) >> 2
+        out[1::2] = (3 * x + down + 2) >> 2
+        return out.astype(np.uint8)
     if fv == 2:   # column sums: 3 * nearer row + further row
         up, down = _neighbours(x, 0)
         sums = np.empty((2 * h, w), np.int32)
@@ -174,31 +206,51 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+def ycck_to_cmyk(y, cb, cr, k) -> np.ndarray:
+    """``jdcolor.c ycck_cmyk_convert``: each of Y, Cb, Cr to R, G, B by
+    ``ycc_rgb_convert``'s arithmetic, inverted; K passes through."""
+    rgb = ycc_to_rgb(y, cb, cr)
+    return np.concatenate([255 - rgb, k[..., None]], -1)
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert`` of its ``CMYK`` mode (``Convert.c cmyk2rgb``):
+    ``nk - c * nk / 255`` with ``nk = 255 - k``, its MULDIV255 rounding."""
+    x = cmyk.astype(np.int32)
+    nk = 255 - x[..., 3:]
+    tmp = x[..., :3] * nk + 128
+    return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
+
+
 # ---- markers and scans -----------------------------------------------------
+
+#: SOF marker -> (progressive, arithmetic-coded, lossless)
+SOF_KINDS = {0xC0: (False, False, False), 0xC1: (False, False, False),
+             0xC2: (True, False, False), 0xC3: (False, False, True),
+             0xC9: (False, True, False), 0xCA: (True, True, False)}
+
 
 class _Frame:
     def __init__(self, marker: int, seg: bytes):
-        if marker in (0xC3, 0xC7, 0xCB, 0xCF):
-            _variant("lossless")
-        if marker in (0xC9, 0xCA, 0xCD, 0xCE):
-            _variant("arithmetic-coded")
-        if marker in (0xC5, 0xC6):
-            _variant("hierarchical")
+        if marker in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
+            _refused(f"hierarchical coding (SOF{marker - 0xC0})")
+        if marker == 0xCB:
+            _refused("lossless arithmetic coding (SOF11)")
+        self.progressive, self.arithmetic, self.lossless = SOF_KINDS[marker]
         if len(seg) < 6:
             _corrupt("short SOF segment")
-        precision, self.height, self.width, n = struct.unpack(">BHHB",
-                                                              seg[:6])
+        self.precision, self.height, self.width, n = struct.unpack(
+            ">BHHB", seg[:6])
         if n == 0 or len(seg) != 6 + 3 * n:
             _corrupt(f"SOF segment of {len(seg)} bytes for {n} components")
-        if precision != 8:
-            _variant(f"{precision}-bit")
-        if n == 4:
-            _variant("CMYK/YCCK")
-        if n not in (1, 3):
-            _variant(f"{n}-component")
-        if self.width == 0 or self.height == 0:
-            _variant("DNL-sized")
-        self.progressive = marker == 0xC2
+        if self.precision != 8:
+            _refused(f"{self.precision}-bit precision")
+        if n not in (1, 3, 4):
+            _refused(f"{n} components")
+        if self.width == 0:
+            _refused("a width of 0")
+        if self.height == 0:
+            _refused("a height defined by DNL")
         self.ids, self.h, self.v, self.tq = [], [], [], []
         for k in range(n):
             cid, hv, tq = seg[6 + 3 * k:9 + 3 * k]
@@ -210,14 +262,17 @@ class _Frame:
             self.h.append(h)
             self.v.append(v)
             self.tq.append(tq)
+        # libjpeg groups a lone component's block rows by its own declared
+        # factor (the iMCU rows that block smoothing fetches by)
+        self.v_declared = self.v[0]
         if n == 1:   # a one-component frame is never subsampled
             self.h, self.v = [1], [1]
         hmax, vmax = max(self.h), max(self.v)
         self.factors = []
         for h, v in zip(self.h, self.v):
             if hmax % h or vmax % v or (hmax // h, vmax // v) not in SAMPLING:
-                _variant(f"{'x'.join(map(str, self.h))} by "
-                         f"{'x'.join(map(str, self.v))} sampled")
+                _refused(f"fractional sampling ({'x'.join(map(str, self.h))}"
+                         f" by {'x'.join(map(str, self.v))})")
             self.factors.append((hmax // h, vmax // v))
         self.mcus_x = -(-self.width // (8 * hmax))
         self.mcus_y = -(-self.height // (8 * vmax))
@@ -225,8 +280,17 @@ class _Frame:
         # multiples) and as coded in a one-component scan
         self.size = [(-(-self.height * v // vmax), -(-self.width * h // hmax))
                      for h, v in zip(self.h, self.v)]
-        self.coefs = [np.zeros((self.mcus_y * v, self.mcus_x * h, 64),
-                               np.int16) for h, v in zip(self.h, self.v)]
+        if self.lossless:   # samples, one a "block"
+            self.lossless_mcus = (-(-self.width // hmax),
+                                  -(-self.height // vmax))
+            mx, my = self.lossless_mcus
+            self.samples = [np.zeros((my * v, mx * h), np.int32)
+                            for h, v in zip(self.h, self.v)]
+            self.point_transform = [0] * n
+        else:
+            self.coefs = [np.zeros((self.mcus_y * v, self.mcus_x * h, 64),
+                                   np.int16)
+                          for h, v in zip(self.h, self.v)]
         self.quant = [None] * n
         # successive-approximation bit of each coefficient, -1: none yet
         self.coef_bits = np.full((n, 64), -1, np.int32)
@@ -249,6 +313,22 @@ def _huffman_tables(seg: bytes, tables: np.ndarray, present: list) -> None:
         pos += 17 + n
 
 
+def _arith_conditioning(seg: bytes, cond: np.ndarray) -> None:
+    """A DAC segment into ``cond`` (L[16], U[16], K[16])."""
+    if len(seg) % 2:
+        _corrupt("DAC segment")
+    for pos in range(0, len(seg), 2):
+        index, value = seg[pos], seg[pos + 1]
+        if index >= 32:
+            _corrupt(f"DAC table {index}")
+        if index >= 16:
+            cond[32 + index - 16] = value
+        else:
+            if value & 15 > value >> 4:
+                _corrupt(f"DAC conditioning {value:#04x}")
+            cond[index], cond[16 + index] = value & 15, value >> 4
+
+
 def _quant_tables(seg: bytes, quant: dict) -> None:
     pos = 0
     while pos < len(seg):
@@ -263,8 +343,15 @@ def _quant_tables(seg: bytes, quant: dict) -> None:
         pos += 1 + size
 
 
+_SCAN_ERRORS = {-1: "a scan uses an undefined Huffman table",
+                -2: "bad entropy-coded data",
+                -3: "restart marker missing",
+                -4: "scan parameters"}
+
+
 def _scan(frame: _Frame, seg: bytes, data: bytes, pos: int, quant: dict,
-          tables: np.ndarray, present: int, interval: int) -> int:
+          tables: np.ndarray, present: int, cond: np.ndarray,
+          interval: int) -> int:
     """Decode the scan whose header is ``seg`` and whose data starts at
     ``pos``; returns the offset of the marker after it."""
     if not seg or len(seg) != 4 + 2 * seg[0] or not 1 <= seg[0] <= 4:
@@ -279,6 +366,12 @@ def _scan(frame: _Frame, seg: bytes, data: bytes, pos: int, quant: dict,
         slots.append((t >> 4, t & 15))
     ss, se, a = seg[1 + 2 * n:4 + 2 * n]
     ah, al = a >> 4, a & 15
+    if n > 1 and sum(frame.h[c] * frame.v[c] for c in comps) \
+            > MAX_BLOCKS_IN_MCU:
+        _refused(f"more than {MAX_BLOCKS_IN_MCU} blocks in an MCU")
+    if frame.lossless:
+        return _lossless_scan(frame, comps, slots, ss, al, data, pos,
+                              tables, present, interval)
     if frame.progressive:
         if se > 63 or ss > se or (ss == 0 and se != 0) \
                 or (ss > 0 and n != 1) or al > 13:
@@ -303,15 +396,131 @@ def _scan(frame: _Frame, seg: bytes, data: bytes, pos: int, quant: dict,
     params = np.asarray(params, np.int32)
     ptrs = (ctypes.c_void_p * n)(*[frame.coefs[c].ctypes.data
                                    for c in comps])
-    end = nativebuild.host_library().mpt_jpeg_decode_scan(
+    lib = nativebuild.host_library()
+    if frame.arithmetic:
+        end = lib.mpt_jpeg_decode_scan_arith(
+            data, len(data), pos, params.ctypes.data, cond.ctypes.data,
+            ctypes.cast(ptrs, ctypes.c_void_p))
+    else:
+        end = lib.mpt_jpeg_decode_scan(
+            data, len(data), pos, params.ctypes.data, tables.ctypes.data,
+            present, ctypes.cast(ptrs, ctypes.c_void_p))
+    if end < 0:
+        _corrupt(_SCAN_ERRORS.get(end, f"scan error {end}"))
+    return int(end)
+
+
+def _lossless_scan(frame: _Frame, comps, slots, predictor: int, pt: int,
+                   data: bytes, pos: int, tables: np.ndarray, present: int,
+                   interval: int) -> int:
+    """One lossless scan (Ss: the predictor, Al: the point transform)
+    into the components' sample planes."""
+    if not 1 <= predictor <= 7 or pt >= frame.precision:
+        _corrupt(f"lossless scan: predictor {predictor}, transform {pt}")
+    if len(comps) == 1:
+        c = comps[0]
+        rows, cols = frame.size[c]
+        grid = (cols, rows)
+    else:
+        grid = frame.lossless_mcus
+    if interval % grid[0]:
+        _refused(f"a lossless restart interval of {interval} MCUs in rows "
+                 f"of {grid[0]}")
+    for c in comps:
+        frame.point_transform[c] = pt
+        frame.coef_bits[c, :] = 0
+    params = [len(comps), predictor, pt, interval, *grid, frame.precision]
+    for c, (td, _) in zip(comps, slots):
+        params += [frame.h[c], frame.v[c], frame.samples[c].shape[1], td]
+    params = np.asarray(params, np.int32)
+    ptrs = (ctypes.c_void_p * len(comps))(*[frame.samples[c].ctypes.data
+                                            for c in comps])
+    end = nativebuild.host_library().mpt_jpeg_decode_lossless(
         data, len(data), pos, params.ctypes.data, tables.ctypes.data,
         present, ctypes.cast(ptrs, ctypes.c_void_p))
     if end < 0:
-        _corrupt({-1: "a scan uses an undefined Huffman table",
-                  -2: "bad Huffman code",
-                  -3: "restart marker missing",
-                  -4: "scan parameters"}.get(end, f"scan error {end}"))
+        _corrupt(_SCAN_ERRORS.get(end, f"scan error {end}"))
     return int(end)
+
+
+def _smoothing(frame: _Frame) -> bool:
+    """``jdcoefct.c smoothing_ok``: a progressive file whose components
+    all have DC values and quantisation tables non-zero at the estimated
+    coefficients, and that leaves one of zigzag 1-9 of some component
+    unrefined (or never coded)."""
+    if not frame.progressive or (frame.coef_bits[:, 0] < 0).any():
+        return False
+    first = NATURAL_ORDER[:SMOOTHED_COEFS]
+    if any(q is None or (q[first] == 0).any() for q in frame.quant):
+        return False
+    return bool((frame.coef_bits[:, 1:SMOOTHED_COEFS] != 0).any())
+
+
+def _dct_planes(frame: _Frame) -> list:
+    """Each component's samples at its own size, block-smoothed first
+    where libjpeg smooths."""
+    smooth = _smoothing(frame)
+    vmax = max(frame.v)
+    planes = []
+    for c, (rows, cols) in enumerate(frame.size):
+        coef = frame.coefs[c]
+        bh, bw = coef.shape[:2]
+        if smooth and (frame.coef_bits[c, 1:SMOOTHED_COEFS] != 0).any():
+            v_samp = frame.v[c] if len(frame.size) > 1 else frame.v_declared
+            imcu_rows = -(-frame.height // (8 * (vmax if len(frame.size) > 1
+                                                 else v_samp)))
+            smoothed = coef.copy()
+            nativebuild.host_library().mpt_jpeg_smooth(
+                coef.ctypes.data, smoothed.ctypes.data, bw, bh,
+                -(-cols // 8), -(-rows // 8), v_samp, imcu_rows,
+                np.ascontiguousarray(frame.coef_bits[c, :SMOOTHED_COEFS])
+                .ctypes.data,
+                frame.quant[c].astype(np.int32).ctypes.data)
+            coef = smoothed
+        # a component no scan coded keeps zero coefficients (libjpeg's
+        # coefficient arrays start zeroed)
+        quant = frame.quant[c] if frame.quant[c] is not None \
+            else np.zeros(64, np.int64)
+        blocks = coef.reshape(-1, 8, 8).astype(np.int64) * quant.reshape(8, 8)
+        pix = idct_islow(blocks).reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3)
+        planes.append(pix.reshape(bh * 8, bw * 8)[:rows, :cols])
+    return planes
+
+
+def _colour_space(frame: _Frame, jfif: bool, adobe) -> str:
+    """``jdapimin.c default_decompress_parms``: the colour space libjpeg
+    assumes, from the markers seen before the first scan."""
+    n = len(frame.ids)
+    if n == 1:
+        return "grey"
+    if n == 4:
+        return "cmyk" if adobe is None or adobe == 0 else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    if frame.lossless or tuple(frame.ids) == (82, 71, 66):   # "R", "G", "B"
+        return "rgb"
+    return "ycc"
+
+
+def frame_components(data: bytes):
+    """The component count of a JPEG's frame header (None without one)."""
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker == 0xFF or 0xD0 <= marker <= 0xD8 or marker in (0x00, 0x01):
+            pos += 1 if marker == 0xFF else 2
+            continue
+        if marker in (0xD9, 0xDA):
+            return None
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return data[pos + 9] if pos + 10 <= len(data) else None
+        pos += 2 + struct.unpack_from(">H", data, pos + 2)[0]
+    return None
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -324,7 +533,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     frame, quant, interval = None, {}, 0
     tables = np.zeros((8, 272), np.int32)
     present = [0]
-    jfif, adobe = False, None
+    cond = np.array([0] * 16 + [1] * 16 + [5] * 16, np.int32)
+    jfif, adobe, space = False, None, None
     pos = 2
     while pos < len(data):
         if data[pos] != 0xFF:   # libjpeg skips extraneous bytes
@@ -354,7 +564,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         elif marker == 0xC4:
             _huffman_tables(seg, tables, present)
         elif marker == 0xCC:
-            _variant("arithmetic-coded")
+            _arith_conditioning(seg, cond)
         elif marker == 0xDB:
             _quant_tables(seg, quant)
         elif marker == 0xDD:
@@ -362,47 +572,45 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 _corrupt("DRI segment")
             interval = struct.unpack(">H", seg)[0]
         elif marker == 0xDC:
-            _variant("DNL-sized")
+            _refused("a height defined by DNL")
         elif marker == 0xE0:
             jfif = jfif or (len(seg) >= 14 and seg[:5] == b"JFIF\0")
         elif marker == 0xEE:
-            if adobe is None and len(seg) >= 12 and seg[:5] == b"Adobe":
+            if len(seg) >= 12 and seg[:5] == b"Adobe":
                 adobe = seg[11]
         elif marker == 0xDA:
             if frame is None:
                 _corrupt("SOS before SOF")
+            if space is None:
+                space = _colour_space(frame, jfif, adobe)
+                if frame.lossless and space in ("ycc", "ycck"):
+                    _refused(f"lossless coding of {space.upper()} colour")
             pos = _scan(frame, seg, data, pos, quant, tables, present[0],
-                        interval)
+                        cond, interval)
     if frame is None:
         _corrupt("no SOF marker")
-    if (frame.coef_bits[:, 0] < 0).any():
-        _corrupt("a component without a scan")
-    if (frame.coef_bits != 0).any() and frame.progressive:
-        _variant("progressive with unrefined coefficients (block-smoothed)")
+    if space is None:
+        _corrupt("no SOS marker")
 
-    planes = []
-    for c, (rows, cols) in enumerate(frame.size):
-        coef = frame.coefs[c]
-        bh, bw = coef.shape[:2]
-        blocks = coef.reshape(-1, 8, 8).astype(np.int64) \
-            * frame.quant[c].reshape(8, 8)
-        pix = idct_islow(blocks).reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3)
-        plane = pix.reshape(bh * 8, bw * 8)[:rows, :cols]
-        planes.append(upsample(plane, *frame.factors[c])[:frame.height,
-                                                         :frame.width])
+    if frame.lossless:
+        planes = [((s[:rows, :cols] << pt) & 0xFF).astype(np.uint8)
+                  for s, pt, (rows, cols) in zip(
+                      frame.samples, frame.point_transform, frame.size)]
+    else:
+        planes = _dct_planes(frame)
+    planes = [upsample(p, *f, fancy=not frame.lossless)[:frame.height,
+                                                        :frame.width]
+              for p, f in zip(planes, frame.factors)]
     out = np.empty((frame.height, frame.width, 4), np.uint8)
     out[..., 3] = 255
-    if len(planes) == 1:
+    if space == "grey":
         out[..., :3] = planes[0][..., None]
-        return out
-    if jfif:
-        rgb = False
-    elif adobe is not None:
-        rgb = adobe == 0
-    else:
-        rgb = tuple(frame.ids) == (82, 71, 66)   # "R", "G", "B"
-    if rgb:
+    elif space == "rgb":
         out[..., :3] = np.stack(planes, -1)
-    else:
+    elif space == "ycc":
         out[..., :3] = ycc_to_rgb(*planes)
+    else:   # Pillow's CMYK;I: the decoded CMYK inverted, then cmyk2rgb
+        cmyk = np.stack(planes, -1) if space == "cmyk" \
+            else ycck_to_cmyk(*planes)
+        out[..., :3] = cmyk_to_rgb(255 - cmyk)
     return out

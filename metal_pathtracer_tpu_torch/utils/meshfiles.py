@@ -305,12 +305,13 @@ def write_headline_files(directory: str, subdivisions: int = 8,
 
 
 def write_ground_texture_files(directory: str, meshes, image: bytes,
-                               stem: str) -> str:
+                               stem: str, sky: str = "sky.exr") -> str:
     """The mesh-files scene with a textured ground: ``<stem>.glb`` holds
     the headline's checker sphere and its ground, whose base colour is
     ``image`` (PNG or JPEG bytes, embedded as they are), and
-    ``<stem>.scene`` places it beside the PLY, OBJ and sky that
-    ``write_headline_files`` wrote into ``directory``; ``meshes`` are the
+    ``<stem>.scene`` places it beside the PLY and OBJ that
+    ``write_headline_files`` wrote into ``directory`` under ``sky`` (a
+    file there: by default the EXR sky it wrote); ``meshes`` are the
     meshes it returned. Returns the scene file's path."""
     import dataclasses
     import os
@@ -332,5 +333,6 @@ def write_ground_texture_files(directory: str, meshes, image: bytes,
          image])
     path = os.path.join(directory, f"{stem}.scene")
     with open(path, "w") as fh:
-        fh.write(MESH_FILES_HEAD + f"mesh path={stem}.glb\n")
+        fh.write(MESH_FILES_HEAD.replace("./sky.exr", f"./{sky}")
+                 + f"mesh path={stem}.glb\n")
     return path

@@ -53,7 +53,8 @@ _host_lib = None
 
 def build_host_library() -> str:
     """Path to the port's host C library (``hostsrc/*.c``: the JPEG
-    entropy decoder and the PNG filters), compiled with the host's ``cc``
+    entropy decoders, Huffman, arithmetic and lossless, the JPEG block
+    smoothing and the PNG filters), compiled with the host's ``cc``
     into ``_build/`` (git-ignored) at first use, named by a hash of the
     sources and flags. Raises ``RuntimeError`` when it cannot be built:
     nothing falls back to another decoder."""
@@ -102,6 +103,17 @@ def host_library():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
                 ctypes.c_void_p]
             lib.mpt_jpeg_decode_scan.restype = ctypes.c_int64
+            lib.mpt_jpeg_decode_scan_arith.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            lib.mpt_jpeg_decode_scan_arith.restype = ctypes.c_int64
+            lib.mpt_jpeg_decode_lossless.argtypes = \
+                lib.mpt_jpeg_decode_scan.argtypes
+            lib.mpt_jpeg_decode_lossless.restype = ctypes.c_int64
+            lib.mpt_jpeg_smooth.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 6,
+                ctypes.c_void_p, ctypes.c_void_p]
+            lib.mpt_jpeg_smooth.restype = None
             lib.mpt_png_unfilter.argtypes = [
                 ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int]

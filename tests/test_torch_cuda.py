@@ -1475,6 +1475,56 @@ def test_empty_scene_on_card(dev, tmp_path, background):
     assert float((d.max(-1) < 1e-5).mean()) > 0.98
 
 
+def test_png_sky_render_on_card(dev, tmp_path):
+    """Two spheres under the committed 8-bit PNG sky, loaded by the port's
+    own decoder (no imageio on the card's host), render on the card as
+    their plain render on the CPU, the primitives' and shading kernels
+    launched."""
+    import os
+    import shutil
+
+    from metal_pathtracer_tpu_torch.ops import env as env_ops
+    from metal_pathtracer_tpu_torch.ops.kernels import primitives
+    from metal_pathtracer_tpu_torch.ops.kernels import shade as shade_k
+    from metal_pathtracer_tpu_torch.scene import dsl
+    from metal_pathtracer_tpu_torch.scene.resources import SceneResources
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "images", "sky_rgb8_48x24.png"),
+                tmp_path / "sky.png")
+    (tmp_path / "sky.scene").write_text(
+        "camera target=0,0,0 distance=4 yaw=0.3 pitch=0.15 vfov=45\n"
+        "renderer maxDepth=4 seed=11\nbackground env=./sky.png\n"
+        "material type=lambert albedo=0.7,0.6,0.5\n"
+        "material type=lambert albedo=0.3,0.5,0.6\n"
+        "sphere center=-0.6,0,0 radius=0.7 material=0\n"
+        "sphere center=0.9,-0.2,0.3 radius=0.5 material=1\n")
+    settings, res = RenderSettings(), SceneResources()
+    dsl.load_scene_file(str(tmp_path / "sky.scene"), settings, res)
+    kernels = (primitives.sphere_nearest_brute, shade_k.shade_s1,
+               shade_k.shade_s2)
+    before = [f.launches for f in kernels]
+    imgs = []
+    for device in (dev, torch.device("cpu")):
+        env = env_ops.load_environment(settings.environmentMapPath, device)
+        scene = res.build_arrays(environment=env, device=device)
+        static = settings_to_static(settings, 64, 48,
+                                    res.material_types_present())
+        uni = settings_to_uniforms(
+            settings, build_camera(settings, 64, 48, device), 0, 0)
+        st = frame.render_samples(scene, uni,
+                                  RenderState.create(64, 48, device),
+                                  static, 2)
+        imgs.append(st.present().cpu().numpy())
+        if device == dev:
+            assert all(f.launches > b for f, b in zip(kernels, before))
+    assert np.isfinite(imgs[0]).all() and imgs[0].max() > 0.0
+    d = np.abs(imgs[0] - imgs[1])
+    assert float(np.sqrt((d * d).mean())) < 2e-4
+    assert float((d.max(-1) < 1e-5).mean()) > 0.98
+
+
 # ---- the à-trous kernel and the U-Net (the interactive path) ---------------
 
 def _denoise_inputs(dev, h, w, seed=21):

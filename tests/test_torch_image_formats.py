@@ -1,6 +1,7 @@
 """Texture images the port decodes by itself (``utils/image_io.decode_image``:
 PNG of every bit depth and colour type, interlaced or not; baseline and
-progressive JPEG through ``utils/jpeg.py`` and its C entropy decoder),
+progressive JPEG through ``utils/jpeg.py`` and its C entropy decoder; the
+other JPEG variants in ``test_torch_jpeg_variants.py``),
 against the JAX package's ``gltf._decode_image`` (Pillow's
 ``convert("RGBA")``), bit for bit, on images made here with numpy and
 Pillow, or written by ``tests/images/make_fixtures.py`` where Pillow
@@ -150,35 +151,44 @@ def test_jpeg_411_grey_restart_and_rgb():
         _same(data)
 
 
-def _variant_error(data, what):
+def _refusal(data, what):
+    """Pillow raises on ``data``, and the port refuses it, saying so."""
+    with pytest.raises(Exception):
+        pillow_decode(data)
     with pytest.raises(ImageFormatError, match=what) as err:
         decode_image(data)
-    assert "ROADMAP Queue 1, JPEG variants" in str(err.value)
+    assert "Pillow refuses it too" in str(err.value)
 
 
 def test_jpeg_refusals():
+    """What the decoder still refuses, each refused by Pillow too (every
+    one in ``test_torch_jpeg_variants.py``): hierarchical and lossless
+    arithmetic-coded frames, 12-bit samples, fractional sampling. What it
+    refused before the variants landed now decodes as Pillow does: CMYK,
+    4:4:0, and a progressive file cut before its refinement scans, which
+    libjpeg block-smooths. Corrupt data and other formats raise."""
     img = F.texture(24, 16, seed=9)
     base = _pillow_jpeg(img, quality=80)
     sof = base.index(b"\xff\xc0")
-    buf = io.BytesIO()
-    Image.fromarray(img, "RGB").convert("CMYK").save(buf, "JPEG")
-    _variant_error(buf.getvalue(), "CMYK")
-    for marker, what in ((0xC9, "arithmetic"), (0xC3, "lossless")):
+    for marker, what in ((0xC5, "hierarchical"), (0xCB, "lossless arith")):
         data = bytearray(base)
         data[sof + 1] = marker
-        _variant_error(bytes(data), what)
+        _refusal(bytes(data), what)
     data = bytearray(base)
     data[sof + 4] = 12
-    _variant_error(bytes(data), "12-bit")
+    _refusal(bytes(data), "12-bit")
     ycc = F.rgb_to_ycc(img).astype(np.uint8)
-    _variant_error(F.jpeg_baseline([ycc[..., k] for k in range(3)],
-                                   [(1, 2), (1, 1), (1, 1)], np.full(64, 8)),
-                   "sampled")
-    # a progressive file cut before its refinement scans: libjpeg would
-    # block-smooth the unrefined coefficients
+    _refusal(F.jpeg_baseline([ycc[..., k] for k in range(3)],
+                             [(3, 1), (2, 1), (1, 1)], np.full(64, 8)),
+             "fractional")
+    buf = io.BytesIO()
+    Image.fromarray(img, "RGB").convert("CMYK").save(buf, "JPEG")
+    _same(buf.getvalue())
+    _same(F.jpeg_baseline([ycc[..., k] for k in range(3)],
+                          [(1, 2), (1, 1), (1, 1)], np.full(64, 8)))
     prog = _pillow_jpeg(img, quality=80, progressive=True)
     scans = [i for i in range(len(prog) - 1) if prog[i:i + 2] == b"\xff\xda"]
-    _variant_error(prog[:scans[3]] + b"\xff\xd9", "unrefined")
+    _same(prog[:scans[3]] + b"\xff\xd9")
     # a corrupted SOF: a length that disagrees with its component count
     data = bytearray(base)
     data[sof + 9] = 5
