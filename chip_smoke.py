@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's eleven paths:
+(one nvcc per source, in parallel) and drives the port's twelve paths:
 
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
@@ -179,7 +179,22 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    JPEG and the 2048x2048 interlaced 16-bit RGBA PNG; and the mesh-files
    scene with its ground textured by that JPEG through the CLI at
    1920x1080 d8, 1 spp, bit-equal to the same scene with the texture
-   re-encoded as an 8-bit PNG.
+   re-encoded as an 8-bit PNG;
+12. the denoisers' training path (``tools/train_denoiser.py`` and
+   ``tools/train_denoiser_unet.py`` of the port; the learned à-trous
+   filter's backward, ``csrc/denoise.cu atrous_grad_*``): the learned
+   filter's gradients (MLP, colour, variance) through the backward
+   kernels against autograd through the plain version at 4 and 5
+   iterations on a 256x256 state with a background band and a band of
+   tied luminances, within 1e-4 relative norm; each backward kernel
+   against its plain twin at every iteration, two launches of each
+   bit-equal; the forward with grad bit-equal to the forward without;
+   one iteration's forward and backward timed at 64x64, 96x96, 256x256
+   and 1920x1080 beside ``grad_bound``; then 10 steps of each trainer on
+   two training scenes rendered on the card at 64x64, 4 / 16 spp
+   (reduced from 16 / 512), every step's gradients against the plain
+   version's on the same data copied to the CPU (the tap trainer's in
+   ``TRAIN_CPU_WORKERS`` CPU processes).
 
 A kernel's time is its device time: a spin kernel holds the stream while
 the host enqueues the timed launches (``kernel_ms``), so the window holds
@@ -4361,19 +4376,24 @@ def unet_flops(h: int, w: int) -> float:
 
 
 @contextlib.contextmanager
-def kept_atrous(kept):
-    """Each iteration of the à-trous kernel on a filter's rows appended to
-    ``kept`` as its (args, kwargs), and passed on."""
+def kept_calls(name, kept):
+    """Each call of ``ops/kernels/denoise``'s ``name`` appended to ``kept``
+    as its (args, kwargs), and passed on."""
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
 
-    real = DK.atrous_step_packed
+    real = getattr(DK, name)
 
     def keep(*a, **k):
         kept.append((a, k))
         return real(*a, **k)
 
-    with mock.patch.object(DK, "atrous_step_packed", keep):
+    with mock.patch.object(DK, name, keep):
         yield
+
+
+def kept_atrous(kept):
+    """Each iteration of the à-trous kernel on a filter's rows, kept."""
+    return kept_calls("atrous_step_packed", kept)
 
 
 def plain_atrous():
@@ -5283,6 +5303,483 @@ def multi_gpu_path(dev, card, kernels, out):
         for k, (name, t) in enumerate(marks[1:])))
 
 
+# ---- phase 12: the denoisers' training path ---------------------------------
+
+#: the state the backward kernels are held against autograd through the
+#: plain version on (square), and the iteration counts the trainers run
+GRAD_STATE = 256
+GRAD_ITERS = (4, 5)
+#: the backward kernels' gradients against autograd through the plain
+#: version, and each trainer step's against the plain version's: relative
+#: norm error (float32 sums in other orders; the learned filter's feature
+#: 0 divides by gstd + 1e-4, which reaches 1e-4 where a region has no
+#: variance)
+GRAD_REL_TOL = 1e-4
+#: each backward kernel's outputs against its plain twin's on the same
+#: inputs: relative norm error of each output
+GRAD_KERNEL_TOL = 1e-4
+#: the sizes one iteration's backward is timed at (width, height): the tap
+#: trainer's renders, the U-Net trainer's, the check state, 1080p
+GRAD_SIZES = ((64, 64), (96, 96), (256, 256), (1920, 1080))
+#: the trainers in this phase: steps, scenes (``train_denoiser.SCENES``
+#: indices: the lit box and the bench-class scene under its HDR sky),
+#: render size and samples (input, reference; the trainers' own are 16
+#: and 512 at 64x64 and 96x96)
+TRAIN_STEPS = 10
+TRAIN_SCENES = (0, 5)
+TRAIN_SIZE = 64
+TRAIN_SPP = (4, 16)
+#: CPU processes that compute the tap trainer's plain gradients (one
+#: thread each; the plain version's ~170,000 small operations a step are
+#: dispatch-bound, ~4 s a step), started after its steps so they overlap
+#: the U-Net trainer
+TRAIN_CPU_WORKERS = 5
+# The backward's work, csrc/denoise.cu atrous_grad_*: bytes a pixel that
+# the whole backward must move (the rows in: colour and variance 16 B,
+# guide 32; the cotangents in: 16; out: the colour and variance
+# cotangents 16) and float operations: a tap's forward once at the
+# hoisted charge (222) and the tap back (293: dL/dw 10, the logit's
+# adjoint 7, 16 hidden units of 16 (the gate, the six parameter sums,
+# the adjoints of features 0 and 3), the luminance and gstd adjoints 10,
+# the gather's 10), and 60 a pixel (the blur and its adjoint, the
+# divisions). Each kernel on its own: the taps kernel reads the rows and
+# cotangents (64 B) and writes 25 weights and luminance adjoints (200),
+# its pixel terms (24) and a row of 129 floats a block, at 222 + 283 a
+# tap and 46 a pixel; the gather reads the planes and pixel terms (224)
+# and writes 16, at 10 a tap and 20 a pixel; the sum reads the rows and
+# writes 129 floats, an add a value
+ATROUS_BWD_BYTES, ATROUS_BWD_TAP_OPS, ATROUS_BWD_PIXEL_OPS = 80, 515, 60
+GRAD_TAPS_BYTES, GRAD_TAPS_TAP_OPS, GRAD_TAPS_PIXEL_OPS = 288, 505, 46
+GRAD_GATHER_BYTES, GRAD_GATHER_TAP_OPS, GRAD_GATHER_PIXEL_OPS = 240, 10, 20
+MLP_BYTES = 129 * 4
+
+
+def grad_bound(which: str, h: int, w: int):
+    """The least time of one learned iteration's backward (``all``) or of
+    one of its kernels (``taps``, ``gather``, ``sum``) over an h x w
+    image: (ms, "bytes" or "operations")."""
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    n = h * w
+    rows = -(-n // DK.GRAD_THREADS)
+    if which == "all":
+        return bound_ms(n * ATROUS_BWD_BYTES + 2 * MLP_BYTES,
+                        n * (25 * ATROUS_BWD_TAP_OPS + ATROUS_BWD_PIXEL_OPS))
+    if which == "taps":
+        return bound_ms(n * GRAD_TAPS_BYTES + rows * MLP_BYTES,
+                        n * (25 * GRAD_TAPS_TAP_OPS + GRAD_TAPS_PIXEL_OPS))
+    if which == "gather":
+        return bound_ms(n * GRAD_GATHER_BYTES,
+                        n * (25 * GRAD_GATHER_TAP_OPS + GRAD_GATHER_PIXEL_OPS))
+    return bound_ms((rows + 1) * MLP_BYTES, rows * 129)
+
+
+def grad_state(h: int, w: int, dev, seed: int = 19) -> dict:
+    """A learned filter's inputs and a reference, made with numpy from a
+    seed: a band of background (solid colour, no variance, zero normal
+    and albedo) and a band of unlit pixels (colour 0: luminance ties where
+    the variance and the AOVs differ) over gamma-distributed colour."""
+    rng = np.random.default_rng(seed)
+    c = rng.gamma(1.2, 0.6, (h, w, 3)).astype(np.float32)
+    var = rng.uniform(0.0, 0.05, (h, w, 3)).astype(np.float32)
+    a = rng.uniform(0.05, 0.95, (h, w, 3)).astype(np.float32)
+    n = rng.normal(size=(h, w, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    ref = rng.gamma(1.2, 0.6, (h, w, 3)).astype(np.float32)
+    band = max(h // 8, 1)
+    c[:band] = (0.65, 0.75, 0.95)
+    var[:band], a[:band], n[:band] = 0.0, 0.0, 0.0
+    ref[:band] = c[:band]
+    c[2 * band:4 * band] = 0.0
+    ref[2 * band:4 * band] *= 0.05
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            dict(noisy=c, albedo=a, normal=n, variance=var, ref=ref).items()}
+
+
+def rel_norm(got, ref) -> float:
+    """|got - ref| / |ref| over every value (float64)."""
+    got = torch.cat([x.reshape(-1) for x in got]).double()
+    ref = torch.cat([x.reshape(-1) for x in ref]).double()
+    return float((got.cpu() - ref.cpu()).norm() / ref.cpu().norm())
+
+
+def _pack_grads(grads: dict):
+    return [grads[k] for k in ("w1", "b1", "w2", "b2")]
+
+
+def vendored_mlp(dev) -> dict:
+    """The vendored tap MLP on ``dev``, each tensor requiring grad."""
+    from metal_pathtracer_tpu_torch import convert
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+
+    with np.load(D.DATA_DIR + "/denoiser_weights.npz") as z:
+        params = convert.denoiser_params({k: z[k] for k in z.files}, dev)
+    return {k: v.requires_grad_() for k, v in params.items()}
+
+
+def learned_grads(params, d, iters, plain=False):
+    """(loss, gradients of the MLP's four tensors, the input colour and
+    the input variance) of the learned filter's relative MSE at ``iters``
+    iterations: through the backward kernels, or (``plain``) autograd
+    through the plain version on the same device."""
+    from metal_pathtracer_tpu_torch.tools import train_denoiser as td
+
+    d = dict(d, noisy=d["noisy"].detach().clone().requires_grad_(),
+             variance=d["variance"].detach().clone().requires_grad_())
+    with plain_atrous() if plain else contextlib.nullcontext():
+        loss = td.scene_error(params, d, (iters,))
+        grads = torch.autograd.grad(
+            loss, _pack_grads(params) + [d["noisy"], d["variance"]])
+    return loss, grads
+
+
+def grad_kernel_checks(kept):
+    """Each kept backward's three kernels against their plain twins on
+    the same inputs, and two launches of each bit-equal: (max abs error,
+    max relative norm error of an output)."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    worst_abs = worst_rel = 0.0
+    for it, (a, k) in enumerate(kept):
+        cv, guide, p, mlp, g_out, u_out = a
+        mlp = mlp.detach()
+        g_out, u_out = DK._cotangents(g_out, u_out, *cv.shape[:2],
+                                      cv.device)
+        got = DK.grad_taps(cv, guide, p, mlp, g_out, u_out)
+        again = DK.grad_taps(cv, guide, p, mlp, g_out, u_out)
+        want = D.grad_taps_reference(cv, guide, p, mlp, g_out, u_out)
+        pairs = list(zip(got[:4], want[:4]))
+        sums = (DK.grad_sum(got[4]), D.grad_sum_reference(want[4]))
+        pairs.append(sums)
+        gather = DK.grad_gather(p, *got[:4])
+        pairs += list(zip(gather, D.grad_gather_reference(p, *got[:4])))
+        pairs.append((DK.grad_sum(got[4]), D.grad_sum_reference(got[4])))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"atrous_grad_taps: two launches differ "
+                                 f"(iteration {it})")
+        if not (all(torch.equal(x, y) for x, y in zip(
+                DK.grad_gather(p, *got[:4]), gather))
+                and torch.equal(DK.grad_sum(got[4]), sums[0])):
+            raise AssertionError(f"the gather or sum kernel: two launches "
+                                 f"differ (iteration {it})")
+        for x, y in pairs:
+            worst_abs = max(worst_abs, float((x - y).abs().max()))
+            worst_rel = max(worst_rel, rel_norm([x], [y]))
+        if not worst_rel <= GRAD_KERNEL_TOL:
+            raise AssertionError(f"a backward kernel at iteration {it} is "
+                                 f"{worst_rel} from its plain twin")
+    return worst_abs, worst_rel
+
+
+def grad_timing(dev, card):
+    """One learned iteration's forward (the Function's: pack + step) and
+    backward (the three kernels; each also alone) at each of
+    ``GRAD_SIZES``, averaged over the iterations of a 4-iteration filter,
+    beside the bounds and the plain twins' time (the first iteration's,
+    once). Returns {size: dict}."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    rows = {}
+    for w, h in GRAD_SIZES:
+        params = vendored_mlp(dev)
+        d = grad_state(h, w, dev)
+        kept = []
+        with kept_calls("atrous_step_grad", kept):
+            learned_grads(params, d, 4)
+        fwd = bwd = taps = gather = total = 0.0
+        a = kept[0][0]
+        g_out, u_out = DK._cotangents(a[4], a[5], h, w, dev)
+        plain = cuda_ms(lambda: (lambda: D.atrous_step_grad_reference(
+            *a[:3], a[3].detach(), g_out, u_out)), 1)
+        for a, k in kept:
+            cv, guide, p, mlp, g_out, u_out = a
+            mlp = mlp.detach()
+            g_out, u_out = DK._cotangents(g_out, u_out, h, w, dev)
+            col, v, alb, nrm = D.unpack(cv, guide)
+            fwd += kernel_ms(lambda: (lambda: DK.atrous_step(
+                col, v, alb, nrm, p, mlp)), 10)
+            bwd += kernel_ms(lambda: (lambda: DK.atrous_step_grad(
+                cv, guide, p, mlp, g_out, u_out)), 10)
+            got = DK.grad_taps(cv, guide, p, mlp, g_out, u_out)
+            taps += kernel_ms(lambda: (lambda: DK.grad_taps(
+                cv, guide, p, mlp, g_out, u_out)), 10)
+            gather += kernel_ms(lambda: (lambda: DK.grad_gather(
+                p, *got[:4])), 10)
+            total += kernel_ms(lambda: (lambda: DK.grad_sum(got[4])), 10)
+            del got
+        n = len(kept)
+        row = dict(forward=fwd / n, backward=bwd / n, taps=taps / n,
+                   gather=gather / n, sum=total / n, plain=plain,
+                   bound=grad_bound("all", h, w),
+                   bounds={x: grad_bound(x, h, w)
+                           for x in ("taps", "gather", "sum")},
+                   forward_bound=denoise_bound("learned", h, w))
+        rows[(w, h)] = row
+        print(f"learned iteration at {w}x{h}, mean of {n}: forward (pack + "
+              f"step) {row['forward']:.4f} ms (bound "
+              f"{row['forward_bound'][0]:.4f}), backward "
+              f"{row['backward']:.4f} ms (bound {row['bound'][0]:.4f} by "
+              f"{row['bound'][1]}, {100 * row['bound'][0] / row['backward']:.1f}"
+              f" %): taps {row['taps']:.4f} (bound "
+              f"{row['bounds']['taps'][0]:.4f}), gather "
+              f"{row['gather']:.4f} ({row['bounds']['gather'][0]:.4f}), sum "
+              f"{row['sum']:.4f} ({row['bounds']['sum'][0]:.4f}); plain twins "
+              f"{row['plain']:.2f} ms (first iteration) [{card}]")
+        del params, d, kept
+        torch.cuda.empty_cache()
+    return rows
+
+
+def plain_tap_grads(path: str, steps, out_path: str) -> None:
+    """A worker process's work: the tap trainer's loss gradients through
+    the plain version on the CPU (one thread) at each of ``steps``'
+    parameters, from the data and parameters in ``path``; written to
+    ``out_path``."""
+    from metal_pathtracer_tpu_torch.tools import train_denoiser as td
+
+    torch.set_num_threads(1)
+    with np.load(path) as z:
+        got = {k: z[k] for k in z.files}
+    data = [{k: torch.from_numpy(got[f"{k}{i}"]) for k in (
+        "noisy", "albedo", "normal", "variance", "ref")}
+        for i in range(len(TRAIN_SCENES))]
+    res = {}
+    for s in steps:
+        params = {k: torch.from_numpy(got[f"p{s}_{k}"]).requires_grad_()
+                  for k in ("w1", "b1", "w2", "b2")}
+        grads = torch.autograd.grad(td.loss_fn(params, data),
+                                    _pack_grads(params))
+        for k, g in zip(("w1", "b1", "w2", "b2"), grads):
+            res[f"g{s}_{k}"] = g.numpy()
+    np.savez(out_path, **res)
+
+
+def plain_tap_workers(kept: dict, tmp: str):
+    """``TRAIN_CPU_WORKERS`` processes running ``plain_tap_grads`` over the
+    steps kept in ``kept`` (data and each step's parameters): [(process,
+    its output file)]."""
+    path = os.path.join(tmp, "tap_steps.npz")
+    np.savez(path, **kept)
+    procs = []
+    for k in range(TRAIN_CPU_WORKERS):
+        steps = list(range(k, TRAIN_STEPS, TRAIN_CPU_WORKERS))
+        res = os.path.join(tmp, f"plain_{k}.npz")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             f"c.plain_tap_grads({path!r}, {steps!r}, {res!r})"],
+            cwd=REPO_DIR, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            res))
+    return procs
+
+
+def finish_plain_tap(procs, timeout: int = 300) -> dict:
+    """Wait for ``plain_tap_workers``' processes (killing every one on a
+    failure): {step: the plain gradients (w1, b1, w2, b2)}."""
+    plain = {}
+    try:
+        for proc, res in procs:
+            text, _ = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"a plain-gradient worker failed:\n"
+                                     f"{text[-3000:]}")
+            with np.load(res) as z:
+                for name in z.files:
+                    s, k = name[1:].split("_")
+                    plain.setdefault(int(s), {})[k] = torch.from_numpy(
+                        z[name])
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {s: _pack_grads(g) for s, g in plain.items()}
+
+
+def unet_steps(dev, card, stacked, errs):
+    """``TRAIN_STEPS`` steps of the U-Net trainer on ``stacked`` over the
+    vendored taps' prepass, each step's gradients held against the same
+    step's on the CPU (``errs`` gets the relative norm errors): (seconds
+    of the steps without the checks, losses)."""
+    from metal_pathtracer_tpu_torch import convert
+    from metal_pathtracer_tpu_torch.ops import denoise_unet as U
+    from metal_pathtracer_tpu_torch.tools import train_denoiser_unet as tu
+
+    base = tu.prepass(stacked, dev)
+    feats = tu.features(base, stacked, dev)
+    net = U.DenoiseUNet.from_params(convert.denoiser_params(U.init_params(
+        torch.Generator().manual_seed(0)), dev))
+    net.requires_grad_(True)
+    check_s = [0.0]
+
+    def check(step, batch, grads):
+        t0 = time.time()
+        cpu = U.DenoiseUNet.from_params(
+            {k: v.detach().cpu() for k, v in net.params().items()})
+        cpu.requires_grad_(True)
+        _, want = tu.gradients(cpu, *(x.cpu() for x in batch))
+        err = rel_norm(list(grads.values()), list(want.values()))
+        errs.append(err)
+        if not err <= GRAD_REL_TOL:
+            raise AssertionError(f"U-Net trainer step {step}: gradients "
+                                 f"{err} from the CPU's")
+        check_s[0] += time.time() - t0
+
+    t0 = time.time()
+    losses, _ = tu.train(net, feats, base, stacked["noisy"], stacked["ref"],
+                         TRAIN_STEPS, crop=TRAIN_SIZE, device=dev,
+                         log=lambda m: None, check=check)
+    torch.cuda.synchronize()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"U-Net trainer: losses {losses}")
+    return time.time() - t0 - check_s[0], losses
+
+
+def denoiser_training(dev, card, kernels, out):
+    """Phase 12, the denoisers' training path: the learned filter's
+    backward kernels against autograd through the plain version at 4 and
+    5 iterations on a ``GRAD_STATE`` square state (ties included), each
+    kernel against its plain twin and bit-equal to itself, the forward
+    with grad bit-equal to the forward without; the backward timed at
+    ``GRAD_SIZES``; then ``TRAIN_STEPS`` steps of each trainer on two
+    scenes rendered on the card (the tap trainer is the main path: counts
+    reset just before), every step's gradients held against the plain
+    version's on the same data copied to the CPU."""
+    import shutil
+    import tempfile
+
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.tools import train_denoiser as td
+    from metal_pathtracer_tpu_torch.tools import train_denoiser_unet as tu
+
+    marks = [("start", time.time())]
+    # ---- the backward kernels against autograd through the plain version
+    d = grad_state(GRAD_STATE, GRAD_STATE, dev)
+    worst_abs = worst_rel = 0.0
+    for iters in GRAD_ITERS:
+        params = vendored_mlp(dev)
+        kept = []
+        with kept_calls("atrous_step_grad", kept):
+            loss_k, got = learned_grads(params, d, iters)
+        loss_p, want = learned_grads(params, d, iters, plain=True)
+        with torch.no_grad():
+            free = D.learned_denoise(d["noisy"], d["albedo"], d["normal"],
+                                     d["variance"], params, iters)
+        with_grad = D.learned_denoise(d["noisy"], d["albedo"], d["normal"],
+                                      d["variance"], params, iters)
+        if not torch.equal(free, with_grad.detach()):
+            raise AssertionError(f"learned x{iters}: the forward with grad "
+                                 "differs from the forward without")
+        errs = (rel_norm(got[:4], want[:4]), rel_norm(got[4:5], want[4:5]),
+                rel_norm(got[5:], want[5:]))
+        if not max(errs) <= GRAD_REL_TOL or len(kept) != iters:
+            raise AssertionError(f"learned x{iters}: the backward kernels "
+                                 f"against the plain autograd {errs}, "
+                                 f"{len(kept)} backward launches")
+        k_abs, k_rel = grad_kernel_checks(kept)
+        worst_abs, worst_rel = max(worst_abs, k_abs), max(worst_rel, k_rel)
+        print(f"learned x{iters} at {GRAD_STATE}x{GRAD_STATE}: loss "
+              f"{float(loss_k.detach()):.6f} (plain "
+              f"{float(loss_p.detach()):.6f}); gradient "
+              f"against autograd through the plain version, relative norm "
+              f"error: MLP {errs[0]:.2e}, colour {errs[1]:.2e}, variance "
+              f"{errs[2]:.2e}; each kernel against its plain twin at every "
+              f"iteration: max abs {k_abs:.3e}, max rel {k_rel:.3e}, two "
+              f"launches bit-equal; forward with grad bit-equal to without "
+              f"[{card}]")
+        del params, kept, got, want
+    marks.append(("backward checks", time.time()))
+    timing = grad_timing(dev, card)
+    marks.append(("backward timing", time.time()))
+
+    # ---- the main path: each trainer's first steps ------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = [td.SCENES[i] for i in TRAIN_SCENES]
+        stacked = td.load_renders(specs, TRAIN_SIZE, TRAIN_SIZE, *TRAIN_SPP,
+                                  device=dev, cache_dir=tmp,
+                                  log=lambda m: None)
+    marks.append(("renders", time.time()))
+    data = [{k: torch.from_numpy(v[i]).to(dev) for k, v in stacked.items()}
+            for i in range(len(specs))]
+    params = {k: v.to(dev).requires_grad_() for k, v in td.init_params(
+        torch.Generator().manual_seed(0)).items()}
+    kept = {f"{k}{i}": stacked[k][i] for k in ("noisy", "albedo", "normal",
+                                                "variance", "ref")
+            for i in range(len(specs))}
+    tap_grads, unet_errs = {}, []
+
+    def tap_check(step, grads):
+        for k, v in params.items():
+            kept[f"p{step}_{k}"] = v.detach().cpu().numpy().copy()
+        tap_grads[step] = _pack_grads(grads)
+
+    reset_launches(kernels)
+    t0 = time.time()
+    best, best_loss, losses, _ = td.train(
+        params, lambda p: td.loss_fn(p, data), TRAIN_STEPS,
+        log=lambda m: None, check=tap_check)
+    torch.cuda.synchronize()
+    tap_s = time.time() - t0
+    launches = {k: kernels[k].launches for k in (
+        "atrous_step", "atrous_pack", "atrous_grad_taps",
+        "atrous_grad_gather", "atrous_grad_sum")}
+    if min(launches.values()) <= 0 or best is None or len(losses) != \
+            TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"tap trainer: launches {launches}, losses "
+                             f"{losses}")
+    MAIN_LAUNCHES["tap trainer"] = launches
+    marks.append(("tap trainer", time.time()))
+    tmp = tempfile.mkdtemp()
+    try:
+        workers = plain_tap_workers(kept, tmp)
+        unet_s, u_losses = unet_steps(dev, card, stacked, unet_errs)
+        marks.append(("U-Net trainer", time.time()))
+        plain = finish_plain_tap(workers)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tap_errs = [rel_norm(tap_grads[s], plain[s]) for s in range(TRAIN_STEPS)]
+    if not max(tap_errs) <= GRAD_REL_TOL:
+        raise AssertionError(f"tap trainer: gradients {tap_errs} from the "
+                             "plain version's on the CPU")
+    print(f"tap trainer, {TRAIN_STEPS} steps on scenes {TRAIN_SCENES} at "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE} ({TRAIN_SPP[0]} / {TRAIN_SPP[1]} spp, "
+          f"reduced from 16 / 512): losses "
+          + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; best {best_loss:.5f}; {1e3 * tap_s / TRAIN_STEPS:.1f} ms a "
+          f"step; every step's gradients against the plain version's on "
+          f"the same data copied to the CPU, relative norm error "
+          + ", ".join(f"{e:.2e}" for e in tap_errs)
+          + f"; launches {launches} [{card}]")
+    print(f"U-Net trainer, {TRAIN_STEPS} steps, batch {tu.BATCH} of "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE} crops of the same renders over the "
+          f"vendored taps' prepass: losses "
+          + ", ".join(f"{x:.5f}" for x in u_losses)
+          + f"; {1e3 * unet_s / TRAIN_STEPS:.1f} ms a step without the "
+          f"checks; every step's gradients against the CPU's (the same "
+          f"convolutions, float32), relative norm error "
+          + ", ".join(f"{e:.2e}" for e in unet_errs) + f" [{card}]")
+    marks.append(("plain gradients", time.time()))
+
+    row = timing[(TRAIN_SIZE, TRAIN_SIZE)]
+    for name, key in (("atrous_grad_taps", "taps"),
+                      ("atrous_grad_gather", "gather"),
+                      ("atrous_grad_sum", "sum")):
+        bound, by = row["bounds"][key]
+        out[name] = dict(
+            source=ROOT + "denoise.cu",
+            # JAX's autodiff of the learned filter, not a TPU kernel
+            replaces="metal_pathtracer_tpu/ops/denoise.py:157",
+            launches=launches[name], max_abs_err=worst_abs, ms=row[key],
+            plain_ms=row["plain"], bound_ms=bound, bound_by=by)
+    print("# training phase: " + ", ".join(
+        f"{name} {t - marks[k][1]:.1f}s"
+        for k, (name, t) in enumerate(marks[1:]))
+        + f"; {marks[-1][1] - marks[0][1]:.1f}s in all")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -5363,6 +5860,12 @@ def main() -> None:
     multi_gpu_path(dev, card, kernels, out)
     print(f"# multi-GPU and texture-format phases took "
           f"{time.time() - t0:.1f}s")
+    t0 = time.time()
+    denoiser_training(dev, card, dict(
+        kernels, atrous_step=DK.atrous_step, atrous_pack=DK.pack,
+        atrous_grad_taps=DK.grad_taps, atrous_grad_gather=DK.grad_gather,
+        atrous_grad_sum=DK.grad_sum), out)
+    print(f"# denoiser-training phase took {time.time() - t0:.1f}s")
 
     print("K2 device ms at the earlier phases' first depths, this run "
           "(PERF.md run G): " + ", ".join(f"{k} {K2_NOW[k]:.4f} ({v:.4f})"
@@ -5372,7 +5875,8 @@ def main() -> None:
           f"kernels' build included")
     names = [k for k in kernels if k != "shade_full_lanes"] + [
         "shade_full_zoo", "shade_full_buckets_zoo", "shade_s1_zoo",
-        "shade_s2_zoo", "shade_s2_mnee", "atrous_step", "atrous_pack"]
+        "shade_s2_zoo", "shade_s2_mnee", "atrous_step", "atrous_pack",
+        "atrous_grad_taps", "atrous_grad_gather", "atrous_grad_sum"]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **out[name])
         for name in names]}))

@@ -173,3 +173,18 @@ def denoiser_params(d: dict, device="cuda") -> dict:
             x = x.permute(3, 2, 0, 1)
         out[k] = x.contiguous().to(device)
     return out
+
+
+def denoiser_arrays(params: dict) -> dict:
+    """``denoiser_params``' way back: the port's denoiser weights (tensors
+    on any device, e.g. ``DenoiseUNet.params()`` or the tap MLP's dict) as
+    float32 numpy arrays in the JAX package's layout, each U-Net ``*_w``
+    from OIHW to HWIO, the rest as they are; ``np.savez`` of the result
+    is a file both packages' loaders read."""
+    out = {}
+    for k, v in params.items():
+        x = v.detach().to("cpu", torch.float32)
+        if k.endswith("_w") and x.dim() == 4:
+            x = x.permute(2, 3, 1, 0)
+        out[k] = x.contiguous().numpy().copy()
+    return out

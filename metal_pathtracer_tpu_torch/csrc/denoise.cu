@@ -298,6 +298,306 @@ int launch_step(int h, int w, int step, const StepScalars& sc,
   return (int)cudaGetLastError();
 }
 
+// ---- the learned iteration's backward -------------------------------------
+//
+// Three launches an iteration (kernels/denoise.py atrous_step_grad, the
+// backward of its autograd Function), in place of JAX's autodiff of
+// ops/denoise.py learned_denoise:157-206; their plain versions are
+// ops/denoise.py grad_taps_reference, grad_gather_reference and
+// grad_sum_reference. With c the colour and v the luminance variance in,
+// A_p = sum_k w_pk c_q, V_p = sum_k w_pk^2 v_q, S_p = sum_k w_pk, m_p =
+// max(S_p, 1e-6), o = A / m, o_v = V / m^2 and the cotangents g = dL/do,
+// u = dL/do_v:
+//
+// atrous_grad_taps_kernel, a thread a pixel p: recomputes its 25 taps as
+// the forward does (the same operations, so the same bits), then takes
+// each tap back: dL/dw_pk = (g / m).c_q + 2 w_pk (u / m^2) v_q + dL/dS_p,
+// dL/dz = -dL/dw w_k exp(-softplus(z)) sigmoid(z), through the 6-16-1 MLP
+// (a hidden unit passes where its pre-activation >= 0), feature 0 to the
+// luminance difference (sign +1 at 0, JAX's) and to gstd_p, gstd to the
+// blurred variance. It writes w_pk and the adjoint of lum_q as (25, n)
+// planes, its own terms (g / m, u / m^2; the adjoints of lum_p and of the
+// blurred variance), and its block's sums of the 129 parameter gradients
+// (a tree in shared memory, one row a block: no atomics, so two launches
+// give the same bits).
+// atrous_grad_gather_kernel, a thread a pixel q: gathers from the pixels
+// p = q + (ky, kx) s that tapped it, in tap order: dL/dc_q = sum_k w_pk
+// g_p / m_p + lum weights x (its own and the taps' luminance adjoints),
+// dL/dv_q = sum_k w_pk^2 u_p / m_p^2 + the _gauss3 adjoint (the same
+// symmetric blur, wrapping) of the blurred variance's adjoint.
+// atrous_grad_sum_kernel: a block a parameter sums the blocks' rows in a
+// fixed order.
+//
+// What bounds them: instruction throughput, like the forward. A tap is
+// taken twice (the forward's sums first, then the tap back), so its
+// forward is computed twice, and the tap back adds ~300 float operations
+// (the MLP's layers back, the six per-tap parameter sums); the 96
+// parameter accumulators a thread live in registers. The planes cost 200
+// B a pixel of writes and reads (~415 MB an iteration at 1080p). Simple
+// and right first: a thread a pixel, taps read from global memory
+// through L1, no coset tiles.
+constexpr int kGradThreads = 128;
+constexpr int kMlpFloats = 6 * 16 + 16 + 16 + 1;
+
+// the hidden pre-activations, hidden units and logit of one learned tap,
+// in mlp_logit's operations and order
+__device__ __forceinline__ float mlp_tap(const MlpConst& m, float f0,
+                                         float f1, float f2, float gstd,
+                                         int r, float pre[16],
+                                         float hid[16]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float a = ((f0 * m.w1[0][k] + f1 * m.w1[1][k])
+                     + (f2 * m.w1[2][k] + gstd * m.w1[3][k])) + m.tab[r][k];
+    pre[k] = a + m.b1[k];
+    hid[k] = fmaxf(pre[k], 0.f);
+  }
+  float lane[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l)
+    lane[l] = __fmaf_rn(hid[l + 8], m.w2[l + 8], hid[l] * m.w2[l]);
+  const float z = ((lane[0] + lane[1]) + (lane[2] + lane[3]))
+      + ((lane[4] + lane[5]) + (lane[6] + lane[7]));
+  return z + m.b2;
+}
+
+// one learned tap's recomputed terms
+struct Tap {
+  float4 sc;
+  float dl, f0, f1, f2, z, e, wt;
+};
+
+__device__ __forceinline__ Tap learned_tap(
+    const MlpConst& mc, const float4* __restrict__ cv,
+    const float4* __restrict__ guide, int q, float lum_p, float gdiv,
+    float gstd, float4 ca, float4 cn, int di, int dj, float pre[16],
+    float hid[16]) {
+  Tap t;
+  t.sc = __ldg(cv + q);
+  const float4 sa = __ldg(guide + 2 * q), sn = __ldg(guide + 2 * q + 1);
+  const float da0 = sa.x - ca.x, da1 = sa.y - ca.y, da2 = sa.z - ca.z;
+  t.f2 = dot3(da0, da1, da2, da0, da1, da2);
+  const float ndot = dot3(sn.x, sn.y, sn.z, cn.x, cn.y, cn.z);
+  const bool both_bg = cn.w < 0.5f && sn.w < 0.5f;
+  t.dl = luminance(t.sc.x, t.sc.y, t.sc.z) - lum_p;
+  t.f0 = fabsf(t.dl) / gdiv;
+  t.f1 = both_bg ? 0.f : fmaxf(1.f - ndot, 0.f);
+  t.z = mlp_tap(mc, t.f0, t.f1, t.f2, gstd, di + dj, pre, hid);
+  const float sp = fmaxf(t.z, 0.f) + log1pf(expf(-fabsf(t.z)));
+  t.e = expf(-sp);
+  t.wt = (spline(di) * spline(dj)) * t.e;
+  return t;
+}
+
+__global__ void __launch_bounds__(kGradThreads) atrous_grad_taps_kernel(
+    int h, int w, int step, StepScalars s, const __grid_constant__ MlpConst mc,
+    const float4* __restrict__ cv, const float4* __restrict__ guide,
+    const float* __restrict__ g_out, const float* __restrict__ u_out,
+    float* __restrict__ w_plane, float* __restrict__ l_plane,
+    float4* __restrict__ pix, float2* __restrict__ pix2,
+    float* __restrict__ partial) {
+  __shared__ float red[16][kGradThreads];
+  const int n = h * w;
+  const int tid = threadIdx.x;
+  const int p = blockIdx.x * kGradThreads + tid;
+  float acc_f0[16], acc_f1[16], acc_f2[16], acc_r[16], acc_b1[16],
+      acc_w2[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    acc_f0[k] = acc_f1[k] = acc_f2[k] = acc_r[k] = acc_b1[k] = acc_w2[k] =
+        0.f;
+  float acc_b2 = 0.f, gstd = 0.f;
+  if (p < n) {
+    const int y = p / w, x = p - (p / w) * w;
+    const float4 cc = __ldg(cv + p), ca = __ldg(guide + 2 * p),
+                 cn = __ldg(guide + 2 * p + 1);
+    const float lum_p = luminance(cc.x, cc.y, cc.z);
+    const int yp = y + 1 == h ? 0 : y + 1, ym = y == 0 ? h - 1 : y - 1;
+    float r3[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int xx = j == 0 ? (x + 1 == w ? 0 : x + 1)
+          : j == 1 ? x : (x == 0 ? w - 1 : x - 1);
+      r3[j] = (0.25f * var_at(cv, w, yp, xx) + 0.5f * var_at(cv, w, y, xx))
+          + 0.25f * var_at(cv, w, ym, xx);
+    }
+    const float g = (0.25f * r3[0] + 0.5f * r3[1]) + 0.25f * r3[2];
+    gstd = sqrtf(fmaxf(g, 1e-12f));
+    const float gdiv = gstd + 1e-4f;
+    float pre[16], hid[16];
+    // the forward's sums, taps in (ky, kx) row-major order; tap (i, j)
+    // reads the roll source (y - (i - 2) s, x - (j - 2) s)
+    float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, vacc = 0.f, wsum = 0.f;
+#pragma unroll 1
+    for (int i = 0; i < 5; ++i) {
+      const int di = i < 2 ? 2 - i : i - 2;
+      const int row = wrap(y - (i - 2) * step, h) * w;
+#pragma unroll 1
+      for (int j = 0; j < 5; ++j) {
+        const int dj = j < 2 ? 2 - j : j - 2;
+        const Tap t = learned_tap(mc, cv, guide,
+                                  row + wrap(x - (j - 2) * step, w), lum_p,
+                                  gdiv, gstd, ca, cn, di, dj, pre, hid);
+        vacc = vacc + t.sc.w * (t.wt * t.wt);
+        acc0 = acc0 + t.sc.x * t.wt;
+        acc1 = acc1 + t.sc.y * t.wt;
+        acc2 = acc2 + t.sc.z * t.wt;
+        wsum = wsum + t.wt;
+      }
+    }
+    const float mm = fmaxf(wsum, 1e-6f);
+    const float o0 = acc0 / mm, o1 = acc1 / mm, o2 = acc2 / mm;
+    const float ov = vacc / (mm * mm);
+    const float ab0 = g_out[3 * p] / mm, ab1 = g_out[3 * p + 1] / mm,
+                ab2 = g_out[3 * p + 2] / mm;
+    const float vbar = u_out == nullptr ? 0.f : u_out[p] / (mm * mm);
+    const float sbar = wsum >= 1e-6f
+        ? -dot3(ab0, ab1, ab2, o0, o1, o2) - ((vbar + vbar) * ov) * mm
+        : 0.f;
+    float lp = 0.f, gstd_bar = 0.f;
+    // each tap back
+#pragma unroll 1
+    for (int i = 0; i < 5; ++i) {
+      const int di = i < 2 ? 2 - i : i - 2;
+      const int row = wrap(y - (i - 2) * step, h) * w;
+#pragma unroll 1
+      for (int j = 0; j < 5; ++j) {
+        const int dj = j < 2 ? 2 - j : j - 2;
+        const float wk = spline(di) * spline(dj);
+        const float radius = (float)(di + dj) * 0.25f;
+        const Tap t = learned_tap(mc, cv, guide,
+                                  row + wrap(x - (j - 2) * step, w), lum_p,
+                                  gdiv, gstd, ca, cn, di, dj, pre, hid);
+        const float w_bar = (dot3(ab0, ab1, ab2, t.sc.x, t.sc.y, t.sc.z)
+                             + (t.wt + t.wt) * (vbar * t.sc.w)) + sbar;
+        const float sig = 1.f / (1.f + expf(-t.z));
+        const float z_bar = -((w_bar * wk) * t.e) * sig;
+        float f0_bar = 0.f, f3_bar = 0.f;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const float a_h = pre[k] >= 0.f ? z_bar * mc.w2[k] : 0.f;
+          acc_w2[k] = acc_w2[k] + z_bar * hid[k];
+          acc_b1[k] = acc_b1[k] + a_h;
+          acc_f0[k] = acc_f0[k] + a_h * t.f0;
+          acc_f1[k] = acc_f1[k] + a_h * t.f1;
+          acc_f2[k] = acc_f2[k] + a_h * t.f2;
+          acc_r[k] = acc_r[k] + a_h * radius;
+          f0_bar = f0_bar + a_h * mc.w1[0][k];
+          f3_bar = f3_bar + a_h * mc.w1[3][k];
+        }
+        acc_b2 = acc_b2 + z_bar;
+        const float dl_bar = (t.dl >= 0.f ? f0_bar : -f0_bar) / gdiv;
+        lp = lp - dl_bar;
+        gstd_bar = gstd_bar
+            + (f3_bar - f0_bar * (fabsf(t.dl) / (gdiv * gdiv)));
+        const int k = i * 5 + j;
+        w_plane[(size_t)k * n + p] = t.wt;
+        l_plane[(size_t)k * n + p] = dl_bar;
+      }
+    }
+    pix[p] = make_float4(ab0, ab1, ab2, vbar);
+    pix2[p] = make_float2(lp, g >= 1e-12f ? gstd_bar / (gstd + gstd) : 0.f);
+  }
+  // the block's sums of the parameter gradients, pack_mlp's order: w1
+  // rows 0-5 (row 3 gstd x the b1 sum, row 4 it x it), b1, w2, then b2
+  float* out = partial + (size_t)blockIdx.x * kMlpFloats;
+#pragma unroll
+  for (int grp = 0; grp < 9; ++grp) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      float v;
+      switch (grp) {
+        case 0: v = acc_f0[k]; break;
+        case 1: v = acc_f1[k]; break;
+        case 2: v = acc_f2[k]; break;
+        case 3: v = gstd * acc_b1[k]; break;
+        case 4: v = s.it_feature * acc_b1[k]; break;
+        case 5: v = acc_r[k]; break;
+        case 6: v = acc_b1[k]; break;
+        case 7: v = acc_w2[k]; break;
+        default: v = k == 0 ? acc_b2 : 0.f;
+      }
+      red[k][tid] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int half = kGradThreads / 2; half > 0; half >>= 1) {
+      if (tid < half) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) red[k][tid] = red[k][tid] + red[k][tid + half];
+      }
+      __syncthreads();
+    }
+    if (grp < 8 && tid < 16) out[grp * 16 + tid] = red[tid][0];
+    if (grp == 8 && tid == 0) out[128] = red[0][0];
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(256) atrous_grad_gather_kernel(
+    int h, int w, int step, const float* __restrict__ w_plane,
+    const float* __restrict__ l_plane, const float4* __restrict__ pix,
+    const float2* __restrict__ pix2, float* __restrict__ d_color,
+    float* __restrict__ d_var) {
+  const int n = h * w;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  const int y = q / w, x = q - (q / w) * w;
+  float c0 = 0.f, c1 = 0.f, c2 = 0.f, dv = 0.f, lum = pix2[q].x;
+  // tap (i, j) of the pixel p = (y + (i - 2) s, x + (j - 2) s) read q
+#pragma unroll 1
+  for (int i = 0; i < 5; ++i) {
+    const int row = wrap(y + (i - 2) * step, h) * w;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const int pp = row + wrap(x + (j - 2) * step, w);
+      const size_t at = (size_t)(i * 5 + j) * n + pp;
+      const float wt = __ldg(w_plane + at);
+      const float4 pb = __ldg(pix + pp);
+      c0 = c0 + pb.x * wt;
+      c1 = c1 + pb.y * wt;
+      c2 = c2 + pb.z * wt;
+      dv = dv + pb.w * (wt * wt);
+      lum = lum + __ldg(l_plane + at);
+    }
+  }
+  // the _gauss3 adjoint: the same (1,2,1)/4 blur of the blurred
+  // variance's adjoint, down the rows, then along the columns
+  const int yp = y + 1 == h ? 0 : y + 1, ym = y == 0 ? h - 1 : y - 1;
+  float r3[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int xx = j == 0 ? (x + 1 == w ? 0 : x + 1)
+        : j == 1 ? x : (x == 0 ? w - 1 : x - 1);
+    r3[j] = (0.25f * __ldg(&pix2[yp * w + xx].y)
+             + 0.5f * __ldg(&pix2[y * w + xx].y))
+        + 0.25f * __ldg(&pix2[ym * w + xx].y);
+  }
+  const float gb = (0.25f * r3[0] + 0.5f * r3[1]) + 0.25f * r3[2];
+  d_color[3 * q] = c0 + lum * 0.2126f;
+  d_color[3 * q + 1] = c1 + lum * 0.7152f;
+  d_color[3 * q + 2] = c2 + lum * 0.0722f;
+  d_var[q] = dv + gb;
+}
+
+// block b sums column b of the (blocks, 129) rows, in a fixed order
+__global__ void __launch_bounds__(256) atrous_grad_sum_kernel(
+    int blocks, const float* __restrict__ partial, float* __restrict__ out) {
+  __shared__ float red[256];
+  const int t = threadIdx.x;
+  float acc = 0.f;
+  for (int b = t; b < blocks; b += 256)
+    acc = acc + __ldg(partial + (size_t)b * kMlpFloats + blockIdx.x);
+  red[t] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int half = 128; half > 0; half >>= 1) {
+    if (t < half) red[t] = red[t] + red[t + half];
+    __syncthreads();
+  }
+  if (t == 0) out[blockIdx.x] = red[0];
+}
+
 }  // namespace
 
 // n pixels, colour (n, 3), luminance variance (n; NULL: 0), albedo and
@@ -351,3 +651,59 @@ extern "C" int mpt_atrous_step(int mode, int h, int w, int step,
 
 // floats of MlpConst, for the wrapper's check
 extern "C" int mpt_atrous_mlp_floats() { return kMlpConstFloats; }
+
+// the learned iteration's first backward kernel: height, width, tap step,
+// StepScalars (host float[8]), MlpConst (host float[kMlpConstFloats]),
+// the iteration's carried float4s and guide rows, the cotangents of its
+// colour (h, w, 3) and variance (h, w; NULL: 0), out: the tap weights and
+// luminance adjoints (25, h, w) each, the pixel terms (h, w, 4) and
+// (h, w, 2), the blocks' parameter rows (ceil(h w / 128), 129), stream
+extern "C" int mpt_atrous_grad_taps(int h, int w, int step, const float* s,
+                                    const float* mlp, const void* cv,
+                                    const void* guide, const void* g_out,
+                                    const void* u_out, void* w_plane,
+                                    void* l_plane, void* pix, void* pix2,
+                                    void* partial, void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  if (step <= 0 || mlp == nullptr) return (int)cudaErrorInvalidValue;
+  const StepScalars sc = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
+  MlpConst mc = {};
+  float* dst = (float*)&mc;
+  for (int i = 0; i < kMlpConstFloats; ++i) dst[i] = mlp[i];
+  const int blocks = (h * w + kGradThreads - 1) / kGradThreads;
+  atrous_grad_taps_kernel<<<blocks, kGradThreads, 0, (cudaStream_t)stream>>>(
+      h, w, step, sc, mc, (const float4*)cv, (const float4*)guide,
+      (const float*)g_out, (const float*)u_out, (float*)w_plane,
+      (float*)l_plane, (float4*)pix, (float2*)pix2, (float*)partial);
+  return (int)cudaGetLastError();
+}
+
+// the second: height, width, tap step, the first's planes and pixel
+// terms, out: the colour (h, w, 3) and variance (h, w) cotangents, stream
+extern "C" int mpt_atrous_grad_gather(int h, int w, int step,
+                                      const void* w_plane,
+                                      const void* l_plane, const void* pix,
+                                      const void* pix2, void* d_color,
+                                      void* d_var, void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  if (step <= 0) return (int)cudaErrorInvalidValue;
+  const int n = h * w;
+  atrous_grad_gather_kernel<<<(n + 255) / 256, 256, 0,
+                              (cudaStream_t)stream>>>(
+      h, w, step, (const float*)w_plane, (const float*)l_plane,
+      (const float4*)pix, (const float2*)pix2, (float*)d_color,
+      (float*)d_var);
+  return (int)cudaGetLastError();
+}
+
+// the third: the rows' count, the rows (blocks, 129), out (129), stream
+extern "C" int mpt_atrous_grad_sum(int blocks, const void* partial,
+                                   void* out, void* stream) {
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
+  atrous_grad_sum_kernel<<<kMlpFloats, 256, 0, (cudaStream_t)stream>>>(
+      blocks, (const float*)partial, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// threads a block of the first, for the wrapper's row count
+extern "C" int mpt_atrous_grad_threads() { return kGradThreads; }

@@ -23,6 +23,20 @@ dot places them, sums left to right but in the MLP (``_mlp_logit``),
 taps in (ky, kx) row-major order, the Python constants rounded once to float32 and
 divisions as one IEEE division each (``vecmath.fdiv``).
 
+Gradients (the trainers, ``tools/train_denoiser*.py``): the learned
+filter differentiates as JAX differentiates it. Its plain version runs
+under autograd with two conventions of JAX's at ties: ``_AbsJax`` (the
+derivative of |x| is +1 at 0; feature 0 is 0 wherever two tapped pixels
+share a luminance) and ``_SoftplusJax`` (sigmoid(z), 0.5 at 0); the
+MLP's fused second layer goes through ``_Fma`` (``vecmath.fma``'s bit
+arithmetic has no derivative). ``clamp_min`` keeps torch's convention
+(it passes at equality, where JAX's ``maximum`` splits 0.5 / 0.5): the
+hidden units, ``max(gvar, 1e-12)`` and ``max(weight sum, 1e-6)``. On
+CUDA tensors ``kernels/denoise.atrous_filter`` records a
+``LearnedIteration`` an iteration instead, whose backward is three
+kernels; ``grad_taps_reference``, ``grad_gather_reference`` and
+``grad_sum_reference`` below are their plain versions.
+
 The vendored weights are the JAX package's files, copied into
 ``metal_pathtracer_tpu_torch/data`` (the tests hold the copies equal);
 ``MPT_UNET_DENOISE=0`` and ``MPT_LEARNED_DENOISE=0`` switch each tier off,
@@ -77,6 +91,62 @@ def _gauss3(img):
     return res
 
 
+class _AbsJax(torch.autograd.Function):
+    """``torch.abs`` whose derivative is JAX's: +1 for x >= 0 (torch's is 0
+    at 0). Feature 0 of the learned filter is ``|lum(s_col) - lum_p|``,
+    exactly 0 wherever two tapped pixels have the same luminance (every
+    flat background region), where the two conventions part."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, -grad)
+
+
+class _SoftplusJax(torch.autograd.Function):
+    """``_softplus_value``'s bits with ``sigmoid(z)`` as the derivative,
+    ``jax.nn.softplus``'s (0.5 at z = 0, where the composed torch ops
+    give 1)."""
+
+    @staticmethod
+    def forward(ctx, z):
+        ctx.save_for_backward(z)
+        return _softplus_value(z)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (z,) = ctx.saved_tensors
+        return grad * torch.sigmoid(z)
+
+
+class _Fma(torch.autograd.Function):
+    """``vecmath.fma`` (one rounding; its bit arithmetic has no derivative)
+    with the derivatives of a * b + c, each summed to its operand's
+    shape."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (a.shape, b.shape, c.shape)
+        return fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        sa, sb, sc = ctx.shapes
+        return ((grad * b).sum_to_size(sa), (grad * a).sum_to_size(sb),
+                grad.sum_to_size(sc))
+
+
+def _abs(x):
+    return _AbsJax.apply(x)
+
+
 def _tap_features(lum_p, gstd, normal, albedo, s_col, s_nrm, s_alb,
                   it_feature, radius):
     """Per-tap (H,W,6) feature planes for the learned weight net."""
@@ -85,7 +155,7 @@ def _tap_features(lum_p, gstd, normal, albedo, s_col, s_nrm, s_alb,
                         torch.clamp_min(1.0 - _dot(s_nrm, normal), 0.0))
     da = s_alb - albedo
     return torch.stack([
-        fdiv(torch.abs(_luminance(s_col) - lum_p), gstd + 1e-4),
+        fdiv(_abs(_luminance(s_col) - lum_p), gstd + 1e-4),
         ndiff,
         _dot(da, da),
         gstd,
@@ -102,11 +172,16 @@ def _mlp_logit(mlp, f):
     the bias; the second layer in eight lanes, lane l = fma(h[l + 8],
     w2[l + 8], h[l] w2[l]), the lanes in a tree, then the bias."""
     w1 = mlp[:96].reshape(6, 16)
-    b1, w2, b2 = mlp[96:112], mlp[112:128], mlp[128]
     p = [f[..., k:k + 1] * w1[k] for k in range(6)]
-    h = torch.clamp_min(((p[0] + p[1]) + (p[2] + p[3])) + (p[4] + p[5])
-                        + b1, 0.0)
-    lanes = [fma(h[..., l + 8], w2[l + 8], h[..., l] * w2[l])
+    return _mlp_out(mlp, torch.clamp_min(
+        ((p[0] + p[1]) + (p[2] + p[3])) + (p[4] + p[5]) + mlp[96:112], 0.0))
+
+
+def _mlp_out(mlp, h):
+    """The MLP's second layer on the hidden units h (..., 16): eight lanes
+    fma(h[l + 8], w2[l + 8], h[l] w2[l]) summed in a tree, then b2."""
+    w2, b2 = mlp[112:128], mlp[128]
+    lanes = [_Fma.apply(h[..., l + 8], w2[l + 8], h[..., l] * w2[l])
              for l in range(8)]
     z = ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) \
         + ((lanes[4] + lanes[5]) + (lanes[6] + lanes[7]))
@@ -131,22 +206,26 @@ def _mlp_logit_hoisted(mlp, f, p3, table_row):
     gstd w1[3] once a pixel (..., 16), and the (p4 + p5) row of the tap's
     radius from ``_mlp_table`` (..., 16); the same roundings in the same
     order, so the same bits."""
+    return _mlp_out(mlp, torch.clamp_min(_mlp_pre(mlp, f, p3, table_row),
+                                         0.0))
+
+
+def _mlp_pre(mlp, f, p3, table_row):
+    """The hidden units' pre-activations (..., 16) of the hoisted sum."""
     w1 = mlp[:96].reshape(6, 16)
-    b1, w2, b2 = mlp[96:112], mlp[112:128], mlp[128]
     p = [f[..., k:k + 1] * w1[k] for k in range(3)]
-    h = torch.clamp_min(((p[0] + p[1]) + (p[2] + p3)) + table_row + b1,
-                        0.0)
-    lanes = [fma(h[..., l + 8], w2[l + 8], h[..., l] * w2[l])
-             for l in range(8)]
-    z = ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) \
-        + ((lanes[4] + lanes[5]) + (lanes[6] + lanes[7]))
-    return z + b2
+    return ((p[0] + p[1]) + (p[2] + p3)) + table_row + mlp[96:112]
 
 
-def _softplus(z):
+def _softplus_value(z):
     """``jax.nn.softplus``: ``logaddexp(z, 0)`` = max(z, 0) +
     log1p(exp(-|z|)), with no threshold."""
     return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+
+def _softplus(z):
+    """``_softplus_value`` differentiated as JAX differentiates it."""
+    return _SoftplusJax.apply(z)
 
 
 def atrous_step_reference(color, var, albedo, normal, p: StepParams,
@@ -246,6 +325,166 @@ def atrous_filter_reference(color, var, albedo, normal, steps, mlp=None):
         color, var = atrous_step_reference(color, var, albedo, normal, p,
                                            mlp)
     return color, var
+
+
+def _learned_taps(color, var, albedo, normal, p: StepParams, mlp):
+    """The learned iteration's per-tap terms, tap by tap in (ky, kx)
+    row-major order, as ``atrous_step_reference`` forms them (the same
+    bits): per tap (shift, B3 weight, radius, s_col, s_var, the luminance
+    difference, features 0-2, the hidden pre-activations, the hidden
+    units, the logit, exp(-softplus), the weight); and the pixel's
+    (luminance, blurred variance, gstd)."""
+    g = _gauss3(var)
+    gstd = torch.sqrt(torch.clamp_min(g, 1e-12))
+    gdiv = gstd + 1e-4
+    lum_p = _luminance(color)
+    nn = _dot(normal, normal)
+    w1 = mlp[:96].reshape(6, 16)
+    p3 = gstd[..., None] * w1[3]
+    table = _mlp_table(mlp, p.it_feature)
+    taps = []
+    for ky, wy in zip(_TAPS, _KERNEL):
+        for kx, wx in zip(_TAPS, _KERNEL):
+            shift = (ky * p.step, kx * p.step)
+            s_col = torch.roll(color, shift, (0, 1))
+            s_nrm = torch.roll(normal, shift, (0, 1))
+            da = torch.roll(albedo, shift, (0, 1)) - albedo
+            dl = _luminance(s_col) - lum_p
+            f0 = fdiv(torch.abs(dl), gdiv)
+            both_bg = (nn < 0.5) & (_dot(s_nrm, s_nrm) < 0.5)
+            f1 = torch.where(both_bg, 0.0, torch.clamp_min(
+                1.0 - _dot(s_nrm, normal), 0.0))
+            f2 = _dot(da, da)
+            radius = abs(ky) + abs(kx)
+            pre = _mlp_pre(mlp, torch.stack([f0, f1, f2], -1), p3,
+                           table[radius])
+            hid = torch.clamp_min(pre, 0.0)
+            z = _mlp_out(mlp, hid)
+            e = torch.exp(-_softplus_value(z))
+            taps.append(dict(shift=shift, w_k=wy * wx, radius=radius / 4.0,
+                             s_col=s_col, s_var=torch.roll(var, shift, (0, 1)),
+                             dl=dl, f=(f0, f1, f2), pre=pre, hid=hid, z=z,
+                             e=e, w=(wy * wx) * e))
+    return taps, lum_p, g, gstd
+
+
+def grad_taps_reference(cv, guide, p: StepParams, mlp, g_out, u_out):
+    """Plain version of ``kernels/denoise.grad_taps``, the first backward
+    kernel of a learned iteration: from the iteration's rows (``pack``),
+    the packed MLP and the cotangents of its outputs (g_out (H, W, 3),
+    u_out (H, W) or None), each pixel's 25 tap weights and the adjoints of
+    their luminances (w_plane, l_plane: (25, H, W)), its own terms (pix
+    (H, W, 4): dL/dA = g / m and dL/dV = u / m^2; pix2 (H, W, 2): the
+    adjoint of its own luminance and of its blurred variance) and its
+    share of the 129 parameter gradients (rows (H W, 129), ``pack_mlp``'s
+    order; the kernel writes one row a block). Derivatives as JAX takes
+    them but at the ties the plain version keeps (``_AbsJax``,
+    ``_SoftplusJax``; ``clamp_min`` passes at equality)."""
+    color, var, albedo, normal = unpack(cv, guide)
+    taps, lum_p, g, gstd = _learned_taps(color, var, albedo, normal, p, mlp)
+    gdiv = gstd + 1e-4
+    w1, w2 = mlp[:96].reshape(6, 16), mlp[112:128]
+    acc = torch.zeros_like(color)
+    vacc = torch.zeros_like(var)
+    wsum = torch.zeros_like(var)
+    for t in taps:
+        acc = acc + t["s_col"] * t["w"][..., None]
+        vacc = vacc + t["s_var"] * (t["w"] * t["w"])
+        wsum = wsum + t["w"]
+    m = torch.clamp_min(wsum, 1e-6)
+    o = fdiv(acc, m[..., None])
+    ov = fdiv(vacc, m * m)
+    if u_out is None:
+        u_out = torch.zeros_like(var)
+    a_bar = fdiv(g_out, m[..., None])
+    v_bar = fdiv(u_out, m * m)
+    s_bar = torch.where(wsum >= 1e-6,
+                        -_dot(a_bar, o) - ((v_bar + v_bar) * ov) * m, 0.0)
+    rows = torch.zeros(var.shape + (6, 16), dtype=torch.float32,
+                       device=var.device)
+    b1_rows = torch.zeros(var.shape + (16,), dtype=torch.float32,
+                          device=var.device)
+    w2_rows = torch.zeros_like(b1_rows)
+    b2_rows = torch.zeros_like(var)
+    lp = torch.zeros_like(var)
+    gstd_bar = torch.zeros_like(var)
+    w_plane, l_plane = [], []
+    for t in taps:
+        w = t["w"]
+        w_bar = (_dot(a_bar, t["s_col"]) + (w + w) * (v_bar * t["s_var"])) \
+            + s_bar
+        sig = fdiv(1.0, 1.0 + torch.exp(-t["z"]))
+        z_bar = -((w_bar * t["w_k"]) * t["e"]) * sig
+        a_h = torch.where(t["pre"] >= 0, z_bar[..., None] * w2, 0.0)
+        w2_rows = w2_rows + z_bar[..., None] * t["hid"]
+        b2_rows = b2_rows + z_bar
+        b1_rows = b1_rows + a_h
+        f0, f1, f2 = t["f"]
+        for c, f in enumerate((f0, f1, f2)):
+            rows[..., c, :] = rows[..., c, :] + a_h * f[..., None]
+        rows[..., 5, :] = rows[..., 5, :] + a_h * t["radius"]
+        f0_bar = torch.zeros_like(var)
+        f3_bar = torch.zeros_like(var)
+        for j in range(16):
+            f0_bar = f0_bar + a_h[..., j] * w1[0, j]
+            f3_bar = f3_bar + a_h[..., j] * w1[3, j]
+        dl_bar = fdiv(torch.where(t["dl"] >= 0, f0_bar, -f0_bar), gdiv)
+        lp = lp - dl_bar
+        gstd_bar = gstd_bar + (f3_bar - f0_bar * fdiv(torch.abs(t["dl"]),
+                                                      gdiv * gdiv))
+        w_plane.append(w)
+        l_plane.append(dl_bar)
+    rows[..., 3, :] = gstd[..., None] * b1_rows
+    rows[..., 4, :] = p.it_feature * b1_rows
+    gv_bar = torch.where(g >= 1e-12, fdiv(gstd_bar, gstd + gstd), 0.0)
+    n = var.numel()
+    return (torch.stack(w_plane), torch.stack(l_plane),
+            torch.cat([a_bar, v_bar[..., None]], -1),
+            torch.stack([lp, gv_bar], -1),
+            torch.cat([rows.reshape(n, 96), b1_rows.reshape(n, 16),
+                       w2_rows.reshape(n, 16), b2_rows.reshape(n, 1)], 1))
+
+
+def grad_gather_reference(p: StepParams, w_plane, l_plane, pix, pix2):
+    """Plain version of ``kernels/denoise.grad_gather``, the second
+    backward kernel: each pixel q gathers what the pixels that tapped it
+    (p = q + (ky, kx) step, wrapping) owe it, in tap order: the colour
+    adjoint sum_k w_pk dL/dA_p + lum weights x (its own luminance adjoint
+    + the taps' l_pk), and the variance adjoint sum_k w_pk^2 dL/dV_p plus
+    the ``_gauss3`` adjoint (the same symmetric blur) of the blurred
+    variance's. Returns (dL/dcolour (H, W, 3), dL/dvariance (H, W))."""
+    dc = torch.zeros_like(pix[..., :3])
+    dv = torch.zeros_like(pix[..., 0])
+    lum = pix2[..., 0]
+    k = 0
+    for ky in _TAPS:
+        for kx in _TAPS:
+            back = (-ky * p.step, -kx * p.step)
+            w = torch.roll(w_plane[k], back, (0, 1))
+            src = torch.roll(pix, back, (0, 1))
+            dc = dc + src[..., :3] * w[..., None]
+            dv = dv + src[..., 3] * (w * w)
+            lum = lum + torch.roll(l_plane[k], back, (0, 1))
+            k += 1
+    lw = torch.tensor((0.2126, 0.7152, 0.0722), dtype=torch.float32,
+                      device=pix.device)
+    return dc + lum[..., None] * lw, dv + _gauss3(pix2[..., 1])
+
+
+def grad_sum_reference(rows):
+    """Plain version of ``kernels/denoise.grad_sum``: the 129 parameter
+    gradients, the rows summed."""
+    return rows.sum(0)
+
+
+def atrous_step_grad_reference(cv, guide, p: StepParams, mlp, g_out,
+                               u_out):
+    """The three backward kernels' plain versions in a row: (dL/dcolour,
+    dL/dvariance, dL/dmlp) of one learned iteration."""
+    w_plane, l_plane, pix, pix2, rows = grad_taps_reference(
+        cv, guide, p, mlp, g_out, u_out)
+    dc, dv = grad_gather_reference(p, w_plane, l_plane, pix, pix2)
+    return dc, dv, grad_sum_reference(rows)
 
 
 def _prepare(*xs):

@@ -17,10 +17,17 @@ convolutions in TF32 by default; ``DenoiseUNet.forward`` runs under
 call, so the card computes in float32 as the JAX package does. The
 public functions keep the JAX package's NHWC layout; the convolutions
 see the same memory as NCHW in channels-last order.
+
+A net from ``from_params`` is frozen and runs under ``torch.no_grad``
+(the display path). Its trainer (``tools/train_denoiser_unet.py``) sets
+``requires_grad_(True)``; ``forward`` then records the graph under the
+same cuDNN flags (``cudnn_float32``, which the trainer also holds around
+the backward), and ``params`` gives the weights back by name.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -52,6 +59,14 @@ def init_params(generator: torch.Generator) -> dict:
         params[name + "_w"] = w
         params[name + "_b"] = torch.zeros((cout,), dtype=torch.float32)
     return params
+
+
+def cudnn_float32():
+    """cuDNN in float32 (TF32 off) with deterministic algorithms: the
+    forward's flags, and its trainer's around the backward, which runs
+    outside ``forward``."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
 
 
 def _leaky(y):
@@ -89,16 +104,27 @@ class DenoiseUNet(nn.Module):
             conv.bias = nn.Parameter(params[name + "_b"], requires_grad=False)
         return net
 
+    def params(self) -> dict:
+        """The weights by the JAX package's names (``name_w`` OIHW,
+        ``name_b``): the tensors themselves."""
+        out = {}
+        for name, _, _ in LAYERS:
+            out[name + "_w"] = self.convs[name].weight
+            out[name + "_b"] = self.convs[name].bias
+        return out
+
     def _conv(self, name, x, relu=True):
         y = self.convs[name](x)
         return _leaky(y) if relu else y
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """feats: (N, H, W, IN_CH) with H, W divisible by 8. Returns the
-        log-space residual (N, H, W, 3)."""
-        with torch.no_grad(), torch.backends.cudnn.flags(
-                enabled=True, benchmark=False, deterministic=True,
-                allow_tf32=False):
+        log-space residual (N, H, W, 3); under ``no_grad`` unless a weight
+        requires grad in grad mode."""
+        train = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        with contextlib.nullcontext() if train else torch.no_grad(), \
+                cudnn_float32():
             x = feats.permute(0, 3, 1, 2)
             e1 = self._conv("enc1", x)
             e2 = self._conv("enc2", _pool(e1))

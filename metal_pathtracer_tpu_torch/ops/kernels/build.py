@@ -121,6 +121,20 @@ SIGNATURES = {
     "mpt_atrous_step": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                         _vp],
     "mpt_atrous_mlp_floats": [],
+    # the learned iteration's backward, first kernel: height, width, tap
+    # step, scalars (host float[8]), the MLP's launch constants (host
+    # float[]), carried float4s, guide rows, colour and variance
+    # cotangents (NULL: 0), out tap weights, luminance adjoints, pixel
+    # terms (float4, float2), the blocks' parameter rows, stream
+    "mpt_atrous_grad_taps": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                             _vp, _vp, _vp, _vp, _vp],
+    # second: height, width, tap step, the first's planes and pixel terms,
+    # out colour and variance cotangents, stream
+    "mpt_atrous_grad_gather": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
+                               _vp],
+    # third: the rows' count, the rows, out (129), stream
+    "mpt_atrous_grad_sum": [_i, _vp, _vp, _vp],
+    "mpt_atrous_grad_threads": [],
 }
 
 

@@ -22,6 +22,19 @@ constant terms, the tap normal's n.n and the radius feature were
 hoisted), 43 and 45 for ``FIXED`` and ``SVGF``, each its own instruction
 (``--fmad=false``).
 
+Training: in grad mode, with the colour, the variance or the packed MLP
+requiring grad, ``atrous_filter`` runs a learned filter as one
+``LearnedIteration`` (a ``torch.autograd.Function``) an iteration: its
+forward is ``atrous_step`` (a pack, then the step, the same bits as the
+filter without grad); its backward, ``atrous_step_grad``, launches
+``grad_taps`` (a thread a pixel retakes its 25 taps and takes each back:
+tap weights and luminance adjoints as (25, H, W) planes, its own terms,
+a row of the 129 parameter gradients a block), ``grad_gather`` (each
+pixel sums what its tappers owe it: the colour and variance cotangents)
+and ``grad_sum`` (the rows in a fixed order: no atomics, so the same
+bits every launch). CPU tensors run autograd through the plain version
+instead; the fixed and SVGF filters have no backward kernel.
+
 ``atrous_step`` keeps the per-iteration contract on (H, W, 3) tensors
 (one ``pack`` launch, then one step launch); the chip checks hold each
 iteration of either entry against ``ops/denoise.atrous_step_reference``.
@@ -106,8 +119,12 @@ def pack_mlp(params: dict) -> torch.Tensor:
     """The tap MLP's weights as one contiguous (129,) float32 tensor on
     their device (``MLP_FLOATS``'s order); the same tensor again for the
     same, unchanged weight tensors, so its host copy (``mlp_host``) is
-    made once."""
+    made once. Weights that require grad, in grad mode, are packed afresh
+    each call and not kept: the packed tensor carries their graph, which
+    the first backward frees."""
     ws = [params[k] for k in ("w1", "b1", "w2", "b2")]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ws):
+        return torch.cat([x.reshape(-1) for x in ws]).to(torch.float32)
     versions = tuple(x._version for x in ws)
     got = _PACKED.get(ws[0])
     if got is not None and all(a is b for a, b in zip(got[:3], ws[1:])) \
@@ -321,13 +338,198 @@ def atrous_step(color, var, albedo, normal, p: StepParams, mlp=None):
 atrous_step.launches = 0
 
 
+#: threads a block of ``grad_taps``' kernel: one parameter row a block
+GRAD_THREADS = 128
+
+
+def _cotangents(g_out, u_out, h, w, dev):
+    g = torch.zeros((h, w, 3), dtype=torch.float32, device=dev) \
+        if g_out is None else g_out.to(torch.float32).contiguous()
+    u = None if u_out is None else u_out.to(torch.float32).contiguous()
+    return g, u
+
+
+def grad_taps(cv, guide, p: StepParams, mlp, g_out, u_out):
+    """The first backward kernel of a learned iteration (on its rows, the
+    packed MLP and the cotangents of its colour and variance; ``u_out``
+    None for 0): (the tap weights and the adjoints of the tapped
+    luminances, (25, H, W) each; dL/dA and dL/dV a pixel (H, W, 4); the
+    adjoints of each pixel's own luminance and blurred variance (H, W,
+    2); parameter-gradient rows (R, 129), a row a block of
+    ``GRAD_THREADS`` pixels on CUDA, a row a pixel on the CPU). CPU
+    tensors run ``ops/denoise.grad_taps_reference``; CUDA tensors launch
+    ``csrc/denoise.cu atrous_grad_taps_kernel``."""
+    dev = cv.device
+    if dev.type == "cpu":
+        from metal_pathtracer_tpu_torch.ops.denoise import (
+            grad_taps_reference,
+        )
+        return grad_taps_reference(cv, guide, p, mlp, g_out, u_out)
+    if dev.type != "cuda":
+        raise ValueError(f"grad_taps: unsupported device {dev}")
+    if p.mode != LEARNED:
+        raise ValueError("grad_taps: only the learned filter has a backward "
+                         "kernel")
+    h, w = cv.shape[:2]
+    _check_need("grad_taps", [("cv", cv, (h, w, 4)),
+                              ("guide", guide, (h, w, 8)),
+                              ("mlp", mlp, (MLP_FLOATS,)),
+                              ("g_out", g_out, (h, w, 3))]
+                + ([] if u_out is None else [("u_out", u_out, (h, w))]),
+                dev)
+    build.check_aligned("grad_taps", (cv, guide), 16)
+    n = h * w
+    blocks = -(-n // GRAD_THREADS)
+    w_plane = torch.empty((25, h, w), dtype=torch.float32, device=dev)
+    l_plane = torch.empty_like(w_plane)
+    pix = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    pix2 = torch.empty((h, w, 2), dtype=torch.float32, device=dev)
+    rows = torch.empty((blocks, MLP_FLOATS), dtype=torch.float32,
+                       device=dev)
+    consts = np.ascontiguousarray(mlp_constants(mlp_host(mlp),
+                                                p.it_feature))
+    err = build.load().mpt_atrous_grad_taps(
+        h, w, p.step, build.floats(p.scalars()), consts.ctypes.data,
+        _ptr(cv), _ptr(guide), _ptr(g_out), _ptr(u_out), _ptr(w_plane),
+        _ptr(l_plane), _ptr(pix), _ptr(pix2), _ptr(rows), _stream(dev))
+    build.check(err, "mpt_atrous_grad_taps")
+    grad_taps.launches += 1
+    return w_plane, l_plane, pix, pix2, rows
+
+
+def grad_gather(p: StepParams, w_plane, l_plane, pix, pix2):
+    """The second backward kernel: (dL/dcolour (H, W, 3), dL/dvariance
+    (H, W)) gathered from ``grad_taps``' planes and pixel terms. CPU
+    tensors run ``ops/denoise.grad_gather_reference``; CUDA tensors launch
+    ``atrous_grad_gather_kernel``."""
+    dev = pix.device
+    if dev.type == "cpu":
+        from metal_pathtracer_tpu_torch.ops.denoise import (
+            grad_gather_reference,
+        )
+        return grad_gather_reference(p, w_plane, l_plane, pix, pix2)
+    if dev.type != "cuda":
+        raise ValueError(f"grad_gather: unsupported device {dev}")
+    h, w = pix.shape[:2]
+    _check_need("grad_gather", [("w_plane", w_plane, (25, h, w)),
+                                ("l_plane", l_plane, (25, h, w)),
+                                ("pix", pix, (h, w, 4)),
+                                ("pix2", pix2, (h, w, 2))], dev)
+    build.check_aligned("grad_gather", (pix,), 16)
+    d_color = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    d_var = torch.empty((h, w), dtype=torch.float32, device=dev)
+    err = build.load().mpt_atrous_grad_gather(
+        h, w, p.step, _ptr(w_plane), _ptr(l_plane), _ptr(pix), _ptr(pix2),
+        _ptr(d_color), _ptr(d_var), _stream(dev))
+    build.check(err, "mpt_atrous_grad_gather")
+    grad_gather.launches += 1
+    return d_color, d_var
+
+
+def grad_sum(rows):
+    """The third backward kernel: the 129 parameter gradients, ``rows``
+    (R, 129) summed in a fixed order. CPU tensors run
+    ``ops/denoise.grad_sum_reference``; CUDA tensors launch
+    ``atrous_grad_sum_kernel``."""
+    dev = rows.device
+    if dev.type == "cpu":
+        from metal_pathtracer_tpu_torch.ops.denoise import grad_sum_reference
+        return grad_sum_reference(rows)
+    if dev.type != "cuda":
+        raise ValueError(f"grad_sum: unsupported device {dev}")
+    _check_need("grad_sum", [("rows", rows, (rows.shape[0], MLP_FLOATS))],
+                dev)
+    out = torch.empty(MLP_FLOATS, dtype=torch.float32, device=dev)
+    err = build.load().mpt_atrous_grad_sum(rows.shape[0], _ptr(rows),
+                                           _ptr(out), _stream(dev))
+    build.check(err, "mpt_atrous_grad_sum")
+    grad_sum.launches += 1
+    return out
+
+
+#: launches since the last reset of each backward kernel
+grad_taps.launches = grad_gather.launches = grad_sum.launches = 0
+
+
+def atrous_step_grad(cv, guide, p: StepParams, mlp, g_out, u_out,
+                     inputs: bool = True, params: bool = True):
+    """The backward of one learned iteration on its rows: (dL/dcolour
+    (H, W, 3), dL/dvariance (H, W), dL/dmlp (129,)), the first two None
+    unless ``inputs``, the last None unless ``params``: ``grad_taps``,
+    then ``grad_gather`` and ``grad_sum`` as asked."""
+    h, w = cv.shape[:2]
+    g_out, u_out = _cotangents(g_out, u_out, h, w, cv.device)
+    w_plane, l_plane, pix, pix2, rows = grad_taps(cv, guide, p, mlp, g_out,
+                                                  u_out)
+    d_color = d_var = d_mlp = None
+    if inputs:
+        d_color, d_var = grad_gather(p, w_plane, l_plane, pix, pix2)
+    if params:
+        d_mlp = grad_sum(rows)
+    return d_color, d_var, d_mlp
+
+
+class LearnedIteration(torch.autograd.Function):
+    """One learned iteration (``atrous_step``: ``pack``, then one launch of
+    ``atrous_step_kernel``; the same bits as the filter without grad),
+    whose backward is ``atrous_step_grad``'s kernels. Inputs: colour
+    (H, W, 3), luminance variance (H, W), packed MLP (129), then albedo,
+    normal and the ``StepParams``, which take no gradient."""
+
+    @staticmethod
+    def forward(ctx, color, var, mlp, albedo, normal, p):
+        cv, guide = pack(color, var, albedo, normal)
+        out, out_var = atrous_step_packed(cv, guide, p, mlp, last=True)
+        ctx.save_for_backward(cv, guide)
+        # the input itself, so that its host copy (mlp_host) is reused
+        ctx.mlp, ctx.p = mlp, p
+        ctx.set_materialize_grads(False)
+        return out, out_var
+
+    @staticmethod
+    def backward(ctx, g_out, u_out):
+        cv, guide = ctx.saved_tensors
+        need_c, need_v, need_m = ctx.needs_input_grad[:3]
+        d_color, d_var, d_mlp = atrous_step_grad(
+            cv, guide, ctx.p, ctx.mlp, g_out, u_out,
+            inputs=need_c or need_v, params=need_m)
+        return (d_color if need_c else None, d_var if need_v else None,
+                d_mlp, None, None, None)
+
+
+def _needs_grad(color, var, mlp) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (color, var, mlp))
+
+
 def atrous_filter(color, var, albedo, normal, steps, mlp=None):
     """A whole filter: the iterations ``steps`` (``StepParams``, one mode)
     over colour (H, W, 3) and, in the variance-guided modes, the luminance
     variance (H, W): one ``pack``, then ``atrous_step_packed`` an
-    iteration. Returns (colour (H, W, 3), variance (H, W) or None)."""
+    iteration. Returns (colour (H, W, 3), variance (H, W) or None).
+
+    In grad mode, with the colour, the variance or the MLP requiring grad,
+    a learned filter records its graph: on the CPU through the plain
+    version (``ops/denoise.atrous_filter_reference``), on CUDA as one
+    ``LearnedIteration`` an iteration, whose backward launches the
+    backward kernels. The fixed and SVGF filters have none: on CUDA they
+    raise in that case."""
     steps = list(steps)
     if not steps:
+        return color, var
+    if _needs_grad(color, var, mlp):
+        if color.device.type == "cpu":
+            from metal_pathtracer_tpu_torch.ops.denoise import (
+                atrous_filter_reference,
+            )
+            return atrous_filter_reference(color, var, albedo, normal, steps,
+                                           mlp)
+        if steps[0].mode != LEARNED:
+            raise ValueError("atrous_filter: only the learned filter has a "
+                             "backward kernel; run the others without grad")
+        for p in steps:
+            color, var = LearnedIteration.apply(color, var, mlp, albedo,
+                                                normal, p)
         return color, var
     cv, guide = pack(color, None if steps[0].mode == FIXED else var, albedo,
                      normal)

@@ -1709,6 +1709,189 @@ def test_denoised_display_launches_the_kernel(dev):
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
+# ---- the denoisers' training path ------------------------------------------
+
+def _grad_scene(dev, h, w, seed=19):
+    """A learned filter's inputs and reference with a background band (no
+    variance, zero AOVs) and an unlit band (luminance ties)."""
+    rng = np.random.default_rng(seed)
+    c = rng.gamma(1.2, 0.6, (h, w, 3)).astype(np.float32)
+    var = rng.uniform(0.0, 0.05, (h, w, 3)).astype(np.float32)
+    a = rng.uniform(0.05, 0.95, (h, w, 3)).astype(np.float32)
+    n = rng.normal(size=(h, w, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    ref = rng.gamma(1.2, 0.6, (h, w, 3)).astype(np.float32)
+    band = h // 8
+    c[:band] = (0.65, 0.75, 0.95)
+    var[:band], a[:band], n[:band] = 0.0, 0.0, 0.0
+    c[2 * band:4 * band] = 0.0
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            dict(noisy=c, albedo=a, normal=n, variance=var, ref=ref).items()}
+
+
+def _vendored_mlp(dev):
+    from metal_pathtracer_tpu_torch import convert
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+
+    with np.load(D.DATA_DIR + "/denoiser_weights.npz") as z:
+        params = convert.denoiser_params({k: z[k] for k in z.files}, dev)
+    return {k: v.requires_grad_() for k, v in params.items()}
+
+
+def _learned_grads(params, d, iters, plain=False):
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+    from metal_pathtracer_tpu_torch.tools import train_denoiser as td
+
+    d = dict(d, noisy=d["noisy"].clone().requires_grad_(),
+             variance=d["variance"].clone().requires_grad_())
+    patch = mock.patch.object(K, "atrous_filter", D.atrous_filter_reference) \
+        if plain else contextlib.nullcontext()
+    with patch:
+        loss = td.scene_error(params, d, (iters,))
+        return torch.autograd.grad(
+            loss, [params[k] for k in ("w1", "b1", "w2", "b2")]
+            + [d["noisy"], d["variance"]])
+
+
+def _rel_norm(got, want):
+    got = torch.cat([x.reshape(-1) for x in got]).double().cpu()
+    want = torch.cat([x.reshape(-1) for x in want]).double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("iters", [4, 5])
+def test_learned_backward_vs_plain_autograd_on_card(dev, iters):
+    """The learned filter's gradients through ``LearnedIteration`` (the
+    backward kernels) against autograd through the plain version on the
+    card, at 4 and 5 iterations on a 96x80 state with ties: MLP, colour
+    and variance within 1e-4 relative norm; the forward with grad
+    bit-equal to the forward without; one backward launch of each kernel
+    an iteration (the gather none where no input needs a gradient)."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+
+    d = _grad_scene(dev, 80, 96)
+    params = _vendored_mlp(dev)
+    before = (K.grad_taps.launches, K.grad_gather.launches,
+              K.grad_sum.launches)
+    got = _learned_grads(params, d, iters)
+    assert (K.grad_taps.launches - before[0], K.grad_gather.launches
+            - before[1], K.grad_sum.launches - before[2]) == (iters,) * 3
+    want = _learned_grads(params, d, iters, plain=True)
+    for sl in (slice(0, 4), slice(4, 5), slice(5, 6)):
+        assert _rel_norm(got[sl], want[sl]) <= 1e-4
+    args = (d["noisy"], d["albedo"], d["normal"], d["variance"])
+    with torch.no_grad():
+        free = D.learned_denoise(*args, params, iters)
+    assert torch.equal(D.learned_denoise(*args, params, iters).detach(),
+                       free)
+    only_mlp = (K.grad_gather.launches, K.grad_taps.launches)
+    torch.autograd.grad(D.learned_denoise(*args, params, iters).sum(),
+                        params["w1"])
+    assert K.grad_gather.launches - only_mlp[0] == iters - 1
+    assert K.grad_taps.launches - only_mlp[1] == iters
+
+
+def test_backward_kernels_vs_twins_on_card(dev):
+    """Each backward kernel against its plain twin on the same inputs at
+    every step of a 5-iteration filter on a 53x71 state (1e-4 relative
+    norm an output), and two launches of each bit-equal."""
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
+
+    assert build.load().mpt_atrous_grad_threads() == K.GRAD_THREADS
+    d = _grad_scene(dev, 53, 71)
+    kept = []
+    real = K.atrous_step_grad
+
+    def keep(*a, **k):
+        kept.append(a)
+        return real(*a, **k)
+
+    with mock.patch.object(K, "atrous_step_grad", keep):
+        _learned_grads(_vendored_mlp(dev), d, 5)
+    assert len(kept) == 5
+    for cv, guide, p, mlp, g_out, u_out in kept:
+        mlp = mlp.detach()
+        g_out, u_out = K._cotangents(g_out, u_out, 53, 71, dev)
+        got = K.grad_taps(cv, guide, p, mlp, g_out, u_out)
+        again = K.grad_taps(cv, guide, p, mlp, g_out, u_out)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        want = D.grad_taps_reference(cv, guide, p, mlp, g_out, u_out)
+        for x, y in zip(got[:4], want[:4]):
+            assert _rel_norm([x], [y]) <= 1e-4
+        sums = K.grad_sum(got[4])
+        assert torch.equal(sums, K.grad_sum(got[4]))
+        assert _rel_norm([sums], [D.grad_sum_reference(want[4])]) <= 1e-4
+        assert _rel_norm([sums], [D.grad_sum_reference(got[4])]) <= 1e-6
+        gather = K.grad_gather(p, *got[:4])
+        assert all(torch.equal(x, y) for x, y in
+                   zip(gather, K.grad_gather(p, *got[:4])))
+        for x, y in zip(gather, D.grad_gather_reference(p, *got[:4])):
+            assert _rel_norm([x], [y]) <= 1e-4
+
+
+def test_only_the_learned_filter_trains_on_card(dev):
+    from metal_pathtracer_tpu_torch.ops import denoise as D
+
+    d = _grad_scene(dev, 16, 16)
+    noisy = d["noisy"].clone().requires_grad_()
+    with pytest.raises(ValueError, match="backward kernel"):
+        D.svgf_denoise(noisy, d["albedo"], d["normal"], d["variance"])
+    with torch.no_grad():
+        D.svgf_denoise(noisy, d["albedo"], d["normal"], d["variance"])
+
+
+def test_trainers_steps_on_card(dev, tmp_path):
+    """Two steps of each trainer on one scene rendered on the card at
+    32x32 (16x16 crops for the U-Net), each step's gradients against the
+    plain version's on the same data copied to the CPU: 1e-4 relative
+    norm."""
+    from metal_pathtracer_tpu_torch import convert
+    from metal_pathtracer_tpu_torch.ops import denoise_unet as U
+    from metal_pathtracer_tpu_torch.tools import train_denoiser as td
+    from metal_pathtracer_tpu_torch.tools import train_denoiser_unet as tu
+
+    stacked = td.load_renders([td.SCENES[0]], 32, 32, 2, 4, dev,
+                              str(tmp_path), log=lambda m: None)
+    data = [{k: torch.from_numpy(v[0]).to(dev) for k, v in stacked.items()}]
+    cpu = [{k: v.cpu() for k, v in data[0].items()}]
+    params = {k: v.to(dev).requires_grad_() for k, v in td.init_params(
+        torch.Generator().manual_seed(0)).items()}
+    keys = ("w1", "b1", "w2", "b2")
+
+    def tap_check(step, grads):
+        same = {k: v.detach().cpu().requires_grad_()
+                for k, v in params.items()}
+        want = torch.autograd.grad(td.loss_fn(same, cpu),
+                                   [same[k] for k in keys])
+        assert _rel_norm([grads[k] for k in keys], want) <= 1e-4
+
+    _, _, losses, _ = td.train(params, lambda p: td.loss_fn(p, data), 2,
+                               log=lambda m: None, check=tap_check)
+    assert np.isfinite(losses).all()
+
+    base = tu.prepass(stacked, dev)
+    feats = tu.features(base, stacked, dev)
+    net = U.DenoiseUNet.from_params(convert.denoiser_params(U.init_params(
+        torch.Generator().manual_seed(0)), dev))
+    net.requires_grad_(True)
+
+    def unet_check(step, batch, grads):
+        on_cpu = U.DenoiseUNet.from_params(
+            {k: v.detach().cpu() for k, v in net.params().items()})
+        on_cpu.requires_grad_(True)
+        _, want = tu.gradients(on_cpu, *(x.cpu() for x in batch))
+        assert _rel_norm(list(grads.values()), list(want.values())) <= 1e-4
+
+    losses, _ = tu.train(net, feats, base, stacked["noisy"], stacked["ref"],
+                         2, crop=16, batch=2, device=dev,
+                         log=lambda m: None, check=unet_check)
+    assert np.isfinite(losses).all()
+
+
 def _free_port() -> int:
     import socket
 
