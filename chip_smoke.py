@@ -189,8 +189,13 @@ Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
    tied luminances, within 1e-4 relative norm; each backward kernel
    against its plain twin at every iteration, two launches of each
    bit-equal; the forward with grad bit-equal to the forward without;
-   one iteration's forward and backward timed at 64x64, 96x96, 256x256
-   and 1920x1080 beside ``grad_bound``; then 10 steps of each trainer on
+   the taps kernel's registers, spills and resident warps; at 64x64,
+   96x96, 256x256 and 1920x1080 each kernel against its twin and the
+   forward with its weight sums bit-equal to the forward without at the
+   first and last iterations of a 4-iteration filter, and one iteration's
+   forward and
+   backward timed beside ``grad_bound`` (the taps kernel also beside its
+   issue ceiling); then 10 steps of each trainer on
    two training scenes rendered on the card at 64x64, 4 / 16 spp
    (reduced from 16 / 512), every step's gradients against the plain
    version's on the same data copied to the CPU (the tap trainer's in
@@ -4422,10 +4427,15 @@ def packed_result(out, guide):
     return out if isinstance(out, tuple) else D.unpack(out, guide)[:2]
 
 
+#: threads a block of each à-trous kernel (256 but the backward's taps)
+ATROUS_THREADS = {"atrous_grad_taps_kernel": 64}
+
+
 def atrous_resources() -> str:
     """The à-trous kernels' registers, spill bytes, stack frame and shared
     memory a block from the build's ``-Xptxas -v`` output, with blocks an
-    SM at 256 threads (by registers and by shared memory)."""
+    SM at each kernel's threads a block (``ATROUS_THREADS``; by registers
+    and by shared memory)."""
     import re
 
     from metal_pathtracer_tpu_torch.ops.kernels import build
@@ -4448,24 +4458,29 @@ def atrous_resources() -> str:
                       line)
         if m:
             regs, smem = int(m.group(1)), int(m.group(2) or 0)
-            by_regs = 65536 // (256 * ((regs + 7) // 8 * 8))
-            by_smem = 233472 // (smem + 1024) if smem else 8
+            threads = ATROUS_THREADS.get(current, 256)
+            by_regs = 65536 // (threads * ((regs + 7) // 8 * 8))
+            by_smem = 233472 // (smem + 1024) if smem else 32
+            most = 2048 // threads
             rows.append(f"{current} {regs} registers, {spill} B spilled, "
                         f"{frame} B stack, {smem} B smem: "
-                        f"{min(8, by_regs, by_smem)} blocks an SM "
-                        f"(registers {by_regs}, smem {by_smem})")
+                        f"{min(most, by_regs, by_smem)} blocks of {threads} "
+                        f"an SM (registers {by_regs}, smem {by_smem})")
             current = None
     return "; ".join(rows)
 
 
-def atrous_sass() -> str:
-    """Instruction counts of each ``atrous_step_kernel`` instantiation's tap
-    loop (the longest backward branch of its SASS, ``cuobjdump -sass`` of
-    the built library): all, shared-memory loads, constant-bank loads
-    (``ULDC`` into uniform registers, ``LDC``), the rounded-up reciprocal
-    conversions that begin an integer division or modulo (``I2F.RP``),
-    float operations reading a uniform register (a weight), FMUL, FADD,
-    FFMA, MUFU. A tap loop with no ``I2F.RP`` has no integer modulo; with
+def atrous_sass(prefix: str = "atrous_step", loops: int = 1) -> str:
+    """Instruction counts of the tap loop of each kernel instantiation
+    whose name starts with ``prefix`` (the ``loops`` longest backward
+    branches of its SASS that hold no other loop of 50 or more
+    instructions and do not overlap, ``cuobjdump -sass`` of the built
+    library; the backward's taps kernel has one a warp role): all,
+    shared-memory loads, constant-bank loads (``ULDC`` into uniform
+    registers, ``LDC``), the rounded-up reciprocal conversions that begin
+    an integer division or modulo (``I2F.RP``), float operations reading a
+    uniform register (a weight), FMUL, FADD, FFMA, MUFU, branches and
+    barriers. A tap loop with no ``I2F.RP`` has no integer modulo; with
     ``LDS`` 3 a tap, no shared-memory load of a weight."""
     import re
 
@@ -4477,25 +4492,37 @@ def atrous_sass() -> str:
     out = []
     for part in re.split(r"\n\s*Function : ", text)[1:]:
         name = build._kernel_name(part.split()[0])
-        if not name or not name.startswith("atrous_step"):
+        if not name or not name.startswith(prefix):
             continue
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
         at = {int(a, 16): i for i, (a, _) in enumerate(ins)}
-        loop = (0, 0)
+        spans = []
         for i, (_, op) in enumerate(ins):
             t = re.search(r"BRA\s+0x([0-9a-f]+)", op)
             j = at.get(int(t.group(1), 16), i) if t else i
-            if i - j > loop[1] - loop[0]:
-                loop = (j, i)
-        body = [op for _, op in ins[loop[0]:loop[1] + 1]]
+            if j < i:
+                spans.append((j, i))
+        # innermost: no other loop of 50 or more instructions inside
+        spans = [(j, i) for j, i in spans if not any(
+            j <= c and d <= i and (c, d) != (j, i) and d - c >= 50
+            for c, d in spans)]
+        found = []
+        for j, i in sorted(spans, key=lambda x: x[0] - x[1]):
+            if len(found) < loops and all(i < a or j > b for a, b in found):
+                found.append((j, i))
         pats = {"LDS": r"\bLDS", "LDC": r"\bU?LDC",
                 "I2F.RP": r"\bI2F(\.U32)?\.RP\b",
                 "FP ops on a uniform register": r"^F(MUL|ADD|FMA)\b.*\bUR\d",
                 "FMUL": r"\bFMUL",
-                "FADD": r"\bFADD", "FFMA": r"\bFFMA", "MUFU": r"\bMUFU"}
-        out.append(f"{name}: tap loop {len(body)} instructions, " + ", ".join(
-            f"{k} {sum(bool(re.search(v, op)) for op in body)}"
-            for k, v in pats.items()))
+                "FADD": r"\bFADD", "FFMA": r"\bFFMA", "MUFU": r"\bMUFU",
+                "FSEL/FMNMX/FSETP": r"\bF(SEL|MNMX|SETP)",
+                "BRA": r"\bBRA\b", "BAR": r"\bBAR\b"}
+        for j, i in sorted(found):
+            body = [op for _, op in ins[j:i + 1]]
+            out.append(f"{name}: tap loop {len(body)} instructions, "
+                       + ", ".join(
+                           f"{k} {sum(bool(re.search(v, op)) for op in body)}"
+                           for k, v in pats.items()))
     return "; ".join(out)
 
 
@@ -5342,14 +5369,16 @@ TRAIN_CPU_WORKERS = 5
 # adjoint 7, 16 hidden units of 16 (the gate, the six parameter sums,
 # the adjoints of features 0 and 3), the luminance and gstd adjoints 10,
 # the gather's 10), and 60 a pixel (the blur and its adjoint, the
-# divisions). Each kernel on its own: the taps kernel reads the rows and
-# cotangents (64 B) and writes 25 weights and luminance adjoints (200),
-# its pixel terms (24) and a row of 129 floats a block, at 222 + 283 a
-# tap and 46 a pixel; the gather reads the planes and pixel terms (224)
+# divisions). Each kernel on its own: the taps kernel reads the rows,
+# the cotangents and its forward's colour, variance and weight sums (84
+# B; the first port's kernel read 64 and retook the sums) and writes 25
+# weights and luminance adjoints (200), its pixel terms (24) and a row of
+# 129 floats a block, at 222 + 283 a tap and 46 a pixel; the gather reads
+# the planes and pixel terms (224)
 # and writes 16, at 10 a tap and 20 a pixel; the sum reads the rows and
 # writes 129 floats, an add a value
 ATROUS_BWD_BYTES, ATROUS_BWD_TAP_OPS, ATROUS_BWD_PIXEL_OPS = 80, 515, 60
-GRAD_TAPS_BYTES, GRAD_TAPS_TAP_OPS, GRAD_TAPS_PIXEL_OPS = 288, 505, 46
+GRAD_TAPS_BYTES, GRAD_TAPS_TAP_OPS, GRAD_TAPS_PIXEL_OPS = 308, 505, 46
 GRAD_GATHER_BYTES, GRAD_GATHER_TAP_OPS, GRAD_GATHER_PIXEL_OPS = 240, 10, 20
 MLP_BYTES = 129 * 4
 
@@ -5361,7 +5390,7 @@ def grad_bound(which: str, h: int, w: int):
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
 
     n = h * w
-    rows = -(-n // DK.GRAD_THREADS)
+    rows = DK.grad_blocks(h, w, 1)
     if which == "all":
         return bound_ms(n * ATROUS_BWD_BYTES + 2 * MLP_BYTES,
                         n * (25 * ATROUS_BWD_TAP_OPS + ATROUS_BWD_PIXEL_OPS))
@@ -5397,10 +5426,10 @@ def grad_state(h: int, w: int, dev, seed: int = 19) -> dict:
 
 
 def rel_norm(got, ref) -> float:
-    """|got - ref| / |ref| over every value (float64)."""
+    """|got - ref| / |ref| over every value (float64, on got's device)."""
     got = torch.cat([x.reshape(-1) for x in got]).double()
-    ref = torch.cat([x.reshape(-1) for x in ref]).double()
-    return float((got.cpu() - ref.cpu()).norm() / ref.cpu().norm())
+    ref = torch.cat([x.reshape(-1) for x in ref]).double().to(got.device)
+    return float((got - ref).norm() / ref.norm())
 
 
 def _pack_grads(grads: dict):
@@ -5435,20 +5464,32 @@ def learned_grads(params, d, iters, plain=False):
 
 def grad_kernel_checks(kept):
     """Each kept backward's three kernels against their plain twins on
-    the same inputs, and two launches of each bit-equal: (max abs error,
-    max relative norm error of an output)."""
+    the same inputs, two launches of each bit-equal, and its forward with
+    the weight sums (the saved colour and variance) bit-equal to the
+    forward without: (max abs error, max relative norm error of an
+    output, the smallest share of tap weights bit-equal to the twin's)."""
     from metal_pathtracer_tpu_torch.ops import denoise as D
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
 
     worst_abs = worst_rel = 0.0
+    share = 1.0
     for it, (a, k) in enumerate(kept):
         cv, guide, p, mlp, g_out, u_out = a
+        # the Function's outputs, as its backward unpacks them
+        saved = tuple(x.detach() for x in k["saved"])
         mlp = mlp.detach()
         g_out, u_out = DK._cotangents(g_out, u_out, *cv.shape[:2],
                                       cv.device)
-        got = DK.grad_taps(cv, guide, p, mlp, g_out, u_out)
-        again = DK.grad_taps(cv, guide, p, mlp, g_out, u_out)
-        want = D.grad_taps_reference(cv, guide, p, mlp, g_out, u_out)
+        free = DK.atrous_step_packed(cv, guide, p, mlp, last=True)
+        if not (torch.equal(free[0], saved[0])
+                and torch.equal(free[1], saved[1])):
+            raise AssertionError(f"the forward with its weight sums "
+                                 f"differs from the forward without "
+                                 f"(iteration {it})")
+        got = DK.grad_taps(cv, guide, p, mlp, g_out, u_out, saved)
+        again = DK.grad_taps(cv, guide, p, mlp, g_out, u_out, saved)
+        want = D.grad_taps_reference(cv, guide, p, mlp, g_out, u_out, saved)
+        share = min(share, float((got[0] == want[0]).float().mean()))
         pairs = list(zip(got[:4], want[:4]))
         sums = (DK.grad_sum(got[4]), D.grad_sum_reference(want[4]))
         pairs.append(sums)
@@ -5470,42 +5511,80 @@ def grad_kernel_checks(kept):
         if not worst_rel <= GRAD_KERNEL_TOL:
             raise AssertionError(f"a backward kernel at iteration {it} is "
                                  f"{worst_rel} from its plain twin")
-    return worst_abs, worst_rel
+        del got, again, pairs, gather
+    return worst_abs, worst_rel, share
+
+
+def grad_resources(card) -> None:
+    """Print the taps kernel's registers and spills (``-Xptxas -v``), its
+    blocks and resident warps an SM (the occupancy API), its grid and its
+    two tap loops' instruction counts (``atrous_sass``)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    regs, st, ld = kernel_resources(build.build_log())[
+        "atrous_grad_taps_kernel"]
+    per_sm = build.load().mpt_atrous_grad_blocks_per_sm()
+    print(f"atrous_grad_taps_kernel: {regs} registers, spill stores / loads "
+          f"{st} / {ld} B (-Xptxas -v); {per_sm} blocks of "
+          f"{DK.GRAD_THREADS} threads an SM, "
+          f"{per_sm * DK.GRAD_THREADS // 32} resident warps (occupancy API); "
+          f"blocks at 64x64 "
+          f"{DK.grad_blocks(64, 64, 1)}, at 96x96 {DK.grad_blocks(96, 96, 1)},"
+          f" at 1920x1080 {DK.grad_blocks(1080, 1920, 1)} (one wave); "
+          f"{atrous_resources()} [{card}]")
+    print(f"backward tap loops (cuobjdump -sass), warp 0's and warp 1's: "
+          f"{atrous_sass('atrous_grad_taps', 2)}")
+    if st or ld:
+        raise AssertionError("atrous_grad_taps_kernel spills")
 
 
 def grad_timing(dev, card):
-    """One learned iteration's forward (the Function's: pack + step) and
-    backward (the three kernels; each also alone) at each of
-    ``GRAD_SIZES``, averaged over the iterations of a 4-iteration filter,
-    beside the bounds and the plain twins' time (the first iteration's,
-    once). Returns {size: dict}."""
+    """At each of ``GRAD_SIZES``: the first and last iterations of a
+    4-iteration filter's backward held to their plain twins
+    (``grad_kernel_checks``); one learned
+    iteration's forward (the Function's: pack + the step with its weight
+    sums) and backward (the three kernels; each also alone), averaged over
+    the 4 iterations, beside the bounds, the taps kernel's issue ceiling
+    and the plain twins' time (the first iteration's, once). Returns
+    ({size: dict}, the checks' worst (abs, rel, bit-equal share))."""
     from metal_pathtracer_tpu_torch.ops import denoise as D
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
 
+    mhz = sm_clock_mhz()
     rows = {}
+    worst = (0.0, 0.0, 1.0)
     for w, h in GRAD_SIZES:
         params = vendored_mlp(dev)
         d = grad_state(h, w, dev)
         kept = []
         with kept_calls("atrous_step_grad", kept):
             learned_grads(params, d, 4)
+        # the first and last iterations (steps 1 and 8; the 256x256
+        # checks hold every iteration)
+        checks = grad_kernel_checks(kept[::3])
+        worst = (max(worst[0], checks[0]), max(worst[1], checks[1]),
+                 min(worst[2], checks[2]))
         fwd = bwd = taps = gather = total = 0.0
-        a = kept[0][0]
+        a, k = kept[0]
         g_out, u_out = DK._cotangents(a[4], a[5], h, w, dev)
+        saved = tuple(x.detach() for x in k["saved"])
         plain = cuda_ms(lambda: (lambda: D.atrous_step_grad_reference(
-            *a[:3], a[3].detach(), g_out, u_out)), 1)
+            *a[:3], a[3].detach(), g_out, u_out, saved)), 1)
         for a, k in kept:
             cv, guide, p, mlp, g_out, u_out = a
+            saved = tuple(x.detach() for x in k["saved"])
             mlp = mlp.detach()
             g_out, u_out = DK._cotangents(g_out, u_out, h, w, dev)
             col, v, alb, nrm = D.unpack(cv, guide)
-            fwd += kernel_ms(lambda: (lambda: DK.atrous_step(
-                col, v, alb, nrm, p, mlp)), 10)
+            fwd += kernel_ms(lambda: (lambda: DK.atrous_step_packed(
+                *DK.pack(col, v, alb, nrm), p, mlp, last=True, wsum=True)),
+                10)
             bwd += kernel_ms(lambda: (lambda: DK.atrous_step_grad(
-                cv, guide, p, mlp, g_out, u_out)), 10)
-            got = DK.grad_taps(cv, guide, p, mlp, g_out, u_out)
+                cv, guide, p, mlp, g_out, u_out, saved)), 10)
+            got = DK.grad_taps(cv, guide, p, mlp, g_out, u_out, saved)
             taps += kernel_ms(lambda: (lambda: DK.grad_taps(
-                cv, guide, p, mlp, g_out, u_out)), 10)
+                cv, guide, p, mlp, g_out, u_out, saved)), 10)
             gather += kernel_ms(lambda: (lambda: DK.grad_gather(
                 p, *got[:4])), 10)
             total += kernel_ms(lambda: (lambda: DK.grad_sum(got[4])), 10)
@@ -5516,21 +5595,30 @@ def grad_timing(dev, card):
                    bound=grad_bound("all", h, w),
                    bounds={x: grad_bound(x, h, w)
                            for x in ("taps", "gather", "sum")},
+                   ceiling=lane_rate_ms(h * w * (
+                       25 * GRAD_TAPS_TAP_OPS + GRAD_TAPS_PIXEL_OPS), mhz),
                    forward_bound=denoise_bound("learned", h, w))
         rows[(w, h)] = row
         print(f"learned iteration at {w}x{h}, mean of {n}: forward (pack + "
-              f"step) {row['forward']:.4f} ms (bound "
+              f"step with weight sums) {row['forward']:.4f} ms (bound "
               f"{row['forward_bound'][0]:.4f}), backward "
               f"{row['backward']:.4f} ms (bound {row['bound'][0]:.4f} by "
               f"{row['bound'][1]}, {100 * row['bound'][0] / row['backward']:.1f}"
               f" %): taps {row['taps']:.4f} (bound "
-              f"{row['bounds']['taps'][0]:.4f}), gather "
+              f"{row['bounds']['taps'][0]:.4f}, "
+              f"{100 * row['bounds']['taps'][0] / row['taps']:.1f} %; issue "
+              f"ceiling {row['ceiling']:.4f} at {mhz:.0f} MHz, "
+              f"{100 * row['ceiling'] / row['taps']:.1f} %), gather "
               f"{row['gather']:.4f} ({row['bounds']['gather'][0]:.4f}), sum "
               f"{row['sum']:.4f} ({row['bounds']['sum'][0]:.4f}); plain twins "
-              f"{row['plain']:.2f} ms (first iteration) [{card}]")
+              f"{row['plain']:.2f} ms (first iteration); each kernel against "
+              f"its twin at steps 1 and 8: max abs {checks[0]:.3e}, max rel "
+              f"{checks[1]:.3e}, tap weights bit-equal {checks[2]:.4f}, two "
+              f"launches bit-equal, forward with weight sums bit-equal to "
+              f"without [{card}]")
         del params, d, kept
         torch.cuda.empty_cache()
-    return rows
+    return rows, worst
 
 
 def plain_tap_grads(path: str, steps, out_path: str) -> None:
@@ -5679,7 +5767,7 @@ def denoiser_training(dev, card, kernels, out):
             raise AssertionError(f"learned x{iters}: the backward kernels "
                                  f"against the plain autograd {errs}, "
                                  f"{len(kept)} backward launches")
-        k_abs, k_rel = grad_kernel_checks(kept)
+        k_abs, k_rel, k_share = grad_kernel_checks(kept)
         worst_abs, worst_rel = max(worst_abs, k_abs), max(worst_rel, k_rel)
         print(f"learned x{iters} at {GRAD_STATE}x{GRAD_STATE}: loss "
               f"{float(loss_k.detach()):.6f} (plain "
@@ -5687,12 +5775,14 @@ def denoiser_training(dev, card, kernels, out):
               f"against autograd through the plain version, relative norm "
               f"error: MLP {errs[0]:.2e}, colour {errs[1]:.2e}, variance "
               f"{errs[2]:.2e}; each kernel against its plain twin at every "
-              f"iteration: max abs {k_abs:.3e}, max rel {k_rel:.3e}, two "
-              f"launches bit-equal; forward with grad bit-equal to without "
-              f"[{card}]")
+              f"iteration: max abs {k_abs:.3e}, max rel {k_rel:.3e}, tap "
+              f"weights bit-equal {k_share:.4f}, two launches bit-equal; "
+              f"forward with grad bit-equal to without [{card}]")
         del params, kept, got, want
     marks.append(("backward checks", time.time()))
-    timing = grad_timing(dev, card)
+    grad_resources(card)
+    timing, t_worst = grad_timing(dev, card)
+    worst_abs = max(worst_abs, t_worst[0])
     marks.append(("backward timing", time.time()))
 
     # ---- the main path: each trainer's first steps ------------------------

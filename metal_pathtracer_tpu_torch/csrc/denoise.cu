@@ -147,12 +147,15 @@ __device__ __forceinline__ float var_at(const float4* __restrict__ cv,
   return __ldg(&cv[y * w + x].w);
 }
 
-template <int MODE, bool PACKED_OUT>
+// WSUM (LEARNED, unpacked out only): also write each pixel's weight sum
+// (out_wsum), which the backward reads in place of retaking the taps
+template <int MODE, bool PACKED_OUT, bool WSUM = false>
 __global__ void __launch_bounds__(kThreads) atrous_step_kernel(
     int h, int w, int step, int cy, int cx, int tiles_x, StepScalars s,
     const __grid_constant__ MlpConst mc, const float4* __restrict__ cv,
     const float4* __restrict__ guide, float4* __restrict__ out_cv,
-    float* __restrict__ out_color, float* __restrict__ out_var) {
+    float* __restrict__ out_color, float* __restrict__ out_var,
+    float* __restrict__ out_wsum) {
   __shared__ float4 t_cv[kTile], t_alb[kTile], t_nrm[kTile];
   const int cosets = cy * cx;
   const int coset = blockIdx.x % cosets, tile = blockIdx.x / cosets;
@@ -271,6 +274,7 @@ __global__ void __launch_bounds__(kThreads) atrous_step_kernel(
     out_color[3 * p + 1] = o1;
     out_color[3 * p + 2] = o2;
     if (MODE != kFixed) out_var[p] = ov;
+    if constexpr (WSUM) out_wsum[p] = wsum;
   }
 }
 
@@ -278,7 +282,7 @@ template <int MODE>
 int launch_step(int h, int w, int step, const StepScalars& sc,
                 const MlpConst& mc, const float4* cv, const float4* guide,
                 float4* out_cv, float* out_color, float* out_var,
-                cudaStream_t st) {
+                float* out_wsum, cudaStream_t st) {
   // cosets of the step that hold a pixel, and the lattice tiles of the
   // largest coset (ceil(h / s) x ceil(w / s) points)
   const int cy = step < h ? step : h, cx = step < w ? step : w;
@@ -287,14 +291,21 @@ int launch_step(int h, int w, int step, const StepScalars& sc,
   const long long blocks = (long long)cy * cx * tiles_y * tiles_x;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const dim3 block(kBX, kBY), grid((unsigned)blocks);
-  if (out_cv != nullptr)
+  if (out_wsum != nullptr) {
+    if (MODE != kLearned || out_cv != nullptr)
+      return (int)cudaErrorInvalidValue;
+    atrous_step_kernel<kLearned, false, true><<<grid, block, 0, st>>>(
+        h, w, step, cy, cx, tiles_x, sc, mc, cv, guide, out_cv, out_color,
+        out_var, out_wsum);
+  } else if (out_cv != nullptr) {
     atrous_step_kernel<MODE, true><<<grid, block, 0, st>>>(
         h, w, step, cy, cx, tiles_x, sc, mc, cv, guide, out_cv, out_color,
-        out_var);
-  else
+        out_var, nullptr);
+  } else {
     atrous_step_kernel<MODE, false><<<grid, block, 0, st>>>(
         h, w, step, cy, cx, tiles_x, sc, mc, cv, guide, out_cv, out_color,
-        out_var);
+        out_var, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -309,17 +320,20 @@ int launch_step(int h, int w, int step, const StepScalars& sc,
 // max(S_p, 1e-6), o = A / m, o_v = V / m^2 and the cotangents g = dL/do,
 // u = dL/do_v:
 //
-// atrous_grad_taps_kernel, a thread a pixel p: recomputes its 25 taps as
-// the forward does (the same operations, so the same bits), then takes
-// each tap back: dL/dw_pk = (g / m).c_q + 2 w_pk (u / m^2) v_q + dL/dS_p,
-// dL/dz = -dL/dw w_k exp(-softplus(z)) sigmoid(z), through the 6-16-1 MLP
-// (a hidden unit passes where its pre-activation >= 0), feature 0 to the
-// luminance difference (sign +1 at 0, JAX's) and to gstd_p, gstd to the
-// blurred variance. It writes w_pk and the adjoint of lum_q as (25, n)
-// planes, its own terms (g / m, u / m^2; the adjoints of lum_p and of the
-// blurred variance), and its block's sums of the 129 parameter gradients
-// (a tree in shared memory, one row a block: no atomics, so two launches
-// give the same bits).
+// atrous_grad_taps_kernel takes each of a pixel's 25 taps once. The
+// forward's o, o_v and S (LearnedIteration saves them; S is the step
+// kernel's WSUM output, the bits a retake of the taps would give) give
+// g / m, u / m^2 and dL/dS = -(g / m).o - 2 (u / m^2) o_v m before the
+// first tap. Each tap is then recomputed as the forward computes it, up
+// to its logit z (the same operations, so the same bits), and taken
+// back: w_pk = w_k exp(-softplus(z)), dL/dw_pk = (g / m).c_q + 2 w_pk
+// (u / m^2) v_q + dL/dS, dL/dz = -dL/dw w_k exp(-softplus(z))
+// sigmoid(z), through the 6-16-1 MLP (a hidden unit passes where its
+// pre-activation >= 0), feature 0 to the luminance difference (sign +1
+// at 0, JAX's) and to gstd_p, gstd to the blurred variance. It writes
+// w_pk and the adjoint of lum_q as (25, n) planes, each pixel's own
+// terms (g / m, u / m^2; the adjoints of lum_p and of the blurred
+// variance), and a row of the 129 parameter sums a block.
 // atrous_grad_gather_kernel, a thread a pixel q: gathers from the pixels
 // p = q + (ky, kx) s that tapped it, in tap order: dL/dc_q = sum_k w_pk
 // g_p / m_p + lum weights x (its own and the taps' luminance adjoints),
@@ -328,210 +342,331 @@ int launch_step(int h, int w, int step, const StepScalars& sc,
 // atrous_grad_sum_kernel: a block a parameter sums the blocks' rows in a
 // fixed order.
 //
-// What bounds them: instruction throughput, like the forward. A tap is
-// taken twice (the forward's sums first, then the tap back), so its
-// forward is computed twice, and the tap back adds ~300 float operations
-// (the MLP's layers back, the six per-tap parameter sums); the 96
-// parameter accumulators a thread live in registers. The planes cost 200
-// B a pixel of writes and reads (~415 MB an iteration at 1080p). Simple
-// and right first: a thread a pixel, taps read from global memory
-// through L1, no coset tiles.
-constexpr int kGradThreads = 128;
+// What bounds the taps kernel on an H100: instruction issue. A tap is
+// ~500 float operations (the forward once, 222 hoisted; the tap back,
+// 283: the MLP's layers back and six parameter sums a hidden unit), each
+// its own instruction but the sums' explicit fused multiply-adds; the
+// bytes (~310 a pixel: rows, saved sums, cotangents, planes) are a fifth
+// of that time. A thread that owns all 16 hidden units keeps 96 sums in
+// registers, and the card then runs too few warps to keep issuing (the
+// first port's kernel: 182 registers, 8 warps an SM, each tap's forward
+// taken twice). So:
+// - a block is two warps over one group: 8 x 2 lattice points of one
+//   coset of the step (the forward's lattice), its 12 x 6 tile of taps
+//   staged once in shared memory, a tap's three rows side by side, with
+//   the wrap taken at the load (a halo tile at step 1);
+// - warp h owns hidden units 4h..4h+3 and 8+4h..11+4h: their
+//   pre-activations and six sums (48 in registers and 8 per-pixel b1
+//   sums), the weights as warp-uniform constant-bank operands. Its half
+//   of the MLP's second layer is a subtree of the forward's ((l0 + l1) +
+//   (l2 + l3)) + ((l4 + l5) + (l6 + l7)), so z = (warp 0's + warp 1's) +
+//   b2 keeps the forward's bits. The halves meet in shared memory once a
+//   tap (a barrier of the two warps), which also carries the previous
+//   tap's partial adjoints of features 0 and 3; 127 registers, 8 blocks
+//   (16 warps) an SM;
+// - lanes 0-15 take the group's 16 pixels, lanes 16-31 the same pixels'
+//   mirrored taps (24 - t beside t: the same radius and B3 weight, so the
+//   launch constants stay warp-uniform): 13 steps for 25 taps;
+// - both warps repeat a tap's scalar work (its features, then z to
+//   dL/dz), so that chain is kept short: exp(-softplus(z)) = sigmoid(-z)
+//   and sigmoid(z) come from one exp(-|z|) and one reciprocal (within a
+//   few ulps of the forward's expf / log1pf / expf), and the adjoints' two
+//   divisions by gstd + 1e-4 are products by its reciprocal, once a
+//   pixel;
+// - blocks are persistent, one wave (the occupancy API's blocks an SM x
+//   the SMs), striding over the groups, so the parameter sums leave the
+//   registers once a block: each sum over its warp's 32 lanes in lane
+//   order, one row a block. No atomics: two launches give the same bits.
+// Slower on the card (PERF.md): the split with the forward's own
+// softplus chain and divisions; one warp a group owning all 16 units,
+// its pre-activations in shared memory (it spills at 128 registers); 9
+// blocks an SM with the pre-activations parked in shared memory.
+constexpr int kGradThreads = 64;
+// a group of 8 x 2 lattice points and its tile (a 2-point halo)
+constexpr int kGX = 8, kGY = 2, kGTX = kGX + 4, kGTY = kGY + 4;
+constexpr int kGTile = kGTX * kGTY;
 constexpr int kMlpFloats = 6 * 16 + 16 + 16 + 1;
+// a thread's sums in shared memory, 8 a slot of its warp's units: w1 rows
+// 0-2, row 3 (gstd x b1), row 5 (radius), b1, w2; then b2 (warp 0)
+constexpr int kF0 = 0, kF1 = 8, kF2 = 16, kG = 24, kR = 32, kB1 = 40,
+              kW2 = 48, kB2 = 56, kSlots = 57;
+constexpr int kRedStride = kGradThreads + 1;   // no bank conflicts
 
-// the hidden pre-activations, hidden units and logit of one learned tap,
-// in mlp_logit's operations and order
-__device__ __forceinline__ float mlp_tap(const MlpConst& m, float f0,
-                                         float f1, float f2, float gstd,
-                                         int r, float pre[16],
-                                         float hid[16]) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const float a = ((f0 * m.w1[0][k] + f1 * m.w1[1][k])
-                     + (f2 * m.w1[2][k] + gstd * m.w1[3][k])) + m.tab[r][k];
-    pre[k] = a + m.b1[k];
-    hid[k] = fmaxf(pre[k], 0.f);
-  }
-  float lane[8];
-#pragma unroll
-  for (int l = 0; l < 8; ++l)
-    lane[l] = __fmaf_rn(hid[l + 8], m.w2[l + 8], hid[l] * m.w2[l]);
-  const float z = ((lane[0] + lane[1]) + (lane[2] + lane[3]))
-      + ((lane[4] + lane[5]) + (lane[6] + lane[7]));
-  return z + m.b2;
+// the two warps of a block meet
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kGradThreads) : "memory");
 }
 
-// one learned tap's recomputed terms
-struct Tap {
-  float4 sc;
-  float dl, f0, f1, f2, z, e, wt;
+// the hidden unit of slot u (0-7) of warp H
+template <int H>
+__device__ __forceinline__ int unit(int u) {
+  return u < 4 ? 4 * H + u : 4 + 4 * H + u;
+}
+
+// the groups of a launch: cosets of the step that hold a pixel (cy x cx)
+// x the 8 x 2 lattice tiles of the largest coset; groups < 0 if too many
+struct GradGrid {
+  int cy, cx, tiles_x, groups;
 };
 
-__device__ __forceinline__ Tap learned_tap(
-    const MlpConst& mc, const float4* __restrict__ cv,
-    const float4* __restrict__ guide, int q, float lum_p, float gdiv,
-    float gstd, float4 ca, float4 cn, int di, int dj, float pre[16],
-    float hid[16]) {
-  Tap t;
-  t.sc = __ldg(cv + q);
-  const float4 sa = __ldg(guide + 2 * q), sn = __ldg(guide + 2 * q + 1);
-  const float da0 = sa.x - ca.x, da1 = sa.y - ca.y, da2 = sa.z - ca.z;
-  t.f2 = dot3(da0, da1, da2, da0, da1, da2);
-  const float ndot = dot3(sn.x, sn.y, sn.z, cn.x, cn.y, cn.z);
-  const bool both_bg = cn.w < 0.5f && sn.w < 0.5f;
-  t.dl = luminance(t.sc.x, t.sc.y, t.sc.z) - lum_p;
-  t.f0 = fabsf(t.dl) / gdiv;
-  t.f1 = both_bg ? 0.f : fmaxf(1.f - ndot, 0.f);
-  t.z = mlp_tap(mc, t.f0, t.f1, t.f2, gstd, di + dj, pre, hid);
-  const float sp = fmaxf(t.z, 0.f) + log1pf(expf(-fabsf(t.z)));
-  t.e = expf(-sp);
-  t.wt = (spline(di) * spline(dj)) * t.e;
-  return t;
+GradGrid grad_grid(int h, int w, int step) {
+  GradGrid g;
+  g.cy = step < h ? step : h;
+  g.cx = step < w ? step : w;
+  const long long tiles_y = ((h + step - 1) / step + kGY - 1) / kGY;
+  g.tiles_x = ((w + step - 1) / step + kGX - 1) / kGX;
+  const long long groups = (long long)g.cy * g.cx * tiles_y * g.tiles_x;
+  g.groups = groups > 0x7fffffffLL ? -1 : (int)groups;
+  return g;
 }
 
-__global__ void __launch_bounds__(kGradThreads) atrous_grad_taps_kernel(
-    int h, int w, int step, StepScalars s, const __grid_constant__ MlpConst mc,
-    const float4* __restrict__ cv, const float4* __restrict__ guide,
+// one warp's share of a block: all its groups, then its sums
+template <int H>
+__device__ __forceinline__ void grad_taps_warp(
+    int h, int w, int step, GradGrid gg, float it_feature,
+    const MlpConst& mc, const float4* __restrict__ cv,
+    const float4* __restrict__ guide, const float* __restrict__ out,
+    const float* __restrict__ out_var, const float* __restrict__ wsum,
+    const float* __restrict__ g_out, const float* __restrict__ u_out,
+    float* __restrict__ w_plane, float* __restrict__ l_plane,
+    float4* __restrict__ pix, float2* __restrict__ pix2,
+    float* __restrict__ partial, float4 (*tile)[3], float4 (*xbuf)[2][32],
+    float (*red)[kRedStride]) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int mirror = lane >> 4, ty = (lane >> 3) & 1, tx = lane & 7;
+  const int n = h * w, cosets = gg.cy * gg.cx;
+  // the lane's tile slot at step st, tap (i, j): centre + 2 (kGTX + 1) -
+  // (i kGTX + j) for lanes 0-15, the mirror's centre - 2 (kGTX + 1) +
+  // (i kGTX + j)
+  const int centre = (ty + 2) * kGTX + tx + 2;
+  const int sgn = mirror ? 1 : -1, slot0 = centre - sgn * 2 * (kGTX + 1);
+  float acc_f0[8], acc_f1[8], acc_f2[8], acc_r[8], acc_w2[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    acc_f0[u] = acc_f1[u] = acc_f2[u] = acc_r[u] = acc_w2[u] = 0.f;
+    red[kG + u][tid] = red[kB1 + u][tid] = 0.f;
+  }
+  float acc_b2 = 0.f;
+  for (int grp = blockIdx.x; grp < gg.groups; grp += gridDim.x) {
+    const int coset = grp % cosets, lt = grp / cosets;
+    const int ry = coset / gg.cx, rx = coset - ry * gg.cx;
+    const int u0 = (lt / gg.tiles_x) * kGY, v0 = (lt % gg.tiles_x) * kGX;
+    // stage the tile (the last group's last read came before its last
+    // barrier)
+    for (int k = tid; k < kGTile; k += kGradThreads) {
+      const int a = k / kGTX, b = k - a * kGTX;
+      const int q = wrap(ry + step * (u0 - 2 + a), h) * w
+          + wrap(rx + step * (v0 - 2 + b), w);
+      tile[k][0] = __ldg(cv + q);
+      tile[k][1] = __ldg(guide + 2 * q);
+      tile[k][2] = __ldg(guide + 2 * q + 1);
+    }
+    pair_sync();
+    const int y0 = ry + step * (u0 + ty), x0 = rx + step * (v0 + tx);
+    const bool valid = y0 < h && x0 < w;
+    // a lane without a pixel reads pixel 0's terms and adds nothing
+    const int y = valid ? y0 : 0, x = valid ? x0 : 0, p = y * w + x;
+    const float4 cc = tile[centre][0], ca = tile[centre][1],
+                 cn = tile[centre][2];
+    const float lum_p = luminance(cc.x, cc.y, cc.z);
+    // ops/denoise.py _gauss3 at (y, x), as the forward forms it
+    float r3[3];
+    if (step == 1) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int col = tx + 3 - j;
+        r3[j] = (0.25f * tile[(ty + 3) * kGTX + col][0].w
+                 + 0.5f * tile[(ty + 2) * kGTX + col][0].w)
+            + 0.25f * tile[(ty + 1) * kGTX + col][0].w;
+      }
+    } else {
+      const int yp = y + 1 == h ? 0 : y + 1, ym = y == 0 ? h - 1 : y - 1;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int xx = j == 0 ? (x + 1 == w ? 0 : x + 1)
+            : j == 1 ? x : (x == 0 ? w - 1 : x - 1);
+        r3[j] = (0.25f * var_at(cv, w, yp, xx) + 0.5f * var_at(cv, w, y, xx))
+            + 0.25f * var_at(cv, w, ym, xx);
+      }
+    }
+    const float g = (0.25f * r3[0] + 0.5f * r3[1]) + 0.25f * r3[2];
+    const float gstd = sqrtf(fmaxf(g, 1e-12f)), gdiv = gstd + 1e-4f;
+    const float rg = __frcp_rn(gdiv);
+    float p3[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) p3[u] = gstd * mc.w1[3][unit<H>(u)];
+    // the forward's sums: dL/dA = g / m, dL/dV = u / m^2, dL/dS
+    const float ws = __ldg(wsum + p), mm = fmaxf(ws, 1e-6f);
+    const float ab0 = __ldg(g_out + 3 * p) / mm,
+                ab1 = __ldg(g_out + 3 * p + 1) / mm,
+                ab2 = __ldg(g_out + 3 * p + 2) / mm;
+    const float vbar = u_out == nullptr ? 0.f : __ldg(u_out + p) / (mm * mm);
+    const float sbar = ws >= 1e-6f
+        ? -dot3(ab0, ab1, ab2, __ldg(out + 3 * p), __ldg(out + 3 * p + 1),
+                __ldg(out + 3 * p + 2))
+            - ((vbar + vbar) * __ldg(out_var + p)) * mm
+        : 0.f;
+    float pb1[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) pb1[u] = 0.f;
+    float lp = 0.f, gstd_bar = 0.f;
+    // the last tap's partial adjoints of features 0 and 3 (this warp's
+    // units), its luminance difference and plane (-1: nothing to finish)
+    float f0b = 0.f, f3b = 0.f, dl_last = 0.f;
+    int plane_last = -1;
+    // warp 0 finishes the last tap's luminance and gstd adjoints once
+    // the other warp's partials have arrived
+    auto finish = [&](float f0o, float f3o) {
+      if (H != 0 || plane_last < 0) return;
+      const float f0t = f0b + f0o, f3t = f3b + f3o;
+      const float dl_bar = (dl_last >= 0.f ? f0t : -f0t) * rg;
+      lp = lp - dl_bar;
+      gstd_bar = gstd_bar + (f3t - f0t * ((fabsf(dl_last) * rg) * rg));
+      l_plane[(size_t)plane_last * n + p] = dl_bar;
+    };
+    // lanes 0-15 take tap (i, j) = divmod(st, 5), lanes 16-31 tap
+    // (4 - i, 4 - j); the mirror's centre (st 12) is lanes 0-15's
+#pragma unroll 1
+    for (int st = 0, i = 0, j = 0; st < 13; ++st) {
+      const int di = i < 2 ? 2 - i : i - 2, dj = j < 2 ? 2 - j : j - 2;
+      const int r = di + dj;
+      const float wk = spline(di) * spline(dj);
+      const bool live = valid && !(mirror && st == 12);
+      const int t = mirror ? 24 - st : st;
+      // tap (i, j) reads the roll source (y - (i - 2) s, x - (j - 2) s)
+      const float4* tp = tile[slot0 + sgn * (i * kGTX + j)];
+      const float4 sc = tp[0], sa = tp[1], sn = tp[2];
+      if (++j == 5) {
+        j = 0;
+        ++i;
+      }
+      const float da0 = sa.x - ca.x, da1 = sa.y - ca.y, da2 = sa.z - ca.z;
+      const float f2 = dot3(da0, da1, da2, da0, da1, da2);
+      const float ndot = dot3(sn.x, sn.y, sn.z, cn.x, cn.y, cn.z);
+      const bool both_bg = cn.w < 0.5f && sn.w < 0.5f;
+      const float dl = luminance(sc.x, sc.y, sc.z) - lum_p;
+      const float f0 = fabsf(dl) / gdiv;
+      const float f1 = both_bg ? 0.f : fmaxf(1.f - ndot, 0.f);
+      // this warp's hidden units, and its subtree of the second layer
+      float pre[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = unit<H>(u);
+        const float a = ((f0 * mc.w1[0][k] + f1 * mc.w1[1][k])
+                         + (f2 * mc.w1[2][k] + p3[u])) + mc.tab[r][k];
+        pre[u] = a + mc.b1[k];
+      }
+      float ln[4];
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        ln[l] = __fmaf_rn(fmaxf(pre[4 + l], 0.f), mc.w2[unit<H>(4 + l)],
+                          fmaxf(pre[l], 0.f) * mc.w2[unit<H>(l)]);
+      const float zh = (ln[0] + ln[1]) + (ln[2] + ln[3]);
+      xbuf[st & 1][H][lane] = make_float4(zh, f0b, f3b, 0.f);
+      pair_sync();
+      const float4 other = xbuf[st & 1][1 - H][lane];
+      const float z = (H == 0 ? zh + other.x : other.x + zh) + mc.b2;
+      finish(other.y, other.z);
+      // exp(-softplus(z)) = sigmoid(-z) and sigmoid(z) from one
+      // exp(-|z|) and one reciprocal: within a few ulps of the forward's
+      // exp(-softplus(z)), at a third of its chain
+      const float ex = expf(-fabsf(z)), rc = __fdividef(1.f, 1.f + ex);
+      const float e = (z >= 0.f ? ex : 1.f) * rc,
+                  sig = (z >= 0.f ? 1.f : ex) * rc;
+      const float wt = wk * e;
+      if (H == 1 && live) w_plane[(size_t)t * n + p] = wt;
+      const float w_bar = (dot3(ab0, ab1, ab2, sc.x, sc.y, sc.z)
+                           + (wt + wt) * (vbar * sc.w)) + sbar;
+      const float z_bar = live ? -((w_bar * wk) * e) * sig : 0.f;
+      const float radius = (float)r * 0.25f;
+      f0b = f3b = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = unit<H>(u);
+        // branch-free: a closed unit adds zeros
+        const float a_h = pre[u] >= 0.f ? z_bar * mc.w2[k] : 0.f;
+        acc_w2[u] = __fmaf_rn(z_bar, fmaxf(pre[u], 0.f), acc_w2[u]);
+        pb1[u] = pb1[u] + a_h;
+        acc_f0[u] = __fmaf_rn(a_h, f0, acc_f0[u]);
+        acc_f1[u] = __fmaf_rn(a_h, f1, acc_f1[u]);
+        acc_f2[u] = __fmaf_rn(a_h, f2, acc_f2[u]);
+        acc_r[u] = __fmaf_rn(a_h, radius, acc_r[u]);
+        f0b = __fmaf_rn(a_h, mc.w1[0][k], f0b);
+        f3b = __fmaf_rn(a_h, mc.w1[3][k], f3b);
+      }
+      if (H == 0) acc_b2 = acc_b2 + z_bar;
+      dl_last = dl;
+      plane_last = live ? t : -1;
+    }
+    // the last tap's partials (step 13's buffer: read last at step 11)
+    xbuf[1][H][lane] = make_float4(0.f, f0b, f3b, 0.f);
+    pair_sync();
+    if (H == 0) {
+      const float4 other = xbuf[1][1][lane];
+      finish(other.y, other.z);
+      // the pixel's sums over both halves of its taps, lanes 0-15's first
+      const float lp_m = __shfl_xor_sync(0xffffffffu, lp, 16),
+                  gb_m = __shfl_xor_sync(0xffffffffu, gstd_bar, 16);
+      if (!mirror && valid) {
+        pix[p] = make_float4(ab0, ab1, ab2, vbar);
+        pix2[p] = make_float2(
+            lp + lp_m, g >= 1e-12f ? (gstd_bar + gb_m) / (gstd + gstd) : 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      red[kB1 + u][tid] = red[kB1 + u][tid] + pb1[u];
+      red[kG + u][tid] = __fmaf_rn(gstd, pb1[u], red[kG + u][tid]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    red[kF0 + u][tid] = acc_f0[u];
+    red[kF1 + u][tid] = acc_f1[u];
+    red[kF2 + u][tid] = acc_f2[u];
+    red[kR + u][tid] = acc_r[u];
+    red[kW2 + u][tid] = acc_w2[u];
+  }
+  red[kB2][tid] = acc_b2;
+  pair_sync();
+  // the block's row, pack_mlp's order (w1 rows 0-5, b1, w2, b2): each
+  // value the sum over its owner warp's lanes in lane order; row 4 is
+  // it_feature x the b1 sum
+  for (int o = tid; o < kMlpFloats; o += kGradThreads) {
+    const int row = o >> 4, k = o & 15;
+    const int owner = o == kMlpFloats - 1 ? 0 : (k & 7) >> 2;
+    const int u = (k & 3) + 4 * (k >> 3);
+    const int slot = o == kMlpFloats - 1 ? kB2
+        : (row == 0 ? kF0 : row == 1 ? kF1 : row == 2 ? kF2 : row == 3 ? kG
+           : row == 5 ? kR : row == 7 ? kW2 : kB1) + u;
+    float sum = 0.f;
+    for (int l = 0; l < 32; ++l) sum = sum + red[slot][32 * owner + l];
+    partial[(size_t)blockIdx.x * kMlpFloats + o] =
+        row == 4 ? it_feature * sum : sum;
+  }
+}
+
+__global__ void __launch_bounds__(kGradThreads, 8) atrous_grad_taps_kernel(
+    int h, int w, int step, GradGrid gg, StepScalars s,
+    const __grid_constant__ MlpConst mc, const float4* __restrict__ cv,
+    const float4* __restrict__ guide, const float* __restrict__ out,
+    const float* __restrict__ out_var, const float* __restrict__ wsum,
     const float* __restrict__ g_out, const float* __restrict__ u_out,
     float* __restrict__ w_plane, float* __restrict__ l_plane,
     float4* __restrict__ pix, float2* __restrict__ pix2,
     float* __restrict__ partial) {
-  __shared__ float red[16][kGradThreads];
-  const int n = h * w;
-  const int tid = threadIdx.x;
-  const int p = blockIdx.x * kGradThreads + tid;
-  float acc_f0[16], acc_f1[16], acc_f2[16], acc_r[16], acc_b1[16],
-      acc_w2[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-    acc_f0[k] = acc_f1[k] = acc_f2[k] = acc_r[k] = acc_b1[k] = acc_w2[k] =
-        0.f;
-  float acc_b2 = 0.f, gstd = 0.f;
-  if (p < n) {
-    const int y = p / w, x = p - (p / w) * w;
-    const float4 cc = __ldg(cv + p), ca = __ldg(guide + 2 * p),
-                 cn = __ldg(guide + 2 * p + 1);
-    const float lum_p = luminance(cc.x, cc.y, cc.z);
-    const int yp = y + 1 == h ? 0 : y + 1, ym = y == 0 ? h - 1 : y - 1;
-    float r3[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int xx = j == 0 ? (x + 1 == w ? 0 : x + 1)
-          : j == 1 ? x : (x == 0 ? w - 1 : x - 1);
-      r3[j] = (0.25f * var_at(cv, w, yp, xx) + 0.5f * var_at(cv, w, y, xx))
-          + 0.25f * var_at(cv, w, ym, xx);
-    }
-    const float g = (0.25f * r3[0] + 0.5f * r3[1]) + 0.25f * r3[2];
-    gstd = sqrtf(fmaxf(g, 1e-12f));
-    const float gdiv = gstd + 1e-4f;
-    float pre[16], hid[16];
-    // the forward's sums, taps in (ky, kx) row-major order; tap (i, j)
-    // reads the roll source (y - (i - 2) s, x - (j - 2) s)
-    float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, vacc = 0.f, wsum = 0.f;
-#pragma unroll 1
-    for (int i = 0; i < 5; ++i) {
-      const int di = i < 2 ? 2 - i : i - 2;
-      const int row = wrap(y - (i - 2) * step, h) * w;
-#pragma unroll 1
-      for (int j = 0; j < 5; ++j) {
-        const int dj = j < 2 ? 2 - j : j - 2;
-        const Tap t = learned_tap(mc, cv, guide,
-                                  row + wrap(x - (j - 2) * step, w), lum_p,
-                                  gdiv, gstd, ca, cn, di, dj, pre, hid);
-        vacc = vacc + t.sc.w * (t.wt * t.wt);
-        acc0 = acc0 + t.sc.x * t.wt;
-        acc1 = acc1 + t.sc.y * t.wt;
-        acc2 = acc2 + t.sc.z * t.wt;
-        wsum = wsum + t.wt;
-      }
-    }
-    const float mm = fmaxf(wsum, 1e-6f);
-    const float o0 = acc0 / mm, o1 = acc1 / mm, o2 = acc2 / mm;
-    const float ov = vacc / (mm * mm);
-    const float ab0 = g_out[3 * p] / mm, ab1 = g_out[3 * p + 1] / mm,
-                ab2 = g_out[3 * p + 2] / mm;
-    const float vbar = u_out == nullptr ? 0.f : u_out[p] / (mm * mm);
-    const float sbar = wsum >= 1e-6f
-        ? -dot3(ab0, ab1, ab2, o0, o1, o2) - ((vbar + vbar) * ov) * mm
-        : 0.f;
-    float lp = 0.f, gstd_bar = 0.f;
-    // each tap back
-#pragma unroll 1
-    for (int i = 0; i < 5; ++i) {
-      const int di = i < 2 ? 2 - i : i - 2;
-      const int row = wrap(y - (i - 2) * step, h) * w;
-#pragma unroll 1
-      for (int j = 0; j < 5; ++j) {
-        const int dj = j < 2 ? 2 - j : j - 2;
-        const float wk = spline(di) * spline(dj);
-        const float radius = (float)(di + dj) * 0.25f;
-        const Tap t = learned_tap(mc, cv, guide,
-                                  row + wrap(x - (j - 2) * step, w), lum_p,
-                                  gdiv, gstd, ca, cn, di, dj, pre, hid);
-        const float w_bar = (dot3(ab0, ab1, ab2, t.sc.x, t.sc.y, t.sc.z)
-                             + (t.wt + t.wt) * (vbar * t.sc.w)) + sbar;
-        const float sig = 1.f / (1.f + expf(-t.z));
-        const float z_bar = -((w_bar * wk) * t.e) * sig;
-        float f0_bar = 0.f, f3_bar = 0.f;
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          const float a_h = pre[k] >= 0.f ? z_bar * mc.w2[k] : 0.f;
-          acc_w2[k] = acc_w2[k] + z_bar * hid[k];
-          acc_b1[k] = acc_b1[k] + a_h;
-          acc_f0[k] = acc_f0[k] + a_h * t.f0;
-          acc_f1[k] = acc_f1[k] + a_h * t.f1;
-          acc_f2[k] = acc_f2[k] + a_h * t.f2;
-          acc_r[k] = acc_r[k] + a_h * radius;
-          f0_bar = f0_bar + a_h * mc.w1[0][k];
-          f3_bar = f3_bar + a_h * mc.w1[3][k];
-        }
-        acc_b2 = acc_b2 + z_bar;
-        const float dl_bar = (t.dl >= 0.f ? f0_bar : -f0_bar) / gdiv;
-        lp = lp - dl_bar;
-        gstd_bar = gstd_bar
-            + (f3_bar - f0_bar * (fabsf(t.dl) / (gdiv * gdiv)));
-        const int k = i * 5 + j;
-        w_plane[(size_t)k * n + p] = t.wt;
-        l_plane[(size_t)k * n + p] = dl_bar;
-      }
-    }
-    pix[p] = make_float4(ab0, ab1, ab2, vbar);
-    pix2[p] = make_float2(lp, g >= 1e-12f ? gstd_bar / (gstd + gstd) : 0.f);
-  }
-  // the block's sums of the parameter gradients, pack_mlp's order: w1
-  // rows 0-5 (row 3 gstd x the b1 sum, row 4 it x it), b1, w2, then b2
-  float* out = partial + (size_t)blockIdx.x * kMlpFloats;
-#pragma unroll
-  for (int grp = 0; grp < 9; ++grp) {
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      float v;
-      switch (grp) {
-        case 0: v = acc_f0[k]; break;
-        case 1: v = acc_f1[k]; break;
-        case 2: v = acc_f2[k]; break;
-        case 3: v = gstd * acc_b1[k]; break;
-        case 4: v = s.it_feature * acc_b1[k]; break;
-        case 5: v = acc_r[k]; break;
-        case 6: v = acc_b1[k]; break;
-        case 7: v = acc_w2[k]; break;
-        default: v = k == 0 ? acc_b2 : 0.f;
-      }
-      red[k][tid] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int half = kGradThreads / 2; half > 0; half >>= 1) {
-      if (tid < half) {
-#pragma unroll
-        for (int k = 0; k < 16; ++k) red[k][tid] = red[k][tid] + red[k][tid + half];
-      }
-      __syncthreads();
-    }
-    if (grp < 8 && tid < 16) out[grp * 16 + tid] = red[tid][0];
-    if (grp == 8 && tid == 0) out[128] = red[0][0];
-    __syncthreads();
-  }
+  // each tile point's (colour and variance, albedo, normal)
+  __shared__ float4 tile[kGTile][3];
+  __shared__ float4 xbuf[2][2][32];
+  __shared__ float red[kSlots][kRedStride];
+  if (threadIdx.x < 32)
+    grad_taps_warp<0>(h, w, step, gg, s.it_feature, mc, cv, guide, out,
+                      out_var, wsum, g_out, u_out, w_plane, l_plane, pix,
+                      pix2, partial, tile, xbuf, red);
+  else
+    grad_taps_warp<1>(h, w, step, gg, s.it_feature, mc, cv, guide, out,
+                      out_var, wsum, g_out, u_out, w_plane, l_plane, pix,
+                      pix2, partial, tile, xbuf, red);
 }
 
 __global__ void __launch_bounds__(256) atrous_grad_gather_kernel(
@@ -617,12 +752,13 @@ extern "C" int mpt_atrous_pack(int n, const void* color, const void* var,
 // StepScalars (host float[8]), MlpConst (host float[kMlpConstFloats],
 // LEARNED only, else NULL), the carried float4s (h, w, 4) and guide rows
 // (h, w, 8), then either out_cv (h, w, 4) or (out_cv NULL) out colour
-// (h, w, 3) and out variance (h, w; not FIXED), stream
+// (h, w, 3) and out variance (h, w; not FIXED), out weight sums (h, w;
+// NULL but for a learned iteration whose backward will run), stream
 extern "C" int mpt_atrous_step(int mode, int h, int w, int step,
                                const float* s, const float* mlp,
                                const void* cv, const void* guide,
                                void* out_cv, void* out_color, void* out_var,
-                               void* stream) {
+                               void* out_wsum, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   if (step <= 0) return (int)cudaErrorInvalidValue;
   const StepScalars sc = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
@@ -635,15 +771,18 @@ extern "C" int mpt_atrous_step(int mode, int h, int w, int step,
   cudaStream_t st = (cudaStream_t)stream;
   const float4 *c = (const float4*)cv, *g = (const float4*)guide;
   float4* oc = (float4*)out_cv;
-  float *ocol = (float*)out_color, *ov = (float*)out_var;
+  float *ocol = (float*)out_color, *ov = (float*)out_var,
+        *ows = (float*)out_wsum;
   switch (mode) {
     case kFixed:
-      return launch_step<kFixed>(h, w, step, sc, mc, c, g, oc, ocol, ov, st);
+      return launch_step<kFixed>(h, w, step, sc, mc, c, g, oc, ocol, ov, ows,
+                                 st);
     case kSvgf:
-      return launch_step<kSvgf>(h, w, step, sc, mc, c, g, oc, ocol, ov, st);
+      return launch_step<kSvgf>(h, w, step, sc, mc, c, g, oc, ocol, ov, ows,
+                                st);
     case kLearned:
       return launch_step<kLearned>(h, w, step, sc, mc, c, g, oc, ocol, ov,
-                                   st);
+                                   ows, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -652,27 +791,67 @@ extern "C" int mpt_atrous_step(int mode, int h, int w, int step,
 // floats of MlpConst, for the wrapper's check
 extern "C" int mpt_atrous_mlp_floats() { return kMlpConstFloats; }
 
+// blocks of the first backward kernel resident on one SM of the current
+// device (the occupancy API), cached by device
+static int grad_blocks_per_sm() {
+  static int cached[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
+  if (cached[dev] == 0) {
+    int per = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, atrous_grad_taps_kernel, kGradThreads, 0) != cudaSuccess)
+      return -1;
+    cached[dev] = per;
+  }
+  return cached[dev];
+}
+
+// blocks of the first backward kernel an SM (-1 on an error)
+extern "C" int mpt_atrous_grad_blocks_per_sm() { return grad_blocks_per_sm(); }
+
+// blocks (and so parameter rows) of the first backward kernel at height,
+// width and tap step: its groups, at most one wave (blocks an SM x SMs);
+// -1 on an error
+extern "C" int mpt_atrous_grad_blocks(int h, int w, int step) {
+  if (h <= 0 || w <= 0 || step <= 0) return -1;
+  const GradGrid gg = grad_grid(h, w, step);
+  int dev = 0, sms = 0;
+  const int per = grad_blocks_per_sm();
+  if (gg.groups < 0 || per <= 0 || cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+          != cudaSuccess)
+    return -1;
+  const long long wave = (long long)per * sms;
+  return gg.groups < wave ? gg.groups : (int)wave;
+}
+
 // the learned iteration's first backward kernel: height, width, tap step,
 // StepScalars (host float[8]), MlpConst (host float[kMlpConstFloats]),
-// the iteration's carried float4s and guide rows, the cotangents of its
-// colour (h, w, 3) and variance (h, w; NULL: 0), out: the tap weights and
+// the iteration's carried float4s and guide rows, its forward's colour
+// (h, w, 3), variance and weight sums (h, w), the cotangents of its colour
+// (h, w, 3) and variance (h, w; NULL: 0), out: the tap weights and
 // luminance adjoints (25, h, w) each, the pixel terms (h, w, 4) and
-// (h, w, 2), the blocks' parameter rows (ceil(h w / 128), 129), stream
-extern "C" int mpt_atrous_grad_taps(int h, int w, int step, const float* s,
-                                    const float* mlp, const void* cv,
-                                    const void* guide, const void* g_out,
-                                    const void* u_out, void* w_plane,
-                                    void* l_plane, void* pix, void* pix2,
-                                    void* partial, void* stream) {
+// (h, w, 2), the blocks' parameter rows (blocks, 129), the block count
+// (mpt_atrous_grad_blocks), stream
+extern "C" int mpt_atrous_grad_taps(
+    int h, int w, int step, const float* s, const float* mlp, const void* cv,
+    const void* guide, const void* out, const void* out_var,
+    const void* wsum, const void* g_out, const void* u_out, void* w_plane,
+    void* l_plane, void* pix, void* pix2, void* partial, int blocks,
+    void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  if (step <= 0 || mlp == nullptr) return (int)cudaErrorInvalidValue;
+  if (step <= 0 || mlp == nullptr || blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  const GradGrid gg = grad_grid(h, w, step);
+  if (gg.groups < 0) return (int)cudaErrorInvalidConfiguration;
   const StepScalars sc = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
   MlpConst mc = {};
   float* dst = (float*)&mc;
   for (int i = 0; i < kMlpConstFloats; ++i) dst[i] = mlp[i];
-  const int blocks = (h * w + kGradThreads - 1) / kGradThreads;
   atrous_grad_taps_kernel<<<blocks, kGradThreads, 0, (cudaStream_t)stream>>>(
-      h, w, step, sc, mc, (const float4*)cv, (const float4*)guide,
+      h, w, step, gg, sc, mc, (const float4*)cv, (const float4*)guide,
+      (const float*)out, (const float*)out_var, (const float*)wsum,
       (const float*)g_out, (const float*)u_out, (float*)w_plane,
       (float*)l_plane, (float4*)pix, (float2*)pix2, (float*)partial);
   return (int)cudaGetLastError();
@@ -704,6 +883,3 @@ extern "C" int mpt_atrous_grad_sum(int blocks, const void* partial,
       blocks, (const float*)partial, (float*)out);
   return (int)cudaGetLastError();
 }
-
-// threads a block of the first, for the wrapper's row count
-extern "C" int mpt_atrous_grad_threads() { return kGradThreads; }

@@ -229,10 +229,11 @@ def _softplus(z):
 
 
 def atrous_step_reference(color, var, albedo, normal, p: StepParams,
-                          mlp=None):
+                          mlp=None, wsum: bool = False):
     """Plain PyTorch version of one iteration (``kernels/denoise.
     atrous_step``'s arguments and results): the loop bodies of
-    ``denoise.py:53-64``, ``:96-129`` and ``:175-201``."""
+    ``denoise.py:53-64``, ``:96-129`` and ``:175-201``. With ``wsum``,
+    each pixel's weight sum (H, W) follows the colour and variance."""
     step = p.step
     dev = color.device
     c_color, c_normal, c_albedo = (
@@ -284,7 +285,8 @@ def atrous_step_reference(color, var, albedo, normal, p: StepParams,
             weight_sum = weight_sum + w
     m = torch.clamp_min(weight_sum, 1e-6)
     out = fdiv(accum, m[..., None])
-    return out, None if p.mode == FIXED else fdiv(var_accum, m * m)
+    out_var = None if p.mode == FIXED else fdiv(var_accum, m * m)
+    return (out, out_var, weight_sum) if wsum else (out, out_var)
 
 
 def pack_reference(color, var, albedo, normal):
@@ -306,16 +308,17 @@ def unpack(cv, guide):
 
 
 def atrous_step_packed_reference(cv, guide, p: StepParams, mlp=None,
-                                 last: bool = False):
+                                 last: bool = False, wsum: bool = False):
     """Plain version of ``kernels/denoise.atrous_step_packed``:
     ``atrous_step_reference`` on the rows unpacked, the result packed
-    again unless ``last``."""
+    again unless ``last``; with ``wsum`` the weight sums too."""
     color, var, albedo, normal = unpack(cv, guide)
-    out, out_var = atrous_step_reference(
-        color, None if p.mode == FIXED else var, albedo, normal, p, mlp)
+    got = atrous_step_reference(
+        color, None if p.mode == FIXED else var, albedo, normal, p, mlp,
+        wsum)
     if last:
-        return out, out_var
-    return pack_reference(out, out_var, albedo, normal)[0]
+        return got
+    return pack_reference(got[0], got[1], albedo, normal)[0]
 
 
 def atrous_filter_reference(color, var, albedo, normal, steps, mlp=None):
@@ -368,32 +371,39 @@ def _learned_taps(color, var, albedo, normal, p: StepParams, mlp):
     return taps, lum_p, g, gstd
 
 
-def grad_taps_reference(cv, guide, p: StepParams, mlp, g_out, u_out):
+def grad_taps_reference(cv, guide, p: StepParams, mlp, g_out, u_out,
+                        saved=None):
     """Plain version of ``kernels/denoise.grad_taps``, the first backward
     kernel of a learned iteration: from the iteration's rows (``pack``),
-    the packed MLP and the cotangents of its outputs (g_out (H, W, 3),
-    u_out (H, W) or None), each pixel's 25 tap weights and the adjoints of
-    their luminances (w_plane, l_plane: (25, H, W)), its own terms (pix
-    (H, W, 4): dL/dA = g / m and dL/dV = u / m^2; pix2 (H, W, 2): the
-    adjoint of its own luminance and of its blurred variance) and its
-    share of the 129 parameter gradients (rows (H W, 129), ``pack_mlp``'s
-    order; the kernel writes one row a block). Derivatives as JAX takes
-    them but at the ties the plain version keeps (``_AbsJax``,
-    ``_SoftplusJax``; ``clamp_min`` passes at equality)."""
+    the packed MLP, its forward's (colour, variance, weight sums) in
+    ``saved`` (None: the taps' sums retaken here, the same bits) and the
+    cotangents of its outputs (g_out (H, W, 3), u_out (H, W) or None),
+    each pixel's 25 tap weights and the adjoints of their luminances
+    (w_plane, l_plane: (25, H, W)), its own terms (pix (H, W, 4): dL/dA =
+    g / m and dL/dV = u / m^2; pix2 (H, W, 2): the adjoint of its own
+    luminance and of its blurred variance) and its share of the 129
+    parameter gradients (rows (H W, 129), ``pack_mlp``'s order; the kernel
+    writes one row a block). Derivatives as JAX takes them but at the ties
+    the plain version keeps (``_AbsJax``, ``_SoftplusJax``; ``clamp_min``
+    passes at equality)."""
     color, var, albedo, normal = unpack(cv, guide)
     taps, lum_p, g, gstd = _learned_taps(color, var, albedo, normal, p, mlp)
     gdiv = gstd + 1e-4
     w1, w2 = mlp[:96].reshape(6, 16), mlp[112:128]
-    acc = torch.zeros_like(color)
-    vacc = torch.zeros_like(var)
-    wsum = torch.zeros_like(var)
-    for t in taps:
-        acc = acc + t["s_col"] * t["w"][..., None]
-        vacc = vacc + t["s_var"] * (t["w"] * t["w"])
-        wsum = wsum + t["w"]
-    m = torch.clamp_min(wsum, 1e-6)
-    o = fdiv(acc, m[..., None])
-    ov = fdiv(vacc, m * m)
+    if saved is None:
+        acc = torch.zeros_like(color)
+        vacc = torch.zeros_like(var)
+        wsum = torch.zeros_like(var)
+        for t in taps:
+            acc = acc + t["s_col"] * t["w"][..., None]
+            vacc = vacc + t["s_var"] * (t["w"] * t["w"])
+            wsum = wsum + t["w"]
+        m = torch.clamp_min(wsum, 1e-6)
+        o = fdiv(acc, m[..., None])
+        ov = fdiv(vacc, m * m)
+    else:
+        o, ov, wsum = saved
+        m = torch.clamp_min(wsum, 1e-6)
     if u_out is None:
         u_out = torch.zeros_like(var)
     a_bar = fdiv(g_out, m[..., None])
@@ -478,11 +488,11 @@ def grad_sum_reference(rows):
 
 
 def atrous_step_grad_reference(cv, guide, p: StepParams, mlp, g_out,
-                               u_out):
+                               u_out, saved=None):
     """The three backward kernels' plain versions in a row: (dL/dcolour,
     dL/dvariance, dL/dmlp) of one learned iteration."""
     w_plane, l_plane, pix, pix2, rows = grad_taps_reference(
-        cv, guide, p, mlp, g_out, u_out)
+        cv, guide, p, mlp, g_out, u_out, saved)
     dc, dv = grad_gather_reference(p, w_plane, l_plane, pix, pix2)
     return dc, dv, grad_sum_reference(rows)
 

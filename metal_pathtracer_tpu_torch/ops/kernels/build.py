@@ -117,24 +117,28 @@ SIGNATURES = {
     # float[8]), the MLP's launch constants (host float[], NULL but in the
     # learned mode), carried float4s, guide rows, out float4s (NULL at
     # the last iteration), out colour, out variance (NULL in the fixed
-    # mode), stream
+    # mode), out weight sums (NULL but for a learned iteration under
+    # training), stream
     "mpt_atrous_step": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                        _vp],
+                        _vp, _vp],
     "mpt_atrous_mlp_floats": [],
     # the learned iteration's backward, first kernel: height, width, tap
     # step, scalars (host float[8]), the MLP's launch constants (host
-    # float[]), carried float4s, guide rows, colour and variance
-    # cotangents (NULL: 0), out tap weights, luminance adjoints, pixel
-    # terms (float4, float2), the blocks' parameter rows, stream
+    # float[]), carried float4s, guide rows, the forward's colour,
+    # variance and weight sums, colour and variance cotangents (NULL: 0),
+    # out tap weights, luminance adjoints, pixel terms (float4, float2),
+    # the blocks' parameter rows, the block count, stream
     "mpt_atrous_grad_taps": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                             _vp, _vp, _vp, _vp, _vp],
+                             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp],
+    # its block count at height, width and tap step; its blocks an SM
+    "mpt_atrous_grad_blocks": [_i, _i, _i],
+    "mpt_atrous_grad_blocks_per_sm": [],
     # second: height, width, tap step, the first's planes and pixel terms,
     # out colour and variance cotangents, stream
     "mpt_atrous_grad_gather": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
                                _vp],
     # third: the rows' count, the rows, out (129), stream
     "mpt_atrous_grad_sum": [_i, _vp, _vp, _vp],
-    "mpt_atrous_grad_threads": [],
 }
 
 

@@ -25,15 +25,20 @@ hoisted), 43 and 45 for ``FIXED`` and ``SVGF``, each its own instruction
 Training: in grad mode, with the colour, the variance or the packed MLP
 requiring grad, ``atrous_filter`` runs a learned filter as one
 ``LearnedIteration`` (a ``torch.autograd.Function``) an iteration: its
-forward is ``atrous_step`` (a pack, then the step, the same bits as the
-filter without grad); its backward, ``atrous_step_grad``, launches
-``grad_taps`` (a thread a pixel retakes its 25 taps and takes each back:
-tap weights and luminance adjoints as (25, H, W) planes, its own terms,
-a row of the 129 parameter gradients a block), ``grad_gather`` (each
-pixel sums what its tappers owe it: the colour and variance cotangents)
-and ``grad_sum`` (the rows in a fixed order: no atomics, so the same
-bits every launch). CPU tensors run autograd through the plain version
-instead; the fixed and SVGF filters have no backward kernel.
+forward is a pack, then the step with its weight-sum output (the same
+colour and variance bits as the filter without grad), and it saves its
+rows, its outputs and the weight sums; its backward,
+``atrous_step_grad``, launches ``grad_taps`` (each tap once, from the
+saved sums, its logit with the forward's bits: two warps over a group of
+16 pixels of one coset, each with half of the MLP's hidden units and
+their parameter sums, lanes 16-31 the mirrored taps; tap weights and
+luminance adjoints as (25, H, W) planes, each pixel's own terms, a row
+of the 129 parameter gradients a block of a one-wave persistent grid),
+``grad_gather`` (each pixel sums what its tappers owe it: the colour and
+variance cotangents) and ``grad_sum`` (the rows in a fixed order: no
+atomics, so the same bits every launch). CPU tensors run autograd
+through the plain version instead; the fixed and SVGF filters have no
+backward kernel.
 
 ``atrous_step`` keeps the per-iteration contract on (H, W, 3) tensors
 (one ``pack`` launch, then one step launch); the chip checks hold each
@@ -265,7 +270,8 @@ def pack(color, var, albedo, normal):
 pack.launches = 0
 
 
-def _launch_step(cv, guide, p, mlp, out_cv, out_color, out_var):
+def _launch_step(cv, guide, p, mlp, out_cv, out_color, out_var,
+                 out_wsum=None):
     h, w = cv.shape[:2]
     consts = None
     if p.mode == LEARNED:
@@ -275,25 +281,29 @@ def _launch_step(cv, guide, p, mlp, out_cv, out_color, out_var):
         p.mode, h, w, p.step, build.floats(p.scalars()),
         None if consts is None else consts.ctypes.data, _ptr(cv),
         _ptr(guide), _ptr(out_cv), _ptr(out_color), _ptr(out_var),
-        _stream(cv.device))
+        _ptr(out_wsum), _stream(cv.device))
     build.check(err, "mpt_atrous_step")
     atrous_step.launches += 1
 
 
 def atrous_step_packed(cv, guide, p: StepParams, mlp=None,
-                       last: bool = False):
+                       last: bool = False, wsum: bool = False):
     """One iteration at step ``p.step`` on a filter's rows (``pack``):
     the next (H, W, 4) float4s, or with ``last`` (colour (H, W, 3),
-    variance (H, W) or None in ``FIXED`` mode). ``mlp`` is the packed MLP
-    (``LEARNED``). CPU tensors run
-    ``ops/denoise.atrous_step_packed_reference``; CUDA tensors launch
-    ``csrc/denoise.cu``."""
+    variance (H, W) or None in ``FIXED`` mode), and with ``wsum`` (a
+    learned ``last`` iteration) each pixel's weight sum (H, W) after them,
+    which its backward reads. ``mlp`` is the packed MLP (``LEARNED``). CPU
+    tensors run ``ops/denoise.atrous_step_packed_reference``; CUDA tensors
+    launch ``csrc/denoise.cu``."""
     dev = cv.device
+    if wsum and (not last or p.mode != LEARNED):
+        raise ValueError("atrous_step_packed: the weight sums are a learned "
+                         "last iteration's output")
     if dev.type == "cpu":
         from metal_pathtracer_tpu_torch.ops.denoise import (
             atrous_step_packed_reference,
         )
-        return atrous_step_packed_reference(cv, guide, p, mlp, last)
+        return atrous_step_packed_reference(cv, guide, p, mlp, last, wsum)
     if dev.type != "cuda":
         raise ValueError(f"atrous_step_packed: unsupported device {dev}")
     h, w = cv.shape[:2]
@@ -309,8 +319,12 @@ def atrous_step_packed(cv, guide, p: StepParams, mlp=None,
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     out_var = None if p.mode == FIXED else torch.empty(
         (h, w), dtype=torch.float32, device=dev)
-    _launch_step(cv, guide, p, mlp, None, out, out_var)
-    return out, out_var
+    if not wsum:
+        _launch_step(cv, guide, p, mlp, None, out, out_var)
+        return out, out_var
+    sums = torch.empty((h, w), dtype=torch.float32, device=dev)
+    _launch_step(cv, guide, p, mlp, None, out, out_var, sums)
+    return out, out_var, sums
 
 
 def atrous_step(color, var, albedo, normal, p: StepParams, mlp=None):
@@ -338,8 +352,65 @@ def atrous_step(color, var, albedo, normal, p: StepParams, mlp=None):
 atrous_step.launches = 0
 
 
-#: threads a block of ``grad_taps``' kernel: one parameter row a block
-GRAD_THREADS = 128
+#: ``grad_taps``' kernel: a block is two warps (GRAD_THREADS) over one
+#: group of GX x GY lattice points of a coset of the step, whose taps are
+#: a GTX x GTY tile; lanes 16-31 take the mirrored taps (24 - t beside t)
+#: in GRAD_STEPS steps
+GRAD_THREADS = 64
+GX, GY = 8, 2
+GTX, GTY = GX + 4, GY + 4
+GRAD_STEPS = 13
+
+
+def grad_grid(h: int, w: int, step: int):
+    """``grad_taps``' groups: (cosets down, cosets across, lattice tiles
+    down, lattice tiles across); group g takes coset g mod (cy cx) and
+    lattice tile g // (cy cx), both row major."""
+    cy, cx = min(step, h), min(step, w)
+    return (cy, cx, (-(-h // step) + GY - 1) // GY,
+            (-(-w // step) + GX - 1) // GX)
+
+
+def grad_tiles(h: int, w: int, step: int):
+    """``grad_taps``' addressing, as ``csrc/denoise.cu`` computes it: (the
+    flat source pixel of each group's tile points, (G, GTX GTY) int64, the
+    wrap taken at the load; each lane's pixel, (G, 32) int64, -1 where the
+    lane has none; each lane's tap (ky, kx row major) at each step, (32,
+    GRAD_STEPS) int64, -1 where it has none (the mirror's centre); the
+    tile slot it reads there, (32, GRAD_STEPS) int64)."""
+    cy, cx, tiles_y, tiles_x = grad_grid(h, w, step)
+    g = torch.arange(cy * cx * tiles_y * tiles_x)
+    coset, tile = g % (cy * cx), g // (cy * cx)
+    ry, rx = coset // cx, coset % cx
+    u0, v0 = (tile // tiles_x) * GY, (tile % tiles_x) * GX
+    a = torch.arange(GTY).repeat_interleave(GTX)
+    b = torch.arange(GTX).repeat(GTY)
+    ys = (ry[:, None] + step * (u0[:, None] - 2 + a)) % h
+    xs = (rx[:, None] + step * (v0[:, None] - 2 + b)) % w
+    lane = torch.arange(32)
+    mirror, ty, tx = lane // 16, (lane // 8) % 2, lane % 8
+    y = ry[:, None] + step * (u0[:, None] + ty)
+    x = rx[:, None] + step * (v0[:, None] + tx)
+    pixel = torch.where((y < h) & (x < w), y * w + x, -1)
+    st = torch.arange(GRAD_STEPS)
+    i, j = st // 5, st % 5
+    m = mirror[:, None].bool()
+    tap = torch.where(m, 24 - st, st)
+    tap = torch.where(m & (st == GRAD_STEPS - 1), -1, tap)
+    slots = torch.where(m, (ty[:, None] + i) * GTX + tx[:, None] + j,
+                        (ty[:, None] + 4 - i) * GTX + tx[:, None] + 4 - j)
+    return ys * w + xs, pixel, tap, slots
+
+
+def grad_blocks(h: int, w: int, step: int) -> int:
+    """The block count (and parameter rows) of ``grad_taps``' kernel at
+    h x w and ``step`` on the current device: its groups, at most one
+    wave (``mpt_atrous_grad_blocks``)."""
+    blocks = build.load().mpt_atrous_grad_blocks(h, w, step)
+    if blocks <= 0:
+        raise RuntimeError(f"grad_blocks: no block count for {h}x{w} at "
+                           f"step {step}")
+    return blocks
 
 
 def _cotangents(g_out, u_out, h, w, dev):
@@ -349,37 +420,41 @@ def _cotangents(g_out, u_out, h, w, dev):
     return g, u
 
 
-def grad_taps(cv, guide, p: StepParams, mlp, g_out, u_out):
+def grad_taps(cv, guide, p: StepParams, mlp, g_out, u_out, saved):
     """The first backward kernel of a learned iteration (on its rows, the
-    packed MLP and the cotangents of its colour and variance; ``u_out``
-    None for 0): (the tap weights and the adjoints of the tapped
-    luminances, (25, H, W) each; dL/dA and dL/dV a pixel (H, W, 4); the
-    adjoints of each pixel's own luminance and blurred variance (H, W,
-    2); parameter-gradient rows (R, 129), a row a block of
-    ``GRAD_THREADS`` pixels on CUDA, a row a pixel on the CPU). CPU
-    tensors run ``ops/denoise.grad_taps_reference``; CUDA tensors launch
-    ``csrc/denoise.cu atrous_grad_taps_kernel``."""
+    packed MLP, ``saved``: its forward's colour (H, W, 3), variance and
+    weight sums (H, W) (``atrous_step_packed(..., wsum=True)``), and the
+    cotangents of its colour and variance; ``u_out`` None for 0): (the tap
+    weights and the adjoints of the tapped luminances, (25, H, W) each;
+    dL/dA and dL/dV a pixel (H, W, 4); the adjoints of each pixel's own
+    luminance and blurred variance (H, W, 2); parameter-gradient rows
+    (R, 129), a row a block (``grad_blocks``) on CUDA, a row a pixel on
+    the CPU). CPU tensors run ``ops/denoise.grad_taps_reference``; CUDA
+    tensors launch ``csrc/denoise.cu atrous_grad_taps_kernel``."""
     dev = cv.device
     if dev.type == "cpu":
         from metal_pathtracer_tpu_torch.ops.denoise import (
             grad_taps_reference,
         )
-        return grad_taps_reference(cv, guide, p, mlp, g_out, u_out)
+        return grad_taps_reference(cv, guide, p, mlp, g_out, u_out, saved)
     if dev.type != "cuda":
         raise ValueError(f"grad_taps: unsupported device {dev}")
     if p.mode != LEARNED:
         raise ValueError("grad_taps: only the learned filter has a backward "
                          "kernel")
     h, w = cv.shape[:2]
+    out, out_var, wsum = saved
     _check_need("grad_taps", [("cv", cv, (h, w, 4)),
                               ("guide", guide, (h, w, 8)),
                               ("mlp", mlp, (MLP_FLOATS,)),
+                              ("out", out, (h, w, 3)),
+                              ("out_var", out_var, (h, w)),
+                              ("wsum", wsum, (h, w)),
                               ("g_out", g_out, (h, w, 3))]
                 + ([] if u_out is None else [("u_out", u_out, (h, w))]),
                 dev)
     build.check_aligned("grad_taps", (cv, guide), 16)
-    n = h * w
-    blocks = -(-n // GRAD_THREADS)
+    blocks = grad_blocks(h, w, p.step)
     w_plane = torch.empty((25, h, w), dtype=torch.float32, device=dev)
     l_plane = torch.empty_like(w_plane)
     pix = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
@@ -390,8 +465,9 @@ def grad_taps(cv, guide, p: StepParams, mlp, g_out, u_out):
                                                 p.it_feature))
     err = build.load().mpt_atrous_grad_taps(
         h, w, p.step, build.floats(p.scalars()), consts.ctypes.data,
-        _ptr(cv), _ptr(guide), _ptr(g_out), _ptr(u_out), _ptr(w_plane),
-        _ptr(l_plane), _ptr(pix), _ptr(pix2), _ptr(rows), _stream(dev))
+        _ptr(cv), _ptr(guide), _ptr(out), _ptr(out_var), _ptr(wsum),
+        _ptr(g_out), _ptr(u_out), _ptr(w_plane), _ptr(l_plane), _ptr(pix),
+        _ptr(pix2), _ptr(rows), blocks, _stream(dev))
     build.check(err, "mpt_atrous_grad_taps")
     grad_taps.launches += 1
     return w_plane, l_plane, pix, pix2, rows
@@ -452,15 +528,19 @@ grad_taps.launches = grad_gather.launches = grad_sum.launches = 0
 
 
 def atrous_step_grad(cv, guide, p: StepParams, mlp, g_out, u_out,
-                     inputs: bool = True, params: bool = True):
+                     saved=None, inputs: bool = True, params: bool = True):
     """The backward of one learned iteration on its rows: (dL/dcolour
     (H, W, 3), dL/dvariance (H, W), dL/dmlp (129,)), the first two None
     unless ``inputs``, the last None unless ``params``: ``grad_taps``,
-    then ``grad_gather`` and ``grad_sum`` as asked."""
+    then ``grad_gather`` and ``grad_sum`` as asked. ``saved`` is the
+    forward's (colour, variance, weight sums); None runs the forward for
+    them."""
     h, w = cv.shape[:2]
     g_out, u_out = _cotangents(g_out, u_out, h, w, cv.device)
+    if saved is None:
+        saved = atrous_step_packed(cv, guide, p, mlp, last=True, wsum=True)
     w_plane, l_plane, pix, pix2, rows = grad_taps(cv, guide, p, mlp, g_out,
-                                                  u_out)
+                                                  u_out, saved)
     d_color = d_var = d_mlp = None
     if inputs:
         d_color, d_var = grad_gather(p, w_plane, l_plane, pix, pix2)
@@ -470,17 +550,20 @@ def atrous_step_grad(cv, guide, p: StepParams, mlp, g_out, u_out,
 
 
 class LearnedIteration(torch.autograd.Function):
-    """One learned iteration (``atrous_step``: ``pack``, then one launch of
-    ``atrous_step_kernel``; the same bits as the filter without grad),
-    whose backward is ``atrous_step_grad``'s kernels. Inputs: colour
-    (H, W, 3), luminance variance (H, W), packed MLP (129), then albedo,
-    normal and the ``StepParams``, which take no gradient."""
+    """One learned iteration (``pack``, then one launch of
+    ``atrous_step_kernel`` with its weight sums; colour and variance with
+    the bits of the filter without grad), whose backward is
+    ``atrous_step_grad``'s kernels on the saved rows, outputs and weight
+    sums. Inputs: colour (H, W, 3), luminance variance (H, W), packed MLP
+    (129), then albedo, normal and the ``StepParams``, which take no
+    gradient."""
 
     @staticmethod
     def forward(ctx, color, var, mlp, albedo, normal, p):
         cv, guide = pack(color, var, albedo, normal)
-        out, out_var = atrous_step_packed(cv, guide, p, mlp, last=True)
-        ctx.save_for_backward(cv, guide)
+        out, out_var, wsum = atrous_step_packed(cv, guide, p, mlp, last=True,
+                                                wsum=True)
+        ctx.save_for_backward(cv, guide, out, out_var, wsum)
         # the input itself, so that its host copy (mlp_host) is reused
         ctx.mlp, ctx.p = mlp, p
         ctx.set_materialize_grads(False)
@@ -488,10 +571,10 @@ class LearnedIteration(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, u_out):
-        cv, guide = ctx.saved_tensors
+        cv, guide, *saved = ctx.saved_tensors
         need_c, need_v, need_m = ctx.needs_input_grad[:3]
         d_color, d_var, d_mlp = atrous_step_grad(
-            cv, guide, ctx.p, ctx.mlp, g_out, u_out,
+            cv, guide, ctx.p, ctx.mlp, g_out, u_out, saved=tuple(saved),
             inputs=need_c or need_v, params=need_m)
         return (d_color if need_c else None, d_var if need_v else None,
                 d_mlp, None, None, None)

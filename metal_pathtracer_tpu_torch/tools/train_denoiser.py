@@ -402,4 +402,10 @@ if __name__ == "__main__":
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--cache-dir", default=None)
     a = ap.parse_args()
-    main(a.out, a.device, cache_dir=a.cache_dir)
+    got = main(a.out, a.device, cache_dir=a.cache_dir)
+    q = np.percentile(got["step_seconds"], [25, 50, 75]) * 1e3
+    print(f"{len(got['losses'])} steps: {q[1]:.1f} ms a step median "
+          f"(quartiles {q[0]:.1f}-{q[2]:.1f}); data "
+          f"{got['data_seconds']:.1f} s, training {got['train_seconds']:.1f} "
+          f"s, run {got['seconds']:.1f} s; loss {got['losses'][0]:.6f} -> "
+          f"{got['losses'][-1]:.6f}, best {got['best_loss']:.6f}")

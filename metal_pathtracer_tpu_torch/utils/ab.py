@@ -71,13 +71,25 @@ change's ``chip_smoke.py`` helpers, so both sides are measured alike:
   colour and variance, which must agree over every process; the
   kernels' registers and spill bytes and their tap loops' instruction
   counts (``chip_smoke.py atrous_sass``).
+- ``atrousgrad``: the learned iteration's backward kernels (taps, gather,
+  sum, and the three through ``atrous_step_grad``) at 64x64, 96x96 and
+  1920x1080 on ``chip_smoke.py grad_state``, each launch kept from the
+  checkout's own 4-iteration filter's backward (the vendored weights,
+  ``chip_smoke.py learned_grads``) and timed three times with
+  ``kernel_ms`` (10 launches back to back), the mean over the 4
+  iterations; the kernels' registers and spill bytes. Each process prints
+  a SHA-256 of the filter's gradients (colour, variance, MLP), which must
+  agree over the processes of each side (two launches give the same
+  bits) but may differ between the sides (sums in another order), and
+  saves them: the change's relative-norm distance from the parent's
+  closes the output.
 
 Make the parent's checkout with ``git archive`` into a git-ignored
 directory, then::
 
     python3 metal_pathtracer_tpu_torch/utils/ab.py \
         {lambert,k1,ki,kiany,s1,s2,s2zoo,tex,k3a,k3b,k3c,full,fullzoo,
-         fulllambert,atrous} \
+         fulllambert,atrous,atrousgrad} \
         PARENT CHANGE
 
 Lines starting with ``AB`` carry the numbers; per series, the medians and
@@ -93,13 +105,22 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import traceback
 
 RENDERS, RENDER_SPP, FRAME = 4, 4, (1920, 1080)
 K1_REPS = 3
+#: ``atrousgrad``'s sizes (width, height): the tap trainer's, the U-Net
+#: trainer's, 1080p
+GRAD_AB_SIZES = ((64, 64), (96, 96), (1920, 1080))
+#: the gradients ``atrousgrad`` digests and compares, and the keys of
+#: ``chip_smoke.py learned_grads``' result they are made of
+GRAD_AB_OUTPUTS = {"d_mlp": slice(0, 4), "d_color": slice(4, 5),
+                   "d_var": slice(5, 6)}
 
 
 def _load(name, path):
@@ -549,6 +570,62 @@ def child_atrous(timer, depths):
                   f"[{card}]", flush=True)
 
 
+def child_atrousgrad(timer, depths):
+    """The learned iteration's backward kernels of the checkout's package
+    at ``GRAD_AB_SIZES``, kept from its own filters and timed by
+    ``timer``'s helpers; the filters' gradients digested and saved to
+    ``$AB_SAVE``; ``depths`` is not used."""
+    import contextlib
+    import hashlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    c = _load("chip_smoke_timer", timer)
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+
+    build.load()
+    registers(c, build, "atrous_grad")
+    dev = torch.device("cuda", 0)
+    card = c.device_line()
+    names = ("grad_taps", "grad_gather", "grad_sum", "atrous_step_grad")
+    reals = {k: getattr(DK, k) for k in names}
+    kept, saves = {}, {}
+    for w, h in GRAD_AB_SIZES:
+        calls = kept[f"{w}x{h}"] = {k: [] for k in names}
+
+        def keeper(name, calls=calls):
+            def keep(*a, **k):
+                calls[name].append((a, k))
+                return reals[name](*a, **k)
+            # a wrapper that counts on the name it is reached by
+            keep.launches = getattr(reals[name], "launches", 0)
+            return keep
+
+        with contextlib.ExitStack() as stack:
+            for k in names:
+                stack.enter_context(mock.patch.object(DK, k, keeper(k)))
+            _, grads = c.learned_grads(c.vendored_mlp(dev),
+                                       c.grad_state(h, w, dev), 4)
+        for name, sl in GRAD_AB_OUTPUTS.items():
+            x = torch.cat([g.detach().reshape(-1) for g in grads[sl]])
+            x = x.cpu().numpy()
+            saves[f"{w}x{h} {name}"] = x
+            print(f"AB output {w}x{h} {name}: "
+                  f"{hashlib.sha256(x.tobytes()).hexdigest()}", flush=True)
+    if os.environ.get("AB_SAVE"):
+        np.savez(os.environ["AB_SAVE"], **saves)
+    for rep in range(K1_REPS):
+        for size, calls in kept.items():
+            for name in names:
+                ms = sum(c.kernel_ms(lambda: lambda: reals[name](*a, **k), 10)
+                         for a, k in calls[name]) / len(calls[name])
+                print(f"AB atrousgrad {size} {name} rep {rep}: {ms:.4f} ms "
+                      f"[{card}]", flush=True)
+
+
 def lambert_value(line):
     m = re.search(r"([\d.]+) ms/spp", line)
     if m and line.startswith(("AB lambert", "lambert")):
@@ -577,7 +654,8 @@ MEASURES = {"lambert": (child_lambert, lambert_value),
             "fullzoo": (functools.partial(child_full, "fullzoo"), k1_value),
             "fulllambert": (functools.partial(child_full, "fulllambert"),
                             k1_value),
-            "atrous": (child_atrous, k1_value)}
+            "atrous": (child_atrous, k1_value),
+            "atrousgrad": (child_atrousgrad, k1_value)}
 
 
 def main() -> None:
@@ -613,20 +691,29 @@ def main() -> None:
              "c": ("change", os.path.abspath(args.change))}
     timer = os.path.join(trees["c"][1], "chip_smoke.py")
     series = {"parent": {}, "change": {}}
-    digests = {}
+    digests, outputs, saved = {}, {}, {}
     failed = False
-    for key in args.order:
+    tmp = tempfile.mkdtemp()
+    for n, key in enumerate(args.order):
         who, tree = trees[key]
+        save = os.path.join(tmp, f"{n}.npz")
         run = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
              args.measure, tree, timer, args.depths], capture_output=True,
-            text=True)
+            text=True, env=dict(os.environ, AB_SAVE=save))
+        if os.path.exists(save):
+            saved.setdefault(who, save)
         for line in (run.stdout + run.stderr).splitlines():
             if re.search(r"^(AB|lambert|# tree)|Error|Traceback", line):
                 print(f"[{who}] {line}", flush=True)
             m = re.match(r"AB digest (.+): ([0-9a-f]+)$", line)
             if m:
                 digests.setdefault(m.group(1), set()).add(m.group(2))
+            # a side's own output: equal within the side, maybe not across
+            m = re.match(r"AB output (.+): ([0-9a-f]+)$", line)
+            if m:
+                outputs.setdefault(m.group(1), {}).setdefault(
+                    who, set()).add(m.group(2))
             got = value_of(line)
             if got:
                 series[who].setdefault(got[0], []).append(got[1])
@@ -637,6 +724,26 @@ def main() -> None:
               f"{'equal' if len(seen) == 1 else 'DIFFERENT'} over every "
               f"process")
         failed |= len(seen) != 1
+    for name, sides in sorted(outputs.items()):
+        same = all(len(v) == 1 for v in sides.values())
+        across = len(set().union(*sides.values())) == 1
+        print(f"AB output {name}: "
+              + ", ".join(f"{who} {' '.join(sorted(v))}"
+                          for who, v in sorted(sides.items()))
+              + f"; {'equal' if same else 'DIFFERENT'} within each side, "
+              f"{'equal' if across else 'different'} across the sides")
+        failed |= not same
+    if len(saved) == 2:
+        import numpy as np
+
+        with np.load(saved["parent"]) as p, np.load(saved["change"]) as c:
+            for name in sorted(p.files):
+                ref = p[name].astype(np.float64)
+                dist = np.linalg.norm(c[name].astype(np.float64) - ref) \
+                    / np.linalg.norm(ref)
+                print(f"AB distance {name}: the change's relative norm "
+                      f"from the parent's {dist:.3e}")
+    shutil.rmtree(tmp, ignore_errors=True)
     for name in series["change"] | series["parent"]:
         med = {}
         for who in ("parent", "change"):

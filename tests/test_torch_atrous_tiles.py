@@ -15,6 +15,10 @@ addresses in PyTorch. Held here:
   ``mlp_constants``, and p3 once a pixel) bit-equal to ``_mlp_logit`` on
   5,000 seeded feature rows and on every tap's features of a 48x48
   state;
+- the backward taps kernel's addressing (``grad_tiles``): each lane's
+  tile slot at each of its 13 steps holds its tap's roll source, and the
+  two mirrored halves take every (pixel, tap) once, at 16x24, 37x53,
+  1x7, 7x1 and 270x480 at step 16;
 - the filters' packed path on CPU tensors (``pack``, then
   ``atrous_step_packed`` an iteration) bit-equal to the plain iterations,
   with no launch counted.
@@ -72,6 +76,37 @@ def test_cosets_fastest_and_tiles_stay_on_their_lattice():
     first = pix[:cosets, 0]
     assert torch.equal(first // w, torch.arange(step).repeat_interleave(step))
     assert torch.equal(first % w, torch.arange(step).repeat(step))
+
+
+GRAD_TILE_CASES = [((16, 24), s) for s in (1, 2, 4, 8, 16)] \
+    + [((37, 53), s) for s in (1, 3, 16)] \
+    + [((1, 7), 4), ((7, 1), 2), ((270, 480), 16)]
+
+
+@pytest.mark.parametrize("size,step", GRAD_TILE_CASES)
+def test_grad_tap_slots_read_the_roll_sources(size, step):
+    """The backward taps kernel's addressing (``kernels/denoise.
+    grad_tiles``): at each of its 13 steps a lane's tile slot holds the
+    roll source of its tap, and over the steps and the two mirrored
+    halves every (pixel, tap) is taken exactly once."""
+    h, w = size
+    src, pix, tap, slots = K.grad_tiles(h, w, step)
+    cy, cx, ty, tx = K.grad_grid(h, w, step)
+    assert src.shape == (cy * cx * ty * tx, K.GTX * K.GTY)
+    assert int(slots.min()) >= 0 and int(slots.max()) < K.GTX * K.GTY
+    index = torch.arange(h * w).reshape(h, w)
+    rolled = torch.stack([torch.roll(index, (ky * step, kx * step),
+                                     (0, 1)).reshape(-1)
+                          for ky in D._TAPS for kx in D._TAPS], 1)
+    seen = torch.zeros(h * w, 25, dtype=torch.int64)
+    for st in range(K.GRAD_STEPS):
+        t = tap[:, st].expand_as(pix)
+        live = (pix >= 0) & (t >= 0)
+        got = src.gather(1, slots[:, st].expand(src.shape[0], -1))
+        assert torch.equal(got[live], rolled[pix[live], t[live]]), (size, st)
+        seen.index_put_((pix[live], t[live]),
+                        torch.ones_like(pix[live]), accumulate=True)
+    assert bool((seen == 1).all())
 
 
 def _mlps():

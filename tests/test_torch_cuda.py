@@ -1796,30 +1796,37 @@ def test_learned_backward_vs_plain_autograd_on_card(dev, iters):
 def test_backward_kernels_vs_twins_on_card(dev):
     """Each backward kernel against its plain twin on the same inputs at
     every step of a 5-iteration filter on a 53x71 state (1e-4 relative
-    norm an output), and two launches of each bit-equal."""
+    norm an output), two launches of each bit-equal, one parameter row a
+    block of a grid of at most one wave."""
     from metal_pathtracer_tpu_torch.ops import denoise as D
     from metal_pathtracer_tpu_torch.ops.kernels import build
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as K
 
-    assert build.load().mpt_atrous_grad_threads() == K.GRAD_THREADS
+    per_sm = build.load().mpt_atrous_grad_blocks_per_sm()
+    wave = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+    assert per_sm * K.GRAD_THREADS // 32 >= 16
+    assert K.grad_blocks(1080, 1920, 1) == wave
+    cy, cx, ty, tx = K.grad_grid(53, 71, 4)
+    assert K.grad_blocks(53, 71, 4) == min(cy * cx * ty * tx, wave)
     d = _grad_scene(dev, 53, 71)
     kept = []
     real = K.atrous_step_grad
 
     def keep(*a, **k):
-        kept.append(a)
+        kept.append((a, tuple(x.detach() for x in k["saved"])))
         return real(*a, **k)
 
     with mock.patch.object(K, "atrous_step_grad", keep):
         _learned_grads(_vendored_mlp(dev), d, 5)
     assert len(kept) == 5
-    for cv, guide, p, mlp, g_out, u_out in kept:
+    for (cv, guide, p, mlp, g_out, u_out), saved in kept:
         mlp = mlp.detach()
         g_out, u_out = K._cotangents(g_out, u_out, 53, 71, dev)
-        got = K.grad_taps(cv, guide, p, mlp, g_out, u_out)
-        again = K.grad_taps(cv, guide, p, mlp, g_out, u_out)
+        got = K.grad_taps(cv, guide, p, mlp, g_out, u_out, saved)
+        assert got[4].shape[0] == K.grad_blocks(53, 71, p.step)
+        again = K.grad_taps(cv, guide, p, mlp, g_out, u_out, saved)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
-        want = D.grad_taps_reference(cv, guide, p, mlp, g_out, u_out)
+        want = D.grad_taps_reference(cv, guide, p, mlp, g_out, u_out, saved)
         for x, y in zip(got[:4], want[:4]):
             assert _rel_norm([x], [y]) <= 1e-4
         sums = K.grad_sum(got[4])

@@ -210,6 +210,32 @@ def test_backward_twins_match_autograd(step, it_feature):
     assert _rel([m_only.numpy()], [want_m.numpy()]) <= GRAD_TOL
 
 
+@pytest.mark.parametrize("step,it_feature,with_u", [(1, 0.0, True),
+                                                    (16, 1.0, False)])
+def test_saved_sums_twin_equals_the_retake(step, it_feature, with_u):
+    """The backward's first twin fed the forward's saved colour, variance
+    and weight sums (as ``LearnedIteration`` feeds the kernel) gives, bit
+    for bit, what it gives when it retakes the taps' sums; the forward
+    with its weight-sum output gives the colour and variance of the
+    forward without it (24x16; step 16 wraps)."""
+    color, var, alb, nrm, g_out, u_out = _step_inputs(11, 16, 24)
+    mlp = _vendored_mlp()
+    p = K.StepParams.learned(step, it_feature)
+    cv, guide = K.pack(color, var, alb, nrm)
+    free = K.atrous_step_packed(cv, guide, p, mlp, last=True)
+    saved = K.atrous_step_packed(cv, guide, p, mlp, last=True, wsum=True)
+    assert torch.equal(saved[0], free[0]) and torch.equal(saved[1], free[1])
+    u = u_out if with_u else None
+    got = D.grad_taps_reference(cv, guide, p, mlp, g_out, u, saved)
+    want = D.grad_taps_reference(cv, guide, p, mlp, g_out, u)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        K.atrous_step_grad(cv, guide, p, mlp, g_out, u, saved),
+        D.atrous_step_grad_reference(cv, guide, p, mlp, g_out, u)))
+    with pytest.raises(ValueError, match="weight sums"):
+        K.atrous_step_packed(cv, guide, p, mlp, wsum=True)
+
+
 def test_learned_iteration_function_on_cpu():
     """``LearnedIteration`` on CPU tensors (its wrappers' plain versions):
     the forward's bits are ``atrous_step_reference``'s, the gradients
