@@ -41,6 +41,7 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
     where3,
 )
 from metal_pathtracer_tpu_torch.schema import SceneArrays, StaticConfig, Uniforms
+from metal_pathtracer_tpu_torch.utils.spans import host_read, span
 
 _WHITE = (1.0, 1.0, 1.0)
 _BLUE = (0.5, 0.7, 1.0)
@@ -121,7 +122,7 @@ def _primary_cone_spread(uniforms: Uniforms, static: StaticConfig) -> float:
     footprint = torch.clamp_min(torch.maximum(pixel_x, pixel_y), 1e-6)
     center = fma(0.5, cam.vertical, fma(0.5, cam.horizontal, cam.lower_left))
     focus = length(center - cam.origin)
-    return float(footprint / torch.clamp_min(focus, 1e-6))
+    return host_read(footprint / torch.clamp_min(focus, 1e-6), float)
 
 
 def env_nee(scene: SceneArrays, static: StaticConfig) -> bool:
@@ -224,7 +225,7 @@ def trace_paths(scene: SceneArrays, uniforms: Uniforms, static: StaticConfig,
     pixel probe, ``renderer/debugprobe.py``)."""
     from metal_pathtracer_tpu_torch.ops.kernels import shade
 
-    lens = max(2.0 * float(uniforms.camera.lens_radius), 0.0)
+    lens = max(2.0 * host_read(uniforms.camera.lens_radius, float), 0.0)
     carry = PathCarry.start(state, ray_o, ray_d, lens,
                             _primary_cone_spread(uniforms, static))
     if env_nee(scene, static) or rect_nee(scene):
@@ -241,10 +242,12 @@ def integrate_pixels(scene: SceneArrays, uniforms: Uniforms,
                      static: StaticConfig, x, y, prev_count):
     """One sample for a batch of pixels (the kernel entry, reference:
     pathtrace.metal:9698-9815). Returns (sample, albedo, normal, stats)."""
-    seed = rng_ops.make_seed(uniforms.fixed_rng_seed, uniforms.frame_index,
-                             x, y, uniforms.sample_count, prev_count)
-    state, origin, direction = camera_ops.generate_primary_rays(
-        uniforms.camera, x, y, static.width, static.height, seed)
+    with span("mpt.camera"):
+        seed = rng_ops.make_seed(uniforms.fixed_rng_seed,
+                                 uniforms.frame_index, x, y,
+                                 uniforms.sample_count, prev_count)
+        state, origin, direction = camera_ops.generate_primary_rays(
+            uniforms.camera, x, y, static.width, static.height, seed)
     _, radiance, aov_albedo, aov_normal, stats = trace_paths(
         scene, uniforms, static, state, origin, direction)
     finite = torch.isfinite(radiance).all(-1, keepdim=True)

@@ -134,6 +134,7 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
     where3,
 )
 from metal_pathtracer_tpu_torch.schema import INST_MAT, instance_table
+from metal_pathtracer_tpu_torch.utils.spans import count, host_read, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -990,27 +991,36 @@ def trace_paths_fused(scene, uniforms, static, carry: PathCarry,
         if textured else None
     rays = 0
     for depth in range(static.max_depth):
-        n_alive = int(carry.alive.sum())
-        if n_alive == 0:
-            break
-        rays += n_alive
-        t, idx, u, v, kind = _trace(scene, carry)
-        rec = None if probe is None else _probe_depth(carry, t, idx, u, v,
-                                                      kind)
-        tex = None
-        if textured:
-            tex = texture_stage(carry, t, triangle_lanes(idx, kind), u, v,
-                                scene, uniforms, static, depth, tex_params,
-                                kind)
-        # the full stage samples from its input state: the walk's fork
-        rw, rw_state = random_walks(scene, uniforms, static, carry, t, idx,
-                                    u, v, kind)
-        shade_full(carry, t, idx, u, v, scene.triangles, scene.materials,
-                   params, depth, kind=kind, scene=scene, tex=tex, rw=rw,
-                   rw_state=rw_state, probe=None if rec is None else rec.plane,
-                   n_alive=n_alive)
-        if rec is not None:
-            _probe_end(probe, rec, carry)
+        with span("mpt.depth"):
+            count("depths")
+            n_alive = host_read(carry.alive.sum())
+            if n_alive == 0:
+                break
+            rays += n_alive
+            count("lanes.trace", n_alive)
+            with span("mpt.trace"):
+                t, idx, u, v, kind = _trace(scene, carry)
+            rec = None if probe is None else _probe_depth(carry, t, idx, u,
+                                                          v, kind)
+            tex = None
+            if textured:
+                with span("mpt.texture"):
+                    tex = texture_stage(carry, t, triangle_lanes(idx, kind),
+                                        u, v, scene, uniforms, static, depth,
+                                        tex_params, kind)
+            # the full stage samples from its input state: the walk's fork
+            with span("mpt.walk"):
+                rw, rw_state = random_walks(scene, uniforms, static, carry, t,
+                                            idx, u, v, kind)
+            count("lanes.shade", n_alive)
+            with span("mpt.shade"):
+                shade_full(carry, t, idx, u, v, scene.triangles,
+                           scene.materials, params, depth, kind=kind,
+                           scene=scene, tex=tex, rw=rw, rw_state=rw_state,
+                           probe=None if rec is None else rec.plane,
+                           n_alive=n_alive)
+            if rec is not None:
+                _probe_end(probe, rec, carry)
     return rays
 
 
@@ -1413,8 +1423,8 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
     mats = scene.materials
     modulated = env is not None \
         and C.MATERIAL_DIFFUSE_LIGHT in static.material_types \
-        and bool(((mats.mat_type == C.MATERIAL_DIFFUSE_LIGHT)
-                  & (mats.emission_env > 0.0)).any())
+        and host_read(((mats.mat_type == C.MATERIAL_DIFFUSE_LIGHT)
+                       & (mats.emission_env > 0.0)).any(), bool)
     # only triangles carry texture coordinates
     textured = has_textures(scene, static) and scene.n_triangles > 0
     tex_params = TexParams.of(uniforms, static, scene.textures) \
@@ -1427,64 +1437,79 @@ def trace_paths_nee(scene, uniforms, static, carry: PathCarry, probe=None):
     shadow = torch.zeros((), dtype=torch.int64, device=dev)
     chain_rays = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(static.max_depth):
-        n_alive = int(carry.alive.sum())
-        if n_alive == 0:
-            break
-        rays += n_alive
-        t, idx, u, v, kind = _trace(scene, carry)
-        rec = None if probe is None else _probe_depth(carry, t, idx, u, v,
-                                                      kind)
-        plane = None if rec is None else rec.plane
-        # the alpha-BLEND draw lands before s1's NEE draws
-        tex = texture_stage(carry, t, triangle_lanes(idx, kind), u, v, scene,
-                            uniforms, static, depth, tex_params,
-                            kind) if textured else None
-        envbg = envpdf = rectpdf = None
-        if env is not None:
-            # miss lanes read these; every lane computes them
-            # (value-identical to the reference's skip when no lane missed)
-            envbg = env_ops.environment_background(
-                env, carry.ray_d, uniforms, static, carry.env_lod,
-                carry.env_lod_active)
-            envpdf = env_ops.environment_pdf(env, carry.ray_d, rot)
-        if rects:
-            rectpdf = integrator.rect_light_pdf_for_hit(
-                scene, analytic_point(carry.ray_o, t, carry.ray_d), kind,
-                idx, carry.ray_o)
-        emod = env_modulation(scene, uniforms, static, carry, t, idx, u, v,
-                              kind) if modulated else None
-        trans = shade_s1(carry, t, idx, u, v, scene.triangles,
-                         scene.materials, envbg, envpdf, params, depth, tex,
-                         kind=kind, scene=scene, rectpdf=rectpdf, emod=emod,
-                         probe=plane)
-        # s2 samples from the post-s1 state: the walk's fork
-        rw, rw_state = random_walks(scene, uniforms, static, carry, t, idx,
-                                    u, v, kind)
+        with span("mpt.depth"):
+            count("depths")
+            n_alive = host_read(carry.alive.sum())
+            if n_alive == 0:
+                break
+            rays += n_alive
+            count("lanes.trace", n_alive)
+            with span("mpt.trace"):
+                t, idx, u, v, kind = _trace(scene, carry)
+            rec = None if probe is None else _probe_depth(carry, t, idx, u,
+                                                          v, kind)
+            plane = None if rec is None else rec.plane
+            # the alpha-BLEND draw lands before s1's NEE draws
+            tex = None
+            if textured:
+                with span("mpt.texture"):
+                    tex = texture_stage(carry, t, triangle_lanes(idx, kind),
+                                        u, v, scene, uniforms, static, depth,
+                                        tex_params, kind)
+            envbg = envpdf = rectpdf = None
+            with span("mpt.light"):
+                if env is not None:
+                    # miss lanes read these; every lane computes them
+                    # (value-identical to the reference's skip when no
+                    # lane missed)
+                    envbg = env_ops.environment_background(
+                        env, carry.ray_d, uniforms, static, carry.env_lod,
+                        carry.env_lod_active)
+                    envpdf = env_ops.environment_pdf(env, carry.ray_d, rot)
+                if rects:
+                    rectpdf = integrator.rect_light_pdf_for_hit(
+                        scene, analytic_point(carry.ray_o, t, carry.ray_d),
+                        kind, idx, carry.ray_o)
+                emod = env_modulation(scene, uniforms, static, carry, t, idx,
+                                      u, v, kind) if modulated else None
+            count("lanes.shade", n_alive)
+            with span("mpt.shade"):
+                trans = shade_s1(carry, t, idx, u, v, scene.triangles,
+                                 scene.materials, envbg, envpdf, params,
+                                 depth, tex, kind=kind, scene=scene,
+                                 rectpdf=rectpdf, emod=emod, probe=plane)
+            # s2 samples from the post-s1 state: the walk's fork
+            with span("mpt.walk"):
+                rw, rw_state = random_walks(scene, uniforms, static, carry, t,
+                                            idx, u, v, kind)
+            with span("mpt.light"):
+                esmp, n_shadow = light_banks(scene, uniforms, static, trans,
+                                             t, tex)
+            shadow = shadow + n_shadow
 
-        esmp, n_shadow = light_banks(scene, uniforms, static, trans, t, tex)
-        shadow = shadow + n_shadow
+            throughput_s1 = carry.throughput.clone()
+            with span("mpt.shade"):
+                chain = shade_s2(carry, t, idx, u, v, scene.triangles,
+                                 scene.materials, trans, esmp, params, depth,
+                                 tex, kind=kind, scene=scene, rw=rw,
+                                 rw_state=rw_state, probe=plane, fork=fork)
+            chain, fork_state = chain if fork else (chain, None)
 
-        throughput_s1 = carry.throughput.clone()
-        chain = shade_s2(carry, t, idx, u, v, scene.triangles,
-                         scene.materials, trans, esmp, params, depth, tex,
-                         kind=kind, scene=scene, rw=rw, rw_state=rw_state,
-                         probe=plane, fork=fork)
-        chain, fork_state = chain if fork else (chain, None)
-
-        # ---- spec-NEE and MNEE: the lights through the delta bounce -----
-        # (``_apply_delta_chains``, shade.py:2780-2822)
-        dielectric = hit_material(scene, idx, kind, mats) \
-            == C.MATERIAL_DIELECTRIC if static.enable_mnee else None
-        add, n_scene, n_shadow = specnee.delta_chain_estimators(
-            scene, uniforms, static, params.clamp, throughput_s1,
-            carry.ray_d, carry.last_delta, chain[:, 0:3],
-            chain[:, CHAIN_IDX["dpdf"]], chain[:, CHAIN_IDX["medev"]],
-            carry.ray_o, chain[:, CHAIN_IDX["active"]] > 0.5,
-            chain[:, CHAIN_IDX["front"]] > 0.5, trans[:, 4:7],
-            carry.specular_depth, fork_state, dielectric)
-        carry.radiance.add_(add)
-        shadow = shadow + n_shadow
-        chain_rays = chain_rays + n_scene
-        if rec is not None:
-            _probe_end(probe, rec, carry)
-    return rays + int(chain_rays), shadow
+            # ---- spec-NEE and MNEE: the lights through the delta bounce -
+            # (``_apply_delta_chains``, shade.py:2780-2822)
+            with span("mpt.chain"):
+                dielectric = hit_material(scene, idx, kind, mats) \
+                    == C.MATERIAL_DIELECTRIC if static.enable_mnee else None
+                add, n_scene, n_shadow = specnee.delta_chain_estimators(
+                    scene, uniforms, static, params.clamp, throughput_s1,
+                    carry.ray_d, carry.last_delta, chain[:, 0:3],
+                    chain[:, CHAIN_IDX["dpdf"]], chain[:, CHAIN_IDX["medev"]],
+                    carry.ray_o, chain[:, CHAIN_IDX["active"]] > 0.5,
+                    chain[:, CHAIN_IDX["front"]] > 0.5, trans[:, 4:7],
+                    carry.specular_depth, fork_state, dielectric)
+                carry.radiance.add_(add)
+            shadow = shadow + n_shadow
+            chain_rays = chain_rays + n_scene
+            if rec is not None:
+                _probe_end(probe, rec, carry)
+    return rays + host_read(chain_rays), shadow

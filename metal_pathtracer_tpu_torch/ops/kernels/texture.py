@@ -44,6 +44,7 @@ from metal_pathtracer_tpu_torch.ops.traversal import (
 )
 from metal_pathtracer_tpu_torch.ops.vecmath import dot, fma, normalize
 from metal_pathtracer_tpu_torch.schema import instance_table
+from metal_pathtracer_tpu_torch.utils.spans import host_read
 
 #: texture-stage override planes, s1/s2 read them per lane
 TEX = ["tbr", "tbg", "tbb", "trough", "tmetal", "temr", "temg", "temb",
@@ -128,7 +129,8 @@ class TexParams:
         cam = uniforms.camera
         slots = sum(1 << s for s in static.texture_slots)
         return cls((float(static.width), float(static.height),
-                    *cam.horizontal.tolist(), *cam.vertical.tolist(),
+                    *host_read(cam.horizontal, torch.Tensor.tolist),
+                    *host_read(cam.vertical, torch.Tensor.tolist),
                     float(static.working_color_space), float(slots),
                     float(static.texture_uv1),
                     float(static.debug_disable_ao),

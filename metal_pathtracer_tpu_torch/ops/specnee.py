@@ -39,6 +39,7 @@ from metal_pathtracer_tpu_torch.ops.vecmath import (
     safe_normalize,
     where3,
 )
+from metal_pathtracer_tpu_torch.utils.spans import host_read
 
 PDF_FLOOR = 1.0e-4       # kSpecularNeePdfFloor (pathtrace.metal:38)
 INV_PDF_CLAMP = 1.0e4    # kSpecularNeeInvPdfClamp (pathtrace.metal:39)
@@ -227,8 +228,9 @@ def _secondary_chain(scene, uniforms, static, clamp_p, origin, nee_dir,
     # only the material types of the lanes that go on are sampled (one
     # host sync): every type's sampler runs over all lanes, and the other
     # lanes' samples are never read
-    types = [t for t in torch.unique(m2.mat_type[ok]).tolist()
-             if t in static.material_types]
+    types = [t for t in host_read(
+        m2.mat_type, lambda m: torch.unique(m[ok]).tolist())
+        if t in static.material_types]
     _, smp = bsdf_ops.sample_bsdf(
         m2, normal, -incident, incident, rec.front_face, state, clamp_p,
         torch.ones_like(rec.t), types, position=rec.point,

@@ -16,6 +16,7 @@ import torch
 
 from metal_pathtracer_tpu_torch.ops import tonemap as tonemap_ops
 from metal_pathtracer_tpu_torch.ops.denoise import denoise_state
+from metal_pathtracer_tpu_torch.utils.spans import host_read, span
 
 
 def display_image(state, settings, use_denoised: bool = None) -> torch.Tensor:
@@ -37,6 +38,7 @@ def display_image(state, settings, use_denoised: bool = None) -> torch.Tensor:
 
 def display_to_u8(state, settings) -> np.ndarray:
     """The display image as (H,W,3) uint8, rounded on the device."""
-    ldr = display_image(state, settings).to(torch.float32)
-    u8 = torch.clamp(torch.floor(ldr * 255.0 + 0.5), 0, 255).to(torch.uint8)
-    return u8.cpu().numpy()
+    with span("mpt.display"):
+        ldr = display_image(state, settings).to(torch.float32)
+        u8 = torch.clamp(torch.floor(ldr * 255.0 + 0.5), 0, 255)
+        return host_read(u8.to(torch.uint8), torch.Tensor.cpu).numpy()

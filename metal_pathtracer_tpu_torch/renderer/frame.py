@@ -22,6 +22,7 @@ import torch
 from metal_pathtracer_tpu_torch.ops import integrator
 from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
 from metal_pathtracer_tpu_torch.schema import SceneArrays, StaticConfig, Uniforms
+from metal_pathtracer_tpu_torch.utils.spans import host_read, span
 
 DEFAULT_CHUNK = 1 << 21
 
@@ -59,14 +60,16 @@ def render_rows(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
                                 sample_count=frame_idx)
         for lo in range(0, total, chunk):
             sl = slice(lo, min(lo + chunk, total))
-            sample, albedo, normal, stats = integrator.integrate_pixels(
-                scene, u, static, xs[sl], ys[sl], prev0[sl] + i)
-            lane_rad[sl] += sample
-            lane_sq[sl] += sample * sample
-            lane_alb[sl] = albedo
-            lane_nrm[sl] = normal
-            rays += stats["rays"]
-            shadow = shadow + stats["shadow_rays"]
+            with span("mpt.sample"):
+                sample, albedo, normal, stats = integrator.integrate_pixels(
+                    scene, u, static, xs[sl], ys[sl], prev0[sl] + i)
+                with span("mpt.accumulate"):
+                    lane_rad[sl] += sample
+                    lane_sq[sl] += sample * sample
+                    lane_alb[sl] = albedo
+                    lane_nrm[sl] = normal
+                    rays += stats["rays"]
+                    shadow = shadow + stats["shadow_rays"]
     shape = (height, width, 3)
     return state.replace(
         radiance_sum=lane_rad.reshape(shape),
@@ -76,7 +79,7 @@ def render_rows(scene: SceneArrays, uniforms: Uniforms, state: RenderState,
         normal=lane_nrm.reshape(shape),
         frame_index=state.frame_index + n_samples,
         ray_count=rays,
-        shadow_ray_count=state.shadow_ray_count + int(shadow))
+        shadow_ray_count=state.shadow_ray_count + host_read(shadow))
 
 
 def render_samples(scene: SceneArrays, uniforms: Uniforms, state: RenderState,

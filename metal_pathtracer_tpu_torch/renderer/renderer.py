@@ -38,6 +38,7 @@ from metal_pathtracer_tpu_torch.settings import (
     detect_radiometric_change,
 )
 from metal_pathtracer_tpu_torch.utils import image_io
+from metal_pathtracer_tpu_torch.utils.spans import span
 
 log = logging.getLogger("mpt.renderer")
 
@@ -201,15 +202,17 @@ class Renderer:
 
     def draw_frame(self, samples: Optional[int] = None) -> RenderState:
         """Advance accumulation by ``samples`` (default samplesPerFrame)."""
-        self._ensure_scene()
-        w, h = self.render_size
-        samples = samples or max(self.settings.samplesPerFrame, 1)
-        static = settings_to_static(self.settings, w, h,
-                                    self.resources.material_types_present(),
-                                    self.resources.texture_slots_present(),
-                                    self.resources.texture_uses_uv1())
-        self._camera = build_camera(self.settings, w, h, self.device)
-        uniforms = settings_to_uniforms(self.settings, self._camera, 0, 0)
+        with span("mpt.frame_setup"):
+            self._ensure_scene()
+            w, h = self.render_size
+            samples = samples or max(self.settings.samplesPerFrame, 1)
+            static = settings_to_static(
+                self.settings, w, h, self.resources.material_types_present(),
+                self.resources.texture_slots_present(),
+                self.resources.texture_uses_uv1())
+            self._camera = build_camera(self.settings, w, h, self.device)
+            uniforms = settings_to_uniforms(self.settings, self._camera, 0,
+                                            0)
         self._state = frame_mod.render_samples(
             self._scene_arrays, uniforms, self.state, static, samples)
         return self._state
