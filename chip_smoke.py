@@ -2,8 +2,20 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``metal_pathtracer_tpu_torch/csrc``
-(one nvcc per source, in parallel) and drives the port's twelve paths:
+(one nvcc per source, in parallel), checks the primary-ray kernel
+(``camera_path``) and drives the port's twelve paths:
 
+0. the camera (``csrc/camera.cu``, a sample's seeds, jitter, unit-disk
+   draw and rays in one launch): the kernel against the plain chain
+   (``rng.make_seed``, ``camera.generate_primary_rays``) at 1280x720,
+   921,600 lanes, on the benchmark's rtow camera (lens radius 0) and on
+   the book's rtow camera (depth of field), state, origin and direction
+   bit for bit (their SHA-256 on both sides printed), the rejection
+   rounds' spread, the kernel's device time beside the plain chain's and
+   its 56 B a lane bound, its registers; then 2 spp of the book's rtow at
+   1280x720 through ``CudaBackend``, one launch and 921,600 lanes
+   (``lanes.camera``) a sample, and 160x96 2 spp against the plain path,
+   bit for bit;
 1. the lambert series (327,680-triangle displaced icosphere under the
    gradient sky, K1 closest-hit + K2 ``full``): K1 against its plain
    version bit for bit on probes, K2 under the image gate, a 1920x1080 d8
@@ -583,6 +595,7 @@ def image_gate(img, ref, counts, counts_ref, label):
 def plain_kernels():
     """The same depth loops with every kernel entry point replaced by its
     plain PyTorch version (run on the card)."""
+    from metal_pathtracer_tpu_torch.ops.kernels import camera as CK
     from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
     from metal_pathtracer_tpu_torch.ops.kernels import texture as X
@@ -627,7 +640,9 @@ def plain_kernels():
             mock.patch.object(S, "shade_s1", S.shade_s1_reference), \
             mock.patch.object(S, "shade_s2", S.shade_s2_reference), \
             mock.patch.object(S, "texture_stage",
-                              X.texture_stage_reference):
+                              X.texture_stage_reference), \
+            mock.patch.object(CK, "primary_rays",
+                              CK.primary_rays_reference):
         yield
 
 
@@ -686,6 +701,172 @@ def carry_error(a, b, n):
               for k in ("ray_o", "ray_d", "throughput", "radiance",
                         "last_pdf", "medium_stack", "cone_width"))
     return differ, err
+
+
+# ---- phase 0: the camera ---------------------------------------------------
+
+#: the primary-ray kernel's frame, and its bytes a lane: x, y and the
+#: previous count in (int64), the state (int64), origin and direction out
+CAMERA_FRAME = (1280, 720)
+CAMERA_LANE_BYTES = 3 * 8 + 8 + 2 * 12
+CAMERA_TIMED_SPP = 2
+
+
+def camera_digest(rays) -> str:
+    """SHA-256 of (state, origin, direction)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in rays:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def camera_rounds(args, state):
+    """Each lane's unit-disk rounds, found from its final state (the
+    state after the two jitter draws, two draws a round; 0: not found)."""
+    from metal_pathtracer_tpu_torch.ops import rng as rng_ops
+
+    seed, frame_index, sample_count, x, y, prev = args[:6]
+    s = rng_ops.make_seed(seed, frame_index, x, y, sample_count, prev)
+    s = rng_ops.pcg_hash(rng_ops.pcg_hash(s))
+    rounds = torch.zeros_like(state)
+    for k in range(1, 25):
+        s = rng_ops.pcg_hash(rng_ops.pcg_hash(s))
+        rounds = torch.where((rounds == 0) & (s == state), k, rounds)
+    return rounds
+
+
+def device_ops(run) -> int:
+    """Device operations (kernels, copies, fills) that ``run()`` puts on
+    the card, as the profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def camera_path(dev, card, kernels, out):
+    """The primary-ray kernel against the plain chain, timed, then on the
+    main path of one rtow render."""
+    from metal_pathtracer_tpu_torch.ops.camera import build_camera
+    from metal_pathtracer_tpu_torch.ops.kernels import build
+    from metal_pathtracer_tpu_torch.ops.kernels import camera as CK
+    from metal_pathtracer_tpu_torch.renderer import frame
+    from metal_pathtracer_tpu_torch.renderer.accumulation import RenderState
+    from metal_pathtracer_tpu_torch.renderer.headless import CudaBackend
+    from metal_pathtracer_tpu_torch.schema import (
+        settings_to_static,
+        settings_to_uniforms,
+    )
+    from metal_pathtracer_tpu_torch.settings import RenderSettings
+    from metal_pathtracer_tpu_torch.utils import benchscene as B
+    from metal_pathtracer_tpu_torch.utils import spans
+
+    W, H = CAMERA_FRAME
+    n = W * H
+    with open("portbench/configs/rtow.json") as fh:
+        bench = json.load(fh)["settings"]
+    bench_settings = RenderSettings()
+    for key, value in bench.items():
+        if key.startswith("camera"):
+            setattr(bench_settings, key,
+                    tuple(value) if isinstance(value, list) else value)
+    book_settings, book_res = B.build_rtow_scene(RTOW_SEED)
+    flat = torch.arange(n, device=dev)
+    xs, ys = flat % W, flat // W
+    bound, bound_by = bound_ms(n * CAMERA_LANE_BYTES, 0)
+    regs = kernel_resources(build.build_log())["primary_rays_kernel"]
+    times = {}
+    for label, settings, frame_index, prev in (
+            ("bench rtow, lens 0", bench_settings, 0, torch.zeros_like(xs)),
+            ("book rtow, depth of field", book_settings, 5, flat % 7)):
+        cam = build_camera(settings, W, H, dev)
+        args = (settings.fixedRngSeed, frame_index, frame_index, xs, ys,
+                prev, W, H)
+        got = CK.primary_rays(cam, *args)
+        want = CK.primary_rays_reference(cam, *args)
+        torch.cuda.synchronize()
+        dk, dp = camera_digest(got), camera_digest(want)
+        if dk != dp:
+            raise AssertionError(f"camera ({label}): the kernel's rays "
+                                 f"differ from the plain chain's")
+        rounds = camera_rounds(args, got[0])
+        if int(rounds.min()) < 1 or int(rounds.max()) < 6:
+            raise AssertionError(f"camera ({label}): rounds "
+                                 f"{int(rounds.min())}-{int(rounds.max())}")
+        counts = torch.bincount(rounds, minlength=25).tolist()
+        ms, win_ms = timed(lambda: lambda: CK.primary_rays(cam, *args), 20)
+        plain_ms = cuda_ms(lambda: lambda: CK.primary_rays_reference(
+            cam, *args), 2)
+        ops = (device_ops(lambda: CK.primary_rays(cam, *args)),
+               device_ops(lambda: CK.primary_rays_reference(cam, *args)))
+        if ops[0] != 1:
+            raise AssertionError(f"camera ({label}): {ops[0]} device "
+                                 f"operations for the kernel's call")
+        times[label] = ms, plain_ms, ops[1]
+        print(f"camera ({label}, lens radius {float(cam.lens_radius):.4f}) "
+              f"{W}x{H}, {n} lanes: kernel digest {dk[:16]}, plain digest "
+              f"{dp[:16]} (bit-equal); rounds a lane {counts[1:13]} for "
+              f"1-12, most {int(rounds.max())}; kernel_ms {ms:.4f} on the "
+              f"device, {win_ms:.4f} around the wrapper, plain {plain_ms:.2f}"
+              f" ms, bound {bound:.4f} ms by {bound_by} "
+              f"({CAMERA_LANE_BYTES} B a lane), "
+              f"{100 * bound / ms:.1f} % of it; device operations: "
+              f"kernel {ops[0]}, plain {ops[1]} [{card}]")
+
+    # ---- the main path: the book's rtow through CudaBackend ------------
+    backend = CudaBackend()
+    backend.render(book_res, book_settings, *CHECK_FRAME, 1, device=dev)
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    before = spans.counters().get("lanes.camera", 0)
+    res = backend.render(book_res, book_settings, W, H, CAMERA_TIMED_SPP,
+                         device=dev)
+    launches = CK.primary_rays.launches
+    lanes = spans.counters().get("lanes.camera", 0) - before
+    if launches != CAMERA_TIMED_SPP or lanes != CAMERA_TIMED_SPP * n:
+        raise AssertionError(f"camera: {launches} launches and {lanes} "
+                             f"lanes in {CAMERA_TIMED_SPP} samples of {n}")
+    print(f"camera main path: book rtow {W}x{H} d{book_settings.maxDepth} "
+          f"{CAMERA_TIMED_SPP} spp through CudaBackend in "
+          f"{res.total_seconds:.3f}s ({res.avg_ms_per_sample:.2f} ms/spp): "
+          f"{launches} primary_rays launches, {lanes} lanes.camera [{card}]")
+
+    # ---- 160x96 2 spp: kernel path against the plain path --------------
+    w, h = CHECK_FRAME
+    static = settings_to_static(book_settings, w, h,
+                                book_res.material_types_present())
+    uni = settings_to_uniforms(book_settings,
+                               build_camera(book_settings, w, h, dev), 0, 0)
+    scene = book_res.build_arrays(device=dev)
+    st_k = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                static, PRIM_CHECK_SPP)
+    with mock.patch.object(CK, "primary_rays", CK.primary_rays_reference):
+        st_p = frame.render_samples(scene, uni, RenderState.create(w, h, dev),
+                                    static, PRIM_CHECK_SPP)
+    for name in ("radiance_sum", "radiance_sq_sum", "albedo", "normal"):
+        if not torch.equal(getattr(st_k, name).view(torch.int32),
+                           getattr(st_p, name).view(torch.int32)):
+            raise AssertionError(f"camera: book rtow {w}x{h} {name} "
+                                 f"differs from the plain camera's")
+    print(f"camera: book rtow {w}x{h} {PRIM_CHECK_SPP} spp with the kernel "
+          f"and with the plain chain: bit-equal [{card}]")
+    out["primary_rays"] = dict(
+        source=ROOT + "camera.cu",
+        # XLA in the JAX package (ops/camera.py, ops/rng.py), not a TPU
+        # kernel
+        replaces="metal_pathtracer_tpu/ops/camera.py:79",
+        launches=launches, max_abs_err=0.0,
+        ms=times["bench rtow, lens 0"][0],
+        plain_ms=times["bench rtow, lens 0"][1], bound_ms=bound,
+        bound_by=bound_by, registers=regs[0],
+        plain_launches=times["bench rtow, lens 0"][2])
 
 
 def lambert_path(dev, card, kernels, out):
@@ -5875,6 +6056,7 @@ def main() -> None:
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     from metal_pathtracer_tpu_torch.ops.kernels import build
     from metal_pathtracer_tpu_torch.ops.kernels import denoise as DK
+    from metal_pathtracer_tpu_torch.ops.kernels import camera as CK
     from metal_pathtracer_tpu_torch.ops.kernels import primitives as P
     from metal_pathtracer_tpu_torch.ops.kernels import shade as S
     from metal_pathtracer_tpu_torch.ops.kernels import texture as X
@@ -5911,8 +6093,12 @@ def main() -> None:
                "shade_full_buckets": S.shade_full_buckets,
                "full_buckets": S.full_buckets,
                "trace_instanced_closest": T.trace_instanced_closest,
-               "trace_instanced_any": T.trace_instanced_any}
+               "trace_instanced_any": T.trace_instanced_any,
+               "primary_rays": CK.primary_rays}
     out = {}
+    t0 = time.time()
+    camera_path(dev, card, kernels, out)
+    print(f"# camera phase took {time.time() - t0:.1f}s")
     t0 = time.time()
     k1_probe_err = lambert_path(dev, card, kernels, out)
     print(f"# lambert path phases took {time.time() - t0:.1f}s")

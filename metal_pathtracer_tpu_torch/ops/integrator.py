@@ -27,9 +27,8 @@ import dataclasses
 import torch
 
 from metal_pathtracer_tpu_torch import constants as C
-from metal_pathtracer_tpu_torch.ops import camera as camera_ops
 from metal_pathtracer_tpu_torch.ops import env as env_ops
-from metal_pathtracer_tpu_torch.ops import rng as rng_ops
+from metal_pathtracer_tpu_torch.ops.kernels import camera as camera_kernel
 from metal_pathtracer_tpu_torch.ops.vecmath import (
     cross,
     dot,
@@ -243,11 +242,10 @@ def integrate_pixels(scene: SceneArrays, uniforms: Uniforms,
     """One sample for a batch of pixels (the kernel entry, reference:
     pathtrace.metal:9698-9815). Returns (sample, albedo, normal, stats)."""
     with span("mpt.camera"):
-        seed = rng_ops.make_seed(uniforms.fixed_rng_seed,
-                                 uniforms.frame_index, x, y,
-                                 uniforms.sample_count, prev_count)
-        state, origin, direction = camera_ops.generate_primary_rays(
-            uniforms.camera, x, y, static.width, static.height, seed)
+        state, origin, direction = camera_kernel.primary_rays(
+            uniforms.camera, uniforms.fixed_rng_seed, uniforms.frame_index,
+            uniforms.sample_count, x, y, prev_count, static.width,
+            static.height)
     _, radiance, aov_albedo, aov_normal, stats = trace_paths(
         scene, uniforms, static, state, origin, direction)
     finite = torch.isfinite(radiance).all(-1, keepdim=True)

@@ -43,6 +43,7 @@ _lib = None
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
+_u = ctypes.c_uint32
 
 #: C entry points: name -> argtypes (every pointer and the stream is a
 #: c_void_p; each entry returns the cudaError_t of its launch)
@@ -139,6 +140,11 @@ SIGNATURES = {
                                _vp],
     # third: the rows' count, the rows, out (129), stream
     "mpt_atrous_grad_sum": [_i, _vp, _vp, _vp],
+    # primary rays: n, x, y, previous counts (int64), the fixed seed,
+    # frame index and sample count (uint32), width, height, the camera's
+    # pointers (host void*[7]), out state, origin, direction, stream
+    "mpt_primary_rays": [_i, _vp, _vp, _vp, _u, _u, _u, _f, _f, _vp, _vp,
+                         _vp, _vp, _vp],
 }
 
 

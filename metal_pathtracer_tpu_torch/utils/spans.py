@@ -34,8 +34,11 @@ Every span's name starts with ``mpt.``:
 Counters: ``host_syncs`` (each ``host_read``), ``depths`` (each depth
 entered, the last one of a loop that ran out of live lanes included),
 ``lanes.trace`` (live lanes at each closest-hit trace), ``lanes.shade``
-(live lanes handed to each ``full`` or ``s1`` stage). None costs a
-sync: each counts what the depth loop already read.
+(live lanes handed to each ``full`` or ``s1`` stage), ``lanes.camera``
+(lanes handed to each launch of the primary-ray kernel,
+``ops/kernels/camera.py``; 0 on the CPU's plain route). None costs a
+sync: each counts what the depth loop already read, or a wavefront's
+length.
 """
 
 from __future__ import annotations

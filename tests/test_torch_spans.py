@@ -199,7 +199,8 @@ def test_host_syncs_on_the_rect_light_path(tmp_path):
 def test_lane_counters_equal_the_wrappers_counts():
     """``lanes.trace`` and ``lanes.shade`` against what
     ``portbench.trace.instrument`` counts on the same render (a sphere
-    trace a depth, one ``full`` stage a depth)."""
+    trace a depth, one ``full`` stage a depth); ``lanes.camera`` stays 0,
+    since the CPU takes the camera's plain route."""
     job = _rtow(depth=8)
     counter = trace.Counter()
     before = spans.counters()
@@ -211,3 +212,4 @@ def test_lane_counters_equal_the_wrappers_counts():
     assert _delta(before, "lanes.trace") == sum(c["live"] for c in traced)
     assert _delta(before, "lanes.shade") == sum(c["live"] for c in shaded)
     assert _delta(before, "lanes.trace") == job.rays()[0]
+    assert _delta(before, "lanes.camera") == 0
